@@ -1,0 +1,21 @@
+"""mipnerf_pl_tpu_torch — the PyTorch + CUDA (Hopper) port of mipnerf_pl_tpu.
+
+The JAX package `mipnerf_pl_tpu` stays the reference; this package mirrors
+its module names so every function has an obvious counterpart:
+
+  rays.py           ray container + chunking      (= mipnerf_pl_tpu/rays.py)
+  config.py         flat dotted-key schema        (= mipnerf_pl_tpu/config.py)
+  ops/              camera, cone math, sampling, compositing (plain torch)
+  kernels/mlp.py    the fused lean-render level kernels: hand-written CUDA
+                    for sm_90a (csrc/lean_render.cu) + their plain twins
+  models/           MLP and the bounded MipNerf forward
+  convert.py        flax param tree <-> this package's state dict
+  system.py         MipNeRFSystem, render half (render_camera/render_image)
+
+It imports torch and numpy only: never jax, flax, optax, orbax or the JAX
+package.
+"""
+
+__version__ = "0.1.0"
+
+from mipnerf_pl_tpu_torch.rays import Rays, namedtuple_map  # noqa: F401

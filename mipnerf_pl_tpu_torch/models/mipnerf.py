@@ -1,0 +1,234 @@
+"""MipNerf: coarse-to-fine cone-cast rendering with one shared MLP.
+
+Counterpart of mipnerf_pl_tpu/models/mipnerf.py, bounded scenes, forward
+(render) path.  Level 0 samples stratified, level >= 1 resamples from the
+previous level's weights; each level encodes its cone Gaussians with the
+IPE, runs the MLP and composites.
+
+With a lean backend and `fuse_render` (what MipNeRFSystem's eval model
+selects for val.mlp_backend='auto'), each level runs the fused lean-render
+kernels: the IPE is decoded from the [6, B, N] moments inside the kernel,
+the heads are activated and composited there, and only the nan-safe
+distance clamp stays outside.  The kernels always decode the moments, so in
+the port render fusion implies `fuse_encode`.
+
+Knobs that steer TPU-only machinery (`channel_major`, `lean_input_cast`,
+`fast_encode_math`, `pallas_encode`, `mxu_cumsum`) are accepted and have no
+effect.  The unbounded-360 mode, `ipe_backend='pallas'` and the training
+kernels are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from mipnerf_pl_tpu_torch.models.mlp import LEAN_BACKENDS, MLP
+from mipnerf_pl_tpu_torch.ops.math import (cast_rays_cmajor,
+                                           integrated_pos_enc, pos_enc)
+from mipnerf_pl_tpu_torch.ops.render import (clamp_distance, delta_mids,
+                                             volumetric_rendering)
+from mipnerf_pl_tpu_torch.ops.sampling import (resample_along_rays,
+                                               sample_along_rays)
+from mipnerf_pl_tpu_torch.rays import Rays
+
+
+class LevelOutput(NamedTuple):
+    """Per-level render result."""
+
+    rgb: torch.Tensor        # [B, 3] composited colour
+    distance: torch.Tensor   # [B] expected termination distance
+    acc: torch.Tensor        # [B] accumulated opacity
+    weights: torch.Tensor    # [B, N] per-sample compositing weights
+    t_samples: torch.Tensor  # [B, N+1] fencepost distances
+
+
+class MipNerf(nn.Module):
+    """Mip-NeRF with a shared MLP across sampling levels."""
+
+    def __init__(self, num_samples: int = 128, num_levels: int = 2,
+                 resample_padding: float = 0.01,
+                 stop_resample_grad: bool = True, use_viewdirs: bool = True,
+                 disparity: bool = False, ray_shape: str = 'cone',
+                 min_deg_point: int = 0, max_deg_point: int = 16,
+                 deg_view: int = 4, density_activation: str = 'softplus',
+                 density_noise: float = 0.0, density_bias: float = -1.0,
+                 rgb_activation: str = 'sigmoid', rgb_padding: float = 0.001,
+                 disable_integration: bool = False,
+                 append_identity: bool = True, mlp_net_depth: int = 8,
+                 mlp_net_width: int = 256, mlp_net_depth_condition: int = 1,
+                 mlp_net_width_condition: int = 128, mlp_skip_index: int = 4,
+                 mlp_num_rgb_channels: int = 3,
+                 mlp_num_density_channels: int = 1,
+                 mlp_net_activation: str = 'relu',
+                 compute_dtype: torch.dtype = torch.float32,
+                 unbounded: bool = False, ipe_backend: str = 'xla',
+                 mlp_backend: str = 'xla', fuse_render: bool = False,
+                 fuse_encode: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 **tpu_only_knobs):
+        super().__init__()
+        unknown = set(tpu_only_knobs) - {
+            'channel_major', 'lean_input_cast', 'fast_encode_math',
+            'pallas_encode', 'mxu_cumsum'}
+        if unknown:
+            raise TypeError(f'unknown MipNerf options: {sorted(unknown)}')
+        if unbounded:
+            raise NotImplementedError('unbounded-360 mode is not ported yet')
+        if ipe_backend != 'xla':
+            raise NotImplementedError(f'ipe_backend={ipe_backend!r} is not '
+                                      'ported yet')
+        if rgb_activation != 'sigmoid':
+            raise NotImplementedError(rgb_activation)
+        if density_activation not in ('softplus', 'relu'):
+            raise NotImplementedError(density_activation)
+        self.num_samples = num_samples
+        self.num_levels = num_levels
+        self.resample_padding = resample_padding
+        self.stop_resample_grad = stop_resample_grad
+        self.use_viewdirs = use_viewdirs
+        self.disparity = disparity
+        self.ray_shape = ray_shape
+        self.min_deg_point = min_deg_point
+        self.max_deg_point = max_deg_point
+        self.deg_view = deg_view
+        self.density_activation = density_activation
+        self.density_noise = density_noise
+        self.density_bias = density_bias
+        self.rgb_padding = rgb_padding
+        self.disable_integration = disable_integration
+        self.append_identity = append_identity
+        self.mlp_backend = mlp_backend
+        # The lean render kernels apply the default head activations
+        # themselves; density noise sits between raw head and activation,
+        # so fusion needs it off (the same gate as the JAX model).
+        fused_act = (mlp_backend in LEAN_BACKENDS and use_viewdirs
+                     and density_activation == 'softplus'
+                     and density_noise == 0.0)
+        self._fused_render = (fuse_render and fused_act
+                              and mlp_num_rgb_channels == 3
+                              and mlp_num_density_channels == 1
+                              and mlp_net_depth_condition >= 1)
+        xyz_dim = 2 * (max_deg_point - min_deg_point) * 3
+        view_dim = (2 * deg_view + int(append_identity)) * 3 \
+            if use_viewdirs else 0
+        self.mlp = MLP(
+            xyz_dim, view_dim, net_depth=mlp_net_depth,
+            net_width=mlp_net_width,
+            net_depth_condition=mlp_net_depth_condition,
+            net_width_condition=mlp_net_width_condition,
+            skip_index=mlp_skip_index, num_rgb_channels=mlp_num_rgb_channels,
+            num_density_channels=mlp_num_density_channels,
+            net_activation=mlp_net_activation, compute_dtype=compute_dtype,
+            backend=mlp_backend,
+            fused_activation=((float(rgb_padding), float(density_bias))
+                              if fused_act else None),
+            generator=generator)
+
+    def _density_act(self, x):
+        if self.density_activation == 'softplus':
+            return nn.functional.softplus(x)
+        return torch.relu(x)
+
+    def forward(self, rays: Rays, randomized: bool, white_bkgd: bool,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[LevelOutput, ...]:
+        """Render a batch of rays [B, ...] at every level (coarse first).
+        `generator` drives the stratified jitter, the resample jitter and
+        the density noise when `randomized`."""
+        ret = []
+        t_samples, weights = None, None
+        for i_level in range(self.num_levels):
+            if i_level == 0:
+                t_samples, means_covs = sample_along_rays(
+                    rays.origins, rays.directions, rays.radii,
+                    self.num_samples, rays.near, rays.far, randomized,
+                    self.disparity, self.ray_shape, generator=generator)
+            else:
+                t_samples, means_covs = resample_along_rays(
+                    rays.origins, rays.directions, rays.radii, t_samples,
+                    weights, randomized, self.ray_shape,
+                    self.stop_resample_grad, self.resample_padding,
+                    generator=generator)
+            viewdirs_enc = (pos_enc(rays.viewdirs, 0, self.deg_view,
+                                    self.append_identity)
+                            if self.use_viewdirs else None)
+
+            if self._fused_render:
+                moments = cast_rays_cmajor(t_samples, rays.origins,
+                                           rays.directions, rays.radii,
+                                           self.ray_shape)
+                if self.disable_integration:
+                    moments = torch.cat(
+                        [moments[:3], torch.zeros_like(moments[3:])], dim=0)
+                delta, mids = delta_mids(t_samples, rays.directions)
+                comp_rgb, dist_raw, acc, weights = self.mlp(
+                    moments, viewdirs_enc, (delta, mids, white_bkgd),
+                    (self.min_deg_point, self.max_deg_point))
+                ret.append(LevelOutput(comp_rgb,
+                                       clamp_distance(dist_raw, t_samples),
+                                       acc, weights, t_samples))
+                continue
+
+            means, covs = means_covs
+            if self.disable_integration:
+                covs = torch.zeros_like(covs)
+            samples_enc = integrated_pos_enc((means, covs),
+                                             self.min_deg_point,
+                                             self.max_deg_point)
+            raw_rgb, raw_density = self.mlp(samples_enc, viewdirs_enc)
+            if randomized and self.density_noise > 0:
+                raw_density = raw_density + self.density_noise * torch.randn(
+                    raw_density.shape, dtype=raw_density.dtype,
+                    device=raw_density.device, generator=generator)
+            rgb = torch.sigmoid(raw_rgb)
+            rgb = rgb * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
+            density = self._density_act(raw_density + self.density_bias)
+            comp_rgb, distance, acc, weights = volumetric_rendering(
+                rgb, density, t_samples, rays.directions, white_bkgd)
+            ret.append(LevelOutput(comp_rgb, distance, acc, weights,
+                                   t_samples))
+        return tuple(ret)
+
+
+def make_mipnerf_from_hparams(hparams: dict,
+                              compute_dtype: torch.dtype = torch.float32,
+                              generator: Optional[torch.Generator] = None
+                              ) -> MipNerf:
+    """Build a MipNerf from the flat dotted-key hparams dict."""
+    return MipNerf(
+        num_samples=hparams['nerf.num_samples'],
+        num_levels=hparams['nerf.num_levels'],
+        resample_padding=hparams['nerf.resample_padding'],
+        stop_resample_grad=hparams['nerf.stop_resample_grad'],
+        use_viewdirs=hparams['nerf.use_viewdirs'],
+        disparity=hparams['nerf.disparity'],
+        ray_shape=hparams['nerf.ray_shape'],
+        min_deg_point=hparams['nerf.min_deg_point'],
+        max_deg_point=hparams['nerf.max_deg_point'],
+        deg_view=hparams['nerf.deg_view'],
+        density_activation=hparams['nerf.density_activation'],
+        density_noise=hparams['nerf.density_noise'],
+        density_bias=hparams['nerf.density_bias'],
+        rgb_activation=hparams['nerf.rgb_activation'],
+        rgb_padding=hparams['nerf.rgb_padding'],
+        disable_integration=hparams['nerf.disable_integration'],
+        append_identity=bool(hparams['nerf.append_identity']),
+        mlp_net_depth=hparams['nerf.mlp.net_depth'],
+        mlp_net_width=hparams['nerf.mlp.net_width'],
+        mlp_net_depth_condition=hparams['nerf.mlp.net_depth_condition'],
+        mlp_net_width_condition=hparams['nerf.mlp.net_width_condition'],
+        mlp_skip_index=hparams['nerf.mlp.skip_index'],
+        mlp_num_rgb_channels=hparams['nerf.mlp.num_rgb_channels'],
+        mlp_num_density_channels=hparams['nerf.mlp.num_density_channels'],
+        mlp_net_activation=hparams['nerf.mlp.net_activation'],
+        compute_dtype=compute_dtype,
+        unbounded=bool(hparams.get('nerf.unbounded', False)),
+        ipe_backend=str(hparams.get('nerf.ipe_backend', 'xla')),
+        mlp_backend=str(hparams.get('nerf.mlp_backend', 'xla')),
+        fuse_render=bool(hparams.get('nerf.fuse_render', False)),
+        fuse_encode=bool(hparams.get('nerf.fuse_encode', False)),
+        generator=generator,
+    )

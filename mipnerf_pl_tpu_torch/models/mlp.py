@@ -1,0 +1,171 @@
+"""The Mip-NeRF MLP as a torch module.
+
+Counterpart of mipnerf_pl_tpu/models/mlp.py.  The same layers under the
+same names (`trunk_i`, `density`, `bottleneck`, `view_j`, `rgb`), each an
+`nn.Linear` (weight [out, in], the transpose of the flax kernel [in, out];
+convert.py maps between them), Xavier-uniform weights and zero biases.
+
+Backends:
+  'xla'   the plain forward (torch ops; named after the JAX backend it
+          mirrors, so the same configs select it)
+  'pallas_lean' | 'pallas_lean_save'
+          the render path only: the fused lean-render level kernels
+          (kernels/mlp.py) through `render=`.  Their training forms are not
+          ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from mipnerf_pl_tpu_torch.kernels.mlp import (flatten_params,
+                                              fused_mlp_lean_render)
+
+LEAN_BACKENDS = ('pallas_lean', 'pallas_lean_save')
+
+
+class MLP(nn.Module):
+    """Coordinate MLP: encoded cone Gaussians -> (raw_rgb, raw_density)."""
+
+    def __init__(self, xyz_dim: int, view_dim: int, net_depth: int = 8,
+                 net_width: int = 256, net_depth_condition: int = 1,
+                 net_width_condition: int = 128, skip_index: int = 4,
+                 num_rgb_channels: int = 3, num_density_channels: int = 1,
+                 net_activation: str = 'relu',
+                 compute_dtype: torch.dtype = torch.float32,
+                 backend: str = 'xla',
+                 fused_activation: Optional[tuple] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if net_activation != 'relu':
+            raise NotImplementedError(net_activation)
+        self.net_depth = net_depth
+        self.net_depth_condition = net_depth_condition
+        self.skip_index = skip_index
+        self.num_rgb_channels = num_rgb_channels
+        self.num_density_channels = num_density_channels
+        self.compute_dtype = compute_dtype
+        self.backend = backend
+        # (rgb_padding, density_bias) of the head activations the lean
+        # render kernel applies in place; None = raw heads.
+        self.fused_activation = fused_activation
+
+        dim_in = xyz_dim
+        for i in range(net_depth):
+            self.add_module(f'trunk_{i}', nn.Linear(dim_in, net_width))
+            dim_in = net_width
+            if i % skip_index == 0 and i > 0:
+                dim_in = net_width + xyz_dim
+        self.density = nn.Linear(dim_in, num_density_channels)
+        if view_dim > 0:
+            self.bottleneck = nn.Linear(dim_in, net_width)
+            dim_v = net_width + view_dim
+            for j in range(net_depth_condition):
+                self.add_module(f'view_{j}',
+                                nn.Linear(dim_v, net_width_condition))
+                dim_v = net_width_condition
+            self.rgb = nn.Linear(dim_v, num_rgb_channels)
+        else:
+            self.rgb = nn.Linear(dim_in, num_rgb_channels)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Xavier-uniform weights, zero biases (the flax Dense init)."""
+        for lin in self.children():
+            nn.init.xavier_uniform_(lin.weight, generator=generator)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, x, view_direction=None, render=None, encode=None):
+        """x [B, N, F] encoded samples (or, with `render`, the [6, B, N]
+        moments), view_direction [B, Fv] per ray.
+
+        Returns (raw_rgb [B, N, 3], raw_density [B, N, nd]) f32, or with
+        `render` = (delta [B, N], mids [B, N], white_bkgd) and `encode` =
+        (min_deg, max_deg) the per-ray (comp_rgb [B, 3], dist_raw [B],
+        acc [B], weights [B, N]) of the lean render kernels."""
+        if render is not None:
+            return self._lean_render(x, view_direction, *render, encode)
+        if self.backend != 'xla':
+            raise NotImplementedError(
+                f'mlp backend {self.backend!r} is ported for the render '
+                'path only (render=...); use backend "xla"')
+        return self._plain(x, view_direction)
+
+    def _plain(self, x, view_direction):
+        """The JAX 'xla' forward: a concatenated input is split into
+        row-slices of the kernel; activations in the compute dtype."""
+        cd = self.compute_dtype
+        num_samples = x.shape[-2]
+        lead = x.shape[:-1]
+
+        def dense(lin, *xs):
+            k = lin.weight.t().to(cd)
+            out, off = lin.bias.to(cd), 0
+            for t in xs:
+                out = out + t @ k[off:off + t.shape[-1]]
+                off += t.shape[-1]
+            return out
+
+        x = x.reshape(-1, x.shape[-1]).to(cd)
+        inputs = x
+        skip = None
+        for i in range(self.net_depth):
+            parts = (x,) if skip is None else (x, skip)
+            x = torch.relu(dense(getattr(self, f'trunk_{i}'), *parts))
+            skip = inputs if (i % self.skip_index == 0 and i > 0) else None
+        trunk = (x,) if skip is None else (x, skip)
+        raw_density = dense(self.density, *trunk)
+        if view_direction is not None:
+            bottleneck = dense(self.bottleneck, *trunk)
+            view = view_direction.to(cd)
+
+            def split_dense(lin, per_sample):
+                """concat(per_sample, view) @ kernel + bias with the view
+                half projected once per ray and broadcast over samples."""
+                k = lin.weight.t().to(cd)
+                w_in = per_sample.shape[-1]
+                per_ray = view @ k[w_in:] + lin.bias.to(cd)
+                out = (per_sample @ k[:w_in]).reshape(
+                    -1, num_samples, k.shape[1]) + per_ray[:, None, :]
+                return out.reshape(-1, k.shape[1])
+
+            for j in range(self.net_depth_condition):
+                lin = getattr(self, f'view_{j}')
+                x = torch.relu(split_dense(lin, bottleneck) if j == 0
+                               else dense(lin, x))
+            if self.net_depth_condition == 0:
+                raw_rgb = split_dense(self.rgb, bottleneck)
+            else:
+                raw_rgb = dense(self.rgb, x)
+        else:
+            raw_rgb = dense(self.rgb, *trunk)
+        return (raw_rgb.reshape(*lead, self.num_rgb_channels).float(),
+                raw_density.reshape(*lead, self.num_density_channels).float())
+
+    def _lean_render(self, moments, view_direction, delta, mids, white_bkgd,
+                     encode):
+        if self.backend not in LEAN_BACKENDS:
+            raise ValueError('render fusion requires a lean backend, got '
+                             f'{self.backend!r}')
+        if self.num_rgb_channels != 3 or self.num_density_channels != 1:
+            raise ValueError('render fusion requires 3 rgb channels and 1 '
+                             'density channel')
+        if self.fused_activation is None or view_direction is None:
+            raise ValueError('render fusion requires fused_activation and '
+                             'view directions')
+        num_samples = moments.shape[-1]
+        lead = moments.shape[1:-1]
+        flat = flatten_params(self, self.net_depth, self.net_depth_condition)
+        comp, dist, acc, w = fused_mlp_lean_render(
+            moments.reshape(moments.shape[0], -1),
+            view_direction.reshape(-1, view_direction.shape[-1]),
+            delta.reshape(-1, num_samples), mids.reshape(-1, num_samples),
+            flat, num_samples, self.net_depth, self.net_depth_condition,
+            self.skip_index, self.compute_dtype, self.fused_activation,
+            bool(white_bkgd), encode)
+        return (comp.reshape(*lead, 3), dist.reshape(*lead),
+                acc.reshape(*lead), w.reshape(*lead, num_samples))

@@ -1,0 +1,146 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked `cuda` and skips where there is no CUDA device.
+This file imports neither jax nor the JAX package (the GPU machine has
+neither), so on the card it runs without tests/conftest.py:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Inputs are numpy-seeded; the plain reference runs on the card in f32 with
+TF32 off.  f32 kernels: max |d| <= 1e-4 (f32 sums in another order over
+K <= 352).  bf16 kernels: max |d| / max |ref| <= 3e-2 against the f32
+plain version (bench.py's bar for bf16).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mipnerf_pl_tpu_torch.kernels import mlp as tk
+
+SMALL = dict(net_depth=3, net_width=16, net_depth_condition=1,
+             net_width_condition=16, skip_index=2, N=8, deg=(0, 4), Fv=27)
+
+
+def problem(R, N, net_depth, net_width, net_depth_condition,
+             net_width_condition, skip_index, deg, Fv, seed=0):
+    """Numpy-seeded inputs and Xavier-uniform params in flax [in, out]
+    layout, listed in param_order."""
+    rng = np.random.default_rng(seed)
+    F = 6 * (deg[1] - deg[0])
+    M = R * N
+    means = rng.normal(size=(3, M)) * 0.7
+    covs = rng.uniform(0.0, 2e-3, size=(3, M))
+    moments = np.concatenate([means, covs]).astype(np.float32)
+    view = rng.normal(size=(R, Fv)).astype(np.float32)
+    delta = rng.uniform(0.0, 0.1, size=(R, N)).astype(np.float32)
+    mids = np.cumsum(rng.uniform(0.01, 0.05, size=(R, N)), -1) + 2.0
+    mids = mids.astype(np.float32)
+    dims = []
+    d_in = F
+    for i in range(net_depth):
+        dims.append((d_in, net_width))
+        d_in = net_width + (F if i % skip_index == 0 and i > 0 else 0)
+    dims += [(d_in, 1), (d_in, net_width)]
+    d_v = net_width + Fv
+    for _ in range(net_depth_condition):
+        dims.append((d_v, net_width_condition))
+        d_v = net_width_condition
+    dims.append((d_v, 3))
+    flat = []
+    for fi, fo in dims:
+        lim = np.sqrt(6.0 / (fi + fo))
+        flat.append(rng.uniform(-lim, lim, size=(fi, fo)).astype(np.float32))
+        flat.append(rng.normal(0.0, 0.1, size=(1, fo)).astype(np.float32))
+    return moments, view, delta, mids, flat
+
+
+def run_port(prob, cfg, dtype=torch.float32, white=True, device='cpu'):
+    """fused_mlp_lean_render of the port on `problem`'s arrays."""
+    moments, view, delta, mids, flat = (
+        [torch.tensor(p, device=device) for p in a] if isinstance(a, list)
+        else torch.tensor(a, device=device) for a in prob)
+    out = tk.fused_mlp_lean_render(
+        moments, view, delta, mids, flat, cfg['N'], cfg['net_depth'],
+        cfg['net_depth_condition'], cfg['skip_index'], dtype, (0.001, -1.0),
+        white, cfg['deg'])
+    return [o.float().cpu().numpy() for o in out]
+
+
+# ---------------------------------------------------------------------------
+# On the card: CUDA kernels against their plain versions.
+# ---------------------------------------------------------------------------
+
+LEGO = dict(net_depth=8, net_width=256, net_depth_condition=1,
+            net_width_condition=128, skip_index=4, N=128, deg=(0, 16), Fv=27)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernels build with nvcc for '
+                    'sm_90a)')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device('cuda')
+
+
+def _plain_on(prob, cfg, device, dtype=torch.float32, white=True):
+    """The plain twin on the card, through the wrapper's CPU-only branch."""
+    moments, view, delta, mids, flat = (
+        [torch.tensor(p, device=device) for p in a] if isinstance(a, list)
+        else torch.tensor(a, device=device) for a in prob)
+    iv = 2 * (cfg['net_depth'] + 2)
+    vp = tk.view_proj_plain(view, flat[iv], flat[iv + 1], cfg['net_width'],
+                            dtype)
+    rs = tk.lean_mlp_plain(moments, vp, flat, cfg['N'], cfg['net_depth'],
+                           cfg['net_depth_condition'], cfg['skip_index'],
+                           dtype, (0.001, -1.0), cfg['deg'])
+    perray, w = tk.lean_composite_plain(rs, delta, mids, white)
+    return [o.cpu().numpy() for o in (perray[:, 0:3], perray[:, 4:5],
+                                      perray[:, 3:4], w)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', ['small', 'lego'])
+def test_cuda_kernels_match_plain(cuda_device, shape, dtype):
+    cfg = dict(SMALL, net_width=64, net_width_condition=32) \
+        if shape == 'small' else LEGO
+    # small: 37 rays x 8 = 296 points, ragged against the 64-point tile;
+    # lego: N = 128 fills whole tiles, R = 300 rays.
+    R = 37 if shape == 'small' else 300
+    prob = problem(R, **cfg)
+    dt = getattr(torch, dtype)
+    tk.reset_launches()
+    got = run_port(prob, cfg, dt, device=cuda_device)
+    torch.cuda.synchronize()
+    assert tk.launches == {'lean_view_proj': 1, 'lean_mlp': 1,
+                           'lean_composite': 1}
+    want = _plain_on(prob, cfg, cuda_device)      # f32 plain reference
+    for name, a, b in zip(('comp', 'dist', 'acc', 'weights'), got, want):
+        assert np.all(np.isfinite(a)), name
+        if dtype == 'float32':
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4,
+                                       err_msg=name)
+        else:
+            # bench.py's bar for bf16 against the f32 reference.
+            scale = max(np.abs(b).max(), 1e-6)
+            assert np.abs(a - b).max() / scale <= 3e-2, name
+
+
+@pytest.mark.cuda
+def test_cuda_composite_matches_plain(cuda_device):
+    rng = np.random.default_rng(3)
+    R, N = 50, 128
+    rs = torch.tensor(rng.uniform(0, 3, size=(R * N, 4)).astype(np.float32),
+                      device=cuda_device)
+    delta = torch.tensor(rng.uniform(0, 0.05, size=(R, N)).astype(np.float32),
+                         device=cuda_device)
+    mids = torch.tensor(rng.uniform(2, 6, size=(R, N)).astype(np.float32),
+                        device=cuda_device)
+    for white in (True, False):
+        got = tk.lean_composite(rs, delta, mids, white)
+        want = tk.lean_composite_plain(rs, delta, mids, white)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
