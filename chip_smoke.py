@@ -1,29 +1,48 @@
-"""Smoke run of the PyTorch port's render path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's render and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (each prints its own line; any failure raises and exits non-zero):
   1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
   2. build the CUDA kernels from mipnerf_pl_tpu_torch/csrc with nvcc
-     (sm_90a) and time the build;
-  3. each kernel's wrapper against its plain PyTorch version at the lego
-     shape (8x256 MLP, N = 128, one 8192-ray chunk) on numpy-seeded inputs:
-     f32 max |d| <= 1e-4, bf16 max |d| / max |ref| <= 3e-2 against the f32
-     plain version; CUDA-event times of both;
-  4. the slice through its entry point: MipNeRFSystem (default lego schema,
-     val.mlp_backend auto) -> render_camera of a 200x200 Blender view with
-     seeded params (through convert.jax_params_to_torch); every kernel must
-     launch 2 levels x 5 chunks times, the image must be finite, and the
-     same frame through the plain path on the card must agree
-     (max |d rgb|, max |d acc| <= 1e-3 in f32);
-  5. the kernels' JSON line, the card's name and power limit, and last the
+     (sm_90a), one nvcc per source, all started together, and time it;
+  3. each render kernel's wrapper against its plain PyTorch version at the
+     lego shape (8x256 MLP, N = 128, one 8192-ray chunk) on numpy-seeded
+     inputs: f32 max |d| <= 1e-4, bf16 max |d| / max |ref| <= 3e-2 against
+     the f32 plain version; CUDA-event times of both;
+  4. the render slice through its entry point: MipNeRFSystem (default lego
+     schema, val.mlp_backend auto) -> render_camera of a 200x200 Blender
+     view with seeded params (through convert.jax_params_to_torch); every
+     render kernel must launch 2 levels x 5 chunks times, the image must be
+     finite, and the same frame through the plain path on the card must
+     agree (max |d rgb|, max |d acc| <= 1e-3 in f32);
+  5. the training kernels (lean_save_fwd, lean_param_grads) against their
+     plain versions at the lego level shape (3072 rays x 128 samples, x rows
+     the IPE of seeded rays, seeded head cotangents), f32 and bf16: outputs,
+     saved activations and raw heads at the phase-3 bars against the f32
+     plain version; parameter gradients, both backwards fed the plain
+     forward's saved stream in the compute dtype (the same inputs), at
+     bench.py's metric (largest leaf ||a - b|| / ||b||) against the f32
+     plain backward: <= 1e-4 in f32, <= 3e-2 in bf16; CUDA-event times;
+  6. the training slice through its entry points: MipNeRFSystem (lego
+     schema, nerf.mlp_backend pallas_lean_save, 3072 synthetic rays as
+     bench.py makes them), bf16 then f32: a one-step gradient-parity gate
+     against the same system on the plain 'xla' backend (largest leaf
+     relative error <= 3e-2 bf16, bench.py's bar; <= 2e-3 f32: the two
+     forwards differ by ~1e-6, which flips the ReLU masks of pre-activations
+     that close to zero, and each flip moves a whole per-point term), then
+     K = 5 steps of
+     make_train_many, in which each training kernel must launch 2 levels x 5
+     times and the loss must stay finite; ms/step, rays/s and peak memory of
+     the kernel and plain paths, in turns k p p k;
+  7. the kernels' JSON line, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --measure
 
-adds, before phase 5, the frame times at 800x800 (kernel and plain paths,
-f32 and bf16, in turns k p p k) and a torch.profiler table of one 200x200
-kernel-path frame.
+adds, before phase 7, the frame times at 800x800 (kernel and plain paths,
+f32 and bf16, in turns k p p k), a torch.profiler table of one 200x200
+kernel-path frame, and one of a bf16 kernel-path train step.
 
 It imports torch, numpy and the port; never JAX.  With no CUDA device it
 exits non-zero before printing any result.
@@ -42,17 +61,23 @@ from mipnerf_pl_tpu_torch.convert import jax_params_to_torch
 from mipnerf_pl_tpu_torch.kernels import _build
 from mipnerf_pl_tpu_torch.kernels import mlp as km
 from mipnerf_pl_tpu_torch.ops.camera import Camera, pix2cam_from_focal
-from mipnerf_pl_tpu_torch.ops.math import cast_rays_cmajor, pos_enc
+from mipnerf_pl_tpu_torch.ops.math import (cast_rays_cmajor,
+                                           integrated_pos_enc, pos_enc)
 from mipnerf_pl_tpu_torch.ops.render import delta_mids
 from mipnerf_pl_tpu_torch.ops.sampling import sample_along_rays
+from mipnerf_pl_tpu_torch.rays import Rays
 from mipnerf_pl_tpu_torch.system import MipNeRFSystem
 from mipnerf_pl_tpu_torch.utils.vis import create_spheric_poses
 
 CHUNK = 8192            # rays per level-chunk (val.chunk_size)
 SIDE = 200              # frame side: 40000 rays = 5 chunks
 FULL_SIDE = 800         # the lego test views' size (--measure)
+TRAIN_RAYS = 3072       # train.batch_size of the lego schema
+TRAIN_K = 5             # steps per make_train_many call
+RENDER_KERNELS = ('lean_view_proj', 'lean_mlp', 'lean_composite')
 F32_BAR = 1e-4
 BF16_BAR = 3e-2
+F32_GATE_BAR = 2e-3     # see phase 6 in the docstring
 FRAME_BAR = 1e-3
 ACT = (0.001, -1.0)
 
@@ -131,12 +156,7 @@ def compare_kernels(params, hp, dev):
     skip = hp['nerf.mlp.skip_index']
     W = hp['nerf.mlp.net_width']
     enc = (hp['nerf.min_deg_point'], hp['nerf.max_deg_point'])
-    # The converted params in param order, [in, out] kernels, as the main
-    # path hands them to the kernels.
-    flat = []
-    for name in km.param_order(depth, dcond):
-        flat.append(params[f'mlp.{name}.weight'].t())
-        flat.append(params[f'mlp.{name}.bias'].reshape(1, -1))
+    flat = flat_params(params, hp)
     moments, view, delta, mids = chunk_inputs(hp, dev)
     iv = 2 * (depth + 2)
     # f32 plain references; bf16 kernels are held against these too.
@@ -191,6 +211,230 @@ def compare_kernels(params, hp, dev):
     return results
 
 
+def flat_params(params, hp):
+    """The converted params in param order, [in, out] kernels, as the main
+    path hands them to the kernels."""
+    flat = []
+    for name in km.param_order(hp['nerf.mlp.net_depth'],
+                               hp['nerf.mlp.net_depth_condition']):
+        flat.append(params[f'mlp.{name}.weight'].t())
+        flat.append(params[f'mlp.{name}.bias'].reshape(1, -1))
+    return flat
+
+
+def train_batch(B, dev, seed=0):
+    """bench.py's synthetic rays: normalised random directions, origins near
+    the centre, radius 0.005, near 2, far 6; uniform pixel targets."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ones = np.ones((B, 1), np.float32)
+    o = rng.normal(size=(B, 3)).astype(np.float32) * 0.1
+    fields = (o, d, d, ones * 0.005, ones, ones * 2.0, ones * 6.0)
+    pixels = rng.uniform(size=(B, 3)).astype(np.float32)
+    return (Rays(*(torch.tensor(f, device=dev) for f in fields)),
+            torch.tensor(pixels, device=dev))
+
+
+def level_inputs(hp, dev, seed=1):
+    """One training level of the main path: x rows = the IPE of the
+    stratified samples of TRAIN_RAYS seeded rays [M, 96], view [R, 27],
+    seeded head cotangents [M, 3] / [M, 1]."""
+    rays, _ = train_batch(TRAIN_RAYS, dev, seed)
+    _, means_covs = sample_along_rays(
+        rays.origins, rays.directions, rays.radii, hp['nerf.num_samples'],
+        rays.near, rays.far, False, False, 'cone')
+    x = integrated_pos_enc(means_covs, hp['nerf.min_deg_point'],
+                           hp['nerf.max_deg_point'])
+    x = x.reshape(-1, x.shape[-1]).contiguous()
+    view = pos_enc(rays.viewdirs, 0, hp['nerf.deg_view'])
+    rng = np.random.default_rng(seed + 1)
+    M = x.shape[0]
+    g = [torch.tensor(rng.normal(size=(M, c)).astype(np.float32), device=dev)
+         for c in (3, 1)]
+    return x, view, g[0], g[1]
+
+
+def leaf_rel_err(got, want, names=None):
+    """bench.py's metric: the largest ||a - b|| / ||b|| over the leaves;
+    with `names`, (that error, the name of its leaf)."""
+    errs = [float(torch.linalg.norm(a.double() - b.double())
+                  / (torch.linalg.norm(b.double()) + 1e-12))
+            for a, b in zip(got, want)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    return errs[worst] if names is None else (errs[worst], names[worst])
+
+
+def leaf_names(hp):
+    return [f'{n}.{k}' for n in km.param_order(
+        hp['nerf.mlp.net_depth'], hp['nerf.mlp.net_depth_condition'])
+        for k in ('kernel', 'bias')]
+
+
+def compare_train_kernels(params, hp, dev):
+    """Phase 5: lean_save_fwd and lean_param_grads against their plain
+    versions at the lego level shape, f32 and bf16."""
+    args = (hp['nerf.num_samples'], hp['nerf.mlp.net_depth'],
+            hp['nerf.mlp.net_depth_condition'], hp['nerf.mlp.skip_index'])
+    flat = flat_params(params, hp)
+    x, view, g_rgb, g_dens = level_inputs(hp, dev)
+    M = x.shape[0]
+
+    def fwd_parts(out):
+        rgb, dens, (S, heads) = out
+        return [rgb, dens, S[:, :M].float(), heads[:, :M]]
+
+    def plain_fwd(dt):
+        return km.lean_mlp_save_plain(x, view, flat, *args, dt, ACT)
+
+    def plain_bwd(dt, saved):
+        return km.lean_param_grads_plain(view, g_rgb, g_dens, saved, flat,
+                                         *args, dt, ACT)
+
+    ref = plain_fwd(torch.float32)
+    ref_parts = fwd_parts(ref)
+    results = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = 'f32' if dt == torch.float32 else 'bf16'
+        out = km.lean_save_fwd(x, view, flat, *args, dt, ACT)
+        # Both backwards read the plain forward's saved stream: the kernel
+        # forward's own stream differs by its ~1e-6 (f32), which flips the
+        # ReLU masks of pre-activations that close to zero.
+        saved = ref[2] if dt == torch.float32 else plain_fwd(dt)[2]
+        grads = km.lean_param_grads(view, g_rgb, g_dens, saved, flat, *args,
+                                    dt, ACT)
+        ref_grads = plain_bwd(torch.float32, saved)
+        torch.cuda.synchronize()
+        parts = fwd_parts(out)
+        finite = all(bool(torch.isfinite(t).all()) for t in parts + grads)
+        f_err = max(float((a - b).abs().max())
+                    for a, b in zip(parts, ref_parts))
+        g_abs = max(float((a - b).abs().max())
+                    for a, b in zip(grads, ref_grads))
+        g_err, g_leaf = leaf_rel_err(grads, ref_grads, leaf_names(hp))
+        if dt == torch.float32:
+            f_ok, f_bar = f_err <= F32_BAR, f'max|d| <= {F32_BAR}'
+            g_bar = F32_BAR
+            own = km.lean_param_grads(view, g_rgb, g_dens, out[2], flat,
+                                      *args, dt, ACT)
+            extra = (f'; fed its own forward\'s stream '
+                     f'{leaf_rel_err(own, ref_grads):.3e}')
+            del own
+        else:
+            f_rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                        for a, b in zip(parts, ref_parts))
+            f_ok = f_rel <= BF16_BAR
+            f_bar = f'max|d|/max|ref| = {f_rel:.3e} <= {BF16_BAR}'
+            g_bar, extra = BF16_BAR, ''
+        ms_f = cuda_ms(lambda: km.lean_save_fwd(x, view, flat, *args, dt,
+                                                ACT))
+        plain_ms_f = cuda_ms(lambda: plain_fwd(dt))
+        ms_b = cuda_ms(lambda: km.lean_param_grads(
+            view, g_rgb, g_dens, saved, flat, *args, dt, ACT))
+        plain_ms_b = cuda_ms(lambda: plain_bwd(dt, saved))
+        ok_f, ok_b = finite and f_ok, finite and g_err <= g_bar
+        log(f'[kernel] lean_save_fwd {tag}: max|d| {f_err:.3e} ({f_bar}) '
+            f'kernel {ms_f:.3f} ms  plain {plain_ms_f:.3f} ms  '
+            f'{"OK" if ok_f else "FAIL"}')
+        log(f'[kernel] lean_param_grads {tag}: max leaf rel err vs the f32 '
+            f'plain backward {g_err:.3e} ({g_leaf}, <= {g_bar}){extra}; max|d| '
+            f'{g_abs:.3e}; kernel {ms_b:.3f} ms  plain {plain_ms_b:.3f} ms  '
+            f'{"OK" if ok_b else "FAIL"}')
+        if not (ok_f and ok_b):
+            raise AssertionError(f'training kernels {tag} disagree with '
+                                 'their plain versions')
+        results[('lean_save_fwd', tag)] = dict(err=f_err, ms=ms_f,
+                                               plain_ms=plain_ms_f)
+        results[('lean_param_grads', tag)] = dict(err=g_abs, ms=ms_b,
+                                                  plain_ms=plain_ms_b)
+        del out, grads, saved, ref_grads
+    return results
+
+
+def train_run(fn, state, stack, pixels):
+    """One make_train_many call, timed on the host clock to a synchronise;
+    -> (state, aux, seconds, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, aux = fn(state, stack, pixels, 0)
+    torch.cuda.synchronize()
+    return (state, aux, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def train_slice(hp0, params, dev):
+    """Phase 6, bf16 then f32; -> the launch counts of the kernel path's
+    K-step run (bf16)."""
+    rays, pixels = train_batch(TRAIN_RAYS, dev)
+    K = TRAIN_K
+    stack = Rays(*(f.expand(K, *f.shape).contiguous() for f in rays))
+    pix = pixels.expand(K, *pixels.shape).contiguous()
+    levels = hp0['nerf.num_levels']
+    counts = None
+    for dtype in ('bfloat16', 'float32'):
+        hp = dict(hp0, **{'nerf.mlp_backend': 'pallas_lean_save',
+                          'train.compute_dtype': dtype})
+        systems = {'kernel': MipNeRFSystem(hp, device=dev),
+                   'plain': MipNeRFSystem(dict(hp, **{'nerf.mlp_backend':
+                                                      'xla'}), device=dev)}
+        if not systems['kernel'].model._fused_act:
+            raise AssertionError('pallas_lean_save did not select the fused '
+                                 'lean training path')
+        grads = {}
+        for name, s in systems.items():
+            st = s.init_state(params=params)
+            _, g = s.value_and_grad(st['params'], rays, pixels,
+                                    s.step_generator(7, 0))
+            grads[name] = [g[k] for k in sorted(g)]
+        torch.cuda.synchronize()
+        err, leaf = leaf_rel_err(grads['kernel'], grads['plain'],
+                                 sorted(params))
+        bar = BF16_BAR if dtype == 'bfloat16' else F32_GATE_BAR
+        log(f'[train] {dtype} one-step gradient parity, pallas_lean_save vs '
+            f'xla: max leaf rel err {err:.3e} ({leaf}, <= {bar}) '
+            f'{"OK" if err <= bar else "FAIL"}')
+        if err > bar:
+            raise AssertionError('training gradients disagree with the plain '
+                                 'path')
+        del grads
+        states = {n: s.init_state(params=params) for n, s in systems.items()}
+        fns = {n: s.make_train_many() for n, s in systems.items()}
+        km.reset_launches()
+        states['kernel'], aux, sec, _ = train_run(
+            fns['kernel'], states['kernel'], stack, pix)
+        run_counts = dict(km.launches)
+        losses = aux['loss'].cpu().numpy()
+        log(f'[train] {dtype} make_train_many K={K}: launches {run_counts}; '
+            f'loss {np.array2string(losses, precision=5)}; first call '
+            f'{sec:.3f} s')
+        for name in ('lean_save_fwd', 'lean_param_grads'):
+            if run_counts[name] != levels * K:
+                raise AssertionError(f'{name} launched {run_counts[name]} '
+                                     f'times, expected {levels * K}')
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f'non-finite training loss: {losses}')
+        counts = counts or run_counts
+        states['plain'], _, _, _ = train_run(fns['plain'], states['plain'],
+                                             stack, pix)
+        times = {'kernel': [], 'plain': []}
+        for which in ('kernel', 'plain', 'plain', 'kernel'):
+            states[which], aux, sec, peak = train_run(
+                fns[which], states[which], stack, pix)
+            if not torch.isfinite(aux['loss']).all():
+                raise AssertionError(f'non-finite loss on the {which} path')
+            times[which].append((sec, peak))
+            log(f'[train] {dtype} {which}: {sec * 1e3 / K:.2f} ms/step, '
+                f'{TRAIN_RAYS * K / sec:,.0f} rays/s, peak {peak:.2f} GiB')
+        best = {w: min(t[0] for t in v) for w, v in times.items()}
+        log(f'[train] {dtype} best of 2: kernel {best["kernel"] * 1e3 / K:.2f}'
+            f' ms/step ({TRAIN_RAYS * K / best["kernel"]:,.0f} rays/s), plain '
+            f'{best["plain"] * 1e3 / K:.2f} ms/step '
+            f'({TRAIN_RAYS * K / best["plain"]:,.0f} rays/s)')
+        del systems, states, fns
+    return counts
+
+
 def render_frame(system, params, cam, side=None):
     side = side or SIDE
     torch.cuda.synchronize()
@@ -208,6 +452,14 @@ def blender_camera(side, dev):
     p2c = pix2cam_from_focal(side, side, 1111.11 * side / 800)
     return Camera(torch.tensor(pose, device=dev),
                   torch.tensor(p2c, device=dev), 2.0, 6.0, 1.0)
+
+
+def device_ms(events) -> float:
+    """Kernel time in a profile: the device rows only (a CPU op or an
+    autograd Function that launched a kernel repeats its time)."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
 
 
 def measure(hp, params, dev):
@@ -241,11 +493,31 @@ def measure(hp, params, dev):
                              ProfilerActivity.CUDA]) as prof:
         _, sec = render_frame(sysk, params, small)
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events)
+    dev_ms = device_ms(events)
     log(f'[measure] profile of one {SIDE}x{SIDE} f32 kernel-path frame: '
-        f'wall {sec * 1e3:.1f} ms, device time {dev_us / 1e3:.1f} ms '
-        f'(busy {dev_us / 1e4 / sec:.1f}%)')
+        f'wall {sec * 1e3:.1f} ms, device time {dev_ms:.1f} ms '
+        f'(busy {dev_ms / 10 / sec:.1f}%)')
     log(events.table(sort_by='self_device_time_total', row_limit=12,
+                     max_name_column_width=60))
+    systr = MipNeRFSystem(dict(hp, **{'nerf.mlp_backend': 'pallas_lean_save',
+                                      'train.compute_dtype': 'bfloat16'}),
+                          device=dev)
+    state = systr.init_state(params=params)
+    rays, pixels = train_batch(TRAIN_RAYS, dev)
+    systr.train_step(state, rays, pixels, systr.step_generator(0, 0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        systr.train_step(state, rays, pixels, systr.step_generator(0, 1))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_ms = device_ms(events)
+    log(f'[measure] profile of one bf16 kernel-path train step: wall '
+        f'{sec * 1e3:.1f} ms, device time {dev_ms:.1f} ms '
+        f'(busy {dev_ms / 10 / sec:.1f}%)')
+    log(events.table(sort_by='self_device_time_total', row_limit=15,
                      max_name_column_width=60))
 
 
@@ -263,13 +535,16 @@ def main() -> int:
         f'{torch.__version__} cuda {torch.version.cuda}')
     log(f'[device] nvidia-smi: {smi}')
 
-    rec = _build.build('lean_render')
-    _build.load('lean_render')
-    log(f'[build] nvcc {" ".join(_build.ARCH_FLAGS)} -> {rec["so"].name} in '
-        f'{rec["seconds"]:.1f} s')
-    for line in rec['log'].splitlines():
-        if 'registers' in line or 'spill' in line:
-            log(f'[build] {line.strip()}')
+    t0 = time.perf_counter()
+    recs = _build.build_all(['lean_render', 'lean_train'])
+    log(f'[build] nvcc {" ".join(_build.ARCH_FLAGS)}, in parallel: '
+        f'{time.perf_counter() - t0:.1f} s')
+    for name, rec in recs.items():
+        _build.load(name)
+        log(f'[build] {rec["so"].name} in {rec["seconds"]:.1f} s')
+        for line in rec['log'].splitlines():
+            if 'registers' in line or 'spill' in line:
+                log(f'[build] {line.strip()}')
 
     hp = config.default()
     system = MipNeRFSystem(hp, device=dev)
@@ -291,9 +566,10 @@ def main() -> int:
     log(f'[slice] render_camera {SIDE}x{SIDE}, chunk {CHUNK} '
         f'({n_chunks} chunks x {hp["nerf.num_levels"]} levels): '
         f'{s_kernel:.3f} s/frame; launches {counts}')
-    if any(c != want for c in counts.values()):
-        raise AssertionError(f'expected {want} launches of every kernel, '
-                             f'got {counts}')
+    if any(counts[k] != (want if k in RENDER_KERNELS else 0)
+           for k in counts):
+        raise AssertionError(f'expected {want} launches of every render '
+                             f'kernel, got {counts}')
     for k, v in out.items():
         shape = (SIDE, SIDE, 3) if k.endswith('rgb') else (SIDE, SIDE)
         if v.shape != shape or not np.all(np.isfinite(v)):
@@ -316,14 +592,19 @@ def main() -> int:
         f'{float(out["acc"].mean()):.4f}')
     if d_rgb > FRAME_BAR or d_acc > FRAME_BAR:
         raise AssertionError('kernel frame disagrees with the plain path')
+
+    # Phases 5 and 6: the training kernels and the training slice.
+    results.update(compare_train_kernels(params, hp, dev))
+    train_counts = train_slice(hp, params, dev)
     if '--measure' in sys.argv[1:]:
         measure(hp, params, dev)
 
     kernels = []
-    for name in ('lean_view_proj', 'lean_mlp', 'lean_composite'):
+    for name, (source, replaces) in km.KERNELS.items():
         r = results[(name, 'f32')]
-        kernels.append({'name': name, 'route': 'cuda', 'source': km.SOURCE,
-                        'replaces': km.REPLACES, 'launches': counts[name],
+        path_counts = counts if name in RENDER_KERNELS else train_counts
+        kernels.append({'name': name, 'route': 'cuda', 'source': source,
+                        'replaces': replaces, 'launches': path_counts[name],
                         'max_abs_err': r['err'], 'ms': r['ms'],
                         'plain_ms': r['plain_ms']})
     print(json.dumps({'kernels': kernels}))

@@ -1,0 +1,594 @@
+// Lean-save training kernels for Hopper (sm_90a), plain C interface.
+//
+// Replaces the two TPU kernels of mipnerf_pl_tpu/kernels/mlp.py
+// fused_mlp_lean(mode='save'):
+//
+//   lean_save_fwd     _fwd_kernel_lean_save (pl.pallas_call in
+//                     _run_fwd_lean_save): the lean MLP forward of each
+//                     TM-point tile (mlp_tile, lean_engines.cuh) from f32
+//                     encode rows x [M, F], cast per tile into the encode
+//                     buffer, with the head activations applied; it also
+//                     writes the activations the backward reads.
+//   lean_param_grads  _bwd_kernel_lean_save (pl.pallas_call in
+//                     _run_bwd_lean_common) through _lean_param_grads: f32
+//                     gradients of every parameter, none for x and view.
+//
+// Saved layout, chosen for the backward's weight-gradient products: one
+// channel-major stream S [Cs][Mp] in the compute dtype, rows
+//   X (the cast encode, F rows padded to Fp) | hs[0..depth-1] | bottleneck
+//   | ys[0..depth_cond-1],
+// Mp = M rounded up to the 64-point tile.  A tile is channel-major in
+// shared memory, so each row leaves as a coalesced 64-point segment, and
+// every weight gradient dW = A^T G is a product of two point-contiguous
+// row blocks.  The forward also keeps its raw heads [4][Mp] f32 (16 B a
+// point), so the backward folds the activation derivatives in without
+// recomputing the two head products the TPU kernel redoes per tile.
+//
+// What bounds them: ~1.2 MFLOP per point forward and ~2.2 backward (the
+// cotangent chain and the weight gradients), so both are compute bound
+// on the tensor cores; the saved stream is ~5 KB a point in bf16 (2 GB a
+// level at 393,216 points), ~1 ms of HBM at 3.35 TB/s each way.
+//
+// The TPU backward sums every weight gradient in VMEM across a sequential
+// grid.  Here blocks run in parallel and a block cannot hold 2.4 MB of f32
+// sums, so the backward is two passes plus reductions, all deterministic
+// (fixed summation orders, no atomics):
+//   1. lean_grad_chain_kernel, persistent blocks over 64-point tiles: head
+//      cotangents (activation derivatives folded in), then back through
+//      rgb -> view_j -> view_0 -> bottleneck + density -> trunk with the
+//      transposed weights on the same GEMM engines, ReLU masks from S.
+//      Each layer's output cotangent goes to G [Cg][Mp] in the compute
+//      dtype (the operand of its weight gradient); bias gradients are
+//      column sums of the f32 cotangent, per block; view_0's f32 cotangent
+//      also goes to g1f [Wv][Mp] for the per-ray sums.
+//   2. lean_wgrad_kernel: split-K tensor-core products dW = A^T G over the
+//      points (A rows of S, G rows of G), one 128 x 128 output tile per
+//      block and one point range per grid row, written as per-split
+//      partial sums, then summed by sum_rows_kernel.  In f32 the
+//      tensor-core sums restart every 128 points into round-to-nearest f32
+//      sums (FLUSH).
+//      The skip concat's x rows are problems of their own: their weight
+//      gradients accumulate, only dx is dropped.
+//   3. view_0's per-ray half: g_ray = sum over each ray's samples of the
+//      f32 cotangent, cast to the compute dtype (lean_ray_sum_kernel), and
+//      dW[W:] = cast(view)^T g_ray (lean_view_rows_kernel).
+// Padded points (m >= M) have zero head cotangents, hence zero G, and add
+// nothing to any sum.  wgmma, TMA and a multi-stage ring are later work.
+
+#include "lean_engines.cuh"
+
+namespace {
+
+static_assert(THREADS == 4 * TM, "one thread per (head channel, point)");
+
+constexpr int MAX_LAYERS = MAX_PARAMS / 2;
+constexpr int MAX_PROBS = 32;
+constexpr int MAX_TILES = 192;
+constexpr int BM = 128, BN = 128, KC = 32;   // wgrad block tile, points per stage
+// Tensor-core accumulation rounds toward zero, so its error grows with the
+// number of products summed in the accumulator (~1e-4 relative after the
+// ~15k points of one split).  In f32, every FLUSH stages the accumulators
+// are added into round-to-nearest f32 sums on the CUDA cores and restarted
+// (~3 % of the kernel's time; in bf16 it would cost ~45 % against an error
+// far below bf16's own).
+constexpr int FLUSH = 4;
+constexpr int WGRAD_ACC = 64;                // accumulators per thread
+
+// Row offsets of S (saved) and of G (cotangents; also the offsets of the
+// bias gradients in param order).
+struct TrainDims {
+  int M, Mp, N, R, F, Fp, Fv, depth, depth_cond, skip, W, Wv;
+  float rgb_padding, density_bias;
+  __host__ __device__ int s_h(int i) const { return Fp + i * W; }
+  __host__ __device__ int s_y(int j) const { return Fp + (depth + 1) * W + j * Wv; }
+  __host__ __device__ int g_t(int i) const { return i * W; }
+  __host__ __device__ int g_den() const { return depth * W; }
+  __host__ __device__ int g_bot() const { return depth * W + 1; }
+  __host__ __device__ int g_v(int j) const { return depth * W + 1 + W + j * Wv; }
+  __host__ __device__ int g_rgb() const { return g_v(depth_cond); }
+  __host__ __device__ int cg() const { return g_rgb() + 3; }
+  __host__ __device__ MlpDims mlp() const {
+    return MlpDims{M, N, R, 0, 0, depth, depth_cond, skip, W, Wv, rgb_padding, density_bias};
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+lean_save_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vproj, LayerPtrs p,
+                     TrainDims td, float* __restrict__ out, T* __restrict__ saved,
+                     float* __restrict__ heads_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int wmax = max(td.W, td.Wv);
+  T* xs = reinterpret_cast<T*>(smem_raw);          // [Fp][LD] encode tile
+  T* hs = xs + (size_t)td.Fp * LD;                  // [wmax][LD] activations
+  T* slab = hs + (size_t)wmax * LD;                 // weight rows
+  float* heads = reinterpret_cast<float*>(slab + Engine<T>::type::slab_elems(wmax));  // [4][TM]
+  const int tid = threadIdx.x, m0 = blockIdx.x * TM;
+
+  // x rows -> channel-major encode tile in the compute dtype (zero past F
+  // and past M), which also serves the skip concat; then out to S rows X.
+  for (int idx = tid; idx < TM * td.Fp; idx += THREADS) {
+    const int row = idx / td.Fp, f = idx - row * td.Fp, m = m0 + row;
+    const float v = (m < td.M && f < td.F) ? x[(size_t)m * td.F + f] : 0.f;
+    xs[(size_t)f * LD + row] = Ty<T>::from_f(v);
+  }
+  __syncthreads();
+  copy_tile_out(saved, td.Mp, m0, xs, td.Fp);
+
+  const MlpDims d = td.mlp();
+  mlp_tile<T>(xs, td.F, hs, slab, heads, p, d, vproj, m0, saved, td.Mp, td.Fp);
+  heads_out[(size_t)(tid / TM) * td.Mp + m0 + tid % TM] = heads[tid];
+  write_activated(heads, d, m0, out);
+}
+
+struct ChainPtrs {
+  const void* bw[MAX_LAYERS];  // by param index: k[:in_h]^T [out][in_h], compute dtype
+  const void* k_den;           // density kernel [W (+F)][1], compute dtype
+  const void* k_rgb;           // rgb kernel [Wv][3], compute dtype
+};
+
+template <typename T>
+size_t chain_smem_bytes(int wmax, int cg) {
+  return sizeof(T) * ((size_t)wmax * LD + Engine<T>::type::slab_elems(wmax)) +
+         sizeof(float) * (8 * TM + 2 * MAX_OUT + cg);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+lean_grad_chain_kernel(const T* __restrict__ S, const float* __restrict__ heads,
+                       const float* __restrict__ g_rgb, const float* __restrict__ g_dens,
+                       ChainPtrs cp, TrainDims d, T* __restrict__ G, float* __restrict__ g1f,
+                       float* __restrict__ db_part) {
+  typedef typename Engine<T>::type Gemm;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int wmax = max(d.W, d.Wv), Cg = d.cg();
+  T* ga = reinterpret_cast<T*>(smem_raw);                        // [wmax][LD] cotangent tile
+  T* slab = ga + (size_t)wmax * LD;                              // weight rows
+  float* gh = reinterpret_cast<float*>(slab + Gemm::slab_elems(wmax));  // [4][TM] head cotangents
+  float* ghc = gh + 4 * TM;                                      // the same, compute-dtype values
+  float* part = ghc + 4 * TM;                                    // [2][MAX_OUT] column partials
+  float* dbacc = part + 2 * MAX_OUT;                             // [Cg] this block's bias sums
+  const int tid = threadIdx.x, lane = tid & 31;
+  const size_t Mp = d.Mp;
+  const T* k_rgb = static_cast<const T*>(cp.k_rgb);
+  const T* k_den = static_cast<const T*>(cp.k_den);
+  const int i_view = d.depth + 2, last = d.depth_cond - 1;
+  for (int c = tid; c < Cg; c += THREADS) dbacc[c] = 0.f;
+
+  Gemm gemm;
+  int m0 = 0;
+  auto srow = [&](int r) { return S + (size_t)r * Mp + m0; };
+  // Cotangent in the accumulators -> its column sums into dbacc, the tile
+  // (compute dtype) in place over the layer input and out to G rows g_off.
+  auto finish = [&](int g_off, int n, bool to_g1f) {
+    gemm.colsum(n, part);
+    if (to_g1f)
+      gemm.transform(n, [&](int row, int col, float v) {
+        g1f[(size_t)col * Mp + m0 + row] = v;
+        return v;
+      });
+    gemm.store(ga, n);
+    copy_tile_out(G + (size_t)g_off * Mp, Mp, m0, ga, n);
+    for (int c = tid; c < n; c += THREADS) dbacc[g_off + c] += part[c] + part[MAX_OUT + c];
+  };
+  auto relu_mask = [&](int s_row) {
+    const T* a = srow(s_row);
+    return [a, Mp](int row, int col, float v) {
+      return Ty<T>::to_f(a[(size_t)col * Mp + row]) > 0.f ? v : 0.f;
+    };
+  };
+
+  for (int tile = blockIdx.x; tile < d.Mp / TM; tile += gridDim.x) {
+    m0 = tile * TM;
+    // 1. Head cotangents with the activation derivatives folded in:
+    //    d sigmoid = s (1 - s) widened by the padding, d softplus(z + b) =
+    //    sigmoid(z + b), from the forward's raw heads.
+    {
+      const int c = tid / TM, row = tid - c * TM, m = m0 + row;
+      float g = 0.f;
+      if (m < d.M) {
+        const float raw = heads[(size_t)c * Mp + m];
+        if (c < 3) {
+          const float s = 1.f / (1.f + expf(-raw));
+          g = g_rgb[(size_t)m * 3 + c] * ((1.f + 2.f * d.rgb_padding) * s * (1.f - s));
+        } else {
+          g = g_dens[m] * (1.f / (1.f + expf(-(raw + d.density_bias))));
+        }
+      }
+      const T gb = Ty<T>::from_f(g);
+      gh[tid] = g;
+      ghc[tid] = Ty<T>::to_f(gb);
+      G[(size_t)(c < 3 ? d.g_rgb() + c : d.g_den()) * Mp + m0 + row] = gb;
+    }
+    __syncthreads();
+    if (tid < 4) {
+      float s = 0.f;
+      for (int row = 0; row < TM; ++row) s += gh[tid * TM + row];
+      dbacc[tid < 3 ? d.g_rgb() + tid : d.g_den()] += s;
+    }
+    // 2. rgb head backward on the CUDA cores (3-deep), masked by ys[last]:
+    //    the cotangent of view_last's output.  Thread (row, j = grp + 4i).
+    {
+      const int row = tid & (TM - 1), half = (tid >> 5) & 1, grp = tid >> 6;
+      const T* y = srow(d.s_y(last)) + row;
+      for (int j = grp; j < d.Wv; j += 4) {   // warp-uniform
+        float v = 0.f;
+        for (int c = 0; c < 3; ++c) v = fmaf(ghc[c * TM + row], Ty<T>::to_f(k_rgb[j * 3 + c]), v);
+        if (!(Ty<T>::to_f(y[(size_t)j * Mp]) > 0.f)) v = 0.f;
+        const T vb = Ty<T>::from_f(v);
+        ga[(size_t)j * LD + row] = vb;
+        G[(size_t)(d.g_v(last) + j) * Mp + m0 + row] = vb;
+        if (last == 0) g1f[(size_t)j * Mp + m0 + row] = v;
+        float s = v;
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+        if (lane == 0) part[half * MAX_OUT + j] = s;
+      }
+      __syncthreads();
+      for (int c = tid; c < d.Wv; c += THREADS)
+        dbacc[d.g_v(last) + c] += part[c] + part[MAX_OUT + c];
+    }
+    // 3. View layers j = last .. 1: cotangent of ys[j-1], masked by it.
+    for (int j = last; j >= 1; --j) {
+      gemm.zero();
+      gemm.segment(static_cast<const T*>(cp.bw[i_view + j]), d.Wv, 0, ga, d.Wv, slab);
+      gemm.transform(d.Wv, relu_mask(d.s_y(j - 1)));
+      finish(d.g_v(j - 1), d.Wv, j == 1);
+    }
+    // 4. view_0's per-point rows -> the bottleneck (no activation).
+    gemm.zero();
+    gemm.segment(static_cast<const T*>(cp.bw[i_view]), d.W, 0, ga, d.Wv, slab);
+    finish(d.g_bot(), d.W, false);
+    // 5. Bottleneck + density -> the last trunk output, masked by it.  The
+    //    density part is rank 1: g_den[row] * k_den[col].
+    gemm.zero();
+    gemm.segment(static_cast<const T*>(cp.bw[d.depth + 1]), d.W, 0, ga, d.W, slab);
+    {
+      auto mask = relu_mask(d.s_h(d.depth - 1));
+      gemm.transform(d.W, [&](int row, int col, float v) {
+        return mask(row, col, v + ghc[3 * TM + row] * Ty<T>::to_f(k_den[col]));
+      });
+    }
+    finish(d.g_t(d.depth - 1), d.W, false);
+    // 6. Trunk i = depth-1 .. 1 -> hs[i-1] (the x rows of a skip concat
+    //    carry no cotangent), masked by it.
+    for (int i = d.depth - 1; i >= 1; --i) {
+      gemm.zero();
+      gemm.segment(static_cast<const T*>(cp.bw[i]), d.W, 0, ga, d.W, slab);
+      gemm.transform(d.W, relu_mask(d.s_h(i - 1)));
+      finish(d.g_t(i - 1), d.W, false);
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+  for (int c = tid; c < Cg; c += THREADS) db_part[(size_t)blockIdx.x * Cg + c] = dbacc[c];
+}
+
+// Weight-gradient problems: dW[out_off + row * n_ld + col] (rows < K,
+// cols < n) = sum over points of S[a_row0 + row] * G[g_row0 + col].
+struct WgradTable {
+  int prob[MAX_PROBS][6];   // a_row0, K, g_row0, n, out_off, n_ld
+  int tile[MAX_TILES][3];   // problem, row0, col0 of a BM x BN output tile
+};
+
+// blockIdx.x: output tile; blockIdx.y: point range [y * MC, (y + 1) * MC).
+// Both operands point-contiguous ("TN"): A tile [BM rows][KC points], B
+// tile [BN cols][KC points] in shared memory; 8 warps as 2 x 4, each a
+// 64 x 32 output tile.  The next stage's loads are issued into registers
+// before the current stage's products.  In f32, dynamic shared memory
+// holds each thread's round-to-nearest sums, [WGRAD_ACC][THREADS].
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+lean_wgrad_kernel(const T* __restrict__ S, const T* __restrict__ G, WgradTable tab, int Mp,
+                  int MC, float* __restrict__ partial, int PW) {
+  extern __shared__ float tot[];
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int LDS = KC + (BF ? 8 : 4);     // padded rows: conflict-free fragments
+  constexpr int VEC = 16 / sizeof(T), PER_ROW = KC / VEC;
+  constexpr int LOADS = BM * PER_ROW / THREADS;
+  static_assert(BM == BN && BM * PER_ROW % THREADS == 0, "tile loads");
+  __shared__ __align__(16) T As[BM * LDS];
+  __shared__ __align__(16) T Bs[BN * LDS];
+  const int* pr = tab.prob[tab.tile[blockIdx.x][0]];
+  const int a_row0 = pr[0], K = pr[1], g_row0 = pr[2], n = pr[3], out_off = pr[4], n_ld = pr[5];
+  const int r0 = tab.tile[blockIdx.x][1], c0 = tab.tile[blockIdx.x][2];
+  const int p0 = blockIdx.y * MC, p1 = min(p0 + MC, Mp);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 1, wn = warp >> 1, g = lane >> 2, t = lane & 3;
+
+  float acc[4][4][4];
+  // f32: acc -> tot (round to nearest), acc restarts from zero.
+  auto flush = [&](bool first) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!BF) {
+            float& t = tot[((a * 4 + b) * 4 + e) * THREADS + tid];
+            t = first ? 0.f : t + acc[a][b][e];
+          }
+          if (first || !BF) acc[a][b][e] = 0.f;
+        }
+  };
+  flush(true);
+  uint4 ra[LOADS], rb[LOADS];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int v = tid + i * THREADS, row = v / PER_ROW, c = (v - row * PER_ROW) * VEC;
+      const uint4 zero = make_uint4(0, 0, 0, 0);
+      ra[i] = r0 + row < K
+                  ? *reinterpret_cast<const uint4*>(S + (size_t)(a_row0 + r0 + row) * Mp + k0 + c)
+                  : zero;
+      rb[i] = c0 + row < n
+                  ? *reinterpret_cast<const uint4*>(G + (size_t)(g_row0 + c0 + row) * Mp + k0 + c)
+                  : zero;
+    }
+  };
+  fetch(p0);
+  for (int k0 = p0, stage = 1; k0 < p1; k0 += KC, ++stage) {
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int v = tid + i * THREADS, row = v / PER_ROW, c = (v - row * PER_ROW) * VEC;
+      *reinterpret_cast<uint4*>(As + row * LDS + c) = ra[i];
+      *reinterpret_cast<uint4*>(Bs + row * LDS + c) = rb[i];
+    }
+    __syncthreads();
+    if (k0 + KC < p1) fetch(k0 + KC);
+    if constexpr (BF) {
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        // A (m16 x k16, row-major) and B (k16 x n8, stored [n][k]) by
+        // ldmatrix without transpose.
+        uint32_t a[4][4], b[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          ldmatrix_x4(a[mt], reinterpret_cast<const bf16*>(As) +
+                                 (64 * wm + 16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
+                                 kk + 8 * (lane >> 4));
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          ldmatrix_x4(b[np], reinterpret_cast<const bf16*>(Bs) +
+                                 (32 * wn + 16 * np + (lane & 7) + 8 * (lane >> 4)) * LDS + kk +
+                                 8 * ((lane >> 3) & 1));
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_bf16(acc[mt][nt], a[mt], b[nt >> 1][2 * (nt & 1)], b[nt >> 1][2 * (nt & 1) + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 8) {
+        uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          const float* s0 = reinterpret_cast<const float*>(As) + (64 * wm + 16 * mt + g) * LDS + kk + t;
+          split_tf32(s0[0], ahi[mt][0], alo[mt][0]);
+          split_tf32(s0[8 * LDS], ahi[mt][1], alo[mt][1]);
+          split_tf32(s0[4], ahi[mt][2], alo[mt][2]);
+          split_tf32(s0[8 * LDS + 4], ahi[mt][3], alo[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float* b = reinterpret_cast<const float*>(Bs) + (32 * wn + 8 * nt + g) * LDS + kk + t;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(b[0], bh0, bl0);
+          split_tf32(b[4], bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+            mma_3xtf32(acc[mt][nt], ahi[mt], alo[mt], bh0, bl0, bh1, bl1);
+        }
+      }
+    }
+    if (!BF && stage % FLUSH == 0) flush(false);
+    __syncthreads();
+  }
+  if (!BF) flush(false);
+  float* dst = partial + (size_t)blockIdx.y * PW + out_off;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + 64 * wm + 16 * mt + g + 8 * (e >> 1);
+        const int col = c0 + 32 * wn + 8 * nt + 2 * t + (e & 1);
+        if (row < K && col < n)
+          dst[(size_t)row * n_ld + col] =
+              BF ? acc[mt][nt][e] : tot[((mt * 4 + nt) * 4 + e) * THREADS + tid];
+      }
+}
+
+// out[i] = sum over r of in[r][i], r in order.
+__global__ void sum_rows_kernel(const float* __restrict__ in, int rows, int cols,
+                                float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cols) return;
+  float s = 0.f;
+  for (int r = 0; r < rows; ++r) s += in[(size_t)r * cols + i];
+  out[i] = s;
+}
+
+// g_ray[r][j] = compute-dtype(sum over ray r's N samples of g1f[j][.]):
+// one warp per (r, j), lanes over the samples, a fixed shuffle tree.
+template <typename T>
+__global__ void lean_ray_sum_kernel(const float* __restrict__ g1f, int Mp, int N, int R, int Wv,
+                                    T* __restrict__ g_ray) {
+  const int w = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5), lane = threadIdx.x & 31;
+  if (w >= R * Wv) return;   // warp-uniform
+  const int r = w / Wv, j = w - r * Wv;
+  const float* src = g1f + (size_t)j * Mp + (size_t)r * N;
+  float s = 0.f;
+  for (int i = lane; i < N; i += 32) s += src[i];
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+  if (lane == 0) g_ray[(size_t)r * Wv + j] = Ty<T>::from_f(s);
+}
+
+// dw[f][j] = sum over rays of cast(view[r][f]) * g_ray[r][j]: the
+// gradient of view_0's per-ray rows.  Block (f, 32 columns); warp w sums
+// the rays w, w + 8, ... for its lane's column, then the 8 warp sums add in
+// a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+lean_view_rows_kernel(const float* __restrict__ view, const T* __restrict__ g_ray, int R, int Fv,
+                      int Wv, float* __restrict__ dw) {
+  __shared__ float part[8][32];
+  const int f = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = blockIdx.y * 32 + lane;
+  float s = 0.f;
+  if (j < Wv)
+    for (int r = warp; r < R; r += 8)
+      s = fmaf(Ty<T>::to_f(Ty<T>::from_f(view[(size_t)r * Fv + f])),
+               Ty<T>::to_f(g_ray[(size_t)r * Wv + j]), s);
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && j < Wv) {
+    float t = 0.f;
+    for (int w = 0; w < 8; ++w) t += part[w][lane];
+    dw[(size_t)f * Wv + j] = t;
+  }
+}
+
+bool dims_ok(const TrainDims& d, int n_layers, int use_bf16) {
+  const int align = use_bf16 ? 16 : 8;
+  return n_layers == d.depth + 3 + d.depth_cond && n_layers <= MAX_LAYERS && d.depth >= 1 &&
+         d.depth_cond >= 1 && d.skip >= 1 && d.W >= align && d.W <= MAX_OUT && d.W % align == 0 &&
+         d.Wv >= align && d.Wv <= MAX_OUT && d.Wv % align == 0 && d.M == d.R * d.N && d.M > 0 &&
+         d.Mp % TM == 0 && d.Mp >= d.M && d.F >= 1 && d.F <= d.Fp && d.Fp % 16 == 0 &&
+         d.Fv >= 1;
+}
+
+TrainDims read_dims(const int* v, float rgb_padding, float density_bias) {
+  return TrainDims{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9], v[10], v[11],
+                   rgb_padding, density_bias};
+}
+
+template <typename T>
+int launch_save_fwd(const float* x, const float* vproj, const LayerPtrs& p, const TrainDims& d,
+                    float* out, T* saved, float* heads, cudaStream_t s) {
+  const size_t smem = mlp_smem_bytes<T>(d.Fp, d.W > d.Wv ? d.W : d.Wv);
+  cudaError_t e = cudaFuncSetAttribute(lean_save_fwd_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  lean_save_fwd_kernel<T><<<d.Mp / TM, THREADS, smem, s>>>(x, vproj, p, d, out, saved, heads);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_param_grads(const T* S, const float* heads, const float* g_rgb, const float* g_dens,
+                       const float* view, const ChainPtrs& cp, const TrainDims& d, T* G,
+                       float* g1f, float* db_part, int n_chain, float* partial, int splits,
+                       int MC, const WgradTable& tab, int n_tiles, int PW, T* g_ray, float* dw,
+                       float* db, int view_off, cudaStream_t s) {
+  const int Cg = d.cg();
+  const size_t smem = chain_smem_bytes<T>(d.W > d.Wv ? d.W : d.Wv, Cg);
+  cudaError_t e = cudaFuncSetAttribute(lean_grad_chain_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  lean_grad_chain_kernel<T><<<n_chain, THREADS, smem, s>>>(S, heads, g_rgb, g_dens, cp, d, G, g1f,
+                                                           db_part);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const size_t wsmem = sizeof(T) == 2 ? 0 : sizeof(float) * WGRAD_ACC * THREADS;
+  e = cudaFuncSetAttribute(lean_wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)wsmem);
+  if (e != cudaSuccess) return (int)e;
+  lean_wgrad_kernel<T><<<dim3(n_tiles, splits), THREADS, wsmem, s>>>(S, G, tab, d.Mp, MC, partial,
+                                                                     PW);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  sum_rows_kernel<<<(PW + 255) / 256, 256, 0, s>>>(partial, splits, PW, dw);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  sum_rows_kernel<<<(Cg + 255) / 256, 256, 0, s>>>(db_part, n_chain, Cg, db);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const long long warps = (long long)d.R * d.Wv;
+  lean_ray_sum_kernel<T><<<(int)((warps * 32 + 255) / 256), 256, 0, s>>>(g1f, d.Mp, d.N, d.R,
+                                                                         d.Wv, g_ray);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  lean_view_rows_kernel<T><<<dim3(d.Fv, (d.Wv + 31) / 32), 256, 0, s>>>(view, g_ray, d.R, d.Fv,
+                                                                         d.Wv, dw + view_off);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dims = {M, Mp, N, R, F, Fp, Fv, depth, depth_cond, skip, W, Wv}.
+// x [M, F] f32, vproj [R, Wv] f32 (view_0's per-ray half), weights[i]
+// [in_i, out_i] in the compute dtype and biases[i] [out_i] f32 (rounded
+// through the compute dtype) in param order -> out [M, 4] f32 (activated
+// rgb | sigma), saved [Cs][Mp] compute dtype, heads [4][Mp] f32 (raw).
+int lean_save_fwd(const void* x, const void* vproj, const void* weights, const void* biases,
+                  int n_layers, void* out, void* saved, void* heads, const int* dims,
+                  float rgb_padding, float density_bias, int use_bf16, void* stream) {
+  const TrainDims d = read_dims(dims, rgb_padding, density_bias);
+  if (!dims_ok(d, n_layers, use_bf16)) return (int)cudaErrorInvalidValue;
+  LayerPtrs p;
+  const void* const* w = static_cast<const void* const*>(weights);
+  const void* const* b = static_cast<const void* const*>(biases);
+  for (int i = 0; i < n_layers; ++i) {
+    p.w[i] = w[i];
+    p.b[i] = static_cast<const float*>(b[i]);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* vp = static_cast<const float*>(vproj);
+  float* o = static_cast<float*>(out);
+  float* h = static_cast<float*>(heads);
+  return use_bf16 ? launch_save_fwd<bf16>(xf, vp, p, d, o, static_cast<bf16*>(saved), h, s)
+                  : launch_save_fwd<float>(xf, vp, p, d, o, static_cast<float*>(saved), h, s);
+}
+
+// saved / heads from lean_save_fwd, g_rgb [M, 3] / g_dens [M, 1] / view
+// [R, Fv] f32; chain_w[i] (param index; null where unused) the transposed
+// h-part kernels, k_den / k_rgb the head kernels, compute dtype.  Scratch:
+// G [Cg][Mp] and g_ray [R][Wv] compute dtype, g1f [Wv][Mp], db_part
+// [n_chain][Cg], partial [splits][PW] (zeroed) f32.  Out: dw [PW] (every
+// kernel in param order, [in, out] row-major), db [Cg] (every bias).
+// probs [n_probs][6] and tiles [n_tiles][3] are the weight-gradient
+// problems and their output tiles; view_off is the offset in dw of view_0's
+// per-ray rows.
+int lean_param_grads(const void* saved, const void* heads, const void* g_rgb,
+                     const void* g_dens, const void* view, const void* chain_w, int n_layers,
+                     const void* k_den, const void* k_rgb, void* G, void* g1f, void* db_part,
+                     int n_chain, void* partial, int splits, int MC, const int* probs,
+                     int n_probs, const int* tiles, int n_tiles, int PW, void* g_ray, void* dw,
+                     void* db, int view_off, const int* dims, float rgb_padding,
+                     float density_bias, int use_bf16, void* stream) {
+  const TrainDims d = read_dims(dims, rgb_padding, density_bias);
+  if (!dims_ok(d, n_layers, use_bf16) || n_probs < 1 || n_probs > MAX_PROBS || n_tiles < 1 ||
+      n_tiles > MAX_TILES || n_chain < 1 || splits < 1 || MC % KC || (long long)MC * splits < d.Mp)
+    return (int)cudaErrorInvalidValue;
+  ChainPtrs cp;
+  const void* const* cw = static_cast<const void* const*>(chain_w);
+  for (int i = 0; i < MAX_LAYERS; ++i) cp.bw[i] = i < n_layers ? cw[i] : nullptr;
+  cp.k_den = k_den;
+  cp.k_rgb = k_rgb;
+  WgradTable tab;
+  for (int i = 0; i < n_probs; ++i)
+    for (int k = 0; k < 6; ++k) tab.prob[i][k] = probs[6 * i + k];
+  for (int i = 0; i < n_tiles; ++i) {
+    for (int k = 0; k < 3; ++k) tab.tile[i][k] = tiles[3 * i + k];
+    if (tab.tile[i][0] < 0 || tab.tile[i][0] >= n_probs) return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* hd = static_cast<const float*>(heads);
+  const float* gr = static_cast<const float*>(g_rgb);
+  const float* gd = static_cast<const float*>(g_dens);
+  const float* vw = static_cast<const float*>(view);
+  float* f1 = static_cast<float*>(g1f);
+  float* dp = static_cast<float*>(db_part);
+  float* pa = static_cast<float*>(partial);
+  float* dwf = static_cast<float*>(dw);
+  float* dbf = static_cast<float*>(db);
+  if (use_bf16)
+    return launch_param_grads<bf16>(static_cast<const bf16*>(saved), hd, gr, gd, vw, cp, d,
+                                    static_cast<bf16*>(G), f1, dp, n_chain, pa, splits, MC, tab,
+                                    n_tiles, PW, static_cast<bf16*>(g_ray), dwf, dbf, view_off, s);
+  return launch_param_grads<float>(static_cast<const float*>(saved), hd, gr, gd, vw, cp, d,
+                                   static_cast<float*>(G), f1, dp, n_chain, pa, splits, MC, tab,
+                                   n_tiles, PW, static_cast<float*>(g_ray), dwf, dbf, view_off, s);
+}
+
+}  // extern "C"

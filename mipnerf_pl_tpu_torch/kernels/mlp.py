@@ -1,25 +1,36 @@
-"""The fused lean-render level kernels (CUDA, sm_90a) and their plain twins.
+"""The lean MLP kernels (CUDA, sm_90a) and their plain twins.
 
-Replaces mipnerf_pl_tpu/kernels/mlp.py:fused_mlp_lean_render, forward only
-(the TPU kernel `_fwd_kernel_lean_render` behind the `pl.pallas_call` of
-`_run_fwd_lean_render`, save=False, encode=(min_deg, max_deg)).  That one
-Pallas kernel decodes the IPE from the [6, M] moments, runs the lean MLP,
-applies the head activations and composites every ray.  On the card it is
-three hand-written kernels in csrc/lean_render.cu, one wrapper each here:
+Render path.  Replaces mipnerf_pl_tpu/kernels/mlp.py:fused_mlp_lean_render,
+forward only (the TPU kernel `_fwd_kernel_lean_render` behind the
+`pl.pallas_call` of `_run_fwd_lean_render`, save=False, encode=(min_deg,
+max_deg)).  That one Pallas kernel decodes the IPE from the [6, M] moments,
+runs the lean MLP, applies the head activations and composites every ray.
+On the card it is three hand-written kernels in csrc/lean_render.cu, one
+wrapper each here:
 
   view_proj       view_0's per-ray half, once per ray       -> [R, Wv] f32
   lean_mlp        IPE decode + MLP + activations per tile   -> [M, 4]  f32
   lean_composite  per-ray scan and reductions               -> [R, 8], [R, N]
 
-What bounds them: `lean_mlp` does ~1.21 MFLOP per sample point (~1.27
-TFLOP per 8192-ray level-chunk at the lego shape) and is compute bound; the
-composite and the view projection move a few tens of bytes per point.  The
-TPU kernel kept every weight resident in 96 MB of VMEM; an SM has 227 KB of
-shared memory, so `lean_mlp` keeps one 64-point tile's activations resident
-in shared memory through all layers, streams the weights from L2, and runs
-the products on the tensor cores: bf16 directly, float32 as 3xTF32 (each
-operand split into two TF32 halves; ~1e-6 from exact f32).  Widths must be
-multiples of 8 (float32) or 16 (bfloat16), at most 256.
+Training path.  Replaces fused_mlp_lean(mode='save'): its forward
+`_fwd_kernel_lean_save` and its parameter-gradient backward
+`_bwd_kernel_lean_save` (through `_lean_param_grads`), as csrc/lean_train.cu
+behind two wrappers bound into one autograd Function, `fused_mlp_lean`:
+
+  lean_save_fwd     MLP + activations from f32 encode rows    -> [M, 4]
+                    plus the saved stream for the backward (with view_proj
+                    for view_0's per-ray half)
+  lean_param_grads  f32 gradients of every parameter, none for x and view
+
+What bounds them: the MLP is ~1.21 MFLOP per sample point forward and about
+twice that backward, so the kernels are compute bound; the composite and
+the view projection move a few tens of bytes per point.  The TPU kernels
+kept every weight resident in 96 MB of VMEM; an SM has 227 KB of shared
+memory, so a 64-point tile's activations stay resident in shared memory
+through all layers, the weights stream from L2, and the products run on the
+tensor cores: bf16 directly, float32 as 3xTF32 (each operand split into two
+TF32 halves; ~1e-6 from exact f32).  Widths must be multiples of 8
+(float32) or 16 (bfloat16), at most 256.
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU, and
 only there.  For a CUDA tensor it launches its kernel or raises: there is
@@ -32,19 +43,31 @@ import ctypes
 from typing import Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from mipnerf_pl_tpu_torch.ops.math import integrated_pos_enc
 from mipnerf_pl_tpu_torch.ops.render import composite
 
 # Kernel name -> number of launches (incremented only where the kernel is
 # launched; callers reset it to count one run).
-launches = {'lean_view_proj': 0, 'lean_mlp': 0, 'lean_composite': 0}
+launches = {'lean_view_proj': 0, 'lean_mlp': 0, 'lean_composite': 0,
+            'lean_save_fwd': 0, 'lean_param_grads': 0}
 
-# Source of the kernels, and the Pallas kernel they replace.
-SOURCE = 'mipnerf_pl_tpu_torch/csrc/lean_render.cu'
-REPLACES = 'mipnerf_pl_tpu/kernels/mlp.py:1428'
+# Kernel name -> (source, the Pallas kernel it replaces).
+_RENDER_CU = 'mipnerf_pl_tpu_torch/csrc/lean_render.cu'
+_TRAIN_CU = 'mipnerf_pl_tpu_torch/csrc/lean_train.cu'
+KERNELS = {
+    'lean_view_proj': (_RENDER_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1428'),
+    'lean_mlp': (_RENDER_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1428'),
+    'lean_composite': (_RENDER_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1428'),
+    'lean_save_fwd': (_TRAIN_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1002'),
+    'lean_param_grads': (_TRAIN_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1021'),
+}
 
 MAX_WIDTH = 256     # widest dense layer the CUDA column tiling covers
+TILE = 64           # points per CUDA tile; saved streams pad M to it
+WGRAD_TILE = 128    # output tile of the weight-gradient products
+WGRAD_STAGE = 32    # points per stage of the weight-gradient products
 
 
 def reset_launches() -> None:
@@ -72,8 +95,30 @@ def flatten_params(mlp: torch.nn.Module, net_depth: int,
     return out
 
 
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
+def _skip_after(i: int, skip_index: int) -> bool:
+    """Layer i's output is concatenated with the encode (a skip layer)."""
+    return i % skip_index == 0 and i > 0
+
+
+def saved_rows(F: int, W: int, Wv: int, net_depth: int,
+               net_depth_condition: int):
+    """Row offsets of the channel-major saved stream [Cs, Mp] of the
+    training forward: X (the encode in the compute dtype, F rows padded to
+    Fp) | hs[0..depth-1] | bottleneck | ys[0..depth_cond-1].
+    Returns (Fp, [hs rows], bottleneck row, [ys rows], Cs)."""
+    Fp = _round_up(F, 16)
+    hs = [Fp + i * W for i in range(net_depth)]
+    bott = Fp + net_depth * W
+    ys = [bott + W + j * Wv for j in range(net_depth_condition)]
+    return Fp, hs, bott, ys, ys[-1] + Wv
+
+
 # ---------------------------------------------------------------------------
-# Plain PyTorch versions: the JAX kernel's semantics, written with torch ops.
+# Plain PyTorch versions: the JAX kernels' semantics, written with torch ops.
 # Activations are rounded to the compute dtype after every layer; products
 # accumulate in f32 (bf16 values are upcast, so every product is exact).
 # ---------------------------------------------------------------------------
@@ -88,21 +133,19 @@ def view_proj_plain(view, k0, b0, net_width: int, compute_dtype):
             + _rounded(b0, compute_dtype).reshape(1, -1))
 
 
-def lean_mlp_plain(moments, vproj, flat_params, num_samples: int,
-                   net_depth: int, net_depth_condition: int, skip_index: int,
-                   compute_dtype, act, encode):
-    dt = compute_dtype
-    p = [_rounded(t, dt) for t in flat_params]
-    means, covs = moments[:3].t(), moments[3:].t()
-    x = _rounded(integrated_pos_enc((means, covs), *encode), dt)
-
+def _lean_body_plain(x, vproj, p, num_samples, net_depth, net_depth_condition,
+                     skip_index, dt):
+    """x [M, F] and p (params) already rounded to the compute dtype, vproj
+    [M/N, Wv] view_0's per-ray half -> (raw_rgb, raw_density, hs,
+    bottleneck, ys), the body of the JAX `_fwd_body_lean`."""
     def dense(h, i):
         return h @ p[2 * i] + p[2 * i + 1]
 
-    h = x
+    h, hs = x, []
     for i in range(net_depth):
         h = _rounded(torch.relu(dense(h, i)), dt)
-        if i % skip_index == 0 and i > 0:
+        hs.append(h)
+        if _skip_after(i, skip_index):
             h = torch.cat([h, x], dim=-1)
     density = dense(h, net_depth)
     bottleneck = _rounded(dense(h, net_depth + 1), dt)
@@ -110,13 +153,33 @@ def lean_mlp_plain(moments, vproj, flat_params, num_samples: int,
     W = bottleneck.shape[-1]
     y = bottleneck @ p[2 * iv][:W] + vproj.repeat_interleave(num_samples, 0)
     y = _rounded(torch.relu(y), dt)
+    ys = [y]
     for j in range(1, net_depth_condition):
         y = _rounded(torch.relu(dense(y, iv + j)), dt)
+        ys.append(y)
     rgb = dense(y, iv + net_depth_condition)
+    return rgb, density, hs, bottleneck, ys
+
+
+def _activate(raw_rgb, raw_density, act):
+    """Sigmoid rgb widened by rgb_padding; softplus(raw + density_bias)."""
     pad, bias = act
-    rgb = torch.sigmoid(rgb) * (1.0 + 2.0 * pad) - pad
-    z = density + bias
-    sigma = torch.clamp(z, min=0.0) + torch.log1p(torch.exp(-torch.abs(z)))
+    rgb = torch.sigmoid(raw_rgb) * (1.0 + 2.0 * pad) - pad
+    z = raw_density + bias
+    return rgb, torch.clamp(z, min=0.0) + torch.log1p(torch.exp(-torch.abs(z)))
+
+
+def lean_mlp_plain(moments, vproj, flat_params, num_samples: int,
+                   net_depth: int, net_depth_condition: int, skip_index: int,
+                   compute_dtype, act, encode):
+    dt = compute_dtype
+    p = [_rounded(t, dt) for t in flat_params]
+    means, covs = moments[:3].t(), moments[3:].t()
+    x = _rounded(integrated_pos_enc((means, covs), *encode), dt)
+    rgb, density, _, _, _ = _lean_body_plain(
+        x, vproj, p, num_samples, net_depth, net_depth_condition, skip_index,
+        dt)
+    rgb, sigma = _activate(rgb, density, act)
     return torch.cat([rgb, sigma], dim=-1)
 
 
@@ -128,6 +191,134 @@ def lean_composite_plain(rgbsig, delta, mids, white_bkgd: bool):
     zeros = torch.zeros_like(comp)
     perray = torch.cat([comp, acc[:, None], dist[:, None], zeros], dim=-1)
     return perray, w
+
+
+def lean_mlp_save_plain(x, view, flat_params, num_samples: int,
+                        net_depth: int, net_depth_condition: int,
+                        skip_index: int, compute_dtype, act):
+    """The training forward: (x [M, F] f32, view [M/N, Fv], params) ->
+    (rgb [M, 3], density [M, 1] f32 activated, saved), saved = (S [Cs, Mp]
+    compute dtype, the `saved_rows` layout, zero past M; raw heads [4, Mp]
+    f32)."""
+    dt = compute_dtype
+    p = [_rounded(t, dt) for t in flat_params]
+    M, F = x.shape
+    W = p[0].shape[1]
+    iv = 2 * (net_depth + 2)
+    Wv = p[iv].shape[1]
+    xr = _rounded(x, dt)
+    vproj = view_proj_plain(view, flat_params[iv], flat_params[iv + 1], W, dt)
+    raw_rgb, raw_d, hs, bott, ys = _lean_body_plain(
+        xr, vproj, p, num_samples, net_depth, net_depth_condition, skip_index,
+        dt)
+    rgb, density = _activate(raw_rgb, raw_d, act)
+    Mp = _round_up(M, TILE)
+    _, hs_r, bott_r, ys_r, Cs = saved_rows(F, W, Wv, net_depth,
+                                           net_depth_condition)
+    S = torch.zeros((Cs, Mp), dtype=dt, device=x.device)
+    for row, t in [(0, xr)] + list(zip(hs_r, hs)) + [(bott_r, bott)] \
+            + list(zip(ys_r, ys)):
+        S[row:row + t.shape[1], :M] = t.t().to(dt)
+    heads = torch.zeros((4, Mp), dtype=torch.float32, device=x.device)
+    heads[:3, :M] = raw_rgb.t()
+    heads[3:, :M] = raw_d.t()
+    return rgb, density, (S, heads)
+
+
+def _saved_parts(S, M, F, W, Wv, net_depth, net_depth_condition):
+    """Views of the saved stream as f32 [M, width] tiles: (x, hs,
+    bottleneck, ys)."""
+    _, hs_r, bott_r, ys_r, _ = saved_rows(F, W, Wv, net_depth,
+                                          net_depth_condition)
+
+    def rows(r, w):
+        return S[r:r + w, :M].t().float()
+    return (rows(0, F), [rows(r, W) for r in hs_r], rows(bott_r, W),
+            [rows(r, Wv) for r in ys_r])
+
+
+def lean_param_grads_plain(view, g_rgb, g_dens, saved, flat_params,
+                           num_samples: int, net_depth: int,
+                           net_depth_condition: int, skip_index: int,
+                           compute_dtype, act):
+    """The JAX `_lean_param_grads`, op for op: (view [R, Fv], head
+    cotangents g_rgb [M, 3] / g_dens [M, 1] f32, saved, params) -> f32
+    gradients in param order (kernels [in, out], biases [1, out])."""
+    dt = compute_dtype
+    S, _ = saved
+    M = g_rgb.shape[0]
+    F, W = flat_params[0].shape
+    iv = net_depth + 2
+    nvd = net_depth_condition
+    Wv = flat_params[2 * iv].shape[1]
+    N = num_samples
+    x, hs, bott, ys = _saved_parts(S, M, F, W, Wv, net_depth, nvd)
+    p = [_rounded(t, dt) for t in flat_params]
+    grads = [None] * len(flat_params)
+    cat_last = _skip_after(net_depth - 1, skip_index)
+
+    # Fold the head-activation derivatives into the cotangents, from the
+    # raw heads recomputed off the saved activations.
+    pad, bias = act
+
+    def head_raw(t, idx):
+        return t @ p[2 * idx] + p[2 * idx + 1]
+
+    sig = torch.sigmoid(head_raw(ys[-1], iv + nvd))
+    g_rgb = g_rgb * ((1.0 + 2.0 * pad) * sig * (1.0 - sig))
+    h_last = torch.cat([hs[-1], x], dim=-1) if cat_last else hs[-1]
+    g_dens = g_dens * torch.sigmoid(head_raw(h_last, net_depth) + bias)
+
+    def d_dense(idx, parts, g_out, need):
+        """dW / db of layer idx (always), d(part) where need[i]."""
+        k = p[2 * idx]
+        gb = _rounded(g_out, dt)
+        grads[2 * idx + 1] = g_out.sum(0, keepdim=True)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        out, off = [], 0
+        for t, n in zip(parts, need):
+            w = t.shape[-1]
+            dk[off:off + w] = t.t() @ gb
+            if n:
+                out.append(gb @ k[off:off + w].t())
+            off += w
+        grads[2 * idx] = dk
+        return out
+
+    # rgb head and view layers j >= 1.
+    g = d_dense(iv + nvd, [ys[-1]], g_rgb, [True])[0]
+    for j in reversed(range(1, nvd)):
+        g = torch.where(ys[j] > 0.0, g, 0.0)
+        g = d_dense(iv + j, [ys[j - 1]], g, [True])[0]
+
+    # view_0, split: per-point rows take bottleneck^T g, per-ray rows take
+    # view^T g_ray with g summed over each ray's samples first.
+    g1 = torch.where(ys[0] > 0.0, g, 0.0)
+    k0 = p[2 * iv]
+    grads[2 * iv + 1] = g1.sum(0, keepdim=True)
+    g1b = _rounded(g1, dt)
+    dk0 = torch.zeros(k0.shape, dtype=torch.float32, device=k0.device)
+    dk0[:W] = bott.t() @ g1b
+    g_ray = _rounded(g1.reshape(-1, N, Wv).sum(1), dt)
+    dk0[W:] = _rounded(view, dt).t() @ g_ray
+    grads[2 * iv] = dk0
+    g_bott = g1b @ k0[:W].t()
+
+    # Bottleneck and density read [hs[-1], x] after a last skip concat; the
+    # x halves of skip concats carry no cotangent, their kernel rows do.
+    parts = [hs[-1]] + ([x] if cat_last else [])
+    need = [True] + ([False] if cat_last else [])
+    g_trunk = d_dense(net_depth + 1, parts, g_bott, need)[0]
+    g_trunk = g_trunk + d_dense(net_depth, parts, g_dens, need)[0]
+    for i in reversed(range(net_depth)):
+        g_trunk = torch.where(hs[i] > 0.0, g_trunk, 0.0)
+        if i == 0:
+            d_dense(0, [x], g_trunk, [False])
+            break
+        skip = _skip_after(i - 1, skip_index)
+        g_trunk = d_dense(i, [hs[i - 1]] + ([x] if skip else []), g_trunk,
+                          [True] + ([False] if skip else []))[0]
+    return grads
 
 
 # ---------------------------------------------------------------------------
@@ -152,20 +343,60 @@ def _dtype_flag(compute_dtype) -> int:
                      f'{compute_dtype}')
 
 
-def _check(t, shape, fn, name, device):
-    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
-        raise ValueError(f'{fn}: {name} must be float32 {tuple(shape)}, got '
+def _check(t, shape, fn, name, device, dtype=torch.float32):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{fn}: {name} must be {dtype} {tuple(shape)}, got '
                          f'{t.dtype} {tuple(t.shape)}')
     if t.device != device:
         raise ValueError(f'{fn}: {name} is on {t.device}, expected {device}')
 
 
+def _check_mlp(flat_params, net_depth, net_depth_condition, flag, fn, dev):
+    """Widths the CUDA tilings take, 3 rgb + 1 density heads, parameters
+    on `dev`; returns (W, Wv)."""
+    W = flat_params[0].shape[1]
+    iv = 2 * (net_depth + 2)
+    Wv = flat_params[iv].shape[1]
+    align = 16 if flag else 8      # tensor-core tiles: k16/n16, k8/n8
+    for w in (W, Wv):
+        if w % align or w > MAX_WIDTH:
+            raise ValueError(f'{fn}: layer width {w} must be a multiple of '
+                             f'{align} and at most {MAX_WIDTH}')
+    if flat_params[iv + 2 * net_depth_condition].shape[1] != 3 \
+            or flat_params[2 * net_depth].shape[1] != 1:
+        raise ValueError(f'{fn}: heads must be 3 rgb + 1 density')
+    for t in flat_params:
+        if t.device != dev:
+            raise ValueError(f'{fn}: parameter on {t.device}, expected {dev}')
+    return W, Wv
+
+
+def _kernel_params(flat_params, compute_dtype):
+    """Kernels in the compute dtype, biases rounded through it (f32), and
+    ctypes arrays of their pointers (keep all four alive over the call)."""
+    ws = [t.detach().to(compute_dtype).contiguous() for t in flat_params[0::2]]
+    bs = [_rounded(t.detach(), compute_dtype).reshape(-1).contiguous()
+          for t in flat_params[1::2]]
+    n = len(ws)
+    w_ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in ws])
+    b_ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in bs])
+    return ws, bs, w_ptrs, b_ptrs
+
+
+def _ints(values):
+    return (ctypes.c_int * len(values))(*values)
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of csrc/lean_render.cu (pointers and the stream as void*).
+# C signatures of csrc/<lib>.cu (pointers and the stream as void*).
 _ARGTYPES = {
     'lean_view_proj': [_P] * 4 + [_I] * 5 + [_P],
     'lean_mlp': [_P] * 4 + [_I, _P] + [_I] * 10 + [_F, _F, _I, _P],
     'lean_composite': [_P] * 5 + [_I] * 3 + [_P],
+    'lean_save_fwd': [_P] * 4 + [_I] + [_P] * 4 + [_F, _F, _I, _P],
+    'lean_param_grads': ([_P] * 6 + [_I] + [_P] * 5 + [_I, _P, _I, _I, _P, _I,
+                                                        _P, _I, _I]
+                         + [_P] * 3 + [_I, _P, _F, _F, _I, _P]),
 }
 
 
@@ -173,7 +404,8 @@ def _call(fn_name: str, device, *args):
     """Launch one kernel on the current stream of `device`; raise if the
     launch was refused (the C entry returns cudaGetLastError())."""
     from mipnerf_pl_tpu_torch.kernels import _build
-    fn = getattr(_build.load('lean_render'), fn_name)
+    lib = KERNELS[fn_name][0].rsplit('/', 1)[1][:-len('.cu')]
+    fn = getattr(_build.load(lib), fn_name)
     fn.argtypes = _ARGTYPES[fn_name]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):       # launch on the tensors' card
@@ -220,9 +452,9 @@ def lean_mlp(moments, vproj, flat_params: Sequence[torch.Tensor],
     M = moments.shape[1]
     N = num_samples
     R = M // N
-    W = flat_params[0].shape[1]
-    Wv = flat_params[2 * (net_depth + 2)].shape[1]
     dev = moments.device
+    W, Wv = _check_mlp(flat_params, net_depth, net_depth_condition, flag,
+                       'lean_mlp', dev)
     _check(moments, (6, M), 'lean_mlp', 'moments', dev)
     _check(vproj, (R, Wv), 'lean_mlp', 'vproj', dev)
     if M != R * N or M == 0:
@@ -231,31 +463,13 @@ def lean_mlp(moments, vproj, flat_params: Sequence[torch.Tensor],
     if flat_params[0].shape[0] != 6 * L:
         raise ValueError(f'lean_mlp: trunk_0 takes {flat_params[0].shape[0]}'
                          f' inputs, the encode has {6 * L}')
-    align = 16 if flag else 8      # tensor-core tiles: k16/n16, k8/n8
-    for w in (W, Wv):
-        if w % align or w > MAX_WIDTH:
-            raise ValueError(f'lean_mlp: layer width {w} must be a multiple '
-                             f'of {align} and at most {MAX_WIDTH}')
-    if flat_params[2 * (net_depth + 2) + 2 * net_depth_condition].shape[1] \
-            != 3 or flat_params[2 * net_depth].shape[1] != 1:
-        raise ValueError('lean_mlp: heads must be 3 rgb + 1 density')
-    ws = [t.detach().to(compute_dtype).contiguous()
-          for t in flat_params[0::2]]
-    bs = [_rounded(t.detach(), compute_dtype).reshape(-1).contiguous()
-          for t in flat_params[1::2]]
-    for t in ws + bs:
-        if t.device != dev:
-            raise ValueError(f'lean_mlp: parameter on {t.device}, expected '
-                             f'{dev}')
-    n = len(ws)
-    w_ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in ws])
-    b_ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in bs])
+    ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
     moments = moments.contiguous()
     vproj = vproj.contiguous()
     out = torch.empty((M, 4), dtype=torch.float32, device=dev)
     pad, bias = act
     _call('lean_mlp', dev, moments.data_ptr(), vproj.data_ptr(),
-          ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs), n,
+          ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs), len(ws),
           out.data_ptr(), M, N, R, L, min_deg, net_depth,
           net_depth_condition, skip_index, W, Wv, pad, bias, flag)
     launches['lean_mlp'] += 1
@@ -311,3 +525,245 @@ def fused_mlp_lean_render(x, view, delta, mids, flat_params,
     perray, w = lean_composite(rgbsig, delta.float(), mids.float(),
                                white_bkgd)
     return perray[:, 0:3], perray[:, 4:5], perray[:, 3:4], w
+
+
+# ---------------------------------------------------------------------------
+# Training: fused_mlp_lean(mode='save').
+# ---------------------------------------------------------------------------
+
+def _train_dims(M, N, F, Fv, W, Wv, net_depth, net_depth_condition,
+                skip_index):
+    """The C entries' dims: M, Mp, N, R, F, Fp, Fv, depth, depth_cond, skip,
+    W, Wv."""
+    return [M, _round_up(M, TILE), N, M // N, F, _round_up(F, 16), Fv,
+            net_depth, net_depth_condition, skip_index, W, Wv]
+
+
+def wgrad_problems(shapes, net_depth: int, net_depth_condition: int,
+                   skip_index: int):
+    """Weight-gradient products of the CUDA backward, from the kernel
+    shapes [(in, out), ...] in param order.
+
+    Returns (problems, tiles, kernel offsets in dw, bias offsets in db,
+    view_off): problem = (first row of A in the saved stream, K rows, first
+    row of the cotangent in G, n columns, offset of its first output in
+    dw, row stride in dw), dW[r][c] = sum over points of S[a + r] G[g + c];
+    tiles = (problem, row0, col0) of every WGRAD_TILE-square output tile.
+    Bias gradients and G rows share one layout: every layer's out columns
+    in param order.  view_0's per-ray rows (view_off in dw) are not a
+    problem: they take view^T g_ray."""
+    F, W = shapes[0]
+    iv = net_depth + 2
+    Wv = shapes[iv][1]
+    _, hs, bott, ys, _ = saved_rows(F, W, Wv, net_depth, net_depth_condition)
+    dw_off, b_off, o_dw, o_b = [], [], 0, 0
+    for k, n in shapes:
+        dw_off.append(o_dw)
+        b_off.append(o_b)
+        o_dw += k * n
+        o_b += n
+    probs = []
+
+    def add(a_row0, K, layer, row0):
+        n = shapes[layer][1]
+        probs.append((a_row0, K, b_off[layer], n, dw_off[layer] + row0 * n, n))
+
+    def inputs(layer, h_row, width, after):
+        add(h_row, width, layer, 0)
+        if _skip_after(after, skip_index):
+            add(0, F, layer, width)      # the encode rows of a skip concat
+
+    add(0, F, 0, 0)
+    for i in range(1, net_depth):
+        inputs(i, hs[i - 1], W, i - 1)
+    for layer in (net_depth, net_depth + 1):
+        inputs(layer, hs[-1], W, net_depth - 1)
+    add(bott, W, iv, 0)
+    for j in range(1, net_depth_condition):
+        add(ys[j - 1], Wv, iv + j, 0)
+    add(ys[-1], Wv, iv + net_depth_condition, 0)
+    tiles = [(i, r0, c0) for i, (_, K, _, n, _, _) in enumerate(probs)
+             for r0 in range(0, K, WGRAD_TILE)
+             for c0 in range(0, n, WGRAD_TILE)]
+    return probs, tiles, dw_off, b_off, dw_off[iv] + W * Wv
+
+
+def lean_save_fwd(x, view, flat_params: Sequence[torch.Tensor],
+                  num_samples: int, net_depth: int, net_depth_condition: int,
+                  skip_index: int, compute_dtype, act):
+    """(x [M, F] f32 encode rows, view [M/N, Fv] f32, params) ->
+    (rgb [M, 3], density [M, 1] f32 activated, saved = (S [Cs, Mp] compute
+    dtype in the `saved_rows` layout, raw heads [4, Mp] f32))."""
+    if _on_cpu(x, 'lean_save_fwd'):
+        return lean_mlp_save_plain(x, view, flat_params, num_samples,
+                                   net_depth, net_depth_condition, skip_index,
+                                   compute_dtype, act)
+    flag = _dtype_flag(compute_dtype)
+    dev = x.device
+    M, F = x.shape
+    N = num_samples
+    R, Fv = view.shape
+    W, Wv = _check_mlp(flat_params, net_depth, net_depth_condition, flag,
+                       'lean_save_fwd', dev)
+    _check(x, (M, F), 'lean_save_fwd', 'x', dev)
+    _check(view, (R, Fv), 'lean_save_fwd', 'view', dev)
+    if M != R * N or M == 0:
+        raise ValueError(f'lean_save_fwd: {M} points is not {R} rays x '
+                         f'num_samples={N}')
+    if flat_params[0].shape[0] != F:
+        raise ValueError(f'lean_save_fwd: trunk_0 takes '
+                         f'{flat_params[0].shape[0]} inputs, x has {F}')
+    iv = 2 * (net_depth + 2)
+    vproj = view_proj(view, flat_params[iv], flat_params[iv + 1], W,
+                      compute_dtype)
+    ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
+    dims = _train_dims(M, N, F, Fv, W, Wv, net_depth, net_depth_condition,
+                       skip_index)
+    Mp = dims[1]
+    Cs = saved_rows(F, W, Wv, net_depth, net_depth_condition)[-1]
+    x = x.contiguous()
+    out = torch.empty((M, 4), dtype=torch.float32, device=dev)
+    S = torch.empty((Cs, Mp), dtype=compute_dtype, device=dev)
+    heads = torch.empty((4, Mp), dtype=torch.float32, device=dev)
+    pad, bias = act
+    c_dims = _ints(dims)
+    _call('lean_save_fwd', dev, x.data_ptr(), vproj.data_ptr(),
+          ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs), len(ws),
+          out.data_ptr(), S.data_ptr(), heads.data_ptr(),
+          ctypes.addressof(c_dims), pad, bias, flag)
+    launches['lean_save_fwd'] += 1
+    return out[:, :3], out[:, 3:], (S, heads)
+
+
+def lean_param_grads(view, g_rgb, g_dens, saved, flat_params,
+                     num_samples: int, net_depth: int,
+                     net_depth_condition: int, skip_index: int,
+                     compute_dtype, act):
+    """(view [R, Fv] f32, head cotangents g_rgb [M, 3] / g_dens [M, 1] f32,
+    saved from lean_save_fwd, params) -> f32 gradients of every parameter
+    in param order (kernels [in, out], biases [1, out])."""
+    if _on_cpu(view, 'lean_param_grads'):
+        return lean_param_grads_plain(view, g_rgb, g_dens, saved,
+                                      flat_params, num_samples, net_depth,
+                                      net_depth_condition, skip_index,
+                                      compute_dtype, act)
+    flag = _dtype_flag(compute_dtype)
+    dev = view.device
+    S, heads = saved
+    M = g_rgb.shape[0]
+    N = num_samples
+    R, Fv = view.shape
+    F = flat_params[0].shape[0]
+    W, Wv = _check_mlp(flat_params, net_depth, net_depth_condition, flag,
+                       'lean_param_grads', dev)
+    dims = _train_dims(M, N, F, Fv, W, Wv, net_depth, net_depth_condition,
+                       skip_index)
+    Mp = dims[1]
+    Cs = saved_rows(F, W, Wv, net_depth, net_depth_condition)[-1]
+    fn = 'lean_param_grads'
+    if M != R * N or M == 0:
+        raise ValueError(f'{fn}: {M} points is not {R} rays x '
+                         f'num_samples={N}')
+    _check(view, (R, Fv), fn, 'view', dev)
+    _check(g_rgb, (M, 3), fn, 'g_rgb', dev)
+    _check(g_dens, (M, 1), fn, 'g_dens', dev)
+    _check(S, (Cs, Mp), fn, 'saved stream', dev, compute_dtype)
+    _check(heads, (4, Mp), fn, 'saved heads', dev)
+    shapes = [tuple(t.shape) for t in flat_params[0::2]]
+    probs, tiles, dw_off, b_off, view_off = wgrad_problems(
+        shapes, net_depth, net_depth_condition, skip_index)
+    iv = net_depth + 2
+    ks = [t.detach() for t in flat_params[0::2]]
+    # Chain kernels k[:in_h]^T [out, in_h] of the layers the cotangent runs
+    # back through (their x rows carry none).
+    chain = {i: ks[i][:W] for i in range(1, net_depth)}
+    chain[net_depth + 1] = ks[net_depth + 1][:W]
+    chain[iv] = ks[iv][:W]
+    chain.update({iv + j: ks[iv + j] for j in range(1, net_depth_condition)})
+    chain = {i: k.t().to(compute_dtype).contiguous() for i, k in chain.items()}
+    c_chain = (ctypes.c_void_p * len(ks))(
+        *[chain[i].data_ptr() if i in chain else None for i in range(len(ks))])
+    k_den = ks[net_depth].to(compute_dtype).contiguous()
+    k_rgb = ks[iv + net_depth_condition].to(compute_dtype).contiguous()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_chain = min(Mp // TILE, 2 * sms)
+    # Split the points so that ~8 blocks per SM share the products.
+    want = max(1, -(-8 * sms // len(tiles)))
+    mc = _round_up(-(-Mp // want), WGRAD_STAGE)
+    splits = -(-Mp // mc)
+    PW = dw_off[-1] + shapes[-1][0] * shapes[-1][1]
+    Cg = b_off[-1] + shapes[-1][1]
+    f32 = dict(dtype=torch.float32, device=dev)
+    G = torch.empty((Cg, Mp), dtype=compute_dtype, device=dev)
+    g1f = torch.empty((Wv, Mp), **f32)
+    db_part = torch.empty((n_chain, Cg), **f32)
+    partial = torch.zeros((splits, PW), **f32)
+    g_ray = torch.empty((R, Wv), dtype=compute_dtype, device=dev)
+    dw = torch.empty(PW, **f32)
+    db = torch.empty(Cg, **f32)
+    g_rgb, g_dens, view = (t.contiguous() for t in (g_rgb, g_dens, view))
+    c_probs = _ints([v for pr in probs for v in pr])
+    c_tiles = _ints([v for tl in tiles for v in tl])
+    c_dims = _ints(dims)
+    pad, bias = act
+    _call(fn, dev, S.data_ptr(), heads.data_ptr(), g_rgb.data_ptr(),
+          g_dens.data_ptr(), view.data_ptr(), ctypes.addressof(c_chain),
+          len(ks), k_den.data_ptr(), k_rgb.data_ptr(), G.data_ptr(),
+          g1f.data_ptr(), db_part.data_ptr(), n_chain, partial.data_ptr(),
+          splits, mc, ctypes.addressof(c_probs), len(probs),
+          ctypes.addressof(c_tiles), len(tiles), PW, g_ray.data_ptr(),
+          dw.data_ptr(), db.data_ptr(), view_off, ctypes.addressof(c_dims),
+          pad, bias, flag)
+    launches['lean_param_grads'] += 1
+    grads = []
+    for (k, n), o_w, o_b in zip(shapes, dw_off, b_off):
+        grads += [dw[o_w:o_w + k * n].view(k, n), db[o_b:o_b + n].view(1, n)]
+    return grads
+
+
+class _LeanSave(torch.autograd.Function):
+    """lean_save_fwd forward, lean_param_grads backward; x and view get no
+    gradient (their producers are parameter-free, and resampling is
+    detached under stop_resample_grad, which MipNerf enforces)."""
+
+    @staticmethod
+    def forward(ctx, x, view, cfg, *flat):
+        rgb, density, saved = lean_save_fwd(x, view, flat, *cfg)
+        ctx.cfg = cfg
+        ctx.save_for_backward(view, *saved, *flat)
+        return rgb, density
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_rgb, g_dens):
+        view, S, heads, *flat = ctx.saved_tensors
+        grads = lean_param_grads(view, g_rgb.float(), g_dens.float(),
+                                 (S, heads), flat, *ctx.cfg)
+        return (None, None, None,
+                *[g.reshape(p.shape) for g, p in zip(grads, flat)])
+
+
+def fused_mlp_lean(x, view, flat_params, num_samples: int, net_depth: int,
+                   net_depth_condition: int, skip_index: int,
+                   compute_dtype=torch.float32, mode: str = 'save', act=None):
+    """Lean MLP with a parameter-gradient backward: (x [M, F] f32 encode
+    rows, view [M/num_samples, Fv] per ray, flat params) -> (rgb [M, 3],
+    density [M, 1]) f32, activated with act = (rgb_padding, density_bias).
+
+    mode='save': the forward also keeps every activation (the compute
+    dtype) and the backward reads them back; the only mode ported.  The
+    backward gives gradients to the parameters only: x and view get none,
+    as the JAX function gives them zero cotangents."""
+    if net_depth_condition < 1:
+        raise ValueError('fused_mlp_lean requires net_depth_condition >= 1 '
+                         '(the view branch); use the "xla" backend for '
+                         'net_depth_condition == 0')
+    if mode != 'save':
+        raise NotImplementedError(f'fused_mlp_lean mode {mode!r} is not '
+                                  "ported yet (only 'save')")
+    if act is None:
+        raise ValueError('fused_mlp_lean requires act=(rgb_padding, '
+                         'density_bias)')
+    cfg = (num_samples, net_depth, net_depth_condition, skip_index,
+           compute_dtype, (float(act[0]), float(act[1])))
+    return _LeanSave.apply(x.float(), view.float(), cfg, *flat_params)

@@ -1,9 +1,16 @@
 """MipNerf: coarse-to-fine cone-cast rendering with one shared MLP.
 
-Counterpart of mipnerf_pl_tpu/models/mipnerf.py, bounded scenes, forward
-(render) path.  Level 0 samples stratified, level >= 1 resamples from the
-previous level's weights; each level encodes its cone Gaussians with the
-IPE, runs the MLP and composites.
+Counterpart of mipnerf_pl_tpu/models/mipnerf.py, bounded scenes.  Level 0
+samples stratified, level >= 1 resamples from the previous level's weights;
+each level encodes its cone Gaussians with the IPE, runs the MLP and
+composites.
+
+Training with 'pallas_lean_save' runs the lean training kernels on the
+encode rows; they apply the head activations themselves (when the model's
+activations are the defaults and density_noise is 0, as in JAX), and the
+activated heads are composited by the plain `volumetric_rendering` with
+autograd through it.  The lean backends give the encoded inputs no
+gradient, so they require stop_resample_grad (checked at construction).
 
 With a lean backend and `fuse_render` (what MipNeRFSystem's eval model
 selects for val.mlp_backend='auto'), each level runs the fused lean-render
@@ -15,7 +22,7 @@ the port render fusion implies `fuse_encode`.
 Knobs that steer TPU-only machinery (`channel_major`, `lean_input_cast`,
 `fast_encode_math`, `pallas_encode`, `mxu_cumsum`) are accepted and have no
 effect.  The unbounded-360 mode, `ipe_backend='pallas'` and the training
-kernels are not ported yet.
+forms of 'pallas_lean' and 'pallas_hybrid' are not ported yet.
 """
 
 from __future__ import annotations
@@ -84,6 +91,17 @@ class MipNerf(nn.Module):
             raise NotImplementedError(rgb_activation)
         if density_activation not in ('softplus', 'relu'):
             raise NotImplementedError(density_activation)
+        if (mlp_backend in LEAN_BACKENDS + ('pallas_hybrid',)
+                and not stop_resample_grad):
+            # The lean kernels' backward gives the encoded inputs no
+            # gradient; that is exact only while stop_resample_grad blocks
+            # the one parameter-dependent input path (level-0 weights ->
+            # level-1 resampled positions).
+            raise ValueError(
+                f'nerf.mlp_backend={mlp_backend!r} requires '
+                f'nerf.stop_resample_grad=True (its backward produces '
+                f'parameter gradients only); use the "xla" or "pallas" '
+                f'backend to train with resample gradients enabled')
         self.num_samples = num_samples
         self.num_levels = num_levels
         self.resample_padding = resample_padding
@@ -101,13 +119,13 @@ class MipNerf(nn.Module):
         self.disable_integration = disable_integration
         self.append_identity = append_identity
         self.mlp_backend = mlp_backend
-        # The lean render kernels apply the default head activations
-        # themselves; density noise sits between raw head and activation,
-        # so fusion needs it off (the same gate as the JAX model).
-        fused_act = (mlp_backend in LEAN_BACKENDS and use_viewdirs
-                     and density_activation == 'softplus'
-                     and density_noise == 0.0)
-        self._fused_render = (fuse_render and fused_act
+        # The lean kernels apply the default head activations themselves;
+        # density noise sits between raw head and activation, so fusion
+        # needs it off (the same gate as the JAX model).
+        self._fused_act = (mlp_backend in LEAN_BACKENDS and use_viewdirs
+                           and density_activation == 'softplus'
+                           and density_noise == 0.0)
+        self._fused_render = (fuse_render and self._fused_act
                               and mlp_num_rgb_channels == 3
                               and mlp_num_density_channels == 1
                               and mlp_net_depth_condition >= 1)
@@ -124,7 +142,7 @@ class MipNerf(nn.Module):
             net_activation=mlp_net_activation, compute_dtype=compute_dtype,
             backend=mlp_backend,
             fused_activation=((float(rgb_padding), float(density_bias))
-                              if fused_act else None),
+                              if self._fused_act else None),
             generator=generator)
 
     def _density_act(self, x):
@@ -179,13 +197,19 @@ class MipNerf(nn.Module):
                                              self.min_deg_point,
                                              self.max_deg_point)
             raw_rgb, raw_density = self.mlp(samples_enc, viewdirs_enc)
-            if randomized and self.density_noise > 0:
-                raw_density = raw_density + self.density_noise * torch.randn(
-                    raw_density.shape, dtype=raw_density.dtype,
-                    device=raw_density.device, generator=generator)
-            rgb = torch.sigmoid(raw_rgb)
-            rgb = rgb * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
-            density = self._density_act(raw_density + self.density_bias)
+            if self._fused_act:
+                # The lean kernel applied the activations already.
+                rgb, density = raw_rgb, raw_density
+            else:
+                if randomized and self.density_noise > 0:
+                    raw_density = raw_density + self.density_noise * \
+                        torch.randn(raw_density.shape,
+                                    dtype=raw_density.dtype,
+                                    device=raw_density.device,
+                                    generator=generator)
+                rgb = torch.sigmoid(raw_rgb)
+                rgb = rgb * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
+                density = self._density_act(raw_density + self.density_bias)
             comp_rgb, distance, acc, weights = volumetric_rendering(
                 rgb, density, t_samples, rays.directions, white_bkgd)
             ret.append(LevelOutput(comp_rgb, distance, acc, weights,

@@ -9,9 +9,15 @@ Backends:
   'xla'   the plain forward (torch ops; named after the JAX backend it
           mirrors, so the same configs select it)
   'pallas_lean' | 'pallas_lean_save'
-          the render path only: the fused lean-render level kernels
-          (kernels/mlp.py) through `render=`.  Their training forms are not
-          ported yet.
+          the render path: the fused lean-render level kernels
+          (kernels/mlp.py) through `render=`.
+  'pallas_lean_save'
+          training: `fused_mlp_lean` (mode 'save'), the counterpart of the
+          JAX `_call_pallas_lean`: f32 encode rows, view features per ray,
+          the head activations applied in the kernel (`fused_activation`
+          is required), parameter gradients only.  The training forms of
+          'pallas_lean' (recompute) and 'pallas_hybrid' are not ported yet.
+Without view directions every backend runs the plain forward, as in JAX.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mipnerf_pl_tpu_torch.kernels.mlp import (flatten_params,
+from mipnerf_pl_tpu_torch.kernels.mlp import (flatten_params, fused_mlp_lean,
                                               fused_mlp_lean_render)
 
 LEAN_BACKENDS = ('pallas_lean', 'pallas_lean_save')
@@ -50,7 +56,7 @@ class MLP(nn.Module):
         self.compute_dtype = compute_dtype
         self.backend = backend
         # (rgb_padding, density_bias) of the head activations the lean
-        # render kernel applies in place; None = raw heads.
+        # kernels apply in place; None = raw heads.
         self.fused_activation = fused_activation
 
         dim_in = xyz_dim
@@ -83,17 +89,21 @@ class MLP(nn.Module):
         """x [B, N, F] encoded samples (or, with `render`, the [6, B, N]
         moments), view_direction [B, Fv] per ray.
 
-        Returns (raw_rgb [B, N, 3], raw_density [B, N, nd]) f32, or with
-        `render` = (delta [B, N], mids [B, N], white_bkgd) and `encode` =
-        (min_deg, max_deg) the per-ray (comp_rgb [B, 3], dist_raw [B],
-        acc [B], weights [B, N]) of the lean render kernels."""
+        Returns (raw_rgb [B, N, 3], raw_density [B, N, nd]) f32 (activated
+        on the 'pallas_lean_save' training path), or with `render` =
+        (delta [B, N], mids [B, N], white_bkgd) and `encode` = (min_deg,
+        max_deg) the per-ray (comp_rgb [B, 3], dist_raw [B], acc [B],
+        weights [B, N]) of the lean render kernels."""
         if render is not None:
             return self._lean_render(x, view_direction, *render, encode)
-        if self.backend != 'xla':
-            raise NotImplementedError(
-                f'mlp backend {self.backend!r} is ported for the render '
-                'path only (render=...); use backend "xla"')
-        return self._plain(x, view_direction)
+        if self.backend == 'xla' or view_direction is None:
+            return self._plain(x, view_direction)
+        if self.backend == 'pallas_lean_save' and encode is None:
+            return self._lean_save(x, view_direction)
+        raise NotImplementedError(
+            f'mlp backend {self.backend!r} is ported for the render path '
+            '(render=...), and for training as "pallas_lean_save" with '
+            'encode rows; use backend "xla" or "pallas_lean_save"')
 
     def _plain(self, x, view_direction):
         """The JAX 'xla' forward: a concatenated input is split into
@@ -146,17 +156,37 @@ class MLP(nn.Module):
         return (raw_rgb.reshape(*lead, self.num_rgb_channels).float(),
                 raw_density.reshape(*lead, self.num_density_channels).float())
 
+    def _check_lean_heads(self, what: str):
+        if self.num_rgb_channels != 3 or self.num_density_channels != 1:
+            raise ValueError(f'{what} requires 3 rgb channels and 1 density '
+                             'channel')
+        if self.fused_activation is None:
+            raise ValueError(f'{what} requires fused_activation')
+
+    def _lean_save(self, x, view_direction):
+        """Training form of 'pallas_lean_save': x [B, N, F] f32 encode
+        rows, view_direction [B, Fv] -> activated (rgb [B, N, 3], density
+        [B, N, 1]); gradients reach the parameters only."""
+        self._check_lean_heads('the lean training kernels')
+        num_samples = x.shape[-2]
+        lead = x.shape[:-1]
+        flat = flatten_params(self, self.net_depth, self.net_depth_condition)
+        rgb, density = fused_mlp_lean(
+            x.reshape(-1, x.shape[-1]),
+            view_direction.reshape(-1, view_direction.shape[-1]), flat,
+            num_samples, self.net_depth, self.net_depth_condition,
+            self.skip_index, self.compute_dtype, 'save',
+            self.fused_activation)
+        return rgb.reshape(*lead, 3), density.reshape(*lead, 1)
+
     def _lean_render(self, moments, view_direction, delta, mids, white_bkgd,
                      encode):
         if self.backend not in LEAN_BACKENDS:
             raise ValueError('render fusion requires a lean backend, got '
                              f'{self.backend!r}')
-        if self.num_rgb_channels != 3 or self.num_density_channels != 1:
-            raise ValueError('render fusion requires 3 rgb channels and 1 '
-                             'density channel')
-        if self.fused_activation is None or view_direction is None:
-            raise ValueError('render fusion requires fused_activation and '
-                             'view directions')
+        self._check_lean_heads('render fusion')
+        if view_direction is None:
+            raise ValueError('render fusion requires view directions')
         num_samples = moments.shape[-1]
         lead = moments.shape[1:-1]
         flat = flatten_params(self, self.net_depth, self.net_depth_condition)

@@ -1,9 +1,10 @@
-"""Volumetric compositing.
+"""Volumetric compositing and the distortion loss.
 
-Counterpart of mipnerf_pl_tpu/ops/render.py:volumetric_rendering.  The
-per-ray composite over (delta, mids) planes is `composite`; it is also the
-plain version the fused lean-render kernel's composite is checked against
-(kernels/mlp.py).  Kept in float32 whatever the MLP's compute dtype.
+Counterpart of mipnerf_pl_tpu/ops/render.py: volumetric_rendering and
+distloss.  The per-ray composite over (delta, mids) planes is `composite`;
+it is also the plain version the fused lean-render kernel's composite is
+checked against (kernels/mlp.py).  Kept in float32 whatever the MLP's
+compute dtype.
 """
 
 from __future__ import annotations
@@ -55,3 +56,22 @@ def volumetric_rendering(rgb, density, t_samples, dirs, white_bkgd: bool):
     comp_rgb, dist_raw, acc, weights = composite(rgb, density[..., 0], delta,
                                                  mids, white_bkgd)
     return comp_rgb, clamp_distance(dist_raw, t_samples), acc, weights
+
+
+def distloss(weights, t_samples):
+    """Distortion regularizer of mip-NeRF 360 (uni- + bilateral terms),
+    per-ray sums, batch mean: weights [B, N], t_samples [B, N+1] sorted
+    ascending.  The bilateral sum_ij w_i w_j |m_i - m_j| is the O(N)
+    prefix-sum identity 2 sum_i w_i (m_i W_<i - (wm)_<i), valid because the
+    midpoints ascend."""
+    interval = t_samples[..., 1:] - t_samples[..., :-1]
+    mid_points = 0.5 * (t_samples[..., 1:] + t_samples[..., :-1])
+    loss_uni = (1.0 / 3.0) * torch.mean(
+        torch.sum(interval * weights ** 2, dim=-1))
+    wm = weights * mid_points
+    # Exclusive prefix sums: contributions of all j < i.
+    w_before = torch.cumsum(weights, dim=-1) - weights
+    wm_before = torch.cumsum(wm, dim=-1) - wm
+    loss_bi = 2.0 * torch.mean(torch.sum(
+        weights * (mid_points * w_before - wm_before), dim=-1))
+    return loss_uni + loss_bi

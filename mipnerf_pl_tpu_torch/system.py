@@ -1,15 +1,24 @@
-"""MipNeRFSystem, render half.
+"""MipNeRFSystem: the training step and the renders.
 
-Counterpart of mipnerf_pl_tpu/train/system.py: the same eval-model
-selection from `val.mlp_backend` ('auto' picks the fused lean-render path
-when the model config supports it, else the plain forward), and the
-full-image renders behind eval and video: `render_camera` builds the rays
-on the device from a Camera, `render_image` takes a ray bundle.  Both run
-fixed-size chunks (the last one edge-padded, its results sliced away) in a
-Python loop; there is no jit to build.  Parameters are passed in, as in the
-JAX system, as the MipNerf state dict (convert.py maps a flax tree to it).
+Counterpart of mipnerf_pl_tpu/train/system.py.
 
-Training, data loading, checkpoints and the CLIs are not ported yet.
+Training: `init_state`, `loss_fn` (masked MSE per level plus
+distloss_mult * distloss, coarse_loss_mult on the coarser levels),
+`train_step` (one Adam step with the mip LR schedule) and `make_train_many`
+(K steps over stacked batches in a Python loop, each step's generator
+seeded from (base seed, step) as the JAX trainer folds the step into its
+key).  The state's parameters and Adam moments are updated in place.
+
+Rendering: the same eval-model selection from `val.mlp_backend` ('auto'
+picks the fused lean-render path when the model config supports it, else
+the plain forward), and the full-image renders behind eval and video:
+`render_camera` builds the rays on the device from a Camera, `render_image`
+takes a ray bundle.  Both run fixed-size chunks (the last one edge-padded,
+its results sliced away) in a Python loop; there is no jit to build.
+Parameters are passed in, as in the JAX system, as the MipNerf state dict
+(convert.py maps a flax tree to it).
+
+Data loading, `fit`, checkpoints and the CLIs are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,8 +32,12 @@ from torch.func import functional_call
 from mipnerf_pl_tpu_torch import config
 from mipnerf_pl_tpu_torch.models.mipnerf import make_mipnerf_from_hparams
 from mipnerf_pl_tpu_torch.ops.camera import Camera, camera_rays
+from mipnerf_pl_tpu_torch.ops.render import distloss
 from mipnerf_pl_tpu_torch.rays import (Rays, namedtuple_map, rays_flatten,
                                        rays_pad_to)
+from mipnerf_pl_tpu_torch.train.opt import adam, adam_step
+from mipnerf_pl_tpu_torch.train.schedule import mip_lr_decay
+from mipnerf_pl_tpu_torch.utils.metrics import calc_psnr
 
 
 def _render_fusion_ok(hparams: Dict[str, Any]) -> bool:
@@ -48,7 +61,8 @@ def _compute_dtype(hparams) -> torch.dtype:
 
 
 class MipNeRFSystem:
-    """Owns the model and its render-time twin on one device."""
+    """Owns the model, its render-time twin and the optimizer schedule on
+    one device."""
 
     def __init__(self, hparams: Dict[str, Any], device='cpu'):
         config.warn_inert_keys(hparams)
@@ -81,8 +95,18 @@ class MipNeRFSystem:
         self.model.to(self.device)
         self.eval_model.to(self.device)
         self.val_randomized = bool(hparams['val.randomized'])
+        self.train_randomized = bool(hparams['train.randomized'])
         self.white_bkgd = bool(hparams['train.white_bkgd'])
         self.val_chunk_size = int(hparams['val.chunk_size'])
+        self.lr_schedule = mip_lr_decay(
+            hparams['optimizer.lr_init'], hparams['optimizer.lr_final'],
+            hparams['optimizer.max_steps'],
+            hparams['optimizer.lr_delay_steps'],
+            hparams['optimizer.lr_delay_mult'])
+        self.coarse_loss_mult = float(hparams['loss.coarse_loss_mult'])
+        self.distloss_mult = float(hparams.get('loss.distloss_mult', 0.01))
+        self.disable_multiscale_loss = bool(
+            hparams['loss.disable_multiscale_loss'])
 
     def init_params(self, seed: Optional[int] = None
                     ) -> Dict[str, torch.Tensor]:
@@ -94,6 +118,104 @@ class MipNeRFSystem:
                                           _compute_dtype(self.hparams),
                                           generator=gen)
         return {k: v.to(self.device) for k, v in fresh.state_dict().items()}
+
+    # -- training --------------------------------------------------------
+    def init_state(self, seed: Optional[int] = None,
+                   params: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, Any]:
+        """{'params': the state dict as leaf tensors that require grad,
+        'opt_state': Adam over them, 'step': 0}.  The params are
+        `init_params(seed)`, or copies of `params` when given."""
+        params = self.init_params(seed) if params is None else params
+        params = {k: v.detach().to(self.device, torch.float32).clone()
+                  .requires_grad_(True) for k, v in params.items()}
+        return {'params': params, 'opt_state': adam(list(params.values())),
+                'step': 0}
+
+    def _on_device(self, x):
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                               dtype=torch.float32, device=self.device)
+
+    def loss_fn(self, params, rays: Rays, pixels,
+                generator: Optional[torch.Generator] = None):
+        """-> (loss, aux): the masked MSE of every level plus distloss_mult
+        * distloss, the coarser levels weighted by coarse_loss_mult."""
+        ret = functional_call(self.model, params,
+                              (rays, self.train_randomized, self.white_bkgd),
+                              {'generator': generator})
+        mask = rays.lossmult
+        if self.disable_multiscale_loss:
+            mask = torch.ones_like(mask)
+        mask_sum = torch.sum(mask)
+        gt = pixels[..., :3]
+        losses, dists = [], []
+        for level in ret:
+            losses.append(torch.sum(mask * (level.rgb - gt) ** 2) / mask_sum)
+            dists.append(distloss(level.weights, level.t_samples)
+                         if self.distloss_mult != 0.0
+                         else torch.zeros((), device=gt.device))
+        loss = losses[-1] + self.distloss_mult * dists[-1]
+        for mse_c, dist_c in zip(losses[:-1], dists[:-1]):
+            loss = loss + self.coarse_loss_mult * (
+                mse_c + self.distloss_mult * dist_c)
+        with torch.no_grad():
+            aux = {'loss': loss.detach(),
+                   'train/psnr': calc_psnr(ret[-1].rgb, gt),
+                   'train/psnr_coarse': calc_psnr(ret[0].rgb, gt),
+                   'train/mse_fine': losses[-1].detach(),
+                   'train/distloss_fine': dists[-1].detach()}
+        return loss, aux
+
+    def value_and_grad(self, params, rays: Rays, pixels,
+                       generator: Optional[torch.Generator] = None):
+        """-> ((loss, aux), {name: gradient}) of loss_fn."""
+        names = list(params)
+        loss, aux = self.loss_fn(params, rays, pixels, generator)
+        grads = torch.autograd.grad(loss, [params[k] for k in names])
+        return (loss.detach(), aux), dict(zip(names, grads))
+
+    def train_step(self, state, rays: Rays, pixels,
+                   generator: Optional[torch.Generator] = None):
+        """One Adam step with lr = schedule(step).  Updates
+        state['params'], the Adam moments and state['step'] IN PLACE and
+        returns (state, aux).  Rays and pixels may be numpy or torch."""
+        rays = namedtuple_map(self._on_device, rays)
+        (_, aux), grads = self.value_and_grad(
+            state['params'], rays, self._on_device(pixels), generator)
+        lr = adam_step(state['opt_state'], list(grads.values()),
+                       state['step'], self.lr_schedule)
+        aux['lr'] = torch.tensor(lr)
+        state['step'] += 1
+        return state, aux
+
+    def step_generator(self, base_seed: int, step: int) -> torch.Generator:
+        """Training step `step`'s generator, seeded from (base_seed, step):
+        the counterpart of jax.random.fold_in(PRNGKey(base_seed), step)."""
+        seed = np.random.SeedSequence([int(base_seed), int(step)])
+        return torch.Generator(device=self.device).manual_seed(
+            int(seed.generate_state(1, np.uint64)[0] >> 1))
+
+    def make_train_many(self):
+        """K steps per call: fn(state, rays_stack [K, B, ...], pixels_stack
+        [K, B, 3], base_seed) -> (state, aux stacked over K).  Step k draws
+        from a generator seeded from (base_seed, state['step']), so resuming
+        mid-run replays the same draws as single steps.  Updates the state
+        IN PLACE, as train_step does."""
+
+        def train_many(state, rays_stack: Rays, pixels_stack, base_seed: int):
+            rays_stack = namedtuple_map(self._on_device, rays_stack)
+            pixels_stack = self._on_device(pixels_stack)
+            auxs = []
+            for k in range(pixels_stack.shape[0]):
+                gen = self.step_generator(base_seed, state['step'])
+                state, aux = self.train_step(
+                    state, namedtuple_map(lambda x: x[k], rays_stack),
+                    pixels_stack[k], gen)
+                auxs.append(aux)
+            return state, {name: torch.stack([a[name] for a in auxs])
+                           for name in auxs[0]}
+
+        return train_many
 
     # -- rendering -------------------------------------------------------
     @staticmethod
@@ -156,9 +278,7 @@ class MipNeRFSystem:
         -> dict of numpy images, as render_camera."""
         chunk = chunk_size or self.val_chunk_size
         h, w = rays.origins.shape[-3:-1]
-        rays = namedtuple_map(lambda x: torch.as_tensor(
-            np.asarray(x) if not torch.is_tensor(x) else x,
-            dtype=torch.float32, device=self.device), rays)
+        rays = namedtuple_map(self._on_device, rays)
         return self._to_image(
             self._render_flat(params, rays_flatten(rays), chunk, generator,
                               need_coarse), h, w)

@@ -9,7 +9,13 @@ neither), so on the card it runs without tests/conftest.py:
 Inputs are numpy-seeded; the plain reference runs on the card in f32 with
 TF32 off.  f32 kernels: max |d| <= 1e-4 (f32 sums in another order over
 K <= 352).  bf16 kernels: max |d| / max |ref| <= 3e-2 against the f32
-plain version (bench.py's bar for bf16).
+plain version (bench.py's bar for bf16).  Parameter gradients, with both
+backwards fed the same saved stream (the plain forward's, in the compute
+dtype): the largest leaf relative error ||a - b|| / ||b|| (bench.py's
+metric) against the f32 plain backward, <= 1e-4 in f32 and <= 3e-2 in
+bf16.  Fed the kernel forward's own stream instead, the f32 gradients move
+by ~3e-3 at 393,216 points: the forwards differ by ~1e-6, which flips the
+ReLU mask of every pre-activation that close to zero.
 """
 
 import numpy as np
@@ -116,7 +122,8 @@ def test_cuda_kernels_match_plain(cuda_device, shape, dtype):
     got = run_port(prob, cfg, dt, device=cuda_device)
     torch.cuda.synchronize()
     assert tk.launches == {'lean_view_proj': 1, 'lean_mlp': 1,
-                           'lean_composite': 1}
+                           'lean_composite': 1, 'lean_save_fwd': 0,
+                           'lean_param_grads': 0}
     want = _plain_on(prob, cfg, cuda_device)      # f32 plain reference
     for name, a, b in zip(('comp', 'dist', 'acc', 'weights'), got, want):
         assert np.all(np.isfinite(a)), name
@@ -144,3 +151,105 @@ def test_cuda_composite_matches_plain(cuda_device):
         want = tk.lean_composite_plain(rs, delta, mids, white)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def train_problem(R, N, net_depth, net_width, net_depth_condition,
+                  net_width_condition, skip_index, deg, Fv, seed=0):
+    """problem() with encode rows x [M, F] (the IPE of its moments) in
+    place of the moments, and numpy-seeded head cotangents."""
+    from mipnerf_pl_tpu_torch.ops.math import integrated_pos_enc
+    moments, view, _, _, flat = problem(
+        R, N, net_depth, net_width, net_depth_condition, net_width_condition,
+        skip_index, deg, Fv, seed)
+    m = torch.tensor(moments)
+    x = integrated_pos_enc((m[:3].t(), m[3:].t()), *deg).numpy()
+    rng = np.random.default_rng(seed + 1)
+    g_rgb = rng.normal(size=(R * N, 3)).astype(np.float32)
+    g_dens = rng.normal(size=(R * N, 1)).astype(np.float32)
+    return x, view, flat, g_rgb, g_dens
+
+
+def max_leaf_rel_err(got, want):
+    return max(float(torch.linalg.norm(a.double() - b.double())
+                     / (torch.linalg.norm(b.double()) + 1e-12))
+               for a, b in zip(got, want))
+
+
+TRAIN_SHAPES = {
+    # 37 rays x 8 = 296 points, ragged against the 64-point tile (the
+    # padded points must add nothing to any gradient); the trunk ends on a
+    # skip concat, so density and bottleneck read [h, x].
+    'small': (37, dict(SMALL, net_width=64, net_width_condition=32)),
+    # two view layers (the chain's view loop), 24 samples: rays straddle
+    # the 64-point tiles at unaligned boundaries.
+    'view2': (29, dict(SMALL, net_depth=4, net_width=64,
+                       net_depth_condition=2, net_width_condition=32, N=24)),
+    'lego': (96, LEGO),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(TRAIN_SHAPES))
+def test_cuda_lean_save_matches_plain(cuda_device, shape, dtype):
+    """lean_save_fwd and lean_param_grads against lean_mlp_save_plain and
+    lean_param_grads_plain (f32) on the card: outputs, saved activations,
+    raw heads and every parameter gradient."""
+    R, cfg = TRAIN_SHAPES[shape]
+    arrays = train_problem(R, **cfg)
+    x, view, g_rgb, g_dens = (torch.tensor(a, device=cuda_device)
+                              for a in (arrays[0], arrays[1], arrays[3],
+                                        arrays[4]))
+    flat = [torch.tensor(p, device=cuda_device) for p in arrays[2]]
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'])
+    act = (0.001, -1.0)
+    dt = getattr(torch, dtype)
+    in_saved = tk.lean_mlp_save_plain(x, view, flat, *args, dt, act)[2]
+    tk.reset_launches()
+    rgb, dens, saved = tk.lean_save_fwd(x, view, flat, *args, dt, act)
+    grads = tk.lean_param_grads(view, g_rgb, g_dens, in_saved, flat, *args,
+                                dt, act)
+    torch.cuda.synchronize()
+    assert tk.launches['lean_save_fwd'] == 1
+    assert tk.launches['lean_param_grads'] == 1
+    ref_rgb, ref_dens, ref_saved = tk.lean_mlp_save_plain(
+        x, view, flat, *args, torch.float32, act)
+    ref_grads = tk.lean_param_grads_plain(view, g_rgb, g_dens, in_saved,
+                                          flat, *args, torch.float32, act)
+    M = x.shape[0]
+    pairs = [(rgb, ref_rgb), (dens, ref_dens),
+             (saved[0][:, :M].float(), ref_saved[0][:, :M].float()),
+             (saved[1][:, :M], ref_saved[1][:, :M])]
+    for i, (a, b) in enumerate(pairs):
+        assert torch.isfinite(a).all(), i
+        err = float((a - b).abs().max())
+        if dtype == 'float32':
+            assert err <= 1e-4, (i, err)
+        else:
+            assert err / max(float(b.abs().max()), 1e-6) <= 3e-2, (i, err)
+    assert [g.shape for g in grads] == [g.shape for g in ref_grads]
+    assert all(torch.isfinite(g).all() for g in grads)
+    bar = 1e-4 if dtype == 'float32' else 3e-2
+    assert max_leaf_rel_err(grads, ref_grads) <= bar
+
+
+@pytest.mark.cuda
+def test_cuda_fused_mlp_lean_autograd(cuda_device):
+    """The autograd Function on the card: gradients of the parameters
+    through backward() equal lean_param_grads, x and view get none."""
+    cfg = dict(SMALL, net_width=64, net_width_condition=32)
+    x, view, flat, g_rgb, g_dens = train_problem(21, **cfg)
+    x, view, g_rgb, g_dens = (torch.tensor(a, device=cuda_device)
+                              for a in (x, view, g_rgb, g_dens))
+    flat = [torch.tensor(p, device=cuda_device, requires_grad=True)
+            for p in flat]
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], torch.float32)
+    rgb, dens = tk.fused_mlp_lean(x, view, flat, *args, 'save', (0.001, -1.0))
+    ((rgb * g_rgb).sum() + (dens * g_dens).sum()).backward()
+    _, _, saved = tk.lean_save_fwd(x, view, flat, *args, (0.001, -1.0))
+    want = tk.lean_param_grads(view, g_rgb, g_dens, saved, flat, *args,
+                               (0.001, -1.0))
+    for p, w in zip(flat, want):
+        torch.testing.assert_close(p.grad, w.reshape(p.shape), rtol=0, atol=0)

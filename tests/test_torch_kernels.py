@@ -7,6 +7,12 @@ view features, delta/mids planes and parameters.  f32 tolerance 1e-5: the
 JAX kernel decodes the IPE with ~1e-6-accurate polynomial exp/sin and sums
 the transmittance with a triangular matmul, the port with libm and cumsum.
 
+The training kernels' plain versions (`fused_mlp_lean`, mode 'save',
+through its autograd Function) against the JAX `fused_mlp_lean` with its
+custom VJP, Pallas in interpret mode: forward at rtol = atol = 1e-5 and
+parameter gradients at 2e-4 in f32 (the bars of tests/test_fused_mlp.py),
+2e-2 in bf16 (one bf16 ulp is 2^-8 relative; sums run in another order).
+
 The CUDA kernels against their plain versions on the card are in
 test_torch_cuda.py.
 """
@@ -18,7 +24,8 @@ import torch
 
 from mipnerf_pl_tpu.kernels import mlp as jk
 from mipnerf_pl_tpu_torch.kernels import mlp as tk
-from tests.test_torch_cuda import SMALL, problem as _problem, run_port
+from tests.test_torch_cuda import (SMALL, problem as _problem, run_port,
+                                   train_problem)
 
 
 
@@ -99,3 +106,147 @@ def test_wrapper_rejects_other_devices_and_dtypes():
 def test_param_order_matches_jax():
     assert tk.param_order(8, 1) == jk.param_order(8, 1)
     assert tk.param_order(3, 2) == jk.param_order(3, 2)
+
+
+ACT = (0.001, -1.0)
+
+
+def _lean_args(cfg):
+    return (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'])
+
+
+def _jax_lean_save(arrays, cfg, dtype):
+    """JAX fused_mlp_lean(mode='save'): outputs and the VJP of the
+    parameters for the head cotangents."""
+    import jax
+    x, view, flat, g_rgb, g_dens = arrays
+
+    def f(fl):
+        return jk.fused_mlp_lean(jnp.asarray(x), jnp.asarray(view), fl,
+                                 *_lean_args(cfg), dtype, None, 'save', ACT,
+                                 False, None)
+    (rgb, dens), vjp = jax.vjp(f, tuple(jnp.asarray(p) for p in flat))
+    (grads,) = vjp((jnp.asarray(g_rgb), jnp.asarray(g_dens)))
+    return [np.asarray(rgb), np.asarray(dens)], [np.asarray(g) for g in grads]
+
+
+def _port_lean_save(arrays, cfg, dtype):
+    """The port's fused_mlp_lean through autograd (the plain versions)."""
+    x, view, flat, g_rgb, g_dens = (torch.tensor(a) if not isinstance(a, list)
+                                    else a for a in arrays)
+    params = [torch.tensor(p, requires_grad=True) for p in flat]
+    rgb, dens = tk.fused_mlp_lean(x, view, params, *_lean_args(cfg), dtype,
+                                  'save', ACT)
+    ((rgb * g_rgb).sum() + (dens * g_dens).sum()).backward()
+    return ([rgb.detach().numpy(), dens.detach().numpy()],
+            [p.grad.numpy() for p in params])
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('cfg', [
+    SMALL,
+    dict(SMALL, net_depth=4, net_depth_condition=2, net_width=32,
+         net_width_condition=16),
+], ids=['d3', 'd4_v2'])
+def test_lean_save_plain_matches_jax(cfg, dtype):
+    """Forward and every parameter gradient; 37 rays x 8 samples is ragged
+    against both the JAX row tile and the CUDA 64-point tile, and d3 ends
+    its trunk on a skip concat (density and bottleneck read [h, x])."""
+    arrays = train_problem(37, **cfg)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    (j_out, j_grads), (t_out, t_grads) = (_jax_lean_save(arrays, cfg, jdt),
+                                          _port_lean_save(arrays, cfg, tdt))
+    fwd_tol, grad_tol = (1e-5, 2e-4) if dtype == 'float32' else (2e-2, 2e-2)
+    for a, b in zip(t_out, j_out):
+        np.testing.assert_allclose(a, b, rtol=fwd_tol, atol=fwd_tol)
+    assert len(t_grads) == len(j_grads)
+    for i, (a, b) in enumerate(zip(t_grads, j_grads)):
+        assert a.shape == b.shape, i
+        np.testing.assert_allclose(a, b, rtol=grad_tol, atol=grad_tol,
+                                   err_msg=f'leaf {i}')
+
+
+def test_lean_param_grads_plain_is_autograd_of_forward():
+    """The explicit transcription of _lean_param_grads equals
+    torch.autograd through lean_mlp_save_plain (f32: the forward's
+    roundings are exact there, so autograd is the true gradient)."""
+    cfg = dict(SMALL, net_depth=4, net_depth_condition=2)
+    x, view, flat, g_rgb, g_dens = (torch.tensor(a) if not isinstance(a, list)
+                                    else a
+                                    for a in train_problem(13, **cfg))
+    params = [torch.tensor(p, requires_grad=True) for p in flat]
+    rgb, dens, saved = tk.lean_mlp_save_plain(x, view, params,
+                                              *_lean_args(cfg),
+                                              torch.float32, ACT)
+    want = torch.autograd.grad((rgb * g_rgb).sum() + (dens * g_dens).sum(),
+                               params)
+    got = tk.lean_param_grads_plain(view, g_rgb, g_dens, saved, params,
+                                    *_lean_args(cfg), torch.float32, ACT)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_lean_save_saved_stream_layout():
+    """The saved stream holds X | hs | bottleneck | ys channel-major, zero
+    past M, and the raw heads the activations came from."""
+    cfg = SMALL
+    x, view, flat, _, _ = (torch.tensor(a) if not isinstance(a, list) else
+                           [torch.tensor(p) for p in a]
+                           for a in train_problem(5, **cfg))
+    rgb, dens, (S, heads) = tk.lean_save_fwd(x, view, flat, *_lean_args(cfg),
+                                             torch.float32, ACT)
+    M, F = x.shape
+    Fp, hs, bott, ys, Cs = tk.saved_rows(F, 16, 16, 3, 1)
+    assert S.shape == (Cs, tk._round_up(M, tk.TILE)) == (Fp + 4 * 16 + 16, 64)
+    torch.testing.assert_close(S[:F, :M].t(), x)
+    assert torch.all(S[:, M:] == 0) and torch.all(S[F:Fp] == 0)
+    torch.testing.assert_close(torch.relu(S[hs[0]:hs[0] + 16, :M].t()
+                                          @ flat[2] + flat[3]),
+                               S[hs[1]:hs[1] + 16, :M].t())
+    act_rgb, act_d = tk._activate(heads[:3, :M].t(), heads[3:, :M].t(), ACT)
+    torch.testing.assert_close(act_rgb, rgb)
+    torch.testing.assert_close(act_d, dens)
+
+
+@pytest.mark.parametrize('depth,dcond,skip', [(3, 1, 2), (4, 2, 2), (8, 1, 4)])
+def test_wgrad_problems_cover_every_weight_once(depth, dcond, skip):
+    """The CUDA backward's weight-gradient problems write every kernel
+    entry exactly once, except view_0's per-ray rows (view^T g_ray), and
+    each problem reads its layer's input rows of the saved stream."""
+    F, W, Wv, Fv = 24, 32, 16, 15
+    shapes, d_in = [], F
+    for i in range(depth):
+        shapes.append((d_in, W))
+        d_in = W + (F if i % skip == 0 and i > 0 else 0)
+    shapes += [(d_in, 1), (d_in, W), (W + Fv, Wv)]
+    shapes += [(Wv, Wv)] * (dcond - 1) + [(Wv, 3)]
+    probs, tiles, dw_off, b_off, view_off = tk.wgrad_problems(
+        shapes, depth, dcond, skip)
+    Fp, hs, bott, ys, _ = tk.saved_rows(F, W, Wv, depth, dcond)
+    covered = np.zeros(dw_off[-1] + shapes[-1][0] * shapes[-1][1], int)
+    for a_row0, K, g_row0, n, out, ld in probs:
+        assert a_row0 in [0] + hs + [bott] + ys and g_row0 in b_off
+        layer = b_off.index(g_row0)
+        assert (n, ld) == (shapes[layer][1],) * 2
+        for r in range(K):
+            covered[out + r * ld:out + r * ld + n] += 1
+    view_rows = np.arange(view_off, view_off + Fv * Wv)
+    assert np.all(covered[view_rows] == 0)
+    covered[view_rows] = 1
+    assert np.all(covered == 1)
+    assert {t[0] for t in tiles} == set(range(len(probs)))
+    assert b_off[-1] + 3 == sum(n for _, n in shapes)
+
+
+def test_lean_training_form_rejects():
+    x = torch.zeros(8, 24)
+    with pytest.raises(NotImplementedError):
+        tk.fused_mlp_lean(x, None, [], 8, 3, 1, 2, mode='recompute', act=ACT)
+    with pytest.raises(ValueError):
+        tk.fused_mlp_lean(x, None, [], 8, 3, 1, 2)
+    with pytest.raises(ValueError):
+        tk.fused_mlp_lean(x, None, [], 8, 3, 0, 2, act=ACT)
+    with pytest.raises(ValueError):
+        tk.lean_save_fwd(torch.zeros(8, 24, device='meta'), None, [], 8, 3,
+                         1, 2, torch.float32, ACT)

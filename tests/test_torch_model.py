@@ -172,9 +172,12 @@ def test_mipnerf_randomized_runs_with_generator():
     assert all(torch.isfinite(lv.rgb).all() for lv in a)
 
 
-def test_training_backends_not_ported_raise():
+@pytest.mark.parametrize('backend', ['pallas_lean', 'pallas_hybrid'])
+def test_training_backends_not_ported_raise(backend):
+    """The training forms of the recompute and hybrid lean backends are not
+    ported: their forward raises instead of computing something else."""
     _, trays = _rays()
-    port = MipNerf(**KW, mlp_backend='pallas_lean_save')
+    port = MipNerf(**KW, mlp_backend=backend)
     with pytest.raises(NotImplementedError):
         port(trays, False, True)
     with pytest.raises(NotImplementedError):
@@ -183,6 +186,42 @@ def test_training_backends_not_ported_raise():
         MipNerf(**KW, no_such_knob=True)
     MipNerf(**KW, channel_major=True, mxu_cumsum=False, pallas_encode=True,
             fast_encode_math=True, lean_input_cast=True)
+
+
+@pytest.mark.parametrize('backend',
+                         ['pallas_lean', 'pallas_lean_save', 'pallas_hybrid'])
+def test_lean_backends_require_stop_resample_grad(backend):
+    """The lean backward gives the encoded inputs no gradient, so with
+    resample gradients on it would drop the level-0 -> level-1 term: the
+    model refuses the combination, as the JAX model does."""
+    with pytest.raises(ValueError, match='stop_resample_grad'):
+        MipNerf(**KW, mlp_backend=backend, stop_resample_grad=False)
+    MipNerf(**KW, mlp_backend=backend)
+    MipNerf(**KW, mlp_backend='xla', stop_resample_grad=False)
+    with pytest.raises(ValueError, match='stop_resample_grad'):
+        JMipNerf(**KW, mlp_backend=backend, stop_resample_grad=False).init(
+            jax.random.PRNGKey(0), _rays()[0], None, False, True)
+
+
+def test_lean_save_training_forward_matches_plain():
+    """MipNerf(mlp_backend='pallas_lean_save') trains through the lean
+    kernels' plain versions with the activations fused, and its levels and
+    parameter gradients equal the plain model's."""
+    _, trays = _rays(seed=1)
+    lean = MipNerf(**KW, mlp_backend='pallas_lean_save')
+    plain = MipNerf(**KW)
+    plain.load_state_dict(lean.state_dict())
+    assert lean._fused_act and lean.mlp.fused_activation is not None
+    outs = [m(trays, False, True) for m in (lean, plain)]
+    for la, lb in zip(*outs):
+        for name in ('rgb', 'distance', 'acc', 'weights', 't_samples'):
+            torch.testing.assert_close(getattr(la, name), getattr(lb, name),
+                                       rtol=1e-5, atol=1e-6, msg=name)
+    for m, o in zip((lean, plain), outs):
+        sum(lv.rgb.sum() + lv.weights.sum() for lv in o).backward()
+    for (name, a), b in zip(lean.named_parameters(), plain.parameters()):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-6,
+                                   msg=name)
 
 
 def test_eval_backend_selection():
