@@ -16,25 +16,32 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      render kernel must launch 2 levels x 5 chunks times, the image must be
      finite, and the same frame through the plain path on the card must
      agree (max |d rgb|, max |d acc| <= 1e-3 in f32);
-  5. the training kernels (lean_save_fwd, lean_param_grads) against their
-     plain versions at the lego level shape (3072 rays x 128 samples, x rows
-     the IPE of seeded rays, seeded head cotangents), f32 and bf16: outputs,
-     saved activations and raw heads at the phase-3 bars against the f32
-     plain version; parameter gradients, both backwards fed the plain
-     forward's saved stream in the compute dtype (the same inputs), at
-     bench.py's metric (largest leaf ||a - b|| / ||b||) against the f32
-     plain backward: <= 1e-4 in f32, <= 3e-2 in bf16; CUDA-event times;
+  5. the training kernels against their plain versions at the lego level
+     shape (3072 rays x 128 samples, x rows the IPE of seeded rays, seeded
+     head cotangents), f32 and bf16, bars against the f32 plain version:
+     lean_save_fwd and lean_fwd (outputs, saved activations, raw heads) at
+     the phase-3 bars, lean_fwd bit for bit equal to lean_save_fwd's
+     outputs; lean_param_grads and lean_param_grads_hybrid fed the same
+     activations as their plain versions (the plain forward's, in the
+     compute dtype), at bench.py's metric (largest leaf ||a - b|| / ||b||):
+     <= 1e-4 f32 (hybrid too), <= 3e-2 bf16; lean_param_grads_recompute
+     against lean_param_grads on the kernel forward's stream (the same
+     forward re-run chunk by chunk): <= 1e-5 in both dtypes, two runs equal
+     bit for bit, and its peak memory below one level-sized saved stream;
+     CUDA-event times of every kernel and its plain version;
   6. the training slice through its entry points: MipNeRFSystem (lego
-     schema, nerf.mlp_backend pallas_lean_save, 3072 synthetic rays as
-     bench.py makes them), bf16 then f32: a one-step gradient-parity gate
-     against the same system on the plain 'xla' backend (largest leaf
-     relative error <= 3e-2 bf16, bench.py's bar; <= 2e-3 f32: the two
-     forwards differ by ~1e-6, which flips the ReLU masks of pre-activations
-     that close to zero, and each flip moves a whole per-point term), then
-     K = 5 steps of
-     make_train_many, in which each training kernel must launch 2 levels x 5
-     times and the loss must stay finite; ms/step, rays/s and peak memory of
-     the kernel and plain paths, in turns k p p k;
+     schema, 3072 synthetic rays as bench.py makes them) on each of
+     nerf.mlp_backend pallas_lean_save, pallas_lean and pallas_hybrid, bf16
+     then f32: a one-step gradient-parity gate against the same system on
+     the plain 'xla' backend (largest leaf relative error <= 3e-2 bf16,
+     bench.py's bar; <= 2e-3 f32: the two forwards differ by ~1e-6, which
+     flips the ReLU masks of pre-activations that close to zero, and each
+     flip moves a whole per-point term), then K = 5 steps of
+     make_train_many, in which each of the backend's training kernels must
+     launch 2 levels x 5 times and the loss must stay finite; ms/step,
+     rays/s and peak memory of every backend and of the plain path, in
+     turns p s r h h r s p; and one f32 gate of pallas_lean with
+     density_noise 1.0, whose kernels return raw heads (act=None);
   7. the kernels' JSON line, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 
@@ -42,7 +49,7 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 
 adds, before phase 7, the frame times at 800x800 (kernel and plain paths,
 f32 and bf16, in turns k p p k), a torch.profiler table of one 200x200
-kernel-path frame, and one of a bf16 kernel-path train step.
+kernel-path frame, and one of a bf16 train step of each lean backend.
 
 It imports torch, numpy and the port; never JAX.  With no CUDA device it
 exits non-zero before printing any result.
@@ -75,6 +82,13 @@ FULL_SIDE = 800         # the lego test views' size (--measure)
 TRAIN_RAYS = 3072       # train.batch_size of the lego schema
 TRAIN_K = 5             # steps per make_train_many call
 RENDER_KERNELS = ('lean_view_proj', 'lean_mlp', 'lean_composite')
+# Each lean training backend -> the kernels its step must launch per level.
+TRAIN_KERNELS = {
+    'pallas_lean_save': ('lean_save_fwd', 'lean_param_grads'),
+    'pallas_lean': ('lean_fwd', 'lean_param_grads_recompute'),
+    'pallas_hybrid': ('lean_param_grads_hybrid',),
+}
+RECOMPUTE_BAR = 1e-5    # recompute vs save: only the f32 bias sums' order
 F32_BAR = 1e-4
 BF16_BAR = 3e-2
 F32_GATE_BAR = 2e-3     # see phase 6 in the docstring
@@ -272,8 +286,8 @@ def leaf_names(hp):
 
 
 def compare_train_kernels(params, hp, dev):
-    """Phase 5: lean_save_fwd and lean_param_grads against their plain
-    versions at the lego level shape, f32 and bf16."""
+    """Phase 5: the training kernels against their plain versions at the
+    lego level shape, f32 and bf16."""
     args = (hp['nerf.num_samples'], hp['nerf.mlp.net_depth'],
             hp['nerf.mlp.net_depth_condition'], hp['nerf.mlp.skip_index'])
     flat = flat_params(params, hp)
@@ -291,13 +305,64 @@ def compare_train_kernels(params, hp, dev):
         return km.lean_param_grads_plain(view, g_rgb, g_dens, saved, flat,
                                          *args, dt, ACT)
 
+    def recompute(dt):
+        return km.lean_param_grads_recompute(x, view, g_rgb, g_dens, flat,
+                                             *args, dt, ACT)
+
+    def hybrid(dt, res, kernel=True):
+        fn = (km.lean_param_grads_hybrid if kernel
+              else km.lean_param_grads_hybrid_plain)
+        return fn(view, g_rgb, g_dens, res, flat, *args, dt, ACT)
+
+    def fwd_err(got, ref, dt):
+        """(max |d|, bar text, ok) at the phase-3 bars."""
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        if dt == torch.float32:
+            return err, f'max|d| <= {F32_BAR}', err <= F32_BAR
+        rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(got, ref))
+        return err, f'max|d|/max|ref| = {rel:.3e} <= {BF16_BAR}', \
+            rel <= BF16_BAR
+
+    def report(name, tag, ok, text, err, ms, plain_ms):
+        log(f'[kernel] {name} {tag}: {text}; kernel {ms:.3f} ms  plain '
+            f'{plain_ms:.3f} ms  {"OK" if ok else "FAIL"}')
+        if not ok:
+            raise AssertionError(f'{name} {tag} disagrees with its plain '
+                                 'version')
+        results[(name, tag)] = dict(err=err, ms=ms, plain_ms=plain_ms)
+
     ref = plain_fwd(torch.float32)
     ref_parts = fwd_parts(ref)
+    ref_out = km.lean_fwd_plain(x, view, flat, *args, torch.float32, ACT)
     results = {}
     for dt in (torch.float32, torch.bfloat16):
         tag = 'f32' if dt == torch.float32 else 'bf16'
+        g_bar = F32_BAR if dt == torch.float32 else BF16_BAR
+
+        # Forwards: lean_save_fwd, and lean_fwd, which must give its bits.
         out = km.lean_save_fwd(x, view, flat, *args, dt, ACT)
-        # Both backwards read the plain forward's saved stream: the kernel
+        lf = km.lean_fwd(x, view, flat, *args, dt, ACT)
+        torch.cuda.synchronize()
+        parts = fwd_parts(out)
+        finite = all(bool(torch.isfinite(t).all()) for t in parts)
+        f_err, f_bar, f_ok = fwd_err(parts, ref_parts, dt)
+        report('lean_save_fwd', tag, finite and f_ok,
+               f'max|d| {f_err:.3e} ({f_bar})', f_err,
+               cuda_ms(lambda: km.lean_save_fwd(x, view, flat, *args, dt,
+                                                ACT)),
+               cuda_ms(lambda: plain_fwd(dt)))
+        same = all(torch.equal(a, b) for a, b in zip(lf, out[:2]))
+        l_err, l_bar, l_ok = fwd_err(lf, ref_out, dt)
+        report('lean_fwd', tag, same and l_ok,
+               f'max|d| {l_err:.3e} ({l_bar}); bit-equal to lean_save_fwd '
+               f'{same}', l_err,
+               cuda_ms(lambda: km.lean_fwd(x, view, flat, *args, dt, ACT)),
+               cuda_ms(lambda: km.lean_fwd_plain(x, view, flat, *args, dt,
+                                                 ACT)))
+        del lf
+
+        # The save backward on the plain forward's stream: the kernel
         # forward's own stream differs by its ~1e-6 (f32), which flips the
         # ReLU masks of pre-activations that close to zero.
         saved = ref[2] if dt == torch.float32 else plain_fwd(dt)[2]
@@ -305,49 +370,71 @@ def compare_train_kernels(params, hp, dev):
                                     dt, ACT)
         ref_grads = plain_bwd(torch.float32, saved)
         torch.cuda.synchronize()
-        parts = fwd_parts(out)
-        finite = all(bool(torch.isfinite(t).all()) for t in parts + grads)
-        f_err = max(float((a - b).abs().max())
-                    for a, b in zip(parts, ref_parts))
+        finite = all(bool(torch.isfinite(t).all()) for t in grads)
         g_abs = max(float((a - b).abs().max())
                     for a, b in zip(grads, ref_grads))
         g_err, g_leaf = leaf_rel_err(grads, ref_grads, leaf_names(hp))
+        extra = ''
         if dt == torch.float32:
-            f_ok, f_bar = f_err <= F32_BAR, f'max|d| <= {F32_BAR}'
-            g_bar = F32_BAR
             own = km.lean_param_grads(view, g_rgb, g_dens, out[2], flat,
                                       *args, dt, ACT)
             extra = (f'; fed its own forward\'s stream '
                      f'{leaf_rel_err(own, ref_grads):.3e}')
             del own
-        else:
-            f_rel = max(float((a - b).abs().max()) / float(b.abs().max())
-                        for a, b in zip(parts, ref_parts))
-            f_ok = f_rel <= BF16_BAR
-            f_bar = f'max|d|/max|ref| = {f_rel:.3e} <= {BF16_BAR}'
-            g_bar, extra = BF16_BAR, ''
-        ms_f = cuda_ms(lambda: km.lean_save_fwd(x, view, flat, *args, dt,
-                                                ACT))
-        plain_ms_f = cuda_ms(lambda: plain_fwd(dt))
-        ms_b = cuda_ms(lambda: km.lean_param_grads(
-            view, g_rgb, g_dens, saved, flat, *args, dt, ACT))
-        plain_ms_b = cuda_ms(lambda: plain_bwd(dt, saved))
-        ok_f, ok_b = finite and f_ok, finite and g_err <= g_bar
-        log(f'[kernel] lean_save_fwd {tag}: max|d| {f_err:.3e} ({f_bar}) '
-            f'kernel {ms_f:.3f} ms  plain {plain_ms_f:.3f} ms  '
-            f'{"OK" if ok_f else "FAIL"}')
-        log(f'[kernel] lean_param_grads {tag}: max leaf rel err vs the f32 '
-            f'plain backward {g_err:.3e} ({g_leaf}, <= {g_bar}){extra}; max|d| '
-            f'{g_abs:.3e}; kernel {ms_b:.3f} ms  plain {plain_ms_b:.3f} ms  '
-            f'{"OK" if ok_b else "FAIL"}')
-        if not (ok_f and ok_b):
-            raise AssertionError(f'training kernels {tag} disagree with '
-                                 'their plain versions')
-        results[('lean_save_fwd', tag)] = dict(err=f_err, ms=ms_f,
-                                               plain_ms=plain_ms_f)
-        results[('lean_param_grads', tag)] = dict(err=g_abs, ms=ms_b,
-                                                  plain_ms=plain_ms_b)
-        del out, grads, saved, ref_grads
+        report('lean_param_grads', tag, finite and g_err <= g_bar,
+               f'max leaf rel err vs the f32 plain backward {g_err:.3e} '
+               f'({g_leaf}, <= {g_bar}){extra}; max|d| {g_abs:.3e}', g_abs,
+               cuda_ms(lambda: km.lean_param_grads(
+                   view, g_rgb, g_dens, saved, flat, *args, dt, ACT)),
+               cuda_ms(lambda: plain_bwd(dt, saved)))
+        del grads, saved, ref_grads
+
+        # Recompute: against the save backward on the kernel forward's
+        # stream (the forward it re-runs), twice, and its peak memory.
+        want = km.lean_param_grads(view, g_rgb, g_dens, out[2], flat, *args,
+                                   dt, ACT)
+        level_bytes = out[2][0].numel() * out[2][0].element_size()
+        del out
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = recompute(dt)
+        torch.cuda.synchronize()
+        scratch = torch.cuda.max_memory_allocated() - base
+        again = recompute(dt)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        r_err, r_leaf = leaf_rel_err(got, want, leaf_names(hp))
+        r_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        ok = (finite and same and r_err <= RECOMPUTE_BAR
+              and scratch < level_bytes)
+        del got, again, want
+        report('lean_param_grads_recompute', tag, ok,
+               f'max leaf rel err vs lean_param_grads on the same forward '
+               f'{r_err:.3e} ({r_leaf}, <= {RECOMPUTE_BAR}); two runs '
+               f'bit-equal {same}; peak {scratch / 2 ** 30:.3f} GiB of '
+               f'scratch, a level-sized saved stream is '
+               f'{level_bytes / 2 ** 30:.3f} GiB; max|d| {r_abs:.3e}', r_abs,
+               cuda_ms(lambda: recompute(dt)),
+               cuda_ms(lambda: km.lean_param_grads_recompute_plain(
+                   x, view, g_rgb, g_dens, flat, *args, dt, ACT)))
+
+        # Hybrid: on the plain hybrid forward's residuals.
+        res = km.lean_hybrid_fwd(x, view, flat, *args, dt, ACT)[2]
+        got = hybrid(dt, res)
+        want = hybrid(torch.float32, res, kernel=False)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        h_err, h_leaf = leaf_rel_err(got, want, leaf_names(hp))
+        h_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        del got, want
+        report('lean_param_grads_hybrid', tag, finite and h_err <= g_bar,
+               f'max leaf rel err vs the f32 plain backward {h_err:.3e} '
+               f'({h_leaf}, <= {g_bar}); max|d| {h_abs:.3e}', h_abs,
+               cuda_ms(lambda: hybrid(dt, res)),
+               cuda_ms(lambda: hybrid(dt, res, kernel=False)))
+        del res
     return results
 
 
@@ -363,62 +450,77 @@ def train_run(fn, state, stack, pixels):
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
+def gradient_gate(hp, params, rays, pixels, dev, label):
+    """One value_and_grad of the kernel system and of the same system on
+    the plain 'xla' backend, the same generator seed; -> the kernel
+    system."""
+    systems = {'kernel': MipNeRFSystem(hp, device=dev),
+               'plain': MipNeRFSystem(dict(hp, **{'nerf.mlp_backend': 'xla'}),
+                                      device=dev)}
+    grads = {}
+    for name, s in systems.items():
+        st = s.init_state(params=params)
+        _, g = s.value_and_grad(st['params'], rays, pixels,
+                                s.step_generator(7, 0))
+        grads[name] = [g[k] for k in sorted(g)]
+    torch.cuda.synchronize()
+    err, leaf = leaf_rel_err(grads['kernel'], grads['plain'], sorted(params))
+    bar = BF16_BAR if hp['train.compute_dtype'] == 'bfloat16' \
+        else F32_GATE_BAR
+    log(f'[train] {label} one-step gradient parity vs xla: max leaf rel err '
+        f'{err:.3e} ({leaf}, <= {bar}) {"OK" if err <= bar else "FAIL"}')
+    if err > bar:
+        raise AssertionError(f'{label}: training gradients disagree with the '
+                             'plain path')
+    return systems['kernel']
+
+
 def train_slice(hp0, params, dev):
-    """Phase 6, bf16 then f32; -> the launch counts of the kernel path's
-    K-step run (bf16)."""
+    """Phase 6, bf16 then f32, every lean backend; -> the launch counts of
+    each backend's K-step run (bf16)."""
     rays, pixels = train_batch(TRAIN_RAYS, dev)
     K = TRAIN_K
     stack = Rays(*(f.expand(K, *f.shape).contiguous() for f in rays))
     pix = pixels.expand(K, *pixels.shape).contiguous()
     levels = hp0['nerf.num_levels']
-    counts = None
+    counts = {}
     for dtype in ('bfloat16', 'float32'):
-        hp = dict(hp0, **{'nerf.mlp_backend': 'pallas_lean_save',
-                          'train.compute_dtype': dtype})
-        systems = {'kernel': MipNeRFSystem(hp, device=dev),
-                   'plain': MipNeRFSystem(dict(hp, **{'nerf.mlp_backend':
+        hp = dict(hp0, **{'train.compute_dtype': dtype})
+        systems = {'plain': MipNeRFSystem(dict(hp, **{'nerf.mlp_backend':
                                                       'xla'}), device=dev)}
-        if not systems['kernel'].model._fused_act:
-            raise AssertionError('pallas_lean_save did not select the fused '
-                                 'lean training path')
-        grads = {}
-        for name, s in systems.items():
-            st = s.init_state(params=params)
-            _, g = s.value_and_grad(st['params'], rays, pixels,
-                                    s.step_generator(7, 0))
-            grads[name] = [g[k] for k in sorted(g)]
-        torch.cuda.synchronize()
-        err, leaf = leaf_rel_err(grads['kernel'], grads['plain'],
-                                 sorted(params))
-        bar = BF16_BAR if dtype == 'bfloat16' else F32_GATE_BAR
-        log(f'[train] {dtype} one-step gradient parity, pallas_lean_save vs '
-            f'xla: max leaf rel err {err:.3e} ({leaf}, <= {bar}) '
-            f'{"OK" if err <= bar else "FAIL"}')
-        if err > bar:
-            raise AssertionError('training gradients disagree with the plain '
-                                 'path')
-        del grads
+        for backend, names in TRAIN_KERNELS.items():
+            hb = dict(hp, **{'nerf.mlp_backend': backend})
+            system = gradient_gate(hb, params, rays, pixels, dev,
+                                   f'{dtype} {backend}')
+            if not system.model._fused_act:
+                raise AssertionError(f'{backend} did not select the fused '
+                                     'lean training path')
+            fn = system.make_train_many()
+            km.reset_launches()
+            state, aux, sec, _ = train_run(fn, system.init_state(
+                params=params), stack, pix)
+            run_counts = dict(km.launches)
+            losses = aux['loss'].cpu().numpy()
+            log(f'[train] {dtype} {backend} make_train_many K={K}: launches '
+                f'{ {n: run_counts[n] for n in names} }; loss '
+                f'{np.array2string(losses, precision=5)}; first call '
+                f'{sec:.3f} s')
+            for name in names:
+                if run_counts[name] != levels * K:
+                    raise AssertionError(f'{name} launched {run_counts[name]}'
+                                         f' times, expected {levels * K}')
+            if not np.all(np.isfinite(losses)):
+                raise AssertionError(f'non-finite training loss: {losses}')
+            counts.setdefault(backend, run_counts)
+            systems[backend] = system
+            del state
         states = {n: s.init_state(params=params) for n, s in systems.items()}
         fns = {n: s.make_train_many() for n, s in systems.items()}
-        km.reset_launches()
-        states['kernel'], aux, sec, _ = train_run(
-            fns['kernel'], states['kernel'], stack, pix)
-        run_counts = dict(km.launches)
-        losses = aux['loss'].cpu().numpy()
-        log(f'[train] {dtype} make_train_many K={K}: launches {run_counts}; '
-            f'loss {np.array2string(losses, precision=5)}; first call '
-            f'{sec:.3f} s')
-        for name in ('lean_save_fwd', 'lean_param_grads'):
-            if run_counts[name] != levels * K:
-                raise AssertionError(f'{name} launched {run_counts[name]} '
-                                     f'times, expected {levels * K}')
-        if not np.all(np.isfinite(losses)):
-            raise AssertionError(f'non-finite training loss: {losses}')
-        counts = counts or run_counts
         states['plain'], _, _, _ = train_run(fns['plain'], states['plain'],
                                              stack, pix)
-        times = {'kernel': [], 'plain': []}
-        for which in ('kernel', 'plain', 'plain', 'kernel'):
+        order = list(systems)
+        times = {n: [] for n in order}
+        for which in order + order[::-1]:
             states[which], aux, sec, peak = train_run(
                 fns[which], states[which], stack, pix)
             if not torch.isfinite(aux['loss']).all():
@@ -426,12 +528,27 @@ def train_slice(hp0, params, dev):
             times[which].append((sec, peak))
             log(f'[train] {dtype} {which}: {sec * 1e3 / K:.2f} ms/step, '
                 f'{TRAIN_RAYS * K / sec:,.0f} rays/s, peak {peak:.2f} GiB')
-        best = {w: min(t[0] for t in v) for w, v in times.items()}
-        log(f'[train] {dtype} best of 2: kernel {best["kernel"] * 1e3 / K:.2f}'
-            f' ms/step ({TRAIN_RAYS * K / best["kernel"]:,.0f} rays/s), plain '
-            f'{best["plain"] * 1e3 / K:.2f} ms/step '
-            f'({TRAIN_RAYS * K / best["plain"]:,.0f} rays/s)')
+        for which, v in times.items():
+            best = min(t[0] for t in v)
+            log(f'[train] {dtype} {which} best of 2: {best * 1e3 / K:.2f} '
+                f'ms/step ({TRAIN_RAYS * K / best:,.0f} rays/s), peak '
+                f'{max(t[1] for t in v):.2f} GiB')
         del systems, states, fns
+
+    # Raw heads on the card: density noise leaves the activations to the
+    # model, so the kernels run with act=None.
+    hn = dict(hp0, **{'nerf.mlp_backend': 'pallas_lean',
+                      'train.compute_dtype': 'float32',
+                      'nerf.density_noise': 1.0})
+    km.reset_launches()
+    system = gradient_gate(hn, params, rays, pixels, dev,
+                           'float32 pallas_lean density_noise 1.0')
+    if system.model._fused_act or system.model.mlp.fused_activation:
+        raise AssertionError('density_noise > 0 kept the fused activations')
+    if not (km.launches['lean_fwd'] and
+            km.launches['lean_param_grads_recompute']):
+        raise AssertionError(f'the raw-heads gate ran no lean kernel: '
+                             f'{km.launches}')
     return counts
 
 
@@ -499,26 +616,28 @@ def measure(hp, params, dev):
         f'(busy {dev_ms / 10 / sec:.1f}%)')
     log(events.table(sort_by='self_device_time_total', row_limit=12,
                      max_name_column_width=60))
-    systr = MipNeRFSystem(dict(hp, **{'nerf.mlp_backend': 'pallas_lean_save',
-                                      'train.compute_dtype': 'bfloat16'}),
-                          device=dev)
-    state = systr.init_state(params=params)
     rays, pixels = train_batch(TRAIN_RAYS, dev)
-    systr.train_step(state, rays, pixels, systr.step_generator(0, 0))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        systr.train_step(state, rays, pixels, systr.step_generator(0, 1))
+    for backend in TRAIN_KERNELS:
+        systr = MipNeRFSystem(dict(hp, **{'nerf.mlp_backend': backend,
+                                          'train.compute_dtype': 'bfloat16'}),
+                              device=dev)
+        state = systr.init_state(params=params)
+        systr.train_step(state, rays, pixels, systr.step_generator(0, 0))
         torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-    events = prof.key_averages()
-    dev_ms = device_ms(events)
-    log(f'[measure] profile of one bf16 kernel-path train step: wall '
-        f'{sec * 1e3:.1f} ms, device time {dev_ms:.1f} ms '
-        f'(busy {dev_ms / 10 / sec:.1f}%)')
-    log(events.table(sort_by='self_device_time_total', row_limit=15,
-                     max_name_column_width=60))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            systr.train_step(state, rays, pixels, systr.step_generator(0, 1))
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        events = prof.key_averages()
+        dev_ms = device_ms(events)
+        log(f'[measure] profile of one bf16 {backend} train step: wall '
+            f'{sec * 1e3:.1f} ms, device time {dev_ms:.1f} ms '
+            f'(busy {dev_ms / 10 / sec:.1f}%)')
+        log(events.table(sort_by='self_device_time_total', row_limit=15,
+                         max_name_column_width=60))
+        del systr, state
 
 
 def main() -> int:
@@ -602,7 +721,11 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in km.KERNELS.items():
         r = results[(name, 'f32')]
-        path_counts = counts if name in RENDER_KERNELS else train_counts
+        if name in RENDER_KERNELS:
+            path_counts = counts
+        else:
+            path_counts = next(train_counts[b] for b, names in
+                               TRAIN_KERNELS.items() if name in names)
         kernels.append({'name': name, 'route': 'cuda', 'source': source,
                         'replaces': replaces, 'launches': path_counts[name],
                         'max_abs_err': r['err'], 'ms': r['ms'],

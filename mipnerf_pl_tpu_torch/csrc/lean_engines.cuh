@@ -511,9 +511,10 @@ __device__ void mlp_tile(const T* xs, int F, T* hs, T* slab, float* heads, const
 }
 
 // Head activations of the tile into out [M, 4] f32: sigmoid rgb widened by
-// rgb_padding; softplus(raw + density_bias).
+// rgb_padding; softplus(raw + density_bias).  With act = false the raw
+// heads go out as they are.
 __device__ void write_activated(const float* heads, const MlpDims& d, int m0,
-                                float* __restrict__ out) {
+                                float* __restrict__ out, bool act = true) {
   const int tid = threadIdx.x;
   if (tid < TM && m0 + tid < d.M) {
     float4 o;
@@ -521,11 +522,11 @@ __device__ void write_activated(const float* heads, const MlpDims& d, int m0,
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       const float s = 1.f / (1.f + expf(-heads[c * TM + tid]));
-      rgb[c] = s * (1.f + 2.f * d.rgb_padding) - d.rgb_padding;
+      rgb[c] = act ? s * (1.f + 2.f * d.rgb_padding) - d.rgb_padding : heads[c * TM + tid];
     }
     const float z = heads[3 * TM + tid] + d.density_bias;
     o.x = rgb[0]; o.y = rgb[1]; o.z = rgb[2];
-    o.w = fmaxf(z, 0.f) + log1pf(expf(-fabsf(z)));
+    o.w = act ? fmaxf(z, 0.f) + log1pf(expf(-fabsf(z))) : heads[3 * TM + tid];
     reinterpret_cast<float4*>(out)[m0 + tid] = o;
   }
 }

@@ -1,20 +1,31 @@
-// Lean-save training kernels for Hopper (sm_90a), plain C interface.
+// Lean training kernels for Hopper (sm_90a), plain C interface.
 //
-// Replaces the two TPU kernels of mipnerf_pl_tpu/kernels/mlp.py
-// fused_mlp_lean(mode='save'):
+// Replaces the TPU kernels of mipnerf_pl_tpu/kernels/mlp.py fused_mlp_lean,
+// in its three modes:
 //
-//   lean_save_fwd     _fwd_kernel_lean_save (pl.pallas_call in
-//                     _run_fwd_lean_save): the lean MLP forward of each
-//                     TM-point tile (mlp_tile, lean_engines.cuh) from f32
-//                     encode rows x [M, F], cast per tile into the encode
-//                     buffer, with the head activations applied; it also
-//                     writes the activations the backward reads.
+//   lean_fwd          _fwd_kernel_lean (pl.pallas_call in _run_fwd_lean):
+//                     the lean MLP forward of each TM-point tile (mlp_tile,
+//                     lean_engines.cuh) from f32 encode rows x [M, F], cast
+//                     per tile into the encode buffer; heads activated or
+//                     raw.  Modes 'recompute' and (through lean_save_fwd)
+//                     'save'.
+//   lean_save_fwd     _fwd_kernel_lean_save (_run_fwd_lean_save): the same
+//                     kernel, which also writes the activations the
+//                     backward reads and the raw heads.
 //   lean_param_grads  _bwd_kernel_lean_save (pl.pallas_call in
 //                     _run_bwd_lean_common) through _lean_param_grads: f32
-//                     gradients of every parameter, none for x and view.
+//                     gradients of every parameter from the saved stream,
+//                     none for x and view.
+//   lean_param_grads_recompute
+//                     _bwd_kernel_lean (the same pallas_call): the same
+//                     gradients with the forward re-run chunk by chunk.
+//   lean_param_grads_hybrid
+//                     _bwd_kernel_lean_hybrid (the same pallas_call): the
+//                     same gradients from the plain forward's residuals,
+//                     one point-major stream per layer.
 //
-// Saved layout, chosen for the backward's weight-gradient products: one
-// channel-major stream S [Cs][Mp] in the compute dtype, rows
+// Saved layout of 'save', chosen for the backward's weight-gradient
+// products: one channel-major stream S [Cs][Mp] in the compute dtype, rows
 //   X (the cast encode, F rows padded to Fp) | hs[0..depth-1] | bottleneck
 //   | ys[0..depth_cond-1],
 // Mp = M rounded up to the 64-point tile.  A tile is channel-major in
@@ -23,37 +34,49 @@
 // row blocks.  The forward also keeps its raw heads [4][Mp] f32 (16 B a
 // point), so the backward folds the activation derivatives in without
 // recomputing the two head products the TPU kernel redoes per tile.
+// 'hybrid' reads the same activations as the row-major [M, width] tensors
+// its plain forward leaves (x padded to Fp columns), never packed: the
+// backward's kernels are templated on that layout (PM), and a point-major
+// A tile of dW = A^T G is a transposed ldmatrix load.  Its raw heads are
+// recomputed in the chain kernel from the residuals with f32 sums, as the
+// TPU kernel does.
 //
 // What bounds them: ~1.2 MFLOP per point forward and ~2.2 backward (the
-// cotangent chain and the weight gradients), so both are compute bound
-// on the tensor cores; the saved stream is ~5 KB a point in bf16 (2 GB a
+// cotangent chain and the weight gradients), so all are compute bound on
+// the tensor cores; the saved stream is ~5 KB a point in bf16 (2 GB a
 // level at 393,216 points), ~1 ms of HBM at 3.35 TB/s each way.
 //
 // The TPU backward sums every weight gradient in VMEM across a sequential
 // grid.  Here blocks run in parallel and a block cannot hold 2.4 MB of f32
-// sums, so the backward is two passes plus reductions, all deterministic
-// (fixed summation orders, no atomics):
+// sums, so the backward is passes plus reductions, all deterministic
+// (fixed summation orders, no atomics), over chunks of points:
+//   0. recompute only: lean_fwd_kernel re-runs the forward of the chunk
+//      into a chunk-sized S and raw heads (the same kernel and tiles as
+//      lean_fwd, so the same ReLU masks); no level-sized stream exists.
 //   1. lean_grad_chain_kernel, persistent blocks over 64-point tiles: head
 //      cotangents (activation derivatives folded in), then back through
 //      rgb -> view_j -> view_0 -> bottleneck + density -> trunk with the
-//      transposed weights on the same GEMM engines, ReLU masks from S.
-//      Each layer's output cotangent goes to G [Cg][Mp] in the compute
-//      dtype (the operand of its weight gradient); bias gradients are
-//      column sums of the f32 cotangent, per block; view_0's f32 cotangent
-//      also goes to g1f [Wv][Mp] for the per-ray sums.
+//      transposed weights on the same GEMM engines, ReLU masks from the
+//      saved activations.  Each layer's output cotangent goes to G
+//      [Cg][chunk] in the compute dtype (the operand of its weight
+//      gradient); bias gradients are column sums of the f32 cotangent, per
+//      block; view_0's f32 cotangent also goes to g1f [Wv][chunk].
 //   2. lean_wgrad_kernel: split-K tensor-core products dW = A^T G over the
-//      points (A rows of S, G rows of G), one 128 x 128 output tile per
-//      block and one point range per grid row, written as per-split
-//      partial sums, then summed by sum_rows_kernel.  In f32 the
-//      tensor-core sums restart every 128 points into round-to-nearest f32
-//      sums (FLUSH).
-//      The skip concat's x rows are problems of their own: their weight
-//      gradients accumulate, only dx is dropped.
-//   3. view_0's per-ray half: g_ray = sum over each ray's samples of the
-//      f32 cotangent, cast to the compute dtype (lean_ray_sum_kernel), and
-//      dW[W:] = cast(view)^T g_ray (lean_view_rows_kernel).
-// Padded points (m >= M) have zero head cotangents, hence zero G, and add
-// nothing to any sum.  wgmma, TMA and a multi-stage ring are later work.
+//      points, one 128 x 128 output tile per block and one MC-point range
+//      per grid row, written as per-range partial sums.  Ranges never
+//      straddle a chunk, so every mode sums the same ranges in the same
+//      order.  In f32 the tensor-core sums restart every 128 points into
+//      round-to-nearest f32 sums (FLUSH).  The skip concat's x rows are
+//      problems of their own: their weight gradients accumulate, only dx is
+//      dropped.
+//   3. g_ray = sum over each ray's samples of the f32 view_0 cotangent,
+//      cast to the compute dtype (lean_ray_sum_kernel; chunks hold whole
+//      rays).
+// After the last chunk: sum_rows_kernel adds the partial sums and the
+// per-block bias sums in order, and dW[W:] of view_0 = cast(view)^T g_ray
+// (lean_view_rows_kernel).  Padded points (m >= M) have zero head
+// cotangents, hence zero G, and add nothing to any sum.  wgmma, TMA and a
+// multi-stage ring are later work.
 
 #include "lean_engines.cuh"
 
@@ -67,20 +90,28 @@ constexpr int MAX_TILES = 192;
 constexpr int BM = 128, BN = 128, KC = 32;   // wgrad block tile, points per stage
 // Tensor-core accumulation rounds toward zero, so its error grows with the
 // number of products summed in the accumulator (~1e-4 relative after the
-// ~15k points of one split).  In f32, every FLUSH stages the accumulators
+// ~15k points of one range).  In f32, every FLUSH stages the accumulators
 // are added into round-to-nearest f32 sums on the CUDA cores and restarted
 // (~3 % of the kernel's time; in bf16 it would cost ~45 % against an error
 // far below bf16's own).
 constexpr int FLUSH = 4;
 constexpr int WGRAD_ACC = 64;                // accumulators per thread
 
-// Row offsets of S (saved) and of G (cotangents; also the offsets of the
-// bias gradients in param order).
 struct TrainDims {
   int M, Mp, N, R, F, Fp, Fv, depth, depth_cond, skip, W, Wv;
   float rgb_padding, density_bias;
-  __host__ __device__ int s_h(int i) const { return Fp + i * W; }
-  __host__ __device__ int s_y(int j) const { return Fp + (depth + 1) * W + j * Wv; }
+  int use_act;   // 1: heads activated, the backward folds the derivatives in
+  // The saved activations, in order: x | hs[0..depth-1] | bottleneck |
+  // ys[0..depth_cond-1]; s_row(a) is activation a's first row in S.
+  __host__ __device__ int a_h(int i) const { return 1 + i; }
+  __host__ __device__ int a_bot() const { return 1 + depth; }
+  __host__ __device__ int a_y(int j) const { return 2 + depth + j; }
+  __host__ __device__ int n_acts() const { return 2 + depth + depth_cond; }
+  __host__ __device__ int s_row(int a) const {
+    return a == 0 ? 0 : a <= depth + 1 ? Fp + (a - 1) * W : Fp + (depth + 1) * W + (a - a_y(0)) * Wv;
+  }
+  // Rows of G (cotangents; also the offsets of the bias gradients in param
+  // order).
   __host__ __device__ int g_t(int i) const { return i * W; }
   __host__ __device__ int g_den() const { return depth * W; }
   __host__ __device__ int g_bot() const { return depth * W + 1; }
@@ -92,11 +123,40 @@ struct TrainDims {
   }
 };
 
+// The saved activations as the backward reads them: activation a is t[a],
+// channel-major [width][Mp] (S rows; ld[a] = Mp) or point-major [M][ld[a]]
+// (PM).
+struct Acts {
+  const void* t[MAX_LAYERS];
+  int ld[MAX_LAYERS];
+};
+
+// Activation a of the tile at m0: (row, col) -> f32 value.  Point-major
+// streams hold exactly M points, so rows past them read as 0.
+template <typename T, bool PM>
+struct ActTile {
+  const T* p;
+  int ld, rows;
+  __device__ float operator()(int row, int col) const {
+    if (PM) return row < rows ? Ty<T>::to_f(p[(size_t)row * ld + col]) : 0.f;
+    return Ty<T>::to_f(p[(size_t)col * ld + row]);
+  }
+};
+
+template <typename T, bool PM>
+__device__ ActTile<T, PM> act_tile(const Acts& acts, int a, int m0, const TrainDims& d) {
+  const T* p = static_cast<const T*>(acts.t[a]);
+  const int ld = PM ? acts.ld[a] : d.Mp;
+  return ActTile<T, PM>{p + (PM ? (size_t)m0 * ld : (size_t)m0), ld, d.M - m0};
+}
+
+// The forward of the tile at blockIdx.x * TM.  Optional outputs: out [M, 4]
+// f32 (activated or raw heads), saved [Cs][Mp] and heads_out [4][Mp] (raw).
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-lean_save_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vproj, LayerPtrs p,
-                     TrainDims td, float* __restrict__ out, T* __restrict__ saved,
-                     float* __restrict__ heads_out) {
+lean_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vproj, LayerPtrs p,
+                TrainDims td, float* __restrict__ out, T* __restrict__ saved,
+                float* __restrict__ heads_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int wmax = max(td.W, td.Wv);
   T* xs = reinterpret_cast<T*>(smem_raw);          // [Fp][LD] encode tile
@@ -113,19 +173,43 @@ lean_save_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vpro
     xs[(size_t)f * LD + row] = Ty<T>::from_f(v);
   }
   __syncthreads();
-  copy_tile_out(saved, td.Mp, m0, xs, td.Fp);
+  if (saved) copy_tile_out(saved, td.Mp, m0, xs, td.Fp);
 
   const MlpDims d = td.mlp();
   mlp_tile<T>(xs, td.F, hs, slab, heads, p, d, vproj, m0, saved, td.Mp, td.Fp);
-  heads_out[(size_t)(tid / TM) * td.Mp + m0 + tid % TM] = heads[tid];
-  write_activated(heads, d, m0, out);
+  if (heads_out) heads_out[(size_t)(tid / TM) * td.Mp + m0 + tid % TM] = heads[tid];
+  if (out) write_activated(heads, d, m0, out, td.use_act != 0);
 }
 
 struct ChainPtrs {
   const void* bw[MAX_LAYERS];  // by param index: k[:in_h]^T [out][in_h], compute dtype
   const void* k_den;           // density kernel [W (+F)][1], compute dtype
   const void* k_rgb;           // rgb kernel [Wv][3], compute dtype
+  const float* b_den;          // density bias [1], f32 rounded through the compute dtype
+  const float* b_rgb;          // rgb bias [3], likewise
 };
+
+// Raw head c of point row of the tile at m0, from the saved activations
+// with f32 sums (ys[last] k_rgb + b_rgb; [hs[last], x] k_den + b_den).
+template <typename T, bool PM>
+__device__ float raw_head(const Acts& acts, const ChainPtrs& cp, const TrainDims& d, int c,
+                          int m0, int row) {
+  float s = 0.f;
+  if (c < 3) {
+    const ActTile<T, PM> y = act_tile<T, PM>(acts, d.a_y(d.depth_cond - 1), m0, d);
+    const T* k = static_cast<const T*>(cp.k_rgb);
+    for (int j = 0; j < d.Wv; ++j) s = fmaf(y(row, j), Ty<T>::to_f(k[j * 3 + c]), s);
+    return s + cp.b_rgb[c];
+  }
+  const T* k = static_cast<const T*>(cp.k_den);
+  const ActTile<T, PM> h = act_tile<T, PM>(acts, d.a_h(d.depth - 1), m0, d);
+  for (int j = 0; j < d.W; ++j) s = fmaf(h(row, j), Ty<T>::to_f(k[j]), s);
+  if ((d.depth - 1) % d.skip == 0 && d.depth - 1 > 0) {
+    const ActTile<T, PM> xa = act_tile<T, PM>(acts, 0, m0, d);
+    for (int f = 0; f < d.F; ++f) s = fmaf(xa(row, f), Ty<T>::to_f(k[d.W + f]), s);
+  }
+  return s + cp.b_den[0];
+}
 
 template <typename T>
 size_t chain_smem_bytes(int wmax, int cg) {
@@ -133,9 +217,11 @@ size_t chain_smem_bytes(int wmax, int cg) {
          sizeof(float) * (8 * TM + 2 * MAX_OUT + cg);
 }
 
-template <typename T>
+// heads [4][Mp] raw heads of the forward (channel-major acts); the
+// point-major residuals come without them and the chain recomputes them.
+template <typename T, bool PM>
 __global__ void __launch_bounds__(THREADS, 2)
-lean_grad_chain_kernel(const T* __restrict__ S, const float* __restrict__ heads,
+lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
                        const float* __restrict__ g_rgb, const float* __restrict__ g_dens,
                        ChainPtrs cp, TrainDims d, T* __restrict__ G, float* __restrict__ g1f,
                        float* __restrict__ db_part) {
@@ -157,7 +243,6 @@ lean_grad_chain_kernel(const T* __restrict__ S, const float* __restrict__ heads,
 
   Gemm gemm;
   int m0 = 0;
-  auto srow = [&](int r) { return S + (size_t)r * Mp + m0; };
   // Cotangent in the accumulators -> its column sums into dbacc, the tile
   // (compute dtype) in place over the layer input and out to G rows g_off.
   auto finish = [&](int g_off, int n, bool to_g1f) {
@@ -171,28 +256,30 @@ lean_grad_chain_kernel(const T* __restrict__ S, const float* __restrict__ heads,
     copy_tile_out(G + (size_t)g_off * Mp, Mp, m0, ga, n);
     for (int c = tid; c < n; c += THREADS) dbacc[g_off + c] += part[c] + part[MAX_OUT + c];
   };
-  auto relu_mask = [&](int s_row) {
-    const T* a = srow(s_row);
-    return [a, Mp](int row, int col, float v) {
-      return Ty<T>::to_f(a[(size_t)col * Mp + row]) > 0.f ? v : 0.f;
-    };
+  auto relu_mask = [&](int a) {
+    const ActTile<T, PM> t = act_tile<T, PM>(acts, a, m0, d);
+    return [t](int row, int col, float v) { return t(row, col) > 0.f ? v : 0.f; };
   };
 
   for (int tile = blockIdx.x; tile < d.Mp / TM; tile += gridDim.x) {
     m0 = tile * TM;
-    // 1. Head cotangents with the activation derivatives folded in:
-    //    d sigmoid = s (1 - s) widened by the padding, d softplus(z + b) =
-    //    sigmoid(z + b), from the forward's raw heads.
+    // 1. Head cotangents; with activated heads, the activation derivatives
+    //    folded in: d sigmoid = s (1 - s) widened by the padding, d
+    //    softplus(z + b) = sigmoid(z + b), from the raw heads.
     {
       const int c = tid / TM, row = tid - c * TM, m = m0 + row;
       float g = 0.f;
       if (m < d.M) {
-        const float raw = heads[(size_t)c * Mp + m];
-        if (c < 3) {
-          const float s = 1.f / (1.f + expf(-raw));
-          g = g_rgb[(size_t)m * 3 + c] * ((1.f + 2.f * d.rgb_padding) * s * (1.f - s));
-        } else {
-          g = g_dens[m] * (1.f / (1.f + expf(-(raw + d.density_bias))));
+        g = c < 3 ? g_rgb[(size_t)m * 3 + c] : g_dens[m];
+        if (d.use_act) {
+          const float raw = PM ? raw_head<T, PM>(acts, cp, d, c, m0, row)
+                               : heads[(size_t)c * Mp + m];
+          if (c < 3) {
+            const float s = 1.f / (1.f + expf(-raw));
+            g = g * ((1.f + 2.f * d.rgb_padding) * s * (1.f - s));
+          } else {
+            g = g * (1.f / (1.f + expf(-(raw + d.density_bias))));
+          }
         }
       }
       const T gb = Ty<T>::from_f(g);
@@ -210,11 +297,11 @@ lean_grad_chain_kernel(const T* __restrict__ S, const float* __restrict__ heads,
     //    the cotangent of view_last's output.  Thread (row, j = grp + 4i).
     {
       const int row = tid & (TM - 1), half = (tid >> 5) & 1, grp = tid >> 6;
-      const T* y = srow(d.s_y(last)) + row;
+      const ActTile<T, PM> y = act_tile<T, PM>(acts, d.a_y(last), m0, d);
       for (int j = grp; j < d.Wv; j += 4) {   // warp-uniform
         float v = 0.f;
         for (int c = 0; c < 3; ++c) v = fmaf(ghc[c * TM + row], Ty<T>::to_f(k_rgb[j * 3 + c]), v);
-        if (!(Ty<T>::to_f(y[(size_t)j * Mp]) > 0.f)) v = 0.f;
+        if (!(y(row, j) > 0.f)) v = 0.f;
         const T vb = Ty<T>::from_f(v);
         ga[(size_t)j * LD + row] = vb;
         G[(size_t)(d.g_v(last) + j) * Mp + m0 + row] = vb;
@@ -231,7 +318,7 @@ lean_grad_chain_kernel(const T* __restrict__ S, const float* __restrict__ heads,
     for (int j = last; j >= 1; --j) {
       gemm.zero();
       gemm.segment(static_cast<const T*>(cp.bw[i_view + j]), d.Wv, 0, ga, d.Wv, slab);
-      gemm.transform(d.Wv, relu_mask(d.s_y(j - 1)));
+      gemm.transform(d.Wv, relu_mask(d.a_y(j - 1)));
       finish(d.g_v(j - 1), d.Wv, j == 1);
     }
     // 4. view_0's per-point rows -> the bottleneck (no activation).
@@ -243,7 +330,7 @@ lean_grad_chain_kernel(const T* __restrict__ S, const float* __restrict__ heads,
     gemm.zero();
     gemm.segment(static_cast<const T*>(cp.bw[d.depth + 1]), d.W, 0, ga, d.W, slab);
     {
-      auto mask = relu_mask(d.s_h(d.depth - 1));
+      auto mask = relu_mask(d.a_h(d.depth - 1));
       gemm.transform(d.W, [&](int row, int col, float v) {
         return mask(row, col, v + ghc[3 * TM + row] * Ty<T>::to_f(k_den[col]));
       });
@@ -254,7 +341,7 @@ lean_grad_chain_kernel(const T* __restrict__ S, const float* __restrict__ heads,
     for (int i = d.depth - 1; i >= 1; --i) {
       gemm.zero();
       gemm.segment(static_cast<const T*>(cp.bw[i]), d.W, 0, ga, d.W, slab);
-      gemm.transform(d.W, relu_mask(d.s_h(i - 1)));
+      gemm.transform(d.W, relu_mask(d.a_h(i - 1)));
       finish(d.g_t(i - 1), d.W, false);
     }
     __syncthreads();
@@ -264,32 +351,38 @@ lean_grad_chain_kernel(const T* __restrict__ S, const float* __restrict__ heads,
 }
 
 // Weight-gradient problems: dW[out_off + row * n_ld + col] (rows < K,
-// cols < n) = sum over points of S[a_row0 + row] * G[g_row0 + col].
+// cols < n) = sum over points of A[row] * G[g_row0 + col], A = activation a.
 struct WgradTable {
-  int prob[MAX_PROBS][6];   // a_row0, K, g_row0, n, out_off, n_ld
+  int prob[MAX_PROBS][6];   // a, K, g_row0, n, out_off, n_ld
   int tile[MAX_TILES][3];   // problem, row0, col0 of a BM x BN output tile
 };
 
-// blockIdx.x: output tile; blockIdx.y: point range [y * MC, (y + 1) * MC).
-// Both operands point-contiguous ("TN"): A tile [BM rows][KC points], B
-// tile [BN cols][KC points] in shared memory; 8 warps as 2 x 4, each a
-// 64 x 32 output tile.  The next stage's loads are issued into registers
-// before the current stage's products.  In f32, dynamic shared memory
-// holds each thread's round-to-nearest sums, [WGRAD_ACC][THREADS].
-template <typename T>
+// blockIdx.x: output tile; blockIdx.y: point range [y * MC, (y + 1) * MC)
+// of the chunk, whose partial sums go to partial row y.  B tile [BN
+// cols][KC points] in shared memory; A tile [BM rows][KC points]
+// (channel-major A) or [KC points][BM rows] (point-major A, read by
+// transposed fragments); 8 warps as 2 x 4, each a 64 x 32 output tile.
+// The next stage's loads are issued into registers before the current
+// stage's products.  In f32, dynamic shared memory holds each thread's
+// round-to-nearest sums, [WGRAD_ACC][THREADS].
+template <typename T, bool PM>
 __global__ void __launch_bounds__(THREADS)
-lean_wgrad_kernel(const T* __restrict__ S, const T* __restrict__ G, WgradTable tab, int Mp,
-                  int MC, float* __restrict__ partial, int PW) {
+lean_wgrad_kernel(Acts acts, const T* __restrict__ G, WgradTable tab, int Mp, int M, int MC,
+                  float* __restrict__ partial, int PW) {
   extern __shared__ float tot[];
   constexpr bool BF = sizeof(T) == 2;
   constexpr int LDS = KC + (BF ? 8 : 4);     // padded rows: conflict-free fragments
-  constexpr int VEC = 16 / sizeof(T), PER_ROW = KC / VEC;
+  constexpr int LDT = BM + 8;                // the same for a point-major A tile
+  constexpr int VEC = 16 / sizeof(T), PER_ROW = KC / VEC, PM_ROW = BM / VEC;
   constexpr int LOADS = BM * PER_ROW / THREADS;
-  static_assert(BM == BN && BM * PER_ROW % THREADS == 0, "tile loads");
-  __shared__ __align__(16) T As[BM * LDS];
+  static_assert(BM == BN && BM * PER_ROW % THREADS == 0 && KC * PM_ROW == BM * PER_ROW,
+                "tile loads");
+  __shared__ __align__(16) T As[PM ? KC * LDT : BM * LDS];
   __shared__ __align__(16) T Bs[BN * LDS];
   const int* pr = tab.prob[tab.tile[blockIdx.x][0]];
-  const int a_row0 = pr[0], K = pr[1], g_row0 = pr[2], n = pr[3], out_off = pr[4], n_ld = pr[5];
+  const int K = pr[1], g_row0 = pr[2], n = pr[3], out_off = pr[4], n_ld = pr[5];
+  const T* A = static_cast<const T*>(acts.t[pr[0]]);
+  const int lda = PM ? acts.ld[pr[0]] : Mp;
   const int r0 = tab.tile[blockIdx.x][1], c0 = tab.tile[blockIdx.x][2];
   const int p0 = blockIdx.y * MC, p1 = min(p0 + MC, Mp);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -318,9 +411,16 @@ lean_wgrad_kernel(const T* __restrict__ S, const T* __restrict__ G, WgradTable t
     for (int i = 0; i < LOADS; ++i) {
       const int v = tid + i * THREADS, row = v / PER_ROW, c = (v - row * PER_ROW) * VEC;
       const uint4 zero = make_uint4(0, 0, 0, 0);
-      ra[i] = r0 + row < K
-                  ? *reinterpret_cast<const uint4*>(S + (size_t)(a_row0 + r0 + row) * Mp + k0 + c)
-                  : zero;
+      if (PM) {
+        const int pt = v / PM_ROW, ch = (v - pt * PM_ROW) * VEC;
+        ra[i] = k0 + pt < M && r0 + ch < lda
+                    ? *reinterpret_cast<const uint4*>(A + (size_t)(k0 + pt) * lda + r0 + ch)
+                    : zero;
+      } else {
+        ra[i] = r0 + row < K
+                    ? *reinterpret_cast<const uint4*>(A + (size_t)(r0 + row) * lda + k0 + c)
+                    : zero;
+      }
       rb[i] = c0 + row < n
                   ? *reinterpret_cast<const uint4*>(G + (size_t)(g_row0 + c0 + row) * Mp + k0 + c)
                   : zero;
@@ -331,7 +431,12 @@ lean_wgrad_kernel(const T* __restrict__ S, const T* __restrict__ G, WgradTable t
 #pragma unroll
     for (int i = 0; i < LOADS; ++i) {
       const int v = tid + i * THREADS, row = v / PER_ROW, c = (v - row * PER_ROW) * VEC;
-      *reinterpret_cast<uint4*>(As + row * LDS + c) = ra[i];
+      if (PM) {
+        const int pt = v / PM_ROW, ch = (v - pt * PM_ROW) * VEC;
+        *reinterpret_cast<uint4*>(As + pt * LDT + ch) = ra[i];
+      } else {
+        *reinterpret_cast<uint4*>(As + row * LDS + c) = ra[i];
+      }
       *reinterpret_cast<uint4*>(Bs + row * LDS + c) = rb[i];
     }
     __syncthreads();
@@ -339,14 +444,20 @@ lean_wgrad_kernel(const T* __restrict__ S, const T* __restrict__ G, WgradTable t
     if constexpr (BF) {
 #pragma unroll
       for (int kk = 0; kk < KC; kk += 16) {
-        // A (m16 x k16, row-major) and B (k16 x n8, stored [n][k]) by
-        // ldmatrix without transpose.
+        // A (m16 x k16, row-major): ldmatrix from [row][k], or transposed
+        // from [k][row]; B (k16 x n8, stored [n][k]) without transpose.
         uint32_t a[4][4], b[2][4];
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          ldmatrix_x4(a[mt], reinterpret_cast<const bf16*>(As) +
-                                 (64 * wm + 16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
-                                 kk + 8 * (lane >> 4));
+        for (int mt = 0; mt < 4; ++mt) {
+          if (PM)
+            ldmatrix_x4_trans(a[mt], reinterpret_cast<const bf16*>(As) +
+                                         (kk + (lane & 7) + 8 * (lane >> 4)) * LDT + 64 * wm +
+                                         16 * mt + 8 * ((lane >> 3) & 1));
+          else
+            ldmatrix_x4(a[mt], reinterpret_cast<const bf16*>(As) +
+                                   (64 * wm + 16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
+                                   kk + 8 * (lane >> 4));
+        }
 #pragma unroll
         for (int np = 0; np < 2; ++np)
           ldmatrix_x4(b[np], reinterpret_cast<const bf16*>(Bs) +
@@ -364,11 +475,15 @@ lean_wgrad_kernel(const T* __restrict__ S, const T* __restrict__ G, WgradTable t
         uint32_t ahi[4][4], alo[4][4];
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt) {
-          const float* s0 = reinterpret_cast<const float*>(As) + (64 * wm + 16 * mt + g) * LDS + kk + t;
+          // Fragment (row g | g + 8, k t | t + 4).
+          const float* As_f = reinterpret_cast<const float*>(As);
+          const int r = 64 * wm + 16 * mt + g;
+          const float* s0 = PM ? As_f + (kk + t) * LDT + r : As_f + r * LDS + kk + t;
+          const int dr = PM ? 8 : 8 * LDS, dk = PM ? 4 * LDT : 4;
           split_tf32(s0[0], ahi[mt][0], alo[mt][0]);
-          split_tf32(s0[8 * LDS], ahi[mt][1], alo[mt][1]);
-          split_tf32(s0[4], ahi[mt][2], alo[mt][2]);
-          split_tf32(s0[8 * LDS + 4], ahi[mt][3], alo[mt][3]);
+          split_tf32(s0[dr], ahi[mt][1], alo[mt][1]);
+          split_tf32(s0[dk], ahi[mt][2], alo[mt][2]);
+          split_tf32(s0[dr + dk], ahi[mt][3], alo[mt][3]);
         }
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
@@ -457,58 +572,202 @@ bool dims_ok(const TrainDims& d, int n_layers, int use_bf16) {
          d.depth_cond >= 1 && d.skip >= 1 && d.W >= align && d.W <= MAX_OUT && d.W % align == 0 &&
          d.Wv >= align && d.Wv <= MAX_OUT && d.Wv % align == 0 && d.M == d.R * d.N && d.M > 0 &&
          d.Mp % TM == 0 && d.Mp >= d.M && d.F >= 1 && d.F <= d.Fp && d.Fp % 16 == 0 &&
-         d.Fv >= 1;
+         d.Fv >= 1 && (d.use_act == 0 || d.use_act == 1);
 }
 
-TrainDims read_dims(const int* v, float rgb_padding, float density_bias) {
+TrainDims read_dims(const int* v, float rgb_padding, float density_bias, int use_act) {
   return TrainDims{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9], v[10], v[11],
-                   rgb_padding, density_bias};
+                   rgb_padding, density_bias, use_act};
+}
+
+LayerPtrs layer_ptrs(const void* weights, const void* biases, int n_layers) {
+  LayerPtrs p;
+  const void* const* w = static_cast<const void* const*>(weights);
+  const void* const* b = static_cast<const void* const*>(biases);
+  for (int i = 0; i < n_layers; ++i) {
+    p.w[i] = w[i];
+    p.b[i] = static_cast<const float*>(b[i]);
+  }
+  return p;
 }
 
 template <typename T>
-int launch_save_fwd(const float* x, const float* vproj, const LayerPtrs& p, const TrainDims& d,
-                    float* out, T* saved, float* heads, cudaStream_t s) {
+int launch_fwd(const float* x, const float* vproj, const LayerPtrs& p, const TrainDims& d,
+               float* out, T* saved, float* heads, cudaStream_t s) {
   const size_t smem = mlp_smem_bytes<T>(d.Fp, d.W > d.Wv ? d.W : d.Wv);
-  cudaError_t e = cudaFuncSetAttribute(lean_save_fwd_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(lean_fwd_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  lean_save_fwd_kernel<T><<<d.Mp / TM, THREADS, smem, s>>>(x, vproj, p, d, out, saved, heads);
+  lean_fwd_kernel<T><<<d.Mp / TM, THREADS, smem, s>>>(x, vproj, p, d, out, saved, heads);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_param_grads(const T* S, const float* heads, const float* g_rgb, const float* g_dens,
-                       const float* view, const ChainPtrs& cp, const TrainDims& d, T* G,
-                       float* g1f, float* db_part, int n_chain, float* partial, int splits,
-                       int MC, const WgradTable& tab, int n_tiles, int PW, T* g_ray, float* dw,
-                       float* db, int view_off, cudaStream_t s) {
-  const int Cg = d.cg();
-  const size_t smem = chain_smem_bytes<T>(d.W > d.Wv ? d.W : d.Wv, Cg);
-  cudaError_t e = cudaFuncSetAttribute(lean_grad_chain_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  lean_grad_chain_kernel<T><<<n_chain, THREADS, smem, s>>>(S, heads, g_rgb, g_dens, cp, d, G, g1f,
-                                                           db_part);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+int fwd_entry(const void* x, const void* vproj, const void* weights, const void* biases,
+              int n_layers, void* out, void* saved, void* heads, const int* dims,
+              float rgb_padding, float density_bias, int use_act, int use_bf16, void* stream) {
+  const TrainDims d = read_dims(dims, rgb_padding, density_bias, use_act);
+  if (!dims_ok(d, n_layers, use_bf16)) return (int)cudaErrorInvalidValue;
+  const LayerPtrs p = layer_ptrs(weights, biases, n_layers);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* vp = static_cast<const float*>(vproj);
+  float* o = static_cast<float*>(out);
+  float* h = static_cast<float*>(heads);
+  return use_bf16 ? launch_fwd<bf16>(xf, vp, p, d, o, static_cast<bf16*>(saved), h, s)
+                  : launch_fwd<float>(xf, vp, p, d, o, static_cast<float*>(saved), h, s);
+}
+
+// The backward's arguments that every mode shares.
+struct GradArgs {
+  const float *g_rgb, *g_dens, *view;
+  ChainPtrs cp;
+  void* G;          // [Cg][chunk] compute dtype
+  float* g1f;       // [Wv][chunk]
+  float* db_part;   // [chunks * n_chain][Cg]
+  int n_chain;
+  float* partial;   // [ceil(Mp / MC)][PW], zeroed
+  int MC;
+  WgradTable tab;
+  int n_tiles, PW;
+  void* g_ray;      // [R][Wv] compute dtype
+  float *dw, *db;   // [PW], [Cg]
+  int view_off;
+};
+
+// Recompute mode: the forward re-run of each chunk (chunk-sized S, heads).
+struct Refwd {
+  const float* x;
+  const float* vproj;
+  LayerPtrs p;
+  void* S;
+  float* heads;
+};
+
+// The chunks [c0, c0 + chunk) of the level, then the reductions.  acts /
+// heads describe the whole level (save: S and its heads; hybrid: the
+// point-major streams, heads null) unless rf re-runs the forward per chunk.
+template <typename T, bool PM>
+int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
+              const Acts& level_acts, const float* level_heads, cudaStream_t s) {
+  const int Cg = d.cg(), wmax = d.W > d.Wv ? d.W : d.Wv;
+  const size_t csmem = chain_smem_bytes<T>(wmax, Cg);
   const size_t wsmem = sizeof(T) == 2 ? 0 : sizeof(float) * WGRAD_ACC * THREADS;
-  e = cudaFuncSetAttribute(lean_wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)wsmem);
+  const size_t fsmem = mlp_smem_bytes<T>(d.Fp, wmax);
+  cudaError_t e = cudaFuncSetAttribute(lean_grad_chain_kernel<T, PM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)csmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(lean_wgrad_kernel<T, PM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
+  if (e == cudaSuccess && rf)
+    e = cudaFuncSetAttribute(lean_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)fsmem);
   if (e != cudaSuccess) return (int)e;
-  lean_wgrad_kernel<T><<<dim3(n_tiles, splits), THREADS, wsmem, s>>>(S, G, tab, d.Mp, MC, partial,
-                                                                     PW);
+  T* G = static_cast<T*>(a.G);
+  T* g_ray = static_cast<T*>(a.g_ray);
+  int n_chunks = 0;
+  for (int c0 = 0; c0 < d.M; c0 += chunk, ++n_chunks) {
+    TrainDims dc = d;
+    dc.M = d.M - c0 < chunk ? d.M - c0 : chunk;
+    dc.Mp = (dc.M + TM - 1) / TM * TM;
+    dc.R = dc.M / d.N;
+    Acts acts = level_acts;
+    const float* heads = level_heads;
+    if (rf) {
+      T* S = static_cast<T*>(rf->S);
+      lean_fwd_kernel<T><<<dc.Mp / TM, THREADS, fsmem, s>>>(
+          rf->x + (size_t)c0 * d.F, rf->vproj + (size_t)(c0 / d.N) * d.Wv, rf->p, dc, nullptr, S,
+          rf->heads);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      for (int i = 0; i < d.n_acts(); ++i) {
+        acts.t[i] = S + (size_t)d.s_row(i) * dc.Mp;
+        acts.ld[i] = dc.Mp;
+      }
+      heads = rf->heads;
+    } else if (PM) {
+      for (int i = 0; i < d.n_acts(); ++i)
+        acts.t[i] = static_cast<const T*>(level_acts.t[i]) + (size_t)c0 * level_acts.ld[i];
+    }
+    lean_grad_chain_kernel<T, PM><<<a.n_chain, THREADS, csmem, s>>>(
+        acts, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + c0, a.cp, dc, G, a.g1f,
+        a.db_part + (size_t)n_chunks * a.n_chain * Cg);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    const dim3 grid(a.n_tiles, (dc.Mp + a.MC - 1) / a.MC);
+    lean_wgrad_kernel<T, PM><<<grid, THREADS, wsmem, s>>>(
+        acts, G, a.tab, dc.Mp, dc.M, a.MC, a.partial + (size_t)(c0 / a.MC) * a.PW, a.PW);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    const long long warps = (long long)dc.R * d.Wv;
+    lean_ray_sum_kernel<T><<<(int)((warps * 32 + 255) / 256), 256, 0, s>>>(
+        a.g1f, dc.Mp, d.N, dc.R, d.Wv, g_ray + (size_t)(c0 / d.N) * d.Wv);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  const int splits = (d.Mp + a.MC - 1) / a.MC;
+  sum_rows_kernel<<<(a.PW + 255) / 256, 256, 0, s>>>(a.partial, splits, a.PW, a.dw);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  sum_rows_kernel<<<(PW + 255) / 256, 256, 0, s>>>(partial, splits, PW, dw);
+  sum_rows_kernel<<<(Cg + 255) / 256, 256, 0, s>>>(a.db_part, n_chunks * a.n_chain, Cg, a.db);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  sum_rows_kernel<<<(Cg + 255) / 256, 256, 0, s>>>(db_part, n_chain, Cg, db);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const long long warps = (long long)d.R * d.Wv;
-  lean_ray_sum_kernel<T><<<(int)((warps * 32 + 255) / 256), 256, 0, s>>>(g1f, d.Mp, d.N, d.R,
-                                                                         d.Wv, g_ray);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  lean_view_rows_kernel<T><<<dim3(d.Fv, (d.Wv + 31) / 32), 256, 0, s>>>(view, g_ray, d.R, d.Fv,
-                                                                         d.Wv, dw + view_off);
+  lean_view_rows_kernel<T><<<dim3(d.Fv, (d.Wv + 31) / 32), 256, 0, s>>>(a.view, g_ray, d.R, d.Fv,
+                                                                         d.Wv, a.dw + a.view_off);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// The parameters every backward entry takes after its mode's own.
+#define LEAN_GRAD_PARAMS                                                                       \
+  const void *g_rgb, const void *g_dens, const void *view, const void *chain_w, int n_layers,  \
+      const void *k_den, const void *k_rgb, const void *b_den, const void *b_rgb, void *G,     \
+      void *g1f, void *db_part, int n_chain, void *partial, int MC, const int *probs,          \
+      int n_probs, const int *tiles, int n_tiles, int PW, void *g_ray, void *dw, void *db,     \
+      int view_off, const int *dims, float rgb_padding, float density_bias, int use_act,       \
+      int use_bf16, void *stream
+#define LEAN_GRAD_ARGS                                                                          \
+  g_rgb, g_dens, view, chain_w, n_layers, k_den, k_rgb, b_den, b_rgb, G, g1f, db_part, n_chain, \
+      partial, MC, probs, n_probs, tiles, n_tiles, PW, g_ray, dw, db, view_off, dims,           \
+      rgb_padding, density_bias, use_act, use_bf16, stream
+
+namespace {
+
+// Checks and unpacks the shared arguments; 0 or a cudaError_t.
+int read_grad_args(GradArgs& a, TrainDims& d, LEAN_GRAD_PARAMS) {
+  (void)stream;
+  d = read_dims(dims, rgb_padding, density_bias, use_act);
+  if (!dims_ok(d, n_layers, use_bf16) || n_probs < 1 || n_probs > MAX_PROBS || n_tiles < 1 ||
+      n_tiles > MAX_TILES || n_chain < 1 || MC < TM || MC % TM || MC % d.N || MC % KC)
+    return (int)cudaErrorInvalidValue;
+  a.g_rgb = static_cast<const float*>(g_rgb);
+  a.g_dens = static_cast<const float*>(g_dens);
+  a.view = static_cast<const float*>(view);
+  const void* const* cw = static_cast<const void* const*>(chain_w);
+  for (int i = 0; i < MAX_LAYERS; ++i) a.cp.bw[i] = i < n_layers ? cw[i] : nullptr;
+  a.cp.k_den = k_den;
+  a.cp.k_rgb = k_rgb;
+  a.cp.b_den = static_cast<const float*>(b_den);
+  a.cp.b_rgb = static_cast<const float*>(b_rgb);
+  for (int i = 0; i < n_probs; ++i) {
+    for (int k = 0; k < 6; ++k) a.tab.prob[i][k] = probs[6 * i + k];
+    if (a.tab.prob[i][0] < 0 || a.tab.prob[i][0] >= d.n_acts()) return (int)cudaErrorInvalidValue;
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    for (int k = 0; k < 3; ++k) a.tab.tile[i][k] = tiles[3 * i + k];
+    if (a.tab.tile[i][0] < 0 || a.tab.tile[i][0] >= n_probs) return (int)cudaErrorInvalidValue;
+  }
+  a.G = G;
+  a.g1f = static_cast<float*>(g1f);
+  a.db_part = static_cast<float*>(db_part);
+  a.n_chain = n_chain;
+  a.partial = static_cast<float*>(partial);
+  a.MC = MC;
+  a.n_tiles = n_tiles;
+  a.PW = PW;
+  a.g_ray = g_ray;
+  a.dw = static_cast<float*>(dw);
+  a.db = static_cast<float*>(db);
+  a.view_off = view_off;
+  return 0;
+}
+
+// One chunk over the whole level (save, hybrid).
+int level_chunk(const TrainDims& d, int MC) { return (d.Mp + MC - 1) / MC * MC; }
 
 }  // namespace
 
@@ -517,78 +776,91 @@ extern "C" {
 // dims = {M, Mp, N, R, F, Fp, Fv, depth, depth_cond, skip, W, Wv}.
 // x [M, F] f32, vproj [R, Wv] f32 (view_0's per-ray half), weights[i]
 // [in_i, out_i] in the compute dtype and biases[i] [out_i] f32 (rounded
-// through the compute dtype) in param order -> out [M, 4] f32 (activated
-// rgb | sigma), saved [Cs][Mp] compute dtype, heads [4][Mp] f32 (raw).
-int lean_save_fwd(const void* x, const void* vproj, const void* weights, const void* biases,
-                  int n_layers, void* out, void* saved, void* heads, const int* dims,
-                  float rgb_padding, float density_bias, int use_bf16, void* stream) {
-  const TrainDims d = read_dims(dims, rgb_padding, density_bias);
-  if (!dims_ok(d, n_layers, use_bf16)) return (int)cudaErrorInvalidValue;
-  LayerPtrs p;
-  const void* const* w = static_cast<const void* const*>(weights);
-  const void* const* b = static_cast<const void* const*>(biases);
-  for (int i = 0; i < n_layers; ++i) {
-    p.w[i] = w[i];
-    p.b[i] = static_cast<const float*>(b[i]);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* vp = static_cast<const float*>(vproj);
-  float* o = static_cast<float*>(out);
-  float* h = static_cast<float*>(heads);
-  return use_bf16 ? launch_save_fwd<bf16>(xf, vp, p, d, o, static_cast<bf16*>(saved), h, s)
-                  : launch_save_fwd<float>(xf, vp, p, d, o, static_cast<float*>(saved), h, s);
+// through the compute dtype) in param order -> out [M, 4] f32 (rgb |
+// sigma, activated when use_act, else raw).
+int lean_fwd(const void* x, const void* vproj, const void* weights, const void* biases,
+             int n_layers, void* out, const int* dims, float rgb_padding, float density_bias,
+             int use_act, int use_bf16, void* stream) {
+  return fwd_entry(x, vproj, weights, biases, n_layers, out, nullptr, nullptr, dims, rgb_padding,
+                   density_bias, use_act, use_bf16, stream);
 }
 
-// saved / heads from lean_save_fwd, g_rgb [M, 3] / g_dens [M, 1] / view
-// [R, Fv] f32; chain_w[i] (param index; null where unused) the transposed
-// h-part kernels, k_den / k_rgb the head kernels, compute dtype.  Scratch:
-// G [Cg][Mp] and g_ray [R][Wv] compute dtype, g1f [Wv][Mp], db_part
-// [n_chain][Cg], partial [splits][PW] (zeroed) f32.  Out: dw [PW] (every
-// kernel in param order, [in, out] row-major), db [Cg] (every bias).
-// probs [n_probs][6] and tiles [n_tiles][3] are the weight-gradient
-// problems and their output tiles; view_off is the offset in dw of view_0's
-// per-ray rows.
-int lean_param_grads(const void* saved, const void* heads, const void* g_rgb,
-                     const void* g_dens, const void* view, const void* chain_w, int n_layers,
-                     const void* k_den, const void* k_rgb, void* G, void* g1f, void* db_part,
-                     int n_chain, void* partial, int splits, int MC, const int* probs,
-                     int n_probs, const int* tiles, int n_tiles, int PW, void* g_ray, void* dw,
-                     void* db, int view_off, const int* dims, float rgb_padding,
-                     float density_bias, int use_bf16, void* stream) {
-  const TrainDims d = read_dims(dims, rgb_padding, density_bias);
-  if (!dims_ok(d, n_layers, use_bf16) || n_probs < 1 || n_probs > MAX_PROBS || n_tiles < 1 ||
-      n_tiles > MAX_TILES || n_chain < 1 || splits < 1 || MC % KC || (long long)MC * splits < d.Mp)
-    return (int)cudaErrorInvalidValue;
-  ChainPtrs cp;
-  const void* const* cw = static_cast<const void* const*>(chain_w);
-  for (int i = 0; i < MAX_LAYERS; ++i) cp.bw[i] = i < n_layers ? cw[i] : nullptr;
-  cp.k_den = k_den;
-  cp.k_rgb = k_rgb;
-  WgradTable tab;
-  for (int i = 0; i < n_probs; ++i)
-    for (int k = 0; k < 6; ++k) tab.prob[i][k] = probs[6 * i + k];
-  for (int i = 0; i < n_tiles; ++i) {
-    for (int k = 0; k < 3; ++k) tab.tile[i][k] = tiles[3 * i + k];
-    if (tab.tile[i][0] < 0 || tab.tile[i][0] >= n_probs) return (int)cudaErrorInvalidValue;
+// lean_fwd that also writes saved [Cs][Mp] compute dtype and heads [4][Mp]
+// f32 (raw).
+int lean_save_fwd(const void* x, const void* vproj, const void* weights, const void* biases,
+                  int n_layers, void* out, void* saved, void* heads, const int* dims,
+                  float rgb_padding, float density_bias, int use_act, int use_bf16, void* stream) {
+  if (!saved || !heads) return (int)cudaErrorInvalidValue;
+  return fwd_entry(x, vproj, weights, biases, n_layers, out, saved, heads, dims, rgb_padding,
+                   density_bias, use_act, use_bf16, stream);
+}
+
+// The shared arguments: g_rgb [M, 3] / g_dens [M, 1] / view [R, Fv] f32;
+// chain_w[i] (param index; null where unused) the transposed h-part
+// kernels, k_den / k_rgb the head kernels (compute dtype), b_den / b_rgb
+// their biases (f32).  Scratch: G [Cg][chunk] and g_ray [R][Wv] compute
+// dtype, g1f [Wv][chunk], db_part [chunks * n_chain][Cg], partial
+// [ceil(Mp / MC)][PW] (zeroed) f32.  Out: dw [PW] (every kernel in param
+// order, [in, out] row-major), db [Cg] (every bias).  probs [n_probs][6]
+// and tiles [n_tiles][3] are the weight-gradient problems and their output
+// tiles; MC, the points of a partial sum, is a multiple of 64 and of N;
+// view_off is the offset in dw of view_0's per-ray rows.
+
+// saved / heads from lean_save_fwd.
+int lean_param_grads(const void* saved, const void* heads, LEAN_GRAD_PARAMS) {
+  GradArgs a;
+  TrainDims d;
+  int err = read_grad_args(a, d, LEAN_GRAD_ARGS);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t esize = use_bf16 ? 2 : 4;
+  Acts acts;
+  for (int i = 0; i < d.n_acts(); ++i) {
+    acts.t[i] = static_cast<const char*>(saved) + esize * d.s_row(i) * d.Mp;
+    acts.ld[i] = d.Mp;
+  }
+  const float* h = static_cast<const float*>(heads);
+  const int chunk = level_chunk(d, MC);
+  return use_bf16 ? run_grads<bf16, false>(a, d, chunk, nullptr, acts, h, s)
+                  : run_grads<float, false>(a, d, chunk, nullptr, acts, h, s);
+}
+
+// x / vproj / weights / biases as lean_fwd takes them; saved [Cs][chunk]
+// and heads [4][chunk] are scratch for the forward of one chunk of `chunk`
+// points (a multiple of MC).
+int lean_param_grads_recompute(const void* x, const void* vproj, const void* weights,
+                               const void* biases, void* saved, void* heads, int chunk,
+                               LEAN_GRAD_PARAMS) {
+  GradArgs a;
+  TrainDims d;
+  int err = read_grad_args(a, d, LEAN_GRAD_ARGS);
+  if (err) return err;
+  if (chunk < MC || chunk % MC) return (int)cudaErrorInvalidValue;
+  const Refwd rf{static_cast<const float*>(x), static_cast<const float*>(vproj),
+                 layer_ptrs(weights, biases, n_layers), saved, static_cast<float*>(heads)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Acts none{};
+  return use_bf16 ? run_grads<bf16, false>(a, d, chunk, &rf, none, nullptr, s)
+                  : run_grads<float, false>(a, d, chunk, &rf, none, nullptr, s);
+}
+
+// acts[a] the row-major compute-dtype residuals of the plain forward: x
+// [M, Fp] (zero past column F) | hs, bottleneck [M, W] | ys [M, Wv].
+int lean_param_grads_hybrid(const void* acts, LEAN_GRAD_PARAMS) {
+  GradArgs a;
+  TrainDims d;
+  int err = read_grad_args(a, d, LEAN_GRAD_ARGS);
+  if (err) return err;
+  Acts level;
+  const void* const* t = static_cast<const void* const*>(acts);
+  for (int i = 0; i < d.n_acts(); ++i) {
+    level.t[i] = t[i];
+    level.ld[i] = i == 0 ? d.Fp : i <= d.depth + 1 ? d.W : d.Wv;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* hd = static_cast<const float*>(heads);
-  const float* gr = static_cast<const float*>(g_rgb);
-  const float* gd = static_cast<const float*>(g_dens);
-  const float* vw = static_cast<const float*>(view);
-  float* f1 = static_cast<float*>(g1f);
-  float* dp = static_cast<float*>(db_part);
-  float* pa = static_cast<float*>(partial);
-  float* dwf = static_cast<float*>(dw);
-  float* dbf = static_cast<float*>(db);
-  if (use_bf16)
-    return launch_param_grads<bf16>(static_cast<const bf16*>(saved), hd, gr, gd, vw, cp, d,
-                                    static_cast<bf16*>(G), f1, dp, n_chain, pa, splits, MC, tab,
-                                    n_tiles, PW, static_cast<bf16*>(g_ray), dwf, dbf, view_off, s);
-  return launch_param_grads<float>(static_cast<const float*>(saved), hd, gr, gd, vw, cp, d,
-                                   static_cast<float*>(G), f1, dp, n_chain, pa, splits, MC, tab,
-                                   n_tiles, PW, static_cast<float*>(g_ray), dwf, dbf, view_off, s);
+  const int chunk = level_chunk(d, MC);
+  return use_bf16 ? run_grads<bf16, true>(a, d, chunk, nullptr, level, nullptr, s)
+                  : run_grads<float, true>(a, d, chunk, nullptr, level, nullptr, s);
 }
 
 }  // extern "C"

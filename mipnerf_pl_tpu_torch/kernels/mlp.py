@@ -12,15 +12,26 @@ wrapper each here:
   lean_mlp        IPE decode + MLP + activations per tile   -> [M, 4]  f32
   lean_composite  per-ray scan and reductions               -> [R, 8], [R, N]
 
-Training path.  Replaces fused_mlp_lean(mode='save'): its forward
-`_fwd_kernel_lean_save` and its parameter-gradient backward
-`_bwd_kernel_lean_save` (through `_lean_param_grads`), as csrc/lean_train.cu
-behind two wrappers bound into one autograd Function, `fused_mlp_lean`:
+Training path.  Replaces fused_mlp_lean in its three modes, one autograd
+Function `fused_mlp_lean` over csrc/lean_train.cu:
 
-  lean_save_fwd     MLP + activations from f32 encode rows    -> [M, 4]
-                    plus the saved stream for the backward (with view_proj
-                    for view_0's per-ray half)
-  lean_param_grads  f32 gradients of every parameter, none for x and view
+  lean_fwd          MLP + heads from f32 encode rows -> [M, 4]: mode
+                    'recompute' (`_fwd_kernel_lean`)
+  lean_save_fwd     the same kernel, which also writes the saved stream
+                    and raw heads: mode 'save' (`_fwd_kernel_lean_save`)
+  lean_param_grads  f32 gradients of every parameter from the saved stream,
+                    none for x and view (`_bwd_kernel_lean_save` through
+                    `_lean_param_grads`)
+  lean_param_grads_recompute
+                    the same gradients, the forward re-run chunk by chunk
+                    (`_bwd_kernel_lean`)
+  lean_param_grads_hybrid
+                    the same gradients from the row-major residuals of the
+                    plain-torch forward `lean_hybrid_fwd` of mode 'hybrid'
+                    (`_bwd_kernel_lean_hybrid`)
+
+The forwards run view_proj for view_0's per-ray half; heads are activated
+with act = (rgb_padding, density_bias), or raw for act=None.
 
 What bounds them: the MLP is ~1.21 MFLOP per sample point forward and about
 twice that backward, so the kernels are compute bound; the composite and
@@ -40,6 +51,7 @@ no fallback.  `launches[name]` counts the launches of each kernel.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence
 
 import torch
@@ -51,7 +63,8 @@ from mipnerf_pl_tpu_torch.ops.render import composite
 # Kernel name -> number of launches (incremented only where the kernel is
 # launched; callers reset it to count one run).
 launches = {'lean_view_proj': 0, 'lean_mlp': 0, 'lean_composite': 0,
-            'lean_save_fwd': 0, 'lean_param_grads': 0}
+            'lean_save_fwd': 0, 'lean_param_grads': 0, 'lean_fwd': 0,
+            'lean_param_grads_recompute': 0, 'lean_param_grads_hybrid': 0}
 
 # Kernel name -> (source, the Pallas kernel it replaces).
 _RENDER_CU = 'mipnerf_pl_tpu_torch/csrc/lean_render.cu'
@@ -62,12 +75,21 @@ KERNELS = {
     'lean_composite': (_RENDER_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1428'),
     'lean_save_fwd': (_TRAIN_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1002'),
     'lean_param_grads': (_TRAIN_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1021'),
+    'lean_fwd': (_TRAIN_CU, 'mipnerf_pl_tpu/kernels/mlp.py:845'),
+    'lean_param_grads_recompute': (_TRAIN_CU,
+                                   'mipnerf_pl_tpu/kernels/mlp.py:988'),
+    'lean_param_grads_hybrid': (_TRAIN_CU,
+                                'mipnerf_pl_tpu/kernels/mlp.py:1101'),
 }
 
 MAX_WIDTH = 256     # widest dense layer the CUDA column tiling covers
 TILE = 64           # points per CUDA tile; saved streams pad M to it
 WGRAD_TILE = 128    # output tile of the weight-gradient products
-WGRAD_STAGE = 32    # points per stage of the weight-gradient products
+# Points a recompute backward re-runs at a time: a quarter of a lego level.
+# On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), 1/8, 1/4 and 1/2 of a
+# level take 14.2, 12.95 and 12.27 ms (bf16) for 0.53, 0.97 and 1.85 GiB of
+# scratch: a larger chunk fills more of the card in the weight gradients.
+RECOMPUTE_POINTS = 98304
 
 
 def reset_launches() -> None:
@@ -193,25 +215,50 @@ def lean_composite_plain(rgbsig, delta, mids, white_bkgd: bool):
     return perray, w
 
 
+def _lean_fwd_plain_parts(x, view, flat_params, num_samples, net_depth,
+                          net_depth_condition, skip_index, compute_dtype):
+    """(x rounded to the compute dtype, raw rgb [M, 3], raw density [M, 1]
+    f32, hs, bottleneck, ys) of the Pallas-mode forward on encode rows."""
+    dt = compute_dtype
+    p = [_rounded(t, dt) for t in flat_params]
+    W = p[0].shape[1]
+    iv = 2 * (net_depth + 2)
+    xr = _rounded(x, dt)
+    vproj = view_proj_plain(view, flat_params[iv], flat_params[iv + 1], W, dt)
+    return (xr,) + _lean_body_plain(xr, vproj, p, num_samples, net_depth,
+                                    net_depth_condition, skip_index, dt)
+
+
+def _heads_out(raw_rgb, raw_d, act):
+    return _activate(raw_rgb, raw_d, act) if act is not None \
+        else (raw_rgb, raw_d)
+
+
+def lean_fwd_plain(x, view, flat_params, num_samples: int, net_depth: int,
+                   net_depth_condition: int, skip_index: int, compute_dtype,
+                   act):
+    """The lean forward: (x [M, F] f32 encode rows, view [M/N, Fv], params)
+    -> (rgb [M, 3], density [M, 1]) f32, activated with act =
+    (rgb_padding, density_bias), raw heads for act=None."""
+    _, raw_rgb, raw_d, _, _, _ = _lean_fwd_plain_parts(
+        x, view, flat_params, num_samples, net_depth, net_depth_condition,
+        skip_index, compute_dtype)
+    return _heads_out(raw_rgb, raw_d, act)
+
+
 def lean_mlp_save_plain(x, view, flat_params, num_samples: int,
                         net_depth: int, net_depth_condition: int,
                         skip_index: int, compute_dtype, act):
-    """The training forward: (x [M, F] f32, view [M/N, Fv], params) ->
-    (rgb [M, 3], density [M, 1] f32 activated, saved), saved = (S [Cs, Mp]
-    compute dtype, the `saved_rows` layout, zero past M; raw heads [4, Mp]
-    f32)."""
+    """lean_fwd_plain that also returns saved = (S [Cs, Mp] compute dtype,
+    the `saved_rows` layout, zero past M; raw heads [4, Mp] f32)."""
     dt = compute_dtype
-    p = [_rounded(t, dt) for t in flat_params]
+    xr, raw_rgb, raw_d, hs, bott, ys = _lean_fwd_plain_parts(
+        x, view, flat_params, num_samples, net_depth, net_depth_condition,
+        skip_index, dt)
+    rgb, density = _heads_out(raw_rgb, raw_d, act)
     M, F = x.shape
-    W = p[0].shape[1]
-    iv = 2 * (net_depth + 2)
-    Wv = p[iv].shape[1]
-    xr = _rounded(x, dt)
-    vproj = view_proj_plain(view, flat_params[iv], flat_params[iv + 1], W, dt)
-    raw_rgb, raw_d, hs, bott, ys = _lean_body_plain(
-        xr, vproj, p, num_samples, net_depth, net_depth_condition, skip_index,
-        dt)
-    rgb, density = _activate(raw_rgb, raw_d, act)
+    W = hs[0].shape[1]
+    Wv = ys[0].shape[1]
     Mp = _round_up(M, TILE)
     _, hs_r, bott_r, ys_r, Cs = saved_rows(F, W, Wv, net_depth,
                                            net_depth_condition)
@@ -237,37 +284,33 @@ def _saved_parts(S, M, F, W, Wv, net_depth, net_depth_condition):
             [rows(r, Wv) for r in ys_r])
 
 
-def lean_param_grads_plain(view, g_rgb, g_dens, saved, flat_params,
-                           num_samples: int, net_depth: int,
-                           net_depth_condition: int, skip_index: int,
-                           compute_dtype, act):
-    """The JAX `_lean_param_grads`, op for op: (view [R, Fv], head
-    cotangents g_rgb [M, 3] / g_dens [M, 1] f32, saved, params) -> f32
-    gradients in param order (kernels [in, out], biases [1, out])."""
+def _param_grads_core(view, g_rgb, g_dens, x, hs, bott, ys, flat_params,
+                      num_samples, net_depth, net_depth_condition, skip_index,
+                      compute_dtype, act):
+    """The JAX `_lean_param_grads`, op for op, on the activations as f32
+    [M, width] tensors holding compute-dtype values."""
     dt = compute_dtype
-    S, _ = saved
-    M = g_rgb.shape[0]
-    F, W = flat_params[0].shape
     iv = net_depth + 2
     nvd = net_depth_condition
+    W = flat_params[0].shape[1]
     Wv = flat_params[2 * iv].shape[1]
     N = num_samples
-    x, hs, bott, ys = _saved_parts(S, M, F, W, Wv, net_depth, nvd)
     p = [_rounded(t, dt) for t in flat_params]
     grads = [None] * len(flat_params)
     cat_last = _skip_after(net_depth - 1, skip_index)
 
-    # Fold the head-activation derivatives into the cotangents, from the
-    # raw heads recomputed off the saved activations.
-    pad, bias = act
+    if act is not None:
+        # Fold the head-activation derivatives into the cotangents, from
+        # the raw heads recomputed off the saved activations.
+        pad, bias = act
 
-    def head_raw(t, idx):
-        return t @ p[2 * idx] + p[2 * idx + 1]
+        def head_raw(t, idx):
+            return t @ p[2 * idx] + p[2 * idx + 1]
 
-    sig = torch.sigmoid(head_raw(ys[-1], iv + nvd))
-    g_rgb = g_rgb * ((1.0 + 2.0 * pad) * sig * (1.0 - sig))
-    h_last = torch.cat([hs[-1], x], dim=-1) if cat_last else hs[-1]
-    g_dens = g_dens * torch.sigmoid(head_raw(h_last, net_depth) + bias)
+        sig = torch.sigmoid(head_raw(ys[-1], iv + nvd))
+        g_rgb = g_rgb * ((1.0 + 2.0 * pad) * sig * (1.0 - sig))
+        h_last = torch.cat([hs[-1], x], dim=-1) if cat_last else hs[-1]
+        g_dens = g_dens * torch.sigmoid(head_raw(h_last, net_depth) + bias)
 
     def d_dense(idx, parts, g_out, need):
         """dW / db of layer idx (always), d(part) where need[i]."""
@@ -319,6 +362,101 @@ def lean_param_grads_plain(view, g_rgb, g_dens, saved, flat_params,
         g_trunk = d_dense(i, [hs[i - 1]] + ([x] if skip else []), g_trunk,
                           [True] + ([False] if skip else []))[0]
     return grads
+
+
+def lean_param_grads_plain(view, g_rgb, g_dens, saved, flat_params,
+                           num_samples: int, net_depth: int,
+                           net_depth_condition: int, skip_index: int,
+                           compute_dtype, act):
+    """(view [R, Fv] f32, head cotangents g_rgb [M, 3] / g_dens [M, 1] f32,
+    saved from lean_mlp_save_plain, params) -> f32 gradients in param order
+    (kernels [in, out], biases [1, out]); act=None: the heads were raw, no
+    activation derivative is folded in."""
+    S, _ = saved
+    M = g_rgb.shape[0]
+    F, W = flat_params[0].shape
+    Wv = flat_params[2 * (net_depth + 2)].shape[1]
+    x, hs, bott, ys = _saved_parts(S, M, F, W, Wv, net_depth,
+                                   net_depth_condition)
+    return _param_grads_core(view, g_rgb, g_dens, x, hs, bott, ys,
+                             flat_params, num_samples, net_depth,
+                             net_depth_condition, skip_index, compute_dtype,
+                             act)
+
+
+def lean_param_grads_recompute_plain(x, view, g_rgb, g_dens, flat_params,
+                                     num_samples: int, net_depth: int,
+                                     net_depth_condition: int,
+                                     skip_index: int, compute_dtype, act):
+    """The recompute backward: the forward again, with its saved
+    activations, then lean_param_grads_plain."""
+    args = (num_samples, net_depth, net_depth_condition, skip_index,
+            compute_dtype, act)
+    saved = lean_mlp_save_plain(x, view, flat_params, *args)[2]
+    return lean_param_grads_plain(view, g_rgb, g_dens, saved, flat_params,
+                                  *args)
+
+
+def lean_param_grads_hybrid_plain(view, g_rgb, g_dens, residuals,
+                                  flat_params, num_samples: int,
+                                  net_depth: int, net_depth_condition: int,
+                                  skip_index: int, compute_dtype, act):
+    """The hybrid backward on lean_hybrid_fwd's residuals (x [M, Fp], hs,
+    bottleneck, ys in the compute dtype); the raw heads of the activation
+    fold are recomputed from them with f32 sums, as JAX does."""
+    xp, hs, bott, ys = residuals
+    F = flat_params[0].shape[0]
+    return _param_grads_core(view, g_rgb, g_dens, xp[:, :F].float(),
+                             [h.float() for h in hs], bott.float(),
+                             [y.float() for y in ys], flat_params,
+                             num_samples, net_depth, net_depth_condition,
+                             skip_index, compute_dtype, act)
+
+
+def lean_hybrid_fwd(x, view, flat_params, num_samples: int, net_depth: int,
+                    net_depth_condition: int, skip_index: int, compute_dtype,
+                    act):
+    """The forward of mode 'hybrid', plain torch as JAX's is plain XLA
+    (`_fwd_body_lean_xla`), with its rounding: each product in the compute
+    dtype, biases added in it, skip and head concats as split products.
+    -> (rgb [M, 3], density [M, 1] f32, activated with act from heads
+    rounded to the compute dtype, residuals = (x [M, Fp] compute dtype,
+    zero past column F; hs; bottleneck; ys), the row-major activations the
+    hybrid backward reads)."""
+    dt = compute_dtype
+    p = [t.detach().to(dt) for t in flat_params]
+    M, F = x.shape
+    W = p[0].shape[1]
+    iv = net_depth + 2
+    N = num_samples
+    xp = torch.zeros((M, _round_up(F, 16)), dtype=dt, device=x.device)
+    xp[:, :F] = x
+    xc = xp[:, :F]
+
+    def dense_parts(idx, parts):
+        k, out, off = p[2 * idx], p[2 * idx + 1], 0
+        for t in parts:
+            w = t.shape[-1]
+            out = out + t @ k[off:off + w]
+            off += w
+        return out
+
+    hs, parts = [], [xc]
+    for i in range(net_depth):
+        h = torch.relu(dense_parts(i, parts))
+        hs.append(h)
+        parts = [h, xc] if _skip_after(i, skip_index) else [h]
+    density = dense_parts(net_depth, parts).float()
+    bott = dense_parts(net_depth + 1, parts)
+    k0, b0 = p[2 * iv], p[2 * iv + 1]
+    per_ray = view.to(dt) @ k0[W:] + b0
+    y = (bott @ k0[:W]).reshape(-1, N, k0.shape[1]) + per_ray[:, None, :]
+    ys = [torch.relu(y.reshape(M, -1))]
+    for j in range(1, net_depth_condition):
+        ys.append(torch.relu(dense_parts(iv + j, [ys[-1]])))
+    rgb = dense_parts(iv + net_depth_condition, [ys[-1]]).float()
+    rgb, density = _heads_out(rgb, density, act)
+    return rgb, density, (xp, hs, bott, ys)
 
 
 # ---------------------------------------------------------------------------
@@ -388,15 +526,19 @@ def _ints(values):
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The arguments every backward entry takes after its mode's own.
+_GRAD_TAIL = ([_P] * 4 + [_I] + [_P] * 7 + [_I, _P, _I, _P, _I, _P, _I, _I]
+              + [_P] * 3 + [_I, _P, _F, _F, _I, _I, _P])
 # C signatures of csrc/<lib>.cu (pointers and the stream as void*).
 _ARGTYPES = {
     'lean_view_proj': [_P] * 4 + [_I] * 5 + [_P],
     'lean_mlp': [_P] * 4 + [_I, _P] + [_I] * 10 + [_F, _F, _I, _P],
     'lean_composite': [_P] * 5 + [_I] * 3 + [_P],
-    'lean_save_fwd': [_P] * 4 + [_I] + [_P] * 4 + [_F, _F, _I, _P],
-    'lean_param_grads': ([_P] * 6 + [_I] + [_P] * 5 + [_I, _P, _I, _I, _P, _I,
-                                                        _P, _I, _I]
-                         + [_P] * 3 + [_I, _P, _F, _F, _I, _P]),
+    'lean_fwd': [_P] * 4 + [_I] + [_P] * 2 + [_F, _F, _I, _I, _P],
+    'lean_save_fwd': [_P] * 4 + [_I] + [_P] * 4 + [_F, _F, _I, _I, _P],
+    'lean_param_grads': [_P] * 2 + _GRAD_TAIL,
+    'lean_param_grads_recompute': [_P] * 6 + [_I] + _GRAD_TAIL,
+    'lean_param_grads_hybrid': [_P] + _GRAD_TAIL,
 }
 
 
@@ -515,6 +657,13 @@ def fused_mlp_lean_render(x, view, delta, mids, flat_params,
     if act is None or encode is None:
         raise ValueError('fused_mlp_lean_render requires act=(rgb_padding, '
                          'density_bias) and encode=(min_deg, max_deg)')
+    if torch.is_grad_enabled() and any(t.requires_grad for t in flat_params):
+        raise NotImplementedError(
+            'fused_mlp_lean_render is forward only: training through the '
+            'fused lean-render level needs its backward, the JAX kernel '
+            '_bwd_kernel_lean_render (TPU kernel #2 in PERF.md), which is '
+            'not ported yet; render under torch.no_grad(), or train without '
+            'nerf.fuse_render')
     W = flat_params[0].shape[1]
     iv = 2 * (net_depth + 2)
     vproj = view_proj(view.float(), flat_params[iv], flat_params[iv + 1], W,
@@ -528,7 +677,7 @@ def fused_mlp_lean_render(x, view, delta, mids, flat_params,
 
 
 # ---------------------------------------------------------------------------
-# Training: fused_mlp_lean(mode='save').
+# Training: fused_mlp_lean in modes 'recompute', 'save' and 'hybrid'.
 # ---------------------------------------------------------------------------
 
 def _train_dims(M, N, F, Fv, W, Wv, net_depth, net_depth_condition,
@@ -544,18 +693,18 @@ def wgrad_problems(shapes, net_depth: int, net_depth_condition: int,
     """Weight-gradient products of the CUDA backward, from the kernel
     shapes [(in, out), ...] in param order.
 
-    Returns (problems, tiles, kernel offsets in dw, bias offsets in db,
-    view_off): problem = (first row of A in the saved stream, K rows, first
-    row of the cotangent in G, n columns, offset of its first output in
-    dw, row stride in dw), dW[r][c] = sum over points of S[a + r] G[g + c];
-    tiles = (problem, row0, col0) of every WGRAD_TILE-square output tile.
-    Bias gradients and G rows share one layout: every layer's out columns
-    in param order.  view_0's per-ray rows (view_off in dw) are not a
+    The saved activations are numbered as the kernels read them: 0 the
+    encode x, 1 + i hs[i], 1 + net_depth the bottleneck, 2 + net_depth + j
+    ys[j].  Returns (problems, tiles, kernel offsets in dw, bias offsets in
+    db, view_off): problem = (activation a, K rows, first row of the
+    cotangent in G, n columns, offset of its first output in dw, row stride
+    in dw), dW[r][c] = sum over points of act_a[r] G[g + c]; tiles =
+    (problem, row0, col0) of every WGRAD_TILE-square output tile.  Bias
+    gradients and G rows share one layout: every layer's out columns in
+    param order.  view_0's per-ray rows (view_off in dw) are not a
     problem: they take view^T g_ray."""
     F, W = shapes[0]
     iv = net_depth + 2
-    Wv = shapes[iv][1]
-    _, hs, bott, ys, _ = saved_rows(F, W, Wv, net_depth, net_depth_condition)
     dw_off, b_off, o_dw, o_b = [], [], 0, 0
     for k, n in shapes:
         dw_off.append(o_dw)
@@ -564,75 +713,207 @@ def wgrad_problems(shapes, net_depth: int, net_depth_condition: int,
         o_b += n
     probs = []
 
-    def add(a_row0, K, layer, row0):
+    def add(a, K, layer, row0):
         n = shapes[layer][1]
-        probs.append((a_row0, K, b_off[layer], n, dw_off[layer] + row0 * n, n))
+        probs.append((a, K, b_off[layer], n, dw_off[layer] + row0 * n, n))
 
-    def inputs(layer, h_row, width, after):
-        add(h_row, width, layer, 0)
+    def inputs(layer, a, width, after):
+        add(a, width, layer, 0)
         if _skip_after(after, skip_index):
             add(0, F, layer, width)      # the encode rows of a skip concat
 
     add(0, F, 0, 0)
     for i in range(1, net_depth):
-        inputs(i, hs[i - 1], W, i - 1)
+        inputs(i, i, W, i - 1)                       # hs[i - 1]
     for layer in (net_depth, net_depth + 1):
-        inputs(layer, hs[-1], W, net_depth - 1)
-    add(bott, W, iv, 0)
-    for j in range(1, net_depth_condition):
-        add(ys[j - 1], Wv, iv + j, 0)
-    add(ys[-1], Wv, iv + net_depth_condition, 0)
+        inputs(layer, net_depth, W, net_depth - 1)   # hs[-1]
+    add(1 + net_depth, W, iv, 0)                     # the bottleneck
+    for j in range(1, net_depth_condition + 1):
+        add(1 + net_depth + j, shapes[iv + j][0], iv + j, 0)   # ys[j - 1]
     tiles = [(i, r0, c0) for i, (_, K, _, n, _, _) in enumerate(probs)
              for r0 in range(0, K, WGRAD_TILE)
              for c0 in range(0, n, WGRAD_TILE)]
-    return probs, tiles, dw_off, b_off, dw_off[iv] + W * Wv
+    return probs, tiles, dw_off, b_off, dw_off[iv] + W * shapes[iv][1]
+
+
+def wgrad_split(Mp: int, n_tiles: int, num_samples: int, sms: int) -> int:
+    """Points of one partial sum of the weight-gradient products: enough
+    ranges for ~8 blocks per SM, each a multiple of the 64-point tile and of
+    num_samples, so a range holds whole tiles and rays and a recompute
+    chunk holds whole ranges (every mode then sums the same ranges)."""
+    want = max(1, -(-8 * sms // n_tiles))
+    return _round_up(-(-Mp // want), math.lcm(TILE, num_samples))
+
+
+def recompute_chunk(Mp: int, mc: int) -> int:
+    """Points the recompute backward re-runs at a time: the most whole
+    ranges of mc points within RECOMPUTE_POINTS (at least one), at most the
+    level."""
+    return min(max(1, RECOMPUTE_POINTS // mc), -(-Mp // mc)) * mc
+
+
+def _act_args(act):
+    """(rgb_padding, density_bias, use_act) of the C entries."""
+    return (0.0, 0.0, 0) if act is None else (float(act[0]), float(act[1]), 1)
+
+
+def _fwd_launch(fn, x, view, flat_params, num_samples, net_depth,
+                net_depth_condition, skip_index, compute_dtype, act,
+                saved_shape=None):
+    """Launch lean_fwd or lean_save_fwd (saved_shape = (Cs, Mp)) -> (out
+    [M, 4] f32, (S, heads) or None)."""
+    flag = _dtype_flag(compute_dtype)
+    dev = x.device
+    M, F = x.shape
+    R, Fv = view.shape
+    W, Wv = _check_mlp(flat_params, net_depth, net_depth_condition, flag,
+                       fn, dev)
+    _check(x, (M, F), fn, 'x', dev)
+    _check(view, (R, Fv), fn, 'view', dev)
+    if M != R * num_samples or M == 0:
+        raise ValueError(f'{fn}: {M} points is not {R} rays x '
+                         f'num_samples={num_samples}')
+    if flat_params[0].shape[0] != F:
+        raise ValueError(f'{fn}: trunk_0 takes {flat_params[0].shape[0]} '
+                         f'inputs, x has {F}')
+    iv = 2 * (net_depth + 2)
+    vproj = view_proj(view, flat_params[iv], flat_params[iv + 1], W,
+                      compute_dtype)
+    ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
+    c_dims = _ints(_train_dims(M, num_samples, F, Fv, W, Wv, net_depth,
+                               net_depth_condition, skip_index))
+    x = x.contiguous()
+    out = torch.empty((M, 4), dtype=torch.float32, device=dev)
+    saved, extra = None, []
+    if saved_shape is not None:
+        saved = (torch.empty(saved_shape, dtype=compute_dtype, device=dev),
+                 torch.empty((4, saved_shape[1]), dtype=torch.float32,
+                             device=dev))
+        extra = [t.data_ptr() for t in saved]
+    _call(fn, dev, x.data_ptr(), vproj.data_ptr(), ctypes.addressof(w_ptrs),
+          ctypes.addressof(b_ptrs), len(ws), out.data_ptr(), *extra,
+          ctypes.addressof(c_dims), *_act_args(act), flag)
+    launches[fn] += 1
+    return out, saved
+
+
+def lean_fwd(x, view, flat_params: Sequence[torch.Tensor], num_samples: int,
+             net_depth: int, net_depth_condition: int, skip_index: int,
+             compute_dtype, act):
+    """(x [M, F] f32 encode rows, view [M/N, Fv] f32, params) -> (rgb
+    [M, 3], density [M, 1]) f32, activated with act = (rgb_padding,
+    density_bias), raw heads for act=None."""
+    if _on_cpu(x, 'lean_fwd'):
+        return lean_fwd_plain(x, view, flat_params, num_samples, net_depth,
+                              net_depth_condition, skip_index, compute_dtype,
+                              act)
+    out, _ = _fwd_launch('lean_fwd', x, view, flat_params, num_samples,
+                         net_depth, net_depth_condition, skip_index,
+                         compute_dtype, act)
+    return out[:, :3], out[:, 3:]
 
 
 def lean_save_fwd(x, view, flat_params: Sequence[torch.Tensor],
                   num_samples: int, net_depth: int, net_depth_condition: int,
                   skip_index: int, compute_dtype, act):
-    """(x [M, F] f32 encode rows, view [M/N, Fv] f32, params) ->
-    (rgb [M, 3], density [M, 1] f32 activated, saved = (S [Cs, Mp] compute
-    dtype in the `saved_rows` layout, raw heads [4, Mp] f32))."""
+    """lean_fwd that also returns saved = (S [Cs, Mp] compute dtype in the
+    `saved_rows` layout, raw heads [4, Mp] f32)."""
     if _on_cpu(x, 'lean_save_fwd'):
         return lean_mlp_save_plain(x, view, flat_params, num_samples,
                                    net_depth, net_depth_condition, skip_index,
                                    compute_dtype, act)
-    flag = _dtype_flag(compute_dtype)
-    dev = x.device
     M, F = x.shape
-    N = num_samples
-    R, Fv = view.shape
-    W, Wv = _check_mlp(flat_params, net_depth, net_depth_condition, flag,
-                       'lean_save_fwd', dev)
-    _check(x, (M, F), 'lean_save_fwd', 'x', dev)
-    _check(view, (R, Fv), 'lean_save_fwd', 'view', dev)
-    if M != R * N or M == 0:
-        raise ValueError(f'lean_save_fwd: {M} points is not {R} rays x '
-                         f'num_samples={N}')
-    if flat_params[0].shape[0] != F:
-        raise ValueError(f'lean_save_fwd: trunk_0 takes '
-                         f'{flat_params[0].shape[0]} inputs, x has {F}')
-    iv = 2 * (net_depth + 2)
-    vproj = view_proj(view, flat_params[iv], flat_params[iv + 1], W,
-                      compute_dtype)
-    ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
-    dims = _train_dims(M, N, F, Fv, W, Wv, net_depth, net_depth_condition,
-                       skip_index)
-    Mp = dims[1]
+    W = flat_params[0].shape[1]
+    Wv = flat_params[2 * (net_depth + 2)].shape[1]
     Cs = saved_rows(F, W, Wv, net_depth, net_depth_condition)[-1]
-    x = x.contiguous()
-    out = torch.empty((M, 4), dtype=torch.float32, device=dev)
-    S = torch.empty((Cs, Mp), dtype=compute_dtype, device=dev)
-    heads = torch.empty((4, Mp), dtype=torch.float32, device=dev)
-    pad, bias = act
-    c_dims = _ints(dims)
-    _call('lean_save_fwd', dev, x.data_ptr(), vproj.data_ptr(),
-          ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs), len(ws),
-          out.data_ptr(), S.data_ptr(), heads.data_ptr(),
-          ctypes.addressof(c_dims), pad, bias, flag)
-    launches['lean_save_fwd'] += 1
-    return out[:, :3], out[:, 3:], (S, heads)
+    out, saved = _fwd_launch('lean_save_fwd', x, view, flat_params,
+                             num_samples, net_depth, net_depth_condition,
+                             skip_index, compute_dtype, act,
+                             (Cs, _round_up(M, TILE)))
+    return out[:, :3], out[:, 3:], saved
+
+
+def _grad_plan(fn, view, g_rgb, g_dens, flat_params, num_samples,
+               net_depth, net_depth_condition, skip_index, compute_dtype):
+    """The checks and the layout every backward wrapper shares."""
+    flag = _dtype_flag(compute_dtype)
+    dev = view.device
+    M = g_rgb.shape[0]
+    R, Fv = view.shape
+    F = flat_params[0].shape[0]
+    W, Wv = _check_mlp(flat_params, net_depth, net_depth_condition, flag,
+                       fn, dev)
+    if M != R * num_samples or M == 0:
+        raise ValueError(f'{fn}: {M} points is not {R} rays x '
+                         f'num_samples={num_samples}')
+    _check(view, (R, Fv), fn, 'view', dev)
+    _check(g_rgb, (M, 3), fn, 'g_rgb', dev)
+    _check(g_dens, (M, 1), fn, 'g_dens', dev)
+    dims = _train_dims(M, num_samples, F, Fv, W, Wv, net_depth,
+                       net_depth_condition, skip_index)
+    shapes = [tuple(t.shape) for t in flat_params[0::2]]
+    probs, tiles, dw_off, b_off, view_off = wgrad_problems(
+        shapes, net_depth, net_depth_condition, skip_index)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return dict(flag=flag, dev=dev, M=M, Mp=dims[1], R=R, F=F, W=W, Wv=Wv,
+                dims=dims, shapes=shapes, probs=probs, tiles=tiles,
+                dw_off=dw_off, b_off=b_off, view_off=view_off, sms=sms,
+                mc=wgrad_split(dims[1], len(tiles), num_samples, sms))
+
+
+def _grad_launch(fn, prefix, chunk, plan, view, g_rgb, g_dens, flat_params,
+                 net_depth, net_depth_condition, compute_dtype, act):
+    """Launch backward entry `fn` with its mode's own arguments `prefix`
+    over chunks of `chunk` points -> f32 gradients in param order."""
+    dev, M, Mp, R, W, Wv = (plan[k] for k in ('dev', 'M', 'Mp', 'R', 'W',
+                                              'Wv'))
+    shapes, dw_off, b_off = plan['shapes'], plan['dw_off'], plan['b_off']
+    iv = net_depth + 2
+    ks = [t.detach() for t in flat_params[0::2]]
+    # Chain kernels k[:in_h]^T [out, in_h] of the layers the cotangent runs
+    # back through (their x rows carry none).
+    chain = {i: ks[i][:W] for i in range(1, net_depth)}
+    chain[net_depth + 1] = ks[net_depth + 1][:W]
+    chain[iv] = ks[iv][:W]
+    chain.update({iv + j: ks[iv + j] for j in range(1, net_depth_condition)})
+    chain = {i: k.t().to(compute_dtype).contiguous() for i, k in chain.items()}
+    c_chain = (ctypes.c_void_p * len(ks))(
+        *[chain[i].data_ptr() if i in chain else None for i in range(len(ks))])
+    i_rgb = iv + net_depth_condition
+    heads = [ks[net_depth].to(compute_dtype).contiguous(),
+             ks[i_rgb].to(compute_dtype).contiguous()]
+    heads += [_rounded(flat_params[2 * i + 1].detach(), compute_dtype)
+              .reshape(-1).contiguous() for i in (net_depth, i_rgb)]
+    cap = min(chunk, Mp)
+    n_chain = min(cap // TILE, 2 * plan['sms'])
+    n_chunks = -(-M // chunk)
+    PW = dw_off[-1] + shapes[-1][0] * shapes[-1][1]
+    Cg = b_off[-1] + shapes[-1][1]
+    f32 = dict(dtype=torch.float32, device=dev)
+    G = torch.empty((Cg, cap), dtype=compute_dtype, device=dev)
+    g1f = torch.empty((Wv, cap), **f32)
+    db_part = torch.empty((n_chunks * n_chain, Cg), **f32)
+    partial = torch.zeros((-(-Mp // plan['mc']), PW), **f32)
+    g_ray = torch.empty((R, Wv), dtype=compute_dtype, device=dev)
+    dw = torch.empty(PW, **f32)
+    db = torch.empty(Cg, **f32)
+    g_rgb, g_dens, view = (t.contiguous() for t in (g_rgb, g_dens, view))
+    c_probs = _ints([v for pr in plan['probs'] for v in pr])
+    c_tiles = _ints([v for tl in plan['tiles'] for v in tl])
+    c_dims = _ints(plan['dims'])
+    _call(fn, dev, *prefix, g_rgb.data_ptr(), g_dens.data_ptr(),
+          view.data_ptr(), ctypes.addressof(c_chain), len(ks),
+          *[t.data_ptr() for t in heads], G.data_ptr(), g1f.data_ptr(),
+          db_part.data_ptr(), n_chain, partial.data_ptr(), plan['mc'],
+          ctypes.addressof(c_probs), len(plan['probs']),
+          ctypes.addressof(c_tiles), len(plan['tiles']), PW, g_ray.data_ptr(),
+          dw.data_ptr(), db.data_ptr(), plan['view_off'],
+          ctypes.addressof(c_dims), *_act_args(act), plan['flag'])
+    launches[fn] += 1
+    grads = []
+    for (k, n), o_w, o_b in zip(shapes, dw_off, b_off):
+        grads += [dw[o_w:o_w + k * n].view(k, n), db[o_b:o_b + n].view(1, n)]
+    return grads
 
 
 def lean_param_grads(view, g_rgb, g_dens, saved, flat_params,
@@ -647,123 +928,172 @@ def lean_param_grads(view, g_rgb, g_dens, saved, flat_params,
                                       flat_params, num_samples, net_depth,
                                       net_depth_condition, skip_index,
                                       compute_dtype, act)
-    flag = _dtype_flag(compute_dtype)
-    dev = view.device
-    S, heads = saved
-    M = g_rgb.shape[0]
-    N = num_samples
-    R, Fv = view.shape
-    F = flat_params[0].shape[0]
-    W, Wv = _check_mlp(flat_params, net_depth, net_depth_condition, flag,
-                       'lean_param_grads', dev)
-    dims = _train_dims(M, N, F, Fv, W, Wv, net_depth, net_depth_condition,
-                       skip_index)
-    Mp = dims[1]
-    Cs = saved_rows(F, W, Wv, net_depth, net_depth_condition)[-1]
     fn = 'lean_param_grads'
-    if M != R * N or M == 0:
-        raise ValueError(f'{fn}: {M} points is not {R} rays x '
-                         f'num_samples={N}')
-    _check(view, (R, Fv), fn, 'view', dev)
-    _check(g_rgb, (M, 3), fn, 'g_rgb', dev)
-    _check(g_dens, (M, 1), fn, 'g_dens', dev)
+    plan = _grad_plan(fn, view, g_rgb, g_dens, flat_params, num_samples,
+                      net_depth, net_depth_condition, skip_index,
+                      compute_dtype)
+    S, heads = saved
+    Mp, dev = plan['Mp'], plan['dev']
+    Cs = saved_rows(plan['F'], plan['W'], plan['Wv'], net_depth,
+                    net_depth_condition)[-1]
     _check(S, (Cs, Mp), fn, 'saved stream', dev, compute_dtype)
     _check(heads, (4, Mp), fn, 'saved heads', dev)
-    shapes = [tuple(t.shape) for t in flat_params[0::2]]
-    probs, tiles, dw_off, b_off, view_off = wgrad_problems(
-        shapes, net_depth, net_depth_condition, skip_index)
-    iv = net_depth + 2
-    ks = [t.detach() for t in flat_params[0::2]]
-    # Chain kernels k[:in_h]^T [out, in_h] of the layers the cotangent runs
-    # back through (their x rows carry none).
-    chain = {i: ks[i][:W] for i in range(1, net_depth)}
-    chain[net_depth + 1] = ks[net_depth + 1][:W]
-    chain[iv] = ks[iv][:W]
-    chain.update({iv + j: ks[iv + j] for j in range(1, net_depth_condition)})
-    chain = {i: k.t().to(compute_dtype).contiguous() for i, k in chain.items()}
-    c_chain = (ctypes.c_void_p * len(ks))(
-        *[chain[i].data_ptr() if i in chain else None for i in range(len(ks))])
-    k_den = ks[net_depth].to(compute_dtype).contiguous()
-    k_rgb = ks[iv + net_depth_condition].to(compute_dtype).contiguous()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_chain = min(Mp // TILE, 2 * sms)
-    # Split the points so that ~8 blocks per SM share the products.
-    want = max(1, -(-8 * sms // len(tiles)))
-    mc = _round_up(-(-Mp // want), WGRAD_STAGE)
-    splits = -(-Mp // mc)
-    PW = dw_off[-1] + shapes[-1][0] * shapes[-1][1]
-    Cg = b_off[-1] + shapes[-1][1]
-    f32 = dict(dtype=torch.float32, device=dev)
-    G = torch.empty((Cg, Mp), dtype=compute_dtype, device=dev)
-    g1f = torch.empty((Wv, Mp), **f32)
-    db_part = torch.empty((n_chain, Cg), **f32)
-    partial = torch.zeros((splits, PW), **f32)
-    g_ray = torch.empty((R, Wv), dtype=compute_dtype, device=dev)
-    dw = torch.empty(PW, **f32)
-    db = torch.empty(Cg, **f32)
-    g_rgb, g_dens, view = (t.contiguous() for t in (g_rgb, g_dens, view))
-    c_probs = _ints([v for pr in probs for v in pr])
-    c_tiles = _ints([v for tl in tiles for v in tl])
-    c_dims = _ints(dims)
-    pad, bias = act
-    _call(fn, dev, S.data_ptr(), heads.data_ptr(), g_rgb.data_ptr(),
-          g_dens.data_ptr(), view.data_ptr(), ctypes.addressof(c_chain),
-          len(ks), k_den.data_ptr(), k_rgb.data_ptr(), G.data_ptr(),
-          g1f.data_ptr(), db_part.data_ptr(), n_chain, partial.data_ptr(),
-          splits, mc, ctypes.addressof(c_probs), len(probs),
-          ctypes.addressof(c_tiles), len(tiles), PW, g_ray.data_ptr(),
-          dw.data_ptr(), db.data_ptr(), view_off, ctypes.addressof(c_dims),
-          pad, bias, flag)
-    launches['lean_param_grads'] += 1
-    grads = []
-    for (k, n), o_w, o_b in zip(shapes, dw_off, b_off):
-        grads += [dw[o_w:o_w + k * n].view(k, n), db[o_b:o_b + n].view(1, n)]
-    return grads
+    S, heads = S.contiguous(), heads.contiguous()
+    return _grad_launch(fn, [S.data_ptr(), heads.data_ptr()],
+                        _round_up(Mp, plan['mc']), plan, view, g_rgb, g_dens,
+                        flat_params, net_depth, net_depth_condition,
+                        compute_dtype, act)
 
 
-class _LeanSave(torch.autograd.Function):
-    """lean_save_fwd forward, lean_param_grads backward; x and view get no
-    gradient (their producers are parameter-free, and resampling is
-    detached under stop_resample_grad, which MipNerf enforces)."""
+def lean_param_grads_recompute(x, view, g_rgb, g_dens, flat_params,
+                               num_samples: int, net_depth: int,
+                               net_depth_condition: int, skip_index: int,
+                               compute_dtype, act):
+    """lean_param_grads with the forward re-run by lean_fwd's kernel chunk
+    by chunk (recompute_chunk points at a time) instead of read back: (x
+    [M, F] f32 encode rows, view, head cotangents, params) -> f32 gradients
+    in param order.  No level-sized saved stream is allocated."""
+    if _on_cpu(x, 'lean_param_grads_recompute'):
+        return lean_param_grads_recompute_plain(
+            x, view, g_rgb, g_dens, flat_params, num_samples, net_depth,
+            net_depth_condition, skip_index, compute_dtype, act)
+    fn = 'lean_param_grads_recompute'
+    plan = _grad_plan(fn, view, g_rgb, g_dens, flat_params, num_samples,
+                      net_depth, net_depth_condition, skip_index,
+                      compute_dtype)
+    dev, M, F, W, Wv = (plan[k] for k in ('dev', 'M', 'F', 'W', 'Wv'))
+    _check(x, (M, F), fn, 'x', dev)
+    x = x.contiguous()
+    iv = 2 * (net_depth + 2)
+    vproj = view_proj(view, flat_params[iv], flat_params[iv + 1], W,
+                      compute_dtype)
+    ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
+    chunk = recompute_chunk(plan['Mp'], plan['mc'])
+    cap = min(chunk, plan['Mp'])
+    Cs = saved_rows(F, W, Wv, net_depth, net_depth_condition)[-1]
+    S = torch.empty((Cs, cap), dtype=compute_dtype, device=dev)
+    heads = torch.empty((4, cap), dtype=torch.float32, device=dev)
+    prefix = [x.data_ptr(), vproj.data_ptr(), ctypes.addressof(w_ptrs),
+              ctypes.addressof(b_ptrs), S.data_ptr(), heads.data_ptr(), chunk]
+    return _grad_launch(fn, prefix, chunk, plan, view, g_rgb, g_dens,
+                        flat_params, net_depth, net_depth_condition,
+                        compute_dtype, act)
+
+
+def lean_param_grads_hybrid(view, g_rgb, g_dens, residuals, flat_params,
+                            num_samples: int, net_depth: int,
+                            net_depth_condition: int, skip_index: int,
+                            compute_dtype, act):
+    """lean_param_grads from lean_hybrid_fwd's residuals (x [M, Fp], hs,
+    bottleneck, ys: row-major, compute dtype), read as they are; the raw
+    heads of the activation fold are recomputed from them with f32 sums."""
+    if _on_cpu(view, 'lean_param_grads_hybrid'):
+        return lean_param_grads_hybrid_plain(
+            view, g_rgb, g_dens, residuals, flat_params, num_samples,
+            net_depth, net_depth_condition, skip_index, compute_dtype, act)
+    fn = 'lean_param_grads_hybrid'
+    plan = _grad_plan(fn, view, g_rgb, g_dens, flat_params, num_samples,
+                      net_depth, net_depth_condition, skip_index,
+                      compute_dtype)
+    dev, M, F, W, Wv = (plan[k] for k in ('dev', 'M', 'F', 'W', 'Wv'))
+    xp, hs, bott, ys = residuals
+    acts = [xp] + list(hs) + [bott] + list(ys)
+    widths = ([_round_up(F, 16)] + [W] * (net_depth + 1)
+              + [Wv] * net_depth_condition)
+    for i, (t, w) in enumerate(zip(acts, widths)):
+        _check(t, (M, w), fn, f'residual {i}', dev, compute_dtype)
+        if not t.is_contiguous():
+            raise ValueError(f'{fn}: residual {i} must be contiguous')
+    c_acts = (ctypes.c_void_p * len(acts))(*[t.data_ptr() for t in acts])
+    return _grad_launch(fn, [ctypes.addressof(c_acts)],
+                        _round_up(plan['Mp'], plan['mc']), plan, view, g_rgb,
+                        g_dens, flat_params, net_depth, net_depth_condition,
+                        compute_dtype, act)
+
+
+class _Lean(torch.autograd.Function):
+    """The forward of a mode and its parameter-gradient backward.  x and
+    view get no gradient (their producers are parameter-free, and
+    resampling is detached under stop_resample_grad, which MipNerf
+    enforces).  What crosses to the backward: 'save' the saved stream,
+    'recompute' only x and view, 'hybrid' the plain forward's residuals."""
 
     @staticmethod
-    def forward(ctx, x, view, cfg, *flat):
-        rgb, density, saved = lean_save_fwd(x, view, flat, *cfg)
-        ctx.cfg = cfg
-        ctx.save_for_backward(view, *saved, *flat)
+    def forward(ctx, x, view, mode, cfg, *flat):
+        ctx.mode, ctx.cfg, ctx.n_flat = mode, cfg, len(flat)
+        if mode == 'save':
+            rgb, density, saved = lean_save_fwd(x, view, flat, *cfg)
+            ctx.save_for_backward(view, *saved, *flat)
+        elif mode == 'recompute':
+            rgb, density = lean_fwd(x, view, flat, *cfg)
+            ctx.save_for_backward(x, view, *flat)
+        else:
+            rgb, density, (xp, hs, bott, ys) = lean_hybrid_fwd(x, view, flat,
+                                                                *cfg)
+            ctx.save_for_backward(view, xp, *hs, bott, *ys, *flat)
         return rgb, density
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_rgb, g_dens):
-        view, S, heads, *flat = ctx.saved_tensors
-        grads = lean_param_grads(view, g_rgb.float(), g_dens.float(),
-                                 (S, heads), flat, *ctx.cfg)
-        return (None, None, None,
+        saved = ctx.saved_tensors
+        res, flat = saved[:-ctx.n_flat], saved[-ctx.n_flat:]
+        g_rgb, g_dens = g_rgb.float(), g_dens.float()
+        if ctx.mode == 'save':
+            view, S, heads = res
+            grads = lean_param_grads(view, g_rgb, g_dens, (S, heads), flat,
+                                     *ctx.cfg)
+        elif ctx.mode == 'recompute':
+            x, view = res
+            grads = lean_param_grads_recompute(x, view, g_rgb, g_dens, flat,
+                                               *ctx.cfg)
+        else:
+            view, xp, *acts = res
+            depth = ctx.cfg[1]
+            grads = lean_param_grads_hybrid(
+                view, g_rgb, g_dens,
+                (xp, acts[:depth], acts[depth], acts[depth + 1:]), flat,
+                *ctx.cfg)
+        return (None, None, None, None,
                 *[g.reshape(p.shape) for g, p in zip(grads, flat)])
+
+
+MODES = ('recompute', 'save', 'hybrid')
 
 
 def fused_mlp_lean(x, view, flat_params, num_samples: int, net_depth: int,
                    net_depth_condition: int, skip_index: int,
-                   compute_dtype=torch.float32, mode: str = 'save', act=None):
+                   compute_dtype=torch.float32, mode: str = 'recompute',
+                   act=None, encode=None):
     """Lean MLP with a parameter-gradient backward: (x [M, F] f32 encode
     rows, view [M/num_samples, Fv] per ray, flat params) -> (rgb [M, 3],
-    density [M, 1]) f32, activated with act = (rgb_padding, density_bias).
+    density [M, 1]) f32, activated with act = (rgb_padding, density_bias),
+    the raw heads for act=None.
 
-    mode='save': the forward also keeps every activation (the compute
-    dtype) and the backward reads them back; the only mode ported.  The
-    backward gives gradients to the parameters only: x and view get none,
-    as the JAX function gives them zero cotangents."""
+    mode='recompute': the backward re-runs the forward chunk by chunk;
+    nothing level-sized crosses from the forward.  mode='save': the forward
+    also keeps every activation (the compute dtype) and the backward reads
+    them back.  mode='hybrid': a plain-torch forward whose activations are
+    the backward's residuals, read as they are.  The backward gives
+    gradients to the parameters only: x and view get none, as the JAX
+    function gives them zero cotangents.  `encode` (the moments input) is
+    not ported for training."""
     if net_depth_condition < 1:
         raise ValueError('fused_mlp_lean requires net_depth_condition >= 1 '
                          '(the view branch); use the "xla" backend for '
                          'net_depth_condition == 0')
-    if mode != 'save':
-        raise NotImplementedError(f'fused_mlp_lean mode {mode!r} is not '
-                                  "ported yet (only 'save')")
-    if act is None:
-        raise ValueError('fused_mlp_lean requires act=(rgb_padding, '
-                         'density_bias)')
+    if mode not in MODES:
+        raise ValueError(f'fused_mlp_lean: mode must be one of {MODES}, got '
+                         f'{mode!r}')
+    if encode is not None:
+        if mode == 'hybrid':
+            raise ValueError("encode is a kernel-boundary fusion; mode "
+                             "'hybrid' runs its forward in plain torch - use "
+                             "'recompute'/'save'")
+        raise NotImplementedError('fused_mlp_lean: the moments input '
+                                  '(encode=) of the training kernels is not '
+                                  'ported yet')
     cfg = (num_samples, net_depth, net_depth_condition, skip_index,
-           compute_dtype, (float(act[0]), float(act[1])))
-    return _LeanSave.apply(x.float(), view.float(), cfg, *flat_params)
+           compute_dtype, None if act is None
+           else (float(act[0]), float(act[1])))
+    return _Lean.apply(x.float(), view.float(), mode, cfg, *flat_params)

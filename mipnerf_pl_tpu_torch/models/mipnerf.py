@@ -5,24 +5,29 @@ samples stratified, level >= 1 resamples from the previous level's weights;
 each level encodes its cone Gaussians with the IPE, runs the MLP and
 composites.
 
-Training with 'pallas_lean_save' runs the lean training kernels on the
-encode rows; they apply the head activations themselves (when the model's
-activations are the defaults and density_noise is 0, as in JAX), and the
-activated heads are composited by the plain `volumetric_rendering` with
-autograd through it.  The lean backends give the encoded inputs no
-gradient, so they require stop_resample_grad (checked at construction).
+Training with a lean backend ('pallas_lean', 'pallas_lean_save',
+'pallas_hybrid') runs `fused_mlp_lean` on the encode rows; it applies the
+head activations itself when the model's activations are the defaults and
+density_noise is 0, as in JAX (otherwise it returns the raw heads and the
+activations, with the noise, run here), and the heads are composited by
+the plain `volumetric_rendering` with autograd through it.  The lean
+backends give the encoded inputs no gradient, so they require
+stop_resample_grad (checked at construction).
 
-With a lean backend and `fuse_render` (what MipNeRFSystem's eval model
-selects for val.mlp_backend='auto'), each level runs the fused lean-render
-kernels: the IPE is decoded from the [6, B, N] moments inside the kernel,
-the heads are activated and composited there, and only the nan-safe
-distance clamp stays outside.  The kernels always decode the moments, so in
-the port render fusion implies `fuse_encode`.
+With 'pallas_lean' or 'pallas_lean_save' and `fuse_render` (what
+MipNeRFSystem's eval model selects for val.mlp_backend='auto'), each level
+runs the fused lean-render kernels: the IPE is decoded from the [6, B, N]
+moments inside the kernel, the heads are activated and composited there,
+and only the nan-safe distance clamp stays outside.  The kernels always
+decode the moments, so in the port render fusion implies `fuse_encode`.
+They are forward only: a forward that wants parameter gradients through
+them raises NotImplementedError (their backward, the JAX
+`_bwd_kernel_lean_render`, is not ported yet).
 
 Knobs that steer TPU-only machinery (`channel_major`, `lean_input_cast`,
 `fast_encode_math`, `pallas_encode`, `mxu_cumsum`) are accepted and have no
-effect.  The unbounded-360 mode, `ipe_backend='pallas'` and the training
-forms of 'pallas_lean' and 'pallas_hybrid' are not ported yet.
+effect.  The unbounded-360 mode and `ipe_backend='pallas'` are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from mipnerf_pl_tpu_torch.models.mlp import LEAN_BACKENDS, MLP
+from mipnerf_pl_tpu_torch.models.mlp import (LEAN_BACKENDS, MLP,
+                                             RENDER_BACKENDS)
 from mipnerf_pl_tpu_torch.ops.math import (cast_rays_cmajor,
                                            integrated_pos_enc, pos_enc)
 from mipnerf_pl_tpu_torch.ops.render import (clamp_distance, delta_mids,
@@ -91,8 +97,7 @@ class MipNerf(nn.Module):
             raise NotImplementedError(rgb_activation)
         if density_activation not in ('softplus', 'relu'):
             raise NotImplementedError(density_activation)
-        if (mlp_backend in LEAN_BACKENDS + ('pallas_hybrid',)
-                and not stop_resample_grad):
+        if mlp_backend in LEAN_BACKENDS and not stop_resample_grad:
             # The lean kernels' backward gives the encoded inputs no
             # gradient; that is exact only while stop_resample_grad blocks
             # the one parameter-dependent input path (level-0 weights ->
@@ -125,7 +130,10 @@ class MipNerf(nn.Module):
         self._fused_act = (mlp_backend in LEAN_BACKENDS and use_viewdirs
                            and density_activation == 'softplus'
                            and density_noise == 0.0)
+        # Render fusion needs a lean backend with a render-fused level: the
+        # hybrid forward has none (in JAX it composites in XLA).
         self._fused_render = (fuse_render and self._fused_act
+                              and mlp_backend in RENDER_BACKENDS
                               and mlp_num_rgb_channels == 3
                               and mlp_num_density_channels == 1
                               and mlp_net_depth_condition >= 1)

@@ -8,15 +8,16 @@ convert.py maps between them), Xavier-uniform weights and zero biases.
 Backends:
   'xla'   the plain forward (torch ops; named after the JAX backend it
           mirrors, so the same configs select it)
+  'pallas_lean' | 'pallas_lean_save' | 'pallas_hybrid'
+          training: `fused_mlp_lean`, the counterpart of the JAX
+          `_call_pallas_lean`, in mode 'recompute', 'save' or 'hybrid':
+          f32 encode rows, view features per ray, the head activations
+          applied in the kernel when `fused_activation` is set (raw heads
+          otherwise), parameter gradients only.  The moments input
+          (`encode=`) is not ported for training.
   'pallas_lean' | 'pallas_lean_save'
           the render path: the fused lean-render level kernels
-          (kernels/mlp.py) through `render=`.
-  'pallas_lean_save'
-          training: `fused_mlp_lean` (mode 'save'), the counterpart of the
-          JAX `_call_pallas_lean`: f32 encode rows, view features per ray,
-          the head activations applied in the kernel (`fused_activation`
-          is required), parameter gradients only.  The training forms of
-          'pallas_lean' (recompute) and 'pallas_hybrid' are not ported yet.
+          (kernels/mlp.py) through `render=`, forward only.
 Without view directions every backend runs the plain forward, as in JAX.
 """
 
@@ -30,7 +31,12 @@ from torch import nn
 from mipnerf_pl_tpu_torch.kernels.mlp import (flatten_params, fused_mlp_lean,
                                               fused_mlp_lean_render)
 
-LEAN_BACKENDS = ('pallas_lean', 'pallas_lean_save')
+# The lean training backends and their fused_mlp_lean modes.
+LEAN_MODES = {'pallas_lean': 'recompute', 'pallas_lean_save': 'save',
+              'pallas_hybrid': 'hybrid'}
+LEAN_BACKENDS = tuple(LEAN_MODES)
+# The backends with a render-fused level (the hybrid forward has none).
+RENDER_BACKENDS = ('pallas_lean', 'pallas_lean_save')
 
 
 class MLP(nn.Module):
@@ -90,20 +96,27 @@ class MLP(nn.Module):
         moments), view_direction [B, Fv] per ray.
 
         Returns (raw_rgb [B, N, 3], raw_density [B, N, nd]) f32 (activated
-        on the 'pallas_lean_save' training path), or with `render` =
-        (delta [B, N], mids [B, N], white_bkgd) and `encode` = (min_deg,
+        on a lean training path with `fused_activation`), or with `render`
+        = (delta [B, N], mids [B, N], white_bkgd) and `encode` = (min_deg,
         max_deg) the per-ray (comp_rgb [B, 3], dist_raw [B], acc [B],
         weights [B, N]) of the lean render kernels."""
+        if encode is not None and self.backend not in RENDER_BACKENDS:
+            raise ValueError('encode fusion requires a lean pallas backend, '
+                             f'got {self.backend!r}')
         if render is not None:
             return self._lean_render(x, view_direction, *render, encode)
         if self.backend == 'xla' or view_direction is None:
             return self._plain(x, view_direction)
-        if self.backend == 'pallas_lean_save' and encode is None:
-            return self._lean_save(x, view_direction)
+        if self.backend in LEAN_BACKENDS:
+            if encode is not None:
+                raise NotImplementedError(
+                    'the moments input (encode=) of the lean training '
+                    'kernels is not ported yet; train on encode rows '
+                    '(nerf.fuse_encode False)')
+            return self._lean(x, view_direction)
         raise NotImplementedError(
-            f'mlp backend {self.backend!r} is ported for the render path '
-            '(render=...), and for training as "pallas_lean_save" with '
-            'encode rows; use backend "xla" or "pallas_lean_save"')
+            f'mlp backend {self.backend!r} is not ported yet; use "xla" or '
+            f'one of {LEAN_BACKENDS}')
 
     def _plain(self, x, view_direction):
         """The JAX 'xla' forward: a concatenated input is split into
@@ -160,13 +173,12 @@ class MLP(nn.Module):
         if self.num_rgb_channels != 3 or self.num_density_channels != 1:
             raise ValueError(f'{what} requires 3 rgb channels and 1 density '
                              'channel')
-        if self.fused_activation is None:
-            raise ValueError(f'{what} requires fused_activation')
 
-    def _lean_save(self, x, view_direction):
-        """Training form of 'pallas_lean_save': x [B, N, F] f32 encode
-        rows, view_direction [B, Fv] -> activated (rgb [B, N, 3], density
-        [B, N, 1]); gradients reach the parameters only."""
+    def _lean(self, x, view_direction):
+        """Training form of the lean backends: x [B, N, F] f32 encode rows,
+        view_direction [B, Fv] -> (rgb [B, N, 3], density [B, N, 1]),
+        activated when fused_activation is set; gradients reach the
+        parameters only."""
         self._check_lean_heads('the lean training kernels')
         num_samples = x.shape[-2]
         lead = x.shape[:-1]
@@ -175,15 +187,15 @@ class MLP(nn.Module):
             x.reshape(-1, x.shape[-1]),
             view_direction.reshape(-1, view_direction.shape[-1]), flat,
             num_samples, self.net_depth, self.net_depth_condition,
-            self.skip_index, self.compute_dtype, 'save',
+            self.skip_index, self.compute_dtype, LEAN_MODES[self.backend],
             self.fused_activation)
         return rgb.reshape(*lead, 3), density.reshape(*lead, 1)
 
     def _lean_render(self, moments, view_direction, delta, mids, white_bkgd,
                      encode):
-        if self.backend not in LEAN_BACKENDS:
-            raise ValueError('render fusion requires a lean backend, got '
-                             f'{self.backend!r}')
+        if self.backend not in RENDER_BACKENDS:
+            raise ValueError('render fusion requires a lean pallas backend, '
+                             f'got {self.backend!r}')
         self._check_lean_heads('render fusion')
         if view_direction is None:
             raise ValueError('render fusion requires view directions')

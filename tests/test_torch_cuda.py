@@ -15,7 +15,11 @@ dtype): the largest leaf relative error ||a - b|| / ||b|| (bench.py's
 metric) against the f32 plain backward, <= 1e-4 in f32 and <= 3e-2 in
 bf16.  Fed the kernel forward's own stream instead, the f32 gradients move
 by ~3e-3 at 393,216 points: the forwards differ by ~1e-6, which flips the
-ReLU mask of every pre-activation that close to zero.
+ReLU mask of every pre-activation that close to zero.  So the hybrid
+backward is held against its plain version on the same residuals, and the
+recompute backward against the save backward on the same kernel forward
+(<= 1e-5: it re-runs that forward, and only the order of the f32 bias
+sums differs); lean_fwd must equal lean_save_fwd's outputs bit for bit.
 """
 
 import numpy as np
@@ -121,9 +125,8 @@ def test_cuda_kernels_match_plain(cuda_device, shape, dtype):
     tk.reset_launches()
     got = run_port(prob, cfg, dt, device=cuda_device)
     torch.cuda.synchronize()
-    assert tk.launches == {'lean_view_proj': 1, 'lean_mlp': 1,
-                           'lean_composite': 1, 'lean_save_fwd': 0,
-                           'lean_param_grads': 0}
+    assert tk.launches == dict({k: 0 for k in tk.launches},
+                               lean_view_proj=1, lean_mlp=1, lean_composite=1)
     want = _plain_on(prob, cfg, cuda_device)      # f32 plain reference
     for name, a, b in zip(('comp', 'dist', 'acc', 'weights'), got, want):
         assert np.all(np.isfinite(a)), name
@@ -234,22 +237,151 @@ def test_cuda_lean_save_matches_plain(cuda_device, shape, dtype):
     assert max_leaf_rel_err(grads, ref_grads) <= bar
 
 
+def _on(arrays, device):
+    x, view, flat, g_rgb, g_dens = arrays
+    return ([torch.tensor(a, device=device) for a in (x, view)],
+            [torch.tensor(p, device=device) for p in flat],
+            [torch.tensor(a, device=device) for a in (g_rgb, g_dens)])
+
+
 @pytest.mark.cuda
-def test_cuda_fused_mlp_lean_autograd(cuda_device):
-    """The autograd Function on the card: gradients of the parameters
-    through backward() equal lean_param_grads, x and view get none."""
-    cfg = dict(SMALL, net_width=64, net_width_condition=32)
-    x, view, flat, g_rgb, g_dens = train_problem(21, **cfg)
-    x, view, g_rgb, g_dens = (torch.tensor(a, device=cuda_device)
-                              for a in (x, view, g_rgb, g_dens))
-    flat = [torch.tensor(p, device=cuda_device, requires_grad=True)
-            for p in flat]
+@pytest.mark.parametrize('act', [(0.001, -1.0), None], ids=['act', 'raw'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(TRAIN_SHAPES))
+def test_cuda_lean_fwd_matches_plain(cuda_device, shape, dtype, act):
+    """lean_fwd against lean_fwd_plain (f32) at the forward bars, and bit
+    for bit equal to lean_save_fwd's outputs (the same kernel and tiles)."""
+    R, cfg = TRAIN_SHAPES[shape]
+    (x, view), flat, _ = _on(train_problem(R, **cfg), cuda_device)
     args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
-            cfg['skip_index'], torch.float32)
-    rgb, dens = tk.fused_mlp_lean(x, view, flat, *args, 'save', (0.001, -1.0))
+            cfg['skip_index'])
+    dt = getattr(torch, dtype)
+    tk.reset_launches()
+    got = tk.lean_fwd(x, view, flat, *args, dt, act)
+    saved_out = tk.lean_save_fwd(x, view, flat, *args, dt, act)
+    torch.cuda.synchronize()
+    assert tk.launches['lean_fwd'] == 1
+    ref = tk.lean_fwd_plain(x, view, flat, *args, torch.float32, act)
+    for a, b, c in zip(got, saved_out, ref):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+        err = float((a - c).abs().max())
+        if dtype == 'float32':
+            assert err <= 1e-4, err
+        else:
+            assert err / max(float(c.abs().max()), 1e-6) <= 3e-2, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('chunks', ['default', 'one_range'])
+@pytest.mark.parametrize('act', [(0.001, -1.0), None], ids=['act', 'raw'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(TRAIN_SHAPES))
+def test_cuda_recompute_matches_save(cuda_device, shape, dtype, act, chunks,
+                                     monkeypatch):
+    """lean_param_grads_recompute against lean_param_grads on the kernel
+    forward's saved stream (the same forward, re-run chunk by chunk): only
+    the order of the f32 bias sums differs, largest leaf relative error
+    <= 1e-5; two runs give the same bits.  'one_range' re-runs one
+    weight-gradient range at a time, so the small shapes take several
+    chunks too (the last one ragged)."""
+    if chunks == 'one_range':
+        monkeypatch.setattr(tk, 'RECOMPUTE_POINTS', 1)
+    R, cfg = TRAIN_SHAPES[shape]
+    (x, view), flat, (g_rgb, g_dens) = _on(train_problem(R, **cfg),
+                                           cuda_device)
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], getattr(torch, dtype), act)
+    saved = tk.lean_save_fwd(x, view, flat, *args)[2]
+    want = tk.lean_param_grads(view, g_rgb, g_dens, saved, flat, *args)
+    tk.reset_launches()
+    got = tk.lean_param_grads_recompute(x, view, g_rgb, g_dens, flat, *args)
+    again = tk.lean_param_grads_recompute(x, view, g_rgb, g_dens, flat,
+                                          *args)
+    torch.cuda.synchronize()
+    assert tk.launches['lean_param_grads_recompute'] == 2
+    assert all(torch.isfinite(g).all() for g in got)
+    assert max_leaf_rel_err(got, want) <= 1e-5
+    for a, b in zip(got, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('act', [(0.001, -1.0), None], ids=['act', 'raw'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(TRAIN_SHAPES))
+def test_cuda_hybrid_matches_plain(cuda_device, shape, dtype, act):
+    """lean_param_grads_hybrid against the f32 lean_param_grads_hybrid_plain
+    on the same residuals (lean_hybrid_fwd's, in the compute dtype):
+    largest leaf relative error <= 1e-4 f32, <= 3e-2 bf16."""
+    R, cfg = TRAIN_SHAPES[shape]
+    (x, view), flat, (g_rgb, g_dens) = _on(train_problem(R, **cfg),
+                                           cuda_device)
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'])
+    dt = getattr(torch, dtype)
+    res = tk.lean_hybrid_fwd(x, view, flat, *args, dt, act)[2]
+    tk.reset_launches()
+    got = tk.lean_param_grads_hybrid(view, g_rgb, g_dens, res, flat, *args,
+                                     dt, act)
+    torch.cuda.synchronize()
+    assert tk.launches['lean_param_grads_hybrid'] == 1
+    want = tk.lean_param_grads_hybrid_plain(view, g_rgb, g_dens, res, flat,
+                                            *args, torch.float32, act)
+    assert all(torch.isfinite(g).all() for g in got)
+    bar = 1e-4 if dtype == 'float32' else 3e-2
+    assert max_leaf_rel_err(got, want) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['save', 'recompute', 'hybrid'])
+def test_cuda_fused_mlp_lean_autograd(cuda_device, mode):
+    """The autograd Function on the card: gradients of the parameters
+    through backward() equal the mode's backward wrapper, x and view get
+    none."""
+    cfg = dict(SMALL, net_width=64, net_width_condition=32)
+    (x, view), flat, (g_rgb, g_dens) = _on(train_problem(21, **cfg),
+                                           cuda_device)
+    flat = [p.requires_grad_(True) for p in flat]
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], torch.float32, (0.001, -1.0))
+    rgb, dens = tk.fused_mlp_lean(x, view, flat, *args[:5], mode, args[5])
     ((rgb * g_rgb).sum() + (dens * g_dens).sum()).backward()
-    _, _, saved = tk.lean_save_fwd(x, view, flat, *args, (0.001, -1.0))
-    want = tk.lean_param_grads(view, g_rgb, g_dens, saved, flat, *args,
-                               (0.001, -1.0))
+    if mode == 'save':
+        _, _, saved = tk.lean_save_fwd(x, view, flat, *args)
+        want = tk.lean_param_grads(view, g_rgb, g_dens, saved, flat, *args)
+    elif mode == 'recompute':
+        want = tk.lean_param_grads_recompute(x, view, g_rgb, g_dens, flat,
+                                             *args)
+    else:
+        res = tk.lean_hybrid_fwd(x, view, flat, *args)[2]
+        want = tk.lean_param_grads_hybrid(view, g_rgb, g_dens, res, flat,
+                                          *args)
     for p, w in zip(flat, want):
         torch.testing.assert_close(p.grad, w.reshape(p.shape), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_fuse_render_training_is_refused(cuda_device):
+    """The render-fused level is forward only on the card too: a training
+    forward through it raises NotImplementedError; rendering works."""
+    from mipnerf_pl_tpu_torch.models.mipnerf import MipNerf
+    from mipnerf_pl_tpu_torch.rays import Rays
+    model = MipNerf(num_samples=8, max_deg_point=4, deg_view=2,
+                    mlp_net_depth=3, mlp_net_width=16,
+                    mlp_net_width_condition=16, mlp_skip_index=2,
+                    mlp_backend='pallas_lean_save', fuse_render=True,
+                    fuse_encode=True).to(cuda_device)
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(64, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ones = np.ones((64, 1), np.float32)
+    rays = Rays(*(torch.tensor(f, device=cuda_device) for f in (
+        rng.normal(size=(64, 3)).astype(np.float32) * 0.1, d, d,
+        ones * 0.005, ones, ones * 2.0, ones * 6.0)))
+    with pytest.raises(NotImplementedError, match='_bwd_kernel_lean_render'):
+        model(rays, False, True)
+    with torch.no_grad():
+        out = model(rays, False, True)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(lv.rgb).all() for lv in out)

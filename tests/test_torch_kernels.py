@@ -7,11 +7,12 @@ view features, delta/mids planes and parameters.  f32 tolerance 1e-5: the
 JAX kernel decodes the IPE with ~1e-6-accurate polynomial exp/sin and sums
 the transmittance with a triangular matmul, the port with libm and cumsum.
 
-The training kernels' plain versions (`fused_mlp_lean`, mode 'save',
-through its autograd Function) against the JAX `fused_mlp_lean` with its
-custom VJP, Pallas in interpret mode: forward at rtol = atol = 1e-5 and
-parameter gradients at 2e-4 in f32 (the bars of tests/test_fused_mlp.py),
-2e-2 in bf16 (one bf16 ulp is 2^-8 relative; sums run in another order).
+The training kernels' plain versions (`fused_mlp_lean` through its
+autograd Function, modes 'recompute', 'save' and 'hybrid', heads activated
+or raw) against the JAX `fused_mlp_lean` with its custom VJP, Pallas in
+interpret mode: forward at rtol = atol = 1e-5 and parameter gradients at
+2e-4 in f32 (the bars of tests/test_fused_mlp.py), 2e-2 in bf16 (one bf16
+ulp is 2^-8 relative; sums run in another order).
 
 The CUDA kernels against their plain versions on the card are in
 test_torch_cuda.py.
@@ -116,47 +117,52 @@ def _lean_args(cfg):
             cfg['skip_index'])
 
 
-def _jax_lean_save(arrays, cfg, dtype):
-    """JAX fused_mlp_lean(mode='save'): outputs and the VJP of the
-    parameters for the head cotangents."""
+def _jax_lean(arrays, cfg, dtype, mode, act):
+    """JAX fused_mlp_lean: outputs and the VJP of the parameters for the
+    head cotangents."""
     import jax
     x, view, flat, g_rgb, g_dens = arrays
 
     def f(fl):
         return jk.fused_mlp_lean(jnp.asarray(x), jnp.asarray(view), fl,
-                                 *_lean_args(cfg), dtype, None, 'save', ACT,
+                                 *_lean_args(cfg), dtype, None, mode, act,
                                  False, None)
     (rgb, dens), vjp = jax.vjp(f, tuple(jnp.asarray(p) for p in flat))
     (grads,) = vjp((jnp.asarray(g_rgb), jnp.asarray(g_dens)))
     return [np.asarray(rgb), np.asarray(dens)], [np.asarray(g) for g in grads]
 
 
-def _port_lean_save(arrays, cfg, dtype):
+def _port_lean(arrays, cfg, dtype, mode, act):
     """The port's fused_mlp_lean through autograd (the plain versions)."""
     x, view, flat, g_rgb, g_dens = (torch.tensor(a) if not isinstance(a, list)
                                     else a for a in arrays)
     params = [torch.tensor(p, requires_grad=True) for p in flat]
     rgb, dens = tk.fused_mlp_lean(x, view, params, *_lean_args(cfg), dtype,
-                                  'save', ACT)
+                                  mode, act)
     ((rgb * g_rgb).sum() + (dens * g_dens).sum()).backward()
     return ([rgb.detach().numpy(), dens.detach().numpy()],
             [p.grad.numpy() for p in params])
 
 
+@pytest.mark.parametrize('act', [ACT, None], ids=['act', 'raw'])
+@pytest.mark.parametrize('mode', ['save', 'recompute', 'hybrid'])
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('cfg', [
     SMALL,
     dict(SMALL, net_depth=4, net_depth_condition=2, net_width=32,
          net_width_condition=16),
 ], ids=['d3', 'd4_v2'])
-def test_lean_save_plain_matches_jax(cfg, dtype):
-    """Forward and every parameter gradient; 37 rays x 8 samples is ragged
-    against both the JAX row tile and the CUDA 64-point tile, and d3 ends
-    its trunk on a skip concat (density and bottleneck read [h, x])."""
+def test_lean_save_plain_matches_jax(cfg, dtype, mode, act):
+    """Forward and every parameter gradient of every mode, heads activated
+    or raw; 37 rays x 8 samples is ragged against both the JAX row tile and
+    the CUDA 64-point tile, and d3 ends its trunk on a skip concat (density
+    and bottleneck read [h, x]).  In 'hybrid' both sides round each product
+    and the raw heads to the compute dtype (JAX's XLA forward)."""
     arrays = train_problem(37, **cfg)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
-    (j_out, j_grads), (t_out, t_grads) = (_jax_lean_save(arrays, cfg, jdt),
-                                          _port_lean_save(arrays, cfg, tdt))
+    (j_out, j_grads), (t_out, t_grads) = (
+        _jax_lean(arrays, cfg, jdt, mode, act),
+        _port_lean(arrays, cfg, tdt, mode, act))
     fwd_tol, grad_tol = (1e-5, 2e-4) if dtype == 'float32' else (2e-2, 2e-2)
     for a, b in zip(t_out, j_out):
         np.testing.assert_allclose(a, b, rtol=fwd_tol, atol=fwd_tol)
@@ -167,22 +173,40 @@ def test_lean_save_plain_matches_jax(cfg, dtype):
                                    err_msg=f'leaf {i}')
 
 
-def test_lean_param_grads_plain_is_autograd_of_forward():
-    """The explicit transcription of _lean_param_grads equals
-    torch.autograd through lean_mlp_save_plain (f32: the forward's
-    roundings are exact there, so autograd is the true gradient)."""
+@pytest.mark.parametrize('act', [ACT, None], ids=['act', 'raw'])
+@pytest.mark.parametrize('mode', ['save', 'recompute', 'hybrid'])
+def test_lean_param_grads_plain_is_autograd_of_forward(mode, act):
+    """The explicit transcription of _lean_param_grads, fed as each mode
+    feeds it, equals torch.autograd through that mode's plain forward (f32:
+    the forward's roundings are exact there, so autograd is the true
+    gradient)."""
     cfg = dict(SMALL, net_depth=4, net_depth_condition=2)
     x, view, flat, g_rgb, g_dens = (torch.tensor(a) if not isinstance(a, list)
                                     else a
                                     for a in train_problem(13, **cfg))
     params = [torch.tensor(p, requires_grad=True) for p in flat]
-    rgb, dens, saved = tk.lean_mlp_save_plain(x, view, params,
-                                              *_lean_args(cfg),
-                                              torch.float32, ACT)
+    args = _lean_args(cfg) + (torch.float32, act)
+    if mode == 'hybrid':
+        rgb, dens, res = tk.lean_hybrid_fwd(x, view, params, *args)
+        got = tk.lean_param_grads_hybrid_plain(view, g_rgb, g_dens, res,
+                                               params, *args)
+    elif mode == 'save':
+        rgb, dens, saved = tk.lean_mlp_save_plain(x, view, params, *args)
+        got = tk.lean_param_grads_plain(view, g_rgb, g_dens, saved, params,
+                                        *args)
+    else:
+        rgb, dens = tk.lean_fwd_plain(x, view, params, *args)
+        got = tk.lean_param_grads_recompute_plain(x, view, g_rgb, g_dens,
+                                                  params, *args)
+    if mode == 'hybrid':
+        # lean_hybrid_fwd detaches the params: differentiate the same
+        # products through lean_fwd_plain (equal in f32).
+        rgb2, dens2 = tk.lean_fwd_plain(x, view, params, *args)
+        torch.testing.assert_close(rgb2, rgb, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(dens2, dens, rtol=1e-6, atol=1e-6)
+        rgb, dens = rgb2, dens2
     want = torch.autograd.grad((rgb * g_rgb).sum() + (dens * g_dens).sum(),
                                params)
-    got = tk.lean_param_grads_plain(view, g_rgb, g_dens, saved, params,
-                                    *_lean_args(cfg), torch.float32, ACT)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
@@ -213,7 +237,8 @@ def test_lean_save_saved_stream_layout():
 def test_wgrad_problems_cover_every_weight_once(depth, dcond, skip):
     """The CUDA backward's weight-gradient problems write every kernel
     entry exactly once, except view_0's per-ray rows (view^T g_ray), and
-    each problem reads its layer's input rows of the saved stream."""
+    each problem reads its layer's input activations (numbered x | hs |
+    bottleneck | ys) over their full width."""
     F, W, Wv, Fv = 24, 32, 16, 15
     shapes, d_in = [], F
     for i in range(depth):
@@ -223,11 +248,23 @@ def test_wgrad_problems_cover_every_weight_once(depth, dcond, skip):
     shapes += [(Wv, Wv)] * (dcond - 1) + [(Wv, 3)]
     probs, tiles, dw_off, b_off, view_off = tk.wgrad_problems(
         shapes, depth, dcond, skip)
-    Fp, hs, bott, ys, _ = tk.saved_rows(F, W, Wv, depth, dcond)
+    widths = [F] + [W] * (depth + 1) + [Wv] * dcond
+    iv = depth + 2
+
+    def inputs(layer):
+        """The activations layer `layer` reads."""
+        if layer == 0:
+            return {0}
+        if layer <= depth + 1:
+            h = min(layer, depth)          # hs[layer - 1], hs[-1] for heads
+            return {h} | ({0} if tk._skip_after(h - 1, skip) else set())
+        return {1 + depth + layer - iv}    # bottleneck, ys[j - 1]
+
     covered = np.zeros(dw_off[-1] + shapes[-1][0] * shapes[-1][1], int)
-    for a_row0, K, g_row0, n, out, ld in probs:
-        assert a_row0 in [0] + hs + [bott] + ys and g_row0 in b_off
+    for a, K, g_row0, n, out, ld in probs:
+        assert g_row0 in b_off
         layer = b_off.index(g_row0)
+        assert a in inputs(layer) and K == widths[a], (layer, a, K)
         assert (n, ld) == (shapes[layer][1],) * 2
         for r in range(K):
             covered[out + r * ld:out + r * ld + n] += 1
@@ -239,14 +276,72 @@ def test_wgrad_problems_cover_every_weight_once(depth, dcond, skip):
     assert b_off[-1] + 3 == sum(n for _, n in shapes)
 
 
+@pytest.mark.parametrize('M,N', [(393216, 128), (296, 8), (29 * 24, 24),
+                                 (3 * 128, 128)])
+def test_wgrad_ranges_align_with_recompute_chunks(M, N):
+    """The weight-gradient ranges hold whole 64-point tiles and whole rays,
+    every recompute chunk holds whole ranges, and both cover the level: the
+    recompute backward then sums the same ranges in the same order as the
+    save backward."""
+    Mp = tk._round_up(M, tk.TILE)
+    for n_tiles in (1, 41, 190):
+        mc = tk.wgrad_split(Mp, n_tiles, N, 132)
+        assert mc % tk.TILE == 0 and mc % N == 0
+        splits = -(-Mp // mc)
+        assert (splits - 1) * mc < Mp <= splits * mc
+        chunk = tk.recompute_chunk(Mp, mc)
+        assert chunk % mc == 0 and chunk >= mc
+        assert chunk <= max(mc, tk.RECOMPUTE_POINTS)
+        assert -(-M // chunk) * chunk >= M
+    # The lego level re-runs in chunks, never as a whole level.
+    mc = tk.wgrad_split(393216, 41, 128, 132)
+    assert tk.recompute_chunk(393216, mc) < 393216
+
+
 def test_lean_training_form_rejects():
+    """What the training form still refuses: the moments input (encode=)
+    in training, encode with 'hybrid' (JAX's refusal), no view branch, an
+    unknown mode, and a device that is neither the CPU nor CUDA."""
     x = torch.zeros(8, 24)
-    with pytest.raises(NotImplementedError):
-        tk.fused_mlp_lean(x, None, [], 8, 3, 1, 2, mode='recompute', act=ACT)
-    with pytest.raises(ValueError):
-        tk.fused_mlp_lean(x, None, [], 8, 3, 1, 2)
+    for mode in ('recompute', 'save'):
+        with pytest.raises(NotImplementedError, match='encode'):
+            tk.fused_mlp_lean(x, None, [], 8, 3, 1, 2, mode=mode, act=ACT,
+                              encode=(0, 4))
+    with pytest.raises(ValueError, match='hybrid'):
+        tk.fused_mlp_lean(x, None, [], 8, 3, 1, 2, mode='hybrid',
+                          encode=(0, 4))
     with pytest.raises(ValueError):
         tk.fused_mlp_lean(x, None, [], 8, 3, 0, 2, act=ACT)
+    with pytest.raises(ValueError, match='mode'):
+        tk.fused_mlp_lean(x, None, [], 8, 3, 1, 2, mode='pallas')
+    meta = torch.zeros(8, 24, device='meta')
     with pytest.raises(ValueError):
-        tk.lean_save_fwd(torch.zeros(8, 24, device='meta'), None, [], 8, 3,
-                         1, 2, torch.float32, ACT)
+        tk.lean_save_fwd(meta, None, [], 8, 3, 1, 2, torch.float32, ACT)
+    with pytest.raises(ValueError):
+        tk.lean_fwd(meta, None, [], 8, 3, 1, 2, torch.float32, None)
+    with pytest.raises(ValueError):
+        tk.lean_param_grads_recompute(meta, None, None, None, [], 8, 3, 1, 2,
+                                      torch.float32, ACT)
+    with pytest.raises(ValueError):
+        tk.lean_param_grads_hybrid(meta, None, None, None, [], 8, 3, 1, 2,
+                                   torch.float32, ACT)
+
+
+def test_render_level_refuses_gradients():
+    """fused_mlp_lean_render is forward only (its backward, TPU kernel #2,
+    is not ported): with grad mode on and a parameter that requires grad it
+    raises; under no_grad, or with parameters that need none, it renders."""
+    cfg = SMALL
+    moments, view, delta, mids, flat = (
+        [torch.tensor(p) for p in a] if isinstance(a, list)
+        else torch.tensor(a) for a in _problem(5, **cfg))
+    args = (moments, view, delta, mids)
+    kw = dict(encode=cfg['deg'], act=ACT)
+    want = tk.fused_mlp_lean_render(*args, flat, 8, 3, 1, 2, **kw)
+    params = [p.clone().requires_grad_(True) for p in flat]
+    with pytest.raises(NotImplementedError, match='_bwd_kernel_lean_render'):
+        tk.fused_mlp_lean_render(*args, params, 8, 3, 1, 2, **kw)
+    with torch.no_grad():
+        got = tk.fused_mlp_lean_render(*args, params, 8, 3, 1, 2, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -174,12 +174,24 @@ def test_mipnerf_randomized_runs_with_generator():
 
 @pytest.mark.parametrize('backend', ['pallas_lean', 'pallas_hybrid'])
 def test_training_backends_not_ported_raise(backend):
-    """The training forms of the recompute and hybrid lean backends are not
-    ported: their forward raises instead of computing something else."""
+    """The recompute and hybrid backends train; what stays unported raises
+    instead of computing something else: the moments input (encode=) of the
+    training kernels (for 'hybrid' JAX's own refusal, a ValueError), the
+    unbounded-360 mode, and unknown options."""
     _, trays = _rays()
     port = MipNerf(**KW, mlp_backend=backend)
+    assert not port._fused_render
+    out = port(trays, False, True)
+    assert all(torch.isfinite(lv.rgb).all() for lv in out)
+    x = torch.zeros(4, 8, 24)
+    view = torch.zeros(4, 15)
+    mlp = MLP(24, 15, net_depth=3, net_width=16, net_width_condition=8,
+              skip_index=2, backend=backend, fused_activation=(0.001, -1.0))
+    err = ValueError if backend == 'pallas_hybrid' else NotImplementedError
+    with pytest.raises(err, match='encode'):
+        mlp(x, view, encode=(0, 4))
     with pytest.raises(NotImplementedError):
-        port(trays, False, True)
+        MLP(24, 15, backend='pallas')(x, view)
     with pytest.raises(NotImplementedError):
         MipNerf(**KW, unbounded=True)
     with pytest.raises(TypeError):
@@ -203,15 +215,20 @@ def test_lean_backends_require_stop_resample_grad(backend):
             jax.random.PRNGKey(0), _rays()[0], None, False, True)
 
 
-def test_lean_save_training_forward_matches_plain():
-    """MipNerf(mlp_backend='pallas_lean_save') trains through the lean
-    kernels' plain versions with the activations fused, and its levels and
-    parameter gradients equal the plain model's."""
+@pytest.mark.parametrize('noise', [0.0, 1.0], ids=['act', 'raw'])
+@pytest.mark.parametrize('backend',
+                         ['pallas_lean', 'pallas_lean_save', 'pallas_hybrid'])
+def test_lean_save_training_forward_matches_plain(backend, noise):
+    """MipNerf on a lean backend trains through the lean kernels' plain
+    versions, with the activations fused (raw heads with density_noise,
+    which randomized=False leaves unused), and its levels and parameter
+    gradients equal the plain model's."""
     _, trays = _rays(seed=1)
-    lean = MipNerf(**KW, mlp_backend='pallas_lean_save')
-    plain = MipNerf(**KW)
+    lean = MipNerf(**KW, mlp_backend=backend, density_noise=noise)
+    plain = MipNerf(**KW, density_noise=noise)
     plain.load_state_dict(lean.state_dict())
-    assert lean._fused_act and lean.mlp.fused_activation is not None
+    assert lean._fused_act == (noise == 0.0)
+    assert (lean.mlp.fused_activation is None) == (noise > 0.0)
     outs = [m(trays, False, True) for m in (lean, plain)]
     for la, lb in zip(*outs):
         for name in ('rgb', 'distance', 'acc', 'weights', 't_samples'):
@@ -239,6 +256,22 @@ def test_eval_backend_selection():
                          ).eval_model.mlp_backend == 'xla'
     plain = MipNeRFSystem(_tiny_hparams(**{'val.mlp_backend': 'xla'}))
     assert plain.eval_model is plain.model
+
+
+@pytest.mark.parametrize('backend',
+                         ['pallas_lean', 'pallas_lean_save', 'pallas_hybrid'])
+def test_eval_model_of_each_lean_backend(backend):
+    """val.mlp_backend 'auto' renders through the fused lean-render kernels
+    whichever lean backend trains, 'pallas_hybrid' included; the training
+    model of 'pallas_hybrid' never takes the render-fused level, even with
+    nerf.fuse_render set (its forward has none, as in JAX)."""
+    from mipnerf_pl_tpu_torch.system import MipNeRFSystem
+    system = MipNeRFSystem(_tiny_hparams(**{'nerf.mlp_backend': backend,
+                                            'nerf.fuse_render': True}))
+    assert system.model.mlp_backend == backend and system.model._fused_act
+    assert system.model._fused_render == (backend != 'pallas_hybrid')
+    assert system.eval_model.mlp_backend == 'pallas_lean'
+    assert system.eval_model._fused_render
 
 
 def _cameras(side):

@@ -7,9 +7,11 @@ optax.adam and the JAX package's packed_adam at 1e-7 (torch computes the
 moments with lerp / addcmul, optax with products: the last f32 bit).
 
 The slice: a JAX MipNeRFSystem and the port's on the same params and rays,
-train.randomized False, backend pallas_lean_save on both (the JAX side runs
-its Pallas kernels in interpret mode).  The JAX lean path takes the IPE
-with ~1e-6-accurate polynomial exp/sin and its prefix sums (resample CDF,
+train.randomized False, the same lean backend on both ('pallas_lean',
+'pallas_lean_save', 'pallas_hybrid'; the JAX side runs its Pallas kernels
+in interpret mode), and one case with density_noise 1.0, which leaves the
+heads raw (act=None) on both sides.  The JAX lean path takes the IPE with
+~1e-6-accurate polynomial exp/sin and its prefix sums (resample CDF,
 transmittance, distloss) as triangular matmuls; the port takes libm and
 cumsum.  So the loss and its aux values compare at 2e-6 relative (measured
 1.5e-7) and every parameter gradient at 1e-5 of the largest entry of its
@@ -146,14 +148,19 @@ def _leaf_close(got, want, rel):
                                    err_msg=jax.tree_util.keystr(path))
 
 
-@pytest.mark.parametrize('disable_multiscale', [False, True])
-def test_train_slice_matches_jax(disable_multiscale):
+@pytest.mark.parametrize('backend,disable_multiscale,noise', [
+    ('pallas_lean_save', False, 0.0), ('pallas_lean_save', True, 0.0),
+    ('pallas_lean', False, 0.0), ('pallas_hybrid', False, 0.0),
+    ('pallas_lean', False, 1.0)])
+def test_train_slice_matches_jax(backend, disable_multiscale, noise):
     """One step's loss, aux values and every parameter gradient, then the
     parameters after 3 train_steps, port against JAX."""
-    hp = _hparams(**{'loss.disable_multiscale_loss': disable_multiscale})
+    hp = _hparams(**{'loss.disable_multiscale_loss': disable_multiscale,
+                     'nerf.mlp_backend': backend,
+                     'nerf.density_noise': noise})
     jsys, jstate, system, state, JRays = _systems(hp)
-    assert system.model._fused_act and system.model.mlp_backend == \
-        'pallas_lean_save'
+    assert system.model.mlp_backend == backend
+    assert system.model._fused_act == (noise == 0.0)
     rays, pixels = _batch()
     if disable_multiscale:     # lossmult then has no effect on the loss
         rays = rays._replace(lossmult=rays.lossmult * 0.5)
@@ -220,3 +227,26 @@ def test_train_many_replays_single_steps():
                            system.init_state(seed=3)['params']
                            ['mlp.rgb.bias'])
 
+
+
+@pytest.mark.parametrize('backend', ['pallas_lean', 'pallas_lean_save'])
+def test_fuse_render_training_is_refused(backend):
+    """nerf.fuse_render on a lean training backend: the training forward
+    would run the render-fused level, whose backward (TPU kernel #2) is not
+    ported, so value_and_grad raises NotImplementedError instead of
+    training through the plain versions' autograd (which the kernels on
+    the card could not do); rendering with the same model still works."""
+    from mipnerf_pl_tpu_torch.system import MipNeRFSystem
+    system = MipNeRFSystem(_hparams(**{'nerf.mlp_backend': backend,
+                                       'nerf.fuse_render': True}))
+    assert system.model._fused_render
+    state = system.init_state(seed=0)
+    rays, pixels = _batch(8)
+    trays = Rays(*(torch.from_numpy(f) for f in rays))
+    with pytest.raises(NotImplementedError, match='_bwd_kernel_lean_render'):
+        system.value_and_grad(state['params'], trays,
+                              torch.from_numpy(pixels))
+    out = system.render_image(state['params'],
+                              Rays(*(f.reshape(2, 4, -1) for f in rays)))
+    assert out['fine_rgb'].shape == (2, 4, 3)
+    assert np.isfinite(out['fine_rgb']).all()
