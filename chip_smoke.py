@@ -4,12 +4,14 @@
 
 Phases (each prints its own line; any failure raises and exits non-zero):
   1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
-  2. build the CUDA kernels from mipnerf_pl_tpu_torch/csrc with nvcc
-     (sm_90a), one nvcc per source, all started together, and time it;
+  2. build the CUDA kernels from mipnerf_pl_tpu_torch/csrc (lean_render,
+     lean_train, ipe) with nvcc (sm_90a), one nvcc per source, all started
+     together, and time it; print each kernel's registers and spills;
   3. each render kernel's wrapper against its plain PyTorch version at the
      lego shape (8x256 MLP, N = 128, one 8192-ray chunk) on numpy-seeded
      inputs: f32 max |d| <= 1e-4, bf16 max |d| / max |ref| <= 3e-2 against
-     the f32 plain version; CUDA-event times of both;
+     the f32 plain version; CUDA-event times of both (and of torch.addmm,
+     the one library call of view_proj's function);
   4. the render slice through its entry point: MipNeRFSystem (default lego
      schema, val.mlp_backend auto) -> render_camera of a 200x200 Blender
      view with seeded params (through convert.jax_params_to_torch); every
@@ -28,28 +30,43 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      against lean_param_grads on the kernel forward's stream (the same
      forward re-run chunk by chunk): <= 1e-5 in both dtypes, two runs equal
      bit for bit, and its peak memory below one level-sized saved stream;
-     CUDA-event times of every kernel and its plain version;
+     the same three forwards and the recompute backward on the level's
+     [6, M] moments (`encode=`), in f32 also against the rows form on the
+     plain decode of the same moments (<= 1e-5); lean_composite_bwd (both
+     backgrounds) and ipe_moments at the level's shape (<= 1e-5, f32);
+     CUDA-event times of every kernel and its plain version, and each
+     kernel's bound: the larger of its FLOP over the card's peak and its
+     bytes over 3.35 TB/s (kernel_work);
   6. the training slice through its entry points: MipNeRFSystem (lego
-     schema, 3072 synthetic rays as bench.py makes them) on each of
-     nerf.mlp_backend pallas_lean_save, pallas_lean and pallas_hybrid, bf16
-     then f32: a one-step gradient-parity gate against the same system on
-     the plain 'xla' backend (largest leaf relative error <= 3e-2 bf16,
-     bench.py's bar; <= 2e-3 f32: the two forwards differ by ~1e-6, which
-     flips the ReLU masks of pre-activations that close to zero, and each
-     flip moves a whole per-point term), then K = 5 steps of
-     make_train_many, in which each of the backend's training kernels must
-     launch 2 levels x 5 times and the loss must stay finite; ms/step,
-     rays/s and peak memory of every backend and of the plain path, in
-     turns p s r h h r s p; and one f32 gate of pallas_lean with
-     density_noise 1.0, whose kernels return raw heads (act=None);
-  7. the kernels' JSON line, the card's name and power limit, and last the
+     schema, 3072 synthetic rays as bench.py makes them) in each of
+     TRAIN_CONFIGS (pallas_lean_save, pallas_lean, pallas_hybrid; the two
+     lean backends with fuse_render + fuse_encode; pallas_lean_save with
+     fuse_render on encode rows; both with fuse_encode; pallas_lean_save
+     with pallas_encode), bf16 then f32: a one-step gradient-parity gate
+     against the same system on the plain 'xla' backend (largest leaf
+     relative error <= 3e-2 bf16, bench.py's bar; <= 2e-3 f32: the two
+     forwards differ by ~1e-6, which flips the ReLU masks of pre-activations
+     that close to zero, and each flip moves a whole per-point term), then
+     K = 5 steps of make_train_many, in which each of the configuration's
+     kernels must launch 2 levels x 5 times and the loss must stay finite;
+     ms/step, rays/s and peak memory of every configuration and of the
+     plain path, in turns (plain, each configuration, then back, twice:
+     best, median and spread of the 4 runs); past
+     F32_TURNS_BY seconds the new configurations' f32 turns are cut, never
+     a gate; and one f32 gate of pallas_lean with density_noise 1.0, whose
+     kernels return raw heads (act=None);
+  7. the kernels' JSON line (launches, error, times, bound, library call),
+     the script's wall time, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --measure
 
 adds, before phase 7, the frame times at 800x800 (kernel and plain paths,
 f32 and bf16, in turns k p p k), a torch.profiler table of one 200x200
-kernel-path frame, and one of a bf16 train step of each lean backend.
+kernel-path frame, and, with the host's issue time of an unprofiled step,
+one of a bf16 train step of each lean backend and of pallas_lean_save with
+fuse_render + fuse_encode, and of an f32 step of the last and of
+pallas_lean_save.
 
 It imports torch, numpy and the port; never JAX.  With no CUDA device it
 exits non-zero before printing any result.
@@ -81,19 +98,55 @@ SIDE = 200              # frame side: 40000 rays = 5 chunks
 FULL_SIDE = 800         # the lego test views' size (--measure)
 TRAIN_RAYS = 3072       # train.batch_size of the lego schema
 TRAIN_K = 5             # steps per make_train_many call
+TURN_ROUNDS = 2         # timing: the configurations in turns, there and back
 RENDER_KERNELS = ('lean_view_proj', 'lean_mlp', 'lean_composite')
-# Each lean training backend -> the kernels its step must launch per level.
-TRAIN_KERNELS = {
-    'pallas_lean_save': ('lean_save_fwd', 'lean_param_grads'),
-    'pallas_lean': ('lean_fwd', 'lean_param_grads_recompute'),
-    'pallas_hybrid': ('lean_param_grads_hybrid',),
+_SAVE = ('lean_save_fwd', 'lean_param_grads')
+_RECOMPUTE = ('lean_fwd', 'lean_param_grads_recompute')
+_COMPOSITE = ('lean_composite', 'lean_composite_bwd')
+_RENDER_ENCODE = {'nerf.fuse_render': True, 'nerf.fuse_encode': True}
+# Each training configuration -> (nerf.mlp_backend, the fusion options, the
+# kernels its step must launch per level).
+TRAIN_CONFIGS = {
+    'pallas_lean_save': ('pallas_lean_save', {}, _SAVE),
+    'pallas_lean': ('pallas_lean', {}, _RECOMPUTE),
+    'pallas_hybrid': ('pallas_hybrid', {}, ('lean_param_grads_hybrid',)),
+    'pallas_lean_save+render+encode': ('pallas_lean_save', _RENDER_ENCODE,
+                                       _SAVE + _COMPOSITE),
+    'pallas_lean+render+encode': ('pallas_lean', _RENDER_ENCODE,
+                                  _RECOMPUTE + _COMPOSITE),
+    'pallas_lean_save+render': ('pallas_lean_save',
+                                {'nerf.fuse_render': True},
+                                _SAVE + _COMPOSITE),
+    'pallas_lean_save+encode': ('pallas_lean_save',
+                                {'nerf.fuse_encode': True}, _SAVE),
+    'pallas_lean+encode': ('pallas_lean', {'nerf.fuse_encode': True},
+                           _RECOMPUTE),
+    'pallas_lean_save+pallas_encode': ('pallas_lean_save',
+                                       {'nerf.pallas_encode': True},
+                                       _SAVE + ('ipe_moments',)),
 }
+# The configurations whose f32 timing turns are cut first if the run must
+# be shortened (the gates never are).
+NEW_CONFIGS = tuple(list(TRAIN_CONFIGS)[3:])
+# --measure profiles a bf16 step of each lean backend and of this one.
+PROFILED_CONFIG = 'pallas_lean_save+render+encode'
+# Past this many seconds from the start, phase 6 cuts the f32 timing turns
+# of NEW_CONFIGS (half the 1200 s a run may take, less the f32 turns).
+F32_TURNS_BY = 420
+START = time.perf_counter()
 RECOMPUTE_BAR = 1e-5    # recompute vs save: only the f32 bias sums' order
 F32_BAR = 1e-4
 BF16_BAR = 3e-2
 F32_GATE_BAR = 2e-3     # see phase 6 in the docstring
 FRAME_BAR = 1e-3
+FORM_BAR = 1e-5         # moments vs rows form, composite backward, encode
 ACT = (0.001, -1.0)
+# The card's published rates (NVIDIA H100 SXM data sheet, 700 W): HBM
+# bytes/s; tensor-core FLOP/s in bf16 and for f32 as 3xTF32 (the route the
+# f32 kernels take: three TF32 products, 495 / 3); CUDA-core f32 FLOP/s.
+HBM_RATE = 3.35e12
+TC_RATE = {'bf16': 989e12, 'f32': 495e12 / 3}
+CUDA_CORE_RATE = 67e12
 
 
 def log(msg):
@@ -121,6 +174,86 @@ def cuda_ms(fn, iters: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_work(name, hp, R, N, tag, form='rows'):
+    """(tensor-core FLOP, CUDA-core operations, bytes) of one call of
+    kernel `name` at R rays x N samples in the compute dtype `tag` ('f32'
+    or 'bf16'), from the lego schema's widths: every input read once and
+    every output written once.  form='moments': the training forward reads
+    the [6, M] moments and decodes them.  Elementwise work is counted at a
+    few operations a value: 8 an encode feature (the decode), 12 a point
+    (the composite), 30 a point (its backward)."""
+    depth = hp['nerf.mlp.net_depth']
+    dcond = hp['nerf.mlp.net_depth_condition']
+    skip = hp['nerf.mlp.skip_index']
+    W = hp['nerf.mlp.net_width']
+    Wv = hp['nerf.mlp.net_width_condition']
+    F = 6 * (hp['nerf.max_deg_point'] - hp['nerf.min_deg_point'])
+    Fv = 3 * (2 * hp['nerf.deg_view'] + 1)
+    M, Mp = R * N, -(-R * N // km.TILE) * km.TILE
+    es = 2 if tag == 'bf16' else 4
+    Fp, _, _, _, Cs = km.saved_rows(F, W, Wv, depth, dcond)
+    shapes, d_in = [], F
+    for i in range(depth):
+        shapes.append((d_in, W))
+        d_in = W + (F if i % skip == 0 and i > 0 else 0)
+    shapes += [(d_in, 1), (d_in, W), (W + Fv, Wv)]
+    shapes += [(Wv, Wv)] * (dcond - 1) + [(Wv, 3)]
+    n_w = sum(k * n for k, n in shapes)
+    n_b = sum(n for _, n in shapes)
+    params = n_w * es + n_b * 4
+    grads = (n_w + n_b) * 4
+    fwd = 2 * M * (n_w - Fv * Wv)          # view_0's per-ray rows: view_proj
+    chain = W * (W * (depth - 1) + 1 + W) + W * Wv \
+        + sum(k * n for k, n in shapes[depth + 3:])
+    bwd = 2 * M * chain + fwd + 2 * R * Fv * Wv
+    x_in, decode = (M * F * 4, 0) if form == 'rows' else (M * 24, 8 * M * F)
+    g, view, vproj = M * 16, R * Fv * 4, R * Wv * 4
+    if name == 'lean_view_proj':
+        return 0, 2 * R * Fv * Wv, view + Fv * Wv * es + Wv * 4 + vproj
+    if name == 'lean_mlp':
+        return fwd, 8 * M * F, M * 24 + vproj + params + M * 16
+    if name == 'lean_composite':
+        return 0, 12 * M, M * 28 + R * 32
+    if name == 'lean_composite_bwd':
+        return 0, 30 * M, M * 44 + R * 32
+    if name == 'ipe_moments':
+        return 0, 8 * M * F, M * (24 + 4 * F)
+    if name == 'lean_fwd':
+        return fwd, decode, x_in + vproj + params + M * 16
+    if name == 'lean_save_fwd':
+        return fwd, decode, x_in + vproj + params + M * 16 + Cs * Mp * es \
+            + Mp * 16
+    if name == 'lean_param_grads':
+        return bwd, 0, Cs * Mp * es + Mp * 16 + g + view + params + grads
+    if name == 'lean_param_grads_recompute':
+        return fwd + bwd, decode, x_in + vproj + g + view + params + grads
+    if name == 'lean_param_grads_hybrid':
+        res = M * (Fp + (depth + 1) * W + dcond * Wv) * es
+        return bwd, 0, res + g + view + params + grads
+    raise KeyError(name)
+
+
+def bound(name, hp, R, N, tag, form='rows'):
+    """(bound_ms, 'bytes' or 'operations'): the least time the card could
+    take for kernel_work at the published rates."""
+    tc, cc, nbytes = kernel_work(name, hp, R, N, tag, form)
+    ops_s = tc / TC_RATE[tag] + cc / CUDA_CORE_RATE
+    bytes_s = nbytes / HBM_RATE
+    return (max(ops_s, bytes_s) * 1e3,
+            'operations' if ops_s >= bytes_s else 'bytes')
+
+
+def record(results, key, hp, R, N, err, ms, plain_ms, library_ms=None,
+           form='rows'):
+    """Keep one kernel's numbers under key = (name, tag) with its bound."""
+    name, tag = key
+    b_ms, b_by = bound(name.split('[')[0], hp, R, N, tag, form)
+    results[key] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=library_ms)
+    log(f'[bound] {name} {tag}: {b_ms:.4f} ms ({b_by}), kernel at '
+        f'{100 * b_ms / ms:.1f} % of it')
 
 
 def flax_tree(system: MipNeRFSystem, seed: int) -> dict:
@@ -221,7 +354,17 @@ def compare_kernels(params, hp, dev):
             if not ok:
                 raise AssertionError(f'{name} {tag} disagrees with its plain '
                                      f'version: max|d| {err:.3e}')
-            results[(name, tag)] = dict(err=err, ms=ms, plain_ms=plain_ms)
+            library_ms = None
+            if name == 'lean_view_proj':
+                # The one PyTorch call of the same function (a yardstick,
+                # never called by the port): addmm in the compute dtype.
+                kv, bv, vv = (t.to(dt) for t in (flat[iv][W:], flat[iv + 1],
+                                                 view))
+                library_ms = cuda_ms(lambda: torch.addmm(bv, vv, kv))
+                log(f'[kernel] {name} {tag}: torch.addmm {library_ms:.3f} '
+                    f'ms')
+            record(results, (name, tag), hp, CHUNK, N, err, ms, plain_ms,
+                   library_ms)
     return results
 
 
@@ -253,9 +396,10 @@ def train_batch(B, dev, seed=0):
 def level_inputs(hp, dev, seed=1):
     """One training level of the main path: x rows = the IPE of the
     stratified samples of TRAIN_RAYS seeded rays [M, 96], view [R, 27],
-    seeded head cotangents [M, 3] / [M, 1]."""
+    seeded head cotangents [M, 3] / [M, 1]; and the same samples' moments
+    [6, M], delta / mids [R, N]."""
     rays, _ = train_batch(TRAIN_RAYS, dev, seed)
-    _, means_covs = sample_along_rays(
+    t_samples, means_covs = sample_along_rays(
         rays.origins, rays.directions, rays.radii, hp['nerf.num_samples'],
         rays.near, rays.far, False, False, 'cone')
     x = integrated_pos_enc(means_covs, hp['nerf.min_deg_point'],
@@ -266,7 +410,17 @@ def level_inputs(hp, dev, seed=1):
     M = x.shape[0]
     g = [torch.tensor(rng.normal(size=(M, c)).astype(np.float32), device=dev)
          for c in (3, 1)]
-    return x, view, g[0], g[1]
+    moments = cast_rays_cmajor(t_samples, rays.origins, rays.directions,
+                               rays.radii).reshape(6, -1).contiguous()
+    delta, mids = delta_mids(t_samples, rays.directions)
+    return x, view, g[0], g[1], moments, delta, mids
+
+
+def fwd_parts(out, M):
+    """A training forward's outputs, saved stream and raw heads of its M
+    points, f32."""
+    rgb, dens, (S, heads) = out
+    return [rgb, dens, S[:, :M].float(), heads[:, :M]]
 
 
 def leaf_rel_err(got, want, names=None):
@@ -291,12 +445,10 @@ def compare_train_kernels(params, hp, dev):
     args = (hp['nerf.num_samples'], hp['nerf.mlp.net_depth'],
             hp['nerf.mlp.net_depth_condition'], hp['nerf.mlp.skip_index'])
     flat = flat_params(params, hp)
-    x, view, g_rgb, g_dens = level_inputs(hp, dev)
+    x, view, g_rgb, g_dens, moments, delta, mids = level_inputs(hp, dev)
     M = x.shape[0]
-
-    def fwd_parts(out):
-        rgb, dens, (S, heads) = out
-        return [rgb, dens, S[:, :M].float(), heads[:, :M]]
+    N = args[0]
+    enc = (hp['nerf.min_deg_point'], hp['nerf.max_deg_point'])
 
     def plain_fwd(dt):
         return km.lean_mlp_save_plain(x, view, flat, *args, dt, ACT)
@@ -324,16 +476,17 @@ def compare_train_kernels(params, hp, dev):
         return err, f'max|d|/max|ref| = {rel:.3e} <= {BF16_BAR}', \
             rel <= BF16_BAR
 
-    def report(name, tag, ok, text, err, ms, plain_ms):
+    def report(name, tag, ok, text, err, ms, plain_ms, form='rows'):
         log(f'[kernel] {name} {tag}: {text}; kernel {ms:.3f} ms  plain '
             f'{plain_ms:.3f} ms  {"OK" if ok else "FAIL"}')
         if not ok:
             raise AssertionError(f'{name} {tag} disagrees with its plain '
                                  'version')
-        results[(name, tag)] = dict(err=err, ms=ms, plain_ms=plain_ms)
+        record(results, (name, tag), hp, TRAIN_RAYS, N, err, ms, plain_ms,
+               form=form)
 
     ref = plain_fwd(torch.float32)
-    ref_parts = fwd_parts(ref)
+    ref_parts = fwd_parts(ref, M)
     ref_out = km.lean_fwd_plain(x, view, flat, *args, torch.float32, ACT)
     results = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -344,7 +497,7 @@ def compare_train_kernels(params, hp, dev):
         out = km.lean_save_fwd(x, view, flat, *args, dt, ACT)
         lf = km.lean_fwd(x, view, flat, *args, dt, ACT)
         torch.cuda.synchronize()
-        parts = fwd_parts(out)
+        parts = fwd_parts(out, M)
         finite = all(bool(torch.isfinite(t).all()) for t in parts)
         f_err, f_bar, f_ok = fwd_err(parts, ref_parts, dt)
         report('lean_save_fwd', tag, finite and f_ok,
@@ -435,7 +588,128 @@ def compare_train_kernels(params, hp, dev):
                cuda_ms(lambda: hybrid(dt, res)),
                cuda_ms(lambda: hybrid(dt, res, kernel=False)))
         del res
+        compare_moments_forms(results, report, fwd_err, flat, args, dt, tag,
+                              x, view, g_rgb, g_dens, moments, enc, hp)
+    compare_render_bwd_and_encode(results, report, flat, args, x, view,
+                                  moments, delta, mids, enc)
     return results
+
+
+def compare_moments_forms(results, report, fwd_err, flat, args, dt, tag, x,
+                          view, g_rgb, g_dens, moments, enc, hp):
+    """Phase 5, the moments input of the training kernels (`encode=`):
+    lean_save_fwd and lean_fwd on the [6, M] moments against the f32 plain
+    forward on them at the phase-3 bars, and in f32 against the same kernel
+    on the encode rows of the plain decode of the same moments (<=
+    FORM_BAR, max |d| / max |ref|); lean_param_grads_recompute on the
+    moments against lean_param_grads on the moments forward's stream (<=
+    RECOMPUTE_BAR, two runs bit-equal); CUDA-event times against the plain
+    versions on the moments."""
+    M = x.shape[0]
+    kw = dict(encode=enc)
+
+    def rel(got, want):
+        return max(float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(got, want))
+
+    rows = km.ipe_moments_plain(moments, *enc).contiguous()
+    ref = fwd_parts(km.lean_mlp_save_plain(moments, view, flat, *args,
+                                           torch.float32, ACT, **kw), M)
+    out = km.lean_save_fwd(moments, view, flat, *args, dt, ACT, **kw)
+    lf = km.lean_fwd(moments, view, flat, *args, dt, ACT, **kw)
+    torch.cuda.synchronize()
+    got = fwd_parts(out, M)
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    f_err, f_bar, f_ok = fwd_err(got, ref, dt)
+    same = all(torch.equal(a, b) for a, b in zip(lf, got[:2]))
+    text = f'max|d| {f_err:.3e} vs the f32 plain forward ({f_bar})'
+    if dt == torch.float32:
+        form = rel(got, fwd_parts(km.lean_save_fwd(rows, view, flat, *args,
+                                                    dt, ACT), M))
+        f_ok = f_ok and form <= FORM_BAR
+        text += (f'; vs the rows form on the plain decode {form:.3e} '
+                 f'(<= {FORM_BAR})')
+    report('lean_save_fwd[moments]', tag, finite and f_ok, text, f_err,
+           cuda_ms(lambda: km.lean_save_fwd(moments, view, flat, *args, dt,
+                                            ACT, **kw)),
+           cuda_ms(lambda: km.lean_mlp_save_plain(moments, view, flat, *args,
+                                                  dt, ACT, **kw)),
+           form='moments')
+    l_err, l_bar, l_ok = fwd_err(lf, ref[:2], dt)
+    report('lean_fwd[moments]', tag, same and l_ok,
+           f'max|d| {l_err:.3e} ({l_bar}); bit-equal to lean_save_fwd '
+           f'{same}', l_err,
+           cuda_ms(lambda: km.lean_fwd(moments, view, flat, *args, dt, ACT,
+                                       **kw)),
+           cuda_ms(lambda: km.lean_fwd_plain(moments, view, flat, *args, dt,
+                                             ACT, **kw)),
+           form='moments')
+    del lf, ref
+
+    def recompute():
+        return km.lean_param_grads_recompute(moments, view, g_rgb, g_dens,
+                                             flat, *args, dt, ACT, **kw)
+    want = km.lean_param_grads(view, g_rgb, g_dens, out[2], flat, *args, dt,
+                               ACT)
+    del out
+    got, again = recompute(), recompute()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    r_err, r_leaf = leaf_rel_err(got, want, leaf_names(hp))
+    r_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    del got, again, want
+    report('lean_param_grads_recompute[moments]', tag,
+           finite and same and r_err <= RECOMPUTE_BAR,
+           f'max leaf rel err vs lean_param_grads on the same moments '
+           f'forward {r_err:.3e} ({r_leaf}, <= {RECOMPUTE_BAR}); two runs '
+           f'bit-equal {same}; max|d| {r_abs:.3e}', r_abs,
+           cuda_ms(recompute),
+           cuda_ms(lambda: km.lean_param_grads_recompute_plain(
+               moments, view, g_rgb, g_dens, flat, *args, dt, ACT, **kw)),
+           form='moments')
+
+
+def compare_render_bwd_and_encode(results, report, flat, args, x, view,
+                                  moments, delta, mids, enc):
+    """Phase 5, f32 (both kernels are f32 in either compute dtype):
+    lean_composite_bwd at a training level (3072 rays x 128, the f32 plain
+    forward's activated heads, seeded per-ray cotangents, both
+    backgrounds) against lean_composite_bwd_plain, max |d| / max |ref| <=
+    FORM_BAR; ipe_moments on the level's moments against
+    ipe_moments_plain, max |d| <= FORM_BAR."""
+    R, N = delta.shape
+    rgb, dens = km.lean_fwd_plain(x, view, flat, *args, torch.float32, ACT)
+    rgbsig = torch.cat([rgb, dens], dim=-1).contiguous()
+    rng = np.random.default_rng(3)
+    g_perray, g_w = (torch.tensor(rng.normal(size=s).astype(np.float32),
+                                  device=x.device) for s in ((R, 8), (R, N)))
+    b_args = (rgbsig, delta, mids, g_perray, g_w)
+    errs = []
+    for white in (True, False):
+        got = km.lean_composite_bwd(*b_args, white)
+        want = km.lean_composite_bwd_plain(*b_args, white)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in got):
+            errs.append(float('inf'))
+        errs.append(max(float((a - b).abs().max()) / float(b.abs().max())
+                        for a, b in zip(got, want)))
+    err = max(errs)
+    report('lean_composite_bwd', 'f32', err <= FORM_BAR,
+           f'max|d|/max|ref| {err:.3e} (white and black background, <= '
+           f'{FORM_BAR})', err,
+           cuda_ms(lambda: km.lean_composite_bwd(*b_args, True)),
+           cuda_ms(lambda: km.lean_composite_bwd_plain(*b_args, True)))
+    got = km.ipe_moments(moments, *enc)
+    want = km.ipe_moments_plain(moments, *enc)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= FORM_BAR
+    del got, want
+    report('ipe_moments', 'f32', ok,
+           f'max|d| {err:.3e} (<= {FORM_BAR}), {moments.shape[1]:,} points',
+           err, cuda_ms(lambda: km.ipe_moments(moments, *enc)),
+           cuda_ms(lambda: km.ipe_moments_plain(moments, *enc)))
 
 
 def train_run(fn, state, stack, pixels):
@@ -476,8 +750,8 @@ def gradient_gate(hp, params, rays, pixels, dev, label):
 
 
 def train_slice(hp0, params, dev):
-    """Phase 6, bf16 then f32, every lean backend; -> the launch counts of
-    each backend's K-step run (bf16)."""
+    """Phase 6, bf16 then f32, every training configuration; -> the launch
+    counts of each configuration's K-step run (bf16)."""
     rays, pixels = train_batch(TRAIN_RAYS, dev)
     K = TRAIN_K
     stack = Rays(*(f.expand(K, *f.shape).contiguous() for f in rays))
@@ -488,20 +762,26 @@ def train_slice(hp0, params, dev):
         hp = dict(hp0, **{'train.compute_dtype': dtype})
         systems = {'plain': MipNeRFSystem(dict(hp, **{'nerf.mlp_backend':
                                                       'xla'}), device=dev)}
-        for backend, names in TRAIN_KERNELS.items():
-            hb = dict(hp, **{'nerf.mlp_backend': backend})
+        for label, (backend, opts, names) in TRAIN_CONFIGS.items():
+            hb = dict(hp, **{'nerf.mlp_backend': backend}, **opts)
             system = gradient_gate(hb, params, rays, pixels, dev,
-                                   f'{dtype} {backend}')
-            if not system.model._fused_act:
-                raise AssertionError(f'{backend} did not select the fused '
-                                     'lean training path')
+                                   f'{dtype} {label}')
+            model = system.model
+            gates = {'nerf.fuse_render': model._fused_render,
+                     'nerf.fuse_encode': model._fused_encode,
+                     'nerf.pallas_encode': model._pallas_encode}
+            if not model._fused_act or any(gates[k] != bool(opts.get(k))
+                                           for k in gates):
+                raise AssertionError(f'{label} did not select its path: '
+                                     f'fused activations {model._fused_act}'
+                                     f', {gates}')
             fn = system.make_train_many()
+            state = system.init_state(params=params)
             km.reset_launches()
-            state, aux, sec, _ = train_run(fn, system.init_state(
-                params=params), stack, pix)
+            state, aux, sec, _ = train_run(fn, state, stack, pix)
             run_counts = dict(km.launches)
             losses = aux['loss'].cpu().numpy()
-            log(f'[train] {dtype} {backend} make_train_many K={K}: launches '
+            log(f'[train] {dtype} {label} make_train_many K={K}: launches '
                 f'{ {n: run_counts[n] for n in names} }; loss '
                 f'{np.array2string(losses, precision=5)}; first call '
                 f'{sec:.3f} s')
@@ -509,18 +789,26 @@ def train_slice(hp0, params, dev):
                 if run_counts[name] != levels * K:
                     raise AssertionError(f'{name} launched {run_counts[name]}'
                                          f' times, expected {levels * K}')
+            if run_counts['lean_mlp']:
+                raise AssertionError(f'{label}: the training step launched '
+                                     'the render-only lean_mlp')
             if not np.all(np.isfinite(losses)):
                 raise AssertionError(f'non-finite training loss: {losses}')
-            counts.setdefault(backend, run_counts)
-            systems[backend] = system
+            counts.setdefault(label, run_counts)
+            systems[label] = system
             del state
+        if dtype == 'float32' and time.perf_counter() - START > F32_TURNS_BY:
+            log(f'[train] float32: past {F32_TURNS_BY} s, the timing turns of '
+                f'{", ".join(NEW_CONFIGS)} are cut')
+            for label in NEW_CONFIGS:
+                del systems[label]
         states = {n: s.init_state(params=params) for n, s in systems.items()}
         fns = {n: s.make_train_many() for n, s in systems.items()}
         states['plain'], _, _, _ = train_run(fns['plain'], states['plain'],
                                              stack, pix)
         order = list(systems)
         times = {n: [] for n in order}
-        for which in order + order[::-1]:
+        for which in (order + order[::-1]) * TURN_ROUNDS:
             states[which], aux, sec, peak = train_run(
                 fns[which], states[which], stack, pix)
             if not torch.isfinite(aux['loss']).all():
@@ -529,9 +817,12 @@ def train_slice(hp0, params, dev):
             log(f'[train] {dtype} {which}: {sec * 1e3 / K:.2f} ms/step, '
                 f'{TRAIN_RAYS * K / sec:,.0f} rays/s, peak {peak:.2f} GiB')
         for which, v in times.items():
-            best = min(t[0] for t in v)
-            log(f'[train] {dtype} {which} best of 2: {best * 1e3 / K:.2f} '
-                f'ms/step ({TRAIN_RAYS * K / best:,.0f} rays/s), peak '
+            secs = sorted(t[0] for t in v)
+            best, median = secs[0], float(np.median(secs))
+            log(f'[train] {dtype} {which} best of {len(v)}: '
+                f'{best * 1e3 / K:.2f} ms/step ({TRAIN_RAYS * K / best:,.0f} '
+                f'rays/s), median {median * 1e3 / K:.2f}, spread '
+                f'{(secs[-1] - best) * 1e3 / K:.2f} ms/step, peak '
                 f'{max(t[1] for t in v):.2f} GiB')
         del systems, states, fns
 
@@ -617,24 +908,36 @@ def measure(hp, params, dev):
     log(events.table(sort_by='self_device_time_total', row_limit=12,
                      max_name_column_width=60))
     rays, pixels = train_batch(TRAIN_RAYS, dev)
-    for backend in TRAIN_KERNELS:
+    runs = [(label, 'bfloat16')
+            for label in list(TRAIN_CONFIGS)[:3] + [PROFILED_CONFIG]]
+    runs += [('pallas_lean_save', 'float32'), (PROFILED_CONFIG, 'float32')]
+    for label, dtype in runs:
+        backend, opts, _ = TRAIN_CONFIGS[label]
         systr = MipNeRFSystem(dict(hp, **{'nerf.mlp_backend': backend,
-                                          'train.compute_dtype': 'bfloat16'}),
-                              device=dev)
+                                          'train.compute_dtype': dtype},
+                                   **opts), device=dev)
         state = systr.init_state(params=params)
         systr.train_step(state, rays, pixels, systr.step_generator(0, 0))
         torch.cuda.synchronize()
+        # The host's issue time of a step (nothing in it synchronises)
+        # against its time to the synchronise.
+        t0 = time.perf_counter()
+        systr.train_step(state, rays, pixels, systr.step_generator(0, 1))
+        issue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            systr.train_step(state, rays, pixels, systr.step_generator(0, 1))
+            systr.train_step(state, rays, pixels, systr.step_generator(0, 2))
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
         events = prof.key_averages()
         dev_ms = device_ms(events)
-        log(f'[measure] profile of one bf16 {backend} train step: wall '
-            f'{sec * 1e3:.1f} ms, device time {dev_ms:.1f} ms '
-            f'(busy {dev_ms / 10 / sec:.1f}%)')
+        log(f'[measure] {dtype} {label} train step: host issue '
+            f'{issue * 1e3:.1f} ms of {total * 1e3:.1f} ms to the '
+            f'synchronise; profiled: wall {sec * 1e3:.1f} ms, device time '
+            f'{dev_ms:.1f} ms (busy {dev_ms / 10 / sec:.1f}%)')
         log(events.table(sort_by='self_device_time_total', row_limit=15,
                          max_name_column_width=60))
         del systr, state
@@ -655,7 +958,7 @@ def main() -> int:
     log(f'[device] nvidia-smi: {smi}')
 
     t0 = time.perf_counter()
-    recs = _build.build_all(['lean_render', 'lean_train'])
+    recs = _build.build_all(['lean_render', 'lean_train', 'ipe'])
     log(f'[build] nvcc {" ".join(_build.ARCH_FLAGS)}, in parallel: '
         f'{time.perf_counter() - t0:.1f} s')
     for name, rec in recs.items():
@@ -718,18 +1021,24 @@ def main() -> int:
     if '--measure' in sys.argv[1:]:
         measure(hp, params, dev)
 
+    # Each kernel's f32 numbers at its phase-3 or phase-5 shape, with its
+    # launches on its path: the render kernels in phase 4's frame, each
+    # training kernel in the first configuration of phase 6 that runs it.
     kernels = []
     for name, (source, replaces) in km.KERNELS.items():
         r = results[(name, 'f32')]
         if name in RENDER_KERNELS:
             path_counts = counts
         else:
-            path_counts = next(train_counts[b] for b, names in
-                               TRAIN_KERNELS.items() if name in names)
+            path_counts = next(train_counts[label] for label, (_, _, names)
+                               in TRAIN_CONFIGS.items() if name in names)
         kernels.append({'name': name, 'route': 'cuda', 'source': source,
                         'replaces': replaces, 'launches': path_counts[name],
                         'max_abs_err': r['err'], 'ms': r['ms'],
-                        'plain_ms': r['plain_ms']})
+                        'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+                        'bound_by': r['bound_by'],
+                        'library_ms': r['library_ms']})
+    log(f'[done] wall {time.perf_counter() - START:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi_line())
     print(json.dumps({'ok': True, 'device': {

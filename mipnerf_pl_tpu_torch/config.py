@@ -136,12 +136,11 @@ def merge_from_list(config: dict, list_merge) -> None:
 # keys (as in the JAX package), the JAX package's TPU layout and speed
 # knobs (including the packed-Adam fusion and buffer donation), and its f16
 # host-fetch of render outputs (a TPU host-link trick; the port hands back
-# float32).
+# float32).  `nerf.fast_encode_math` is live: it selects no fast
+# transcendentals in the port, but gates `nerf.pallas_encode` as in JAX.
 INERT_KEYS = ('train.num_work', 'val.num_work', 'val.batch_size',
               'val.fetch_dtype', 'nerf.channel_major', 'nerf.lean_input_cast',
-              'nerf.mxu_cumsum', 'nerf.fast_encode_math',
-              'nerf.pallas_encode', 'train.packed_adam',
-              'train.donate_buffers')
+              'nerf.mxu_cumsum', 'train.packed_adam', 'train.donate_buffers')
 
 
 def warn_inert_keys(config: dict) -> None:

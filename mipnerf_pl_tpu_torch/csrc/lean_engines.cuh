@@ -410,6 +410,54 @@ __device__ float head_dot(const T* h, int KH, const T* x, int KX,
 // extra rows hold zeros).
 __host__ __device__ inline int enc_rows(int F) { return (F + 15) & ~15; }
 
+// Feature f < 6L of the integrated positional encoding of point m, decoded
+// from the channel-major moments [6][ld] (means xyz | diagonal covs xyz):
+// the sin half, then the cos half as sin(y + pi/2), each indexed k * 3 +
+// dim; the scale 2^(min_deg + k) is exact in f32.  Exact libm expf/sinf:
+// the sine arguments reach 2^15 |x|, where the __sinf/__expf intrinsics
+// and --use_fast_math are wrong.
+__device__ __forceinline__ float ipe_feature(const float* __restrict__ moments, size_t ld, int m,
+                                             int f, int L, int min_deg) {
+  const int cos_half = f >= 3 * L;
+  const int q = f - cos_half * 3 * L;
+  const int k = q / 3, dim = q - 3 * k;
+  const float scale = ldexpf(1.f, min_deg + k);
+  const float y = moments[(size_t)dim * ld + m] * scale;
+  const float var = moments[(size_t)(3 + dim) * ld + m] * (scale * scale);
+  const float phase = cos_half ? 1.57079637050628662109375f : 0.f;
+  return expf(-0.5f * var) * sinf(y + phase);
+}
+
+// The encode tile [Fp][LD] of the TM points from m0, in the compute dtype,
+// zero past F and past M, from either input form, fixed at compile time so
+// the rows form compiles to its plain copy loop: MOMENTS false reads f32
+// encode rows x [M, F] (coalesced along the features); MOMENTS true
+// decodes the moments x [6][ldx] (F = 6L; coalesced along the points).
+// The caller syncs.
+template <typename T, bool MOMENTS>
+__device__ void load_encode_tile(T* xs, const float* __restrict__ x, size_t ldx, int M, int F,
+                                 int Fp, int L, int min_deg, int m0) {
+  for (int idx = threadIdx.x; idx < Fp * TM; idx += THREADS) {
+    int f, row;
+    if constexpr (MOMENTS) {
+      f = idx / TM;
+      row = idx - f * TM;
+    } else {
+      row = idx / Fp;
+      f = idx - row * Fp;
+    }
+    const int m = m0 + row;
+    float v = 0.f;
+    if (m < M && f < F) {
+      if constexpr (MOMENTS)
+        v = ipe_feature(x, ldx, m, f, L, min_deg);
+      else
+        v = x[(size_t)m * F + f];
+    }
+    xs[(size_t)f * LD + row] = Ty<T>::from_f(v);
+  }
+}
+
 // Shared memory of one mlp_tile block: encode tile, activation tile,
 // weight slab, four raw head rows.
 template <typename T>

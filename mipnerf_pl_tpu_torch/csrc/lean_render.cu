@@ -17,6 +17,14 @@
 //                   over the N samples, weights, comp rgb, acc, unclamped
 //                   distance, white background   -> [R, 8] and [R, N] f32
 //
+// and, for training through the render-fused level, the composite's backward
+// (the new part of the TPU kernel _bwd_kernel_lean_render, the pl.pallas_call
+// in _run_bwd_lean_render; the rest of it is the parameter-gradient
+// backward of lean_train.cu):
+//
+//   lean_composite_bwd  one warp per ray: the per-ray cotangents -> the
+//                   activated heads' cotangents        [R*N, 3], [R*N] f32
+//
 // What bounds it on the card: the MLP is ~1.21 MFLOP per sample point
 // (~1.27 TFLOP per 8192-ray level-chunk at the lego shape), so lean_mlp is
 // compute bound; everything around it moves ~40 B per point.  The TPU kernel
@@ -32,8 +40,8 @@
 // kernels of lean_train.cu.
 // wgmma, TMA and a pipelined weight stream are later work.
 //
-// Numerics: exact libm expf/sinf (the IPE's sine arguments reach 2^15|x|;
-// the __sinf/__expf intrinsics and --use_fast_math are wrong at that range).
+// Numerics: exact libm expf/sinf in the IPE decode (ipe_feature,
+// lean_engines.cuh).
 // Activations are rounded to the compute dtype after every layer, products
 // accumulate in f32, biases arrive pre-rounded through the compute dtype,
 // as in the TPU kernel.
@@ -54,26 +62,10 @@ lean_mlp_kernel(const float* __restrict__ moments, const float* __restrict__ vpr
   T* slab = hs + (size_t)wmax * LD;                 // weight rows
   float* heads = reinterpret_cast<float*>(slab + Engine<T>::type::slab_elems(wmax));  // [4][TM]
 
-  const int tid = threadIdx.x;
   const int m0 = blockIdx.x * TM;
 
-  // IPE decode: feature f = half * 3L + k * 3 + dim (sin half, then the cos
-  // half as sin(y + pi/2)); scale 2^(min_deg + k) is exact in f32.
-  for (int idx = tid; idx < Fp * TM; idx += THREADS) {
-    const int f = idx / TM, row = idx - f * TM, m = m0 + row;
-    float v = 0.f;
-    if (m < d.M && f < F) {
-      const int cos_half = f >= 3 * d.L;
-      const int q = f - cos_half * 3 * d.L;
-      const int k = q / 3, dim = q - 3 * k;
-      const float scale = ldexpf(1.f, d.min_deg + k);
-      const float y = moments[(size_t)dim * d.M + m] * scale;
-      const float var = moments[(size_t)(3 + dim) * d.M + m] * (scale * scale);
-      const float phase = cos_half ? 1.57079637050628662109375f : 0.f;
-      v = expf(-0.5f * var) * sinf(y + phase);
-    }
-    xs[(size_t)f * LD + row] = Ty<T>::from_f(v);
-  }
+  // IPE decode into the encode tile (load_encode_tile, lean_engines.cuh).
+  load_encode_tile<T, true>(xs, moments, d.M, d.M, F, Fp, d.L, d.min_deg, m0);
   __syncthreads();
 
   mlp_tile<T>(xs, F, hs, slab, heads, p, d, vproj, m0, nullptr, 0, Fp);
@@ -147,6 +139,101 @@ lean_composite_kernel(const float* __restrict__ rgbsig, const float* __restrict_
     float* o = perray + (size_t)ray * 8;
     o[0] = cr + bg; o[1] = cg + bg; o[2] = cb + bg;
     o[3] = acc; o[4] = dist; o[5] = 0.f; o[6] = 0.f; o[7] = 0.f;
+  }
+}
+
+// Backward of lean_composite (the TPU kernel's _lean_render_head_cotangents):
+// the per-ray cotangents g_perray [R, 8] (comp | acc | dist | pad) and g_w
+// [R, N], with the activated heads rgbsig [R * N, 4] and delta / mids [R, N]
+// -> the head cotangents g_rgb [R * N, 3] and g_sig [R * N] f32.  One warp
+// per ray, the forward's sample order and scans:
+//   g_w'  = g_w + g_dist mids + g_acc' + g_comp . rgb  (g_acc' = g_acc -
+//           sum g_comp with a white background)
+//   g_dd  = exp(-dd) g_w' trans + sum_{m > n} g_s[m],  g_s = -trans g_w' alpha
+//   g_rgb = w g_comp,  g_sig = g_dd delta.
+// Pass 1 walks the 32-sample chunks forwards and keeps the transmittance
+// carry at the start of each (shared memory, nchunks floats a warp); pass 2
+// walks them backwards, recomputes dd, alpha, trans and w bit for bit as the
+// forward did, and carries the suffix sum of g_s (JAX's strictly-lower-
+// triangular product) from the later chunks.  Memory bound: ~44 bytes a
+// point.  Lanes past N (a ragged last chunk) add nothing to either scan.
+__global__ void __launch_bounds__(32 * RAYS_PER_BLOCK)
+lean_composite_bwd_kernel(const float* __restrict__ rgbsig, const float* __restrict__ delta,
+                          const float* __restrict__ mids, const float* __restrict__ g_perray,
+                          const float* __restrict__ g_w, float* __restrict__ g_rgb,
+                          float* __restrict__ g_sig, int R, int N, int white_bkgd) {
+  extern __shared__ float carries[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ray = blockIdx.x * RAYS_PER_BLOCK + warp;
+  if (ray >= R) return;  // uniform per warp
+  const int nchunks = (N + 31) / 32;
+  float* carry_at = carries + (size_t)warp * nchunks;
+  const float4* rs = reinterpret_cast<const float4*>(rgbsig) + (size_t)ray * N;
+  const size_t base_rn = (size_t)ray * N;
+  auto scan = [&](float dd, float& excl) {   // the forward's inclusive scan
+    float incl = dd;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += t;
+    }
+    excl = __shfl_up_sync(FULL, incl, 1);
+    if (lane == 0) excl = 0.f;
+    return incl;
+  };
+
+  float carry = 0.f;
+  for (int c = 0; c < nchunks; ++c) {
+    const int n = 32 * c + lane;
+    float excl;
+    const float incl = scan(n < N ? rs[n].w * delta[base_rn + n] : 0.f, excl);
+    if (lane == 0) carry_at[c] = carry;
+    carry += __shfl_sync(FULL, incl, 31);
+  }
+  __syncwarp();
+
+  const float* gp = g_perray + (size_t)ray * 8;
+  const float gc0 = gp[0], gc1 = gp[1], gc2 = gp[2], g_dist = gp[4];
+  const float g_acc = white_bkgd ? gp[3] - (gc0 + gc1 + gc2) : gp[3];
+  float later = 0.f;   // sum of g_s over the chunks after this one
+  for (int c = nchunks - 1; c >= 0; --c) {
+    const int n = 32 * c + lane;
+    const bool valid = n < N;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    float dl = 0.f, md = 0.f, gw = 0.f;
+    if (valid) {
+      v = rs[n];
+      dl = delta[base_rn + n];
+      md = mids[base_rn + n];
+      gw = g_w[base_rn + n];
+    }
+    const float dd = valid ? v.w * dl : 0.f;
+    float excl;
+    scan(dd, excl);
+    const float e = expf(-dd);
+    const float alpha = 1.f - e;
+    const float trans = expf(-(carry_at[c] + excl));
+    const float w = alpha * trans;
+    const float gwt = gw + g_dist * md + (g_acc + gc0 * v.x + gc1 * v.y + gc2 * v.z);
+    const float gs = valid ? -trans * (gwt * alpha) : 0.f;
+    // Suffix scan of g_s within the chunk: lane n gets sum over lanes > n.
+    float sincl = gs;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_down_sync(FULL, sincl, o);
+      if (lane + o < 32) sincl += t;
+    }
+    float sexcl = __shfl_down_sync(FULL, sincl, 1);
+    if (lane == 31) sexcl = 0.f;
+    if (valid) {
+      const float g_dd = e * (gwt * trans) + (later + sexcl);
+      g_sig[base_rn + n] = g_dd * dl;
+      float* o = g_rgb + (base_rn + n) * 3;
+      o[0] = w * gc0;
+      o[1] = w * gc1;
+      o[2] = w * gc2;
+    }
+    later += __shfl_sync(FULL, sincl, 0);
   }
 }
 
@@ -226,6 +313,24 @@ int lean_composite(const void* rgbsig, const void* delta, const void* mids,
       static_cast<const float*>(rgbsig), static_cast<const float*>(delta),
       static_cast<const float*>(mids), static_cast<float*>(perray),
       static_cast<float*>(weights), R, N, white_bkgd);
+  return (int)cudaGetLastError();
+}
+
+// rgbsig [R * N, 4] (activated heads), delta / mids / g_w [R, N], g_perray
+// [R, 8] f32 -> g_rgb [R * N, 3], g_sig [R * N] f32.
+int lean_composite_bwd(const void* rgbsig, const void* delta, const void* mids,
+                       const void* g_perray, const void* g_w, void* g_rgb, void* g_sig, int R,
+                       int N, int white_bkgd, void* stream) {
+  if (R <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * RAYS_PER_BLOCK * ((N + 31) / 32);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int blocks = (R + RAYS_PER_BLOCK - 1) / RAYS_PER_BLOCK;
+  lean_composite_bwd_kernel<<<blocks, 32 * RAYS_PER_BLOCK, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rgbsig), static_cast<const float*>(delta),
+      static_cast<const float*>(mids), static_cast<const float*>(g_perray),
+      static_cast<const float*>(g_w), static_cast<float*>(g_rgb), static_cast<float*>(g_sig), R,
+      N, white_bkgd);
   return (int)cudaGetLastError();
 }
 

@@ -6,9 +6,11 @@
 //   lean_fwd          _fwd_kernel_lean (pl.pallas_call in _run_fwd_lean):
 //                     the lean MLP forward of each TM-point tile (mlp_tile,
 //                     lean_engines.cuh) from f32 encode rows x [M, F], cast
-//                     per tile into the encode buffer; heads activated or
-//                     raw.  Modes 'recompute' and (through lean_save_fwd)
-//                     'save'.
+//                     per tile into the encode buffer, or from the [6, M]
+//                     moments with the IPE decoded per tile (the TPU
+//                     kernel's `encode=` input, load_encode_tile); heads
+//                     activated or raw.  Modes 'recompute' and (through
+//                     lean_save_fwd) 'save'.
 //   lean_save_fwd     _fwd_kernel_lean_save (_run_fwd_lean_save): the same
 //                     kernel, which also writes the activations the
 //                     backward reads and the raw heads.
@@ -101,6 +103,10 @@ struct TrainDims {
   int M, Mp, N, R, F, Fp, Fv, depth, depth_cond, skip, W, Wv;
   float rgb_padding, density_bias;
   int use_act;   // 1: heads activated, the backward folds the derivatives in
+  // The forward's input form: L == 0 f32 encode rows x [M, F]; L >= 1 the
+  // moments x [6][ldx] (F = 6L, decoded per tile from degree min_deg).
+  // ldx stays the level's M in a recompute chunk.
+  int L, min_deg, ldx;
   // The saved activations, in order: x | hs[0..depth-1] | bottleneck |
   // ys[0..depth_cond-1]; s_row(a) is activation a's first row in S.
   __host__ __device__ int a_h(int i) const { return 1 + i; }
@@ -119,7 +125,7 @@ struct TrainDims {
   __host__ __device__ int g_rgb() const { return g_v(depth_cond); }
   __host__ __device__ int cg() const { return g_rgb() + 3; }
   __host__ __device__ MlpDims mlp() const {
-    return MlpDims{M, N, R, 0, 0, depth, depth_cond, skip, W, Wv, rgb_padding, density_bias};
+    return MlpDims{M, N, R, L, min_deg, depth, depth_cond, skip, W, Wv, rgb_padding, density_bias};
   }
 };
 
@@ -150,9 +156,10 @@ __device__ ActTile<T, PM> act_tile(const Acts& acts, int a, int m0, const TrainD
   return ActTile<T, PM>{p + (PM ? (size_t)m0 * ld : (size_t)m0), ld, d.M - m0};
 }
 
-// The forward of the tile at blockIdx.x * TM.  Optional outputs: out [M, 4]
-// f32 (activated or raw heads), saved [Cs][Mp] and heads_out [4][Mp] (raw).
-template <typename T>
+// The forward of the tile at blockIdx.x * TM, from encode rows or (MOMENTS)
+// the moments.  Optional outputs: out [M, 4] f32 (activated or raw heads),
+// saved [Cs][Mp] and heads_out [4][Mp] (raw).
+template <typename T, bool MOMENTS>
 __global__ void __launch_bounds__(THREADS, 2)
 lean_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vproj, LayerPtrs p,
                 TrainDims td, float* __restrict__ out, T* __restrict__ saved,
@@ -165,13 +172,10 @@ lean_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vproj, La
   float* heads = reinterpret_cast<float*>(slab + Engine<T>::type::slab_elems(wmax));  // [4][TM]
   const int tid = threadIdx.x, m0 = blockIdx.x * TM;
 
-  // x rows -> channel-major encode tile in the compute dtype (zero past F
-  // and past M), which also serves the skip concat; then out to S rows X.
-  for (int idx = tid; idx < TM * td.Fp; idx += THREADS) {
-    const int row = idx / td.Fp, f = idx - row * td.Fp, m = m0 + row;
-    const float v = (m < td.M && f < td.F) ? x[(size_t)m * td.F + f] : 0.f;
-    xs[(size_t)f * LD + row] = Ty<T>::from_f(v);
-  }
+  // x rows, or the IPE decoded from the moments -> channel-major encode
+  // tile in the compute dtype (zero past F and past M), which also serves
+  // the skip concat; then out to S rows X.
+  load_encode_tile<T, MOMENTS>(xs, x, td.ldx, td.M, td.F, td.Fp, td.L, td.min_deg, m0);
   __syncthreads();
   if (saved) copy_tile_out(saved, td.Mp, m0, xs, td.Fp);
 
@@ -179,6 +183,14 @@ lean_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vproj, La
   mlp_tile<T>(xs, td.F, hs, slab, heads, p, d, vproj, m0, saved, td.Mp, td.Fp);
   if (heads_out) heads_out[(size_t)(tid / TM) * td.Mp + m0 + tid % TM] = heads[tid];
   if (out) write_activated(heads, d, m0, out, td.use_act != 0);
+}
+
+// lean_fwd_kernel of the input form d.L says (0: rows, >= 1: moments).
+template <typename T>
+using FwdKernel = void (*)(const float*, const float*, LayerPtrs, TrainDims, float*, T*, float*);
+template <typename T>
+FwdKernel<T> fwd_kernel(const TrainDims& d) {
+  return d.L ? lean_fwd_kernel<T, true> : lean_fwd_kernel<T, false>;
 }
 
 struct ChainPtrs {
@@ -572,12 +584,13 @@ bool dims_ok(const TrainDims& d, int n_layers, int use_bf16) {
          d.depth_cond >= 1 && d.skip >= 1 && d.W >= align && d.W <= MAX_OUT && d.W % align == 0 &&
          d.Wv >= align && d.Wv <= MAX_OUT && d.Wv % align == 0 && d.M == d.R * d.N && d.M > 0 &&
          d.Mp % TM == 0 && d.Mp >= d.M && d.F >= 1 && d.F <= d.Fp && d.Fp % 16 == 0 &&
-         d.Fv >= 1 && (d.use_act == 0 || d.use_act == 1);
+         d.Fv >= 1 && (d.use_act == 0 || d.use_act == 1) && d.L >= 0 &&
+         (d.L == 0 || d.F == 6 * d.L);
 }
 
 TrainDims read_dims(const int* v, float rgb_padding, float density_bias, int use_act) {
   return TrainDims{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9], v[10], v[11],
-                   rgb_padding, density_bias, use_act};
+                   rgb_padding, density_bias, use_act, v[12], v[13], v[0]};
 }
 
 LayerPtrs layer_ptrs(const void* weights, const void* biases, int n_layers) {
@@ -595,10 +608,11 @@ template <typename T>
 int launch_fwd(const float* x, const float* vproj, const LayerPtrs& p, const TrainDims& d,
                float* out, T* saved, float* heads, cudaStream_t s) {
   const size_t smem = mlp_smem_bytes<T>(d.Fp, d.W > d.Wv ? d.W : d.Wv);
-  cudaError_t e = cudaFuncSetAttribute(lean_fwd_kernel<T>,
+  const FwdKernel<T> kernel = fwd_kernel<T>(d);
+  cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  lean_fwd_kernel<T><<<d.Mp / TM, THREADS, smem, s>>>(x, vproj, p, d, out, saved, heads);
+  kernel<<<d.Mp / TM, THREADS, smem, s>>>(x, vproj, p, d, out, saved, heads);
   return (int)cudaGetLastError();
 }
 
@@ -658,8 +672,9 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(lean_wgrad_kernel<T, PM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
+  const FwdKernel<T> refwd = fwd_kernel<T>(d);
   if (e == cudaSuccess && rf)
-    e = cudaFuncSetAttribute(lean_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute((const void*)refwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)fsmem);
   if (e != cudaSuccess) return (int)e;
   T* G = static_cast<T*>(a.G);
@@ -674,9 +689,10 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
     const float* heads = level_heads;
     if (rf) {
       T* S = static_cast<T*>(rf->S);
-      lean_fwd_kernel<T><<<dc.Mp / TM, THREADS, fsmem, s>>>(
-          rf->x + (size_t)c0 * d.F, rf->vproj + (size_t)(c0 / d.N) * d.Wv, rf->p, dc, nullptr, S,
-          rf->heads);
+      // Rows start at x[c0][0], moments at column c0 of x [6][ldx].
+      refwd<<<dc.Mp / TM, THREADS, fsmem, s>>>(
+          rf->x + (d.L ? (size_t)c0 : (size_t)c0 * d.F), rf->vproj + (size_t)(c0 / d.N) * d.Wv,
+          rf->p, dc, nullptr, S, rf->heads);
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
       for (int i = 0; i < d.n_acts(); ++i) {
         acts.t[i] = S + (size_t)d.s_row(i) * dc.Mp;
@@ -773,8 +789,9 @@ int level_chunk(const TrainDims& d, int MC) { return (d.Mp + MC - 1) / MC * MC; 
 
 extern "C" {
 
-// dims = {M, Mp, N, R, F, Fp, Fv, depth, depth_cond, skip, W, Wv}.
-// x [M, F] f32, vproj [R, Wv] f32 (view_0's per-ray half), weights[i]
+// dims = {M, Mp, N, R, F, Fp, Fv, depth, depth_cond, skip, W, Wv, L,
+// min_deg}.  x [M, F] f32 encode rows (L = 0) or the [6, M] f32 moments
+// (F = 6L), vproj [R, Wv] f32 (view_0's per-ray half), weights[i]
 // [in_i, out_i] in the compute dtype and biases[i] [out_i] f32 (rounded
 // through the compute dtype) in param order -> out [M, 4] f32 (rgb |
 // sigma, activated when use_act, else raw).
@@ -825,7 +842,9 @@ int lean_param_grads(const void* saved, const void* heads, LEAN_GRAD_PARAMS) {
                   : run_grads<float, false>(a, d, chunk, nullptr, acts, h, s);
 }
 
-// x / vproj / weights / biases as lean_fwd takes them; saved [Cs][chunk]
+// x / vproj / weights / biases as lean_fwd takes them (rows or moments, as
+// dims' L says: the re-run decodes with the forward's loader and tiles, so
+// its ReLU masks are the forward's); saved [Cs][chunk]
 // and heads [4][chunk] are scratch for the forward of one chunk of `chunk`
 // points (a multiple of MC).
 int lean_param_grads_recompute(const void* x, const void* vproj, const void* weights,

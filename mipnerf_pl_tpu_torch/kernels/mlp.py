@@ -1,22 +1,36 @@
 """The lean MLP kernels (CUDA, sm_90a) and their plain twins.
 
-Render path.  Replaces mipnerf_pl_tpu/kernels/mlp.py:fused_mlp_lean_render,
-forward only (the TPU kernel `_fwd_kernel_lean_render` behind the
-`pl.pallas_call` of `_run_fwd_lean_render`, save=False, encode=(min_deg,
-max_deg)).  That one Pallas kernel decodes the IPE from the [6, M] moments,
-runs the lean MLP, applies the head activations and composites every ray.
-On the card it is three hand-written kernels in csrc/lean_render.cu, one
-wrapper each here:
+Render path.  Replaces mipnerf_pl_tpu/kernels/mlp.py:fused_mlp_lean_render
+(the TPU kernel `_fwd_kernel_lean_render` behind the `pl.pallas_call` of
+`_run_fwd_lean_render`, and for training its backward
+`_bwd_kernel_lean_render` behind `_run_bwd_lean_render`).  That Pallas
+kernel decodes the IPE from the [6, M] moments (or reads encode rows), runs
+the lean MLP, applies the head activations and composites every ray.  On
+the card, rendering (no gradients) is three hand-written kernels in
+csrc/lean_render.cu, one wrapper each here:
 
   view_proj       view_0's per-ray half, once per ray       -> [R, Wv] f32
   lean_mlp        IPE decode + MLP + activations per tile   -> [M, 4]  f32
   lean_composite  per-ray scan and reductions               -> [R, 8], [R, N]
 
+Training through the level is the autograd Function `_LeanRender`: the
+training forward below (rows or moments) then lean_composite; backward
+
+  lean_composite_bwd  per-ray cotangents -> the activated heads' [M, 3],
+                      [M, 1] (the new part of `_bwd_kernel_lean_render`)
+
+then the mode's parameter-gradient backward with the activation fold.
+
+Encode.  ipe_moments replaces `_moments_kernel` (kernels/ipe.py, behind
+fused_ipe_moments): [6, M] moments -> [M, 6L] encode rows (csrc/ipe.cu),
+the same decode every kernel here runs in its encode tile.
+
 Training path.  Replaces fused_mlp_lean in its three modes, one autograd
 Function `fused_mlp_lean` over csrc/lean_train.cu:
 
-  lean_fwd          MLP + heads from f32 encode rows -> [M, 4]: mode
-                    'recompute' (`_fwd_kernel_lean`)
+  lean_fwd          MLP + heads from f32 encode rows, or from the [6, M]
+                    moments with the IPE decoded per tile (`encode=`) ->
+                    [M, 4]: mode 'recompute' (`_fwd_kernel_lean`)
   lean_save_fwd     the same kernel, which also writes the saved stream
                     and raw heads: mode 'save' (`_fwd_kernel_lean_save`)
   lean_param_grads  f32 gradients of every parameter from the saved stream,
@@ -24,7 +38,7 @@ Function `fused_mlp_lean` over csrc/lean_train.cu:
                     `_lean_param_grads`)
   lean_param_grads_recompute
                     the same gradients, the forward re-run chunk by chunk
-                    (`_bwd_kernel_lean`)
+                    in its input form (`_bwd_kernel_lean`)
   lean_param_grads_hybrid
                     the same gradients from the row-major residuals of the
                     plain-torch forward `lean_hybrid_fwd` of mode 'hybrid'
@@ -64,11 +78,13 @@ from mipnerf_pl_tpu_torch.ops.render import composite
 # launched; callers reset it to count one run).
 launches = {'lean_view_proj': 0, 'lean_mlp': 0, 'lean_composite': 0,
             'lean_save_fwd': 0, 'lean_param_grads': 0, 'lean_fwd': 0,
-            'lean_param_grads_recompute': 0, 'lean_param_grads_hybrid': 0}
+            'lean_param_grads_recompute': 0, 'lean_param_grads_hybrid': 0,
+            'lean_composite_bwd': 0, 'ipe_moments': 0}
 
 # Kernel name -> (source, the Pallas kernel it replaces).
 _RENDER_CU = 'mipnerf_pl_tpu_torch/csrc/lean_render.cu'
 _TRAIN_CU = 'mipnerf_pl_tpu_torch/csrc/lean_train.cu'
+_IPE_CU = 'mipnerf_pl_tpu_torch/csrc/ipe.cu'
 KERNELS = {
     'lean_view_proj': (_RENDER_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1428'),
     'lean_mlp': (_RENDER_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1428'),
@@ -80,6 +96,8 @@ KERNELS = {
                                    'mipnerf_pl_tpu/kernels/mlp.py:988'),
     'lean_param_grads_hybrid': (_TRAIN_CU,
                                 'mipnerf_pl_tpu/kernels/mlp.py:1101'),
+    'lean_composite_bwd': (_RENDER_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1445'),
+    'ipe_moments': (_IPE_CU, 'mipnerf_pl_tpu/kernels/ipe.py:170'),
 }
 
 MAX_WIDTH = 256     # widest dense layer the CUDA column tiling covers
@@ -191,13 +209,25 @@ def _activate(raw_rgb, raw_density, act):
     return rgb, torch.clamp(z, min=0.0) + torch.log1p(torch.exp(-torch.abs(z)))
 
 
+def ipe_moments_plain(moments, min_deg: int, max_deg: int):
+    """[6, M] moments (means xyz | diagonal covs xyz) -> [M, 6L] f32 IPE
+    encode rows, the decode of every lean kernel's encode tile."""
+    return integrated_pos_enc((moments[:3].t(), moments[3:].t()), min_deg,
+                              max_deg)
+
+
+def _encode_rows(x, encode):
+    """The f32 encode rows of a lean input: x itself, or with encode =
+    (min_deg, max_deg) the IPE of the [6, M] moments x."""
+    return x if encode is None else ipe_moments_plain(x, *encode)
+
+
 def lean_mlp_plain(moments, vproj, flat_params, num_samples: int,
                    net_depth: int, net_depth_condition: int, skip_index: int,
                    compute_dtype, act, encode):
     dt = compute_dtype
     p = [_rounded(t, dt) for t in flat_params]
-    means, covs = moments[:3].t(), moments[3:].t()
-    x = _rounded(integrated_pos_enc((means, covs), *encode), dt)
+    x = _rounded(ipe_moments_plain(moments, *encode), dt)
     rgb, density, _, _, _ = _lean_body_plain(
         x, vproj, p, num_samples, net_depth, net_depth_condition, skip_index,
         dt)
@@ -213,6 +243,37 @@ def lean_composite_plain(rgbsig, delta, mids, white_bkgd: bool):
     zeros = torch.zeros_like(comp)
     perray = torch.cat([comp, acc[:, None], dist[:, None], zeros], dim=-1)
     return perray, w
+
+
+def lean_composite_bwd_plain(rgbsig, delta, mids, g_perray, g_w,
+                             white_bkgd: bool):
+    """The backward of lean_composite as the JAX
+    `_lean_render_head_cotangents` writes it: (activated heads rgbsig
+    [R*N, 4], delta / mids [R, N], g_perray [R, 8] = g_comp | g_acc |
+    g_dist | pad, g_w [R, N]) f32 -> (g_rgb [R*N, 3], g_sigma [R*N, 1]),
+    the cotangents of the activated heads.  The exclusive prefix sum of
+    sigma * delta and the strictly-later suffix sum of g_s (JAX's two
+    triangular products) are cumulative sums here."""
+    R, N = delta.shape
+    rs = rgbsig.reshape(R, N, 4)
+    rgb, sigma = rs[..., :3], rs[..., 3]
+    dd = sigma * delta
+    zero = torch.zeros_like(dd[:, :1])
+    alpha = 1.0 - torch.exp(-dd)
+    trans = torch.exp(-torch.cat([zero, torch.cumsum(dd, -1)[:, :-1]], -1))
+    w = alpha * trans
+    g_comp = g_perray[:, :3]
+    ga = g_perray[:, 3:4]
+    if white_bkgd:
+        ga = ga - torch.sum(g_comp, dim=-1, keepdim=True)
+    g_wt = (g_w + g_perray[:, 4:5] * mids
+            + (ga + torch.sum(g_comp[:, None, :] * rgb, dim=-1)))
+    g_s = -trans * (g_wt * alpha)
+    tail = torch.flip(torch.cumsum(torch.flip(g_s, [-1]), -1), [-1])
+    g_dd = (torch.exp(-dd) * (g_wt * trans)
+            + torch.cat([tail[:, 1:], zero], -1))
+    g_rgb = w[..., None] * g_comp[:, None, :]
+    return g_rgb.reshape(R * N, 3), (g_dd * delta).reshape(R * N, 1)
 
 
 def _lean_fwd_plain_parts(x, view, flat_params, num_samples, net_depth,
@@ -236,22 +297,25 @@ def _heads_out(raw_rgb, raw_d, act):
 
 def lean_fwd_plain(x, view, flat_params, num_samples: int, net_depth: int,
                    net_depth_condition: int, skip_index: int, compute_dtype,
-                   act):
-    """The lean forward: (x [M, F] f32 encode rows, view [M/N, Fv], params)
-    -> (rgb [M, 3], density [M, 1]) f32, activated with act =
-    (rgb_padding, density_bias), raw heads for act=None."""
+                   act, encode=None):
+    """The lean forward: (x [M, F] f32 encode rows, or with encode =
+    (min_deg, max_deg) the [6, M] moments, view [M/N, Fv], params) -> (rgb
+    [M, 3], density [M, 1]) f32, activated with act = (rgb_padding,
+    density_bias), raw heads for act=None."""
     _, raw_rgb, raw_d, _, _, _ = _lean_fwd_plain_parts(
-        x, view, flat_params, num_samples, net_depth, net_depth_condition,
-        skip_index, compute_dtype)
+        _encode_rows(x, encode), view, flat_params, num_samples, net_depth,
+        net_depth_condition, skip_index, compute_dtype)
     return _heads_out(raw_rgb, raw_d, act)
 
 
 def lean_mlp_save_plain(x, view, flat_params, num_samples: int,
                         net_depth: int, net_depth_condition: int,
-                        skip_index: int, compute_dtype, act):
+                        skip_index: int, compute_dtype, act, encode=None):
     """lean_fwd_plain that also returns saved = (S [Cs, Mp] compute dtype,
-    the `saved_rows` layout, zero past M; raw heads [4, Mp] f32)."""
+    the `saved_rows` layout (X the decoded encode with moments), zero past
+    M; raw heads [4, Mp] f32)."""
     dt = compute_dtype
+    x = _encode_rows(x, encode)
     xr, raw_rgb, raw_d, hs, bott, ys = _lean_fwd_plain_parts(
         x, view, flat_params, num_samples, net_depth, net_depth_condition,
         skip_index, dt)
@@ -387,12 +451,14 @@ def lean_param_grads_plain(view, g_rgb, g_dens, saved, flat_params,
 def lean_param_grads_recompute_plain(x, view, g_rgb, g_dens, flat_params,
                                      num_samples: int, net_depth: int,
                                      net_depth_condition: int,
-                                     skip_index: int, compute_dtype, act):
-    """The recompute backward: the forward again, with its saved
-    activations, then lean_param_grads_plain."""
+                                     skip_index: int, compute_dtype, act,
+                                     encode=None):
+    """The recompute backward: the forward again (rows, or the moments
+    with encode), with its saved activations, then
+    lean_param_grads_plain."""
     args = (num_samples, net_depth, net_depth_condition, skip_index,
             compute_dtype, act)
-    saved = lean_mlp_save_plain(x, view, flat_params, *args)[2]
+    saved = lean_mlp_save_plain(x, view, flat_params, *args, encode)[2]
     return lean_param_grads_plain(view, g_rgb, g_dens, saved, flat_params,
                                   *args)
 
@@ -534,6 +600,8 @@ _ARGTYPES = {
     'lean_view_proj': [_P] * 4 + [_I] * 5 + [_P],
     'lean_mlp': [_P] * 4 + [_I, _P] + [_I] * 10 + [_F, _F, _I, _P],
     'lean_composite': [_P] * 5 + [_I] * 3 + [_P],
+    'lean_composite_bwd': [_P] * 7 + [_I] * 3 + [_P],
+    'ipe_moments': [_P] * 2 + [_I] * 3 + [_P],
     'lean_fwd': [_P] * 4 + [_I] + [_P] * 2 + [_F, _F, _I, _I, _P],
     'lean_save_fwd': [_P] * 4 + [_I] + [_P] * 4 + [_F, _F, _I, _I, _P],
     'lean_param_grads': [_P] * 2 + _GRAD_TAIL,
@@ -638,41 +706,142 @@ def lean_composite(rgbsig, delta, mids, white_bkgd: bool):
     return perray, w
 
 
+def lean_composite_bwd(rgbsig, delta, mids, g_perray, g_w, white_bkgd: bool):
+    """(activated heads rgbsig [R*N, 4], delta / mids [R, N], g_perray
+    [R, 8], g_w [R, N]) f32 -> (g_rgb [R*N, 3], g_sigma [R*N, 1]) f32:
+    the backward of lean_composite."""
+    if _on_cpu(rgbsig, 'lean_composite_bwd'):
+        return lean_composite_bwd_plain(rgbsig, delta, mids, g_perray, g_w,
+                                        white_bkgd)
+    R, N = delta.shape
+    dev = rgbsig.device
+    fn = 'lean_composite_bwd'
+    for t, name, shape in ((rgbsig, 'rgbsig', (R * N, 4)),
+                           (delta, 'delta', (R, N)), (mids, 'mids', (R, N)),
+                           (g_perray, 'g_perray', (R, 8)),
+                           (g_w, 'g_w', (R, N))):
+        _check(t, shape, fn, name, dev)
+    rgbsig, delta, mids, g_perray, g_w = (
+        t.contiguous() for t in (rgbsig, delta, mids, g_perray, g_w))
+    g_rgb = torch.empty((R * N, 3), dtype=torch.float32, device=dev)
+    g_sig = torch.empty((R * N, 1), dtype=torch.float32, device=dev)
+    _call(fn, dev, rgbsig.data_ptr(), delta.data_ptr(), mids.data_ptr(),
+          g_perray.data_ptr(), g_w.data_ptr(), g_rgb.data_ptr(),
+          g_sig.data_ptr(), R, N, int(bool(white_bkgd)))
+    launches[fn] += 1
+    return g_rgb, g_sig
+
+
+def ipe_moments(moments, min_deg: int, max_deg: int):
+    """[6, M] f32 moments (means xyz | diagonal covs xyz) -> [M, 6L] f32
+    IPE encode rows, L = max_deg - min_deg.  A call on the detached input:
+    the moments get no gradient, as the JAX fused_ipe_moments gives them
+    zero cotangents (its callers train behind stop_resample_grad)."""
+    moments = moments.detach()
+    if _on_cpu(moments, 'ipe_moments'):
+        return ipe_moments_plain(moments, min_deg, max_deg)
+    L = max_deg - min_deg
+    dev = moments.device
+    M = moments.shape[-1]
+    _check(moments, (6, M), 'ipe_moments', 'moments', dev)
+    if L < 1 or M == 0:
+        raise ValueError(f'ipe_moments: needs max_deg > min_deg and points, '
+                         f'got degrees ({min_deg}, {max_deg}), {M} points')
+    moments = moments.contiguous()
+    out = torch.empty((M, 6 * L), dtype=torch.float32, device=dev)
+    _call('ipe_moments', dev, moments.data_ptr(), out.data_ptr(), M, L,
+          min_deg)
+    launches['ipe_moments'] += 1
+    return out
+
+
+class _LeanRender(torch.autograd.Function):
+    """The render-fused level with a backward: the training forward of the
+    mode ('save': lean_save_fwd, 'recompute': lean_fwd, in the level's
+    input form) writes the activated heads, lean_composite composites them;
+    the backward runs lean_composite_bwd, then the mode's parameter-gradient
+    backward with the activation fold.  What crosses to the backward: the
+    activated heads [M, 4], delta, mids, and the saved stream ('save') or
+    the level's input ('recompute').  x, view, delta and mids get no
+    gradient (the JAX VJP returns zeros for them)."""
+
+    @staticmethod
+    def forward(ctx, x, view, delta, mids, mode, cfg, white_bkgd, encode,
+                *flat):
+        ctx.mode, ctx.cfg, ctx.n_flat = mode, cfg, len(flat)
+        ctx.white_bkgd, ctx.encode = white_bkgd, encode
+        rgb, density, kept = _mode_forward(mode, x, view, flat, cfg, encode)
+        rgbsig = torch.cat([rgb, density], dim=-1)
+        perray, w = lean_composite(rgbsig, delta, mids, white_bkgd)
+        ctx.save_for_backward(rgbsig, delta, mids, *kept, *flat)
+        return perray, w
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_perray, g_w):
+        saved = ctx.saved_tensors
+        rgbsig, delta, mids = saved[:3]
+        res, flat = saved[3:-ctx.n_flat], saved[-ctx.n_flat:]
+        g_rgb, g_sigma = lean_composite_bwd(rgbsig, delta, mids,
+                                            g_perray.float(), g_w.float(),
+                                            ctx.white_bkgd)
+        grads = _mode_param_grads(ctx.mode, res, g_rgb, g_sigma, flat,
+                                  ctx.cfg, ctx.encode)
+        return ((None,) * 8
+                + tuple(g.reshape(p.shape) for g, p in zip(grads, flat)))
+
+
+RENDER_MODES = ('save', 'recompute')
+
+
 def fused_mlp_lean_render(x, view, delta, mids, flat_params,
                           num_samples: int, net_depth: int,
                           net_depth_condition: int, skip_index: int,
                           compute_dtype=torch.float32, act=(0.001, -1.0),
-                          white_bkgd: bool = True, encode=None):
-    """Level forward: MLP + head activations + volumetric compositing.
+                          white_bkgd: bool = True, encode=None,
+                          mode: str = 'save'):
+    """Level: MLP + head activations + volumetric compositing.
 
-    (x = moments [6, M] f32, view [M/N, Fv], delta [M/N, N] =
-    (t1 - t0) * ||dir||, mids [M/N, N] = (t0 + t1) / 2, params) ->
-    (comp_rgb [M/N, 3], dist_raw [M/N, 1], acc [M/N, 1], weights [M/N, N]),
-    as the JAX function returns them: dist_raw is UNCLAMPED (the caller
-    applies the nan-safe clamp).  `encode` = (min_deg, max_deg) of the IPE
-    decoded in the kernel; `act` = (rgb_padding, density_bias)."""
+    (x = [M, F] f32 encode rows, or with encode = (min_deg, max_deg) the
+    [6, M] moments whose IPE the kernels decode, view [M/N, Fv], delta
+    [M/N, N] = (t1 - t0) * ||dir||, mids [M/N, N] = (t0 + t1) / 2, params)
+    -> (comp_rgb [M/N, 3], dist_raw [M/N, 1], acc [M/N, 1], weights
+    [M/N, N]), as the JAX function returns them: dist_raw is UNCLAMPED (the
+    caller applies the nan-safe clamp).  `act` = (rgb_padding,
+    density_bias).
+
+    When a parameter wants a gradient, the level is the autograd Function
+    `_LeanRender` of `mode` ('save' or 'recompute', as in JAX).  Otherwise
+    it renders: with the moments through view_proj, lean_mlp and
+    lean_composite; with encode rows through lean_fwd and lean_composite."""
     if net_depth_condition < 1:
         raise ValueError('fused_mlp_lean_render requires '
                          'net_depth_condition >= 1')
-    if act is None or encode is None:
+    if act is None:
         raise ValueError('fused_mlp_lean_render requires act=(rgb_padding, '
-                         'density_bias) and encode=(min_deg, max_deg)')
+                         'density_bias): the composite takes activated '
+                         'heads')
+    if mode not in RENDER_MODES:
+        raise ValueError(f'fused_mlp_lean_render: mode must be one of '
+                         f'{RENDER_MODES}, got {mode!r}')
+    act = (float(act[0]), float(act[1]))
+    cfg = (num_samples, net_depth, net_depth_condition, skip_index,
+           compute_dtype, act)
+    x, view, delta, mids = (t.float() for t in (x, view, delta, mids))
     if torch.is_grad_enabled() and any(t.requires_grad for t in flat_params):
-        raise NotImplementedError(
-            'fused_mlp_lean_render is forward only: training through the '
-            'fused lean-render level needs its backward, the JAX kernel '
-            '_bwd_kernel_lean_render (TPU kernel #2 in PERF.md), which is '
-            'not ported yet; render under torch.no_grad(), or train without '
-            'nerf.fuse_render')
-    W = flat_params[0].shape[1]
-    iv = 2 * (net_depth + 2)
-    vproj = view_proj(view.float(), flat_params[iv], flat_params[iv + 1], W,
-                      compute_dtype)
-    rgbsig = lean_mlp(x, vproj, flat_params, num_samples, net_depth,
-                      net_depth_condition, skip_index, compute_dtype, act,
-                      encode)
-    perray, w = lean_composite(rgbsig, delta.float(), mids.float(),
-                               white_bkgd)
+        perray, w = _LeanRender.apply(x, view, delta, mids, mode, cfg,
+                                      bool(white_bkgd), encode, *flat_params)
+    elif encode is not None:
+        W = flat_params[0].shape[1]
+        iv = 2 * (net_depth + 2)
+        vproj = view_proj(view, flat_params[iv], flat_params[iv + 1], W,
+                          compute_dtype)
+        rgbsig = lean_mlp(x, vproj, flat_params, *cfg, encode)
+        perray, w = lean_composite(rgbsig, delta, mids, white_bkgd)
+    else:
+        rgb, density = lean_fwd(x, view, flat_params, *cfg)
+        perray, w = lean_composite(torch.cat([rgb, density], dim=-1), delta,
+                                   mids, white_bkgd)
     return perray[:, 0:3], perray[:, 4:5], perray[:, 3:4], w
 
 
@@ -681,11 +850,25 @@ def fused_mlp_lean_render(x, view, delta, mids, flat_params,
 # ---------------------------------------------------------------------------
 
 def _train_dims(M, N, F, Fv, W, Wv, net_depth, net_depth_condition,
-                skip_index):
+                skip_index, encode=None):
     """The C entries' dims: M, Mp, N, R, F, Fp, Fv, depth, depth_cond, skip,
-    W, Wv."""
+    W, Wv, L, min_deg (L = 0: encode rows; L >= 1: the moments input)."""
+    L, min_deg = (0, 0) if encode is None else (encode[1] - encode[0],
+                                                encode[0])
     return [M, _round_up(M, TILE), N, M // N, F, _round_up(F, 16), Fv,
-            net_depth, net_depth_condition, skip_index, W, Wv]
+            net_depth, net_depth_condition, skip_index, W, Wv, L, min_deg]
+
+
+def _input_points(fn, x, encode, F):
+    """Points of a lean input, x [M, F] encode rows or, with encode, the
+    [6, M] moments of an F = 6L encode; checks the form."""
+    if encode is None:
+        return x.shape[0]
+    L = encode[1] - encode[0]
+    if 6 * L != F:
+        raise ValueError(f'{fn}: trunk_0 takes {F} inputs, the encode of '
+                         f'degrees {tuple(encode)} has {6 * L}')
+    return x.shape[-1]
 
 
 def wgrad_problems(shapes, net_depth: int, net_depth_condition: int,
@@ -758,30 +941,32 @@ def _act_args(act):
 
 
 def _fwd_launch(fn, x, view, flat_params, num_samples, net_depth,
-                net_depth_condition, skip_index, compute_dtype, act,
+                net_depth_condition, skip_index, compute_dtype, act, encode,
                 saved_shape=None):
-    """Launch lean_fwd or lean_save_fwd (saved_shape = (Cs, Mp)) -> (out
-    [M, 4] f32, (S, heads) or None)."""
+    """Launch lean_fwd or lean_save_fwd (saved_shape = (Cs, Mp)) on encode
+    rows or, with encode, the moments -> (out [M, 4] f32, (S, heads) or
+    None)."""
     flag = _dtype_flag(compute_dtype)
     dev = x.device
-    M, F = x.shape
+    F = flat_params[0].shape[0]
+    M = _input_points(fn, x, encode, F)
     R, Fv = view.shape
     W, Wv = _check_mlp(flat_params, net_depth, net_depth_condition, flag,
                        fn, dev)
-    _check(x, (M, F), fn, 'x', dev)
+    if encode is None:
+        _check(x, (M, F), fn, 'x (trunk_0 inputs)', dev)
+    else:
+        _check(x, (6, M), fn, 'moments', dev)
     _check(view, (R, Fv), fn, 'view', dev)
     if M != R * num_samples or M == 0:
         raise ValueError(f'{fn}: {M} points is not {R} rays x '
                          f'num_samples={num_samples}')
-    if flat_params[0].shape[0] != F:
-        raise ValueError(f'{fn}: trunk_0 takes {flat_params[0].shape[0]} '
-                         f'inputs, x has {F}')
     iv = 2 * (net_depth + 2)
     vproj = view_proj(view, flat_params[iv], flat_params[iv + 1], W,
                       compute_dtype)
     ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
     c_dims = _ints(_train_dims(M, num_samples, F, Fv, W, Wv, net_depth,
-                               net_depth_condition, skip_index))
+                               net_depth_condition, skip_index, encode))
     x = x.contiguous()
     out = torch.empty((M, 4), dtype=torch.float32, device=dev)
     saved, extra = None, []
@@ -799,42 +984,45 @@ def _fwd_launch(fn, x, view, flat_params, num_samples, net_depth,
 
 def lean_fwd(x, view, flat_params: Sequence[torch.Tensor], num_samples: int,
              net_depth: int, net_depth_condition: int, skip_index: int,
-             compute_dtype, act):
-    """(x [M, F] f32 encode rows, view [M/N, Fv] f32, params) -> (rgb
-    [M, 3], density [M, 1]) f32, activated with act = (rgb_padding,
-    density_bias), raw heads for act=None."""
+             compute_dtype, act, encode=None):
+    """(x [M, F] f32 encode rows, or with encode = (min_deg, max_deg) the
+    [6, M] f32 moments whose IPE the kernel decodes per tile, view [M/N,
+    Fv] f32, params) -> (rgb [M, 3], density [M, 1]) f32, activated with
+    act = (rgb_padding, density_bias), raw heads for act=None."""
     if _on_cpu(x, 'lean_fwd'):
         return lean_fwd_plain(x, view, flat_params, num_samples, net_depth,
                               net_depth_condition, skip_index, compute_dtype,
-                              act)
+                              act, encode)
     out, _ = _fwd_launch('lean_fwd', x, view, flat_params, num_samples,
                          net_depth, net_depth_condition, skip_index,
-                         compute_dtype, act)
+                         compute_dtype, act, encode)
     return out[:, :3], out[:, 3:]
 
 
 def lean_save_fwd(x, view, flat_params: Sequence[torch.Tensor],
                   num_samples: int, net_depth: int, net_depth_condition: int,
-                  skip_index: int, compute_dtype, act):
+                  skip_index: int, compute_dtype, act, encode=None):
     """lean_fwd that also returns saved = (S [Cs, Mp] compute dtype in the
-    `saved_rows` layout, raw heads [4, Mp] f32)."""
+    `saved_rows` layout, X the decoded encode with moments; raw heads
+    [4, Mp] f32)."""
     if _on_cpu(x, 'lean_save_fwd'):
         return lean_mlp_save_plain(x, view, flat_params, num_samples,
                                    net_depth, net_depth_condition, skip_index,
-                                   compute_dtype, act)
-    M, F = x.shape
-    W = flat_params[0].shape[1]
+                                   compute_dtype, act, encode)
+    F, W = flat_params[0].shape
+    M = _input_points('lean_save_fwd', x, encode, F)
     Wv = flat_params[2 * (net_depth + 2)].shape[1]
     Cs = saved_rows(F, W, Wv, net_depth, net_depth_condition)[-1]
     out, saved = _fwd_launch('lean_save_fwd', x, view, flat_params,
                              num_samples, net_depth, net_depth_condition,
-                             skip_index, compute_dtype, act,
+                             skip_index, compute_dtype, act, encode,
                              (Cs, _round_up(M, TILE)))
     return out[:, :3], out[:, 3:], saved
 
 
 def _grad_plan(fn, view, g_rgb, g_dens, flat_params, num_samples,
-               net_depth, net_depth_condition, skip_index, compute_dtype):
+               net_depth, net_depth_condition, skip_index, compute_dtype,
+               encode=None):
     """The checks and the layout every backward wrapper shares."""
     flag = _dtype_flag(compute_dtype)
     dev = view.device
@@ -850,7 +1038,7 @@ def _grad_plan(fn, view, g_rgb, g_dens, flat_params, num_samples,
     _check(g_rgb, (M, 3), fn, 'g_rgb', dev)
     _check(g_dens, (M, 1), fn, 'g_dens', dev)
     dims = _train_dims(M, num_samples, F, Fv, W, Wv, net_depth,
-                       net_depth_condition, skip_index)
+                       net_depth_condition, skip_index, encode)
     shapes = [tuple(t.shape) for t in flat_params[0::2]]
     probs, tiles, dw_off, b_off, view_off = wgrad_problems(
         shapes, net_depth, net_depth_condition, skip_index)
@@ -948,21 +1136,23 @@ def lean_param_grads(view, g_rgb, g_dens, saved, flat_params,
 def lean_param_grads_recompute(x, view, g_rgb, g_dens, flat_params,
                                num_samples: int, net_depth: int,
                                net_depth_condition: int, skip_index: int,
-                               compute_dtype, act):
+                               compute_dtype, act, encode=None):
     """lean_param_grads with the forward re-run by lean_fwd's kernel chunk
     by chunk (recompute_chunk points at a time) instead of read back: (x
-    [M, F] f32 encode rows, view, head cotangents, params) -> f32 gradients
-    in param order.  No level-sized saved stream is allocated."""
+    [M, F] f32 encode rows, or with encode the [6, M] moments, view, head
+    cotangents, params) -> f32 gradients in param order.  No level-sized
+    saved stream is allocated."""
     if _on_cpu(x, 'lean_param_grads_recompute'):
         return lean_param_grads_recompute_plain(
             x, view, g_rgb, g_dens, flat_params, num_samples, net_depth,
-            net_depth_condition, skip_index, compute_dtype, act)
+            net_depth_condition, skip_index, compute_dtype, act, encode)
     fn = 'lean_param_grads_recompute'
     plan = _grad_plan(fn, view, g_rgb, g_dens, flat_params, num_samples,
                       net_depth, net_depth_condition, skip_index,
-                      compute_dtype)
+                      compute_dtype, encode)
     dev, M, F, W, Wv = (plan[k] for k in ('dev', 'M', 'F', 'W', 'Wv'))
-    _check(x, (M, F), fn, 'x', dev)
+    _input_points(fn, x, encode, F)         # the encode's width is F
+    _check(x, (M, F) if encode is None else (6, M), fn, 'x', dev)
     x = x.contiguous()
     iv = 2 * (net_depth + 2)
     vproj = view_proj(view, flat_params[iv], flat_params[iv + 1], W,
@@ -1011,50 +1201,60 @@ def lean_param_grads_hybrid(view, g_rgb, g_dens, residuals, flat_params,
                         compute_dtype, act)
 
 
+def _mode_forward(mode, x, view, flat, cfg, encode):
+    """The training forward of `mode` -> (rgb, density, what crosses to
+    the backward): 'save' view and the saved stream, 'recompute' only x
+    and view, 'hybrid' view and the plain forward's residuals."""
+    if mode == 'save':
+        rgb, density, saved = lean_save_fwd(x, view, flat, *cfg,
+                                            encode=encode)
+        return rgb, density, (view, *saved)
+    if mode == 'recompute':
+        rgb, density = lean_fwd(x, view, flat, *cfg, encode=encode)
+        return rgb, density, (x, view)
+    rgb, density, (xp, hs, bott, ys) = lean_hybrid_fwd(x, view, flat, *cfg)
+    return rgb, density, (view, xp, *hs, bott, *ys)
+
+
+def _mode_param_grads(mode, kept, g_rgb, g_dens, flat, cfg, encode):
+    """The parameter-gradient backward of `mode` from what _mode_forward
+    kept and the f32 head cotangents."""
+    if mode == 'save':
+        view, S, heads = kept
+        return lean_param_grads(view, g_rgb, g_dens, (S, heads), flat, *cfg)
+    if mode == 'recompute':
+        x, view = kept
+        return lean_param_grads_recompute(x, view, g_rgb, g_dens, flat, *cfg,
+                                          encode=encode)
+    view, xp, *acts = kept
+    depth = cfg[1]
+    return lean_param_grads_hybrid(
+        view, g_rgb, g_dens, (xp, acts[:depth], acts[depth], acts[depth + 1:]),
+        flat, *cfg)
+
+
 class _Lean(torch.autograd.Function):
     """The forward of a mode and its parameter-gradient backward.  x and
     view get no gradient (their producers are parameter-free, and
     resampling is detached under stop_resample_grad, which MipNerf
-    enforces).  What crosses to the backward: 'save' the saved stream,
-    'recompute' only x and view, 'hybrid' the plain forward's residuals."""
+    enforces)."""
 
     @staticmethod
-    def forward(ctx, x, view, mode, cfg, *flat):
+    def forward(ctx, x, view, mode, cfg, encode, *flat):
         ctx.mode, ctx.cfg, ctx.n_flat = mode, cfg, len(flat)
-        if mode == 'save':
-            rgb, density, saved = lean_save_fwd(x, view, flat, *cfg)
-            ctx.save_for_backward(view, *saved, *flat)
-        elif mode == 'recompute':
-            rgb, density = lean_fwd(x, view, flat, *cfg)
-            ctx.save_for_backward(x, view, *flat)
-        else:
-            rgb, density, (xp, hs, bott, ys) = lean_hybrid_fwd(x, view, flat,
-                                                                *cfg)
-            ctx.save_for_backward(view, xp, *hs, bott, *ys, *flat)
+        ctx.encode = encode
+        rgb, density, kept = _mode_forward(mode, x, view, flat, cfg, encode)
+        ctx.save_for_backward(*kept, *flat)
         return rgb, density
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_rgb, g_dens):
         saved = ctx.saved_tensors
-        res, flat = saved[:-ctx.n_flat], saved[-ctx.n_flat:]
-        g_rgb, g_dens = g_rgb.float(), g_dens.float()
-        if ctx.mode == 'save':
-            view, S, heads = res
-            grads = lean_param_grads(view, g_rgb, g_dens, (S, heads), flat,
-                                     *ctx.cfg)
-        elif ctx.mode == 'recompute':
-            x, view = res
-            grads = lean_param_grads_recompute(x, view, g_rgb, g_dens, flat,
-                                               *ctx.cfg)
-        else:
-            view, xp, *acts = res
-            depth = ctx.cfg[1]
-            grads = lean_param_grads_hybrid(
-                view, g_rgb, g_dens,
-                (xp, acts[:depth], acts[depth], acts[depth + 1:]), flat,
-                *ctx.cfg)
-        return (None, None, None, None,
+        kept, flat = saved[:-ctx.n_flat], saved[-ctx.n_flat:]
+        grads = _mode_param_grads(ctx.mode, kept, g_rgb.float(),
+                                  g_dens.float(), flat, ctx.cfg, ctx.encode)
+        return (None, None, None, None, None,
                 *[g.reshape(p.shape) for g, p in zip(grads, flat)])
 
 
@@ -1068,7 +1268,9 @@ def fused_mlp_lean(x, view, flat_params, num_samples: int, net_depth: int,
     """Lean MLP with a parameter-gradient backward: (x [M, F] f32 encode
     rows, view [M/num_samples, Fv] per ray, flat params) -> (rgb [M, 3],
     density [M, 1]) f32, activated with act = (rgb_padding, density_bias),
-    the raw heads for act=None.
+    the raw heads for act=None.  encode = (min_deg, max_deg): x is the
+    [6, M] f32 moments stream and the kernels decode its IPE per tile
+    (modes 'recompute' and 'save'; the recompute backward decodes again).
 
     mode='recompute': the backward re-runs the forward chunk by chunk;
     nothing level-sized crosses from the forward.  mode='save': the forward
@@ -1076,8 +1278,7 @@ def fused_mlp_lean(x, view, flat_params, num_samples: int, net_depth: int,
     them back.  mode='hybrid': a plain-torch forward whose activations are
     the backward's residuals, read as they are.  The backward gives
     gradients to the parameters only: x and view get none, as the JAX
-    function gives them zero cotangents.  `encode` (the moments input) is
-    not ported for training."""
+    function gives them zero cotangents."""
     if net_depth_condition < 1:
         raise ValueError('fused_mlp_lean requires net_depth_condition >= 1 '
                          '(the view branch); use the "xla" backend for '
@@ -1085,15 +1286,13 @@ def fused_mlp_lean(x, view, flat_params, num_samples: int, net_depth: int,
     if mode not in MODES:
         raise ValueError(f'fused_mlp_lean: mode must be one of {MODES}, got '
                          f'{mode!r}')
-    if encode is not None:
-        if mode == 'hybrid':
-            raise ValueError("encode is a kernel-boundary fusion; mode "
-                             "'hybrid' runs its forward in plain torch - use "
-                             "'recompute'/'save'")
-        raise NotImplementedError('fused_mlp_lean: the moments input '
-                                  '(encode=) of the training kernels is not '
-                                  'ported yet')
+    if encode is not None and mode == 'hybrid':
+        raise ValueError("encode is a kernel-boundary fusion; mode 'hybrid' "
+                         "runs its forward in plain torch - use "
+                         "'recompute'/'save'")
     cfg = (num_samples, net_depth, net_depth_condition, skip_index,
            compute_dtype, None if act is None
            else (float(act[0]), float(act[1])))
-    return _Lean.apply(x.float(), view.float(), mode, cfg, *flat_params)
+    return _Lean.apply(x.float(), view.float(), mode, cfg,
+                       None if encode is None else tuple(encode),
+                       *flat_params)

@@ -6,28 +6,33 @@ each level encodes its cone Gaussians with the IPE, runs the MLP and
 composites.
 
 Training with a lean backend ('pallas_lean', 'pallas_lean_save',
-'pallas_hybrid') runs `fused_mlp_lean` on the encode rows; it applies the
-head activations itself when the model's activations are the defaults and
-density_noise is 0, as in JAX (otherwise it returns the raw heads and the
-activations, with the noise, run here), and the heads are composited by
-the plain `volumetric_rendering` with autograd through it.  The lean
-backends give the encoded inputs no gradient, so they require
-stop_resample_grad (checked at construction).
+'pallas_hybrid') runs `fused_mlp_lean`; it applies the head activations
+itself when the model's activations are the defaults and density_noise is
+0, as in JAX (otherwise it returns the raw heads and the activations, with
+the noise, run here), and the heads are composited by the plain
+`volumetric_rendering` with autograd through it.  The lean backends give
+the encoded inputs no gradient, so they require stop_resample_grad
+(checked at construction).
 
-With 'pallas_lean' or 'pallas_lean_save' and `fuse_render` (what
-MipNeRFSystem's eval model selects for val.mlp_backend='auto'), each level
-runs the fused lean-render kernels: the IPE is decoded from the [6, B, N]
-moments inside the kernel, the heads are activated and composited there,
-and only the nan-safe distance clamp stays outside.  The kernels always
-decode the moments, so in the port render fusion implies `fuse_encode`.
-They are forward only: a forward that wants parameter gradients through
-them raises NotImplementedError (their backward, the JAX
-`_bwd_kernel_lean_render`, is not ported yet).
+The options of the lean path engage as the JAX model's gates say
+(mipnerf_pl_tpu/models/mipnerf.py `setup`):
+  fuse_render   ('pallas_lean' / 'pallas_lean_save', activations fused)
+                each level runs the render-fused level (MLP, activations
+                and compositing in the kernels; only the nan-safe distance
+                clamp stays outside), in training through its backward;
+  fuse_encode   (the same backends, max_deg_point <= 16) the kernels take
+                the [6, B, N] moments and decode the IPE per tile;
+  pallas_encode (where fast_encode_math would engage and fuse_encode does
+                not) the [M, 6L] encode rows come from the `ipe_moments`
+                kernel.
+`fast_encode_math` selects no fast transcendentals in the port: every
+encode here is libm-exact.  It only gates `pallas_encode`, as in JAX.
+MipNeRFSystem's eval model (val.mlp_backend='auto') takes fuse_render and
+fuse_encode for rendering.
 
 Knobs that steer TPU-only machinery (`channel_major`, `lean_input_cast`,
-`fast_encode_math`, `pallas_encode`, `mxu_cumsum`) are accepted and have no
-effect.  The unbounded-360 mode and `ipe_backend='pallas'` are not ported
-yet.
+`mxu_cumsum`) are accepted and have no effect.  The unbounded-360 mode and
+`ipe_backend='pallas'` are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from mipnerf_pl_tpu_torch.kernels.mlp import ipe_moments
 from mipnerf_pl_tpu_torch.models.mlp import (LEAN_BACKENDS, MLP,
                                              RENDER_BACKENDS)
 from mipnerf_pl_tpu_torch.ops.math import (cast_rays_cmajor,
@@ -79,13 +85,13 @@ class MipNerf(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  unbounded: bool = False, ipe_backend: str = 'xla',
                  mlp_backend: str = 'xla', fuse_render: bool = False,
-                 fuse_encode: bool = False,
+                 fuse_encode: bool = False, fast_encode_math: bool = True,
+                 pallas_encode: bool = False,
                  generator: Optional[torch.Generator] = None,
                  **tpu_only_knobs):
         super().__init__()
         unknown = set(tpu_only_knobs) - {
-            'channel_major', 'lean_input_cast', 'fast_encode_math',
-            'pallas_encode', 'mxu_cumsum'}
+            'channel_major', 'lean_input_cast', 'mxu_cumsum'}
         if unknown:
             raise TypeError(f'unknown MipNerf options: {sorted(unknown)}')
         if unbounded:
@@ -135,8 +141,21 @@ class MipNerf(nn.Module):
         self._fused_render = (fuse_render and self._fused_act
                               and mlp_backend in RENDER_BACKENDS
                               and mlp_num_rgb_channels == 3
-                              and mlp_num_density_channels == 1
-                              and mlp_net_depth_condition >= 1)
+                              and mlp_num_density_channels == 1)
+        # The kernel encodes (the JAX gates): the in-kernel decode of the
+        # moments, and the standalone moments encode where JAX's fast-math
+        # encode would run.  JAX bounds both at max_deg_point 16 (its fast
+        # sine's range); the port keeps that bound.
+        fastmath_ok = max_deg_point <= 16
+        self._fused_encode = (fuse_encode and self._fused_act and fastmath_ok
+                              and mlp_backend in RENDER_BACKENDS
+                              and not unbounded and ipe_backend == 'xla')
+        self._fast_encode_math = (fast_encode_math and fastmath_ok
+                                  and mlp_backend in RENDER_BACKENDS
+                                  and use_viewdirs and not unbounded
+                                  and ipe_backend == 'xla')
+        self._pallas_encode = (pallas_encode and self._fast_encode_math
+                               and not self._fused_encode)
         xyz_dim = 2 * (max_deg_point - min_deg_point) * 3
         view_dim = (2 * deg_view + int(append_identity)) * 3 \
             if use_viewdirs else 0
@@ -157,6 +176,16 @@ class MipNerf(nn.Module):
         if self.density_activation == 'softplus':
             return nn.functional.softplus(x)
         return torch.relu(x)
+
+    def _moments_stream(self, t_samples, rays):
+        """[6, B, N] channel-major moments for the kernel encodes;
+        disable_integration zeroes the covariance rows."""
+        moments = cast_rays_cmajor(t_samples, rays.origins, rays.directions,
+                                   rays.radii, self.ray_shape)
+        if self.disable_integration:
+            moments = torch.cat([moments[:3], torch.zeros_like(moments[3:])],
+                                dim=0)
+        return moments
 
     def forward(self, rays: Rays, randomized: bool, white_bkgd: bool,
                 generator: Optional[torch.Generator] = None
@@ -182,29 +211,33 @@ class MipNerf(nn.Module):
                                     self.append_identity)
                             if self.use_viewdirs else None)
 
-            if self._fused_render:
-                moments = cast_rays_cmajor(t_samples, rays.origins,
-                                           rays.directions, rays.radii,
-                                           self.ray_shape)
+            encode = None
+            degrees = (self.min_deg_point, self.max_deg_point)
+            if self._fused_encode:
+                samples_enc = self._moments_stream(t_samples, rays)
+                encode = degrees
+            elif self._pallas_encode:
+                moments = self._moments_stream(t_samples, rays)
+                samples_enc = ipe_moments(moments.reshape(6, -1), *degrees
+                                          ).reshape(*moments.shape[1:], -1)
+            else:
+                means, covs = means_covs
                 if self.disable_integration:
-                    moments = torch.cat(
-                        [moments[:3], torch.zeros_like(moments[3:])], dim=0)
+                    covs = torch.zeros_like(covs)
+                samples_enc = integrated_pos_enc((means, covs), *degrees)
+
+            if self._fused_render:
                 delta, mids = delta_mids(t_samples, rays.directions)
                 comp_rgb, dist_raw, acc, weights = self.mlp(
-                    moments, viewdirs_enc, (delta, mids, white_bkgd),
-                    (self.min_deg_point, self.max_deg_point))
+                    samples_enc, viewdirs_enc, (delta, mids, white_bkgd),
+                    encode)
                 ret.append(LevelOutput(comp_rgb,
                                        clamp_distance(dist_raw, t_samples),
                                        acc, weights, t_samples))
                 continue
 
-            means, covs = means_covs
-            if self.disable_integration:
-                covs = torch.zeros_like(covs)
-            samples_enc = integrated_pos_enc((means, covs),
-                                             self.min_deg_point,
-                                             self.max_deg_point)
-            raw_rgb, raw_density = self.mlp(samples_enc, viewdirs_enc)
+            raw_rgb, raw_density = self.mlp(samples_enc, viewdirs_enc,
+                                            None, encode)
             if self._fused_act:
                 # The lean kernel applied the activations already.
                 rgb, density = raw_rgb, raw_density
@@ -262,5 +295,7 @@ def make_mipnerf_from_hparams(hparams: dict,
         mlp_backend=str(hparams.get('nerf.mlp_backend', 'xla')),
         fuse_render=bool(hparams.get('nerf.fuse_render', False)),
         fuse_encode=bool(hparams.get('nerf.fuse_encode', False)),
+        fast_encode_math=bool(hparams.get('nerf.fast_encode_math', True)),
+        pallas_encode=bool(hparams.get('nerf.pallas_encode', False)),
         generator=generator,
     )

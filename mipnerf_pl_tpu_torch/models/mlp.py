@@ -9,15 +9,16 @@ Backends:
   'xla'   the plain forward (torch ops; named after the JAX backend it
           mirrors, so the same configs select it)
   'pallas_lean' | 'pallas_lean_save' | 'pallas_hybrid'
-          training: `fused_mlp_lean`, the counterpart of the JAX
-          `_call_pallas_lean`, in mode 'recompute', 'save' or 'hybrid':
-          f32 encode rows, view features per ray, the head activations
-          applied in the kernel when `fused_activation` is set (raw heads
-          otherwise), parameter gradients only.  The moments input
-          (`encode=`) is not ported for training.
+          `fused_mlp_lean`, the counterpart of the JAX `_call_pallas_lean`,
+          in mode 'recompute', 'save' or 'hybrid': f32 encode rows (or,
+          with `encode=`, the [6, B, N] moments, not for 'hybrid'), view
+          features per ray, the head activations applied in the kernel
+          when `fused_activation` is set (raw heads otherwise), parameter
+          gradients only.
   'pallas_lean' | 'pallas_lean_save'
-          the render path: the fused lean-render level kernels
-          (kernels/mlp.py) through `render=`, forward only.
+          with `render=`: the fused lean-render level (kernels/mlp.py
+          `fused_mlp_lean_render`, mode 'recompute' or 'save'), in either
+          input form; it trains through its backward and renders without.
 Without view directions every backend runs the plain forward, as in JAX.
 """
 
@@ -92,14 +93,13 @@ class MLP(nn.Module):
             nn.init.zeros_(lin.bias)
 
     def forward(self, x, view_direction=None, render=None, encode=None):
-        """x [B, N, F] encoded samples (or, with `render`, the [6, B, N]
-        moments), view_direction [B, Fv] per ray.
+        """x [B, N, F] encoded samples, or with `encode` = (min_deg,
+        max_deg) the [6, B, N] moments, view_direction [B, Fv] per ray.
 
         Returns (raw_rgb [B, N, 3], raw_density [B, N, nd]) f32 (activated
-        on a lean training path with `fused_activation`), or with `render`
-        = (delta [B, N], mids [B, N], white_bkgd) and `encode` = (min_deg,
-        max_deg) the per-ray (comp_rgb [B, 3], dist_raw [B], acc [B],
-        weights [B, N]) of the lean render kernels."""
+        on a lean path with `fused_activation`), or with `render` = (delta
+        [B, N], mids [B, N], white_bkgd) the per-ray (comp_rgb [B, 3],
+        dist_raw [B], acc [B], weights [B, N]) of the lean render level."""
         if encode is not None and self.backend not in RENDER_BACKENDS:
             raise ValueError('encode fusion requires a lean pallas backend, '
                              f'got {self.backend!r}')
@@ -108,12 +108,7 @@ class MLP(nn.Module):
         if self.backend == 'xla' or view_direction is None:
             return self._plain(x, view_direction)
         if self.backend in LEAN_BACKENDS:
-            if encode is not None:
-                raise NotImplementedError(
-                    'the moments input (encode=) of the lean training '
-                    'kernels is not ported yet; train on encode rows '
-                    '(nerf.fuse_encode False)')
-            return self._lean(x, view_direction)
+            return self._lean(x, view_direction, encode)
         raise NotImplementedError(
             f'mlp backend {self.backend!r} is not ported yet; use "xla" or '
             f'one of {LEAN_BACKENDS}')
@@ -174,24 +169,31 @@ class MLP(nn.Module):
             raise ValueError(f'{what} requires 3 rgb channels and 1 density '
                              'channel')
 
-    def _lean(self, x, view_direction):
-        """Training form of the lean backends: x [B, N, F] f32 encode rows,
-        view_direction [B, Fv] -> (rgb [B, N, 3], density [B, N, 1]),
-        activated when fused_activation is set; gradients reach the
-        parameters only."""
+    @staticmethod
+    def _lean_x_layout(x, encode):
+        """(num_samples, lead, x2) of a lean input in either form: encode
+        rows [.., N, F] -> [M, F], or the moments [6, .., N] -> [6, M]
+        (JAX's `_lean_x_layout`)."""
+        if encode is None:
+            return x.shape[-2], x.shape[:-1], x.reshape(-1, x.shape[-1])
+        return x.shape[-1], x.shape[1:], x.reshape(x.shape[0], -1)
+
+    def _lean(self, x, view_direction, encode=None):
+        """Training form of the lean backends: x [B, N, F] f32 encode rows
+        or the [6, B, N] moments, view_direction [B, Fv] -> (rgb [B, N, 3],
+        density [B, N, 1]), activated when fused_activation is set;
+        gradients reach the parameters only."""
         self._check_lean_heads('the lean training kernels')
-        num_samples = x.shape[-2]
-        lead = x.shape[:-1]
+        num_samples, lead, x2 = self._lean_x_layout(x, encode)
         flat = flatten_params(self, self.net_depth, self.net_depth_condition)
         rgb, density = fused_mlp_lean(
-            x.reshape(-1, x.shape[-1]),
-            view_direction.reshape(-1, view_direction.shape[-1]), flat,
+            x2, view_direction.reshape(-1, view_direction.shape[-1]), flat,
             num_samples, self.net_depth, self.net_depth_condition,
             self.skip_index, self.compute_dtype, LEAN_MODES[self.backend],
-            self.fused_activation)
+            self.fused_activation, encode)
         return rgb.reshape(*lead, 3), density.reshape(*lead, 1)
 
-    def _lean_render(self, moments, view_direction, delta, mids, white_bkgd,
+    def _lean_render(self, x, view_direction, delta, mids, white_bkgd,
                      encode):
         if self.backend not in RENDER_BACKENDS:
             raise ValueError('render fusion requires a lean pallas backend, '
@@ -199,15 +201,14 @@ class MLP(nn.Module):
         self._check_lean_heads('render fusion')
         if view_direction is None:
             raise ValueError('render fusion requires view directions')
-        num_samples = moments.shape[-1]
-        lead = moments.shape[1:-1]
+        num_samples, lead_x, x2 = self._lean_x_layout(x, encode)
+        lead = lead_x[:-1]
         flat = flatten_params(self, self.net_depth, self.net_depth_condition)
         comp, dist, acc, w = fused_mlp_lean_render(
-            moments.reshape(moments.shape[0], -1),
-            view_direction.reshape(-1, view_direction.shape[-1]),
+            x2, view_direction.reshape(-1, view_direction.shape[-1]),
             delta.reshape(-1, num_samples), mids.reshape(-1, num_samples),
             flat, num_samples, self.net_depth, self.net_depth_condition,
             self.skip_index, self.compute_dtype, self.fused_activation,
-            bool(white_bkgd), encode)
+            bool(white_bkgd), encode, LEAN_MODES[self.backend])
         return (comp.reshape(*lead, 3), dist.reshape(*lead),
                 acc.reshape(*lead), w.reshape(*lead, num_samples))

@@ -62,11 +62,19 @@ def _compute_dtype(hparams) -> torch.dtype:
 
 class MipNeRFSystem:
     """Owns the model, its render-time twin and the optimizer schedule on
-    one device."""
+    one device: a CUDA device unless `device` says otherwise (the CPU runs
+    the kernels' plain versions)."""
 
-    def __init__(self, hparams: Dict[str, Any], device='cpu'):
+    def __init__(self, hparams: Dict[str, Any], device=None):
         config.warn_inert_keys(hparams)
         self.hparams = dict(hparams)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise ValueError(
+                    'MipNeRFSystem runs on a CUDA device by default and none '
+                    'is available; pass device=\'cpu\' to run the plain '
+                    'PyTorch versions of the kernels on the CPU')
+            device = 'cuda'
         self.device = torch.device(device)
         compute_dtype = _compute_dtype(hparams)
         self.model = make_mipnerf_from_hparams(hparams, compute_dtype)

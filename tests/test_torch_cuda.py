@@ -20,6 +20,10 @@ backward is held against its plain version on the same residuals, and the
 recompute backward against the save backward on the same kernel forward
 (<= 1e-5: it re-runs that forward, and only the order of the f32 bias
 sums differs); lean_fwd must equal lean_save_fwd's outputs bit for bit.
+The moments input form is held against the rows form on the plain decode
+of the same moments (<= 1e-5 f32), lean_composite_bwd and ipe_moments
+against their plain versions (<= 1e-5), and training through the
+render-fused level against its wrappers called in order (bit for bit).
 """
 
 import numpy as np
@@ -361,27 +365,262 @@ def test_cuda_fused_mlp_lean_autograd(cuda_device, mode):
         torch.testing.assert_close(p.grad, w.reshape(p.shape), rtol=0, atol=0)
 
 
+
+
+# ---------------------------------------------------------------------------
+# The moments input of the training kernels, the composite backward, the
+# standalone moments encode and training through the render-fused level.
+# ---------------------------------------------------------------------------
+
+def moments_problem(R, cfg, device, seed=0):
+    """problem()'s moments [6, M], the encode rows of the same moments (the
+    plain decode), view and params on the card, and numpy-seeded head
+    cotangents."""
+    moments, view, _, _, flat = problem(R, **cfg, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    M = R * cfg['N']
+
+    def on(a):
+        return torch.tensor(a, device=device)
+    m = on(moments)
+    return (m, tk.ipe_moments_plain(m, *cfg['deg']).contiguous(), on(view),
+            [on(p) for p in flat],
+            on(rng.normal(size=(M, 3)).astype(np.float32)),
+            on(rng.normal(size=(M, 1)).astype(np.float32)))
+
+
+def max_rel_err(got, want):
+    """The largest max |a - b| / max |b| over the pairs."""
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
+               for a, b in zip(got, want))
+
+
+def fwd_parts(out, M):
+    """A forward's outputs, saved stream and raw heads of the M points."""
+    rgb, dens, (S, heads) = out
+    return [rgb, dens, S[:, :M].float(), heads[:, :M]]
+
+
 @pytest.mark.cuda
-def test_cuda_fuse_render_training_is_refused(cuda_device):
-    """The render-fused level is forward only on the card too: a training
-    forward through it raises NotImplementedError; rendering works."""
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(TRAIN_SHAPES))
+def test_cuda_moments_forms_match_rows(cuda_device, shape, dtype):
+    """lean_fwd and lean_save_fwd on the [6, M] moments (the IPE decoded in
+    the kernel) against the same kernels on the encode rows of the plain
+    decode: f32 max |d| / max |ref| <= 1e-5 (both decodes are libm expf /
+    sinf of the same products; the saved X rows are the decoded encode);
+    bf16 <= 3e-2 against the f32 plain forward on the rows.  lean_fwd gives
+    lean_save_fwd's outputs bit for bit."""
+    R, cfg = TRAIN_SHAPES[shape]
+    m, x, view, flat, _, _ = moments_problem(R, cfg, cuda_device)
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'])
+    dt = getattr(torch, dtype)
+    act = (0.001, -1.0)
+    M = x.shape[0]
+    tk.reset_launches()
+    fwd = tk.lean_fwd(m, view, flat, *args, dt, act, encode=cfg['deg'])
+    got = fwd_parts(tk.lean_save_fwd(m, view, flat, *args, dt, act,
+                                     encode=cfg['deg']), M)
+    torch.cuda.synchronize()
+    assert tk.launches['lean_fwd'] == 1 and tk.launches['lean_save_fwd'] == 1
+    assert all(torch.equal(a, b) for a, b in zip(fwd, got[:2]))
+    assert all(torch.isfinite(t).all() for t in got)
+    if dtype == 'float32':
+        want = fwd_parts(tk.lean_save_fwd(x, view, flat, *args, dt, act), M)
+        assert max_rel_err(got, want) <= 1e-5
+    else:
+        want = fwd_parts(tk.lean_mlp_save_plain(x, view, flat, *args,
+                                                torch.float32, act), M)
+        assert max_rel_err(got, want) <= 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('chunks', ['default', 'one_range'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(TRAIN_SHAPES))
+def test_cuda_moments_recompute_matches_save(cuda_device, shape, dtype,
+                                             chunks, monkeypatch):
+    """lean_param_grads_recompute on the moments (each chunk's re-run
+    decodes them with the forward's loader and tiles) against
+    lean_param_grads on the stream of lean_save_fwd on the same moments:
+    largest leaf relative error <= 1e-5 (only the f32 bias sums' order
+    differs), two runs bit-equal."""
+    if chunks == 'one_range':
+        monkeypatch.setattr(tk, 'RECOMPUTE_POINTS', 1)
+    R, cfg = TRAIN_SHAPES[shape]
+    m, _, view, flat, g_rgb, g_dens = moments_problem(R, cfg, cuda_device)
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], getattr(torch, dtype), (0.001, -1.0))
+    saved = tk.lean_save_fwd(m, view, flat, *args, encode=cfg['deg'])[2]
+    want = tk.lean_param_grads(view, g_rgb, g_dens, saved, flat, *args)
+    tk.reset_launches()
+    got, again = (tk.lean_param_grads_recompute(m, view, g_rgb, g_dens, flat,
+                                                *args, encode=cfg['deg'])
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    assert tk.launches['lean_param_grads_recompute'] == 2
+    assert all(torch.isfinite(g).all() for g in got)
+    assert max_leaf_rel_err(got, want) <= 1e-5
+    for a, b in zip(got, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('white', [True, False])
+@pytest.mark.parametrize('shape', ['small', 'lego'])
+def test_cuda_composite_bwd_matches_plain(cuda_device, shape, white):
+    """lean_composite_bwd against lean_composite_bwd_plain (f32): max |d| /
+    max |ref| <= 1e-5, the scans' sums run in another order.  'small' has
+    N = 40, ragged against the kernel's 32-sample chunks; 'lego' is a
+    training level, 3072 rays x 128 samples."""
+    R, N = (37, 40) if shape == 'small' else (3072, 128)
+    rng = np.random.default_rng(5)
+
+    def on(a):
+        return torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    rgbsig = rng.uniform(0.0, 1.0, size=(R * N, 4))
+    rgbsig[:, 3] *= 30.0
+    delta = rng.uniform(0.0, 0.05, size=(R, N))
+    mids = np.cumsum(rng.uniform(0.01, 0.05, size=(R, N)), -1) + 2.0
+    t = [on(a) for a in (rgbsig, delta, mids, rng.normal(size=(R, 8)),
+                         rng.normal(size=(R, N)))]
+    tk.reset_launches()
+    got = tk.lean_composite_bwd(*t, white)
+    torch.cuda.synchronize()
+    assert tk.launches['lean_composite_bwd'] == 1
+    want = tk.lean_composite_bwd_plain(*t, white)
+    assert [a.shape for a in got] == [(R * N, 3), (R * N, 1)]
+    assert all(torch.isfinite(a).all() for a in got)
+    assert max_rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['ragged', 'lego', 'no_integration'])
+def test_cuda_ipe_moments_matches_plain(cuda_device, case):
+    """ipe_moments against ipe_moments_plain: max |d| <= 1e-5 (both are
+    libm expf / sinf of the same f32 products).  'ragged': 700 points, no
+    multiple of a block; 'lego': a training level, 393,216 points at
+    degrees 0..16; 'no_integration': the covariance rows zeroed, as
+    disable_integration hands them over."""
+    M, deg = {'ragged': (700, (0, 4)), 'lego': (393216, (0, 16)),
+              'no_integration': (4096, (0, 16))}[case]
+    rng = np.random.default_rng(6)
+    moments = np.concatenate([rng.normal(size=(3, M)) * 0.7,
+                              rng.uniform(0.0, 2e-3, size=(3, M))])
+    if case == 'no_integration':
+        moments[3:] = 0.0
+    m = torch.tensor(moments.astype(np.float32), device=cuda_device)
+    tk.reset_launches()
+    got = tk.ipe_moments(m, *deg)
+    torch.cuda.synchronize()
+    assert tk.launches['ipe_moments'] == 1
+    assert got.shape == (M, 6 * (deg[1] - deg[0]))
+    assert torch.isfinite(got).all()
+    assert float((got - tk.ipe_moments_plain(m, *deg)).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('white', [True, False])
+@pytest.mark.parametrize('form', ['rows', 'moments'])
+@pytest.mark.parametrize('mode', ['save', 'recompute'])
+def test_cuda_render_level_autograd(cuda_device, mode, form, white):
+    """Training through the render-fused level on the card: the forward
+    runs the mode's training forward and lean_composite, backward() runs
+    lean_composite_bwd and the mode's parameter-gradient backward, and the
+    gradients equal those wrappers called in that order bit for bit."""
+    R, cfg = TRAIN_SHAPES['small']
+    N = cfg['N']
+    moments, view, delta, mids, flat = problem(R, **cfg)
+    on = [torch.tensor(a, device=cuda_device)
+          for a in (moments, view, delta, mids)]
+    m, view, delta, mids = on
+    enc = cfg['deg'] if form == 'moments' else None
+    x = m if enc else tk.ipe_moments_plain(m, *cfg['deg']).contiguous()
+    params = [torch.tensor(p, device=cuda_device, requires_grad=True)
+              for p in flat]
+    args = (N, cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], torch.float32, (0.001, -1.0))
+    rng = np.random.default_rng(9)
+    cots = [torch.tensor(rng.normal(size=s).astype(np.float32),
+                         device=cuda_device)
+            for s in ((R, 3), (R, 1), (R, 1), (R, N))]
+    tk.reset_launches()
+    out = tk.fused_mlp_lean_render(x, view, delta, mids, params, *args,
+                                   white, enc, mode)
+    sum((o * c).sum() for o, c in zip(out, cots)).backward()
+    torch.cuda.synchronize()
+    fwd, bwd = (('lean_save_fwd', 'lean_param_grads') if mode == 'save'
+                else ('lean_fwd', 'lean_param_grads_recompute'))
+    for name in (fwd, bwd, 'lean_composite', 'lean_composite_bwd'):
+        assert tk.launches[name] == 1, name
+    assert tk.launches['lean_mlp'] == 0
+    flat_d = [p.detach() for p in params]
+    if mode == 'save':
+        rgb, dens, saved = tk.lean_save_fwd(x, view, flat_d, *args,
+                                            encode=enc)
+    else:
+        rgb, dens = tk.lean_fwd(x, view, flat_d, *args, encode=enc)
+    rgbsig = torch.cat([rgb, dens], dim=-1)
+    g_perray = torch.zeros((R, 8), device=cuda_device)
+    g_perray[:, 0:3], g_perray[:, 3:4], g_perray[:, 4:5] = (cots[0], cots[2],
+                                                            cots[1])
+    g_rgb, g_sig = tk.lean_composite_bwd(rgbsig, delta, mids, g_perray,
+                                         cots[3], white)
+    if mode == 'save':
+        want = tk.lean_param_grads(view, g_rgb, g_sig, saved, flat_d, *args)
+    else:
+        want = tk.lean_param_grads_recompute(x, view, g_rgb, g_sig, flat_d,
+                                             *args, encode=enc)
+    for p, w in zip(params, want):
+        torch.testing.assert_close(p.grad, w.reshape(p.shape), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('fused', ['render', 'render_encode', 'encode',
+                                   'pallas_encode'])
+@pytest.mark.parametrize('backend', ['pallas_lean_save', 'pallas_lean'])
+def test_cuda_fused_training_runs_the_kernels(cuda_device, backend, fused):
+    """A MipNerf with fuse_render, fuse_encode or pallas_encode trains on
+    the card: one loss backward launches each of its kernels once a level,
+    the gradients are finite, and the loss agrees with the same model's
+    plain versions on the CPU (max |d| / |ref| <= 1e-4: one f32 forward)."""
     from mipnerf_pl_tpu_torch.models.mipnerf import MipNerf
     from mipnerf_pl_tpu_torch.rays import Rays
-    model = MipNerf(num_samples=8, max_deg_point=4, deg_view=2,
-                    mlp_net_depth=3, mlp_net_width=16,
-                    mlp_net_width_condition=16, mlp_skip_index=2,
-                    mlp_backend='pallas_lean_save', fuse_render=True,
-                    fuse_encode=True).to(cuda_device)
+    opts = {'render': dict(fuse_render=True),
+            'render_encode': dict(fuse_render=True, fuse_encode=True),
+            'encode': dict(fuse_encode=True),
+            'pallas_encode': dict(pallas_encode=True)}[fused]
+    model = MipNerf(num_samples=16, max_deg_point=4, deg_view=2,
+                    mlp_net_depth=3, mlp_net_width=64,
+                    mlp_net_width_condition=32, mlp_skip_index=2,
+                    mlp_backend=backend, **opts)
     rng = np.random.default_rng(0)
     d = rng.normal(size=(64, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     ones = np.ones((64, 1), np.float32)
-    rays = Rays(*(torch.tensor(f, device=cuda_device) for f in (
-        rng.normal(size=(64, 3)).astype(np.float32) * 0.1, d, d,
-        ones * 0.005, ones, ones * 2.0, ones * 6.0)))
-    with pytest.raises(NotImplementedError, match='_bwd_kernel_lean_render'):
-        model(rays, False, True)
-    with torch.no_grad():
+    fields = (rng.normal(size=(64, 3)).astype(np.float32) * 0.1, d, d,
+              ones * 0.005, ones, ones * 2.0, ones * 6.0)
+    target = torch.tensor(rng.uniform(size=(64, 3)).astype(np.float32))
+    losses = {}
+    for dev in ('cpu', cuda_device):
+        model.to(dev)
+        model.zero_grad()
+        rays = Rays(*(torch.tensor(f, device=dev) for f in fields))
+        tk.reset_launches()
         out = model(rays, False, True)
+        loss = sum(((lv.rgb - target.to(dev)) ** 2).mean() for lv in out)
+        loss.backward()
+        losses[str(dev)] = float(loss.detach())
     torch.cuda.synchronize()
-    assert all(torch.isfinite(lv.rgb).all() for lv in out)
+    fwd, bwd = (('lean_save_fwd', 'lean_param_grads')
+                if backend == 'pallas_lean_save'
+                else ('lean_fwd', 'lean_param_grads_recompute'))
+    names = [fwd, bwd] + (['lean_composite', 'lean_composite_bwd']
+                          if 'render' in fused else []) \
+        + (['ipe_moments'] if fused == 'pallas_encode' else [])
+    for name in names:
+        assert tk.launches[name] == model.num_levels, (name, tk.launches)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+    want = losses['cpu']
+    assert abs(losses[str(cuda_device)] - want) <= 1e-4 * abs(want)

@@ -100,8 +100,14 @@ def test_wrapper_rejects_other_devices_and_dtypes():
         tk._dtype_flag(torch.float16)
     with pytest.raises(ValueError):
         tk.fused_mlp_lean_render(None, None, None, None, [], 8, 3, 0, 2)
-    with pytest.raises(ValueError):      # the kernels decode moments only
-        tk.fused_mlp_lean_render(None, None, None, None, [], 8, 3, 1, 2)
+    with pytest.raises(ValueError):      # the composite takes activations
+        tk.fused_mlp_lean_render(None, None, None, None, [], 8, 3, 1, 2,
+                                 act=None)
+    with pytest.raises(ValueError, match='mode'):
+        tk.fused_mlp_lean_render(None, None, None, None, [], 8, 3, 1, 2,
+                                 mode='hybrid')
+    with pytest.raises(ValueError):
+        tk.ipe_moments(moments, 0, 4)
 
 
 def test_param_order_matches_jax():
@@ -117,7 +123,7 @@ def _lean_args(cfg):
             cfg['skip_index'])
 
 
-def _jax_lean(arrays, cfg, dtype, mode, act):
+def _jax_lean(arrays, cfg, dtype, mode, act, encode=None):
     """JAX fused_mlp_lean: outputs and the VJP of the parameters for the
     head cotangents."""
     import jax
@@ -126,19 +132,19 @@ def _jax_lean(arrays, cfg, dtype, mode, act):
     def f(fl):
         return jk.fused_mlp_lean(jnp.asarray(x), jnp.asarray(view), fl,
                                  *_lean_args(cfg), dtype, None, mode, act,
-                                 False, None)
+                                 False, encode)
     (rgb, dens), vjp = jax.vjp(f, tuple(jnp.asarray(p) for p in flat))
     (grads,) = vjp((jnp.asarray(g_rgb), jnp.asarray(g_dens)))
     return [np.asarray(rgb), np.asarray(dens)], [np.asarray(g) for g in grads]
 
 
-def _port_lean(arrays, cfg, dtype, mode, act):
+def _port_lean(arrays, cfg, dtype, mode, act, encode=None):
     """The port's fused_mlp_lean through autograd (the plain versions)."""
     x, view, flat, g_rgb, g_dens = (torch.tensor(a) if not isinstance(a, list)
                                     else a for a in arrays)
     params = [torch.tensor(p, requires_grad=True) for p in flat]
     rgb, dens = tk.fused_mlp_lean(x, view, params, *_lean_args(cfg), dtype,
-                                  mode, act)
+                                  mode, act, encode)
     ((rgb * g_rgb).sum() + (dens * g_dens).sum()).backward()
     return ([rgb.detach().numpy(), dens.detach().numpy()],
             [p.grad.numpy() for p in params])
@@ -299,17 +305,15 @@ def test_wgrad_ranges_align_with_recompute_chunks(M, N):
 
 
 def test_lean_training_form_rejects():
-    """What the training form still refuses: the moments input (encode=)
-    in training, encode with 'hybrid' (JAX's refusal), no view branch, an
+    """What the training form still refuses: encode with 'hybrid' (JAX's
+    refusal), an encode whose width is not trunk_0's, no view branch, an
     unknown mode, and a device that is neither the CPU nor CUDA."""
     x = torch.zeros(8, 24)
-    for mode in ('recompute', 'save'):
-        with pytest.raises(NotImplementedError, match='encode'):
-            tk.fused_mlp_lean(x, None, [], 8, 3, 1, 2, mode=mode, act=ACT,
-                              encode=(0, 4))
     with pytest.raises(ValueError, match='hybrid'):
         tk.fused_mlp_lean(x, None, [], 8, 3, 1, 2, mode='hybrid',
                           encode=(0, 4))
+    with pytest.raises(ValueError, match='trunk_0'):
+        tk._input_points('lean_fwd', torch.zeros(6, 8), (0, 3), 24)
     with pytest.raises(ValueError):
         tk.fused_mlp_lean(x, None, [], 8, 3, 0, 2, act=ACT)
     with pytest.raises(ValueError, match='mode'):
@@ -325,23 +329,159 @@ def test_lean_training_form_rejects():
     with pytest.raises(ValueError):
         tk.lean_param_grads_hybrid(meta, None, None, None, [], 8, 3, 1, 2,
                                    torch.float32, ACT)
+    with pytest.raises(ValueError):
+        tk.lean_composite_bwd(meta, None, None, None, None, True)
 
 
-def test_render_level_refuses_gradients():
-    """fused_mlp_lean_render is forward only (its backward, TPU kernel #2,
-    is not ported): with grad mode on and a parameter that requires grad it
-    raises; under no_grad, or with parameters that need none, it renders."""
+# ---------------------------------------------------------------------------
+# The moments input of the training kernels, the render-fused level's
+# backward and the standalone moments encode.  JAX decodes the IPE with
+# ~1e-6-accurate polynomial exp/sin, the port with libm: outputs compare at
+# rtol = atol = 1e-5 and parameter gradients at 2e-4, JAX's own bars for
+# that comparison (tests/test_fused_mlp.py:750-754).
+# ---------------------------------------------------------------------------
+
+def _moments_train_problem(R, cfg, seed=0):
+    """problem()'s moments, view and params with numpy-seeded head
+    cotangents, in train_problem's order."""
+    moments, view, _, _, flat = _problem(R, **cfg, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    M = R * cfg['N']
+    return (moments, view, flat,
+            rng.normal(size=(M, 3)).astype(np.float32),
+            rng.normal(size=(M, 1)).astype(np.float32))
+
+
+def _close(got, want, tol, what):
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape, (what, i)
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol,
+                                   err_msg=f'{what} {i}')
+
+
+@pytest.mark.parametrize('act', [ACT, None], ids=['act', 'raw'])
+@pytest.mark.parametrize('mode', ['save', 'recompute'])
+@pytest.mark.parametrize('R', [37, 8], ids=['ragged', 'whole_tiles'])
+def test_lean_encode_plain_matches_jax(R, mode, act):
+    """fused_mlp_lean(encode=) on the [6, M] moments: forward and every
+    parameter gradient against JAX's, whose kernels decode the IPE per
+    tile.  37 rays x 8 samples is ragged against both row tiles; 8 x 8 is
+    one whole 64-point CUDA tile."""
     cfg = SMALL
-    moments, view, delta, mids, flat = (
-        [torch.tensor(p) for p in a] if isinstance(a, list)
-        else torch.tensor(a) for a in _problem(5, **cfg))
-    args = (moments, view, delta, mids)
-    kw = dict(encode=cfg['deg'], act=ACT)
-    want = tk.fused_mlp_lean_render(*args, flat, 8, 3, 1, 2, **kw)
-    params = [p.clone().requires_grad_(True) for p in flat]
-    with pytest.raises(NotImplementedError, match='_bwd_kernel_lean_render'):
-        tk.fused_mlp_lean_render(*args, params, 8, 3, 1, 2, **kw)
-    with torch.no_grad():
-        got = tk.fused_mlp_lean_render(*args, params, 8, 3, 1, 2, **kw)
+    arrays = _moments_train_problem(R, cfg)
+    j_out, j_grads = _jax_lean(arrays, cfg, jnp.float32, mode, act,
+                               cfg['deg'])
+    t_out, t_grads = _port_lean(arrays, cfg, torch.float32, mode, act,
+                                cfg['deg'])
+    _close(t_out, j_out, 1e-5, 'output')
+    _close(t_grads, j_grads, 2e-4, 'leaf')
+
+
+def _render_cotangents(R, N, seed=7):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32)
+            for shape in ((R, 3), (R, 1), (R, 1), (R, N))]
+
+
+@pytest.mark.parametrize('white', [True, False])
+@pytest.mark.parametrize('form', ['rows', 'moments'])
+@pytest.mark.parametrize('mode', ['save', 'recompute'])
+def test_render_level_grads_match_jax(mode, form, white):
+    """Training through the render-fused level: its four outputs and the
+    gradient of every parameter for cotangents on comp_rgb, dist, acc and
+    the weights, against JAX's custom VJP (TPU kernel #2 in interpret
+    mode), on encode rows or on the moments."""
+    import jax
+    cfg = SMALL
+    R, N = 37, cfg['N']
+    moments, view, delta, mids, flat = _problem(R, **cfg)
+    encode = cfg['deg'] if form == 'moments' else None
+    x = moments if encode else tk.ipe_moments_plain(
+        torch.tensor(moments), *cfg['deg']).numpy()
+    cots = _render_cotangents(R, N)
+    args = (N, cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'])
+
+    def f(fl):
+        return jk.fused_mlp_lean_render(
+            jnp.asarray(x), jnp.asarray(view), jnp.asarray(delta),
+            jnp.asarray(mids), fl, *args, jnp.float32, None, mode, ACT,
+            white, encode)
+    j_out, vjp = jax.vjp(f, tuple(jnp.asarray(p) for p in flat))
+    (j_grads,) = vjp(tuple(jnp.asarray(c) for c in cots))
+
+    params = [torch.tensor(p, requires_grad=True) for p in flat]
+    t_out = tk.fused_mlp_lean_render(
+        torch.tensor(x), torch.tensor(view), torch.tensor(delta),
+        torch.tensor(mids), params, *args, torch.float32, ACT, white, encode,
+        mode)
+    sum((o * torch.tensor(c)).sum() for o, c in zip(t_out, cots)).backward()
+    _close([o.detach().numpy() for o in t_out],
+           [np.asarray(o) for o in j_out], 1e-5, 'output')
+    _close([p.grad.numpy() for p in params],
+           [np.asarray(g) for g in j_grads], 2e-4, 'leaf')
+
+
+@pytest.mark.parametrize('N', [8, 40], ids=['N8', 'N40'])
+@pytest.mark.parametrize('white', [True, False])
+def test_composite_bwd_plain_matches_jax(white, N):
+    """lean_composite_bwd_plain against the JAX
+    `_lean_render_head_cotangents` (the composite backward of TPU kernel
+    #2) on the same activated heads and per-ray cotangents, and against
+    autograd through the port's plain composite (the VJP both compute).
+    f32, rtol 1e-5 / atol 1e-6: prefix and suffix sums run in another
+    order (cumsum against JAX's triangular matmuls).  N = 40 is ragged
+    against the CUDA kernel's 32-sample chunks."""
+    rng = np.random.default_rng(11)
+    R = 13
+    rgbsig = rng.uniform(0.0, 1.0, size=(R * N, 4)).astype(np.float32)
+    rgbsig[:, 3] *= 30.0
+    delta = rng.uniform(0.0, 0.1, size=(R, N)).astype(np.float32)
+    mids = np.cumsum(rng.uniform(0.01, 0.05, size=(R, N)), -1) + 2.0
+    mids = mids.astype(np.float32)
+    g_perray = rng.normal(size=(R, 8)).astype(np.float32)
+    g_w = rng.normal(size=(R, N)).astype(np.float32)
+    cfg = {'num_samples': N, 'render': {'white_bkgd': white}}
+    want = jk._lean_render_head_cotangents(
+        jnp.asarray(rgbsig[:, :3]), jnp.asarray(rgbsig[:, 3:]),
+        jnp.asarray(delta), jnp.asarray(mids), jnp.asarray(g_perray),
+        jnp.asarray(g_w), cfg)
+    t = [torch.tensor(a) for a in (rgbsig, delta, mids, g_perray, g_w)]
+    got = tk.lean_composite_bwd(*t, white)
     for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
+    heads = t[0].clone().requires_grad_(True)
+    perray, w = tk.lean_composite_plain(heads, t[1], t[2], white)
+    g_pad = t[3].clone()
+    g_pad[:, 5:] = 0.0                    # the pad lanes carry nothing
+    ((perray * g_pad).sum() + (w * t[4]).sum()).backward()
+    auto = torch.cat(got, dim=-1)
+    torch.testing.assert_close(auto, heads.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize('case', ['deg16', 'ragged', 'no_integration'])
+def test_ipe_moments_plain_matches_jax(case):
+    """ipe_moments (its plain version on the CPU) against JAX's
+    fused_ipe_moments (TPU kernel #12 in interpret mode): [6, M] -> [M, 6L].
+    atol 5e-6: JAX's polynomial exp/sin against libm, the bar JAX holds its
+    own fast encode to (tests/test_ops_math.py:263-277).  'ragged' has 700
+    points (no multiple of the JAX tile); 'no_integration' zeroes the
+    covariance rows as disable_integration does.  The moments get no
+    gradient (JAX: zero cotangents)."""
+    from mipnerf_pl_tpu.kernels.ipe import fused_ipe_moments
+    rng = np.random.default_rng(12)
+    M, deg = {'deg16': (256, (0, 16)), 'ragged': (700, (0, 4)),
+              'no_integration': (96, (2, 6))}[case]
+    moments = np.concatenate([rng.normal(size=(3, M)) * 1.5,
+                              rng.uniform(0.001, 0.2, size=(3, M))])
+    moments = moments.astype(np.float32)
+    if case == 'no_integration':
+        moments[3:] = 0.0
+    want = np.asarray(fused_ipe_moments(jnp.asarray(moments), *deg, True))
+    m = torch.tensor(moments, requires_grad=True)
+    got = tk.ipe_moments(m, *deg)
+    assert got.shape == want.shape == (M, 6 * (deg[1] - deg[0]))
+    assert not got.requires_grad
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-6)

@@ -19,6 +19,7 @@ from mipnerf_pl_tpu.rays import Rays as JRays
 from mipnerf_pl_tpu_torch import config
 from mipnerf_pl_tpu_torch.convert import (jax_params_to_torch,
                                           torch_params_to_jax)
+from mipnerf_pl_tpu_torch.kernels import mlp as tk
 from mipnerf_pl_tpu_torch.models.mipnerf import MipNerf
 from mipnerf_pl_tpu_torch.models.mlp import MLP
 from mipnerf_pl_tpu_torch.rays import Rays
@@ -175,29 +176,85 @@ def test_mipnerf_randomized_runs_with_generator():
 @pytest.mark.parametrize('backend', ['pallas_lean', 'pallas_hybrid'])
 def test_training_backends_not_ported_raise(backend):
     """The recompute and hybrid backends train; what stays unported raises
-    instead of computing something else: the moments input (encode=) of the
-    training kernels (for 'hybrid' JAX's own refusal, a ValueError), the
-    unbounded-360 mode, and unknown options."""
+    instead of computing something else: the moments input (encode=) with
+    'hybrid' (JAX's own refusal, a ValueError), the 'pallas' backend, the
+    unbounded-360 mode, ipe_backend='pallas', and unknown options.  On
+    'pallas_lean' the moments input trains and equals the rows form on
+    their encode."""
     _, trays = _rays()
     port = MipNerf(**KW, mlp_backend=backend)
     assert not port._fused_render
     out = port(trays, False, True)
     assert all(torch.isfinite(lv.rgb).all() for lv in out)
-    x = torch.zeros(4, 8, 24)
+    rng = np.random.default_rng(2)
+    moments = torch.tensor(np.concatenate(
+        [rng.normal(size=(3, 4, 8)), rng.uniform(0, 1e-3, size=(3, 4, 8))]
+    ).astype(np.float32))
+    x = tk.ipe_moments_plain(moments.reshape(6, -1), 0, 4).reshape(4, 8, 24)
     view = torch.zeros(4, 15)
     mlp = MLP(24, 15, net_depth=3, net_width=16, net_width_condition=8,
               skip_index=2, backend=backend, fused_activation=(0.001, -1.0))
-    err = ValueError if backend == 'pallas_hybrid' else NotImplementedError
-    with pytest.raises(err, match='encode'):
-        mlp(x, view, encode=(0, 4))
+    if backend == 'pallas_hybrid':
+        with pytest.raises(ValueError, match='encode'):
+            mlp(moments, view, encode=(0, 4))
+    else:
+        for a, b in zip(mlp(moments, view, encode=(0, 4)), mlp(x, view)):
+            assert a.shape == b.shape == (4, 8, a.shape[-1])
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(NotImplementedError):
         MLP(24, 15, backend='pallas')(x, view)
     with pytest.raises(NotImplementedError):
         MipNerf(**KW, unbounded=True)
+    with pytest.raises(NotImplementedError, match='ipe_backend'):
+        MipNerf(**KW, mlp_backend=backend, ipe_backend='pallas')
     with pytest.raises(TypeError):
         MipNerf(**KW, no_such_knob=True)
     MipNerf(**KW, channel_major=True, mxu_cumsum=False, pallas_encode=True,
             fast_encode_math=True, lean_input_cast=True)
+
+
+GATE_CASES = {
+    'save_render_encode': dict(mlp_backend='pallas_lean_save',
+                               fuse_render=True, fuse_encode=True),
+    'recompute_render': dict(mlp_backend='pallas_lean', fuse_render=True),
+    'deg17_encode': dict(mlp_backend='pallas_lean_save', fuse_render=True,
+                         fuse_encode=True, max_deg_point=17),
+    'deg17_pallas_encode': dict(mlp_backend='pallas_lean',
+                                pallas_encode=True, max_deg_point=17),
+    'pallas_encode': dict(mlp_backend='pallas_lean_save',
+                          pallas_encode=True),
+    'pallas_encode_under_fused': dict(mlp_backend='pallas_lean',
+                                      pallas_encode=True, fuse_encode=True),
+    'pallas_encode_no_fast_math': dict(mlp_backend='pallas_lean',
+                                       pallas_encode=True,
+                                       fast_encode_math=False),
+    'hybrid': dict(mlp_backend='pallas_hybrid', fuse_render=True,
+                   fuse_encode=True, pallas_encode=True),
+    'xla': dict(mlp_backend='xla', fuse_render=True, fuse_encode=True,
+                pallas_encode=True),
+    'density_noise': dict(mlp_backend='pallas_lean_save', fuse_render=True,
+                          fuse_encode=True, density_noise=1.0),
+    # No view layer: both select the level, whose kernels then refuse it.
+    'no_view_layers': dict(mlp_backend='pallas_lean', fuse_render=True,
+                           mlp_net_depth_condition=0),
+}
+
+
+@pytest.mark.parametrize('case', list(GATE_CASES))
+def test_encode_and_render_gates_match_jax(case):
+    """_fused_render, _fused_encode and _pallas_encode select as the JAX
+    model's setup() does: fuse_encode only below max_deg_point 17 on a lean
+    pallas backend with the activations fused; pallas_encode only where the
+    fast-math encode would run and the fused encode does not; hybrid and
+    xla neither.  ipe_backend='pallas' turns both encodes off in JAX and is
+    refused by the port (not ported)."""
+    kw = dict(KW, **GATE_CASES[case])
+    jm = JMipNerf(**kw).bind({})
+    port = MipNerf(**kw)
+    for gate in ('_fused_render', '_fused_encode', '_pallas_encode'):
+        assert getattr(port, gate) == getattr(jm, gate), gate
+    jp = JMipNerf(**dict(kw, ipe_backend='pallas')).bind({})
+    assert not (jp._fused_encode or jp._pallas_encode)
 
 
 @pytest.mark.parametrize('backend',
@@ -244,17 +301,16 @@ def test_lean_save_training_forward_matches_plain(backend, noise):
 def test_eval_backend_selection():
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem
     hp = _tiny_hparams(**{'nerf.mlp_backend': 'pallas_lean_save'})
-    system = MipNeRFSystem(hp)
+    system = MipNeRFSystem(hp, device='cpu')
     assert system.model.mlp_backend == 'pallas_lean_save'
     assert system.eval_model.mlp_backend == 'pallas_lean'
     assert system.eval_model._fused_render
-    assert MipNeRFSystem(dict(hp, **{'nerf.density_noise': 1.0})
-                         ).eval_model.mlp_backend == 'xla'
-    assert MipNeRFSystem(dict(hp, **{'val.mlp_backend': 'xla'})
-                         ).eval_model.mlp_backend == 'xla'
-    assert MipNeRFSystem(dict(hp, **{'nerf.mlp.net_depth_condition': 0})
-                         ).eval_model.mlp_backend == 'xla'
-    plain = MipNeRFSystem(_tiny_hparams(**{'val.mlp_backend': 'xla'}))
+    for change in ({'nerf.density_noise': 1.0}, {'val.mlp_backend': 'xla'},
+                   {'nerf.mlp.net_depth_condition': 0}):
+        assert MipNeRFSystem(dict(hp, **change), device='cpu'
+                             ).eval_model.mlp_backend == 'xla'
+    plain = MipNeRFSystem(_tiny_hparams(**{'val.mlp_backend': 'xla'}),
+                          device='cpu')
     assert plain.eval_model is plain.model
 
 
@@ -267,7 +323,8 @@ def test_eval_model_of_each_lean_backend(backend):
     nerf.fuse_render set (its forward has none, as in JAX)."""
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem
     system = MipNeRFSystem(_tiny_hparams(**{'nerf.mlp_backend': backend,
-                                            'nerf.fuse_render': True}))
+                                            'nerf.fuse_render': True}),
+                           device='cpu')
     assert system.model.mlp_backend == backend and system.model._fused_act
     assert system.model._fused_render == (backend != 'pallas_hybrid')
     assert system.eval_model.mlp_backend == 'pallas_lean'
@@ -300,7 +357,7 @@ def test_render_camera_matches_jax(val_backend):
     state = jsys.init_state()
     jcam, cam = _cameras(8)
     want = jsys.render_camera(state['params'], jcam, 8, 8, chunk_size=64)
-    sys_ = MipNeRFSystem(hp)
+    sys_ = MipNeRFSystem(hp, device='cpu')
     assert sys_.eval_model._fused_render == (val_backend == 'auto')
     params = jax_params_to_torch(_np_tree(state['params']))
     got = sys_.render_camera(params, cam, 8, 8, chunk_size=24)
@@ -315,7 +372,7 @@ def test_render_camera_matches_jax(val_backend):
 def test_render_image_matches_render_camera():
     from mipnerf_pl_tpu_torch.ops.camera import camera_rays
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem
-    system = MipNeRFSystem(_tiny_hparams())
+    system = MipNeRFSystem(_tiny_hparams(), device='cpu')
     params = system.init_params(seed=7)
     _, cam = _cameras(6)
     rays = camera_rays(cam, 6, 6)
@@ -330,9 +387,10 @@ def test_inert_keys_warn_and_outputs_stay_f32():
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem
     with pytest.warns(UserWarning, match='val.fetch_dtype'):
         system = MipNeRFSystem(_tiny_hparams(**{'val.fetch_dtype':
-                                                'float32'}))
+                                                'float32'}), device='cpu')
     with pytest.warns(UserWarning, match='nerf.mxu_cumsum'):
-        MipNeRFSystem(_tiny_hparams(**{'nerf.mxu_cumsum': False}))
+        MipNeRFSystem(_tiny_hparams(**{'nerf.mxu_cumsum': False}),
+                      device='cpu')
     _, cam = _cameras(4)
     out = system.render_camera(system.init_params(), cam, 4, 4)
     assert all(v.dtype == np.float32 for v in out.values())

@@ -130,7 +130,7 @@ def _systems(hp):
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem
     jsys = JSystem(hp)
     jstate = jsys.init_state()
-    system = MipNeRFSystem(hp)
+    system = MipNeRFSystem(hp, device='cpu')
     state = system.init_state(params=jax_params_to_torch(
         _np_tree(jstate['params'])))
     return jsys, jstate, system, state, JRays
@@ -148,19 +148,42 @@ def _leaf_close(got, want, rel):
                                    err_msg=jax.tree_util.keystr(path))
 
 
-@pytest.mark.parametrize('backend,disable_multiscale,noise', [
-    ('pallas_lean_save', False, 0.0), ('pallas_lean_save', True, 0.0),
-    ('pallas_lean', False, 0.0), ('pallas_hybrid', False, 0.0),
-    ('pallas_lean', False, 1.0)])
-def test_train_slice_matches_jax(backend, disable_multiscale, noise):
+def _slice_case(backend, disable_multiscale=False, noise=0.0, id=None,
+                **fused):
+    """A case of test_train_slice_matches_jax; the cases without fusion
+    options keep their ids '<backend>-<disable_multiscale>-<noise>'."""
+    return pytest.param(backend, disable_multiscale, noise, fused,
+                        id=id or f'{backend}-{disable_multiscale}-{noise}')
+
+
+@pytest.mark.parametrize('backend,disable_multiscale,noise,fused', [
+    _slice_case('pallas_lean_save'), _slice_case('pallas_lean_save', True),
+    _slice_case('pallas_lean'), _slice_case('pallas_hybrid'),
+    _slice_case('pallas_lean', noise=1.0),
+    _slice_case('pallas_lean_save', id='pallas_lean_save-render',
+                fuse_render=True),
+    _slice_case('pallas_lean', id='pallas_lean-render', fuse_render=True),
+    _slice_case('pallas_lean_save', id='pallas_lean_save-render-encode',
+                fuse_render=True, fuse_encode=True),
+    _slice_case('pallas_lean', id='pallas_lean-encode', fuse_encode=True),
+    _slice_case('pallas_lean_save', id='pallas_lean_save-pallas_encode',
+                pallas_encode=True)])
+def test_train_slice_matches_jax(backend, disable_multiscale, noise, fused):
     """One step's loss, aux values and every parameter gradient, then the
-    parameters after 3 train_steps, port against JAX."""
+    parameters after 3 train_steps, port against JAX.  With `fused`: the
+    render-fused level (TPU kernels #1 and #2 on the JAX side), the
+    moments input of the lean kernels (the IPE decoded in them) and the
+    standalone moments encode (#12), each engaging on both sides."""
     hp = _hparams(**{'loss.disable_multiscale_loss': disable_multiscale,
                      'nerf.mlp_backend': backend,
-                     'nerf.density_noise': noise})
+                     'nerf.density_noise': noise},
+                  **{f'nerf.{k}': v for k, v in fused.items()})
     jsys, jstate, system, state, JRays = _systems(hp)
     assert system.model.mlp_backend == backend
     assert system.model._fused_act == (noise == 0.0)
+    for opt in ('fuse_render', 'fuse_encode', 'pallas_encode'):
+        gate = '_' + opt.replace('fuse_', 'fused_')
+        assert getattr(system.model, gate) == bool(fused.get(opt)), gate
     rays, pixels = _batch()
     if disable_multiscale:     # lossmult then has no effect on the loss
         rays = rays._replace(lossmult=rays.lossmult * 0.5)
@@ -205,7 +228,7 @@ def test_train_many_replays_single_steps():
     and the state advances in place."""
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem
     hp = _hparams(**{'train.randomized': True})
-    system = MipNeRFSystem(hp)
+    system = MipNeRFSystem(hp, device='cpu')
     rays, pixels = _batch(8)
     K = 3
     stack = Rays(*(np.broadcast_to(f, (K,) + f.shape).copy() for f in rays))
@@ -229,24 +252,16 @@ def test_train_many_replays_single_steps():
 
 
 
-@pytest.mark.parametrize('backend', ['pallas_lean', 'pallas_lean_save'])
-def test_fuse_render_training_is_refused(backend):
-    """nerf.fuse_render on a lean training backend: the training forward
-    would run the render-fused level, whose backward (TPU kernel #2) is not
-    ported, so value_and_grad raises NotImplementedError instead of
-    training through the plain versions' autograd (which the kernels on
-    the card could not do); rendering with the same model still works."""
+def test_system_runs_on_cuda_unless_asked_for_cpu(monkeypatch):
+    """MipNeRFSystem's entry points run on the card by default: with no
+    card and no device it raises (naming device='cpu') rather than quietly
+    picking the CPU; asked for the CPU it trains there."""
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem
-    system = MipNeRFSystem(_hparams(**{'nerf.mlp_backend': backend,
-                                       'nerf.fuse_render': True}))
-    assert system.model._fused_render
-    state = system.init_state(seed=0)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(ValueError, match="device='cpu'"):
+        MipNeRFSystem(_hparams())
+    system = MipNeRFSystem(_hparams(), device='cpu')
+    assert system.device == torch.device('cpu')
     rays, pixels = _batch(8)
-    trays = Rays(*(torch.from_numpy(f) for f in rays))
-    with pytest.raises(NotImplementedError, match='_bwd_kernel_lean_render'):
-        system.value_and_grad(state['params'], trays,
-                              torch.from_numpy(pixels))
-    out = system.render_image(state['params'],
-                              Rays(*(f.reshape(2, 4, -1) for f in rays)))
-    assert out['fine_rgb'].shape == (2, 4, 3)
-    assert np.isfinite(out['fine_rgb']).all()
+    state, aux = system.train_step(system.init_state(seed=0), rays, pixels)
+    assert state['step'] == 1 and torch.isfinite(aux['loss'])
