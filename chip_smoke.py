@@ -17,7 +17,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      view with seeded params (through convert.jax_params_to_torch); every
      render kernel must launch 2 levels x 5 chunks times, the image must be
      finite, and the same frame through the plain path on the card must
-     agree (max |d rgb|, max |d acc| <= 1e-3 in f32);
+     agree (max |d rgb|, max |d acc| <= 1e-3 in f32); then the frame with
+     val.mlp_backend pallas (fused_mlp's forward, mlp_fwd, 2 x 5 launches)
+     against the same plain frame at the same bar;
   5. the training kernels against their plain versions at the lego level
      shape (3072 rays x 128 samples, x rows the IPE of seeded rays, seeded
      head cotangents), f32 and bf16, bars against the f32 plain version:
@@ -33,7 +35,14 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      the same three forwards and the recompute backward on the level's
      [6, M] moments (`encode=`), in f32 also against the rows form on the
      plain decode of the same moments (<= 1e-5); lean_composite_bwd (both
-     backgrounds) and ipe_moments at the level's shape (<= 1e-5, f32);
+     backgrounds) and ipe_moments at the level's shape (<= 1e-5, f32); the
+     classic kernels of fused_mlp on the level with per-point view rows (the
+     view repeated over the samples, as the model feeds them): mlp_save_fwd
+     (outputs and stream) and mlp_fwd (bit for bit its outputs) at the
+     phase-3 bars, mlp_bwd_saved on the plain forward's stream (dx, dview
+     and every parameter at bench.py's metric, <= 1e-4 f32, <= 3e-2 bf16),
+     mlp_bwd_recompute against mlp_bwd_saved on the kernel forward's stream
+     (<= 1e-5, dx and dview bit for bit, two runs equal);
      CUDA-event times of every kernel and its plain version, and each
      kernel's bound: the larger of its FLOP over the card's peak and its
      bytes over 3.35 TB/s (kernel_work);
@@ -42,7 +51,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      TRAIN_CONFIGS (pallas_lean_save, pallas_lean, pallas_hybrid; the two
      lean backends with fuse_render + fuse_encode; pallas_lean_save with
      fuse_render on encode rows; both with fuse_encode; pallas_lean_save
-     with pallas_encode), bf16 then f32: a one-step gradient-parity gate
+     with pallas_encode; pallas and pallas_save with stop_resample_grad
+     False, beside whose f32 gates the plain path's own difference between
+     stop_resample_grad True and False is printed, the size of the term
+     the gate must see), bf16 then f32: a one-step gradient-parity gate
      against the same system on the plain 'xla' backend (largest leaf
      relative error <= 3e-2 bf16, bench.py's bar; <= 2e-3 f32: the two
      forwards differ by ~1e-6, which flips the ReLU masks of pre-activations
@@ -64,9 +76,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 adds, before phase 7, the frame times at 800x800 (kernel and plain paths,
 f32 and bf16, in turns k p p k), a torch.profiler table of one 200x200
 kernel-path frame, and, with the host's issue time of an unprofiled step,
-one of a bf16 train step of each lean backend and of pallas_lean_save with
-fuse_render + fuse_encode, and of an f32 step of the last and of
-pallas_lean_save.
+one of a bf16 train step of each lean backend, of pallas_lean_save with
+fuse_render + fuse_encode and of pallas and pallas_save, and of an f32
+step of the fused one and of pallas_lean_save.
 
 It imports torch, numpy and the port; never JAX.  With no CUDA device it
 exits non-zero before printing any result.
@@ -84,6 +96,7 @@ from mipnerf_pl_tpu_torch import config
 from mipnerf_pl_tpu_torch.convert import jax_params_to_torch
 from mipnerf_pl_tpu_torch.kernels import _build
 from mipnerf_pl_tpu_torch.kernels import mlp as km
+from mipnerf_pl_tpu_torch.models.mlp import LEAN_BACKENDS
 from mipnerf_pl_tpu_torch.ops.camera import Camera, pix2cam_from_focal
 from mipnerf_pl_tpu_torch.ops.math import (cast_rays_cmajor,
                                            integrated_pos_enc, pos_enc)
@@ -103,6 +116,7 @@ RENDER_KERNELS = ('lean_view_proj', 'lean_mlp', 'lean_composite')
 _SAVE = ('lean_save_fwd', 'lean_param_grads')
 _RECOMPUTE = ('lean_fwd', 'lean_param_grads_recompute')
 _COMPOSITE = ('lean_composite', 'lean_composite_bwd')
+_RESAMPLE = {'nerf.stop_resample_grad': False}
 _RENDER_ENCODE = {'nerf.fuse_render': True, 'nerf.fuse_encode': True}
 # Each training configuration -> (nerf.mlp_backend, the fusion options, the
 # kernels its step must launch per level).
@@ -124,11 +138,17 @@ TRAIN_CONFIGS = {
     'pallas_lean_save+pallas_encode': ('pallas_lean_save',
                                        {'nerf.pallas_encode': True},
                                        _SAVE + ('ipe_moments',)),
+    'pallas+resample': ('pallas', _RESAMPLE, ('mlp_fwd', 'mlp_bwd_recompute')),
+    'pallas_save+resample': ('pallas_save', _RESAMPLE,
+                             ('mlp_save_fwd', 'mlp_bwd_saved')),
 }
+# The configurations that train with the resample gradient (fused_mlp).
+CLASSIC_CONFIGS = ('pallas+resample', 'pallas_save+resample')
 # The configurations whose f32 timing turns are cut first if the run must
 # be shortened (the gates never are).
 NEW_CONFIGS = tuple(list(TRAIN_CONFIGS)[3:])
-# --measure profiles a bf16 step of each lean backend and of this one.
+# --measure profiles a bf16 step of each lean backend, of this one and of
+# CLASSIC_CONFIGS.
 PROFILED_CONFIG = 'pallas_lean_save+render+encode'
 # Past this many seconds from the start, phase 6 cuts the f32 timing turns
 # of NEW_CONFIGS (half the 1200 s a run may take, less the f32 turns).
@@ -160,6 +180,24 @@ def smi_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f'nvidia-smi failed: {out.stderr.strip()}')
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_resources(ptxas_log: str):
+    """[(kernel, spill line, registers line)] from nvcc -Xptxas -v output,
+    the names demangled by c++filt where the machine has it."""
+    import re
+    rows = re.findall(r"Function properties for (\S+)\n\s*(.*spill.*)\n"
+                      r".*?(Used \d+ registers[^\n]*)", ptxas_log)
+    names = [r[0] for r in rows]
+    try:
+        out = subprocess.run(['c++filt'], input='\n'.join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = [n.replace('(anonymous namespace)::', '')
+                     for n in out.stdout.splitlines()]
+    except OSError:
+        pass
+    return [(n, r[1].strip(), r[2].strip()) for n, r in zip(names, rows)]
 
 
 def cuda_ms(fn, iters: int = 5) -> float:
@@ -232,6 +270,23 @@ def kernel_work(name, hp, R, N, tag, form='rows'):
     if name == 'lean_param_grads_hybrid':
         res = M * (Fp + (depth + 1) * W + dcond * Wv) * es
         return bwd, 0, res + g + view + params + grads
+    # The classic MLP of fused_mlp, as the JAX function's inputs and
+    # outputs: x and the view f32 per point (view_0 on all of them), raw
+    # heads; the backward's chain runs back to the inputs (every layer's
+    # input cotangent, as many products as the forward) beside every weight
+    # gradient, dx and dview out; the saved stream is the JAX set (hs,
+    # bottleneck, ys) in the compute dtype.
+    cfwd = 2 * M * n_w
+    pts = M * (F + Fv) * 4
+    stream = M * ((depth + 1) * W + dcond * Wv) * es
+    if name == 'mlp_fwd':
+        return cfwd, 0, pts + params + g
+    if name == 'mlp_save_fwd':
+        return cfwd, 0, pts + params + g + stream
+    if name == 'mlp_bwd_saved':
+        return 2 * cfwd, 0, stream + 2 * pts + g + params + grads
+    if name == 'mlp_bwd_recompute':
+        return 3 * cfwd, 0, 2 * pts + g + params + grads
     raise KeyError(name)
 
 
@@ -416,6 +471,33 @@ def level_inputs(hp, dev, seed=1):
     return x, view, g[0], g[1], moments, delta, mids
 
 
+def fwd_err(got, ref, dt):
+    """(max |d|, bar text, ok) of a forward's outputs at the phase-3
+    bars."""
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    if dt == torch.float32:
+        return err, f'max|d| <= {F32_BAR}', err <= F32_BAR
+    rel = max(float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(got, ref))
+    return err, f'max|d|/max|ref| = {rel:.3e} <= {BF16_BAR}', \
+        rel <= BF16_BAR
+
+
+def reporter(results, hp):
+    """Phase 5's report(name, tag, ok, text, err, ms, plain_ms, form): log
+    one kernel's check and times, raise if it failed, and record its
+    numbers with its bound at the training level's shape."""
+    def report(name, tag, ok, text, err, ms, plain_ms, form='rows'):
+        log(f'[kernel] {name} {tag}: {text}; kernel {ms:.3f} ms  plain '
+            f'{plain_ms:.3f} ms  {"OK" if ok else "FAIL"}')
+        if not ok:
+            raise AssertionError(f'{name} {tag} disagrees with its plain '
+                                 'version')
+        record(results, (name, tag), hp, TRAIN_RAYS, hp['nerf.num_samples'],
+               err, ms, plain_ms, form=form)
+    return report
+
+
 def fwd_parts(out, M):
     """A training forward's outputs, saved stream and raw heads of its M
     points, f32."""
@@ -447,7 +529,6 @@ def compare_train_kernels(params, hp, dev):
     flat = flat_params(params, hp)
     x, view, g_rgb, g_dens, moments, delta, mids = level_inputs(hp, dev)
     M = x.shape[0]
-    N = args[0]
     enc = (hp['nerf.min_deg_point'], hp['nerf.max_deg_point'])
 
     def plain_fwd(dt):
@@ -466,29 +547,11 @@ def compare_train_kernels(params, hp, dev):
               else km.lean_param_grads_hybrid_plain)
         return fn(view, g_rgb, g_dens, res, flat, *args, dt, ACT)
 
-    def fwd_err(got, ref, dt):
-        """(max |d|, bar text, ok) at the phase-3 bars."""
-        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        if dt == torch.float32:
-            return err, f'max|d| <= {F32_BAR}', err <= F32_BAR
-        rel = max(float((a - b).abs().max()) / float(b.abs().max())
-                  for a, b in zip(got, ref))
-        return err, f'max|d|/max|ref| = {rel:.3e} <= {BF16_BAR}', \
-            rel <= BF16_BAR
-
-    def report(name, tag, ok, text, err, ms, plain_ms, form='rows'):
-        log(f'[kernel] {name} {tag}: {text}; kernel {ms:.3f} ms  plain '
-            f'{plain_ms:.3f} ms  {"OK" if ok else "FAIL"}')
-        if not ok:
-            raise AssertionError(f'{name} {tag} disagrees with its plain '
-                                 'version')
-        record(results, (name, tag), hp, TRAIN_RAYS, N, err, ms, plain_ms,
-               form=form)
-
+    results = {}
+    report = reporter(results, hp)
     ref = plain_fwd(torch.float32)
     ref_parts = fwd_parts(ref, M)
     ref_out = km.lean_fwd_plain(x, view, flat, *args, torch.float32, ACT)
-    results = {}
     for dt in (torch.float32, torch.bfloat16):
         tag = 'f32' if dt == torch.float32 else 'bf16'
         g_bar = F32_BAR if dt == torch.float32 else BF16_BAR
@@ -588,14 +651,14 @@ def compare_train_kernels(params, hp, dev):
                cuda_ms(lambda: hybrid(dt, res)),
                cuda_ms(lambda: hybrid(dt, res, kernel=False)))
         del res
-        compare_moments_forms(results, report, fwd_err, flat, args, dt, tag,
+        compare_moments_forms(results, report, flat, args, dt, tag,
                               x, view, g_rgb, g_dens, moments, enc, hp)
     compare_render_bwd_and_encode(results, report, flat, args, x, view,
                                   moments, delta, mids, enc)
     return results
 
 
-def compare_moments_forms(results, report, fwd_err, flat, args, dt, tag, x,
+def compare_moments_forms(results, report, flat, args, dt, tag, x,
                           view, g_rgb, g_dens, moments, enc, hp):
     """Phase 5, the moments input of the training kernels (`encode=`):
     lean_save_fwd and lean_fwd on the [6, M] moments against the f32 plain
@@ -712,6 +775,103 @@ def compare_render_bwd_and_encode(results, report, flat, args, x, view,
            cuda_ms(lambda: km.ipe_moments_plain(moments, *enc)))
 
 
+def compare_classic_kernels(params, hp, dev):
+    """Phase 5, fused_mlp's kernels at the lego level shape, the view rows
+    per point (the level's view repeated over the samples, as MLP._pallas
+    feeds them), f32 and bf16, bars against the f32 plain version."""
+    args = (hp['nerf.mlp.net_depth'], hp['nerf.mlp.net_depth_condition'],
+            hp['nerf.mlp.skip_index'])
+    N = hp['nerf.num_samples']
+    flat = flat_params(params, hp)
+    x, view, g_rgb, g_dens = level_inputs(hp, dev)[:4]
+    view = view.repeat_interleave(N, dim=0).contiguous()
+    M = x.shape[0]
+    names = ['dx', 'dview'] + leaf_names(hp)
+    results = {}
+    report = reporter(results, hp)
+
+    def bwd(fn, *a):
+        dx, dview, grads = fn(*a)
+        return [dx, dview] + list(grads)
+
+    def finite(ts):
+        return all(bool(torch.isfinite(t).all()) for t in ts)
+
+    ref = km.mlp_save_fwd_plain(x, view, flat, *args, torch.float32)
+    ref_parts = [ref[0], ref[1], ref[2][:, :M].float()]
+    for dt in (torch.float32, torch.bfloat16):
+        tag = 'f32' if dt == torch.float32 else 'bf16'
+        bar = F32_BAR if dt == torch.float32 else BF16_BAR
+        out = km.mlp_save_fwd(x, view, flat, *args, dt)
+        lf = km.mlp_fwd(x, view, flat, *args, dt)
+        torch.cuda.synchronize()
+        parts = [out[0], out[1], out[2][:, :M].float()]
+        f_err, f_bar, f_ok = fwd_err(parts, ref_parts, dt)
+        report('mlp_save_fwd', tag, finite(parts) and f_ok,
+               f'max|d| {f_err:.3e} ({f_bar}), heads and stream', f_err,
+               cuda_ms(lambda: km.mlp_save_fwd(x, view, flat, *args, dt)),
+               cuda_ms(lambda: km.mlp_save_fwd_plain(x, view, flat, *args,
+                                                     dt)))
+        same = all(torch.equal(a, b) for a, b in zip(lf, out[:2]))
+        l_err, l_bar, l_ok = fwd_err(lf, ref_parts[:2], dt)
+        report('mlp_fwd', tag, same and l_ok,
+               f'max|d| {l_err:.3e} ({l_bar}); bit-equal to mlp_save_fwd '
+               f'{same}', l_err,
+               cuda_ms(lambda: km.mlp_fwd(x, view, flat, *args, dt)),
+               cuda_ms(lambda: km.mlp_fwd_plain(x, view, flat, *args, dt)))
+        del lf, parts
+
+        # The saved backward on the plain forward's stream.
+        saved = ref[2] if dt == torch.float32 else \
+            km.mlp_save_fwd_plain(x, view, flat, *args, dt)[2]
+        got = bwd(km.mlp_bwd_saved, g_rgb, g_dens, saved, flat, *args, dt)
+        want = bwd(km.mlp_bwd_saved_plain, g_rgb, g_dens, saved, flat, *args,
+                   torch.float32)
+        torch.cuda.synchronize()
+        g_err, g_leaf = leaf_rel_err(got, want, names)
+        g_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        extra = ''
+        if dt == torch.float32:
+            own = bwd(km.mlp_bwd_saved, g_rgb, g_dens, out[2], flat, *args,
+                      dt)
+            o_err, o_leaf = leaf_rel_err(own, want, names)
+            extra = f'; fed its own forward\'s stream {o_err:.3e} ({o_leaf})'
+            del own
+        report('mlp_bwd_saved', tag, finite(got) and g_err <= bar,
+               f'max rel err of dx, dview and the leaves vs the f32 plain '
+               f'backward {g_err:.3e} ({g_leaf}, <= {bar}){extra}; max|d| '
+               f'{g_abs:.3e}', g_abs,
+               cuda_ms(lambda: km.mlp_bwd_saved(g_rgb, g_dens, saved, flat,
+                                                *args, dt)),
+               cuda_ms(lambda: km.mlp_bwd_saved_plain(g_rgb, g_dens, saved,
+                                                      flat, *args, dt)))
+        del got, want, saved
+
+        # Recompute: against the saved backward on the kernel forward's
+        # stream (the forward it re-runs), twice.
+        def recompute():
+            return bwd(km.mlp_bwd_recompute, x, view, g_rgb, g_dens, flat,
+                       *args, dt)
+        want = bwd(km.mlp_bwd_saved, g_rgb, g_dens, out[2], flat, *args, dt)
+        del out
+        got, again = recompute(), recompute()
+        torch.cuda.synchronize()
+        runs = all(torch.equal(a, b) for a, b in zip(got, again))
+        inputs = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        r_err, r_leaf = leaf_rel_err(got, want, names)
+        r_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        ok = finite(got) and runs and inputs and r_err <= RECOMPUTE_BAR
+        del got, again, want
+        report('mlp_bwd_recompute', tag, ok,
+               f'max rel err vs mlp_bwd_saved on the same forward '
+               f'{r_err:.3e} ({r_leaf}, <= {RECOMPUTE_BAR}); dx and dview '
+               f'bit-equal {inputs}; two runs bit-equal {runs}; max|d| '
+               f'{r_abs:.3e}', r_abs, cuda_ms(recompute),
+               cuda_ms(lambda: km.mlp_bwd_recompute_plain(
+                   x, view, g_rgb, g_dens, flat, *args, dt)))
+    return results
+
+
 def train_run(fn, state, stack, pixels):
     """One make_train_many call, timed on the host clock to a synchronise;
     -> (state, aux, seconds, peak GiB)."""
@@ -724,13 +884,18 @@ def train_run(fn, state, stack, pixels):
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
-def gradient_gate(hp, params, rays, pixels, dev, label):
+def gradient_gate(hp, params, rays, pixels, dev, label, resample_term=False):
     """One value_and_grad of the kernel system and of the same system on
     the plain 'xla' backend, the same generator seed; -> the kernel
-    system."""
+    system.  resample_term: also the plain path with stop_resample_grad
+    True, whose difference from the plain path is the size of the
+    resample gradient the gate must see."""
+    plain = dict(hp, **{'nerf.mlp_backend': 'xla'})
     systems = {'kernel': MipNeRFSystem(hp, device=dev),
-               'plain': MipNeRFSystem(dict(hp, **{'nerf.mlp_backend': 'xla'}),
-                                      device=dev)}
+               'plain': MipNeRFSystem(plain, device=dev)}
+    if resample_term:
+        systems['stopped'] = MipNeRFSystem(
+            dict(plain, **{'nerf.stop_resample_grad': True}), device=dev)
     grads = {}
     for name, s in systems.items():
         st = s.init_state(params=params)
@@ -741,8 +906,15 @@ def gradient_gate(hp, params, rays, pixels, dev, label):
     err, leaf = leaf_rel_err(grads['kernel'], grads['plain'], sorted(params))
     bar = BF16_BAR if hp['train.compute_dtype'] == 'bfloat16' \
         else F32_GATE_BAR
+    term = ''
+    if resample_term:
+        t_err, t_leaf = leaf_rel_err(grads['stopped'], grads['plain'],
+                                     sorted(params))
+        term = (f'; the plain path with stop_resample_grad True differs '
+                f'from it by {t_err:.3e} ({t_leaf})')
     log(f'[train] {label} one-step gradient parity vs xla: max leaf rel err '
-        f'{err:.3e} ({leaf}, <= {bar}) {"OK" if err <= bar else "FAIL"}')
+        f'{err:.3e} ({leaf}, <= {bar}) {"OK" if err <= bar else "FAIL"}'
+        f'{term}')
     if err > bar:
         raise AssertionError(f'{label}: training gradients disagree with the '
                              'plain path')
@@ -760,18 +932,25 @@ def train_slice(hp0, params, dev):
     counts = {}
     for dtype in ('bfloat16', 'float32'):
         hp = dict(hp0, **{'train.compute_dtype': dtype})
-        systems = {'plain': MipNeRFSystem(dict(hp, **{'nerf.mlp_backend':
-                                                      'xla'}), device=dev)}
+        plain = dict(hp, **{'nerf.mlp_backend': 'xla'})
+        # The plain path with the resample gradient: what the classic
+        # configurations are compared with.
+        systems = {'plain': MipNeRFSystem(plain, device=dev),
+                   'plain+resample': MipNeRFSystem(dict(plain, **_RESAMPLE),
+                                                   device=dev)}
         for label, (backend, opts, names) in TRAIN_CONFIGS.items():
             hb = dict(hp, **{'nerf.mlp_backend': backend}, **opts)
             system = gradient_gate(hb, params, rays, pixels, dev,
-                                   f'{dtype} {label}')
+                                   f'{dtype} {label}',
+                                   label in CLASSIC_CONFIGS)
             model = system.model
             gates = {'nerf.fuse_render': model._fused_render,
                      'nerf.fuse_encode': model._fused_encode,
                      'nerf.pallas_encode': model._pallas_encode}
-            if not model._fused_act or any(gates[k] != bool(opts.get(k))
-                                           for k in gates):
+            # The lean kernels apply the head activations; fused_mlp
+            # returns raw heads, as in JAX.
+            if model._fused_act != (backend in LEAN_BACKENDS) or any(
+                    gates[k] != bool(opts.get(k)) for k in gates):
                 raise AssertionError(f'{label} did not select its path: '
                                      f'fused activations {model._fused_act}'
                                      f', {gates}')
@@ -804,8 +983,9 @@ def train_slice(hp0, params, dev):
                 del systems[label]
         states = {n: s.init_state(params=params) for n, s in systems.items()}
         fns = {n: s.make_train_many() for n, s in systems.items()}
-        states['plain'], _, _, _ = train_run(fns['plain'], states['plain'],
-                                             stack, pix)
+        for which in ('plain', 'plain+resample'):        # warm-up
+            states[which], _, _, _ = train_run(fns[which], states[which],
+                                               stack, pix)
         order = list(systems)
         times = {n: [] for n in order}
         for which in (order + order[::-1]) * TURN_ROUNDS:
@@ -910,6 +1090,7 @@ def measure(hp, params, dev):
     rays, pixels = train_batch(TRAIN_RAYS, dev)
     runs = [(label, 'bfloat16')
             for label in list(TRAIN_CONFIGS)[:3] + [PROFILED_CONFIG]]
+    runs += [(label, 'bfloat16') for label in CLASSIC_CONFIGS]
     runs += [('pallas_lean_save', 'float32'), (PROFILED_CONFIG, 'float32')]
     for label, dtype in runs:
         backend, opts, _ = TRAIN_CONFIGS[label]
@@ -964,9 +1145,8 @@ def main() -> int:
     for name, rec in recs.items():
         _build.load(name)
         log(f'[build] {rec["so"].name} in {rec["seconds"]:.1f} s')
-        for line in rec['log'].splitlines():
-            if 'registers' in line or 'spill' in line:
-                log(f'[build] {line.strip()}')
+        for kernel, spill, regs in kernel_resources(rec['log']):
+            log(f'[build]   {kernel}: {spill}; {regs}')
 
     hp = config.default()
     system = MipNeRFSystem(hp, device=dev)
@@ -1015,8 +1195,29 @@ def main() -> int:
     if d_rgb > FRAME_BAR or d_acc > FRAME_BAR:
         raise AssertionError('kernel frame disagrees with the plain path')
 
+    # The same frame through fused_mlp's forward (val.mlp_backend pallas).
+    pallas_system = MipNeRFSystem(dict(hp, **{'val.mlp_backend': 'pallas'}),
+                                  device=dev)
+    render_frame(pallas_system, params, cam)
+    km.reset_launches()
+    out_p, s_pallas = render_frame(pallas_system, params, cam)
+    counts_p = dict(km.launches)
+    d_rgb = float(np.abs(out_p['fine_rgb'] - ref['fine_rgb']).max())
+    d_acc = float(np.abs(out_p['acc'] - ref['acc']).max())
+    log(f'[slice] val.mlp_backend pallas: {s_pallas:.3f} s/frame; launches '
+        f'{ {k: v for k, v in counts_p.items() if v} }; vs plain max|d rgb| '
+        f'{d_rgb:.3e} max|d acc| {d_acc:.3e} (bar {FRAME_BAR})')
+    if any(counts_p[k] != (want if k == 'mlp_fwd' else 0) for k in counts_p):
+        raise AssertionError(f'expected {want} launches of mlp_fwd alone, got'
+                             f' {counts_p}')
+    if d_rgb > FRAME_BAR or d_acc > FRAME_BAR or not all(
+            np.all(np.isfinite(v)) for v in out_p.values()):
+        raise AssertionError('the pallas frame disagrees with the plain path')
+    del pallas_system
+
     # Phases 5 and 6: the training kernels and the training slice.
     results.update(compare_train_kernels(params, hp, dev))
+    results.update(compare_classic_kernels(params, hp, dev))
     train_counts = train_slice(hp, params, dev)
     if '--measure' in sys.argv[1:]:
         measure(hp, params, dev)

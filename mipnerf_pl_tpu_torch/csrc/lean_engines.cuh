@@ -11,8 +11,10 @@
 // `transform` rewrites the accumulators in place (bias, activation, ReLU
 // mask), `store` writes them into a shared tile in the compute dtype,
 // `colsum` reduces them over the tile's rows in a fixed order (no atomics).
-// `mlp_tile` is the lean MLP forward of one tile, shared by the render
-// kernel and the training forward.
+// `mlp_tile` is the MLP forward of one tile, shared by the render kernel and
+// the training forwards: lean (view_0's per-ray half added per ray), or the
+// classic MLP of fused_mlp (mlp_tile<T, true>: per-point view features,
+// nd density heads).
 
 #pragma once
 
@@ -28,6 +30,7 @@ constexpr int TM = 64;          // sample points per block (rows of a tile)
 constexpr int THREADS = 256;    // 8 warps
 constexpr int MAX_OUT = 256;    // widest dense layer the tilings cover
 constexpr int MAX_PARAMS = 64;  // kernel + bias pointers of all layers
+constexpr int MAX_HEADS = 8;    // raw head rows: 3 rgb + up to 5 density
 constexpr unsigned FULL = 0xffffffffu;
 // Stride of a channel-major [width][TM] shared tile: 16-byte rows, padded
 // so that the engines' fragment loads and stores spread over the banks.
@@ -458,12 +461,12 @@ __device__ void load_encode_tile(T* xs, const float* __restrict__ x, size_t ldx,
   }
 }
 
-// Shared memory of one mlp_tile block: encode tile, activation tile,
-// weight slab, four raw head rows.
+// Shared memory of one mlp_tile block: encode tile (xrows rows), activation
+// tile, weight slab, nh raw head rows.
 template <typename T>
-size_t mlp_smem_bytes(int Fp, int wmax) {
-  return sizeof(T) * ((size_t)(Fp + wmax) * LD + Engine<T>::type::slab_elems(wmax)) +
-         sizeof(float) * 4 * TM;
+size_t mlp_smem_bytes(int xrows, int wmax, int nh = 4) {
+  return sizeof(T) * ((size_t)(xrows + wmax) * LD + Engine<T>::type::slab_elems(wmax)) +
+         sizeof(float) * nh * TM;
 }
 
 // dst[r * ld + m0 + c] = src[r * LD + c] for r < rows, c < TM: one shared
@@ -488,16 +491,28 @@ __device__ void store_layer(Gemm& gemm, T* dst, const float* bias, const float* 
   gemm.store(dst, n_out);
 }
 
-// The lean MLP forward of the tile at m0: xs holds the encode tile (F
-// features, rows [F, Fp) zero), hs / slab / heads are scratch.  On return
-// heads[c * TM + row] holds the raw rgb (c < 3) and density (c = 3) heads.
+// The classic MLP's per-point view input (mlp_tile<T, true>): view [M, Fv]
+// f32, read into the encode tile as Fvp rows (zero past Fv) once the trunk
+// is done with the encode; nd density heads.
+struct ClassicView {
+  const float* view;
+  int Fv, Fvp, nd;
+};
+
+// The MLP forward of the tile at m0: xs holds the encode tile (F features,
+// rows [F, Fp) zero), hs / slab / heads are scratch.  On return
+// heads[c * TM + row] holds the raw rgb (c < 3) and density (c >= 3) heads.
 // With `saved` != nullptr every layer's output also goes to the global
 // channel-major stream saved[Fp + ...][ld_saved]: hs[0..depth-1] |
-// bottleneck | ys[0..depth_cond-1] (rows [0, Fp) are the caller's).
-template <typename T>
-__device__ void mlp_tile(const T* xs, int F, T* hs, T* slab, float* heads, const LayerPtrs& p,
+// bottleneck | ys[0..depth_cond-1] (rows [0, Fp) are the caller's), and
+// with CL the view tile after them.  CL (the classic MLP): view_0 reads
+// concat(bottleneck, view) per point with its bias (lean: the bottleneck,
+// plus vproj, view_0's per-ray half with the bias); cv.nd density heads;
+// xs is overwritten by the view tile.
+template <typename T, bool CL = false>
+__device__ void mlp_tile(T* xs, int F, T* hs, T* slab, float* heads, const LayerPtrs& p,
                          const MlpDims& d, const float* vproj, int m0, T* saved, size_t ld_saved,
-                         int Fp) {
+                         int Fp, const ClassicView& cv = ClassicView{}) {
   typedef typename Engine<T>::type Gemm;
   const int tid = threadIdx.x;
   Gemm gemm;
@@ -524,9 +539,16 @@ __device__ void mlp_tile(const T* xs, int F, T* hs, T* slab, float* heads, const
 
   // Density head (raw) before the bottleneck overwrites the trunk output.
   const int i_den = d.depth, i_bot = d.depth + 1, i_view = d.depth + 2;
-  if (tid < TM)
+  if constexpr (CL) {
+    for (int idx = tid; idx < cv.nd * TM; idx += THREADS) {
+      const int c = idx / TM, row = idx - c * TM;
+      heads[(3 + c) * TM + row] = head_dot<T>(hs, d.W, xs, KX, static_cast<const T*>(p.w[i_den]),
+                                              p.b[i_den], cv.nd, c, row);
+    }
+  } else if (tid < TM) {
     heads[3 * TM + tid] = head_dot<T>(hs, d.W, xs, KX, static_cast<const T*>(p.w[i_den]),
                                       p.b[i_den], 1, 0, tid);
+  }
   // Bottleneck: no activation.
   {
     const T* w = static_cast<const T*>(p.w[i_bot]);
@@ -537,16 +559,29 @@ __device__ void mlp_tile(const T* xs, int F, T* hs, T* slab, float* heads, const
     save(d.W);
   }
   // view_0: per-point half from the bottleneck + the ray's per-ray half
-  // (bias included there); then the remaining view layers.
+  // (bias included there), or (CL) + the point's view rows and the bias;
+  // then the remaining view layers.
+  if constexpr (CL) {
+    load_encode_tile<T, false>(xs, cv.view, 0, d.M, cv.Fv, cv.Fvp, 0, 0, m0);
+    __syncthreads();
+  }
   gemm.zero();
   gemm.segment(static_cast<const T*>(p.w[i_view]), d.Wv, 0, hs, d.W, slab);
-  store_layer(gemm, hs, nullptr, vproj, d, m0, d.Wv, true);
+  if constexpr (CL) {
+    gemm.segment(static_cast<const T*>(p.w[i_view]), d.Wv, d.W, xs, cv.Fv, slab);
+    store_layer(gemm, hs, p.b[i_view], nullptr, d, m0, d.Wv, true);
+  } else {
+    store_layer(gemm, hs, nullptr, vproj, d, m0, d.Wv, true);
+  }
   save(d.Wv);
   for (int j = 1; j < d.depth_cond; ++j) {
     gemm.zero();
     gemm.segment(static_cast<const T*>(p.w[i_view + j]), d.Wv, 0, hs, d.Wv, slab);
     store_layer(gemm, hs, p.b[i_view + j], nullptr, d, m0, d.Wv, true);
     save(d.Wv);
+  }
+  if constexpr (CL) {
+    if (saved) copy_tile_out(saved + srow * ld_saved, ld_saved, m0, xs, cv.Fvp);
   }
   // rgb head, one (row, channel) per thread.
   const int i_rgb = i_view + d.depth_cond;

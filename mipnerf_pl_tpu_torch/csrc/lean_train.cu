@@ -1,7 +1,7 @@
-// Lean training kernels for Hopper (sm_90a), plain C interface.
+// Training kernels for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernels of mipnerf_pl_tpu/kernels/mlp.py fused_mlp_lean,
-// in its three modes:
+// in its three modes, and of fused_mlp, in its two:
 //
 //   lean_fwd          _fwd_kernel_lean (pl.pallas_call in _run_fwd_lean):
 //                     the lean MLP forward of each TM-point tile (mlp_tile,
@@ -25,6 +25,20 @@
 //                     _bwd_kernel_lean_hybrid (the same pallas_call): the
 //                     same gradients from the plain forward's residuals,
 //                     one point-major stream per layer.
+//   mlp_fwd           _fwd_kernel (pl.pallas_call in _run_fwd): the classic
+//                     MLP of fused_mlp, mlp_fwd_kernel: the same tile
+//                     (mlp_tile<T, true>) with per-point view features read
+//                     into the encode buffer once the trunk is done with it,
+//                     view_0 on concat(bottleneck, view) with its bias, nd
+//                     raw density heads and raw rgb.  Mode 'recompute'.
+//   mlp_save_fwd      _fwd_kernel_save (_run_fwd_save): the same kernel,
+//                     which also writes the stream, the view rows last.
+//   mlp_bwd_saved     _bwd_kernel_saved (_run_bwd_saved): dx, dview and f32
+//                     gradients of every parameter from the stream: the lean
+//                     driver (CL: nd heads, view rows per point, no per-ray
+//                     sums) and an input-gradient pass after the chain.
+//   mlp_bwd_recompute _bwd_kernel (_run_bwd): the same, the forward re-run
+//                     chunk by chunk by mlp_fwd_kernel.
 //
 // Saved layout of 'save', chosen for the backward's weight-gradient
 // products: one channel-major stream S [Cs][Mp] in the compute dtype, rows
@@ -69,8 +83,16 @@
 //      straddle a chunk, so every mode sums the same ranges in the same
 //      order.  In f32 the tensor-core sums restart every 128 points into
 //      round-to-nearest f32 sums (FLUSH).  The skip concat's x rows are
-//      problems of their own: their weight gradients accumulate, only dx is
-//      dropped.
+//      problems of their own: their weight gradients accumulate; the chain
+//      drops their dx.  The classic backward (CL) takes it after the chain:
+//      mlp_input_grads_kernel reads back from G the output cotangent of
+//      each layer that reads x (trunk_0, every layer after a skip concat,
+//      the bottleneck and density after a last one) and of view_0, and
+//      sums dx [M][F] and dview [M][Fv] per tile, each element written once
+//      (in the chain itself these products cost ~30 %: spills).  The
+//      classic view_0 weight rows of the view are a problem of the
+//      stream's V rows, per point, where the lean kernels sum g_ray per ray
+//      (step 3).
 //   3. g_ray = sum over each ray's samples of the f32 view_0 cotangent,
 //      cast to the compute dtype (lean_ray_sum_kernel; chunks hold whole
 //      rays).
@@ -107,12 +129,17 @@ struct TrainDims {
   // moments x [6][ldx] (F = 6L, decoded per tile from degree min_deg).
   // ldx stays the level's M in a recompute chunk.
   int L, min_deg, ldx;
+  // nd density heads (1 for the lean kernels); Fvp > 0: the classic MLP,
+  // whose per-point view features (Fv rows padded to Fvp) follow the ys in
+  // S as one more activation.
+  int nd, Fvp;
   // The saved activations, in order: x | hs[0..depth-1] | bottleneck |
-  // ys[0..depth_cond-1]; s_row(a) is activation a's first row in S.
+  // ys[0..depth_cond-1] (| view); s_row(a) is activation a's first row in
+  // S.
   __host__ __device__ int a_h(int i) const { return 1 + i; }
   __host__ __device__ int a_bot() const { return 1 + depth; }
   __host__ __device__ int a_y(int j) const { return 2 + depth + j; }
-  __host__ __device__ int n_acts() const { return 2 + depth + depth_cond; }
+  __host__ __device__ int n_acts() const { return 2 + depth + depth_cond + (Fvp > 0); }
   __host__ __device__ int s_row(int a) const {
     return a == 0 ? 0 : a <= depth + 1 ? Fp + (a - 1) * W : Fp + (depth + 1) * W + (a - a_y(0)) * Wv;
   }
@@ -120,8 +147,8 @@ struct TrainDims {
   // order).
   __host__ __device__ int g_t(int i) const { return i * W; }
   __host__ __device__ int g_den() const { return depth * W; }
-  __host__ __device__ int g_bot() const { return depth * W + 1; }
-  __host__ __device__ int g_v(int j) const { return depth * W + 1 + W + j * Wv; }
+  __host__ __device__ int g_bot() const { return depth * W + nd; }
+  __host__ __device__ int g_v(int j) const { return depth * W + nd + W + j * Wv; }
   __host__ __device__ int g_rgb() const { return g_v(depth_cond); }
   __host__ __device__ int cg() const { return g_rgb() + 3; }
   __host__ __device__ MlpDims mlp() const {
@@ -193,12 +220,67 @@ FwdKernel<T> fwd_kernel(const TrainDims& d) {
   return d.L ? lean_fwd_kernel<T, true> : lean_fwd_kernel<T, false>;
 }
 
+// Rows of the classic forward's input tile: the encode, then (once the
+// trunk is done with it) the per-point view.
+__host__ __device__ inline int classic_xrows(const TrainDims& d) {
+  return d.Fp > d.Fvp ? d.Fp : d.Fvp;
+}
+
+// The classic MLP forward (fused_mlp) of the tile at blockIdx.x * TM: x
+// [M, F] and view [M, Fv] f32 per point -> raw heads rgb [M, 3], density
+// [M, nd] f32 (either may be null), and with saved the stream [Cs][Mp]
+// (X | hs | bottleneck | ys | V).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ view, LayerPtrs p,
+               TrainDims td, float* __restrict__ rgb, float* __restrict__ density,
+               T* __restrict__ saved) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int wmax = max(td.W, td.Wv), nh = 3 + td.nd;
+  T* xs = reinterpret_cast<T*>(smem_raw);                        // [xrows][LD] input tile
+  T* hs = xs + (size_t)classic_xrows(td) * LD;                   // [wmax][LD] activations
+  T* slab = hs + (size_t)wmax * LD;                              // weight rows
+  float* heads = reinterpret_cast<float*>(slab + Engine<T>::type::slab_elems(wmax));  // [nh][TM]
+  const int m0 = blockIdx.x * TM;
+
+  load_encode_tile<T, false>(xs, x, 0, td.M, td.F, td.Fp, 0, 0, m0);
+  __syncthreads();
+  if (saved) copy_tile_out(saved, td.Mp, m0, xs, td.Fp);
+  mlp_tile<T, true>(xs, td.F, hs, slab, heads, p, td.mlp(), nullptr, m0, saved, td.Mp, td.Fp,
+                    ClassicView{view, td.Fv, td.Fvp, td.nd});
+  for (int idx = threadIdx.x; idx < nh * TM; idx += THREADS) {
+    const int c = idx / TM, row = idx - c * TM, m = m0 + row;
+    if (m >= td.M) continue;
+    if (c < 3) {
+      if (rgb) rgb[(size_t)m * 3 + c] = heads[idx];
+    } else if (density) {
+      density[(size_t)m * td.nd + c - 3] = heads[idx];
+    }
+  }
+}
+
+template <typename T>
+size_t classic_fwd_smem(const TrainDims& d) {
+  return mlp_smem_bytes<T>(classic_xrows(d), d.W > d.Wv ? d.W : d.Wv, 3 + d.nd);
+}
+
 struct ChainPtrs {
   const void* bw[MAX_LAYERS];  // by param index: k[:in_h]^T [out][in_h], compute dtype
-  const void* k_den;           // density kernel [W (+F)][1], compute dtype
+  const void* k_den;           // density kernel [W (+F)][nd], compute dtype
   const void* k_rgb;           // rgb kernel [Wv][3], compute dtype
   const float* b_den;          // density bias [1], f32 rounded through the compute dtype
   const float* b_rgb;          // rgb bias [3], likewise
+};
+
+// The classic backward's input-gradient products (compute dtype, zero past
+// F / Fv): by param index the x columns k[x rows]^T [out][Fp] of trunk_0
+// and of every layer that reads x (null elsewhere); view_0's view rows
+// k[W:]^T [Wv][Fvp]; the density kernel; out dx [M][F], dview [M][Fv] f32.
+struct InputGrads {
+  const void* bx[MAX_LAYERS];
+  const void* bv;
+  const void* k_den;
+  float *dx, *dview;
 };
 
 // Raw head c of point row of the tile at m0, from the saved activations
@@ -224,14 +306,16 @@ __device__ float raw_head(const Acts& acts, const ChainPtrs& cp, const TrainDims
 }
 
 template <typename T>
-size_t chain_smem_bytes(int wmax, int cg) {
+size_t chain_smem_bytes(int wmax, int cg, int nh) {
   return sizeof(T) * ((size_t)wmax * LD + Engine<T>::type::slab_elems(wmax)) +
-         sizeof(float) * (8 * TM + 2 * MAX_OUT + cg);
+         sizeof(float) * (2 * nh * TM + 2 * MAX_OUT + cg);
 }
 
 // heads [4][Mp] raw heads of the forward (channel-major acts); the
 // point-major residuals come without them and the chain recomputes them.
-template <typename T, bool PM>
+// CL (the classic MLP, raw heads): nd density heads and no g1f; the input
+// cotangents come after, from G (mlp_input_grads_kernel).
+template <typename T, bool PM, bool CL = false>
 __global__ void __launch_bounds__(THREADS, 2)
 lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
                        const float* __restrict__ g_rgb, const float* __restrict__ g_dens,
@@ -239,12 +323,13 @@ lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
                        float* __restrict__ db_part) {
   typedef typename Engine<T>::type Gemm;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int wmax = max(d.W, d.Wv), Cg = d.cg();
+  // Head rows: 3 rgb + nd density (the lean kernels' one, a constant).
+  const int wmax = max(d.W, d.Wv), Cg = d.cg(), nh = CL ? 3 + d.nd : 4;
   T* ga = reinterpret_cast<T*>(smem_raw);                        // [wmax][LD] cotangent tile
   T* slab = ga + (size_t)wmax * LD;                              // weight rows
-  float* gh = reinterpret_cast<float*>(slab + Gemm::slab_elems(wmax));  // [4][TM] head cotangents
-  float* ghc = gh + 4 * TM;                                      // the same, compute-dtype values
-  float* part = ghc + 4 * TM;                                    // [2][MAX_OUT] column partials
+  float* gh = reinterpret_cast<float*>(slab + Gemm::slab_elems(wmax));  // [nh][TM] head cotangents
+  float* ghc = gh + nh * TM;                                     // the same, compute-dtype values
+  float* part = ghc + nh * TM;                                   // [2][MAX_OUT] column partials
   float* dbacc = part + 2 * MAX_OUT;                             // [Cg] this block's bias sums
   const int tid = threadIdx.x, lane = tid & 31;
   const size_t Mp = d.Mp;
@@ -272,13 +357,22 @@ lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
     const ActTile<T, PM> t = act_tile<T, PM>(acts, a, m0, d);
     return [t](int row, int col, float v) { return t(row, col) > 0.f ? v : 0.f; };
   };
-
   for (int tile = blockIdx.x; tile < d.Mp / TM; tile += gridDim.x) {
     m0 = tile * TM;
     // 1. Head cotangents; with activated heads, the activation derivatives
     //    folded in: d sigmoid = s (1 - s) widened by the padding, d
     //    softplus(z + b) = sigmoid(z + b), from the raw heads.
-    {
+    if constexpr (CL) {
+      for (int idx = tid; idx < nh * TM; idx += THREADS) {
+        const int c = idx / TM, row = idx - c * TM, m = m0 + row;
+        float g = 0.f;
+        if (m < d.M) g = c < 3 ? g_rgb[(size_t)m * 3 + c] : g_dens[(size_t)m * d.nd + c - 3];
+        const T gb = Ty<T>::from_f(g);
+        gh[idx] = g;
+        ghc[idx] = Ty<T>::to_f(gb);
+        G[(size_t)(c < 3 ? d.g_rgb() + c : d.g_den() + c - 3) * Mp + m0 + row] = gb;
+      }
+    } else {
       const int c = tid / TM, row = tid - c * TM, m = m0 + row;
       float g = 0.f;
       if (m < d.M) {
@@ -300,10 +394,10 @@ lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
       G[(size_t)(c < 3 ? d.g_rgb() + c : d.g_den()) * Mp + m0 + row] = gb;
     }
     __syncthreads();
-    if (tid < 4) {
+    if (tid < nh) {
       float s = 0.f;
       for (int row = 0; row < TM; ++row) s += gh[tid * TM + row];
-      dbacc[tid < 3 ? d.g_rgb() + tid : d.g_den()] += s;
+      dbacc[tid < 3 ? d.g_rgb() + tid : d.g_den() + tid - 3] += s;
     }
     // 2. rgb head backward on the CUDA cores (3-deep), masked by ys[last]:
     //    the cotangent of view_last's output.  Thread (row, j = grp + 4i).
@@ -317,7 +411,7 @@ lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
         const T vb = Ty<T>::from_f(v);
         ga[(size_t)j * LD + row] = vb;
         G[(size_t)(d.g_v(last) + j) * Mp + m0 + row] = vb;
-        if (last == 0) g1f[(size_t)j * Mp + m0 + row] = v;
+        if (!CL && last == 0) g1f[(size_t)j * Mp + m0 + row] = v;
         float s = v;
         for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
         if (lane == 0) part[half * MAX_OUT + j] = s;
@@ -331,25 +425,33 @@ lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
       gemm.zero();
       gemm.segment(static_cast<const T*>(cp.bw[i_view + j]), d.Wv, 0, ga, d.Wv, slab);
       gemm.transform(d.Wv, relu_mask(d.a_y(j - 1)));
-      finish(d.g_v(j - 1), d.Wv, j == 1);
+      finish(d.g_v(j - 1), d.Wv, !CL && j == 1);
     }
     // 4. view_0's per-point rows -> the bottleneck (no activation).
     gemm.zero();
     gemm.segment(static_cast<const T*>(cp.bw[i_view]), d.W, 0, ga, d.Wv, slab);
     finish(d.g_bot(), d.W, false);
     // 5. Bottleneck + density -> the last trunk output, masked by it.  The
-    //    density part is rank 1: g_den[row] * k_den[col].
+    //    density part is rank nd: sum over c of g_den[row][c] * k_den[col][c].
     gemm.zero();
     gemm.segment(static_cast<const T*>(cp.bw[d.depth + 1]), d.W, 0, ga, d.W, slab);
     {
       auto mask = relu_mask(d.a_h(d.depth - 1));
-      gemm.transform(d.W, [&](int row, int col, float v) {
-        return mask(row, col, v + ghc[3 * TM + row] * Ty<T>::to_f(k_den[col]));
-      });
+      if constexpr (CL) {
+        gemm.transform(d.W, [&](int row, int col, float v) {
+          for (int c = 0; c < d.nd; ++c)
+            v = fmaf(ghc[(3 + c) * TM + row], Ty<T>::to_f(k_den[col * d.nd + c]), v);
+          return mask(row, col, v);
+        });
+      } else {
+        gemm.transform(d.W, [&](int row, int col, float v) {
+          return mask(row, col, v + ghc[3 * TM + row] * Ty<T>::to_f(k_den[col]));
+        });
+      }
     }
     finish(d.g_t(d.depth - 1), d.W, false);
     // 6. Trunk i = depth-1 .. 1 -> hs[i-1] (the x rows of a skip concat
-    //    carry no cotangent), masked by it.
+    //    carry no cotangent here), masked by it.
     for (int i = d.depth - 1; i >= 1; --i) {
       gemm.zero();
       gemm.segment(static_cast<const T*>(cp.bw[i]), d.W, 0, ga, d.W, slab);
@@ -360,6 +462,72 @@ lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
   }
   __syncthreads();
   for (int c = tid; c < Cg; c += THREADS) db_part[(size_t)blockIdx.x * Cg + c] = dbacc[c];
+}
+
+// The classic backward's input cotangents of the tile at blockIdx.x * TM,
+// from the chain's G rows (each layer's output cotangent, compute dtype):
+// dx = sum over the layers L that read x of G_L^T k_L[x rows] (trunk_0
+// whole, every layer after a skip concat, after a last one the bottleneck
+// and, as a rank-nd term, the density head), dview = G_view0^T
+// k_view0[view rows], summed in one set of accumulators; every element is
+// written once.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+mlp_input_grads_kernel(const T* __restrict__ G, InputGrads ig, TrainDims d) {
+  typedef typename Engine<T>::type Gemm;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int wmax = max(d.W, d.Wv);
+  T* src = reinterpret_cast<T*>(smem_raw);   // [wmax][LD] G rows of the tile
+  T* slab = src + (size_t)wmax * LD;         // weight rows
+  const int m0 = blockIdx.x * TM;
+  const size_t Mp = d.Mp;
+  const bool cat_last = (d.depth - 1) % d.skip == 0 && d.depth - 1 > 0;
+  const T* k_den = static_cast<const T*>(ig.k_den);
+  // G rows [g_row, g_row + rows) of the tile -> src, 16 bytes an access.
+  auto load = [&](int g_row, int rows) {
+    constexpr int VEC = 16 / sizeof(T), PER_ROW = TM / VEC;
+    __syncthreads();
+    for (int v = threadIdx.x; v < rows * PER_ROW; v += THREADS) {
+      const int r = v / PER_ROW, c = (v - r * PER_ROW) * VEC;
+      *reinterpret_cast<uint4*>(src + (size_t)r * LD + c) =
+          *reinterpret_cast<const uint4*>(G + (size_t)(g_row + r) * Mp + m0 + c);
+    }
+    __syncthreads();
+  };
+  Gemm gemm;
+  gemm.zero();
+  for (int L = 0; L <= d.depth + 1; ++L) {
+    const bool reads_x = L == 0 || (L < d.depth ? (L - 1) % d.skip == 0 && L - 1 > 0
+                                                : L == d.depth + 1 && cat_last);
+    if (!reads_x) continue;
+    load(L == d.depth + 1 ? d.g_bot() : d.g_t(L), d.W);
+    gemm.segment(static_cast<const T*>(ig.bx[L]), d.Fp, 0, src, d.W, slab);
+  }
+  gemm.transform(d.Fp, [&](int row, int col, float v) {
+    const int m = m0 + row;
+    if (m < d.M && col < d.F) {
+      if (cat_last)
+        for (int c = 0; c < d.nd; ++c)
+          v = fmaf(Ty<T>::to_f(G[(size_t)(d.g_den() + c) * Mp + m]),
+                   Ty<T>::to_f(k_den[(d.W + col) * d.nd + c]), v);
+      ig.dx[(size_t)m * d.F + col] = v;
+    }
+    return v;
+  });
+  gemm.zero();
+  load(d.g_v(0), d.Wv);
+  gemm.segment(static_cast<const T*>(ig.bv), d.Fvp, 0, src, d.Wv, slab);
+  gemm.transform(d.Fvp, [&](int row, int col, float v) {
+    const int m = m0 + row;
+    if (m < d.M && col < d.Fv) ig.dview[(size_t)m * d.Fv + col] = v;
+    return v;
+  });
+}
+
+template <typename T>
+size_t input_grads_smem_bytes(const TrainDims& d) {
+  const int wmax = d.W > d.Wv ? d.W : d.Wv;
+  return sizeof(T) * ((size_t)wmax * LD + Engine<T>::type::slab_elems(wmax));
 }
 
 // Weight-gradient problems: dW[out_off + row * n_ld + col] (rows < K,
@@ -585,12 +753,15 @@ bool dims_ok(const TrainDims& d, int n_layers, int use_bf16) {
          d.Wv >= align && d.Wv <= MAX_OUT && d.Wv % align == 0 && d.M == d.R * d.N && d.M > 0 &&
          d.Mp % TM == 0 && d.Mp >= d.M && d.F >= 1 && d.F <= d.Fp && d.Fp % 16 == 0 &&
          d.Fv >= 1 && (d.use_act == 0 || d.use_act == 1) && d.L >= 0 &&
-         (d.L == 0 || d.F == 6 * d.L);
+         (d.L == 0 || d.F == 6 * d.L) && d.nd >= 1 && 3 + d.nd <= MAX_HEADS &&
+         (d.Fvp == 0 ? d.nd == 1
+                     : d.Fvp >= d.Fv && d.Fvp % 16 == 0 && d.Fp <= d.W && d.Fvp <= d.W &&
+                           d.L == 0 && d.use_act == 0 && d.N == 1);
 }
 
 TrainDims read_dims(const int* v, float rgb_padding, float density_bias, int use_act) {
   return TrainDims{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9], v[10], v[11],
-                   rgb_padding, density_bias, use_act, v[12], v[13], v[0]};
+                   rgb_padding, density_bias, use_act, v[12], v[13], v[0], v[14], v[15]};
 }
 
 LayerPtrs layer_ptrs(const void* weights, const void* biases, int n_layers) {
@@ -602,6 +773,17 @@ LayerPtrs layer_ptrs(const void* weights, const void* biases, int n_layers) {
     p.b[i] = static_cast<const float*>(b[i]);
   }
   return p;
+}
+
+template <typename T>
+int launch_classic_fwd(const float* x, const float* view, const LayerPtrs& p, const TrainDims& d,
+                       float* rgb, float* density, T* saved, cudaStream_t s) {
+  const size_t smem = classic_fwd_smem<T>(d);
+  cudaError_t e = cudaFuncSetAttribute((const void*)mlp_fwd_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  mlp_fwd_kernel<T><<<d.Mp / TM, THREADS, smem, s>>>(x, view, p, d, rgb, density, saved);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -620,7 +802,7 @@ int fwd_entry(const void* x, const void* vproj, const void* weights, const void*
               int n_layers, void* out, void* saved, void* heads, const int* dims,
               float rgb_padding, float density_bias, int use_act, int use_bf16, void* stream) {
   const TrainDims d = read_dims(dims, rgb_padding, density_bias, use_act);
-  if (!dims_ok(d, n_layers, use_bf16)) return (int)cudaErrorInvalidValue;
+  if (!dims_ok(d, n_layers, use_bf16) || d.Fvp) return (int)cudaErrorInvalidValue;
   const LayerPtrs p = layer_ptrs(weights, biases, n_layers);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
@@ -634,6 +816,7 @@ int fwd_entry(const void* x, const void* vproj, const void* weights, const void*
 // The backward's arguments that every mode shares.
 struct GradArgs {
   const float *g_rgb, *g_dens, *view;
+  InputGrads ig;      // the classic entries only
   ChainPtrs cp;
   void* G;          // [Cg][chunk] compute dtype
   float* g1f;       // [Wv][chunk]
@@ -648,7 +831,9 @@ struct GradArgs {
   int view_off;
 };
 
-// Recompute mode: the forward re-run of each chunk (chunk-sized S, heads).
+// Recompute mode: the forward re-run of each chunk (chunk-sized S, heads);
+// the classic MLP reads the per-point view where the lean kernels read
+// vproj.
 struct Refwd {
   const float* x;
   const float* vproj;
@@ -660,22 +845,27 @@ struct Refwd {
 // The chunks [c0, c0 + chunk) of the level, then the reductions.  acts /
 // heads describe the whole level (save: S and its heads; hybrid: the
 // point-major streams, heads null) unless rf re-runs the forward per chunk.
-template <typename T, bool PM>
+// CL: the classic MLP (its forward re-run, dx / dview, no per-ray sums).
+template <typename T, bool PM, bool CL = false>
 int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
               const Acts& level_acts, const float* level_heads, cudaStream_t s) {
   const int Cg = d.cg(), wmax = d.W > d.Wv ? d.W : d.Wv;
-  const size_t csmem = chain_smem_bytes<T>(wmax, Cg);
+  const size_t csmem = chain_smem_bytes<T>(wmax, Cg, 3 + d.nd);
   const size_t wsmem = sizeof(T) == 2 ? 0 : sizeof(float) * WGRAD_ACC * THREADS;
-  const size_t fsmem = mlp_smem_bytes<T>(d.Fp, wmax);
-  cudaError_t e = cudaFuncSetAttribute(lean_grad_chain_kernel<T, PM>,
+  const size_t fsmem = CL ? classic_fwd_smem<T>(d) : mlp_smem_bytes<T>(d.Fp, wmax);
+  cudaError_t e = cudaFuncSetAttribute(lean_grad_chain_kernel<T, PM, CL>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)csmem);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(lean_wgrad_kernel<T, PM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
-  const FwdKernel<T> refwd = fwd_kernel<T>(d);
+  const FwdKernel<T> refwd = CL ? (FwdKernel<T>)nullptr : fwd_kernel<T>(d);
   if (e == cudaSuccess && rf)
-    e = cudaFuncSetAttribute((const void*)refwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)fsmem);
+    e = cudaFuncSetAttribute(CL ? (const void*)mlp_fwd_kernel<T> : (const void*)refwd,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fsmem);
+  const size_t ismem = input_grads_smem_bytes<T>(d);
+  if (e == cudaSuccess && CL)
+    e = cudaFuncSetAttribute(mlp_input_grads_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ismem);
   if (e != cudaSuccess) return (int)e;
   T* G = static_cast<T*>(a.G);
   T* g_ray = static_cast<T*>(a.g_ray);
@@ -689,10 +879,17 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
     const float* heads = level_heads;
     if (rf) {
       T* S = static_cast<T*>(rf->S);
-      // Rows start at x[c0][0], moments at column c0 of x [6][ldx].
-      refwd<<<dc.Mp / TM, THREADS, fsmem, s>>>(
-          rf->x + (d.L ? (size_t)c0 : (size_t)c0 * d.F), rf->vproj + (size_t)(c0 / d.N) * d.Wv,
-          rf->p, dc, nullptr, S, rf->heads);
+      if constexpr (CL) {
+        // Rows start at x[c0][0] and view[c0][0].
+        mlp_fwd_kernel<T><<<dc.Mp / TM, THREADS, fsmem, s>>>(
+            rf->x + (size_t)c0 * d.F, rf->vproj + (size_t)c0 * d.Fv, rf->p, dc, nullptr, nullptr,
+            S);
+      } else {
+        // Rows start at x[c0][0], moments at column c0 of x [6][ldx].
+        refwd<<<dc.Mp / TM, THREADS, fsmem, s>>>(
+            rf->x + (d.L ? (size_t)c0 : (size_t)c0 * d.F), rf->vproj + (size_t)(c0 / d.N) * d.Wv,
+            rf->p, dc, nullptr, S, rf->heads);
+      }
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
       for (int i = 0; i < d.n_acts(); ++i) {
         acts.t[i] = S + (size_t)d.s_row(i) * dc.Mp;
@@ -703,27 +900,39 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       for (int i = 0; i < d.n_acts(); ++i)
         acts.t[i] = static_cast<const T*>(level_acts.t[i]) + (size_t)c0 * level_acts.ld[i];
     }
-    lean_grad_chain_kernel<T, PM><<<a.n_chain, THREADS, csmem, s>>>(
-        acts, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + c0, a.cp, dc, G, a.g1f,
+    lean_grad_chain_kernel<T, PM, CL><<<a.n_chain, THREADS, csmem, s>>>(
+        acts, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc, G, a.g1f,
         a.db_part + (size_t)n_chunks * a.n_chain * Cg);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if constexpr (CL) {
+      InputGrads ig = a.ig;
+      ig.dx += (size_t)c0 * d.F;
+      ig.dview += (size_t)c0 * d.Fv;
+      mlp_input_grads_kernel<T><<<dc.Mp / TM, THREADS, ismem, s>>>(G, ig, dc);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
     const dim3 grid(a.n_tiles, (dc.Mp + a.MC - 1) / a.MC);
     lean_wgrad_kernel<T, PM><<<grid, THREADS, wsmem, s>>>(
         acts, G, a.tab, dc.Mp, dc.M, a.MC, a.partial + (size_t)(c0 / a.MC) * a.PW, a.PW);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    const long long warps = (long long)dc.R * d.Wv;
-    lean_ray_sum_kernel<T><<<(int)((warps * 32 + 255) / 256), 256, 0, s>>>(
-        a.g1f, dc.Mp, d.N, dc.R, d.Wv, g_ray + (size_t)(c0 / d.N) * d.Wv);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if constexpr (!CL) {
+      const long long warps = (long long)dc.R * d.Wv;
+      lean_ray_sum_kernel<T><<<(int)((warps * 32 + 255) / 256), 256, 0, s>>>(
+          a.g1f, dc.Mp, d.N, dc.R, d.Wv, g_ray + (size_t)(c0 / d.N) * d.Wv);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
   }
   const int splits = (d.Mp + a.MC - 1) / a.MC;
   sum_rows_kernel<<<(a.PW + 255) / 256, 256, 0, s>>>(a.partial, splits, a.PW, a.dw);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   sum_rows_kernel<<<(Cg + 255) / 256, 256, 0, s>>>(a.db_part, n_chunks * a.n_chain, Cg, a.db);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  lean_view_rows_kernel<T><<<dim3(d.Fv, (d.Wv + 31) / 32), 256, 0, s>>>(a.view, g_ray, d.R, d.Fv,
-                                                                         d.Wv, a.dw + a.view_off);
-  return (int)cudaGetLastError();
+  if constexpr (!CL) {
+    lean_view_rows_kernel<T><<<dim3(d.Fv, (d.Wv + 31) / 32), 256, 0, s>>>(
+        a.view, g_ray, d.R, d.Fv, d.Wv, a.dw + a.view_off);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -755,6 +964,7 @@ int read_grad_args(GradArgs& a, TrainDims& d, LEAN_GRAD_PARAMS) {
   a.view = static_cast<const float*>(view);
   const void* const* cw = static_cast<const void* const*>(chain_w);
   for (int i = 0; i < MAX_LAYERS; ++i) a.cp.bw[i] = i < n_layers ? cw[i] : nullptr;
+  a.ig = InputGrads{};
   a.cp.k_den = k_den;
   a.cp.k_rgb = k_rgb;
   a.cp.b_den = static_cast<const float*>(b_den);
@@ -784,6 +994,40 @@ int read_grad_args(GradArgs& a, TrainDims& d, LEAN_GRAD_PARAMS) {
 
 // One chunk over the whole level (save, hybrid).
 int level_chunk(const TrainDims& d, int MC) { return (d.Mp + MC - 1) / MC * MC; }
+
+// The classic backward's own arguments (see mlp_bwd_saved); 0 or a
+// cudaError_t.  The layers whose input holds x must have their x columns.
+int read_classic(GradArgs& a, const TrainDims& d, void* dx, void* dview, const void* x_chain,
+                 const void* kv, int n_layers) {
+  if (!d.Fvp || !dx || !dview || !x_chain || !kv) return (int)cudaErrorInvalidValue;
+  const void* const* xc = static_cast<const void* const*>(x_chain);
+  for (int i = 0; i < n_layers; ++i) a.ig.bx[i] = xc[i];
+  bool ok = a.ig.bx[0] != nullptr;
+  for (int i = 1; i < d.depth; ++i)
+    if ((i - 1) % d.skip == 0 && i - 1 > 0) ok = ok && a.ig.bx[i];
+  if ((d.depth - 1) % d.skip == 0 && d.depth - 1 > 0) ok = ok && a.ig.bx[d.depth + 1];
+  if (!ok) return (int)cudaErrorInvalidValue;
+  a.ig.bv = kv;
+  a.ig.k_den = a.cp.k_den;
+  a.ig.dx = static_cast<float*>(dx);
+  a.ig.dview = static_cast<float*>(dview);
+  return 0;
+}
+
+int classic_fwd_entry(const void* x, const void* view, const void* weights, const void* biases,
+                      int n_layers, void* rgb, void* density, void* saved, const int* dims,
+                      int use_bf16, void* stream) {
+  const TrainDims d = read_dims(dims, 0.f, 0.f, 0);
+  if (!dims_ok(d, n_layers, use_bf16) || !d.Fvp) return (int)cudaErrorInvalidValue;
+  const LayerPtrs p = layer_ptrs(weights, biases, n_layers);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* vf = static_cast<const float*>(view);
+  float* r = static_cast<float*>(rgb);
+  float* dn = static_cast<float*>(density);
+  return use_bf16 ? launch_classic_fwd<bf16>(xf, vf, p, d, r, dn, static_cast<bf16*>(saved), s)
+                  : launch_classic_fwd<float>(xf, vf, p, d, r, dn, static_cast<float*>(saved), s);
+}
 
 }  // namespace
 
@@ -829,6 +1073,7 @@ int lean_param_grads(const void* saved, const void* heads, LEAN_GRAD_PARAMS) {
   TrainDims d;
   int err = read_grad_args(a, d, LEAN_GRAD_ARGS);
   if (err) return err;
+  if (d.Fvp) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t esize = use_bf16 ? 2 : 4;
   Acts acts;
@@ -854,7 +1099,7 @@ int lean_param_grads_recompute(const void* x, const void* vproj, const void* wei
   TrainDims d;
   int err = read_grad_args(a, d, LEAN_GRAD_ARGS);
   if (err) return err;
-  if (chunk < MC || chunk % MC) return (int)cudaErrorInvalidValue;
+  if (d.Fvp || chunk < MC || chunk % MC) return (int)cudaErrorInvalidValue;
   const Refwd rf{static_cast<const float*>(x), static_cast<const float*>(vproj),
                  layer_ptrs(weights, biases, n_layers), saved, static_cast<float*>(heads)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -870,6 +1115,7 @@ int lean_param_grads_hybrid(const void* acts, LEAN_GRAD_PARAMS) {
   TrainDims d;
   int err = read_grad_args(a, d, LEAN_GRAD_ARGS);
   if (err) return err;
+  if (d.Fvp) return (int)cudaErrorInvalidValue;
   Acts level;
   const void* const* t = static_cast<const void* const*>(acts);
   for (int i = 0; i < d.n_acts(); ++i) {
@@ -880,6 +1126,73 @@ int lean_param_grads_hybrid(const void* acts, LEAN_GRAD_PARAMS) {
   const int chunk = level_chunk(d, MC);
   return use_bf16 ? run_grads<bf16, true>(a, d, chunk, nullptr, level, nullptr, s)
                   : run_grads<float, true>(a, d, chunk, nullptr, level, nullptr, s);
+}
+
+// The classic MLP (fused_mlp).  dims as above with N = 1 (R = M), L = 0,
+// nd the density heads and Fvp = Fv rounded up to 16.  x [M, F] and view
+// [M, Fv] f32 per point, weights / biases as lean_fwd takes them -> rgb
+// [M, 3] and density [M, nd] f32, the raw heads.
+int mlp_fwd(const void* x, const void* view, const void* weights, const void* biases,
+            int n_layers, void* rgb, void* density, const int* dims, int use_bf16, void* stream) {
+  return classic_fwd_entry(x, view, weights, biases, n_layers, rgb, density, nullptr, dims,
+                           use_bf16, stream);
+}
+
+// mlp_fwd that also writes saved [Cs][Mp] in the compute dtype: X | hs |
+// bottleneck | ys | V (the view, Fvp rows).
+int mlp_save_fwd(const void* x, const void* view, const void* weights, const void* biases,
+                 int n_layers, void* rgb, void* density, void* saved, const int* dims,
+                 int use_bf16, void* stream) {
+  if (!saved) return (int)cudaErrorInvalidValue;
+  return classic_fwd_entry(x, view, weights, biases, n_layers, rgb, density, saved, dims,
+                           use_bf16, stream);
+}
+
+// The classic backward from mlp_save_fwd's stream: the shared arguments as
+// above (use_act 0; g_dens [M, nd]; g1f and g_ray unused, may be null),
+// and its own: out dx [M, F] and dview [M, Fv] f32; x_chain[i] (param
+// index, null where unused) the transposed x columns [out][Fp] of trunk_0,
+// of each layer after a skip concat and (after a last one) of the
+// bottleneck; kv view_0's view rows transposed, [Wv][Fvp] (compute dtype,
+// zero past F / Fv).  dw also takes view_0's view rows as a problem of the
+// stream's V rows.
+int mlp_bwd_saved(const void* saved, void* dx, void* dview, const void* x_chain, const void* kv,
+                  LEAN_GRAD_PARAMS) {
+  GradArgs a;
+  TrainDims d;
+  int err = read_grad_args(a, d, LEAN_GRAD_ARGS);
+  if (!err) err = read_classic(a, d, dx, dview, x_chain, kv, n_layers);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t esize = use_bf16 ? 2 : 4;
+  Acts acts;
+  for (int i = 0; i < d.n_acts(); ++i) {
+    acts.t[i] = static_cast<const char*>(saved) + esize * d.s_row(i) * d.Mp;
+    acts.ld[i] = d.Mp;
+  }
+  const int chunk = level_chunk(d, MC);
+  return use_bf16 ? run_grads<bf16, false, true>(a, d, chunk, nullptr, acts, nullptr, s)
+                  : run_grads<float, false, true>(a, d, chunk, nullptr, acts, nullptr, s);
+}
+
+// mlp_bwd_saved with the forward re-run by mlp_fwd's kernel chunk by
+// chunk: x / view_pts / weights / biases as mlp_fwd takes them, saved
+// [Cs][chunk] scratch for one chunk of `chunk` points (a multiple of MC).
+int mlp_bwd_recompute(const void* x, const void* view_pts, const void* weights,
+                      const void* biases, void* saved, int chunk, void* dx, void* dview,
+                      const void* x_chain, const void* kv, LEAN_GRAD_PARAMS) {
+  GradArgs a;
+  TrainDims d;
+  int err = read_grad_args(a, d, LEAN_GRAD_ARGS);
+  if (!err) err = read_classic(a, d, dx, dview, x_chain, kv, n_layers);
+  if (err) return err;
+  if (chunk < MC || chunk % MC) return (int)cudaErrorInvalidValue;
+  const Refwd rf{static_cast<const float*>(x), static_cast<const float*>(view_pts),
+                 layer_ptrs(weights, biases, n_layers), saved, nullptr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Acts none{};
+  return use_bf16 ? run_grads<bf16, false, true>(a, d, chunk, &rf, none, nullptr, s)
+                  : run_grads<float, false, true>(a, d, chunk, &rf, none, nullptr, s);
 }
 
 }  // extern "C"

@@ -47,8 +47,25 @@ Function `fused_mlp_lean` over csrc/lean_train.cu:
 The forwards run view_proj for view_0's per-ray half; heads are activated
 with act = (rgb_padding, density_bias), or raw for act=None.
 
+Input gradients.  Replaces fused_mlp in its two modes (the `pallas` /
+`pallas_save` backends, the fused path with stop_resample_grad False), one
+autograd Function `fused_mlp` over the same source, whose kernels are the
+lean tile and driver instantiated for the classic MLP: the view features
+per point (view_0 reads concat(bottleneck, view)), nd raw density heads,
+and a backward that also returns dx and dview:
+
+  mlp_fwd           forward -> raw rgb [M, 3], density [M, nd]: mode
+                    'recompute' (`_fwd_kernel`)
+  mlp_save_fwd      the same kernel, which also writes the stream X | hs |
+                    bottleneck | ys | V: mode 'save' (`_fwd_kernel_save`)
+  mlp_bwd_saved     dx, dview and every parameter's gradient from the
+                    stream (`_bwd_kernel_saved`)
+  mlp_bwd_recompute the same, the forward re-run chunk by chunk
+                    (`_bwd_kernel`)
+
 What bounds them: the MLP is ~1.21 MFLOP per sample point forward and about
-twice that backward, so the kernels are compute bound; the composite and
+twice that backward (with the input gradients, exactly twice), so the
+kernels are compute bound; the composite and
 the view projection move a few tens of bytes per point.  The TPU kernels
 kept every weight resident in 96 MB of VMEM; an SM has 227 KB of shared
 memory, so a 64-point tile's activations stay resident in shared memory
@@ -79,7 +96,8 @@ from mipnerf_pl_tpu_torch.ops.render import composite
 launches = {'lean_view_proj': 0, 'lean_mlp': 0, 'lean_composite': 0,
             'lean_save_fwd': 0, 'lean_param_grads': 0, 'lean_fwd': 0,
             'lean_param_grads_recompute': 0, 'lean_param_grads_hybrid': 0,
-            'lean_composite_bwd': 0, 'ipe_moments': 0}
+            'lean_composite_bwd': 0, 'ipe_moments': 0, 'mlp_fwd': 0,
+            'mlp_bwd_recompute': 0, 'mlp_save_fwd': 0, 'mlp_bwd_saved': 0}
 
 # Kernel name -> (source, the Pallas kernel it replaces).
 _RENDER_CU = 'mipnerf_pl_tpu_torch/csrc/lean_render.cu'
@@ -98,9 +116,14 @@ KERNELS = {
                                 'mipnerf_pl_tpu/kernels/mlp.py:1101'),
     'lean_composite_bwd': (_RENDER_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1445'),
     'ipe_moments': (_IPE_CU, 'mipnerf_pl_tpu/kernels/ipe.py:170'),
+    'mlp_fwd': (_TRAIN_CU, 'mipnerf_pl_tpu/kernels/mlp.py:134'),
+    'mlp_bwd_recompute': (_TRAIN_CU, 'mipnerf_pl_tpu/kernels/mlp.py:291'),
+    'mlp_save_fwd': (_TRAIN_CU, 'mipnerf_pl_tpu/kernels/mlp.py:183'),
+    'mlp_bwd_saved': (_TRAIN_CU, 'mipnerf_pl_tpu/kernels/mlp.py:206'),
 }
 
 MAX_WIDTH = 256     # widest dense layer the CUDA column tiling covers
+MAX_DENSITY = 5     # density heads of the classic kernels (3 + 5 head rows)
 TILE = 64           # points per CUDA tile; saved streams pad M to it
 WGRAD_TILE = 128    # output tile of the weight-gradient products
 # Points a recompute backward re-runs at a time: a quarter of a lego level.
@@ -145,16 +168,20 @@ def _skip_after(i: int, skip_index: int) -> bool:
 
 
 def saved_rows(F: int, W: int, Wv: int, net_depth: int,
-               net_depth_condition: int):
+               net_depth_condition: int, Fv: int = 0):
     """Row offsets of the channel-major saved stream [Cs, Mp] of the
     training forward: X (the encode in the compute dtype, F rows padded to
-    Fp) | hs[0..depth-1] | bottleneck | ys[0..depth_cond-1].
+    Fp) | hs[0..depth-1] | bottleneck | ys[0..depth_cond-1], and with Fv
+    (the classic MLP's stream) then V, the per-point view features in the
+    compute dtype, Fv rows padded to a multiple of 16 (V's first row is
+    Cs - that width).
     Returns (Fp, [hs rows], bottleneck row, [ys rows], Cs)."""
     Fp = _round_up(F, 16)
     hs = [Fp + i * W for i in range(net_depth)]
     bott = Fp + net_depth * W
     ys = [bott + W + j * Wv for j in range(net_depth_condition)]
-    return Fp, hs, bott, ys, ys[-1] + Wv
+    end = bott + W + net_depth_condition * Wv
+    return Fp, hs, bott, ys, end + (_round_up(Fv, 16) if Fv else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -555,9 +582,10 @@ def _check(t, shape, fn, name, device, dtype=torch.float32):
         raise ValueError(f'{fn}: {name} is on {t.device}, expected {device}')
 
 
-def _check_mlp(flat_params, net_depth, net_depth_condition, flag, fn, dev):
-    """Widths the CUDA tilings take, 3 rgb + 1 density heads, parameters
-    on `dev`; returns (W, Wv)."""
+def _check_mlp(flat_params, net_depth, net_depth_condition, flag, fn, dev,
+               max_density=1):
+    """Widths the CUDA tilings take, 3 rgb + 1 (up to max_density) density
+    heads, parameters on `dev`; returns (W, Wv)."""
     W = flat_params[0].shape[1]
     iv = 2 * (net_depth + 2)
     Wv = flat_params[iv].shape[1]
@@ -567,8 +595,10 @@ def _check_mlp(flat_params, net_depth, net_depth_condition, flag, fn, dev):
             raise ValueError(f'{fn}: layer width {w} must be a multiple of '
                              f'{align} and at most {MAX_WIDTH}')
     if flat_params[iv + 2 * net_depth_condition].shape[1] != 3 \
-            or flat_params[2 * net_depth].shape[1] != 1:
-        raise ValueError(f'{fn}: heads must be 3 rgb + 1 density')
+            or not 1 <= flat_params[2 * net_depth].shape[1] <= max_density:
+        raise ValueError(f'{fn}: heads must be 3 rgb + '
+                         f'{"1" if max_density == 1 else f"1..{max_density}"}'
+                         ' density')
     for t in flat_params:
         if t.device != dev:
             raise ValueError(f'{fn}: parameter on {t.device}, expected {dev}')
@@ -607,6 +637,10 @@ _ARGTYPES = {
     'lean_param_grads': [_P] * 2 + _GRAD_TAIL,
     'lean_param_grads_recompute': [_P] * 6 + [_I] + _GRAD_TAIL,
     'lean_param_grads_hybrid': [_P] + _GRAD_TAIL,
+    'mlp_fwd': [_P] * 4 + [_I] + [_P] * 3 + [_I, _P],
+    'mlp_save_fwd': [_P] * 4 + [_I] + [_P] * 4 + [_I, _P],
+    'mlp_bwd_saved': [_P] * 5 + _GRAD_TAIL,
+    'mlp_bwd_recompute': [_P] * 5 + [_I] + [_P] * 4 + _GRAD_TAIL,
 }
 
 
@@ -850,13 +884,16 @@ def fused_mlp_lean_render(x, view, delta, mids, flat_params,
 # ---------------------------------------------------------------------------
 
 def _train_dims(M, N, F, Fv, W, Wv, net_depth, net_depth_condition,
-                skip_index, encode=None):
+                skip_index, encode=None, nd=1, view_rows=False):
     """The C entries' dims: M, Mp, N, R, F, Fp, Fv, depth, depth_cond, skip,
-    W, Wv, L, min_deg (L = 0: encode rows; L >= 1: the moments input)."""
+    W, Wv, L, min_deg (L = 0: encode rows; L >= 1: the moments input), nd
+    (density channels), Fvp (the classic MLP's per-point view rows, Fv
+    padded to 16; 0 for the lean kernels)."""
     L, min_deg = (0, 0) if encode is None else (encode[1] - encode[0],
                                                 encode[0])
     return [M, _round_up(M, TILE), N, M // N, F, _round_up(F, 16), Fv,
-            net_depth, net_depth_condition, skip_index, W, Wv, L, min_deg]
+            net_depth, net_depth_condition, skip_index, W, Wv, L, min_deg,
+            nd, _round_up(Fv, 16) if view_rows else 0]
 
 
 def _input_points(fn, x, encode, F):
@@ -872,20 +909,22 @@ def _input_points(fn, x, encode, F):
 
 
 def wgrad_problems(shapes, net_depth: int, net_depth_condition: int,
-                   skip_index: int):
+                   skip_index: int, view_rows: int = 0):
     """Weight-gradient products of the CUDA backward, from the kernel
     shapes [(in, out), ...] in param order.
 
     The saved activations are numbered as the kernels read them: 0 the
     encode x, 1 + i hs[i], 1 + net_depth the bottleneck, 2 + net_depth + j
-    ys[j].  Returns (problems, tiles, kernel offsets in dw, bias offsets in
-    db, view_off): problem = (activation a, K rows, first row of the
-    cotangent in G, n columns, offset of its first output in dw, row stride
-    in dw), dW[r][c] = sum over points of act_a[r] G[g + c]; tiles =
-    (problem, row0, col0) of every WGRAD_TILE-square output tile.  Bias
-    gradients and G rows share one layout: every layer's out columns in
-    param order.  view_0's per-ray rows (view_off in dw) are not a
-    problem: they take view^T g_ray."""
+    ys[j], and in the classic stream 2 + net_depth + net_depth_condition
+    the per-point view.  Returns (problems, tiles, kernel offsets in dw,
+    bias offsets in db, view_off): problem = (activation a, K rows, first
+    row of the cotangent in G, n columns, offset of its first output in dw,
+    row stride in dw), dW[r][c] = sum over points of act_a[r] G[g + c];
+    tiles = (problem, row0, col0) of every WGRAD_TILE-square output tile.
+    Bias gradients and G rows share one layout: every layer's out columns
+    in param order.  view_0's view rows (view_off in dw) are a problem of
+    the per-point view when view_rows (= Fv) is set; in the lean kernels
+    they are not: they take view^T g_ray per ray."""
     F, W = shapes[0]
     iv = net_depth + 2
     dw_off, b_off, o_dw, o_b = [], [], 0, 0
@@ -911,6 +950,8 @@ def wgrad_problems(shapes, net_depth: int, net_depth_condition: int,
     for layer in (net_depth, net_depth + 1):
         inputs(layer, net_depth, W, net_depth - 1)   # hs[-1]
     add(1 + net_depth, W, iv, 0)                     # the bottleneck
+    if view_rows:                                    # the per-point view
+        add(2 + net_depth + net_depth_condition, view_rows, iv, W)
     for j in range(1, net_depth_condition + 1):
         add(1 + net_depth + j, shapes[iv + j][0], iv + j, 0)   # ys[j - 1]
     tiles = [(i, r0, c0) for i, (_, K, _, n, _, _) in enumerate(probs)
@@ -1022,26 +1063,30 @@ def lean_save_fwd(x, view, flat_params: Sequence[torch.Tensor],
 
 def _grad_plan(fn, view, g_rgb, g_dens, flat_params, num_samples,
                net_depth, net_depth_condition, skip_index, compute_dtype,
-               encode=None):
-    """The checks and the layout every backward wrapper shares."""
+               encode=None, classic=False):
+    """The checks and the layout every backward wrapper shares; classic:
+    fused_mlp's per-point view [M, Fv] (num_samples 1, its rows saved in
+    the stream) and up to MAX_DENSITY density heads."""
     flag = _dtype_flag(compute_dtype)
     dev = view.device
     M = g_rgb.shape[0]
     R, Fv = view.shape
     F = flat_params[0].shape[0]
+    nd = flat_params[2 * net_depth].shape[1]
     W, Wv = _check_mlp(flat_params, net_depth, net_depth_condition, flag,
-                       fn, dev)
+                       fn, dev, MAX_DENSITY if classic else 1)
     if M != R * num_samples or M == 0:
         raise ValueError(f'{fn}: {M} points is not {R} rays x '
                          f'num_samples={num_samples}')
     _check(view, (R, Fv), fn, 'view', dev)
     _check(g_rgb, (M, 3), fn, 'g_rgb', dev)
-    _check(g_dens, (M, 1), fn, 'g_dens', dev)
+    _check(g_dens, (M, nd), fn, 'g_dens', dev)
     dims = _train_dims(M, num_samples, F, Fv, W, Wv, net_depth,
-                       net_depth_condition, skip_index, encode)
+                       net_depth_condition, skip_index, encode, nd, classic)
     shapes = [tuple(t.shape) for t in flat_params[0::2]]
     probs, tiles, dw_off, b_off, view_off = wgrad_problems(
-        shapes, net_depth, net_depth_condition, skip_index)
+        shapes, net_depth, net_depth_condition, skip_index,
+        Fv if classic else 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return dict(flag=flag, dev=dev, M=M, Mp=dims[1], R=R, F=F, W=W, Wv=Wv,
                 dims=dims, shapes=shapes, probs=probs, tiles=tiles,
@@ -1050,9 +1095,11 @@ def _grad_plan(fn, view, g_rgb, g_dens, flat_params, num_samples,
 
 
 def _grad_launch(fn, prefix, chunk, plan, view, g_rgb, g_dens, flat_params,
-                 net_depth, net_depth_condition, compute_dtype, act):
+                 net_depth, net_depth_condition, compute_dtype, act,
+                 classic=False):
     """Launch backward entry `fn` with its mode's own arguments `prefix`
-    over chunks of `chunk` points -> f32 gradients in param order."""
+    over chunks of `chunk` points -> f32 gradients in param order.  The
+    classic entries take no per-ray scratch (g1f, g_ray)."""
     dev, M, Mp, R, W, Wv = (plan[k] for k in ('dev', 'M', 'Mp', 'R', 'W',
                                               'Wv'))
     shapes, dw_off, b_off = plan['shapes'], plan['dw_off'], plan['b_off']
@@ -1079,22 +1126,27 @@ def _grad_launch(fn, prefix, chunk, plan, view, g_rgb, g_dens, flat_params,
     Cg = b_off[-1] + shapes[-1][1]
     f32 = dict(dtype=torch.float32, device=dev)
     G = torch.empty((Cg, cap), dtype=compute_dtype, device=dev)
-    g1f = torch.empty((Wv, cap), **f32)
     db_part = torch.empty((n_chunks * n_chain, Cg), **f32)
     partial = torch.zeros((-(-Mp // plan['mc']), PW), **f32)
-    g_ray = torch.empty((R, Wv), dtype=compute_dtype, device=dev)
+    g1f = g_ray = None
+    if not classic:
+        g1f = torch.empty((Wv, cap), **f32)
+        g_ray = torch.empty((R, Wv), dtype=compute_dtype, device=dev)
     dw = torch.empty(PW, **f32)
     db = torch.empty(Cg, **f32)
-    g_rgb, g_dens, view = (t.contiguous() for t in (g_rgb, g_dens, view))
+    g_rgb, g_dens = g_rgb.contiguous(), g_dens.contiguous()
+    view = view if classic else view.contiguous()   # classic: never read
     c_probs = _ints([v for pr in plan['probs'] for v in pr])
     c_tiles = _ints([v for tl in plan['tiles'] for v in tl])
     c_dims = _ints(plan['dims'])
     _call(fn, dev, *prefix, g_rgb.data_ptr(), g_dens.data_ptr(),
           view.data_ptr(), ctypes.addressof(c_chain), len(ks),
-          *[t.data_ptr() for t in heads], G.data_ptr(), g1f.data_ptr(),
+          *[t.data_ptr() for t in heads], G.data_ptr(),
+          None if g1f is None else g1f.data_ptr(),
           db_part.data_ptr(), n_chain, partial.data_ptr(), plan['mc'],
           ctypes.addressof(c_probs), len(plan['probs']),
-          ctypes.addressof(c_tiles), len(plan['tiles']), PW, g_ray.data_ptr(),
+          ctypes.addressof(c_tiles), len(plan['tiles']), PW,
+          None if g_ray is None else g_ray.data_ptr(),
           dw.data_ptr(), db.data_ptr(), plan['view_off'],
           ctypes.addressof(c_dims), *_act_args(act), plan['flag'])
     launches[fn] += 1
@@ -1296,3 +1348,404 @@ def fused_mlp_lean(x, view, flat_params, num_samples: int, net_depth: int,
     return _Lean.apply(x.float(), view.float(), mode, cfg,
                        None if encode is None else tuple(encode),
                        *flat_params)
+
+
+# ---------------------------------------------------------------------------
+# The classic MLP: fused_mlp in modes 'recompute' and 'save', with input
+# gradients.  Per-point view features, raw heads (nd density channels), and
+# a backward that returns dx and dview beside the parameter gradients.
+# ---------------------------------------------------------------------------
+
+CLASSIC_MODES = ('recompute', 'save')
+
+
+def _mlp_body_plain(x, view, p, net_depth, net_depth_condition, skip_index,
+                    dt):
+    """x [M, F], view [M, Fv] and params p rounded to the compute dtype ->
+    (raw rgb [M, 3], raw density [M, nd] f32, hs, bottleneck, ys): the JAX
+    `_fwd_body_save`, view_0 (with no view layer, the rgb head) reading
+    concat(bottleneck, view) in one product."""
+    def dense(h, i):
+        return h @ p[2 * i] + p[2 * i + 1]
+
+    h, hs = x, []
+    for i in range(net_depth):
+        h = _rounded(torch.relu(dense(h, i)), dt)
+        hs.append(h)
+        if _skip_after(i, skip_index):
+            h = torch.cat([h, x], dim=-1)
+    density = dense(h, net_depth)
+    bott = _rounded(dense(h, net_depth + 1), dt)
+    y, ys = torch.cat([bott, view], dim=-1), []
+    for j in range(net_depth_condition):
+        y = _rounded(torch.relu(dense(y, net_depth + 2 + j)), dt)
+        ys.append(y)
+    rgb = dense(y, net_depth + 2 + net_depth_condition)
+    return rgb, density, hs, bott, ys
+
+
+def _mlp_dims(flat_params, net_depth):
+    """(F, W, Fv, Wv) of the classic MLP from its parameters: Fv is the
+    view width of the layer after the bottleneck."""
+    F, W = flat_params[0].shape
+    k = flat_params[2 * (net_depth + 2)]
+    return F, W, k.shape[0] - W, k.shape[1]
+
+
+def mlp_fwd_plain(x, view, flat_params, net_depth: int,
+                  net_depth_condition: int, skip_index: int, compute_dtype):
+    """(x [M, F], view [M, Fv] f32 per point, params) -> (rgb [M, 3],
+    density [M, nd]) f32 raw heads: the JAX `_fwd_kernel`."""
+    dt = compute_dtype
+    p = [_rounded(t, dt) for t in flat_params]
+    rgb, density, _, _, _ = _mlp_body_plain(
+        _rounded(x, dt), _rounded(view, dt), p, net_depth,
+        net_depth_condition, skip_index, dt)
+    return rgb, density
+
+
+def mlp_save_fwd_plain(x, view, flat_params, net_depth: int,
+                       net_depth_condition: int, skip_index: int,
+                       compute_dtype):
+    """mlp_fwd_plain that also returns the saved stream S [Cs, Mp] in the
+    compute dtype, the `saved_rows(..., Fv)` layout (X | hs | bottleneck |
+    ys | V), zero past M: the JAX `_fwd_kernel_save` with x and view kept
+    in the stream."""
+    dt = compute_dtype
+    p = [_rounded(t, dt) for t in flat_params]
+    xr, vr = _rounded(x, dt), _rounded(view, dt)
+    rgb, density, hs, bott, ys = _mlp_body_plain(
+        xr, vr, p, net_depth, net_depth_condition, skip_index, dt)
+    M = x.shape[0]
+    F, W, Fv, Wv = _mlp_dims(flat_params, net_depth)
+    _, hs_r, bott_r, ys_r, Cs = saved_rows(F, W, Wv, net_depth,
+                                           net_depth_condition, Fv)
+    S = torch.zeros((Cs, _round_up(M, TILE)), dtype=dt, device=x.device)
+    rows = ([(0, xr)] + list(zip(hs_r, hs)) + [(bott_r, bott)]
+            + list(zip(ys_r, ys)) + [(Cs - _round_up(Fv, 16), vr)])
+    for row, t in rows:
+        S[row:row + t.shape[1], :M] = t.t().to(dt)
+    return rgb, density, S
+
+
+def _mlp_grads_core(x, view, g_rgb, g_dens, hs, bott, ys, flat_params,
+                    net_depth, net_depth_condition, skip_index, dt):
+    """The JAX `_bwd_kernel_saved`, op for op, on the activations as f32
+    tensors holding compute-dtype values -> (dx [M, F], dview [M, Fv],
+    grads in param order), all f32.  Each cotangent is cast to the compute
+    dtype before its products; masks come from the post-ReLU values.  With
+    no view layer the rgb head reads concat(bottleneck, view) (JAX's saved
+    backward takes the trunk output there and fails; its recompute
+    backward does not)."""
+    W = flat_params[0].shape[1]
+    iv = net_depth + 2
+    p = [_rounded(t, dt) for t in flat_params]
+    grads = [None] * len(flat_params)
+
+    def d_dense(idx, inp, g_out):
+        gb = _rounded(g_out, dt)
+        grads[2 * idx] = inp.t() @ gb
+        grads[2 * idx + 1] = g_out.sum(0, keepdim=True)
+        return gb @ p[2 * idx].t()
+
+    acts, h = [], x
+    for i in range(net_depth):
+        acts.append(h)
+        h = hs[i]
+        if _skip_after(i, skip_index):
+            h = torch.cat([h, x], dim=-1)
+    trunk_out = h
+    v_acts = [torch.cat([bott, view], dim=-1)] + ys[:-1]
+    rgb_in = ys[-1] if net_depth_condition else v_acts[0]
+    g = d_dense(iv + net_depth_condition, rgb_in, g_rgb)
+    for j in reversed(range(net_depth_condition)):
+        g = torch.where(ys[j] > 0.0, g, 0.0)
+        g = d_dense(iv + j, v_acts[j], g)
+    dview = g[:, W:]
+    g_trunk = (d_dense(net_depth + 1, trunk_out, g[:, :W])
+               + d_dense(net_depth, trunk_out, g_dens))
+    g_x = torch.zeros_like(x)
+    for i in reversed(range(net_depth)):
+        if _skip_after(i, skip_index):
+            g_x = g_x + g_trunk[:, W:]
+            g_trunk = g_trunk[:, :W]
+        g_trunk = torch.where(hs[i] > 0.0, g_trunk, 0.0)
+        g_trunk = d_dense(i, acts[i], g_trunk)
+    return g_trunk + g_x, dview, grads
+
+
+def mlp_bwd_saved_plain(g_rgb, g_dens, saved, flat_params, net_depth: int,
+                        net_depth_condition: int, skip_index: int,
+                        compute_dtype):
+    """(head cotangents g_rgb [M, 3] / g_dens [M, nd] f32, the saved stream
+    of mlp_save_fwd_plain, params) -> (dx [M, F], dview [M, Fv], grads in
+    param order: kernels [in, out], biases [1, out]), f32."""
+    M = g_rgb.shape[0]
+    F, W, Fv, Wv = _mlp_dims(flat_params, net_depth)
+    _, hs_r, bott_r, ys_r, Cs = saved_rows(F, W, Wv, net_depth,
+                                           net_depth_condition, Fv)
+
+    def rows(r, w):
+        return saved[r:r + w, :M].t().float()
+    return _mlp_grads_core(
+        rows(0, F), rows(Cs - _round_up(Fv, 16), Fv), g_rgb, g_dens,
+        [rows(r, W) for r in hs_r], rows(bott_r, W),
+        [rows(r, Wv) for r in ys_r], flat_params, net_depth,
+        net_depth_condition, skip_index, compute_dtype)
+
+
+def mlp_bwd_recompute_plain(x, view, g_rgb, g_dens, flat_params,
+                            net_depth: int, net_depth_condition: int,
+                            skip_index: int, compute_dtype):
+    """The recompute backward: the forward again, then
+    mlp_bwd_saved_plain on its stream (the JAX `_bwd_kernel`)."""
+    args = (net_depth, net_depth_condition, skip_index, compute_dtype)
+    saved = mlp_save_fwd_plain(x, view, flat_params, *args)[2]
+    return mlp_bwd_saved_plain(g_rgb, g_dens, saved, flat_params, *args)
+
+
+def _classic_shapes_ok(fn, flat_params, net_depth, net_depth_condition):
+    """What the classic CUDA kernels take beyond _check_mlp: a view branch,
+    and the encode and view widths (padded to 16) within the trunk's."""
+    if net_depth_condition < 1:
+        raise ValueError(f'{fn}: the CUDA kernels need net_depth_condition '
+                         '>= 1 (the view branch); with none, the CPU runs '
+                         'the plain version')
+    F, W, Fv, _ = _mlp_dims(flat_params, net_depth)
+    if max(_round_up(F, 16), _round_up(Fv, 16)) > W:
+        raise ValueError(f'{fn}: the encode ({F}) and view ({Fv}) widths, '
+                         f'padded to 16, must not exceed the width {W}')
+
+
+def _mlp_check(fn, x, view, flat_params, net_depth, net_depth_condition,
+               compute_dtype):
+    """The classic kernels' checks -> (flag, M, F, Fv, W, Wv)."""
+    flag = _dtype_flag(compute_dtype)
+    _classic_shapes_ok(fn, flat_params, net_depth, net_depth_condition)
+    dev = x.device
+    M = x.shape[0]
+    F, W, Fv, Wv = _mlp_dims(flat_params, net_depth)
+    _check_mlp(flat_params, net_depth, net_depth_condition, flag, fn, dev,
+               MAX_DENSITY)
+    _check(x, (M, F), fn, 'x', dev)
+    _check(view, (M, Fv), fn, 'view (per point)', dev)
+    if M == 0:
+        raise ValueError(f'{fn}: no points')
+    return flag, M, F, Fv, W, Wv
+
+
+def _mlp_fwd_launch(fn, x, view, flat_params, net_depth, net_depth_condition,
+                    skip_index, compute_dtype, save):
+    """Launch mlp_fwd or mlp_save_fwd -> (rgb, density, S or None)."""
+    flag, M, F, Fv, W, Wv = _mlp_check(fn, x, view, flat_params, net_depth,
+                                       net_depth_condition, compute_dtype)
+    dev = x.device
+    nd = flat_params[2 * net_depth].shape[1]
+    ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
+    c_dims = _ints(_train_dims(M, 1, F, Fv, W, Wv, net_depth,
+                               net_depth_condition, skip_index, None, nd,
+                               True))
+    x, view = x.contiguous(), view.contiguous()
+    rgb = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    density = torch.empty((M, nd), dtype=torch.float32, device=dev)
+    S, extra = None, []
+    if save:
+        Cs = saved_rows(F, W, Wv, net_depth, net_depth_condition, Fv)[-1]
+        S = torch.empty((Cs, _round_up(M, TILE)), dtype=compute_dtype,
+                        device=dev)
+        extra = [S.data_ptr()]
+    _call(fn, dev, x.data_ptr(), view.data_ptr(), ctypes.addressof(w_ptrs),
+          ctypes.addressof(b_ptrs), len(ws), rgb.data_ptr(),
+          density.data_ptr(), *extra, ctypes.addressof(c_dims), flag)
+    launches[fn] += 1
+    return rgb, density, S
+
+
+def mlp_fwd(x, view, flat_params: Sequence[torch.Tensor], net_depth: int,
+            net_depth_condition: int, skip_index: int, compute_dtype):
+    """(x [M, F], view [M, Fv] f32 per point, params) -> (rgb [M, 3],
+    density [M, nd]) f32 raw heads."""
+    if _on_cpu(x, 'mlp_fwd'):
+        return mlp_fwd_plain(x, view, flat_params, net_depth,
+                             net_depth_condition, skip_index, compute_dtype)
+    return _mlp_fwd_launch('mlp_fwd', x, view, flat_params, net_depth,
+                           net_depth_condition, skip_index, compute_dtype,
+                           False)[:2]
+
+
+def mlp_save_fwd(x, view, flat_params: Sequence[torch.Tensor],
+                 net_depth: int, net_depth_condition: int, skip_index: int,
+                 compute_dtype):
+    """mlp_fwd that also returns the saved stream S [Cs, Mp] in the compute
+    dtype (`saved_rows(..., Fv)`: X | hs | bottleneck | ys | V)."""
+    if _on_cpu(x, 'mlp_save_fwd'):
+        return mlp_save_fwd_plain(x, view, flat_params, net_depth,
+                                  net_depth_condition, skip_index,
+                                  compute_dtype)
+    return _mlp_fwd_launch('mlp_save_fwd', x, view, flat_params, net_depth,
+                           net_depth_condition, skip_index, compute_dtype,
+                           True)
+
+
+def _padded_t(k, cols, compute_dtype):
+    """k [K, n] -> k^T [n, cols] in the compute dtype, zero past column K."""
+    out = torch.zeros((k.shape[1], cols), dtype=compute_dtype,
+                      device=k.device)
+    out[:, :k.shape[0]] = k.detach().t()
+    return out
+
+
+def _mlp_grad_launch(fn, mode_args, view, g_rgb, g_dens, flat_params,
+                     net_depth, net_depth_condition, skip_index,
+                     compute_dtype):
+    """The classic backward entries: the lean driver with the input
+    cotangents.  mode_args(plan) -> (the mode's own arguments, points a
+    chunk); then come dx, dview, and the x-column kernels and view_0's
+    view rows of the input-gradient pass, transposed and padded.  -> (dx,
+    dview, grads)."""
+    M = g_rgb.shape[0]
+    F, W, Fv, _ = _mlp_dims(flat_params, net_depth)
+    Fp = _round_up(F, 16)
+    ks = flat_params[0::2]
+    # The layers whose input holds x: trunk_0 (all of it), each layer after
+    # a skip concat, and the bottleneck after a last skip concat (the
+    # density head's x rows fold in there as a rank-nd term).
+    x_parts = {0: ks[0]}
+    x_parts.update({i: ks[i][W:] for i in range(1, net_depth)
+                    if _skip_after(i - 1, skip_index)})
+    if _skip_after(net_depth - 1, skip_index):
+        x_parts[net_depth + 1] = ks[net_depth + 1][W:]
+    x_chain = {i: _padded_t(k, Fp, compute_dtype) for i, k in x_parts.items()}
+    c_xchain = (ctypes.c_void_p * len(ks))(
+        *[x_chain[i].data_ptr() if i in x_chain else None
+          for i in range(len(ks))])
+    kv = _padded_t(ks[net_depth + 2][W:], _round_up(Fv, 16), compute_dtype)
+    dev = g_rgb.device
+    dx = torch.empty((M, F), dtype=torch.float32, device=dev)
+    dview = torch.empty((M, Fv), dtype=torch.float32, device=dev)
+    plan = _grad_plan(fn, view, g_rgb, g_dens, flat_params, 1, net_depth,
+                      net_depth_condition, skip_index, compute_dtype,
+                      classic=True)
+    prefix, chunk = mode_args(plan)
+    prefix += [dx.data_ptr(), dview.data_ptr(), ctypes.addressof(c_xchain),
+               kv.data_ptr()]
+    grads = _grad_launch(fn, prefix, chunk, plan, view, g_rgb, g_dens,
+                         flat_params, net_depth, net_depth_condition,
+                         compute_dtype, None, classic=True)
+    return dx, dview, grads
+
+
+def mlp_bwd_saved(g_rgb, g_dens, saved, flat_params: Sequence[torch.Tensor],
+                  net_depth: int, net_depth_condition: int, skip_index: int,
+                  compute_dtype):
+    """(head cotangents g_rgb [M, 3] / g_dens [M, nd] f32, saved from
+    mlp_save_fwd, params) -> (dx [M, F], dview [M, Fv], f32 gradients of
+    every parameter in param order)."""
+    if _on_cpu(saved, 'mlp_bwd_saved'):
+        return mlp_bwd_saved_plain(g_rgb, g_dens, saved, flat_params,
+                                   net_depth, net_depth_condition,
+                                   skip_index, compute_dtype)
+    fn = 'mlp_bwd_saved'
+    _classic_shapes_ok(fn, flat_params, net_depth, net_depth_condition)
+    M = g_rgb.shape[0]
+    F, W, Fv, Wv = _mlp_dims(flat_params, net_depth)
+    Cs = saved_rows(F, W, Wv, net_depth, net_depth_condition, Fv)[-1]
+    _dtype_flag(compute_dtype)
+    _check(saved, (Cs, _round_up(M, TILE)), fn, 'saved stream',
+           saved.device, compute_dtype)
+    saved = saved.contiguous()
+    # The backward reads the view from the stream's V rows; this [M, Fv]
+    # stand-in (no storage of its own) carries the shape to the checks.
+    view = torch.zeros(1, device=saved.device).expand(M, Fv)
+    return _mlp_grad_launch(
+        fn, lambda plan: ([saved.data_ptr()],
+                          _round_up(plan['Mp'], plan['mc'])),
+        view, g_rgb, g_dens, flat_params, net_depth, net_depth_condition,
+        skip_index, compute_dtype)
+
+
+def mlp_bwd_recompute(x, view, g_rgb, g_dens,
+                      flat_params: Sequence[torch.Tensor], net_depth: int,
+                      net_depth_condition: int, skip_index: int,
+                      compute_dtype):
+    """mlp_bwd_saved with the forward re-run by mlp_fwd's kernel chunk by
+    chunk (recompute_chunk points at a time) instead of read back: (x
+    [M, F], view [M, Fv] f32 per point, head cotangents, params) -> (dx,
+    dview, grads).  No level-sized saved stream is allocated."""
+    if _on_cpu(x, 'mlp_bwd_recompute'):
+        return mlp_bwd_recompute_plain(x, view, g_rgb, g_dens, flat_params,
+                                       net_depth, net_depth_condition,
+                                       skip_index, compute_dtype)
+    fn = 'mlp_bwd_recompute'
+    _, _, F, Fv, W, Wv = _mlp_check(fn, x, view, flat_params, net_depth,
+                                    net_depth_condition, compute_dtype)
+    x, view = x.contiguous(), view.contiguous()
+    ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
+    Cs = saved_rows(F, W, Wv, net_depth, net_depth_condition, Fv)[-1]
+    scratch = []
+
+    def mode_args(plan):
+        chunk = recompute_chunk(plan['Mp'], plan['mc'])
+        scratch.append(torch.empty((Cs, min(chunk, plan['Mp'])),
+                                   dtype=compute_dtype, device=x.device))
+        return [x.data_ptr(), view.data_ptr(), ctypes.addressof(w_ptrs),
+                ctypes.addressof(b_ptrs), scratch[0].data_ptr(),
+                chunk], chunk
+    return _mlp_grad_launch(fn, mode_args, view, g_rgb, g_dens, flat_params,
+                            net_depth, net_depth_condition, skip_index,
+                            compute_dtype)
+
+
+class _Classic(torch.autograd.Function):
+    """fused_mlp with its backward: 'save' keeps the stream of
+    mlp_save_fwd, 'recompute' keeps only x and view; the backward returns
+    the input cotangents dx and dview with the parameter gradients."""
+
+    @staticmethod
+    def forward(ctx, x, view, mode, cfg, *flat):
+        ctx.mode, ctx.cfg, ctx.n_flat = mode, cfg, len(flat)
+        if mode == 'save':
+            rgb, density, saved = mlp_save_fwd(x, view, flat, *cfg)
+            ctx.save_for_backward(saved, *flat)
+        else:
+            rgb, density = mlp_fwd(x, view, flat, *cfg)
+            ctx.save_for_backward(x, view, *flat)
+        return rgb, density
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_rgb, g_dens):
+        saved = ctx.saved_tensors
+        kept, flat = saved[:-ctx.n_flat], saved[-ctx.n_flat:]
+        g_rgb, g_dens = g_rgb.float().contiguous(), g_dens.float().contiguous()
+        if ctx.mode == 'save':
+            dx, dview, grads = mlp_bwd_saved(g_rgb, g_dens, kept[0], flat,
+                                             *ctx.cfg)
+        else:
+            dx, dview, grads = mlp_bwd_recompute(kept[0], kept[1], g_rgb,
+                                                 g_dens, flat, *ctx.cfg)
+        return (dx, dview, None, None,
+                *[g.reshape(p.shape) for g, p in zip(grads, flat)])
+
+
+def fused_mlp(x, view, flat_params, net_depth: int, net_depth_condition: int,
+              skip_index: int, compute_dtype=torch.bfloat16,
+              mode: str = 'recompute'):
+    """The Mip-NeRF MLP with input gradients: (x [M, F], view [M, Fv] per
+    point, flat params) -> (rgb [M, 3], density [M, nd]) f32 raw heads,
+    the JAX `fused_mlp` in its argument order.
+
+    mode='recompute': the backward re-runs the forward chunk by chunk.
+    mode='save': the forward also keeps every activation in the compute
+    dtype and the backward reads them back.  The backward returns dx, dview
+    and the parameter gradients.  Without gradients (a render) both modes
+    run mlp_fwd: the stream would be the same values, unread."""
+    if mode not in CLASSIC_MODES:
+        raise ValueError(f'fused_mlp: mode must be one of {CLASSIC_MODES}, '
+                         f'got {mode!r}')
+    cfg = (net_depth, net_depth_condition, skip_index, compute_dtype)
+    x, view = x.float(), view.float()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, view, *flat_params)):
+        return _Classic.apply(x, view, mode, cfg, *flat_params)
+    return mlp_fwd(x, view, flat_params, *cfg)

@@ -12,7 +12,11 @@ itself when the model's activations are the defaults and density_noise is
 the noise, run here), and the heads are composited by the plain
 `volumetric_rendering` with autograd through it.  The lean backends give
 the encoded inputs no gradient, so they require stop_resample_grad
-(checked at construction).
+(checked at construction).  With stop_resample_grad False the model
+trains on 'xla' or on the input-differentiable 'pallas' / 'pallas_save'
+(`fused_mlp`: raw heads, activated here as on 'xla'; its backward returns
+the encode's and the view features' cotangents, so the gradient reaches
+the coarse level through the resampled samples, as in JAX).
 
 The options of the lean path engage as the JAX model's gates say
 (mipnerf_pl_tpu/models/mipnerf.py `setup`):
@@ -32,7 +36,8 @@ fuse_encode for rendering.
 
 Knobs that steer TPU-only machinery (`channel_major`, `lean_input_cast`,
 `mxu_cumsum`) are accepted and have no effect.  The unbounded-360 mode and
-`ipe_backend='pallas'` are not ported yet.
+`ipe_backend='pallas'` are not ported yet (the IPE's backward is plain
+autograd, JAX's default 'xla').
 """
 
 from __future__ import annotations

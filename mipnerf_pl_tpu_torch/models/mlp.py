@@ -19,6 +19,12 @@ Backends:
           with `render=`: the fused lean-render level (kernels/mlp.py
           `fused_mlp_lean_render`, mode 'recompute' or 'save'), in either
           input form; it trains through its backward and renders without.
+  'pallas' | 'pallas_save'
+          `fused_mlp`, the counterpart of the JAX `_call_pallas`, in mode
+          'recompute' or 'save': the per-ray view features repeated over
+          the samples, raw heads, and a backward that returns the input
+          cotangents beside the parameter gradients, so these train with
+          stop_resample_grad False.
 Without view directions every backend runs the plain forward, as in JAX.
 """
 
@@ -29,7 +35,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mipnerf_pl_tpu_torch.kernels.mlp import (flatten_params, fused_mlp_lean,
+from mipnerf_pl_tpu_torch.kernels.mlp import (flatten_params, fused_mlp,
+                                              fused_mlp_lean,
                                               fused_mlp_lean_render)
 
 # The lean training backends and their fused_mlp_lean modes.
@@ -38,6 +45,8 @@ LEAN_MODES = {'pallas_lean': 'recompute', 'pallas_lean_save': 'save',
 LEAN_BACKENDS = tuple(LEAN_MODES)
 # The backends with a render-fused level (the hybrid forward has none).
 RENDER_BACKENDS = ('pallas_lean', 'pallas_lean_save')
+# The input-differentiable backends and their fused_mlp modes.
+PALLAS_MODES = {'pallas': 'recompute', 'pallas_save': 'save'}
 
 
 class MLP(nn.Module):
@@ -109,9 +118,9 @@ class MLP(nn.Module):
             return self._plain(x, view_direction)
         if self.backend in LEAN_BACKENDS:
             return self._lean(x, view_direction, encode)
-        raise NotImplementedError(
-            f'mlp backend {self.backend!r} is not ported yet; use "xla" or '
-            f'one of {LEAN_BACKENDS}')
+        if self.backend in PALLAS_MODES:
+            return self._pallas(x, view_direction)
+        raise ValueError(f'unknown mlp backend {self.backend!r}')
 
     def _plain(self, x, view_direction):
         """The JAX 'xla' forward: a concatenated input is split into
@@ -163,6 +172,24 @@ class MLP(nn.Module):
             raw_rgb = dense(self.rgb, *trunk)
         return (raw_rgb.reshape(*lead, self.num_rgb_channels).float(),
                 raw_density.reshape(*lead, self.num_density_channels).float())
+
+    def _pallas(self, x, view_direction):
+        """The 'pallas' / 'pallas_save' forward: x [B, N, F], view_direction
+        [B, Fv] repeated to every sample as JAX does (autograd sums dview
+        back per ray) -> (raw_rgb [B, N, 3], raw_density [B, N, nd]); x,
+        view and every parameter get gradients.  The repeat is an expand
+        and a copy, whose backward is a sum over the samples."""
+        num_samples = x.shape[-2]
+        lead = x.shape[:-1]
+        flat = flatten_params(self, self.net_depth, self.net_depth_condition)
+        B, Fv = view_direction.shape
+        view = view_direction[:, None, :].expand(B, num_samples, Fv)
+        rgb, density = fused_mlp(
+            x.reshape(-1, x.shape[-1]), view.reshape(-1, Fv), flat,
+            self.net_depth, self.net_depth_condition, self.skip_index,
+            self.compute_dtype, PALLAS_MODES[self.backend])
+        return (rgb.reshape(*lead, self.num_rgb_channels),
+                density.reshape(*lead, self.num_density_channels))
 
     def _check_lean_heads(self, what: str):
         if self.num_rgb_channels != 3 or self.num_density_channels != 1:

@@ -119,12 +119,18 @@ def integrated_pos_enc(means_covs, min_deg: int, max_deg: int):
     scale = torch.tensor([2.0 ** (min_deg + k) for k in range(L)],
                          dtype=dtype, device=device)
     scale = scale.repeat_interleave(D).repeat(2)               # [2*L*D]
-    idx = torch.arange(D, device=device).repeat(2 * L)         # [2*L*D]
     phase = torch.cat([torch.zeros(L * D, dtype=dtype, device=device),
                        torch.full((L * D,), 0.5 * np.pi, dtype=dtype,
                                   device=device)])
-    y = means[..., idx] * scale
-    yv = covs[..., idx] * (scale * scale)
+
+    def tiled(t):
+        """[..., D] -> [..., 2*L*D], coordinate d at every k*D + d: an
+        expand and a copy, whose backward is a sum (an index gather's is a
+        sorted index_put, ~2.5 ms a lego level on an H100)."""
+        lead = t.shape[:-1]
+        return t[..., None, :].expand(*lead, 2 * L, D).reshape(*lead, -1)
+    y = tiled(means) * scale
+    yv = tiled(covs) * (scale * scale)
     return torch.exp(-0.5 * yv) * torch.sin(y + phase)
 
 

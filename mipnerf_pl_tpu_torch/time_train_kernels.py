@@ -1,4 +1,4 @@
-"""Times the rows-form lean training kernels of one checkout on the card.
+"""Times the rows-form training kernels of one checkout on the card.
 
     cd <root of a checkout> && python3 <this file> <label>
 
@@ -8,7 +8,10 @@ prints one JSON line: the CUDA-event time in ms of lean_fwd,
 lean_save_fwd, lean_param_grads and lean_param_grads_recompute at the lego
 training level (3072 seeded rays x 128 stratified samples, encode rows,
 seeded Xavier weights and head cotangents), f32 and bf16, 10 launches each
-after a warm-up.  It uses only names every lean-training checkout has.
+after a warm-up; and, where the checkout has them, the classic kernels of
+fused_mlp (mlp_fwd, mlp_save_fwd, mlp_bwd_saved, mlp_bwd_recompute) on the
+same level with the view repeated over the samples.  It uses only names
+every lean-training checkout has, and the classic names only if present.
 """
 
 import json
@@ -82,9 +85,23 @@ def main():
                 lambda: km.lean_param_grads_recompute(
                     x, view, g_rgb, g_dens, flat, *args, dt, ACT),
         }
+        if hasattr(km, 'mlp_bwd_saved'):
+            cargs = args[1:] + (dt,)
+            vp = view.repeat_interleave(args[0], dim=0).contiguous()
+            cs = km.mlp_save_fwd(x, vp, flat, *cargs)[2]
+            g_d = g_dens.contiguous()
+            calls.update({
+                'mlp_fwd': lambda: km.mlp_fwd(x, vp, flat, *cargs),
+                'mlp_save_fwd': lambda: km.mlp_save_fwd(x, vp, flat, *cargs),
+                'mlp_bwd_saved': lambda: km.mlp_bwd_saved(
+                    g_rgb, g_d, cs, flat, *cargs),
+                'mlp_bwd_recompute': lambda: km.mlp_bwd_recompute(
+                    x, vp, g_rgb, g_d, flat, *cargs),
+            })
         for name, fn in calls.items():
             out[f'{name} {tag}'] = round(cuda_ms(fn), 4)
-        del saved
+        calls.clear()
+        saved = cs = None
     print(json.dumps(out), flush=True)
 
 

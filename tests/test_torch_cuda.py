@@ -24,6 +24,9 @@ The moments input form is held against the rows form on the plain decode
 of the same moments (<= 1e-5 f32), lean_composite_bwd and ipe_moments
 against their plain versions (<= 1e-5), and training through the
 render-fused level against its wrappers called in order (bit for bit).
+fused_mlp's kernels (the `pallas` / `pallas_save` backends) take the same
+bars, dx and dview with the parameters; its recompute backward equals the
+saved one on dx and dview bit for bit.
 """
 
 import numpy as np
@@ -619,6 +622,204 @@ def test_cuda_fused_training_runs_the_kernels(cuda_device, backend, fused):
     names = [fwd, bwd] + (['lean_composite', 'lean_composite_bwd']
                           if 'render' in fused else []) \
         + (['ipe_moments'] if fused == 'pallas_encode' else [])
+    for name in names:
+        assert tk.launches[name] == model.num_levels, (name, tk.launches)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+    want = losses['cpu']
+    assert abs(losses[str(cuda_device)] - want) <= 1e-4 * abs(want)
+
+
+# ---------------------------------------------------------------------------
+# The classic MLP (fused_mlp, modes 'recompute' and 'save'): per-point view
+# features, nd density heads, and the input cotangents dx / dview.
+# ---------------------------------------------------------------------------
+
+def classic_problem(R, cfg, nd=1, seed=0):
+    """train_problem's encode rows and params for fused_mlp: per-point view
+    features [M, Fv], nd density heads (the density layer redrawn nd wide)
+    and head cotangents [M, 3] / [M, nd]."""
+    x, _, flat, g_rgb, _ = train_problem(R, **cfg, seed=seed)
+    rng = np.random.default_rng(seed + 7)
+    M = x.shape[0]
+    view = rng.normal(size=(M, cfg['Fv'])).astype(np.float32)
+    d = 2 * cfg['net_depth']
+    if nd != 1:
+        flat[d] = rng.uniform(-0.2, 0.2, size=(flat[d].shape[0], nd)
+                              ).astype(np.float32)
+        flat[d + 1] = rng.normal(0.0, 0.1, size=(1, nd)).astype(np.float32)
+    g_dens = rng.normal(size=(M, nd)).astype(np.float32)
+    return x, view, flat, g_rgb, g_dens
+
+
+CLASSIC_SHAPES = {
+    # 296 points, ragged against the 64-point tile; the trunk ends on a
+    # skip concat (density and bottleneck read [h, x], their x rows reach
+    # dx).
+    'small': (37, dict(SMALL, net_width=64, net_width_condition=32), 1),
+    # two view layers, trunk_3 after a skip concat, two density heads.
+    'view2_nd2': (29, dict(SMALL, net_depth=4, net_width=64,
+                           net_depth_condition=2, net_width_condition=32,
+                           N=24), 2),
+    'lego': (96, LEGO, 1),
+}
+
+
+def _classic_on(shape, device):
+    R, cfg, nd = CLASSIC_SHAPES[shape]
+    x, view, flat, g_rgb, g_dens = classic_problem(R, cfg, nd)
+    t = [torch.tensor(a, device=device) for a in (x, view, g_rgb, g_dens)]
+    return cfg, t, [torch.tensor(p, device=device) for p in flat]
+
+
+def _close(a, b, dtype):
+    """The forward bars: f32 max |d| <= 1e-4; bf16 max |d| / max |ref| <=
+    3e-2 against the f32 plain version."""
+    assert torch.isfinite(a).all()
+    err = float((a - b).abs().max())
+    if dtype == 'float32':
+        assert err <= 1e-4, err
+    else:
+        assert err / max(float(b.abs().max()), 1e-6) <= 3e-2, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(CLASSIC_SHAPES))
+def test_cuda_mlp_fwd_matches_plain(cuda_device, shape, dtype):
+    """mlp_save_fwd against mlp_save_fwd_plain (f32): raw heads and every
+    row of the stream; mlp_fwd equal to its outputs bit for bit."""
+    cfg, (x, view, _, _), flat = _classic_on(shape, cuda_device)
+    args = (cfg['net_depth'], cfg['net_depth_condition'], cfg['skip_index'])
+    dt = getattr(torch, dtype)
+    tk.reset_launches()
+    rgb, dens, S = tk.mlp_save_fwd(x, view, flat, *args, dt)
+    got = tk.mlp_fwd(x, view, flat, *args, dt)
+    torch.cuda.synchronize()
+    assert tk.launches['mlp_save_fwd'] == 1 and tk.launches['mlp_fwd'] == 1
+    ref = tk.mlp_save_fwd_plain(x, view, flat, *args, torch.float32)
+    M = x.shape[0]
+    for a, b in ((rgb, ref[0]), (dens, ref[1]),
+                 (S[:, :M].float(), ref[2][:, :M].float())):
+        _close(a, b, dtype)
+    assert torch.equal(got[0], rgb) and torch.equal(got[1], dens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(CLASSIC_SHAPES))
+def test_cuda_mlp_bwd_saved_matches_plain(cuda_device, shape, dtype):
+    """mlp_bwd_saved against the f32 mlp_bwd_saved_plain on the same stream
+    (the plain forward's, in the compute dtype): dx and dview at max |d| /
+    max |ref| <= 1e-4 f32, 3e-2 bf16; the parameters at the largest leaf
+    relative error, the same bars."""
+    cfg, (x, view, g_rgb, g_dens), flat = _classic_on(shape, cuda_device)
+    args = (cfg['net_depth'], cfg['net_depth_condition'], cfg['skip_index'])
+    dt = getattr(torch, dtype)
+    S = tk.mlp_save_fwd_plain(x, view, flat, *args, dt)[2]
+    tk.reset_launches()
+    dx, dview, grads = tk.mlp_bwd_saved(g_rgb, g_dens, S, flat, *args, dt)
+    torch.cuda.synchronize()
+    assert tk.launches['mlp_bwd_saved'] == 1
+    rdx, rdview, rgrads = tk.mlp_bwd_saved_plain(g_rgb, g_dens, S, flat,
+                                                 *args, torch.float32)
+    bar = 1e-4 if dtype == 'float32' else 3e-2
+    for a, b in ((dx, rdx), (dview, rdview)):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= bar * float(b.abs().max())
+    assert [g.shape for g in grads] == [g.shape for g in rgrads]
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert max_leaf_rel_err(grads, rgrads) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('chunks', ['default', 'one_range'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(CLASSIC_SHAPES))
+def test_cuda_mlp_recompute_matches_saved(cuda_device, shape, dtype, chunks,
+                                          monkeypatch):
+    """mlp_bwd_recompute against mlp_bwd_saved on the kernel forward's
+    stream (the forward it re-runs): dx and dview bit for bit, the
+    parameters at the largest leaf relative error <= 1e-5 (the f32 bias
+    sums' order); two runs give the same bits."""
+    if chunks == 'one_range':
+        monkeypatch.setattr(tk, 'RECOMPUTE_POINTS', 1)
+    cfg, (x, view, g_rgb, g_dens), flat = _classic_on(shape, cuda_device)
+    args = (cfg['net_depth'], cfg['net_depth_condition'], cfg['skip_index'],
+            getattr(torch, dtype))
+    S = tk.mlp_save_fwd(x, view, flat, *args)[2]
+    want = tk.mlp_bwd_saved(g_rgb, g_dens, S, flat, *args)
+    tk.reset_launches()
+    got = tk.mlp_bwd_recompute(x, view, g_rgb, g_dens, flat, *args)
+    again = tk.mlp_bwd_recompute(x, view, g_rgb, g_dens, flat, *args)
+    torch.cuda.synchronize()
+    assert tk.launches['mlp_bwd_recompute'] == 2
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert all(torch.isfinite(g).all() for g in got[2])
+    assert max_leaf_rel_err(got[2], want[2]) <= 1e-5
+    for a, b in zip(got[:2] + tuple(got[2]), again[:2] + tuple(again[2])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['save', 'recompute'])
+def test_cuda_fused_mlp_autograd(cuda_device, mode):
+    """fused_mlp's autograd Function on the card: x, view and every
+    parameter receive what the mode's backward wrapper returns."""
+    cfg, (x, view, g_rgb, g_dens), flat = _classic_on('view2_nd2',
+                                                      cuda_device)
+    args = (cfg['net_depth'], cfg['net_depth_condition'], cfg['skip_index'],
+            torch.float32)
+    leaves = [t.clone().requires_grad_(True) for t in [x, view] + flat]
+    rgb, dens = tk.fused_mlp(leaves[0], leaves[1], leaves[2:], *args, mode)
+    ((rgb * g_rgb).sum() + (dens * g_dens).sum()).backward()
+    if mode == 'save':
+        S = tk.mlp_save_fwd(x, view, flat, *args)[2]
+        dx, dview, grads = tk.mlp_bwd_saved(g_rgb, g_dens, S, flat, *args)
+    else:
+        dx, dview, grads = tk.mlp_bwd_recompute(x, view, g_rgb, g_dens, flat,
+                                                *args)
+    for p, w in zip(leaves, [dx, dview] + list(grads)):
+        torch.testing.assert_close(p.grad, w.reshape(p.shape), rtol=0, atol=0)
+    with torch.no_grad():
+        tk.reset_launches()
+        out = tk.fused_mlp(x, view, flat, *args, mode)
+    assert tk.launches['mlp_fwd'] == 1 and tk.launches['mlp_save_fwd'] == 0
+    assert torch.equal(out[0], rgb.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('backend', ['pallas', 'pallas_save'])
+def test_cuda_classic_training_runs_the_kernels(cuda_device, backend):
+    """A MipNerf on 'pallas' / 'pallas_save' with stop_resample_grad False
+    trains on the card: one loss backward launches the backend's forward and
+    backward once a level, the gradients are finite, and the loss agrees
+    with the same model's plain versions on the CPU (<= 1e-4 relative)."""
+    from mipnerf_pl_tpu_torch.models.mipnerf import MipNerf
+    from mipnerf_pl_tpu_torch.rays import Rays
+    model = MipNerf(num_samples=16, max_deg_point=4, deg_view=2,
+                    mlp_net_depth=3, mlp_net_width=64,
+                    mlp_net_width_condition=32, mlp_skip_index=2,
+                    mlp_backend=backend, stop_resample_grad=False)
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(64, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ones = np.ones((64, 1), np.float32)
+    fields = (rng.normal(size=(64, 3)).astype(np.float32) * 0.1, d, d,
+              ones * 0.005, ones, ones * 2.0, ones * 6.0)
+    target = torch.tensor(rng.uniform(size=(64, 3)).astype(np.float32))
+    losses = {}
+    for dev in ('cpu', cuda_device):
+        model.to(dev)
+        model.zero_grad()
+        rays = Rays(*(torch.tensor(f, device=dev) for f in fields))
+        tk.reset_launches()
+        out = model(rays, False, True)
+        loss = sum(((lv.rgb - target.to(dev)) ** 2).mean() for lv in out)
+        loss.backward()
+        losses[str(dev)] = float(loss.detach())
+    torch.cuda.synchronize()
+    names = (('mlp_save_fwd', 'mlp_bwd_saved') if backend == 'pallas_save'
+             else ('mlp_fwd', 'mlp_bwd_recompute'))
     for name in names:
         assert tk.launches[name] == model.num_levels, (name, tk.launches)
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())

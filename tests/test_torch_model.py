@@ -177,10 +177,10 @@ def test_mipnerf_randomized_runs_with_generator():
 def test_training_backends_not_ported_raise(backend):
     """The recompute and hybrid backends train; what stays unported raises
     instead of computing something else: the moments input (encode=) with
-    'hybrid' (JAX's own refusal, a ValueError), the 'pallas' backend, the
-    unbounded-360 mode, ipe_backend='pallas', and unknown options.  On
-    'pallas_lean' the moments input trains and equals the rows form on
-    their encode."""
+    'hybrid' (JAX's own refusal, a ValueError), the unbounded-360 mode,
+    ipe_backend='pallas', and unknown options.  On 'pallas_lean' the
+    moments input trains and equals the rows form on their encode.  The
+    'pallas' backend runs (fused_mlp) and equals the plain forward."""
     _, trays = _rays()
     port = MipNerf(**KW, mlp_backend=backend)
     assert not port._fused_render
@@ -201,8 +201,14 @@ def test_training_backends_not_ported_raise(backend):
         for a, b in zip(mlp(moments, view, encode=(0, 4)), mlp(x, view)):
             assert a.shape == b.shape == (4, 8, a.shape[-1])
             torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        MLP(24, 15, backend='pallas')(x, view)
+    pallas = MLP(24, 15, net_depth=3, net_width=16, net_width_condition=8,
+                 skip_index=2, backend='pallas')
+    plain = MLP(24, 15, net_depth=3, net_width=16, net_width_condition=8,
+                skip_index=2, backend='xla')
+    plain.load_state_dict(pallas.state_dict())
+    for a, b in zip(pallas(x, view), plain(x, view)):
+        assert a.shape == b.shape == (4, 8, a.shape[-1])
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     with pytest.raises(NotImplementedError):
         MipNerf(**KW, unbounded=True)
     with pytest.raises(NotImplementedError, match='ipe_backend'):

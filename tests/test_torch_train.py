@@ -10,7 +10,12 @@ The slice: a JAX MipNeRFSystem and the port's on the same params and rays,
 train.randomized False, the same lean backend on both ('pallas_lean',
 'pallas_lean_save', 'pallas_hybrid'; the JAX side runs its Pallas kernels
 in interpret mode), and one case with density_noise 1.0, which leaves the
-heads raw (act=None) on both sides.  The JAX lean path takes the IPE with
+heads raw (act=None) on both sides.  With stop_resample_grad False the
+resampled level's samples carry the gradient of the coarse weights: the
+plain 'xla' path and the input-differentiable 'pallas' / 'pallas_save'
+backends (fused_mlp, dx and dview in its backward) train so on both sides,
+and a test shows that the term moves the density and trunk gradients far
+beyond the gradient bar.  The JAX lean path takes the IPE with
 ~1e-6-accurate polynomial exp/sin and its prefix sums (resample CDF,
 transmittance, distloss) as triangular matmuls; the port takes libm and
 cumsum.  So the loss and its aux values compare at 2e-6 relative (measured
@@ -34,6 +39,7 @@ from mipnerf_pl_tpu.train.schedule import mip_lr_decay as jmip_lr_decay
 from mipnerf_pl_tpu_torch import config
 from mipnerf_pl_tpu_torch.convert import (jax_params_to_torch,
                                           torch_params_to_jax)
+from mipnerf_pl_tpu_torch.models.mlp import LEAN_BACKENDS
 from mipnerf_pl_tpu_torch.ops.render import distloss
 from mipnerf_pl_tpu_torch.rays import Rays
 from mipnerf_pl_tpu_torch.train.opt import adam, adam_step
@@ -167,20 +173,29 @@ def _slice_case(backend, disable_multiscale=False, noise=0.0, id=None,
                 fuse_render=True, fuse_encode=True),
     _slice_case('pallas_lean', id='pallas_lean-encode', fuse_encode=True),
     _slice_case('pallas_lean_save', id='pallas_lean_save-pallas_encode',
-                pallas_encode=True)])
+                pallas_encode=True),
+    _slice_case('xla', id='xla-resample', stop_resample_grad=False),
+    _slice_case('pallas', id='pallas-resample', stop_resample_grad=False),
+    _slice_case('pallas_save', id='pallas_save-resample',
+                stop_resample_grad=False),
+    _slice_case('pallas', noise=1.0, id='pallas-resample-noise',
+                stop_resample_grad=False)])
 def test_train_slice_matches_jax(backend, disable_multiscale, noise, fused):
     """One step's loss, aux values and every parameter gradient, then the
     parameters after 3 train_steps, port against JAX.  With `fused`: the
     render-fused level (TPU kernels #1 and #2 on the JAX side), the
     moments input of the lean kernels (the IPE decoded in them) and the
-    standalone moments encode (#12), each engaging on both sides."""
+    standalone moments encode (#12), each engaging on both sides; or
+    stop_resample_grad False, on the plain path and on the two
+    input-differentiable backends (#6-#9 on the JAX side)."""
     hp = _hparams(**{'loss.disable_multiscale_loss': disable_multiscale,
                      'nerf.mlp_backend': backend,
                      'nerf.density_noise': noise},
                   **{f'nerf.{k}': v for k, v in fused.items()})
     jsys, jstate, system, state, JRays = _systems(hp)
     assert system.model.mlp_backend == backend
-    assert system.model._fused_act == (noise == 0.0)
+    assert system.model._fused_act == (noise == 0.0
+                                       and backend in LEAN_BACKENDS)
     for opt in ('fuse_render', 'fuse_encode', 'pallas_encode'):
         gate = '_' + opt.replace('fuse_', 'fused_')
         assert getattr(system.model, gate) == bool(fused.get(opt)), gate
@@ -220,6 +235,30 @@ def test_train_slice_matches_jax(backend, disable_multiscale, noise, fused):
         assert np.linalg.norm(step_jax) > 0, jax.tree_util.keystr(path)
         assert (np.linalg.norm(step_port - step_jax)
                 <= 1e-3 * np.linalg.norm(step_jax)), jax.tree_util.keystr(path)
+
+
+def test_resample_gradient_term_is_there():
+    """With stop_resample_grad False the gradient reaches the coarse level's
+    parameters through the resampled samples too: on 'pallas' the density
+    and trunk leaves move by more than 100 x the slice's 1e-5 bar (of each
+    leaf's largest entry) against stop_resample_grad True, so a backward
+    that dropped dx or dview could not pass the slice test."""
+    from mipnerf_pl_tpu_torch.system import MipNeRFSystem
+    rays, pixels = _batch()
+    trays = Rays(*(torch.from_numpy(f) for f in rays))
+    grads = {}
+    for stop in (True, False):
+        system = MipNeRFSystem(_hparams(**{'nerf.mlp_backend': 'pallas',
+                                           'nerf.stop_resample_grad': stop}),
+                               device='cpu')
+        state = system.init_state(seed=0)
+        _, grads[stop] = system.value_and_grad(state['params'], trays,
+                                               torch.from_numpy(pixels))
+    for leaf in ('mlp.density.weight', 'mlp.trunk_0.weight',
+                 'mlp.trunk_2.weight'):
+        a, b = grads[True][leaf], grads[False][leaf]
+        assert float((a - b).abs().max()) > 100 * 1e-5 * float(
+            b.abs().max()), leaf
 
 
 def test_train_many_replays_single_steps():
