@@ -19,7 +19,11 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      finite, and the same frame through the plain path on the card must
      agree (max |d rgb|, max |d acc| <= 1e-3 in f32); then the frame with
      val.mlp_backend pallas (fused_mlp's forward, mlp_fwd, 2 x 5 launches)
-     against the same plain frame at the same bar;
+     against the same plain frame at the same bar; then the frame with
+     nerf.ipe_backend pallas (val.mlp_backend auto then resolves to the
+     plain MLP: ipe_fwd alone, 2 x 5 launches) against the plain frame
+     through the default encode, same bar (the two encodes' cosine halves
+     differ, damped at the lego covariances);
   5. the training kernels against their plain versions at the lego level
      shape (3072 rays x 128 samples, x rows the IPE of seeded rays, seeded
      head cotangents), f32 and bf16, bars against the f32 plain version:
@@ -42,7 +46,11 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      phase-3 bars, mlp_bwd_saved on the plain forward's stream (dx, dview
      and every parameter at bench.py's metric, <= 1e-4 f32, <= 3e-2 bf16),
      mlp_bwd_recompute against mlp_bwd_saved on the kernel forward's stream
-     (<= 1e-5, dx and dview bit for bit, two runs equal);
+     (<= 1e-5, dx and dview bit for bit, two runs equal); the standalone
+     IPE kernels ipe_fwd and ipe_bwd on the level's Gaussians (393,216
+     points, degrees 0..16), with their covariances and with them zeroed,
+     and on a ragged count: forward max |d| <= 1e-5, dmeans and dcovs
+     ||a - b|| / ||b|| <= 1e-5, two runs bit-equal;
      CUDA-event times of every kernel and its plain version, and each
      kernel's bound: the larger of its FLOP over the card's peak and its
      bytes over 3.35 TB/s (kernel_work);
@@ -54,7 +62,13 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      with pallas_encode; pallas and pallas_save with stop_resample_grad
      False, beside whose f32 gates the plain path's own difference between
      stop_resample_grad True and False is printed, the size of the term
-     the gate must see), bf16 then f32: a one-step gradient-parity gate
+     the gate must see; and nerf.ipe_backend pallas on pallas_lean_save
+     (ipe_fwd 2 x 5 times) and on pallas_save with stop_resample_grad
+     False (ipe_fwd 2 x 5 and ipe_bwd 1 x 5 times: only the resampled
+     level's Gaussians carry a gradient), whose gate is against the plain
+     path with the default encode and, printed as such, against the plain
+     MLP on the same encode if the encodes' difference exceeds the bar),
+     bf16 then f32: a one-step gradient-parity gate
      against the same system on the plain 'xla' backend (largest leaf
      relative error <= 3e-2 bf16, bench.py's bar; <= 2e-3 f32: the two
      forwards differ by ~1e-6, which flips the ReLU masks of pre-activations
@@ -67,13 +81,27 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      F32_TURNS_BY seconds the new configurations' f32 turns are cut, never
      a gate; and one f32 gate of pallas_lean with density_noise 1.0, whose
      kernels return raw heads (act=None);
-  7. the kernels' JSON line (launches, error, times, bound, library call),
+  7. the run, through the command lines a user calls: cli.train.main on an
+     in-memory sphere scene (24 train / 2 val / 2 test views of 64x64, a
+     Blender subclass registered here that ray-traces its views instead of
+     reading files), the full-width lego model in bf16 on pallas_save with
+     stop_resample_grad False and nerf.ipe_backend pallas, 3072 rays a
+     step, 40 steps in dispatches of 5, validation and a checkpoint every
+     20 (lr_delay_steps 0, so that 40 steps move the loss): the loss of
+     step 40 is finite and below step 5's, ipe_fwd launched 2 a step and 2
+     a validation frame and ipe_bwd once a step, best/ and last/ exist; a
+     second call with --max_steps 50 (and --profile 1, which traces one
+     dispatch with torch.profiler) resumes at 40 and ends at 50; then
+     cli.eval.main on the checkpoint writes psnrs.txt / ssims.txt with
+     finite values and prints the summary; the run's rays/s and the share
+     of its wall time spent waiting on the batcher;
+  8. the kernels' JSON line (launches, error, times, bound, library call),
      the script's wall time, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --measure
 
-adds, before phase 7, the frame times at 800x800 (kernel and plain paths,
+adds, before phase 8, the frame times at 800x800 (kernel and plain paths,
 f32 and bf16, in turns k p p k), a torch.profiler table of one 200x200
 kernel-path frame, and, with the host's issue time of an unprofiled step,
 one of a bf16 train step of each lean backend, of pallas_lean_save with
@@ -85,16 +113,25 @@ exits non-zero before printing any result.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from mipnerf_pl_tpu_torch import config
+from mipnerf_pl_tpu_torch.cli import eval as eval_cli
+from mipnerf_pl_tpu_torch.cli import train as train_cli
 from mipnerf_pl_tpu_torch.convert import jax_params_to_torch
+from mipnerf_pl_tpu_torch.data.datasets import (Blender, _alpha_composite,
+                                                dataset_dict)
+from mipnerf_pl_tpu_torch.data.synthetic import (CAMERA_ANGLE_X,
+                                                 render_sphere_view)
 from mipnerf_pl_tpu_torch.kernels import _build
+from mipnerf_pl_tpu_torch.kernels import ipe as ki
 from mipnerf_pl_tpu_torch.kernels import mlp as km
 from mipnerf_pl_tpu_torch.models.mlp import LEAN_BACKENDS
 from mipnerf_pl_tpu_torch.ops.camera import Camera, pix2cam_from_focal
@@ -118,6 +155,7 @@ _RECOMPUTE = ('lean_fwd', 'lean_param_grads_recompute')
 _COMPOSITE = ('lean_composite', 'lean_composite_bwd')
 _RESAMPLE = {'nerf.stop_resample_grad': False}
 _RENDER_ENCODE = {'nerf.fuse_render': True, 'nerf.fuse_encode': True}
+_IPE = {'nerf.ipe_backend': 'pallas'}
 # Each training configuration -> (nerf.mlp_backend, the fusion options, the
 # kernels its step must launch per level).
 TRAIN_CONFIGS = {
@@ -141,9 +179,17 @@ TRAIN_CONFIGS = {
     'pallas+resample': ('pallas', _RESAMPLE, ('mlp_fwd', 'mlp_bwd_recompute')),
     'pallas_save+resample': ('pallas_save', _RESAMPLE,
                              ('mlp_save_fwd', 'mlp_bwd_saved')),
+    'pallas_lean_save+ipe': ('pallas_lean_save', _IPE, _SAVE + ('ipe_fwd',)),
+    'pallas_save+resample+ipe': ('pallas_save', {**_RESAMPLE, **_IPE},
+                                 ('mlp_save_fwd', 'mlp_bwd_saved', 'ipe_fwd',
+                                  'ipe_bwd')),
 }
+# Launches a step of the kernels that do not run once a level: only the
+# resampled level's Gaussians carry a gradient into ipe_bwd.
+PER_STEP = {'ipe_bwd': 1}
 # The configurations that train with the resample gradient (fused_mlp).
-CLASSIC_CONFIGS = ('pallas+resample', 'pallas_save+resample')
+CLASSIC_CONFIGS = ('pallas+resample', 'pallas_save+resample',
+                   'pallas_save+resample+ipe')
 # The configurations whose f32 timing turns are cut first if the run must
 # be shortened (the gates never are).
 NEW_CONFIGS = tuple(list(TRAIN_CONFIGS)[3:])
@@ -160,6 +206,10 @@ BF16_BAR = 3e-2
 F32_GATE_BAR = 2e-3     # see phase 6 in the docstring
 FRAME_BAR = 1e-3
 FORM_BAR = 1e-5         # moments vs rows form, composite backward, encode
+# The run of phase 7: views and steps.
+RUN_VIEWS = {'train': 24, 'val': 2, 'test': 2}
+RUN_SIDE = 64
+RUN_STEPS, RUN_RESUMED_STEPS, RUN_K, RUN_VAL = 40, 50, 5, 20
 ACT = (0.001, -1.0)
 # The card's published rates (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s; tensor-core FLOP/s in bf16 and for f32 as 3xTF32 (the route the
@@ -258,6 +308,12 @@ def kernel_work(name, hp, R, N, tag, form='rows'):
         return 0, 30 * M, M * 44 + R * 32
     if name == 'ipe_moments':
         return 0, 8 * M * F, M * (24 + 4 * F)
+    # The standalone IPE: an expf and a sincosf a feature pair forward; the
+    # same and the two products and sums of the VJP backward.
+    if name == 'ipe_fwd':
+        return 0, 8 * M * F, M * (24 + 4 * F)
+    if name == 'ipe_bwd':
+        return 0, 12 * M * F, M * (24 + 4 * F + 24)
     if name == 'lean_fwd':
         return fwd, decode, x_in + vproj + params + M * 16
     if name == 'lean_save_fwd':
@@ -775,6 +831,75 @@ def compare_render_bwd_and_encode(results, report, flat, args, x, view,
            cuda_ms(lambda: km.ipe_moments_plain(moments, *enc)))
 
 
+def compare_ipe_kernels(hp, dev):
+    """Phase 5, the standalone IPE (f32 in either compute dtype): ipe_fwd
+    and ipe_bwd against their plain versions on the Gaussians of a training
+    level (the stratified samples of TRAIN_RAYS seeded rays, a seeded
+    cotangent), with the covariances and with them zeroed (as
+    disable_integration hands them over), and on a ragged number of them;
+    two runs bit-equal.  dmeans reach ~1e5 and dcovs ~1e9, so they are held
+    by ||a - b|| / ||b||."""
+    deg = (hp['nerf.min_deg_point'], hp['nerf.max_deg_point'])
+    rays, _ = train_batch(TRAIN_RAYS, dev, seed=1)
+    _, (means, covs) = sample_along_rays(
+        rays.origins, rays.directions, rays.radii, hp['nerf.num_samples'],
+        rays.near, rays.far, False, False, 'cone')
+    means = means.reshape(-1, 3).contiguous()
+    covs = covs.reshape(-1, 3).contiguous()
+    M = means.shape[0]
+    rng = np.random.default_rng(4)
+    g = torch.tensor(rng.normal(size=(M, 6 * (deg[1] - deg[0]))
+                                ).astype(np.float32), device=dev)
+
+    def rel(a, b):
+        return float(torch.linalg.norm((a - b).double())
+                     / torch.linalg.norm(b.double()))
+
+    worst = {'fwd': 0.0, 'bwd': 0.0, 'bwd_abs': 0.0}
+    same = True
+    ragged = M - 77
+    cases = (('covs', means, covs, g), ('covs = 0', means,
+                                        torch.zeros_like(covs), g),
+             ('ragged', means[:ragged], covs[:ragged], g[:ragged]))
+    for label, m, c, gg in cases:
+        out, again = ki.ipe_fwd(m, c, *deg), ki.ipe_fwd(m, c, *deg)
+        dm, dc = ki.ipe_bwd(m, c, gg, *deg)
+        dm2, dc2 = ki.ipe_bwd(m, c, gg, *deg)
+        want = ki.ipe_fwd_plain(m, c, *deg)
+        rm, rc = ki.ipe_bwd_plain(m, c, gg, *deg)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, dm, dc))
+        f_err = float((out - want).abs().max()) if finite else float('inf')
+        b_err = max(rel(dm, rm), rel(dc, rc)) if finite else float('inf')
+        equal = (torch.equal(out, again) and torch.equal(dm, dm2)
+                 and torch.equal(dc, dc2))
+        log(f'[kernel] ipe_fwd / ipe_bwd, {label}, {m.shape[0]:,} points: '
+            f'forward max|d| {f_err:.3e}; dmeans {rel(dm, rm):.3e} dcovs '
+            f'{rel(dc, rc):.3e} of their norms (max |dmeans| '
+            f'{float(rm.abs().max()):.3e}, max |dcovs| '
+            f'{float(rc.abs().max()):.3e}); two runs bit-equal {equal}')
+        worst['fwd'] = max(worst['fwd'], f_err)
+        worst['bwd'] = max(worst['bwd'], b_err)
+        worst['bwd_abs'] = max(worst['bwd_abs'],
+                               float((dm - rm).abs().max()),
+                               float((dc - rc).abs().max()))
+        same = same and equal
+        del out, again, dm, dc, dm2, dc2, want, rm, rc
+    results = {}
+    report = reporter(results, hp)
+    report('ipe_fwd', 'f32', same and worst['fwd'] <= FORM_BAR,
+           f'max|d| {worst["fwd"]:.3e} over the three cases (<= {FORM_BAR})',
+           worst['fwd'], cuda_ms(lambda: ki.ipe_fwd(means, covs, *deg)),
+           cuda_ms(lambda: ki.ipe_fwd_plain(means, covs, *deg)))
+    report('ipe_bwd', 'f32', same and worst['bwd'] <= FORM_BAR,
+           f'||a - b|| / ||b|| {worst["bwd"]:.3e} over dmeans, dcovs and the '
+           f'three cases (<= {FORM_BAR}); max|d| {worst["bwd_abs"]:.3e}',
+           worst['bwd_abs'],
+           cuda_ms(lambda: ki.ipe_bwd(means, covs, g, *deg)),
+           cuda_ms(lambda: ki.ipe_bwd_plain(means, covs, g, *deg)))
+    return results
+
+
 def compare_classic_kernels(params, hp, dev):
     """Phase 5, fused_mlp's kernels at the lego level shape, the view rows
     per point (the level's view repeated over the samples, as MLP._pallas
@@ -890,9 +1015,14 @@ def gradient_gate(hp, params, rays, pixels, dev, label, resample_term=False):
     system.  resample_term: also the plain path with stop_resample_grad
     True, whose difference from the plain path is the size of the
     resample gradient the gate must see."""
-    plain = dict(hp, **{'nerf.mlp_backend': 'xla'})
+    plain = dict(hp, **{'nerf.mlp_backend': 'xla', 'nerf.ipe_backend': 'xla'})
     systems = {'kernel': MipNeRFSystem(hp, device=dev),
                'plain': MipNeRFSystem(plain, device=dev)}
+    if hp.get('nerf.ipe_backend') == 'pallas':
+        # The plain MLP on the kernel's encode: what the gate falls back to
+        # if the two encodes' cosine halves differ by more than the bar.
+        systems['plain+ipe'] = MipNeRFSystem(
+            dict(plain, **{'nerf.ipe_backend': 'pallas'}), device=dev)
     if resample_term:
         systems['stopped'] = MipNeRFSystem(
             dict(plain, **{'nerf.stop_resample_grad': True}), device=dev)
@@ -912,6 +1042,16 @@ def gradient_gate(hp, params, rays, pixels, dev, label, resample_term=False):
                                      sorted(params))
         term = (f'; the plain path with stop_resample_grad True differs '
                 f'from it by {t_err:.3e} ({t_leaf})')
+    if 'plain+ipe' in grads:
+        s_err, s_leaf = leaf_rel_err(grads['kernel'], grads['plain+ipe'],
+                                     sorted(params))
+        term += (f'; vs the plain MLP on the kernel encode {s_err:.3e} '
+                 f'({s_leaf})')
+        if err > bar:
+            log(f'[train] {label}: the default encode\'s gradients differ '
+                f'by {err:.3e} ({leaf}) > {bar}; the gate is held against '
+                f'the plain MLP on nerf.ipe_backend pallas')
+            err, leaf = s_err, s_leaf
     log(f'[train] {label} one-step gradient parity vs xla: max leaf rel err '
         f'{err:.3e} ({leaf}, <= {bar}) {"OK" if err <= bar else "FAIL"}'
         f'{term}')
@@ -965,9 +1105,13 @@ def train_slice(hp0, params, dev):
                 f'{np.array2string(losses, precision=5)}; first call '
                 f'{sec:.3f} s')
             for name in names:
-                if run_counts[name] != levels * K:
+                expected = PER_STEP.get(name, levels) * K
+                if run_counts[name] != expected:
                     raise AssertionError(f'{name} launched {run_counts[name]}'
-                                         f' times, expected {levels * K}')
+                                         f' times, expected {expected}')
+            for name in ('ipe_fwd', 'ipe_bwd'):
+                if name not in names and run_counts[name]:
+                    raise AssertionError(f'{label} launched {name}')
             if run_counts['lean_mlp']:
                 raise AssertionError(f'{label}: the training step launched '
                                      'the render-only lean_mlp')
@@ -1124,6 +1268,113 @@ def measure(hp, params, dev):
         del systr, state
 
 
+class SphereViews(Blender):
+    """The synthetic sphere scene of data/synthetic.py held in memory: the
+    views make_sphere_scene would write (the same orbit poses and strides),
+    ray-traced by render_sphere_view and composited as the file path
+    composites them, with no image file read or written."""
+
+    def _load_renderings(self):
+        n = RUN_VIEWS[self.split]
+        poses = create_spheric_poses(4.0, n_poses=max(n * 3,
+                                                      RUN_VIEWS['train']))
+        poses = poses[::max(1, len(poses) // max(n, 1))][:n]
+        self.camtoworlds, self.images = [], []
+        for pose in poses:
+            c2w = np.eye(4)
+            c2w[:3, :4] = pose
+            rgba = render_sphere_view(c2w, RUN_SIDE).astype(np.float32)
+            self.camtoworlds.append(c2w.astype(np.float32))
+            self.images.append(_alpha_composite(rgba, self.white_bkgd))
+        self.h = self.w = RUN_SIDE
+        self.focal = 0.5 * self.w / np.tan(0.5 * CAMERA_ANGLE_X)
+
+
+def whole_run(hp0):
+    """Phase 7: train CLI -> checkpoint -> resume -> eval CLI on the
+    in-memory sphere scene; -> the launch counts of the first train call."""
+    dataset_dict['sphere_memory'] = SphereViews
+    levels = hp0['nerf.num_levels']
+    with tempfile.TemporaryDirectory() as out_dir:
+        def train_args(max_steps):
+            return ['--data_path', 'memory', '--out_dir', out_dir,
+                    '--dataset_name', 'sphere_memory', '--max_steps',
+                    str(max_steps), 'exp_name', 'smoke',
+                    'train.compute_dtype', 'bfloat16', 'nerf.mlp_backend',
+                    'pallas_save', 'nerf.stop_resample_grad', 'False',
+                    'nerf.ipe_backend', 'pallas', 'train.batch_size',
+                    str(TRAIN_RAYS), 'train.steps_per_call', str(RUN_K),
+                    'val.check_interval', str(RUN_VAL), 'val.sample_num', '1',
+                    'optimizer.lr_delay_steps', '0']
+
+        km.reset_launches()
+        system, state = train_cli.main(train_args(RUN_STEPS))
+        counts = dict(km.launches)
+        stats = system.fit_stats
+        log(f'[run] cli.train {RUN_STEPS} steps of {TRAIN_RAYS} rays, bf16 '
+            f'pallas_save + resample + ipe_backend pallas: loss '
+            f'{stats["loss_first"]:.5f} at step {RUN_K} -> '
+            f'{stats["loss_last"]:.5f} at step {RUN_STEPS}; '
+            f'{stats["rays_per_sec"]:,.0f} rays/s over the training time; '
+            f'the loop waited on the batcher for '
+            f'{100 * stats["data_wait_share"]:.2f} % of its '
+            f'{stats["loop_seconds"]:.2f} s; launches '
+            f'{ {k: v for k, v in counts.items() if v} }')
+        if state['step'] != RUN_STEPS or stats['steps'] != RUN_STEPS:
+            raise AssertionError(f'the run ended at step {state["step"]}')
+        if not (np.isfinite(stats['loss_last'])
+                and stats['loss_last'] < stats['loss_first']):
+            raise AssertionError(f'the loss did not fall: {stats}')
+        # 2 encodes a step, and 2 a chunk of a validation frame (the sanity
+        # frame and one at each validation); the VJP once a step.
+        chunks = (1 + RUN_STEPS // RUN_VAL) * -(-RUN_SIDE ** 2
+                                                // system.val_chunk_size)
+        want = {'ipe_fwd': levels * (RUN_STEPS + chunks), 'ipe_bwd': RUN_STEPS,
+                'mlp_save_fwd': levels * RUN_STEPS,
+                'mlp_bwd_saved': levels * RUN_STEPS}
+        if any(counts[k] != want.get(k, 0) for k in counts):
+            raise AssertionError(f'the run launched {counts}, expected '
+                                 f'{want} and nothing else')
+        ckpt_dir = os.path.join(out_dir, 'ckpt', 'smoke')
+        best = sorted(os.listdir(os.path.join(ckpt_dir, 'best')), key=int)
+        last = os.listdir(os.path.join(ckpt_dir, 'last'))
+        log(f'[run] checkpoints: best {best} last {last}')
+        if best != [str(RUN_VAL), str(RUN_STEPS)] or last != [str(RUN_STEPS)]:
+            raise AssertionError('unexpected checkpoints')
+
+        # The resumed call also traces its second dispatch (--profile).
+        system, state = train_cli.main(['--profile', '1']
+                                       + train_args(RUN_RESUMED_STEPS))
+        resumed = system.fit_stats['steps']
+        if not os.path.exists(os.path.join(out_dir, 'logs', 'smoke',
+                                           'train_dispatch.json')):
+            raise AssertionError('--profile wrote no trace')
+        log(f'[run] second call with --max_steps {RUN_RESUMED_STEPS}: '
+            f'{resumed} more steps, ended at step {state["step"]}, loss '
+            f'{system.fit_stats["loss_last"]:.5f}')
+        if (state['step'] != RUN_RESUMED_STEPS
+                or resumed != RUN_RESUMED_STEPS - RUN_STEPS
+                or not np.isfinite(system.fit_stats['loss_last'])):
+            raise AssertionError('the second call did not resume at step '
+                                 f'{RUN_STEPS}')
+
+        summary = eval_cli.main(['--ckpt', ckpt_dir, '--out_dir', out_dir,
+                                 '--scale', '1', '--no_video', '--chunk_size',
+                                 str(CHUNK)])
+        values = {}
+        for name in ('psnrs', 'ssims'):
+            with open(os.path.join(out_dir, 'test', 'smoke',
+                                   f'{name}.txt')) as f:
+                values[name] = [float(v) for v in f.read().split()]
+        log(f'[run] cli.eval: {values}; summary {summary}')
+        if (any(len(v) != RUN_VIEWS['test'] or not np.all(np.isfinite(v))
+                for v in values.values())
+                or not all(np.isfinite(float(v))
+                           for v in summary.split(' | '))):
+            raise AssertionError('eval wrote no finite metrics')
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this run needs an NVIDIA GPU',
@@ -1215,21 +1466,50 @@ def main() -> int:
         raise AssertionError('the pallas frame disagrees with the plain path')
     del pallas_system
 
+    # The same frame with nerf.ipe_backend pallas: val.mlp_backend auto then
+    # renders through the plain MLP, the encode through ipe_fwd.
+    ipe_system = MipNeRFSystem(dict(hp, **_IPE), device=dev)
+    if ipe_system.eval_model.mlp_backend != 'xla':
+        raise AssertionError('ipe_backend pallas kept a fused render backend')
+    render_frame(ipe_system, params, cam)
+    km.reset_launches()
+    out_i, s_ipe = render_frame(ipe_system, params, cam)
+    counts_i = dict(km.launches)
+    d_rgb = float(np.abs(out_i['fine_rgb'] - ref['fine_rgb']).max())
+    d_acc = float(np.abs(out_i['acc'] - ref['acc']).max())
+    log(f'[slice] nerf.ipe_backend pallas: {s_ipe:.3f} s/frame; launches '
+        f'{ {k: v for k, v in counts_i.items() if v} }; vs the plain frame '
+        f'on the default encode max|d rgb| {d_rgb:.3e} max|d acc| '
+        f'{d_acc:.3e} (bar {FRAME_BAR})')
+    if any(counts_i[k] != (want if k == 'ipe_fwd' else 0) for k in counts_i):
+        raise AssertionError(f'expected {want} launches of ipe_fwd alone, got'
+                             f' {counts_i}')
+    if d_rgb > FRAME_BAR or d_acc > FRAME_BAR or not all(
+            np.all(np.isfinite(v)) for v in out_i.values()):
+        raise AssertionError('the ipe_backend pallas frame disagrees with '
+                             'the plain path')
+    del ipe_system
+
     # Phases 5 and 6: the training kernels and the training slice.
     results.update(compare_train_kernels(params, hp, dev))
     results.update(compare_classic_kernels(params, hp, dev))
+    results.update(compare_ipe_kernels(hp, dev))
     train_counts = train_slice(hp, params, dev)
+    run_counts = whole_run(hp)
     if '--measure' in sys.argv[1:]:
         measure(hp, params, dev)
 
     # Each kernel's f32 numbers at its phase-3 or phase-5 shape, with its
     # launches on its path: the render kernels in phase 4's frame, each
-    # training kernel in the first configuration of phase 6 that runs it.
+    # training kernel in the first configuration of phase 6 that runs it,
+    # the standalone IPE kernels in phase 7's first train call.
     kernels = []
     for name, (source, replaces) in km.KERNELS.items():
         r = results[(name, 'f32')]
         if name in RENDER_KERNELS:
             path_counts = counts
+        elif name in ('ipe_fwd', 'ipe_bwd'):
+            path_counts = run_counts
         else:
             path_counts = next(train_counts[label] for label, (_, _, names)
                                in TRAIN_CONFIGS.items() if name in names)

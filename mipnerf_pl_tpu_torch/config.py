@@ -2,13 +2,17 @@
 
 Counterpart of mipnerf_pl_tpu/config.py.  The default schema is the
 flattened form of mipnerf_pl_tpu/configs/default.yaml, held here as a
-Python dict so that importing the port needs no YAML parser; `load` imports
-`yaml` only when it reads a file.  INERT_KEYS are accepted so the same
-configs load, and have no effect in the port; setting one warns.
+Python dict so that importing the port needs no YAML parser; `load` and
+`save` import `yaml` only when they touch a file.  The merge order of
+`parse_args` is defaults <- --config file <- the positional `opts`
+key/value remainder <- the argparse namespace's other keys.  INERT_KEYS are
+accepted so the same configs load, and have no effect in the port; setting
+one warns.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import warnings
 from ast import literal_eval
@@ -124,6 +128,10 @@ def load(fname: str) -> dict:
         return _parse_dict(yaml.safe_load(fp))
 
 
+def merge_from_file(config: dict, fname: str) -> None:
+    config.update(load(fname))
+
+
 def merge_from_list(config: dict, list_merge) -> None:
     """Merge a flat [key, value, key, value, ...] list (the CLI remainder)."""
     if len(list_merge) % 2 != 0:
@@ -150,3 +158,37 @@ def warn_inert_keys(config: dict) -> None:
             warnings.warn(f'config key {k!r} is accepted for schema parity '
                           'but has no effect in mipnerf_pl_tpu_torch',
                           stacklevel=2)
+
+
+def parse_args(parser: argparse.ArgumentParser, argv=None) -> dict:
+    """defaults <- --config file <- `opts` remainder <- argparse keys
+    (`argv` None reads sys.argv)."""
+    args = parser.parse_args(argv)
+    config = default()
+    if getattr(args, 'config', None) is not None:
+        merge_from_file(config, args.config)
+    if getattr(args, 'opts', None):
+        merge_from_list(config, args.opts)
+    for k, v in vars(args).items():
+        if k not in config:
+            config[k] = v
+    warn_inert_keys(config)
+    return config
+
+
+def to_nested(config: dict) -> dict:
+    """Dotted-key dict -> nested dict (for YAML round-tripping)."""
+    out: dict = {}
+    for k, v in config.items():
+        parts = k.split('.')
+        node = out
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = list(v) if isinstance(v, tuple) else v
+    return out
+
+
+def save(config: dict, fname: str) -> None:
+    import yaml
+    with open(fname, 'w') as fp:
+        yaml.safe_dump(to_nested(config), fp, sort_keys=False)

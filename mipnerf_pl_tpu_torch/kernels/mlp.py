@@ -97,7 +97,8 @@ launches = {'lean_view_proj': 0, 'lean_mlp': 0, 'lean_composite': 0,
             'lean_save_fwd': 0, 'lean_param_grads': 0, 'lean_fwd': 0,
             'lean_param_grads_recompute': 0, 'lean_param_grads_hybrid': 0,
             'lean_composite_bwd': 0, 'ipe_moments': 0, 'mlp_fwd': 0,
-            'mlp_bwd_recompute': 0, 'mlp_save_fwd': 0, 'mlp_bwd_saved': 0}
+            'mlp_bwd_recompute': 0, 'mlp_save_fwd': 0, 'mlp_bwd_saved': 0,
+            'ipe_fwd': 0, 'ipe_bwd': 0}
 
 # Kernel name -> (source, the Pallas kernel it replaces).
 _RENDER_CU = 'mipnerf_pl_tpu_torch/csrc/lean_render.cu'
@@ -120,6 +121,9 @@ KERNELS = {
     'mlp_bwd_recompute': (_TRAIN_CU, 'mipnerf_pl_tpu/kernels/mlp.py:291'),
     'mlp_save_fwd': (_TRAIN_CU, 'mipnerf_pl_tpu/kernels/mlp.py:183'),
     'mlp_bwd_saved': (_TRAIN_CU, 'mipnerf_pl_tpu/kernels/mlp.py:206'),
+    # The standalone IPE and its VJP: wrappers in kernels/ipe.py.
+    'ipe_fwd': (_IPE_CU, 'mipnerf_pl_tpu/kernels/ipe.py:40'),
+    'ipe_bwd': (_IPE_CU, 'mipnerf_pl_tpu/kernels/ipe.py:55'),
 }
 
 MAX_WIDTH = 256     # widest dense layer the CUDA column tiling covers
@@ -632,6 +636,8 @@ _ARGTYPES = {
     'lean_composite': [_P] * 5 + [_I] * 3 + [_P],
     'lean_composite_bwd': [_P] * 7 + [_I] * 3 + [_P],
     'ipe_moments': [_P] * 2 + [_I] * 3 + [_P],
+    'ipe_fwd': [_P] * 3 + [_I] * 3 + [_P],
+    'ipe_bwd': [_P] * 5 + [_I] * 3 + [_P],
     'lean_fwd': [_P] * 4 + [_I] + [_P] * 2 + [_F, _F, _I, _I, _P],
     'lean_save_fwd': [_P] * 4 + [_I] + [_P] * 4 + [_F, _F, _I, _I, _P],
     'lean_param_grads': [_P] * 2 + _GRAD_TAIL,
@@ -768,10 +774,17 @@ def lean_composite_bwd(rgbsig, delta, mids, g_perray, g_w, white_bkgd: bool):
 
 def ipe_moments(moments, min_deg: int, max_deg: int):
     """[6, M] f32 moments (means xyz | diagonal covs xyz) -> [M, 6L] f32
-    IPE encode rows, L = max_deg - min_deg.  A call on the detached input:
-    the moments get no gradient, as the JAX fused_ipe_moments gives them
-    zero cotangents (its callers train behind stop_resample_grad)."""
-    moments = moments.detach()
+    IPE encode rows, L = max_deg - min_deg.  The moments form gives its
+    input no gradient (the JAX fused_ipe_moments returns zero cotangents:
+    its callers train behind stop_resample_grad), so moments that require
+    one are refused rather than silently detached."""
+    if torch.is_grad_enabled() and moments.requires_grad:
+        raise ValueError(
+            'ipe_moments: the moments require a gradient, which the moments '
+            'form of the encode does not give; train with '
+            'nerf.stop_resample_grad (which detaches the resampled '
+            'fenceposts) or encode with kernels.ipe.fused_ipe '
+            '(nerf.ipe_backend: pallas), whose backward returns it')
     if _on_cpu(moments, 'ipe_moments'):
         return ipe_moments_plain(moments, min_deg, max_deg)
     L = max_deg - min_deg

@@ -34,10 +34,15 @@ encode here is libm-exact.  It only gates `pallas_encode`, as in JAX.
 MipNeRFSystem's eval model (val.mlp_backend='auto') takes fuse_render and
 fuse_encode for rendering.
 
+`ipe_backend='pallas'` (any MLP backend) encodes with `fused_ipe`
+(kernels/ipe.py: the standalone IPE kernel, whose backward kernel returns
+the Gaussians' cotangents, so it also serves stop_resample_grad False); it
+turns the two kernel encodes above off, as in JAX, and computes the cosine
+half as the cosine where the default 'xla' encode takes sin(y + pi/2).
+
 Knobs that steer TPU-only machinery (`channel_major`, `lean_input_cast`,
-`mxu_cumsum`) are accepted and have no effect.  The unbounded-360 mode and
-`ipe_backend='pallas'` are not ported yet (the IPE's backward is plain
-autograd, JAX's default 'xla').
+`mxu_cumsum`) are accepted and have no effect.  The unbounded-360 mode is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from mipnerf_pl_tpu_torch.kernels.ipe import fused_ipe
 from mipnerf_pl_tpu_torch.kernels.mlp import ipe_moments
 from mipnerf_pl_tpu_torch.models.mlp import (LEAN_BACKENDS, MLP,
                                              RENDER_BACKENDS)
@@ -101,9 +107,9 @@ class MipNerf(nn.Module):
             raise TypeError(f'unknown MipNerf options: {sorted(unknown)}')
         if unbounded:
             raise NotImplementedError('unbounded-360 mode is not ported yet')
-        if ipe_backend != 'xla':
-            raise NotImplementedError(f'ipe_backend={ipe_backend!r} is not '
-                                      'ported yet')
+        if ipe_backend not in ('xla', 'pallas'):
+            raise ValueError(f'ipe_backend must be "xla" or "pallas", got '
+                             f'{ipe_backend!r}')
         if rgb_activation != 'sigmoid':
             raise NotImplementedError(rgb_activation)
         if density_activation not in ('softplus', 'relu'):
@@ -134,6 +140,7 @@ class MipNerf(nn.Module):
         self.rgb_padding = rgb_padding
         self.disable_integration = disable_integration
         self.append_identity = append_identity
+        self.ipe_backend = ipe_backend
         self.mlp_backend = mlp_backend
         # The lean kernels apply the default head activations themselves;
         # density noise sits between raw head and activation, so fusion
@@ -229,7 +236,10 @@ class MipNerf(nn.Module):
                 means, covs = means_covs
                 if self.disable_integration:
                     covs = torch.zeros_like(covs)
-                samples_enc = integrated_pos_enc((means, covs), *degrees)
+                if self.ipe_backend == 'pallas':
+                    samples_enc = fused_ipe(means, covs, *degrees)
+                else:
+                    samples_enc = integrated_pos_enc((means, covs), *degrees)
 
             if self._fused_render:
                 delta, mids = delta_mids(t_samples, rays.directions)

@@ -1,4 +1,4 @@
-"""MipNeRFSystem: the training step and the renders.
+"""MipNeRFSystem: the training step, the renders and the fit loop.
 
 Counterpart of mipnerf_pl_tpu/train/system.py.
 
@@ -18,11 +18,21 @@ its results sliced away) in a Python loop; there is no jit to build.
 Parameters are passed in, as in the JAX system, as the MipNerf state dict
 (convert.py maps a flax tree to it).
 
-Data loading, `fit`, checkpoints and the CLIs are not ported yet.
+The run: `setup` builds the train / val datasets and the prefetching
+TrainBatcher, `validate` renders val images (through `camera()` where the
+dataset has one) and returns the mean loss and PSNR, and `fit` is the whole
+training run: data, K-step dispatches over the batcher, the log line,
+validation with val_history.csv, a checkpoint after each validation (top-k
+by val PSNR plus the last) and resume.  cli/train.py and cli/eval.py are the
+command lines over it.  TensorBoard events are written when `tensorboardX`
+imports; the CSV and the log lines always are.  The image and depth panels
+of the JAX package's validation writer are not ported.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -30,11 +40,14 @@ import torch
 from torch.func import functional_call
 
 from mipnerf_pl_tpu_torch import config
+from mipnerf_pl_tpu_torch.data.datasets import dataset_dict
+from mipnerf_pl_tpu_torch.data.pipeline import TrainBatcher
 from mipnerf_pl_tpu_torch.models.mipnerf import make_mipnerf_from_hparams
 from mipnerf_pl_tpu_torch.ops.camera import Camera, camera_rays
 from mipnerf_pl_tpu_torch.ops.render import distloss
 from mipnerf_pl_tpu_torch.rays import (Rays, namedtuple_map, rays_flatten,
                                        rays_pad_to)
+from mipnerf_pl_tpu_torch.train.ckpt import CheckpointManager
 from mipnerf_pl_tpu_torch.train.opt import adam, adam_step
 from mipnerf_pl_tpu_torch.train.schedule import mip_lr_decay
 from mipnerf_pl_tpu_torch.utils.metrics import calc_psnr
@@ -53,6 +66,57 @@ def _render_fusion_ok(hparams: Dict[str, Any]) -> bool:
             and int(hparams['nerf.mlp.net_depth_condition']) >= 1
             and not bool(hparams.get('nerf.unbounded', False))
             and str(hparams.get('nerf.ipe_backend', 'xla')) == 'xla')
+
+
+def make_dataset(hparams: Dict[str, Any], dataset_name: str, data_path: str,
+                 split: str):
+    """The `split` of a registered dataset under data_path, built from the
+    hparams: the train split from the `train.*` keys, val and test from
+    the `val.*` keys, and `data.factor` where it is set.  Training and eval
+    both build their datasets here, so a checkpoint evaluates at the
+    resolution it trained at."""
+    extra = {}
+    factor = hparams.get('data.factor')
+    if factor is not None and str(factor) != 'None':
+        extra['factor'] = int(factor)
+    prefix = 'train' if split == 'train' else 'val'
+    return dataset_dict[dataset_name](
+        data_dir=data_path, split=split,
+        white_bkgd=hparams[f'{prefix}.white_bkgd'],
+        batch_type=hparams[f'{prefix}.batch_type'], **extra)
+
+
+class SimpleProfiler:
+    """Wall time per phase of the fit loop, printed at its end."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+
+    def add(self, name: str, dt: float):
+        self.totals[name] = self.totals.get(name, 0.0) + dt
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+    def summary(self) -> str:
+        lines = ['profiler summary (phase: total s | calls | mean ms):']
+        for name, total in sorted(self.totals.items(),
+                                  key=lambda kv: -kv[1]):
+            n = self.counts[name]
+            lines.append(f'  {name:16s} {total:10.2f} | {n:6d} | '
+                         f'{total / n * 1e3:10.2f}')
+        return '\n'.join(lines)
+
+
+def _summary_writer(logdir: str):
+    """A tensorboardX SummaryWriter on logdir, or None (said once) where
+    the package is missing."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        print('tensorboardX is not installed: TensorBoard events are not '
+              'written (val_history.csv and the log lines are)', flush=True)
+        return None
+    return SummaryWriter(logdir)
 
 
 def _compute_dtype(hparams) -> torch.dtype:
@@ -106,6 +170,12 @@ class MipNeRFSystem:
         self.train_randomized = bool(hparams['train.randomized'])
         self.white_bkgd = bool(hparams['train.white_bkgd'])
         self.val_chunk_size = int(hparams['val.chunk_size'])
+        self.batch_size = int(hparams['train.batch_size'])
+        self.train_dataset = None
+        self.val_dataset = None
+        self.batcher = None
+        # What the last fit() measured (see fit).
+        self.fit_stats: Dict[str, float] = {}
         self.lr_schedule = mip_lr_decay(
             hparams['optimizer.lr_init'], hparams['optimizer.lr_final'],
             hparams['optimizer.max_steps'],
@@ -139,6 +209,36 @@ class MipNeRFSystem:
                   .requires_grad_(True) for k, v in params.items()}
         return {'params': params, 'opt_state': adam(list(params.values())),
                 'step': 0}
+
+    def host_state(self, state) -> Dict[str, Any]:
+        """The state as a checkpoint holds it: CPU tensors, the optimizer
+        as its state dict (the Adam moments in parameter order)."""
+        return {'params': {k: v.detach().cpu()
+                           for k, v in state['params'].items()},
+                'opt_state': state['opt_state'].state_dict(),
+                'step': int(state['step'])}
+
+    def load_state(self, host: Dict[str, Any]) -> Dict[str, Any]:
+        """A training state on the system's device from `host_state`'s
+        form."""
+        state = self.init_state(params=host['params'])
+        state['opt_state'].load_state_dict(host['opt_state'])
+        state['step'] = int(host['step'])
+        return state
+
+    # -- data ------------------------------------------------------------
+    def setup(self, data_path: str, dataset_name: str, prefetch: int = 2,
+              seed: Optional[int] = None, steps_per_call: int = 1):
+        """Build the train and val datasets and the train batcher."""
+        self.train_dataset = make_dataset(self.hparams, dataset_name,
+                                          data_path, 'train')
+        self.val_dataset = make_dataset(self.hparams, dataset_name,
+                                        data_path, 'val')
+        self.batcher = TrainBatcher(
+            self.train_dataset, self.batch_size,
+            seed=int(self.hparams['seed'] if seed is None else seed),
+            prefetch=prefetch, steps_per_call=steps_per_call,
+            device=self.device)
 
     def _on_device(self, x):
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
@@ -290,3 +390,237 @@ class MipNeRFSystem:
         return self._to_image(
             self._render_flat(params, rays_flatten(rays), chunk, generator,
                               need_coarse), h, w)
+
+    def validate(self, state, num_images: int, writer=None,
+                 global_step: int = 0, start_index: int = 0):
+        """Render `num_images` val images from start_index on (cyclic);
+        log and return the mean loss (coarse_loss_mult * coarse MSE + fine
+        MSE, masked by lossmult) and the mean fine PSNR."""
+        val_losses, val_psnrs = [], []
+        n = len(self.val_dataset)
+        for i in range(num_images):
+            index = (start_index + i) % n
+            rays, rgb_gt = self.val_dataset[index]
+            # NotImplementedError is caught around the accessor only ("this
+            # dataset has no single-camera form"); one raised inside the
+            # render is a misconfiguration and propagates.
+            try:
+                cam, (ch, cw) = self.val_dataset.camera(index)
+            except NotImplementedError:
+                cam = None
+            if cam is not None:
+                out = self.render_camera(state['params'], cam, ch, cw)
+            else:
+                out = self.render_image(state['params'], rays)
+            gt = rgb_gt[..., :3]
+            mask = np.broadcast_to(np.asarray(rays.lossmult),
+                                   (*gt.shape[:-1], 1))
+            mse_c = (mask * (out['coarse_rgb'] - gt) ** 2).sum() / mask.sum()
+            mse_f = (mask * (out['fine_rgb'] - gt) ** 2).sum() / mask.sum()
+            val_losses.append(self.coarse_loss_mult * mse_c + mse_f)
+            val_psnrs.append(
+                -10.0 * np.log10(np.mean((out['fine_rgb'] - gt) ** 2)))
+        mean_loss = float(np.mean(val_losses))
+        mean_psnr = float(np.mean(val_psnrs))
+        if writer is not None:
+            writer.add_scalar('val/loss', mean_loss, global_step)
+            writer.add_scalar('val/psnr', mean_psnr, global_step)
+        return mean_loss, mean_psnr
+
+    def _synchronize(self):
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+
+    def _profiled_dispatch(self, dispatch, trace_dir: str):
+        """Run dispatch() under torch.profiler and write its chrome trace
+        and kernel table; a tracing failure is reported, never raised (the
+        dispatch then runs unprofiled if it had not run)."""
+        ran = False
+        try:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == 'cuda':
+                acts.append(ProfilerActivity.CUDA)
+            with profile(activities=acts) as prof:
+                dispatch()
+                ran = True
+                self._synchronize()
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir,
+                                                  'train_dispatch.json'))
+            print(prof.key_averages().table(row_limit=15), flush=True)
+            print(f'--profile: trace written to {trace_dir}', flush=True)
+        except Exception as e:  # tracing must never end the training run
+            print(f'--profile: trace failed ({e!r}); continuing', flush=True)
+            if not ran:
+                dispatch()
+
+    def fit(self, data_path: str, dataset_name: str, out_dir: str,
+            max_steps: Optional[int] = None, log_every: int = 100,
+            resume_path: Optional[str] = None, verbose: bool = True):
+        """Full training run: data, loop, validation, checkpoints, logs.
+        Returns the final state.  `self.fit_stats` then holds the run's
+        rays/s over its training time (loop wall time less validation and
+        checkpointing), the share of the loop's wall time spent waiting on
+        the batcher, and the loss of the last step of its first and of its
+        last dispatch."""
+        hp = self.hparams
+        # The data binding goes into the checkpoint's hparams: eval restores
+        # from the checkpoint directory alone.
+        hp['dataset_name'] = dataset_name
+        hp['data_path'] = data_path
+        exp_name = hp['exp_name']
+        max_steps = int(max_steps or hp['optimizer.max_steps'])
+        val_interval = int(hp['val.check_interval'])
+        val_sample_num = int(hp['val.sample_num'])
+
+        # K steps per make_train_many call; the val and log intervals are
+        # rounded up to multiples of K.
+        spc = int(hp.get('train.steps_per_call', 20) or 1)
+        spc = max(1, min(spc, val_interval, max_steps))
+        val_interval = ((val_interval + spc - 1) // spc) * spc
+        log_every = max(spc, ((log_every + spc - 1) // spc) * spc)
+
+        self.setup(data_path, dataset_name, steps_per_call=spc)
+        ckpt_dir = os.path.join(out_dir, 'ckpt', exp_name)
+        ckpt = CheckpointManager(
+            ckpt_dir, hparams=hp,
+            save_top_k=int(hp.get('checkpoint.save_top_k', 2)))
+        # An explicit resume_path wins; otherwise a run restarted with the
+        # same out_dir continues from its own `last` checkpoint.
+        resume_from = None
+        explicit = resume_path or hp.get('checkpoint.resume_path')
+        if explicit and str(explicit) != 'None':
+            resume_from = str(explicit)
+        elif (hp.get('checkpoint.auto_resume', True)
+              and ckpt.latest_step() is not None):
+            resume_from = ckpt_dir
+        start_step = 0
+        if resume_from:
+            start_step, host = CheckpointManager(resume_from).restore_last()
+            state = self.load_state(host)
+            if verbose:
+                print(f'resumed from {resume_from} at step {start_step}',
+                      flush=True)
+        else:
+            state = self.init_state()
+
+        log_dir = os.path.join(out_dir, 'logs', exp_name)
+        os.makedirs(log_dir, exist_ok=True)
+        writer = _summary_writer(log_dir)
+        base_seed = int(hp['seed'])
+
+        # Sanity validation before any training.
+        self.validate(state, 1, writer=None, global_step=start_step)
+
+        train_many = self.make_train_many()
+        prof = SimpleProfiler()
+        profile_steps = int(hp.get('profile', 0) or 0)
+
+        def next_shaped(remaining):
+            """A batch as a [k, ...] dispatch stack (k <= spc; ragged on
+            the final call only)."""
+            rays, pixels = next(self.batcher)
+            if spc == 1:
+                rays = namedtuple_map(lambda x: x[None], rays)
+                pixels = pixels[None]
+            k = min(spc, remaining)
+            if k < spc:
+                rays = namedtuple_map(lambda x: x[:k], rays)
+                pixels = pixels[:k]
+            return rays, pixels, k
+
+        t_loop = t0 = time.time()
+        rays_since_log = rays_total = 0
+        val_cursor = 0
+        dispatch_index = 0
+        first_aux = aux = None
+        step = start_step
+        try:
+            while step < max_steps:
+                t_data = time.time()
+                rays, pixels, k = next_shaped(max_steps - step)
+                prof.add('data', time.time() - t_data)
+                t_step = time.time()
+                if profile_steps > 0 and dispatch_index == 1:
+                    # The second dispatch: every kernel is built and warm.
+                    out = {}
+
+                    def dispatch():
+                        out['state'], out['aux'] = train_many(
+                            state, rays, pixels, base_seed)
+                    self._profiled_dispatch(dispatch, log_dir)
+                    state, aux = out['state'], out['aux']
+                    profile_steps = 0
+                else:
+                    state, aux = train_many(state, rays, pixels, base_seed)
+                first_aux = aux if first_aux is None else first_aux
+                step += k
+                rays_since_log += self.batch_size * k
+                rays_total += self.batch_size * k
+                prof.add('train_dispatch', time.time() - t_step)
+                dispatch_index += 1
+
+                if step % log_every == 0 or step == start_step + spc:
+                    loss, psnr, lr = (float(aux[name][-1]) for name in
+                                      ('loss', 'train/psnr', 'lr'))
+                    rays_per_sec = rays_since_log / max(time.time() - t0,
+                                                        1e-9)
+                    if writer is not None:
+                        writer.add_scalar('lr', lr, step)
+                        writer.add_scalar('train/loss', loss, step)
+                        writer.add_scalar('train/psnr', psnr, step)
+                        writer.add_scalar('perf/rays_per_sec', rays_per_sec,
+                                          step)
+                    if verbose:
+                        print(f'step {step}/{max_steps} loss={loss:.5f} '
+                              f'psnr={psnr:.2f} lr={lr:.2e} '
+                              f'rays/s={rays_per_sec:,.0f}', flush=True)
+                    t0 = time.time()
+                    rays_since_log = 0
+
+                if step % val_interval == 0 or step >= max_steps:
+                    # The queued training work ends before validation's
+                    # clock starts.
+                    t_sync = time.time()
+                    self._synchronize()
+                    prof.add('train_sync', time.time() - t_sync)
+                    t_val = time.time()
+                    val_loss, val_psnr = self.validate(
+                        state, val_sample_num, writer=writer,
+                        global_step=step, start_index=val_cursor)
+                    val_cursor += val_sample_num
+                    hist = os.path.join(log_dir, 'val_history.csv')
+                    write_header = not os.path.exists(hist)
+                    with open(hist, 'a') as f:
+                        if write_header:
+                            f.write('step,val_loss,val_psnr\n')
+                        f.write(f'{step},{val_loss:.6f},{val_psnr:.4f}\n')
+                    prof.add('validate', time.time() - t_val)
+                    t_ckpt = time.time()
+                    ckpt.save(step, self.host_state(state),
+                              val_psnr=val_psnr)
+                    prof.add('checkpoint', time.time() - t_ckpt)
+                    t0 = time.time()
+                    rays_since_log = 0
+            self._synchronize()
+        finally:
+            ckpt.close()
+            self.batcher.close()
+            if writer is not None:
+                writer.close()
+        wall = time.time() - t_loop
+        train_s = wall - prof.totals.get('validate', 0.0) \
+            - prof.totals.get('checkpoint', 0.0)
+        self.fit_stats = {
+            'steps': step - start_step,
+            'loop_seconds': wall,
+            'rays_per_sec': rays_total / max(train_s, 1e-9),
+            'data_wait_share': prof.totals.get('data', 0.0) / max(wall, 1e-9),
+        }
+        if aux is not None:
+            self.fit_stats['loss_first'] = float(first_aux['loss'][-1])
+            self.fit_stats['loss_last'] = float(aux['loss'][-1])
+        if verbose:
+            print(prof.summary(), flush=True)
+        return state

@@ -1,8 +1,48 @@
-"""Camera paths (numpy), counterpart of mipnerf_pl_tpu/utils/vis.py."""
+"""Depth colormaps, image saving and camera paths (numpy), counterpart of
+mipnerf_pl_tpu/utils/vis.py.  Images are float arrays in [0, 1], HWC (or HW
+for scalar maps).  PIL and cv2 are imported inside the functions that need
+them: nothing here needs either at import time."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+
+def to_uint8(img: np.ndarray) -> np.ndarray:
+    return (np.clip(np.asarray(img, dtype=np.float32), 0.0, 1.0)
+            * 255).astype(np.uint8)
+
+
+def visualize_depth(depth, cmap=None) -> np.ndarray:
+    """Scalar map -> JET-colormapped RGB float image [H, W, 3] in [0, 1]."""
+    import cv2
+    x = np.nan_to_num(np.squeeze(np.asarray(depth, dtype=np.float32)))
+    mi, ma = np.min(x), np.max(x)
+    x8 = (255 * (x - mi) / max(ma - mi, 1e-8)).astype(np.uint8)
+    colored = cv2.applyColorMap(x8, cv2.COLORMAP_JET if cmap is None else cmap)
+    return cv2.cvtColor(colored, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+
+
+def save_image(img: np.ndarray, save_path: str) -> None:
+    """Save an HWC (or HW) float image in [0, 1] as PNG."""
+    from PIL import Image
+    Image.fromarray(to_uint8(np.squeeze(np.asarray(img)))).save(save_path)
+
+
+def save_images(rgb, dist, acc, out_dir: str, idx: int) -> None:
+    """Write {idx:05d}_{rgb,dist,acc}.png, the JAX package's artifact
+    names."""
+    os.makedirs(out_dir, exist_ok=True)
+    rgb = np.asarray(rgb)
+    if rgb.ndim == 4:
+        rgb = rgb[0]
+    save_image(rgb, os.path.join(out_dir, f'{idx:05d}_rgb.png'))
+    save_image(visualize_depth(dist),
+               os.path.join(out_dir, f'{idx:05d}_dist.png'))
+    save_image(visualize_depth(acc),
+               os.path.join(out_dir, f'{idx:05d}_acc.png'))
 
 
 def create_spheric_poses(radius: float, n_poses: int = 120) -> np.ndarray:

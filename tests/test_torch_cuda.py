@@ -26,7 +26,10 @@ against their plain versions (<= 1e-5), and training through the
 render-fused level against its wrappers called in order (bit for bit).
 fused_mlp's kernels (the `pallas` / `pallas_save` backends) take the same
 bars, dx and dview with the parameters; its recompute backward equals the
-saved one on dx and dview bit for bit.
+saved one on dx and dview bit for bit.  The standalone IPE (ipe_fwd,
+ipe_bwd: `nerf.ipe_backend: pallas`) is held against its plain versions,
+max |d| <= 1e-5 forward and ||a - b|| / ||b|| <= 1e-5 for dmeans and dcovs
+(which reach 1e5 and 1e9), two runs bit for bit, also at zero covariances.
 """
 
 import numpy as np
@@ -822,6 +825,140 @@ def test_cuda_classic_training_runs_the_kernels(cuda_device, backend):
              else ('mlp_fwd', 'mlp_bwd_recompute'))
     for name in names:
         assert tk.launches[name] == model.num_levels, (name, tk.launches)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+    want = losses['cpu']
+    assert abs(losses[str(cuda_device)] - want) <= 1e-4 * abs(want)
+
+
+IPE_SHAPES = {'ragged': (700, (0, 16)), 'ragged_2_6': (1001, (2, 6)),
+              'one_point': (1, (0, 16)), 'lego': (393216, (0, 16))}
+
+
+def _ipe_problem(shape, zero_covs, device, seed=0):
+    M, deg = IPE_SHAPES[shape]
+    rng = np.random.default_rng(seed)
+    means = (2.0 * rng.normal(size=(M, 3))).astype(np.float32)
+    covs = rng.uniform(0.0, 1e-3, size=(M, 3)).astype(np.float32)
+    if zero_covs:
+        covs[:] = 0.0
+    g = rng.normal(size=(M, 6 * (deg[1] - deg[0]))).astype(np.float32)
+    return deg, [torch.tensor(a, device=device) for a in (means, covs, g)]
+
+
+def _norm_rel(a, b):
+    return float(torch.linalg.norm((a - b).double())
+                 / torch.linalg.norm(b.double()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('zero_covs', [False, True], ids=['covs', 'covs0'])
+@pytest.mark.parametrize('shape', list(IPE_SHAPES))
+def test_cuda_ipe_kernels_match_plain(cuda_device, shape, zero_covs):
+    from mipnerf_pl_tpu_torch.kernels import ipe
+    deg, (means, covs, g) = _ipe_problem(shape, zero_covs, cuda_device)
+    tk.reset_launches()
+    out = ipe.ipe_fwd(means, covs, *deg)
+    again = ipe.ipe_fwd(means, covs, *deg)
+    dm, dc = ipe.ipe_bwd(means, covs, g, *deg)
+    dm2, dc2 = ipe.ipe_bwd(means, covs, g, *deg)
+    torch.cuda.synchronize()
+    assert tk.launches['ipe_fwd'] == 2 and tk.launches['ipe_bwd'] == 2
+    assert out.shape == g.shape and dm.shape == dc.shape == means.shape
+    assert torch.isfinite(out).all()
+    assert float((out - ipe.ipe_fwd_plain(means, covs, *deg)).abs().max()) \
+        <= 1e-5
+    rm, rc = ipe.ipe_bwd_plain(means, covs, g, *deg)
+    assert _norm_rel(dm, rm) <= 1e-5 and _norm_rel(dc, rc) <= 1e-5
+    assert torch.equal(out, again)
+    assert torch.equal(dm, dm2) and torch.equal(dc, dc2)
+
+
+@pytest.mark.cuda
+def test_cuda_ipe_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    from mipnerf_pl_tpu_torch.kernels import ipe
+    x = torch.zeros(8, 3, device=cuda_device)
+    with pytest.raises(ValueError, match='covs'):
+        ipe.ipe_fwd(x, x[:4], 0, 4)
+    with pytest.raises(ValueError, match='max_deg > min_deg'):
+        ipe.ipe_fwd(x, x, 4, 4)
+    with pytest.raises(ValueError, match='g must be'):
+        ipe.ipe_bwd(x, x, torch.zeros(8, 23, device=cuda_device), 0, 4)
+    with pytest.raises(ValueError, match='at most'):
+        ipe.ipe_bwd(x, x, torch.zeros(8, 6 * 33, device=cuda_device), 0, 33)
+    with pytest.raises(ValueError, match='covs'):
+        ipe.ipe_fwd(x, x.cpu(), 0, 4)
+    with pytest.raises(ValueError, match='require a gradient'):
+        tk.ipe_moments(torch.zeros(6, 8, device=cuda_device,
+                                   requires_grad=True), 0, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('needs', ['means', 'covs', 'both'])
+def test_cuda_fused_ipe_autograd(cuda_device, needs):
+    """fused_ipe through autograd on the card, a [R, N, 3] leading shape:
+    the inputs that need a gradient receive what ipe_bwd returns."""
+    from mipnerf_pl_tpu_torch.kernels import ipe
+    deg, (means, covs, g) = _ipe_problem('ragged', False, cuda_device, 1)
+    lead = (7, 100)
+    m = means.reshape(*lead, 3).clone().requires_grad_(needs != 'covs')
+    c = covs.reshape(*lead, 3).clone().requires_grad_(needs != 'means')
+    tk.reset_launches()
+    out = ipe.fused_ipe(m, c, *deg)
+    assert out.shape == (*lead, 96)
+    out.backward(g.reshape(*lead, 96))
+    torch.cuda.synchronize()
+    assert tk.launches['ipe_fwd'] == 1 and tk.launches['ipe_bwd'] == 1
+    dm, dc = ipe.ipe_bwd(means, covs, g, *deg)
+    if needs != 'covs':
+        assert torch.equal(m.grad, dm.reshape(*lead, 3))
+    else:
+        assert m.grad is None
+    if needs != 'means':
+        assert torch.equal(c.grad, dc.reshape(*lead, 3))
+    else:
+        assert c.grad is None
+    tk.reset_launches()
+    assert not ipe.fused_ipe(means, covs, *deg).requires_grad
+    assert tk.launches['ipe_fwd'] == 1 and tk.launches['ipe_bwd'] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('backend,resample', [
+    ('pallas_lean_save', False), ('xla', True), ('pallas_save', True)])
+def test_cuda_ipe_backend_training_runs_the_kernels(cuda_device, backend,
+                                                    resample):
+    """A MipNerf with ipe_backend 'pallas' trains on the card: ipe_fwd once
+    a level; ipe_bwd once, for the resampled level, only where the
+    Gaussians carry a gradient (stop_resample_grad False); finite
+    gradients, and the loss agrees with the plain versions on the CPU."""
+    from mipnerf_pl_tpu_torch.models.mipnerf import MipNerf
+    from mipnerf_pl_tpu_torch.rays import Rays
+    model = MipNerf(num_samples=16, max_deg_point=8, deg_view=2,
+                    mlp_net_depth=3, mlp_net_width=64,
+                    mlp_net_width_condition=32, mlp_skip_index=2,
+                    mlp_backend=backend, ipe_backend='pallas',
+                    stop_resample_grad=not resample)
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(64, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ones = np.ones((64, 1), np.float32)
+    fields = (rng.normal(size=(64, 3)).astype(np.float32) * 0.1, d, d,
+              ones * 0.005, ones, ones * 2.0, ones * 6.0)
+    target = torch.tensor(rng.uniform(size=(64, 3)).astype(np.float32))
+    losses = {}
+    for dev in ('cpu', cuda_device):
+        model.to(dev)
+        model.zero_grad()
+        rays = Rays(*(torch.tensor(f, device=dev) for f in fields))
+        tk.reset_launches()
+        out = model(rays, False, True)
+        loss = sum(((lv.rgb - target.to(dev)) ** 2).mean() for lv in out)
+        loss.backward()
+        losses[str(dev)] = float(loss.detach())
+    torch.cuda.synchronize()
+    assert tk.launches['ipe_fwd'] == model.num_levels, tk.launches
+    assert tk.launches['ipe_bwd'] == (1 if resample else 0), tk.launches
+    assert tk.launches['ipe_moments'] == 0
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
     want = losses['cpu']
     assert abs(losses[str(cuda_device)] - want) <= 1e-4 * abs(want)

@@ -469,7 +469,8 @@ def test_ipe_moments_plain_matches_jax(case):
     own fast encode to (tests/test_ops_math.py:263-277).  'ragged' has 700
     points (no multiple of the JAX tile); 'no_integration' zeroes the
     covariance rows as disable_integration does.  The moments get no
-    gradient (JAX: zero cotangents)."""
+    gradient (JAX: zero cotangents): the port encodes moments that need
+    none and refuses moments that require one instead of detaching them."""
     from mipnerf_pl_tpu.kernels.ipe import fused_ipe_moments
     rng = np.random.default_rng(12)
     M, deg = {'deg16': (256, (0, 16)), 'ragged': (700, (0, 4)),
@@ -480,8 +481,10 @@ def test_ipe_moments_plain_matches_jax(case):
     if case == 'no_integration':
         moments[3:] = 0.0
     want = np.asarray(fused_ipe_moments(jnp.asarray(moments), *deg, True))
-    m = torch.tensor(moments, requires_grad=True)
+    m = torch.tensor(moments)
     got = tk.ipe_moments(m, *deg)
     assert got.shape == want.shape == (M, 6 * (deg[1] - deg[0]))
     assert not got.requires_grad
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-6)
+    with pytest.raises(ValueError, match='require a gradient'):
+        tk.ipe_moments(m.clone().requires_grad_(True), *deg)

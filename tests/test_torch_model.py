@@ -159,6 +159,53 @@ def test_mipnerf_disable_integration_and_cylinder():
         _levels_close(port(trays, False, True), want, SLICE_TOL)
 
 
+IPE_CASES = {
+    'xla': dict(mlp_backend='xla'),
+    'xla-deg16': dict(mlp_backend='xla', max_deg_point=16),
+    'xla-no-integration': dict(mlp_backend='xla', max_deg_point=16,
+                               disable_integration=True),
+    'pallas_lean_save': dict(mlp_backend='pallas_lean_save',
+                             fuse_encode=True, pallas_encode=True),
+    'pallas-resample': dict(mlp_backend='pallas', stop_resample_grad=False),
+}
+
+
+@pytest.mark.parametrize('case', list(IPE_CASES))
+def test_mipnerf_ipe_backend_pallas_matches_jax(case):
+    """ipe_backend='pallas': the port's fused_ipe (plain version on the
+    CPU) against the JAX model's (Pallas, interpret mode) with the same
+    params, up to degree 16 and with disable_integration (zero covariances,
+    where the cosine form matters most): level 0's rgb / acc / weights at
+    1e-5, the resampled level at the slice bar.  With zero covariances at
+    degree 16 nothing damps the top features, which turn the resampled
+    fenceposts' f32 rounding (~1e-7, the fenceposts themselves are held at
+    1e-5) into 2^15 * 1e-7 ~ 3e-3 rad of phase: that level's outputs are
+    held at 5e-3 there."""
+    kw = dict(KW, ipe_backend='pallas', **IPE_CASES[case])
+    jrays, trays = _rays(seed=3)
+    j = JMipNerf(**kw)
+    params = _np_tree(j.init(jax.random.PRNGKey(0), jrays, None, False,
+                             True))
+    want = j.apply(params, jrays, jax.random.PRNGKey(1), False, True)
+    port = MipNerf(**kw)
+    assert port.ipe_backend == 'pallas'
+    assert not (port._fused_encode or port._pallas_encode)
+    port.load_state_dict(jax_params_to_torch(params))
+    with torch.no_grad():
+        got = port(trays, False, True)
+    for name in ('rgb', 'acc', 'weights'):
+        np.testing.assert_allclose(getattr(got[0], name).numpy(),
+                                   np.asarray(getattr(want[0], name)),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    if case != 'xla-no-integration':
+        _levels_close(got, want, SLICE_TOL)
+        return
+    np.testing.assert_allclose(got[1].t_samples.numpy(),
+                               np.asarray(want[1].t_samples), rtol=1e-5,
+                               atol=1e-5)
+    _levels_close(got, want, dict(rtol=5e-3, atol=5e-3))
+
+
 def test_mipnerf_randomized_runs_with_generator():
     _, trays = _rays()
     port = MipNerf(**KW, density_noise=1.0)
@@ -177,10 +224,11 @@ def test_mipnerf_randomized_runs_with_generator():
 def test_training_backends_not_ported_raise(backend):
     """The recompute and hybrid backends train; what stays unported raises
     instead of computing something else: the moments input (encode=) with
-    'hybrid' (JAX's own refusal, a ValueError), the unbounded-360 mode,
-    ipe_backend='pallas', and unknown options.  On 'pallas_lean' the
+    'hybrid' (JAX's own refusal, a ValueError), the unbounded-360 mode, an
+    unknown ipe_backend, and unknown options.  On 'pallas_lean' the
     moments input trains and equals the rows form on their encode.  The
-    'pallas' backend runs (fused_mlp) and equals the plain forward."""
+    'pallas' backend runs (fused_mlp) and equals the plain forward.
+    ipe_backend='pallas' builds and runs on these backends (fused_ipe)."""
     _, trays = _rays()
     port = MipNerf(**KW, mlp_backend=backend)
     assert not port._fused_render
@@ -211,8 +259,15 @@ def test_training_backends_not_ported_raise(backend):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     with pytest.raises(NotImplementedError):
         MipNerf(**KW, unbounded=True)
-    with pytest.raises(NotImplementedError, match='ipe_backend'):
-        MipNerf(**KW, mlp_backend=backend, ipe_backend='pallas')
+    ipe_model = MipNerf(**KW, mlp_backend=backend, ipe_backend='pallas')
+    ipe_model.load_state_dict(port.state_dict())
+    assert not (ipe_model._fused_encode or ipe_model._pallas_encode)
+    for a, b in zip(ipe_model(trays, False, True), out):
+        assert torch.isfinite(a.rgb).all()
+        # max_deg_point 4: the two cosine forms agree to f32 rounding.
+        torch.testing.assert_close(a.rgb, b.rgb, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match='ipe_backend'):
+        MipNerf(**KW, mlp_backend=backend, ipe_backend='triton')
     with pytest.raises(TypeError):
         MipNerf(**KW, no_such_knob=True)
     MipNerf(**KW, channel_major=True, mxu_cumsum=False, pallas_encode=True,
@@ -252,15 +307,18 @@ def test_encode_and_render_gates_match_jax(case):
     model's setup() does: fuse_encode only below max_deg_point 17 on a lean
     pallas backend with the activations fused; pallas_encode only where the
     fast-math encode would run and the fused encode does not; hybrid and
-    xla neither.  ipe_backend='pallas' turns both encodes off in JAX and is
-    refused by the port (not ported)."""
+    xla neither.  ipe_backend='pallas' turns both encodes off on both
+    sides and leaves the render fusion as it was."""
     kw = dict(KW, **GATE_CASES[case])
     jm = JMipNerf(**kw).bind({})
     port = MipNerf(**kw)
     for gate in ('_fused_render', '_fused_encode', '_pallas_encode'):
         assert getattr(port, gate) == getattr(jm, gate), gate
     jp = JMipNerf(**dict(kw, ipe_backend='pallas')).bind({})
+    pp = MipNerf(**dict(kw, ipe_backend='pallas'))
     assert not (jp._fused_encode or jp._pallas_encode)
+    for gate in ('_fused_render', '_fused_encode', '_pallas_encode'):
+        assert getattr(pp, gate) == getattr(jp, gate), gate
 
 
 @pytest.mark.parametrize('backend',

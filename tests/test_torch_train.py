@@ -179,7 +179,13 @@ def _slice_case(backend, disable_multiscale=False, noise=0.0, id=None,
     _slice_case('pallas_save', id='pallas_save-resample',
                 stop_resample_grad=False),
     _slice_case('pallas', noise=1.0, id='pallas-resample-noise',
-                stop_resample_grad=False)])
+                stop_resample_grad=False),
+    _slice_case('xla', id='xla-resample-ipe', stop_resample_grad=False,
+                ipe_backend='pallas'),
+    _slice_case('pallas', id='pallas-resample-ipe', stop_resample_grad=False,
+                ipe_backend='pallas'),
+    _slice_case('pallas_lean_save', id='pallas_lean_save-ipe',
+                ipe_backend='pallas')])
 def test_train_slice_matches_jax(backend, disable_multiscale, noise, fused):
     """One step's loss, aux values and every parameter gradient, then the
     parameters after 3 train_steps, port against JAX.  With `fused`: the
@@ -187,7 +193,9 @@ def test_train_slice_matches_jax(backend, disable_multiscale, noise, fused):
     moments input of the lean kernels (the IPE decoded in them) and the
     standalone moments encode (#12), each engaging on both sides; or
     stop_resample_grad False, on the plain path and on the two
-    input-differentiable backends (#6-#9 on the JAX side)."""
+    input-differentiable backends (#6-#9 on the JAX side); or
+    ipe_backend 'pallas' (the standalone IPE #10 and, where the resampled
+    Gaussians carry a gradient, its VJP #11)."""
     hp = _hparams(**{'loss.disable_multiscale_loss': disable_multiscale,
                      'nerf.mlp_backend': backend,
                      'nerf.density_noise': noise},
@@ -199,6 +207,7 @@ def test_train_slice_matches_jax(backend, disable_multiscale, noise, fused):
     for opt in ('fuse_render', 'fuse_encode', 'pallas_encode'):
         gate = '_' + opt.replace('fuse_', 'fused_')
         assert getattr(system.model, gate) == bool(fused.get(opt)), gate
+    assert system.model.ipe_backend == fused.get('ipe_backend', 'xla')
     rays, pixels = _batch()
     if disable_multiscale:     # lossmult then has no effect on the loss
         rays = rays._replace(lossmult=rays.lossmult * 0.5)
