@@ -5,8 +5,9 @@
 Phases (each prints its own line; any failure raises and exits non-zero):
   1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
   2. build the CUDA kernels from mipnerf_pl_tpu_torch/csrc (lean_render,
-     lean_train, ipe) with nvcc (sm_90a), one nvcc per source, all started
-     together, and time it; print each kernel's registers and spills;
+     lean_train, ipe, tp_pair) with nvcc (sm_90a), one nvcc per source, all
+     started together, and time it; print each kernel's registers and
+     spills;
   3. each render kernel's wrapper against its plain PyTorch version at the
      lego shape (8x256 MLP, N = 128, one 8192-ray chunk) on numpy-seeded
      inputs: f32 max |d| <= 1e-4, bf16 max |d| / max |ref| <= 3e-2 against
@@ -46,14 +47,26 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      phase-3 bars, mlp_bwd_saved on the plain forward's stream (dx, dview
      and every parameter at bench.py's metric, <= 1e-4 f32, <= 3e-2 bf16),
      mlp_bwd_recompute against mlp_bwd_saved on the kernel forward's stream
-     (<= 1e-5, dx and dview bit for bit, two runs equal); the standalone
+     (<= 1e-5, dx and dview bit for bit, two runs equal); the same four
+     kernels' instantiation for a model with no view layer
+     (net_depth_condition 0: the rgb head reads concat(bottleneck, view)),
+     the same checks at the same bars; the standalone
      IPE kernels ipe_fwd and ipe_bwd on the level's Gaussians (393,216
      points, degrees 0..16), with their covariances and with them zeroed,
      and on a ragged count: forward max |d| <= 1e-5, dmeans and dcovs
-     ||a - b|| / ||b|| <= 1e-5, two runs bit-equal;
+     ||a - b|| / ||b|| <= 1e-5, two runs bit-equal; the Megatron pair
+     kernels tp_pair_fwd and tp_pair_bwd at the pair shapes of the level at
+     net_width 1024 on a model axis of 2 (compare_pair_kernels);
      CUDA-event times of every kernel and its plain version, and each
      kernel's bound: the larger of its FLOP over the card's peak and its
      bytes over 3.35 TB/s (kernel_work);
+  5b. the TP slice: tp_lean_forward on a single-process (data, model)
+     mesh on the card, the lego level, net_width 1024 on 2 shards (model
+     axis 2) and net_width 256 on 8 (model axis 4), bf16 and f32, forward
+     and the gradient of a seeded linear loss against the full-width plain
+     lean forward; tp_pair_fwd and tp_pair_bwd must launch 4 pairs x the
+     shards times (8 and 8, then 32 and 32); ms of forward and of forward +
+     backward and the peak memory beside the plain forward's (tp_slice);
   6. the training slice through its entry points: MipNeRFSystem (lego
      schema, 3072 synthetic rays as bench.py makes them) in each of
      TRAIN_CONFIGS (pallas_lean_save, pallas_lean, pallas_hybrid; the two
@@ -79,8 +92,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      plain path, in turns (plain, each configuration, then back, twice:
      best, median and spread of the 4 runs); past
      F32_TURNS_BY seconds the new configurations' f32 turns are cut, never
-     a gate; and one f32 gate of pallas_lean with density_noise 1.0, whose
-     kernels return raw heads (act=None);
+     a gate; one f32 gate of pallas_lean with density_noise 1.0, whose
+     kernels return raw heads (act=None); and a model with no view layer
+     on pallas_save with stop_resample_grad False, bf16 and f32: the gate,
+     then K = 5 steps (mlp_save_fwd and mlp_bwd_saved 2 x 5 launches);
   7. the run, through the command lines a user calls: cli.train.main on an
      in-memory sphere scene (24 train / 2 val / 2 test views of 64x64, a
      Blender subclass registered here that ray-traces its views instead of
@@ -133,12 +148,14 @@ from mipnerf_pl_tpu_torch.data.synthetic import (CAMERA_ANGLE_X,
 from mipnerf_pl_tpu_torch.kernels import _build
 from mipnerf_pl_tpu_torch.kernels import ipe as ki
 from mipnerf_pl_tpu_torch.kernels import mlp as km
+from mipnerf_pl_tpu_torch.kernels import tp_lean as kt
 from mipnerf_pl_tpu_torch.models.mlp import LEAN_BACKENDS
 from mipnerf_pl_tpu_torch.ops.camera import Camera, pix2cam_from_focal
 from mipnerf_pl_tpu_torch.ops.math import (cast_rays_cmajor,
                                            integrated_pos_enc, pos_enc)
 from mipnerf_pl_tpu_torch.ops.render import delta_mids
 from mipnerf_pl_tpu_torch.ops.sampling import sample_along_rays
+from mipnerf_pl_tpu_torch.parallel.mesh import create_mesh
 from mipnerf_pl_tpu_torch.rays import Rays
 from mipnerf_pl_tpu_torch.system import MipNeRFSystem
 from mipnerf_pl_tpu_torch.utils.vis import create_spheric_poses
@@ -211,6 +228,11 @@ RUN_VIEWS = {'train': 24, 'val': 2, 'test': 2}
 RUN_SIDE = 64
 RUN_STEPS, RUN_RESUMED_STEPS, RUN_K, RUN_VAL = 40, 50, 5, 20
 ACT = (0.001, -1.0)
+# The TP slice: (net_width, shards, model axis) of its two meshes, and the
+# rows of the ragged pair comparison.
+TP_MESHES = ((1024, 2, 2), (256, 8, 4))
+TP_RAGGED_ROWS = 100003
+_NO_VIEW = {'nerf.mlp.net_depth_condition': 0}
 # The card's published rates (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s; tensor-core FLOP/s in bf16 and for f32 as 3xTF32 (the route the
 # f32 kernels take: three TF32 products, 495 / 3); CUDA-core f32 FLOP/s.
@@ -286,8 +308,11 @@ def kernel_work(name, hp, R, N, tag, form='rows'):
     for i in range(depth):
         shapes.append((d_in, W))
         d_in = W + (F if i % skip == 0 and i > 0 else 0)
-    shapes += [(d_in, 1), (d_in, W), (W + Fv, Wv)]
-    shapes += [(Wv, Wv)] * (dcond - 1) + [(Wv, 3)]
+    shapes += [(d_in, 1), (d_in, W)]
+    if dcond:
+        shapes += [(W + Fv, Wv)] + [(Wv, Wv)] * (dcond - 1) + [(Wv, 3)]
+    else:               # no view layer: the rgb head reads [bottleneck, view]
+        shapes += [(W + Fv, 3)]
     n_w = sum(k * n for k, n in shapes)
     n_b = sum(n for _, n in shapes)
     params = n_w * es + n_b * 4
@@ -346,10 +371,28 @@ def kernel_work(name, hp, R, N, tag, form='rows'):
     raise KeyError(name)
 
 
-def bound(name, hp, R, N, tag, form='rows'):
+def pair_work(name, M, f_in, Wl, Wout, tag, x_f32):
+    """kernel_work of one Megatron pair call: forward 2 M Wl (f_in + Wout)
+    FLOP, backward 2 M Wl (3 f_in + 2 Wout) (the recompute, dWrow, dh,
+    dWcol, dx); the bytes of x, the two panels and the bias and the f32
+    partial, and backward also of g and the f32 dx and parameter
+    gradients."""
+    es = 2 if tag == 'bf16' else 4
+    x_in = M * f_in * (4 if x_f32 else es)
+    panels = (f_in * Wl + Wl * Wout) * es + Wl * 4
+    if name == 'tp_pair_fwd':
+        return 2 * M * Wl * (f_in + Wout), 0, x_in + panels + M * Wout * 4
+    if name == 'tp_pair_bwd':
+        return (2 * M * Wl * (3 * f_in + 2 * Wout), 0,
+                x_in + panels + M * Wout * 4 + M * f_in * 4
+                + (f_in * Wl + Wl * Wout + Wl) * 4)
+    raise KeyError(name)
+
+
+def bound(name, hp, R, N, tag, form='rows', work=None):
     """(bound_ms, 'bytes' or 'operations'): the least time the card could
-    take for kernel_work at the published rates."""
-    tc, cc, nbytes = kernel_work(name, hp, R, N, tag, form)
+    take for kernel_work (or the `work` given) at the published rates."""
+    tc, cc, nbytes = work or kernel_work(name, hp, R, N, tag, form)
     ops_s = tc / TC_RATE[tag] + cc / CUDA_CORE_RATE
     bytes_s = nbytes / HBM_RATE
     return (max(ops_s, bytes_s) * 1e3,
@@ -357,10 +400,10 @@ def bound(name, hp, R, N, tag, form='rows'):
 
 
 def record(results, key, hp, R, N, err, ms, plain_ms, library_ms=None,
-           form='rows'):
+           form='rows', work=None):
     """Keep one kernel's numbers under key = (name, tag) with its bound."""
     name, tag = key
-    b_ms, b_by = bound(name.split('[')[0], hp, R, N, tag, form)
+    b_ms, b_by = bound(name.split('[')[0], hp, R, N, tag, form, work)
     results[key] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=library_ms)
     log(f'[bound] {name} {tag}: {b_ms:.4f} ms ({b_by}), kernel at '
@@ -543,14 +586,15 @@ def reporter(results, hp):
     """Phase 5's report(name, tag, ok, text, err, ms, plain_ms, form): log
     one kernel's check and times, raise if it failed, and record its
     numbers with its bound at the training level's shape."""
-    def report(name, tag, ok, text, err, ms, plain_ms, form='rows'):
+    def report(name, tag, ok, text, err, ms, plain_ms, form='rows',
+               work=None):
         log(f'[kernel] {name} {tag}: {text}; kernel {ms:.3f} ms  plain '
             f'{plain_ms:.3f} ms  {"OK" if ok else "FAIL"}')
         if not ok:
             raise AssertionError(f'{name} {tag} disagrees with its plain '
                                  'version')
         record(results, (name, tag), hp, TRAIN_RAYS, hp['nerf.num_samples'],
-               err, ms, plain_ms, form=form)
+               err, ms, plain_ms, form=form, work=work)
     return report
 
 
@@ -900,10 +944,11 @@ def compare_ipe_kernels(hp, dev):
     return results
 
 
-def compare_classic_kernels(params, hp, dev):
+def compare_classic_kernels(params, hp, dev, label=''):
     """Phase 5, fused_mlp's kernels at the lego level shape, the view rows
     per point (the level's view repeated over the samples, as MLP._pallas
-    feeds them), f32 and bf16, bars against the f32 plain version."""
+    feeds them), f32 and bf16, bars against the f32 plain version; `label`
+    is appended to the kernels' names (the model with no view layer)."""
     args = (hp['nerf.mlp.net_depth'], hp['nerf.mlp.net_depth_condition'],
             hp['nerf.mlp.skip_index'])
     N = hp['nerf.num_samples']
@@ -932,14 +977,14 @@ def compare_classic_kernels(params, hp, dev):
         torch.cuda.synchronize()
         parts = [out[0], out[1], out[2][:, :M].float()]
         f_err, f_bar, f_ok = fwd_err(parts, ref_parts, dt)
-        report('mlp_save_fwd', tag, finite(parts) and f_ok,
+        report('mlp_save_fwd' + label, tag, finite(parts) and f_ok,
                f'max|d| {f_err:.3e} ({f_bar}), heads and stream', f_err,
                cuda_ms(lambda: km.mlp_save_fwd(x, view, flat, *args, dt)),
                cuda_ms(lambda: km.mlp_save_fwd_plain(x, view, flat, *args,
                                                      dt)))
         same = all(torch.equal(a, b) for a, b in zip(lf, out[:2]))
         l_err, l_bar, l_ok = fwd_err(lf, ref_parts[:2], dt)
-        report('mlp_fwd', tag, same and l_ok,
+        report('mlp_fwd' + label, tag, same and l_ok,
                f'max|d| {l_err:.3e} ({l_bar}); bit-equal to mlp_save_fwd '
                f'{same}', l_err,
                cuda_ms(lambda: km.mlp_fwd(x, view, flat, *args, dt)),
@@ -962,7 +1007,7 @@ def compare_classic_kernels(params, hp, dev):
             o_err, o_leaf = leaf_rel_err(own, want, names)
             extra = f'; fed its own forward\'s stream {o_err:.3e} ({o_leaf})'
             del own
-        report('mlp_bwd_saved', tag, finite(got) and g_err <= bar,
+        report('mlp_bwd_saved' + label, tag, finite(got) and g_err <= bar,
                f'max rel err of dx, dview and the leaves vs the f32 plain '
                f'backward {g_err:.3e} ({g_leaf}, <= {bar}){extra}; max|d| '
                f'{g_abs:.3e}', g_abs,
@@ -987,7 +1032,7 @@ def compare_classic_kernels(params, hp, dev):
         r_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
         ok = finite(got) and runs and inputs and r_err <= RECOMPUTE_BAR
         del got, again, want
-        report('mlp_bwd_recompute', tag, ok,
+        report('mlp_bwd_recompute' + label, tag, ok,
                f'max rel err vs mlp_bwd_saved on the same forward '
                f'{r_err:.3e} ({r_leaf}, <= {RECOMPUTE_BAR}); dx and dview '
                f'bit-equal {inputs}; two runs bit-equal {runs}; max|d| '
@@ -995,6 +1040,302 @@ def compare_classic_kernels(params, hp, dev):
                cuda_ms(lambda: km.mlp_bwd_recompute_plain(
                    x, view, g_rgb, g_dens, flat, *args, dt)))
     return results
+
+
+def pair_inputs(M, f_in, Wl, Wout, dev, seed):
+    """One pair's numpy-seeded inputs, f32: x, Wcol, bcol, Wrow and the
+    partial's cotangent.  tp_lean_forward hands the first pair f32 encode
+    rows and a later one (f_in = the trunk width) post-ReLU activations in
+    the compute dtype: the caller casts."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape, np.float32) * scale,
+                            device=dev)
+    return (t((M, f_in)), t((f_in, Wl), 1 / np.sqrt(f_in)), t((1, Wl), 0.1),
+            t((Wl, Wout), 1 / np.sqrt(Wl)), t((M, Wout)))
+
+
+def settled_cotangent(args, g, dt, margin=1e-4):
+    """g with the rows zeroed in which some pre-activation of the pair lies
+    within `margin` of zero, and the share of rows kept.  The backward
+    kernel recomputes the pre-activation and takes its ReLU mask from its
+    own sums, ~1e-6 from the plain version's: where a pre-activation is
+    that close to zero the two masks may differ, and each flip moves a
+    whole term of dx, dWcol and dbcol.  With no cotangent in those rows
+    both backwards provably take the same mask wherever it matters."""
+    x, w_col, b_col, _ = args
+    hpre = x.to(dt).float() @ w_col.to(dt).float() + b_col
+    keep = (hpre.abs() > margin).all(dim=1, keepdim=True)
+    return g * keep, float(keep.float().mean())
+
+
+def compare_pair_kernels(hp, dev):
+    """Phase 5, the Megatron pair kernels at the three pair shapes of a lego
+    level at net_width 1024 on a model axis of 2 (the first pair: f32 encode
+    rows, f_in 96; a later pair; the skip pair, whose kernel sees the same
+    shapes: its x-rows term is added outside), 393,216 rows and a ragged
+    count, f32 and bf16.  Forward against the f32 `_pair_plain` at the
+    phase-3 bars; dx, dWcol, dbcol and dWrow at the largest ||a - b|| /
+    ||b|| against the f32 `_pair_bwd_plain` on x and the panels as the
+    kernel rounds them, with a cotangent that is zero in the rows whose
+    ReLU mask is in doubt (settled_cotangent), <= 1e-4 f32, <= 3e-2 bf16;
+    two backward runs bit-equal.  The numbers of the later
+    pair at the level's rows are the kernels' record."""
+    W, _, n_model = TP_MESHES[0]
+    Wl = W // n_model
+    F = 6 * (hp['nerf.max_deg_point'] - hp['nerf.min_deg_point'])
+    M = TRAIN_RAYS * hp['nerf.num_samples']
+    names = ['dx', 'dWcol', 'dbcol', 'dWrow']
+    cases = [('first pair', M, F, 11), ('pair', M, W, 12),
+             ('skip pair', M, W, 13), ('pair, ragged', TP_RAGGED_ROWS, W, 14),
+             ('first pair, ragged', TP_RAGGED_ROWS, F, 15)]
+    results = {}
+    report = reporter(results, hp)
+    for label, rows, f_in, seed in cases:
+        x32, *panels, g = pair_inputs(rows, f_in, Wl, W, dev, seed)
+        for dt in (torch.float32, torch.bfloat16):
+            tag = 'f32' if dt == torch.float32 else 'bf16'
+            g_bar = F32_BAR if dt == torch.float32 else BF16_BAR
+            args = [torch.relu(x32).to(dt) if f_in == W else x32] + panels
+            g, kept = settled_cotangent(args, g, dt)
+            out = kt._pair_call(*args, dt)
+            got = kt._pair_bwd_call(*args, g, dt)
+            again = kt._pair_bwd_call(*args, g, dt)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
+            ref = kt._pair_plain(*args, torch.float32)
+            finite = bool(torch.isfinite(out).all()) and all(
+                bool(torch.isfinite(t).all()) for t in got)
+            f_err, f_bar, f_ok = fwd_err([out], [ref], dt)
+            del out, ref
+            x, w_col, b_col, w_row = args
+            want = kt._pair_bwd_plain(x.to(dt), w_col.to(dt), b_col,
+                                      w_row.to(dt), g, torch.float32)
+            g_err, g_leaf = leaf_rel_err(got, want, names)
+            g_abs = max(float((a - b).abs().max())
+                        for a, b in zip(got, want))
+            del got, want
+            log(f'[kernel] tp_pair_fwd / tp_pair_bwd, {label}, {rows:,} rows'
+                f' x {f_in} -> {Wl} -> {W}, {tag}: forward max|d| '
+                f'{f_err:.3e} ({f_bar}); backward max rel err {g_err:.3e} '
+                f'({g_leaf}, <= {g_bar}; {100 * kept:.2f} % of the rows carry '
+                f'a cotangent), two runs bit-equal {same}')
+            if not (finite and same and f_ok and g_err <= g_bar):
+                raise AssertionError(f'the pair kernels disagree with their '
+                                     f'plain versions: {label} {tag}')
+            if rows != M or label == 'skip pair':
+                continue
+            suffix = '' if f_in == W else '[first pair]'
+            x_f32 = args[0].dtype == torch.float32
+            for name, err, kernel, plain in (
+                    ('tp_pair_fwd', f_err,
+                     lambda: kt._pair_call(*args, dt),
+                     lambda: kt._pair_plain(*args, dt)),
+                    ('tp_pair_bwd', g_abs,
+                     lambda: kt._pair_bwd_call(*args, g, dt),
+                     lambda: kt._pair_bwd_plain(*args, g, dt))):
+                report(name + suffix, tag, True,
+                       f'{label}, the checks above', err, cuda_ms(kernel),
+                       cuda_ms(plain, 2),
+                       work=pair_work(name, rows, f_in, Wl, W, tag, x_f32))
+            del args
+    return results
+
+
+def settled_points(x, view, flat, N, depth, dcond, skip, margin=1e-5):
+    """[M, 1] f32: 1 for the points none of whose ReLU pre-activations in
+    the f32 lean forward lies within `margin` of zero, else 0.  Two f32
+    forwards that sum in another order differ by ~1e-7 in a pre-activation
+    (their heads by 4e-6 at net_width 1024); a cotangent that is zero on
+    the other points makes their ReLU masks agree wherever a gradient
+    passes (see settled_cotangent).  The level's pre-activations are dense
+    near zero (zero biases, ~4 a unit a point at net_width 1024): a margin
+    of 5e-5 leaves 2.5 % of the points."""
+    with torch.no_grad():
+        W = flat[0].shape[1]
+        worst = torch.full((x.shape[0],), float('inf'), device=x.device)
+
+        def relu_of(pre):
+            torch.minimum(worst, pre.abs().amin(dim=1), out=worst)
+            return torch.relu(pre)
+        h = x
+        for i in range(depth):
+            h = relu_of(h @ flat[2 * i] + flat[2 * i + 1])
+            if i % skip == 0 and i > 0:
+                h = torch.cat([h, x], dim=-1)
+        bott = h @ flat[2 * depth + 2] + flat[2 * depth + 3]
+        iv = 2 * (depth + 2)
+        per_ray = view @ flat[iv][W:] + flat[iv + 1]
+        y = relu_of(bott @ flat[iv][:W] + per_ray.repeat_interleave(N, dim=0))
+        for j in range(1, dcond):
+            y = relu_of(y @ flat[iv + 2 * j] + flat[iv + 2 * j + 1])
+        return (worst > margin).float()[:, None]
+
+
+def tp_slice(hp0, params0, dev):
+    """The TP slice: tp_lean_forward on a single-process mesh on the card, a
+    lego level (3072 rays x 128 samples, the level's encode rows and view
+    features), at net_width 1024 on 2 shards (model axis 2) and at
+    net_width 256 on 8 (model axis 4), bf16 and f32: the forward and the
+    gradient of a seeded linear loss against the port's full-width plain
+    lean forward on the card.  Forward at the phase-3 bars against the f32
+    plain forward; dx, dview and every leaf at the largest ||a - b|| / ||b||
+    against autograd of the plain forward in the same compute dtype, <=
+    3e-2 bf16, <= 1e-4 f32.  The loss's cotangents are zero on the points
+    whose ReLU masks are in doubt between two f32 forwards
+    (settled_points; with them every f32 leaf reads ~5e-3 off through mask
+    flips, trunk_0.bias the most).  The pair
+    kernels must launch once a pair, model rank and data shard.  Prints ms
+    of the forward and of forward + backward (best of 4) and the peak
+    memory, beside the plain forward's; -> the launch counts of the first
+    mesh's bf16 run."""
+    N = hp0['nerf.num_samples']
+    x, view, g_rgb, g_dens = level_inputs(hp0, dev)[:4]
+    counts = None
+    for W, shards, n_model in TP_MESHES:
+        hp = dict(hp0, **{'nerf.mlp.net_width': W})
+        params = params0 if W == hp0['nerf.mlp.net_width'] else \
+            jax_params_to_torch(flax_tree(MipNeRFSystem(hp, device=dev),
+                                          seed=0), device=dev)
+        cfg = (hp['nerf.mlp.net_depth'], hp['nerf.mlp.net_depth_condition'],
+               hp['nerf.mlp.skip_index'])
+        mesh = create_mesh(num_devices=shards, model_axis=n_model)
+        if mesh.device.type != 'cuda' or mesh.shape != {
+                'data': shards // n_model, 'model': n_model}:
+            raise AssertionError(f'unexpected mesh {mesh.shape} on '
+                                 f'{mesh.device}')
+        leaves = [x, view] + flat_params(params, hp)
+        keep = settled_points(*leaves[:2], leaves[2:], N, *cfg)
+        c_rgb, c_dens = g_rgb * keep, g_dens * keep
+        log(f'[tp] net_width {W}: {100 * float(keep.mean()):.2f} % of the '
+            f'points carry a cotangent')
+        leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+        names = ['dx', 'dview'] + leaf_names(hp)
+        want_launches = cfg[0] // 2 * shards
+
+        def run(fwd, backward=True):
+            out = fwd(leaves[0], leaves[1], leaves[2:])
+            if not backward:
+                return [o.detach() for o in out], None
+            loss = (out[0] * c_rgb).sum() + (out[1] * c_dens).sum()
+            return ([o.detach() for o in out],
+                    torch.autograd.grad(loss, leaves))
+
+        def timed(fwd, backward):
+            """(best ms of 4, peak GiB)."""
+            best = float('inf')
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(fwd, backward)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+            return best * 1e3, torch.cuda.max_memory_allocated() / 2 ** 30
+
+        ref32 = None
+        for dt in (torch.bfloat16, torch.float32):
+            tag = 'f32' if dt == torch.float32 else 'bf16'
+
+            def tp(x_, v_, fl):
+                return kt.tp_lean_forward(x_, v_, fl, mesh, N, *cfg, dt)
+
+            def plain(x_, v_, fl, dtype=dt):
+                return km.lean_fwd_plain(x_, v_, fl, N, *cfg, dtype, None)
+
+            km.reset_launches()
+            out, grads = run(tp)
+            torch.cuda.synchronize()
+            run_counts = dict(km.launches)
+            counts = counts or run_counts
+            if ref32 is None:
+                ref32 = run(lambda *a: plain(*a, dtype=torch.float32),
+                            backward=False)[0]
+            f_err, f_bar, f_ok = fwd_err(out, ref32, dt)
+            want = run(plain)[1]
+            g_bar = F32_BAR if dt == torch.float32 else BF16_BAR
+            g_err, g_leaf = leaf_rel_err(grads, want, names)
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in list(out) + list(grads))
+            pairs = {k: run_counts[k] for k in ('tp_pair_fwd', 'tp_pair_bwd')}
+            ok = (finite and f_ok and g_err <= g_bar
+                  and all(v == want_launches for v in pairs.values())
+                  and not any(v for k, v in run_counts.items()
+                              if k not in pairs))
+            log(f'[tp] net_width {W}, mesh data {shards // n_model} x model '
+                f'{n_model}, {tag}: launches {pairs} (expected '
+                f'{want_launches} each); forward max|d| {f_err:.3e} '
+                f'({f_bar}) vs the f32 plain forward; gradients max rel err '
+                f'{g_err:.3e} ({g_leaf}, <= {g_bar}) vs the {tag} plain '
+                f'forward\'s  {"OK" if ok else "FAIL"}')
+            if not ok:
+                raise AssertionError(f'the TP slice disagrees with the '
+                                     f'full-width plain forward: {W} {tag}')
+            del out, grads, want
+            with torch.no_grad():
+                f_ms, f_peak = timed(tp, False)
+                pf_ms, pf_peak = timed(plain, False)
+            b_ms, b_peak = timed(tp, True)
+            pb_ms, pb_peak = timed(plain, True)
+            log(f'[tp] net_width {W} model {n_model} {tag}: forward '
+                f'{f_ms:.1f} ms (peak {f_peak:.2f} GiB), forward + backward '
+                f'{b_ms:.1f} ms (peak {b_peak:.2f} GiB); the plain '
+                f'full-width forward {pf_ms:.1f} ms ({pf_peak:.2f} GiB), '
+                f'forward + backward {pb_ms:.1f} ms ({pb_peak:.2f} GiB); '
+                f'best of 4')
+        del leaves, ref32, params, keep, c_rgb, c_dens
+        torch.cuda.empty_cache()
+    return counts
+
+
+def run_k_steps(system, params, stack, pix, names, levels, label):
+    """K steps of make_train_many from `params`: each kernel in `names`
+    must launch `levels` (or PER_STEP's count) x K times, lean_mlp never,
+    and the loss must stay finite; -> the run's launch counts."""
+    fn = system.make_train_many()
+    state = system.init_state(params=params)
+    km.reset_launches()
+    state, aux, sec, _ = train_run(fn, state, stack, pix)
+    run_counts = dict(km.launches)
+    losses = aux['loss'].cpu().numpy()
+    log(f'[train] {label} make_train_many K={TRAIN_K}: launches '
+        f'{ {n: run_counts[n] for n in names} }; loss '
+        f'{np.array2string(losses, precision=5)}; first call {sec:.3f} s')
+    for name in names:
+        expected = PER_STEP.get(name, levels) * TRAIN_K
+        if run_counts[name] != expected:
+            raise AssertionError(f'{name} launched {run_counts[name]} times, '
+                                 f'expected {expected}')
+    for name in ('ipe_fwd', 'ipe_bwd'):
+        if name not in names and run_counts[name]:
+            raise AssertionError(f'{label} launched {name}')
+    if run_counts['lean_mlp']:
+        raise AssertionError(f'{label}: the training step launched the '
+                             'render-only lean_mlp')
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f'non-finite training loss: {losses}')
+    return run_counts
+
+
+def no_view_slice(hp0, params, dev):
+    """Phase 6, a model with no view layer (net_depth_condition 0, `params`
+    its seeded weights) on pallas_save with stop_resample_grad False, bf16
+    and f32: the one-step gradient gate against the plain path, then K
+    steps in which mlp_save_fwd and mlp_bwd_saved launch 2 levels x K
+    times."""
+    rays, pixels = train_batch(TRAIN_RAYS, dev)
+    stack = Rays(*(f.expand(TRAIN_K, *f.shape).contiguous() for f in rays))
+    pix = pixels.expand(TRAIN_K, *pixels.shape).contiguous()
+    for dtype in ('bfloat16', 'float32'):
+        hb = dict(hp0, **{'train.compute_dtype': dtype,
+                          'nerf.mlp_backend': 'pallas_save'}, **_RESAMPLE)
+        label = f'{dtype} pallas_save+resample, no view layer'
+        system = gradient_gate(hb, params, rays, pixels, dev, label)
+        run_k_steps(system, params, stack, pix,
+                    ('mlp_save_fwd', 'mlp_bwd_saved'),
+                    hp0['nerf.num_levels'], label)
 
 
 def train_run(fn, state, stack, pixels):
@@ -1094,32 +1435,10 @@ def train_slice(hp0, params, dev):
                 raise AssertionError(f'{label} did not select its path: '
                                      f'fused activations {model._fused_act}'
                                      f', {gates}')
-            fn = system.make_train_many()
-            state = system.init_state(params=params)
-            km.reset_launches()
-            state, aux, sec, _ = train_run(fn, state, stack, pix)
-            run_counts = dict(km.launches)
-            losses = aux['loss'].cpu().numpy()
-            log(f'[train] {dtype} {label} make_train_many K={K}: launches '
-                f'{ {n: run_counts[n] for n in names} }; loss '
-                f'{np.array2string(losses, precision=5)}; first call '
-                f'{sec:.3f} s')
-            for name in names:
-                expected = PER_STEP.get(name, levels) * K
-                if run_counts[name] != expected:
-                    raise AssertionError(f'{name} launched {run_counts[name]}'
-                                         f' times, expected {expected}')
-            for name in ('ipe_fwd', 'ipe_bwd'):
-                if name not in names and run_counts[name]:
-                    raise AssertionError(f'{label} launched {name}')
-            if run_counts['lean_mlp']:
-                raise AssertionError(f'{label}: the training step launched '
-                                     'the render-only lean_mlp')
-            if not np.all(np.isfinite(losses)):
-                raise AssertionError(f'non-finite training loss: {losses}')
+            run_counts = run_k_steps(system, params, stack, pix, names,
+                                     levels, f'{dtype} {label}')
             counts.setdefault(label, run_counts)
             systems[label] = system
-            del state
         if dtype == 'float32' and time.perf_counter() - START > F32_TURNS_BY:
             log(f'[train] float32: past {F32_TURNS_BY} s, the timing turns of '
                 f'{", ".join(NEW_CONFIGS)} are cut')
@@ -1390,7 +1709,7 @@ def main() -> int:
     log(f'[device] nvidia-smi: {smi}')
 
     t0 = time.perf_counter()
-    recs = _build.build_all(['lean_render', 'lean_train', 'ipe'])
+    recs = _build.build_all(['lean_render', 'lean_train', 'ipe', 'tp_pair'])
     log(f'[build] nvcc {" ".join(_build.ARCH_FLAGS)}, in parallel: '
         f'{time.perf_counter() - t0:.1f} s')
     for name, rec in recs.items():
@@ -1493,8 +1812,17 @@ def main() -> int:
     # Phases 5 and 6: the training kernels and the training slice.
     results.update(compare_train_kernels(params, hp, dev))
     results.update(compare_classic_kernels(params, hp, dev))
+    # The same four kernels' instantiation for a model with no view layer.
+    hp_nv = dict(hp, **_NO_VIEW)
+    params_nv = jax_params_to_torch(
+        flax_tree(MipNeRFSystem(hp_nv, device=dev), seed=0), device=dev)
+    results.update(compare_classic_kernels(params_nv, hp_nv, dev,
+                                           '[no view layer]'))
     results.update(compare_ipe_kernels(hp, dev))
+    results.update(compare_pair_kernels(hp, dev))
+    tp_counts = tp_slice(hp, params, dev)
     train_counts = train_slice(hp, params, dev)
+    no_view_slice(hp_nv, params_nv, dev)
     run_counts = whole_run(hp)
     if '--measure' in sys.argv[1:]:
         measure(hp, params, dev)
@@ -1502,7 +1830,9 @@ def main() -> int:
     # Each kernel's f32 numbers at its phase-3 or phase-5 shape, with its
     # launches on its path: the render kernels in phase 4's frame, each
     # training kernel in the first configuration of phase 6 that runs it,
-    # the standalone IPE kernels in phase 7's first train call.
+    # the standalone IPE kernels in phase 7's first train call, the pair
+    # kernels in the TP slice's first run (net_width 1024, bf16: one
+    # forward and one backward).
     kernels = []
     for name, (source, replaces) in km.KERNELS.items():
         r = results[(name, 'f32')]
@@ -1510,6 +1840,8 @@ def main() -> int:
             path_counts = counts
         elif name in ('ipe_fwd', 'ipe_bwd'):
             path_counts = run_counts
+        elif name in ('tp_pair_fwd', 'tp_pair_bwd'):
+            path_counts = tp_counts
         else:
             path_counts = next(train_counts[label] for label, (_, _, names)
                                in TRAIN_CONFIGS.items() if name in names)

@@ -1,4 +1,5 @@
-// Shared device code of the lean MLP kernels (lean_render.cu, lean_train.cu).
+// Shared device code of the MLP kernels (lean_render.cu, lean_train.cu,
+// tp_pair.cu).
 //
 // A TM-point tile of activations lives in shared memory channel-major
 // ([width][TM], row stride LD) through all layers; a layer's weights stream
@@ -71,25 +72,26 @@ __device__ __forceinline__ float epilogue(float x, int row, int col, const float
   return relu ? fmaxf(x, 0.f) : x;
 }
 
-// Streams the rows [k0, k0 + KT) of a global [*, n_out] kernel (from row
-// wrow0) into a shared slab with row stride n_out + 8, VEC elements per
-// access; rows at or past K are zero.  The next slab's loads are issued
-// into registers before the current slab's products (fetch, then put after
-// the barrier), so their latency hides behind the tensor-core work.
+// Streams the rows [k0, k0 + KT) of n_out columns of a global kernel with
+// row stride ldg (from row wrow0) into a shared slab with row stride
+// n_out + 8, VEC elements per access; rows at or past K are zero.  The next
+// slab's loads are issued into registers before the current slab's products
+// (fetch, then put after the barrier), so their latency hides behind the
+// tensor-core work.
 template <typename E, int KT, int VEC>
 struct SlabStream {
   typedef typename std::conditional<sizeof(E) * VEC == 16, uint4, uint2>::type V;
   static constexpr int PER_THREAD = (KT * MAX_OUT / VEC + THREADS - 1) / THREADS;
   V reg[PER_THREAD];
 
-  __device__ void fetch(const E* __restrict__ Wg, int n_out, int wrow0, int k0, int K) {
+  __device__ void fetch(const E* __restrict__ Wg, int ldg, int n_out, int wrow0, int k0, int K) {
     const int vrow = n_out / VEC;
 #pragma unroll
     for (int i = 0; i < PER_THREAD; ++i) {
       const int v = threadIdx.x + i * THREADS, kk = v / vrow;
       V val{};
       if (kk < KT && k0 + kk < K)
-        val = *reinterpret_cast<const V*>(Wg + (size_t)(wrow0 + k0 + kk) * n_out +
+        val = *reinterpret_cast<const V*>(Wg + (size_t)(wrow0 + k0 + kk) * ldg +
                                           (v - kk * vrow) * VEC);
       reg[i] = val;
     }
@@ -175,15 +177,22 @@ struct Tf32Gemm {
   // [K, roundup(K, 8)) must be finite (they meet zero weight rows).
   __device__ void segment(const float* __restrict__ Wg, int n_out, int wrow0, const float* src,
                           int K, float* slab) {
+    segment_ld(Wg, n_out, n_out, wrow0, src, K, slab);
+  }
+
+  // The same on n_out columns of a wider kernel, whose rows are ldg apart
+  // (ldg % 4 == 0 and Wg 16-byte aligned).
+  __device__ void segment_ld(const float* __restrict__ Wg, int ldg, int n_out, int wrow0,
+                             const float* src, int K, float* slab) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int wm = warp & 1, wn = warp >> 1, g = lane >> 2, t = lane & 3;
     const int ldw = n_out + 8, tiles = n_out / 8;
     SlabStream<float, KT, 4> stream;
-    stream.fetch(Wg, n_out, wrow0, 0, K);
+    stream.fetch(Wg, ldg, n_out, wrow0, 0, K);
     for (int k0 = 0; k0 < K; k0 += KT) {
       stream.put(slab, n_out);
       __syncthreads();
-      if (k0 + KT < K) stream.fetch(Wg, n_out, wrow0, k0 + KT, K);
+      if (k0 + KT < K) stream.fetch(Wg, ldg, n_out, wrow0, k0 + KT, K);
       uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
@@ -308,17 +317,23 @@ struct TcGemm {
   // must be finite (they meet zero weight rows).
   __device__ void segment(const bf16* __restrict__ Wg, int n_out, int wrow0, const bf16* src,
                           int K, bf16* slab) {
+    segment_ld(Wg, n_out, n_out, wrow0, src, K, slab);
+  }
+
+  // As Tf32Gemm::segment_ld; ldg % 8 == 0.
+  __device__ void segment_ld(const bf16* __restrict__ Wg, int ldg, int n_out, int wrow0,
+                             const bf16* src, int K, bf16* slab) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int wm = warp & 1, wn = warp >> 1;
     const int ldw = n_out + 8, pairs = n_out / 16;
     const int i8 = lane >> 3, r8 = lane & 7;   // ldmatrix: matrix, row
     SlabStream<bf16, KT, 8> stream;
-    stream.fetch(Wg, n_out, wrow0, 0, K);
+    stream.fetch(Wg, ldg, n_out, wrow0, 0, K);
     for (int k0 = 0; k0 < K; k0 += KT) {
       const int ktp = (min(KT, K - k0) + 15) & ~15;
       stream.put(slab, n_out);
       __syncthreads();
-      if (k0 + KT < K) stream.fetch(Wg, n_out, wrow0, k0 + KT, K);
+      if (k0 + KT < K) stream.fetch(Wg, ldg, n_out, wrow0, k0 + KT, K);
       for (int kk = 0; kk < ktp; kk += 16) {
         // A = src^T rows: matrices (k 0-7 | 8-15) x (m 0-7 | 8-15).
         uint32_t a[2][4];
@@ -508,8 +523,9 @@ struct ClassicView {
 // with CL the view tile after them.  CL (the classic MLP): view_0 reads
 // concat(bottleneck, view) per point with its bias (lean: the bottleneck,
 // plus vproj, view_0's per-ray half with the bias); cv.nd density heads;
-// xs is overwritten by the view tile.
-template <typename T, bool CL = false>
+// xs is overwritten by the view tile.  NV (CL with depth_cond = 0, no view
+// layer): the rgb head itself reads concat(bottleneck, view).
+template <typename T, bool CL = false, bool NV = false>
 __device__ void mlp_tile(T* xs, int F, T* hs, T* slab, float* heads, const LayerPtrs& p,
                          const MlpDims& d, const float* vproj, int m0, T* saved, size_t ld_saved,
                          int Fp, const ClassicView& cv = ClassicView{}) {
@@ -565,30 +581,33 @@ __device__ void mlp_tile(T* xs, int F, T* hs, T* slab, float* heads, const Layer
     load_encode_tile<T, false>(xs, cv.view, 0, d.M, cv.Fv, cv.Fvp, 0, 0, m0);
     __syncthreads();
   }
-  gemm.zero();
-  gemm.segment(static_cast<const T*>(p.w[i_view]), d.Wv, 0, hs, d.W, slab);
-  if constexpr (CL) {
-    gemm.segment(static_cast<const T*>(p.w[i_view]), d.Wv, d.W, xs, cv.Fv, slab);
-    store_layer(gemm, hs, p.b[i_view], nullptr, d, m0, d.Wv, true);
-  } else {
-    store_layer(gemm, hs, nullptr, vproj, d, m0, d.Wv, true);
-  }
-  save(d.Wv);
-  for (int j = 1; j < d.depth_cond; ++j) {
+  if constexpr (!NV) {
     gemm.zero();
-    gemm.segment(static_cast<const T*>(p.w[i_view + j]), d.Wv, 0, hs, d.Wv, slab);
-    store_layer(gemm, hs, p.b[i_view + j], nullptr, d, m0, d.Wv, true);
+    gemm.segment(static_cast<const T*>(p.w[i_view]), d.Wv, 0, hs, d.W, slab);
+    if constexpr (CL) {
+      gemm.segment(static_cast<const T*>(p.w[i_view]), d.Wv, d.W, xs, cv.Fv, slab);
+      store_layer(gemm, hs, p.b[i_view], nullptr, d, m0, d.Wv, true);
+    } else {
+      store_layer(gemm, hs, nullptr, vproj, d, m0, d.Wv, true);
+    }
     save(d.Wv);
+    for (int j = 1; j < d.depth_cond; ++j) {
+      gemm.zero();
+      gemm.segment(static_cast<const T*>(p.w[i_view + j]), d.Wv, 0, hs, d.Wv, slab);
+      store_layer(gemm, hs, p.b[i_view + j], nullptr, d, m0, d.Wv, true);
+      save(d.Wv);
+    }
   }
   if constexpr (CL) {
     if (saved) copy_tile_out(saved + srow * ld_saved, ld_saved, m0, xs, cv.Fvp);
   }
-  // rgb head, one (row, channel) per thread.
+  // rgb head, one (row, channel) per thread: on the last view layer's
+  // output, or (NV) on concat(bottleneck, view).
   const int i_rgb = i_view + d.depth_cond;
   if (tid < 3 * TM) {
     const int c = tid / TM, row = tid - c * TM;
-    heads[c * TM + row] = head_dot<T>(hs, d.Wv, xs, 0, static_cast<const T*>(p.w[i_rgb]),
-                                      p.b[i_rgb], 3, c, row);
+    heads[c * TM + row] = head_dot<T>(hs, NV ? d.W : d.Wv, xs, NV ? cv.Fv : 0,
+                                      static_cast<const T*>(p.w[i_rgb]), p.b[i_rgb], 3, c, row);
   }
   __syncthreads();
 }

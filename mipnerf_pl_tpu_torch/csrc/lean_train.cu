@@ -39,6 +39,11 @@
 //                     sums) and an input-gradient pass after the chain.
 //   mlp_bwd_recompute _bwd_kernel (_run_bwd): the same, the forward re-run
 //                     chunk by chunk by mlp_fwd_kernel.
+// The four classic entries also take a model with no view layer
+// (depth_cond 0, Wv 0), a compile-time instantiation of the tile, the chain
+// and the input-gradient pass (NV): the rgb head reads concat(bottleneck,
+// view), its cotangent splits into the bottleneck's and dview, and the
+// stream has no ys rows.
 //
 // Saved layout of 'save', chosen for the backward's weight-gradient
 // products: one channel-major stream S [Cs][Mp] in the compute dtype, rows
@@ -103,23 +108,11 @@
 // multi-stage ring are later work.
 
 #include "lean_engines.cuh"
+#include "lean_wgrad.cuh"
 
 namespace {
 
 static_assert(THREADS == 4 * TM, "one thread per (head channel, point)");
-
-constexpr int MAX_LAYERS = MAX_PARAMS / 2;
-constexpr int MAX_PROBS = 32;
-constexpr int MAX_TILES = 192;
-constexpr int BM = 128, BN = 128, KC = 32;   // wgrad block tile, points per stage
-// Tensor-core accumulation rounds toward zero, so its error grows with the
-// number of products summed in the accumulator (~1e-4 relative after the
-// ~15k points of one range).  In f32, every FLUSH stages the accumulators
-// are added into round-to-nearest f32 sums on the CUDA cores and restarted
-// (~3 % of the kernel's time; in bf16 it would cost ~45 % against an error
-// far below bf16's own).
-constexpr int FLUSH = 4;
-constexpr int WGRAD_ACC = 64;                // accumulators per thread
 
 struct TrainDims {
   int M, Mp, N, R, F, Fp, Fv, depth, depth_cond, skip, W, Wv;
@@ -154,14 +147,6 @@ struct TrainDims {
   __host__ __device__ MlpDims mlp() const {
     return MlpDims{M, N, R, L, min_deg, depth, depth_cond, skip, W, Wv, rgb_padding, density_bias};
   }
-};
-
-// The saved activations as the backward reads them: activation a is t[a],
-// channel-major [width][Mp] (S rows; ld[a] = Mp) or point-major [M][ld[a]]
-// (PM).
-struct Acts {
-  const void* t[MAX_LAYERS];
-  int ld[MAX_LAYERS];
 };
 
 // Activation a of the tile at m0: (row, col) -> f32 value.  Point-major
@@ -229,8 +214,9 @@ __host__ __device__ inline int classic_xrows(const TrainDims& d) {
 // The classic MLP forward (fused_mlp) of the tile at blockIdx.x * TM: x
 // [M, F] and view [M, Fv] f32 per point -> raw heads rgb [M, 3], density
 // [M, nd] f32 (either may be null), and with saved the stream [Cs][Mp]
-// (X | hs | bottleneck | ys | V).
-template <typename T>
+// (X | hs | bottleneck | ys | V).  NV: depth_cond = 0, no view layer (the
+// rgb head reads concat(bottleneck, view); the stream has no ys).
+template <typename T, bool NV>
 __global__ void __launch_bounds__(THREADS, 2)
 mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ view, LayerPtrs p,
                TrainDims td, float* __restrict__ rgb, float* __restrict__ density,
@@ -246,8 +232,8 @@ mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ view, Laye
   load_encode_tile<T, false>(xs, x, 0, td.M, td.F, td.Fp, 0, 0, m0);
   __syncthreads();
   if (saved) copy_tile_out(saved, td.Mp, m0, xs, td.Fp);
-  mlp_tile<T, true>(xs, td.F, hs, slab, heads, p, td.mlp(), nullptr, m0, saved, td.Mp, td.Fp,
-                    ClassicView{view, td.Fv, td.Fvp, td.nd});
+  mlp_tile<T, true, NV>(xs, td.F, hs, slab, heads, p, td.mlp(), nullptr, m0, saved, td.Mp, td.Fp,
+                        ClassicView{view, td.Fv, td.Fvp, td.nd});
   for (int idx = threadIdx.x; idx < nh * TM; idx += THREADS) {
     const int c = idx / TM, row = idx - c * TM, m = m0 + row;
     if (m >= td.M) continue;
@@ -275,7 +261,8 @@ struct ChainPtrs {
 // The classic backward's input-gradient products (compute dtype, zero past
 // F / Fv): by param index the x columns k[x rows]^T [out][Fp] of trunk_0
 // and of every layer that reads x (null elsewhere); view_0's view rows
-// k[W:]^T [Wv][Fvp]; the density kernel; out dx [M][F], dview [M][Fv] f32.
+// k[W:]^T [Wv][Fvp] (with no view layer the rgb head's, [3][Fvp]); the
+// density kernel; out dx [M][F], dview [M][Fv] f32.
 struct InputGrads {
   const void* bx[MAX_LAYERS];
   const void* bv;
@@ -314,8 +301,10 @@ size_t chain_smem_bytes(int wmax, int cg, int nh) {
 // heads [4][Mp] raw heads of the forward (channel-major acts); the
 // point-major residuals come without them and the chain recomputes them.
 // CL (the classic MLP, raw heads): nd density heads and no g1f; the input
-// cotangents come after, from G (mlp_input_grads_kernel).
-template <typename T, bool PM, bool CL = false>
+// cotangents come after, from G (mlp_input_grads_kernel).  NV (CL with
+// depth_cond = 0): the rgb head's cotangent goes straight to the bottleneck,
+// unmasked, through k_rgb's first W rows.
+template <typename T, bool PM, bool CL = false, bool NV = false>
 __global__ void __launch_bounds__(THREADS, 2)
 lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
                        const float* __restrict__ g_rgb, const float* __restrict__ g_dens,
@@ -400,37 +389,42 @@ lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
       dbacc[tid < 3 ? d.g_rgb() + tid : d.g_den() + tid - 3] += s;
     }
     // 2. rgb head backward on the CUDA cores (3-deep), masked by ys[last]:
-    //    the cotangent of view_last's output.  Thread (row, j = grp + 4i).
+    //    the cotangent of view_last's output (NV: of the bottleneck, which
+    //    has no activation).  Thread (row, j = grp + 4i).
     {
       const int row = tid & (TM - 1), half = (tid >> 5) & 1, grp = tid >> 6;
-      const ActTile<T, PM> y = act_tile<T, PM>(acts, d.a_y(last), m0, d);
-      for (int j = grp; j < d.Wv; j += 4) {   // warp-uniform
+      const int n_in = NV ? d.W : d.Wv, g_row = NV ? d.g_bot() : d.g_v(last);
+      const ActTile<T, PM> y = act_tile<T, PM>(acts, NV ? d.a_bot() : d.a_y(last), m0, d);
+      for (int j = grp; j < n_in; j += 4) {   // warp-uniform
         float v = 0.f;
         for (int c = 0; c < 3; ++c) v = fmaf(ghc[c * TM + row], Ty<T>::to_f(k_rgb[j * 3 + c]), v);
-        if (!(y(row, j) > 0.f)) v = 0.f;
+        if constexpr (!NV) {
+          if (!(y(row, j) > 0.f)) v = 0.f;
+        }
         const T vb = Ty<T>::from_f(v);
         ga[(size_t)j * LD + row] = vb;
-        G[(size_t)(d.g_v(last) + j) * Mp + m0 + row] = vb;
+        G[(size_t)(g_row + j) * Mp + m0 + row] = vb;
         if (!CL && last == 0) g1f[(size_t)j * Mp + m0 + row] = v;
         float s = v;
         for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
         if (lane == 0) part[half * MAX_OUT + j] = s;
       }
       __syncthreads();
-      for (int c = tid; c < d.Wv; c += THREADS)
-        dbacc[d.g_v(last) + c] += part[c] + part[MAX_OUT + c];
+      for (int c = tid; c < n_in; c += THREADS) dbacc[g_row + c] += part[c] + part[MAX_OUT + c];
     }
-    // 3. View layers j = last .. 1: cotangent of ys[j-1], masked by it.
-    for (int j = last; j >= 1; --j) {
+    if constexpr (!NV) {
+      // 3. View layers j = last .. 1: cotangent of ys[j-1], masked by it.
+      for (int j = last; j >= 1; --j) {
+        gemm.zero();
+        gemm.segment(static_cast<const T*>(cp.bw[i_view + j]), d.Wv, 0, ga, d.Wv, slab);
+        gemm.transform(d.Wv, relu_mask(d.a_y(j - 1)));
+        finish(d.g_v(j - 1), d.Wv, !CL && j == 1);
+      }
+      // 4. view_0's per-point rows -> the bottleneck (no activation).
       gemm.zero();
-      gemm.segment(static_cast<const T*>(cp.bw[i_view + j]), d.Wv, 0, ga, d.Wv, slab);
-      gemm.transform(d.Wv, relu_mask(d.a_y(j - 1)));
-      finish(d.g_v(j - 1), d.Wv, !CL && j == 1);
+      gemm.segment(static_cast<const T*>(cp.bw[i_view]), d.W, 0, ga, d.Wv, slab);
+      finish(d.g_bot(), d.W, false);
     }
-    // 4. view_0's per-point rows -> the bottleneck (no activation).
-    gemm.zero();
-    gemm.segment(static_cast<const T*>(cp.bw[i_view]), d.W, 0, ga, d.Wv, slab);
-    finish(d.g_bot(), d.W, false);
     // 5. Bottleneck + density -> the last trunk output, masked by it.  The
     //    density part is rank nd: sum over c of g_den[row][c] * k_den[col][c].
     gemm.zero();
@@ -470,8 +464,9 @@ lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
 // whole, every layer after a skip concat, after a last one the bottleneck
 // and, as a rank-nd term, the density head), dview = G_view0^T
 // k_view0[view rows], summed in one set of accumulators; every element is
-// written once.
-template <typename T>
+// written once.  NV (no view layer): dview is the rank-3 term G_rgb^T
+// k_rgb[view rows], summed on the CUDA cores.
+template <typename T, bool NV>
 __global__ void __launch_bounds__(THREADS, 2)
 mlp_input_grads_kernel(const T* __restrict__ G, InputGrads ig, TrainDims d) {
   typedef typename Engine<T>::type Gemm;
@@ -514,196 +509,33 @@ mlp_input_grads_kernel(const T* __restrict__ G, InputGrads ig, TrainDims d) {
     }
     return v;
   });
-  gemm.zero();
-  load(d.g_v(0), d.Wv);
-  gemm.segment(static_cast<const T*>(ig.bv), d.Fvp, 0, src, d.Wv, slab);
-  gemm.transform(d.Fvp, [&](int row, int col, float v) {
-    const int m = m0 + row;
-    if (m < d.M && col < d.Fv) ig.dview[(size_t)m * d.Fv + col] = v;
-    return v;
-  });
+  if constexpr (NV) {
+    const T* bv = static_cast<const T*>(ig.bv);
+    for (int idx = threadIdx.x; idx < TM * d.Fv; idx += THREADS) {
+      const int row = idx / d.Fv, col = idx - row * d.Fv, m = m0 + row;
+      if (m >= d.M) continue;
+      float v = 0.f;
+      for (int c = 0; c < 3; ++c)
+        v = fmaf(Ty<T>::to_f(G[(size_t)(d.g_rgb() + c) * Mp + m]),
+                 Ty<T>::to_f(bv[c * d.Fvp + col]), v);
+      ig.dview[(size_t)m * d.Fv + col] = v;
+    }
+  } else {
+    gemm.zero();
+    load(d.g_v(0), d.Wv);
+    gemm.segment(static_cast<const T*>(ig.bv), d.Fvp, 0, src, d.Wv, slab);
+    gemm.transform(d.Fvp, [&](int row, int col, float v) {
+      const int m = m0 + row;
+      if (m < d.M && col < d.Fv) ig.dview[(size_t)m * d.Fv + col] = v;
+      return v;
+    });
+  }
 }
 
 template <typename T>
 size_t input_grads_smem_bytes(const TrainDims& d) {
   const int wmax = d.W > d.Wv ? d.W : d.Wv;
   return sizeof(T) * ((size_t)wmax * LD + Engine<T>::type::slab_elems(wmax));
-}
-
-// Weight-gradient problems: dW[out_off + row * n_ld + col] (rows < K,
-// cols < n) = sum over points of A[row] * G[g_row0 + col], A = activation a.
-struct WgradTable {
-  int prob[MAX_PROBS][6];   // a, K, g_row0, n, out_off, n_ld
-  int tile[MAX_TILES][3];   // problem, row0, col0 of a BM x BN output tile
-};
-
-// blockIdx.x: output tile; blockIdx.y: point range [y * MC, (y + 1) * MC)
-// of the chunk, whose partial sums go to partial row y.  B tile [BN
-// cols][KC points] in shared memory; A tile [BM rows][KC points]
-// (channel-major A) or [KC points][BM rows] (point-major A, read by
-// transposed fragments); 8 warps as 2 x 4, each a 64 x 32 output tile.
-// The next stage's loads are issued into registers before the current
-// stage's products.  In f32, dynamic shared memory holds each thread's
-// round-to-nearest sums, [WGRAD_ACC][THREADS].
-template <typename T, bool PM>
-__global__ void __launch_bounds__(THREADS)
-lean_wgrad_kernel(Acts acts, const T* __restrict__ G, WgradTable tab, int Mp, int M, int MC,
-                  float* __restrict__ partial, int PW) {
-  extern __shared__ float tot[];
-  constexpr bool BF = sizeof(T) == 2;
-  constexpr int LDS = KC + (BF ? 8 : 4);     // padded rows: conflict-free fragments
-  constexpr int LDT = BM + 8;                // the same for a point-major A tile
-  constexpr int VEC = 16 / sizeof(T), PER_ROW = KC / VEC, PM_ROW = BM / VEC;
-  constexpr int LOADS = BM * PER_ROW / THREADS;
-  static_assert(BM == BN && BM * PER_ROW % THREADS == 0 && KC * PM_ROW == BM * PER_ROW,
-                "tile loads");
-  __shared__ __align__(16) T As[PM ? KC * LDT : BM * LDS];
-  __shared__ __align__(16) T Bs[BN * LDS];
-  const int* pr = tab.prob[tab.tile[blockIdx.x][0]];
-  const int K = pr[1], g_row0 = pr[2], n = pr[3], out_off = pr[4], n_ld = pr[5];
-  const T* A = static_cast<const T*>(acts.t[pr[0]]);
-  const int lda = PM ? acts.ld[pr[0]] : Mp;
-  const int r0 = tab.tile[blockIdx.x][1], c0 = tab.tile[blockIdx.x][2];
-  const int p0 = blockIdx.y * MC, p1 = min(p0 + MC, Mp);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1, wn = warp >> 1, g = lane >> 2, t = lane & 3;
-
-  float acc[4][4][4];
-  // f32: acc -> tot (round to nearest), acc restarts from zero.
-  auto flush = [&](bool first) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (!BF) {
-            float& t = tot[((a * 4 + b) * 4 + e) * THREADS + tid];
-            t = first ? 0.f : t + acc[a][b][e];
-          }
-          if (first || !BF) acc[a][b][e] = 0.f;
-        }
-  };
-  flush(true);
-  uint4 ra[LOADS], rb[LOADS];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int v = tid + i * THREADS, row = v / PER_ROW, c = (v - row * PER_ROW) * VEC;
-      const uint4 zero = make_uint4(0, 0, 0, 0);
-      if (PM) {
-        const int pt = v / PM_ROW, ch = (v - pt * PM_ROW) * VEC;
-        ra[i] = k0 + pt < M && r0 + ch < lda
-                    ? *reinterpret_cast<const uint4*>(A + (size_t)(k0 + pt) * lda + r0 + ch)
-                    : zero;
-      } else {
-        ra[i] = r0 + row < K
-                    ? *reinterpret_cast<const uint4*>(A + (size_t)(r0 + row) * lda + k0 + c)
-                    : zero;
-      }
-      rb[i] = c0 + row < n
-                  ? *reinterpret_cast<const uint4*>(G + (size_t)(g_row0 + c0 + row) * Mp + k0 + c)
-                  : zero;
-    }
-  };
-  fetch(p0);
-  for (int k0 = p0, stage = 1; k0 < p1; k0 += KC, ++stage) {
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int v = tid + i * THREADS, row = v / PER_ROW, c = (v - row * PER_ROW) * VEC;
-      if (PM) {
-        const int pt = v / PM_ROW, ch = (v - pt * PM_ROW) * VEC;
-        *reinterpret_cast<uint4*>(As + pt * LDT + ch) = ra[i];
-      } else {
-        *reinterpret_cast<uint4*>(As + row * LDS + c) = ra[i];
-      }
-      *reinterpret_cast<uint4*>(Bs + row * LDS + c) = rb[i];
-    }
-    __syncthreads();
-    if (k0 + KC < p1) fetch(k0 + KC);
-    if constexpr (BF) {
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        // A (m16 x k16, row-major): ldmatrix from [row][k], or transposed
-        // from [k][row]; B (k16 x n8, stored [n][k]) without transpose.
-        uint32_t a[4][4], b[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          if (PM)
-            ldmatrix_x4_trans(a[mt], reinterpret_cast<const bf16*>(As) +
-                                         (kk + (lane & 7) + 8 * (lane >> 4)) * LDT + 64 * wm +
-                                         16 * mt + 8 * ((lane >> 3) & 1));
-          else
-            ldmatrix_x4(a[mt], reinterpret_cast<const bf16*>(As) +
-                                   (64 * wm + 16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
-                                   kk + 8 * (lane >> 4));
-        }
-#pragma unroll
-        for (int np = 0; np < 2; ++np)
-          ldmatrix_x4(b[np], reinterpret_cast<const bf16*>(Bs) +
-                                 (32 * wn + 16 * np + (lane & 7) + 8 * (lane >> 4)) * LDS + kk +
-                                 8 * ((lane >> 3) & 1));
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_bf16(acc[mt][nt], a[mt], b[nt >> 1][2 * (nt & 1)], b[nt >> 1][2 * (nt & 1) + 1]);
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 8) {
-        uint32_t ahi[4][4], alo[4][4];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          // Fragment (row g | g + 8, k t | t + 4).
-          const float* As_f = reinterpret_cast<const float*>(As);
-          const int r = 64 * wm + 16 * mt + g;
-          const float* s0 = PM ? As_f + (kk + t) * LDT + r : As_f + r * LDS + kk + t;
-          const int dr = PM ? 8 : 8 * LDS, dk = PM ? 4 * LDT : 4;
-          split_tf32(s0[0], ahi[mt][0], alo[mt][0]);
-          split_tf32(s0[dr], ahi[mt][1], alo[mt][1]);
-          split_tf32(s0[dk], ahi[mt][2], alo[mt][2]);
-          split_tf32(s0[dr + dk], ahi[mt][3], alo[mt][3]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const float* b = reinterpret_cast<const float*>(Bs) + (32 * wn + 8 * nt + g) * LDS + kk + t;
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(b[0], bh0, bl0);
-          split_tf32(b[4], bh1, bl1);
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt)
-            mma_3xtf32(acc[mt][nt], ahi[mt], alo[mt], bh0, bl0, bh1, bl1);
-        }
-      }
-    }
-    if (!BF && stage % FLUSH == 0) flush(false);
-    __syncthreads();
-  }
-  if (!BF) flush(false);
-  float* dst = partial + (size_t)blockIdx.y * PW + out_off;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + 64 * wm + 16 * mt + g + 8 * (e >> 1);
-        const int col = c0 + 32 * wn + 8 * nt + 2 * t + (e & 1);
-        if (row < K && col < n)
-          dst[(size_t)row * n_ld + col] =
-              BF ? acc[mt][nt][e] : tot[((mt * 4 + nt) * 4 + e) * THREADS + tid];
-      }
-}
-
-// out[i] = sum over r of in[r][i], r in order.
-__global__ void sum_rows_kernel(const float* __restrict__ in, int rows, int cols,
-                                float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cols) return;
-  float s = 0.f;
-  for (int r = 0; r < rows; ++r) s += in[(size_t)r * cols + i];
-  out[i] = s;
 }
 
 // g_ray[r][j] = compute-dtype(sum over ray r's N samples of g1f[j][.]):
@@ -748,9 +580,12 @@ lean_view_rows_kernel(const float* __restrict__ view, const T* __restrict__ g_ra
 
 bool dims_ok(const TrainDims& d, int n_layers, int use_bf16) {
   const int align = use_bf16 ? 16 : 8;
+  // No view layer (depth_cond 0, Wv 0): the classic kernels only.
+  const bool view_ok = d.depth_cond >= 1 ? d.Wv >= align && d.Wv <= MAX_OUT && d.Wv % align == 0
+                                         : d.depth_cond == 0 && d.Wv == 0 && d.Fvp > 0;
   return n_layers == d.depth + 3 + d.depth_cond && n_layers <= MAX_LAYERS && d.depth >= 1 &&
-         d.depth_cond >= 1 && d.skip >= 1 && d.W >= align && d.W <= MAX_OUT && d.W % align == 0 &&
-         d.Wv >= align && d.Wv <= MAX_OUT && d.Wv % align == 0 && d.M == d.R * d.N && d.M > 0 &&
+         view_ok && d.skip >= 1 && d.W >= align && d.W <= MAX_OUT && d.W % align == 0 &&
+         d.M == d.R * d.N && d.M > 0 &&
          d.Mp % TM == 0 && d.Mp >= d.M && d.F >= 1 && d.F <= d.Fp && d.Fp % 16 == 0 &&
          d.Fv >= 1 && (d.use_act == 0 || d.use_act == 1) && d.L >= 0 &&
          (d.L == 0 || d.F == 6 * d.L) && d.nd >= 1 && 3 + d.nd <= MAX_HEADS &&
@@ -775,14 +610,14 @@ LayerPtrs layer_ptrs(const void* weights, const void* biases, int n_layers) {
   return p;
 }
 
-template <typename T>
+template <typename T, bool NV>
 int launch_classic_fwd(const float* x, const float* view, const LayerPtrs& p, const TrainDims& d,
                        float* rgb, float* density, T* saved, cudaStream_t s) {
   const size_t smem = classic_fwd_smem<T>(d);
-  cudaError_t e = cudaFuncSetAttribute((const void*)mlp_fwd_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute((const void*)mlp_fwd_kernel<T, NV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  mlp_fwd_kernel<T><<<d.Mp / TM, THREADS, smem, s>>>(x, view, p, d, rgb, density, saved);
+  mlp_fwd_kernel<T, NV><<<d.Mp / TM, THREADS, smem, s>>>(x, view, p, d, rgb, density, saved);
   return (int)cudaGetLastError();
 }
 
@@ -845,26 +680,27 @@ struct Refwd {
 // The chunks [c0, c0 + chunk) of the level, then the reductions.  acts /
 // heads describe the whole level (save: S and its heads; hybrid: the
 // point-major streams, heads null) unless rf re-runs the forward per chunk.
-// CL: the classic MLP (its forward re-run, dx / dview, no per-ray sums).
-template <typename T, bool PM, bool CL = false>
+// CL: the classic MLP (its forward re-run, dx / dview, no per-ray sums);
+// NV: the classic MLP with no view layer.
+template <typename T, bool PM, bool CL = false, bool NV = false>
 int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
               const Acts& level_acts, const float* level_heads, cudaStream_t s) {
   const int Cg = d.cg(), wmax = d.W > d.Wv ? d.W : d.Wv;
   const size_t csmem = chain_smem_bytes<T>(wmax, Cg, 3 + d.nd);
   const size_t wsmem = sizeof(T) == 2 ? 0 : sizeof(float) * WGRAD_ACC * THREADS;
   const size_t fsmem = CL ? classic_fwd_smem<T>(d) : mlp_smem_bytes<T>(d.Fp, wmax);
-  cudaError_t e = cudaFuncSetAttribute(lean_grad_chain_kernel<T, PM, CL>,
+  cudaError_t e = cudaFuncSetAttribute(lean_grad_chain_kernel<T, PM, CL, NV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)csmem);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(lean_wgrad_kernel<T, PM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
   const FwdKernel<T> refwd = CL ? (FwdKernel<T>)nullptr : fwd_kernel<T>(d);
   if (e == cudaSuccess && rf)
-    e = cudaFuncSetAttribute(CL ? (const void*)mlp_fwd_kernel<T> : (const void*)refwd,
+    e = cudaFuncSetAttribute(CL ? (const void*)mlp_fwd_kernel<T, NV> : (const void*)refwd,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fsmem);
   const size_t ismem = input_grads_smem_bytes<T>(d);
   if (e == cudaSuccess && CL)
-    e = cudaFuncSetAttribute(mlp_input_grads_kernel<T>,
+    e = cudaFuncSetAttribute(mlp_input_grads_kernel<T, NV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ismem);
   if (e != cudaSuccess) return (int)e;
   T* G = static_cast<T*>(a.G);
@@ -881,7 +717,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       T* S = static_cast<T*>(rf->S);
       if constexpr (CL) {
         // Rows start at x[c0][0] and view[c0][0].
-        mlp_fwd_kernel<T><<<dc.Mp / TM, THREADS, fsmem, s>>>(
+        mlp_fwd_kernel<T, NV><<<dc.Mp / TM, THREADS, fsmem, s>>>(
             rf->x + (size_t)c0 * d.F, rf->vproj + (size_t)c0 * d.Fv, rf->p, dc, nullptr, nullptr,
             S);
       } else {
@@ -900,7 +736,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       for (int i = 0; i < d.n_acts(); ++i)
         acts.t[i] = static_cast<const T*>(level_acts.t[i]) + (size_t)c0 * level_acts.ld[i];
     }
-    lean_grad_chain_kernel<T, PM, CL><<<a.n_chain, THREADS, csmem, s>>>(
+    lean_grad_chain_kernel<T, PM, CL, NV><<<a.n_chain, THREADS, csmem, s>>>(
         acts, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc, G, a.g1f,
         a.db_part + (size_t)n_chunks * a.n_chain * Cg);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -908,7 +744,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       InputGrads ig = a.ig;
       ig.dx += (size_t)c0 * d.F;
       ig.dview += (size_t)c0 * d.Fv;
-      mlp_input_grads_kernel<T><<<dc.Mp / TM, THREADS, ismem, s>>>(G, ig, dc);
+      mlp_input_grads_kernel<T, NV><<<dc.Mp / TM, THREADS, ismem, s>>>(G, ig, dc);
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
     const dim3 grid(a.n_tiles, (dc.Mp + a.MC - 1) / a.MC);
@@ -1014,6 +850,16 @@ int read_classic(GradArgs& a, const TrainDims& d, void* dx, void* dview, const v
   return 0;
 }
 
+// run_grads of the classic MLP: with view layers, or (depth_cond 0) none.
+int run_classic(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
+                const Acts& acts, int use_bf16, cudaStream_t s) {
+  if (d.depth_cond == 0)
+    return use_bf16 ? run_grads<bf16, false, true, true>(a, d, chunk, rf, acts, nullptr, s)
+                    : run_grads<float, false, true, true>(a, d, chunk, rf, acts, nullptr, s);
+  return use_bf16 ? run_grads<bf16, false, true>(a, d, chunk, rf, acts, nullptr, s)
+                  : run_grads<float, false, true>(a, d, chunk, rf, acts, nullptr, s);
+}
+
 int classic_fwd_entry(const void* x, const void* view, const void* weights, const void* biases,
                       int n_layers, void* rgb, void* density, void* saved, const int* dims,
                       int use_bf16, void* stream) {
@@ -1025,8 +871,13 @@ int classic_fwd_entry(const void* x, const void* view, const void* weights, cons
   const float* vf = static_cast<const float*>(view);
   float* r = static_cast<float*>(rgb);
   float* dn = static_cast<float*>(density);
-  return use_bf16 ? launch_classic_fwd<bf16>(xf, vf, p, d, r, dn, static_cast<bf16*>(saved), s)
-                  : launch_classic_fwd<float>(xf, vf, p, d, r, dn, static_cast<float*>(saved), s);
+  bf16* sb = static_cast<bf16*>(saved);
+  float* sf = static_cast<float*>(saved);
+  if (d.depth_cond == 0)
+    return use_bf16 ? launch_classic_fwd<bf16, true>(xf, vf, p, d, r, dn, sb, s)
+                    : launch_classic_fwd<float, true>(xf, vf, p, d, r, dn, sf, s);
+  return use_bf16 ? launch_classic_fwd<bf16, false>(xf, vf, p, d, r, dn, sb, s)
+                  : launch_classic_fwd<float, false>(xf, vf, p, d, r, dn, sf, s);
 }
 
 }  // namespace
@@ -1170,9 +1021,7 @@ int mlp_bwd_saved(const void* saved, void* dx, void* dview, const void* x_chain,
     acts.t[i] = static_cast<const char*>(saved) + esize * d.s_row(i) * d.Mp;
     acts.ld[i] = d.Mp;
   }
-  const int chunk = level_chunk(d, MC);
-  return use_bf16 ? run_grads<bf16, false, true>(a, d, chunk, nullptr, acts, nullptr, s)
-                  : run_grads<float, false, true>(a, d, chunk, nullptr, acts, nullptr, s);
+  return run_classic(a, d, level_chunk(d, MC), nullptr, acts, use_bf16, s);
 }
 
 // mlp_bwd_saved with the forward re-run by mlp_fwd's kernel chunk by
@@ -1190,9 +1039,7 @@ int mlp_bwd_recompute(const void* x, const void* view_pts, const void* weights,
   const Refwd rf{static_cast<const float*>(x), static_cast<const float*>(view_pts),
                  layer_ptrs(weights, biases, n_layers), saved, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Acts none{};
-  return use_bf16 ? run_grads<bf16, false, true>(a, d, chunk, &rf, none, nullptr, s)
-                  : run_grads<float, false, true>(a, d, chunk, &rf, none, nullptr, s);
+  return run_classic(a, d, chunk, &rf, Acts{}, use_bf16, s);
 }
 
 }  // extern "C"

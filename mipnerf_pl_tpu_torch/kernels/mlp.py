@@ -45,7 +45,8 @@ Function `fused_mlp_lean` over csrc/lean_train.cu:
                     (`_bwd_kernel_lean_hybrid`)
 
 The forwards run view_proj for view_0's per-ray half; heads are activated
-with act = (rgb_padding, density_bias), or raw for act=None.
+with act = (rgb_padding, density_bias), or raw for act=None.  These need
+net_depth_condition >= 1, as their TPU kernels do.
 
 Input gradients.  Replaces fused_mlp in its two modes (the `pallas` /
 `pallas_save` backends, the fused path with stop_resample_grad False), one
@@ -62,6 +63,10 @@ and a backward that also returns dx and dview:
                     stream (`_bwd_kernel_saved`)
   mlp_bwd_recompute the same, the forward re-run chunk by chunk
                     (`_bwd_kernel`)
+
+With net_depth_condition 0 (no view layer) the rgb head reads
+concat(bottleneck, view): the four kernels are instantiated for it, and its
+cotangent splits into the bottleneck's and dview.
 
 What bounds them: the MLP is ~1.21 MFLOP per sample point forward and about
 twice that backward (with the input gradients, exactly twice), so the
@@ -98,12 +103,13 @@ launches = {'lean_view_proj': 0, 'lean_mlp': 0, 'lean_composite': 0,
             'lean_param_grads_recompute': 0, 'lean_param_grads_hybrid': 0,
             'lean_composite_bwd': 0, 'ipe_moments': 0, 'mlp_fwd': 0,
             'mlp_bwd_recompute': 0, 'mlp_save_fwd': 0, 'mlp_bwd_saved': 0,
-            'ipe_fwd': 0, 'ipe_bwd': 0}
+            'ipe_fwd': 0, 'ipe_bwd': 0, 'tp_pair_fwd': 0, 'tp_pair_bwd': 0}
 
 # Kernel name -> (source, the Pallas kernel it replaces).
 _RENDER_CU = 'mipnerf_pl_tpu_torch/csrc/lean_render.cu'
 _TRAIN_CU = 'mipnerf_pl_tpu_torch/csrc/lean_train.cu'
 _IPE_CU = 'mipnerf_pl_tpu_torch/csrc/ipe.cu'
+_TP_CU = 'mipnerf_pl_tpu_torch/csrc/tp_pair.cu'
 KERNELS = {
     'lean_view_proj': (_RENDER_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1428'),
     'lean_mlp': (_RENDER_CU, 'mipnerf_pl_tpu/kernels/mlp.py:1428'),
@@ -124,6 +130,9 @@ KERNELS = {
     # The standalone IPE and its VJP: wrappers in kernels/ipe.py.
     'ipe_fwd': (_IPE_CU, 'mipnerf_pl_tpu/kernels/ipe.py:40'),
     'ipe_bwd': (_IPE_CU, 'mipnerf_pl_tpu/kernels/ipe.py:55'),
+    # The Megatron pair and its backward: wrappers in kernels/tp_lean.py.
+    'tp_pair_fwd': (_TP_CU, 'mipnerf_pl_tpu/kernels/tp_lean.py:69'),
+    'tp_pair_bwd': (_TP_CU, 'mipnerf_pl_tpu/kernels/tp_lean.py:104'),
 }
 
 MAX_WIDTH = 256     # widest dense layer the CUDA column tiling covers
@@ -589,12 +598,13 @@ def _check(t, shape, fn, name, device, dtype=torch.float32):
 def _check_mlp(flat_params, net_depth, net_depth_condition, flag, fn, dev,
                max_density=1):
     """Widths the CUDA tilings take, 3 rgb + 1 (up to max_density) density
-    heads, parameters on `dev`; returns (W, Wv)."""
+    heads, parameters on `dev`; returns (W, Wv), Wv = 0 with no view
+    layer."""
     W = flat_params[0].shape[1]
     iv = 2 * (net_depth + 2)
-    Wv = flat_params[iv].shape[1]
+    Wv = flat_params[iv].shape[1] if net_depth_condition else 0
     align = 16 if flag else 8      # tensor-core tiles: k16/n16, k8/n8
-    for w in (W, Wv):
+    for w in (W, Wv) if net_depth_condition else (W,):
         if w % align or w > MAX_WIDTH:
             raise ValueError(f'{fn}: layer width {w} must be a multiple of '
                              f'{align} and at most {MAX_WIDTH}')
@@ -647,6 +657,8 @@ _ARGTYPES = {
     'mlp_save_fwd': [_P] * 4 + [_I] + [_P] * 4 + [_I, _P],
     'mlp_bwd_saved': [_P] * 5 + _GRAD_TAIL,
     'mlp_bwd_recompute': [_P] * 5 + [_I] + [_P] * 4 + _GRAD_TAIL,
+    'tp_pair_fwd': [_P] * 5 + [_I] * 6 + [_P],
+    'tp_pair_bwd': [_P] * 9 + [_I, _P, _I, _I, _P, _P] + [_I] * 6 + [_P],
 }
 
 
@@ -1122,7 +1134,8 @@ def _grad_launch(fn, prefix, chunk, plan, view, g_rgb, g_dens, flat_params,
     # back through (their x rows carry none).
     chain = {i: ks[i][:W] for i in range(1, net_depth)}
     chain[net_depth + 1] = ks[net_depth + 1][:W]
-    chain[iv] = ks[iv][:W]
+    if net_depth_condition:
+        chain[iv] = ks[iv][:W]
     chain.update({iv + j: ks[iv + j] for j in range(1, net_depth_condition)})
     chain = {i: k.t().to(compute_dtype).contiguous() for i, k in chain.items()}
     c_chain = (ctypes.c_void_p * len(ks))(
@@ -1399,7 +1412,8 @@ def _mlp_body_plain(x, view, p, net_depth, net_depth_condition, skip_index,
 
 def _mlp_dims(flat_params, net_depth):
     """(F, W, Fv, Wv) of the classic MLP from its parameters: Fv is the
-    view width of the layer after the bottleneck."""
+    view width of the layer after the bottleneck, Wv that layer's outputs
+    (with no view layer it is the rgb head, and Wv is unused)."""
     F, W = flat_params[0].shape
     k = flat_params[2 * (net_depth + 2)]
     return F, W, k.shape[0] - W, k.shape[1]
@@ -1517,13 +1531,9 @@ def mlp_bwd_recompute_plain(x, view, g_rgb, g_dens, flat_params,
     return mlp_bwd_saved_plain(g_rgb, g_dens, saved, flat_params, *args)
 
 
-def _classic_shapes_ok(fn, flat_params, net_depth, net_depth_condition):
-    """What the classic CUDA kernels take beyond _check_mlp: a view branch,
-    and the encode and view widths (padded to 16) within the trunk's."""
-    if net_depth_condition < 1:
-        raise ValueError(f'{fn}: the CUDA kernels need net_depth_condition '
-                         '>= 1 (the view branch); with none, the CPU runs '
-                         'the plain version')
+def _classic_shapes_ok(fn, flat_params, net_depth):
+    """What the classic CUDA kernels take beyond _check_mlp: the encode and
+    view widths (padded to 16) within the trunk's."""
     F, W, Fv, _ = _mlp_dims(flat_params, net_depth)
     if max(_round_up(F, 16), _round_up(Fv, 16)) > W:
         raise ValueError(f'{fn}: the encode ({F}) and view ({Fv}) widths, '
@@ -1532,14 +1542,15 @@ def _classic_shapes_ok(fn, flat_params, net_depth, net_depth_condition):
 
 def _mlp_check(fn, x, view, flat_params, net_depth, net_depth_condition,
                compute_dtype):
-    """The classic kernels' checks -> (flag, M, F, Fv, W, Wv)."""
+    """The classic kernels' checks -> (flag, M, F, Fv, W, Wv), Wv = 0
+    with no view layer."""
     flag = _dtype_flag(compute_dtype)
-    _classic_shapes_ok(fn, flat_params, net_depth, net_depth_condition)
+    _classic_shapes_ok(fn, flat_params, net_depth)
     dev = x.device
     M = x.shape[0]
-    F, W, Fv, Wv = _mlp_dims(flat_params, net_depth)
-    _check_mlp(flat_params, net_depth, net_depth_condition, flag, fn, dev,
-               MAX_DENSITY)
+    F, W, Fv, _ = _mlp_dims(flat_params, net_depth)
+    _, Wv = _check_mlp(flat_params, net_depth, net_depth_condition, flag, fn,
+                       dev, MAX_DENSITY)
     _check(x, (M, F), fn, 'x', dev)
     _check(view, (M, Fv), fn, 'view (per point)', dev)
     if M == 0:
@@ -1614,8 +1625,8 @@ def _mlp_grad_launch(fn, mode_args, view, g_rgb, g_dens, flat_params,
     """The classic backward entries: the lean driver with the input
     cotangents.  mode_args(plan) -> (the mode's own arguments, points a
     chunk); then come dx, dview, and the x-column kernels and view_0's
-    view rows of the input-gradient pass, transposed and padded.  -> (dx,
-    dview, grads)."""
+    view rows (with no view layer, the rgb head's) of the input-gradient
+    pass, transposed and padded.  -> (dx, dview, grads)."""
     M = g_rgb.shape[0]
     F, W, Fv, _ = _mlp_dims(flat_params, net_depth)
     Fp = _round_up(F, 16)
@@ -1659,7 +1670,7 @@ def mlp_bwd_saved(g_rgb, g_dens, saved, flat_params: Sequence[torch.Tensor],
                                    net_depth, net_depth_condition,
                                    skip_index, compute_dtype)
     fn = 'mlp_bwd_saved'
-    _classic_shapes_ok(fn, flat_params, net_depth, net_depth_condition)
+    _classic_shapes_ok(fn, flat_params, net_depth)
     M = g_rgb.shape[0]
     F, W, Fv, Wv = _mlp_dims(flat_params, net_depth)
     Cs = saved_rows(F, W, Wv, net_depth, net_depth_condition, Fv)[-1]

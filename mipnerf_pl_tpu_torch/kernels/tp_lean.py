@@ -1,0 +1,304 @@
+"""The tensor-parallel lean MLP: Megatron pair kernels (CUDA, sm_90a) under
+a (data, model) mesh.
+
+Counterpart of mipnerf_pl_tpu/kernels/tp_lean.py.  The trunk runs in
+Megatron pairs: an even layer column-parallel, the odd layer after it
+row-parallel.  Per pair and model shard ONE kernel computes
+
+    partial = relu(h @ Wcol_local + bcol_local) @ Wrow_local
+
+with the [rows, W / n] hidden activation kept on the chip, and the pair
+boundary is one f32 sum over the mesh's `model` axis.  The two TPU kernels
+become two hand-written kernels in csrc/tp_pair.cu, one wrapper each:
+
+  tp_pair_fwd  `_pair_kernel` behind `_pair_call`: x [M, f_in] (f32 encode
+               rows for the first pair, the compute dtype after), Wcol
+               [f_in, W/n], bcol [1, W/n], Wrow [W/n, W] -> [M, W] f32
+  tp_pair_bwd  `_pair_bwd_kernel` behind `_pair_bwd_call`: the same inputs
+               and g [M, W] f32 -> dx [M, f_in], dWcol, dbcol, dWrow, f32;
+               the hidden activation is recomputed; parameter gradients are
+               per-range partial sums added in a fixed order (two runs give
+               the same bits)
+
+and `_pair` is the autograd Function over them whose residuals are the
+pair's inputs only.  The kernels take a local width W/n that is a multiple
+of 16 up to 512 and an output width W that is a multiple of 16; any f_in and
+any row count.  Each wrapper takes its plain version (`_pair_plain`,
+`_pair_bwd_plain`) for tensors on the CPU, and only there; on a CUDA tensor
+it launches its kernel or raises.  Launches are counted in kernels.mlp's
+`launches`.
+
+`tp_lean_forward` is the lean MLP forward over a `parallel.mesh.Mesh`:
+rows split over `data`, the trunk pairs, the bottleneck and view_0 over
+`model`.  The skip concat lands inside a pair: that pair's row kernel is
+split into sharded h-rows and a replicated x-rows panel whose term model
+rank 0 adds, once.  Everything outside the pairs (that x-term, the heads,
+the bottleneck and view_0 products) is torch.matmul, as the JAX code leaves
+it to XLA.  The two collectives are Megatron's operators as the mesh
+provides them: into a column-parallel product `copy_to_model` (identity
+forward, a sum over `model` backward), out of a row-parallel one
+`reduce_from_model` (a sum forward, identity backward).  Biases of odd
+layers and all heads are replicated and act after a sum: on a
+single-process mesh they are computed once, on a multi-process mesh every
+rank computes the same values and the same gradients for them.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from mipnerf_pl_tpu_torch.kernels.mlp import (TILE, WGRAD_TILE, _call,
+                                              _check, _dtype_flag, _on_cpu,
+                                              _round_up, _rounded, launches,
+                                              recompute_chunk, wgrad_split)
+from mipnerf_pl_tpu_torch.parallel.mesh import Mesh
+
+MAX_LOCAL = 512     # widest local panel W / n the kernels' hidden tile takes
+MAX_TILES = 192     # output tiles of the backward's weight-gradient products
+
+
+def _pair_plain(x, w_col, b_col, w_row, dtype):
+    """`_pair_kernel` in plain PyTorch: x to the compute dtype, the bias
+    added to the f32 sum, ReLU, cast, the second product summed in f32."""
+    h = _rounded(x, dtype) @ _rounded(w_col, dtype) + b_col.float()
+    return _rounded(torch.relu(h), dtype) @ _rounded(w_row, dtype)
+
+
+def _pair_bwd_plain(x, w_col, b_col, w_row, g, dtype):
+    """`_pair_bwd_kernel` in plain PyTorch -> (dx, dWcol, dbcol, dWrow) f32:
+    g cast before every product, the mask from the f32 pre-activation,
+    dbcol from the f32 dh, dWcol and dx from the cast one."""
+    xr, wc, wr = (_rounded(t, dtype) for t in (x, w_col, w_row))
+    hpre = xr @ wc + b_col.float()
+    h = _rounded(torch.relu(hpre), dtype)
+    gr = _rounded(g, dtype)
+    dwr = h.t() @ gr
+    dh = torch.where(hpre > 0.0, gr @ wr.t(), 0.0)
+    dhd = _rounded(dh, dtype)
+    return dhd @ wc.t(), xr.t() @ dhd, dh.sum(0, keepdim=True), dwr
+
+
+def _pair_check(fn, x, w_col, b_col, w_row, dtype):
+    """What the pair kernels take -> (flag, M, f_in, Wl, Wout)."""
+    flag = _dtype_flag(dtype)
+    dev = x.device
+    M, f_in = x.shape
+    Wl, Wout = w_row.shape
+    if Wl % 16 or not 16 <= Wl <= MAX_LOCAL or Wout % 16 or Wout < 16:
+        raise ValueError(f'{fn}: the kernel takes a local width that is a '
+                         f'multiple of 16 up to {MAX_LOCAL} and an output '
+                         f'width that is a multiple of 16, got {Wl} and '
+                         f'{Wout}')
+    if x.dtype not in (torch.float32, dtype) or M == 0:
+        raise ValueError(f'{fn}: x must be float32 or {dtype} with rows, got '
+                         f'{x.dtype} {tuple(x.shape)}')
+    _check(x, (M, f_in), fn, 'x', dev, x.dtype)
+    _check(w_col, (f_in, Wl), fn, 'w_col', dev, w_col.dtype)
+    _check(b_col, (1, Wl), fn, 'b_col', dev, b_col.dtype)
+    _check(w_row, (Wl, Wout), fn, 'w_row', dev, w_row.dtype)
+    return flag, M, f_in, Wl, Wout
+
+
+def _pair_call(x, w_col, b_col, w_row, dtype):
+    """One model shard's half of a pair -> the f32 partial [M, Wout] before
+    the sum over `model`: relu(x @ w_col + b_col) @ w_row."""
+    if _on_cpu(x, 'tp_pair_fwd'):
+        return _pair_plain(x, w_col, b_col, w_row, dtype)
+    fn = 'tp_pair_fwd'
+    flag, M, f_in, Wl, Wout = _pair_check(fn, x, w_col, b_col, w_row, dtype)
+    x = x.detach().contiguous()
+    wc = w_col.detach().to(dtype).contiguous()
+    wr = w_row.detach().to(dtype).contiguous()
+    bc = b_col.detach().float().reshape(-1).contiguous()
+    out = torch.empty((M, Wout), dtype=torch.float32, device=x.device)
+    _call(fn, x.device, x.data_ptr(), wc.data_ptr(), bc.data_ptr(),
+          wr.data_ptr(), out.data_ptr(), M, f_in, Wl, Wout,
+          int(x.dtype == torch.float32), flag)
+    launches[fn] += 1
+    return out
+
+
+def _pair_bwd_call(x, w_col, b_col, w_row, g, dtype):
+    """The pair's backward from its inputs and the partial's cotangent g
+    [M, Wout] f32 -> (dx [M, f_in], dWcol [f_in, Wl], dbcol [1, Wl], dWrow
+    [Wl, Wout]), all f32."""
+    if _on_cpu(x, 'tp_pair_bwd'):
+        return _pair_bwd_plain(x, w_col, b_col, w_row, g, dtype)
+    fn = 'tp_pair_bwd'
+    flag, M, f_in, Wl, Wout = _pair_check(fn, x, w_col, b_col, w_row, dtype)
+    dev = x.device
+    _check(g, (M, Wout), fn, 'g', dev)
+    tiles = -(-f_in // WGRAD_TILE) * -(-Wl // WGRAD_TILE) \
+        + -(-Wl // WGRAD_TILE) * -(-Wout // WGRAD_TILE)
+    if tiles > MAX_TILES:
+        raise ValueError(f'{fn}: widths {f_in} x {Wl} x {Wout} make {tiles} '
+                         f'weight-gradient tiles, the kernel takes '
+                         f'{MAX_TILES}')
+    x, g = x.detach().contiguous(), g.detach().contiguous()
+    wc = w_col.detach().to(dtype).contiguous()
+    bc = b_col.detach().float().reshape(-1).contiguous()
+    Fp = _round_up(f_in, 16)
+    wrT = w_row.detach().to(dtype).t().contiguous()
+    wcT = torch.zeros((Wl, Fp), dtype=dtype, device=dev)
+    wcT[:, :f_in] = wc.t()
+    Mp = _round_up(M, TILE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mc = wgrad_split(Mp, tiles, 1, sms)
+    chunk = recompute_chunk(Mp, mc)
+    cap = min(chunk, Mp)
+    n_blocks = min(cap // TILE, 2 * sms)
+    PW = f_in * Wl + Wl * Wout
+    f32 = dict(dtype=torch.float32, device=dev)
+    S = torch.empty((Fp + 2 * Wl + Wout, cap), dtype=dtype, device=dev)
+    db_part = torch.empty((-(-M // chunk) * n_blocks, Wl), **f32)
+    partial = torch.zeros((-(-Mp // mc), PW), **f32)
+    dx = torch.empty((M, f_in), **f32)
+    dw = torch.empty(PW, **f32)
+    db = torch.empty((1, Wl), **f32)
+    _call(fn, dev, x.data_ptr(), wc.data_ptr(), bc.data_ptr(),
+          wrT.data_ptr(), wcT.data_ptr(), g.data_ptr(), S.data_ptr(),
+          dx.data_ptr(), db_part.data_ptr(), n_blocks, partial.data_ptr(),
+          mc, chunk, dw.data_ptr(), db.data_ptr(), M, f_in, Wl, Wout,
+          int(x.dtype == torch.float32), flag)
+    launches[fn] += 1
+    return (dx, dw[:f_in * Wl].view(f_in, Wl), db,
+            dw[f_in * Wl:].view(Wl, Wout))
+
+
+class _Pair(torch.autograd.Function):
+    """The differentiable pair: `_pair_call` forward, `_pair_bwd_call`
+    backward.  The residuals are the pair's inputs only: the hidden
+    activation is recomputed in the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w_col, b_col, w_row, dtype):
+        ctx.save_for_backward(x, w_col, b_col, w_row)
+        ctx.dtype = dtype
+        return _pair_call(x, w_col, b_col, w_row, dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w_col, b_col, w_row = ctx.saved_tensors
+        dx, dwc, dbc, dwr = _pair_bwd_call(x, w_col, b_col, w_row,
+                                           g.float().contiguous(), ctx.dtype)
+        return (dx.to(x.dtype), dwc.to(w_col.dtype), dbc.to(b_col.dtype),
+                dwr.to(w_row.dtype), None)
+
+
+def _pair(x, w_col, b_col, w_row, dtype):
+    return _Pair.apply(x, w_col, b_col, w_row, dtype)
+
+
+def tp_lean_forward(x, view, flat_params, mesh: Mesh, num_samples: int,
+                    net_depth: int = 8, net_depth_condition: int = 1,
+                    skip_index: int = 4, compute_dtype=torch.bfloat16):
+    """Forward pass of the lean MLP, tensor-parallel over `mesh`'s `model`
+    axis and data-parallel over its `data` axis; differentiable in x, view
+    and every parameter.
+
+    x [M, F] f32 encode rows, view [M / num_samples, Fv], `flat_params` the
+    lean flat layout (kernels.mlp.flatten_params) at FULL shapes: the
+    sharding is internal.  Returns (raw_rgb [M, 3], raw_density [M, nd])
+    f32, the raw heads of the single-device lean forward.  On a
+    single-process mesh x and view are the whole batch, whose rays must
+    divide among the data shards; on a multi-process mesh they are this
+    process's rows.
+
+    Requirements: even net_depth, even skip_index (so the skip concat lands
+    inside a pair), trunk width divisible by the model-axis size.
+    """
+    n_model = mesh.shape['model']
+    if net_depth % 2:
+        raise ValueError('tp_lean_forward needs an even net_depth')
+    if skip_index % 2:
+        raise ValueError('tp_lean_forward needs an even skip_index')
+    W = flat_params[0].shape[1]
+    if W % n_model:
+        raise ValueError(f'net_width {W} not divisible by model={n_model}')
+    nvd = net_depth_condition
+    skips = {i for i in range(skip_index, net_depth, skip_index)}
+    Wl = W // n_model
+    dtype = compute_dtype
+
+    # --- the params as named slots: full leaves, or a model rank's panel ---
+    full, col, row = {}, {}, {}
+    for i in range(net_depth):
+        k, b = flat_params[2 * i], flat_params[2 * i + 1]
+        if i % 2 == 0:
+            col[f'k{i}'], col[f'b{i}'] = k, b
+        else:
+            # The skip concat fires after even layer i - 1 and feeds this
+            # odd layer: its kernel splits into h-rows (sharded) and x-rows
+            # (replicated).
+            if (i - 1) in skips:
+                row[f'k{i}'], full[f'k{i}_x'] = k[:W], k[W:]
+            else:
+                row[f'k{i}'] = k
+            full[f'b{i}'] = b
+    nd_i = 2 * net_depth
+    full['kd'], full['bd'] = flat_params[nd_i], flat_params[nd_i + 1]
+    col['kbn'], col['bbn'] = flat_params[nd_i + 2], flat_params[nd_i + 3]
+    kv = flat_params[nd_i + 4]
+    row['kv_h'] = kv[:W]            # bottleneck rows: sharded like bn's cols
+    full['kv_v'] = kv[W:]           # view-direction rows: replicated
+    full['bv'] = flat_params[nd_i + 5]
+    for j in range(1, nvd):
+        full[f'kv{j}'] = flat_params[nd_i + 4 + 2 * j]
+        full[f'bv{j}'] = flat_params[nd_i + 5 + 2 * j]
+    r_i = nd_i + 4 + 2 * nvd
+    full['kr'], full['br'] = flat_params[r_i], flat_params[r_i + 1]
+
+    def panel(name, r):
+        """Model rank r's shard of a column- or row-parallel slot."""
+        if name in col:
+            return col[name][:, r * Wl:(r + 1) * Wl]
+        return row[name][r * Wl:(r + 1) * Wl]
+
+    def dense(h, k, b):
+        return h.to(dtype).float() @ k.to(dtype).float() + b.float()
+
+    def body(x, view):
+        h = x
+        for e in range(0, net_depth, 2):
+            o = e + 1
+            h_in = mesh.copy_to_model(h)
+            partials = []
+            for r in mesh.model_ranks:
+                partial = _pair(h_in, panel(f'k{e}', r), panel(f'b{e}', r),
+                                panel(f'k{o}', r), dtype)
+                # The row layer's input was concat([h_e, x]): the x-rows'
+                # term is added once, by model rank 0.  On a multi-process
+                # mesh every rank takes the product and the others drop
+                # it, so that the backward's sum over `model` hands every
+                # rank the gradients of x and of the replicated panel.
+                if e in skips and (r == 0 or mesh.distributed):
+                    term = (mesh.copy_to_model(x).to(dtype).float()
+                            @ mesh.copy_to_model(full[f'k{o}_x'])
+                            .to(dtype).float())
+                    partial = partial + (term if r == 0 else 0.0 * term)
+                partials.append(partial)
+            h = mesh.reduce_from_model(partials) + full[f'b{o}'].float()
+            h = torch.relu(h).to(dtype)
+
+        density = dense(h, full['kd'], full['bd'])
+        h_in = mesh.copy_to_model(h)
+        partials = []
+        for r in mesh.model_ranks:
+            bottleneck = dense(h_in, panel('kbn', r),
+                               panel('bbn', r)).to(dtype)
+            partials.append(bottleneck.float()
+                            @ panel('kv_h', r).to(dtype).float())
+        pp = mesh.reduce_from_model(partials)
+        per_ray = dense(view, full['kv_v'], full['bv'])
+        R, wv = per_ray.shape
+        pr = per_ray[:, None, :].expand(R, num_samples, wv).reshape(-1, wv)
+        y = torch.relu(pp + pr).to(dtype)
+        for j in range(1, nvd):
+            y = torch.relu(dense(y, full[f'kv{j}'], full[f'bv{j}'])).to(dtype)
+        return dense(y, full['kr'], full['br']), density
+
+    outs = [body(xs, vs) for xs, vs in mesh.split_rows(x, view, num_samples)]
+    return (torch.cat([o[0] for o in outs], dim=0),
+            torch.cat([o[1] for o in outs], dim=0))

@@ -124,6 +124,30 @@ def _compute_dtype(hparams) -> torch.dtype:
     return torch.bfloat16 if name == 'bfloat16' else torch.float32
 
 
+def _refuse_parallel_settings(hparams) -> None:
+    """The system trains and renders on one device.  The mesh, the Megatron
+    shardings and `tp_lean_forward` exist (parallel/, kernels/tp_lean.py),
+    but nothing here drives them yet, so a request for more than one device
+    is refused rather than dropped."""
+    def _get(key, default):
+        v = hparams.get(key)
+        return default if v is None or str(v) == 'None' else v
+
+    asked = [f'{key}={hparams.get(key)!r}'
+             for key in ('num_devices', 'num_gpus') if int(_get(key, 0)) > 1]
+    if int(_get('parallel.model_axis', 1)) > 1:
+        asked.append(f'parallel.model_axis={hparams["parallel.model_axis"]!r}')
+    if _get('parallel.multi_host', False):
+        asked.append(f'parallel.multi_host={hparams["parallel.multi_host"]!r}')
+    if asked:
+        raise NotImplementedError(
+            f'MipNeRFSystem runs on one device; {", ".join(asked)} asks for '
+            'data or tensor parallelism through the system, which is not '
+            'ported yet (ROADMAP.md, queue 1, item 8: MipNeRFSystem under '
+            'parallel.model_axis > 1, data parallelism through fit, '
+            'multi-host)')
+
+
 class MipNeRFSystem:
     """Owns the model, its render-time twin and the optimizer schedule on
     one device: a CUDA device unless `device` says otherwise (the CPU runs
@@ -131,6 +155,7 @@ class MipNeRFSystem:
 
     def __init__(self, hparams: Dict[str, Any], device=None):
         config.warn_inert_keys(hparams)
+        _refuse_parallel_settings(hparams)
         self.hparams = dict(hparams)
         if device is None:
             if not torch.cuda.is_available():

@@ -26,7 +26,13 @@ against their plain versions (<= 1e-5), and training through the
 render-fused level against its wrappers called in order (bit for bit).
 fused_mlp's kernels (the `pallas` / `pallas_save` backends) take the same
 bars, dx and dview with the parameters; its recompute backward equals the
-saved one on dx and dview bit for bit.  The standalone IPE (ipe_fwd,
+saved one on dx and dview bit for bit; they also run a model with no view
+layer (net_depth_condition 0).  The Megatron pair kernels (tp_pair_fwd,
+tp_pair_bwd: kernels/tp_lean.py) are held against their plain versions at
+small, ragged and chunked-width shapes at the same bars (the gradients at
+||a - b|| / ||b||), two backward runs bit for bit, and tp_lean_forward on a
+single-process mesh on the card against the same function on the CPU.  The
+standalone IPE (ipe_fwd,
 ipe_bwd: `nerf.ipe_backend: pallas`) is held against its plain versions,
 max |d| <= 1e-5 forward and ||a - b|| / ||b|| <= 1e-5 for dmeans and dcovs
 (which reach 1e5 and 1e9), two runs bit for bit, also at zero covariances.
@@ -664,6 +670,11 @@ CLASSIC_SHAPES = {
                            net_depth_condition=2, net_width_condition=32,
                            N=24), 2),
     'lego': (96, LEGO, 1),
+    # net_depth_condition 0: the rgb head reads concat(bottleneck, view);
+    # ragged, the trunk ending on a skip concat; then the lego widths with
+    # two density heads.
+    'no_view': (37, dict(SMALL, net_width=64, net_depth_condition=0), 1),
+    'no_view_lego_nd2': (96, dict(LEGO, net_depth_condition=0), 2),
 }
 
 
@@ -764,12 +775,12 @@ def test_cuda_mlp_recompute_matches_saved(cuda_device, shape, dtype, chunks,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('shape', ['view2_nd2', 'no_view'])
 @pytest.mark.parametrize('mode', ['save', 'recompute'])
-def test_cuda_fused_mlp_autograd(cuda_device, mode):
+def test_cuda_fused_mlp_autograd(cuda_device, mode, shape):
     """fused_mlp's autograd Function on the card: x, view and every
     parameter receive what the mode's backward wrapper returns."""
-    cfg, (x, view, g_rgb, g_dens), flat = _classic_on('view2_nd2',
-                                                      cuda_device)
+    cfg, (x, view, g_rgb, g_dens), flat = _classic_on(shape, cuda_device)
     args = (cfg['net_depth'], cfg['net_depth_condition'], cfg['skip_index'],
             torch.float32)
     leaves = [t.clone().requires_grad_(True) for t in [x, view] + flat]
@@ -962,3 +973,129 @@ def test_cuda_ipe_backend_training_runs_the_kernels(cuda_device, backend,
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
     want = losses['cpu']
     assert abs(losses[str(cuda_device)] - want) <= 1e-4 * abs(want)
+
+
+# ---------------------------------------------------------------------------
+# The Megatron pair kernels (kernels/tp_lean.py) and tp_lean_forward.
+# ---------------------------------------------------------------------------
+
+# (rows, f_in, local width, output width): one column chunk; ragged rows and
+# an f_in that is no multiple of 16; widths over the engines' 256 columns
+# (two and three column chunks, the last 16 wide) over two staging tiles.
+PAIR_SHAPES = {'small': (200, 24, 16, 32), 'ragged': (777, 96, 64, 128),
+               'chunked': (4097, 40, 272, 528), 'wide_in': (300, 272, 64, 272)}
+
+
+def _pair_problem(shape, dtype, device, seed=0):
+    """x f32, or post-ReLU in the compute dtype when f_in is the output
+    width (a later pair's input); f32 parameters and cotangent."""
+    M, f_in, Wl, Wout = PAIR_SHAPES[shape]
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+    x = t(rng.normal(size=(M, f_in)))
+    if f_in == Wout:
+        x = torch.relu(x).to(dtype)
+    return (x, t(rng.normal(size=(f_in, Wl)) / np.sqrt(f_in)),
+            t(rng.normal(size=(1, Wl)) * 0.1),
+            t(rng.normal(size=(Wl, Wout)) / np.sqrt(Wl)),
+            t(rng.normal(size=(M, Wout))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(PAIR_SHAPES))
+def test_cuda_pair_kernels_match_plain(cuda_device, shape, dtype):
+    """tp_pair_fwd against `_pair_plain` and tp_pair_bwd against
+    `_pair_bwd_plain` (f32; the backward's on x and the panels rounded to
+    the compute dtype): forward at the forward bars, dx, dWcol, dbcol and
+    dWrow at ||a - b|| / ||b|| <= 1e-4 f32, 3e-2 bf16; two backward runs
+    give the same bits."""
+    from mipnerf_pl_tpu_torch.kernels import tp_lean
+    dt = getattr(torch, dtype)
+    *args, g = _pair_problem(shape, dt, cuda_device)
+    tk.reset_launches()
+    out = tp_lean._pair_call(*args, dt)
+    got = tp_lean._pair_bwd_call(*args, g, dt)
+    again = tp_lean._pair_bwd_call(*args, g, dt)
+    torch.cuda.synchronize()
+    assert tk.launches['tp_pair_fwd'] == 1 and tk.launches['tp_pair_bwd'] == 2
+    _close(out, tp_lean._pair_plain(*args, torch.float32), dtype)
+    # The f32 backward on the operands as the kernel rounds them, so that
+    # both recompute the same pre-activation and take the same ReLU mask.
+    x, w_col, b_col, w_row = args
+    want = tp_lean._pair_bwd_plain(x.to(dt), w_col.to(dt), b_col,
+                                   w_row.to(dt), g, torch.float32)
+    assert [a.shape for a in got] == [b.shape for b in want]
+    assert all(torch.isfinite(a).all() for a in got)
+    assert max_leaf_rel_err(got, want) <= (1e-4 if dtype == 'float32'
+                                           else 3e-2)
+    for a, b in zip(got, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_pair_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """A local width over 512 or off the 16-column grid and an x in another
+    dtype raise ValueError naming the width; nothing falls back."""
+    from mipnerf_pl_tpu_torch.kernels import tp_lean
+
+    def call(M, f_in, Wl, Wout, x_dtype=torch.float32):
+        z = lambda *s: torch.zeros(*s, device=cuda_device)  # noqa: E731
+        return tp_lean._pair_call(z(M, f_in).to(x_dtype), z(f_in, Wl),
+                                  z(1, Wl), z(Wl, Wout), torch.float32)
+    for bad in ((64, 32, 528, 64), (64, 32, 24, 64), (64, 32, 32, 40)):
+        with pytest.raises(ValueError, match='local width'):
+            call(*bad)
+    with pytest.raises(ValueError, match='float32'):
+        call(64, 32, 32, 64, torch.float16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('mesh_shape', [(2, 2), (8, 4)])
+def test_cuda_tp_lean_forward_matches_plain(cuda_device, mesh_shape, dtype):
+    """tp_lean_forward on a single-process mesh on the card against the
+    same function on the CPU, where the pairs take their plain versions:
+    the raw heads at the forward bars (against the f32 plain run), dx,
+    dview and every leaf of a seeded linear loss at ||a - b|| / ||b|| <=
+    2e-3 f32 (the forwards differ by ~1e-6, which flips ReLU masks) and
+    3e-2 bf16 (against the plain run in the same dtype); each pair kernel
+    launches once a pair, model rank and data shard."""
+    from mipnerf_pl_tpu_torch.kernels import tp_lean
+    from mipnerf_pl_tpu_torch.parallel.mesh import create_mesh
+    n, m = mesh_shape
+    cfg = dict(LEGO, net_depth=4, skip_index=2, net_width=128, N=16)
+    arrays = train_problem(8 * n // m, **cfg)
+    dt = getattr(torch, dtype)
+
+    def run(device, compute_dtype):
+        x, view, flat, g_rgb, g_dens = arrays
+        leaves = [torch.tensor(a, device=device, requires_grad=True)
+                  for a in [x, view] + flat]
+        mesh = create_mesh(n, m, device=device)
+        assert mesh.shape == {'data': n // m, 'model': m}
+        rgb, dens = tp_lean.tp_lean_forward(
+            leaves[0], leaves[1], leaves[2:], mesh, cfg['N'],
+            cfg['net_depth'], cfg['net_depth_condition'], cfg['skip_index'],
+            compute_dtype)
+        loss = ((rgb * torch.tensor(g_rgb, device=device)).sum()
+                + (dens * torch.tensor(g_dens, device=device)).sum())
+        grads = torch.autograd.grad(loss, leaves)
+        return [rgb.detach().cpu(), dens.detach().cpu()], \
+            [g.cpu() for g in grads]
+
+    tk.reset_launches()
+    got_out, got_g = run(cuda_device, dt)
+    torch.cuda.synchronize()
+    pairs = cfg['net_depth'] // 2 * n
+    assert tk.launches['tp_pair_fwd'] == pairs
+    assert tk.launches['tp_pair_bwd'] == pairs
+    ref_out, ref_g = run('cpu', torch.float32)
+    for a, b in zip(got_out, ref_out):
+        _close(a, b, dtype)
+    if dtype == 'bfloat16':
+        ref_g = run('cpu', dt)[1]
+    assert max_leaf_rel_err(got_g, ref_g) <= (2e-3 if dtype == 'float32'
+                                              else 3e-2)

@@ -197,3 +197,19 @@ def test_fused_mlp_modes_and_no_grad():
     meta = torch.zeros(4, F, device='meta')
     with pytest.raises(ValueError):
         tk.mlp_fwd(meta, meta, flat, *_args(cfg), torch.float32)
+
+
+def test_classic_shape_check_takes_a_model_without_view_layers():
+    """What the CUDA wrappers check beyond the widths' alignment: only that
+    the encode and view widths fit the trunk's.  A model with no view layer
+    passes (its kernels are instantiated for it), and the refusal left does
+    not speak of a view branch."""
+    for depth_cond in (0, 1):
+        cfg = dict(CASES['d3_skip2_v1'], net_depth_condition=depth_cond)
+        flat = [torch.tensor(p) for p in _problem(**cfg, W=32)[2]]
+        tk._classic_shapes_ok('mlp_fwd', flat, cfg['net_depth'])
+        narrow = [torch.tensor(p) for p in _problem(**cfg)[2]]
+        with pytest.raises(ValueError, match='must not exceed') as err:
+            tk._classic_shapes_ok('mlp_fwd', narrow, cfg['net_depth'])
+        assert 'view branch' not in str(err.value)
+        assert 'net_depth_condition' not in str(err.value)

@@ -313,3 +313,28 @@ def test_system_runs_on_cuda_unless_asked_for_cpu(monkeypatch):
     rays, pixels = _batch(8)
     state, aux = system.train_step(system.init_state(seed=0), rays, pixels)
     assert state['step'] == 1 and torch.isfinite(aux['loss'])
+
+
+@pytest.mark.parametrize('setting,refused', [
+    ({'num_devices': 4}, True),
+    ({'num_gpus': 2}, True),
+    ({'parallel.model_axis': 2}, True),
+    ({'parallel.multi_host': True}, True),
+    ({'num_devices': 1}, False),
+    ({'num_devices': 0, 'num_gpus': 1, 'parallel.model_axis': 1,
+      'parallel.multi_host': False}, False),
+])
+def test_system_refuses_parallel_settings_it_does_not_honour(setting,
+                                                             refused):
+    """A request for several devices, a model axis or multi-host is refused
+    with the ROADMAP item's name, not dropped: the system runs on one
+    device.  One device, asked for in either key, is accepted."""
+    from mipnerf_pl_tpu_torch.system import MipNeRFSystem
+    hp = _hparams(**setting)
+    if not refused:
+        assert MipNeRFSystem(hp, device='cpu').device.type == 'cpu'
+        return
+    key = next(iter(setting))
+    with pytest.raises(NotImplementedError, match='ROADMAP') as err:
+        MipNeRFSystem(hp, device='cpu')
+    assert f'{key}={setting[key]!r}' in str(err.value)
