@@ -7,12 +7,16 @@ Phases (each prints its own line; any failure raises and exits non-zero):
   2. build the CUDA kernels from mipnerf_pl_tpu_torch/csrc (lean_render,
      lean_train, ipe, tp_pair) with nvcc (sm_90a), one nvcc per source, all
      started together, and time it; print each kernel's registers and
-     spills;
+     spills, and the dynamic shared memory of the two wgmma kernels of the
+     bf16 backward (lean_chain_sm90_kernel, wgrad_sm90_kernel);
   3. each render kernel's wrapper against its plain PyTorch version at the
      lego shape (8x256 MLP, N = 128, one 8192-ray chunk) on numpy-seeded
      inputs: f32 max |d| <= 1e-4, bf16 max |d| / max |ref| <= 3e-2 against
      the f32 plain version; CUDA-event times of both (and of torch.addmm,
-     the one library call of view_proj's function);
+     the one library call of view_proj's function), and for view_proj,
+     whose device work is a few microseconds, the kernel's and addmm's
+     device times from a torch.profiler window (the wrapper's casts of k0
+     and b0 apart);
   4. the render slice through its entry point: MipNeRFSystem (default lego
      schema, val.mlp_backend auto) -> render_camera of a 200x200 Blender
      view with seeded params (through convert.jax_params_to_torch); every
@@ -127,6 +131,7 @@ It imports torch, numpy and the port; never JAX.  With no CUDA device it
 exits non-zero before printing any result.
 """
 
+import ctypes
 import json
 import os
 import subprocess
@@ -284,6 +289,31 @@ def cuda_ms(fn, iters: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def lego_cg(hp) -> int:
+    """Rows of the backward's cotangent stream G (every layer's outputs)."""
+    W, Wv = hp['nerf.mlp.net_width'], hp['nerf.mlp.net_width_condition']
+    dcond = hp['nerf.mlp.net_depth_condition']
+    return hp['nerf.mlp.net_depth'] * W + 1 + W + dcond * Wv + 3
+
+
+def kernel_device_ms(fn, iters: int = 20) -> dict:
+    """{device kernel name: ms per call} of fn() from a torch.profiler
+    window of `iters` calls after a warm-up: the kernels' own durations,
+    which the host's issue time does not enter."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
 
 
 def kernel_work(name, hp, R, N, tag, form='rows'):
@@ -512,11 +542,22 @@ def compare_kernels(params, hp, dev):
             if name == 'lean_view_proj':
                 # The one PyTorch call of the same function (a yardstick,
                 # never called by the port): addmm in the compute dtype.
+                # Both are a few microseconds of device work, so the
+                # events above read the host's issue time: the profiler's
+                # kernel durations give the device time, the wrapper's
+                # cast of k0 and rounding of b0 apart.
                 kv, bv, vv = (t.to(dt) for t in (flat[iv][W:], flat[iv + 1],
                                                  view))
                 library_ms = cuda_ms(lambda: torch.addmm(bv, vv, kv))
+                own = kernel_device_ms(kernel)
+                lib = kernel_device_ms(lambda: torch.addmm(bv, vv, kv))
+                vp_dev = sum(v for k, v in own.items() if 'view_proj' in k)
                 log(f'[kernel] {name} {tag}: torch.addmm {library_ms:.3f} '
-                    f'ms')
+                    f'ms; device time (torch.profiler): kernel '
+                    f'{vp_dev * 1e3:.2f} us + wrapper casts '
+                    f'{(sum(own.values()) - vp_dev) * 1e3:.2f} us, addmm '
+                    f'{sum(lib.values()) * 1e3:.2f} us '
+                    f'({", ".join(sorted(lib))})')
             record(results, (name, tag), hp, CHUNK, N, err, ms, plain_ms,
                    library_ms)
     return results
@@ -1717,6 +1758,11 @@ def main() -> int:
         log(f'[build] {rec["so"].name} in {rec["seconds"]:.1f} s')
         for kernel, spill, regs in kernel_resources(rec['log']):
             log(f'[build]   {kernel}: {spill}; {regs}')
+    # The wgmma kernels' dynamic shared memory (the lego chain's Cg).
+    smem = (ctypes.c_int * 2)()
+    _build.load('lean_train').lean_sm90_smem(lego_cg(config.default()), smem)
+    log(f'[build]   dynamic shared memory: lean_chain_sm90_kernel '
+        f'{smem[0]} B, wgrad_sm90_kernel {smem[1]} B (of 232448)')
 
     hp = config.default()
     system = MipNeRFSystem(hp, device=dev)
@@ -1827,7 +1873,8 @@ def main() -> int:
     if '--measure' in sys.argv[1:]:
         measure(hp, params, dev)
 
-    # Each kernel's f32 numbers at its phase-3 or phase-5 shape, with its
+    # Each kernel's f32 numbers (and under 'bf16' its bf16 ones, where it
+    # has them) at its phase-3 or phase-5 shape, with its
     # launches on its path: the render kernels in phase 4's frame, each
     # training kernel in the first configuration of phase 6 that runs it,
     # the standalone IPE kernels in phase 7's first train call, the pair
@@ -1851,6 +1898,10 @@ def main() -> int:
                         'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                         'bound_by': r['bound_by'],
                         'library_ms': r['library_ms']})
+        rb = results.get((name, 'bf16'))
+        if rb is not None:     # the compute dtype of the bf16 steps
+            kernels[-1]['bf16'] = {k: rb[k] for k in (
+                'err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')}
     log(f'[done] wall {time.perf_counter() - START:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi_line())

@@ -72,19 +72,50 @@ lean_mlp_kernel(const float* __restrict__ moments, const float* __restrict__ vpr
   write_activated(heads, d, m0, out);
 }
 
+// view_0's per-ray half for VP_RAYS rays a block: k0's view rows k0[W:]
+// and the block's view rows, rounded through the compute dtype, in shared
+// memory as f32; thread j sums output column j of each of the block's rays
+// in the order v = 0 .. Fv - 1, then + b0[j].
+constexpr int VP_RAYS = 8;
+
 template <typename T>
-__global__ void lean_view_proj_kernel(const float* __restrict__ view, const T* __restrict__ k0,
-                                      const float* __restrict__ b0, float* __restrict__ out,
-                                      int R, int Fv, int W, int Wv) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= R * Wv) return;
-  const int r = idx / Wv, j = idx - r * Wv;
-  float s = 0.f;
-  for (int v = 0; v < Fv; ++v) {
-    const float x = Ty<T>::to_f(Ty<T>::from_f(view[(size_t)r * Fv + v]));
-    s = fmaf(x, Ty<T>::to_f(k0[(size_t)(W + v) * Wv + j]), s);
+__global__ void __launch_bounds__(256)
+lean_view_proj_kernel(const float* __restrict__ view, const T* __restrict__ k0,
+                      const float* __restrict__ b0, float* __restrict__ out, int R, int Fv, int W,
+                      int Wv) {
+  extern __shared__ float vp_smem[];
+  float* ks = vp_smem;              // [Fv][Wv]
+  float* vs = ks + Fv * Wv;         // [VP_RAYS][Fv]
+  const int r0 = blockIdx.x * VP_RAYS, nr = min(VP_RAYS, R - r0);
+  // k0[W:] is contiguous: 16-byte loads, all in flight at once.
+  constexpr int VEC = 16 / sizeof(T);
+  const T* kv0 = k0 + (size_t)W * Wv;
+  const int nvec = (size_t)W * Wv % VEC ? 0 : Fv * Wv / VEC;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+    const uint4 u = reinterpret_cast<const uint4*>(kv0)[i];
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) ks[i * VEC + k] = Ty<T>::to_f(e[k]);
   }
-  out[idx] = s + b0[j];
+  for (int i = nvec * VEC + threadIdx.x; i < Fv * Wv; i += blockDim.x) ks[i] = Ty<T>::to_f(kv0[i]);
+  for (int i = threadIdx.x; i < nr * Fv; i += blockDim.x)
+    vs[i] = Ty<T>::to_f(Ty<T>::from_f(view[(size_t)r0 * Fv + i]));
+  __syncthreads();
+  for (int j = threadIdx.x; j < Wv; j += blockDim.x) {
+    float s[VP_RAYS];
+#pragma unroll
+    for (int r = 0; r < VP_RAYS; ++r) s[r] = 0.f;
+    for (int v = 0; v < Fv; ++v) {
+      const float kv = ks[v * Wv + j];
+#pragma unroll
+      for (int r = 0; r < VP_RAYS; ++r) s[r] = fmaf(vs[r * Fv + v], kv, s[r]);
+    }
+    const float b = b0[j];
+#pragma unroll
+    for (int r = 0; r < VP_RAYS; ++r)
+      if (r < nr) out[(size_t)(r0 + r) * Wv + j] = s[r] + b;
+  }
 }
 
 constexpr int RAYS_PER_BLOCK = 8;
@@ -258,15 +289,17 @@ extern "C" {
 int lean_view_proj(const void* view, const void* k0, const void* b0, void* out,
                    int R, int Fv, int W, int Wv, int use_bf16, void* stream) {
   if (R <= 0 || Fv <= 0 || Wv <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const int blocks = (int)(((long long)R * Wv + threads - 1) / threads);
+  const int threads = Wv < 256 ? (Wv + 31) / 32 * 32 : 256;
+  const int blocks = (R + VP_RAYS - 1) / VP_RAYS;
+  const size_t smem = sizeof(float) * ((size_t)Fv * Wv + VP_RAYS * Fv);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_bf16)
-    lean_view_proj_kernel<bf16><<<blocks, threads, 0, s>>>(
+    lean_view_proj_kernel<bf16><<<blocks, threads, smem, s>>>(
         static_cast<const float*>(view), static_cast<const bf16*>(k0),
         static_cast<const float*>(b0), static_cast<float*>(out), R, Fv, W, Wv);
   else
-    lean_view_proj_kernel<float><<<blocks, threads, 0, s>>>(
+    lean_view_proj_kernel<float><<<blocks, threads, smem, s>>>(
         static_cast<const float*>(view), static_cast<const float*>(k0),
         static_cast<const float*>(b0), static_cast<float*>(out), R, Fv, W, Wv);
   return (int)cudaGetLastError();

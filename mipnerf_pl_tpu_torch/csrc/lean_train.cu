@@ -74,19 +74,25 @@
 //   0. recompute only: lean_fwd_kernel re-runs the forward of the chunk
 //      into a chunk-sized S and raw heads (the same kernel and tiles as
 //      lean_fwd, so the same ReLU masks); no level-sized stream exists.
-//   1. lean_grad_chain_kernel, persistent blocks over 64-point tiles: head
+//   1. the cotangent chain, persistent blocks over point tiles: head
 //      cotangents (activation derivatives folded in), then back through
 //      rgb -> view_j -> view_0 -> bottleneck + density -> trunk with the
 //      transposed weights on the same GEMM engines, ReLU masks from the
 //      saved activations.  Each layer's output cotangent goes to G
 //      [Cg][chunk] in the compute dtype (the operand of its weight
 //      gradient); bias gradients are column sums of the f32 cotangent, per
-//      block; view_0's f32 cotangent also goes to g1f [Wv][chunk].
-//   2. lean_wgrad_kernel: split-K tensor-core products dW = A^T G over the
-//      points, one 128 x 128 output tile per block and one MC-point range
-//      per grid row, written as per-range partial sums.  Ranges never
-//      straddle a chunk, so every mode sums the same ranges in the same
-//      order.  In f32 the tensor-core sums restart every 128 points into
+//      block; view_0's f32 cotangent also goes to g1f [Wv][chunk].  The
+//      lean chain on a bf16 channel-major stream (save, recompute) is
+//      lean_chain_sm90_kernel (lean_chain_sm90.cuh: 128-point tiles,
+//      wgmma fed by a TMA ring); f32, hybrid and the classic forms keep
+//      lean_grad_chain_kernel (64-point tiles, mma.sync).
+//   2. split-K tensor-core products dW = A^T G over the points, one 128 x
+//      128 output tile per block and one MC-point range per grid row,
+//      written as per-range partial sums.  Ranges never straddle a chunk,
+//      so every mode sums the same ranges in the same order.  bf16 on a
+//      channel-major stream: wgrad_sm90_kernel (lean_wgrad_sm90.cuh, wgmma
+//      fed by a TMA ring); f32 and hybrid: lean_wgrad_kernel (mma.sync).
+//      In f32 the tensor-core sums restart every 128 points into
 //      round-to-nearest f32 sums (FLUSH).  The skip concat's x rows are
 //      problems of their own: their weight gradients accumulate; the chain
 //      drops their dx.  The classic backward (CL) takes it after the chain:
@@ -104,11 +110,10 @@
 // After the last chunk: sum_rows_kernel adds the partial sums and the
 // per-block bias sums in order, and dW[W:] of view_0 = cast(view)^T g_ray
 // (lean_view_rows_kernel).  Padded points (m >= M) have zero head
-// cotangents, hence zero G, and add nothing to any sum.  wgmma, TMA and a
-// multi-stage ring are later work.
+// cotangents, hence zero G, and add nothing to any sum.
 
 #include "lean_engines.cuh"
-#include "lean_wgrad.cuh"
+#include "lean_wgrad_sm90.cuh"
 
 namespace {
 
@@ -290,6 +295,11 @@ __device__ float raw_head(const Acts& acts, const ChainPtrs& cp, const TrainDims
     for (int f = 0; f < d.F; ++f) s = fmaf(xa(row, f), Ty<T>::to_f(k[d.W + f]), s);
   }
   return s + cp.b_den[0];
+}
+
+// Rows of the channel-major stream S: X | hs | bottleneck | ys (| V).
+__host__ __device__ inline int stream_rows(const TrainDims& d) {
+  return d.Fp + (d.depth + 1) * d.W + d.depth_cond * d.Wv + d.Fvp;
 }
 
 template <typename T>
@@ -578,6 +588,12 @@ lean_view_rows_kernel(const float* __restrict__ view, const T* __restrict__ g_ra
   }
 }
 
+}  // namespace
+
+#include "lean_chain_sm90.cuh"
+
+namespace {
+
 bool dims_ok(const TrainDims& d, int n_layers, int use_bf16) {
   const int align = use_bf16 ? 16 : 8;
   // No view layer (depth_cond 0, Wv 0): the classic kernels only.
@@ -702,7 +718,18 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
   if (e == cudaSuccess && CL)
     e = cudaFuncSetAttribute(mlp_input_grads_kernel<T, NV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ismem);
+  // The lean chain of a bf16 channel-major stream runs on wgmma
+  // (lean_chain_sm90.cuh) wherever its plan fits; its grid is one block an
+  // SM at most.
+  constexpr bool sm90 = sizeof(T) == 2 && !PM && !CL && !NV;
+  int sms = 0, dev = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && sm90 && chain_sm90_smem(Cg) <= CH_SMEM_MAX)
+    e = cudaFuncSetAttribute(lean_chain_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)chain_sm90_smem(Cg));
   if (e != cudaSuccess) return (int)e;
+  ChainPlan plan;
   T* G = static_cast<T*>(a.G);
   T* g_ray = static_cast<T*>(a.g_ray);
   int n_chunks = 0;
@@ -736,9 +763,17 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       for (int i = 0; i < d.n_acts(); ++i)
         acts.t[i] = static_cast<const T*>(level_acts.t[i]) + (size_t)c0 * level_acts.ld[i];
     }
-    lean_grad_chain_kernel<T, PM, CL, NV><<<a.n_chain, THREADS, csmem, s>>>(
-        acts, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc, G, a.g1f,
-        a.db_part + (size_t)n_chunks * a.n_chain * Cg);
+    float* db_part = a.db_part + (size_t)n_chunks * a.n_chain * Cg;
+    if (sm90 && chain_sm90_plan(plan, acts, a.cp, dc, G)) {
+      const int tiles = (dc.Mp + CH_TM - 1) / CH_TM;
+      lean_chain_sm90_kernel<<<tiles < sms ? tiles : sms, CH_THREADS, chain_sm90_smem(Cg), s>>>(
+          plan, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc,
+          reinterpret_cast<bf16*>(G), a.g1f, db_part, a.n_chain);
+    } else {
+      lean_grad_chain_kernel<T, PM, CL, NV><<<a.n_chain, THREADS, csmem, s>>>(
+          acts, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc, G,
+          a.g1f, db_part);
+    }
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     if constexpr (CL) {
       InputGrads ig = a.ig;
@@ -747,10 +782,23 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       mlp_input_grads_kernel<T, NV><<<dc.Mp / TM, THREADS, ismem, s>>>(G, ig, dc);
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
-    const dim3 grid(a.n_tiles, (dc.Mp + a.MC - 1) / a.MC);
-    lean_wgrad_kernel<T, PM><<<grid, THREADS, wsmem, s>>>(
-        acts, G, a.tab, dc.Mp, dc.M, a.MC, a.partial + (size_t)(c0 / a.MC) * a.PW, a.PW);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    float* partial = a.partial + (size_t)(c0 / a.MC) * a.PW;
+    if constexpr (sizeof(T) == 2 && !PM) {
+      // The activations are rows of one stream: their offsets from X's.
+      int a_row[MAX_LAYERS];
+      for (int i = 0; i < d.n_acts(); ++i)
+        a_row[i] = (int)((static_cast<const char*>(acts.t[i]) -
+                          static_cast<const char*>(acts.t[0])) /
+                         (2 * (long long)acts.ld[0]));
+      e = (cudaError_t)launch_wgrad_sm90(acts.t[0], stream_rows(d), a_row, d.n_acts(), G, Cg,
+                                         a.tab, a.n_tiles, dc.Mp, a.MC, partial, a.PW, s);
+      if (e != cudaSuccess) return (int)e;
+    } else {
+      const dim3 grid(a.n_tiles, (dc.Mp + a.MC - 1) / a.MC);
+      lean_wgrad_kernel<T, PM><<<grid, THREADS, wsmem, s>>>(acts, G, a.tab, dc.Mp, dc.M, a.MC,
+                                                             partial, a.PW);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
     if constexpr (!CL) {
       const long long warps = (long long)dc.R * d.Wv;
       lean_ray_sum_kernel<T><<<(int)((warps * 32 + 255) / 256), 256, 0, s>>>(
@@ -1040,6 +1088,14 @@ int mlp_bwd_recompute(const void* x, const void* view_pts, const void* weights,
                  layer_ptrs(weights, biases, n_layers), saved, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return run_classic(a, d, chunk, &rf, Acts{}, use_bf16, s);
+}
+
+// The dynamic shared memory of the wgmma kernels for a backward whose G
+// has Cg rows: out[0] the chain's, out[1] the weight gradients'.
+int lean_sm90_smem(int Cg, int* out) {
+  out[0] = (int)chain_sm90_smem(Cg);
+  out[1] = (int)wgrad_sm90_smem();
+  return 0;
 }
 
 }  // extern "C"

@@ -39,14 +39,15 @@
 //      per-block column sums of dh; and the four operands of the weight
 //      gradients out to a chunk-sized channel-major stream S in the compute
 //      dtype: x | h | g | dh.
-//   2. lean_wgrad_kernel (lean_wgrad.cuh): dWcol = x^T dh and dWrow = h^T g
-//      as split-K products over row ranges, per-range partial sums.
+//   2. dWcol = x^T dh and dWrow = h^T g as split-K products over row
+//      ranges, per-range partial sums: in bf16 wgrad_sm90_kernel
+//      (lean_wgrad_sm90.cuh: wgmma fed by a TMA ring), in f32
+//      lean_wgrad_kernel (lean_wgrad.cuh).
 // Then sum_rows_kernel adds the partial sums and the blocks' bias sums in
-// order.  No atomics: two runs give the same bits.  wgmma, TMA and a staged
-// ring are later work.
+// order.  No atomics: two runs give the same bits.
 
 #include "lean_engines.cuh"
-#include "lean_wgrad.cuh"
+#include "lean_wgrad_sm90.cuh"
 
 namespace {
 
@@ -287,10 +288,19 @@ int launch_bwd(const BwdArgs& a, const PairDims& d, cudaStream_t s) {
     acts.t[0] = S + (size_t)sr.x * Mp;
     acts.t[1] = S + (size_t)sr.h * Mp;
     acts.ld[0] = acts.ld[1] = Mp;
-    const dim3 grid(n_tiles, ceil_div(Mp, a.MC));
-    lean_wgrad_kernel<T, false><<<grid, THREADS, wsmem, s>>>(
-        acts, S, tab, Mp, dc.M, a.MC, a.partial + (size_t)(c0 / a.MC) * PW, PW);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    float* partial = a.partial + (size_t)(c0 / a.MC) * PW;
+    if constexpr (sizeof(T) == 2) {
+      // x, h and the cotangents are rows of the one stream S.
+      const int a_row[2] = {sr.x, sr.h};
+      e = (cudaError_t)launch_wgrad_sm90(S, sr.end, a_row, 2, S, sr.end, tab, n_tiles, Mp, a.MC,
+                                         partial, PW, s);
+      if (e != cudaSuccess) return (int)e;
+    } else {
+      const dim3 grid(n_tiles, ceil_div(Mp, a.MC));
+      lean_wgrad_kernel<T, false><<<grid, THREADS, wsmem, s>>>(acts, S, tab, Mp, dc.M, a.MC,
+                                                                partial, PW);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
   }
   const int splits = ceil_div(ceil_div(d.M, TM) * TM, a.MC);
   sum_rows_kernel<<<ceil_div(PW, 256), 256, 0, s>>>(a.partial, splits, PW, a.dw);

@@ -20,6 +20,9 @@ backward is held against its plain version on the same residuals, and the
 recompute backward against the save backward on the same kernel forward
 (<= 1e-5: it re-runs that forward, and only the order of the f32 bias
 sums differs); lean_fwd must equal lean_save_fwd's outputs bit for bit.
+The bf16 backward of a channel-major stream runs on wgmma (the chain where
+the widths are multiples of 64: the `wide` and lego shapes), under the
+same bars, two lean_param_grads runs bit for bit.
 The moments input form is held against the rows form on the plain decode
 of the same moments (<= 1e-5 f32), lean_composite_bwd and ipe_moments
 against their plain versions (<= 1e-5), and training through the
@@ -204,6 +207,11 @@ TRAIN_SHAPES = {
     'view2': (29, dict(SMALL, net_depth=4, net_width=64,
                        net_depth_condition=2, net_width_condition=32, N=24)),
     'lego': (96, LEGO),
+    # widths that are multiples of 64 (the bf16 chain on wgmma), two view
+    # layers, 696 points: the last 128-point tile of the chain is half
+    # past the padded stream.
+    'wide': (29, dict(SMALL, net_depth=4, net_width=128,
+                      net_depth_condition=2, net_width_condition=64, N=24)),
 }
 
 
@@ -319,6 +327,28 @@ def test_cuda_recompute_matches_save(cuda_device, shape, dtype, act, chunks,
     assert all(torch.isfinite(g).all() for g in got)
     assert max_leaf_rel_err(got, want) <= 1e-5
     for a, b in zip(got, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(TRAIN_SHAPES))
+def test_cuda_lean_param_grads_deterministic(cuda_device, shape, dtype):
+    """Two lean_param_grads calls on the same saved stream give the same
+    bits (bf16 at widths that are multiples of 64: the wgmma chain and
+    weight gradients; elsewhere the mma.sync kernels): fixed summation
+    orders, no atomics."""
+    R, cfg = TRAIN_SHAPES[shape]
+    (x, view), flat, (g_rgb, g_dens) = _on(train_problem(R, **cfg),
+                                           cuda_device)
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], getattr(torch, dtype), (0.001, -1.0))
+    saved = tk.lean_save_fwd(x, view, flat, *args)[2]
+    got = tk.lean_param_grads(view, g_rgb, g_dens, saved, flat, *args)
+    again = tk.lean_param_grads(view, g_rgb, g_dens, saved, flat, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 

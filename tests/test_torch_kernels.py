@@ -304,6 +304,27 @@ def test_wgrad_ranges_align_with_recompute_chunks(M, N):
     assert tk.recompute_chunk(393216, mc) < 393216
 
 
+@pytest.mark.parametrize('M,F,W,Wv,depth,dcond', [
+    (393216, 96, 256, 128, 8, 1), (296, 24, 64, 32, 3, 1),
+    (29 * 24, 24, 128, 64, 4, 2), (100003, 96, 256, 128, 8, 2)])
+def test_saved_stream_fits_the_tensor_maps(M, F, W, Wv, depth, dcond):
+    """What the bf16 wgmma kernels' TMA maps assume of the saved stream S
+    [Cs, Mp] and the cotangents G [Cg, Mp]: every row is Mp bf16 values, a
+    multiple of 16 bytes and of the 64-point slab; every activation starts
+    on a row of S, so its first element is 16-byte aligned; the weight
+    gradients' ranges are whole 64-point slabs."""
+    Mp = tk._round_up(M, tk.TILE)
+    assert Mp % 64 == 0 and (Mp * 2) % 16 == 0
+    Fp, hs, bott, ys, Cs = tk.saved_rows(F, W, Wv, depth, dcond)
+    firsts = [0] + hs + [bott] + ys
+    widths = [Fp] + [W] * (depth + 1) + [Wv] * dcond
+    assert [a + w for a, w in zip(firsts, widths)][:-1] == firsts[1:]
+    assert firsts[-1] + widths[-1] == Cs
+    assert all((a * Mp * 2) % 16 == 0 for a in firsts)
+    mc = tk.wgrad_split(Mp, 41, 128 if M == 393216 else 8, 132)
+    assert mc % 64 == 0
+
+
 def test_lean_training_form_rejects():
     """What the training form still refuses: encode with 'hybrid' (JAX's
     refusal), an encode whose width is not trunk_0's, no view branch, an
