@@ -8,7 +8,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      lean_train, ipe, tp_pair) with nvcc (sm_90a), one nvcc per source, all
      started together, and time it; print each kernel's registers and
      spills, and the dynamic shared memory of the two wgmma kernels of the
-     bf16 backward (lean_chain_sm90_kernel, wgrad_sm90_kernel);
+     bf16 backward (lean_chain_sm90_kernel, wgrad_sm90_kernel) and of the
+     bf16 lean forward (lean_fwd_sm90_kernel);
   3. each render kernel's wrapper against its plain PyTorch version at the
      lego shape (8x256 MLP, N = 128, one 8192-ray chunk) on numpy-seeded
      inputs: f32 max |d| <= 1e-4, bf16 max |d| / max |ref| <= 3e-2 against
@@ -16,13 +17,17 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      the one library call of view_proj's function), and for view_proj,
      whose device work is a few microseconds, the kernel's and addmm's
      device times from a torch.profiler window (the wrapper's casts of k0
-     and b0 apart);
+     and b0 apart) at the chunk's 8192 rays and a training level's 3072;
+     bf16 lean_mlp must take the wgmma forward (lean_fwd_sm90_kernel,
+     `check_routes`);
   4. the render slice through its entry point: MipNeRFSystem (default lego
      schema, val.mlp_backend auto) -> render_camera of a 200x200 Blender
      view with seeded params (through convert.jax_params_to_torch); every
      render kernel must launch 2 levels x 5 chunks times, the image must be
      finite, and the same frame through the plain path on the card must
-     agree (max |d rgb|, max |d acc| <= 1e-3 in f32); then the frame with
+     agree (max |d rgb|, max |d acc| <= 1e-3 in f32); the same frame in
+     bf16, lean_mlp on the wgmma forward 2 x 5 times, against the f32 plain
+     frame (max |d rgb|, max |d acc| <= 3e-2); then the frame with
      val.mlp_backend pallas (fused_mlp's forward, mlp_fwd, 2 x 5 launches)
      against the same plain frame at the same bar; then the frame with
      nerf.ipe_backend pallas (val.mlp_backend auto then resolves to the
@@ -34,7 +39,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      head cotangents), f32 and bf16, bars against the f32 plain version:
      lean_save_fwd and lean_fwd (outputs, saved activations, raw heads) at
      the phase-3 bars, lean_fwd bit for bit equal to lean_save_fwd's
-     outputs; lean_param_grads and lean_param_grads_hybrid fed the same
+     outputs (in bf16 both, and the recompute re-runs, on the wgmma
+     forward, checked in every form); lean_param_grads and lean_param_grads_hybrid fed the same
      activations as their plain versions (the plain forward's, in the
      compute dtype), at bench.py's metric (largest leaf ||a - b|| / ||b||):
      <= 1e-4 f32 (hybrid too), <= 3e-2 bf16; lean_param_grads_recompute
@@ -440,6 +446,33 @@ def record(results, key, hp, R, N, err, ms, plain_ms, library_ms=None,
         f'{100 * b_ms / ms:.1f} % of it')
 
 
+def sm90_route(hp, dt) -> bool:
+    """Whether the lean forwards of hp's MLP in dt take the bf16 wgmma
+    forward (lean_fwd_sm90_kernel): kernels/mlp.py fwd_sm90_route."""
+    F = 6 * (hp['nerf.max_deg_point'] - hp['nerf.min_deg_point'])
+    return km.fwd_sm90_route(dt, F, hp['nerf.mlp.net_width'],
+                             hp['nerf.mlp.net_width_condition'],
+                             hp['nerf.mlp.net_depth'],
+                             hp['nerf.mlp.net_depth_condition'])
+
+
+def check_routes(hp, dt, where, **calls):
+    """Raise unless each named wrapper's `calls` since the last
+    reset_launches ran on lean_fwd_sm90_kernel where fwd_sm90_route says so
+    and on the mma.sync tile elsewhere; the lego schema's bf16 forwards must
+    take it."""
+    on = sm90_route(hp, dt)
+    if dt == torch.bfloat16 and hp['nerf.mlp.net_width'] == 256 and not on:
+        raise AssertionError('the lego bf16 forwards do not take '
+                             'lean_fwd_sm90_kernel')
+    got = {k: km.routes[k] for k in calls}
+    want = {k: n if on else 0 for k, n in calls.items()}
+    log(f'[route] {where}: calls on lean_fwd_sm90_kernel {got} (want '
+        f'{want}) {"OK" if got == want else "FAIL"}')
+    if got != want:
+        raise AssertionError(f'{where}: the forwards took another route')
+
+
 def flax_tree(system: MipNeRFSystem, seed: int) -> dict:
     """Numpy-seeded flax-layout params (Xavier-uniform kernels [in, out],
     zero biases) for the system's MLP, as the JAX package initializes."""
@@ -518,8 +551,11 @@ def compare_kernels(params, hp, dev):
         for name, (kernel, plain, refs) in calls.items():
             if name == 'lean_composite' and dt != torch.float32:
                 continue              # the composite is f32 in both modes
+            km.reset_launches()
             got = kernel()
             torch.cuda.synchronize()
+            if name == 'lean_mlp':
+                check_routes(hp, dt, f'phase 3 lean_mlp {dt}', lean_mlp=1)
             got = got if isinstance(got, tuple) else (got,)
             err = max(float((g - r).abs().max()) for g, r in zip(got, refs))
             scale = max(float(r.abs().max()) for r in refs)
@@ -546,18 +582,28 @@ def compare_kernels(params, hp, dev):
                 # events above read the host's issue time: the profiler's
                 # kernel durations give the device time, the wrapper's
                 # cast of k0 and rounding of b0 apart.
+                # Device times at the chunk's rays and at a training
+                # level's (the rays a block follow R).
                 kv, bv, vv = (t.to(dt) for t in (flat[iv][W:], flat[iv + 1],
                                                  view))
                 library_ms = cuda_ms(lambda: torch.addmm(bv, vv, kv))
-                own = kernel_device_ms(kernel)
-                lib = kernel_device_ms(lambda: torch.addmm(bv, vv, kv))
-                vp_dev = sum(v for k, v in own.items() if 'view_proj' in k)
-                log(f'[kernel] {name} {tag}: torch.addmm {library_ms:.3f} '
-                    f'ms; device time (torch.profiler): kernel '
-                    f'{vp_dev * 1e3:.2f} us + wrapper casts '
-                    f'{(sum(own.values()) - vp_dev) * 1e3:.2f} us, addmm '
-                    f'{sum(lib.values()) * 1e3:.2f} us '
-                    f'({", ".join(sorted(lib))})')
+                for rays in (CHUNK, TRAIN_RAYS):
+                    vw, vb = view[:rays], vv[:rays]
+                    own = kernel_device_ms(lambda: km.view_proj(
+                        vw, flat[iv], flat[iv + 1], W, dt))
+                    lib = kernel_device_ms(lambda: torch.addmm(bv, vb, kv))
+                    vp_dev = sum(v for k, v in own.items()
+                                 if 'view_proj' in k)
+                    lib_dev = sum(lib.values())
+                    log(f'[kernel] {name} {tag} at {rays} rays: device time '
+                        f'(torch.profiler): kernel {vp_dev * 1e3:.2f} us + '
+                        f'wrapper casts '
+                        f'{(sum(own.values()) - vp_dev) * 1e3:.2f} us, '
+                        f'torch.addmm {lib_dev * 1e3:.2f} us '
+                        f'({", ".join(sorted(lib))}): kernel '
+                        f'{"no slower" if vp_dev <= lib_dev else "SLOWER"}')
+                log(f'[kernel] {name} {tag}: torch.addmm {library_ms:.3f} ms '
+                    f'(events)')
             record(results, (name, tag), hp, CHUNK, N, err, ms, plain_ms,
                    library_ms)
     return results
@@ -698,9 +744,12 @@ def compare_train_kernels(params, hp, dev):
         g_bar = F32_BAR if dt == torch.float32 else BF16_BAR
 
         # Forwards: lean_save_fwd, and lean_fwd, which must give its bits.
+        km.reset_launches()
         out = km.lean_save_fwd(x, view, flat, *args, dt, ACT)
         lf = km.lean_fwd(x, view, flat, *args, dt, ACT)
         torch.cuda.synchronize()
+        check_routes(hp, dt, f'phase 5 forwards {tag}', lean_save_fwd=1,
+                     lean_fwd=1)
         parts = fwd_parts(out, M)
         finite = all(bool(torch.isfinite(t).all()) for t in parts)
         f_err, f_bar, f_ok = fwd_err(parts, ref_parts, dt)
@@ -755,9 +804,12 @@ def compare_train_kernels(params, hp, dev):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        km.reset_launches()
         got = recompute(dt)
         torch.cuda.synchronize()
         scratch = torch.cuda.max_memory_allocated() - base
+        check_routes(hp, dt, f'phase 5 recompute {tag}',
+                     lean_param_grads_recompute=1)
         again = recompute(dt)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -819,9 +871,12 @@ def compare_moments_forms(results, report, flat, args, dt, tag, x,
     rows = km.ipe_moments_plain(moments, *enc).contiguous()
     ref = fwd_parts(km.lean_mlp_save_plain(moments, view, flat, *args,
                                            torch.float32, ACT, **kw), M)
+    km.reset_launches()
     out = km.lean_save_fwd(moments, view, flat, *args, dt, ACT, **kw)
     lf = km.lean_fwd(moments, view, flat, *args, dt, ACT, **kw)
     torch.cuda.synchronize()
+    check_routes(hp, dt, f'phase 5 moments forwards {tag}', lean_save_fwd=1,
+                 lean_fwd=1)
     got = fwd_parts(out, M)
     finite = all(bool(torch.isfinite(t).all()) for t in got)
     f_err, f_bar, f_ok = fwd_err(got, ref, dt)
@@ -856,8 +911,11 @@ def compare_moments_forms(results, report, flat, args, dt, tag, x,
     want = km.lean_param_grads(view, g_rgb, g_dens, out[2], flat, *args, dt,
                                ACT)
     del out
+    km.reset_launches()
     got, again = recompute(), recompute()
     torch.cuda.synchronize()
+    check_routes(hp, dt, f'phase 5 moments recompute {tag}',
+                 lean_param_grads_recompute=2)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     r_err, r_leaf = leaf_rel_err(got, want, leaf_names(hp))
     r_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
@@ -1758,11 +1816,14 @@ def main() -> int:
         log(f'[build] {rec["so"].name} in {rec["seconds"]:.1f} s')
         for kernel, spill, regs in kernel_resources(rec['log']):
             log(f'[build]   {kernel}: {spill}; {regs}')
-    # The wgmma kernels' dynamic shared memory (the lego chain's Cg).
+    # The wgmma kernels' dynamic shared memory (the lego chain's Cg, the
+    # lego widths of the forward).
     smem = (ctypes.c_int * 2)()
-    _build.load('lean_train').lean_sm90_smem(lego_cg(config.default()), smem)
+    train_lib = _build.load('lean_train')
+    train_lib.lean_sm90_smem(lego_cg(config.default()), smem)
     log(f'[build]   dynamic shared memory: lean_chain_sm90_kernel '
-        f'{smem[0]} B, wgrad_sm90_kernel {smem[1]} B (of 232448)')
+        f'{smem[0]} B, wgrad_sm90_kernel {smem[1]} B, lean_fwd_sm90_kernel '
+        f'{train_lib.lean_fwd_sm90_smem(256, 128, 96)} B (of 232448)')
 
     hp = config.default()
     system = MipNeRFSystem(hp, device=dev)
@@ -1810,6 +1871,29 @@ def main() -> int:
         f'{float(out["acc"].mean()):.4f}')
     if d_rgb > FRAME_BAR or d_acc > FRAME_BAR:
         raise AssertionError('kernel frame disagrees with the plain path')
+
+    # The same frame in bf16: lean_mlp on the wgmma forward, 2 x 5
+    # launches, against the f32 plain frame at the bf16 bar.
+    bf_system = MipNeRFSystem(dict(hp, **{'train.compute_dtype': 'bfloat16'}),
+                              device=dev)
+    render_frame(bf_system, params, cam)
+    km.reset_launches()
+    out_b, s_bf16 = render_frame(bf_system, params, cam)
+    counts_b = dict(km.launches)
+    check_routes(hp, torch.bfloat16, 'phase 4 bf16 frame', lean_mlp=want)
+    d_rgb = float(np.abs(out_b['fine_rgb'] - ref['fine_rgb']).max())
+    d_acc = float(np.abs(out_b['acc'] - ref['acc']).max())
+    log(f'[slice] bf16: {s_bf16:.3f} s/frame; launches {counts_b}; vs the '
+        f'f32 plain frame max|d rgb| {d_rgb:.3e} max|d acc| {d_acc:.3e} '
+        f'(bar {BF16_BAR})')
+    if any(counts_b[k] != (want if k in RENDER_KERNELS else 0)
+           for k in counts_b):
+        raise AssertionError(f'bf16 frame: expected {want} launches of every '
+                             f'render kernel, got {counts_b}')
+    if d_rgb > BF16_BAR or d_acc > BF16_BAR or not all(
+            np.all(np.isfinite(v)) for v in out_b.values()):
+        raise AssertionError('the bf16 frame disagrees with the plain path')
+    del bf_system
 
     # The same frame through fused_mlp's forward (val.mlp_backend pallas).
     pallas_system = MipNeRFSystem(dict(hp, **{'val.mlp_backend': 'pallas'}),
@@ -1898,10 +1982,16 @@ def main() -> int:
                         'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                         'bound_by': r['bound_by'],
                         'library_ms': r['library_ms']})
+        kernels[-1]['share'] = r['bound_ms'] / r['ms']
         rb = results.get((name, 'bf16'))
         if rb is not None:     # the compute dtype of the bf16 steps
             kernels[-1]['bf16'] = {k: rb[k] for k in (
                 'err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')}
+            kernels[-1]['bf16']['share'] = rb['bound_ms'] / rb['ms']
+            if name in km.routes and sm90_route(hp, torch.bfloat16):
+                kernels[-1]['bf16']['kernel'] = 'lean_fwd_sm90_kernel'
+                kernels[-1]['bf16']['source'] = \
+                    'mipnerf_pl_tpu_torch/csrc/lean_fwd_sm90.cuh'
     log(f'[done] wall {time.perf_counter() - START:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi_line())

@@ -38,7 +38,8 @@
 // (mlp_tile) and both tensor-core GEMM engines (f32 as 3xTF32, bf16 on
 // mma.sync m16n8k16) live in lean_engines.cuh, shared with the training
 // kernels of lean_train.cu.
-// wgmma, TMA and a pipelined weight stream are later work.
+// In bf16 at widths that are multiples of 64, lean_mlp runs on the wgmma /
+// TMA forward of lean_fwd_sm90.cuh instead (launch_mlp).
 //
 // Numerics: exact libm expf/sinf in the IPE decode (ipe_feature,
 // lean_engines.cuh).
@@ -47,6 +48,7 @@
 // as in the TPU kernel.
 
 #include "lean_engines.cuh"
+#include "lean_fwd_sm90.cuh"
 
 namespace {
 
@@ -72,21 +74,22 @@ lean_mlp_kernel(const float* __restrict__ moments, const float* __restrict__ vpr
   write_activated(heads, d, m0, out);
 }
 
-// view_0's per-ray half for VP_RAYS rays a block: k0's view rows k0[W:]
-// and the block's view rows, rounded through the compute dtype, in shared
-// memory as f32; thread j sums output column j of each of the block's rays
-// in the order v = 0 .. Fv - 1, then + b0[j].
-constexpr int VP_RAYS = 8;
-
-template <typename T>
+// view_0's per-ray half for RAYS rays a block: k0's view rows k0[W:] and
+// the block's view rows (transposed, [Fv][RAYS]), rounded through the
+// compute dtype, in shared memory as f32.  A group of Wv / 2 threads takes
+// 8 rays at a time: thread j sums output columns 2 j, 2 j + 1 of each in
+// the order v = 0 .. Fv - 1 (one 8-byte k0 load and two 16-byte view loads
+// a step for 16 FMAs), then + b0.  RAYS is chosen from R (lean_view_proj):
+// the most rays a block that still gives every SM a block.
+template <typename T, int RAYS>
 __global__ void __launch_bounds__(256)
 lean_view_proj_kernel(const float* __restrict__ view, const T* __restrict__ k0,
                       const float* __restrict__ b0, float* __restrict__ out, int R, int Fv, int W,
-                      int Wv) {
-  extern __shared__ float vp_smem[];
-  float* ks = vp_smem;              // [Fv][Wv]
-  float* vs = ks + Fv * Wv;         // [VP_RAYS][Fv]
-  const int r0 = blockIdx.x * VP_RAYS, nr = min(VP_RAYS, R - r0);
+                      int Wv, int tw) {
+  extern __shared__ float4 vp_smem4[];
+  float* vt = reinterpret_cast<float*>(vp_smem4);   // [Fv][RAYS]
+  float* ks = vt + Fv * RAYS;                        // [Fv][Wv]
+  const int r0 = blockIdx.x * RAYS, nr = min(RAYS, R - r0);
   // k0[W:] is contiguous: 16-byte loads, all in flight at once.
   constexpr int VEC = 16 / sizeof(T);
   const T* kv0 = k0 + (size_t)W * Wv;
@@ -99,22 +102,69 @@ lean_view_proj_kernel(const float* __restrict__ view, const T* __restrict__ k0,
     for (int k = 0; k < VEC; ++k) ks[i * VEC + k] = Ty<T>::to_f(e[k]);
   }
   for (int i = nvec * VEC + threadIdx.x; i < Fv * Wv; i += blockDim.x) ks[i] = Ty<T>::to_f(kv0[i]);
-  for (int i = threadIdx.x; i < nr * Fv; i += blockDim.x)
-    vs[i] = Ty<T>::to_f(Ty<T>::from_f(view[(size_t)r0 * Fv + i]));
+  for (int i = threadIdx.x; i < RAYS * Fv; i += blockDim.x) {
+    const int r = i / Fv, v = i - r * Fv;
+    vt[v * RAYS + r] = r < nr ? Ty<T>::to_f(Ty<T>::from_f(view[(size_t)r0 * Fv + i])) : 0.f;
+  }
   __syncthreads();
-  for (int j = threadIdx.x; j < Wv; j += blockDim.x) {
-    float s[VP_RAYS];
+  const int j = threadIdx.x % tw, groups = blockDim.x / tw;
+  if (2 * j >= Wv) return;
+  const float2 b = *reinterpret_cast<const float2*>(b0 + 2 * j);
+  for (int rc = 8 * (threadIdx.x / tw); rc < nr; rc += 8 * groups) {
+    float2 s[8];
 #pragma unroll
-    for (int r = 0; r < VP_RAYS; ++r) s[r] = 0.f;
+    for (int r = 0; r < 8; ++r) s[r] = make_float2(0.f, 0.f);
     for (int v = 0; v < Fv; ++v) {
-      const float kv = ks[v * Wv + j];
+      const float2 kv = *reinterpret_cast<const float2*>(ks + v * Wv + 2 * j);
+      const float4 a = *reinterpret_cast<const float4*>(vt + v * RAYS + rc);
+      const float4 c = *reinterpret_cast<const float4*>(vt + v * RAYS + rc + 4);
+      const float x[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
 #pragma unroll
-      for (int r = 0; r < VP_RAYS; ++r) s[r] = fmaf(vs[r * Fv + v], kv, s[r]);
+      for (int r = 0; r < 8; ++r) {
+        s[r].x = fmaf(x[r], kv.x, s[r].x);
+        s[r].y = fmaf(x[r], kv.y, s[r].y);
+      }
     }
-    const float b = b0[j];
 #pragma unroll
-    for (int r = 0; r < VP_RAYS; ++r)
-      if (r < nr) out[(size_t)(r0 + r) * Wv + j] = s[r] + b;
+    for (int r = 0; r < 8; ++r)
+      if (rc + r < nr)
+        *reinterpret_cast<float2*>(out + (size_t)(r0 + rc + r) * Wv + 2 * j) =
+            make_float2(s[r].x + b.x, s[r].y + b.y);
+  }
+}
+
+// The rays a block of lean_view_proj_kernel: 32, 16 or 8, the most that
+// still give `sms` blocks.
+inline int view_proj_rays(int R, int sms) {
+  for (int rays = 32; rays > 8; rays /= 2)
+    if ((R + rays - 1) / rays >= sms) return rays;
+  return 8;
+}
+
+template <typename T, int RAYS>
+int launch_view_proj_rays(const float* view, const T* k0, const float* b0, float* out, int R,
+                          int Fv, int W, int Wv, cudaStream_t s) {
+  // A group of tw >= Wv / 2 threads (whole warps) a chunk of 8 rays.
+  const int tw = (Wv / 2 + 31) / 32 * 32, groups = tw <= 256 / (RAYS / 8) ? RAYS / 8 : 1;
+  const size_t smem = sizeof(float) * ((size_t)Fv * Wv + RAYS * Fv);
+  if (smem > 48 * 1024 || Wv % 4 || tw * groups > 256) return (int)cudaErrorInvalidValue;
+  lean_view_proj_kernel<T, RAYS><<<(R + RAYS - 1) / RAYS, tw * groups, smem, s>>>(
+      view, k0, b0, out, R, Fv, W, Wv, tw);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_view_proj(const float* view, const void* k0, const float* b0, float* out, int R,
+                     int Fv, int W, int Wv, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const T* k = static_cast<const T*>(k0);
+  switch (view_proj_rays(R, sms)) {
+    case 32: return launch_view_proj_rays<T, 32>(view, k, b0, out, R, Fv, W, Wv, s);
+    case 16: return launch_view_proj_rays<T, 16>(view, k, b0, out, R, Fv, W, Wv, s);
+    default: return launch_view_proj_rays<T, 8>(view, k, b0, out, R, Fv, W, Wv, s);
   }
 }
 
@@ -268,9 +318,21 @@ lean_composite_bwd_kernel(const float* __restrict__ rgbsig, const float* __restr
   }
 }
 
+// bf16 at the widths fwd_sm90_route takes: lean_fwd_sm90_kernel on the
+// moments with activated heads and no stream (lean_fwd_sm90.cuh, the
+// kernel of the bf16 training forwards); every other form lean_mlp_kernel.
 template <typename T>
 int launch_mlp(const float* moments, const float* vproj, const LayerPtrs& p,
                const MlpDims& d, float* out, cudaStream_t stream) {
+  const int F = 6 * d.L;
+  if (sizeof(T) == 2 && fwd_sm90_route(F, d.W, d.Wv, d.depth, d.depth_cond)) {
+    FwdPlan pl;
+    if (!fwd_sm90_plan(pl, p, d.M, (d.M + TM - 1) / TM * TM, d.N, d.R, F, d.L, d.min_deg, d.M,
+                       d.depth, d.depth_cond, d.skip, d.W, d.Wv, 1, d.rgb_padding,
+                       d.density_bias, nullptr))
+      return (int)cudaErrorInvalidValue;
+    return launch_fwd_sm90(pl, true, moments, vproj, out, nullptr, stream);
+  }
   const size_t smem = mlp_smem_bytes<T>(enc_rows(6 * d.L), d.W > d.Wv ? d.W : d.Wv);
   cudaError_t e = cudaFuncSetAttribute(lean_mlp_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -289,20 +351,12 @@ extern "C" {
 int lean_view_proj(const void* view, const void* k0, const void* b0, void* out,
                    int R, int Fv, int W, int Wv, int use_bf16, void* stream) {
   if (R <= 0 || Fv <= 0 || Wv <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = Wv < 256 ? (Wv + 31) / 32 * 32 : 256;
-  const int blocks = (R + VP_RAYS - 1) / VP_RAYS;
-  const size_t smem = sizeof(float) * ((size_t)Fv * Wv + VP_RAYS * Fv);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_bf16)
-    lean_view_proj_kernel<bf16><<<blocks, threads, smem, s>>>(
-        static_cast<const float*>(view), static_cast<const bf16*>(k0),
-        static_cast<const float*>(b0), static_cast<float*>(out), R, Fv, W, Wv);
-  else
-    lean_view_proj_kernel<float><<<blocks, threads, smem, s>>>(
-        static_cast<const float*>(view), static_cast<const float*>(k0),
-        static_cast<const float*>(b0), static_cast<float*>(out), R, Fv, W, Wv);
-  return (int)cudaGetLastError();
+  const float* v = static_cast<const float*>(view);
+  const float* b = static_cast<const float*>(b0);
+  float* o = static_cast<float*>(out);
+  return use_bf16 ? launch_view_proj<bf16>(v, k0, b, o, R, Fv, W, Wv, s)
+                  : launch_view_proj<float>(v, k0, b, o, R, Fv, W, Wv, s);
 }
 
 // moments [6, M] f32, vproj [R, Wv] f32, weights[i] [in_i, out_i] in the
@@ -334,6 +388,9 @@ int lean_mlp(const void* moments, const void* vproj, const void* weights,
   return use_bf16 ? launch_mlp<bf16>(mo, vp, p, d, o, s)
               : launch_mlp<float>(mo, vp, p, d, o, s);
 }
+
+// Launches of lean_fwd_sm90_kernel by this library so far.
+long long lean_fwd_sm90_launches() { return g_fwd_sm90_launches; }
 
 // rgbsig [R * N, 4] f32, delta / mids [R, N] f32 -> perray [R, 8]
 // (comp rgb | acc | dist | 0 0 0), weights [R, N].

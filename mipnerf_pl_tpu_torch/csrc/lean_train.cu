@@ -113,6 +113,7 @@
 // cotangents, hence zero G, and add nothing to any sum.
 
 #include "lean_engines.cuh"
+#include "lean_fwd_sm90.cuh"
 #include "lean_wgrad_sm90.cuh"
 
 namespace {
@@ -637,9 +638,23 @@ int launch_classic_fwd(const float* x, const float* view, const LayerPtrs& p, co
   return (int)cudaGetLastError();
 }
 
+// The lean forward of d on x (rows or moments, as d.L says).  bf16 forwards
+// whose shape fwd_sm90_route takes run on wgmma (lean_fwd_sm90.cuh: a rule
+// on dtype and shape; a plan it cannot make is an error, never another
+// kernel); every other form on mlp_tile (lean_fwd_kernel).
 template <typename T>
 int launch_fwd(const float* x, const float* vproj, const LayerPtrs& p, const TrainDims& d,
                float* out, T* saved, float* heads, cudaStream_t s) {
+  if constexpr (sizeof(T) == 2) {
+    if (fwd_sm90_route(d.F, d.W, d.Wv, d.depth, d.depth_cond)) {
+      FwdPlan pl;
+      if (!fwd_sm90_plan(pl, p, d.M, d.Mp, d.N, d.R, d.F, d.L, d.min_deg, d.ldx, d.depth,
+                         d.depth_cond, d.skip, d.W, d.Wv, d.use_act, d.rgb_padding,
+                         d.density_bias, saved))
+        return (int)cudaErrorInvalidValue;
+      return launch_fwd_sm90(pl, d.L != 0, x, vproj, out, heads, s);
+    }
+  }
   const size_t smem = mlp_smem_bytes<T>(d.Fp, d.W > d.Wv ? d.W : d.Wv);
   const FwdKernel<T> kernel = fwd_kernel<T>(d);
   cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
@@ -704,16 +719,15 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
   const int Cg = d.cg(), wmax = d.W > d.Wv ? d.W : d.Wv;
   const size_t csmem = chain_smem_bytes<T>(wmax, Cg, 3 + d.nd);
   const size_t wsmem = sizeof(T) == 2 ? 0 : sizeof(float) * WGRAD_ACC * THREADS;
-  const size_t fsmem = CL ? classic_fwd_smem<T>(d) : mlp_smem_bytes<T>(d.Fp, wmax);
+  const size_t fsmem = classic_fwd_smem<T>(d);   // CL: the re-run of mlp_fwd_kernel
   cudaError_t e = cudaFuncSetAttribute(lean_grad_chain_kernel<T, PM, CL, NV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)csmem);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(lean_wgrad_kernel<T, PM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
-  const FwdKernel<T> refwd = CL ? (FwdKernel<T>)nullptr : fwd_kernel<T>(d);
-  if (e == cudaSuccess && rf)
-    e = cudaFuncSetAttribute(CL ? (const void*)mlp_fwd_kernel<T, NV> : (const void*)refwd,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fsmem);
+  if (e == cudaSuccess && rf && CL)
+    e = cudaFuncSetAttribute(mlp_fwd_kernel<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)fsmem);
   const size_t ismem = input_grads_smem_bytes<T>(d);
   if (e == cudaSuccess && CL)
     e = cudaFuncSetAttribute(mlp_input_grads_kernel<T, NV>,
@@ -748,10 +762,12 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
             rf->x + (size_t)c0 * d.F, rf->vproj + (size_t)c0 * d.Fv, rf->p, dc, nullptr, nullptr,
             S);
       } else {
-        // Rows start at x[c0][0], moments at column c0 of x [6][ldx].
-        refwd<<<dc.Mp / TM, THREADS, fsmem, s>>>(
-            rf->x + (d.L ? (size_t)c0 : (size_t)c0 * d.F), rf->vproj + (size_t)(c0 / d.N) * d.Wv,
-            rf->p, dc, nullptr, S, rf->heads);
+        // Rows start at x[c0][0], moments at column c0 of x [6][ldx]; the
+        // same kernel as lean_save_fwd's (launch_fwd), so the same masks.
+        e = (cudaError_t)launch_fwd<T>(rf->x + (d.L ? (size_t)c0 : (size_t)c0 * d.F),
+                                       rf->vproj + (size_t)(c0 / d.N) * d.Wv, rf->p, dc, nullptr,
+                                       S, rf->heads, s);
+        if (e != cudaSuccess) return (int)e;
       }
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
       for (int i = 0; i < d.n_acts(); ++i) {
@@ -1089,6 +1105,18 @@ int mlp_bwd_recompute(const void* x, const void* view_pts, const void* weights,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return run_classic(a, d, chunk, &rf, Acts{}, use_bf16, s);
 }
+
+// Launches of lean_fwd_sm90_kernel by this library so far (the wrappers
+// read it around a call to tell which forward ran).
+long long lean_fwd_sm90_launches() { return g_fwd_sm90_launches; }
+
+// 1 if a bf16 lean forward of these widths takes lean_fwd_sm90_kernel.
+int lean_fwd_sm90_route(int F, int W, int Wv, int depth, int depth_cond) {
+  return fwd_sm90_route(F, W, Wv, depth, depth_cond) ? 1 : 0;
+}
+
+// Its dynamic shared memory at widths W, Wv and an encode of F features.
+int lean_fwd_sm90_smem(int W, int Wv, int F) { return (int)fwd_sm90_smem(W, Wv, F); }
 
 // The dynamic shared memory of the wgmma kernels for a backward whose G
 // has Cg rows: out[0] the chain's, out[1] the weight gradients'.

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the wgmma / TMA kernels
-// (lean_chain_sm90.cuh, lean_wgrad_sm90.cuh): mbarriers, TMA tile copies
+// (lean_fwd_sm90.cuh, lean_chain_sm90.cuh, lean_wgrad_sm90.cuh): mbarriers, TMA tile copies
 // (cp.async.bulk.tensor) between global memory and shared memory, wgmma
 // shared-memory descriptors for the 128-byte swizzle, the two wgmma shapes
 // the kernels issue, and the host's tensor-map encoder.

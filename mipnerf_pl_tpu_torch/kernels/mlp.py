@@ -77,7 +77,10 @@ memory, so a 64-point tile's activations stay resident in shared memory
 through all layers, the weights stream from L2, and the products run on the
 tensor cores: bf16 directly, float32 as 3xTF32 (each operand split into two
 TF32 halves; ~1e-6 from exact f32).  Widths must be multiples of 8
-(float32) or 16 (bfloat16), at most 256.
+(float32) or 16 (bfloat16), at most 256.  The bf16 lean forwards at widths
+that are multiples of 64 (`fwd_sm90_route`) run on Hopper's wgmma fed by
+TMA instead, 128-point tiles whose weight slabs feed both halves
+(csrc/lean_fwd_sm90.cuh); `routes[name]` counts the calls that took it.
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU, and
 only there.  For a CUDA tensor it launches its kernel or raises: there is
@@ -146,9 +149,57 @@ WGRAD_TILE = 128    # output tile of the weight-gradient products
 RECOMPUTE_POINTS = 98304
 
 
+# Wrapper name -> calls whose forward ran on the bf16 wgmma / TMA kernel
+# lean_fwd_sm90_kernel (csrc/lean_fwd_sm90.cuh), read from the library's
+# own count of that kernel's launches around each call.
+routes = {'lean_mlp': 0, 'lean_fwd': 0, 'lean_save_fwd': 0,
+          'lean_param_grads_recompute': 0}
+
+# The shape rule of lean_fwd_sm90_kernel (csrc/lean_fwd_sm90.cuh,
+# fwd_sm90_route): its ring of FW_STAGES slabs of FW_KS weight rows x 4 boxes
+# of 64 columns, two warpgroups' activation tiles of 64-row boxes and
+# encode tiles (F rounded up to FW_KS rows, at most FW_XBOXES boxes), their
+# heads and the heads' half sums, the staged f32 biases (256 a layer) and
+# head kernels, the slab
+# schedule (12 slabs a layer, 4 bytes each), its mbarriers, 1 KB of
+# alignment.
+FW_STAGES, FW_KS, FW_XBOXES, FW_MAX_LAYERS = 6, 32, 2, 12
+FW_SMEM_MAX = 232448
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    for k in routes:
+        routes[k] = 0
+
+
+def fwd_sm90_smem(W: int, Wv: int, F: int) -> int:
+    """Dynamic shared memory of lean_fwd_sm90_kernel at widths W, Wv and an
+    encode of F features."""
+    box, wbox = 64 * 64 * 2, FW_KS * 64 * 2
+    staged = (2 * 4 * 64 + 2 * 2 * 3 * 64 + FW_MAX_LAYERS * 256
+              + (256 + 64 * FW_XBOXES) + 768)
+    tile = max(W, Wv) // 64 * box + 128 * _round_up(F, FW_KS)
+    return (FW_STAGES * 4 * wbox + 2 * tile
+            + 4 * staged + 4 * 12 * FW_MAX_LAYERS + 8 * (2 * FW_STAGES + 1)
+            + 1024)
+
+
+def fwd_sm90_route(compute_dtype, F: int, W: int, Wv: int, net_depth: int,
+                   net_depth_condition: int) -> bool:
+    """Whether a lean forward (lean_fwd, lean_save_fwd, the recompute
+    backward's re-run, lean_mlp) runs on lean_fwd_sm90_kernel: bf16, W and
+    Wv multiples of 64 up to MAX_WIDTH, a view layer, at most FW_MAX_LAYERS
+    dense layers, an encode of at most 128 features once rounded up to the
+    32-row slab, and the plan within the block's shared memory.  Every
+    other lean forward runs on the mma.sync tile."""
+    return (compute_dtype == torch.bfloat16
+            and all(64 <= w <= MAX_WIDTH and w % 64 == 0 for w in (W, Wv))
+            and net_depth >= 1 and net_depth_condition >= 1
+            and net_depth + 1 + net_depth_condition <= FW_MAX_LAYERS
+            and 1 <= F and _round_up(F, FW_KS) <= 64 * FW_XBOXES
+            and fwd_sm90_smem(W, Wv, F) <= FW_SMEM_MAX)
 
 
 def param_order(net_depth: int, net_depth_condition: int):
@@ -666,14 +717,21 @@ def _call(fn_name: str, device, *args):
     """Launch one kernel on the current stream of `device`; raise if the
     launch was refused (the C entry returns cudaGetLastError())."""
     from mipnerf_pl_tpu_torch.kernels import _build
-    lib = KERNELS[fn_name][0].rsplit('/', 1)[1][:-len('.cu')]
-    fn = getattr(_build.load(lib), fn_name)
+    lib = _build.load(KERNELS[fn_name][0].rsplit('/', 1)[1][:-len('.cu')])
+    fn = getattr(lib, fn_name)
     fn.argtypes = _ARGTYPES[fn_name]
     fn.restype = ctypes.c_int
+    count = None
+    if fn_name in routes:
+        count = lib.lean_fwd_sm90_launches
+        count.argtypes, count.restype = [], ctypes.c_longlong
+        before = count()
     with torch.cuda.device(device):       # launch on the tensors' card
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'{fn_name}: CUDA error {err} at launch')
+    if count is not None and count() > before:
+        routes[fn_name] += 1
 
 
 def view_proj(view, k0, b0, net_width: int, compute_dtype):

@@ -1,0 +1,225 @@
+"""Where the lean forward spends its time, by switching parts off.
+
+    cd <root of a checkout> && python3 <this file> [--sm90 | --tune]
+
+copies the checkout's csrc/ to a temporary directory, adds a compile-time
+mask FWD_OFF to the copy of lean_engines.cuh (nothing in the checkout
+changes), builds lean_render.cu and lean_train.cu once a mask with nvcc
+(sm_90a, all at once), and times, from torch.profiler kernel durations,
+the forward kernel of bf16 lean_save_fwd (encode rows and the moments) and
+lean_fwd at the lego training level (chip_smoke.py's level_inputs) and of
+bf16 lean_mlp at one 8192-ray render chunk (chip_smoke.py's chunk_inputs),
+seeded weights.  The mask's bits switch off, in the mma.sync tile
+(mlp_tile): 1 the weight loads (the slab is filled with zeros), 2 the
+products, 4 the epilogue and the in-place store of each layer, 8 the copies
+of the tiles to the saved stream (copy_tile_out), 16 the heads' dots, 32
+the IPE decode of the moments.  The results are a split, not a sum: with
+a part off the compiler and the scheduler may rearrange the rest.  It
+prints one JSON line a mask and one with all of them and the unmasked
+profile.  In a tree whose bf16 lean forwards take lean_fwd_sm90_kernel,
+run it from a parent checkout: these masks reach only the mma.sync tile.
+
+With --sm90 the masks go into lean_fwd_sm90.cuh instead and it times
+lean_fwd_sm90_kernel: 1 the weight slabs' TMA loads (the producer
+completes each slab's barrier without them), 2 the wgmma products, 4 the
+epilogue (bias, vproj, ReLU and the stmatrix stores), 8 the TMA stores of
+the saved stream, 16 the heads' dots, 32 the IPE decode.
+"""
+import ctypes
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+sys.path.insert(0, os.getcwd())
+from mipnerf_pl_tpu_torch import config  # noqa: E402
+from mipnerf_pl_tpu_torch.kernels import _build  # noqa: E402
+from mipnerf_pl_tpu_torch.kernels import mlp as km  # noqa: E402
+from mipnerf_pl_tpu_torch.system import MipNeRFSystem  # noqa: E402
+import chip_smoke as cs  # noqa: E402
+
+VARIANTS = {0: 'all on', 1: 'weight loads off', 2: 'products off',
+            4: 'epilogue + store off', 8: 'copy_tile_out off',
+            16: 'heads off', 32: 'IPE decode off', 6: 'products + epilogue off'}
+# --tune: (ring stages, slabs the first warpgroup starts ahead) of
+# lean_fwd_sm90_kernel, all parts on.
+TUNES = [(7, 1), (7, 2), (7, 3), (7, 5), (6, 1), (6, 3)]
+TUNE = '--tune' in sys.argv[1:]
+# (text of lean_engines.cuh, the same text behind the mask's bit).
+SWITCHES = [
+    ('namespace {\n\nconstexpr int TM = 64;',
+     '#ifndef FWD_OFF\n#define FWD_OFF 0\n#endif\nnamespace {\n\nconstexpr int TM = 64;'),
+    ('      if (kk < KT && k0 + kk < K)\n        val =',
+     '      if (!(FWD_OFF & 1) && kk < KT && k0 + kk < K)\n        val ='),
+    ('      for (int kk = 0; kk < ktp; kk += 16) {',
+     '      for (int kk = 0; kk < ((FWD_OFF & 2) ? 0 : ktp); kk += 16) {'),
+    ('  gemm.transform(n_out, [&](int row, int col, float x) {\n'
+     '    return epilogue(x, row, col, bias, vproj, d, m0, relu);',
+     '  if (FWD_OFF & 4) { __syncthreads(); return; }\n'
+     '  gemm.transform(n_out, [&](int row, int col, float x) {\n'
+     '    return epilogue(x, row, col, bias, vproj, d, m0, relu);'),
+    ('  constexpr int VEC = 16 / sizeof(T), PER_ROW = TM / VEC;\n'
+     '  for (int v = threadIdx.x; v < rows * PER_ROW; v += THREADS) {\n'
+     '    const int r = v / PER_ROW, c = (v - r * PER_ROW) * VEC;\n'
+     '    *reinterpret_cast<uint4*>(dst',
+     '  constexpr int VEC = 16 / sizeof(T), PER_ROW = TM / VEC;\n'
+     '  if (FWD_OFF & 8) return;\n'
+     '  for (int v = threadIdx.x; v < rows * PER_ROW; v += THREADS) {\n'
+     '    const int r = v / PER_ROW, c = (v - r * PER_ROW) * VEC;\n'
+     '    *reinterpret_cast<uint4*>(dst'),
+    ('                          int n_out, int col, int row) {\n  float s = 0.f;',
+     '                          int n_out, int col, int row) {\n'
+     '  if (FWD_OFF & 16) return bias[col];\n  float s = 0.f;'),
+    ('      if constexpr (MOMENTS)\n        v = ipe_feature(x, ldx, m, f, L, min_deg);',
+     '      if constexpr (MOMENTS)\n'
+     '        v = (FWD_OFF & 32) ? 0.5f : ipe_feature(x, ldx, m, f, L, min_deg);'),
+]
+
+
+# The same bits in lean_fwd_sm90.cuh (--sm90).
+SWITCHES_SM90 = [
+    ('namespace {\n\nconstexpr int FW_TM = 128;',
+     '#ifndef FWD_OFF\n#define FWD_OFF 0\n#endif\nnamespace {\n\n'
+     'constexpr int FW_TM = 128;'),
+    ('        mbar_expect_tx(full + s, nb * FW_WBOX);',
+     '        if (FWD_OFF & 1) {\n          mbar_arrive(full + s);\n          continue;\n'
+     '        }\n        mbar_expect_tx(full + s, nb * FW_WBOX);'),
+    ('            if constexpr (NBC == 4) {\n              wgmma_tt_m64n256(',
+     '            if constexpr ((FWD_OFF & 2) != 0) {\n'
+     '            } else if constexpr (NBC == 4) {\n              wgmma_tt_m64n256('),
+    ('        for (int nb = 0; nb < NBC; ++nb) {\n#pragma unroll\n'
+     '          for (int j = 0; j < 8; ++j) {',
+     '        for (int nb = 0; nb < ((FWD_OFF & 4) ? 0 : NBC); ++nb) {\n#pragma unroll\n'
+     '          for (int j = 0; j < 8; ++j) {'),
+    ('        for (int nb = 0; nb < NBC; ++nb) {\n#pragma unroll\n'
+     '          for (int jp = 0; jp < 4; ++jp) {',
+     '        for (int nb = 0; nb < ((FWD_OFF & 4) ? 0 : NBC); ++nb) {\n#pragma unroll\n'
+     '          for (int jp = 0; jp < 4; ++jp) {'),
+    ('            tma_store_2d(&pl.s,', '            if (!(FWD_OFF & 8)) tma_store_2d(&pl.s,'),
+    ('        tma_store_2d(&pl.sx,', '        if (!(FWD_OFF & 8)) tma_store_2d(&pl.sx,'),
+    ('      if (den || li == pl.n_layers - 1) {',
+     '      if (!(FWD_OFF & 16) && (den || li == pl.n_layers - 1)) {'),
+    ('        if (m < pl.M) {\n          const int k = f / 3, dim = f - 3 * k;',
+     '        if (!(FWD_OFF & 32) && m < pl.M) {\n          const int k = f / 3, dim = f - 3 * k;'),
+]
+SM90 = '--sm90' in sys.argv[1:] or TUNE
+# --tune makes the two constants of the copy compile-time options.
+SWITCHES_TUNE = [
+    ('constexpr int FW_STAGES = 6;',
+     '#ifndef FW_STAGES_N\n#define FW_STAGES_N 6\n#endif\n'
+     'constexpr int FW_STAGES = FW_STAGES_N;'),
+    ('constexpr int FW_LAG = 3;',
+     '#ifndef FW_LAG_N\n#define FW_LAG_N 3\n#endif\nconstexpr int FW_LAG = FW_LAG_N;'),
+]
+
+
+def variants():
+    """{label: the nvcc -D flags of its build}."""
+    if TUNE:
+        return {f'{n} stages, lag {lag}': [f'-DFW_STAGES_N={n}',
+                                           f'-DFW_LAG_N={lag}']
+                for n, lag in TUNES}
+    return {label: [f'-DFWD_OFF={v}'] for v, label in VARIANTS.items()}
+
+
+def masked_sources(tmp):
+    """csrc/ copied to tmp with the switches in lean_engines.cuh (--sm90:
+    lean_fwd_sm90.cuh)."""
+    dst = os.path.join(tmp, 'csrc')
+    shutil.copytree(_build.SRC_DIR, dst)
+    name = 'lean_fwd_sm90.cuh' if SM90 else 'lean_engines.cuh'
+    path = os.path.join(dst, name)
+    text = open(path).read()
+    for old, new in (SWITCHES_TUNE if TUNE else SWITCHES_SM90 if SM90
+                     else SWITCHES):
+        if text.count(old) != 1:
+            raise RuntimeError(f'{name} has no single {old!r}')
+        text = text.replace(old, new)
+    open(path, 'w').write(text)
+    return dst
+
+
+def build(tmp):
+    src = masked_sources(tmp)
+    procs = {}
+    t0 = time.perf_counter()
+    for v, (label, flags) in enumerate(variants().items()):
+        for name in ('lean_render', 'lean_train'):
+            so = os.path.join(tmp, f'lib{name}-{v}.so')
+            cmd = [_build.nvcc_path(), *_build.FLAGS, *flags, '-o',
+                   so, os.path.join(src, f'{name}.cu')]
+            procs[(v, name)] = (so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    libs = {}
+    for key, (so, p) in procs.items():
+        out, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(out)
+        libs[key] = so
+    print(f'build {time.perf_counter() - t0:.1f} s', flush=True)
+    return libs
+
+
+def short(name):
+    name = name.replace('(anonymous namespace)::', '')
+    return re.sub(r'^void ', '', name).split('(')[0][-60:]
+
+
+def main():
+    with tempfile.TemporaryDirectory() as tmp:
+        run(build(tmp))
+
+
+def run(libs):
+    dev = torch.device('cuda')
+    hp = config.default()
+    depth, dcond = hp['nerf.mlp.net_depth'], hp['nerf.mlp.net_depth_condition']
+    params = MipNeRFSystem(hp, device=dev).init_params(seed=0)
+    flat = cs.flat_params(params, hp)
+    args = (hp['nerf.num_samples'], depth, dcond, hp['nerf.mlp.skip_index'])
+    enc = (hp['nerf.min_deg_point'], hp['nerf.max_deg_point'])
+    x, view, _, _, moments, _, _ = cs.level_inputs(hp, dev)
+    cm, cview, _, _ = cs.chunk_inputs(hp, dev)
+    iv = 2 * (depth + 2)
+    W = flat[0].shape[1]
+    vp = km.view_proj_plain(cview, flat[iv], flat[iv + 1], W, torch.float32)
+    dt = torch.bfloat16
+    calls = {
+        'lean_save_fwd rows': lambda: km.lean_save_fwd(x, view, flat, *args,
+                                                       dt, cs.ACT),
+        'lean_save_fwd moments': lambda: km.lean_save_fwd(
+            moments, view, flat, *args, dt, cs.ACT, encode=enc),
+        'lean_fwd rows': lambda: km.lean_fwd(x, view, flat, *args, dt,
+                                             cs.ACT),
+        'lean_mlp chunk': lambda: km.lean_mlp(cm, vp, flat, *args, dt,
+                                              cs.ACT, enc),
+    }
+    out = {'smi': cs.smi_line()}
+    for v, label in enumerate(variants()):
+        _build._LOADED.clear()
+        for name in ('lean_render', 'lean_train'):
+            _build._LOADED[name] = ctypes.CDLL(libs[(v, name)])
+        row = {}
+        for cname, fn in calls.items():
+            split = cs.kernel_device_ms(fn, iters=5)
+            names = (('lean_fwd_sm90_kernel',) if SM90
+                     else ('lean_fwd_kernel', 'lean_mlp_kernel'))
+            row[cname] = round(sum(t for k, t in split.items()
+                                   if any(n in k for n in names)), 4)
+            if v == 0:
+                out[f'profile {cname}'] = {short(k): round(t, 4)
+                                           for k, t in split.items()}
+        out[label] = row
+        print(json.dumps({label: row}), flush=True)
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == '__main__':
+    main()

@@ -8,7 +8,11 @@ prints one JSON line: the CUDA-event time in ms of lean_fwd,
 lean_save_fwd, lean_param_grads, lean_param_grads_recompute and
 lean_param_grads_hybrid at the lego training level (3072 seeded rays x 128
 stratified samples, encode rows, seeded Xavier weights and head
-cotangents), f32 and bf16, 10 launches each after a warm-up; where the
+cotangents), f32 and bf16, the least of two means of 10 launches after a
+warm-up; lean_fwd and
+lean_save_fwd also on the level's [6, M] moments (`... moments`), and
+lean_mlp at one render chunk (8192 seeded rays around the radius-4 orbit x
+128 samples, their moments and the f32 vproj of their view rows); where the
 checkout has them, the classic kernels of fused_mlp (mlp_fwd, mlp_save_fwd,
 mlp_bwd_saved, mlp_bwd_recompute) on the same level with the view repeated
 over the samples, and the Megatron pair backward tp_pair_bwd at a lego
@@ -21,16 +25,25 @@ call, the host clock to a synchronise): best and median ms/step of 6 calls
 after a warm-up, bf16 and f32, and the device time of one step from a
 torch.profiler window.
 
+With --frames it also times one 800x800 frame of render_camera (the lego
+schema's model with seeded weights, chip_smoke.py's Blender camera on the
+radius-4 orbit, 8192-ray chunks, the host clock to a synchronise, after a
+200x200 warm-up), bf16 and f32.
+
 With --profile it first prints, each on a line of its own:
   * the device time of every kernel of one lean_param_grads call, bf16 and
     f32, from a torch.profiler window (the split of the backward into its
     chain, weight-gradient, reduction and per-ray kernels);
+  * the same split of the forwards: lean_save_fwd on rows and on the
+    moments, and lean_mlp at the render chunk (the MLP kernel, the
+    wrapper's casts of the weights and biases);
   * the yardstick of the weight gradients: torch.mm of each problem's
     activation rows against its cotangent rows (the same products the
     weight-gradient kernel computes, cuBLAS; never called by the port),
     summed over the problems, CUDA events;
-  * view_proj's device time against torch.addmm's at the level's rays,
-    from the profiler (kernel durations, not the host's issue time).
+  * view_proj's device time against torch.addmm's at the level's rays and
+    at the render chunk's, from the profiler (kernel durations, not the
+    host's issue time).
 """
 
 import json
@@ -41,21 +54,28 @@ import numpy as np
 import torch
 
 RAYS = 3072
+CHUNK = 8192            # rays of a render chunk (val.chunk_size)
+FRAME_SIDES = (200, 800)   # --frames: a warm-up frame, the timed one
 ACT = (0.001, -1.0)
 TP_SHAPE = (393216, 1024, 512, 1024)
 
 
-def cuda_ms(fn, iters=10):
+def cuda_ms(fn, iters=10, rounds=2):
+    """The least of `rounds` means of `iters` launches after a warm-up (one
+    disturbed round does not move the number)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    best = float('inf')
+    for _ in range(rounds):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 def device_split(fn, iters=1):
@@ -147,7 +167,8 @@ def main():
     sys.path.insert(0, os.getcwd())
     from mipnerf_pl_tpu_torch import config
     from mipnerf_pl_tpu_torch.kernels import mlp as km
-    from mipnerf_pl_tpu_torch.ops.math import integrated_pos_enc, pos_enc
+    from mipnerf_pl_tpu_torch.ops.math import (cast_rays_cmajor,
+                                               integrated_pos_enc, pos_enc)
     from mipnerf_pl_tpu_torch.ops.sampling import sample_along_rays
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem
 
@@ -168,8 +189,9 @@ def main():
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=dev)
     ones = np.ones((RAYS, 1))
-    _, means_covs = sample_along_rays(
-        t(rng.normal(size=(RAYS, 3)) * 0.1), t(d), t(ones * 0.005),
+    o_level = rng.normal(size=(RAYS, 3)) * 0.1
+    t_level, means_covs = sample_along_rays(
+        t(o_level), t(d), t(ones * 0.005),
         hp['nerf.num_samples'], t(ones * 2.0), t(ones * 6.0), False, False,
         'cone')
     x = integrated_pos_enc(means_covs, hp['nerf.min_deg_point'],
@@ -178,12 +200,43 @@ def main():
     view = pos_enc(t(d), 0, hp['nerf.deg_view'])
     g_rgb, g_dens = (t(rng.normal(size=(x.shape[0], c))) for c in (3, 1))
     args = (hp['nerf.num_samples'], depth, dcond, hp['nerf.mlp.skip_index'])
+    enc = (hp['nerf.min_deg_point'], hp['nerf.max_deg_point'])
+    # The level's samples as moments [6, M] (the same samples as x).
+    moments = cast_rays_cmajor(t_level, t(o_level), t(d), t(ones * 0.005))
+    moments = moments.reshape(6, -1).contiguous()
+    # One render chunk: CHUNK rays from near the radius-4 orbit towards the
+    # scene, their moments and vproj.
+    origins = rng.normal(size=(CHUNK, 3)) * 0.1 + np.array([0.0, 3.2, 2.35])
+    dc = rng.uniform(-1.0, 1.0, size=(CHUNK, 3)) - origins
+    dc /= np.linalg.norm(dc, axis=-1, keepdims=True)
+    ones_c = np.ones((CHUNK, 1))
+    t_chunk, _ = sample_along_rays(t(origins), t(dc), t(ones_c * 5e-4),
+                                   hp['nerf.num_samples'], t(ones_c * 2.0),
+                                   t(ones_c * 6.0), False, False, 'cone')
+    c_moments = cast_rays_cmajor(t_chunk, t(origins), t(dc),
+                                 t(ones_c * 5e-4)).reshape(6, -1).contiguous()
+    c_view = pos_enc(t(dc), 0, hp['nerf.deg_view'])
+    iv = 2 * (depth + 2)
+    W = flat[0].shape[1]
+    c_vproj = km.view_proj_plain(c_view, flat[iv], flat[iv + 1], W,
+                                 torch.float32)
     out = {'label': argv[0] if argv else os.getcwd(),
            'device': torch.cuda.get_device_name(0)}
     if profile:
-        iv = 2 * (depth + 2)
-        W = flat[0].shape[1]
         for dt, tag in ((torch.bfloat16, 'bf16'), (torch.float32, 'f32')):
+            fwds = {
+                'lean_save_fwd': lambda: km.lean_save_fwd(
+                    x, view, flat, *args, dt, ACT),
+                'lean_save_fwd moments': lambda: km.lean_save_fwd(
+                    moments, view, flat, *args, dt, ACT, encode=enc),
+                'lean_mlp': lambda: km.lean_mlp(c_moments, c_vproj, flat,
+                                                *args, dt, ACT, enc)}
+            for name, fn in fwds.items():
+                split = {short(k): round(v, 4)
+                         for k, v in device_split(fn).items()}
+                print(json.dumps({f'split {name}': tag,
+                                  'total_ms': round(sum(split.values()), 4),
+                                  'kernels_ms': split}), flush=True)
             saved = km.lean_save_fwd(x, view, flat, *args, dt, ACT)[2]
             split = device_split(lambda: km.lean_param_grads(
                 view, g_rgb, g_dens, saved, flat, *args, dt, ACT))
@@ -194,22 +247,23 @@ def main():
             mm = wgrad_yardstick(km, saved, flat, args, dt)
             print(json.dumps({'yardstick': f'torch.mm weight gradients {tag}',
                               'ms': round(mm, 4)}), flush=True)
-            kv, bv, vv = (a.to(dt) for a in (flat[iv][W:], flat[iv + 1],
-                                             view))
-            vp = device_split(lambda: km.view_proj(view, flat[iv],
-                                                   flat[iv + 1], W, dt),
-                              iters=10)
-            am = device_split(lambda: torch.addmm(bv, vv, kv), iters=10)
-            print(json.dumps({
-                'view_proj device ms': tag,
-                'lean_view_proj_kernel': round(sum(
-                    v for k, v in vp.items() if 'view_proj' in k), 5),
-                'wrapper casts': round(sum(
-                    v for k, v in vp.items() if 'view_proj' not in k), 5),
-                'torch.addmm': round(sum(am.values()), 5),
-                'kernels': {short(k): round(v, 5) for k, v in vp.items()},
-                'addmm kernels': {short(k): round(v, 5)
-                                  for k, v in am.items()}}), flush=True)
+            for vw in (view, c_view):
+                kv, bv, vv = (a.to(dt) for a in (flat[iv][W:], flat[iv + 1],
+                                                 vw))
+                vp = device_split(lambda: km.view_proj(vw, flat[iv],
+                                                       flat[iv + 1], W, dt),
+                                  iters=10)
+                am = device_split(lambda: torch.addmm(bv, vv, kv), iters=10)
+                print(json.dumps({
+                    'view_proj device ms': tag, 'rays': vw.shape[0],
+                    'lean_view_proj_kernel': round(sum(
+                        v for k, v in vp.items() if 'view_proj' in k), 5),
+                    'wrapper casts': round(sum(
+                        v for k, v in vp.items() if 'view_proj' not in k), 5),
+                    'torch.addmm': round(sum(am.values()), 5),
+                    'kernels': {short(k): round(v, 5) for k, v in vp.items()},
+                    'addmm kernels': {short(k): round(v, 5)
+                                      for k, v in am.items()}}), flush=True)
             saved = None
     for dt, tag in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
         saved = km.lean_save_fwd(x, view, flat, *args, dt, ACT)[2]
@@ -217,6 +271,12 @@ def main():
             'lean_fwd': lambda: km.lean_fwd(x, view, flat, *args, dt, ACT),
             'lean_save_fwd': lambda: km.lean_save_fwd(x, view, flat, *args,
                                                       dt, ACT),
+            'lean_fwd moments': lambda: km.lean_fwd(
+                moments, view, flat, *args, dt, ACT, encode=enc),
+            'lean_save_fwd moments': lambda: km.lean_save_fwd(
+                moments, view, flat, *args, dt, ACT, encode=enc),
+            'lean_mlp': lambda: km.lean_mlp(c_moments, c_vproj, flat, *args,
+                                            dt, ACT, enc),
             'lean_param_grads': lambda: km.lean_param_grads(
                 view, g_rgb, g_dens, saved, flat, *args, dt, ACT),
             'lean_param_grads_recompute':
@@ -264,6 +324,22 @@ def main():
                 iters=4), 4)
             xp = gp = None
         torch.cuda.empty_cache()
+    if '--frames' in sys.argv[1:]:
+        import time
+        import chip_smoke
+        for dtype, tag in (('bfloat16', 'bf16'), ('float32', 'f32')):
+            system = MipNeRFSystem(dict(hp, **{'train.compute_dtype': dtype}),
+                                   device=dev)
+            for side in FRAME_SIDES:
+                cam = chip_smoke.blender_camera(side, dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                system.render_camera(params, cam, side, side,
+                                     chunk_size=CHUNK, need_coarse=False)
+                torch.cuda.synchronize()
+            out[f'frame {side}x{side} {tag} s'] = round(time.perf_counter() - t0,
+                                                  4)
+            del system
     if '--steps' in sys.argv[1:]:
         from mipnerf_pl_tpu_torch.rays import Rays
         for dtype, tag in (('bfloat16', 'bf16'), ('float32', 'f32')):

@@ -21,8 +21,13 @@ recompute backward against the save backward on the same kernel forward
 (<= 1e-5: it re-runs that forward, and only the order of the f32 bias
 sums differs); lean_fwd must equal lean_save_fwd's outputs bit for bit.
 The bf16 backward of a channel-major stream runs on wgmma (the chain where
-the widths are multiples of 64: the `wide` and lego shapes), under the
-same bars, two lean_param_grads runs bit for bit.
+the widths are multiples of 64: the `wide`, `skip_end` and lego shapes),
+under the same bars, two lean_param_grads runs bit for bit.  At those
+shapes the bf16 lean forwards (lean_fwd, lean_save_fwd, the recompute
+re-run, lean_mlp) run on wgmma too (lean_fwd_sm90_kernel): each test
+asserts the route its calls took (`routes`, against `fwd_sm90_route`), the
+library's route and shared memory agree with the Python rule, and two runs
+of the new forward give the same bits.
 The moments input form is held against the rows form on the plain decode
 of the same moments (<= 1e-5 f32), lean_composite_bwd and ipe_moments
 against their plain versions (<= 1e-5), and training through the
@@ -146,6 +151,7 @@ def test_cuda_kernels_match_plain(cuda_device, shape, dtype):
     torch.cuda.synchronize()
     assert tk.launches == dict({k: 0 for k in tk.launches},
                                lean_view_proj=1, lean_mlp=1, lean_composite=1)
+    assert tk.routes['lean_mlp'] == sm90_calls(cfg, dtype)
     want = _plain_on(prob, cfg, cuda_device)      # f32 plain reference
     for name, a, b in zip(('comp', 'dist', 'acc', 'weights'), got, want):
         assert np.all(np.isfinite(a)), name
@@ -212,7 +218,21 @@ TRAIN_SHAPES = {
     # past the padded stream.
     'wide': (29, dict(SMALL, net_depth=4, net_width=128,
                       net_depth_condition=2, net_width_condition=64, N=24)),
+    # widths that are multiples of 64 with the trunk ending on a skip
+    # concat (density and bottleneck read [h, x] on the wgmma forward), 296
+    # points: ragged against the 64- and 128-point tiles.
+    'skip_end': (37, dict(SMALL, net_width=128, net_width_condition=64)),
 }
+
+
+def sm90_calls(cfg, dtype, calls=1):
+    """Calls of a lean forward that take lean_fwd_sm90_kernel at cfg's
+    widths in `dtype` (the rule of fwd_sm90_route)."""
+    F = 6 * (cfg['deg'][1] - cfg['deg'][0])
+    on = tk.fwd_sm90_route(getattr(torch, dtype), F, cfg['net_width'],
+                           cfg['net_width_condition'], cfg['net_depth'],
+                           cfg['net_depth_condition'])
+    return calls if on else 0
 
 
 @pytest.mark.cuda
@@ -240,6 +260,7 @@ def test_cuda_lean_save_matches_plain(cuda_device, shape, dtype):
     torch.cuda.synchronize()
     assert tk.launches['lean_save_fwd'] == 1
     assert tk.launches['lean_param_grads'] == 1
+    assert tk.routes['lean_save_fwd'] == sm90_calls(cfg, dtype)
     ref_rgb, ref_dens, ref_saved = tk.lean_mlp_save_plain(
         x, view, flat, *args, torch.float32, act)
     ref_grads = tk.lean_param_grads_plain(view, g_rgb, g_dens, in_saved,
@@ -285,6 +306,8 @@ def test_cuda_lean_fwd_matches_plain(cuda_device, shape, dtype, act):
     saved_out = tk.lean_save_fwd(x, view, flat, *args, dt, act)
     torch.cuda.synchronize()
     assert tk.launches['lean_fwd'] == 1
+    assert tk.routes['lean_fwd'] == tk.routes['lean_save_fwd'] \
+        == sm90_calls(cfg, dtype)
     ref = tk.lean_fwd_plain(x, view, flat, *args, torch.float32, act)
     for a, b, c in zip(got, saved_out, ref):
         assert torch.isfinite(a).all()
@@ -324,10 +347,54 @@ def test_cuda_recompute_matches_save(cuda_device, shape, dtype, act, chunks,
                                           *args)
     torch.cuda.synchronize()
     assert tk.launches['lean_param_grads_recompute'] == 2
+    assert tk.routes['lean_param_grads_recompute'] == sm90_calls(cfg, dtype, 2)
     assert all(torch.isfinite(g).all() for g in got)
     assert max_leaf_rel_err(got, want) <= 1e-5
     for a, b in zip(got, again):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', ['wide', 'skip_end', 'lego'])
+def test_cuda_fwd_sm90_deterministic(cuda_device, shape):
+    """Two runs of the bf16 wgmma forward give the same bits: lean_save_fwd
+    (outputs, saved stream, raw heads) on encode rows and on the moments,
+    and lean_mlp on the moments."""
+    R, cfg = TRAIN_SHAPES[shape]
+    m, x, view, flat, _, _ = moments_problem(R, cfg, cuda_device)
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], torch.bfloat16, (0.001, -1.0))
+    M = x.shape[0]
+    iv = 2 * (cfg['net_depth'] + 2)
+    vp = tk.view_proj(view, flat[iv], flat[iv + 1], cfg['net_width'],
+                      torch.bfloat16)
+    tk.reset_launches()
+    runs = [fwd_parts(tk.lean_save_fwd(x, view, flat, *args), M)
+            + fwd_parts(tk.lean_save_fwd(m, view, flat, *args,
+                                         encode=cfg['deg']), M)
+            + [tk.lean_mlp(m, vp, flat, *args, cfg['deg'])]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tk.routes['lean_save_fwd'] == 4 and tk.routes['lean_mlp'] == 2
+    for a, b in zip(*runs):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_sm90_route_matches_the_library(cuda_device):
+    """The library's route and shared memory of lean_fwd_sm90_kernel agree
+    with fwd_sm90_route and fwd_sm90_smem, and the lego plan fits."""
+    from mipnerf_pl_tpu_torch.kernels import _build
+    lib = _build.load('lean_train')
+    for F, W, Wv, depth, dcond in [(96, 256, 128, 8, 1), (24, 128, 64, 4, 2),
+                                   (24, 64, 32, 3, 1), (96, 256, 128, 12, 1),
+                                   (130, 256, 128, 8, 1), (96, 192, 64, 8, 3),
+                                   (96, 256, 256, 8, 1), (96, 320, 128, 8, 1)]:
+        want = tk.fwd_sm90_route(torch.bfloat16, F, W, Wv, depth, dcond)
+        assert bool(lib.lean_fwd_sm90_route(F, W, Wv, depth, dcond)) == want
+        assert lib.lean_fwd_sm90_smem(W, Wv, F) == tk.fwd_sm90_smem(W, Wv, F)
+    assert tk.fwd_sm90_smem(256, 128, 96) <= tk.FW_SMEM_MAX
 
 
 @pytest.mark.cuda
@@ -466,6 +533,8 @@ def test_cuda_moments_forms_match_rows(cuda_device, shape, dtype):
                                      encode=cfg['deg']), M)
     torch.cuda.synchronize()
     assert tk.launches['lean_fwd'] == 1 and tk.launches['lean_save_fwd'] == 1
+    assert tk.routes['lean_fwd'] == tk.routes['lean_save_fwd'] \
+        == sm90_calls(cfg, dtype)
     assert all(torch.equal(a, b) for a, b in zip(fwd, got[:2]))
     assert all(torch.isfinite(t).all() for t in got)
     if dtype == 'float32':

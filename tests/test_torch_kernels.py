@@ -325,6 +325,47 @@ def test_saved_stream_fits_the_tensor_maps(M, F, W, Wv, depth, dcond):
     assert mc % 64 == 0
 
 
+@pytest.mark.parametrize('dtype,F,W,Wv,depth,dcond,want', [
+    ('bf16', 96, 256, 128, 8, 1, True),      # lego
+    ('f32', 96, 256, 128, 8, 1, False),      # f32 keeps the mma.sync tile
+    ('bf16', 24, 128, 64, 4, 2, True),       # the card tests' `wide`
+    ('bf16', 24, 128, 64, 3, 1, True),       # `skip_end`
+    ('bf16', 24, 64, 32, 3, 1, False),       # `small`: Wv not a multiple of 64
+    ('bf16', 96, 256, 128, 8, 0, False),     # no view layer
+    ('bf16', 96, 256, 128, 11, 1, False),    # 13 dense layers
+    ('bf16', 96, 256, 128, 10, 1, True),     # 12
+    ('bf16', 128, 256, 128, 8, 1, True),     # 128 features: two boxes
+    ('bf16', 130, 256, 128, 8, 1, False),    # 160 rows once rounded to 32
+    ('bf16', 96, 320, 128, 8, 1, False),     # wider than MAX_WIDTH
+    ('bf16', 96, 256, 256, 8, 1, True)])
+def test_fwd_sm90_route(dtype, F, W, Wv, depth, dcond, want):
+    """The shape rule of the bf16 wgmma forward (lean_fwd_sm90_kernel),
+    against hand counts; the card test holds the library to the same
+    rule."""
+    dt = torch.bfloat16 if dtype == 'bf16' else torch.float32
+    assert tk.fwd_sm90_route(dt, F, W, Wv, depth, dcond) is want
+
+
+def test_fwd_sm90_smem():
+    """Its shared memory by hand: 6 stages x 4 weight boxes of 32 rows x 64
+    bf16 columns (16 KB a stage), per warpgroup max(W, Wv) / 64 activation
+    boxes of 64 x 64 bf16 (8 KB each) and an encode tile of F rounded up to
+    32 rows of 64 bf16 (128 bytes a row), 2 x 4 x 64 f32 heads and 2 x 2 x 3
+    x 64 f32 half sums of them, 12 x 256 f32
+    biases, 384 + 768 f32 head kernels, 144 slabs' (layer, row) of 4 bytes,
+    13 mbarriers, 1 KB of alignment slack: 212,136 bytes at the lego widths
+    (F = 96), of an H100 block's 232,448; every shape the route takes fits
+    (220,328 at W 256, F 128)."""
+    fixed = 2048 + 3072 + 12288 + 1536 + 3072 + 576 + 104 + 1024
+    assert tk.fwd_sm90_smem(256, 128, 96) == (6 * 16384 + 2 * (4 * 8192
+                                              + 96 * 128) + fixed) == 212136
+    assert tk.fwd_sm90_smem(128, 64, 24) == (6 * 16384
+                                             + 2 * (2 * 8192 + 32 * 128)
+                                             + fixed)
+    assert tk.fwd_sm90_smem(128, 256, 96) == tk.fwd_sm90_smem(256, 128, 96)
+    assert tk.fwd_sm90_smem(256, 256, 128) == 220328 <= tk.FW_SMEM_MAX
+
+
 def test_lean_training_form_rejects():
     """What the training form still refuses: encode with 'hybrid' (JAX's
     refusal), an encode whose width is not trunk_0's, no view branch, an
