@@ -8,8 +8,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      lean_train, ipe, tp_pair) with nvcc (sm_90a), one nvcc per source, all
      started together, and time it; print each kernel's registers and
      spills, and the dynamic shared memory of the two wgmma kernels of the
-     bf16 backward (lean_chain_sm90_kernel, wgrad_sm90_kernel) and of the
-     bf16 lean forward (lean_fwd_sm90_kernel);
+     bf16 backward (lean_chain_sm90_kernel, wgrad_sm90_kernel), of the
+     bf16 lean forward (lean_fwd_sm90_kernel) and of the two 3xTF32 wgmma
+     kernels of f32 (lean_fwd_tf32_kernel, lean_chain_tf32_kernel);
   3. each render kernel's wrapper against its plain PyTorch version at the
      lego shape (8x256 MLP, N = 128, one 8192-ray chunk) on numpy-seeded
      inputs: f32 max |d| <= 1e-4, bf16 max |d| / max |ref| <= 3e-2 against
@@ -18,12 +19,13 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      whose device work is a few microseconds, the kernel's and addmm's
      device times from a torch.profiler window (the wrapper's casts of k0
      and b0 apart) at the chunk's 8192 rays and a training level's 3072;
-     bf16 lean_mlp must take the wgmma forward (lean_fwd_sm90_kernel,
-     `check_routes`);
+     bf16 lean_mlp must take the wgmma forward (lean_fwd_sm90_kernel), f32
+     lean_mlp the 3xTF32 one (lean_fwd_tf32_kernel) (`check_routes`);
   4. the render slice through its entry point: MipNeRFSystem (default lego
      schema, val.mlp_backend auto) -> render_camera of a 200x200 Blender
      view with seeded params (through convert.jax_params_to_torch); every
-     render kernel must launch 2 levels x 5 chunks times, the image must be
+     render kernel must launch 2 levels x 5 chunks times (f32 lean_mlp on
+     lean_fwd_tf32_kernel each time), the image must be
      finite, and the same frame through the plain path on the card must
      agree (max |d rgb|, max |d acc| <= 1e-3 in f32); the same frame in
      bf16, lean_mlp on the wgmma forward 2 x 5 times, against the f32 plain
@@ -39,8 +41,11 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      head cotangents), f32 and bf16, bars against the f32 plain version:
      lean_save_fwd and lean_fwd (outputs, saved activations, raw heads) at
      the phase-3 bars, lean_fwd bit for bit equal to lean_save_fwd's
-     outputs (in bf16 both, and the recompute re-runs, on the wgmma
-     forward, checked in every form); lean_param_grads and lean_param_grads_hybrid fed the same
+     outputs (both, and the recompute re-runs, on the wgmma forward of
+     their dtype, checked in every form; the lean chains of lean_param_grads
+     and of the recompute backward on lean_chain_sm90_kernel in bf16 and
+     lean_chain_tf32_kernel in f32, `check_chain_routes`);
+     lean_param_grads and lean_param_grads_hybrid fed the same
      activations as their plain versions (the plain forward's, in the
      compute dtype), at bench.py's metric (largest leaf ||a - b|| / ||b||):
      <= 1e-4 f32 (hybrid too), <= 3e-2 bf16; lean_param_grads_recompute
@@ -97,7 +102,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      forwards differ by ~1e-6, which flips the ReLU masks of pre-activations
      that close to zero, and each flip moves a whole per-point term), then
      K = 5 steps of make_train_many, in which each of the configuration's
-     kernels must launch 2 levels x 5 times and the loss must stay finite;
+     kernels must launch 2 levels x 5 times, every lean forward and lean
+     chain on the wgmma kernel of its dtype, and the loss must stay finite;
      ms/step, rays/s and peak memory of every configuration and of the
      plain path, in turns (plain, each configuration, then back, twice:
      best, median and spread of the 4 runs); past
@@ -120,7 +126,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      cli.eval.main on the checkpoint writes psnrs.txt / ssims.txt with
      finite values and prints the summary; the run's rays/s and the share
      of its wall time spent waiting on the batcher;
-  8. the kernels' JSON line (launches, error, times, bound, library call),
+  8. the kernels' JSON line (launches, error, times, bound, library call;
+     for the lean forwards and backwards also the wgmma kernel that runs
+     them, f32 `kernel` / `chain` and bf16 under 'bf16'),
      the script's wall time, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 
@@ -446,31 +454,66 @@ def record(results, key, hp, R, N, err, ms, plain_ms, library_ms=None,
         f'{100 * b_ms / ms:.1f} % of it')
 
 
+def _widths(hp):
+    F = 6 * (hp['nerf.max_deg_point'] - hp['nerf.min_deg_point'])
+    return (F, hp['nerf.mlp.net_width'], hp['nerf.mlp.net_width_condition'],
+            hp['nerf.mlp.net_depth'], hp['nerf.mlp.net_depth_condition'])
+
+
 def sm90_route(hp, dt) -> bool:
     """Whether the lean forwards of hp's MLP in dt take the bf16 wgmma
     forward (lean_fwd_sm90_kernel): kernels/mlp.py fwd_sm90_route."""
-    F = 6 * (hp['nerf.max_deg_point'] - hp['nerf.min_deg_point'])
-    return km.fwd_sm90_route(dt, F, hp['nerf.mlp.net_width'],
-                             hp['nerf.mlp.net_width_condition'],
-                             hp['nerf.mlp.net_depth'],
-                             hp['nerf.mlp.net_depth_condition'])
+    return km.fwd_sm90_route(dt, *_widths(hp))
+
+
+def tf32_route(hp, dt) -> bool:
+    """Whether they take the f32 wgmma forward (lean_fwd_tf32_kernel):
+    kernels/mlp.py fwd_tf32_route."""
+    return km.fwd_tf32_route(dt, *_widths(hp))
+
+
+def chain_route(hp, dt):
+    """(bf16 lean_chain_sm90_kernel, f32 lean_chain_tf32_kernel): whether
+    the lean chain of hp's MLP in dt takes each."""
+    w = _widths(hp)[1:]
+    return km.chain_sm90_route(dt, *w), km.chain_tf32_route(dt, *w)
 
 
 def check_routes(hp, dt, where, **calls):
     """Raise unless each named wrapper's `calls` since the last
-    reset_launches ran on lean_fwd_sm90_kernel where fwd_sm90_route says so
-    and on the mma.sync tile elsewhere; the lego schema's bf16 forwards must
-    take it."""
-    on = sm90_route(hp, dt)
-    if dt == torch.bfloat16 and hp['nerf.mlp.net_width'] == 256 and not on:
-        raise AssertionError('the lego bf16 forwards do not take '
-                             'lean_fwd_sm90_kernel')
-    got = {k: km.routes[k] for k in calls}
-    want = {k: n if on else 0 for k, n in calls.items()}
-    log(f'[route] {where}: calls on lean_fwd_sm90_kernel {got} (want '
-        f'{want}) {"OK" if got == want else "FAIL"}')
+    reset_launches ran on lean_fwd_sm90_kernel where fwd_sm90_route says so,
+    on lean_fwd_tf32_kernel where fwd_tf32_route says so, and on the
+    mma.sync tile elsewhere; the lego schema's forwards must take the
+    wgmma forward of their dtype."""
+    on = sm90_route(hp, dt), tf32_route(hp, dt)
+    if hp['nerf.mlp.net_width'] == 256 and not any(on):
+        raise AssertionError(f'the lego {dt} forwards take no wgmma forward')
+    got = {k: (km.routes[k], km.tf32_routes[k]) for k in calls}
+    want = {k: (n if on[0] else 0, n if on[1] else 0)
+            for k, n in calls.items()}
+    log(f'[route] {where}: calls on (lean_fwd_sm90_kernel, '
+        f'lean_fwd_tf32_kernel) {got} (want {want}) '
+        f'{"OK" if got == want else "FAIL"}')
     if got != want:
         raise AssertionError(f'{where}: the forwards took another route')
+
+
+def check_chain_routes(hp, dt, where, **calls):
+    """Raise unless each named backward's `calls` since the last
+    reset_launches ran their lean chain on lean_chain_sm90_kernel (bf16) or
+    lean_chain_tf32_kernel (f32) where chain_sm90_route / chain_tf32_route
+    say so; the lego schema's chains must take the one of their dtype."""
+    on = chain_route(hp, dt)
+    if hp['nerf.mlp.net_width'] == 256 and not any(on):
+        raise AssertionError(f'the lego {dt} chain takes no wgmma kernel')
+    got = {k: (km.chain_routes[k], km.chain_tf32_routes[k]) for k in calls}
+    want = {k: (n if on[0] else 0, n if on[1] else 0)
+            for k, n in calls.items()}
+    log(f'[route] {where}: chains on (lean_chain_sm90_kernel, '
+        f'lean_chain_tf32_kernel) {got} (want {want}) '
+        f'{"OK" if got == want else "FAIL"}')
+    if got != want:
+        raise AssertionError(f'{where}: the chain took another route')
 
 
 def flax_tree(system: MipNeRFSystem, seed: int) -> dict:
@@ -772,10 +815,13 @@ def compare_train_kernels(params, hp, dev):
         # forward's own stream differs by its ~1e-6 (f32), which flips the
         # ReLU masks of pre-activations that close to zero.
         saved = ref[2] if dt == torch.float32 else plain_fwd(dt)[2]
+        km.reset_launches()
         grads = km.lean_param_grads(view, g_rgb, g_dens, saved, flat, *args,
                                     dt, ACT)
         ref_grads = plain_bwd(torch.float32, saved)
         torch.cuda.synchronize()
+        check_chain_routes(hp, dt, f'phase 5 lean_param_grads {tag}',
+                           lean_param_grads=1)
         finite = all(bool(torch.isfinite(t).all()) for t in grads)
         g_abs = max(float((a - b).abs().max())
                     for a, b in zip(grads, ref_grads))
@@ -810,6 +856,8 @@ def compare_train_kernels(params, hp, dev):
         scratch = torch.cuda.max_memory_allocated() - base
         check_routes(hp, dt, f'phase 5 recompute {tag}',
                      lean_param_grads_recompute=1)
+        check_chain_routes(hp, dt, f'phase 5 recompute {tag}',
+                           lean_param_grads_recompute=1)
         again = recompute(dt)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -916,6 +964,8 @@ def compare_moments_forms(results, report, flat, args, dt, tag, x,
     torch.cuda.synchronize()
     check_routes(hp, dt, f'phase 5 moments recompute {tag}',
                  lean_param_grads_recompute=2)
+    check_chain_routes(hp, dt, f'phase 5 moments recompute {tag}',
+                       lean_param_grads_recompute=2)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     r_err, r_leaf = leaf_rel_err(got, want, leaf_names(hp))
     r_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
@@ -1392,12 +1442,22 @@ def tp_slice(hp0, params0, dev):
 def run_k_steps(system, params, stack, pix, names, levels, label):
     """K steps of make_train_many from `params`: each kernel in `names`
     must launch `levels` (or PER_STEP's count) x K times, lean_mlp never,
-    and the loss must stay finite; -> the run's launch counts."""
+    every call of a lean forward and of a lean chain on the route its rule
+    gives (check_routes, check_chain_routes), and the loss must stay
+    finite; -> the run's launch counts."""
     fn = system.make_train_many()
     state = system.init_state(params=params)
     km.reset_launches()
     state, aux, sec, _ = train_run(fn, state, stack, pix)
     run_counts = dict(km.launches)
+    hp = system.hparams
+    dt = getattr(torch, str(hp.get('train.compute_dtype', 'float32')))
+    fwd = {n: run_counts[n] for n in km.routes if run_counts[n]}
+    chain = {n: run_counts[n] for n in km.chain_routes if run_counts[n]}
+    if fwd:
+        check_routes(hp, dt, f'{label} K={TRAIN_K}', **fwd)
+    if chain:
+        check_chain_routes(hp, dt, f'{label} K={TRAIN_K}', **chain)
     losses = aux['loss'].cpu().numpy()
     log(f'[train] {label} make_train_many K={TRAIN_K}: launches '
         f'{ {n: run_counts[n] for n in names} }; loss '
@@ -1823,7 +1883,10 @@ def main() -> int:
     train_lib.lean_sm90_smem(lego_cg(config.default()), smem)
     log(f'[build]   dynamic shared memory: lean_chain_sm90_kernel '
         f'{smem[0]} B, wgrad_sm90_kernel {smem[1]} B, lean_fwd_sm90_kernel '
-        f'{train_lib.lean_fwd_sm90_smem(256, 128, 96)} B (of 232448)')
+        f'{train_lib.lean_fwd_sm90_smem(256, 128, 96)} B, '
+        f'lean_fwd_tf32_kernel {train_lib.lean_fwd_tf32_smem(256, 128, 96)} '
+        f'B, lean_chain_tf32_kernel '
+        f'{train_lib.lean_chain_tf32_smem(256, 128, 8, 1)} B (of 232448)')
 
     hp = config.default()
     system = MipNeRFSystem(hp, device=dev)
@@ -1849,6 +1912,7 @@ def main() -> int:
            for k in counts):
         raise AssertionError(f'expected {want} launches of every render '
                              f'kernel, got {counts}')
+    check_routes(hp, torch.float32, 'phase 4 f32 frame', lean_mlp=want)
     for k, v in out.items():
         shape = (SIDE, SIDE, 3) if k.endswith('rgb') else (SIDE, SIDE)
         if v.shape != shape or not np.all(np.isfinite(v)):
@@ -1992,6 +2056,18 @@ def main() -> int:
                 kernels[-1]['bf16']['kernel'] = 'lean_fwd_sm90_kernel'
                 kernels[-1]['bf16']['source'] = \
                     'mipnerf_pl_tpu_torch/csrc/lean_fwd_sm90.cuh'
+            if name in km.chain_routes and chain_route(hp, torch.bfloat16)[0]:
+                kernels[-1]['bf16']['chain'] = 'lean_chain_sm90_kernel'
+        # The f32 numbers' wgmma kernels (the line's own 'source' is the
+        # library the wrapper launches, which holds them).
+        if name in km.routes and tf32_route(hp, torch.float32):
+            kernels[-1]['kernel'] = 'lean_fwd_tf32_kernel'
+            kernels[-1]['kernel_source'] = \
+                'mipnerf_pl_tpu_torch/csrc/lean_fwd_tf32.cuh'
+        if name in km.chain_routes and chain_route(hp, torch.float32)[1]:
+            kernels[-1]['chain'] = 'lean_chain_tf32_kernel'
+            kernels[-1]['chain_source'] = \
+                'mipnerf_pl_tpu_torch/csrc/lean_chain_tf32.cuh'
     log(f'[done] wall {time.perf_counter() - START:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi_line())

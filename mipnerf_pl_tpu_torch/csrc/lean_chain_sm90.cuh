@@ -70,11 +70,24 @@ struct ChainPlan {
 
 constexpr size_t CH_SMEM_MAX = 232448;   // an H100 block's dynamic shared memory
 
+// Launches of lean_chain_sm90_kernel by this library (lean_chain_launches).
+long long g_chain_sm90_launches = 0;
+
 // CH_FIXED, each warpgroup's Cg bias sums, the mbarriers, and the slack
 // that aligns the buffers to 1024 bytes.
 inline size_t chain_sm90_smem(int Cg) {
   return CH_FIXED + 2 * sizeof(float) * ((Cg + 1) & ~1) +
          sizeof(uint64_t) * 2 * (CH_STAGES + CH_MASKS + CH_RAW) + 1024;
+}
+
+// The shapes the kernel takes (bf16, a lean MLP and a channel-major stream
+// are the caller's): widths multiples of 64, a view layer, at most
+// CH_MAX_STEPS steps, the plan within the block's shared memory.  A shape
+// it takes whose plan cannot be made is an error (lean_train.cu run_grads).
+inline bool chain_sm90_route(const TrainDims& d) {
+  return d.W % 64 == 0 && d.Wv % 64 == 0 && d.W >= 64 && d.Wv >= 64 && d.depth >= 1 &&
+         d.depth_cond >= 1 && d.nd == 1 && !d.Fvp && d.depth + d.depth_cond + 1 <= CH_MAX_STEPS &&
+         chain_sm90_smem(d.cg()) <= CH_SMEM_MAX;
 }
 
 __global__ void __launch_bounds__(CH_THREADS, 1)
@@ -427,14 +440,11 @@ lean_chain_sm90_kernel(const __grid_constant__ ChainPlan plan, const float* __re
 
 // The plan of the chain on wgmma for the chunk whose saved activations are
 // `acts` (channel-major, one stream) and cotangents G [Cg][d.Mp]: false if
-// this form does not fit it (widths not multiples of 64, too many layers,
-// a tensor map cuTensorMapEncodeTiled refuses).
+// the route does not take the shape or a tensor map cuTensorMapEncodeTiled
+// refuses.
 inline bool chain_sm90_plan(ChainPlan& pl, const Acts& acts, const ChainPtrs& cp,
                             const TrainDims& d, const void* G) {
-  if (d.W % 64 || d.Wv % 64 || d.depth_cond < 1 || d.nd != 1 || d.Fvp ||
-      d.depth + d.depth_cond + 1 > CH_MAX_STEPS || d.Mp % 64 ||
-      chain_sm90_smem(d.cg()) > CH_SMEM_MAX)
-    return false;
+  if (!chain_sm90_route(d) || d.Mp % 64) return false;
   const char* base = static_cast<const char*>(acts.t[0]);
   const size_t row_bytes = 2 * (size_t)acts.ld[0];
   auto row_of = [&](int a) {

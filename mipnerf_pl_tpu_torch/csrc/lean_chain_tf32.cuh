@@ -1,0 +1,320 @@
+// The f32 cotangent chain of the lean training backward on Hopper's wgmma
+// and TMA, 3xTF32 (lean_train.cu): the channel-major saved stream of 'save'
+// and 'recompute' (so also the render-fused level's backward), widths
+// multiples of 64.  Replaces, in f32, lean_grad_chain_kernel<float> (the
+// chain of the TPU kernels _bwd_kernel_lean_save, _bwd_kernel_lean and
+// _bwd_kernel_lean_render, mipnerf_pl_tpu/kernels/mlp.py).  The point-major
+// residuals of 'hybrid' and the classic MLP keep lean_grad_chain_kernel;
+// bf16 runs on lean_chain_sm90.cuh.
+//
+// Route (chain_tf32_route, mirrored by kernels/mlp.py chain_tf32_route): f32,
+// a lean MLP on a channel-major stream, W and Wv multiples of 64, at least
+// one view layer, depth + depth_cond + 1 <= CT_MAX_STEPS, and the plan's
+// shared memory within the block's.  A plan it cannot make raises.
+//
+// The design of lean_fwd_tf32.cuh (its constants and helpers): a persistent
+// block walks 64-point tiles with two consumer warpgroups that split each
+// step's N output columns and a producer thread that streams B through a
+// ring of FT_STAGES slabs of FT_KS = 16 K columns (TMA, the 64-byte
+// swizzle).  The steps of a tile, in order (TcPlan::step):
+//   heads   the head cotangents, activation derivatives folded in (from the
+//           raw heads the forward saved), to G and to shared memory;
+//   rgb     the rgb head's 3-deep backward on the CUDA cores -> ys[last];
+//   view_j  j = last .. 1 -> ys[j - 1];  view_0 -> the bottleneck;
+//   bottleneck (+ the rank-1 density term) -> hs[depth - 1];
+//   trunk_i i = depth - 1 .. 1 -> hs[i - 1].
+// A layer's step is D[64 points][N] = A[64][K] B[K][N] with K the layer's
+// out and N its in (its first W rows): A is the step before's f32 output
+// cotangent in the shared tile ga (channel rows of 64 points, row stride
+// FT_LD), loaded into registers and split into tf32 hi and lo; B is the
+// layer's kernel k[:in_h] as stored ([in_h][out]: K-major already), split
+// by the wrapper into [hi; lo] [2 in_h][out] f32.  3xTF32 as the forward.
+// The epilogue, once both warpgroups are done reading ga, adds the density
+// term and writes the f32 cotangent over ga; then all 256 consumer threads
+// apply the mask (`> 0` of the stored f32 activation, read from S in
+// 16-byte loads, which the producer thread prefetched into L2 with the
+// step's first slab), copy ga's N rows to G (f32, channel-major, the rows
+// lean_wgrad_kernel<float> reads) and, for ys[0], to g1f, and sum each
+// column over the tile's 64 points in a fixed (rotated) order into the
+// block's bias sums.  No
+// atomics: the per-block sums go to db_part as lean_grad_chain_kernel's do.
+//
+// What bounds it: 2 x 0.55 M MACs a point at the 3xTF32 rate (0.43 TFLOP a
+// lego level, 2.6 ms at 165 TFLOP/s); HBM moves the masks' rows of S and
+// the f32 G rows (~7 GB, 2.2 ms at 3.35 TB/s).
+
+#pragma once
+
+#include "lean_fwd_tf32.cuh"
+
+namespace {
+
+constexpr int CT_MAX_STEPS = 16;
+
+struct TcStep {
+  int w;              // weight map, -1: the rgb head on the CUDA cores
+  int K, N;           // input cotangent width (the layer's out), output width
+  const float* act;   // the masking activation's first row (channel-major), null: no mask
+  int act_ld;
+  int act_row;        // its first row in the stream (the prefetch map's)
+  int g_row;          // first G row of the output cotangent
+  int flags;          // 1: the cotangent also to g1f; 2: + the density term
+};
+
+struct TcPlan {
+  CUtensorMap w[CT_MAX_STEPS];   // split k[:in_h] [2 in_h][out], FT_KS x in_h boxes
+  CUtensorMap act;               // the stream [rows][ld] f32, 64 x 64 boxes (L2 prefetch)
+  TcStep step[CT_MAX_STEPS];
+  int n_steps;
+};
+
+// Launches of lean_chain_tf32_kernel by this library (lean_chain_launches).
+long long g_chain_tf32_launches = 0;
+
+// The ring and its mbarriers, the cotangent tile, the head cotangents, the
+// staged head kernels, the block's Cg bias sums, 1 KB of alignment.
+inline size_t chain_tf32_smem(int W, int Wv, int Cg) {
+  const int wmax = W > Wv ? W : Wv;
+  return (size_t)FT_STAGES * FT_SLAB + FT_BARS + sizeof(float) * FT_LD * wmax +
+         sizeof(float) * (4 * 64 + 256 + 3 * 256 + ((Cg + 3) & ~3)) + 1024;
+}
+
+// The shapes the kernel takes (f32, a lean MLP and a channel-major stream
+// are the caller's).
+inline bool chain_tf32_route(const TrainDims& d) {
+  return d.W >= 64 && d.W <= 256 && d.W % 64 == 0 && d.Wv >= 64 && d.Wv <= 256 &&
+         d.Wv % 64 == 0 && d.depth >= 1 && d.depth_cond >= 1 && d.nd == 1 && !d.Fvp &&
+         d.depth + d.depth_cond + 1 <= CT_MAX_STEPS &&
+         chain_tf32_smem(d.W, d.Wv, d.cg()) <= FT_SMEM_MAX;
+}
+
+__global__ void __launch_bounds__(FT_THREADS, 1)
+lean_chain_tf32_kernel(const __grid_constant__ TcPlan plan, const float* __restrict__ heads,
+                       const float* __restrict__ g_rgb, const float* __restrict__ g_dens,
+                       ChainPtrs cp, TrainDims d, float* __restrict__ G, float* __restrict__ g1f,
+                       float* __restrict__ db_part, int n_rows) {
+  extern __shared__ uint8_t ct_raw[];
+  uint8_t* ring = ct_raw + ((1024 - (smem_u32(ct_raw) & 1023)) & 1023);   // [stage][hi | lo]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + FT_STAGES * FT_SLAB);
+  uint64_t* empty = full + FT_STAGES;
+  float* ga = reinterpret_cast<float*>(ring + FT_STAGES * FT_SLAB + FT_BARS);   // [wmax][FT_LD]
+  const int wmax = d.W > d.Wv ? d.W : d.Wv, Cg = d.cg();
+  float* gh = ga + wmax * FT_LD;      // [4][64] head cotangents
+  float* kd_s = gh + 4 * 64;          // k_den [W]
+  float* kr_s = kd_s + 256;           // k_rgb [Wv][3]
+  float* dbacc = kr_s + 3 * 256;      // [Cg] the block's bias sums
+  const int tid = threadIdx.x;
+  const size_t Mp = d.Mp;
+  const int n_tiles = d.Mp / FT_TM;
+  if (tid == 0) {
+    for (int s = 0; s < FT_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);
+    }
+    mbar_fence_init();
+  }
+  for (int c = tid; c < Cg; c += FT_THREADS) dbacc[c] = 0.f;
+  for (int i = tid; i < d.W; i += FT_THREADS) kd_s[i] = static_cast<const float*>(cp.k_den)[i];
+  for (int i = tid; i < 3 * d.Wv; i += FT_THREADS)
+    kr_s[i] = static_cast<const float*>(cp.k_rgb)[i];
+  __syncthreads();
+  if (tid >= 256) {
+    // Weights: per step its K / FT_KS slabs through the ring, the hi rows
+    // [0, N) and the lo rows [N, 2N); before them, the tile's rows of the
+    // step's masking activation into L2, a step's products ahead of the
+    // epilogue that reads them (read from HBM there, they held it up by
+    // ~4 ms a lego level).
+    if (tid == 256) {
+      int slab = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+        for (int si = 0; si < plan.n_steps; ++si) {
+          const TcStep& st = plan.step[si];
+          if (st.act)
+            for (int r = 0; r < st.N; r += 64)
+              tma_prefetch_2d(&plan.act, tile * FT_TM, st.act_row + r);
+          if (st.w < 0) continue;
+          for (int k0 = 0; k0 < st.K; k0 += FT_KS, ++slab) {
+            const int s = slab % FT_STAGES;
+            mbar_wait(empty + s, ((slab / FT_STAGES) & 1) ^ 1);
+            mbar_expect_tx(full + s, 2 * st.N * FT_SW);
+            tma_load_2d(ring + s * FT_SLAB, &plan.w[st.w], full + s, k0, 0);
+            tma_load_2d(ring + s * FT_SLAB + FT_HALF, &plan.w[st.w], full + s, k0, st.N);
+          }
+        }
+    }
+    return;
+  }
+
+  // Consumers: as lean_fwd_tf32_kernel's.
+  const int wg = tid >> 7, wi = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, p0 = 16 * wi + g;
+  int slab = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m0 = tile * FT_TM;
+    named_sync(1, 256);
+    // Head cotangents of the tile: with activated heads, d sigmoid = s (1 -
+    // s) widened by the padding, d softplus(z + b) = sigmoid(z + b), from
+    // the raw heads.
+    {
+      const int c = tid >> 6, p = tid & 63, m = m0 + p;
+      float gv = 0.f;
+      if (m < d.M) {
+        gv = c < 3 ? g_rgb[(size_t)m * 3 + c] : g_dens[m];
+        if (d.use_act) {
+          const float raw = heads[(size_t)c * Mp + m];
+          if (c < 3) {
+            const float sg = 1.f / (1.f + expf(-raw));
+            gv = gv * ((1.f + 2.f * d.rgb_padding) * sg * (1.f - sg));
+          } else {
+            gv = gv * (1.f / (1.f + expf(-(raw + d.density_bias))));
+          }
+        }
+      }
+      gh[c * 64 + p] = gv;
+      G[(size_t)(c < 3 ? d.g_rgb() + c : d.g_den()) * Mp + m] = gv;
+    }
+    named_sync(1, 256);
+    if (tid < 4) {
+      float s = 0.f;
+      for (int p = 0; p < 64; ++p) s += gh[tid * 64 + p];
+      dbacc[tid < 3 ? d.g_rgb() + tid : d.g_den()] += s;
+    }
+
+    for (int si = 0; si < plan.n_steps; ++si) {
+      const TcStep& st = plan.step[si];
+      const bool den = st.flags & 2;
+      if (st.w >= 0) {
+        // The products and the epilogue of one layer's step, compiled for
+        // each half width (NH 32-column blocks).
+        auto run_step = [&](auto nh_c) {
+          constexpr int NH = decltype(nh_c)::value;
+          const int col0 = wg * 32 * NH;
+          float acc[16 * NH];
+#pragma unroll
+          for (int i = 0; i < 16 * NH; ++i) acc[i] = 0.f;
+          tf32_products<NH>(acc, ga, st.K, ga, st.K / FT_KS, ring, full, empty, slab, col0, p0,
+                            t, lane);
+          // Epilogue, once both warpgroups are done reading ga: the density
+          // term, f32 over ga (the mask follows in the copy pass).
+          named_sync(1, 256);
+#pragma unroll
+          for (int j = 0; j < 4 * NH; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = col0 + 8 * j + 2 * t + (e & 1), p = p0 + 8 * (e >> 1);
+              float v = acc[4 * j + e];
+              if (den) v = v + gh[3 * 64 + p] * kd_s[col];
+              ga[col * FT_LD + p] = v;
+            }
+          }
+        };
+        const int nh = st.N / 64;
+        if (nh == 4)
+          run_step(std::integral_constant<int, 4>());
+        else if (nh == 3)
+          run_step(std::integral_constant<int, 3>());
+        else if (nh == 2)
+          run_step(std::integral_constant<int, 2>());
+        else
+          run_step(std::integral_constant<int, 1>());
+      } else {
+        // The rgb head's backward: sum over c of gh[c] k_rgb[j][c].
+        for (int idx = tid; idx < st.N * 64; idx += 256) {
+          const int j = idx >> 6, p = idx & 63;
+          float v = 0.f;
+          for (int c = 0; c < 3; ++c) v = fmaf(gh[c * 64 + p], kr_s[j * 3 + c], v);
+          ga[j * FT_LD + p] = v;
+        }
+      }
+      named_sync(1, 256);
+      // The mask (`> 0` of the activation's rows, 16 bytes a load) over ga,
+      // and the cotangent to G (and g1f), 16 bytes an access (the mask's
+      // loads coalesced, where the epilogue would read one element a thread
+      // and row).  Then its column sums over the tile's points,
+      // column c from point (k + c / 4) % 64 on (a fixed order, and the 32
+      // lanes of a warp on 32 banks).
+      // A thread's N / 16 (at most 16) mask loads are all issued before the
+      // first is used.
+      float4 mk[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int v = tid + 256 * i, r = v >> 4, c = (v & 15) * 4;
+        if (st.act && v < st.N * 16)
+          mk[i] = __ldg(reinterpret_cast<const float4*>(st.act + (size_t)r * st.act_ld + m0 + c));
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int v = tid + 256 * i, r = v >> 4, c = (v & 15) * 4;
+        if (v >= st.N * 16) break;
+        float4 x = *reinterpret_cast<const float4*>(ga + r * FT_LD + c);
+        if (st.act) {
+          x.x = mk[i].x > 0.f ? x.x : 0.f;
+          x.y = mk[i].y > 0.f ? x.y : 0.f;
+          x.z = mk[i].z > 0.f ? x.z : 0.f;
+          x.w = mk[i].w > 0.f ? x.w : 0.f;
+          *reinterpret_cast<float4*>(ga + r * FT_LD + c) = x;
+        }
+        *reinterpret_cast<float4*>(G + (size_t)(st.g_row + r) * Mp + m0 + c) = x;
+        if (st.flags & 1) *reinterpret_cast<float4*>(g1f + (size_t)r * Mp + m0 + c) = x;
+      }
+      if (st.act) named_sync(1, 256);
+      if (tid < st.N) {
+        const int r0 = (tid >> 2) & 63;
+        float s = 0.f;
+        for (int k = 0; k < 64; ++k) s += ga[tid * FT_LD + ((k + r0) & 63)];
+        dbacc[st.g_row + tid] += s;
+      }
+    }
+  }
+  named_sync(1, 256);
+  for (int c = tid; c < Cg; c += 256) db_part[(size_t)blockIdx.x * Cg + c] = dbacc[c];
+  if (blockIdx.x == 0)
+    for (size_t i = (size_t)gridDim.x * Cg + tid; i < (size_t)n_rows * Cg; i += 256)
+      db_part[i] = 0.f;
+}
+
+// The plan of the chain on tf32 wgmma for the chunk whose saved activations
+// are `acts` (channel-major f32, one stream whose rows are acts.ld[0]
+// apart), with ws[i] the split kernel k[:in_h]
+// ([2 in_h][out] f32) of chain layer i by param index: false if a tensor
+// map cannot be made.
+inline bool chain_tf32_plan(TcPlan& pl, const Acts& acts, const void* const* ws,
+                            const TrainDims& d) {
+  if (!ws || !chain_tf32_route(d)) return false;
+  const int i_view = d.depth + 2, last = d.depth_cond - 1;
+  const char* base = static_cast<const char*>(acts.t[0]);
+  int n = 0, nw = 0;
+  auto add = [&](int layer, int K, int N, int act, int g_row, int flags) {
+    TcStep& st = pl.step[n++];
+    st.w = -1;
+    if (layer >= 0) {
+      if (!ws[layer] || !make_map(&pl.w[nw], ws[layer], 2 * N, K, K, N,
+                                  CU_TENSOR_MAP_SWIZZLE_64B, true, FT_KS))
+        return false;
+      st.w = nw++;
+    }
+    st.K = K;
+    st.N = N;
+    st.act = act < 0 ? nullptr : static_cast<const float*>(acts.t[act]);
+    st.act_ld = act < 0 ? 0 : acts.ld[act];
+    st.act_row = act < 0 ? 0
+                         : (int)((static_cast<const char*>(acts.t[act]) - base) /
+                                 (4 * (long long)acts.ld[0]));
+    st.g_row = g_row;
+    st.flags = flags;
+    return true;
+  };
+  bool ok = add(-1, 0, d.Wv, d.a_y(last), d.g_v(last), last == 0);
+  for (int j = last; j >= 1; --j)
+    ok = ok && add(i_view + j, d.Wv, d.Wv, d.a_y(j - 1), d.g_v(j - 1), j == 1);
+  ok = ok && add(i_view, d.Wv, d.W, -1, d.g_bot(), 0);
+  ok = ok && add(d.depth + 1, d.W, d.W, d.a_h(d.depth - 1), d.g_t(d.depth - 1), 2);
+  for (int i = d.depth - 1; i >= 1; --i)
+    ok = ok && add(i, d.W, d.W, d.a_h(i - 1), d.g_t(i - 1), 0);
+  pl.n_steps = n;
+  const int s_rows = d.Fp + (d.depth + 1) * d.W + d.depth_cond * d.Wv;
+  return ok && make_map(&pl.act, base, s_rows, d.Mp, acts.ld[0], 64,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, true);
+}
+
+}  // namespace

@@ -38,8 +38,9 @@
 // (mlp_tile) and both tensor-core GEMM engines (f32 as 3xTF32, bf16 on
 // mma.sync m16n8k16) live in lean_engines.cuh, shared with the training
 // kernels of lean_train.cu.
-// In bf16 at widths that are multiples of 64, lean_mlp runs on the wgmma /
-// TMA forward of lean_fwd_sm90.cuh instead (launch_mlp).
+// At widths that are multiples of 64, lean_mlp runs on the wgmma / TMA
+// forwards instead (launch_mlp): bf16 on lean_fwd_sm90.cuh, f32 on the
+// 3xTF32 lean_fwd_tf32.cuh.
 //
 // Numerics: exact libm expf/sinf in the IPE decode (ipe_feature,
 // lean_engines.cuh).
@@ -49,6 +50,7 @@
 
 #include "lean_engines.cuh"
 #include "lean_fwd_sm90.cuh"
+#include "lean_fwd_tf32.cuh"
 
 namespace {
 
@@ -320,11 +322,22 @@ lean_composite_bwd_kernel(const float* __restrict__ rgbsig, const float* __restr
 
 // bf16 at the widths fwd_sm90_route takes: lean_fwd_sm90_kernel on the
 // moments with activated heads and no stream (lean_fwd_sm90.cuh, the
-// kernel of the bf16 training forwards); every other form lean_mlp_kernel.
+// kernel of the bf16 training forwards); f32 at the widths fwd_tf32_route
+// takes: lean_fwd_tf32_kernel (lean_fwd_tf32.cuh, from the split transposed
+// kernels wt, the kernel of the f32 training forwards); every other form
+// lean_mlp_kernel.
 template <typename T>
 int launch_mlp(const float* moments, const float* vproj, const LayerPtrs& p,
-               const MlpDims& d, float* out, cudaStream_t stream) {
+               const void* const* wt, const MlpDims& d, float* out, cudaStream_t stream) {
   const int F = 6 * d.L;
+  if (sizeof(T) == 4 && fwd_tf32_route(F, d.W, d.Wv, d.depth, d.depth_cond)) {
+    TfPlan pl;
+    if (!fwd_tf32_plan(pl, p, wt, d.M, (d.M + TM - 1) / TM * TM, d.N, d.R, F, d.L, d.min_deg,
+                       d.M, d.depth, d.depth_cond, d.skip, d.W, d.Wv, 1, d.rgb_padding,
+                       d.density_bias, nullptr))
+      return (int)cudaErrorInvalidValue;
+    return launch_fwd_tf32(pl, true, moments, vproj, out, nullptr, stream);
+  }
   if (sizeof(T) == 2 && fwd_sm90_route(F, d.W, d.Wv, d.depth, d.depth_cond)) {
     FwdPlan pl;
     if (!fwd_sm90_plan(pl, p, d.M, (d.M + TM - 1) / TM * TM, d.N, d.R, F, d.L, d.min_deg, d.M,
@@ -362,9 +375,12 @@ int lean_view_proj(const void* view, const void* k0, const void* b0, void* out,
 // moments [6, M] f32, vproj [R, Wv] f32, weights[i] [in_i, out_i] in the
 // compute dtype and biases[i] [out_i] f32 in param_order -> out [M, 4] f32
 // (activated rgb | sigma).  Widths: multiples of 4 (f32) or 16 (bf16, the
-// tensor cores' k16 / paired n8 tiles), at most MAX_OUT.
+// tensor cores' k16 / paired n8 tiles), at most MAX_OUT.  wt: f32 at the
+// widths of fwd_tf32_route, the split transposed kernels [2N][Kp] of the
+// dense layers by param index (kernels/mlp.py tf32_fwd_weights); else may
+// be null.
 int lean_mlp(const void* moments, const void* vproj, const void* weights,
-             const void* biases, int n_layers, void* out, int M, int N, int R,
+             const void* biases, const void* wt, int n_layers, void* out, int M, int N, int R,
              int L, int min_deg, int depth, int depth_cond, int skip, int W,
              int Wv, float rgb_padding, float density_bias, int use_bf16,
              void* stream) {
@@ -385,12 +401,16 @@ int lean_mlp(const void* moments, const void* vproj, const void* weights,
   const float* mo = static_cast<const float*>(moments);
   const float* vp = static_cast<const float*>(vproj);
   float* o = static_cast<float*>(out);
-  return use_bf16 ? launch_mlp<bf16>(mo, vp, p, d, o, s)
-              : launch_mlp<float>(mo, vp, p, d, o, s);
+  const void* const* split = static_cast<const void* const*>(wt);
+  return use_bf16 ? launch_mlp<bf16>(mo, vp, p, split, d, o, s)
+                  : launch_mlp<float>(mo, vp, p, split, d, o, s);
 }
 
 // Launches of lean_fwd_sm90_kernel by this library so far.
 long long lean_fwd_sm90_launches() { return g_fwd_sm90_launches; }
+
+// Launches of lean_fwd_tf32_kernel by this library so far.
+long long lean_fwd_tf32_launches() { return g_fwd_tf32_launches; }
 
 // rgbsig [R * N, 4] f32, delta / mids [R, N] f32 -> perray [R, 8]
 // (comp rgb | acc | dist | 0 0 0), weights [R, N].

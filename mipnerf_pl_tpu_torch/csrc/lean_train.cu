@@ -82,10 +82,13 @@
 //      [Cg][chunk] in the compute dtype (the operand of its weight
 //      gradient); bias gradients are column sums of the f32 cotangent, per
 //      block; view_0's f32 cotangent also goes to g1f [Wv][chunk].  The
-//      lean chain on a bf16 channel-major stream (save, recompute) is
-//      lean_chain_sm90_kernel (lean_chain_sm90.cuh: 128-point tiles,
-//      wgmma fed by a TMA ring); f32, hybrid and the classic forms keep
-//      lean_grad_chain_kernel (64-point tiles, mma.sync).
+//      lean chain on a channel-major stream (save, recompute) at widths
+//      that are multiples of 64 is, by a rule on dtype and shape,
+//      lean_chain_sm90_kernel in bf16 (lean_chain_sm90.cuh: 128-point
+//      tiles, wgmma fed by a TMA ring) and lean_chain_tf32_kernel in f32
+//      (lean_chain_tf32.cuh: 3xTF32 wgmma); hybrid, the classic forms and
+//      other widths keep lean_grad_chain_kernel (64-point tiles,
+//      mma.sync).
 //   2. split-K tensor-core products dW = A^T G over the points, one 128 x
 //      128 output tile per block and one MC-point range per grid row,
 //      written as per-range partial sums.  Ranges never straddle a chunk,
@@ -114,6 +117,7 @@
 
 #include "lean_engines.cuh"
 #include "lean_fwd_sm90.cuh"
+#include "lean_fwd_tf32.cuh"
 #include "lean_wgrad_sm90.cuh"
 
 namespace {
@@ -592,6 +596,7 @@ lean_view_rows_kernel(const float* __restrict__ view, const T* __restrict__ g_ra
 }  // namespace
 
 #include "lean_chain_sm90.cuh"
+#include "lean_chain_tf32.cuh"
 
 namespace {
 
@@ -639,12 +644,24 @@ int launch_classic_fwd(const float* x, const float* view, const LayerPtrs& p, co
 }
 
 // The lean forward of d on x (rows or moments, as d.L says).  bf16 forwards
-// whose shape fwd_sm90_route takes run on wgmma (lean_fwd_sm90.cuh: a rule
-// on dtype and shape; a plan it cannot make is an error, never another
-// kernel); every other form on mlp_tile (lean_fwd_kernel).
+// whose shape fwd_sm90_route takes run on wgmma (lean_fwd_sm90.cuh), f32
+// forwards whose shape fwd_tf32_route takes on tf32 wgmma (lean_fwd_tf32.cuh,
+// from the split transposed kernels wt): rules on dtype and shape; a plan
+// either cannot make is an error, never another kernel.  Every other form
+// runs on mlp_tile (lean_fwd_kernel).
 template <typename T>
 int launch_fwd(const float* x, const float* vproj, const LayerPtrs& p, const TrainDims& d,
-               float* out, T* saved, float* heads, cudaStream_t s) {
+               float* out, T* saved, float* heads, const void* const* wt, cudaStream_t s) {
+  if constexpr (sizeof(T) == 4) {
+    if (fwd_tf32_route(d.F, d.W, d.Wv, d.depth, d.depth_cond)) {
+      TfPlan pl;
+      if (!fwd_tf32_plan(pl, p, wt, d.M, d.Mp, d.N, d.R, d.F, d.L, d.min_deg, d.ldx, d.depth,
+                         d.depth_cond, d.skip, d.W, d.Wv, d.use_act, d.rgb_padding,
+                         d.density_bias, saved))
+        return (int)cudaErrorInvalidValue;
+      return launch_fwd_tf32(pl, d.L != 0, x, vproj, out, heads, s);
+    }
+  }
   if constexpr (sizeof(T) == 2) {
     if (fwd_sm90_route(d.F, d.W, d.Wv, d.depth, d.depth_cond)) {
       FwdPlan pl;
@@ -665,7 +682,7 @@ int launch_fwd(const float* x, const float* vproj, const LayerPtrs& p, const Tra
 }
 
 int fwd_entry(const void* x, const void* vproj, const void* weights, const void* biases,
-              int n_layers, void* out, void* saved, void* heads, const int* dims,
+              const void* wt, int n_layers, void* out, void* saved, void* heads, const int* dims,
               float rgb_padding, float density_bias, int use_act, int use_bf16, void* stream) {
   const TrainDims d = read_dims(dims, rgb_padding, density_bias, use_act);
   if (!dims_ok(d, n_layers, use_bf16) || d.Fvp) return (int)cudaErrorInvalidValue;
@@ -675,8 +692,9 @@ int fwd_entry(const void* x, const void* vproj, const void* weights, const void*
   const float* vp = static_cast<const float*>(vproj);
   float* o = static_cast<float*>(out);
   float* h = static_cast<float*>(heads);
-  return use_bf16 ? launch_fwd<bf16>(xf, vp, p, d, o, static_cast<bf16*>(saved), h, s)
-                  : launch_fwd<float>(xf, vp, p, d, o, static_cast<float*>(saved), h, s);
+  const void* const* w = static_cast<const void* const*>(wt);
+  return use_bf16 ? launch_fwd<bf16>(xf, vp, p, d, o, static_cast<bf16*>(saved), h, w, s)
+                  : launch_fwd<float>(xf, vp, p, d, o, static_cast<float*>(saved), h, w, s);
 }
 
 // The backward's arguments that every mode shares.
@@ -684,6 +702,7 @@ struct GradArgs {
   const float *g_rgb, *g_dens, *view;
   InputGrads ig;      // the classic entries only
   ChainPtrs cp;
+  const void* const* chain_ws;   // f32: lean_chain_tf32_kernel's split kernels
   void* G;          // [Cg][chunk] compute dtype
   float* g1f;       // [Wv][chunk]
   float* db_part;   // [chunks * n_chain][Cg]
@@ -706,6 +725,7 @@ struct Refwd {
   LayerPtrs p;
   void* S;
   float* heads;
+  const void* const* wt;   // f32: lean_fwd_tf32_kernel's split kernels
 };
 
 // The chunks [c0, c0 + chunk) of the level, then the reductions.  acts /
@@ -732,18 +752,27 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
   if (e == cudaSuccess && CL)
     e = cudaFuncSetAttribute(mlp_input_grads_kernel<T, NV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ismem);
-  // The lean chain of a bf16 channel-major stream runs on wgmma
-  // (lean_chain_sm90.cuh) wherever its plan fits; its grid is one block an
-  // SM at most.
-  constexpr bool sm90 = sizeof(T) == 2 && !PM && !CL && !NV;
+  // The lean chain of a channel-major stream runs on wgmma where its rule
+  // takes the shape: bf16 on lean_chain_sm90.cuh, f32 on the 3xTF32
+  // lean_chain_tf32.cuh (rules on dtype and shape; a plan either cannot
+  // make is an error, never another kernel); its grid is one block an SM
+  // at most.  Every other form runs on lean_grad_chain_kernel.
+  constexpr bool lean_cm = !PM && !CL && !NV;
+  const bool on_sm90 = sizeof(T) == 2 && lean_cm && chain_sm90_route(d);
+  const bool on_tf32 = sizeof(T) == 4 && lean_cm && chain_tf32_route(d);
+  const size_t tsmem = chain_tf32_smem(d.W, d.Wv, Cg);
   int sms = 0, dev = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && sm90 && chain_sm90_smem(Cg) <= CH_SMEM_MAX)
+  if (e == cudaSuccess && on_sm90)
     e = cudaFuncSetAttribute(lean_chain_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)chain_sm90_smem(Cg));
+  if (e == cudaSuccess && on_tf32)
+    e = cudaFuncSetAttribute(lean_chain_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)tsmem);
   if (e != cudaSuccess) return (int)e;
   ChainPlan plan;
+  TcPlan tplan;
   T* G = static_cast<T*>(a.G);
   T* g_ray = static_cast<T*>(a.g_ray);
   int n_chunks = 0;
@@ -766,7 +795,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
         // same kernel as lean_save_fwd's (launch_fwd), so the same masks.
         e = (cudaError_t)launch_fwd<T>(rf->x + (d.L ? (size_t)c0 : (size_t)c0 * d.F),
                                        rf->vproj + (size_t)(c0 / d.N) * d.Wv, rf->p, dc, nullptr,
-                                       S, rf->heads, s);
+                                       S, rf->heads, rf->wt, s);
         if (e != cudaSuccess) return (int)e;
       }
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -780,11 +809,20 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
         acts.t[i] = static_cast<const T*>(level_acts.t[i]) + (size_t)c0 * level_acts.ld[i];
     }
     float* db_part = a.db_part + (size_t)n_chunks * a.n_chain * Cg;
-    if (sm90 && chain_sm90_plan(plan, acts, a.cp, dc, G)) {
+    if (on_sm90) {
+      if (!chain_sm90_plan(plan, acts, a.cp, dc, G)) return (int)cudaErrorInvalidValue;
       const int tiles = (dc.Mp + CH_TM - 1) / CH_TM;
       lean_chain_sm90_kernel<<<tiles < sms ? tiles : sms, CH_THREADS, chain_sm90_smem(Cg), s>>>(
           plan, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc,
           reinterpret_cast<bf16*>(G), a.g1f, db_part, a.n_chain);
+      if (cudaPeekAtLastError() == cudaSuccess) ++g_chain_sm90_launches;
+    } else if (on_tf32) {
+      if (!chain_tf32_plan(tplan, acts, a.chain_ws, dc)) return (int)cudaErrorInvalidValue;
+      const int tiles = dc.Mp / FT_TM;
+      lean_chain_tf32_kernel<<<tiles < sms ? tiles : sms, FT_THREADS, tsmem, s>>>(
+          tplan, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc,
+          reinterpret_cast<float*>(G), a.g1f, db_part, a.n_chain);
+      if (cudaPeekAtLastError() == cudaSuccess) ++g_chain_tf32_launches;
     } else {
       lean_grad_chain_kernel<T, PM, CL, NV><<<a.n_chain, THREADS, csmem, s>>>(
           acts, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc, G,
@@ -839,15 +877,16 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
 
 // The parameters every backward entry takes after its mode's own.
 #define LEAN_GRAD_PARAMS                                                                       \
-  const void *g_rgb, const void *g_dens, const void *view, const void *chain_w, int n_layers,  \
+  const void *g_rgb, const void *g_dens, const void *view, const void *chain_w,                \
+      const void *chain_ws, int n_layers,                                                      \
       const void *k_den, const void *k_rgb, const void *b_den, const void *b_rgb, void *G,     \
       void *g1f, void *db_part, int n_chain, void *partial, int MC, const int *probs,          \
       int n_probs, const int *tiles, int n_tiles, int PW, void *g_ray, void *dw, void *db,     \
       int view_off, const int *dims, float rgb_padding, float density_bias, int use_act,       \
       int use_bf16, void *stream
 #define LEAN_GRAD_ARGS                                                                          \
-  g_rgb, g_dens, view, chain_w, n_layers, k_den, k_rgb, b_den, b_rgb, G, g1f, db_part, n_chain, \
-      partial, MC, probs, n_probs, tiles, n_tiles, PW, g_ray, dw, db, view_off, dims,           \
+  g_rgb, g_dens, view, chain_w, chain_ws, n_layers, k_den, k_rgb, b_den, b_rgb, G, g1f, db_part, \
+      n_chain, partial, MC, probs, n_probs, tiles, n_tiles, PW, g_ray, dw, db, view_off, dims,  \
       rgb_padding, density_bias, use_act, use_bf16, stream
 
 namespace {
@@ -865,6 +904,7 @@ int read_grad_args(GradArgs& a, TrainDims& d, LEAN_GRAD_PARAMS) {
   const void* const* cw = static_cast<const void* const*>(chain_w);
   for (int i = 0; i < MAX_LAYERS; ++i) a.cp.bw[i] = i < n_layers ? cw[i] : nullptr;
   a.ig = InputGrads{};
+  a.chain_ws = static_cast<const void* const*>(chain_ws);
   a.cp.k_den = k_den;
   a.cp.k_rgb = k_rgb;
   a.cp.b_den = static_cast<const float*>(b_den);
@@ -894,6 +934,21 @@ int read_grad_args(GradArgs& a, TrainDims& d, LEAN_GRAD_PARAMS) {
 
 // One chunk over the whole level (save, hybrid).
 int level_chunk(const TrainDims& d, int MC) { return (d.Mp + MC - 1) / MC * MC; }
+
+// The dims the chains' rules read (a lean MLP: one density head, no
+// per-point view rows; skip and points do not matter to them).
+TrainDims chain_dims(int W, int Wv, int depth, int depth_cond) {
+  TrainDims d{};
+  d.M = d.R = d.Mp = 64;
+  d.N = 1;
+  d.depth = depth;
+  d.depth_cond = depth_cond;
+  d.skip = 4;
+  d.W = W;
+  d.Wv = Wv;
+  d.nd = 1;
+  return d;
+}
 
 // The classic backward's own arguments (see mlp_bwd_saved); 0 or a
 // cudaError_t.  The layers whose input holds x must have their x columns.
@@ -953,21 +1008,24 @@ extern "C" {
 // (F = 6L), vproj [R, Wv] f32 (view_0's per-ray half), weights[i]
 // [in_i, out_i] in the compute dtype and biases[i] [out_i] f32 (rounded
 // through the compute dtype) in param order -> out [M, 4] f32 (rgb |
-// sigma, activated when use_act, else raw).
+// sigma, activated when use_act, else raw).  wt: f32 at the widths of
+// fwd_tf32_route, the split transposed kernels [2N][Kp] of the dense layers
+// by param index (kernels/mlp.py tf32_fwd_weights); else may be null.
 int lean_fwd(const void* x, const void* vproj, const void* weights, const void* biases,
-             int n_layers, void* out, const int* dims, float rgb_padding, float density_bias,
-             int use_act, int use_bf16, void* stream) {
-  return fwd_entry(x, vproj, weights, biases, n_layers, out, nullptr, nullptr, dims, rgb_padding,
-                   density_bias, use_act, use_bf16, stream);
+             const void* wt, int n_layers, void* out, const int* dims, float rgb_padding,
+             float density_bias, int use_act, int use_bf16, void* stream) {
+  return fwd_entry(x, vproj, weights, biases, wt, n_layers, out, nullptr, nullptr, dims,
+                   rgb_padding, density_bias, use_act, use_bf16, stream);
 }
 
 // lean_fwd that also writes saved [Cs][Mp] compute dtype and heads [4][Mp]
 // f32 (raw).
 int lean_save_fwd(const void* x, const void* vproj, const void* weights, const void* biases,
-                  int n_layers, void* out, void* saved, void* heads, const int* dims,
-                  float rgb_padding, float density_bias, int use_act, int use_bf16, void* stream) {
+                  const void* wt, int n_layers, void* out, void* saved, void* heads,
+                  const int* dims, float rgb_padding, float density_bias, int use_act,
+                  int use_bf16, void* stream) {
   if (!saved || !heads) return (int)cudaErrorInvalidValue;
-  return fwd_entry(x, vproj, weights, biases, n_layers, out, saved, heads, dims, rgb_padding,
+  return fwd_entry(x, vproj, weights, biases, wt, n_layers, out, saved, heads, dims, rgb_padding,
                    density_bias, use_act, use_bf16, stream);
 }
 
@@ -1008,15 +1066,16 @@ int lean_param_grads(const void* saved, const void* heads, LEAN_GRAD_PARAMS) {
 // and heads [4][chunk] are scratch for the forward of one chunk of `chunk`
 // points (a multiple of MC).
 int lean_param_grads_recompute(const void* x, const void* vproj, const void* weights,
-                               const void* biases, void* saved, void* heads, int chunk,
-                               LEAN_GRAD_PARAMS) {
+                               const void* biases, const void* wt, void* saved, void* heads,
+                               int chunk, LEAN_GRAD_PARAMS) {
   GradArgs a;
   TrainDims d;
   int err = read_grad_args(a, d, LEAN_GRAD_ARGS);
   if (err) return err;
   if (d.Fvp || chunk < MC || chunk % MC) return (int)cudaErrorInvalidValue;
   const Refwd rf{static_cast<const float*>(x), static_cast<const float*>(vproj),
-                 layer_ptrs(weights, biases, n_layers), saved, static_cast<float*>(heads)};
+                 layer_ptrs(weights, biases, n_layers), saved, static_cast<float*>(heads),
+                 static_cast<const void* const*>(wt)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Acts none{};
   return use_bf16 ? run_grads<bf16, false>(a, d, chunk, &rf, none, nullptr, s)
@@ -1101,7 +1160,7 @@ int mlp_bwd_recompute(const void* x, const void* view_pts, const void* weights,
   if (err) return err;
   if (chunk < MC || chunk % MC) return (int)cudaErrorInvalidValue;
   const Refwd rf{static_cast<const float*>(x), static_cast<const float*>(view_pts),
-                 layer_ptrs(weights, biases, n_layers), saved, nullptr};
+                 layer_ptrs(weights, biases, n_layers), saved, nullptr, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return run_classic(a, d, chunk, &rf, Acts{}, use_bf16, s);
 }
@@ -1118,12 +1177,44 @@ int lean_fwd_sm90_route(int F, int W, int Wv, int depth, int depth_cond) {
 // Its dynamic shared memory at widths W, Wv and an encode of F features.
 int lean_fwd_sm90_smem(int W, int Wv, int F) { return (int)fwd_sm90_smem(W, Wv, F); }
 
+// Launches of lean_fwd_tf32_kernel by this library so far.
+long long lean_fwd_tf32_launches() { return g_fwd_tf32_launches; }
+
+// 1 if an f32 lean forward of these widths takes lean_fwd_tf32_kernel.
+int lean_fwd_tf32_route(int F, int W, int Wv, int depth, int depth_cond) {
+  return fwd_tf32_route(F, W, Wv, depth, depth_cond) ? 1 : 0;
+}
+
+// Its dynamic shared memory at widths W, Wv and an encode of F features.
+int lean_fwd_tf32_smem(int W, int Wv, int F) { return (int)fwd_tf32_smem(W, Wv, F); }
+
 // The dynamic shared memory of the wgmma kernels for a backward whose G
 // has Cg rows: out[0] the chain's, out[1] the weight gradients'.
 int lean_sm90_smem(int Cg, int* out) {
   out[0] = (int)chain_sm90_smem(Cg);
   out[1] = (int)wgrad_sm90_smem();
   return 0;
+}
+
+// Launches of the lean chain kernels by this library so far: out[0]
+// lean_chain_sm90_kernel's (bf16), out[1] lean_chain_tf32_kernel's (f32).
+int lean_chain_launches(long long* out) {
+  out[0] = g_chain_sm90_launches;
+  out[1] = g_chain_tf32_launches;
+  return 0;
+}
+
+// 1 if the lean chain of a channel-major stream at these widths takes its
+// wgmma kernel (bf16: lean_chain_sm90_kernel, f32: lean_chain_tf32_kernel).
+int lean_chain_route(int use_bf16, int W, int Wv, int depth, int depth_cond) {
+  const TrainDims d = chain_dims(W, Wv, depth, depth_cond);
+  return (use_bf16 ? chain_sm90_route(d) : chain_tf32_route(d)) ? 1 : 0;
+}
+
+// lean_chain_tf32_kernel's dynamic shared memory at these widths.
+int lean_chain_tf32_smem(int W, int Wv, int depth, int depth_cond) {
+  const TrainDims d = chain_dims(W, Wv, depth, depth_cond);
+  return (int)chain_tf32_smem(W, Wv, d.cg());
 }
 
 }  // extern "C"

@@ -81,6 +81,10 @@ TF32 halves; ~1e-6 from exact f32).  Widths must be multiples of 8
 that are multiples of 64 (`fwd_sm90_route`) run on Hopper's wgmma fed by
 TMA instead, 128-point tiles whose weight slabs feed both halves
 (csrc/lean_fwd_sm90.cuh); `routes[name]` counts the calls that took it.
+The f32 lean forwards at those widths (`fwd_tf32_route`) run on the
+3xTF32 wgmma forward (csrc/lean_fwd_tf32.cuh), from the transposed kernels
+split once a call into tf32 hi and lo (`tf32_fwd_weights`);
+`tf32_routes[name]` counts the calls that took it.
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU, and
 only there.  For a CUDA tensor it launches its kernel or raises: there is
@@ -167,11 +171,192 @@ FW_STAGES, FW_KS, FW_XBOXES, FW_MAX_LAYERS = 6, 32, 2, 12
 FW_SMEM_MAX = 232448
 
 
+# Wrapper name -> calls whose forward ran on the f32 wgmma / TMA kernel
+# lean_fwd_tf32_kernel (csrc/lean_fwd_tf32.cuh), read from the library's
+# own count of that kernel's launches around each call.
+tf32_routes = dict.fromkeys(routes, 0)
+
+# The shape rule of lean_fwd_tf32_kernel (csrc/lean_fwd_tf32.cuh,
+# fwd_tf32_route): a ring of FT_STAGES slabs of FT_KS columns of the split
+# kernels (256 rows of hi and of lo, 4-byte words), its mbarriers (64
+# bytes), the f32 activation and encode tiles of one 64-point tile (row
+# stride FT_LD floats; the encode F rounded up to FT_KS, at most FT_MAX_X
+# rows), the heads and their quarter sums, the staged biases (256 a layer)
+# and head kernels, the slab schedule (4 bytes a slab), 1 KB of alignment.
+FT_STAGES, FT_KS, FT_LD, FT_MAX_LAYERS, FT_MAX_X = 3, 16, 72, 12, 128
+
+
+# Wrapper name -> calls whose cotangent chain ran on the bf16 wgmma kernel
+# lean_chain_sm90_kernel (csrc/lean_chain_sm90.cuh) / on the f32 one
+# lean_chain_tf32_kernel (csrc/lean_chain_tf32.cuh), read from the
+# library's own counts of their launches around each call.
+chain_routes = {'lean_param_grads': 0, 'lean_param_grads_recompute': 0}
+chain_tf32_routes = dict.fromkeys(chain_routes, 0)
+
+
+def _chain_count(lib, i):
+    """A function reading the library's launches of lean_chain_sm90_kernel
+    (i = 0) or lean_chain_tf32_kernel (i = 1)."""
+    fn = lib.lean_chain_launches
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def count():
+        out = (ctypes.c_longlong * 2)()
+        fn(out)
+        return out[i]
+    return count
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
-    for k in routes:
-        routes[k] = 0
+    for counts in (routes, tf32_routes, chain_routes, chain_tf32_routes):
+        for k in counts:
+            counts[k] = 0
+
+
+# The shape rule of the lean chains on wgmma (csrc/lean_chain_sm90.cuh
+# chain_sm90_route, csrc/lean_chain_tf32.cuh chain_tf32_route): a lean MLP
+# on a channel-major stream (save, recompute), W and Wv multiples of 64 up
+# to MAX_WIDTH, a view layer, depth + depth_cond + 1 <= CH_MAX_STEPS, and
+# the plan within the block's shared memory.  The bf16 chain: a ring of
+# CH_STAGES slabs of 32 rows x 4 boxes of 64 bf16 columns, two warpgroups'
+# 4-box cotangent tiles, CH_MASKS mask slots of MAX_WIDTH x 16 bytes,
+# CH_RAW activation boxes, the warps' column partials and the head
+# cotangents, each warpgroup's Cg bias sums, its mbarriers, 1 KB.  The f32
+# chain: lean_fwd_tf32_kernel's ring and mbarriers, one f32 cotangent tile
+# (max(W, Wv) rows of FT_LD floats), the head cotangents, the staged head
+# kernels, the block's Cg bias sums, 1 KB.
+CH_STAGES, CH_MASKS, CH_RAW, CH_MAX_STEPS = 4, 4, 6, 16
+
+
+def chain_cg(W: int, Wv: int, net_depth: int, net_depth_condition: int):
+    """Rows of G (every layer's out columns, one density head)."""
+    return net_depth * W + 1 + W + net_depth_condition * Wv + 3
+
+
+def chain_sm90_smem(Cg: int) -> int:
+    """Dynamic shared memory of lean_chain_sm90_kernel for a G of Cg rows."""
+    box, wbox = 64 * 64 * 2, 32 * 64 * 2
+    fixed = (CH_STAGES * 4 * wbox + 2 * 4 * box + CH_MASKS * MAX_WIDTH * 16
+             + CH_RAW * box + 4 * (2 * 4 * MAX_WIDTH + 2 * 4 * 128))
+    return (fixed + 2 * 4 * _round_up(Cg, 2)
+            + 8 * 2 * (CH_STAGES + CH_MASKS + CH_RAW) + 1024)
+
+
+def chain_tf32_smem(W: int, Wv: int, Cg: int) -> int:
+    """Dynamic shared memory of lean_chain_tf32_kernel."""
+    return (FT_STAGES * 2 * 256 * FT_KS * 4 + 64 + 4 * FT_LD * max(W, Wv)
+            + 4 * (4 * 64 + 256 + 3 * 256 + _round_up(Cg, 4)) + 1024)
+
+
+def _chain_route(W, Wv, net_depth, net_depth_condition, smem):
+    return (all(64 <= w <= MAX_WIDTH and w % 64 == 0 for w in (W, Wv))
+            and net_depth >= 1 and net_depth_condition >= 1
+            and net_depth + net_depth_condition + 1 <= CH_MAX_STEPS
+            and smem <= FW_SMEM_MAX)
+
+
+def chain_sm90_route(compute_dtype, W: int, Wv: int, net_depth: int,
+                     net_depth_condition: int) -> bool:
+    """Whether the lean chain of lean_param_grads / _recompute (and the
+    render-fused level's backward) runs on lean_chain_sm90_kernel: bf16 and
+    the shape rule above."""
+    Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
+    return compute_dtype == torch.bfloat16 and _chain_route(
+        W, Wv, net_depth, net_depth_condition, chain_sm90_smem(Cg))
+
+
+def chain_tf32_route(compute_dtype, W: int, Wv: int, net_depth: int,
+                     net_depth_condition: int) -> bool:
+    """Whether that chain runs on lean_chain_tf32_kernel: f32 and the shape
+    rule above."""
+    Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
+    return compute_dtype == torch.float32 and _chain_route(
+        W, Wv, net_depth, net_depth_condition, chain_tf32_smem(W, Wv, Cg))
+
+
+def fwd_tf32_smem(W: int, Wv: int, F: int) -> int:
+    """Dynamic shared memory of lean_fwd_tf32_kernel at widths W, Wv and an
+    encode of F features."""
+    staged = (4 * 64 + 4 * 3 * 64 + FT_MAX_LAYERS * 256
+              + (256 + FT_MAX_X) + 768)
+    slabs = FT_MAX_LAYERS * (256 + FT_MAX_X) // FT_KS
+    return (FT_STAGES * 2 * 256 * FT_KS * 4 + 64
+            + 4 * FT_LD * (max(W, Wv) + _round_up(F, FT_KS))
+            + 4 * staged + 4 * slabs + 1024)
+
+
+def fwd_tf32_route(compute_dtype, F: int, W: int, Wv: int, net_depth: int,
+                   net_depth_condition: int) -> bool:
+    """Whether a lean forward (lean_fwd, lean_save_fwd, the recompute
+    backward's re-run, lean_mlp) runs on lean_fwd_tf32_kernel: f32, W and
+    Wv multiples of 64 up to MAX_WIDTH, a view layer, at most FT_MAX_LAYERS
+    dense layers, an encode of at most FT_MAX_X features once rounded up to
+    the FT_KS slab, and the plan within the block's shared memory."""
+    return (compute_dtype == torch.float32
+            and all(64 <= w <= MAX_WIDTH and w % 64 == 0 for w in (W, Wv))
+            and net_depth >= 1 and net_depth_condition >= 1
+            and net_depth + 1 + net_depth_condition <= FT_MAX_LAYERS
+            and 1 <= F and _round_up(F, FT_KS) <= FT_MAX_X
+            and fwd_tf32_smem(W, Wv, F) <= FW_SMEM_MAX)
+
+
+def tf32_split(w: torch.Tensor):
+    """f32 w -> (hi, lo), both f32: hi = w rounded to tf32 (10 explicit
+    mantissa bits, to nearest, ties away from zero, as cvt.rna.tf32 rounds;
+    its low 13 bits zero), lo = w - hi exactly (|lo| <= 2^-11 |w|).  The
+    tensor core reads lo as tf32 by ignoring its low 13 bits."""
+    bits = w.float().contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, w.float() - hi
+
+
+def tf32_fwd_weights(flat_params, net_depth: int, net_depth_condition: int,
+                     skip_index: int):
+    """The B operands of lean_fwd_tf32_kernel: by param index, for each
+    dense layer the transposed kernel k^T [N, Kp] split into [hi; lo]
+    [2N, Kp] f32 (Kp: the encode columns rounded up to FT_KS with zeros;
+    view_0 its first W rows only); None for the heads."""
+    F, W = flat_params[0].shape
+    Fx = _round_up(F, FT_KS)
+    ks = [t.detach().float() for t in flat_params[0::2]]
+    out = [None] * len(ks)
+
+    def split(k, x_rows):
+        kt = k.t()
+        if x_rows:      # the encode rows, padded to Fx
+            pad = kt.new_zeros((kt.shape[0], Fx - x_rows))
+            kt = torch.cat([kt, pad], dim=1)
+        return torch.cat(tf32_split(kt), dim=0).contiguous()
+
+    out[0] = split(ks[0], F)
+    for i in range(1, net_depth):
+        out[i] = split(ks[i], F if _skip_after(i - 1, skip_index) else 0)
+    out[net_depth + 1] = split(ks[net_depth + 1],
+                               F if _skip_after(net_depth - 1, skip_index)
+                               else 0)
+    iv = net_depth + 2
+    out[iv] = split(ks[iv][:W], 0)
+    for j in range(1, net_depth_condition):
+        out[iv + j] = split(ks[iv + j], 0)
+    return out
+
+
+def _tf32_ptrs(flat_params, net_depth, net_depth_condition, skip_index,
+               compute_dtype):
+    """(the split kernels, a ctypes array of their pointers) for an f32
+    forward that takes lean_fwd_tf32_kernel; (None, None) otherwise."""
+    F, W = flat_params[0].shape
+    Wv = flat_params[2 * (net_depth + 2)].shape[1]
+    if not fwd_tf32_route(compute_dtype, F, W, Wv, net_depth,
+                          net_depth_condition):
+        return None, None
+    wt = tf32_fwd_weights(flat_params, net_depth, net_depth_condition,
+                          skip_index)
+    ptrs = (ctypes.c_void_p * len(wt))(
+        *[None if t is None else t.data_ptr() for t in wt])
+    return wt, ptrs
 
 
 def fwd_sm90_smem(W: int, Wv: int, F: int) -> int:
@@ -688,21 +873,21 @@ def _ints(values):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The arguments every backward entry takes after its mode's own.
-_GRAD_TAIL = ([_P] * 4 + [_I] + [_P] * 7 + [_I, _P, _I, _P, _I, _P, _I, _I]
+_GRAD_TAIL = ([_P] * 5 + [_I] + [_P] * 7 + [_I, _P, _I, _P, _I, _P, _I, _I]
               + [_P] * 3 + [_I, _P, _F, _F, _I, _I, _P])
 # C signatures of csrc/<lib>.cu (pointers and the stream as void*).
 _ARGTYPES = {
     'lean_view_proj': [_P] * 4 + [_I] * 5 + [_P],
-    'lean_mlp': [_P] * 4 + [_I, _P] + [_I] * 10 + [_F, _F, _I, _P],
+    'lean_mlp': [_P] * 5 + [_I, _P] + [_I] * 10 + [_F, _F, _I, _P],
     'lean_composite': [_P] * 5 + [_I] * 3 + [_P],
     'lean_composite_bwd': [_P] * 7 + [_I] * 3 + [_P],
     'ipe_moments': [_P] * 2 + [_I] * 3 + [_P],
     'ipe_fwd': [_P] * 3 + [_I] * 3 + [_P],
     'ipe_bwd': [_P] * 5 + [_I] * 3 + [_P],
-    'lean_fwd': [_P] * 4 + [_I] + [_P] * 2 + [_F, _F, _I, _I, _P],
-    'lean_save_fwd': [_P] * 4 + [_I] + [_P] * 4 + [_F, _F, _I, _I, _P],
+    'lean_fwd': [_P] * 5 + [_I] + [_P] * 2 + [_F, _F, _I, _I, _P],
+    'lean_save_fwd': [_P] * 5 + [_I] + [_P] * 4 + [_F, _F, _I, _I, _P],
     'lean_param_grads': [_P] * 2 + _GRAD_TAIL,
-    'lean_param_grads_recompute': [_P] * 6 + [_I] + _GRAD_TAIL,
+    'lean_param_grads_recompute': [_P] * 7 + [_I] + _GRAD_TAIL,
     'lean_param_grads_hybrid': [_P] + _GRAD_TAIL,
     'mlp_fwd': [_P] * 4 + [_I] + [_P] * 3 + [_I, _P],
     'mlp_save_fwd': [_P] * 4 + [_I] + [_P] * 4 + [_I, _P],
@@ -721,17 +906,24 @@ def _call(fn_name: str, device, *args):
     fn = getattr(lib, fn_name)
     fn.argtypes = _ARGTYPES[fn_name]
     fn.restype = ctypes.c_int
-    count = None
+    counts = []
     if fn_name in routes:
-        count = lib.lean_fwd_sm90_launches
-        count.argtypes, count.restype = [], ctypes.c_longlong
-        before = count()
+        for name, table in (('lean_fwd_sm90_launches', routes),
+                            ('lean_fwd_tf32_launches', tf32_routes)):
+            count = getattr(lib, name)
+            count.argtypes, count.restype = [], ctypes.c_longlong
+            counts.append((count, count(), table))
+    if fn_name in chain_routes:
+        for i, table in enumerate((chain_routes, chain_tf32_routes)):
+            count = _chain_count(lib, i)
+            counts.append((count, count(), table))
     with torch.cuda.device(device):       # launch on the tensors' card
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'{fn_name}: CUDA error {err} at launch')
-    if count is not None and count() > before:
-        routes[fn_name] += 1
+    for count, before, table in counts:
+        if count() > before:
+            table[fn_name] += 1
 
 
 def view_proj(view, k0, b0, net_width: int, compute_dtype):
@@ -784,12 +976,15 @@ def lean_mlp(moments, vproj, flat_params: Sequence[torch.Tensor],
         raise ValueError(f'lean_mlp: trunk_0 takes {flat_params[0].shape[0]}'
                          f' inputs, the encode has {6 * L}')
     ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
+    wt, wt_ptrs = _tf32_ptrs(flat_params, net_depth, net_depth_condition,
+                             skip_index, compute_dtype)
     moments = moments.contiguous()
     vproj = vproj.contiguous()
     out = torch.empty((M, 4), dtype=torch.float32, device=dev)
     pad, bias = act
     _call('lean_mlp', dev, moments.data_ptr(), vproj.data_ptr(),
-          ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs), len(ws),
+          ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
+          None if wt is None else ctypes.addressof(wt_ptrs), len(ws),
           out.data_ptr(), M, N, R, L, min_deg, net_depth,
           net_depth_condition, skip_index, W, Wv, pad, bias, flag)
     launches['lean_mlp'] += 1
@@ -1089,6 +1284,8 @@ def _fwd_launch(fn, x, view, flat_params, num_samples, net_depth,
     vproj = view_proj(view, flat_params[iv], flat_params[iv + 1], W,
                       compute_dtype)
     ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
+    wt, wt_ptrs = _tf32_ptrs(flat_params, net_depth, net_depth_condition,
+                             skip_index, compute_dtype)
     c_dims = _ints(_train_dims(M, num_samples, F, Fv, W, Wv, net_depth,
                                net_depth_condition, skip_index, encode))
     x = x.contiguous()
@@ -1100,7 +1297,9 @@ def _fwd_launch(fn, x, view, flat_params, num_samples, net_depth,
                              device=dev))
         extra = [t.data_ptr() for t in saved]
     _call(fn, dev, x.data_ptr(), vproj.data_ptr(), ctypes.addressof(w_ptrs),
-          ctypes.addressof(b_ptrs), len(ws), out.data_ptr(), *extra,
+          ctypes.addressof(b_ptrs),
+          None if wt is None else ctypes.addressof(wt_ptrs), len(ws),
+          out.data_ptr(), *extra,
           ctypes.addressof(c_dims), *_act_args(act), flag)
     launches[fn] += 1
     return out, saved
@@ -1195,6 +1394,14 @@ def _grad_launch(fn, prefix, chunk, plan, view, g_rgb, g_dens, flat_params,
     if net_depth_condition:
         chain[iv] = ks[iv][:W]
     chain.update({iv + j: ks[iv + j] for j in range(1, net_depth_condition)})
+    # f32 on lean_chain_tf32_kernel: the same kernels as stored, split.
+    ws = {}
+    if fn in chain_routes and chain_tf32_route(compute_dtype, W, Wv,
+                                               net_depth, net_depth_condition):
+        ws = {i: torch.cat(tf32_split(k), dim=0).contiguous()
+              for i, k in chain.items()}
+    c_ws = (ctypes.c_void_p * len(ks))(
+        *[ws[i].data_ptr() if i in ws else None for i in range(len(ks))])
     chain = {i: k.t().to(compute_dtype).contiguous() for i, k in chain.items()}
     c_chain = (ctypes.c_void_p * len(ks))(
         *[chain[i].data_ptr() if i in chain else None for i in range(len(ks))])
@@ -1224,7 +1431,8 @@ def _grad_launch(fn, prefix, chunk, plan, view, g_rgb, g_dens, flat_params,
     c_tiles = _ints([v for tl in plan['tiles'] for v in tl])
     c_dims = _ints(plan['dims'])
     _call(fn, dev, *prefix, g_rgb.data_ptr(), g_dens.data_ptr(),
-          view.data_ptr(), ctypes.addressof(c_chain), len(ks),
+          view.data_ptr(), ctypes.addressof(c_chain),
+          ctypes.addressof(c_ws) if ws else None, len(ks),
           *[t.data_ptr() for t in heads], G.data_ptr(),
           None if g1f is None else g1f.data_ptr(),
           db_part.data_ptr(), n_chain, partial.data_ptr(), plan['mc'],
@@ -1294,13 +1502,17 @@ def lean_param_grads_recompute(x, view, g_rgb, g_dens, flat_params,
     vproj = view_proj(view, flat_params[iv], flat_params[iv + 1], W,
                       compute_dtype)
     ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
+    wt, wt_ptrs = _tf32_ptrs(flat_params, net_depth, net_depth_condition,
+                             skip_index, compute_dtype)
     chunk = recompute_chunk(plan['Mp'], plan['mc'])
     cap = min(chunk, plan['Mp'])
     Cs = saved_rows(F, W, Wv, net_depth, net_depth_condition)[-1]
     S = torch.empty((Cs, cap), dtype=compute_dtype, device=dev)
     heads = torch.empty((4, cap), dtype=torch.float32, device=dev)
     prefix = [x.data_ptr(), vproj.data_ptr(), ctypes.addressof(w_ptrs),
-              ctypes.addressof(b_ptrs), S.data_ptr(), heads.data_ptr(), chunk]
+              ctypes.addressof(b_ptrs),
+              None if wt is None else ctypes.addressof(wt_ptrs),
+              S.data_ptr(), heads.data_ptr(), chunk]
     return _grad_launch(fn, prefix, chunk, plan, view, g_rgb, g_dens,
                         flat_params, net_depth, net_depth_condition,
                         compute_dtype, act)

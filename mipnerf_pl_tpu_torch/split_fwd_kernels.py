@@ -1,6 +1,6 @@
 """Where the lean forward spends its time, by switching parts off.
 
-    cd <root of a checkout> && python3 <this file> [--sm90 | --tune]
+    cd <root of a checkout> && python3 <this file> [--f32] [--sm90 | --tf32 | --chain | --tune]
 
 copies the checkout's csrc/ to a temporary directory, adds a compile-time
 mask FWD_OFF to the copy of lean_engines.cuh (nothing in the checkout
@@ -24,6 +24,23 @@ lean_fwd_sm90_kernel: 1 the weight slabs' TMA loads (the producer
 completes each slab's barrier without them), 2 the wgmma products, 4 the
 epilogue (bias, vproj, ReLU and the stmatrix stores), 8 the TMA stores of
 the saved stream, 16 the heads' dots, 32 the IPE decode.
+
+With --f32 the forwards run in f32: the masks then reach the mma.sync
+tile's 3xTF32 engine (Tf32Gemm), where bit 2 drops the products with the
+on-the-fly split of both operands, and bit 64 keeps the products but drops
+the split (hi = the raw f32 word, lo = 0: the same count of mma.sync).
+With --tf32 (f32 too) the masks go into lean_fwd_tf32.cuh and time
+lean_fwd_tf32_kernel: 1 the weight slabs' TMA loads, 2 the wgmma products
+with the A operand's loads and split, 4 the epilogue (bias, vproj, ReLU, the
+in-place store), 8 the copies of the tiles to the saved stream, 16 the
+heads' dots, 32 the IPE decode, 64 the A operand's split alone.
+
+With --chain it times the f32 cotangent chain lean_chain_tf32_kernel of
+lean_param_grads at the lego level, on the stream of f32 lean_save_fwd:
+the bits 2 and 64 as with --tf32 (the products' helper is shared), and in
+lean_chain_tf32.cuh 1 the weight slabs' TMA loads, 4 the epilogue (the
+density term and the store into the tile), 8 the copy pass (the mask, and
+the copies to G and g1f), 16 the bias column sums, 32 the mask alone.
 """
 import ctypes
 import json
@@ -47,6 +64,16 @@ import chip_smoke as cs  # noqa: E402
 VARIANTS = {0: 'all on', 1: 'weight loads off', 2: 'products off',
             4: 'epilogue + store off', 8: 'copy_tile_out off',
             16: 'heads off', 32: 'IPE decode off', 6: 'products + epilogue off'}
+CHAIN = '--chain' in sys.argv[1:]
+F32 = CHAIN or any(a in sys.argv[1:] for a in ('--f32', '--tf32'))
+TF32 = '--tf32' in sys.argv[1:] or CHAIN
+if F32:
+    VARIANTS[64] = 'operand split off'
+if CHAIN:
+    VARIANTS = {0: 'all on', 1: 'weight loads off', 2: 'products off',
+                4: 'epilogue off', 8: 'copy pass off', 16: 'bias sums off',
+                32: 'mask reads off', 64: 'operand split off',
+                24: 'copy pass + bias sums off'}
 # --tune: (ring stages, slabs the first warpgroup starts ahead) of
 # lean_fwd_sm90_kernel, all parts on.
 TUNES = [(7, 1), (7, 2), (7, 3), (7, 5), (6, 1), (6, 3)]
@@ -59,6 +86,13 @@ SWITCHES = [
      '      if (!(FWD_OFF & 1) && kk < KT && k0 + kk < K)\n        val ='),
     ('      for (int kk = 0; kk < ktp; kk += 16) {',
      '      for (int kk = 0; kk < ((FWD_OFF & 2) ? 0 : ktp); kk += 16) {'),
+    # Tf32Gemm (f32): the products with both operands' split; the split.
+    ('      uint32_t ahi[2][4], alo[2][4];',
+     '      if (FWD_OFF & 2) {\n        __syncthreads();\n        continue;\n      }\n'
+     '      uint32_t ahi[2][4], alo[2][4];'),
+    ('__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {\n',
+     '__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {\n'
+     '  if (FWD_OFF & 64) {\n    hi = __float_as_uint(x);\n    lo = 0u;\n    return;\n  }\n'),
     ('  gemm.transform(n_out, [&](int row, int col, float x) {\n'
      '    return epilogue(x, row, col, bias, vproj, d, m0, relu);',
      '  if (FWD_OFF & 4) { __syncthreads(); return; }\n'
@@ -109,6 +143,46 @@ SWITCHES_SM90 = [
      '        if (!(FWD_OFF & 32) && m < pl.M) {\n          const int k = f / 3, dim = f - 3 * k;'),
 ]
 SM90 = '--sm90' in sys.argv[1:] or TUNE
+# The chain's own bits in lean_chain_tf32.cuh (--chain).
+SWITCHES_CHAIN = [
+    ('            mbar_expect_tx(full + s, 2 * st.N * FT_SW);',
+     '            if (FWD_OFF & 1) {\n              mbar_arrive(full + s);\n              continue;\n'
+     '            }\n            mbar_expect_tx(full + s, 2 * st.N * FT_SW);'),
+    ('          for (int j = 0; j < 4 * NH; ++j) {\n#pragma unroll\n            for (int e = 0; e < 4; ++e) {',
+     '          for (int j = 0; j < ((FWD_OFF & 4) ? 0 : 4 * NH); ++j) {\n#pragma unroll\n'
+     '            for (int e = 0; e < 4; ++e) {'),
+    ('        if (st.act) {\n          x.x =', '        if (!(FWD_OFF & 32) && st.act) {\n          x.x ='),
+    ('        if (v >= st.N * 16) break;', '        if ((FWD_OFF & 8) || v >= st.N * 16) break;'),
+    ('      if (tid < st.N) {', '      if (!(FWD_OFF & 16) && tid < st.N) {'),
+]
+# The same bits in lean_fwd_tf32.cuh (--tf32).
+SWITCHES_TF32 = [
+    ('namespace {\n\nconstexpr int FT_TM = 64;',
+     '#ifndef FWD_OFF\n#define FWD_OFF 0\n#endif\nnamespace {\n\n'
+     'constexpr int FT_TM = 64;'),
+    ('        mbar_expect_tx(full + s, 2 * n * FT_SW);',
+     '        if (FWD_OFF & 1) {\n          mbar_arrive(full + s);\n          continue;\n'
+     '        }\n        mbar_expect_tx(full + s, 2 * n * FT_SW);'),
+    ('    uint32_t ah[2][4], al[2][4];\n    tf32_load_a(',
+     '    uint32_t ah[2][4] = {}, al[2][4] = {};\n    if (!(FWD_OFF & 2)) tf32_load_a('),
+    ('      tf32_mma<NH>(acc, al[kk], dh, ks > 0 || kk > 0);',
+     '      if (FWD_OFF & 2) continue;\n      tf32_mma<NH>(acc, al[kk], dh, ks > 0 || kk > 0);'),
+    ('        for (int j = 0; j < 4 * NH; ++j) {\n          const int col = col0 + 8 * j + 2 * t;',
+     '        for (int j = 0; j < ((FWD_OFF & 4) ? 0 : 4 * NH); ++j) {\n'
+     '          const int col = col0 + 8 * j + 2 * t;'),
+    ('      if (pl.S) save(hs, ly.N, ly.s_row);',
+     '      if (pl.S && !(FWD_OFF & 8)) save(hs, ly.N, ly.s_row);'),
+    ('    if (pl.S) save(xs, pl.Fx, 0);', '    if (pl.S && !(FWD_OFF & 8)) save(xs, pl.Fx, 0);'),
+    ('      if (den || li == pl.n_layers - 1) {',
+     '      if (!(FWD_OFF & 16) && (den || li == pl.n_layers - 1)) {'),
+    ('        if (m < pl.M) {\n          const int k = f / 3, dim = f - 3 * k;',
+     '        if (!(FWD_OFF & 32) && m < pl.M) {\n          const int k = f / 3, dim = f - 3 * k;'),
+    ('    split_tf32(s[0], ah[kk][0], al[kk][0]);',
+     '    if (FWD_OFF & 64) {\n#pragma unroll\n      for (int i = 0; i < 4; ++i) {\n'
+     '        const float v = s[(i & 1) * 8 + (i >> 1) * 4 * FT_LD];\n'
+     '        ah[kk][i] = __float_as_uint(v);\n        al[kk][i] = 0u;\n      }\n'
+     '      continue;\n    }\n    split_tf32(s[0], ah[kk][0], al[kk][0]);'),
+]
 # --tune makes the two constants of the copy compile-time options.
 SWITCHES_TUNE = [
     ('constexpr int FW_STAGES = 6;',
@@ -133,15 +207,20 @@ def masked_sources(tmp):
     lean_fwd_sm90.cuh)."""
     dst = os.path.join(tmp, 'csrc')
     shutil.copytree(_build.SRC_DIR, dst)
-    name = 'lean_fwd_sm90.cuh' if SM90 else 'lean_engines.cuh'
-    path = os.path.join(dst, name)
-    text = open(path).read()
-    for old, new in (SWITCHES_TUNE if TUNE else SWITCHES_SM90 if SM90
-                     else SWITCHES):
-        if text.count(old) != 1:
-            raise RuntimeError(f'{name} has no single {old!r}')
-        text = text.replace(old, new)
-    open(path, 'w').write(text)
+    name = ('lean_fwd_tf32.cuh' if TF32 else 'lean_fwd_sm90.cuh' if SM90
+            else 'lean_engines.cuh')
+    edits = {name: (SWITCHES_TUNE if TUNE else SWITCHES_TF32 if TF32
+                    else SWITCHES_SM90 if SM90 else SWITCHES)}
+    if CHAIN:
+        edits['lean_chain_tf32.cuh'] = SWITCHES_CHAIN
+    for name, switches in edits.items():
+        path = os.path.join(dst, name)
+        text = open(path).read()
+        for old, new in switches:
+            if text.count(old) != 1:
+                raise RuntimeError(f'{name} has no single {old!r}')
+            text = text.replace(old, new)
+        open(path, 'w').write(text)
     return dst
 
 
@@ -185,12 +264,12 @@ def run(libs):
     flat = cs.flat_params(params, hp)
     args = (hp['nerf.num_samples'], depth, dcond, hp['nerf.mlp.skip_index'])
     enc = (hp['nerf.min_deg_point'], hp['nerf.max_deg_point'])
-    x, view, _, _, moments, _, _ = cs.level_inputs(hp, dev)
+    x, view, g_rgb, g_dens, moments, _, _ = cs.level_inputs(hp, dev)
     cm, cview, _, _ = cs.chunk_inputs(hp, dev)
     iv = 2 * (depth + 2)
     W = flat[0].shape[1]
     vp = km.view_proj_plain(cview, flat[iv], flat[iv + 1], W, torch.float32)
-    dt = torch.bfloat16
+    dt = torch.float32 if F32 else torch.bfloat16
     calls = {
         'lean_save_fwd rows': lambda: km.lean_save_fwd(x, view, flat, *args,
                                                        dt, cs.ACT),
@@ -201,15 +280,23 @@ def run(libs):
         'lean_mlp chunk': lambda: km.lean_mlp(cm, vp, flat, *args, dt,
                                               cs.ACT, enc),
     }
+    saved = []
+    if CHAIN:
+        calls = {'lean_param_grads': lambda: km.lean_param_grads(
+            view, g_rgb, g_dens, saved[-1], flat, *args, dt, cs.ACT)}
     out = {'smi': cs.smi_line()}
     for v, label in enumerate(variants()):
         _build._LOADED.clear()
         for name in ('lean_render', 'lean_train'):
             _build._LOADED[name] = ctypes.CDLL(libs[(v, name)])
+        if CHAIN:
+            saved[:] = [km.lean_save_fwd(x, view, flat, *args, dt, cs.ACT)[2]]
         row = {}
         for cname, fn in calls.items():
             split = cs.kernel_device_ms(fn, iters=5)
-            names = (('lean_fwd_sm90_kernel',) if SM90
+            names = (('lean_chain_tf32_kernel',) if CHAIN
+                     else ('lean_fwd_tf32_kernel',) if TF32
+                     else ('lean_fwd_sm90_kernel',) if SM90
                      else ('lean_fwd_kernel', 'lean_mlp_kernel'))
             row[cname] = round(sum(t for k, t in split.items()
                                    if any(n in k for n in names)), 4)

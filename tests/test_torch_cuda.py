@@ -27,7 +27,11 @@ shapes the bf16 lean forwards (lean_fwd, lean_save_fwd, the recompute
 re-run, lean_mlp) run on wgmma too (lean_fwd_sm90_kernel): each test
 asserts the route its calls took (`routes`, against `fwd_sm90_route`), the
 library's route and shared memory agree with the Python rule, and two runs
-of the new forward give the same bits.
+of the new forward give the same bits.  The f32 lean forwards at the same
+shapes run on the 3xTF32 wgmma forward (lean_fwd_tf32_kernel, `tf32_routes`
+against `fwd_tf32_route`) and the f32 lean chain on lean_chain_tf32_kernel
+(`chain_tf32_routes` against `chain_tf32_route`; the bf16 chain's calls in
+`chain_routes`), under the f32 bars above.
 The moments input form is held against the rows form on the plain decode
 of the same moments (<= 1e-5 f32), lean_composite_bwd and ipe_moments
 against their plain versions (<= 1e-5), and training through the
@@ -152,6 +156,7 @@ def test_cuda_kernels_match_plain(cuda_device, shape, dtype):
     assert tk.launches == dict({k: 0 for k in tk.launches},
                                lean_view_proj=1, lean_mlp=1, lean_composite=1)
     assert tk.routes['lean_mlp'] == sm90_calls(cfg, dtype)
+    assert tk.tf32_routes['lean_mlp'] == tf32_calls(cfg, dtype)
     want = _plain_on(prob, cfg, cuda_device)      # f32 plain reference
     for name, a, b in zip(('comp', 'dist', 'acc', 'weights'), got, want):
         assert np.all(np.isfinite(a)), name
@@ -235,6 +240,31 @@ def sm90_calls(cfg, dtype, calls=1):
     return calls if on else 0
 
 
+def tf32_calls(cfg, dtype, calls=1):
+    """Calls of a lean forward that take lean_fwd_tf32_kernel at cfg's
+    widths in `dtype` (the rule of fwd_tf32_route)."""
+    F = 6 * (cfg['deg'][1] - cfg['deg'][0])
+    on = tk.fwd_tf32_route(getattr(torch, dtype), F, cfg['net_width'],
+                           cfg['net_width_condition'], cfg['net_depth'],
+                           cfg['net_depth_condition'])
+    return calls if on else 0
+
+
+def chain_calls(cfg, dtype, calls=1):
+    """(calls on lean_chain_sm90_kernel, calls on lean_chain_tf32_kernel)
+    of a lean backward on a channel-major stream at cfg's widths in
+    `dtype` (the rules of chain_sm90_route and chain_tf32_route)."""
+    args = (getattr(torch, dtype), cfg['net_width'],
+            cfg['net_width_condition'], cfg['net_depth'],
+            cfg['net_depth_condition'])
+    return (calls if tk.chain_sm90_route(*args) else 0,
+            calls if tk.chain_tf32_route(*args) else 0)
+
+
+def chain_took(name):
+    return tk.chain_routes[name], tk.chain_tf32_routes[name]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('shape', list(TRAIN_SHAPES))
@@ -261,6 +291,8 @@ def test_cuda_lean_save_matches_plain(cuda_device, shape, dtype):
     assert tk.launches['lean_save_fwd'] == 1
     assert tk.launches['lean_param_grads'] == 1
     assert tk.routes['lean_save_fwd'] == sm90_calls(cfg, dtype)
+    assert tk.tf32_routes['lean_save_fwd'] == tf32_calls(cfg, dtype)
+    assert chain_took('lean_param_grads') == chain_calls(cfg, dtype)
     ref_rgb, ref_dens, ref_saved = tk.lean_mlp_save_plain(
         x, view, flat, *args, torch.float32, act)
     ref_grads = tk.lean_param_grads_plain(view, g_rgb, g_dens, in_saved,
@@ -308,6 +340,8 @@ def test_cuda_lean_fwd_matches_plain(cuda_device, shape, dtype, act):
     assert tk.launches['lean_fwd'] == 1
     assert tk.routes['lean_fwd'] == tk.routes['lean_save_fwd'] \
         == sm90_calls(cfg, dtype)
+    assert tk.tf32_routes['lean_fwd'] == tk.tf32_routes['lean_save_fwd'] \
+        == tf32_calls(cfg, dtype)
     ref = tk.lean_fwd_plain(x, view, flat, *args, torch.float32, act)
     for a, b, c in zip(got, saved_out, ref):
         assert torch.isfinite(a).all()
@@ -348,6 +382,10 @@ def test_cuda_recompute_matches_save(cuda_device, shape, dtype, act, chunks,
     torch.cuda.synchronize()
     assert tk.launches['lean_param_grads_recompute'] == 2
     assert tk.routes['lean_param_grads_recompute'] == sm90_calls(cfg, dtype, 2)
+    assert tk.tf32_routes['lean_param_grads_recompute'] \
+        == tf32_calls(cfg, dtype, 2)
+    assert chain_took('lean_param_grads_recompute') \
+        == chain_calls(cfg, dtype, 2)
     assert all(torch.isfinite(g).all() for g in got)
     assert max_leaf_rel_err(got, want) <= 1e-5
     for a, b in zip(got, again):
@@ -395,6 +433,119 @@ def test_cuda_fwd_sm90_route_matches_the_library(cuda_device):
         assert bool(lib.lean_fwd_sm90_route(F, W, Wv, depth, dcond)) == want
         assert lib.lean_fwd_sm90_smem(W, Wv, F) == tk.fwd_sm90_smem(W, Wv, F)
     assert tk.fwd_sm90_smem(256, 128, 96) <= tk.FW_SMEM_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', ['wide', 'skip_end', 'lego'])
+def test_cuda_fwd_tf32_deterministic(cuda_device, shape):
+    """Two runs of the f32 wgmma forward give the same bits: lean_save_fwd
+    (outputs, saved stream, raw heads) on encode rows and on the moments,
+    and lean_mlp on the moments; lean_fwd gives lean_save_fwd's outputs bit
+    for bit in both forms."""
+    R, cfg = TRAIN_SHAPES[shape]
+    m, x, view, flat, _, _ = moments_problem(R, cfg, cuda_device)
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], torch.float32, (0.001, -1.0))
+    M = x.shape[0]
+    iv = 2 * (cfg['net_depth'] + 2)
+    vp = tk.view_proj(view, flat[iv], flat[iv + 1], cfg['net_width'],
+                      torch.float32)
+    tk.reset_launches()
+    runs = [fwd_parts(tk.lean_save_fwd(x, view, flat, *args), M)
+            + fwd_parts(tk.lean_save_fwd(m, view, flat, *args,
+                                         encode=cfg['deg']), M)
+            + [tk.lean_mlp(m, vp, flat, *args, cfg['deg'])]
+            for _ in range(2)]
+    fwd = (list(tk.lean_fwd(x, view, flat, *args))
+           + list(tk.lean_fwd(m, view, flat, *args, encode=cfg['deg'])))
+    torch.cuda.synchronize()
+    assert tk.tf32_routes['lean_save_fwd'] == 4
+    assert tk.tf32_routes['lean_mlp'] == 2 and tk.tf32_routes['lean_fwd'] == 2
+    assert not any(tk.routes.values())
+    for a, b in zip(*runs):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+    for a, b in zip(fwd, runs[0][:2] + runs[0][4:6]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_tf32_routes_match_the_library(cuda_device):
+    """The library's rules and shared memory of lean_fwd_tf32_kernel and of
+    the two wgmma chains agree with fwd_tf32_route / fwd_tf32_smem and
+    chain_sm90_route / chain_tf32_route / chain_tf32_smem, and the lego
+    plans fit."""
+    import ctypes
+    from mipnerf_pl_tpu_torch.kernels import _build
+    lib = _build.load('lean_train')
+    for F, W, Wv, depth, dcond in [(96, 256, 128, 8, 1), (24, 128, 64, 4, 2),
+                                   (24, 64, 32, 3, 1), (96, 256, 128, 12, 1),
+                                   (130, 256, 128, 8, 1), (96, 192, 64, 8, 3),
+                                   (128, 256, 256, 8, 1), (96, 320, 128, 8, 1),
+                                   (18, 64, 64, 14, 1), (96, 256, 128, 10, 1),
+                                   (96, 64, 64, 15, 1)]:
+        want = tk.fwd_tf32_route(torch.float32, F, W, Wv, depth, dcond)
+        assert bool(lib.lean_fwd_tf32_route(F, W, Wv, depth, dcond)) == want
+        assert lib.lean_fwd_tf32_smem(W, Wv, F) == tk.fwd_tf32_smem(W, Wv, F)
+        for flag, dt, rule in ((1, torch.bfloat16, tk.chain_sm90_route),
+                               (0, torch.float32, tk.chain_tf32_route)):
+            got = bool(lib.lean_chain_route(flag, W, Wv, depth, dcond))
+            assert got == rule(dt, W, Wv, depth, dcond)
+        cg = tk.chain_cg(W, Wv, depth, dcond)
+        assert lib.lean_chain_tf32_smem(W, Wv, depth, dcond) \
+            == tk.chain_tf32_smem(W, Wv, cg)
+        smem = (ctypes.c_int * 2)()
+        lib.lean_sm90_smem(cg, smem)
+        assert smem[0] == tk.chain_sm90_smem(cg)
+    assert tk.fwd_tf32_smem(256, 128, 96) <= tk.FW_SMEM_MAX
+    assert tk.chain_tf32_route(torch.float32, 256, 128, 8, 1)
+    assert tk.chain_sm90_route(torch.bfloat16, 256, 128, 8, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_cuda_lego_chain_routes(cuda_device, dtype):
+    """At the lego widths the lean chain of lean_param_grads and of
+    lean_param_grads_recompute runs on its wgmma kernel in both dtypes
+    (lean_chain_sm90_kernel in bf16, lean_chain_tf32_kernel in f32), and
+    the f32 parameter gradients hold the f32 bar against the plain
+    backward on the same stream."""
+    R, cfg = TRAIN_SHAPES['lego']
+    (x, view), flat, (g_rgb, g_dens) = _on(train_problem(R, **cfg),
+                                           cuda_device)
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], getattr(torch, dtype), (0.001, -1.0))
+    saved = tk.lean_save_fwd(x, view, flat, *args)[2]
+    tk.reset_launches()
+    got = tk.lean_param_grads(view, g_rgb, g_dens, saved, flat, *args)
+    tk.lean_param_grads_recompute(x, view, g_rgb, g_dens, flat, *args)
+    torch.cuda.synchronize()
+    want = (1, 0) if dtype == 'bfloat16' else (0, 1)
+    assert chain_took('lean_param_grads') == want
+    assert chain_took('lean_param_grads_recompute') == want
+    if dtype == 'float32':
+        ref = tk.lean_param_grads_plain(view, g_rgb, g_dens, saved, flat,
+                                        *args)
+        assert max_leaf_rel_err(got, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_chain_plan_failure_raises(cuda_device, monkeypatch):
+    """A shape the f32 chain's rule takes whose plan cannot be made (here:
+    no split kernels handed to the library) raises; no other chain runs in
+    its place."""
+    R, cfg = TRAIN_SHAPES['wide']
+    (x, view), flat, (g_rgb, g_dens) = _on(train_problem(R, **cfg),
+                                           cuda_device)
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], torch.float32, (0.001, -1.0))
+    saved = tk.lean_save_fwd(x, view, flat, *args)[2]
+    monkeypatch.setattr(tk, 'chain_tf32_route', lambda *a: False)
+    tk.reset_launches()
+    with pytest.raises(RuntimeError, match='lean_param_grads'):
+        tk.lean_param_grads(view, g_rgb, g_dens, saved, flat, *args)
+    torch.cuda.synchronize()
+    assert chain_took('lean_param_grads') == (0, 0)
 
 
 @pytest.mark.cuda
@@ -535,6 +686,8 @@ def test_cuda_moments_forms_match_rows(cuda_device, shape, dtype):
     assert tk.launches['lean_fwd'] == 1 and tk.launches['lean_save_fwd'] == 1
     assert tk.routes['lean_fwd'] == tk.routes['lean_save_fwd'] \
         == sm90_calls(cfg, dtype)
+    assert tk.tf32_routes['lean_fwd'] == tk.tf32_routes['lean_save_fwd'] \
+        == tf32_calls(cfg, dtype)
     assert all(torch.equal(a, b) for a, b in zip(fwd, got[:2]))
     assert all(torch.isfinite(t).all() for t in got)
     if dtype == 'float32':

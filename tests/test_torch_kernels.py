@@ -366,6 +366,132 @@ def test_fwd_sm90_smem():
     assert tk.fwd_sm90_smem(256, 256, 128) == 220328 <= tk.FW_SMEM_MAX
 
 
+@pytest.mark.parametrize('dtype,F,W,Wv,depth,dcond,want', [
+    ('f32', 96, 256, 128, 8, 1, True),       # lego
+    ('bf16', 96, 256, 128, 8, 1, False),     # bf16 takes lean_fwd_sm90_kernel
+    ('f32', 24, 128, 64, 4, 2, True),        # the card tests' `wide`
+    ('f32', 24, 128, 64, 3, 1, True),        # `skip_end`
+    ('f32', 24, 64, 32, 3, 1, False),        # `small`: Wv not a multiple of 64
+    ('f32', 96, 192, 64, 8, 3, True),        # 96-column halves
+    ('f32', 96, 256, 128, 8, 0, False),      # no view layer
+    ('f32', 96, 256, 128, 11, 1, False),     # 13 dense layers
+    ('f32', 96, 256, 128, 10, 1, True),      # 12
+    ('f32', 128, 256, 256, 8, 1, True),      # 128 features, the widest plan
+    ('f32', 130, 256, 128, 8, 1, False),     # 144 rows once rounded to 16
+    ('f32', 18, 64, 64, 2, 1, True),         # F not a multiple of 4
+    ('f32', 96, 320, 128, 8, 1, False)])     # wider than MAX_WIDTH
+def test_fwd_tf32_route(dtype, F, W, Wv, depth, dcond, want):
+    """The shape rule of the f32 wgmma forward (lean_fwd_tf32_kernel),
+    against hand counts; the card test holds the library to the same
+    rule."""
+    dt = torch.bfloat16 if dtype == 'bf16' else torch.float32
+    assert tk.fwd_tf32_route(dt, F, W, Wv, depth, dcond) is want
+
+
+def test_fwd_tf32_smem():
+    """Its shared memory by hand: 3 stages of 2 x 256 rows x 16 f32 (32 KB
+    a stage), 64 bytes of mbarriers, one f32 activation tile of max(W, Wv)
+    rows and one encode tile of F rounded up to 16 rows, both of 72 floats
+    a row (288 bytes), 4 x 64 f32 heads and 4 x 3 x 64 f32 quarter sums of
+    them, 12 x 256 f32 biases, 384 + 768 f32 head kernels, 288 slabs'
+    (layer, column) of 4 bytes, 1 KB of alignment slack: 222,912 bytes at
+    the lego widths (F = 96), of an H100 block's 232,448; the widest plan
+    the route takes (W = Wv = 256, F = 128) fits with 320 bytes to spare."""
+    fixed = 3 * 32768 + 64 + 1024 + 3072 + 12288 + 1536 + 3072 + 1152 + 1024
+    assert tk.fwd_tf32_smem(256, 128, 96) == (fixed + 288 * (256 + 96)) \
+        == 222912 <= tk.FW_SMEM_MAX
+    assert tk.fwd_tf32_smem(128, 64, 24) == fixed + 288 * (128 + 32)
+    assert tk.fwd_tf32_smem(128, 256, 96) == tk.fwd_tf32_smem(256, 128, 96)
+    assert tk.fwd_tf32_smem(256, 256, 128) == 232128 == tk.FW_SMEM_MAX - 320
+
+
+@pytest.mark.parametrize('dtype,W,Wv,depth,dcond,want', [
+    ('bf16', 256, 128, 8, 1, True),          # lego
+    ('f32', 256, 128, 8, 1, True),
+    ('bf16', 128, 64, 4, 2, True),           # the card tests' `wide`
+    ('f32', 128, 64, 4, 2, True),
+    ('bf16', 64, 32, 3, 1, False),           # `small`: Wv not a multiple of 64
+    ('f32', 64, 32, 3, 1, False),
+    ('f32', 256, 128, 8, 0, False),          # no view layer
+    ('bf16', 64, 64, 14, 1, True),           # 16 steps
+    ('f32', 64, 64, 14, 1, True),
+    ('bf16', 64, 64, 15, 1, False),          # 17
+    ('f32', 64, 64, 15, 1, False),
+    ('bf16', 256, 128, 9, 1, True),          # G of 2,692 rows
+    ('bf16', 256, 128, 10, 1, False),        # 2,948: the bf16 sums outgrow the block
+    ('f32', 256, 256, 14, 1, True)])
+def test_chain_route(dtype, W, Wv, depth, dcond, want):
+    """The shape rules of the lean chains on wgmma (bf16
+    lean_chain_sm90_kernel, f32 lean_chain_tf32_kernel), against hand
+    counts; each is a rule on its own dtype only."""
+    dt, other = ((torch.bfloat16, torch.float32) if dtype == 'bf16'
+                 else (torch.float32, torch.bfloat16))
+    own = tk.chain_sm90_route if dtype == 'bf16' else tk.chain_tf32_route
+    rival = tk.chain_tf32_route if dtype == 'bf16' else tk.chain_sm90_route
+    assert own(dt, W, Wv, depth, dcond) is want
+    assert rival(dt, W, Wv, depth, dcond) is False
+    assert own(other, W, Wv, depth, dcond) is False
+
+
+def test_chain_smem():
+    """The chains' shared memory by hand.  G's rows at the lego widths:
+    8 x 256 trunk + 1 density + 256 bottleneck + 128 view + 3 rgb = 2436.
+    bf16: 4 stages x 4 boxes of 32 x 64 bf16 (64 KB), 2 x 4 cotangent boxes
+    of 64 x 64 bf16 (64 KB), 4 mask slots of 256 x 16 bytes, 6 activation
+    boxes (48 KB), 2 x 4 x 256 + 2 x 4 x 128 f32 partials and head
+    cotangents, 2 x 2436 f32 bias sums, 28 mbarriers, 1 KB: 229,632 bytes.
+    f32: 3 stages of 32 KB, 64 bytes of mbarriers, a 256-row tile of 72
+    floats, 4 x 64 f32 head cotangents, 256 + 768 f32 head kernels, 2436
+    f32 bias sums, 1 KB: 187,984 bytes."""
+    assert tk.chain_cg(256, 128, 8, 1) == 2436
+    assert tk.chain_sm90_smem(2436) == (65536 + 65536 + 16384 + 49152
+                                        + 12288 + 8 * 2436 + 224 + 1024) \
+        == 229632
+    assert tk.chain_tf32_smem(256, 128, 2436) == (98304 + 64 + 288 * 256
+                                                  + 4 * (256 + 1024 + 2436)
+                                                  + 1024) == 187984
+    assert tk.chain_tf32_smem(128, 64, 1000) == (98304 + 64 + 288 * 128
+                                                 + 4 * (256 + 1024 + 1000)
+                                                 + 1024)
+
+
+def test_tf32_split():
+    """The weight split of the f32 wgmma kernels: hi has its low 13
+    mantissa bits zero (a tf32 value), hi + lo == w exactly in f32, and
+    |lo| <= 2^-11 |w| (hi rounds to nearest), over magnitudes from 1e-30 to
+    1e30, both signs, zeros and the halfway cases."""
+    rng = np.random.default_rng(0)
+    w = (rng.standard_normal(20000)
+         * 10.0 ** rng.uniform(-30, 30, 20000)).astype(np.float32)
+    half = np.float32(1.0) + np.float32(2.0 ** -11)   # halfway between tf32s
+    w = np.concatenate([w, [0.0, -0.0, half, -half, 1.0, -1.0]]).astype(
+        np.float32)
+    wt = torch.tensor(w)
+    hi, lo = tk.tf32_split(wt)
+    assert hi.dtype == lo.dtype == torch.float32
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert torch.equal(hi + lo, wt)
+    assert bool((lo.abs() <= wt.abs() * 2.0 ** -11).all())
+    # ties round away from zero, as cvt.rna.tf32 does
+    assert float(hi[-4]) == 1.0 + 2.0 ** -10
+    assert float(hi[-3]) == -float(hi[-4])
+    # the forward's B operands: [hi; lo] of the transposed kernels, the
+    # encode columns padded to the slab with zeros
+    shapes = [(18, 64), (1, 64), (64, 64), (1, 64), (64, 64), (1, 64),
+              (82, 1), (1, 1), (82, 64), (1, 64), (64 + 5, 64), (1, 64),
+              (64, 3), (1, 3)]
+    flat = [torch.tensor(rng.standard_normal(sh).astype(np.float32))
+            for sh in shapes]
+    wt_all = tk.tf32_fwd_weights(flat, 3, 1, 2)
+    assert [None if t is None else tuple(t.shape) for t in wt_all] == [
+        (128, 32), (128, 64), (128, 64), None, (128, 96), (128, 64), None]
+    bott = wt_all[4][:64] + wt_all[4][64:]     # [h, x] read by the bottleneck
+    assert torch.equal(bott[:, :82], flat[8].t())
+    assert torch.equal(bott[:, 82:], torch.zeros(64, 14))
+    assert torch.equal(wt_all[5][:64] + wt_all[5][64:], flat[10][:64].t())
+    assert torch.equal(wt_all[0][:64, 18:], torch.zeros(64, 14))
+
+
 def test_lean_training_form_rejects():
     """What the training form still refuses: encode with 'hybrid' (JAX's
     refusal), an encode whose width is not trunk_0's, no view branch, an
