@@ -9,8 +9,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      started together, and time it; print each kernel's registers and
      spills, and the dynamic shared memory of the two wgmma kernels of the
      bf16 backward (lean_chain_sm90_kernel, wgrad_sm90_kernel), of the
-     bf16 lean forward (lean_fwd_sm90_kernel) and of the two 3xTF32 wgmma
-     kernels of f32 (lean_fwd_tf32_kernel, lean_chain_tf32_kernel);
+     bf16 lean forward (lean_fwd_sm90_kernel) and of the three 3xTF32
+     wgmma kernels of f32 (lean_fwd_tf32_kernel, lean_chain_tf32_kernel,
+     wgrad_tf32_kernel);
   3. each render kernel's wrapper against its plain PyTorch version at the
      lego shape (8x256 MLP, N = 128, one 8192-ray chunk) on numpy-seeded
      inputs: f32 max |d| <= 1e-4, bf16 max |d| / max |ref| <= 3e-2 against
@@ -44,7 +45,13 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      outputs (both, and the recompute re-runs, on the wgmma forward of
      their dtype, checked in every form; the lean chains of lean_param_grads
      and of the recompute backward on lean_chain_sm90_kernel in bf16 and
-     lean_chain_tf32_kernel in f32, `check_chain_routes`);
+     lean_chain_tf32_kernel in f32, `check_chain_routes`; the weight
+     gradients of every f32 backward on a channel-major stream, the classic
+     ones and tp_pair_bwd included, on wgrad_tf32_kernel, hybrid's never,
+     `check_wgrad_routes`; and the f32 weight gradients of
+     lean_param_grads timed alone, their device time from a torch.profiler
+     window, bound and share, beside torch.mm on the same products, the
+     library's way to the same sums, in the same run, `wgrad_yardstick`);
      lean_param_grads and lean_param_grads_hybrid fed the same
      activations as their plain versions (the plain forward's, in the
      compute dtype), at bench.py's metric (largest leaf ||a - b|| / ||b||):
@@ -103,7 +110,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      that close to zero, and each flip moves a whole per-point term), then
      K = 5 steps of make_train_many, in which each of the configuration's
      kernels must launch 2 levels x 5 times, every lean forward and lean
-     chain on the wgmma kernel of its dtype, and the loss must stay finite;
+     chain on the wgmma kernel of its dtype, every f32 backward's weight
+     gradients on wgrad_tf32_kernel (not hybrid's), and the loss must stay
+     finite;
      ms/step, rays/s and peak memory of every configuration and of the
      plain path, in turns (plain, each configuration, then back, twice:
      best, median and spread of the 4 runs); past
@@ -128,7 +137,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      of its wall time spent waiting on the batcher;
   8. the kernels' JSON line (launches, error, times, bound, library call;
      for the lean forwards and backwards also the wgmma kernel that runs
-     them, f32 `kernel` / `chain` and bf16 under 'bf16'),
+     them, f32 `kernel` / `chain` / `wgrad` and bf16 under 'bf16'; for f32
+     lean_param_grads also its weight gradients' own ms, bound and
+     torch.mm's ms under `wgrad_ms`),
      the script's wall time, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 
@@ -330,6 +341,27 @@ def kernel_device_ms(fn, iters: int = 20) -> dict:
             if e.device_type == DeviceType.CUDA}
 
 
+def layer_shapes(hp):
+    """The (in, out) of hp's MLP kernels in param order."""
+    depth = hp['nerf.mlp.net_depth']
+    dcond = hp['nerf.mlp.net_depth_condition']
+    skip = hp['nerf.mlp.skip_index']
+    W = hp['nerf.mlp.net_width']
+    Wv = hp['nerf.mlp.net_width_condition']
+    F = 6 * (hp['nerf.max_deg_point'] - hp['nerf.min_deg_point'])
+    Fv = 3 * (2 * hp['nerf.deg_view'] + 1)
+    shapes, d_in = [], F
+    for i in range(depth):
+        shapes.append((d_in, W))
+        d_in = W + (F if i % skip == 0 and i > 0 else 0)
+    shapes += [(d_in, 1), (d_in, W)]
+    if dcond:
+        shapes += [(W + Fv, Wv)] + [(Wv, Wv)] * (dcond - 1) + [(Wv, 3)]
+    else:               # no view layer: the rgb head reads [bottleneck, view]
+        shapes += [(W + Fv, 3)]
+    return shapes
+
+
 def kernel_work(name, hp, R, N, tag, form='rows'):
     """(tensor-core FLOP, CUDA-core operations, bytes) of one call of
     kernel `name` at R rays x N samples in the compute dtype `tag` ('f32'
@@ -340,7 +372,6 @@ def kernel_work(name, hp, R, N, tag, form='rows'):
     (the composite), 30 a point (its backward)."""
     depth = hp['nerf.mlp.net_depth']
     dcond = hp['nerf.mlp.net_depth_condition']
-    skip = hp['nerf.mlp.skip_index']
     W = hp['nerf.mlp.net_width']
     Wv = hp['nerf.mlp.net_width_condition']
     F = 6 * (hp['nerf.max_deg_point'] - hp['nerf.min_deg_point'])
@@ -348,15 +379,7 @@ def kernel_work(name, hp, R, N, tag, form='rows'):
     M, Mp = R * N, -(-R * N // km.TILE) * km.TILE
     es = 2 if tag == 'bf16' else 4
     Fp, _, _, _, Cs = km.saved_rows(F, W, Wv, depth, dcond)
-    shapes, d_in = [], F
-    for i in range(depth):
-        shapes.append((d_in, W))
-        d_in = W + (F if i % skip == 0 and i > 0 else 0)
-    shapes += [(d_in, 1), (d_in, W)]
-    if dcond:
-        shapes += [(W + Fv, Wv)] + [(Wv, Wv)] * (dcond - 1) + [(Wv, 3)]
-    else:               # no view layer: the rgb head reads [bottleneck, view]
-        shapes += [(W + Fv, 3)]
+    shapes = layer_shapes(hp)
     n_w = sum(k * n for k, n in shapes)
     n_b = sum(n for _, n in shapes)
     params = n_w * es + n_b * 4
@@ -514,6 +537,41 @@ def check_chain_routes(hp, dt, where, **calls):
         f'{"OK" if got == want else "FAIL"}')
     if got != want:
         raise AssertionError(f'{where}: the chain took another route')
+
+
+def lego_wgrad_range(hp):
+    """(Mp, MC) of the lean backward at a training level of hp: its padded
+    points and the points of one weight-gradient range (wgrad_split over
+    its output tiles on this card)."""
+    N = hp['nerf.num_samples']
+    Mp = -(-TRAIN_RAYS * N // km.TILE) * km.TILE
+    depth = hp['nerf.mlp.net_depth']
+    dcond = hp['nerf.mlp.net_depth_condition']
+    tiles = km.wgrad_problems(layer_shapes(hp), depth, dcond,
+                              hp['nerf.mlp.skip_index'])[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return Mp, km.wgrad_split(Mp, len(tiles), N, sms)
+
+
+def check_wgrad_routes(hp, dt, where, **calls):
+    """Raise unless each named backward's `calls` since the last
+    reset_launches ran their weight gradients on wgrad_tf32_kernel where
+    wgrad_tf32_route says so (f32 on a channel-major stream: every entry
+    but hybrid) and never elsewhere; at the lego level an f32 channel-major
+    backward must take it."""
+    Mp, mc = lego_wgrad_range(hp)
+    hybrid = 'lean_param_grads_hybrid'
+    on = {k: km.wgrad_tf32_route(dt, k == hybrid, Mp, mc) for k in calls}
+    if dt == torch.float32 and any(k != hybrid and not on[k] for k in calls):
+        raise AssertionError('the lego f32 weight gradients take no wgmma '
+                             'kernel')
+    got = {k: km.wgrad_tf32_routes[k] for k in calls}
+    want = {k: n if on[k] else 0 for k, n in calls.items()}
+    log(f'[route] {where}: weight gradients on wgrad_tf32_kernel {got} '
+        f'(want {want}) {"OK" if got == want else "FAIL"}')
+    if got != want:
+        raise AssertionError(f'{where}: the weight gradients took another '
+                             'route')
 
 
 def flax_tree(system: MipNeRFSystem, seed: int) -> dict:
@@ -822,6 +880,8 @@ def compare_train_kernels(params, hp, dev):
         torch.cuda.synchronize()
         check_chain_routes(hp, dt, f'phase 5 lean_param_grads {tag}',
                            lean_param_grads=1)
+        check_wgrad_routes(hp, dt, f'phase 5 lean_param_grads {tag}',
+                           lean_param_grads=1)
         finite = all(bool(torch.isfinite(t).all()) for t in grads)
         g_abs = max(float((a - b).abs().max())
                     for a, b in zip(grads, ref_grads))
@@ -839,6 +899,10 @@ def compare_train_kernels(params, hp, dev):
                cuda_ms(lambda: km.lean_param_grads(
                    view, g_rgb, g_dens, saved, flat, *args, dt, ACT)),
                cuda_ms(lambda: plain_bwd(dt, saved)))
+        if dt == torch.float32:
+            results[('lean_param_grads', tag)]['wgrad'] = wgrad_yardstick(
+                hp, flat, args, saved, lambda: km.lean_param_grads(
+                    view, g_rgb, g_dens, saved, flat, *args, dt, ACT))
         del grads, saved, ref_grads
 
         # Recompute: against the save backward on the kernel forward's
@@ -857,6 +921,8 @@ def compare_train_kernels(params, hp, dev):
         check_routes(hp, dt, f'phase 5 recompute {tag}',
                      lean_param_grads_recompute=1)
         check_chain_routes(hp, dt, f'phase 5 recompute {tag}',
+                           lean_param_grads_recompute=1)
+        check_wgrad_routes(hp, dt, f'phase 5 recompute {tag}',
                            lean_param_grads_recompute=1)
         again = recompute(dt)
         torch.cuda.synchronize()
@@ -879,9 +945,12 @@ def compare_train_kernels(params, hp, dev):
 
         # Hybrid: on the plain hybrid forward's residuals.
         res = km.lean_hybrid_fwd(x, view, flat, *args, dt, ACT)[2]
+        km.reset_launches()
         got = hybrid(dt, res)
         want = hybrid(torch.float32, res, kernel=False)
         torch.cuda.synchronize()
+        check_wgrad_routes(hp, dt, f'phase 5 hybrid {tag}',
+                           lean_param_grads_hybrid=1)
         finite = all(bool(torch.isfinite(t).all()) for t in got)
         h_err, h_leaf = leaf_rel_err(got, want, leaf_names(hp))
         h_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
@@ -897,6 +966,53 @@ def compare_train_kernels(params, hp, dev):
     compare_render_bwd_and_encode(results, report, flat, args, x, view,
                                   moments, delta, mids, enc)
     return results
+
+
+def wgrad_yardstick(hp, flat, args, saved, call):
+    """Phase 5, f32: the weight gradients of one lean_param_grads call on
+    their own -> {ms, bound_ms, bound_by, share, library_ms}:
+    wgrad_tf32_kernel's device time in a torch.profiler window of `call`;
+    its bound, the products' FLOP over the M points at the 3xTF32 rate
+    against the activation and cotangent rows read once and the range sums
+    written once; and torch.mm on the same products (each problem's
+    activation rows of `saved` against seeded cotangent rows, CUDA events),
+    the library's way to these sums, never called by the port."""
+    S = saved[0]
+    N, depth, dcond, skip = args
+    F, W = flat[0].shape
+    Wv = flat[2 * (depth + 2)].shape[1]
+    _, hs, bott, ys, _ = km.saved_rows(F, W, Wv, depth, dcond)
+    first = [0] + hs + [bott] + ys
+    shapes = [tuple(t.shape) for t in flat[0::2]]
+    probs = km.wgrad_problems(shapes, depth, dcond, skip)[0]
+    Cg = sum(n for _, n in shapes)
+    Mp, mc = lego_wgrad_range(hp)
+    M = TRAIN_RAYS * N
+    gen = torch.Generator(device=S.device).manual_seed(2)
+    G = torch.randn((Cg, Mp), generator=gen, device=S.device)
+    blocks = [(S[first[a]:first[a] + K], G[g:g + n])
+              for a, K, g, n, _, _ in probs]
+
+    def mm():
+        for a, g in blocks:
+            torch.mm(a, g.t())
+    library_ms = cuda_ms(mm)
+    del G, blocks
+    ms = sum(t for k, t in kernel_device_ms(call, iters=5).items()
+             if 'wgrad_tf32_kernel' in k)
+    rows = dict((a, K) for a, K, _, _, _, _ in probs)
+    PW = sum(K * n for K, n in shapes)
+    nbytes = 4 * ((sum(rows.values()) + Cg) * Mp + -(-Mp // mc) * PW)
+    b_ms, b_by = bound('lean_param_grads', hp, TRAIN_RAYS, N, 'f32',
+                       work=(sum(2 * K * n * M for _, K, _, n, _, _ in probs),
+                             0, nbytes))
+    log(f'[kernel] wgrad_tf32_kernel f32, the weight gradients of '
+        f'lean_param_grads alone: {ms:.3f} ms device; bound {b_ms:.3f} ms '
+        f'({b_by}), {100 * b_ms / ms:.1f} % of it; torch.mm on the same '
+        f'products {library_ms:.3f} ms ({library_ms / ms:.2f} x the '
+        f'kernel\'s time)')
+    return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
+                library_ms=library_ms)
 
 
 def compare_moments_forms(results, report, flat, args, dt, tag, x,
@@ -965,6 +1081,8 @@ def compare_moments_forms(results, report, flat, args, dt, tag, x,
     check_routes(hp, dt, f'phase 5 moments recompute {tag}',
                  lean_param_grads_recompute=2)
     check_chain_routes(hp, dt, f'phase 5 moments recompute {tag}',
+                       lean_param_grads_recompute=2)
+    check_wgrad_routes(hp, dt, f'phase 5 moments recompute {tag}',
                        lean_param_grads_recompute=2)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     r_err, r_leaf = leaf_rel_err(got, want, leaf_names(hp))
@@ -1143,10 +1261,13 @@ def compare_classic_kernels(params, hp, dev, label=''):
         # The saved backward on the plain forward's stream.
         saved = ref[2] if dt == torch.float32 else \
             km.mlp_save_fwd_plain(x, view, flat, *args, dt)[2]
+        km.reset_launches()
         got = bwd(km.mlp_bwd_saved, g_rgb, g_dens, saved, flat, *args, dt)
         want = bwd(km.mlp_bwd_saved_plain, g_rgb, g_dens, saved, flat, *args,
                    torch.float32)
         torch.cuda.synchronize()
+        check_wgrad_routes(hp, dt, f'phase 5 mlp_bwd_saved{label} {tag}',
+                           mlp_bwd_saved=1)
         g_err, g_leaf = leaf_rel_err(got, want, names)
         g_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
         extra = ''
@@ -1173,8 +1294,11 @@ def compare_classic_kernels(params, hp, dev, label=''):
                        *args, dt)
         want = bwd(km.mlp_bwd_saved, g_rgb, g_dens, out[2], flat, *args, dt)
         del out
+        km.reset_launches()
         got, again = recompute(), recompute()
         torch.cuda.synchronize()
+        check_wgrad_routes(hp, dt, f'phase 5 mlp_bwd_recompute{label} {tag}',
+                           mlp_bwd_recompute=2)
         runs = all(torch.equal(a, b) for a, b in zip(got, again))
         inputs = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         r_err, r_leaf = leaf_rel_err(got, want, names)
@@ -1249,9 +1373,12 @@ def compare_pair_kernels(hp, dev):
             args = [torch.relu(x32).to(dt) if f_in == W else x32] + panels
             g, kept = settled_cotangent(args, g, dt)
             out = kt._pair_call(*args, dt)
+            km.reset_launches()
             got = kt._pair_bwd_call(*args, g, dt)
             again = kt._pair_bwd_call(*args, g, dt)
             torch.cuda.synchronize()
+            check_wgrad_routes(hp, dt, f'phase 5 tp_pair_bwd, {label} {tag}',
+                               tp_pair_bwd=2)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             del again
             ref = kt._pair_plain(*args, torch.float32)
@@ -1442,8 +1569,9 @@ def tp_slice(hp0, params0, dev):
 def run_k_steps(system, params, stack, pix, names, levels, label):
     """K steps of make_train_many from `params`: each kernel in `names`
     must launch `levels` (or PER_STEP's count) x K times, lean_mlp never,
-    every call of a lean forward and of a lean chain on the route its rule
-    gives (check_routes, check_chain_routes), and the loss must stay
+    every call of a lean forward, of a lean chain and of a backward's
+    weight gradients on the route its rule gives (check_routes,
+    check_chain_routes, check_wgrad_routes), and the loss must stay
     finite; -> the run's launch counts."""
     fn = system.make_train_many()
     state = system.init_state(params=params)
@@ -1454,10 +1582,13 @@ def run_k_steps(system, params, stack, pix, names, levels, label):
     dt = getattr(torch, str(hp.get('train.compute_dtype', 'float32')))
     fwd = {n: run_counts[n] for n in km.routes if run_counts[n]}
     chain = {n: run_counts[n] for n in km.chain_routes if run_counts[n]}
+    wgrad = {n: run_counts[n] for n in km.wgrad_tf32_routes if run_counts[n]}
     if fwd:
         check_routes(hp, dt, f'{label} K={TRAIN_K}', **fwd)
     if chain:
         check_chain_routes(hp, dt, f'{label} K={TRAIN_K}', **chain)
+    if wgrad:
+        check_wgrad_routes(hp, dt, f'{label} K={TRAIN_K}', **wgrad)
     losses = aux['loss'].cpu().numpy()
     log(f'[train] {label} make_train_many K={TRAIN_K}: launches '
         f'{ {n: run_counts[n] for n in names} }; loss '
@@ -1886,7 +2017,8 @@ def main() -> int:
         f'{train_lib.lean_fwd_sm90_smem(256, 128, 96)} B, '
         f'lean_fwd_tf32_kernel {train_lib.lean_fwd_tf32_smem(256, 128, 96)} '
         f'B, lean_chain_tf32_kernel '
-        f'{train_lib.lean_chain_tf32_smem(256, 128, 8, 1)} B (of 232448)')
+        f'{train_lib.lean_chain_tf32_smem(256, 128, 8, 1)} B, '
+        f'wgrad_tf32_kernel {train_lib.lean_wgrad_tf32_smem()} B (of 232448)')
 
     hp = config.default()
     system = MipNeRFSystem(hp, device=dev)
@@ -2068,6 +2200,14 @@ def main() -> int:
             kernels[-1]['chain'] = 'lean_chain_tf32_kernel'
             kernels[-1]['chain_source'] = \
                 'mipnerf_pl_tpu_torch/csrc/lean_chain_tf32.cuh'
+        if name in km.wgrad_tf32_routes and km.wgrad_tf32_route(
+                torch.float32, name == 'lean_param_grads_hybrid',
+                *lego_wgrad_range(hp)):
+            kernels[-1]['wgrad'] = 'wgrad_tf32_kernel'
+            kernels[-1]['wgrad_source'] = \
+                'mipnerf_pl_tpu_torch/csrc/lean_wgrad_tf32.cuh'
+        if 'wgrad' in r:
+            kernels[-1]['wgrad_ms'] = r['wgrad']
     log(f'[done] wall {time.perf_counter() - START:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi_line())

@@ -34,7 +34,7 @@
 // apply the mask (`> 0` of the stored f32 activation, read from S in
 // 16-byte loads, which the producer thread prefetched into L2 with the
 // step's first slab), copy ga's N rows to G (f32, channel-major, the rows
-// lean_wgrad_kernel<float> reads) and, for ys[0], to g1f, and sum each
+// wgrad_tf32_kernel reads) and, for ys[0], to g1f, and sum each
 // column over the tile's 64 points in a fixed (rotated) order into the
 // block's bias sums.  No
 // atomics: the per-block sums go to db_part as lean_grad_chain_kernel's do.

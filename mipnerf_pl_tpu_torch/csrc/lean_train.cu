@@ -92,11 +92,14 @@
 //   2. split-K tensor-core products dW = A^T G over the points, one 128 x
 //      128 output tile per block and one MC-point range per grid row,
 //      written as per-range partial sums.  Ranges never straddle a chunk,
-//      so every mode sums the same ranges in the same order.  bf16 on a
-//      channel-major stream: wgrad_sm90_kernel (lean_wgrad_sm90.cuh, wgmma
-//      fed by a TMA ring); f32 and hybrid: lean_wgrad_kernel (mma.sync).
-//      In f32 the tensor-core sums restart every 128 points into
-//      round-to-nearest f32 sums (FLUSH).  The skip concat's x rows are
+//      so every mode sums the same ranges in the same order.  A
+//      channel-major stream (save, recompute, the classic forms) runs, by
+//      a rule on dtype and shape, on wgmma fed by a TMA ring:
+//      wgrad_sm90_kernel in bf16 (lean_wgrad_sm90.cuh), wgrad_tf32_kernel
+//      in f32 (lean_wgrad_tf32.cuh, 3xTF32); hybrid's point-major
+//      activations keep lean_wgrad_kernel (mma.sync), in both dtypes.  In
+//      f32 the tensor-core sums restart every 128 points into
+//      round-to-nearest f32 sums.  The skip concat's x rows are
 //      problems of their own: their weight gradients accumulate; the chain
 //      drops their dx.  The classic backward (CL) takes it after the chain:
 //      mlp_input_grads_kernel reads back from G the output cotangent of
@@ -118,7 +121,7 @@
 #include "lean_engines.cuh"
 #include "lean_fwd_sm90.cuh"
 #include "lean_fwd_tf32.cuh"
-#include "lean_wgrad_sm90.cuh"
+#include "lean_wgrad_tf32.cuh"
 
 namespace {
 
@@ -742,9 +745,10 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
   const size_t fsmem = classic_fwd_smem<T>(d);   // CL: the re-run of mlp_fwd_kernel
   cudaError_t e = cudaFuncSetAttribute(lean_grad_chain_kernel<T, PM, CL, NV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)csmem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(lean_wgrad_kernel<T, PM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
+  if constexpr (PM)
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(lean_wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)wsmem);
   if (e == cudaSuccess && rf && CL)
     e = cudaFuncSetAttribute(mlp_fwd_kernel<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)fsmem);
@@ -837,20 +841,23 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
     float* partial = a.partial + (size_t)(c0 / a.MC) * a.PW;
-    if constexpr (sizeof(T) == 2 && !PM) {
+    if constexpr (!PM) {
       // The activations are rows of one stream: their offsets from X's.
+      // bf16 on wgrad_sm90_kernel, f32 on wgrad_tf32_kernel (rules on
+      // dtype and shape; a plan either cannot make is an error).
       int a_row[MAX_LAYERS];
       for (int i = 0; i < d.n_acts(); ++i)
         a_row[i] = (int)((static_cast<const char*>(acts.t[i]) -
                           static_cast<const char*>(acts.t[0])) /
-                         (2 * (long long)acts.ld[0]));
-      e = (cudaError_t)launch_wgrad_sm90(acts.t[0], stream_rows(d), a_row, d.n_acts(), G, Cg,
-                                         a.tab, a.n_tiles, dc.Mp, a.MC, partial, a.PW, s);
+                         (sizeof(T) * (long long)acts.ld[0]));
+      e = (cudaError_t)(sizeof(T) == 2 ? launch_wgrad_sm90 : launch_wgrad_tf32)(
+          acts.t[0], stream_rows(d), a_row, d.n_acts(), G, Cg, a.tab, a.n_tiles, dc.Mp, a.MC,
+          partial, a.PW, s);
       if (e != cudaSuccess) return (int)e;
     } else {
       const dim3 grid(a.n_tiles, (dc.Mp + a.MC - 1) / a.MC);
-      lean_wgrad_kernel<T, PM><<<grid, THREADS, wsmem, s>>>(acts, G, a.tab, dc.Mp, dc.M, a.MC,
-                                                             partial, a.PW);
+      lean_wgrad_kernel<T><<<grid, THREADS, wsmem, s>>>(acts, G, a.tab, dc.Mp, dc.M, a.MC,
+                                                        partial, a.PW);
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
     if constexpr (!CL) {
@@ -1195,6 +1202,19 @@ int lean_sm90_smem(int Cg, int* out) {
   out[1] = (int)wgrad_sm90_smem();
   return 0;
 }
+
+// Launches of wgrad_tf32_kernel by this library so far.
+long long wgrad_tf32_launches() { return g_wgrad_tf32_launches; }
+
+// 1 if the weight gradients of a backward in this dtype, on point-major
+// activations (pm: hybrid) or a channel-major stream, of Mp points in
+// ranges of MC take wgrad_tf32_kernel.
+int wgrad_tf32_route(int use_bf16, int pm, int Mp, int MC) {
+  return !use_bf16 && !pm && wgrad_tf32_takes(Mp, MC) ? 1 : 0;
+}
+
+// Its dynamic shared memory.
+int lean_wgrad_tf32_smem() { return (int)wgrad_tf32_smem(); }
 
 // Launches of the lean chain kernels by this library so far: out[0]
 // lean_chain_sm90_kernel's (bf16), out[1] lean_chain_tf32_kernel's (f32).

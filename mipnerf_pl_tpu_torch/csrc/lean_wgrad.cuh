@@ -2,6 +2,13 @@
 // tp_pair.cu): dW = A^T G over the points as split-K tensor-core products
 // with per-range partial sums, and the in-order reduction of those sums.
 // Deterministic: fixed summation orders, no atomics.
+//
+// lean_wgrad_kernel (mma.sync) keeps the point-major activations of
+// 'hybrid' (lean_param_grads_hybrid), in both dtypes: its A is [M][width],
+// MN-major for dW = A^T G, which wgmma reads for 16-bit types only
+// (transposed) and for tf32 not at all.  Every channel-major stream runs on
+// wgmma and TMA: bf16 on lean_wgrad_sm90.cuh, f32 on lean_wgrad_tf32.cuh
+// (3xTF32).
 
 #pragma once
 
@@ -24,7 +31,7 @@ constexpr int WGRAD_ACC = 64;                // accumulators per thread
 
 // The saved activations as the backward reads them: activation a is t[a],
 // channel-major [width][Mp] (S rows; ld[a] = Mp) or point-major [M][ld[a]]
-// (PM).
+// (hybrid, the only form lean_wgrad_kernel reads).
 struct Acts {
   const void* t[MAX_LAYERS];
   int ld[MAX_LAYERS];
@@ -39,30 +46,29 @@ struct WgradTable {
 
 // blockIdx.x: output tile; blockIdx.y: point range [y * MC, (y + 1) * MC)
 // of the chunk, whose partial sums go to partial row y.  B tile [BN
-// cols][KC points] in shared memory; A tile [BM rows][KC points]
-// (channel-major A) or [KC points][BM rows] (point-major A, read by
-// transposed fragments); 8 warps as 2 x 4, each a 64 x 32 output tile.
-// The next stage's loads are issued into registers before the current
-// stage's products.  In f32, dynamic shared memory holds each thread's
-// round-to-nearest sums, [WGRAD_ACC][THREADS].
-template <typename T, bool PM>
+// cols][KC points] and the point-major A tile [KC points][BM rows] in
+// shared memory, A read by transposed fragments; 8 warps as 2 x 4, each a
+// 64 x 32 output tile.  The next stage's loads are issued into registers
+// before the current stage's products.  In f32, dynamic shared memory
+// holds each thread's round-to-nearest sums, [WGRAD_ACC][THREADS].
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 lean_wgrad_kernel(Acts acts, const T* __restrict__ G, WgradTable tab, int Mp, int M, int MC,
                   float* __restrict__ partial, int PW) {
   extern __shared__ float tot[];
   constexpr bool BF = sizeof(T) == 2;
   constexpr int LDS = KC + (BF ? 8 : 4);     // padded rows: conflict-free fragments
-  constexpr int LDT = BM + 8;                // the same for a point-major A tile
+  constexpr int LDT = BM + 8;                // the same for the point-major A tile
   constexpr int VEC = 16 / sizeof(T), PER_ROW = KC / VEC, PM_ROW = BM / VEC;
   constexpr int LOADS = BM * PER_ROW / THREADS;
   static_assert(BM == BN && BM * PER_ROW % THREADS == 0 && KC * PM_ROW == BM * PER_ROW,
                 "tile loads");
-  __shared__ __align__(16) T As[PM ? KC * LDT : BM * LDS];
+  __shared__ __align__(16) T As[KC * LDT];
   __shared__ __align__(16) T Bs[BN * LDS];
   const int* pr = tab.prob[tab.tile[blockIdx.x][0]];
   const int K = pr[1], g_row0 = pr[2], n = pr[3], out_off = pr[4], n_ld = pr[5];
   const T* A = static_cast<const T*>(acts.t[pr[0]]);
-  const int lda = PM ? acts.ld[pr[0]] : Mp;
+  const int lda = acts.ld[pr[0]];
   const int r0 = tab.tile[blockIdx.x][1], c0 = tab.tile[blockIdx.x][2];
   const int p0 = blockIdx.y * MC, p1 = min(p0 + MC, Mp);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -90,17 +96,11 @@ lean_wgrad_kernel(Acts acts, const T* __restrict__ G, WgradTable tab, int Mp, in
 #pragma unroll
     for (int i = 0; i < LOADS; ++i) {
       const int v = tid + i * THREADS, row = v / PER_ROW, c = (v - row * PER_ROW) * VEC;
+      const int pt = v / PM_ROW, ch = (v - pt * PM_ROW) * VEC;
       const uint4 zero = make_uint4(0, 0, 0, 0);
-      if (PM) {
-        const int pt = v / PM_ROW, ch = (v - pt * PM_ROW) * VEC;
-        ra[i] = k0 + pt < M && r0 + ch < lda
-                    ? *reinterpret_cast<const uint4*>(A + (size_t)(k0 + pt) * lda + r0 + ch)
-                    : zero;
-      } else {
-        ra[i] = r0 + row < K
-                    ? *reinterpret_cast<const uint4*>(A + (size_t)(r0 + row) * lda + k0 + c)
-                    : zero;
-      }
+      ra[i] = k0 + pt < M && r0 + ch < lda
+                  ? *reinterpret_cast<const uint4*>(A + (size_t)(k0 + pt) * lda + r0 + ch)
+                  : zero;
       rb[i] = c0 + row < n
                   ? *reinterpret_cast<const uint4*>(G + (size_t)(g_row0 + c0 + row) * Mp + k0 + c)
                   : zero;
@@ -111,12 +111,8 @@ lean_wgrad_kernel(Acts acts, const T* __restrict__ G, WgradTable tab, int Mp, in
 #pragma unroll
     for (int i = 0; i < LOADS; ++i) {
       const int v = tid + i * THREADS, row = v / PER_ROW, c = (v - row * PER_ROW) * VEC;
-      if (PM) {
-        const int pt = v / PM_ROW, ch = (v - pt * PM_ROW) * VEC;
-        *reinterpret_cast<uint4*>(As + pt * LDT + ch) = ra[i];
-      } else {
-        *reinterpret_cast<uint4*>(As + row * LDS + c) = ra[i];
-      }
+      const int pt = v / PM_ROW, ch = (v - pt * PM_ROW) * VEC;
+      *reinterpret_cast<uint4*>(As + pt * LDT + ch) = ra[i];
       *reinterpret_cast<uint4*>(Bs + row * LDS + c) = rb[i];
     }
     __syncthreads();
@@ -124,20 +120,14 @@ lean_wgrad_kernel(Acts acts, const T* __restrict__ G, WgradTable tab, int Mp, in
     if constexpr (BF) {
 #pragma unroll
       for (int kk = 0; kk < KC; kk += 16) {
-        // A (m16 x k16, row-major): ldmatrix from [row][k], or transposed
-        // from [k][row]; B (k16 x n8, stored [n][k]) without transpose.
+        // A (m16 x k16, row-major): ldmatrix transposed from [k][row]; B
+        // (k16 x n8, stored [n][k]) without transpose.
         uint32_t a[4][4], b[2][4];
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          if (PM)
-            ldmatrix_x4_trans(a[mt], reinterpret_cast<const bf16*>(As) +
-                                         (kk + (lane & 7) + 8 * (lane >> 4)) * LDT + 64 * wm +
-                                         16 * mt + 8 * ((lane >> 3) & 1));
-          else
-            ldmatrix_x4(a[mt], reinterpret_cast<const bf16*>(As) +
-                                   (64 * wm + 16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
-                                   kk + 8 * (lane >> 4));
-        }
+        for (int mt = 0; mt < 4; ++mt)
+          ldmatrix_x4_trans(a[mt], reinterpret_cast<const bf16*>(As) +
+                                       (kk + (lane & 7) + 8 * (lane >> 4)) * LDT + 64 * wm +
+                                       16 * mt + 8 * ((lane >> 3) & 1));
 #pragma unroll
         for (int np = 0; np < 2; ++np)
           ldmatrix_x4(b[np], reinterpret_cast<const bf16*>(Bs) +
@@ -156,14 +146,12 @@ lean_wgrad_kernel(Acts acts, const T* __restrict__ G, WgradTable tab, int Mp, in
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt) {
           // Fragment (row g | g + 8, k t | t + 4).
-          const float* As_f = reinterpret_cast<const float*>(As);
-          const int r = 64 * wm + 16 * mt + g;
-          const float* s0 = PM ? As_f + (kk + t) * LDT + r : As_f + r * LDS + kk + t;
-          const int dr = PM ? 8 : 8 * LDS, dk = PM ? 4 * LDT : 4;
+          const float* s0 = reinterpret_cast<const float*>(As) + (kk + t) * LDT + 64 * wm +
+                            16 * mt + g;
           split_tf32(s0[0], ahi[mt][0], alo[mt][0]);
-          split_tf32(s0[dr], ahi[mt][1], alo[mt][1]);
-          split_tf32(s0[dk], ahi[mt][2], alo[mt][2]);
-          split_tf32(s0[dr + dk], ahi[mt][3], alo[mt][3]);
+          split_tf32(s0[8], ahi[mt][1], alo[mt][1]);
+          split_tf32(s0[4 * LDT], ahi[mt][2], alo[mt][2]);
+          split_tf32(s0[8 + 4 * LDT], ahi[mt][3], alo[mt][3]);
         }
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {

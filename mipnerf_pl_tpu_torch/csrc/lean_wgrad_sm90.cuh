@@ -1,7 +1,7 @@
 // The weight-gradient products of the bf16 training backwards on Hopper's
-// wgmma and TMA (lean_train.cu, tp_pair.cu), beside lean_wgrad.cuh's
-// mma.sync kernel, which keeps the f32 products (3xTF32 with FLUSH) and the
-// point-major activations of 'hybrid'.
+// wgmma and TMA (lean_train.cu, tp_pair.cu).  Their f32 counterpart is
+// lean_wgrad_tf32.cuh (3xTF32); lean_wgrad.cuh's mma.sync kernel keeps the
+// point-major activations of 'hybrid' only.
 //
 // dW = A^T G over the points: A (activation rows) and G (cotangent rows)
 // are both channel-major [C][Mp] with the points contiguous, so both are

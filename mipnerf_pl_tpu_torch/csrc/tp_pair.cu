@@ -40,14 +40,14 @@
 //      gradients out to a chunk-sized channel-major stream S in the compute
 //      dtype: x | h | g | dh.
 //   2. dWcol = x^T dh and dWrow = h^T g as split-K products over row
-//      ranges, per-range partial sums: in bf16 wgrad_sm90_kernel
-//      (lean_wgrad_sm90.cuh: wgmma fed by a TMA ring), in f32
-//      lean_wgrad_kernel (lean_wgrad.cuh).
+//      ranges, per-range partial sums, on wgmma fed by a TMA ring: in bf16
+//      wgrad_sm90_kernel (lean_wgrad_sm90.cuh), in f32 wgrad_tf32_kernel
+//      (lean_wgrad_tf32.cuh, 3xTF32).
 // Then sum_rows_kernel adds the partial sums and the blocks' bias sums in
 // order.  No atomics: two runs give the same bits.
 
 #include "lean_engines.cuh"
-#include "lean_wgrad_sm90.cuh"
+#include "lean_wgrad_tf32.cuh"
 
 namespace {
 
@@ -245,12 +245,8 @@ struct BwdArgs {
 template <typename T>
 int launch_bwd(const BwdArgs& a, const PairDims& d, cudaStream_t s) {
   const size_t smem = pair_smem_bytes<T>(d.Wl);
-  const size_t wsmem = sizeof(T) == 2 ? 0 : sizeof(float) * WGRAD_ACC * THREADS;
   cudaError_t e = cudaFuncSetAttribute(tp_pair_bwd_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(lean_wgrad_kernel<T, false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
   if (e != cudaSuccess) return (int)e;
   // The two weight-gradient problems and their output tiles: dWcol = x^T dh
   // at dw[0], dWrow = h^T g after it.
@@ -284,23 +280,13 @@ int launch_bwd(const BwdArgs& a, const PairDims& d, cudaStream_t s) {
         static_cast<const T*>(a.wcT), a.g + (size_t)c0 * d.Wout, dc, Mp, S,
         a.dx + (size_t)c0 * d.f_in, a.db_part + (size_t)n_chunks * a.n_blocks * d.Wl);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    Acts acts{};
-    acts.t[0] = S + (size_t)sr.x * Mp;
-    acts.t[1] = S + (size_t)sr.h * Mp;
-    acts.ld[0] = acts.ld[1] = Mp;
     float* partial = a.partial + (size_t)(c0 / a.MC) * PW;
-    if constexpr (sizeof(T) == 2) {
-      // x, h and the cotangents are rows of the one stream S.
-      const int a_row[2] = {sr.x, sr.h};
-      e = (cudaError_t)launch_wgrad_sm90(S, sr.end, a_row, 2, S, sr.end, tab, n_tiles, Mp, a.MC,
-                                         partial, PW, s);
-      if (e != cudaSuccess) return (int)e;
-    } else {
-      const dim3 grid(n_tiles, ceil_div(Mp, a.MC));
-      lean_wgrad_kernel<T, false><<<grid, THREADS, wsmem, s>>>(acts, S, tab, Mp, dc.M, a.MC,
-                                                                partial, PW);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    }
+    // x, h and the cotangents are rows of the one stream S: bf16 on
+    // wgrad_sm90_kernel, f32 on wgrad_tf32_kernel.
+    const int a_row[2] = {sr.x, sr.h};
+    e = (cudaError_t)(sizeof(T) == 2 ? launch_wgrad_sm90 : launch_wgrad_tf32)(
+        S, sr.end, a_row, 2, S, sr.end, tab, n_tiles, Mp, a.MC, partial, PW, s);
+    if (e != cudaSuccess) return (int)e;
   }
   const int splits = ceil_div(ceil_div(d.M, TM) * TM, a.MC);
   sum_rows_kernel<<<ceil_div(PW, 256), 256, 0, s>>>(a.partial, splits, PW, a.dw);
@@ -350,5 +336,9 @@ int tp_pair_bwd(const void* x, const void* wc, const void* bc, const void* wrT, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return use_bf16 ? launch_bwd<bf16>(a, d, s) : launch_bwd<float>(a, d, s);
 }
+
+// Launches of wgrad_tf32_kernel by this library so far (tp_pair_bwd's f32
+// weight gradients).
+long long wgrad_tf32_launches() { return g_wgrad_tf32_launches; }
 
 }  // extern "C"

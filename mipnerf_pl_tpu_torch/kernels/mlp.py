@@ -84,7 +84,11 @@ TMA instead, 128-point tiles whose weight slabs feed both halves
 The f32 lean forwards at those widths (`fwd_tf32_route`) run on the
 3xTF32 wgmma forward (csrc/lean_fwd_tf32.cuh), from the transposed kernels
 split once a call into tf32 hi and lo (`tf32_fwd_weights`);
-`tf32_routes[name]` counts the calls that took it.
+`tf32_routes[name]` counts the calls that took it.  The weight gradients
+of every f32 backward on a channel-major stream (`wgrad_tf32_route`: all
+but hybrid's point-major residuals) run on a 3xTF32 wgmma kernel
+(csrc/lean_wgrad_tf32.cuh); `wgrad_tf32_routes[name]` counts the calls
+that took it.
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU, and
 only there.  For a CUDA tensor it launches its kernel or raises: there is
@@ -194,6 +198,28 @@ chain_routes = {'lean_param_grads': 0, 'lean_param_grads_recompute': 0}
 chain_tf32_routes = dict.fromkeys(chain_routes, 0)
 
 
+# Wrapper name -> calls whose weight gradients ran on the f32 wgmma kernel
+# wgrad_tf32_kernel (csrc/lean_wgrad_tf32.cuh), read from the library's own
+# count of its launches around each call (tp_pair_bwd: kernels/tp_lean.py).
+wgrad_tf32_routes = {'lean_param_grads': 0, 'lean_param_grads_recompute': 0,
+                     'lean_param_grads_hybrid': 0, 'mlp_bwd_saved': 0,
+                     'mlp_bwd_recompute': 0, 'tp_pair_bwd': 0}
+
+# The shape rule of wgrad_tf32_kernel (csrc/lean_wgrad_tf32.cuh,
+# wgrad_tf32_takes): slabs of WT_KP points.
+WT_KP = 32
+
+
+def wgrad_tf32_route(compute_dtype, point_major: bool, Mp: int,
+                     MC: int) -> bool:
+    """Whether the weight gradients of a backward run on wgrad_tf32_kernel:
+    f32, a channel-major stream (save, recompute, the classic forms,
+    tp_pair_bwd; not hybrid's point-major residuals), and the padded points
+    Mp and the points of a range MC multiples of the WT_KP-point slab."""
+    return (compute_dtype == torch.float32 and not point_major
+            and Mp > 0 and MC > 0 and Mp % WT_KP == 0 and MC % WT_KP == 0)
+
+
 def _chain_count(lib, i):
     """A function reading the library's launches of lean_chain_sm90_kernel
     (i = 0) or lean_chain_tf32_kernel (i = 1)."""
@@ -210,7 +236,8 @@ def _chain_count(lib, i):
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
-    for counts in (routes, tf32_routes, chain_routes, chain_tf32_routes):
+    for counts in (routes, tf32_routes, chain_routes, chain_tf32_routes,
+                   wgrad_tf32_routes):
         for k in counts:
             counts[k] = 0
 
@@ -917,6 +944,10 @@ def _call(fn_name: str, device, *args):
         for i, table in enumerate((chain_routes, chain_tf32_routes)):
             count = _chain_count(lib, i)
             counts.append((count, count(), table))
+    if fn_name in wgrad_tf32_routes:
+        count = lib.wgrad_tf32_launches
+        count.argtypes, count.restype = [], ctypes.c_longlong
+        counts.append((count, count(), wgrad_tf32_routes))
     with torch.cuda.device(device):       # launch on the tensors' card
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

@@ -1,6 +1,6 @@
 """Where the lean forward spends its time, by switching parts off.
 
-    cd <root of a checkout> && python3 <this file> [--f32] [--sm90 | --tf32 | --chain | --tune]
+    cd <root of a checkout> && python3 <this file> [--f32] [--sm90 | --tf32 | --chain | --tune | --wgrad]
 
 copies the checkout's csrc/ to a temporary directory, adds a compile-time
 mask FWD_OFF to the copy of lean_engines.cuh (nothing in the checkout
@@ -41,6 +41,14 @@ the bits 2 and 64 as with --tf32 (the products' helper is shared), and in
 lean_chain_tf32.cuh 1 the weight slabs' TMA loads, 4 the epilogue (the
 density term and the store into the tile), 8 the copy pass (the mask, and
 the copies to G and g1f), 16 the bias column sums, 32 the mask alone.
+
+With --wgrad it times the f32 weight-gradient kernel wgrad_tf32_kernel of
+lean_param_grads at the lego level, on the stream of f32 lean_save_fwd, in
+the forms of WGRAD_VARIANTS: its compile-time constants in
+lean_wgrad_tf32.cuh (which rows go to registers, the stages of products
+in flight, ring stages, stages between the accumulators' restarts) and two parts off (bit 1 the lo pass of the
+shared operand, bit 2 the register operand's split: hi = the word, lo =
+0).  Only lean_train.cu is built.
 """
 import ctypes
 import json
@@ -65,7 +73,9 @@ VARIANTS = {0: 'all on', 1: 'weight loads off', 2: 'products off',
             4: 'epilogue + store off', 8: 'copy_tile_out off',
             16: 'heads off', 32: 'IPE decode off', 6: 'products + epilogue off'}
 CHAIN = '--chain' in sys.argv[1:]
-F32 = CHAIN or any(a in sys.argv[1:] for a in ('--f32', '--tf32'))
+WGRAD = '--wgrad' in sys.argv[1:]
+LIBS = ('lean_train',) if WGRAD else ('lean_render', 'lean_train')
+F32 = CHAIN or WGRAD or any(a in sys.argv[1:] for a in ('--f32', '--tf32'))
 TF32 = '--tf32' in sys.argv[1:] or CHAIN
 if F32:
     VARIANTS[64] = 'operand split off'
@@ -78,6 +88,19 @@ if CHAIN:
 # lean_fwd_sm90_kernel, all parts on.
 TUNES = [(7, 1), (7, 2), (7, 3), (7, 5), (6, 1), (6, 3)]
 TUNE = '--tune' in sys.argv[1:]
+# --wgrad: label -> (G rows in registers, stages of products in flight,
+# ring stages, stages between restarts, parts off) of wgrad_tf32_kernel.
+WGRAD_VARIANTS = {
+    'as built': (1, 1, 5, 4, 0),
+    'activation rows in registers': (0, 1, 5, 4, 0),
+    'two stages in flight': (1, 2, 5, 4, 0),
+    '4 stages': (1, 1, 4, 4, 0),
+    'restart every 256 points': (1, 1, 5, 8, 0),
+    'restart every 512 points': (1, 1, 5, 16, 0),
+    'no restarts': (1, 1, 5, 1 << 20, 0),
+    'lo pass off': (1, 1, 5, 4, 1),
+    'register split off': (1, 1, 5, 4, 2),
+}
 # (text of lean_engines.cuh, the same text behind the mask's bit).
 SWITCHES = [
     ('namespace {\n\nconstexpr int TM = 64;',
@@ -183,6 +206,25 @@ SWITCHES_TF32 = [
      '        ah[kk][i] = __float_as_uint(v);\n        al[kk][i] = 0u;\n      }\n'
      '      continue;\n    }\n    split_tf32(s[0], ah[kk][0], al[kk][0]);'),
 ]
+# --wgrad makes the constants of lean_wgrad_tf32.cuh compile-time options
+# and adds the parts' switches.
+SWITCHES_WGRAD = [
+    ('constexpr int WT_STAGES = 5;',
+     '#ifndef WT_OFF\n#define WT_OFF 0\n#endif\n'
+     'constexpr int WT_STAGES = WT_STAGES_N;'),
+    ('constexpr int WT_RESTART = 4;', 'constexpr int WT_RESTART = WT_RESTART_N;'),
+    ('constexpr bool WT_GA = true;', 'constexpr bool WT_GA = WT_GA_N;'),
+    ('constexpr int WT_INFLIGHT = 1;', 'constexpr int WT_INFLIGHT = WT_INFLIGHT_N;'),
+    ('  auto split_lo = [&](int k) {\n',
+     '  auto split_lo = [&](int k) {\n    if (WT_OFF & 1) return;\n'),
+    ('      split_tf32(row0[ca], ah[kk][0], al[kk][0]);',
+     '      if (WT_OFF & 2) {\n'
+     '        const float v[4] = {row0[ca], row1[ca], row0[cb], row1[cb]};\n'
+     '        for (int i = 0; i < 4; ++i) {\n'
+     '          ah[kk][i] = __float_as_uint(v[i]);\n          al[kk][i] = 0u;\n'
+     '        }\n        continue;\n      }\n'
+     '      split_tf32(row0[ca], ah[kk][0], al[kk][0]);'),
+]
 # --tune makes the two constants of the copy compile-time options.
 SWITCHES_TUNE = [
     ('constexpr int FW_STAGES = 6;',
@@ -199,6 +241,12 @@ def variants():
         return {f'{n} stages, lag {lag}': [f'-DFW_STAGES_N={n}',
                                            f'-DFW_LAG_N={lag}']
                 for n, lag in TUNES}
+    if WGRAD:
+        return {label: [f'-DWT_GA_N={ga}', f'-DWT_INFLIGHT_N={inflight}',
+                        f'-DWT_STAGES_N={st}', f'-DWT_RESTART_N={rs}',
+                        f'-DWT_OFF={off}']
+                for label, (ga, inflight, st, rs, off)
+                in WGRAD_VARIANTS.items()}
     return {label: [f'-DFWD_OFF={v}'] for v, label in VARIANTS.items()}
 
 
@@ -211,6 +259,8 @@ def masked_sources(tmp):
             else 'lean_engines.cuh')
     edits = {name: (SWITCHES_TUNE if TUNE else SWITCHES_TF32 if TF32
                     else SWITCHES_SM90 if SM90 else SWITCHES)}
+    if WGRAD:
+        edits = {'lean_wgrad_tf32.cuh': SWITCHES_WGRAD}
     if CHAIN:
         edits['lean_chain_tf32.cuh'] = SWITCHES_CHAIN
     for name, switches in edits.items():
@@ -229,7 +279,7 @@ def build(tmp):
     procs = {}
     t0 = time.perf_counter()
     for v, (label, flags) in enumerate(variants().items()):
-        for name in ('lean_render', 'lean_train'):
+        for name in LIBS:
             so = os.path.join(tmp, f'lib{name}-{v}.so')
             cmd = [_build.nvcc_path(), *_build.FLAGS, *flags, '-o',
                    so, os.path.join(src, f'{name}.cu')]
@@ -281,20 +331,21 @@ def run(libs):
                                               cs.ACT, enc),
     }
     saved = []
-    if CHAIN:
+    if CHAIN or WGRAD:
         calls = {'lean_param_grads': lambda: km.lean_param_grads(
             view, g_rgb, g_dens, saved[-1], flat, *args, dt, cs.ACT)}
     out = {'smi': cs.smi_line()}
     for v, label in enumerate(variants()):
         _build._LOADED.clear()
-        for name in ('lean_render', 'lean_train'):
+        for name in LIBS:
             _build._LOADED[name] = ctypes.CDLL(libs[(v, name)])
-        if CHAIN:
+        if CHAIN or WGRAD:
             saved[:] = [km.lean_save_fwd(x, view, flat, *args, dt, cs.ACT)[2]]
         row = {}
         for cname, fn in calls.items():
             split = cs.kernel_device_ms(fn, iters=5)
-            names = (('lean_chain_tf32_kernel',) if CHAIN
+            names = (('wgrad_tf32_kernel',) if WGRAD
+                     else ('lean_chain_tf32_kernel',) if CHAIN
                      else ('lean_fwd_tf32_kernel',) if TF32
                      else ('lean_fwd_sm90_kernel',) if SM90
                      else ('lean_fwd_kernel', 'lean_mlp_kernel'))

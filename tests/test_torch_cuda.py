@@ -31,7 +31,10 @@ of the new forward give the same bits.  The f32 lean forwards at the same
 shapes run on the 3xTF32 wgmma forward (lean_fwd_tf32_kernel, `tf32_routes`
 against `fwd_tf32_route`) and the f32 lean chain on lean_chain_tf32_kernel
 (`chain_tf32_routes` against `chain_tf32_route`; the bf16 chain's calls in
-`chain_routes`), under the f32 bars above.
+`chain_routes`), under the f32 bars above.  The weight gradients of every
+f32 backward on a channel-major stream run on wgrad_tf32_kernel
+(`wgrad_tf32_routes` against `wgrad_tf32_route`; hybrid's point-major
+residuals keep the mma.sync kernel), and a stream it cannot map raises.
 The moments input form is held against the rows form on the plain decode
 of the same moments (<= 1e-5 f32), lean_composite_bwd and ipe_moments
 against their plain versions (<= 1e-5), and training through the
@@ -265,6 +268,13 @@ def chain_took(name):
     return tk.chain_routes[name], tk.chain_tf32_routes[name]
 
 
+def wgrad_calls(dtype, calls=1):
+    """Calls of a backward on a channel-major stream whose weight
+    gradients take wgrad_tf32_kernel in `dtype`: f32 at every shape the
+    tests use (their Mp and ranges are multiples of the 32-point slab)."""
+    return calls if dtype == 'float32' else 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('shape', list(TRAIN_SHAPES))
@@ -293,6 +303,7 @@ def test_cuda_lean_save_matches_plain(cuda_device, shape, dtype):
     assert tk.routes['lean_save_fwd'] == sm90_calls(cfg, dtype)
     assert tk.tf32_routes['lean_save_fwd'] == tf32_calls(cfg, dtype)
     assert chain_took('lean_param_grads') == chain_calls(cfg, dtype)
+    assert tk.wgrad_tf32_routes['lean_param_grads'] == wgrad_calls(dtype)
     ref_rgb, ref_dens, ref_saved = tk.lean_mlp_save_plain(
         x, view, flat, *args, torch.float32, act)
     ref_grads = tk.lean_param_grads_plain(view, g_rgb, g_dens, in_saved,
@@ -386,6 +397,8 @@ def test_cuda_recompute_matches_save(cuda_device, shape, dtype, act, chunks,
         == tf32_calls(cfg, dtype, 2)
     assert chain_took('lean_param_grads_recompute') \
         == chain_calls(cfg, dtype, 2)
+    assert tk.wgrad_tf32_routes['lean_param_grads_recompute'] \
+        == wgrad_calls(dtype, 2)
     assert all(torch.isfinite(g).all() for g in got)
     assert max_leaf_rel_err(got, want) <= 1e-5
     for a, b in zip(got, again):
@@ -549,6 +562,111 @@ def test_cuda_chain_plan_failure_raises(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_cuda_wgrad_tf32_route_matches_the_library(cuda_device):
+    """The library's rule of wgrad_tf32_kernel (C entry wgrad_tf32_route)
+    agrees with kernels/mlp.py wgrad_tf32_route, and its shared memory
+    fits the block's."""
+    from mipnerf_pl_tpu_torch.kernels import _build
+    lib = _build.load('lean_train')
+    for flag, dt in ((0, torch.float32), (1, torch.bfloat16)):
+        for pm in (0, 1):
+            for Mp, MC in ((393216, 15232), (320, 128), (64, 64),
+                           (393216, 15248), (400, 128), (0, 64)):
+                assert bool(lib.wgrad_tf32_route(flag, pm, Mp, MC)) \
+                    == tk.wgrad_tf32_route(dt, bool(pm), Mp, MC)
+    assert 0 < lib.lean_wgrad_tf32_smem() <= tk.FW_SMEM_MAX
+
+
+@pytest.mark.cuda
+def test_cuda_lego_wgrad_routes(cuda_device):
+    """At the lego shape every f32 backward on a channel-major stream runs
+    its weight gradients on wgrad_tf32_kernel, by the library's own count:
+    lean_param_grads, lean_param_grads_recompute, the render-fused level's
+    backward in both modes (through those two), mlp_bwd_saved,
+    mlp_bwd_recompute and tp_pair_bwd; hybrid's point-major residuals
+    never do.  Two runs of each give the same bits."""
+    from mipnerf_pl_tpu_torch.kernels import tp_lean
+    R, cfg = TRAIN_SHAPES['lego']
+    (x, view), flat, (g_rgb, g_dens) = _on(train_problem(R, **cfg),
+                                           cuda_device)
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], torch.float32, (0.001, -1.0))
+    saved = tk.lean_save_fwd(x, view, flat, *args)[2]
+    res = tk.lean_hybrid_fwd(x, view, flat, *args)[2]
+    ccfg, (cx, cview, cg_rgb, cg_dens), cflat = _classic_on('lego',
+                                                            cuda_device)
+    cargs = (ccfg['net_depth'], ccfg['net_depth_condition'],
+             ccfg['skip_index'], torch.float32)
+    cS = tk.mlp_save_fwd(cx, cview, cflat, *cargs)[2]
+    M = x.shape[0]
+    pair = _pair_problem_at((M, 1024, 512, 1024), cuda_device)
+    calls = {
+        'lean_param_grads': lambda: tk.lean_param_grads(
+            view, g_rgb, g_dens, saved, flat, *args),
+        'lean_param_grads_recompute': lambda: tk.lean_param_grads_recompute(
+            x, view, g_rgb, g_dens, flat, *args),
+        'lean_param_grads_hybrid': lambda: tk.lean_param_grads_hybrid(
+            view, g_rgb, g_dens, res, flat, *args),
+        'mlp_bwd_saved': lambda: tk.mlp_bwd_saved(
+            cg_rgb, cg_dens, cS, cflat, *cargs)[2],
+        'mlp_bwd_recompute': lambda: tk.mlp_bwd_recompute(
+            cx, cview, cg_rgb, cg_dens, cflat, *cargs)[2],
+        'tp_pair_bwd': lambda: tp_lean._pair_bwd_call(*pair, torch.float32),
+    }
+    tk.reset_launches()
+    for name, fn in calls.items():
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        want = 0 if name == 'lean_param_grads_hybrid' else 2
+        assert tk.wgrad_tf32_routes[name] == want, name
+        for a, b in zip(got, again):
+            assert torch.isfinite(a).all(), name
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # The render-fused level's backward, in each mode.
+    m = torch.tensor(problem(R, **cfg)[0], device=cuda_device)
+    delta = torch.full((R, cfg['N']), 0.01, device=cuda_device)
+    mids = 2.0 + torch.cumsum(delta, -1)
+    params = [p.clone().requires_grad_(True) for p in flat]
+    for mode, name in (('save', 'lean_param_grads'),
+                       ('recompute', 'lean_param_grads_recompute')):
+        tk.reset_launches()
+        out = tk.fused_mlp_lean_render(m, view, delta, mids, params, *args,
+                                       True, cfg['deg'], mode)
+        sum(o.sum() for o in out).backward()
+        torch.cuda.synchronize()
+        assert tk.wgrad_tf32_routes[name] == 1, mode
+        assert all(torch.isfinite(p.grad).all() for p in params)
+
+
+@pytest.mark.cuda
+def test_cuda_wgrad_plan_failure_raises(cuda_device):
+    """A backward whose stream the f32 weight-gradient kernel cannot map
+    (a saved stream 4 bytes off the 16-byte alignment a tensor map needs;
+    at the `small` widths the chain is the mma.sync one, which reads it)
+    raises; no other weight-gradient kernel runs in its place."""
+    R, cfg = TRAIN_SHAPES['small']
+    (x, view), flat, (g_rgb, g_dens) = _on(train_problem(R, **cfg),
+                                           cuda_device)
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], torch.float32, (0.001, -1.0))
+    S, heads = tk.lean_save_fwd(x, view, flat, *args)[2]
+    buf = torch.empty(S.numel() + 1, device=cuda_device)
+    off = buf[1:].view(S.shape)
+    off.copy_(S)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    assert tk.wgrad_tf32_route(torch.float32, False, S.shape[1], 64)
+    tk.reset_launches()
+    with pytest.raises(RuntimeError, match='lean_param_grads'):
+        tk.lean_param_grads(view, g_rgb, g_dens, (off, heads), flat, *args)
+    torch.cuda.synchronize()
+    assert tk.wgrad_tf32_routes['lean_param_grads'] == 0
+    # The aligned stream takes it.
+    tk.lean_param_grads(view, g_rgb, g_dens, (S, heads), flat, *args)
+    torch.cuda.synchronize()
+    assert tk.wgrad_tf32_routes['lean_param_grads'] == 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('shape', list(TRAIN_SHAPES))
 def test_cuda_lean_param_grads_deterministic(cuda_device, shape, dtype):
@@ -590,6 +708,7 @@ def test_cuda_hybrid_matches_plain(cuda_device, shape, dtype, act):
                                      dt, act)
     torch.cuda.synchronize()
     assert tk.launches['lean_param_grads_hybrid'] == 1
+    assert tk.wgrad_tf32_routes['lean_param_grads_hybrid'] == 0
     want = tk.lean_param_grads_hybrid_plain(view, g_rgb, g_dens, res, flat,
                                             *args, torch.float32, act)
     assert all(torch.isfinite(g).all() for g in got)
@@ -986,6 +1105,7 @@ def test_cuda_mlp_bwd_saved_matches_plain(cuda_device, shape, dtype):
     dx, dview, grads = tk.mlp_bwd_saved(g_rgb, g_dens, S, flat, *args, dt)
     torch.cuda.synchronize()
     assert tk.launches['mlp_bwd_saved'] == 1
+    assert tk.wgrad_tf32_routes['mlp_bwd_saved'] == wgrad_calls(dtype)
     rdx, rdview, rgrads = tk.mlp_bwd_saved_plain(g_rgb, g_dens, S, flat,
                                                  *args, torch.float32)
     bar = 1e-4 if dtype == 'float32' else 3e-2
@@ -1019,6 +1139,7 @@ def test_cuda_mlp_recompute_matches_saved(cuda_device, shape, dtype, chunks,
     again = tk.mlp_bwd_recompute(x, view, g_rgb, g_dens, flat, *args)
     torch.cuda.synchronize()
     assert tk.launches['mlp_bwd_recompute'] == 2
+    assert tk.wgrad_tf32_routes['mlp_bwd_recompute'] == wgrad_calls(dtype, 2)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert all(torch.isfinite(g).all() for g in got[2])
     assert max_leaf_rel_err(got[2], want[2]) <= 1e-5
@@ -1241,7 +1362,12 @@ PAIR_SHAPES = {'small': (200, 24, 16, 32), 'ragged': (777, 96, 64, 128),
 def _pair_problem(shape, dtype, device, seed=0):
     """x f32, or post-ReLU in the compute dtype when f_in is the output
     width (a later pair's input); f32 parameters and cotangent."""
-    M, f_in, Wl, Wout = PAIR_SHAPES[shape]
+    return _pair_problem_at(PAIR_SHAPES[shape], device, dtype, seed)
+
+
+def _pair_problem_at(dims, device, dtype=torch.float32, seed=0):
+    """_pair_problem at dims = (M, f_in, Wl, Wout)."""
+    M, f_in, Wl, Wout = dims
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -1273,6 +1399,7 @@ def test_cuda_pair_kernels_match_plain(cuda_device, shape, dtype):
     again = tp_lean._pair_bwd_call(*args, g, dt)
     torch.cuda.synchronize()
     assert tk.launches['tp_pair_fwd'] == 1 and tk.launches['tp_pair_bwd'] == 2
+    assert tk.wgrad_tf32_routes['tp_pair_bwd'] == wgrad_calls(dtype, 2)
     _close(out, tp_lean._pair_plain(*args, torch.float32), dtype)
     # The f32 backward on the operands as the kernel rounds them, so that
     # both recompute the same pre-activation and take the same ReLU mask.

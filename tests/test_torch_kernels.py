@@ -455,6 +455,100 @@ def test_chain_smem():
                                                  + 1024)
 
 
+# The backward entries and whether their activations are point-major.
+_WGRAD_ENTRIES = {'lean_param_grads': False,
+                  'lean_param_grads_recompute': False,
+                  'lean_param_grads_hybrid': True, 'mlp_bwd_saved': False,
+                  'mlp_bwd_recompute': False, 'tp_pair_bwd': False}
+
+
+@pytest.mark.parametrize('entry', list(_WGRAD_ENTRIES))
+@pytest.mark.parametrize('dtype,Mp,MC,want', [
+    ('f32', 393216, 15232, True),       # the lego level, its range
+    ('f32', 320, 128, True),            # the card tests' `small`
+    ('f32', 64, 64, True),
+    ('f32', 393216, 15248, False),      # MC not a multiple of the slab
+    ('f32', 400, 128, False),           # Mp not a multiple of the slab
+    ('f32', 0, 64, False),
+    ('bf16', 393216, 15232, False)])    # bf16 has wgrad_sm90_kernel
+def test_wgrad_tf32_route(entry, dtype, Mp, MC, want):
+    """The shape rule of the f32 weight gradients on wgmma
+    (wgrad_tf32_kernel): f32, a channel-major stream (every entry but
+    hybrid's point-major residuals, the classic forms and tp_pair_bwd
+    included), Mp and MC multiples of the 32-point slab."""
+    dt = torch.float32 if dtype == 'f32' else torch.bfloat16
+    pm = _WGRAD_ENTRIES[entry]
+    assert entry in tk.wgrad_tf32_routes
+    assert tk.WT_KP == 32
+    assert tk.wgrad_tf32_route(dt, pm, Mp, MC) is (want and not pm)
+
+
+def _trunc13(t):
+    """f32 t with its low 13 mantissa bits cleared: the tf32 the tensor
+    core reads from an f32 word."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _toward_zero(x64):
+    """f64 -> the f32 next to it toward zero (the tensor core's rounding of
+    its accumulators)."""
+    y = x64.float()
+    over = y.double().abs() > x64.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _tc_wgrad(a, g, period):
+    """a [K, P] @ g [N, P]^T as wgrad_tf32_kernel sums one range: 3xTF32
+    (the register operand, the cotangent rows g, split to nearest, hi and
+    lo rounded by cvt.rna.tf32; the shared operand, the activation rows a,
+    read as the tensor core reads it, hi = the word truncated, lo = a - hi
+    truncated), each k8 step's three products exact, added into the
+    accumulators rounded toward zero; every `period` points (None: never)
+    the accumulators restart into f32 sums rounded to nearest."""
+    gh, gl = tk.tf32_split(g)
+    gl = tk.tf32_split(gl)[0]
+    ah = _trunc13(a)
+    al = _trunc13(a - ah)
+    terms = [(x.double(), y.double()) for x, y in ((ah, gl), (al, gh),
+                                                   (ah, gh))]
+    tot = torch.zeros(a.shape[0], g.shape[0])
+    acc = torch.zeros(a.shape[0], g.shape[0], dtype=torch.float64)
+    for k0 in range(0, a.shape[1], 8):
+        if period and k0 and k0 % period == 0:
+            tot = tot + acc.float()
+            acc.zero_()
+        for x, y in terms:
+            acc = _toward_zero(acc + x[:, k0:k0 + 8] @ y[:, k0:k0 + 8].T)
+            acc = acc.double()
+    return tot + acc.float()
+
+
+def test_wgrad_tf32_numerics():
+    """Why wgrad_tf32_kernel restarts its accumulators every 128 points: on
+    one lego-sized range (15,232 points of seeded ReLU activations and
+    cotangents), 3xTF32 with the tensor core's round-toward-zero
+    accumulation drifts to ~1.4e-4 relative (||a - b|| / ||b|| against the
+    f64 sum), past the card's 1e-4 bar on the f32 parameter gradients;
+    restarted every 128 points into round-to-nearest f32 sums it stays at
+    ~1.2e-6, within 5x of a plain f32 sum."""
+    rng = np.random.default_rng(0)
+    P = 15232
+    a = torch.tensor(np.maximum(rng.normal(size=(64, P)), 0.0)
+                     .astype(np.float32))
+    g = torch.tensor((rng.normal(size=(64, P)) * 1e-3).astype(np.float32))
+    exact = a.double() @ g.double().T
+
+    def err(got):
+        return float(torch.linalg.norm(got.double() - exact)
+                     / torch.linalg.norm(exact))
+    restarted = err(_tc_wgrad(a, g, 128))
+    never = err(_tc_wgrad(a, g, None))
+    f32 = err(a @ g.T)
+    assert restarted <= 2e-6
+    assert restarted <= 5 * f32
+    assert never >= 1e-4 >= 50 * restarted
+
+
 def test_tf32_split():
     """The weight split of the f32 wgmma kernels: hi has its low 13
     mantissa bits zero (a tf32 value), hi + lo == w exactly in f32, and
