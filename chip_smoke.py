@@ -135,7 +135,35 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      cli.eval.main on the checkpoint writes psnrs.txt / ssims.txt with
      finite values and prints the summary; the run's rays/s and the share
      of its wall time spent waiting on the batcher;
+  7b. the multi-scale run through the command lines: make_sphere_scene
+     writes 24 / 2 / 2 views of 200x200 (PIL) into a temporary directory,
+     cli.convert --n_down 4 makes levels 200, 100, 50 and 25, cli.train
+     --dataset_name multi_blender trains the full-width lego model in f32
+     on pallas_lean_save, 3072 rays, 40 steps in dispatches of 5,
+     validation every 20 into a recording writer: lean_save_fwd and
+     lean_param_grads launch 2 a step on the f32 wgmma kernels
+     (check_routes, check_chain_routes, check_wgrad_routes), the render
+     kernels 2 x chunks a validation frame (lean_view_proj also 2 a step),
+     nothing else; the loss of step 40 finite and below step 5's; the
+     panels val/GT_coarse_fine [3, 3, h, w] and distance [3, h, w] at steps
+     20 and 40; cli.eval --scale 4 --base_size 200 200 --save_image: 8
+     PSNR entries, buckets 1 2 4 8 each with a non-empty .mov, a summary
+     with 4 PSNR and 4 SSIM columns; then the checkpoint's 200x200, 50x50
+     and 25x25 test frames through the kernel path against the plain path
+     on the card (max |d rgb|, |d acc| <= 1e-3);
+  7c. the orbit video: cli.render_video --scale 2 --base_size 200 200
+     --n_poses 4 from that checkpoint: 4 frames and a non-empty .mov in 1/
+     and in 2/, the render kernels 2 levels x chunks a frame, s/frame at
+     each level;
+  7d. the benches in this process: the port's bench with its defaults
+     (bf16, pallas_lean_save, K = 100): the 'xla' line, then the kernel
+     backend's last with parity_max_leaf_rel_err <= 3e-2, lean_save_fwd,
+     lean_param_grads and lean_view_proj 2 a step (the gate's step, the
+     warm-up and the timed calls); render_bench at 800x800 in f32 and bf16,
+     the render kernels 2 x 79 chunks a frame;
   8. the kernels' JSON line (launches, error, times, bound, library call;
+     each kernel's launches on the paths of phases 7b-7d under
+     `launches_new_paths`;
      for the lean forwards and backwards also the wgmma kernel that runs
      them, f32 `kernel` / `chain` / `wgrad` and bf16 under 'bf16'; for f32
      lean_param_grads also its weight gradients' own ms, bound and
@@ -167,13 +195,19 @@ import time
 import numpy as np
 import torch
 
+from mipnerf_pl_tpu_torch import bench as bench_mod
 from mipnerf_pl_tpu_torch import config
+from mipnerf_pl_tpu_torch import render_bench as render_bench_mod
+from mipnerf_pl_tpu_torch import system as system_mod
+from mipnerf_pl_tpu_torch.cli import convert as convert_cli
 from mipnerf_pl_tpu_torch.cli import eval as eval_cli
+from mipnerf_pl_tpu_torch.cli import render_video as video_cli
 from mipnerf_pl_tpu_torch.cli import train as train_cli
 from mipnerf_pl_tpu_torch.convert import jax_params_to_torch
 from mipnerf_pl_tpu_torch.data.datasets import (Blender, _alpha_composite,
                                                 dataset_dict)
 from mipnerf_pl_tpu_torch.data.synthetic import (CAMERA_ANGLE_X,
+                                                 make_sphere_scene,
                                                  render_sphere_view)
 from mipnerf_pl_tpu_torch.kernels import _build
 from mipnerf_pl_tpu_torch.kernels import ipe as ki
@@ -187,7 +221,8 @@ from mipnerf_pl_tpu_torch.ops.render import delta_mids
 from mipnerf_pl_tpu_torch.ops.sampling import sample_along_rays
 from mipnerf_pl_tpu_torch.parallel.mesh import create_mesh
 from mipnerf_pl_tpu_torch.rays import Rays
-from mipnerf_pl_tpu_torch.system import MipNeRFSystem
+from mipnerf_pl_tpu_torch.system import MipNeRFSystem, make_dataset
+from mipnerf_pl_tpu_torch.train.ckpt import load_hparams, restore_for_eval
 from mipnerf_pl_tpu_torch.utils.vis import create_spheric_poses
 
 CHUNK = 8192            # rays per level-chunk (val.chunk_size)
@@ -258,6 +293,13 @@ RUN_VIEWS = {'train': 24, 'val': 2, 'test': 2}
 RUN_SIDE = 64
 RUN_STEPS, RUN_RESUMED_STEPS, RUN_K, RUN_VAL = 40, 50, 5, 20
 ACT = (0.001, -1.0)
+# The multi-scale run of phase 7b: views of MS_SIDE on disk, MS_LEVELS
+# pyramid levels, and the test entries (view 0's levels 200, 50, 25) held
+# against the plain path; the orbit video of phase 7c.
+MS_VIEWS = {'n_train': 24, 'n_val': 2, 'n_test': 2}
+MS_SIDE, MS_LEVELS = 200, 4
+MS_FRAMES = (0, 2, 3)
+VIDEO_SCALES, VIDEO_POSES = 2, 4
 # The TP slice: (net_width, shards, model axis) of its two meshes, and the
 # rows of the ragged pair comparison.
 TP_MESHES = ((1024, 2, 2), (256, 8, 4))
@@ -1984,6 +2026,271 @@ def whole_run(hp0):
     return counts
 
 
+class RecordingWriter:
+    """A TensorBoard writer's interface that keeps the images it is
+    given."""
+
+    def __init__(self):
+        self.images = []
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def add_images(self, tag, value, step):
+        self.images.append((tag, np.asarray(value), step))
+
+    add_image = add_images
+
+    def close(self):
+        pass
+
+
+def render_counts(side_h, side_w, levels):
+    """Launches of each render kernel for one frame: levels x chunks."""
+    return levels * -(-side_h * side_w // CHUNK)
+
+
+def check_render_launches(counts, want, where):
+    """Raise unless each render kernel launched `want` times and no other
+    kernel ran."""
+    bad = {k: v for k, v in counts.items()
+           if v != (want if k in RENDER_KERNELS else 0)}
+    if bad:
+        raise AssertionError(f'{where}: expected {want} launches of each '
+                             f'render kernel and nothing else, got {bad}')
+
+
+def multiscale_run(hp0, dev, root):
+    """Phase 7b: a multi-scale Blender run through the command lines, the
+    scene written under `root`; -> (the checkpoint directory, {path: launch
+    counts})."""
+    levels = hp0['nerf.num_levels']
+    paths = {}
+    t0 = time.perf_counter()
+    blender = os.path.join(root, 'blender')
+    make_sphere_scene(os.path.join(blender, 'sphere'), size=MS_SIDE,
+                      **MS_VIEWS)
+    convert_cli.main(['--blender_dir', blender, '--out_dir',
+                      os.path.join(root, 'multi'), '--n_down',
+                      str(MS_LEVELS)])
+    data = os.path.join(root, 'multi', 'sphere')
+    with open(os.path.join(data, 'metadata.json')) as f:
+        sizes = sorted({int(w) for w in json.load(f)['train']['width']},
+                       reverse=True)
+    log(f'[multi] make_sphere_scene {MS_VIEWS} of {MS_SIDE}x{MS_SIDE}, '
+        f'cli.convert --n_down {MS_LEVELS}: levels {sizes} in '
+        f'{time.perf_counter() - t0:.1f} s')
+    if sizes != [MS_SIDE >> i for i in range(MS_LEVELS)]:
+        raise AssertionError(f'the pyramid has levels {sizes}')
+
+    out = os.path.join(root, 'out')
+    writer = RecordingWriter()
+    make_writer = system_mod._summary_writer
+    system_mod._summary_writer = lambda logdir: writer
+    km.reset_launches()
+    try:
+        system, state = train_cli.main([
+            '--data_path', data, '--out_dir', out, '--dataset_name',
+            'multi_blender', '--max_steps', str(RUN_STEPS), 'exp_name',
+            'multi', 'nerf.mlp_backend', 'pallas_lean_save',
+            'train.batch_size', str(TRAIN_RAYS), 'train.steps_per_call',
+            str(RUN_K), 'val.check_interval', str(RUN_VAL), 'val.sample_num',
+            '1', 'optimizer.lr_delay_steps', '0'])
+    finally:
+        system_mod._summary_writer = make_writer
+    counts = paths['multiscale_train'] = dict(km.launches)
+    hp = system.hparams
+    stats = system.fit_stats
+    # Validation renders val entries 0 (the sanity frame and step 20) and
+    # 1 (step 40): levels 200 and 100 of the first view.
+    val = system.val_dataset
+    frames = [val.camera(i)[1] for i in (0, 0, 1)]
+    want_render = sum(render_counts(h, w, levels) for h, w in frames)
+    # The training forward projects the view rows through lean_view_proj
+    # too.
+    want = {'lean_save_fwd': levels * RUN_STEPS,
+            'lean_param_grads': levels * RUN_STEPS,
+            **{k: want_render for k in RENDER_KERNELS}}
+    want['lean_view_proj'] += levels * RUN_STEPS
+    log(f'[multi] cli.train --dataset_name multi_blender, {RUN_STEPS} steps '
+        f'of {TRAIN_RAYS} rays, f32 pallas_lean_save: loss '
+        f'{stats["loss_first"]:.5f} at step {RUN_K} -> '
+        f'{stats["loss_last"]:.5f} at step {RUN_STEPS}; '
+        f'{stats["rays_per_sec"]:,.0f} rays/s over the training time; the '
+        f'loop waited on the batcher for '
+        f'{100 * stats["data_wait_share"]:.2f} % of its '
+        f'{stats["loop_seconds"]:.2f} s; launches '
+        f'{ {k: v for k, v in counts.items() if v} }')
+    if any(counts[k] != want.get(k, 0) for k in counts):
+        raise AssertionError(f'the run launched {counts}, expected {want} '
+                             'and nothing else')
+    check_routes(hp, torch.float32, 'phase 7b run',
+                 lean_save_fwd=levels * RUN_STEPS, lean_mlp=want_render)
+    check_chain_routes(hp, torch.float32, 'phase 7b run',
+                       lean_param_grads=levels * RUN_STEPS)
+    check_wgrad_routes(hp, torch.float32, 'phase 7b run',
+                       lean_param_grads=levels * RUN_STEPS)
+    if state['step'] != RUN_STEPS or not (
+            np.isfinite(stats['loss_last'])
+            and stats['loss_last'] < stats['loss_first']):
+        raise AssertionError(f'the multi-scale loss did not fall: {stats}')
+    # The first image's panels at each validation (steps 20 and 40).
+    panels = [(tag, v.shape, step) for tag, v, step in writer.images]
+    want_panels = []
+    for step, (h, w) in zip((RUN_VAL, RUN_STEPS), frames[1:]):
+        want_panels += [('val/GT_coarse_fine', (3, 3, h, w), step),
+                        ('distance', (3, h, w), step)]
+    log(f'[multi] validation panels {panels}')
+    if panels != want_panels or not all(np.all(np.isfinite(v))
+                                        for _, v, _ in writer.images):
+        raise AssertionError(f'the panels are {panels}, expected '
+                             f'{want_panels}, finite')
+
+    ckpt_dir = os.path.join(out, 'ckpt', 'multi')
+    km.reset_launches()
+    summary = eval_cli.main(['--ckpt', ckpt_dir, '--out_dir', out,
+                             '--scale', str(MS_LEVELS), '--base_size',
+                             str(MS_SIDE), str(MS_SIDE), '--save_image',
+                             '--chunk_size', str(CHUNK)])
+    counts = paths['multiscale_eval'] = dict(km.launches)
+    test_dir = os.path.join(out, 'test', 'multi')
+    with open(os.path.join(test_dir, 'psnrs.txt')) as f:
+        psnrs = [float(v) for v in f.read().split()]
+    buckets = sorted(d for d in os.listdir(test_dir)
+                     if os.path.isdir(os.path.join(test_dir, d)))
+    movs = {d: [os.path.getsize(os.path.join(test_dir, d, m))
+                for m in os.listdir(os.path.join(test_dir, d))
+                if m.endswith('.mov')] for d in buckets}
+    columns = [part.split() for part in summary.split(' | ')]
+    n_test = MS_VIEWS['n_test']
+    want_render = n_test * sum(render_counts(s, s, levels)
+                               for s in sizes)
+    log(f'[multi] cli.eval --scale {MS_LEVELS} --base_size {MS_SIDE} '
+        f'{MS_SIDE} --save_image: psnrs {np.round(psnrs, 3).tolist()}; '
+        f'buckets {buckets}, .mov bytes {movs}; summary {summary}; '
+        f'launches { {k: v for k, v in counts.items() if v} }')
+    check_render_launches(counts, want_render, 'phase 7b eval')
+    if (len(psnrs) != n_test * MS_LEVELS or not np.all(np.isfinite(psnrs))
+            or buckets != sorted(str(2 ** i) for i in range(MS_LEVELS))
+            or any(len(v) != 1 or v[0] == 0 for v in movs.values())
+            or [len(c) for c in columns] != [MS_LEVELS, MS_LEVELS, 1]):
+        raise AssertionError('eval did not write the multi-scale buckets')
+
+    # The checkpoint's test frames through the kernel path against the
+    # plain path on the card.
+    hp = load_hparams(ckpt_dir)
+    _, params = restore_for_eval(ckpt_dir)
+    params = {k: v.to(dev) for k, v in params['params'].items()}
+    kernel_sys = MipNeRFSystem(hp, device=dev)
+    plain_sys = MipNeRFSystem(dict(hp, **{'val.mlp_backend': 'xla'}),
+                              device=dev)
+    test = make_dataset(hp, 'multi_blender', data, 'test')
+    for index in MS_FRAMES:
+        cam, (h, w) = test.camera(index)
+        km.reset_launches()
+        got = kernel_sys.render_camera(params, cam, h, w, chunk_size=CHUNK,
+                                       need_coarse=False)
+        check_render_launches(dict(km.launches),
+                              render_counts(h, w, levels),
+                              f'phase 7b {h}x{w} frame')
+        ref = plain_sys.render_camera(params, cam, h, w, chunk_size=CHUNK,
+                                      need_coarse=False)
+        d_rgb = float(np.abs(got['fine_rgb'] - ref['fine_rgb']).max())
+        d_acc = float(np.abs(got['acc'] - ref['acc']).max())
+        log(f'[multi] test entry {index} ({h}x{w}, {h * w} rays): kernel vs '
+            f'plain max|d rgb| {d_rgb:.3e} max|d acc| {d_acc:.3e} (bar '
+            f'{FRAME_BAR})')
+        if d_rgb > FRAME_BAR or d_acc > FRAME_BAR or not all(
+                np.all(np.isfinite(v)) for v in got.values()):
+            raise AssertionError(f'the {h}x{w} frame disagrees with the '
+                                 'plain path')
+    return ckpt_dir, paths
+
+
+def orbit_video(hp0, ckpt_dir, root):
+    """Phase 7c: cli.render_video from the multi-scale checkpoint; -> its
+    launch counts."""
+    levels = hp0['nerf.num_levels']
+    out = os.path.join(root, 'video')
+    km.reset_launches()
+    seconds = video_cli.main(['--ckpt', ckpt_dir, '--out_dir', out,
+                              '--scale', str(VIDEO_SCALES), '--base_size',
+                              str(MS_SIDE), str(MS_SIDE), '--n_poses',
+                              str(VIDEO_POSES), '--chunk_size', str(CHUNK)])
+    counts = dict(km.launches)
+    video_dir = os.path.join(out, 'render_spheric', 'multi')
+    frames, movs = {}, {}
+    for i in range(VIDEO_SCALES):
+        d = os.path.join(video_dir, str(2 ** i))
+        frames[2 ** i] = len([f for f in os.listdir(d)
+                              if f.endswith('_rgb.png')])
+        movs[2 ** i] = [os.path.getsize(os.path.join(d, f))
+                        for f in os.listdir(d) if f.endswith('.mov')]
+    want = VIDEO_POSES * sum(render_counts(MS_SIDE >> i, MS_SIDE >> i,
+                                           levels)
+                             for i in range(VIDEO_SCALES))
+    per_frame = {k: f'{np.mean(v):.4f}' for k, v in seconds.items()}
+    log(f'[video] cli.render_video --scale {VIDEO_SCALES} --base_size '
+        f'{MS_SIDE} {MS_SIDE} --n_poses {VIDEO_POSES}: frames {frames}, '
+        f'.mov bytes {movs}; s/frame by level (width divisor) {per_frame}; '
+        f'launches { {k: v for k, v in counts.items() if v} }')
+    check_render_launches(counts, want, 'phase 7c')
+    if (frames != {2 ** i: VIDEO_POSES for i in range(VIDEO_SCALES)}
+            or any(len(v) != 1 or v[0] == 0 for v in movs.values())):
+        raise AssertionError('render_video did not write its frames and '
+                             'videos')
+    return counts
+
+
+def benches(hp0):
+    """Phase 7d: the port's bench with its defaults and render_bench at
+    800x800 in f32 and bf16, in this process; -> {path: launch counts}."""
+    import contextlib
+    import io
+    levels = hp0['nerf.num_levels']
+    paths = {}
+    km.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_mod.main([])
+    counts = paths['bench'] = dict(km.launches)
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()
+             if x.startswith('{')]
+    for line in lines:
+        log(f'[bench] {json.dumps(line)}')
+    k = int(os.environ.get('BENCH_K', '100'))
+    steps = 1 + (bench_mod.WARMUP_CALLS + bench_mod.N_CALLS) * k
+    want = {name: levels * steps for name in ('lean_view_proj',
+                                              'lean_save_fwd',
+                                              'lean_param_grads')}
+    log(f'[bench] launches { {n: v for n, v in counts.items() if v} } '
+        f'(want {want})')
+    keys = {'metric', 'value', 'unit', 'ms_per_step', 'backend'}
+    if (rc != 0 or len(lines) != 2
+            or [x['backend'] for x in lines] != ['xla', 'pallas_lean_save']
+            or any(not keys <= set(x) for x in lines)
+            or not lines[-1]['parity_ok']
+            or lines[-1]['parity_max_leaf_rel_err'] > BF16_BAR
+            or any(counts[n] != want.get(n, 0) for n in counts)):
+        raise AssertionError(f'the bench failed: rc {rc}, lines {lines}')
+    check_routes(hp0, torch.bfloat16, 'phase 7d bench',
+                 lean_save_fwd=levels * steps)
+    frames = render_bench_mod.WARMUP_FRAMES + render_bench_mod.TIMED_FRAMES
+    for dtype in ('float32', 'bfloat16'):
+        km.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            line = render_bench_mod.main(['--side', str(FULL_SIDE),
+                                          'train.compute_dtype', dtype])
+        counts = paths[f'render_bench_{dtype}'] = dict(km.launches)
+        log(f'[render_bench] {json.dumps(line)}; launches '
+            f'{ {n: v for n, v in counts.items() if v} }')
+        frame = frames * levels * -(-FULL_SIDE ** 2 // line['chunk'])
+        check_render_launches(counts, frame, f'phase 7d render_bench {dtype}')
+        if not np.isfinite(line['sec_per_frame']):
+            raise AssertionError(f'render_bench {dtype}: {line}')
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this run needs an NVIDIA GPU',
@@ -2150,6 +2457,10 @@ def main() -> int:
     train_counts = train_slice(hp, params, dev)
     no_view_slice(hp_nv, params_nv, dev)
     run_counts = whole_run(hp)
+    with tempfile.TemporaryDirectory() as root:
+        ckpt_dir, new_paths = multiscale_run(hp, dev, root)
+        new_paths['orbit_video'] = orbit_video(hp, ckpt_dir, root)
+    new_paths.update(benches(hp))
     if '--measure' in sys.argv[1:]:
         measure(hp, params, dev)
 
@@ -2179,6 +2490,9 @@ def main() -> int:
                         'bound_by': r['bound_by'],
                         'library_ms': r['library_ms']})
         kernels[-1]['share'] = r['bound_ms'] / r['ms']
+        # The kernel's launches on the paths of phases 7b-7d.
+        kernels[-1]['launches_new_paths'] = {
+            path: c[name] for path, c in new_paths.items() if c[name]}
         rb = results.get((name, 'bf16'))
         if rb is not None:     # the compute dtype of the bf16 steps
             kernels[-1]['bf16'] = {k: rb[k] for k in (

@@ -12,11 +12,16 @@ its module names so every function has an obvious counterpart:
                     (csrc/ipe.cu)
   models/           MLP and the bounded MipNerf forward
   convert.py        flax param tree <-> this package's state dict
-  data/             Blender dataset, synthetic scenes, the train batcher
+  data/             Blender and multi-scale (Multicam) datasets, the
+                    multi-scale converter, the orbit's cameras, synthetic
+                    scenes, the train batcher
   train/            LR schedule, Adam, checkpoints
-  utils/            metrics (PSNR, SSIM, summaries), image saving, poses
+  utils/            metrics (PSNR, SSIM, summaries), image saving, panels,
+                    camera paths
   system.py         MipNeRFSystem: train step, renders, validate, fit
-  cli/              the train and eval command lines
+  cli/              the train, eval, convert and render_video command lines
+  bench.py          training rays/s on the lego workload (bench.py's line)
+  render_bench.py   s/frame of render_camera
 
 It imports torch and numpy only: never jax, flax, optax, orbax or the JAX
 package.

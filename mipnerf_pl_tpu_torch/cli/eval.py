@@ -2,14 +2,18 @@
 --device.
 
   python -m mipnerf_pl_tpu_torch.cli.eval --ckpt OUT/ckpt/<exp> --data DATA \\
-      --out_dir OUT --scale 1 [--chunk_size N] [--save_image] [--no_video] \\
-      [--device cpu]
+      --out_dir OUT --scale 1|2|4 [--base_size W H] [--chunk_size N] \\
+      [--save_image] [--no_video] [--device cpu]
 
 Renders the test split from a checkpoint (hparams restored from the
 checkpoint directory), computes per-image PSNR / SSIM, writes
-OUT/test/<exp>/psnrs.txt and ssims.txt, optionally dumps images into
-per-scale directories, and prints the 'PSNR | SSIM | Average' summary.
-Video generation is not ported: --save_image needs --no_video.
+OUT/test/<exp>/psnrs.txt and ssims.txt, and prints the 'PSNR | SSIM |
+Average' summary with one PSNR and one SSIM column per scale: a
+multi_blender test split holds `--scale` consecutive levels of each view,
+and entry i falls in bucket i % scale.  With --save_image each image goes
+into OUT/test/<exp>/<base width / width>/ and, unless --no_video, each of
+those directories gets a looping video of its frames
+(cli/render_video.py generate_video).
 """
 
 from __future__ import annotations
@@ -66,11 +70,6 @@ def evaluate(args) -> list:
     exp_name = hparams['exp_name']
     if args.summa_only:
         return [exp_name]
-    if args.save_image and not args.no_video:
-        raise NotImplementedError(
-            'video generation is not ported yet (ROADMAP.md, the port\'s '
-            'queue 1: render_video); pass --no_video')
-
     system = MipNeRFSystem(hparams, device=args.device)
     # --white_bkgd drives the render compositing; the dataset's compositing
     # follows the checkpoint's hparams.
@@ -120,6 +119,9 @@ def evaluate(args) -> list:
         f.write(' '.join(str(v) for v in psnr_values))
     with open(os.path.join(exp_dir, 'ssims.txt'), 'w') as f:
         f.write(' '.join(str(v) for v in ssim_values))
+    if args.save_image and not args.no_video:
+        from mipnerf_pl_tpu_torch.cli.render_video import generate_video
+        generate_video(exp_dir)
     return [exp_name]
 
 

@@ -1,15 +1,16 @@
 """Datasets: host-side numpy image loading and ray generation.
 
 Counterpart of mipnerf_pl_tpu/data/datasets.py for the single-scale Blender
-(NeRF-synthetic) layout.  Rays are computed once into numpy arrays;
-training batches are gathered on the host by `sample_batch`, with
-replacement, from a seeded numpy Generator (the same `rng.integers` draw as
-the JAX package, so one seed gives both the same batches), and shipped to
-the device by data/pipeline.py.  PIL and cv2 are imported inside the
+(NeRF-synthetic) layout (`blender`) and the multi-scale layout that
+data/convert.py writes (`multi_blender`).  Rays are computed once into
+numpy arrays; training batches are gathered on the host by `sample_batch`,
+with replacement, from a seeded numpy Generator (the same `rng.integers`
+draw as the JAX package, so one seed gives both the same batches), and
+shipped to the device by data/pipeline.py.  PIL and cv2 are imported inside the
 functions that read files.
 
-The multi-scale (`multi_blender`) and LLFF (`real360`) datasets are not
-ported yet: their names are registered and raise NotImplementedError.
+The LLFF dataset (`real360`) is not ported yet: its name is registered and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -114,6 +115,83 @@ class BaseDataset:
         return Rays(*[f[idx] for f in self.rays]), self.images[idx]
 
 
+class Multicam(BaseDataset):
+    """Multi-scale dataset driven by metadata.json: every entry has its own
+    resolution, pix2cam, near, far and lossmult (data/convert.py)."""
+
+    def __init__(self, data_dir, split='train', white_bkgd=True,
+                 batch_type='all_images', factor=0):
+        # factor is accepted as the other datasets take it; multi-scale data
+        # carries its own per-image resolutions, so a downsample cannot
+        # apply.
+        if factor:
+            import warnings
+            warnings.warn(
+                f'Multicam ignores data.factor={factor}: multi-scale data '
+                'carries per-image resolutions in metadata.json',
+                stacklevel=2)
+        super().__init__(data_dir, split, white_bkgd, batch_type)
+        self._init_split()
+
+    def _load_renderings(self):
+        with open(os.path.join(self.data_dir, 'metadata.json'), 'r') as fp:
+            self.meta = json.load(fp)[self.split]
+        self.meta = {k: np.array(self.meta[k]) for k in self.meta}
+        self.images = [
+            _alpha_composite(_load_image(os.path.join(self.data_dir, rel)),
+                             self.white_bkgd)
+            for rel in self.meta['file_path']]
+
+    def _generate_rays(self):
+        pix2cam = self.meta['pix2cam'].astype(np.float32)
+        cam2world = self.meta['cam2world'].astype(np.float32)
+        width = self.meta['width'].astype(np.float32)
+        height = self.meta['height'].astype(np.float32)
+
+        def res2grid(w, h):
+            return np.meshgrid(
+                np.arange(w, dtype=np.float32) + 0.5,   # pixel centres
+                np.arange(h, dtype=np.float32) + 0.5,
+                indexing='xy')
+
+        xy = [res2grid(w, h) for w, h in zip(width, height)]
+        pixel_dirs = [np.stack([x, y, np.ones_like(x)], axis=-1)
+                      for x, y in xy]
+        camera_dirs = [v @ p2c[:3, :3].T
+                       for v, p2c in zip(pixel_dirs, pix2cam)]
+        directions = [(v @ c2w[:3, :3].T).copy()
+                      for v, c2w in zip(camera_dirs, cam2world)]
+        origins = [np.broadcast_to(c2w[:3, -1], v.shape).copy()
+                   for v, c2w in zip(directions, cam2world)]
+        viewdirs = [v / np.linalg.norm(v, axis=-1, keepdims=True)
+                    for v in directions]
+
+        def per_image_scalar(key):
+            return [np.broadcast_to(self.meta[key][i],
+                                    origins[i][..., :1].shape
+                                    ).astype(np.float32)
+                    for i in range(len(self.images))]
+
+        self.rays = Rays(
+            origins=origins,
+            directions=directions,
+            viewdirs=viewdirs,
+            radii=[pixel_radii(v) for v in directions],
+            lossmult=per_image_scalar('lossmult'),
+            near=per_image_scalar('near'),
+            far=per_image_scalar('far'))
+
+    def camera(self, index):
+        from mipnerf_pl_tpu_torch.ops.camera import Camera, fold_pixel_center
+        return Camera(
+            c2w=self.meta['cam2world'][index][:3, :4].astype(np.float32),
+            pix2cam=fold_pixel_center(self.meta['pix2cam'][index]),
+            near=np.float32(self.meta['near'][index]),
+            far=np.float32(self.meta['far'][index]),
+            lossmult=np.float32(self.meta['lossmult'][index]),
+        ), (int(self.meta['height'][index]), int(self.meta['width'][index]))
+
+
 class Blender(BaseDataset):
     """Single-scale NeRF-synthetic dataset (transforms_{split}.json), with
     the factor=2 half-resolution INTER_AREA downsample."""
@@ -190,12 +268,12 @@ def _not_ported(name: str):
     def build(*args, **kwargs):
         raise NotImplementedError(
             f'dataset {name!r} is not ported yet (ROADMAP.md, the port\'s '
-            'queue 1); use "blender"')
+            'queue 1); use "blender" or "multi_blender"')
     return build
 
 
 dataset_dict = {
     'blender': Blender,
-    'multi_blender': _not_ported('multi_blender'),
+    'multi_blender': Multicam,
     'real360': _not_ported('real360'),
 }

@@ -25,8 +25,12 @@ training run: data, K-step dispatches over the batcher, the log line,
 validation with val_history.csv, a checkpoint after each validation (top-k
 by val PSNR plus the last) and resume.  cli/train.py and cli/eval.py are the
 command lines over it.  TensorBoard events are written when `tensorboardX`
-imports; the CSV and the log lines always are.  The image and depth panels
-of the JAX package's validation writer are not ported.
+imports: the scalars, and at each validation the panels of its first image
+(`val/GT_coarse_fine`: ground truth, coarse and fine; `distance`: the
+colour-mapped distance map); the CSV and the log lines always are.  Every
+image size goes through the same code: the datasets (single-scale
+`blender`, multi-scale `multi_blender`) hand each view's camera and size to
+the renders, and the loss weights each ray by its `lossmult`.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from mipnerf_pl_tpu_torch.train.ckpt import CheckpointManager
 from mipnerf_pl_tpu_torch.train.opt import adam, adam_step
 from mipnerf_pl_tpu_torch.train.schedule import mip_lr_decay
 from mipnerf_pl_tpu_torch.utils.metrics import calc_psnr
+from mipnerf_pl_tpu_torch.utils.vis import stack_rgb, visualize_depth
 
 
 def _render_fusion_ok(hparams: Dict[str, Any]) -> bool:
@@ -143,8 +148,8 @@ def _refuse_parallel_settings(hparams) -> None:
         raise NotImplementedError(
             f'MipNeRFSystem runs on one device; {", ".join(asked)} asks for '
             'data or tensor parallelism through the system, which is not '
-            'ported yet (ROADMAP.md, queue 1, item 8: MipNeRFSystem under '
-            'parallel.model_axis > 1, data parallelism through fit, '
+            'ported yet (ROADMAP.md, queue 1: data parallelism through '
+            'fit, MipNeRFSystem under parallel.model_axis > 1, '
             'multi-host)')
 
 
@@ -420,7 +425,10 @@ class MipNeRFSystem:
                  global_step: int = 0, start_index: int = 0):
         """Render `num_images` val images from start_index on (cyclic);
         log and return the mean loss (coarse_loss_mult * coarse MSE + fine
-        MSE, masked by lossmult) and the mean fine PSNR."""
+        MSE, masked by lossmult) and the mean fine PSNR.  With a writer:
+        the scalars, and the first image's panels `val/GT_coarse_fine`
+        ([3, 3, H, W]: ground truth, coarse, fine) and `distance` (the
+        colour-mapped distance map, CHW)."""
         val_losses, val_psnrs = [], []
         n = len(self.val_dataset)
         for i in range(num_images):
@@ -445,6 +453,13 @@ class MipNeRFSystem:
             val_losses.append(self.coarse_loss_mult * mse_c + mse_f)
             val_psnrs.append(
                 -10.0 * np.log10(np.mean((out['fine_rgb'] - gt) ** 2)))
+            if writer is not None and i == 0:
+                writer.add_images('val/GT_coarse_fine',
+                                  stack_rgb(gt, out['coarse_rgb'],
+                                            out['fine_rgb']), global_step)
+                writer.add_image('distance', np.transpose(
+                    visualize_depth(out['distance']), (2, 0, 1)),
+                    global_step)
         mean_loss = float(np.mean(val_losses))
         mean_psnr = float(np.mean(val_psnrs))
         if writer is not None:

@@ -69,11 +69,18 @@ def test_blender_equals_jax(scene, split, batch_type, factor):
                 np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
 
-def test_dataset_registry_and_refusals(scene):
+def test_dataset_registry_and_refusals(scene, tmp_path):
     assert dataset_dict['blender'] is Blender
-    for name in ('multi_blender', 'real360'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            dataset_dict[name](data_dir=scene, split='train')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        dataset_dict['real360'](data_dir=scene, split='train')
+    # multi_blender builds on the converted scene.
+    from mipnerf_pl_tpu_torch.data.convert import convert_to_nerfdata
+    from mipnerf_pl_tpu_torch.data.datasets import Multicam
+    convert_to_nerfdata(scene, str(tmp_path / 'multi'), 2)
+    multi = dataset_dict['multi_blender'](data_dir=str(tmp_path / 'multi'),
+                                          split='train')
+    assert isinstance(multi, Multicam)
+    assert multi.num_rays == 3 * (16 * 16 + 8 * 8)
     with pytest.raises(ValueError, match='factor'):
         Blender(scene, 'train', factor=4)
     with pytest.raises(ValueError, match='all_images'):

@@ -172,12 +172,14 @@ def test_eval_cli_writes_the_metrics(run, scene, capsys):
     pngs = sorted(os.listdir(os.path.join(exp, '50')))    # 800 / 16
     assert len(pngs) == 9 and pngs[0] == '00000_acc.png'
     # --summa_only reads the files back; the data path defaults to the
-    # checkpoint's; video generation is refused by name.
+    # checkpoint's; without --no_video each bucket gets a video (the
+    # images' own size as --base_size puts them in bucket 1).
     assert eval_cli.main(['--ckpt', ck, '--out_dir', out, '--scale', '1',
                           '--summa_only']) == summary
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        eval_cli.main(['--ckpt', ck, '--out_dir', out, '--scale', '1',
-                       '--save_image', '--device', 'cpu'])
+    eval_cli.main(['--ckpt', ck, '--out_dir', out, '--scale', '1',
+                   '--base_size', '16', '16', '--save_image', '--device',
+                   'cpu'])
+    assert os.path.getsize(os.path.join(exp, '1', 'video_1.mov')) > 0
 
 
 def test_eval_falls_back_only_when_camera_is_missing(run, scene, tmp_path,
