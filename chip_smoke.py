@@ -31,8 +31,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      agree (max |d rgb|, max |d acc| <= 1e-3 in f32); the same frame in
      bf16, lean_mlp on the wgmma forward 2 x 5 times, against the f32 plain
      frame (max |d rgb|, max |d acc| <= 3e-2); then the frame with
-     val.mlp_backend pallas (fused_mlp's forward, mlp_fwd, 2 x 5 launches)
-     against the same plain frame at the same bar; then the frame with
+     val.mlp_backend pallas (fused_mlp's forward, mlp_fwd, 2 x 5 launches,
+     each on lean_fwd_tf32_kernel's classic form) against the same plain
+     frame at the same bar; then the frame with
      nerf.ipe_backend pallas (val.mlp_backend auto then resolves to the
      plain MLP: ipe_fwd alone, 2 x 5 launches) against the plain frame
      through the default encode, same bar (the two encodes' cosine halves
@@ -69,10 +70,15 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      phase-3 bars, mlp_bwd_saved on the plain forward's stream (dx, dview
      and every parameter at bench.py's metric, <= 1e-4 f32, <= 3e-2 bf16),
      mlp_bwd_recompute against mlp_bwd_saved on the kernel forward's stream
-     (<= 1e-5, dx and dview bit for bit, two runs equal); the same four
+     (<= 1e-5, dx and dview bit for bit, two runs equal); in f32 the lego
+     forwards (and the recompute re-runs) on lean_fwd_tf32_kernel's
+     classic form and both backwards' chain, dx and dview on
+     lean_chain_tf32_kernel's, in bf16 on the mma.sync kernels
+     (`check_classic_routes`); the same four
      kernels' instantiation for a model with no view layer
      (net_depth_condition 0: the rgb head reads concat(bottleneck, view)),
-     the same checks at the same bars; the standalone
+     the same checks at the same bars (on the mma.sync kernels, as the
+     rules say); the standalone
      IPE kernels ipe_fwd and ipe_bwd on the level's Gaussians (393,216
      points, degrees 0..16), with their covariances and with them zeroed,
      and on a ragged count: forward max |d| <= 1e-5, dmeans and dcovs
@@ -110,9 +116,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      that close to zero, and each flip moves a whole per-point term), then
      K = 5 steps of make_train_many, in which each of the configuration's
      kernels must launch 2 levels x 5 times, every lean forward and lean
-     chain on the wgmma kernel of its dtype, every f32 backward's weight
-     gradients on wgrad_tf32_kernel (not hybrid's), and the loss must stay
-     finite;
+     chain on the wgmma kernel of its dtype, every f32 classic forward and
+     chain on the 3xTF32 wgmma classic forms (bf16 on mma.sync), every f32
+     backward's weight gradients on wgrad_tf32_kernel (not hybrid's), and
+     the loss must stay finite;
      ms/step, rays/s and peak memory of every configuration and of the
      plain path, in turns (plain, each configuration, then back, twice:
      best, median and spread of the 4 runs); past
@@ -579,6 +586,50 @@ def check_chain_routes(hp, dt, where, **calls):
         f'{"OK" if got == want else "FAIL"}')
     if got != want:
         raise AssertionError(f'{where}: the chain took another route')
+
+
+# fused_mlp's wrappers: those whose forward (mlp_bwd_recompute: its re-run)
+# and those whose chain, dx and dview may take the f32 wgmma kernels.
+CLASSIC_FWD = ('mlp_fwd', 'mlp_save_fwd', 'mlp_bwd_recompute')
+CLASSIC_CHAIN = ('mlp_bwd_saved', 'mlp_bwd_recompute')
+
+
+def classic_route(hp, dt):
+    """(lean_fwd_tf32_kernel, lean_chain_tf32_kernel): whether fused_mlp's
+    forwards and backward chain of hp's MLP (one density head, the 27
+    per-point view features) in dt take the 3xTF32 wgmma classic forms:
+    kernels/mlp.py fwd_tf32_route / chain_tf32_route with the classic
+    arguments."""
+    F, W, Wv, depth, dcond = _widths(hp)
+    Fv = 3 * (2 * hp['nerf.deg_view'] + 1)
+    return (dcond >= 1 and km.fwd_tf32_route(dt, F, W, Wv, depth, dcond, Fv,
+                                             1),
+            km.chain_tf32_route(dt, W, Wv, depth, dcond, F=F, Fv=Fv, nd=1,
+                                skip_index=hp['nerf.mlp.skip_index']))
+
+
+def check_classic_routes(hp, dt, where, **calls):
+    """Raise unless each named fused_mlp wrapper's `calls` since the last
+    reset_launches ran its forward on lean_fwd_tf32_kernel and its chain
+    (with dx and dview) on lean_chain_tf32_kernel where classic_route says
+    so, and on the mma.sync kernels elsewhere (bf16, no view layer); the
+    lego schema's f32 classic kernels must take the wgmma forms."""
+    on = classic_route(hp, dt)
+    if (hp['nerf.mlp.net_width'] == 256 and dt == torch.float32
+            and hp['nerf.mlp.net_depth_condition'] >= 1 and not all(on)):
+        raise AssertionError('the lego f32 classic kernels take no wgmma '
+                             'form')
+    got = {k: (km.tf32_routes.get(k, 0), km.chain_tf32_routes.get(k, 0))
+           for k in calls}
+    want = {k: (n if on[0] and k in CLASSIC_FWD else 0,
+                n if on[1] and k in CLASSIC_CHAIN else 0)
+            for k, n in calls.items()}
+    log(f'[route] {where}: classic calls on (lean_fwd_tf32_kernel, '
+        f'lean_chain_tf32_kernel) {got} (want {want}) '
+        f'{"OK" if got == want else "FAIL"}')
+    if got != want:
+        raise AssertionError(f'{where}: the classic kernels took another '
+                             'route')
 
 
 def lego_wgrad_range(hp):
@@ -1281,9 +1332,12 @@ def compare_classic_kernels(params, hp, dev, label=''):
     for dt in (torch.float32, torch.bfloat16):
         tag = 'f32' if dt == torch.float32 else 'bf16'
         bar = F32_BAR if dt == torch.float32 else BF16_BAR
+        km.reset_launches()
         out = km.mlp_save_fwd(x, view, flat, *args, dt)
         lf = km.mlp_fwd(x, view, flat, *args, dt)
         torch.cuda.synchronize()
+        check_classic_routes(hp, dt, f'phase 5 classic forwards{label} {tag}',
+                             mlp_save_fwd=1, mlp_fwd=1)
         parts = [out[0], out[1], out[2][:, :M].float()]
         f_err, f_bar, f_ok = fwd_err(parts, ref_parts, dt)
         report('mlp_save_fwd' + label, tag, finite(parts) and f_ok,
@@ -1310,6 +1364,8 @@ def compare_classic_kernels(params, hp, dev, label=''):
         torch.cuda.synchronize()
         check_wgrad_routes(hp, dt, f'phase 5 mlp_bwd_saved{label} {tag}',
                            mlp_bwd_saved=1)
+        check_classic_routes(hp, dt, f'phase 5 mlp_bwd_saved{label} {tag}',
+                             mlp_bwd_saved=1)
         g_err, g_leaf = leaf_rel_err(got, want, names)
         g_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
         extra = ''
@@ -1341,6 +1397,8 @@ def compare_classic_kernels(params, hp, dev, label=''):
         torch.cuda.synchronize()
         check_wgrad_routes(hp, dt, f'phase 5 mlp_bwd_recompute{label} {tag}',
                            mlp_bwd_recompute=2)
+        check_classic_routes(hp, dt, f'phase 5 mlp_bwd_recompute{label} '
+                             f'{tag}', mlp_bwd_recompute=2)
         runs = all(torch.equal(a, b) for a, b in zip(got, again))
         inputs = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         r_err, r_leaf = leaf_rel_err(got, want, names)
@@ -1613,7 +1671,8 @@ def run_k_steps(system, params, stack, pix, names, levels, label):
     must launch `levels` (or PER_STEP's count) x K times, lean_mlp never,
     every call of a lean forward, of a lean chain and of a backward's
     weight gradients on the route its rule gives (check_routes,
-    check_chain_routes, check_wgrad_routes), and the loss must stay
+    check_chain_routes, check_wgrad_routes, and for fused_mlp's kernels
+    check_classic_routes), and the loss must stay
     finite; -> the run's launch counts."""
     fn = system.make_train_many()
     state = system.init_state(params=params)
@@ -1625,6 +1684,10 @@ def run_k_steps(system, params, stack, pix, names, levels, label):
     fwd = {n: run_counts[n] for n in km.routes if run_counts[n]}
     chain = {n: run_counts[n] for n in km.chain_routes if run_counts[n]}
     wgrad = {n: run_counts[n] for n in km.wgrad_tf32_routes if run_counts[n]}
+    classic = {n: run_counts[n] for n in CLASSIC_FWD + ('mlp_bwd_saved',)
+               if run_counts[n]}
+    if classic:
+        check_classic_routes(hp, dt, f'{label} K={TRAIN_K}', **classic)
     if fwd:
         check_routes(hp, dt, f'{label} K={TRAIN_K}', **fwd)
     if chain:
@@ -2413,6 +2476,8 @@ def main() -> int:
     if any(counts_p[k] != (want if k == 'mlp_fwd' else 0) for k in counts_p):
         raise AssertionError(f'expected {want} launches of mlp_fwd alone, got'
                              f' {counts_p}')
+    check_classic_routes(hp, torch.float32, 'phase 4 pallas frame',
+                         mlp_fwd=want)
     if d_rgb > FRAME_BAR or d_acc > FRAME_BAR or not all(
             np.all(np.isfinite(v)) for v in out_p.values()):
         raise AssertionError('the pallas frame disagrees with the plain path')
@@ -2506,11 +2571,14 @@ def main() -> int:
                 kernels[-1]['bf16']['chain'] = 'lean_chain_sm90_kernel'
         # The f32 numbers' wgmma kernels (the line's own 'source' is the
         # library the wrapper launches, which holds them).
-        if name in km.routes and tf32_route(hp, torch.float32):
+        on32 = classic_route(hp, torch.float32)
+        if (name in km.routes and tf32_route(hp, torch.float32)) or (
+                name in CLASSIC_FWD and on32[0]):
             kernels[-1]['kernel'] = 'lean_fwd_tf32_kernel'
             kernels[-1]['kernel_source'] = \
                 'mipnerf_pl_tpu_torch/csrc/lean_fwd_tf32.cuh'
-        if name in km.chain_routes and chain_route(hp, torch.float32)[1]:
+        if (name in km.chain_routes and chain_route(hp, torch.float32)[1]) or (
+                name in CLASSIC_CHAIN and on32[1]):
             kernels[-1]['chain'] = 'lean_chain_tf32_kernel'
             kernels[-1]['chain_source'] = \
                 'mipnerf_pl_tpu_torch/csrc/lean_chain_tf32.cuh'

@@ -1,16 +1,21 @@
-// The f32 cotangent chain of the lean training backward on Hopper's wgmma
-// and TMA, 3xTF32 (lean_train.cu): the channel-major saved stream of 'save'
-// and 'recompute' (so also the render-fused level's backward), widths
-// multiples of 64.  Replaces, in f32, lean_grad_chain_kernel<float> (the
-// chain of the TPU kernels _bwd_kernel_lean_save, _bwd_kernel_lean and
-// _bwd_kernel_lean_render, mipnerf_pl_tpu/kernels/mlp.py).  The point-major
-// residuals of 'hybrid' and the classic MLP keep lean_grad_chain_kernel;
-// bf16 runs on lean_chain_sm90.cuh.
+// The f32 cotangent chain of the training backwards on Hopper's wgmma and
+// TMA, 3xTF32 (lean_train.cu): the channel-major saved stream of 'save' and
+// 'recompute' (so also the render-fused level's backward) and of the
+// classic mlp_bwd_saved / mlp_bwd_recompute, widths multiples of 64.
+// Replaces, in f32, lean_grad_chain_kernel<float> and the classic
+// mlp_input_grads_kernel<float> (the chain and the input cotangents of the
+// TPU kernels _bwd_kernel_lean_save, _bwd_kernel_lean,
+// _bwd_kernel_lean_render, _bwd_kernel_saved and _bwd_kernel,
+// mipnerf_pl_tpu/kernels/mlp.py).  The point-major residuals of 'hybrid',
+// the classic MLP with no view layer or more than one density head keep
+// the mma.sync kernels; the bf16 lean chain runs on lean_chain_sm90.cuh.
 //
 // Route (chain_tf32_route, mirrored by kernels/mlp.py chain_tf32_route): f32,
-// a lean MLP on a channel-major stream, W and Wv multiples of 64, at least
-// one view layer, depth + depth_cond + 1 <= CT_MAX_STEPS, and the plan's
-// shared memory within the block's.  A plan it cannot make raises.
+// a channel-major stream, W and Wv multiples of 64, at least one view
+// layer, one density head, depth + depth_cond + 1 <= CT_MAX_STEPS (the
+// classic form: its weight maps within CT_MAX_MAPS and its steps within
+// CT_STEPS), and the plan's shared memory within the block's.  A plan it
+// cannot make raises.
 //
 // The design of lean_fwd_tf32.cuh (its constants and helpers): a persistent
 // block walks 64-point tiles with two consumer warpgroups that split each
@@ -39,6 +44,23 @@
 // block's bias sums.  No
 // atomics: the per-block sums go to db_part as lean_grad_chain_kernel's do.
 //
+// The classic form (fused_mlp: raw heads, no g1f, view_0's view rows a
+// weight-gradient problem of the stream's V rows) also returns the input
+// cotangents dx [M][F] = sum over the layers L that read x of G_L k_L[x
+// rows]^T (trunk_0, each layer after a skip concat, after a last one the
+// bottleneck and the rank-1 density term) and dview [M][Fv] = G_view0
+// k_view0[W:]^T.  Each is a step of its own on the same engine (CT_INPUT):
+// A the cotangent G_L in ga, B the split x (view) rows of k_L as stored,
+// N their width rounded up to 32 (NC = N / 2 a warpgroup, 16..64),
+// placed right after the step that leaves G_L in ga, before the next one
+// overwrites it.  (A second launch of this kernel whose steps loaded each
+// G_L back from G gave the same bits and measured 1.1 ms a lego level
+// slower, PERF.md.)  Every element of dx and dview is written once: a
+// layer whose x part is not the last keeps its products in ixs, the
+// accumulators' thread-private stash in shared memory, which the last one
+// adds.  The classic form is a compile-time instantiation (CLASSIC), so
+// the lean chain carries none of its code.
+//
 // What bounds it: 2 x 0.55 M MACs a point at the 3xTF32 rate (0.43 TFLOP a
 // lego level, 2.6 ms at 165 TFLOP/s); HBM moves the masks' rows of S and
 // the f32 G rows (~7 GB, 2.2 ms at 3.35 TB/s).
@@ -49,45 +71,87 @@
 
 namespace {
 
-constexpr int CT_MAX_STEPS = 16;
+constexpr int CT_MAX_STEPS = 16;   // the lean chain's steps
+constexpr int CT_MAX_MAPS = 16;    // weight maps of a plan
+constexpr int CT_STEPS = 20;       // steps of a plan
+
+// Step kinds: a layer's cotangent, an input cotangent (dx / dview).
+enum { CT_LAYER = 0, CT_INPUT = 1 };
 
 struct TcStep {
+  int kind;
   int w;              // weight map, -1: the rgb head on the CUDA cores
   int K, N;           // input cotangent width (the layer's out), output width
   const float* act;   // the masking activation's first row (channel-major), null: no mask
   int act_ld;
   int act_row;        // its first row in the stream (the prefetch map's)
   int g_row;          // first G row of the output cotangent
-  int flags;          // 1: the cotangent also to g1f; 2: + the density term
+  // CT_LAYER: 1 the cotangent also to g1f, 2 + the density term;
+  // CT_INPUT: 1 + the stash ixs, 2 + the density term's x part, 4 to the
+  // stash (not out)
+  int flags;
+  float* out;         // CT_INPUT: dx [M][cols] or dview, the chunk's first row
+  int cols;
 };
 
 struct TcPlan {
-  CUtensorMap w[CT_MAX_STEPS];   // split k[:in_h] [2 in_h][out], FT_KS x in_h boxes
+  CUtensorMap w[CT_MAX_MAPS];    // split k[:in_h] [2 in_h][out], FT_KS x in_h boxes
   CUtensorMap act;               // the stream [rows][ld] f32, 64 x 64 boxes (L2 prefetch)
-  TcStep step[CT_MAX_STEPS];
+  TcStep step[CT_STEPS];
   int n_steps;
 };
+// The chain kernel's parameters within the 4 KB a launch passes.
+static_assert(sizeof(TcPlan) + sizeof(ChainPtrs) + sizeof(TrainDims) + 64 <= 4096,
+              "lean_chain_tf32_kernel's parameters exceed 4 KB");
 
 // Launches of lean_chain_tf32_kernel by this library (lean_chain_launches).
 long long g_chain_tf32_launches = 0;
 
 // The ring and its mbarriers, the cotangent tile, the head cotangents, the
-// staged head kernels, the block's Cg bias sums, 1 KB of alignment.
-inline size_t chain_tf32_smem(int W, int Wv, int Cg) {
+// staged head kernels, the block's Cg bias sums, 1 KB of alignment; the
+// classic form (ix_n > 0: the dx steps' N) also the density kernel's x
+// rows and the stash of dx's products (64 points x ix_n).
+inline size_t chain_tf32_smem(int W, int Wv, int Cg, int ix_n = 0) {
   const int wmax = W > Wv ? W : Wv;
   return (size_t)FT_STAGES * FT_SLAB + FT_BARS + sizeof(float) * FT_LD * wmax +
-         sizeof(float) * (4 * 64 + 256 + 3 * 256 + ((Cg + 3) & ~3)) + 1024;
+         sizeof(float) * (4 * 64 + 256 + 3 * 256 + ((Cg + 3) & ~3)) +
+         (ix_n ? sizeof(float) * (FT_MAX_X + 64 * ix_n) : 0) + 1024;
 }
 
-// The shapes the kernel takes (f32, a lean MLP and a channel-major stream
-// are the caller's).
+// The layers of the classic MLP whose input holds x: trunk_0, each trunk
+// layer after a skip concat and (after a last one, L = depth + 1) the
+// bottleneck.
+__host__ __device__ inline bool classic_reads_x(const TrainDims& d, int L) {
+  if (L == d.depth + 1) L = d.depth;
+  return L == 0 || ((L - 1) % d.skip == 0 && L - 1 > 0);
+}
+
+// The classic form's N of the dx and of the dview steps: F (Fv) rounded up
+// to 32 (Fp, Fvp: already rounded up to 16).
+inline int ix_cols(int n) { return (n + 31) / 32 * 32; }
+
+// The classic chain's dx steps: one a layer whose input holds x.
+inline int classic_dx_steps(const TrainDims& d) {
+  int n = 0;
+  for (int L = 0; L < d.depth; ++L) n += classic_reads_x(d, L);
+  return n + classic_reads_x(d, d.depth + 1);
+}
+
+// The shapes the kernel takes (f32 and a channel-major stream are the
+// caller's): the lean MLP, or (Fvp > 0) the classic one.
 inline bool chain_tf32_route(const TrainDims& d) {
-  return d.W >= 64 && d.W <= 256 && d.W % 64 == 0 && d.Wv >= 64 && d.Wv <= 256 &&
-         d.Wv % 64 == 0 && d.depth >= 1 && d.depth_cond >= 1 && d.nd == 1 && !d.Fvp &&
-         d.depth + d.depth_cond + 1 <= CT_MAX_STEPS &&
-         chain_tf32_smem(d.W, d.Wv, d.cg()) <= FT_SMEM_MAX;
+  const bool widths = d.W >= 64 && d.W <= 256 && d.W % 64 == 0 && d.Wv >= 64 && d.Wv <= 256 &&
+                      d.Wv % 64 == 0 && d.depth >= 1 && d.depth_cond >= 1 && d.nd == 1;
+  if (!d.Fvp)
+    return widths && d.depth + d.depth_cond + 1 <= CT_MAX_STEPS &&
+           chain_tf32_smem(d.W, d.Wv, d.cg()) <= FT_SMEM_MAX;
+  const int ix = classic_dx_steps(d) + 1;
+  return widths && d.skip >= 1 && ix_cols(d.Fp) <= FT_MAX_X && ix_cols(d.Fvp) <= FT_MAX_X &&
+         d.depth + d.depth_cond + ix <= CT_MAX_MAPS && d.depth + d.depth_cond + 1 + ix <= CT_STEPS &&
+         chain_tf32_smem(d.W, d.Wv, d.cg(), ix_cols(d.Fp)) <= FT_SMEM_MAX;
 }
 
+template <bool CLASSIC>
 __global__ void __launch_bounds__(FT_THREADS, 1)
 lean_chain_tf32_kernel(const __grid_constant__ TcPlan plan, const float* __restrict__ heads,
                        const float* __restrict__ g_rgb, const float* __restrict__ g_dens,
@@ -103,6 +167,8 @@ lean_chain_tf32_kernel(const __grid_constant__ TcPlan plan, const float* __restr
   float* kd_s = gh + 4 * 64;          // k_den [W]
   float* kr_s = kd_s + 256;           // k_rgb [Wv][3]
   float* dbacc = kr_s + 3 * 256;      // [Cg] the block's bias sums
+  float* kdx_s = dbacc + ((Cg + 3) & ~3);   // classic: k_den's x rows [F]
+  float* ixs = kdx_s + FT_MAX_X;      // classic: [NC / 2][256] the stash of dx's products
   const int tid = threadIdx.x;
   const size_t Mp = d.Mp;
   const int n_tiles = d.Mp / FT_TM;
@@ -117,6 +183,9 @@ lean_chain_tf32_kernel(const __grid_constant__ TcPlan plan, const float* __restr
   for (int i = tid; i < d.W; i += FT_THREADS) kd_s[i] = static_cast<const float*>(cp.k_den)[i];
   for (int i = tid; i < 3 * d.Wv; i += FT_THREADS)
     kr_s[i] = static_cast<const float*>(cp.k_rgb)[i];
+  if (CLASSIC && classic_reads_x(d, d.depth + 1))
+    for (int i = tid; i < d.F; i += FT_THREADS)
+      kdx_s[i] = static_cast<const float*>(cp.k_den)[d.W + i];
   __syncthreads();
   if (tid >= 256) {
     // Weights: per step its K / FT_KS slabs through the ring, the hi rows
@@ -182,23 +251,61 @@ lean_chain_tf32_kernel(const __grid_constant__ TcPlan plan, const float* __restr
 
     for (int si = 0; si < plan.n_steps; ++si) {
       const TcStep& st = plan.step[si];
+      if (CLASSIC && st.kind == CT_INPUT) {
+        // An input cotangent: D = G_L (in ga, untouched) B, out to dx / dview
+        // rows (or the stash), masked past M and past the real columns.
+        auto run_input = [&](auto nc_c) {
+          constexpr int NC = decltype(nc_c)::value;
+          const int col0 = wg * NC;
+          float acc[NC / 2];
+#pragma unroll
+          for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+          tf32_products<NC>(acc, ga, st.K, ga, st.K / FT_KS, ring, full, empty, slab, col0, p0,
+                            t, lane);
+#pragma unroll
+          for (int j = 0; j < NC / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * j + e;
+              const int col = col0 + 8 * j + 2 * t + (e & 1), p = p0 + 8 * (e >> 1);
+              float v = acc[i];
+              if (st.flags & 1) v = ixs[i * 256 + tid] + v;
+              if ((st.flags & 2) && col < st.cols) v = fmaf(gh[3 * 64 + p], kdx_s[col], v);
+              if (st.flags & 4)
+                ixs[i * 256 + tid] = v;
+              else if (m0 + p < d.M && col < st.cols)
+                st.out[(size_t)(m0 + p) * st.cols + col] = v;
+            }
+          }
+        };
+        const int nc = st.N / 2;
+        if (nc == 64)
+          run_input(std::integral_constant<int, 64>());
+        else if (nc == 48)
+          run_input(std::integral_constant<int, 48>());
+        else if (nc == 32)
+          run_input(std::integral_constant<int, 32>());
+        else
+          run_input(std::integral_constant<int, 16>());
+        continue;
+      }
       const bool den = st.flags & 2;
       if (st.w >= 0) {
         // The products and the epilogue of one layer's step, compiled for
-        // each half width (NH 32-column blocks).
-        auto run_step = [&](auto nh_c) {
-          constexpr int NH = decltype(nh_c)::value;
-          const int col0 = wg * 32 * NH;
-          float acc[16 * NH];
+        // each half width (NC columns a warpgroup).
+        auto run_step = [&](auto nc_c) {
+          constexpr int NC = decltype(nc_c)::value;
+          const int col0 = wg * NC;
+          float acc[NC / 2];
 #pragma unroll
-          for (int i = 0; i < 16 * NH; ++i) acc[i] = 0.f;
-          tf32_products<NH>(acc, ga, st.K, ga, st.K / FT_KS, ring, full, empty, slab, col0, p0,
+          for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+          tf32_products<NC>(acc, ga, st.K, ga, st.K / FT_KS, ring, full, empty, slab, col0, p0,
                             t, lane);
           // Epilogue, once both warpgroups are done reading ga: the density
           // term, f32 over ga (the mask follows in the copy pass).
           named_sync(1, 256);
 #pragma unroll
-          for (int j = 0; j < 4 * NH; ++j) {
+          for (int j = 0; j < NC / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int col = col0 + 8 * j + 2 * t + (e & 1), p = p0 + 8 * (e >> 1);
@@ -210,13 +317,13 @@ lean_chain_tf32_kernel(const __grid_constant__ TcPlan plan, const float* __restr
         };
         const int nh = st.N / 64;
         if (nh == 4)
-          run_step(std::integral_constant<int, 4>());
+          run_step(std::integral_constant<int, 128>());
         else if (nh == 3)
-          run_step(std::integral_constant<int, 3>());
+          run_step(std::integral_constant<int, 96>());
         else if (nh == 2)
-          run_step(std::integral_constant<int, 2>());
+          run_step(std::integral_constant<int, 64>());
         else
-          run_step(std::integral_constant<int, 1>());
+          run_step(std::integral_constant<int, 32>());
       } else {
         // The rgb head's backward: sum over c of gh[c] k_rgb[j][c].
         for (int idx = tid; idx < st.N * 64; idx += 256) {
@@ -273,26 +380,37 @@ lean_chain_tf32_kernel(const __grid_constant__ TcPlan plan, const float* __restr
       db_part[i] = 0.f;
 }
 
+// The split B operand [2 n][K] f32 of a step as a map: FT_KS x n boxes.
+inline bool chain_map(CUtensorMap* map, const void* w, int n, int K) {
+  return w && make_map(map, w, 2 * n, K, K, n, CU_TENSOR_MAP_SWIZZLE_64B, true, FT_KS);
+}
+
 // The plan of the chain on tf32 wgmma for the chunk whose saved activations
 // are `acts` (channel-major f32, one stream whose rows are acts.ld[0]
-// apart), with ws[i] the split kernel k[:in_h]
-// ([2 in_h][out] f32) of chain layer i by param index: false if a tensor
-// map cannot be made.
+// apart), with ws[i] the split kernel k[:in_h] ([2 in_h][out] f32) of chain
+// layer i by param index: false if a tensor map cannot be made.  The
+// classic form (d.Fvp > 0) also takes xs[L], the split x rows of layer L
+// that reads x (L = depth + 1: the bottleneck), [2 ix_cols(Fp)][out], vs
+// view_0's split view rows [2 ix_cols(Fvp)][Wv], and dx / dview of the
+// chunk.
 inline bool chain_tf32_plan(TcPlan& pl, const Acts& acts, const void* const* ws,
-                            const TrainDims& d) {
+                            const TrainDims& d, const void* const* xs = nullptr,
+                            const void* vs = nullptr, float* dx = nullptr,
+                            float* dview = nullptr) {
   if (!ws || !chain_tf32_route(d)) return false;
+  const bool classic = d.Fvp > 0;
+  if (classic && (!xs || !vs || !dx || !dview)) return false;
   const int i_view = d.depth + 2, last = d.depth_cond - 1;
   const char* base = static_cast<const char*>(acts.t[0]);
   int n = 0, nw = 0;
-  auto add = [&](int layer, int K, int N, int act, int g_row, int flags) {
-    TcStep& st = pl.step[n++];
+  bool ok = true;
+  auto step = [&](int kind, int K, int N, int act, int g_row, int flags) -> TcStep& {
+    ok = ok && n < CT_STEPS;
+    TcStep& st = pl.step[n < CT_STEPS ? n : CT_STEPS - 1];
+    ++n;
+    st = TcStep{};
+    st.kind = kind;
     st.w = -1;
-    if (layer >= 0) {
-      if (!ws[layer] || !make_map(&pl.w[nw], ws[layer], 2 * N, K, K, N,
-                                  CU_TENSOR_MAP_SWIZZLE_64B, true, FT_KS))
-        return false;
-      st.w = nw++;
-    }
     st.K = K;
     st.N = N;
     st.act = act < 0 ? nullptr : static_cast<const float*>(acts.t[act]);
@@ -302,15 +420,50 @@ inline bool chain_tf32_plan(TcPlan& pl, const Acts& acts, const void* const* ws,
                                  (4 * (long long)acts.ld[0]));
     st.g_row = g_row;
     st.flags = flags;
-    return true;
+    return st;
   };
-  bool ok = add(-1, 0, d.Wv, d.a_y(last), d.g_v(last), last == 0);
-  for (int j = last; j >= 1; --j)
-    ok = ok && add(i_view + j, d.Wv, d.Wv, d.a_y(j - 1), d.g_v(j - 1), j == 1);
-  ok = ok && add(i_view, d.Wv, d.W, -1, d.g_bot(), 0);
-  ok = ok && add(d.depth + 1, d.W, d.W, d.a_h(d.depth - 1), d.g_t(d.depth - 1), 2);
-  for (int i = d.depth - 1; i >= 1; --i)
-    ok = ok && add(i, d.W, d.W, d.a_h(i - 1), d.g_t(i - 1), 0);
+  auto map = [&](TcStep& st, const void* w) {
+    ok = ok && nw < CT_MAX_MAPS && chain_map(&pl.w[nw], w, st.N, st.K);
+    st.w = nw++;
+  };
+  auto add = [&](int layer, int K, int N, int act, int g_row, int flags) {
+    TcStep& st = step(CT_LAYER, K, N, act, g_row, flags);
+    if (layer >= 0) map(st, ws[layer]);
+  };
+  // The input cotangents: dview from G_view0, dx from G_L of each layer L
+  // that reads x, the last of them (trunk_0) writing dx.
+  const int n_dx = classic ? classic_dx_steps(d) : 0;
+  int dx_done = 0;
+  auto input = [&](int L) {
+    if (!classic) return;
+    if (L < 0) {
+      TcStep& st = step(CT_INPUT, d.Wv, ix_cols(d.Fvp), -1, 0, 0);
+      map(st, vs);
+      st.out = dview;
+      st.cols = d.Fv;
+      return;
+    }
+    ++dx_done;
+    const int flags = (dx_done > 1 ? 1 : 0) | (L > d.depth ? 2 : 0) | (dx_done < n_dx ? 4 : 0);
+    TcStep& st = step(CT_INPUT, d.W, ix_cols(d.Fp), -1, 0, flags);
+    map(st, xs[L]);
+    st.out = dx;
+    st.cols = d.F;
+  };
+  add(-1, 0, d.Wv, d.a_y(last), d.g_v(last), !classic && last == 0);
+  if (last == 0) input(-1);
+  for (int j = last; j >= 1; --j) {
+    add(i_view + j, d.Wv, d.Wv, d.a_y(j - 1), d.g_v(j - 1), !classic && j == 1);
+    if (j == 1) input(-1);
+  }
+  add(i_view, d.Wv, d.W, -1, d.g_bot(), 0);
+  if (classic_reads_x(d, d.depth + 1)) input(d.depth + 1);
+  add(d.depth + 1, d.W, d.W, d.a_h(d.depth - 1), d.g_t(d.depth - 1), 2);
+  if (classic_reads_x(d, d.depth - 1)) input(d.depth - 1);
+  for (int i = d.depth - 1; i >= 1; --i) {
+    add(i, d.W, d.W, d.a_h(i - 1), d.g_t(i - 1), 0);
+    if (classic_reads_x(d, i - 1)) input(i - 1);
+  }
   pl.n_steps = n;
   const int s_rows = d.Fp + (d.depth + 1) * d.W + d.depth_cond * d.Wv;
   return ok && make_map(&pl.act, base, s_rows, d.Mp, acts.ld[0], 64,

@@ -1,19 +1,28 @@
-// The f32 lean MLP forward on Hopper's wgmma and TMA, 3xTF32 (lean_train.cu:
-// lean_fwd, lean_save_fwd and the recompute backward's re-run;
+// The f32 MLP forward on Hopper's wgmma and TMA, 3xTF32 (lean_train.cu:
+// lean_fwd, lean_save_fwd and the recompute backward's re-run, and the
+// classic mlp_fwd, mlp_save_fwd and mlp_bwd_recompute's re-run;
 // lean_render.cu: lean_mlp).  Replaces, in f32, the mma.sync tile
 // (mlp_tile<float>, lean_engines.cuh) behind the TPU kernels
-// _fwd_kernel_lean_render, _fwd_kernel_lean_save and _fwd_kernel_lean
-// (mipnerf_pl_tpu/kernels/mlp.py).  The bf16 forms run on
-// lean_fwd_sm90.cuh; the classic MLP and the widths the route refuses keep
-// mlp_tile.
+// _fwd_kernel_lean_render, _fwd_kernel_lean_save, _fwd_kernel_lean,
+// _fwd_kernel and _fwd_kernel_save (mipnerf_pl_tpu/kernels/mlp.py).  The
+// bf16 lean forms run on lean_fwd_sm90.cuh; bf16 classic forms, the
+// classic MLP with no view layer or more than one density head, and the
+// widths the route refuses keep mlp_tile.
 //
 // Route (fwd_tf32_route, mirrored by kernels/mlp.py fwd_tf32_route): f32,
-// a lean MLP, W and Wv multiples of 64 and at most 256, at least one view
-// layer, depth + 1 + depth_cond <= FT_MAX_LAYERS, the encode at most
-// FT_MAX_X features once rounded up to the slab, and the plan's shared
-// memory within the block's.  It is a rule on dtype and shape: a plan this
-// kernel cannot make, or a launch it cannot get, raises through the
-// wrapper; no other kernel takes its place.
+// W and Wv multiples of 64 and at most 256, at least one view layer,
+// depth + 1 + depth_cond <= FT_MAX_LAYERS, the encode (and the classic
+// form's per-point view) at most FT_MAX_X features once rounded up to the
+// slab, and the plan's shared memory within the block's; the classic form
+// one density head.  It is a rule on dtype and shape: a plan this kernel
+// cannot make, or a launch it cannot get, raises through the wrapper; no
+// other kernel takes its place.
+//
+// The classic form (fused_mlp, Fv > 0): view_0 reads concat(bottleneck,
+// view) per point, the view [M][Fv] f32 loaded into the encode tile once
+// the bottleneck is done with it (Fv rows rounded up to FT_KS, zeros past
+// Fv), as a second K segment of view_0 with its own bias; raw heads to rgb
+// [M][3] and density [M][1] f32; the stream ends with the view's rows V.
 //
 // 3xTF32: D += A_lo B_hi + A_hi B_lo + A_hi B_hi on wgmma m64nNk8 tf32
 // with f32 accumulators, the small terms first (as Tf32Gemm).  wgmma reads
@@ -95,6 +104,7 @@ struct TfLayer {
   int kh;         // K rows read from hs, the rest from xs (trunk_0: 0)
   int relu;
   int vproj;      // 1: view_0, + the ray's per-ray half (its bias included)
+  int view_in;    // 1: the classic view_0, the per-point view loaded into xs first
   int s_row;      // first row of the output in S
   int b_off;      // offset of its bias in the staged biases, -1: none
   const float* bias;
@@ -104,13 +114,19 @@ struct TfPlan {
   CUtensorMap w[FT_MAX_LAYERS];   // split k^T [2N][Kp], FT_KS x N boxes
   TfLayer layer[FT_MAX_LAYERS];
   int n_layers, i_den, cat_x;
-  int M, Mp, N, R, F, Fx, L, min_deg, ldx, W, Wv, wmax, use_act;
+  int M, Mp, N, R, F, Fx, xrows, L, min_deg, ldx, W, Wv, wmax, use_act;
   float rgb_padding, density_bias;
   const float* k_den;
   const float* b_den;
   const float* k_rgb;
   const float* b_rgb;
   float* S;                       // saved stream [Cs][Mp], or null
+  // The classic form: view [M][Fv] f32 (null: lean), Fvp its rows in xs
+  // and V's first row in S; raw heads to rgb [M][3] and dens [M][1].
+  const float* view;
+  int Fv, Fvp, v_row;
+  float* rgb;
+  float* dens;
 };
 
 // Launches of lean_fwd_tf32_kernel by this library (lean_fwd_tf32_launches).
@@ -118,36 +134,50 @@ long long g_fwd_tf32_launches = 0;
 
 __host__ __device__ inline int ft_round(int n, int k) { return (n + k - 1) / k * k; }
 
-// The ring and its mbarriers, the activation and encode tiles, the heads
+// Rows of the input tile xs: the encode, rounded up to the slab, and in
+// the classic form (Fv > 0) the per-point view after it.
+inline int ft_xrows(int F, int Fv) {
+  const int fx = ft_round(F, FT_KS), fv = ft_round(Fv, FT_KS);
+  return fx > fv ? fx : fv;
+}
+
+// The ring and its mbarriers, the activation and input tiles, the heads
 // and their quarter sums, the staged biases and head kernels, the slab
 // schedule, and the slack that aligns the ring to 1024 bytes.
-inline size_t fwd_tf32_smem(int W, int Wv, int F) {
+inline size_t fwd_tf32_smem(int W, int Wv, int F, int Fv = 0) {
   const int wmax = W > Wv ? W : Wv;
   return (size_t)FT_STAGES * FT_SLAB + FT_BARS +
-         sizeof(float) * FT_LD * (wmax + ft_round(F, FT_KS)) +
+         sizeof(float) * FT_LD * (wmax + ft_xrows(F, Fv)) +
          sizeof(float) * (4 * 64 + 4 * 3 * 64 + FT_MAX_BIAS + FT_MAX_KD + FT_MAX_KR) +
          sizeof(short2) * FT_MAX_SLABS + 1024;
 }
 
-// The shapes the kernel takes (f32 and a lean MLP are the caller's).
-inline bool fwd_tf32_route(int F, int W, int Wv, int depth, int depth_cond) {
+// The shapes the kernel takes (f32 is the caller's): the lean MLP (Fv 0),
+// or the classic one with Fv per-point view features and nd density heads.
+inline bool fwd_tf32_route(int F, int W, int Wv, int depth, int depth_cond, int Fv = 0,
+                           int nd = 1) {
   return W >= 64 && W <= 256 && W % 64 == 0 && Wv >= 64 && Wv <= 256 && Wv % 64 == 0 &&
          depth >= 1 && depth_cond >= 1 && depth + 1 + depth_cond <= FT_MAX_LAYERS && F >= 1 &&
-         ft_round(F, FT_KS) <= FT_MAX_X && fwd_tf32_smem(W, Wv, F) <= FT_SMEM_MAX;
+         ft_round(F, FT_KS) <= FT_MAX_X && Fv >= 0 && ft_round(Fv, FT_KS) <= FT_MAX_X &&
+         nd == 1 && fwd_tf32_smem(W, Wv, F, Fv) <= FT_SMEM_MAX;
 }
 
-// One k8 step of the warpgroup's NH x 32 columns.
-template <int NH>
-__device__ __forceinline__ void tf32_mma(float (&acc)[16 * NH], const uint32_t (&a)[4],
+// One k8 step of the warpgroup's NC columns.
+template <int NC>
+__device__ __forceinline__ void tf32_mma(float (&acc)[NC / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  if constexpr (NH == 4)
+  if constexpr (NC == 128)
     wgmma_tf32_m64n128(acc, a, desc_b, scale_d);
-  else if constexpr (NH == 3)
+  else if constexpr (NC == 96)
     wgmma_tf32_m64n96(acc, a, desc_b, scale_d);
-  else if constexpr (NH == 2)
+  else if constexpr (NC == 64)
     wgmma_tf32_m64n64(acc, a, desc_b, scale_d);
-  else
+  else if constexpr (NC == 48)
+    wgmma_tf32_m64n48(acc, a, desc_b, scale_d);
+  else if constexpr (NC == 32)
     wgmma_tf32_m64n32(acc, a, desc_b, scale_d);
+  else
+    wgmma_tf32_m64n16(acc, a, desc_b, scale_d);
 }
 
 // The A fragments of two k8 steps from rows k0.. of a channel-major f32
@@ -165,14 +195,14 @@ __device__ __forceinline__ void tf32_load_a(const float* src, int p0, int t, uin
   }
 }
 
-// acc (+)= A[64][K] B[K][NH x 32]: the warpgroup's products of one layer,
+// acc (+)= A[64][K] B[K][NC]: the warpgroup's products of one layer,
 // nks slabs of the ring from `slab` on.  A's rows [0, kh) come from hs,
 // the rest from xs.  Per slab: the A fragments loaded and split, the slab
 // waited for, 6 wgmma (two k8 steps), and the slab released once they are
 // complete.  (Loading the next slab's fragments into a second register set
 // while they run, with wgmma.wait_group 1, measured 10-14 % slower.)
-template <int NH>
-__device__ __forceinline__ void tf32_products(float (&acc)[16 * NH], const float* hs, int kh,
+template <int NC>
+__device__ __forceinline__ void tf32_products(float (&acc)[NC / 2], const float* hs, int kh,
                                               const float* xs, int nks, uint8_t* ring,
                                               uint64_t* full, uint64_t* empty, int& slab, int col0,
                                               int p0, int t, int lane) {
@@ -189,9 +219,9 @@ __device__ __forceinline__ void tf32_products(float (&acc)[16 * NH], const float
     for (int kk = 0; kk < 2; ++kk) {
       const uint64_t dh = sw64_desc(bh + 32 * kk);
       const uint64_t dl = sw64_desc(bl + 32 * kk);
-      tf32_mma<NH>(acc, al[kk], dh, ks > 0 || kk > 0);
-      tf32_mma<NH>(acc, ah[kk], dl, 1);
-      tf32_mma<NH>(acc, ah[kk], dh, 1);
+      tf32_mma<NC>(acc, al[kk], dh, ks > 0 || kk > 0);
+      tf32_mma<NC>(acc, ah[kk], dl, 1);
+      tf32_mma<NC>(acc, ah[kk], dh, 1);
     }
     wgmma_commit();
     wgmma_wait0();
@@ -201,7 +231,9 @@ __device__ __forceinline__ void tf32_products(float (&acc)[16 * NH], const float
   }
 }
 
-template <bool MOMENTS>
+// MOMENTS: the lean form on the moments; CLASSIC: the classic form (rows),
+// compile-time so that the lean forms carry none of its code.
+template <bool MOMENTS, bool CLASSIC>
 __global__ void __launch_bounds__(FT_THREADS, 1)
 lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict__ x,
                      const float* __restrict__ vproj, float* __restrict__ out,
@@ -211,8 +243,8 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + FT_STAGES * FT_SLAB);
   uint64_t* empty = full + FT_STAGES;
   float* hs = reinterpret_cast<float*>(ring + FT_STAGES * FT_SLAB + FT_BARS);   // [wmax][FT_LD]
-  float* xs = hs + pl.wmax * FT_LD;                                 // [Fx][FT_LD]
-  float* hd = xs + pl.Fx * FT_LD;                                   // [4][64] raw heads
+  float* xs = hs + pl.wmax * FT_LD;                                 // [xrows][FT_LD]
+  float* hd = xs + pl.xrows * FT_LD;                                // [4][64] raw heads
   float* hp = hd + 4 * 64;                                          // [quarter][3][64]
   float* bias_s = hp + 4 * 3 * 64;                                  // staged biases
   float* kd_s = bias_s + FT_MAX_BIAS;                               // k_den [W (+ F)]
@@ -313,21 +345,36 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
         xs[(f + 3) * FT_LD + p] = v.w;
       }
     }
+    // The classic view may have written rows [F, Fx) of the tile before.
+    if (CLASSIC && pl.Fvp > pl.F)
+      for (int i = tid; i < (pl.Fx - pl.F) * 64; i += 256)
+        xs[(pl.F + (i >> 6)) * FT_LD + (i & 63)] = 0.f;
     named_sync(1, 256);
     if (pl.S) save(xs, pl.Fx, 0);
 
     for (int li = 0; li < pl.n_layers; ++li) {
       const TfLayer& ly = pl.layer[li];
       const int nks = ly.K / FT_KS, kh = ly.kh;
+      if (CLASSIC && ly.view_in) {
+        // The classic view_0: the tile's per-point view into xs (zeros past
+        // Fv and past M), once every product on the encode is done (the
+        // bottleneck's epilogue barrier), then out to S rows V.
+        for (int idx = tid; idx < pl.Fvp * 64; idx += 256) {
+          const int p = idx / pl.Fvp, f = idx - p * pl.Fvp, m = m0 + p;
+          xs[f * FT_LD + p] = m < pl.M && f < pl.Fv ? pl.view[(size_t)m * pl.Fv + f] : 0.f;
+        }
+        named_sync(1, 256);
+        if (pl.S) save(xs, pl.Fvp, pl.v_row);
+      }
       // The products and the epilogue of one layer, compiled for each half
-      // width (NH 32-column blocks) with its own accumulators.
-      auto run_layer = [&](auto nh_c) {
-        constexpr int NH = decltype(nh_c)::value;
-        const int col0 = wg * 32 * NH;
-        float acc[16 * NH];
+      // width (NC columns a warpgroup) with its own accumulators.
+      auto run_layer = [&](auto nc_c) {
+        constexpr int NC = decltype(nc_c)::value;
+        const int col0 = wg * NC;
+        float acc[NC / 2];
 #pragma unroll
-        for (int i = 0; i < 16 * NH; ++i) acc[i] = 0.f;
-        tf32_products<NH>(acc, hs, kh, xs, nks, ring, full, empty, slab, col0, p0, t, lane);
+        for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+        tf32_products<NC>(acc, hs, kh, xs, nks, ring, full, empty, slab, col0, p0, t, lane);
         // Epilogue, once both warpgroups are done reading the input tile:
         // bias (+ vproj), ReLU, f32 over the tile.
         named_sync(1, 256);
@@ -338,7 +385,7 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
           vp1 += (size_t)min((m0 + p0 + 8) / pl.N, pl.R - 1) * pl.Wv;
         }
 #pragma unroll
-        for (int j = 0; j < 4 * NH; ++j) {
+        for (int j = 0; j < NC / 8; ++j) {
           const int col = col0 + 8 * j + 2 * t;
           float2 b = make_float2(0.f, 0.f), v0 = b, v1 = b;
           if (ly.b_off >= 0) b = *reinterpret_cast<const float2*>(bias_s + ly.b_off + col);
@@ -364,13 +411,13 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
       };
       const int nh = ly.N / 64;
       if (nh == 4)
-        run_layer(std::integral_constant<int, 4>());
+        run_layer(std::integral_constant<int, 128>());
       else if (nh == 3)
-        run_layer(std::integral_constant<int, 3>());
+        run_layer(std::integral_constant<int, 96>());
       else if (nh == 2)
-        run_layer(std::integral_constant<int, 2>());
+        run_layer(std::integral_constant<int, 64>());
       else
-        run_layer(std::integral_constant<int, 1>());
+        run_layer(std::integral_constant<int, 32>());
       if (pl.S) save(hs, ly.N, ly.s_row);
       // The heads from the layer's f32 outputs in the tile: density after
       // the last trunk layer (+ its x rows after a last skip concat), rgb
@@ -407,10 +454,15 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
         }
       }
     }
-    // The tile's heads: raw to heads_out [4][Mp], activated (or raw) to out.
+    // The tile's heads: raw to heads_out [4][Mp], activated (or raw) to out;
+    // the classic form's raw to rgb and dens.
     named_sync(1, 256);
     if (tid < 64) {
       const int m = m0 + tid;
+      if (CLASSIC && pl.rgb && m < pl.M) {
+        for (int c = 0; c < 3; ++c) pl.rgb[(size_t)m * 3 + c] = hd[c * 64 + tid];
+        pl.dens[m] = hd[3 * 64 + tid];
+      }
       if (heads_out)
         for (int c = 0; c < 4; ++c) heads_out[(size_t)c * pl.Mp + m] = hd[c * 64 + tid];
       if (out && m < pl.M) {
@@ -440,12 +492,14 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
 // N samples (R rays), the encode F wide (L >= 1: decoded from the moments
 // [6][ldx] from degree min_deg), with saved S [Cs][Mp] (save form) or null:
 // false where the route does not take the shape or a tensor map cannot be
-// made.
+// made.  Fv > 0: the classic MLP (N = 1, raw heads), view_0's split kernel
+// of all its W + Fv rows (Kp = W + Fv rounded up to FT_KS), the caller
+// sets view, rgb and dens.
 inline bool fwd_tf32_plan(TfPlan& pl, const LayerPtrs& p, const void* const* wt, int M, int Mp,
                           int N, int R, int F, int L, int min_deg, int ldx, int depth,
                           int depth_cond, int skip, int W, int Wv, int use_act, float rgb_padding,
-                          float density_bias, float* S) {
-  if (!wt || Mp % FT_TM || !fwd_tf32_route(F, W, Wv, depth, depth_cond)) return false;
+                          float density_bias, float* S, int Fv = 0) {
+  if (!wt || Mp % FT_TM || !fwd_tf32_route(F, W, Wv, depth, depth_cond, Fv)) return false;
   auto skip_after = [&](int i) { return i % skip == 0 && i > 0; };
   const int Fx = ft_round(F, FT_KS);
   int n = 0, b_off = 0;
@@ -455,7 +509,7 @@ inline bool fwd_tf32_plan(TfPlan& pl, const LayerPtrs& p, const void* const* wt,
     ok = ok && wt[param] &&
          make_map(&pl.w[n], wt[param], 2 * Nout, K, K, Nout, CU_TENSOR_MAP_SWIZZLE_64B, true,
                   FT_KS);
-    pl.layer[n] = TfLayer{K, Nout, kh, relu, vp, s_row, bias ? b_off : -1, bias};
+    pl.layer[n] = TfLayer{K, Nout, kh, relu, vp, 0, s_row, bias ? b_off : -1, bias};
     b_off += bias ? Nout : 0;
     ++n;
   };
@@ -467,7 +521,12 @@ inline bool fwd_tf32_plan(TfPlan& pl, const LayerPtrs& p, const void* const* wt,
   }
   const bool cat_x = skip_after(depth - 1);
   add(depth + 1, W + (cat_x ? Fx : 0), W, W, 0, 0, Fx + depth * W, p.b[depth + 1]);
-  add(depth + 2, W, Wv, W, 1, 1, Fx + (depth + 1) * W, nullptr);
+  const int Fvp = ft_round(Fv, FT_KS);
+  if (Fv)
+    add(depth + 2, W + Fvp, Wv, W, 1, 0, Fx + (depth + 1) * W, p.b[depth + 2]);
+  else
+    add(depth + 2, W, Wv, W, 1, 1, Fx + (depth + 1) * W, nullptr);
+  pl.layer[n - 1].view_in = Fv > 0;
   for (int j = 1; j < depth_cond; ++j)
     add(depth + 2 + j, Wv, Wv, Wv, 1, 0, Fx + (depth + 1) * W + j * Wv, p.b[depth + 2 + j]);
   pl.n_layers = n;
@@ -479,6 +538,7 @@ inline bool fwd_tf32_plan(TfPlan& pl, const LayerPtrs& p, const void* const* wt,
   pl.R = R;
   pl.F = F;
   pl.Fx = Fx;
+  pl.xrows = ft_xrows(F, Fv);
   pl.L = L;
   pl.min_deg = min_deg;
   pl.ldx = ldx;
@@ -493,33 +553,40 @@ inline bool fwd_tf32_plan(TfPlan& pl, const LayerPtrs& p, const void* const* wt,
   pl.k_rgb = static_cast<const float*>(p.w[depth + 2 + depth_cond]);
   pl.b_rgb = p.b[depth + 2 + depth_cond];
   pl.S = S;
+  pl.view = nullptr;
+  pl.Fv = Fv;
+  pl.Fvp = Fvp;
+  pl.v_row = Fx + (depth + 1) * W + depth_cond * Wv;
+  pl.rgb = pl.dens = nullptr;
   return ok;
 }
 
-// One launch of the planned forward on x (MOMENTS: the moments), one block
-// an SM at most; 0 or a cudaError_t.
-template <bool MOMENTS>
+// One launch of the planned forward on x (MOMENTS: the moments; CLASSIC:
+// the classic form), one block an SM at most; 0 or a cudaError_t.
+template <bool MOMENTS, bool CLASSIC>
 int launch_fwd_tf32_form(const TfPlan& pl, const float* x, const float* vproj, float* out,
                          float* heads, cudaStream_t s) {
-  const size_t smem = fwd_tf32_smem(pl.W, pl.Wv, pl.F);
+  const size_t smem = fwd_tf32_smem(pl.W, pl.Wv, pl.F, pl.Fv);
   int dev = 0, sms = 0;
-  cudaError_t e = cudaFuncSetAttribute(lean_fwd_tf32_kernel<MOMENTS>,
+  cudaError_t e = cudaFuncSetAttribute(lean_fwd_tf32_kernel<MOMENTS, CLASSIC>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   const int tiles = pl.Mp / FT_TM;
-  lean_fwd_tf32_kernel<MOMENTS><<<tiles < sms ? tiles : sms, FT_THREADS, smem, s>>>(pl, x, vproj,
-                                                                                  out, heads);
+  lean_fwd_tf32_kernel<MOMENTS, CLASSIC>
+      <<<tiles < sms ? tiles : sms, FT_THREADS, smem, s>>>(pl, x, vproj, out, heads);
   e = cudaGetLastError();
   if (e == cudaSuccess) ++g_fwd_tf32_launches;
   return (int)e;
 }
 
+// The lean forms (moments or rows), or with pl.view the classic one (rows).
 inline int launch_fwd_tf32(const TfPlan& pl, bool moments, const float* x, const float* vproj,
                            float* out, float* heads, cudaStream_t s) {
-  return moments ? launch_fwd_tf32_form<true>(pl, x, vproj, out, heads, s)
-                 : launch_fwd_tf32_form<false>(pl, x, vproj, out, heads, s);
+  if (pl.view) return launch_fwd_tf32_form<false, true>(pl, x, vproj, out, heads, s);
+  return moments ? launch_fwd_tf32_form<true, false>(pl, x, vproj, out, heads, s)
+                 : launch_fwd_tf32_form<false, false>(pl, x, vproj, out, heads, s);
 }
 
 }  // namespace

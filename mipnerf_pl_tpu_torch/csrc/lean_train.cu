@@ -30,15 +30,20 @@
 //                     (mlp_tile<T, true>) with per-point view features read
 //                     into the encode buffer once the trunk is done with it,
 //                     view_0 on concat(bottleneck, view) with its bias, nd
-//                     raw density heads and raw rgb.  Mode 'recompute'.
+//                     raw density heads and raw rgb.  Mode 'recompute'.  In
+//                     f32 at the widths of fwd_tf32_route (one density head,
+//                     a view layer) lean_fwd_tf32_kernel's classic form.
 //   mlp_save_fwd      _fwd_kernel_save (_run_fwd_save): the same kernel,
 //                     which also writes the stream, the view rows last.
 //   mlp_bwd_saved     _bwd_kernel_saved (_run_bwd_saved): dx, dview and f32
 //                     gradients of every parameter from the stream: the lean
 //                     driver (CL: nd heads, view rows per point, no per-ray
-//                     sums) and an input-gradient pass after the chain.
+//                     sums) and an input-gradient pass after the chain; in
+//                     f32 at the widths of chain_tf32_route
+//                     lean_chain_tf32_kernel's classic form, the input
+//                     cotangents steps of its chain.
 //   mlp_bwd_recompute _bwd_kernel (_run_bwd): the same, the forward re-run
-//                     chunk by chunk by mlp_fwd_kernel.
+//                     chunk by chunk by mlp_save_fwd's kernel.
 // The four classic entries also take a model with no view layer
 // (depth_cond 0, Wv 0), a compile-time instantiation of the tile, the chain
 // and the input-gradient pass (NV): the rgb head reads concat(bottleneck,
@@ -86,9 +91,10 @@
 //      that are multiples of 64 is, by a rule on dtype and shape,
 //      lean_chain_sm90_kernel in bf16 (lean_chain_sm90.cuh: 128-point
 //      tiles, wgmma fed by a TMA ring) and lean_chain_tf32_kernel in f32
-//      (lean_chain_tf32.cuh: 3xTF32 wgmma); hybrid, the classic forms and
-//      other widths keep lean_grad_chain_kernel (64-point tiles,
-//      mma.sync).
+//      (lean_chain_tf32.cuh: 3xTF32 wgmma), which in f32 also takes the
+//      classic chain (one density head, a view layer) with its dx and
+//      dview; hybrid, the bf16 classic forms, NV and other widths keep
+//      lean_grad_chain_kernel (64-point tiles, mma.sync).
 //   2. split-K tensor-core products dW = A^T G over the points, one 128 x
 //      128 output tile per block and one MC-point range per grid row,
 //      written as per-range partial sums.  Ranges never straddle a chunk,
@@ -101,12 +107,15 @@
 //      f32 the tensor-core sums restart every 128 points into
 //      round-to-nearest f32 sums.  The skip concat's x rows are
 //      problems of their own: their weight gradients accumulate; the chain
-//      drops their dx.  The classic backward (CL) takes it after the chain:
-//      mlp_input_grads_kernel reads back from G the output cotangent of
-//      each layer that reads x (trunk_0, every layer after a skip concat,
-//      the bottleneck and density after a last one) and of view_0, and
-//      sums dx [M][F] and dview [M][Fv] per tile, each element written once
-//      (in the chain itself these products cost ~30 %: spills).  The
+//      drops their dx.  The classic backward (CL) takes it after the
+//      chain (on lean_chain_tf32_kernel: steps of the chain itself,
+//      lean_chain_tf32.cuh), elsewhere in
+//      mlp_input_grads_kernel, which reads back from G the output
+//      cotangent of each layer that reads x (trunk_0, every layer after a
+//      skip concat, the bottleneck and density after a last one) and of
+//      view_0, and sums dx [M][F] and dview [M][Fv] per tile, each element
+//      written once (in the mma.sync chain itself these products cost
+//      ~30 %: spills).  The
 //      classic view_0 weight rows of the view are a problem of the
 //      stream's V rows, per point, where the lean kernels sum g_ray per ray
 //      (step 3).
@@ -635,9 +644,33 @@ LayerPtrs layer_ptrs(const void* weights, const void* biases, int n_layers) {
   return p;
 }
 
+// Whether a classic forward of d takes lean_fwd_tf32_kernel's classic form
+// (f32 is the caller's; NV and nd > 1 are not the route's).
+inline bool classic_fwd_tf32(const TrainDims& d) {
+  return d.depth_cond >= 1 && fwd_tf32_route(d.F, d.W, d.Wv, d.depth, d.depth_cond, d.Fv, d.nd);
+}
+
+// The classic forward of d: f32 whose shape classic_fwd_tf32 takes on
+// lean_fwd_tf32_kernel (from the split transposed kernels wt; a plan it
+// cannot make is an error, never another kernel), every other form on
+// mlp_fwd_kernel.
 template <typename T, bool NV>
 int launch_classic_fwd(const float* x, const float* view, const LayerPtrs& p, const TrainDims& d,
-                       float* rgb, float* density, T* saved, cudaStream_t s) {
+                       float* rgb, float* density, T* saved, const void* const* wt,
+                       cudaStream_t s) {
+  if constexpr (sizeof(T) == 4 && !NV) {
+    if (classic_fwd_tf32(d)) {
+      TfPlan pl;
+      if (!fwd_tf32_plan(pl, p, wt, d.M, d.Mp, 1, d.M, d.F, 0, 0, d.F, d.depth, d.depth_cond,
+                         d.skip, d.W, d.Wv, 0, 0.f, 0.f, saved, d.Fv) ||
+          !rgb || !density)
+        return (int)cudaErrorInvalidValue;
+      pl.view = view;
+      pl.rgb = rgb;
+      pl.dens = density;
+      return launch_fwd_tf32(pl, false, x, nullptr, nullptr, nullptr, s);
+    }
+  }
   const size_t smem = classic_fwd_smem<T>(d);
   cudaError_t e = cudaFuncSetAttribute((const void*)mlp_fwd_kernel<T, NV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -704,6 +737,11 @@ int fwd_entry(const void* x, const void* vproj, const void* weights, const void*
 struct GradArgs {
   const float *g_rgb, *g_dens, *view;
   InputGrads ig;      // the classic entries only
+  // The classic entries on lean_chain_tf32_kernel: by param index the
+  // split x rows [2 ix_cols(Fp)][out] of each layer that reads x, view_0's
+  // split view rows [2 ix_cols(Fvp)][Wv].
+  const void* const* ix_ws;
+  const void* iv_ws;
   ChainPtrs cp;
   const void* const* chain_ws;   // f32: lean_chain_tf32_kernel's split kernels
   void* G;          // [Cg][chunk] compute dtype
@@ -743,28 +781,33 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
   const size_t csmem = chain_smem_bytes<T>(wmax, Cg, 3 + d.nd);
   const size_t wsmem = sizeof(T) == 2 ? 0 : sizeof(float) * WGRAD_ACC * THREADS;
   const size_t fsmem = classic_fwd_smem<T>(d);   // CL: the re-run of mlp_fwd_kernel
-  cudaError_t e = cudaFuncSetAttribute(lean_grad_chain_kernel<T, PM, CL, NV>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)csmem);
+  // The lean chain of a channel-major stream runs on wgmma where its rule
+  // takes the shape: bf16 on lean_chain_sm90.cuh, f32 on the 3xTF32
+  // lean_chain_tf32.cuh, which also takes the classic chain with its input
+  // cotangents (rules on dtype and shape; a plan either cannot make is an
+  // error, never another kernel); its grid is one block an SM at most.
+  // Every other form runs on lean_grad_chain_kernel (and, classic, on
+  // mlp_input_grads_kernel after it).
+  constexpr bool lean_cm = !PM && !CL && !NV;
+  const bool on_sm90 = sizeof(T) == 2 && lean_cm && chain_sm90_route(d);
+  const bool on_tf32 = sizeof(T) == 4 && (lean_cm || (CL && !NV)) && chain_tf32_route(d);
+  const bool refwd_tf32 = sizeof(T) == 4 && CL && !NV && rf && classic_fwd_tf32(d);
+  const size_t tsmem = chain_tf32_smem(d.W, d.Wv, Cg, CL ? ix_cols(d.Fp) : 0);
+  cudaError_t e = cudaSuccess;
+  if (!on_sm90 && !on_tf32)
+    e = cudaFuncSetAttribute(lean_grad_chain_kernel<T, PM, CL, NV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)csmem);
   if constexpr (PM)
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(lean_wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)wsmem);
-  if (e == cudaSuccess && rf && CL)
+  if (e == cudaSuccess && rf && CL && !refwd_tf32)
     e = cudaFuncSetAttribute(mlp_fwd_kernel<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)fsmem);
   const size_t ismem = input_grads_smem_bytes<T>(d);
-  if (e == cudaSuccess && CL)
+  if (e == cudaSuccess && CL && !on_tf32)
     e = cudaFuncSetAttribute(mlp_input_grads_kernel<T, NV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ismem);
-  // The lean chain of a channel-major stream runs on wgmma where its rule
-  // takes the shape: bf16 on lean_chain_sm90.cuh, f32 on the 3xTF32
-  // lean_chain_tf32.cuh (rules on dtype and shape; a plan either cannot
-  // make is an error, never another kernel); its grid is one block an SM
-  // at most.  Every other form runs on lean_grad_chain_kernel.
-  constexpr bool lean_cm = !PM && !CL && !NV;
-  const bool on_sm90 = sizeof(T) == 2 && lean_cm && chain_sm90_route(d);
-  const bool on_tf32 = sizeof(T) == 4 && lean_cm && chain_tf32_route(d);
-  const size_t tsmem = chain_tf32_smem(d.W, d.Wv, Cg);
   int sms = 0, dev = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -772,8 +815,8 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
     e = cudaFuncSetAttribute(lean_chain_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)chain_sm90_smem(Cg));
   if (e == cudaSuccess && on_tf32)
-    e = cudaFuncSetAttribute(lean_chain_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)tsmem);
+    e = cudaFuncSetAttribute(lean_chain_tf32_kernel<CL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tsmem);
   if (e != cudaSuccess) return (int)e;
   ChainPlan plan;
   TcPlan tplan;
@@ -790,10 +833,23 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
     if (rf) {
       T* S = static_cast<T*>(rf->S);
       if constexpr (CL) {
-        // Rows start at x[c0][0] and view[c0][0].
-        mlp_fwd_kernel<T, NV><<<dc.Mp / TM, THREADS, fsmem, s>>>(
-            rf->x + (size_t)c0 * d.F, rf->vproj + (size_t)c0 * d.Fv, rf->p, dc, nullptr, nullptr,
-            S);
+        // Rows start at x[c0][0] and view[c0][0]; the same kernel as
+        // mlp_save_fwd's (launch_classic_fwd), so the same masks.
+        if (refwd_tf32) {
+          TfPlan pl;
+          if (!fwd_tf32_plan(pl, rf->p, rf->wt, dc.M, dc.Mp, 1, dc.M, d.F, 0, 0, d.F, d.depth,
+                             d.depth_cond, d.skip, d.W, d.Wv, 0, 0.f, 0.f,
+                             reinterpret_cast<float*>(S), d.Fv))
+            return (int)cudaErrorInvalidValue;
+          pl.view = rf->vproj + (size_t)c0 * d.Fv;
+          e = (cudaError_t)launch_fwd_tf32(pl, false, rf->x + (size_t)c0 * d.F, nullptr, nullptr,
+                                           nullptr, s);
+          if (e != cudaSuccess) return (int)e;
+        } else {
+          mlp_fwd_kernel<T, NV><<<dc.Mp / TM, THREADS, fsmem, s>>>(
+              rf->x + (size_t)c0 * d.F, rf->vproj + (size_t)c0 * d.Fv, rf->p, dc, nullptr,
+              nullptr, S);
+        }
       } else {
         // Rows start at x[c0][0], moments at column c0 of x [6][ldx]; the
         // same kernel as lean_save_fwd's (launch_fwd), so the same masks.
@@ -821,9 +877,14 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
           reinterpret_cast<bf16*>(G), a.g1f, db_part, a.n_chain);
       if (cudaPeekAtLastError() == cudaSuccess) ++g_chain_sm90_launches;
     } else if (on_tf32) {
-      if (!chain_tf32_plan(tplan, acts, a.chain_ws, dc)) return (int)cudaErrorInvalidValue;
+      // The classic form: dx / dview of the chunk's points as steps of the
+      // chain.
+      float* dx = CL ? a.ig.dx + (size_t)c0 * d.F : nullptr;
+      float* dview = CL ? a.ig.dview + (size_t)c0 * d.Fv : nullptr;
+      if (!chain_tf32_plan(tplan, acts, a.chain_ws, dc, a.ix_ws, a.iv_ws, dx, dview))
+        return (int)cudaErrorInvalidValue;
       const int tiles = dc.Mp / FT_TM;
-      lean_chain_tf32_kernel<<<tiles < sms ? tiles : sms, FT_THREADS, tsmem, s>>>(
+      lean_chain_tf32_kernel<CL><<<tiles < sms ? tiles : sms, FT_THREADS, tsmem, s>>>(
           tplan, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc,
           reinterpret_cast<float*>(G), a.g1f, db_part, a.n_chain);
       if (cudaPeekAtLastError() == cudaSuccess) ++g_chain_tf32_launches;
@@ -833,7 +894,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
           a.g1f, db_part);
     }
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    if constexpr (CL) {
+    if (CL && !on_tf32) {
       InputGrads ig = a.ig;
       ig.dx += (size_t)c0 * d.F;
       ig.dview += (size_t)c0 * d.Fv;
@@ -911,6 +972,8 @@ int read_grad_args(GradArgs& a, TrainDims& d, LEAN_GRAD_PARAMS) {
   const void* const* cw = static_cast<const void* const*>(chain_w);
   for (int i = 0; i < MAX_LAYERS; ++i) a.cp.bw[i] = i < n_layers ? cw[i] : nullptr;
   a.ig = InputGrads{};
+  a.ix_ws = nullptr;
+  a.iv_ws = nullptr;
   a.chain_ws = static_cast<const void* const*>(chain_ws);
   a.cp.k_den = k_den;
   a.cp.k_rgb = k_rgb;
@@ -960,8 +1023,10 @@ TrainDims chain_dims(int W, int Wv, int depth, int depth_cond) {
 // The classic backward's own arguments (see mlp_bwd_saved); 0 or a
 // cudaError_t.  The layers whose input holds x must have their x columns.
 int read_classic(GradArgs& a, const TrainDims& d, void* dx, void* dview, const void* x_chain,
-                 const void* kv, int n_layers) {
+                 const void* kv, const void* x_ws, const void* v_ws, int n_layers) {
   if (!d.Fvp || !dx || !dview || !x_chain || !kv) return (int)cudaErrorInvalidValue;
+  a.ix_ws = static_cast<const void* const*>(x_ws);
+  a.iv_ws = v_ws;
   const void* const* xc = static_cast<const void* const*>(x_chain);
   for (int i = 0; i < n_layers; ++i) a.ig.bx[i] = xc[i];
   bool ok = a.ig.bx[0] != nullptr;
@@ -987,8 +1052,8 @@ int run_classic(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* r
 }
 
 int classic_fwd_entry(const void* x, const void* view, const void* weights, const void* biases,
-                      int n_layers, void* rgb, void* density, void* saved, const int* dims,
-                      int use_bf16, void* stream) {
+                      const void* wt, int n_layers, void* rgb, void* density, void* saved,
+                      const int* dims, int use_bf16, void* stream) {
   const TrainDims d = read_dims(dims, 0.f, 0.f, 0);
   if (!dims_ok(d, n_layers, use_bf16) || !d.Fvp) return (int)cudaErrorInvalidValue;
   const LayerPtrs p = layer_ptrs(weights, biases, n_layers);
@@ -999,11 +1064,12 @@ int classic_fwd_entry(const void* x, const void* view, const void* weights, cons
   float* dn = static_cast<float*>(density);
   bf16* sb = static_cast<bf16*>(saved);
   float* sf = static_cast<float*>(saved);
+  const void* const* w = static_cast<const void* const*>(wt);
   if (d.depth_cond == 0)
-    return use_bf16 ? launch_classic_fwd<bf16, true>(xf, vf, p, d, r, dn, sb, s)
-                    : launch_classic_fwd<float, true>(xf, vf, p, d, r, dn, sf, s);
-  return use_bf16 ? launch_classic_fwd<bf16, false>(xf, vf, p, d, r, dn, sb, s)
-                  : launch_classic_fwd<float, false>(xf, vf, p, d, r, dn, sf, s);
+    return use_bf16 ? launch_classic_fwd<bf16, true>(xf, vf, p, d, r, dn, sb, w, s)
+                    : launch_classic_fwd<float, true>(xf, vf, p, d, r, dn, sf, w, s);
+  return use_bf16 ? launch_classic_fwd<bf16, false>(xf, vf, p, d, r, dn, sb, w, s)
+                  : launch_classic_fwd<float, false>(xf, vf, p, d, r, dn, sf, w, s);
 }
 
 }  // namespace
@@ -1112,20 +1178,24 @@ int lean_param_grads_hybrid(const void* acts, LEAN_GRAD_PARAMS) {
 // The classic MLP (fused_mlp).  dims as above with N = 1 (R = M), L = 0,
 // nd the density heads and Fvp = Fv rounded up to 16.  x [M, F] and view
 // [M, Fv] f32 per point, weights / biases as lean_fwd takes them -> rgb
-// [M, 3] and density [M, nd] f32, the raw heads.
+// [M, 3] and density [M, nd] f32, the raw heads.  wt: f32 at the shapes of
+// classic_tf32_route's forward, the split transposed kernels as lean_fwd
+// takes them but view_0's of all its W + Fv rows (kernels/mlp.py
+// tf32_fwd_weights(..., Fv)); else may be null.
 int mlp_fwd(const void* x, const void* view, const void* weights, const void* biases,
-            int n_layers, void* rgb, void* density, const int* dims, int use_bf16, void* stream) {
-  return classic_fwd_entry(x, view, weights, biases, n_layers, rgb, density, nullptr, dims,
+            const void* wt, int n_layers, void* rgb, void* density, const int* dims,
+            int use_bf16, void* stream) {
+  return classic_fwd_entry(x, view, weights, biases, wt, n_layers, rgb, density, nullptr, dims,
                            use_bf16, stream);
 }
 
 // mlp_fwd that also writes saved [Cs][Mp] in the compute dtype: X | hs |
 // bottleneck | ys | V (the view, Fvp rows).
 int mlp_save_fwd(const void* x, const void* view, const void* weights, const void* biases,
-                 int n_layers, void* rgb, void* density, void* saved, const int* dims,
-                 int use_bf16, void* stream) {
+                 const void* wt, int n_layers, void* rgb, void* density, void* saved,
+                 const int* dims, int use_bf16, void* stream) {
   if (!saved) return (int)cudaErrorInvalidValue;
-  return classic_fwd_entry(x, view, weights, biases, n_layers, rgb, density, saved, dims,
+  return classic_fwd_entry(x, view, weights, biases, wt, n_layers, rgb, density, saved, dims,
                            use_bf16, stream);
 }
 
@@ -1136,13 +1206,17 @@ int mlp_save_fwd(const void* x, const void* view, const void* weights, const voi
 // of each layer after a skip concat and (after a last one) of the
 // bottleneck; kv view_0's view rows transposed, [Wv][Fvp] (compute dtype,
 // zero past F / Fv).  dw also takes view_0's view rows as a problem of the
-// stream's V rows.
+// stream's V rows.  f32 at the shapes of classic_tf32_route's chain
+// (chain_ws the split chain kernels as the lean entries take them): x_ws
+// (param index) the split x rows [2 ix_cols(Fp)][out] of the layers x_chain
+// names, v_ws view_0's split view rows [2 ix_cols(Fvp)][Wv]; else x_ws and
+// v_ws may be null.
 int mlp_bwd_saved(const void* saved, void* dx, void* dview, const void* x_chain, const void* kv,
-                  LEAN_GRAD_PARAMS) {
+                  const void* x_ws, const void* v_ws, LEAN_GRAD_PARAMS) {
   GradArgs a;
   TrainDims d;
   int err = read_grad_args(a, d, LEAN_GRAD_ARGS);
-  if (!err) err = read_classic(a, d, dx, dview, x_chain, kv, n_layers);
+  if (!err) err = read_classic(a, d, dx, dview, x_chain, kv, x_ws, v_ws, n_layers);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t esize = use_bf16 ? 2 : 4;
@@ -1154,20 +1228,22 @@ int mlp_bwd_saved(const void* saved, void* dx, void* dview, const void* x_chain,
   return run_classic(a, d, level_chunk(d, MC), nullptr, acts, use_bf16, s);
 }
 
-// mlp_bwd_saved with the forward re-run by mlp_fwd's kernel chunk by
-// chunk: x / view_pts / weights / biases as mlp_fwd takes them, saved
+// mlp_bwd_saved with the forward re-run by mlp_save_fwd's kernel chunk by
+// chunk: x / view_pts / weights / biases / wt as mlp_fwd takes them, saved
 // [Cs][chunk] scratch for one chunk of `chunk` points (a multiple of MC).
 int mlp_bwd_recompute(const void* x, const void* view_pts, const void* weights,
-                      const void* biases, void* saved, int chunk, void* dx, void* dview,
-                      const void* x_chain, const void* kv, LEAN_GRAD_PARAMS) {
+                      const void* biases, const void* wt, void* saved, int chunk, void* dx,
+                      void* dview, const void* x_chain, const void* kv, const void* x_ws,
+                      const void* v_ws, LEAN_GRAD_PARAMS) {
   GradArgs a;
   TrainDims d;
   int err = read_grad_args(a, d, LEAN_GRAD_ARGS);
-  if (!err) err = read_classic(a, d, dx, dview, x_chain, kv, n_layers);
+  if (!err) err = read_classic(a, d, dx, dview, x_chain, kv, x_ws, v_ws, n_layers);
   if (err) return err;
   if (chunk < MC || chunk % MC) return (int)cudaErrorInvalidValue;
   const Refwd rf{static_cast<const float*>(x), static_cast<const float*>(view_pts),
-                 layer_ptrs(weights, biases, n_layers), saved, nullptr, nullptr};
+                 layer_ptrs(weights, biases, n_layers), saved, nullptr,
+                 static_cast<const void* const*>(wt)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return run_classic(a, d, chunk, &rf, Acts{}, use_bf16, s);
 }
@@ -1235,6 +1311,26 @@ int lean_chain_route(int use_bf16, int W, int Wv, int depth, int depth_cond) {
 int lean_chain_tf32_smem(int W, int Wv, int depth, int depth_cond) {
   const TrainDims d = chain_dims(W, Wv, depth, depth_cond);
   return (int)chain_tf32_smem(W, Wv, d.cg());
+}
+
+// The f32 classic MLP (fused_mlp) of these shapes: out[0] 1 if its forward
+// takes lean_fwd_tf32_kernel, out[1] 1 if its backward's chain and input
+// cotangents take lean_chain_tf32_kernel; out[2], out[3] their dynamic
+// shared memory.
+int classic_tf32_route(int F, int Fv, int W, int Wv, int depth, int depth_cond, int nd,
+                       int skip, int* out) {
+  TrainDims d = chain_dims(W, Wv, depth, depth_cond);
+  d.F = F;
+  d.Fp = (F + 15) / 16 * 16;
+  d.Fv = Fv;
+  d.Fvp = (Fv + 15) / 16 * 16;
+  d.nd = nd;
+  d.skip = skip;
+  out[0] = classic_fwd_tf32(d) ? 1 : 0;
+  out[1] = skip >= 1 && Fv >= 1 && chain_tf32_route(d) ? 1 : 0;
+  out[2] = (int)fwd_tf32_smem(W, Wv, F, Fv);
+  out[3] = (int)chain_tf32_smem(W, Wv, d.cg(), ix_cols(d.Fp));
+  return 0;
 }
 
 }  // extern "C"

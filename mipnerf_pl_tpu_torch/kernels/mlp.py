@@ -66,7 +66,13 @@ and a backward that also returns dx and dview:
 
 With net_depth_condition 0 (no view layer) the rgb head reads
 concat(bottleneck, view): the four kernels are instantiated for it, and its
-cotangent splits into the bottleneck's and dview.
+cotangent splits into the bottleneck's and dview.  In f32 with a view
+layer, one density head and widths that are multiples of 64
+(`fwd_tf32_route` / `chain_tf32_route` with the classic arguments) the
+forwards run on the 3xTF32 wgmma forward's classic form (view_0's per-point
+view rows a second K segment), and the backwards' chain with dx and dview
+on the 3xTF32 wgmma chain's (the input cotangents steps of the chain);
+`tf32_routes` and `chain_tf32_routes` count the calls that took them.
 
 What bounds them: the MLP is ~1.21 MFLOP per sample point forward and about
 twice that backward (with the input gradients, exactly twice), so the
@@ -177,8 +183,10 @@ FW_SMEM_MAX = 232448
 
 # Wrapper name -> calls whose forward ran on the f32 wgmma / TMA kernel
 # lean_fwd_tf32_kernel (csrc/lean_fwd_tf32.cuh), read from the library's
-# own count of that kernel's launches around each call.
-tf32_routes = dict.fromkeys(routes, 0)
+# own count of that kernel's launches around each call: the lean forwards
+# and the classic ones (mlp_bwd_recompute: its re-run).
+tf32_routes = dict.fromkeys(list(routes) + ['mlp_fwd', 'mlp_save_fwd',
+                                            'mlp_bwd_recompute'], 0)
 
 # The shape rule of lean_fwd_tf32_kernel (csrc/lean_fwd_tf32.cuh,
 # fwd_tf32_route): a ring of FT_STAGES slabs of FT_KS columns of the split
@@ -195,7 +203,9 @@ FT_STAGES, FT_KS, FT_LD, FT_MAX_LAYERS, FT_MAX_X = 3, 16, 72, 12, 128
 # lean_chain_tf32_kernel (csrc/lean_chain_tf32.cuh), read from the
 # library's own counts of their launches around each call.
 chain_routes = {'lean_param_grads': 0, 'lean_param_grads_recompute': 0}
-chain_tf32_routes = dict.fromkeys(chain_routes, 0)
+chain_tf32_routes = dict.fromkeys(list(chain_routes) + ['mlp_bwd_saved',
+                                                        'mlp_bwd_recompute'],
+                                  0)
 
 
 # Wrapper name -> calls whose weight gradients ran on the f32 wgmma kernel
@@ -271,10 +281,26 @@ def chain_sm90_smem(Cg: int) -> int:
             + 8 * 2 * (CH_STAGES + CH_MASKS + CH_RAW) + 1024)
 
 
-def chain_tf32_smem(W: int, Wv: int, Cg: int) -> int:
-    """Dynamic shared memory of lean_chain_tf32_kernel."""
+def chain_tf32_smem(W: int, Wv: int, Cg: int, ix_n: int = 0) -> int:
+    """Dynamic shared memory of lean_chain_tf32_kernel; the classic form
+    (ix_n: the N of its dx steps) also stages the density kernel's x rows
+    (FT_MAX_X floats) and stashes dx's products of a 64-point tile."""
     return (FT_STAGES * 2 * 256 * FT_KS * 4 + 64 + 4 * FT_LD * max(W, Wv)
-            + 4 * (4 * 64 + 256 + 3 * 256 + _round_up(Cg, 4)) + 1024)
+            + 4 * (4 * 64 + 256 + 3 * 256 + _round_up(Cg, 4))
+            + (4 * (FT_MAX_X + 64 * ix_n) if ix_n else 0) + 1024)
+
+
+# The classic chain's plan: its weight maps and steps (csrc/lean_chain_tf32.cuh
+# CT_MAX_MAPS, CT_STEPS).
+CT_MAX_MAPS, CT_STEPS = 16, 20
+
+
+def _classic_dx_steps(net_depth: int, skip_index: int) -> int:
+    """Layers of the classic MLP whose input holds x: trunk_0, each trunk
+    layer after a skip concat, the bottleneck after a last one."""
+    return (sum(L == 0 or _skip_after(L - 1, skip_index)
+                for L in range(net_depth))
+            + _skip_after(net_depth - 1, skip_index))
 
 
 def _chain_route(W, Wv, net_depth, net_depth_condition, smem):
@@ -295,38 +321,67 @@ def chain_sm90_route(compute_dtype, W: int, Wv: int, net_depth: int,
 
 
 def chain_tf32_route(compute_dtype, W: int, Wv: int, net_depth: int,
-                     net_depth_condition: int) -> bool:
+                     net_depth_condition: int, *, F: int = 0, Fv: int = 0,
+                     nd: int = 1, skip_index: int = 4) -> bool:
     """Whether that chain runs on lean_chain_tf32_kernel: f32 and the shape
-    rule above."""
+    rule above.  With Fv > 0, whether the classic backward of fused_mlp
+    (mlp_bwd_saved, mlp_bwd_recompute; F encode and Fv view features, nd
+    density heads) runs its chain, dx and dview there: f32, W and Wv
+    multiples of 64 up to MAX_WIDTH, a view layer, one density head, the
+    encode and the view at most FT_MAX_X once rounded up to 32 (the N of
+    their steps), its weight maps (every chain layer and input step)
+    within CT_MAX_MAPS and its steps within CT_STEPS, and the plan within
+    the block's shared memory."""
+    if compute_dtype != torch.float32:
+        return False
+    if not Fv:
+        Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
+        return _chain_route(W, Wv, net_depth, net_depth_condition,
+                            chain_tf32_smem(W, Wv, Cg))
     Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
-    return compute_dtype == torch.float32 and _chain_route(
-        W, Wv, net_depth, net_depth_condition, chain_tf32_smem(W, Wv, Cg))
+    ix = _classic_dx_steps(net_depth, skip_index) + 1
+    ix_n = _round_up(_round_up(F, 16), 32)
+    return (all(64 <= w <= MAX_WIDTH and w % 64 == 0 for w in (W, Wv))
+            and net_depth >= 1 and net_depth_condition >= 1 and nd == 1
+            and skip_index >= 1 and 1 <= F and ix_n <= FT_MAX_X
+            and _round_up(_round_up(Fv, 16), 32) <= FT_MAX_X
+            and net_depth + net_depth_condition + ix <= CT_MAX_MAPS
+            and net_depth + net_depth_condition + 1 + ix <= CT_STEPS
+            and chain_tf32_smem(W, Wv, Cg, ix_n) <= FW_SMEM_MAX)
 
 
-def fwd_tf32_smem(W: int, Wv: int, F: int) -> int:
+def fwd_tf32_smem(W: int, Wv: int, F: int, Fv: int = 0) -> int:
     """Dynamic shared memory of lean_fwd_tf32_kernel at widths W, Wv and an
-    encode of F features."""
+    encode of F features (the classic form: the input tile also holds the
+    Fv per-point view features)."""
     staged = (4 * 64 + 4 * 3 * 64 + FT_MAX_LAYERS * 256
               + (256 + FT_MAX_X) + 768)
     slabs = FT_MAX_LAYERS * (256 + FT_MAX_X) // FT_KS
+    xrows = max(_round_up(F, FT_KS), _round_up(Fv, FT_KS))
     return (FT_STAGES * 2 * 256 * FT_KS * 4 + 64
-            + 4 * FT_LD * (max(W, Wv) + _round_up(F, FT_KS))
+            + 4 * FT_LD * (max(W, Wv) + xrows)
             + 4 * staged + 4 * slabs + 1024)
 
 
 def fwd_tf32_route(compute_dtype, F: int, W: int, Wv: int, net_depth: int,
-                   net_depth_condition: int) -> bool:
+                   net_depth_condition: int, Fv: int = 0,
+                   nd: int = 1) -> bool:
     """Whether a lean forward (lean_fwd, lean_save_fwd, the recompute
     backward's re-run, lean_mlp) runs on lean_fwd_tf32_kernel: f32, W and
     Wv multiples of 64 up to MAX_WIDTH, a view layer, at most FT_MAX_LAYERS
     dense layers, an encode of at most FT_MAX_X features once rounded up to
-    the FT_KS slab, and the plan within the block's shared memory."""
+    the FT_KS slab, and the plan within the block's shared memory.  With
+    Fv > 0, whether the classic forward of fused_mlp (mlp_fwd,
+    mlp_save_fwd, mlp_bwd_recompute's re-run; Fv per-point view features,
+    nd density heads) runs on its classic form: the same rule, the view at
+    most FT_MAX_X features once rounded up, one density head."""
     return (compute_dtype == torch.float32
             and all(64 <= w <= MAX_WIDTH and w % 64 == 0 for w in (W, Wv))
             and net_depth >= 1 and net_depth_condition >= 1
             and net_depth + 1 + net_depth_condition <= FT_MAX_LAYERS
             and 1 <= F and _round_up(F, FT_KS) <= FT_MAX_X
-            and fwd_tf32_smem(W, Wv, F) <= FW_SMEM_MAX)
+            and 0 <= Fv and _round_up(Fv, FT_KS) <= FT_MAX_X and nd == 1
+            and fwd_tf32_smem(W, Wv, F, Fv) <= FW_SMEM_MAX)
 
 
 def tf32_split(w: torch.Tensor):
@@ -340,20 +395,21 @@ def tf32_split(w: torch.Tensor):
 
 
 def tf32_fwd_weights(flat_params, net_depth: int, net_depth_condition: int,
-                     skip_index: int):
+                     skip_index: int, Fv: int = 0):
     """The B operands of lean_fwd_tf32_kernel: by param index, for each
     dense layer the transposed kernel k^T [N, Kp] split into [hi; lo]
     [2N, Kp] f32 (Kp: the encode columns rounded up to FT_KS with zeros;
-    view_0 its first W rows only); None for the heads."""
+    view_0 its first W rows only, or in the classic form (Fv > 0) all of
+    them, the Fv view columns rounded up likewise); None for the heads."""
     F, W = flat_params[0].shape
-    Fx = _round_up(F, FT_KS)
     ks = [t.detach().float() for t in flat_params[0::2]]
     out = [None] * len(ks)
 
     def split(k, x_rows):
         kt = k.t()
-        if x_rows:      # the encode rows, padded to Fx
-            pad = kt.new_zeros((kt.shape[0], Fx - x_rows))
+        if x_rows:      # the encode (view) rows, padded to FT_KS
+            pad = kt.new_zeros((kt.shape[0],
+                                _round_up(x_rows, FT_KS) - x_rows))
             kt = torch.cat([kt, pad], dim=1)
         return torch.cat(tf32_split(kt), dim=0).contiguous()
 
@@ -364,26 +420,38 @@ def tf32_fwd_weights(flat_params, net_depth: int, net_depth_condition: int,
                                F if _skip_after(net_depth - 1, skip_index)
                                else 0)
     iv = net_depth + 2
-    out[iv] = split(ks[iv][:W], 0)
+    out[iv] = split(ks[iv], Fv) if Fv else split(ks[iv][:W], 0)
     for j in range(1, net_depth_condition):
         out[iv + j] = split(ks[iv + j], 0)
     return out
 
 
+def _ptr_array(ts):
+    """A ctypes array of the tensors' pointers (None: null)."""
+    return (ctypes.c_void_p * len(ts))(
+        *[None if t is None else t.data_ptr() for t in ts])
+
+
 def _tf32_ptrs(flat_params, net_depth, net_depth_condition, skip_index,
-               compute_dtype):
+               compute_dtype, classic=False):
     """(the split kernels, a ctypes array of their pointers) for an f32
-    forward that takes lean_fwd_tf32_kernel; (None, None) otherwise."""
+    forward that takes lean_fwd_tf32_kernel (classic: the classic MLP's, on
+    its classic form); (None, None) otherwise."""
     F, W = flat_params[0].shape
-    Wv = flat_params[2 * (net_depth + 2)].shape[1]
-    if not fwd_tf32_route(compute_dtype, F, W, Wv, net_depth,
-                          net_depth_condition):
+    if classic:
+        _, _, Fv, Wv = _mlp_dims(flat_params, net_depth)
+        nd = flat_params[2 * net_depth].shape[1]
+        on = net_depth_condition >= 1 and fwd_tf32_route(
+            compute_dtype, F, W, Wv, net_depth, net_depth_condition, Fv, nd)
+    else:
+        Fv, Wv = 0, flat_params[2 * (net_depth + 2)].shape[1]
+        on = fwd_tf32_route(compute_dtype, F, W, Wv, net_depth,
+                            net_depth_condition)
+    if not on:
         return None, None
     wt = tf32_fwd_weights(flat_params, net_depth, net_depth_condition,
-                          skip_index)
-    ptrs = (ctypes.c_void_p * len(wt))(
-        *[None if t is None else t.data_ptr() for t in wt])
-    return wt, ptrs
+                          skip_index, Fv)
+    return wt, _ptr_array(wt)
 
 
 def fwd_sm90_smem(W: int, Wv: int, F: int) -> int:
@@ -916,10 +984,10 @@ _ARGTYPES = {
     'lean_param_grads': [_P] * 2 + _GRAD_TAIL,
     'lean_param_grads_recompute': [_P] * 7 + [_I] + _GRAD_TAIL,
     'lean_param_grads_hybrid': [_P] + _GRAD_TAIL,
-    'mlp_fwd': [_P] * 4 + [_I] + [_P] * 3 + [_I, _P],
-    'mlp_save_fwd': [_P] * 4 + [_I] + [_P] * 4 + [_I, _P],
-    'mlp_bwd_saved': [_P] * 5 + _GRAD_TAIL,
-    'mlp_bwd_recompute': [_P] * 5 + [_I] + [_P] * 4 + _GRAD_TAIL,
+    'mlp_fwd': [_P] * 5 + [_I] + [_P] * 3 + [_I, _P],
+    'mlp_save_fwd': [_P] * 5 + [_I] + [_P] * 4 + [_I, _P],
+    'mlp_bwd_saved': [_P] * 7 + _GRAD_TAIL,
+    'mlp_bwd_recompute': [_P] * 6 + [_I] + [_P] * 6 + _GRAD_TAIL,
     'tp_pair_fwd': [_P] * 5 + [_I] * 6 + [_P],
     'tp_pair_bwd': [_P] * 9 + [_I, _P, _I, _I, _P, _P] + [_I] * 6 + [_P],
 }
@@ -934,14 +1002,14 @@ def _call(fn_name: str, device, *args):
     fn.argtypes = _ARGTYPES[fn_name]
     fn.restype = ctypes.c_int
     counts = []
-    if fn_name in routes:
-        for name, table in (('lean_fwd_sm90_launches', routes),
-                            ('lean_fwd_tf32_launches', tf32_routes)):
+    for name, table in (('lean_fwd_sm90_launches', routes),
+                        ('lean_fwd_tf32_launches', tf32_routes)):
+        if fn_name in table:
             count = getattr(lib, name)
             count.argtypes, count.restype = [], ctypes.c_longlong
             counts.append((count, count(), table))
-    if fn_name in chain_routes:
-        for i, table in enumerate((chain_routes, chain_tf32_routes)):
+    for i, table in enumerate((chain_routes, chain_tf32_routes)):
+        if fn_name in table:
             count = _chain_count(lib, i)
             counts.append((count, count(), table))
     if fn_name in wgrad_tf32_routes:
@@ -1427,8 +1495,15 @@ def _grad_launch(fn, prefix, chunk, plan, view, g_rgb, g_dens, flat_params,
     chain.update({iv + j: ks[iv + j] for j in range(1, net_depth_condition)})
     # f32 on lean_chain_tf32_kernel: the same kernels as stored, split.
     ws = {}
-    if fn in chain_routes and chain_tf32_route(compute_dtype, W, Wv,
-                                               net_depth, net_depth_condition):
+    dims = plan['dims']
+    if classic:       # the classic chain: F, Fv, nd, skip from the dims
+        on = chain_tf32_route(compute_dtype, W, Wv, net_depth,
+                              net_depth_condition, F=dims[4], Fv=dims[6],
+                              nd=dims[14], skip_index=dims[9])
+    else:
+        on = fn in chain_routes and chain_tf32_route(
+            compute_dtype, W, Wv, net_depth, net_depth_condition)
+    if on:
         ws = {i: torch.cat(tf32_split(k), dim=0).contiguous()
               for i, k in chain.items()}
     c_ws = (ctypes.c_void_p * len(ks))(
@@ -1867,6 +1942,8 @@ def _mlp_fwd_launch(fn, x, view, flat_params, net_depth, net_depth_condition,
     dev = x.device
     nd = flat_params[2 * net_depth].shape[1]
     ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
+    wt, wt_ptrs = _tf32_ptrs(flat_params, net_depth, net_depth_condition,
+                             skip_index, compute_dtype, classic=True)
     c_dims = _ints(_train_dims(M, 1, F, Fv, W, Wv, net_depth,
                                net_depth_condition, skip_index, None, nd,
                                True))
@@ -1880,8 +1957,10 @@ def _mlp_fwd_launch(fn, x, view, flat_params, net_depth, net_depth_condition,
                         device=dev)
         extra = [S.data_ptr()]
     _call(fn, dev, x.data_ptr(), view.data_ptr(), ctypes.addressof(w_ptrs),
-          ctypes.addressof(b_ptrs), len(ws), rgb.data_ptr(),
-          density.data_ptr(), *extra, ctypes.addressof(c_dims), flag)
+          ctypes.addressof(b_ptrs),
+          None if wt is None else ctypes.addressof(wt_ptrs), len(ws),
+          rgb.data_ptr(), density.data_ptr(), *extra,
+          ctypes.addressof(c_dims), flag)
     launches[fn] += 1
     return rgb, density, S
 
@@ -1920,14 +1999,41 @@ def _padded_t(k, cols, compute_dtype):
     return out
 
 
+def tf32_input_weights(flat_params, net_depth: int, skip_index: int):
+    """The B operands of the classic chain's input-cotangent steps on
+    lean_chain_tf32_kernel: by param index, for each layer whose input holds
+    x (trunk_0 all of it, each layer after a skip concat, the bottleneck
+    after a last one) its x rows k[x rows] as stored [F, out], padded with
+    zero rows to F rounded up to 16 and then to 32, split into [hi; lo]
+    [2 Fx, out] f32 (None elsewhere); and view_0's view rows k[W:] [Fv, Wv]
+    padded likewise and split."""
+    F, W, Fv, _ = _mlp_dims(flat_params, net_depth)
+    ks = [t.detach().float() for t in flat_params[0::2]]
+
+    def split(k):
+        rows = _round_up(_round_up(k.shape[0], 16), 32)
+        k = torch.cat([k, k.new_zeros((rows - k.shape[0], k.shape[1]))])
+        return torch.cat(tf32_split(k), dim=0).contiguous()
+    xs = [None] * len(ks)
+    xs[0] = split(ks[0])
+    for i in range(1, net_depth):
+        if _skip_after(i - 1, skip_index):
+            xs[i] = split(ks[i][W:])
+    if _skip_after(net_depth - 1, skip_index):
+        xs[net_depth + 1] = split(ks[net_depth + 1][W:])
+    return xs, split(ks[net_depth + 2][W:])
+
+
 def _mlp_grad_launch(fn, mode_args, view, g_rgb, g_dens, flat_params,
                      net_depth, net_depth_condition, skip_index,
                      compute_dtype):
     """The classic backward entries: the lean driver with the input
     cotangents.  mode_args(plan) -> (the mode's own arguments, points a
-    chunk); then come dx, dview, and the x-column kernels and view_0's
-    view rows (with no view layer, the rgb head's) of the input-gradient
-    pass, transposed and padded.  -> (dx, dview, grads)."""
+    chunk); then come dx, dview, the x-column kernels and view_0's view
+    rows (with no view layer, the rgb head's) of the mma.sync
+    input-gradient pass, transposed and padded, and, where the chain runs
+    on lean_chain_tf32_kernel, its input steps' split kernels.  -> (dx,
+    dview, grads)."""
     M = g_rgb.shape[0]
     F, W, Fv, _ = _mlp_dims(flat_params, net_depth)
     Fp = _round_up(F, 16)
@@ -1951,9 +2057,17 @@ def _mlp_grad_launch(fn, mode_args, view, g_rgb, g_dens, flat_params,
     plan = _grad_plan(fn, view, g_rgb, g_dens, flat_params, 1, net_depth,
                       net_depth_condition, skip_index, compute_dtype,
                       classic=True)
+    x_ws = v_ws = c_xws = None
+    if chain_tf32_route(compute_dtype, plan['W'], plan['Wv'], net_depth,
+                        net_depth_condition, F=F, Fv=Fv,
+                        nd=flat_params[2 * net_depth].shape[1],
+                        skip_index=skip_index):
+        x_ws, v_ws = tf32_input_weights(flat_params, net_depth, skip_index)
+        c_xws = _ptr_array(x_ws)
     prefix, chunk = mode_args(plan)
     prefix += [dx.data_ptr(), dview.data_ptr(), ctypes.addressof(c_xchain),
-               kv.data_ptr()]
+               kv.data_ptr(), None if c_xws is None else ctypes.addressof(c_xws),
+               None if v_ws is None else v_ws.data_ptr()]
     grads = _grad_launch(fn, prefix, chunk, plan, view, g_rgb, g_dens,
                          flat_params, net_depth, net_depth_condition,
                          compute_dtype, None, classic=True)
@@ -2006,6 +2120,8 @@ def mlp_bwd_recompute(x, view, g_rgb, g_dens,
                                     net_depth_condition, compute_dtype)
     x, view = x.contiguous(), view.contiguous()
     ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
+    wt, wt_ptrs = _tf32_ptrs(flat_params, net_depth, net_depth_condition,
+                             skip_index, compute_dtype, classic=True)
     Cs = saved_rows(F, W, Wv, net_depth, net_depth_condition, Fv)[-1]
     scratch = []
 
@@ -2014,8 +2130,9 @@ def mlp_bwd_recompute(x, view, g_rgb, g_dens,
         scratch.append(torch.empty((Cs, min(chunk, plan['Mp'])),
                                    dtype=compute_dtype, device=x.device))
         return [x.data_ptr(), view.data_ptr(), ctypes.addressof(w_ptrs),
-                ctypes.addressof(b_ptrs), scratch[0].data_ptr(),
-                chunk], chunk
+                ctypes.addressof(b_ptrs),
+                None if wt is None else ctypes.addressof(wt_ptrs),
+                scratch[0].data_ptr(), chunk], chunk
     return _mlp_grad_launch(fn, mode_args, view, g_rgb, g_dens, flat_params,
                             net_depth, net_depth_condition, skip_index,
                             compute_dtype)

@@ -23,7 +23,9 @@ With --steps it also times the lego training step on pallas_lean_save
 (bench.py's synthetic rays, 3072 a step, make_train_many K = 5 steps a
 call, the host clock to a synchronise): best and median ms/step of 6 calls
 after a warm-up, bf16 and f32, and the device time of one step from a
-torch.profiler window.
+torch.profiler window; and the same in f32 on the classic backends
+`pallas` and `pallas_save` with stop_resample_grad False (`step f32
+pallas ...`).
 
 With --frames it also times one 800x800 frame of render_camera (the lego
 schema's model with seeded weights, chip_smoke.py's Blender camera on the
@@ -43,7 +45,10 @@ With --profile it first prints, each on a line of its own:
     summed over the problems, CUDA events;
   * view_proj's device time against torch.addmm's at the level's rays and
     at the render chunk's, from the profiler (kernel durations, not the
-    host's issue time).
+    host's issue time);
+  * where the checkout has them, the same split of the classic kernels:
+    mlp_save_fwd, and mlp_bwd_saved (its chain with dx and dview, weight
+    gradients and reductions).
 """
 
 import json
@@ -130,9 +135,10 @@ def wgrad_yardstick(km, saved, flat, args, dt):
     return cuda_ms(run)
 
 
-def step_times(MipNeRFSystem, Rays, hp, dev, dtype, params):
+def step_times(MipNeRFSystem, Rays, hp, dev, dtype, params,
+               backend='pallas_lean_save', opts=None):
     """(best, median ms/step of 6 make_train_many calls of K = 5 steps,
-    device ms of one step) on pallas_lean_save."""
+    device ms of one step) on `backend` with hparams `opts`."""
     import time
     K, B = 5, RAYS
     rng = np.random.default_rng(0)
@@ -145,9 +151,9 @@ def step_times(MipNeRFSystem, Rays, hp, dev, dtype, params):
                   .contiguous() for f in fields))
     pix = torch.tensor(rng.uniform(size=(K, B, 3)).astype(np.float32),
                        device=dev)
-    system = MipNeRFSystem(dict(hp, **{'nerf.mlp_backend': 'pallas_lean_save',
-                                       'train.compute_dtype': dtype}),
-                           device=dev)
+    system = MipNeRFSystem(dict(hp, **{'nerf.mlp_backend': backend,
+                                       'train.compute_dtype': dtype},
+                                **(opts or {})), device=dev)
     fn = system.make_train_many()
     state = system.init_state(params=params)
     state, _ = fn(state, rays, pix, 0)
@@ -265,6 +271,22 @@ def main():
                     'addmm kernels': {short(k): round(v, 5)
                                       for k, v in am.items()}}), flush=True)
             saved = None
+            if hasattr(km, 'mlp_bwd_saved'):
+                cargs = args[1:] + (dt,)
+                vp = view.repeat_interleave(args[0], dim=0).contiguous()
+                cs = km.mlp_save_fwd(x, vp, flat, *cargs)[2]
+                runs = {'mlp_save_fwd': lambda: km.mlp_save_fwd(x, vp, flat,
+                                                                *cargs),
+                        'mlp_bwd_saved': lambda: km.mlp_bwd_saved(
+                            g_rgb, g_dens, cs, flat, *cargs)}
+                for name, fn in runs.items():
+                    split = {short(k): round(v, 4)
+                             for k, v in device_split(fn).items()}
+                    print(json.dumps({f'split {name}': tag,
+                                      'total_ms': round(sum(split.values()),
+                                                        4),
+                                      'kernels_ms': split}), flush=True)
+                cs = None
     for dt, tag in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
         saved = km.lean_save_fwd(x, view, flat, *args, dt, ACT)[2]
         calls = {
@@ -348,6 +370,13 @@ def main():
             out[f'step {tag} best'] = round(best, 3)
             out[f'step {tag} median'] = round(med, 3)
             out[f'step {tag} device'] = round(dev_ms, 3)
+        for backend in ('pallas', 'pallas_save'):
+            best, med, dev_ms = step_times(
+                MipNeRFSystem, Rays, hp, dev, 'float32', params, backend,
+                {'nerf.stop_resample_grad': False})
+            out[f'step f32 {backend} best'] = round(best, 3)
+            out[f'step f32 {backend} median'] = round(med, 3)
+            out[f'step f32 {backend} device'] = round(dev_ms, 3)
     print(json.dumps(out), flush=True)
 
 

@@ -1056,6 +1056,25 @@ def _classic_on(shape, device):
     return cfg, t, [torch.tensor(p, device=device) for p in flat]
 
 
+def classic_calls(shape, dtype, calls=1):
+    """(calls of a classic forward on lean_fwd_tf32_kernel, calls of a
+    classic backward whose chain, dx and dview run on
+    lean_chain_tf32_kernel) at the shape in `dtype`: the rules
+    fwd_tf32_route / chain_tf32_route with the classic arguments (f32, a
+    view layer, one density head, widths multiples of 64: the lego
+    shape)."""
+    _, cfg, nd = CLASSIC_SHAPES[shape]
+    dt = getattr(torch, dtype)
+    F = 6 * (cfg['deg'][1] - cfg['deg'][0])
+    W, Wv = cfg['net_width'], cfg['net_width_condition']
+    depth, dcond = cfg['net_depth'], cfg['net_depth_condition']
+    fwd = dcond >= 1 and tk.fwd_tf32_route(dt, F, W, Wv, depth, dcond,
+                                           cfg['Fv'], nd)
+    chain = tk.chain_tf32_route(dt, W, Wv, depth, dcond, F=F, Fv=cfg['Fv'],
+                                nd=nd, skip_index=cfg['skip_index'])
+    return calls if fwd else 0, calls if chain else 0
+
+
 def _close(a, b, dtype):
     """The forward bars: f32 max |d| <= 1e-4; bf16 max |d| / max |ref| <=
     3e-2 against the f32 plain version."""
@@ -1081,6 +1100,9 @@ def test_cuda_mlp_fwd_matches_plain(cuda_device, shape, dtype):
     got = tk.mlp_fwd(x, view, flat, *args, dt)
     torch.cuda.synchronize()
     assert tk.launches['mlp_save_fwd'] == 1 and tk.launches['mlp_fwd'] == 1
+    want = classic_calls(shape, dtype)[0]
+    assert (shape, dtype) != ('lego', 'float32') or want == 1
+    assert tk.tf32_routes['mlp_save_fwd'] == tk.tf32_routes['mlp_fwd'] == want
     ref = tk.mlp_save_fwd_plain(x, view, flat, *args, torch.float32)
     M = x.shape[0]
     for a, b in ((rgb, ref[0]), (dens, ref[1]),
@@ -1106,6 +1128,9 @@ def test_cuda_mlp_bwd_saved_matches_plain(cuda_device, shape, dtype):
     torch.cuda.synchronize()
     assert tk.launches['mlp_bwd_saved'] == 1
     assert tk.wgrad_tf32_routes['mlp_bwd_saved'] == wgrad_calls(dtype)
+    want = classic_calls(shape, dtype)[1]
+    assert (shape, dtype) != ('lego', 'float32') or want == 1
+    assert tk.chain_tf32_routes['mlp_bwd_saved'] == want
     rdx, rdview, rgrads = tk.mlp_bwd_saved_plain(g_rgb, g_dens, S, flat,
                                                  *args, torch.float32)
     bar = 1e-4 if dtype == 'float32' else 3e-2
@@ -1140,11 +1165,67 @@ def test_cuda_mlp_recompute_matches_saved(cuda_device, shape, dtype, chunks,
     torch.cuda.synchronize()
     assert tk.launches['mlp_bwd_recompute'] == 2
     assert tk.wgrad_tf32_routes['mlp_bwd_recompute'] == wgrad_calls(dtype, 2)
+    assert (tk.tf32_routes['mlp_bwd_recompute'],
+            tk.chain_tf32_routes['mlp_bwd_recompute']) \
+        == classic_calls(shape, dtype, 2)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert all(torch.isfinite(g).all() for g in got[2])
     assert max_leaf_rel_err(got[2], want[2]) <= 1e-5
     for a, b in zip(got[:2] + tuple(got[2]), again[:2] + tuple(again[2])):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_classic_plan_failure_raises(cuda_device, monkeypatch):
+    """A classic shape the f32 rules take whose plans cannot be made (here:
+    no split kernels handed to the library) raises, the forward and the
+    backward; neither falls back to the mma.sync kernels."""
+    cfg, (x, view, g_rgb, g_dens), flat = _classic_on('lego', cuda_device)
+    args = (cfg['net_depth'], cfg['net_depth_condition'], cfg['skip_index'],
+            torch.float32)
+    S = tk.mlp_save_fwd(x, view, flat, *args)[2]
+    monkeypatch.setattr(tk, 'fwd_tf32_route', lambda *a, **k: False)
+    monkeypatch.setattr(tk, 'chain_tf32_route', lambda *a, **k: False)
+    tk.reset_launches()
+    with pytest.raises(RuntimeError, match='mlp_save_fwd'):
+        tk.mlp_save_fwd(x, view, flat, *args)
+    with pytest.raises(RuntimeError, match='mlp_bwd_saved'):
+        tk.mlp_bwd_saved(g_rgb, g_dens, S, flat, *args)
+    with pytest.raises(RuntimeError, match='mlp_bwd_recompute'):
+        tk.mlp_bwd_recompute(x, view, g_rgb, g_dens, flat, *args)
+    torch.cuda.synchronize()
+    assert tk.tf32_routes['mlp_save_fwd'] == 0
+    assert tk.chain_tf32_routes['mlp_bwd_saved'] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_classic_tf32_route_matches_the_library(cuda_device):
+    """The library's classic rules (C entry classic_tf32_route) and shared
+    memory agree with fwd_tf32_route / chain_tf32_route and fwd_tf32_smem /
+    chain_tf32_smem given the classic arguments."""
+    import ctypes
+    from mipnerf_pl_tpu_torch.kernels import _build
+    lib = _build.load('lean_train')
+    out = (ctypes.c_int * 4)()
+    for F, Fv, W, Wv, depth, dcond, nd, skip in [
+            (96, 27, 256, 128, 8, 1, 1, 4), (96, 27, 256, 128, 8, 1, 2, 4),
+            (24, 27, 64, 32, 3, 1, 1, 2), (24, 27, 128, 64, 3, 1, 1, 2),
+            (96, 27, 256, 128, 8, 0, 1, 4), (96, 27, 96, 128, 8, 1, 1, 4),
+            (24, 27, 64, 64, 4, 2, 1, 2), (130, 27, 256, 128, 8, 1, 1, 4),
+            (96, 27, 256, 256, 11, 1, 1, 4), (96, 27, 256, 128, 10, 1, 1, 1),
+            (96, 140, 256, 128, 8, 1, 1, 4)]:
+        lib.classic_tf32_route(F, Fv, W, Wv, depth, dcond, nd, skip, out)
+        f32 = torch.float32
+        fwd = dcond >= 1 and tk.fwd_tf32_route(f32, F, W, Wv, depth, dcond,
+                                               Fv, nd)
+        chain = tk.chain_tf32_route(f32, W, Wv, depth, dcond, F=F, Fv=Fv,
+                                    nd=nd, skip_index=skip)
+        assert (bool(out[0]), bool(out[1])) == (fwd, chain), (F, Fv, W, Wv,
+                                                              depth, dcond)
+        assert out[2] == tk.fwd_tf32_smem(W, Wv, F, Fv)
+        cg = depth * W + nd + W + dcond * Wv + 3
+        assert out[3] == tk.chain_tf32_smem(W, Wv, cg,
+                                            -(-(-(-F // 16) * 16) // 32) * 32)
 
 
 @pytest.mark.cuda

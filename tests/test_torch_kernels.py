@@ -379,12 +379,27 @@ def test_fwd_sm90_smem():
     ('f32', 128, 256, 256, 8, 1, True),      # 128 features, the widest plan
     ('f32', 130, 256, 128, 8, 1, False),     # 144 rows once rounded to 16
     ('f32', 18, 64, 64, 2, 1, True),         # F not a multiple of 4
-    ('f32', 96, 320, 128, 8, 1, False)])     # wider than MAX_WIDTH
+    ('f32', 96, 320, 128, 8, 1, False),      # wider than MAX_WIDTH
+    # The classic MLP (fused_mlp: 27 per-point view features; nd density
+    # heads): its forward's classic form.
+    ('f32 classic', 96, 256, 128, 8, 1, True),          # lego
+    ('f32 classic', 96, 256, 128, 8, 0, False),         # no view layer
+    ('f32 classic nd2', 96, 256, 128, 8, 1, False),     # two density heads
+    ('bf16 classic', 96, 256, 128, 8, 1, False),        # bf16 keeps mlp_tile
+    ('f32 classic', 96, 96, 128, 8, 1, False),          # W = 96
+    ('f32 classic', 24, 64, 32, 3, 1, False),           # `small`: Wv = 32
+    ('f32 classic', 128, 256, 256, 8, 1, True),         # the widest plan
+    ('f32 classic', 96, 256, 128, 11, 1, False)])       # 13 dense layers
 def test_fwd_tf32_route(dtype, F, W, Wv, depth, dcond, want):
     """The shape rule of the f32 wgmma forward (lean_fwd_tf32_kernel),
-    against hand counts; the card test holds the library to the same
-    rule."""
-    dt = torch.bfloat16 if dtype == 'bf16' else torch.float32
+    against hand counts, for the lean MLP and for fused_mlp's classic form
+    (a second K segment of view_0 of the 27 view features, raw heads); the
+    card test holds the library to the same rule."""
+    dt = torch.bfloat16 if dtype.startswith('bf16') else torch.float32
+    if 'classic' in dtype:
+        nd = 2 if dtype.endswith('nd2') else 1
+        assert tk.fwd_tf32_route(dt, F, W, Wv, depth, dcond, 27, nd) is want
+        return
     assert tk.fwd_tf32_route(dt, F, W, Wv, depth, dcond) is want
 
 
@@ -419,11 +434,29 @@ def test_fwd_tf32_smem():
     ('f32', 64, 64, 15, 1, False),
     ('bf16', 256, 128, 9, 1, True),          # G of 2,692 rows
     ('bf16', 256, 128, 10, 1, False),        # 2,948: the bf16 sums outgrow the block
-    ('f32', 256, 256, 14, 1, True)])
+    ('f32', 256, 256, 14, 1, True),
+    # The classic backward (fused_mlp: F = 96, 27 view features, skip 4;
+    # nd density heads), its chain, dx and dview on lean_chain_tf32_kernel.
+    ('f32 classic', 256, 128, 8, 1, True),              # lego
+    ('f32 classic', 256, 128, 8, 0, False),             # no view layer
+    ('f32 classic nd2', 256, 128, 8, 1, False),         # two density heads
+    ('bf16 classic', 256, 128, 8, 1, False),            # bf16 keeps mma.sync
+    ('f32 classic', 96, 128, 8, 1, False),              # W = 96
+    ('f32 classic', 64, 32, 3, 1, False),               # `small`: Wv = 32
+    ('f32 classic', 256, 256, 11, 1, True),             # 16 weight maps
+    ('f32 classic', 256, 256, 12, 1, False)])           # 17
 def test_chain_route(dtype, W, Wv, depth, dcond, want):
     """The shape rules of the lean chains on wgmma (bf16
     lean_chain_sm90_kernel, f32 lean_chain_tf32_kernel), against hand
-    counts; each is a rule on its own dtype only."""
+    counts; each is a rule on its own dtype only.  The classic cases: the
+    f32 chain's classic form (its weight maps: every chain layer, the
+    dview step and one dx step a layer that reads x)."""
+    if 'classic' in dtype:
+        dt = torch.bfloat16 if dtype.startswith('bf16') else torch.float32
+        nd = 2 if dtype.endswith('nd2') else 1
+        assert tk.chain_tf32_route(dt, W, Wv, depth, dcond, F=96, Fv=27,
+                                   nd=nd, skip_index=4) is want
+        return
     dt, other = ((torch.bfloat16, torch.float32) if dtype == 'bf16'
                  else (torch.float32, torch.bfloat16))
     own = tk.chain_sm90_route if dtype == 'bf16' else tk.chain_tf32_route
@@ -453,6 +486,70 @@ def test_chain_smem():
     assert tk.chain_tf32_smem(128, 64, 1000) == (98304 + 64 + 288 * 128
                                                  + 4 * (256 + 1024 + 1000)
                                                  + 1024)
+
+
+def test_classic_tf32_smem():
+    """The classic forms' shared memory by hand at the lego shape (F = 96,
+    27 view features): the forward's input tile holds max(96, 32) rows, so
+    its plan is the lean one's, 222,912 bytes; the chain adds to the lean
+    chain's 187,984 the density kernel's 128 staged x rows and the stash of
+    dx's products, 64 points x 96 columns of f32: 213,072 bytes."""
+    assert tk.fwd_tf32_smem(256, 128, 96, 27) == tk.fwd_tf32_smem(256, 128,
+                                                                   96) \
+        == 222912
+    assert tk.fwd_tf32_smem(256, 128, 24, 100) == tk.fwd_tf32_smem(
+        256, 128, 112)
+    assert tk.chain_tf32_smem(256, 128, 2436, 96) == (
+        187984 + 4 * (128 + 64 * 96)) == 213072 <= tk.FW_SMEM_MAX
+
+
+def _cuh_consts(name):
+    """The `constexpr int` constants of csrc/<name> as a dict."""
+    import re
+    from pathlib import Path
+    src = (Path(tk.__file__).resolve().parent.parent / 'csrc'
+           / name).read_text()
+    return {k: int(v) for k, v in
+            re.findall(r'constexpr int (\w+) = (\d+);', src)}
+
+
+@pytest.mark.parametrize('case,F,Fv,W,Wv,depth,dcond,nd,skip,want', [
+    ('lego', 96, 27, 256, 128, 8, 1, 1, 4, True),
+    ('weight maps: 12 + 1 + 4 = 17', 96, 27, 256, 256, 12, 1, 1, 4, False),
+    ('weight maps: 11 + 1 + 4 = 16', 96, 27, 256, 256, 11, 1, 1, 4, True),
+    ('weight maps: skip 1 at depth 7, 7 + 1 + 8', 96, 27, 64, 64, 7, 1, 1, 1,
+     True),
+    ('weight maps: skip 1 at depth 8, 8 + 1 + 9', 96, 27, 64, 64, 8, 1, 1, 1,
+     False),
+    ('encode: 144 columns once rounded', 130, 27, 256, 128, 8, 1, 1, 4,
+     False),
+    ('encode: 128 columns', 128, 27, 256, 128, 8, 1, 1, 4, True),
+    ('view: 160 columns once rounded', 96, 129, 256, 128, 8, 1, 1, 4, False),
+    ('two density heads', 96, 27, 256, 128, 8, 1, 2, 4, False),
+    ('no view layer', 96, 27, 256, 128, 8, 0, 1, 4, False),
+    ('W not a multiple of 64', 96, 27, 160, 128, 8, 1, 1, 4, False)])
+def test_classic_chain_plan_mirror(case, F, Fv, W, Wv, depth, dcond, nd,
+                                   skip, want):
+    """The Python mirror of the classic chain's plan refuses what the C++
+    plan (csrc/lean_chain_tf32.cuh chain_tf32_route, chain_tf32_plan)
+    refuses: its limits are the C++ constants (read from the source), and
+    each case sits on one of them, counted by hand (the input steps: dview
+    and one a layer that reads x).  The card test holds the library to the
+    same answers (test_cuda_classic_tf32_route_matches_the_library)."""
+    chain = _cuh_consts('lean_chain_tf32.cuh')
+    fwd = _cuh_consts('lean_fwd_tf32.cuh')
+    assert (tk.CT_MAX_MAPS, tk.CT_STEPS) == (chain['CT_MAX_MAPS'],
+                                             chain['CT_STEPS'])
+    assert (tk.FT_MAX_X, tk.FT_KS, tk.FT_STAGES, tk.FT_LD) == (
+        fwd['FT_MAX_X'], fwd['FT_KS'], fwd['FT_STAGES'], fwd['FT_TM'] + 8)
+    if case.startswith('weight maps'):
+        ix = tk._classic_dx_steps(depth, skip) + 1
+        assert (depth + dcond + ix <= tk.CT_MAX_MAPS) is want
+    got = tk.chain_tf32_route(torch.float32, W, Wv, depth, dcond, F=F,
+                              Fv=Fv, nd=nd, skip_index=skip)
+    assert got is want, case
+    assert tk.chain_tf32_route(torch.bfloat16, W, Wv, depth, dcond, F=F,
+                               Fv=Fv, nd=nd, skip_index=skip) is False
 
 
 # The backward entries and whether their activations are point-major.
