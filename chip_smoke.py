@@ -33,7 +33,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      frame (max |d rgb|, max |d acc| <= 3e-2); then the frame with
      val.mlp_backend pallas (fused_mlp's forward, mlp_fwd, 2 x 5 launches,
      each on lean_fwd_tf32_kernel's classic form) against the same plain
-     frame at the same bar; then the frame with
+     frame at the same bar, and in bf16 (each on lean_fwd_sm90_kernel's
+     classic form) against it at the bf16 bar; then the frame with
      nerf.ipe_backend pallas (val.mlp_backend auto then resolves to the
      plain MLP: ipe_fwd alone, 2 x 5 launches) against the plain frame
      through the default encode, same bar (the two encodes' cosine halves
@@ -70,10 +71,11 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      phase-3 bars, mlp_bwd_saved on the plain forward's stream (dx, dview
      and every parameter at bench.py's metric, <= 1e-4 f32, <= 3e-2 bf16),
      mlp_bwd_recompute against mlp_bwd_saved on the kernel forward's stream
-     (<= 1e-5, dx and dview bit for bit, two runs equal); in f32 the lego
-     forwards (and the recompute re-runs) on lean_fwd_tf32_kernel's
-     classic form and both backwards' chain, dx and dview on
-     lean_chain_tf32_kernel's, in bf16 on the mma.sync kernels
+     (<= 1e-5, dx and dview bit for bit, two runs equal); the lego
+     forwards (and the recompute re-runs) on the classic form of the wgmma
+     forward of their dtype (lean_fwd_tf32_kernel, lean_fwd_sm90_kernel)
+     and both backwards' chain, dx and dview on the wgmma chain's
+     (lean_chain_tf32_kernel, lean_chain_sm90_kernel)
      (`check_classic_routes`); the same four
      kernels' instantiation for a model with no view layer
      (net_depth_condition 0: the rgb head reads concat(bottleneck, view)),
@@ -116,8 +118,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      that close to zero, and each flip moves a whole per-point term), then
      K = 5 steps of make_train_many, in which each of the configuration's
      kernels must launch 2 levels x 5 times, every lean forward and lean
-     chain on the wgmma kernel of its dtype, every f32 classic forward and
-     chain on the 3xTF32 wgmma classic forms (bf16 on mma.sync), every f32
+     chain on the wgmma kernel of its dtype, every classic forward and
+     chain on the wgmma classic forms of its dtype, every f32
      backward's weight gradients on wgrad_tf32_kernel (not hybrid's), and
      the loss must stay finite;
      ms/step, rays/s and peak memory of every configuration and of the
@@ -589,43 +591,60 @@ def check_chain_routes(hp, dt, where, **calls):
 
 
 # fused_mlp's wrappers: those whose forward (mlp_bwd_recompute: its re-run)
-# and those whose chain, dx and dview may take the f32 wgmma kernels.
+# and those whose chain, dx and dview may take the wgmma kernels.
 CLASSIC_FWD = ('mlp_fwd', 'mlp_save_fwd', 'mlp_bwd_recompute')
 CLASSIC_CHAIN = ('mlp_bwd_saved', 'mlp_bwd_recompute')
 
 
 def classic_route(hp, dt):
-    """(lean_fwd_tf32_kernel, lean_chain_tf32_kernel): whether fused_mlp's
-    forwards and backward chain of hp's MLP (one density head, the 27
-    per-point view features) in dt take the 3xTF32 wgmma classic forms:
-    kernels/mlp.py fwd_tf32_route / chain_tf32_route with the classic
-    arguments."""
+    """(forward, chain): whether fused_mlp's forwards and backward chain of
+    hp's MLP (one density head, the 27 per-point view features) in dt take
+    the wgmma classic forms of dt's kernels: f32 lean_fwd_tf32_kernel /
+    lean_chain_tf32_kernel (kernels/mlp.py fwd_tf32_route /
+    chain_tf32_route), bf16 lean_fwd_sm90_kernel / lean_chain_sm90_kernel
+    (fwd_sm90_route / chain_sm90_route), with the classic arguments."""
     F, W, Wv, depth, dcond = _widths(hp)
     Fv = 3 * (2 * hp['nerf.deg_view'] + 1)
-    return (dcond >= 1 and km.fwd_tf32_route(dt, F, W, Wv, depth, dcond, Fv,
-                                             1),
-            km.chain_tf32_route(dt, W, Wv, depth, dcond, F=F, Fv=Fv, nd=1,
-                                skip_index=hp['nerf.mlp.skip_index']))
+    f32 = dt == torch.float32
+    fwd = km.fwd_tf32_route if f32 else km.fwd_sm90_route
+    chain = km.chain_tf32_route if f32 else km.chain_sm90_route
+    return (dcond >= 1 and fwd(dt, F, W, Wv, depth, dcond, Fv, 1),
+            chain(dt, W, Wv, depth, dcond, F=F, Fv=Fv, nd=1,
+                  skip_index=hp['nerf.mlp.skip_index']))
+
+
+def classic_kernels(dt):
+    """The wgmma kernels (forward, chain) of fused_mlp's classic forms in
+    dt, and the route counts that record each."""
+    if dt == torch.float32:
+        return (('lean_fwd_tf32_kernel', 'lean_chain_tf32_kernel'),
+                (km.tf32_routes, km.chain_tf32_routes))
+    return (('lean_fwd_sm90_kernel', 'lean_chain_sm90_kernel'),
+            (km.routes, km.chain_routes))
 
 
 def check_classic_routes(hp, dt, where, **calls):
     """Raise unless each named fused_mlp wrapper's `calls` since the last
-    reset_launches ran its forward on lean_fwd_tf32_kernel and its chain
-    (with dx and dview) on lean_chain_tf32_kernel where classic_route says
-    so, and on the mma.sync kernels elsewhere (bf16, no view layer); the
-    lego schema's f32 classic kernels must take the wgmma forms."""
+    reset_launches ran its forward and its chain (with dx and dview) on the
+    wgmma kernels of dt (classic_kernels) where classic_route says so, on
+    the mma.sync kernels elsewhere (no view layer), and never on the other
+    dtype's; the lego schema's classic kernels must take the wgmma forms in
+    both dtypes."""
     on = classic_route(hp, dt)
-    if (hp['nerf.mlp.net_width'] == 256 and dt == torch.float32
+    if (hp['nerf.mlp.net_width'] == 256
             and hp['nerf.mlp.net_depth_condition'] >= 1 and not all(on)):
-        raise AssertionError('the lego f32 classic kernels take no wgmma '
+        raise AssertionError(f'the lego {dt} classic kernels take no wgmma '
                              'form')
-    got = {k: (km.tf32_routes.get(k, 0), km.chain_tf32_routes.get(k, 0))
-           for k in calls}
+    names, (fwd, chain) = classic_kernels(dt)
+    _, (o_fwd, o_chain) = classic_kernels(
+        torch.bfloat16 if dt == torch.float32 else torch.float32)
+    got = {k: (fwd.get(k, 0), chain.get(k, 0),
+               o_fwd.get(k, 0) + o_chain.get(k, 0)) for k in calls}
     want = {k: (n if on[0] and k in CLASSIC_FWD else 0,
-                n if on[1] and k in CLASSIC_CHAIN else 0)
+                n if on[1] and k in CLASSIC_CHAIN else 0, 0)
             for k, n in calls.items()}
-    log(f'[route] {where}: classic calls on (lean_fwd_tf32_kernel, '
-        f'lean_chain_tf32_kernel) {got} (want {want}) '
+    log(f'[route] {where}: classic calls on ({names[0]}, {names[1]}, the '
+        f'other dtype\'s kernels) {got} (want {want}) '
         f'{"OK" if got == want else "FAIL"}')
     if got != want:
         raise AssertionError(f'{where}: the classic kernels took another '
@@ -1681,8 +1700,10 @@ def run_k_steps(system, params, stack, pix, names, levels, label):
     run_counts = dict(km.launches)
     hp = system.hparams
     dt = getattr(torch, str(hp.get('train.compute_dtype', 'float32')))
-    fwd = {n: run_counts[n] for n in km.routes if run_counts[n]}
-    chain = {n: run_counts[n] for n in km.chain_routes if run_counts[n]}
+    fwd = {n: run_counts[n] for n in km.routes
+           if run_counts[n] and n not in CLASSIC_FWD}
+    chain = {n: run_counts[n] for n in km.chain_routes
+             if run_counts[n] and n not in CLASSIC_CHAIN}
     wgrad = {n: run_counts[n] for n in km.wgrad_tf32_routes if run_counts[n]}
     classic = {n: run_counts[n] for n in CLASSIC_FWD + ('mlp_bwd_saved',)
                if run_counts[n]}
@@ -2461,27 +2482,34 @@ def main() -> int:
         raise AssertionError('the bf16 frame disagrees with the plain path')
     del bf_system
 
-    # The same frame through fused_mlp's forward (val.mlp_backend pallas).
-    pallas_system = MipNeRFSystem(dict(hp, **{'val.mlp_backend': 'pallas'}),
-                                  device=dev)
-    render_frame(pallas_system, params, cam)
-    km.reset_launches()
-    out_p, s_pallas = render_frame(pallas_system, params, cam)
-    counts_p = dict(km.launches)
-    d_rgb = float(np.abs(out_p['fine_rgb'] - ref['fine_rgb']).max())
-    d_acc = float(np.abs(out_p['acc'] - ref['acc']).max())
-    log(f'[slice] val.mlp_backend pallas: {s_pallas:.3f} s/frame; launches '
-        f'{ {k: v for k, v in counts_p.items() if v} }; vs plain max|d rgb| '
-        f'{d_rgb:.3e} max|d acc| {d_acc:.3e} (bar {FRAME_BAR})')
-    if any(counts_p[k] != (want if k == 'mlp_fwd' else 0) for k in counts_p):
-        raise AssertionError(f'expected {want} launches of mlp_fwd alone, got'
-                             f' {counts_p}')
-    check_classic_routes(hp, torch.float32, 'phase 4 pallas frame',
-                         mlp_fwd=want)
-    if d_rgb > FRAME_BAR or d_acc > FRAME_BAR or not all(
-            np.all(np.isfinite(v)) for v in out_p.values()):
-        raise AssertionError('the pallas frame disagrees with the plain path')
-    del pallas_system
+    # The same frame through fused_mlp's forward (val.mlp_backend pallas):
+    # mlp_fwd alone on the classic form of the wgmma forward of the dtype,
+    # f32 against the plain frame at its bar, bf16 at the bf16 bar.
+    for dtype, bar in (('float32', FRAME_BAR), ('bfloat16', BF16_BAR)):
+        pallas_system = MipNeRFSystem(
+            dict(hp, **{'val.mlp_backend': 'pallas',
+                        'train.compute_dtype': dtype}), device=dev)
+        render_frame(pallas_system, params, cam)
+        km.reset_launches()
+        out_p, s_pallas = render_frame(pallas_system, params, cam)
+        counts_p = dict(km.launches)
+        d_rgb = float(np.abs(out_p['fine_rgb'] - ref['fine_rgb']).max())
+        d_acc = float(np.abs(out_p['acc'] - ref['acc']).max())
+        log(f'[slice] val.mlp_backend pallas {dtype}: {s_pallas:.3f} '
+            f's/frame; launches { {k: v for k, v in counts_p.items() if v} };'
+            f' vs plain max|d rgb| {d_rgb:.3e} max|d acc| {d_acc:.3e} (bar '
+            f'{bar})')
+        if any(counts_p[k] != (want if k == 'mlp_fwd' else 0)
+               for k in counts_p):
+            raise AssertionError(f'expected {want} launches of mlp_fwd alone,'
+                                 f' got {counts_p}')
+        check_classic_routes(hp, getattr(torch, dtype),
+                             f'phase 4 pallas {dtype} frame', mlp_fwd=want)
+        if d_rgb > bar or d_acc > bar or not all(
+                np.all(np.isfinite(v)) for v in out_p.values()):
+            raise AssertionError(f'the {dtype} pallas frame disagrees with '
+                                 'the plain path')
+        del pallas_system
 
     # The same frame with nerf.ipe_backend pallas: val.mlp_backend auto then
     # renders through the plain MLP, the encode through ipe_fwd.
@@ -2563,21 +2591,32 @@ def main() -> int:
             kernels[-1]['bf16'] = {k: rb[k] for k in (
                 'err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')}
             kernels[-1]['bf16']['share'] = rb['bound_ms'] / rb['ms']
-            if name in km.routes and sm90_route(hp, torch.bfloat16):
+            # The bf16 numbers' wgmma kernels: the lean forms, and the
+            # classic ones of fused_mlp's kernels.
+            on16 = classic_route(hp, torch.bfloat16)
+            if (name in CLASSIC_FWD and on16[0]) or (
+                    name in km.routes and name not in CLASSIC_FWD
+                    and sm90_route(hp, torch.bfloat16)):
                 kernels[-1]['bf16']['kernel'] = 'lean_fwd_sm90_kernel'
                 kernels[-1]['bf16']['source'] = \
                     'mipnerf_pl_tpu_torch/csrc/lean_fwd_sm90.cuh'
-            if name in km.chain_routes and chain_route(hp, torch.bfloat16)[0]:
+            if (name in CLASSIC_CHAIN and on16[1]) or (
+                    name in km.chain_routes and name not in CLASSIC_CHAIN
+                    and chain_route(hp, torch.bfloat16)[0]):
                 kernels[-1]['bf16']['chain'] = 'lean_chain_sm90_kernel'
+                kernels[-1]['bf16']['chain_source'] = \
+                    'mipnerf_pl_tpu_torch/csrc/lean_chain_sm90.cuh'
         # The f32 numbers' wgmma kernels (the line's own 'source' is the
         # library the wrapper launches, which holds them).
         on32 = classic_route(hp, torch.float32)
-        if (name in km.routes and tf32_route(hp, torch.float32)) or (
+        if (name in km.routes and name not in CLASSIC_FWD
+                and tf32_route(hp, torch.float32)) or (
                 name in CLASSIC_FWD and on32[0]):
             kernels[-1]['kernel'] = 'lean_fwd_tf32_kernel'
             kernels[-1]['kernel_source'] = \
                 'mipnerf_pl_tpu_torch/csrc/lean_fwd_tf32.cuh'
-        if (name in km.chain_routes and chain_route(hp, torch.float32)[1]) or (
+        if (name in km.chain_routes and name not in CLASSIC_CHAIN
+                and chain_route(hp, torch.float32)[1]) or (
                 name in CLASSIC_CHAIN and on32[1]):
             kernels[-1]['chain'] = 'lean_chain_tf32_kernel'
             kernels[-1]['chain_source'] = \

@@ -1,8 +1,22 @@
-// The cotangent chain of the lean training backward on Hopper's wgmma and
-// TMA (lean_train.cu): bf16, the channel-major saved stream of 'save' and
-// 'recompute', widths multiples of 64.  The other forms (f32, the
-// point-major residuals of 'hybrid', the classic MLP) keep
-// lean_grad_chain_kernel.
+// The bf16 cotangent chain of the training backwards on Hopper's wgmma and
+// TMA (lean_train.cu): the channel-major saved stream of 'save' and
+// 'recompute' (so also the render-fused level's backward) and of the
+// classic mlp_bwd_saved / mlp_bwd_recompute, widths multiples of 64.
+// Replaces, in bf16, lean_grad_chain_kernel and the classic
+// mlp_input_grads_kernel (the chain and the input cotangents of the TPU
+// kernels _bwd_kernel_lean_save, _bwd_kernel_lean, _bwd_kernel_lean_render,
+// _bwd_kernel_saved and _bwd_kernel, mipnerf_pl_tpu/kernels/mlp.py).  f32
+// runs on lean_chain_tf32.cuh; the point-major residuals of 'hybrid', the
+// classic MLP with no view layer or more than one density head keep the
+// mma.sync kernels.
+//
+// Route (chain_sm90_route, mirrored by kernels/mlp.py chain_sm90_route):
+// bf16, a channel-major stream, W and Wv multiples of 64, at least one view
+// layer, one density head, depth + depth_cond + 1 <= CH_MAX_STEPS (the
+// classic form: its weight maps within CH_MAX_STEPS, its steps within
+// CH_STEPS, dx and dview at most MAX_OUT columns once rounded up to 64),
+// and the plan's shared memory within the block's.  A plan it cannot make
+// raises.
 //
 // A persistent block walks 128-point tiles with three warpgroups: in the
 // first, one thread streams the weights, one the saved activations' boxes,
@@ -28,6 +42,31 @@
 // in order, each warpgroup its own sums, added at the end) and, for ys[0],
 // g1f.  No atomics: the per-block sums go to db_part as before.
 //
+// The classic form (fused_mlp: raw heads, so the head step only casts the
+// given cotangents; no g1f; view_0's view rows a weight-gradient problem of
+// the stream's V rows, wgrad_sm90_kernel's) also returns the input
+// cotangents dx [M][F] = sum over the layers L that read x of G_L k_L[x
+// rows]^T (trunk_0, each layer after a skip concat, after a last one the
+// bottleneck and the rank-1 density term) and dview [M][Fv] = G_view0
+// k_view0[W:]^T, each a step of its own (CH_INPUT) right after the step
+// that leaves G_L in the staging tile: A that tile (the next step reads it
+// too, so the input step writes no shared memory), B the x (view) rows of
+// k_L transposed as the mma.sync input pass reads them ([out][Fp], zero
+// past F), through the same ring, TMA reading the columns past Fp (Fvp) as
+// zeros up to N = F (Fv) rounded up to 64; the products use the same
+// accumulators (N = 128 / 64 at lego: 32 zero columns each, ~3 % of the
+// chain's MACs, where N 96 / 32 would read half a 128-byte swizzle atom).
+// The first dx step (in chain order) writes its f32 part to dx, each later
+// one adds its own to what the same thread wrote there (~0.3 GB a lego
+// level more HBM traffic; the f32 kernel's shared-memory stash, 24 KB, does
+// not fit beside this plan's 229,632 B).  Past M and past the real columns
+// nothing is written.  The classic form is a compile-time instantiation
+// (CLASSIC), so the lean chain carries none of its code.  At lego it
+// streams 88 slabs a tile against the lean chain's 68 and takes 3.33 ms a
+// level against 2.53: the time follows the slabs, not the 13 % more MACs
+// (reading dx back before any store, in 8-byte pairs, changed nothing;
+// PERF.md).
+//
 // What bounds it: 2 x 0.55 M MACs a point (0.43 TFLOP a lego level, 0.44 ms
 // at the bf16 peak); the L2 weight traffic is 1.1 MB a tile (3.4 GB a
 // level); HBM moves the masks' rows of S and the G rows (~3.7 GB, 1.1 ms).
@@ -44,7 +83,8 @@ constexpr int CH_STAGES = 4;                // weight ring
 constexpr int CH_KS = 32;                   // weight rows (K) a slab
 constexpr int CH_MASKS = 4;                 // mask ring
 constexpr int CH_RAW = 6;                   // activation boxes for the masks
-constexpr int CH_MAX_STEPS = 16;
+constexpr int CH_MAX_STEPS = 16;            // the lean chain's steps; a plan's weight maps
+constexpr int CH_STEPS = 20;                // steps of a plan
 constexpr int CH_BOX = 64 * 64 * 2;         // a 64-row x 64-point cotangent box
 constexpr int CH_WBOX = CH_KS * 64 * 2;     // a 32-row x 64-column weight box
 constexpr int CH_MASK = MAX_OUT * CH_TM / 8;   // mask bytes of a step
@@ -52,21 +92,33 @@ constexpr size_t CH_FIXED = (size_t)CH_STAGES * 4 * CH_WBOX + 2 * 4 * CH_BOX +
                             CH_MASKS * CH_MASK + CH_RAW * CH_BOX +
                             sizeof(float) * (2 * 4 * MAX_OUT + 2 * 4 * CH_TM);
 
+// Step kinds: a layer's cotangent, an input cotangent (dx / dview).
+enum { CH_LAYER = 0, CH_INPUT = 1 };
+
 struct ChainStep {
+  int kind;
   int w;         // weight map, -1: the rgb head on the CUDA cores
   int K, N;      // input cotangent width (the layer's out), output width
   int act_row;   // first S row of the masking activation, -1: no mask
   int g_row;     // first G row of the output cotangent
-  int flags;     // 1: the f32 cotangent also to g1f; 2: + the density term
+  // CH_LAYER: 1 the f32 cotangent also to g1f, 2 + the density term;
+  // CH_INPUT: 1 + what out holds (an earlier dx step's part), 2 + the
+  // density term's x part
+  int flags;
+  int cols;      // CH_INPUT: out's columns (F or Fv)
+  float* out;    // CH_INPUT: dx [M][F] or dview [M][Fv], the chunk's first row
 };
 
 struct ChainPlan {
   CUtensorMap w[CH_MAX_STEPS];   // bw [K][N], 32 x 64 boxes
   CUtensorMap act;               // S [Cs][Mp], 64 x 64 boxes, not swizzled
   CUtensorMap g;                 // G [Cg][Mp], 64 x 64 boxes
-  ChainStep step[CH_MAX_STEPS];
+  ChainStep step[CH_STEPS];
   int n_steps;
 };
+// The chain kernel's parameters within the 4 KB a launch passes.
+static_assert(sizeof(ChainPlan) + sizeof(ChainPtrs) + sizeof(TrainDims) + 64 <= 4096,
+              "lean_chain_sm90_kernel's parameters exceed 4 KB");
 
 constexpr size_t CH_SMEM_MAX = 232448;   // an H100 block's dynamic shared memory
 
@@ -80,16 +132,24 @@ inline size_t chain_sm90_smem(int Cg) {
          sizeof(uint64_t) * 2 * (CH_STAGES + CH_MASKS + CH_RAW) + 1024;
 }
 
-// The shapes the kernel takes (bf16, a lean MLP and a channel-major stream
-// are the caller's): widths multiples of 64, a view layer, at most
-// CH_MAX_STEPS steps, the plan within the block's shared memory.  A shape
-// it takes whose plan cannot be made is an error (lean_train.cu run_grads).
+// The classic form's N of an input step of n columns (dx: F, dview: Fv).
+__host__ __device__ inline int ch_cols(int n) { return (n + 63) / 64 * 64; }
+
+// The shapes the kernel takes (bf16 and a channel-major stream are the
+// caller's): the lean MLP, or (Fvp > 0) the classic one.  A shape it takes
+// whose plan cannot be made is an error (lean_train.cu run_grads).
 inline bool chain_sm90_route(const TrainDims& d) {
-  return d.W % 64 == 0 && d.Wv % 64 == 0 && d.W >= 64 && d.Wv >= 64 && d.depth >= 1 &&
-         d.depth_cond >= 1 && d.nd == 1 && !d.Fvp && d.depth + d.depth_cond + 1 <= CH_MAX_STEPS &&
-         chain_sm90_smem(d.cg()) <= CH_SMEM_MAX;
+  const bool widths = d.W % 64 == 0 && d.Wv % 64 == 0 && d.W >= 64 && d.Wv >= 64 &&
+                      d.depth >= 1 && d.depth_cond >= 1 && d.nd == 1 &&
+                      chain_sm90_smem(d.cg()) <= CH_SMEM_MAX;
+  if (!d.Fvp) return widths && d.depth + d.depth_cond + 1 <= CH_MAX_STEPS;
+  const int ix = classic_dx_steps(d) + 1;
+  return widths && d.W <= MAX_OUT && d.Wv <= MAX_OUT && d.skip >= 1 && d.F >= 1 && d.Fv >= 1 &&
+         ch_cols(d.F) <= MAX_OUT && ch_cols(d.Fv) <= MAX_OUT &&
+         d.depth + d.depth_cond + ix <= CH_MAX_STEPS && d.depth + d.depth_cond + 1 + ix <= CH_STEPS;
 }
 
+template <bool CLASSIC>
 __global__ void __launch_bounds__(CH_THREADS, 1)
 lean_chain_sm90_kernel(const __grid_constant__ ChainPlan plan, const float* __restrict__ heads,
                        const float* __restrict__ g_rgb, const float* __restrict__ g_dens,
@@ -303,6 +363,31 @@ lean_chain_sm90_kernel(const __grid_constant__ ChainPlan plan, const float* __re
         wgmma_wait0();
         fence_regs(acc);
         if (lane == 0) mbar_arrive(empty + prev);
+        if (CLASSIC && st.kind == CH_INPUT) {
+          // An input cotangent: f32 to out's rows of the warpgroup's points
+          // (+ what an earlier dx step left there, + the density term's x
+          // part), nothing past M or past the real columns; the staging
+          // tile, the next step's A too, stays as it is.
+          const bool add = st.flags & 1, den_x = st.flags & 2;
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            if (nb >= NB) continue;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int row = 64 * wg + 16 * wi + g + 8 * (e >> 1);
+                const int col = 64 * nb + 8 * j + 2 * q + (e & 1);
+                if (m0 + row >= d.M || col >= st.cols) continue;
+                float* o = st.out + (size_t)(m0 + row) * st.cols + col;
+                float v = acc[32 * nb + 4 * j + e];
+                if (add) v = *o + v;
+                if (den_x) v = fmaf(ghc[3 * CH_TM + row], __bfloat162float(k_den[d.W + col]), v);
+                *o = v;
+              }
+          }
+          continue;
+        }
       } else {
         // The rgb head's backward: sum over c of ghc[c] k_rgb[col][c].
 #pragma unroll
@@ -441,10 +526,17 @@ lean_chain_sm90_kernel(const __grid_constant__ ChainPlan plan, const float* __re
 // The plan of the chain on wgmma for the chunk whose saved activations are
 // `acts` (channel-major, one stream) and cotangents G [Cg][d.Mp]: false if
 // the route does not take the shape or a tensor map cuTensorMapEncodeTiled
-// refuses.
+// refuses.  The classic form (d.Fvp > 0) also takes xs[L], the x rows of
+// layer L that reads x (L = depth + 1: the bottleneck) transposed, [out]
+// [Fp] bf16, vs view_0's view rows transposed, [Wv][Fvp], and dx / dview
+// of the chunk.
 inline bool chain_sm90_plan(ChainPlan& pl, const Acts& acts, const ChainPtrs& cp,
-                            const TrainDims& d, const void* G) {
+                            const TrainDims& d, const void* G, const void* const* xs = nullptr,
+                            const void* vs = nullptr, float* dx = nullptr,
+                            float* dview = nullptr) {
   if (!chain_sm90_route(d) || d.Mp % 64) return false;
+  const bool classic = d.Fvp > 0;
+  if (classic && (!xs || !vs || !dx || !dview)) return false;
   const char* base = static_cast<const char*>(acts.t[0]);
   const size_t row_bytes = 2 * (size_t)acts.ld[0];
   auto row_of = [&](int a) {
@@ -452,11 +544,20 @@ inline bool chain_sm90_plan(ChainPlan& pl, const Acts& acts, const ChainPtrs& cp
   };
   const int i_view = d.depth + 2, last = d.depth_cond - 1;
   int n = 0, nw = 0;
-  auto add = [&](int layer, int K, int N, int act, int g_row, int flags) {
-    ChainStep& st = pl.step[n++];
+  bool ok = true;
+  // A step whose B is w [K][wn] (columns past wn up to N read as zeros;
+  // null: the rgb head on the CUDA cores).
+  auto step = [&](int kind, const void* w, int wn, int K, int N, int act, int g_row,
+                  int flags) -> ChainStep& {
+    ok = ok && n < CH_STEPS;
+    ChainStep& st = pl.step[n < CH_STEPS ? n : CH_STEPS - 1];
+    ++n;
+    st = ChainStep{};
+    st.kind = kind;
     st.w = -1;
-    if (layer >= 0) {
-      if (!make_map(&pl.w[nw], cp.bw[layer], K, N, N, CH_KS)) return false;
+    if (w) {
+      ok = ok && nw < CH_MAX_STEPS &&
+           make_map(&pl.w[nw < CH_MAX_STEPS ? nw : 0], w, K, wn, wn, CH_KS);
       st.w = nw++;
     }
     st.K = K;
@@ -464,15 +565,39 @@ inline bool chain_sm90_plan(ChainPlan& pl, const Acts& acts, const ChainPtrs& cp
     st.act_row = act < 0 ? -1 : row_of(act);
     st.g_row = g_row;
     st.flags = flags;
-    return true;
+    return st;
   };
-  bool ok = add(-1, 0, d.Wv, d.a_y(last), d.g_v(last), last == 0);
-  for (int j = last; j >= 1; --j)
-    ok = ok && add(i_view + j, d.Wv, d.Wv, d.a_y(j - 1), d.g_v(j - 1), j == 1);
-  ok = ok && add(i_view, d.Wv, d.W, -1, d.g_bot(), 0);
-  ok = ok && add(d.depth + 1, d.W, d.W, d.a_h(d.depth - 1), d.g_t(d.depth - 1), 2);
-  for (int i = d.depth - 1; i >= 1; --i)
-    ok = ok && add(i, d.W, d.W, d.a_h(i - 1), d.g_t(i - 1), 0);
+  auto add = [&](int layer, int K, int N, int act, int g_row, int flags) {
+    step(CH_LAYER, layer < 0 ? nullptr : cp.bw[layer], N, K, N, act, g_row, flags);
+    ok = ok && (layer < 0 || cp.bw[layer]);
+  };
+  // The input cotangents: dview from G_view0, dx from G_L of each layer L
+  // that reads x, the first of them writing dx and the others adding.
+  int dx_done = 0;
+  auto input = [&](int L) {
+    if (!classic) return;
+    ok = ok && (L < 0 ? vs : xs[L]);
+    ChainStep& st = L < 0 ? step(CH_INPUT, vs, d.Fvp, d.Wv, ch_cols(d.Fv), -1, 0, 0)
+                          : step(CH_INPUT, xs[L], d.Fp, d.W, ch_cols(d.F), -1, 0,
+                                 (dx_done > 0 ? 1 : 0) | (L > d.depth ? 2 : 0));
+    st.out = L < 0 ? dview : dx;
+    st.cols = L < 0 ? d.Fv : d.F;
+    dx_done += L >= 0;
+  };
+  add(-1, 0, d.Wv, d.a_y(last), d.g_v(last), !classic && last == 0);
+  if (last == 0) input(-1);
+  for (int j = last; j >= 1; --j) {
+    add(i_view + j, d.Wv, d.Wv, d.a_y(j - 1), d.g_v(j - 1), !classic && j == 1);
+    if (j == 1) input(-1);
+  }
+  add(i_view, d.Wv, d.W, -1, d.g_bot(), 0);
+  if (classic_reads_x(d, d.depth + 1)) input(d.depth + 1);
+  add(d.depth + 1, d.W, d.W, d.a_h(d.depth - 1), d.g_t(d.depth - 1), 2);
+  if (classic_reads_x(d, d.depth - 1)) input(d.depth - 1);
+  for (int i = d.depth - 1; i >= 1; --i) {
+    add(i, d.W, d.W, d.a_h(i - 1), d.g_t(i - 1), 0);
+    if (classic_reads_x(d, i - 1)) input(i - 1);
+  }
   pl.n_steps = n;
   const int s_rows = d.Fp + (d.depth + 1) * d.W + d.depth_cond * d.Wv;
   return ok && make_map(&pl.act, base, s_rows, d.Mp, acts.ld[0], 64, CU_TENSOR_MAP_SWIZZLE_NONE) &&

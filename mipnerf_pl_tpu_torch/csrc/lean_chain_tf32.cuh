@@ -8,7 +8,7 @@
 // _bwd_kernel_lean_render, _bwd_kernel_saved and _bwd_kernel,
 // mipnerf_pl_tpu/kernels/mlp.py).  The point-major residuals of 'hybrid',
 // the classic MLP with no view layer or more than one density head keep
-// the mma.sync kernels; the bf16 lean chain runs on lean_chain_sm90.cuh.
+// the mma.sync kernels; bf16 runs on lean_chain_sm90.cuh.
 //
 // Route (chain_tf32_route, mirrored by kernels/mlp.py chain_tf32_route): f32,
 // a channel-major stream, W and Wv multiples of 64, at least one view
@@ -118,24 +118,9 @@ inline size_t chain_tf32_smem(int W, int Wv, int Cg, int ix_n = 0) {
          (ix_n ? sizeof(float) * (FT_MAX_X + 64 * ix_n) : 0) + 1024;
 }
 
-// The layers of the classic MLP whose input holds x: trunk_0, each trunk
-// layer after a skip concat and (after a last one, L = depth + 1) the
-// bottleneck.
-__host__ __device__ inline bool classic_reads_x(const TrainDims& d, int L) {
-  if (L == d.depth + 1) L = d.depth;
-  return L == 0 || ((L - 1) % d.skip == 0 && L - 1 > 0);
-}
-
 // The classic form's N of the dx and of the dview steps: F (Fv) rounded up
 // to 32 (Fp, Fvp: already rounded up to 16).
 inline int ix_cols(int n) { return (n + 31) / 32 * 32; }
-
-// The classic chain's dx steps: one a layer whose input holds x.
-inline int classic_dx_steps(const TrainDims& d) {
-  int n = 0;
-  for (int L = 0; L < d.depth; ++L) n += classic_reads_x(d, L);
-  return n + classic_reads_x(d, d.depth + 1);
-}
 
 // The shapes the kernel takes (f32 and a channel-major stream are the
 // caller's): the lean MLP, or (Fvp > 0) the classic one.

@@ -1,14 +1,33 @@
-// The lean MLP forward on Hopper's wgmma and TMA (lean_train.cu: lean_fwd,
-// lean_save_fwd and the recompute backward's re-run; lean_render.cu:
-// lean_mlp): bf16, widths multiples of 64.  The other forms (f32, the
-// classic MLP, widths the route refuses) keep mlp_tile (lean_engines.cuh).
+// The MLP forward on Hopper's wgmma and TMA, bf16, widths multiples of 64
+// (lean_train.cu: lean_fwd, lean_save_fwd and the recompute backward's
+// re-run, and the classic mlp_fwd, mlp_save_fwd and mlp_bwd_recompute's
+// re-run; lean_render.cu: lean_mlp).  Replaces, in bf16, the mma.sync tile
+// (mlp_tile, lean_engines.cuh) behind the TPU kernels
+// _fwd_kernel_lean_render, _fwd_kernel_lean_save, _fwd_kernel_lean,
+// _fwd_kernel and _fwd_kernel_save (mipnerf_pl_tpu/kernels/mlp.py).  f32
+// runs on lean_fwd_tf32.cuh; the classic MLP with no view layer or more
+// than one density head, and the widths the route refuses, keep mlp_tile.
 //
 // Route (fwd_sm90_route, mirrored by kernels/mlp.py fwd_sm90_route): bf16,
-// a lean MLP, W and Wv multiples of 64 and at most 256, at least one view
-// layer, depth + 1 + depth_cond <= FW_MAX_LAYERS, the encode at most 128
-// features (two 64-row boxes once rounded up to the 32-row slab) and the
-// plan's shared memory within the block's.  It is a rule on dtype and
-// shape: a launch failure of this kernel raises through the wrapper.
+// W and Wv multiples of 64 and at most 256, at least one view layer,
+// depth + 1 + depth_cond <= FW_MAX_LAYERS, the encode (and the classic
+// form's per-point view) at most 128 features (two 64-row boxes once
+// rounded up to the 32-row slab), the classic form one density head, and
+// the plan's shared memory within the block's.  It is a rule on dtype and
+// shape: a plan this kernel cannot make, or a launch it cannot get, raises
+// through the wrapper; no other kernel takes its place.
+//
+// The classic form (fused_mlp, Fv > 0; a compile-time instantiation, so
+// the lean forms carry none of its code): view_0 reads concat(bottleneck,
+// view) per point.  The view [M][Fv] f32, cast to bf16 and zero past Fv up
+// to the 32-row slab (Fvx rows), is loaded into the encode tile once the
+// bottleneck's products are done with x (the density head, which reads x
+// after a last skip concat, runs before them), as view_0's second K
+// segment (its kernel's W + Fv rows streamed as W + Fvx, TMA reading the
+// rows past the tensor as zeros); view_0 adds its own bias and no vproj.
+// Raw heads go to rgb [M][3] and dens [M][1] f32; the save form's stream
+// ends with the view's rows V (Fvp = Fv rounded up to 16), stored from the
+// encode tile by a map of those rows alone.
 //
 // A persistent block (one an SM) walks 128-point tiles with two consumer
 // warpgroups and a producer warp.  The producer's one thread streams every
@@ -92,6 +111,7 @@ struct FwdLayer {
   int from_x;     // 1: the first tile is the encode tile (trunk_0)
   int relu;
   int vproj;      // 1: view_0, + the ray's per-ray half (its bias included)
+  int view_in;    // 1: the classic view_0, the per-point view loaded into xs first
   int s_row;      // first row of the output in S
   int b_off;      // offset of its bias in the staged biases, -1: none
   const float* bias;
@@ -101,37 +121,57 @@ struct FwdPlan {
   CUtensorMap w[FW_MAX_LAYERS];   // k [K][N], 32 x 64 boxes
   CUtensorMap s;                  // S [Cs][Mp], 64 x 64 boxes
   CUtensorMap sx;                 // S rows [0, Fp): the encode, 32 x 64 boxes
+  CUtensorMap sv;                 // the classic S rows V [v_row, v_row + Fvp), 32 x 64 boxes
   FwdLayer layer[FW_MAX_LAYERS];
   int n_layers, hs_boxes, i_den, cat_x, save;
-  int M, Mp, N, R, F, Fx, L, min_deg, ldx, W, Wv, use_act;
+  int M, Mp, N, R, F, Fx, xrows, L, min_deg, ldx, W, Wv, use_act;
   float rgb_padding, density_bias;
   const bf16* k_den;
   const float* b_den;
   const bf16* k_rgb;
   const float* b_rgb;
+  // The classic form: view [M][Fv] f32 (null: lean), Fvx its rows in xs,
+  // Fvp its rows in S; raw heads to rgb [M][3] and dens [M][1].
+  const float* view;
+  int Fv, Fvx, Fvp;
+  float* rgb;
+  float* dens;
 };
+// The kernel's parameters within the 4 KB a launch passes.
+static_assert(sizeof(FwdPlan) + 4 * sizeof(void*) <= 4096,
+              "lean_fwd_sm90_kernel's parameters exceed 4 KB");
 
 // Launches of lean_fwd_sm90_kernel by this library (lean_fwd_sm90_launches).
 long long g_fwd_sm90_launches = 0;
 
 __host__ __device__ inline int fw_round(int n, int k) { return (n + k - 1) / k * k; }
 
+// Rows of the encode tile xs: the encode rounded up to the 32-row slab,
+// and in the classic form (Fv > 0) the per-point view after it.
+inline int fw_xrows(int F, int Fv) {
+  const int fx = fw_round(F, FW_KS), fv = fw_round(Fv, FW_KS);
+  return fx > fv ? fx : fv;
+}
+
 // The ring, the two warpgroups' activation tiles (64-row boxes) and encode
-// tiles (F rounded up to the 32-row slab), their head rows, the staged
-// biases and head kernels, the slab schedule, the mbarriers and the slack
-// that aligns the buffers to 1024 bytes.
-inline size_t fwd_sm90_smem(int W, int Wv, int F) {
+// tiles (fw_xrows rows), their head rows, the staged biases and head
+// kernels, the slab schedule, the mbarriers and the slack that aligns the
+// buffers to 1024 bytes.
+inline size_t fwd_sm90_smem(int W, int Wv, int F, int Fv = 0) {
   const int hb = (W > Wv ? W : Wv) / 64;
-  return (size_t)FW_STAGES * 4 * FW_WBOX + 2 * ((size_t)hb * FW_BOX + 128 * fw_round(F, FW_KS)) +
+  return (size_t)FW_STAGES * 4 * FW_WBOX + 2 * ((size_t)hb * FW_BOX + 128 * fw_xrows(F, Fv)) +
          sizeof(float) * (2 * 4 * 64 + 2 * 2 * 3 * 64 + FW_MAX_BIAS + FW_MAX_KD + FW_MAX_KR) +
          sizeof(short2) * FW_MAX_SLABS + sizeof(uint64_t) * (2 * FW_STAGES + 1) + 1024;
 }
 
-// The shapes the kernel takes (bf16 and a lean MLP are the caller's).
-inline bool fwd_sm90_route(int F, int W, int Wv, int depth, int depth_cond) {
+// The shapes the kernel takes (bf16 is the caller's): the lean MLP (Fv 0),
+// or the classic one with Fv per-point view features and nd density heads.
+inline bool fwd_sm90_route(int F, int W, int Wv, int depth, int depth_cond, int Fv = 0,
+                           int nd = 1) {
   return W >= 64 && W <= 256 && W % 64 == 0 && Wv >= 64 && Wv <= 256 && Wv % 64 == 0 &&
          depth >= 1 && depth_cond >= 1 && depth + 1 + depth_cond <= FW_MAX_LAYERS && F >= 1 &&
-         fw_round(F, FW_KS) <= 64 * FW_XBOXES && fwd_sm90_smem(W, Wv, F) <= FW_SMEM_MAX;
+         fw_round(F, FW_KS) <= 64 * FW_XBOXES && Fv >= 0 && fw_round(Fv, FW_KS) <= 64 * FW_XBOXES &&
+         nd == 1 && fwd_sm90_smem(W, Wv, F, Fv) <= FW_SMEM_MAX;
 }
 
 // Byte offset of (channel row, point p) in a swizzled tile of 64-row boxes:
@@ -140,7 +180,8 @@ __device__ __forceinline__ int fw_off(int row, int p) {
   return (row >> 6) * FW_BOX + (row & 63) * 128 + ((((p >> 3) ^ (row & 7))) << 4) + (p & 7) * 2;
 }
 
-template <bool MOMENTS>
+// MOMENTS: the lean form on the moments; CLASSIC: the classic form (rows).
+template <bool MOMENTS, bool CLASSIC>
 __global__ void __launch_bounds__(FW_THREADS, 1)
 lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict__ x,
                      const float* __restrict__ vproj, float* __restrict__ out,
@@ -148,7 +189,7 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
   extern __shared__ uint8_t fw_raw[];
   uint8_t* smem = fw_raw + ((1024 - (smem_u32(fw_raw) & 1023)) & 1023);
   uint8_t* ring = smem;                                          // [stage][4 boxes]
-  const int tile_bytes = pl.hs_boxes * FW_BOX + 128 * pl.Fx;
+  const int tile_bytes = pl.hs_boxes * FW_BOX + 128 * pl.xrows;
   uint8_t* tiles = ring + FW_STAGES * 4 * FW_WBOX;               // [wg][hs | xs]
   float* heads = reinterpret_cast<float*>(tiles + 2 * tile_bytes);   // [wg][4][64]
   float* hpart = heads + 2 * 4 * 64;                             // [wg][half][3][64]
@@ -266,6 +307,11 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
         *reinterpret_cast<bf16*>(xs + fw_off(f + 3, p)) = __float2bfloat16_rn(v.w);
       }
     }
+    // The classic view of the tile before may have written rows [F, Fx).
+    if (CLASSIC && pl.Fvx > pl.F)
+      for (int idx = wt; idx < (pl.Fx - pl.F) * 64; idx += 128)
+        *reinterpret_cast<bf16*>(xs + fw_off(pl.F + (idx >> 6), idx & 63)) =
+            __float2bfloat16_rn(0.f);
     fence_proxy_async();
     named_sync(bar, 128);
     if (pl.save && wt == 0) {
@@ -278,6 +324,26 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
       const FwdLayer& ly = pl.layer[li];
       const int NB = ly.N >> 6, nks = (ly.K + FW_KS - 1) / FW_KS, kh = ly.kh;
       const uint32_t a0 = ly.from_x ? xs_a : hs_a;
+      if (CLASSIC && ly.view_in) {
+        // The classic view_0: the warpgroup's per-point view into xs (zeros
+        // past Fv and past M), once the products on the encode are done
+        // (the bottleneck's, complete before its epilogue) and its stores
+        // have read the tile; then out to S rows V.
+        if (pl.save && wt == 0) tma_store_wait_read();
+        named_sync(bar, 128);
+        for (int idx = wt; idx < pl.Fvx * 64; idx += 128) {
+          const int f = idx >> 6, p = idx & 63, m = m0 + p;
+          const float v = m < pl.M && f < pl.Fv ? pl.view[(size_t)m * pl.Fv + f] : 0.f;
+          *reinterpret_cast<bf16*>(xs + fw_off(f, p)) = __float2bfloat16_rn(v);
+        }
+        fence_proxy_async();
+        named_sync(bar, 128);
+        if (pl.save && wt == 0) {
+          for (int cb = 0; FW_KS * cb < pl.Fvp; ++cb)
+            tma_store_2d(&pl.sv, xs + cb * FW_WBOX, m0, FW_KS * cb);
+          tma_store_commit();
+        }
+      }
       // The products, K / 32 slabs of two k16 steps, and the epilogue of one
       // layer, compiled for each output width (NBC 64-column blocks) with
       // its own accumulators: one wgmma shape on one register array (a
@@ -427,10 +493,15 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
         }
       }
     }
-    // The tile's heads: raw to heads_out [4][Mp], activated (or raw) to out.
+    // The tile's heads: raw to heads_out [4][Mp], activated (or raw) to out;
+    // the classic form's raw to rgb and dens.
     named_sync(bar, 128);
     if (wt < 64) {
       const int m = m0 + wt;
+      if (CLASSIC && pl.rgb && m < pl.M) {
+        for (int c = 0; c < 3; ++c) pl.rgb[(size_t)m * 3 + c] = hd[c * 64 + wt];
+        pl.dens[m] = hd[3 * 64 + wt];
+      }
       if (heads_out && m < pl.Mp)
         for (int c = 0; c < 4; ++c) heads_out[(size_t)c * pl.Mp + m] = hd[c * 64 + wt];
       if (out && m < pl.M) {
@@ -460,35 +531,46 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
 // trunk, density, bottleneck, view, rgb) on M points of N samples (R rays),
 // the encode F wide (L >= 1: decoded from the moments [6][ldx] from degree
 // min_deg), with saved S [Cs][Mp] (save form) or null: false where the
-// route does not take the shape or a tensor map cannot be made.
+// route does not take the shape or a tensor map cannot be made.  Fv > 0:
+// the classic MLP (N = 1, raw heads; S [Cs + Fvp][Mp]), view_0 of all its
+// W + Fv rows; the caller sets view, rgb and dens.
 inline bool fwd_sm90_plan(FwdPlan& pl, const LayerPtrs& p, int M, int Mp, int N, int R, int F,
                           int L, int min_deg, int ldx, int depth, int depth_cond, int skip, int W,
                           int Wv, int use_act, float rgb_padding, float density_bias,
-                          const void* S) {
-  if (!fwd_sm90_route(F, W, Wv, depth, depth_cond)) return false;
+                          const void* S, int Fv = 0) {
+  if (!fwd_sm90_route(F, W, Wv, depth, depth_cond, Fv)) return false;
   auto skip_after = [&](int i) { return i % skip == 0 && i > 0; };
-  const int Fp = fw_round(F, 16);
+  const int Fp = fw_round(F, 16), Fvx = fw_round(Fv, FW_KS);
   int n = 0, b_off = 0;
   bool ok = true;
-  auto add = [&](int param, int K, int Nout, int kh, int from_x, int relu, int vp, int s_row,
-                 const float* bias) {
+  // A layer streaming K weight rows of a kernel of `rows` rows (past them
+  // TMA reads zeros).
+  auto add = [&](int param, int K, int rows, int Nout, int kh, int from_x, int relu, int vp,
+                 int s_row, const float* bias) {
     FwdLayer& ly = pl.layer[n];
-    ok = ok && make_map(&pl.w[n], p.w[param], K, Nout, Nout, FW_KS);
-    ly = FwdLayer{K, Nout, kh, from_x, relu, vp, s_row, bias ? b_off : -1, bias};
+    ok = ok && make_map(&pl.w[n], p.w[param], rows, Nout, Nout, FW_KS);
+    ly = FwdLayer{K, Nout, kh, from_x, relu, vp, 0, s_row, bias ? b_off : -1, bias};
     b_off += bias ? Nout : 0;
     ++n;
   };
   for (int i = 0; i < depth; ++i) {
+    const int K = i == 0 ? F : W + (skip_after(i - 1) ? F : 0);
     if (i == 0)
-      add(0, F, W, 2 * fw_round(F, FW_KS) / 16, 1, 1, 0, Fp, p.b[0]);
+      add(0, K, K, W, 2 * fw_round(F, FW_KS) / 16, 1, 1, 0, Fp, p.b[0]);
     else
-      add(i, W + (skip_after(i - 1) ? F : 0), W, W / 16, 0, 1, 0, Fp + i * W, p.b[i]);
+      add(i, K, K, W, W / 16, 0, 1, 0, Fp + i * W, p.b[i]);
   }
   const bool cat_x = skip_after(depth - 1);
-  add(depth + 1, W + (cat_x ? F : 0), W, W / 16, 0, 0, 0, Fp + depth * W, p.b[depth + 1]);
-  add(depth + 2, W, Wv, W / 16, 0, 1, 1, Fp + (depth + 1) * W, nullptr);
+  const int Kb = W + (cat_x ? F : 0);
+  add(depth + 1, Kb, Kb, W, W / 16, 0, 0, 0, Fp + depth * W, p.b[depth + 1]);
+  if (Fv)
+    add(depth + 2, W + Fvx, W + Fv, Wv, W / 16, 0, 1, 0, Fp + (depth + 1) * W, p.b[depth + 2]);
+  else
+    add(depth + 2, W, W, Wv, W / 16, 0, 1, 1, Fp + (depth + 1) * W, nullptr);
+  pl.layer[n - 1].view_in = Fv > 0;
   for (int j = 1; j < depth_cond; ++j)
-    add(depth + 2 + j, Wv, Wv, Wv / 16, 0, 1, 0, Fp + (depth + 1) * W + j * Wv, p.b[depth + 2 + j]);
+    add(depth + 2 + j, Wv, Wv, Wv, Wv / 16, 0, 1, 0, Fp + (depth + 1) * W + j * Wv,
+        p.b[depth + 2 + j]);
   pl.n_layers = n;
   pl.hs_boxes = (W > Wv ? W : Wv) / 64;
   pl.i_den = depth - 1;
@@ -500,6 +582,7 @@ inline bool fwd_sm90_plan(FwdPlan& pl, const LayerPtrs& p, int M, int Mp, int N,
   pl.R = R;
   pl.F = F;
   pl.Fx = fw_round(F, FW_KS);
+  pl.xrows = fw_xrows(F, Fv);
   pl.L = L;
   pl.min_deg = min_deg;
   pl.ldx = ldx;
@@ -512,37 +595,47 @@ inline bool fwd_sm90_plan(FwdPlan& pl, const LayerPtrs& p, int M, int Mp, int N,
   pl.b_den = p.b[depth];
   pl.k_rgb = static_cast<const bf16*>(p.w[depth + 2 + depth_cond]);
   pl.b_rgb = p.b[depth + 2 + depth_cond];
+  pl.view = nullptr;
+  pl.Fv = Fv;
+  pl.Fvx = Fvx;
+  pl.Fvp = fw_round(Fv, 16);
+  pl.rgb = pl.dens = nullptr;
   if (S) {
     const int Cs = Fp + (depth + 1) * W + depth_cond * Wv;
     ok = ok && make_map(&pl.s, S, Cs, Mp, Mp, 64) && make_map(&pl.sx, S, Fp, Mp, Mp, FW_KS);
+    if (Fv)
+      ok = ok && make_map(&pl.sv, static_cast<const bf16*>(S) + (size_t)Cs * Mp, pl.Fvp, Mp, Mp,
+                          FW_KS);
   }
   return ok;
 }
 
-// One launch of the planned forward on x (MOMENTS: the moments), one block
-// an SM at most; 0 or a cudaError_t.
-template <bool MOMENTS>
+// One launch of the planned forward on x (MOMENTS: the moments; CLASSIC:
+// the classic form), one block an SM at most; 0 or a cudaError_t.
+template <bool MOMENTS, bool CLASSIC>
 int launch_fwd_sm90_form(const FwdPlan& pl, const float* x, const float* vproj, float* out,
                          float* heads, cudaStream_t s) {
-  const size_t smem = fwd_sm90_smem(pl.W, pl.Wv, pl.F);
+  const size_t smem = fwd_sm90_smem(pl.W, pl.Wv, pl.F, pl.Fv);
   int dev = 0, sms = 0;
-  cudaError_t e = cudaFuncSetAttribute(lean_fwd_sm90_kernel<MOMENTS>,
+  cudaError_t e = cudaFuncSetAttribute(lean_fwd_sm90_kernel<MOMENTS, CLASSIC>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (pl.Mp + FW_TM - 1) / FW_TM;
-  lean_fwd_sm90_kernel<MOMENTS><<<tiles < sms ? tiles : sms, FW_THREADS, smem, s>>>(pl, x, vproj,
-                                                                                  out, heads);
+  lean_fwd_sm90_kernel<MOMENTS, CLASSIC>
+      <<<tiles < sms ? tiles : sms, FW_THREADS, smem, s>>>(pl, x, vproj, out, heads);
   e = cudaGetLastError();
   if (e == cudaSuccess) ++g_fwd_sm90_launches;
   return (int)e;
 }
 
+// The lean forms (moments or rows), or with pl.view the classic one (rows).
 inline int launch_fwd_sm90(const FwdPlan& pl, bool moments, const float* x, const float* vproj,
                            float* out, float* heads, cudaStream_t s) {
-  return moments ? launch_fwd_sm90_form<true>(pl, x, vproj, out, heads, s)
-                 : launch_fwd_sm90_form<false>(pl, x, vproj, out, heads, s);
+  if (pl.view) return launch_fwd_sm90_form<false, true>(pl, x, vproj, out, heads, s);
+  return moments ? launch_fwd_sm90_form<true, false>(pl, x, vproj, out, heads, s)
+                 : launch_fwd_sm90_form<false, false>(pl, x, vproj, out, heads, s);
 }
 
 }  // namespace

@@ -4,10 +4,9 @@
 // lean_render.cu: lean_mlp).  Replaces, in f32, the mma.sync tile
 // (mlp_tile<float>, lean_engines.cuh) behind the TPU kernels
 // _fwd_kernel_lean_render, _fwd_kernel_lean_save, _fwd_kernel_lean,
-// _fwd_kernel and _fwd_kernel_save (mipnerf_pl_tpu/kernels/mlp.py).  The
-// bf16 lean forms run on lean_fwd_sm90.cuh; bf16 classic forms, the
-// classic MLP with no view layer or more than one density head, and the
-// widths the route refuses keep mlp_tile.
+// _fwd_kernel and _fwd_kernel_save (mipnerf_pl_tpu/kernels/mlp.py).  bf16
+// runs on lean_fwd_sm90.cuh; the classic MLP with no view layer or more
+// than one density head, and the widths the route refuses, keep mlp_tile.
 //
 // Route (fwd_tf32_route, mirrored by kernels/mlp.py fwd_tf32_route): f32,
 // W and Wv multiples of 64 and at most 256, at least one view layer,

@@ -30,18 +30,19 @@
 //                     (mlp_tile<T, true>) with per-point view features read
 //                     into the encode buffer once the trunk is done with it,
 //                     view_0 on concat(bottleneck, view) with its bias, nd
-//                     raw density heads and raw rgb.  Mode 'recompute'.  In
-//                     f32 at the widths of fwd_tf32_route (one density head,
-//                     a view layer) lean_fwd_tf32_kernel's classic form.
+//                     raw density heads and raw rgb.  Mode 'recompute'.  At
+//                     the widths of the wgmma forwards' rules (one density
+//                     head, a view layer) their classic forms: f32
+//                     lean_fwd_tf32_kernel's, bf16 lean_fwd_sm90_kernel's.
 //   mlp_save_fwd      _fwd_kernel_save (_run_fwd_save): the same kernel,
 //                     which also writes the stream, the view rows last.
 //   mlp_bwd_saved     _bwd_kernel_saved (_run_bwd_saved): dx, dview and f32
 //                     gradients of every parameter from the stream: the lean
 //                     driver (CL: nd heads, view rows per point, no per-ray
-//                     sums) and an input-gradient pass after the chain; in
-//                     f32 at the widths of chain_tf32_route
-//                     lean_chain_tf32_kernel's classic form, the input
-//                     cotangents steps of its chain.
+//                     sums) and an input-gradient pass after the chain; at
+//                     the widths of the wgmma chains' rules their classic
+//                     forms, the input cotangents steps of the chain: f32
+//                     lean_chain_tf32_kernel's, bf16 lean_chain_sm90_kernel's.
 //   mlp_bwd_recompute _bwd_kernel (_run_bwd): the same, the forward re-run
 //                     chunk by chunk by mlp_save_fwd's kernel.
 // The four classic entries also take a model with no view layer
@@ -91,10 +92,10 @@
 //      that are multiples of 64 is, by a rule on dtype and shape,
 //      lean_chain_sm90_kernel in bf16 (lean_chain_sm90.cuh: 128-point
 //      tiles, wgmma fed by a TMA ring) and lean_chain_tf32_kernel in f32
-//      (lean_chain_tf32.cuh: 3xTF32 wgmma), which in f32 also takes the
-//      classic chain (one density head, a view layer) with its dx and
-//      dview; hybrid, the bf16 classic forms, NV and other widths keep
-//      lean_grad_chain_kernel (64-point tiles, mma.sync).
+//      (lean_chain_tf32.cuh: 3xTF32 wgmma); both also take the classic
+//      chain (one density head, a view layer) with its dx and dview.
+//      Hybrid, NV and other widths keep lean_grad_chain_kernel (64-point
+//      tiles, mma.sync).
 //   2. split-K tensor-core products dW = A^T G over the points, one 128 x
 //      128 output tile per block and one MC-point range per grid row,
 //      written as per-range partial sums.  Ranges never straddle a chunk,
@@ -108,17 +109,15 @@
 //      round-to-nearest f32 sums.  The skip concat's x rows are
 //      problems of their own: their weight gradients accumulate; the chain
 //      drops their dx.  The classic backward (CL) takes it after the
-//      chain (on lean_chain_tf32_kernel: steps of the chain itself,
-//      lean_chain_tf32.cuh), elsewhere in
-//      mlp_input_grads_kernel, which reads back from G the output
-//      cotangent of each layer that reads x (trunk_0, every layer after a
-//      skip concat, the bottleneck and density after a last one) and of
-//      view_0, and sums dx [M][F] and dview [M][Fv] per tile, each element
-//      written once (in the mma.sync chain itself these products cost
-//      ~30 %: spills).  The
-//      classic view_0 weight rows of the view are a problem of the
-//      stream's V rows, per point, where the lean kernels sum g_ray per ray
-//      (step 3).
+//      chain (on the wgmma chains: steps of the chain itself), elsewhere
+//      (NV, other widths) in mlp_input_grads_kernel, which reads back from
+//      G the output cotangent of each layer that reads x (trunk_0, every
+//      layer after a skip concat, the bottleneck and density after a last
+//      one) and of view_0, and sums dx [M][F] and dview [M][Fv] per tile,
+//      each element written once (in the mma.sync chain itself these
+//      products cost ~30 %: spills).  The classic view_0 weight rows of the
+//      view are a problem of the stream's V rows, per point, where the lean
+//      kernels sum g_ray per ray (step 3).
 //   3. g_ray = sum over each ray's samples of the f32 view_0 cotangent,
 //      cast to the compute dtype (lean_ray_sum_kernel; chunks hold whole
 //      rays).
@@ -270,6 +269,21 @@ mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ view, Laye
 template <typename T>
 size_t classic_fwd_smem(const TrainDims& d) {
   return mlp_smem_bytes<T>(classic_xrows(d), d.W > d.Wv ? d.W : d.Wv, 3 + d.nd);
+}
+
+// The layers of the classic MLP whose input holds x: trunk_0, each trunk
+// layer after a skip concat and (after a last one, L = depth + 1) the
+// bottleneck.
+__host__ __device__ inline bool classic_reads_x(const TrainDims& d, int L) {
+  if (L == d.depth + 1) L = d.depth;
+  return L == 0 || ((L - 1) % d.skip == 0 && L - 1 > 0);
+}
+
+// The classic chain's dx steps: one a layer whose input holds x.
+inline int classic_dx_steps(const TrainDims& d) {
+  int n = 0;
+  for (int L = 0; L < d.depth; ++L) n += classic_reads_x(d, L);
+  return n + classic_reads_x(d, d.depth + 1);
 }
 
 struct ChainPtrs {
@@ -650,25 +664,57 @@ inline bool classic_fwd_tf32(const TrainDims& d) {
   return d.depth_cond >= 1 && fwd_tf32_route(d.F, d.W, d.Wv, d.depth, d.depth_cond, d.Fv, d.nd);
 }
 
-// The classic forward of d: f32 whose shape classic_fwd_tf32 takes on
-// lean_fwd_tf32_kernel (from the split transposed kernels wt; a plan it
-// cannot make is an error, never another kernel), every other form on
-// mlp_fwd_kernel.
+// The same for lean_fwd_sm90_kernel's classic form (bf16 the caller's).
+inline bool classic_fwd_sm90(const TrainDims& d) {
+  return d.depth_cond >= 1 && fwd_sm90_route(d.F, d.W, d.Wv, d.depth, d.depth_cond, d.Fv, d.nd);
+}
+
+// Whether the classic forward of d in T takes its wgmma kernel.
+template <typename T>
+bool classic_fwd_wgmma(const TrainDims& d) {
+  return sizeof(T) == 4 ? classic_fwd_tf32(d) : classic_fwd_sm90(d);
+}
+
+// One launch of the classic forward of d's M points on its wgmma kernel's
+// classic form: f32 lean_fwd_tf32_kernel (from the split transposed kernels
+// wt), bf16 lean_fwd_sm90_kernel; rgb / density may be null (the recompute
+// re-run).  A plan it cannot make is an error, never another kernel.
+template <typename T>
+int launch_classic_wgmma(const float* x, const float* view, const LayerPtrs& p,
+                         const TrainDims& d, float* rgb, float* density, T* saved,
+                         const void* const* wt, cudaStream_t s) {
+  if constexpr (sizeof(T) == 4) {
+    TfPlan pl;
+    if (!fwd_tf32_plan(pl, p, wt, d.M, d.Mp, 1, d.M, d.F, 0, 0, d.F, d.depth, d.depth_cond,
+                       d.skip, d.W, d.Wv, 0, 0.f, 0.f, saved, d.Fv))
+      return (int)cudaErrorInvalidValue;
+    pl.view = view;
+    pl.rgb = rgb;
+    pl.dens = density;
+    return launch_fwd_tf32(pl, false, x, nullptr, nullptr, nullptr, s);
+  } else {
+    FwdPlan pl;
+    if (!fwd_sm90_plan(pl, p, d.M, d.Mp, 1, d.M, d.F, 0, 0, d.F, d.depth, d.depth_cond, d.skip,
+                       d.W, d.Wv, 0, 0.f, 0.f, saved, d.Fv) ||
+        !view)
+      return (int)cudaErrorInvalidValue;
+    pl.view = view;
+    pl.rgb = rgb;
+    pl.dens = density;
+    return launch_fwd_sm90(pl, false, x, nullptr, nullptr, nullptr, s);
+  }
+}
+
+// The classic forward of d: the shapes classic_fwd_wgmma takes on the wgmma
+// kernel of T's classic form, every other form on mlp_fwd_kernel.
 template <typename T, bool NV>
 int launch_classic_fwd(const float* x, const float* view, const LayerPtrs& p, const TrainDims& d,
                        float* rgb, float* density, T* saved, const void* const* wt,
                        cudaStream_t s) {
-  if constexpr (sizeof(T) == 4 && !NV) {
-    if (classic_fwd_tf32(d)) {
-      TfPlan pl;
-      if (!fwd_tf32_plan(pl, p, wt, d.M, d.Mp, 1, d.M, d.F, 0, 0, d.F, d.depth, d.depth_cond,
-                         d.skip, d.W, d.Wv, 0, 0.f, 0.f, saved, d.Fv) ||
-          !rgb || !density)
-        return (int)cudaErrorInvalidValue;
-      pl.view = view;
-      pl.rgb = rgb;
-      pl.dens = density;
-      return launch_fwd_tf32(pl, false, x, nullptr, nullptr, nullptr, s);
+  if constexpr (!NV) {
+    if (classic_fwd_wgmma<T>(d)) {
+      if (!rgb || !density) return (int)cudaErrorInvalidValue;
+      return launch_classic_wgmma<T>(x, view, p, d, rgb, density, saved, wt, s);
     }
   }
   const size_t smem = classic_fwd_smem<T>(d);
@@ -781,17 +827,17 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
   const size_t csmem = chain_smem_bytes<T>(wmax, Cg, 3 + d.nd);
   const size_t wsmem = sizeof(T) == 2 ? 0 : sizeof(float) * WGRAD_ACC * THREADS;
   const size_t fsmem = classic_fwd_smem<T>(d);   // CL: the re-run of mlp_fwd_kernel
-  // The lean chain of a channel-major stream runs on wgmma where its rule
-  // takes the shape: bf16 on lean_chain_sm90.cuh, f32 on the 3xTF32
-  // lean_chain_tf32.cuh, which also takes the classic chain with its input
-  // cotangents (rules on dtype and shape; a plan either cannot make is an
-  // error, never another kernel); its grid is one block an SM at most.
-  // Every other form runs on lean_grad_chain_kernel (and, classic, on
-  // mlp_input_grads_kernel after it).
-  constexpr bool lean_cm = !PM && !CL && !NV;
-  const bool on_sm90 = sizeof(T) == 2 && lean_cm && chain_sm90_route(d);
-  const bool on_tf32 = sizeof(T) == 4 && (lean_cm || (CL && !NV)) && chain_tf32_route(d);
-  const bool refwd_tf32 = sizeof(T) == 4 && CL && !NV && rf && classic_fwd_tf32(d);
+  // The lean chain of a channel-major stream, and the classic chain with
+  // its input cotangents, run on wgmma where the rule takes the shape: bf16
+  // on lean_chain_sm90.cuh, f32 on the 3xTF32 lean_chain_tf32.cuh (rules on
+  // dtype and shape; a plan either cannot make is an error, never another
+  // kernel); the grid is one block an SM at most.  Every other form runs on
+  // lean_grad_chain_kernel (and, classic, on mlp_input_grads_kernel after
+  // it).
+  constexpr bool on_wgmma = !PM && !NV;
+  const bool on_sm90 = sizeof(T) == 2 && on_wgmma && chain_sm90_route(d);
+  const bool on_tf32 = sizeof(T) == 4 && on_wgmma && chain_tf32_route(d);
+  const bool refwd_wgmma = CL && !NV && rf && classic_fwd_wgmma<T>(d);
   const size_t tsmem = chain_tf32_smem(d.W, d.Wv, Cg, CL ? ix_cols(d.Fp) : 0);
   cudaError_t e = cudaSuccess;
   if (!on_sm90 && !on_tf32)
@@ -801,19 +847,19 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(lean_wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)wsmem);
-  if (e == cudaSuccess && rf && CL && !refwd_tf32)
+  if (e == cudaSuccess && rf && CL && !refwd_wgmma)
     e = cudaFuncSetAttribute(mlp_fwd_kernel<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)fsmem);
   const size_t ismem = input_grads_smem_bytes<T>(d);
-  if (e == cudaSuccess && CL && !on_tf32)
+  if (e == cudaSuccess && CL && !on_sm90 && !on_tf32)
     e = cudaFuncSetAttribute(mlp_input_grads_kernel<T, NV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ismem);
   int sms = 0, dev = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess && on_sm90)
-    e = cudaFuncSetAttribute(lean_chain_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)chain_sm90_smem(Cg));
+    e = cudaFuncSetAttribute(lean_chain_sm90_kernel<CL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)chain_sm90_smem(Cg));
   if (e == cudaSuccess && on_tf32)
     e = cudaFuncSetAttribute(lean_chain_tf32_kernel<CL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tsmem);
@@ -835,15 +881,10 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       if constexpr (CL) {
         // Rows start at x[c0][0] and view[c0][0]; the same kernel as
         // mlp_save_fwd's (launch_classic_fwd), so the same masks.
-        if (refwd_tf32) {
-          TfPlan pl;
-          if (!fwd_tf32_plan(pl, rf->p, rf->wt, dc.M, dc.Mp, 1, dc.M, d.F, 0, 0, d.F, d.depth,
-                             d.depth_cond, d.skip, d.W, d.Wv, 0, 0.f, 0.f,
-                             reinterpret_cast<float*>(S), d.Fv))
-            return (int)cudaErrorInvalidValue;
-          pl.view = rf->vproj + (size_t)c0 * d.Fv;
-          e = (cudaError_t)launch_fwd_tf32(pl, false, rf->x + (size_t)c0 * d.F, nullptr, nullptr,
-                                           nullptr, s);
+        if (refwd_wgmma) {
+          e = (cudaError_t)launch_classic_wgmma<T>(rf->x + (size_t)c0 * d.F,
+                                                   rf->vproj + (size_t)c0 * d.Fv, rf->p, dc,
+                                                   nullptr, nullptr, S, rf->wt, s);
           if (e != cudaSuccess) return (int)e;
         } else {
           mlp_fwd_kernel<T, NV><<<dc.Mp / TM, THREADS, fsmem, s>>>(
@@ -869,18 +910,19 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
         acts.t[i] = static_cast<const T*>(level_acts.t[i]) + (size_t)c0 * level_acts.ld[i];
     }
     float* db_part = a.db_part + (size_t)n_chunks * a.n_chain * Cg;
+    // The classic form: dx / dview of the chunk's points as steps of the
+    // chain.
+    float* dx = CL ? a.ig.dx + (size_t)c0 * d.F : nullptr;
+    float* dview = CL ? a.ig.dview + (size_t)c0 * d.Fv : nullptr;
     if (on_sm90) {
-      if (!chain_sm90_plan(plan, acts, a.cp, dc, G)) return (int)cudaErrorInvalidValue;
+      if (!chain_sm90_plan(plan, acts, a.cp, dc, G, a.ig.bx, a.ig.bv, dx, dview))
+        return (int)cudaErrorInvalidValue;
       const int tiles = (dc.Mp + CH_TM - 1) / CH_TM;
-      lean_chain_sm90_kernel<<<tiles < sms ? tiles : sms, CH_THREADS, chain_sm90_smem(Cg), s>>>(
+      lean_chain_sm90_kernel<CL><<<tiles < sms ? tiles : sms, CH_THREADS, chain_sm90_smem(Cg), s>>>(
           plan, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc,
           reinterpret_cast<bf16*>(G), a.g1f, db_part, a.n_chain);
       if (cudaPeekAtLastError() == cudaSuccess) ++g_chain_sm90_launches;
     } else if (on_tf32) {
-      // The classic form: dx / dview of the chunk's points as steps of the
-      // chain.
-      float* dx = CL ? a.ig.dx + (size_t)c0 * d.F : nullptr;
-      float* dview = CL ? a.ig.dview + (size_t)c0 * d.Fv : nullptr;
       if (!chain_tf32_plan(tplan, acts, a.chain_ws, dc, a.ix_ws, a.iv_ws, dx, dview))
         return (int)cudaErrorInvalidValue;
       const int tiles = dc.Mp / FT_TM;
@@ -894,7 +936,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
           a.g1f, db_part);
     }
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    if (CL && !on_tf32) {
+    if (CL && !on_sm90 && !on_tf32) {
       InputGrads ig = a.ig;
       ig.dx += (size_t)c0 * d.F;
       ig.dview += (size_t)c0 * d.Fv;
@@ -1181,7 +1223,8 @@ int lean_param_grads_hybrid(const void* acts, LEAN_GRAD_PARAMS) {
 // [M, 3] and density [M, nd] f32, the raw heads.  wt: f32 at the shapes of
 // classic_tf32_route's forward, the split transposed kernels as lean_fwd
 // takes them but view_0's of all its W + Fv rows (kernels/mlp.py
-// tf32_fwd_weights(..., Fv)); else may be null.
+// tf32_fwd_weights(..., Fv)); else may be null.  bf16 at the shapes of
+// classic_sm90_route's forward runs on lean_fwd_sm90_kernel from weights.
 int mlp_fwd(const void* x, const void* view, const void* weights, const void* biases,
             const void* wt, int n_layers, void* rgb, void* density, const int* dims,
             int use_bf16, void* stream) {
@@ -1210,7 +1253,8 @@ int mlp_save_fwd(const void* x, const void* view, const void* weights, const voi
 // (chain_ws the split chain kernels as the lean entries take them): x_ws
 // (param index) the split x rows [2 ix_cols(Fp)][out] of the layers x_chain
 // names, v_ws view_0's split view rows [2 ix_cols(Fvp)][Wv]; else x_ws and
-// v_ws may be null.
+// v_ws may be null (bf16 at the shapes of classic_sm90_route's chain, its
+// input steps read x_chain and kv).
 int mlp_bwd_saved(const void* saved, void* dx, void* dview, const void* x_chain, const void* kv,
                   const void* x_ws, const void* v_ws, LEAN_GRAD_PARAMS) {
   GradArgs a;
@@ -1330,6 +1374,26 @@ int classic_tf32_route(int F, int Fv, int W, int Wv, int depth, int depth_cond, 
   out[1] = skip >= 1 && Fv >= 1 && chain_tf32_route(d) ? 1 : 0;
   out[2] = (int)fwd_tf32_smem(W, Wv, F, Fv);
   out[3] = (int)chain_tf32_smem(W, Wv, d.cg(), ix_cols(d.Fp));
+  return 0;
+}
+
+// The bf16 classic MLP of these shapes: out[0] 1 if its forward takes
+// lean_fwd_sm90_kernel, out[1] 1 if its backward's chain and input
+// cotangents take lean_chain_sm90_kernel; out[2], out[3] their dynamic
+// shared memory.
+int classic_sm90_route(int F, int Fv, int W, int Wv, int depth, int depth_cond, int nd,
+                       int skip, int* out) {
+  TrainDims d = chain_dims(W, Wv, depth, depth_cond);
+  d.F = F;
+  d.Fp = (F + 15) / 16 * 16;
+  d.Fv = Fv;
+  d.Fvp = (Fv + 15) / 16 * 16;
+  d.nd = nd;
+  d.skip = skip;
+  out[0] = classic_fwd_sm90(d) ? 1 : 0;
+  out[1] = skip >= 1 && Fv >= 1 && chain_sm90_route(d) ? 1 : 0;
+  out[2] = (int)fwd_sm90_smem(W, Wv, F, Fv);
+  out[3] = (int)chain_sm90_smem(d.cg());
   return 0;
 }
 

@@ -66,13 +66,15 @@ and a backward that also returns dx and dview:
 
 With net_depth_condition 0 (no view layer) the rgb head reads
 concat(bottleneck, view): the four kernels are instantiated for it, and its
-cotangent splits into the bottleneck's and dview.  In f32 with a view
-layer, one density head and widths that are multiples of 64
-(`fwd_tf32_route` / `chain_tf32_route` with the classic arguments) the
-forwards run on the 3xTF32 wgmma forward's classic form (view_0's per-point
-view rows a second K segment), and the backwards' chain with dx and dview
-on the 3xTF32 wgmma chain's (the input cotangents steps of the chain);
-`tf32_routes` and `chain_tf32_routes` count the calls that took them.
+cotangent splits into the bottleneck's and dview.  With a view layer, one
+density head and widths that are multiples of 64 (the rules with the
+classic arguments) the forwards run on the wgmma forward's classic form
+(view_0's per-point view rows a second K segment) and the backwards' chain
+with dx and dview on the wgmma chain's (the input cotangents steps of the
+chain): in f32 the 3xTF32 kernels (`fwd_tf32_route` / `chain_tf32_route`,
+counted in `tf32_routes` / `chain_tf32_routes`), in bf16 the bf16 ones
+(`fwd_sm90_route` / `chain_sm90_route`, counted in `routes` /
+`chain_routes`).
 
 What bounds them: the MLP is ~1.21 MFLOP per sample point forward and about
 twice that backward (with the input gradients, exactly twice), so the
@@ -165,9 +167,11 @@ RECOMPUTE_POINTS = 98304
 
 # Wrapper name -> calls whose forward ran on the bf16 wgmma / TMA kernel
 # lean_fwd_sm90_kernel (csrc/lean_fwd_sm90.cuh), read from the library's
-# own count of that kernel's launches around each call.
+# own count of that kernel's launches around each call: the lean forwards
+# and the classic ones (mlp_bwd_recompute: its re-run).
 routes = {'lean_mlp': 0, 'lean_fwd': 0, 'lean_save_fwd': 0,
-          'lean_param_grads_recompute': 0}
+          'lean_param_grads_recompute': 0, 'mlp_fwd': 0, 'mlp_save_fwd': 0,
+          'mlp_bwd_recompute': 0}
 
 # The shape rule of lean_fwd_sm90_kernel (csrc/lean_fwd_sm90.cuh,
 # fwd_sm90_route): its ring of FW_STAGES slabs of FW_KS weight rows x 4 boxes
@@ -185,8 +189,7 @@ FW_SMEM_MAX = 232448
 # lean_fwd_tf32_kernel (csrc/lean_fwd_tf32.cuh), read from the library's
 # own count of that kernel's launches around each call: the lean forwards
 # and the classic ones (mlp_bwd_recompute: its re-run).
-tf32_routes = dict.fromkeys(list(routes) + ['mlp_fwd', 'mlp_save_fwd',
-                                            'mlp_bwd_recompute'], 0)
+tf32_routes = dict.fromkeys(routes, 0)
 
 # The shape rule of lean_fwd_tf32_kernel (csrc/lean_fwd_tf32.cuh,
 # fwd_tf32_route): a ring of FT_STAGES slabs of FT_KS columns of the split
@@ -198,14 +201,14 @@ tf32_routes = dict.fromkeys(list(routes) + ['mlp_fwd', 'mlp_save_fwd',
 FT_STAGES, FT_KS, FT_LD, FT_MAX_LAYERS, FT_MAX_X = 3, 16, 72, 12, 128
 
 
-# Wrapper name -> calls whose cotangent chain ran on the bf16 wgmma kernel
-# lean_chain_sm90_kernel (csrc/lean_chain_sm90.cuh) / on the f32 one
-# lean_chain_tf32_kernel (csrc/lean_chain_tf32.cuh), read from the
-# library's own counts of their launches around each call.
-chain_routes = {'lean_param_grads': 0, 'lean_param_grads_recompute': 0}
-chain_tf32_routes = dict.fromkeys(list(chain_routes) + ['mlp_bwd_saved',
-                                                        'mlp_bwd_recompute'],
-                                  0)
+# Wrapper name -> calls whose cotangent chain (the classic ones: with dx and
+# dview) ran on the bf16 wgmma kernel lean_chain_sm90_kernel
+# (csrc/lean_chain_sm90.cuh) / on the f32 one lean_chain_tf32_kernel
+# (csrc/lean_chain_tf32.cuh), read from the library's own counts of their
+# launches around each call.
+chain_routes = {'lean_param_grads': 0, 'lean_param_grads_recompute': 0,
+                'mlp_bwd_saved': 0, 'mlp_bwd_recompute': 0}
+chain_tf32_routes = dict.fromkeys(chain_routes, 0)
 
 
 # Wrapper name -> calls whose weight gradients ran on the f32 wgmma kernel
@@ -265,6 +268,9 @@ def reset_launches() -> None:
 # (max(W, Wv) rows of FT_LD floats), the head cotangents, the staged head
 # kernels, the block's Cg bias sums, 1 KB.
 CH_STAGES, CH_MASKS, CH_RAW, CH_MAX_STEPS = 4, 4, 6, 16
+# The classic bf16 chain's plan: its steps (csrc/lean_chain_sm90.cuh
+# CH_STEPS); its weight maps within CH_MAX_STEPS.
+CH_STEPS = 20
 
 
 def chain_cg(W: int, Wv: int, net_depth: int, net_depth_condition: int):
@@ -311,13 +317,32 @@ def _chain_route(W, Wv, net_depth, net_depth_condition, smem):
 
 
 def chain_sm90_route(compute_dtype, W: int, Wv: int, net_depth: int,
-                     net_depth_condition: int) -> bool:
+                     net_depth_condition: int, *, F: int = 0, Fv: int = 0,
+                     nd: int = 1, skip_index: int = 4) -> bool:
     """Whether the lean chain of lean_param_grads / _recompute (and the
     render-fused level's backward) runs on lean_chain_sm90_kernel: bf16 and
-    the shape rule above."""
+    the shape rule above.  With Fv > 0, whether the classic backward of
+    fused_mlp (mlp_bwd_saved, mlp_bwd_recompute; F encode and Fv view
+    features, nd density heads) runs its chain, dx and dview there: bf16, W
+    and Wv multiples of 64 up to MAX_WIDTH, a view layer, one density head,
+    the encode and the view at most MAX_WIDTH once rounded up to 64 (the N
+    of their steps), its weight maps (every chain layer and input step)
+    within CH_MAX_STEPS and its steps within CH_STEPS, and the plan within
+    the block's shared memory (the lean chain's)."""
+    if compute_dtype != torch.bfloat16:
+        return False
     Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
-    return compute_dtype == torch.bfloat16 and _chain_route(
-        W, Wv, net_depth, net_depth_condition, chain_sm90_smem(Cg))
+    if not Fv:
+        return _chain_route(W, Wv, net_depth, net_depth_condition,
+                            chain_sm90_smem(Cg))
+    ix = _classic_dx_steps(net_depth, skip_index) + 1
+    return (all(64 <= w <= MAX_WIDTH and w % 64 == 0 for w in (W, Wv))
+            and net_depth >= 1 and net_depth_condition >= 1 and nd == 1
+            and skip_index >= 1 and 1 <= F and _round_up(F, 64) <= MAX_WIDTH
+            and _round_up(Fv, 64) <= MAX_WIDTH
+            and net_depth + net_depth_condition + ix <= CH_MAX_STEPS
+            and net_depth + net_depth_condition + 1 + ix <= CH_STEPS
+            and chain_sm90_smem(Cg) <= FW_SMEM_MAX)
 
 
 def chain_tf32_route(compute_dtype, W: int, Wv: int, net_depth: int,
@@ -454,32 +479,40 @@ def _tf32_ptrs(flat_params, net_depth, net_depth_condition, skip_index,
     return wt, _ptr_array(wt)
 
 
-def fwd_sm90_smem(W: int, Wv: int, F: int) -> int:
+def fwd_sm90_smem(W: int, Wv: int, F: int, Fv: int = 0) -> int:
     """Dynamic shared memory of lean_fwd_sm90_kernel at widths W, Wv and an
-    encode of F features."""
+    encode of F features (the classic form: the encode tile also holds the
+    Fv per-point view features)."""
     box, wbox = 64 * 64 * 2, FW_KS * 64 * 2
     staged = (2 * 4 * 64 + 2 * 2 * 3 * 64 + FW_MAX_LAYERS * 256
               + (256 + 64 * FW_XBOXES) + 768)
-    tile = max(W, Wv) // 64 * box + 128 * _round_up(F, FW_KS)
+    xrows = max(_round_up(F, FW_KS), _round_up(Fv, FW_KS))
+    tile = max(W, Wv) // 64 * box + 128 * xrows
     return (FW_STAGES * 4 * wbox + 2 * tile
             + 4 * staged + 4 * 12 * FW_MAX_LAYERS + 8 * (2 * FW_STAGES + 1)
             + 1024)
 
 
 def fwd_sm90_route(compute_dtype, F: int, W: int, Wv: int, net_depth: int,
-                   net_depth_condition: int) -> bool:
+                   net_depth_condition: int, Fv: int = 0,
+                   nd: int = 1) -> bool:
     """Whether a lean forward (lean_fwd, lean_save_fwd, the recompute
     backward's re-run, lean_mlp) runs on lean_fwd_sm90_kernel: bf16, W and
     Wv multiples of 64 up to MAX_WIDTH, a view layer, at most FW_MAX_LAYERS
     dense layers, an encode of at most 128 features once rounded up to the
-    32-row slab, and the plan within the block's shared memory.  Every
-    other lean forward runs on the mma.sync tile."""
+    32-row slab, and the plan within the block's shared memory.  With Fv >
+    0, whether the classic forward of fused_mlp (mlp_fwd, mlp_save_fwd,
+    mlp_bwd_recompute's re-run; Fv per-point view features, nd density
+    heads) runs on its classic form: the same rule, the view at most 128
+    features once rounded up, one density head.  Every other bf16 forward
+    runs on the mma.sync tile."""
     return (compute_dtype == torch.bfloat16
             and all(64 <= w <= MAX_WIDTH and w % 64 == 0 for w in (W, Wv))
             and net_depth >= 1 and net_depth_condition >= 1
             and net_depth + 1 + net_depth_condition <= FW_MAX_LAYERS
             and 1 <= F and _round_up(F, FW_KS) <= 64 * FW_XBOXES
-            and fwd_sm90_smem(W, Wv, F) <= FW_SMEM_MAX)
+            and 0 <= Fv and _round_up(Fv, FW_KS) <= 64 * FW_XBOXES
+            and nd == 1 and fwd_sm90_smem(W, Wv, F, Fv) <= FW_SMEM_MAX)
 
 
 def param_order(net_depth: int, net_depth_condition: int):
@@ -2031,8 +2064,9 @@ def _mlp_grad_launch(fn, mode_args, view, g_rgb, g_dens, flat_params,
     cotangents.  mode_args(plan) -> (the mode's own arguments, points a
     chunk); then come dx, dview, the x-column kernels and view_0's view
     rows (with no view layer, the rgb head's) of the mma.sync
-    input-gradient pass, transposed and padded, and, where the chain runs
-    on lean_chain_tf32_kernel, its input steps' split kernels.  -> (dx,
+    input-gradient pass, transposed and padded (lean_chain_sm90_kernel's
+    input steps read the same), and, where the chain runs on
+    lean_chain_tf32_kernel, its input steps' split kernels.  -> (dx,
     dview, grads)."""
     M = g_rgb.shape[0]
     F, W, Fv, _ = _mlp_dims(flat_params, net_depth)

@@ -23,8 +23,8 @@ With --steps it also times the lego training step on pallas_lean_save
 (bench.py's synthetic rays, 3072 a step, make_train_many K = 5 steps a
 call, the host clock to a synchronise): best and median ms/step of 6 calls
 after a warm-up, bf16 and f32, and the device time of one step from a
-torch.profiler window; and the same in f32 on the classic backends
-`pallas` and `pallas_save` with stop_resample_grad False (`step f32
+torch.profiler window; and the same, bf16 and f32, on the classic backends
+`pallas` and `pallas_save` with stop_resample_grad False (`step bf16
 pallas ...`).
 
 With --frames it also times one 800x800 frame of render_camera (the lego
@@ -46,9 +46,10 @@ With --profile it first prints, each on a line of its own:
   * view_proj's device time against torch.addmm's at the level's rays and
     at the render chunk's, from the profiler (kernel durations, not the
     host's issue time);
-  * where the checkout has them, the same split of the classic kernels:
-    mlp_save_fwd, and mlp_bwd_saved (its chain with dx and dview, weight
-    gradients and reductions).
+  * where the checkout has them, the same split of the classic kernels,
+    bf16 and f32: mlp_save_fwd, mlp_bwd_saved (its chain with dx and dview,
+    weight gradients and reductions) and mlp_bwd_recompute (its re-runs of
+    the forward besides).
 """
 
 import json
@@ -278,7 +279,9 @@ def main():
                 runs = {'mlp_save_fwd': lambda: km.mlp_save_fwd(x, vp, flat,
                                                                 *cargs),
                         'mlp_bwd_saved': lambda: km.mlp_bwd_saved(
-                            g_rgb, g_dens, cs, flat, *cargs)}
+                            g_rgb, g_dens, cs, flat, *cargs),
+                        'mlp_bwd_recompute': lambda: km.mlp_bwd_recompute(
+                            x, vp, g_rgb, g_dens, flat, *cargs)}
                 for name, fn in runs.items():
                     split = {short(k): round(v, 4)
                              for k, v in device_split(fn).items()}
@@ -370,13 +373,14 @@ def main():
             out[f'step {tag} best'] = round(best, 3)
             out[f'step {tag} median'] = round(med, 3)
             out[f'step {tag} device'] = round(dev_ms, 3)
-        for backend in ('pallas', 'pallas_save'):
-            best, med, dev_ms = step_times(
-                MipNeRFSystem, Rays, hp, dev, 'float32', params, backend,
-                {'nerf.stop_resample_grad': False})
-            out[f'step f32 {backend} best'] = round(best, 3)
-            out[f'step f32 {backend} median'] = round(med, 3)
-            out[f'step f32 {backend} device'] = round(dev_ms, 3)
+        for dtype, tag in (('bfloat16', 'bf16'), ('float32', 'f32')):
+            for backend in ('pallas', 'pallas_save'):
+                best, med, dev_ms = step_times(
+                    MipNeRFSystem, Rays, hp, dev, dtype, params, backend,
+                    {'nerf.stop_resample_grad': False})
+                out[f'step {tag} {backend} best'] = round(best, 3)
+                out[f'step {tag} {backend} median'] = round(med, 3)
+                out[f'step {tag} {backend} device'] = round(dev_ms, 3)
     print(json.dumps(out), flush=True)
 
 

@@ -337,12 +337,28 @@ def test_saved_stream_fits_the_tensor_maps(M, F, W, Wv, depth, dcond):
     ('bf16', 128, 256, 128, 8, 1, True),     # 128 features: two boxes
     ('bf16', 130, 256, 128, 8, 1, False),    # 160 rows once rounded to 32
     ('bf16', 96, 320, 128, 8, 1, False),     # wider than MAX_WIDTH
-    ('bf16', 96, 256, 256, 8, 1, True)])
+    ('bf16', 96, 256, 256, 8, 1, True),
+    # The classic MLP (fused_mlp: 27 per-point view features; nd density
+    # heads): its forward's classic form.
+    ('bf16 classic', 96, 256, 128, 8, 1, True),         # lego
+    ('f32 classic', 96, 256, 128, 8, 1, False),         # f32 takes lean_fwd_tf32_kernel
+    ('bf16 classic', 96, 256, 128, 8, 0, False),        # no view layer
+    ('bf16 classic nd2', 96, 256, 128, 8, 1, False),    # two density heads
+    ('bf16 classic', 96, 96, 128, 8, 1, False),         # W = 96
+    ('bf16 classic', 24, 64, 32, 3, 1, False),          # `small`: Wv = 32
+    ('bf16 classic', 24, 64, 64, 3, 2, True),           # `wide_view2`
+    ('bf16 classic', 128, 256, 256, 8, 1, True),        # the widest plan
+    ('bf16 classic', 96, 256, 128, 11, 1, False)])      # 13 dense layers
 def test_fwd_sm90_route(dtype, F, W, Wv, depth, dcond, want):
     """The shape rule of the bf16 wgmma forward (lean_fwd_sm90_kernel),
-    against hand counts; the card test holds the library to the same
-    rule."""
-    dt = torch.bfloat16 if dtype == 'bf16' else torch.float32
+    against hand counts, for the lean MLP and for fused_mlp's classic form
+    (a second K segment of view_0 of the 27 view features, raw heads); the
+    card tests hold the library to the same rule."""
+    dt = torch.bfloat16 if dtype.startswith('bf16') else torch.float32
+    if 'classic' in dtype:
+        nd = 2 if dtype.endswith('nd2') else 1
+        assert tk.fwd_sm90_route(dt, F, W, Wv, depth, dcond, 27, nd) is want
+        return
     assert tk.fwd_sm90_route(dt, F, W, Wv, depth, dcond) is want
 
 
@@ -385,7 +401,7 @@ def test_fwd_sm90_smem():
     ('f32 classic', 96, 256, 128, 8, 1, True),          # lego
     ('f32 classic', 96, 256, 128, 8, 0, False),         # no view layer
     ('f32 classic nd2', 96, 256, 128, 8, 1, False),     # two density heads
-    ('bf16 classic', 96, 256, 128, 8, 1, False),        # bf16 keeps mlp_tile
+    ('bf16 classic', 96, 256, 128, 8, 1, False),        # bf16: lean_fwd_sm90_kernel
     ('f32 classic', 96, 96, 128, 8, 1, False),          # W = 96
     ('f32 classic', 24, 64, 32, 3, 1, False),           # `small`: Wv = 32
     ('f32 classic', 128, 256, 256, 8, 1, True),         # the widest plan
@@ -440,22 +456,36 @@ def test_fwd_tf32_smem():
     ('f32 classic', 256, 128, 8, 1, True),              # lego
     ('f32 classic', 256, 128, 8, 0, False),             # no view layer
     ('f32 classic nd2', 256, 128, 8, 1, False),         # two density heads
-    ('bf16 classic', 256, 128, 8, 1, False),            # bf16 keeps mma.sync
+    ('bf16 classic', 256, 128, 8, 1, False),            # bf16: lean_chain_sm90_kernel
     ('f32 classic', 96, 128, 8, 1, False),              # W = 96
     ('f32 classic', 64, 32, 3, 1, False),               # `small`: Wv = 32
     ('f32 classic', 256, 256, 11, 1, True),             # 16 weight maps
-    ('f32 classic', 256, 256, 12, 1, False)])           # 17
+    ('f32 classic', 256, 256, 12, 1, False),            # 17
+    # The same on the bf16 chain's classic form.
+    ('bf16 classic on sm90', 256, 128, 8, 1, True),     # lego
+    ('f32 classic on sm90', 256, 128, 8, 1, False),     # f32: lean_chain_tf32_kernel
+    ('bf16 classic on sm90', 256, 128, 8, 0, False),    # no view layer
+    ('bf16 classic nd2 on sm90', 256, 128, 8, 1, False),   # two density heads
+    ('bf16 classic on sm90', 96, 128, 8, 1, False),     # W = 96
+    ('bf16 classic on sm90', 64, 32, 3, 1, False),      # `small`: Wv = 32
+    ('bf16 classic on sm90', 256, 128, 9, 1, True),     # G of 2,692 rows
+    ('bf16 classic on sm90', 256, 128, 10, 1, False),   # 2,948: the sums outgrow the block
+    ('bf16 classic on sm90', 64, 64, 11, 1, True),      # 16 weight maps
+    ('bf16 classic on sm90', 64, 64, 12, 1, False)])    # 17
 def test_chain_route(dtype, W, Wv, depth, dcond, want):
     """The shape rules of the lean chains on wgmma (bf16
     lean_chain_sm90_kernel, f32 lean_chain_tf32_kernel), against hand
     counts; each is a rule on its own dtype only.  The classic cases: the
-    f32 chain's classic form (its weight maps: every chain layer, the
-    dview step and one dx step a layer that reads x)."""
+    f32 chain's classic form, and (`on sm90`) the bf16 chain's (their
+    weight maps: every chain layer, the dview step and one dx step a layer
+    that reads x)."""
     if 'classic' in dtype:
         dt = torch.bfloat16 if dtype.startswith('bf16') else torch.float32
-        nd = 2 if dtype.endswith('nd2') else 1
-        assert tk.chain_tf32_route(dt, W, Wv, depth, dcond, F=96, Fv=27,
-                                   nd=nd, skip_index=4) is want
+        nd = 2 if 'nd2' in dtype.split() else 1
+        rule = (tk.chain_sm90_route if dtype.endswith('on sm90')
+                else tk.chain_tf32_route)
+        assert rule(dt, W, Wv, depth, dcond, F=96, Fv=27, nd=nd,
+                    skip_index=4) is want
         return
     dt, other = ((torch.bfloat16, torch.float32) if dtype == 'bf16'
                  else (torch.float32, torch.bfloat16))
@@ -501,6 +531,25 @@ def test_classic_tf32_smem():
         256, 128, 112)
     assert tk.chain_tf32_smem(256, 128, 2436, 96) == (
         187984 + 4 * (128 + 64 * 96)) == 213072 <= tk.FW_SMEM_MAX
+
+
+def test_classic_sm90_smem():
+    """The bf16 classic forms' shared memory by hand at the lego shape (F =
+    96, 27 view features): the forward's encode tile holds max(96, 32)
+    rows, so its plan is the lean one's, 212,136 bytes; a view wider than
+    the encode widens that tile (F = 24, Fv = 100: 128 rows, as an encode
+    of 128); the widest plan the rule takes (W = Wv = 256, F = Fv = 128)
+    is the lean one's widest, 220,328.  The chain keeps no stash: its plan
+    is the lean chain's, 229,632 bytes at lego, 2,816 under the block's
+    232,448."""
+    assert tk.fwd_sm90_smem(256, 128, 96, 27) == tk.fwd_sm90_smem(256, 128,
+                                                                   96) \
+        == 212136
+    assert tk.fwd_sm90_smem(256, 128, 24, 100) == tk.fwd_sm90_smem(
+        256, 128, 128)
+    assert tk.fwd_sm90_smem(256, 256, 128, 128) == 220328 <= tk.FW_SMEM_MAX
+    assert tk.chain_sm90_smem(tk.chain_cg(256, 128, 8, 1)) == 229632 \
+        == tk.FW_SMEM_MAX - 2816
 
 
 def _cuh_consts(name):
@@ -550,6 +599,70 @@ def test_classic_chain_plan_mirror(case, F, Fv, W, Wv, depth, dcond, nd,
     assert got is want, case
     assert tk.chain_tf32_route(torch.bfloat16, W, Wv, depth, dcond, F=F,
                                Fv=Fv, nd=nd, skip_index=skip) is False
+
+
+@pytest.mark.parametrize('case,F,Fv,W,Wv,depth,dcond,nd,skip,want', [
+    ('lego', 96, 27, 256, 128, 8, 1, 1, 4, (True, True)),
+    ('weight maps: 11 + 1 + 4 = 16 (13 dense layers)', 96, 27, 64, 64, 11,
+     1, 1, 4, (False, True)),
+    ('weight maps: 12 + 1 + 4 = 17', 96, 27, 64, 64, 12, 1, 1, 4,
+     (False, False)),
+    ('weight maps: skip 1 at depth 7, 7 + 1 + 8', 96, 27, 64, 64, 7, 1, 1, 1,
+     (True, True)),
+    ('weight maps: skip 1 at depth 8, 8 + 1 + 9', 96, 27, 64, 64, 8, 1, 1, 1,
+     (True, False)),
+    ('steps: 9 + 1 + 3 + 1 = 14, G of 2,692 rows', 96, 27, 256, 128, 9, 1, 1,
+     4, (True, True)),
+    ('bias sums: G of 2,948 rows', 96, 27, 256, 128, 10, 1, 1, 4,
+     (True, False)),
+    ('encode: 128 features, two boxes', 128, 27, 256, 128, 8, 1, 1, 4,
+     (True, True)),
+    ('encode: 160 rows once rounded to 32', 130, 27, 256, 128, 8, 1, 1, 4,
+     (False, True)),
+    ('encode: 320 columns once rounded to 64', 257, 27, 256, 128, 8, 1, 1, 4,
+     (False, False)),
+    ('view: 128 features', 96, 128, 256, 128, 8, 1, 1, 4, (True, True)),
+    ('view: 160 rows once rounded to 32', 96, 129, 256, 128, 8, 1, 1, 4,
+     (False, True)),
+    ('view: 320 columns once rounded to 64', 96, 257, 256, 128, 8, 1, 1, 4,
+     (False, False)),
+    ('two density heads', 96, 27, 256, 128, 8, 1, 2, 4, (False, False)),
+    ('no view layer', 96, 27, 256, 128, 8, 0, 1, 4, (False, False)),
+    ('W not a multiple of 64', 96, 27, 160, 128, 8, 1, 1, 4, (False, False)),
+    ('Wv 32', 24, 27, 64, 32, 3, 1, 1, 2, (False, False))])
+def test_classic_sm90_plan_mirror(case, F, Fv, W, Wv, depth, dcond, nd, skip,
+                                  want):
+    """The Python mirrors of the bf16 classic plans refuse what the C++
+    plans (csrc/lean_fwd_sm90.cuh fwd_sm90_route / fwd_sm90_plan,
+    csrc/lean_chain_sm90.cuh chain_sm90_route / chain_sm90_plan) refuse:
+    their limits are the C++ constants (read from the source), and each
+    case sits on one of them, counted by hand (the forward's dense layers
+    and its 128-row encode tile; the chain's weight maps, steps, 64-column
+    input steps and bias sums).  want = (forward, chain).  The card test
+    holds the library to the same answers
+    (test_cuda_classic_sm90_route_matches_the_library)."""
+    chain = _cuh_consts('lean_chain_sm90.cuh')
+    fwd = _cuh_consts('lean_fwd_sm90.cuh')
+    assert (tk.CH_MAX_STEPS, tk.CH_STEPS, tk.CH_STAGES, tk.CH_MASKS,
+            tk.CH_RAW) == (chain['CH_MAX_STEPS'], chain['CH_STEPS'],
+                           chain['CH_STAGES'], chain['CH_MASKS'],
+                           chain['CH_RAW'])
+    assert (tk.FW_STAGES, tk.FW_KS, tk.FW_XBOXES, tk.FW_MAX_LAYERS) == (
+        fwd['FW_STAGES'], fwd['FW_KS'], fwd['FW_XBOXES'],
+        fwd['FW_MAX_LAYERS'])
+    if case.startswith('weight maps'):
+        ix = tk._classic_dx_steps(depth, skip) + 1
+        assert (depth + dcond + ix <= tk.CH_MAX_STEPS) is want[1]
+        assert depth + dcond + 1 + ix <= tk.CH_STEPS
+    bf16 = torch.bfloat16
+    got = (tk.fwd_sm90_route(bf16, F, W, Wv, depth, dcond, Fv, nd),
+           tk.chain_sm90_route(bf16, W, Wv, depth, dcond, F=F, Fv=Fv, nd=nd,
+                               skip_index=skip))
+    assert got == want, case
+    assert not tk.fwd_sm90_route(torch.float32, F, W, Wv, depth, dcond, Fv,
+                                 nd)
+    assert not tk.chain_sm90_route(torch.float32, W, Wv, depth, dcond, F=F,
+                                   Fv=Fv, nd=nd, skip_index=skip)
 
 
 # The backward entries and whether their activations are point-major.
