@@ -79,8 +79,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      (`check_classic_routes`); the same four
      kernels' instantiation for a model with no view layer
      (net_depth_condition 0: the rgb head reads concat(bottleneck, view)),
-     the same checks at the same bars (on the mma.sync kernels, as the
-     rules say); the standalone
+     the same checks at the same bars (f32 on the NV forms of
+     lean_fwd_tf32_kernel and lean_chain_tf32_kernel, bf16 on the mma.sync
+     kernels, as the rules say); the standalone
      IPE kernels ipe_fwd and ipe_bwd on the level's Gaussians (393,216
      points, degrees 0..16), with their covariances and with them zeroed,
      and on a ragged count: forward max |d| <= 1e-5, dmeans and dcovs
@@ -128,8 +129,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      F32_TURNS_BY seconds the new configurations' f32 turns are cut, never
      a gate; one f32 gate of pallas_lean with density_noise 1.0, whose
      kernels return raw heads (act=None); and a model with no view layer
-     on pallas_save with stop_resample_grad False, bf16 and f32: the gate,
-     then K = 5 steps (mlp_save_fwd and mlp_bwd_saved 2 x 5 launches);
+     on pallas_save and pallas with stop_resample_grad False, bf16 and
+     f32: the gate, then K = 5 steps (mlp_save_fwd and mlp_bwd_saved, or
+     mlp_fwd and mlp_bwd_recompute, 2 x 5 launches; f32 on the NV forms of
+     the f32 wgmma kernels, bf16 on the mma.sync kernels);
   7. the run, through the command lines a user calls: cli.train.main on an
      in-memory sphere scene (24 train / 2 val / 2 test views of 64x64, a
      Blender subclass registered here that ray-traces its views instead of
@@ -176,7 +179,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      for the lean forwards and backwards also the wgmma kernel that runs
      them, f32 `kernel` / `chain` / `wgrad` and bf16 under 'bf16'; for f32
      lean_param_grads also its weight gradients' own ms, bound and
-     torch.mm's ms under `wgrad_ms`),
+     torch.mm's ms under `wgrad_ms`; for fused_mlp's four kernels also
+     their numbers for the model with no view layer under `no_view`: ms,
+     plain_ms, bound_ms, share, the kernels that ran them and phase 6's
+     f32 launches, bf16 under its 'bf16'),
      the script's wall time, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 
@@ -314,6 +320,7 @@ VIDEO_SCALES, VIDEO_POSES = 2, 4
 TP_MESHES = ((1024, 2, 2), (256, 8, 4))
 TP_RAGGED_ROWS = 100003
 _NO_VIEW = {'nerf.mlp.net_depth_condition': 0}
+_NV_LABEL = '[no view layer]'     # phase 5's suffix of their kernels' names
 # The card's published rates (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s; tensor-core FLOP/s in bf16 and for f32 as 3xTF32 (the route the
 # f32 kernels take: three TF32 products, 495 / 3); CUDA-core f32 FLOP/s.
@@ -475,6 +482,8 @@ def kernel_work(name, hp, R, N, tag, form='rows'):
     # input cotangent, as many products as the forward) beside every weight
     # gradient, dx and dview out; the saved stream is the JAX set (hs,
     # bottleneck, ys) in the compute dtype.
+    # With no view layer (net_depth_condition 0) layer_shapes has no view_0
+    # and an rgb head of W + Fv rows, and the stream no ys rows.
     cfwd = 2 * M * n_w
     pts = M * (F + Fv) * 4
     stream = M * ((depth + 1) * W + dcond * Wv) * es
@@ -601,16 +610,34 @@ def classic_route(hp, dt):
     hp's MLP (one density head, the 27 per-point view features) in dt take
     the wgmma classic forms of dt's kernels: f32 lean_fwd_tf32_kernel /
     lean_chain_tf32_kernel (kernels/mlp.py fwd_tf32_route /
-    chain_tf32_route), bf16 lean_fwd_sm90_kernel / lean_chain_sm90_kernel
-    (fwd_sm90_route / chain_sm90_route), with the classic arguments."""
+    chain_tf32_route; with no view layer their NV forms), bf16
+    lean_fwd_sm90_kernel / lean_chain_sm90_kernel (fwd_sm90_route /
+    chain_sm90_route), with the classic arguments."""
     F, W, Wv, depth, dcond = _widths(hp)
     Fv = 3 * (2 * hp['nerf.deg_view'] + 1)
     f32 = dt == torch.float32
     fwd = km.fwd_tf32_route if f32 else km.fwd_sm90_route
     chain = km.chain_tf32_route if f32 else km.chain_sm90_route
-    return (dcond >= 1 and fwd(dt, F, W, Wv, depth, dcond, Fv, 1),
+    return (fwd(dt, F, W, Wv, depth, dcond, Fv, 1),
             chain(dt, W, Wv, depth, dcond, F=F, Fv=Fv, nd=1,
                   skip_index=hp['nerf.mlp.skip_index']))
+
+
+def classic_kernel_names(name, hp, dt):
+    """{'kernel': the forward's, 'chain': the chain's} device kernels of
+    fused_mlp wrapper `name` for hp's MLP in dt (the forward of
+    mlp_bwd_recompute: its re-run): the wgmma classic forms where
+    classic_route says so, else the mma.sync kernels (the chain with
+    mlp_input_grads_kernel after it)."""
+    on = classic_route(hp, dt)
+    (fwd, chain), _ = classic_kernels(dt)
+    out = {}
+    if name in CLASSIC_FWD:
+        out['kernel'] = fwd if on[0] else 'mlp_fwd_kernel'
+    if name in CLASSIC_CHAIN:
+        out['chain'] = (chain if on[1] else
+                        'lean_grad_chain_kernel + mlp_input_grads_kernel')
+    return out
 
 
 def classic_kernels(dt):
@@ -627,14 +654,21 @@ def check_classic_routes(hp, dt, where, **calls):
     """Raise unless each named fused_mlp wrapper's `calls` since the last
     reset_launches ran its forward and its chain (with dx and dview) on the
     wgmma kernels of dt (classic_kernels) where classic_route says so, on
-    the mma.sync kernels elsewhere (no view layer), and never on the other
-    dtype's; the lego schema's classic kernels must take the wgmma forms in
-    both dtypes."""
+    the mma.sync kernels elsewhere (bf16 with no view layer), and never on
+    the other dtype's; the lego schema's classic kernels must take the
+    wgmma forms in both dtypes, and with no view layer the f32 NV forms in
+    f32 and the mma.sync kernels in bf16."""
     on = classic_route(hp, dt)
-    if (hp['nerf.mlp.net_width'] == 256
-            and hp['nerf.mlp.net_depth_condition'] >= 1 and not all(on)):
-        raise AssertionError(f'the lego {dt} classic kernels take no wgmma '
-                             'form')
+    lego = hp['nerf.mlp.net_width'] == 256
+    if hp['nerf.mlp.net_depth_condition'] >= 1:
+        if lego and not all(on):
+            raise AssertionError(f'the lego {dt} classic kernels take no '
+                                 'wgmma form')
+    elif lego and on != ((True, True) if dt == torch.float32
+                         else (False, False)):
+        raise AssertionError(f'the lego {dt} classic kernels with no view '
+                             f'layer: wgmma routes {on}, want them in f32 '
+                             'only')
     names, (fwd, chain) = classic_kernels(dt)
     _, (o_fwd, o_chain) = classic_kernels(
         torch.bfloat16 if dt == torch.float32 else torch.float32)
@@ -1737,21 +1771,28 @@ def run_k_steps(system, params, stack, pix, names, levels, label):
 
 def no_view_slice(hp0, params, dev):
     """Phase 6, a model with no view layer (net_depth_condition 0, `params`
-    its seeded weights) on pallas_save with stop_resample_grad False, bf16
-    and f32: the one-step gradient gate against the plain path, then K
-    steps in which mlp_save_fwd and mlp_bwd_saved launch 2 levels x K
-    times."""
+    its seeded weights) on pallas_save and pallas with stop_resample_grad
+    False, bf16 and f32: the one-step gradient gate against the plain path,
+    then K steps in which the backend's forward and backward launch 2
+    levels x K times on the routes check_classic_routes asserts; -> {f32
+    kernel name: its launches in the f32 K-step run of its backend}."""
     rays, pixels = train_batch(TRAIN_RAYS, dev)
     stack = Rays(*(f.expand(TRAIN_K, *f.shape).contiguous() for f in rays))
     pix = pixels.expand(TRAIN_K, *pixels.shape).contiguous()
+    launches = {}
     for dtype in ('bfloat16', 'float32'):
-        hb = dict(hp0, **{'train.compute_dtype': dtype,
-                          'nerf.mlp_backend': 'pallas_save'}, **_RESAMPLE)
-        label = f'{dtype} pallas_save+resample, no view layer'
-        system = gradient_gate(hb, params, rays, pixels, dev, label)
-        run_k_steps(system, params, stack, pix,
-                    ('mlp_save_fwd', 'mlp_bwd_saved'),
-                    hp0['nerf.num_levels'], label)
+        for backend, names in (('pallas_save', ('mlp_save_fwd',
+                                                'mlp_bwd_saved')),
+                               ('pallas', ('mlp_fwd', 'mlp_bwd_recompute'))):
+            hb = dict(hp0, **{'train.compute_dtype': dtype,
+                              'nerf.mlp_backend': backend}, **_RESAMPLE)
+            label = f'{dtype} {backend}+resample, no view layer'
+            system = gradient_gate(hb, params, rays, pixels, dev, label)
+            counts = run_k_steps(system, params, stack, pix, names,
+                                 hp0['nerf.num_levels'], label)
+            if dtype == 'float32':
+                launches.update({n: counts[n] for n in names})
+    return launches
 
 
 def train_run(fn, state, stack, pixels):
@@ -2543,12 +2584,12 @@ def main() -> int:
     params_nv = jax_params_to_torch(
         flax_tree(MipNeRFSystem(hp_nv, device=dev), seed=0), device=dev)
     results.update(compare_classic_kernels(params_nv, hp_nv, dev,
-                                           '[no view layer]'))
+                                           _NV_LABEL))
     results.update(compare_ipe_kernels(hp, dev))
     results.update(compare_pair_kernels(hp, dev))
     tp_counts = tp_slice(hp, params, dev)
     train_counts = train_slice(hp, params, dev)
-    no_view_slice(hp_nv, params_nv, dev)
+    nv_counts = no_view_slice(hp_nv, params_nv, dev)
     run_counts = whole_run(hp)
     with tempfile.TemporaryDirectory() as root:
         ckpt_dir, new_paths = multiscale_run(hp, dev, root)
@@ -2629,6 +2670,22 @@ def main() -> int:
                 'mipnerf_pl_tpu_torch/csrc/lean_wgrad_tf32.cuh'
         if 'wgrad' in r:
             kernels[-1]['wgrad_ms'] = r['wgrad']
+        # fused_mlp's kernels for a model with no view layer (phase 5's
+        # numbers, phase 6's f32 launches), f32 and under 'bf16' bf16, with
+        # the device kernels each took.
+        if (name + _NV_LABEL, 'f32') in results:
+            nv = {}
+            for dt, tag in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
+                rn = results[(name + _NV_LABEL, tag)]
+                part = {k: rn[k] for k in ('err', 'ms', 'plain_ms', 'bound_ms',
+                                           'bound_by')}
+                part['share'] = rn['bound_ms'] / rn['ms']
+                part.update(classic_kernel_names(name, hp_nv, dt))
+                if tag == 'f32':
+                    nv.update(part, launches=nv_counts[name])
+                else:
+                    nv['bf16'] = part
+            kernels[-1]['no_view'] = nv
     log(f'[done] wall {time.perf_counter() - START:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi_line())

@@ -6,16 +6,16 @@
 // mlp_input_grads_kernel<float> (the chain and the input cotangents of the
 // TPU kernels _bwd_kernel_lean_save, _bwd_kernel_lean,
 // _bwd_kernel_lean_render, _bwd_kernel_saved and _bwd_kernel,
-// mipnerf_pl_tpu/kernels/mlp.py).  The point-major residuals of 'hybrid',
-// the classic MLP with no view layer or more than one density head keep
-// the mma.sync kernels; bf16 runs on lean_chain_sm90.cuh.
+// mipnerf_pl_tpu/kernels/mlp.py).  The point-major residuals of 'hybrid'
+// and the classic MLP with more than one density head keep the mma.sync
+// kernels; bf16 runs on lean_chain_sm90.cuh.
 //
 // Route (chain_tf32_route, mirrored by kernels/mlp.py chain_tf32_route): f32,
 // a channel-major stream, W and Wv multiples of 64, at least one view
 // layer, one density head, depth + depth_cond + 1 <= CT_MAX_STEPS (the
 // classic form: its weight maps within CT_MAX_MAPS and its steps within
-// CT_STEPS), and the plan's shared memory within the block's.  A plan it
-// cannot make raises.
+// CT_STEPS, and also no view layer: depth_cond 0, Wv 0), and the plan's
+// shared memory within the block's.  A plan it cannot make raises.
 //
 // The design of lean_fwd_tf32.cuh (its constants and helpers): a persistent
 // block walks 64-point tiles with two consumer warpgroups that split each
@@ -60,6 +60,15 @@
 // accumulators' thread-private stash in shared memory, which the last one
 // adds.  The classic form is a compile-time instantiation (CLASSIC), so
 // the lean chain carries none of its code.
+//
+// Its NV form (no view layer: the rgb head reads concat(bottleneck, view)):
+// the rgb step writes the bottleneck's cotangent (g_rgb k_rgb[:W]^T, no
+// mask) where the view form writes ys[last], and dview = g_rgb k_rgb[W:]^T,
+// the rank-3 term on the CUDA cores, each element written once in the same
+// order as the mma.sync input pass; then the bottleneck step with the
+// density term and the trunk, with their dx steps, as above.  G has depth W
+// + 1 + W + 3 rows; the rgb head's weight gradient [bottleneck | V]^T g_rgb
+// is wgrad_tf32_kernel's, as every other.
 //
 // What bounds it: 2 x 0.55 M MACs a point at the 3xTF32 rate (0.43 TFLOP a
 // lego level, 2.6 ms at 165 TFLOP/s); HBM moves the masks' rows of S and
@@ -123,20 +132,25 @@ inline size_t chain_tf32_smem(int W, int Wv, int Cg, int ix_n = 0) {
 inline int ix_cols(int n) { return (n + 31) / 32 * 32; }
 
 // The shapes the kernel takes (f32 and a channel-major stream are the
-// caller's): the lean MLP, or (Fvp > 0) the classic one.
+// caller's): the lean MLP, or (Fvp > 0) the classic one, with view layers
+// or (NV: depth_cond 0, Wv 0) none, whose dview is no step of its own.
 inline bool chain_tf32_route(const TrainDims& d) {
-  const bool widths = d.W >= 64 && d.W <= 256 && d.W % 64 == 0 && d.Wv >= 64 && d.Wv <= 256 &&
-                      d.Wv % 64 == 0 && d.depth >= 1 && d.depth_cond >= 1 && d.nd == 1;
+  const bool nv = d.Fvp > 0 && d.depth_cond == 0;
+  const bool widths = d.W >= 64 && d.W <= 256 && d.W % 64 == 0 &&
+                      (nv ? d.Wv == 0
+                          : d.Wv >= 64 && d.Wv <= 256 && d.Wv % 64 == 0 && d.depth_cond >= 1) &&
+                      d.depth >= 1 && d.nd == 1;
   if (!d.Fvp)
     return widths && d.depth + d.depth_cond + 1 <= CT_MAX_STEPS &&
            chain_tf32_smem(d.W, d.Wv, d.cg()) <= FT_SMEM_MAX;
-  const int ix = classic_dx_steps(d) + 1;
+  const int ix = classic_dx_steps(d) + (nv ? 0 : 1);
   return widths && d.skip >= 1 && ix_cols(d.Fp) <= FT_MAX_X && ix_cols(d.Fvp) <= FT_MAX_X &&
          d.depth + d.depth_cond + ix <= CT_MAX_MAPS && d.depth + d.depth_cond + 1 + ix <= CT_STEPS &&
          chain_tf32_smem(d.W, d.Wv, d.cg(), ix_cols(d.Fp)) <= FT_SMEM_MAX;
 }
 
-template <bool CLASSIC>
+// CLASSIC: the classic form; NV: its form with no view layer.
+template <bool CLASSIC, bool NV = false>
 __global__ void __launch_bounds__(FT_THREADS, 1)
 lean_chain_tf32_kernel(const __grid_constant__ TcPlan plan, const float* __restrict__ heads,
                        const float* __restrict__ g_rgb, const float* __restrict__ g_dens,
@@ -150,7 +164,7 @@ lean_chain_tf32_kernel(const __grid_constant__ TcPlan plan, const float* __restr
   const int wmax = d.W > d.Wv ? d.W : d.Wv, Cg = d.cg();
   float* gh = ga + wmax * FT_LD;      // [4][64] head cotangents
   float* kd_s = gh + 4 * 64;          // k_den [W]
-  float* kr_s = kd_s + 256;           // k_rgb [Wv][3]
+  float* kr_s = kd_s + 256;           // k_rgb [Wv (NV: W)][3]
   float* dbacc = kr_s + 3 * 256;      // [Cg] the block's bias sums
   float* kdx_s = dbacc + ((Cg + 3) & ~3);   // classic: k_den's x rows [F]
   float* ixs = kdx_s + FT_MAX_X;      // classic: [NC / 2][256] the stash of dx's products
@@ -166,7 +180,7 @@ lean_chain_tf32_kernel(const __grid_constant__ TcPlan plan, const float* __restr
   }
   for (int c = tid; c < Cg; c += FT_THREADS) dbacc[c] = 0.f;
   for (int i = tid; i < d.W; i += FT_THREADS) kd_s[i] = static_cast<const float*>(cp.k_den)[i];
-  for (int i = tid; i < 3 * d.Wv; i += FT_THREADS)
+  for (int i = tid; i < 3 * (NV ? d.W : d.Wv); i += FT_THREADS)
     kr_s[i] = static_cast<const float*>(cp.k_rgb)[i];
   if (CLASSIC && classic_reads_x(d, d.depth + 1))
     for (int i = tid; i < d.F; i += FT_THREADS)
@@ -317,6 +331,18 @@ lean_chain_tf32_kernel(const __grid_constant__ TcPlan plan, const float* __restr
           for (int c = 0; c < 3; ++c) v = fmaf(gh[c * 64 + p], kr_s[j * 3 + c], v);
           ga[j * FT_LD + p] = v;
         }
+        if constexpr (NV) {
+          // dview [M][Fv] = g_rgb k_rgb[W:]^T of the tile's points, past M
+          // none.
+          const float* kv = static_cast<const float*>(cp.k_rgb) + 3 * d.W;
+          for (int idx = tid; idx < 64 * st.cols; idx += 256) {
+            const int p = idx / st.cols, f = idx - p * st.cols;
+            if (m0 + p >= d.M) continue;
+            float v = 0.f;
+            for (int c = 0; c < 3; ++c) v = fmaf(gh[c * 64 + p], __ldg(kv + f * 3 + c), v);
+            st.out[(size_t)(m0 + p) * st.cols + f] = v;
+          }
+        }
       }
       named_sync(1, 256);
       // The mask (`> 0` of the activation's rows, 16 bytes a load) over ga,
@@ -377,14 +403,15 @@ inline bool chain_map(CUtensorMap* map, const void* w, int n, int K) {
 // classic form (d.Fvp > 0) also takes xs[L], the split x rows of layer L
 // that reads x (L = depth + 1: the bottleneck), [2 ix_cols(Fp)][out], vs
 // view_0's split view rows [2 ix_cols(Fvp)][Wv], and dx / dview of the
-// chunk.
+// chunk.  With no view layer (NV, depth_cond 0) vs is unused: the rgb step
+// writes dview.
 inline bool chain_tf32_plan(TcPlan& pl, const Acts& acts, const void* const* ws,
                             const TrainDims& d, const void* const* xs = nullptr,
                             const void* vs = nullptr, float* dx = nullptr,
                             float* dview = nullptr) {
   if (!ws || !chain_tf32_route(d)) return false;
-  const bool classic = d.Fvp > 0;
-  if (classic && (!xs || !vs || !dx || !dview)) return false;
+  const bool classic = d.Fvp > 0, nv = classic && d.depth_cond == 0;
+  if (classic && (!xs || (!vs && !nv) || !dx || !dview)) return false;
   const int i_view = d.depth + 2, last = d.depth_cond - 1;
   const char* base = static_cast<const char*>(acts.t[0]);
   int n = 0, nw = 0;
@@ -435,13 +462,20 @@ inline bool chain_tf32_plan(TcPlan& pl, const Acts& acts, const void* const* ws,
     st.out = dx;
     st.cols = d.F;
   };
-  add(-1, 0, d.Wv, d.a_y(last), d.g_v(last), !classic && last == 0);
-  if (last == 0) input(-1);
-  for (int j = last; j >= 1; --j) {
-    add(i_view + j, d.Wv, d.Wv, d.a_y(j - 1), d.g_v(j - 1), !classic && j == 1);
-    if (j == 1) input(-1);
+  if (nv) {
+    // The rgb step: the bottleneck's cotangent (no mask) and dview.
+    TcStep& st = step(CT_LAYER, 0, d.W, -1, d.g_bot(), 0);
+    st.out = dview;
+    st.cols = d.Fv;
+  } else {
+    add(-1, 0, d.Wv, d.a_y(last), d.g_v(last), !classic && last == 0);
+    if (last == 0) input(-1);
+    for (int j = last; j >= 1; --j) {
+      add(i_view + j, d.Wv, d.Wv, d.a_y(j - 1), d.g_v(j - 1), !classic && j == 1);
+      if (j == 1) input(-1);
+    }
+    add(i_view, d.Wv, d.W, -1, d.g_bot(), 0);
   }
-  add(i_view, d.Wv, d.W, -1, d.g_bot(), 0);
   if (classic_reads_x(d, d.depth + 1)) input(d.depth + 1);
   add(d.depth + 1, d.W, d.W, d.a_h(d.depth - 1), d.g_t(d.depth - 1), 2);
   if (classic_reads_x(d, d.depth - 1)) input(d.depth - 1);

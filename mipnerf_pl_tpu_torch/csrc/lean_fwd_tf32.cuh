@@ -5,23 +5,30 @@
 // (mlp_tile<float>, lean_engines.cuh) behind the TPU kernels
 // _fwd_kernel_lean_render, _fwd_kernel_lean_save, _fwd_kernel_lean,
 // _fwd_kernel and _fwd_kernel_save (mipnerf_pl_tpu/kernels/mlp.py).  bf16
-// runs on lean_fwd_sm90.cuh; the classic MLP with no view layer or more
-// than one density head, and the widths the route refuses, keep mlp_tile.
+// runs on lean_fwd_sm90.cuh; the classic MLP with more than one density
+// head, and the widths the route refuses, keep mlp_tile.
 //
 // Route (fwd_tf32_route, mirrored by kernels/mlp.py fwd_tf32_route): f32,
 // W and Wv multiples of 64 and at most 256, at least one view layer,
 // depth + 1 + depth_cond <= FT_MAX_LAYERS, the encode (and the classic
 // form's per-point view) at most FT_MAX_X features once rounded up to the
 // slab, and the plan's shared memory within the block's; the classic form
-// one density head.  It is a rule on dtype and shape: a plan this kernel
-// cannot make, or a launch it cannot get, raises through the wrapper; no
-// other kernel takes its place.
+// one density head, and also no view layer (depth_cond 0, Wv unused).  It
+// is a rule on dtype and shape: a plan this kernel cannot make, or a launch
+// it cannot get, raises through the wrapper; no other kernel takes its
+// place.
 //
 // The classic form (fused_mlp, Fv > 0): view_0 reads concat(bottleneck,
 // view) per point, the view [M][Fv] f32 loaded into the encode tile once
 // the bottleneck is done with it (Fv rows rounded up to FT_KS, zeros past
 // Fv), as a second K segment of view_0 with its own bias; raw heads to rgb
 // [M][3] and density [M][1] f32; the stream ends with the view's rows V.
+// Its NV form (no view layer): the bottleneck is the last dense layer; the
+// view goes into the encode tile after it the same way, and the rgb head
+// is a dot of concat(bottleneck, view) with its W + Fv rows on the CUDA
+// cores, the view part of each quarter added after its bottleneck part
+// (as the density head adds a skip concat's x rows); the stream is X | hs
+// | bottleneck | V.
 //
 // 3xTF32: D += A_lo B_hi + A_hi B_lo + A_hi B_hi on wgmma m64nNk8 tf32
 // with f32 accumulators, the small terms first (as Tf32Gemm).  wgmma reads
@@ -152,13 +159,17 @@ inline size_t fwd_tf32_smem(int W, int Wv, int F, int Fv = 0) {
 }
 
 // The shapes the kernel takes (f32 is the caller's): the lean MLP (Fv 0),
-// or the classic one with Fv per-point view features and nd density heads.
+// or the classic one with Fv per-point view features and nd density heads,
+// with view layers or (NV: depth_cond 0, Wv unused) none.
 inline bool fwd_tf32_route(int F, int W, int Wv, int depth, int depth_cond, int Fv = 0,
                            int nd = 1) {
-  return W >= 64 && W <= 256 && W % 64 == 0 && Wv >= 64 && Wv <= 256 && Wv % 64 == 0 &&
-         depth >= 1 && depth_cond >= 1 && depth + 1 + depth_cond <= FT_MAX_LAYERS && F >= 1 &&
-         ft_round(F, FT_KS) <= FT_MAX_X && Fv >= 0 && ft_round(Fv, FT_KS) <= FT_MAX_X &&
-         nd == 1 && fwd_tf32_smem(W, Wv, F, Fv) <= FT_SMEM_MAX;
+  const bool nv = depth_cond == 0 && Fv >= 1;
+  if (nv) Wv = 0;
+  return W >= 64 && W <= 256 && W % 64 == 0 &&
+         (nv || (Wv >= 64 && Wv <= 256 && Wv % 64 == 0 && depth_cond >= 1)) && depth >= 1 &&
+         depth + 1 + depth_cond <= FT_MAX_LAYERS && F >= 1 && ft_round(F, FT_KS) <= FT_MAX_X &&
+         Fv >= 0 && ft_round(Fv, FT_KS) <= FT_MAX_X && nd == 1 &&
+         fwd_tf32_smem(W, Wv, F, Fv) <= FT_SMEM_MAX;
 }
 
 // One k8 step of the warpgroup's NC columns.
@@ -231,8 +242,9 @@ __device__ __forceinline__ void tf32_products(float (&acc)[NC / 2], const float*
 }
 
 // MOMENTS: the lean form on the moments; CLASSIC: the classic form (rows),
-// compile-time so that the lean forms carry none of its code.
-template <bool MOMENTS, bool CLASSIC>
+// NV its form with no view layer; compile-time so that the lean forms (and
+// the view-layer classic form) carry none of their code.
+template <bool MOMENTS, bool CLASSIC, bool NV = false>
 __global__ void __launch_bounds__(FT_THREADS, 1)
 lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict__ x,
                      const float* __restrict__ vproj, float* __restrict__ out,
@@ -247,7 +259,7 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
   float* hp = hd + 4 * 64;                                          // [quarter][3][64]
   float* bias_s = hp + 4 * 3 * 64;                                  // staged biases
   float* kd_s = bias_s + FT_MAX_BIAS;                               // k_den [W (+ F)]
-  float* kr_s = kd_s + FT_MAX_KD;                                   // k_rgb [Wv][3]
+  float* kr_s = kd_s + FT_MAX_KD;                                   // k_rgb [Wv (NV: W)][3]
   short2* sched = reinterpret_cast<short2*>(kr_s + FT_MAX_KR);      // (layer, k0) of a slab
   const int tid = threadIdx.x;
   const int n_tiles = pl.Mp / FT_TM;
@@ -267,7 +279,8 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
       for (int c = tid; c < ly.N; c += FT_THREADS) bias_s[ly.b_off + c] = ly.bias[c];
   }
   for (int i = tid; i < pl.W + (pl.cat_x ? pl.F : 0); i += FT_THREADS) kd_s[i] = pl.k_den[i];
-  for (int i = tid; i < 3 * pl.Wv; i += FT_THREADS) kr_s[i] = pl.k_rgb[i];
+  // NV: the rgb head's first W rows; its view rows are read where used.
+  for (int i = tid; i < 3 * (NV ? pl.W : pl.Wv); i += FT_THREADS) kr_s[i] = pl.k_rgb[i];
   // Encode rows [F, Fx) stay zero (they meet the split's zero columns).
   for (int i = tid; i < (pl.Fx - pl.F) * 64; i += FT_THREADS)
     xs[(pl.F + (i >> 6)) * FT_LD + (i & 63)] = 0.f;
@@ -351,20 +364,21 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
     named_sync(1, 256);
     if (pl.S) save(xs, pl.Fx, 0);
 
+    // The classic form's per-point view of the tile into xs (zeros past Fv
+    // and past M), once every product on the encode is done (the
+    // bottleneck's epilogue barrier), then out to S rows V.
+    auto load_view = [&]() {
+      for (int idx = tid; idx < pl.Fvp * 64; idx += 256) {
+        const int p = idx / pl.Fvp, f = idx - p * pl.Fvp, m = m0 + p;
+        xs[f * FT_LD + p] = m < pl.M && f < pl.Fv ? pl.view[(size_t)m * pl.Fv + f] : 0.f;
+      }
+      named_sync(1, 256);
+      if (pl.S) save(xs, pl.Fvp, pl.v_row);
+    };
     for (int li = 0; li < pl.n_layers; ++li) {
       const TfLayer& ly = pl.layer[li];
       const int nks = ly.K / FT_KS, kh = ly.kh;
-      if (CLASSIC && ly.view_in) {
-        // The classic view_0: the tile's per-point view into xs (zeros past
-        // Fv and past M), once every product on the encode is done (the
-        // bottleneck's epilogue barrier), then out to S rows V.
-        for (int idx = tid; idx < pl.Fvp * 64; idx += 256) {
-          const int p = idx / pl.Fvp, f = idx - p * pl.Fvp, m = m0 + p;
-          xs[f * FT_LD + p] = m < pl.M && f < pl.Fv ? pl.view[(size_t)m * pl.Fv + f] : 0.f;
-        }
-        named_sync(1, 256);
-        if (pl.S) save(xs, pl.Fvp, pl.v_row);
-      }
+      if (CLASSIC && ly.view_in) load_view();   // view_0's second K segment
       // The products and the epilogue of one layer, compiled for each half
       // width (NC columns a warpgroup) with its own accumulators.
       auto run_layer = [&](auto nc_c) {
@@ -418,10 +432,13 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
       else
         run_layer(std::integral_constant<int, 32>());
       if (pl.S) save(hs, ly.N, ly.s_row);
+      // NV: the rgb head's view rows, after the bottleneck (the last layer).
+      if (NV && li == pl.n_layers - 1) load_view();
       // The heads from the layer's f32 outputs in the tile: density after
       // the last trunk layer (+ its x rows after a last skip concat), rgb
-      // after the last view layer.  Thread tid sums a quarter of the
-      // channels of point tid % 64; the quarters add in a fixed order.
+      // after the last view layer (NV: the bottleneck, + the view rows).
+      // Thread tid sums a quarter of the channels of point tid % 64; the
+      // quarters add in a fixed order.
       const bool den = li == pl.i_den;
       if (den || li == pl.n_layers - 1) {
         const int p = tid & 63, qd = tid >> 6, n4 = ly.N / 4;
@@ -438,6 +455,12 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
         if (den && pl.cat_x)
           for (int f = qd * pl.F / 4; f < (qd + 1) * pl.F / 4; ++f)
             s[0] = fmaf(xs[f * FT_LD + p], kd_s[pl.W + f], s[0]);
+        if (NV && !den)
+          for (int f = qd * pl.Fv / 4; f < (qd + 1) * pl.Fv / 4; ++f) {
+            const float v = xs[f * FT_LD + p];
+#pragma unroll
+            for (int o = 0; o < 3; ++o) s[o] = fmaf(v, __ldg(pl.k_rgb + (pl.W + f) * 3 + o), s[o]);
+          }
         for (int o = 0; o < 3; ++o) hp[(3 * qd + o) * 64 + p] = s[o];
         named_sync(1, 256);
         if (tid < 64) {
@@ -493,7 +516,8 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
 // false where the route does not take the shape or a tensor map cannot be
 // made.  Fv > 0: the classic MLP (N = 1, raw heads), view_0's split kernel
 // of all its W + Fv rows (Kp = W + Fv rounded up to FT_KS), the caller
-// sets view, rgb and dens.
+// sets view, rgb and dens; with depth_cond 0 (NV) no view layer, and the
+// rgb head of W + Fv rows read from p as the other head.
 inline bool fwd_tf32_plan(TfPlan& pl, const LayerPtrs& p, const void* const* wt, int M, int Mp,
                           int N, int R, int F, int L, int min_deg, int ldx, int depth,
                           int depth_cond, int skip, int W, int Wv, int use_act, float rgb_padding,
@@ -521,11 +545,13 @@ inline bool fwd_tf32_plan(TfPlan& pl, const LayerPtrs& p, const void* const* wt,
   const bool cat_x = skip_after(depth - 1);
   add(depth + 1, W + (cat_x ? Fx : 0), W, W, 0, 0, Fx + depth * W, p.b[depth + 1]);
   const int Fvp = ft_round(Fv, FT_KS);
-  if (Fv)
-    add(depth + 2, W + Fvp, Wv, W, 1, 0, Fx + (depth + 1) * W, p.b[depth + 2]);
-  else
-    add(depth + 2, W, Wv, W, 1, 1, Fx + (depth + 1) * W, nullptr);
-  pl.layer[n - 1].view_in = Fv > 0;
+  if (depth_cond) {
+    if (Fv)
+      add(depth + 2, W + Fvp, Wv, W, 1, 0, Fx + (depth + 1) * W, p.b[depth + 2]);
+    else
+      add(depth + 2, W, Wv, W, 1, 1, Fx + (depth + 1) * W, nullptr);
+    pl.layer[n - 1].view_in = Fv > 0;
+  }
   for (int j = 1; j < depth_cond; ++j)
     add(depth + 2 + j, Wv, Wv, Wv, 1, 0, Fx + (depth + 1) * W + j * Wv, p.b[depth + 2 + j]);
   pl.n_layers = n;
@@ -542,8 +568,8 @@ inline bool fwd_tf32_plan(TfPlan& pl, const LayerPtrs& p, const void* const* wt,
   pl.min_deg = min_deg;
   pl.ldx = ldx;
   pl.W = W;
-  pl.Wv = Wv;
-  pl.wmax = W > Wv ? W : Wv;
+  pl.Wv = depth_cond ? Wv : 0;
+  pl.wmax = W > pl.Wv ? W : pl.Wv;
   pl.use_act = use_act;
   pl.rgb_padding = rgb_padding;
   pl.density_bias = density_bias;
@@ -561,29 +587,33 @@ inline bool fwd_tf32_plan(TfPlan& pl, const LayerPtrs& p, const void* const* wt,
 }
 
 // One launch of the planned forward on x (MOMENTS: the moments; CLASSIC:
-// the classic form), one block an SM at most; 0 or a cudaError_t.
-template <bool MOMENTS, bool CLASSIC>
+// the classic form, NV with no view layer), one block an SM at most; 0 or
+// a cudaError_t.
+template <bool MOMENTS, bool CLASSIC, bool NV = false>
 int launch_fwd_tf32_form(const TfPlan& pl, const float* x, const float* vproj, float* out,
                          float* heads, cudaStream_t s) {
   const size_t smem = fwd_tf32_smem(pl.W, pl.Wv, pl.F, pl.Fv);
   int dev = 0, sms = 0;
-  cudaError_t e = cudaFuncSetAttribute(lean_fwd_tf32_kernel<MOMENTS, CLASSIC>,
+  cudaError_t e = cudaFuncSetAttribute(lean_fwd_tf32_kernel<MOMENTS, CLASSIC, NV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   const int tiles = pl.Mp / FT_TM;
-  lean_fwd_tf32_kernel<MOMENTS, CLASSIC>
+  lean_fwd_tf32_kernel<MOMENTS, CLASSIC, NV>
       <<<tiles < sms ? tiles : sms, FT_THREADS, smem, s>>>(pl, x, vproj, out, heads);
   e = cudaGetLastError();
   if (e == cudaSuccess) ++g_fwd_tf32_launches;
   return (int)e;
 }
 
-// The lean forms (moments or rows), or with pl.view the classic one (rows).
+// The lean forms (moments or rows), or with pl.view the classic one (rows;
+// Wv 0: no view layer).
 inline int launch_fwd_tf32(const TfPlan& pl, bool moments, const float* x, const float* vproj,
                            float* out, float* heads, cudaStream_t s) {
-  if (pl.view) return launch_fwd_tf32_form<false, true>(pl, x, vproj, out, heads, s);
+  if (pl.view)
+    return pl.Wv ? launch_fwd_tf32_form<false, true>(pl, x, vproj, out, heads, s)
+                 : launch_fwd_tf32_form<false, true, true>(pl, x, vproj, out, heads, s);
   return moments ? launch_fwd_tf32_form<true, false>(pl, x, vproj, out, heads, s)
                  : launch_fwd_tf32_form<false, false>(pl, x, vproj, out, heads, s);
 }

@@ -46,10 +46,12 @@
 //   mlp_bwd_recompute _bwd_kernel (_run_bwd): the same, the forward re-run
 //                     chunk by chunk by mlp_save_fwd's kernel.
 // The four classic entries also take a model with no view layer
-// (depth_cond 0, Wv 0), a compile-time instantiation of the tile, the chain
-// and the input-gradient pass (NV): the rgb head reads concat(bottleneck,
-// view), its cotangent splits into the bottleneck's and dview, and the
-// stream has no ys rows.
+// (depth_cond 0, Wv 0), a compile-time instantiation (NV) of each kernel
+// they run: the rgb head reads concat(bottleneck, view), its cotangent
+// splits into the bottleneck's and dview, and the stream has no ys rows.
+// In f32 at the widths of the wgmma rules the NV forms of
+// lean_fwd_tf32_kernel and lean_chain_tf32_kernel take it; bf16 and other
+// widths keep the tile, the chain and the input-gradient pass.
 //
 // Saved layout of 'save', chosen for the backward's weight-gradient
 // products: one channel-major stream S [Cs][Mp] in the compute dtype, rows
@@ -93,9 +95,9 @@
 //      lean_chain_sm90_kernel in bf16 (lean_chain_sm90.cuh: 128-point
 //      tiles, wgmma fed by a TMA ring) and lean_chain_tf32_kernel in f32
 //      (lean_chain_tf32.cuh: 3xTF32 wgmma); both also take the classic
-//      chain (one density head, a view layer) with its dx and dview.
-//      Hybrid, NV and other widths keep lean_grad_chain_kernel (64-point
-//      tiles, mma.sync).
+//      chain (one density head, a view layer; f32 also none) with its dx
+//      and dview.  Hybrid, bf16 NV and other widths keep
+//      lean_grad_chain_kernel (64-point tiles, mma.sync).
 //   2. split-K tensor-core products dW = A^T G over the points, one 128 x
 //      128 output tile per block and one MC-point range per grid row,
 //      written as per-range partial sums.  Ranges never straddle a chunk,
@@ -110,7 +112,7 @@
 //      problems of their own: their weight gradients accumulate; the chain
 //      drops their dx.  The classic backward (CL) takes it after the
 //      chain (on the wgmma chains: steps of the chain itself), elsewhere
-//      (NV, other widths) in mlp_input_grads_kernel, which reads back from
+//      (bf16 NV, other widths) in mlp_input_grads_kernel, which reads back from
 //      G the output cotangent of each layer that reads x (trunk_0, every
 //      layer after a skip concat, the bottleneck and density after a last
 //      one) and of view_0, and sums dx [M][F] and dview [M][Fv] per tile,
@@ -658,13 +660,15 @@ LayerPtrs layer_ptrs(const void* weights, const void* biases, int n_layers) {
   return p;
 }
 
-// Whether a classic forward of d takes lean_fwd_tf32_kernel's classic form
-// (f32 is the caller's; NV and nd > 1 are not the route's).
+// Whether a classic forward of d takes lean_fwd_tf32_kernel's classic form,
+// or with no view layer its NV form (f32 is the caller's; nd > 1 is not the
+// route's).
 inline bool classic_fwd_tf32(const TrainDims& d) {
-  return d.depth_cond >= 1 && fwd_tf32_route(d.F, d.W, d.Wv, d.depth, d.depth_cond, d.Fv, d.nd);
+  return fwd_tf32_route(d.F, d.W, d.Wv, d.depth, d.depth_cond, d.Fv, d.nd);
 }
 
-// The same for lean_fwd_sm90_kernel's classic form (bf16 the caller's).
+// The same for lean_fwd_sm90_kernel's classic form (bf16 the caller's; NV
+// is not its route).
 inline bool classic_fwd_sm90(const TrainDims& d) {
   return d.depth_cond >= 1 && fwd_sm90_route(d.F, d.W, d.Wv, d.depth, d.depth_cond, d.Fv, d.nd);
 }
@@ -677,8 +681,9 @@ bool classic_fwd_wgmma(const TrainDims& d) {
 
 // One launch of the classic forward of d's M points on its wgmma kernel's
 // classic form: f32 lean_fwd_tf32_kernel (from the split transposed kernels
-// wt), bf16 lean_fwd_sm90_kernel; rgb / density may be null (the recompute
-// re-run).  A plan it cannot make is an error, never another kernel.
+// wt; NV: its form with no view layer), bf16 lean_fwd_sm90_kernel; rgb /
+// density may be null (the recompute re-run).  A plan it cannot make is an
+// error, never another kernel.
 template <typename T>
 int launch_classic_wgmma(const float* x, const float* view, const LayerPtrs& p,
                          const TrainDims& d, float* rgb, float* density, T* saved,
@@ -711,11 +716,9 @@ template <typename T, bool NV>
 int launch_classic_fwd(const float* x, const float* view, const LayerPtrs& p, const TrainDims& d,
                        float* rgb, float* density, T* saved, const void* const* wt,
                        cudaStream_t s) {
-  if constexpr (!NV) {
-    if (classic_fwd_wgmma<T>(d)) {
-      if (!rgb || !density) return (int)cudaErrorInvalidValue;
-      return launch_classic_wgmma<T>(x, view, p, d, rgb, density, saved, wt, s);
-    }
+  if (classic_fwd_wgmma<T>(d)) {
+    if (!rgb || !density) return (int)cudaErrorInvalidValue;
+    return launch_classic_wgmma<T>(x, view, p, d, rgb, density, saved, wt, s);
   }
   const size_t smem = classic_fwd_smem<T>(d);
   cudaError_t e = cudaFuncSetAttribute((const void*)mlp_fwd_kernel<T, NV>,
@@ -831,13 +834,13 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
   // its input cotangents, run on wgmma where the rule takes the shape: bf16
   // on lean_chain_sm90.cuh, f32 on the 3xTF32 lean_chain_tf32.cuh (rules on
   // dtype and shape; a plan either cannot make is an error, never another
-  // kernel); the grid is one block an SM at most.  Every other form runs on
+  // kernel); the grid is one block an SM at most.  f32 also takes the
+  // classic MLP with no view layer (NV) there.  Every other form runs on
   // lean_grad_chain_kernel (and, classic, on mlp_input_grads_kernel after
   // it).
-  constexpr bool on_wgmma = !PM && !NV;
-  const bool on_sm90 = sizeof(T) == 2 && on_wgmma && chain_sm90_route(d);
-  const bool on_tf32 = sizeof(T) == 4 && on_wgmma && chain_tf32_route(d);
-  const bool refwd_wgmma = CL && !NV && rf && classic_fwd_wgmma<T>(d);
+  const bool on_sm90 = sizeof(T) == 2 && !PM && !NV && chain_sm90_route(d);
+  const bool on_tf32 = sizeof(T) == 4 && !PM && chain_tf32_route(d);
+  const bool refwd_wgmma = CL && rf && classic_fwd_wgmma<T>(d);
   const size_t tsmem = chain_tf32_smem(d.W, d.Wv, Cg, CL ? ix_cols(d.Fp) : 0);
   cudaError_t e = cudaSuccess;
   if (!on_sm90 && !on_tf32)
@@ -861,7 +864,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
     e = cudaFuncSetAttribute(lean_chain_sm90_kernel<CL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)chain_sm90_smem(Cg));
   if (e == cudaSuccess && on_tf32)
-    e = cudaFuncSetAttribute(lean_chain_tf32_kernel<CL>,
+    e = cudaFuncSetAttribute(lean_chain_tf32_kernel<CL, NV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tsmem);
   if (e != cudaSuccess) return (int)e;
   ChainPlan plan;
@@ -926,7 +929,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       if (!chain_tf32_plan(tplan, acts, a.chain_ws, dc, a.ix_ws, a.iv_ws, dx, dview))
         return (int)cudaErrorInvalidValue;
       const int tiles = dc.Mp / FT_TM;
-      lean_chain_tf32_kernel<CL><<<tiles < sms ? tiles : sms, FT_THREADS, tsmem, s>>>(
+      lean_chain_tf32_kernel<CL, NV><<<tiles < sms ? tiles : sms, FT_THREADS, tsmem, s>>>(
           tplan, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc,
           reinterpret_cast<float*>(G), a.g1f, db_part, a.n_chain);
       if (cudaPeekAtLastError() == cudaSuccess) ++g_chain_tf32_launches;
@@ -1360,10 +1363,10 @@ int lean_chain_tf32_smem(int W, int Wv, int depth, int depth_cond) {
 // The f32 classic MLP (fused_mlp) of these shapes: out[0] 1 if its forward
 // takes lean_fwd_tf32_kernel, out[1] 1 if its backward's chain and input
 // cotangents take lean_chain_tf32_kernel; out[2], out[3] their dynamic
-// shared memory.
+// shared memory.  With depth_cond 0 (no view layer) Wv is unused.
 int classic_tf32_route(int F, int Fv, int W, int Wv, int depth, int depth_cond, int nd,
                        int skip, int* out) {
-  TrainDims d = chain_dims(W, Wv, depth, depth_cond);
+  TrainDims d = chain_dims(W, depth_cond ? Wv : 0, depth, depth_cond);
   d.F = F;
   d.Fp = (F + 15) / 16 * 16;
   d.Fv = Fv;
@@ -1372,8 +1375,8 @@ int classic_tf32_route(int F, int Fv, int W, int Wv, int depth, int depth_cond, 
   d.skip = skip;
   out[0] = classic_fwd_tf32(d) ? 1 : 0;
   out[1] = skip >= 1 && Fv >= 1 && chain_tf32_route(d) ? 1 : 0;
-  out[2] = (int)fwd_tf32_smem(W, Wv, F, Fv);
-  out[3] = (int)chain_tf32_smem(W, Wv, d.cg(), ix_cols(d.Fp));
+  out[2] = (int)fwd_tf32_smem(W, d.Wv, F, Fv);
+  out[3] = (int)chain_tf32_smem(W, d.Wv, d.cg(), ix_cols(d.Fp));
   return 0;
 }
 

@@ -74,7 +74,9 @@ with dx and dview on the wgmma chain's (the input cotangents steps of the
 chain): in f32 the 3xTF32 kernels (`fwd_tf32_route` / `chain_tf32_route`,
 counted in `tf32_routes` / `chain_tf32_routes`), in bf16 the bf16 ones
 (`fwd_sm90_route` / `chain_sm90_route`, counted in `routes` /
-`chain_routes`).
+`chain_routes`).  In f32 the same rules also take the model with no view
+layer, on the two 3xTF32 kernels' NV forms (the rgb head and dview on the
+CUDA cores); bf16 keeps its mma.sync kernels there.
 
 What bounds them: the MLP is ~1.21 MFLOP per sample point forward and about
 twice that backward (with the input gradients, exactly twice), so the
@@ -356,18 +358,24 @@ def chain_tf32_route(compute_dtype, W: int, Wv: int, net_depth: int,
     encode and the view at most FT_MAX_X once rounded up to 32 (the N of
     their steps), its weight maps (every chain layer and input step)
     within CT_MAX_MAPS and its steps within CT_STEPS, and the plan within
-    the block's shared memory."""
+    the block's shared memory.  With no view layer (net_depth_condition 0,
+    the NV form) Wv is unused and dview is no step of its own: the rgb step
+    writes it on the CUDA cores."""
     if compute_dtype != torch.float32:
         return False
     if not Fv:
         Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
         return _chain_route(W, Wv, net_depth, net_depth_condition,
                             chain_tf32_smem(W, Wv, Cg))
+    nv = net_depth_condition == 0
+    if nv:
+        Wv = 0
     Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
-    ix = _classic_dx_steps(net_depth, skip_index) + 1
+    ix = _classic_dx_steps(net_depth, skip_index) + (0 if nv else 1)
     ix_n = _round_up(_round_up(F, 16), 32)
-    return (all(64 <= w <= MAX_WIDTH and w % 64 == 0 for w in (W, Wv))
-            and net_depth >= 1 and net_depth_condition >= 1 and nd == 1
+    return (all(64 <= w <= MAX_WIDTH and w % 64 == 0
+                for w in ((W,) if nv else (W, Wv)))
+            and net_depth >= 1 and nd == 1
             and skip_index >= 1 and 1 <= F and ix_n <= FT_MAX_X
             and _round_up(_round_up(Fv, 16), 32) <= FT_MAX_X
             and net_depth + net_depth_condition + ix <= CT_MAX_MAPS
@@ -399,10 +407,15 @@ def fwd_tf32_route(compute_dtype, F: int, W: int, Wv: int, net_depth: int,
     Fv > 0, whether the classic forward of fused_mlp (mlp_fwd,
     mlp_save_fwd, mlp_bwd_recompute's re-run; Fv per-point view features,
     nd density heads) runs on its classic form: the same rule, the view at
-    most FT_MAX_X features once rounded up, one density head."""
+    most FT_MAX_X features once rounded up, one density head; also with no
+    view layer (net_depth_condition 0, the NV form; Wv unused)."""
+    nv = net_depth_condition == 0 and Fv >= 1
+    if nv:
+        Wv = 0
     return (compute_dtype == torch.float32
-            and all(64 <= w <= MAX_WIDTH and w % 64 == 0 for w in (W, Wv))
-            and net_depth >= 1 and net_depth_condition >= 1
+            and all(64 <= w <= MAX_WIDTH and w % 64 == 0
+                    for w in ((W,) if nv else (W, Wv)))
+            and net_depth >= 1 and (nv or net_depth_condition >= 1)
             and net_depth + 1 + net_depth_condition <= FT_MAX_LAYERS
             and 1 <= F and _round_up(F, FT_KS) <= FT_MAX_X
             and 0 <= Fv and _round_up(Fv, FT_KS) <= FT_MAX_X and nd == 1
@@ -425,7 +438,10 @@ def tf32_fwd_weights(flat_params, net_depth: int, net_depth_condition: int,
     dense layer the transposed kernel k^T [N, Kp] split into [hi; lo]
     [2N, Kp] f32 (Kp: the encode columns rounded up to FT_KS with zeros;
     view_0 its first W rows only, or in the classic form (Fv > 0) all of
-    them, the Fv view columns rounded up likewise); None for the heads."""
+    them, the Fv view columns rounded up likewise); None for the heads.
+    With no view layer (net_depth_condition 0) the entry after the
+    bottleneck is the rgb head [W + Fv, 3], a head the kernel reads from
+    the kernels as stored: None."""
     F, W = flat_params[0].shape
     ks = [t.detach().float() for t in flat_params[0::2]]
     out = [None] * len(ks)
@@ -445,7 +461,8 @@ def tf32_fwd_weights(flat_params, net_depth: int, net_depth_condition: int,
                                F if _skip_after(net_depth - 1, skip_index)
                                else 0)
     iv = net_depth + 2
-    out[iv] = split(ks[iv], Fv) if Fv else split(ks[iv][:W], 0)
+    if net_depth_condition:
+        out[iv] = split(ks[iv], Fv) if Fv else split(ks[iv][:W], 0)
     for j in range(1, net_depth_condition):
         out[iv + j] = split(ks[iv + j], 0)
     return out
@@ -466,8 +483,8 @@ def _tf32_ptrs(flat_params, net_depth, net_depth_condition, skip_index,
     if classic:
         _, _, Fv, Wv = _mlp_dims(flat_params, net_depth)
         nd = flat_params[2 * net_depth].shape[1]
-        on = net_depth_condition >= 1 and fwd_tf32_route(
-            compute_dtype, F, W, Wv, net_depth, net_depth_condition, Fv, nd)
+        on = fwd_tf32_route(compute_dtype, F, W, Wv, net_depth,
+                            net_depth_condition, Fv, nd)
     else:
         Fv, Wv = 0, flat_params[2 * (net_depth + 2)].shape[1]
         on = fwd_tf32_route(compute_dtype, F, W, Wv, net_depth,
@@ -2032,14 +2049,16 @@ def _padded_t(k, cols, compute_dtype):
     return out
 
 
-def tf32_input_weights(flat_params, net_depth: int, skip_index: int):
+def tf32_input_weights(flat_params, net_depth: int,
+                       net_depth_condition: int, skip_index: int):
     """The B operands of the classic chain's input-cotangent steps on
     lean_chain_tf32_kernel: by param index, for each layer whose input holds
     x (trunk_0 all of it, each layer after a skip concat, the bottleneck
     after a last one) its x rows k[x rows] as stored [F, out], padded with
     zero rows to F rounded up to 16 and then to 32, split into [hi; lo]
     [2 Fx, out] f32 (None elsewhere); and view_0's view rows k[W:] [Fv, Wv]
-    padded likewise and split."""
+    padded likewise and split (None with no view layer: the chain's rgb
+    step writes dview from the rgb head as stored)."""
     F, W, Fv, _ = _mlp_dims(flat_params, net_depth)
     ks = [t.detach().float() for t in flat_params[0::2]]
 
@@ -2054,6 +2073,8 @@ def tf32_input_weights(flat_params, net_depth: int, skip_index: int):
             xs[i] = split(ks[i][W:])
     if _skip_after(net_depth - 1, skip_index):
         xs[net_depth + 1] = split(ks[net_depth + 1][W:])
+    if not net_depth_condition:
+        return xs, None
     return xs, split(ks[net_depth + 2][W:])
 
 
@@ -2096,7 +2117,8 @@ def _mlp_grad_launch(fn, mode_args, view, g_rgb, g_dens, flat_params,
                         net_depth_condition, F=F, Fv=Fv,
                         nd=flat_params[2 * net_depth].shape[1],
                         skip_index=skip_index):
-        x_ws, v_ws = tf32_input_weights(flat_params, net_depth, skip_index)
+        x_ws, v_ws = tf32_input_weights(flat_params, net_depth,
+                                        net_depth_condition, skip_index)
         c_xws = _ptr_array(x_ws)
     prefix, chunk = mode_args(plan)
     prefix += [dx.data_ptr(), dview.data_ptr(), ctypes.addressof(c_xchain),

@@ -15,9 +15,11 @@ lean_mlp at one render chunk (8192 seeded rays around the radius-4 orbit x
 128 samples, their moments and the f32 vproj of their view rows); where the
 checkout has them, the classic kernels of fused_mlp (mlp_fwd, mlp_save_fwd,
 mlp_bwd_saved, mlp_bwd_recompute) on the same level with the view repeated
-over the samples, and the Megatron pair backward tp_pair_bwd at a lego
-level's later pair (393,216 rows, 1024 -> 512 -> 1024).  It uses only
-names every lean-training checkout has, and the others only if present.
+over the samples, also for the lego trunk with no view layer
+(net_depth_condition 0: the rgb head reads concat(bottleneck, view); `...
+no_view`), and the Megatron pair backward tp_pair_bwd at a lego level's
+later pair (393,216 rows, 1024 -> 512 -> 1024).  It uses only names every
+lean-training checkout has, and the others only if present.
 
 With --steps it also times the lego training step on pallas_lean_save
 (bench.py's synthetic rays, 3072 a step, make_train_many K = 5 steps a
@@ -49,7 +51,7 @@ With --profile it first prints, each on a line of its own:
   * where the checkout has them, the same split of the classic kernels,
     bf16 and f32: mlp_save_fwd, mlp_bwd_saved (its chain with dx and dview,
     weight gradients and reductions) and mlp_bwd_recompute (its re-runs of
-    the forward besides).
+    the forward besides), with a view layer and without (`... no_view`).
 """
 
 import json
@@ -185,10 +187,18 @@ def main():
     hp = config.default()
     depth, dcond = hp['nerf.mlp.net_depth'], hp['nerf.mlp.net_depth_condition']
     params = MipNeRFSystem(hp, device=dev).init_params(seed=0)
-    flat = []
-    for name in km.param_order(depth, dcond):
-        flat += [params[f'mlp.{name}.weight'].t(),
-                 params[f'mlp.{name}.bias'].reshape(1, -1)]
+
+    def flat_of(params, dcond):
+        flat = []
+        for name in km.param_order(depth, dcond):
+            flat += [params[f'mlp.{name}.weight'].t(),
+                     params[f'mlp.{name}.bias'].reshape(1, -1)]
+        return flat
+    flat = flat_of(params, dcond)
+    # The same trunk with no view layer, for fused_mlp's kernels.
+    flat_nv = flat_of(MipNeRFSystem(
+        dict(hp, **{'nerf.mlp.net_depth_condition': 0}),
+        device=dev).init_params(seed=0), 0)
     rng = np.random.default_rng(1)
     d = rng.normal(size=(RAYS, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -273,23 +283,26 @@ def main():
                                       for k, v in am.items()}}), flush=True)
             saved = None
             if hasattr(km, 'mlp_bwd_saved'):
-                cargs = args[1:] + (dt,)
                 vp = view.repeat_interleave(args[0], dim=0).contiguous()
-                cs = km.mlp_save_fwd(x, vp, flat, *cargs)[2]
-                runs = {'mlp_save_fwd': lambda: km.mlp_save_fwd(x, vp, flat,
-                                                                *cargs),
+                for suffix, fl, dc in (('', flat, dcond),
+                                       (' no_view', flat_nv, 0)):
+                    cargs = (depth, dc, args[3], dt)
+                    cs = km.mlp_save_fwd(x, vp, fl, *cargs)[2]
+                    runs = {
+                        'mlp_save_fwd': lambda: km.mlp_save_fwd(
+                            x, vp, fl, *cargs),
                         'mlp_bwd_saved': lambda: km.mlp_bwd_saved(
-                            g_rgb, g_dens, cs, flat, *cargs),
+                            g_rgb, g_dens, cs, fl, *cargs),
                         'mlp_bwd_recompute': lambda: km.mlp_bwd_recompute(
-                            x, vp, g_rgb, g_dens, flat, *cargs)}
-                for name, fn in runs.items():
-                    split = {short(k): round(v, 4)
-                             for k, v in device_split(fn).items()}
-                    print(json.dumps({f'split {name}': tag,
-                                      'total_ms': round(sum(split.values()),
-                                                        4),
-                                      'kernels_ms': split}), flush=True)
-                cs = None
+                            x, vp, g_rgb, g_dens, fl, *cargs)}
+                    for name, fn in runs.items():
+                        split = {short(k): round(v, 4)
+                                 for k, v in device_split(fn).items()}
+                        print(json.dumps({
+                            f'split {name}{suffix}': tag,
+                            'total_ms': round(sum(split.values()), 4),
+                            'kernels_ms': split}), flush=True)
+                    cs = None
     for dt, tag in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
         saved = km.lean_save_fwd(x, view, flat, *args, dt, ACT)[2]
         calls = {
@@ -314,23 +327,28 @@ def main():
             calls['lean_param_grads_hybrid'] = \
                 lambda: km.lean_param_grads_hybrid(view, g_rgb, g_dens, res,
                                                    flat, *args, dt, ACT)
-        if hasattr(km, 'mlp_bwd_saved'):
-            cargs = args[1:] + (dt,)
-            vp = view.repeat_interleave(args[0], dim=0).contiguous()
-            cs = km.mlp_save_fwd(x, vp, flat, *cargs)[2]
-            g_d = g_dens.contiguous()
-            calls.update({
-                'mlp_fwd': lambda: km.mlp_fwd(x, vp, flat, *cargs),
-                'mlp_save_fwd': lambda: km.mlp_save_fwd(x, vp, flat, *cargs),
-                'mlp_bwd_saved': lambda: km.mlp_bwd_saved(
-                    g_rgb, g_d, cs, flat, *cargs),
-                'mlp_bwd_recompute': lambda: km.mlp_bwd_recompute(
-                    x, vp, g_rgb, g_d, flat, *cargs),
-            })
         for name, fn in calls.items():
             out[f'{name} {tag}'] = round(cuda_ms(fn), 4)
         calls.clear()
-        saved = cs = res = None
+        saved = res = None
+        if hasattr(km, 'mlp_bwd_saved'):
+            vp = view.repeat_interleave(args[0], dim=0).contiguous()
+            g_d = g_dens.contiguous()
+            for suffix, fl, dc in (('', flat, dcond), (' no_view', flat_nv, 0)):
+                cargs = (depth, dc, args[3], dt)
+                cs = km.mlp_save_fwd(x, vp, fl, *cargs)[2]
+                calls = {
+                    'mlp_fwd': lambda: km.mlp_fwd(x, vp, fl, *cargs),
+                    'mlp_save_fwd': lambda: km.mlp_save_fwd(x, vp, fl,
+                                                            *cargs),
+                    'mlp_bwd_saved': lambda: km.mlp_bwd_saved(
+                        g_rgb, g_d, cs, fl, *cargs),
+                    'mlp_bwd_recompute': lambda: km.mlp_bwd_recompute(
+                        x, vp, g_rgb, g_d, fl, *cargs)}
+                for name, fn in calls.items():
+                    out[f'{name}{suffix} {tag}'] = round(cuda_ms(fn), 4)
+                calls.clear()
+                cs = None
         try:
             from mipnerf_pl_tpu_torch.kernels import tp_lean
         except ImportError:

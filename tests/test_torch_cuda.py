@@ -1067,8 +1067,9 @@ def classic_calls(shape, dtype, calls=1):
     `dtype`) at the shape: f32 lean_fwd_tf32_kernel / lean_chain_tf32_kernel
     by fwd_tf32_route / chain_tf32_route, bf16 lean_fwd_sm90_kernel /
     lean_chain_sm90_kernel by fwd_sm90_route / chain_sm90_route, each with
-    the classic arguments (a view layer, one density head, widths multiples
-    of 64: the lego and `wide_view2` shapes)."""
+    the classic arguments (one density head, widths multiples of 64: the
+    lego and `wide_view2` shapes; in f32 also with no view layer, `no_view`,
+    on the NV forms)."""
     _, cfg, nd = CLASSIC_SHAPES[shape]
     dt = getattr(torch, dtype)
     F = 6 * (cfg['deg'][1] - cfg['deg'][0])
@@ -1077,7 +1078,7 @@ def classic_calls(shape, dtype, calls=1):
     fwd_rule, chain_rule = (
         (tk.fwd_tf32_route, tk.chain_tf32_route) if dtype == 'float32'
         else (tk.fwd_sm90_route, tk.chain_sm90_route))
-    fwd = dcond >= 1 and fwd_rule(dt, F, W, Wv, depth, dcond, cfg['Fv'], nd)
+    fwd = fwd_rule(dt, F, W, Wv, depth, dcond, cfg['Fv'], nd)
     chain = chain_rule(dt, W, Wv, depth, dcond, F=F, Fv=cfg['Fv'], nd=nd,
                        skip_index=cfg['skip_index'])
     return calls if fwd else 0, calls if chain else 0
@@ -1121,6 +1122,8 @@ def test_cuda_mlp_fwd_matches_plain(cuda_device, shape, dtype):
     assert tk.launches['mlp_save_fwd'] == 1 and tk.launches['mlp_fwd'] == 1
     want = classic_calls(shape, dtype)[0]
     assert shape not in ('lego', 'wide_view2') or want == 1
+    assert shape != 'no_view' or want == (dtype == 'float32')
+    assert shape != 'no_view_lego_nd2' or want == 0
     assert classic_took('mlp_save_fwd', dtype)[0] \
         == classic_took('mlp_fwd', dtype)[0] == want
     ref = tk.mlp_save_fwd_plain(x, view, flat, *args, torch.float32)
@@ -1150,6 +1153,8 @@ def test_cuda_mlp_bwd_saved_matches_plain(cuda_device, shape, dtype):
     assert tk.wgrad_tf32_routes['mlp_bwd_saved'] == wgrad_calls(dtype)
     want = classic_calls(shape, dtype)[1]
     assert shape not in ('lego', 'wide_view2') or want == 1
+    assert shape != 'no_view' or want == (dtype == 'float32')
+    assert shape != 'no_view_lego_nd2' or want == 0
     assert classic_took('mlp_bwd_saved', dtype) == (0, want)
     rdx, rdview, rgrads = tk.mlp_bwd_saved_plain(g_rgb, g_dens, S, flat,
                                                  *args, torch.float32)
@@ -1199,13 +1204,22 @@ def test_cuda_mlp_recompute_matches_saved(cuda_device, shape, dtype, chunks,
 def test_cuda_classic_plan_failure_raises(cuda_device, monkeypatch, dtype):
     """A classic shape the rules take whose plans cannot be made raises, the
     forward and the backward; neither falls back to the mma.sync kernels.
-    f32: no split kernels handed to the library.  bf16: the forward's
-    kernels and the chain's input-step rows (the transposed x / view rows)
-    2 bytes off the 16-byte alignment a tensor map needs."""
+    f32: no split kernels handed to the library, at the lego shape and with
+    no view layer (the NV forms).  bf16: the forward's kernels and the
+    chain's input-step rows (the transposed x / view rows) 2 bytes off the
+    16-byte alignment a tensor map needs."""
+    shapes = ['lego', 'no_view'] if dtype == 'float32' else ['lego']
+    for shape in shapes:
+        with monkeypatch.context() as mp:
+            _classic_plan_failure(cuda_device, mp, dtype, shape)
+
+
+def _classic_plan_failure(cuda_device, monkeypatch, dtype, shape):
     import ctypes
-    cfg, (x, view, g_rgb, g_dens), flat = _classic_on('lego', cuda_device)
+    cfg, (x, view, g_rgb, g_dens), flat = _classic_on(shape, cuda_device)
     args = (cfg['net_depth'], cfg['net_depth_condition'], cfg['skip_index'],
             getattr(torch, dtype))
+    assert classic_calls(shape, dtype) == (1, 1)
     S = tk.mlp_save_fwd(x, view, flat, *args)[2]
     if dtype == 'float32':
         monkeypatch.setattr(tk, 'fwd_tf32_route', lambda *a, **k: False)
@@ -1250,11 +1264,15 @@ def test_cuda_classic_tf32_route_matches_the_library(cuda_device):
             (96, 27, 256, 128, 8, 0, 1, 4), (96, 27, 96, 128, 8, 1, 1, 4),
             (24, 27, 64, 64, 4, 2, 1, 2), (130, 27, 256, 128, 8, 1, 1, 4),
             (96, 27, 256, 256, 11, 1, 1, 4), (96, 27, 256, 128, 10, 1, 1, 1),
-            (96, 140, 256, 128, 8, 1, 1, 4)]:
+            (96, 140, 256, 128, 8, 1, 1, 4),
+            # no view layer (the NV forms; Wv unused)
+            (96, 27, 256, 0, 8, 0, 1, 4), (24, 27, 64, 32, 3, 0, 1, 2),
+            (96, 27, 256, 0, 8, 0, 2, 4), (96, 27, 160, 0, 8, 0, 1, 4),
+            (96, 27, 64, 0, 8, 0, 1, 1), (96, 27, 64, 0, 11, 0, 1, 2),
+            (130, 27, 256, 0, 8, 0, 1, 4), (96, 27, 256, 0, 12, 0, 1, 4)]:
         lib.classic_tf32_route(F, Fv, W, Wv, depth, dcond, nd, skip, out)
         f32 = torch.float32
-        fwd = dcond >= 1 and tk.fwd_tf32_route(f32, F, W, Wv, depth, dcond,
-                                               Fv, nd)
+        fwd = tk.fwd_tf32_route(f32, F, W, Wv, depth, dcond, Fv, nd)
         chain = tk.chain_tf32_route(f32, W, Wv, depth, dcond, F=F, Fv=Fv,
                                     nd=nd, skip_index=skip)
         assert (bool(out[0]), bool(out[1])) == (fwd, chain), (F, Fv, W, Wv,
@@ -1305,8 +1323,16 @@ def test_cuda_fused_mlp_autograd(cuda_device, mode, shape):
     args = (cfg['net_depth'], cfg['net_depth_condition'], cfg['skip_index'],
             torch.float32)
     leaves = [t.clone().requires_grad_(True) for t in [x, view] + flat]
+    tk.reset_launches()
     rgb, dens = tk.fused_mlp(leaves[0], leaves[1], leaves[2:], *args, mode)
     ((rgb * g_rgb).sum() + (dens * g_dens).sum()).backward()
+    names = (('mlp_save_fwd', 'mlp_bwd_saved') if mode == 'save'
+             else ('mlp_fwd', 'mlp_bwd_recompute'))
+    fwd, chain = classic_calls(shape, 'float32')
+    assert shape != 'no_view' or (fwd, chain) == (1, 1)
+    assert classic_took(names[0], 'float32')[0] == fwd
+    assert classic_took(names[1], 'float32') == (
+        fwd if mode == 'recompute' else 0, chain)
     if mode == 'save':
         S = tk.mlp_save_fwd(x, view, flat, *args)[2]
         dx, dview, grads = tk.mlp_bwd_saved(g_rgb, g_dens, S, flat, *args)
@@ -1333,11 +1359,28 @@ def test_cuda_classic_training_runs_the_kernels(cuda_device, backend, dtype):
     f32, 3e-2 in bf16).  In bf16 the view layer is 64 wide, so the forward
     and the chain with dx and dview run on the bf16 wgmma kernels' classic
     forms (asserted from the route counts)."""
+    _classic_training(cuda_device, backend, dtype, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('backend', ['pallas', 'pallas_save'])
+def test_cuda_classic_training_without_view_layers(cuda_device, backend,
+                                                   dtype):
+    """The same for a model with no view layer (net_depth_condition 0, the
+    rgb head on concat(bottleneck, view)): in f32 the forward and the chain
+    with dx and dview run on the f32 wgmma kernels' NV forms, in bf16 on
+    the mma.sync kernels (asserted from the route counts)."""
+    _classic_training(cuda_device, backend, dtype, 0)
+
+
+def _classic_training(cuda_device, backend, dtype, depth_cond):
     from mipnerf_pl_tpu_torch.models.mipnerf import MipNerf
     from mipnerf_pl_tpu_torch.rays import Rays
     bf16 = dtype == 'bfloat16'
     model = MipNerf(num_samples=16, max_deg_point=4, deg_view=2,
                     mlp_net_depth=3, mlp_net_width=64,
+                    mlp_net_depth_condition=depth_cond,
                     mlp_net_width_condition=64 if bf16 else 32,
                     mlp_skip_index=2, mlp_backend=backend,
                     stop_resample_grad=False,
@@ -1364,11 +1407,14 @@ def test_cuda_classic_training_runs_the_kernels(cuda_device, backend, dtype):
              else ('mlp_fwd', 'mlp_bwd_recompute'))
     for name in names:
         assert tk.launches[name] == model.num_levels, (name, tk.launches)
-    if bf16:
+    if bf16 == bool(depth_cond):
         n = model.num_levels
         assert classic_took(names[0], dtype) == (n, 0)
         assert classic_took(names[1], dtype) == (
             n if names[1] == 'mlp_bwd_recompute' else 0, n)
+    elif not depth_cond:
+        assert classic_took(names[0], dtype) == (0, 0)
+        assert classic_took(names[1], dtype) == (0, 0)
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
     want = losses['cpu']
     bar = 3e-2 if bf16 else 1e-4

@@ -133,6 +133,25 @@ def test_fused_mlp_without_view_layers(mode):
     _assert_all_close(got_g, want_g, 2e-4, 2e-4, _grad_names(cfg))
 
 
+@pytest.mark.parametrize('mode', ['recompute', 'save'])
+def test_fused_mlp_without_view_layers_at_the_wgmma_widths(mode):
+    """The same at a width the f32 wgmma kernels' NV forms take on the
+    card (W 64; the trunk ends on a skip concat, so density and bottleneck
+    read [h, x]; 301 points, ragged): both port modes' plain versions
+    against JAX's recompute mode, forward at 1e-5, dx, dview and every
+    parameter gradient at 2e-4."""
+    cfg = dict(CASES['ragged'], net_depth_condition=0)
+    assert tk.fwd_tf32_route(torch.float32, F, 64, 0, cfg['net_depth'], 0,
+                             FV)
+    assert tk.chain_tf32_route(torch.float32, 64, 0, cfg['net_depth'], 0,
+                               F=F, Fv=FV, skip_index=cfg['skip_index'])
+    prob = _problem(**cfg, W=64)
+    got_out, got_g = _port(prob, cfg, mode)
+    want_out, want_g = _jax(prob, cfg, 'recompute')
+    _assert_all_close(got_out, want_out, 1e-5, 1e-5, ['rgb', 'density'])
+    _assert_all_close(got_g, want_g, 2e-4, 2e-4, _grad_names(cfg))
+
+
 def test_jax_save_mode_without_view_layers_fails():
     """The reference fault the port does not copy: JAX's saved backward
     (`_bwd_kernel_saved`) takes the trunk output as the rgb head's input

@@ -399,18 +399,30 @@ def test_fwd_sm90_smem():
     # The classic MLP (fused_mlp: 27 per-point view features; nd density
     # heads): its forward's classic form.
     ('f32 classic', 96, 256, 128, 8, 1, True),          # lego
-    ('f32 classic', 96, 256, 128, 8, 0, False),         # no view layer
+    ('f32 classic', 96, 256, 128, 8, 0, True),          # no view layer: NV
     ('f32 classic nd2', 96, 256, 128, 8, 1, False),     # two density heads
     ('bf16 classic', 96, 256, 128, 8, 1, False),        # bf16: lean_fwd_sm90_kernel
     ('f32 classic', 96, 96, 128, 8, 1, False),          # W = 96
     ('f32 classic', 24, 64, 32, 3, 1, False),           # `small`: Wv = 32
     ('f32 classic', 128, 256, 256, 8, 1, True),         # the widest plan
-    ('f32 classic', 96, 256, 128, 11, 1, False)])       # 13 dense layers
+    ('f32 classic', 96, 256, 128, 11, 1, False),        # 13 dense layers
+    # The classic MLP with no view layer (net_depth_condition 0, the NV
+    # form: the rgb head reads concat(bottleneck, view); Wv unused).
+    ('f32 classic', 96, 256, 0, 8, 0, True),            # lego, no view layer
+    ('f32 classic', 24, 64, 32, 3, 0, True),            # card shape `no_view`
+    ('f32 classic nd2', 96, 256, 128, 8, 0, False),     # two density heads
+    ('bf16 classic', 96, 256, 128, 8, 0, False),        # bf16 NV: mlp_fwd_kernel
+    ('f32 classic', 96, 160, 0, 8, 0, False),           # W = 160
+    ('f32 classic', 96, 256, 0, 11, 0, True),           # 12 dense layers
+    ('f32 classic', 96, 256, 0, 12, 0, False),          # 13
+    ('f32 classic', 128, 256, 0, 8, 0, True),           # 128 features: 232,128 B
+    ('f32 classic', 130, 256, 0, 8, 0, False)])         # 144 rows once rounded
 def test_fwd_tf32_route(dtype, F, W, Wv, depth, dcond, want):
     """The shape rule of the f32 wgmma forward (lean_fwd_tf32_kernel),
     against hand counts, for the lean MLP and for fused_mlp's classic form
-    (a second K segment of view_0 of the 27 view features, raw heads); the
-    card test holds the library to the same rule."""
+    (a second K segment of view_0 of the 27 view features, raw heads), also
+    with no view layer (its NV form, depth + 1 dense layers); the card test
+    holds the library to the same rule."""
     dt = torch.bfloat16 if dtype.startswith('bf16') else torch.float32
     if 'classic' in dtype:
         nd = 2 if dtype.endswith('nd2') else 1
@@ -454,8 +466,11 @@ def test_fwd_tf32_smem():
     # The classic backward (fused_mlp: F = 96, 27 view features, skip 4;
     # nd density heads), its chain, dx and dview on lean_chain_tf32_kernel.
     ('f32 classic', 256, 128, 8, 1, True),              # lego
-    ('f32 classic', 256, 128, 8, 0, False),             # no view layer
+    ('f32 classic', 256, 128, 8, 0, True),              # no view layer: NV
     ('f32 classic nd2', 256, 128, 8, 1, False),         # two density heads
+    ('f32 classic nd2', 256, 128, 8, 0, False),         # NV, two density heads
+    ('bf16 classic', 256, 128, 8, 0, False),            # bf16 NV: lean_grad_chain_kernel
+    ('f32 classic', 160, 0, 8, 0, False),               # NV, W = 160
     ('bf16 classic', 256, 128, 8, 1, False),            # bf16: lean_chain_sm90_kernel
     ('f32 classic', 96, 128, 8, 1, False),              # W = 96
     ('f32 classic', 64, 32, 3, 1, False),               # `small`: Wv = 32
@@ -575,25 +590,54 @@ def _cuh_consts(name):
     ('encode: 128 columns', 128, 27, 256, 128, 8, 1, 1, 4, True),
     ('view: 160 columns once rounded', 96, 129, 256, 128, 8, 1, 1, 4, False),
     ('two density heads', 96, 27, 256, 128, 8, 1, 2, 4, False),
-    ('no view layer', 96, 27, 256, 128, 8, 0, 1, 4, False),
-    ('W not a multiple of 64', 96, 27, 160, 128, 8, 1, 1, 4, False)])
+    ('no view layer', 96, 27, 256, 128, 8, 0, 1, 4, True),
+    ('W not a multiple of 64', 96, 27, 160, 128, 8, 1, 1, 4, False),
+    # No view layer (the NV form: Wv unused, dview written by the rgb step,
+    # so the maps are the trunk's, the bottleneck and one dx step a layer
+    # that reads x; the steps are one more, never the limit).
+    ('no view layer: weight maps: skip 1 at depth 8, 8 + 8 = 16', 96, 27,
+     64, 0, 8, 0, 1, 1, True),
+    ('no view layer: weight maps: skip 2 at depth 10, 10 + 5 = 15', 96, 27,
+     64, 0, 10, 0, 1, 2, True),
+    ('no view layer: weight maps: skip 2 at depth 11, 11 + 6 = 17', 96, 27,
+     64, 0, 11, 0, 1, 2, False),
+    ('no view layer: the dx stash, 128 columns', 128, 27, 256, 0, 8, 0, 1,
+     4, True),
+    ('no view layer: the dx stash, 160 columns once rounded', 130, 27, 256,
+     0, 8, 0, 1, 4, False),
+    ('no view layer: view 160 columns once rounded', 96, 129, 256, 0, 8, 0,
+     1, 4, False),
+    ('no view layer: two density heads', 96, 27, 256, 0, 8, 0, 2, 4, False),
+    ('no view layer: W 160', 96, 27, 160, 0, 8, 0, 1, 4, False),
+    ('no view layer: W 64, the card shape', 24, 27, 64, 0, 3, 0, 1, 2,
+     True)])
 def test_classic_chain_plan_mirror(case, F, Fv, W, Wv, depth, dcond, nd,
                                    skip, want):
     """The Python mirror of the classic chain's plan refuses what the C++
     plan (csrc/lean_chain_tf32.cuh chain_tf32_route, chain_tf32_plan)
     refuses: its limits are the C++ constants (read from the source), and
-    each case sits on one of them, counted by hand (the input steps: dview
-    and one a layer that reads x).  The card test holds the library to the
-    same answers (test_cuda_classic_tf32_route_matches_the_library)."""
+    each case sits on one of them, counted by hand (the input steps: dview,
+    with a view layer, and one a layer that reads x).  The card test holds
+    the library to the same answers
+    (test_cuda_classic_tf32_route_matches_the_library)."""
     chain = _cuh_consts('lean_chain_tf32.cuh')
     fwd = _cuh_consts('lean_fwd_tf32.cuh')
     assert (tk.CT_MAX_MAPS, tk.CT_STEPS) == (chain['CT_MAX_MAPS'],
                                              chain['CT_STEPS'])
     assert (tk.FT_MAX_X, tk.FT_KS, tk.FT_STAGES, tk.FT_LD) == (
         fwd['FT_MAX_X'], fwd['FT_KS'], fwd['FT_STAGES'], fwd['FT_TM'] + 8)
-    if case.startswith('weight maps'):
-        ix = tk._classic_dx_steps(depth, skip) + 1
+    if 'weight maps' in case:
+        ix = tk._classic_dx_steps(depth, skip) + (1 if dcond else 0)
         assert (depth + dcond + ix <= tk.CT_MAX_MAPS) is want
+        assert depth + dcond + 1 + ix <= tk.CT_STEPS
+    if not dcond and 'stash' in case:
+        # The stash of a 64-point tile's dx products, N = F rounded up to
+        # 16 and to 32 columns of f32: 24 KB at 96 features, 32 KB at 128;
+        # the plan fits the block at any depth the maps allow.
+        ix_n = -(-(-(-F // 16) * 16) // 32) * 32
+        assert (ix_n <= tk.FT_MAX_X) is want
+        cg = tk.chain_cg(W, 0, 12, 0)
+        assert tk.chain_tf32_smem(W, 0, cg, 128) <= tk.FW_SMEM_MAX
     got = tk.chain_tf32_route(torch.float32, W, Wv, depth, dcond, F=F,
                               Fv=Fv, nd=nd, skip_index=skip)
     assert got is want, case
@@ -794,6 +838,49 @@ def test_tf32_split():
     assert torch.equal(bott[:, 82:], torch.zeros(64, 14))
     assert torch.equal(wt_all[5][:64] + wt_all[5][64:], flat[10][:64].t())
     assert torch.equal(wt_all[0][:64, 18:], torch.zeros(64, 14))
+
+
+def test_tf32_weights_without_view_layers():
+    """The f32 wgmma kernels' operands for a classic MLP with no view layer
+    (net_depth_condition 0, the NV form; trunk 3 x 64 ending on a skip
+    concat, 18 encode and 27 view features): tf32_fwd_weights splits the
+    trunk and the bottleneck as the view-layer form does and has nothing
+    for the two heads; the rgb head after the bottleneck is [W + Fv, 3],
+    its 64 bottleneck rows then the 27 view rows, which the forward stages
+    from the kernels as stored (as the density head).  tf32_input_weights
+    has the x rows of each layer that reads x (trunk_0, the bottleneck) and
+    no view rows: the chain's rgb step writes dview from the rgb head."""
+    rng = np.random.default_rng(1)
+    shapes = [(18, 64), (1, 64), (64, 64), (1, 64), (64, 64), (1, 64),
+              (82, 1), (1, 1), (82, 64), (1, 64), (64 + 27, 3), (1, 3)]
+    flat = [torch.tensor(rng.standard_normal(sh).astype(np.float32))
+            for sh in shapes]
+    assert tk._mlp_dims(flat, 3)[:3] == (18, 64, 27)
+    wt = tk.tf32_fwd_weights(flat, 3, 0, 2, 27)
+    assert [None if t is None else tuple(t.shape) for t in wt] == [
+        (128, 32), (128, 64), (128, 64), None, (128, 96), None]
+    bott = wt[4][:64] + wt[4][64:]
+    assert torch.equal(bott[:, :82], flat[8].t())
+    assert torch.equal(bott[:, 82:], torch.zeros(64, 14))
+    for i in (0, 1, 2, 4):              # hi is tf32, lo the rest exactly
+        assert int((wt[i][:64].view(torch.int32) & 0x1FFF).abs().max()) == 0
+    ws = tk._kernel_params(flat, torch.float32)[0]
+    assert tuple(ws[5].shape) == (64 + 27, 3)
+    assert torch.equal(ws[5][:64], flat[10][:64])     # kr_s: the first W rows
+    assert torch.equal(ws[5][64:], flat[10][64:])     # read where used
+    on, _ = tk._tf32_ptrs(flat, 3, 0, 2, torch.float32, classic=True)
+    assert on is not None and all(
+        (a is None) == (b is None) and (a is None or torch.equal(a, b))
+        for a, b in zip(on, wt))
+    assert tk._tf32_ptrs(flat, 3, 0, 2, torch.bfloat16,
+                         classic=True) == (None, None)
+    xs, vs = tk.tf32_input_weights(flat, 3, 0, 2)
+    assert vs is None
+    assert [None if t is None else tuple(t.shape) for t in xs] == [
+        (64, 64), None, None, None, (64, 64), None]
+    assert torch.equal((xs[4][:32] + xs[4][32:])[:18], flat[8][64:])
+    assert torch.equal(xs[0][:32] + xs[0][32:],
+                       torch.cat([flat[0], torch.zeros(14, 64)]))
 
 
 def test_lean_training_form_rejects():
