@@ -45,19 +45,23 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      lean_save_fwd and lean_fwd (outputs, saved activations, raw heads) at
      the phase-3 bars, lean_fwd bit for bit equal to lean_save_fwd's
      outputs (both, and the recompute re-runs, on the wgmma forward of
-     their dtype, checked in every form; the lean chains of lean_param_grads
-     and of the recompute backward on lean_chain_sm90_kernel in bf16 and
-     lean_chain_tf32_kernel in f32, `check_chain_routes`; the weight
-     gradients of every f32 backward on a channel-major stream, the classic
-     ones and tp_pair_bwd included, on wgrad_tf32_kernel, hybrid's never,
+     their dtype, checked in every form; the lean chains of lean_param_grads,
+     of the recompute backward and of lean_param_grads_hybrid on
+     lean_chain_sm90_kernel in bf16 and lean_chain_tf32_kernel in f32,
+     `check_chain_routes`; the weight gradients of every backward, the
+     classic ones, hybrid's and tp_pair_bwd included, on wgrad_tf32_kernel
+     in f32 and wgrad_sm90_kernel in bf16, by the library's own counts,
      `check_wgrad_routes`; and the f32 weight gradients of
      lean_param_grads timed alone, their device time from a torch.profiler
      window, bound and share, beside torch.mm on the same products, the
      library's way to the same sums, in the same run, `wgrad_yardstick`);
-     lean_param_grads and lean_param_grads_hybrid fed the same
-     activations as their plain versions (the plain forward's, in the
-     compute dtype), at bench.py's metric (largest leaf ||a - b|| / ||b||):
-     <= 1e-4 f32 (hybrid too), <= 3e-2 bf16; lean_param_grads_recompute
+     lean_param_grads fed the plain forward's stream in the compute dtype
+     and lean_param_grads_hybrid its own plain forward's stream and raw
+     heads (lean_hybrid_fwd, twice: two runs bit-equal), each against its
+     plain version on the same stream, at bench.py's metric (largest leaf
+     ||a - b|| / ||b||): <= 1e-4 f32, <= 3e-2 bf16, and hybrid's time
+     printed beside lean_param_grads' and beside torch.mm on the same
+     weight-gradient products (`mm_yardstick`); lean_param_grads_recompute
      against lean_param_grads on the kernel forward's stream (the same
      forward re-run chunk by chunk): <= 1e-5 in both dtypes, two runs equal
      bit for bit, and its peak memory below one level-sized saved stream;
@@ -119,10 +123,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      that close to zero, and each flip moves a whole per-point term), then
      K = 5 steps of make_train_many, in which each of the configuration's
      kernels must launch 2 levels x 5 times, every lean forward and lean
-     chain on the wgmma kernel of its dtype, every classic forward and
-     chain on the wgmma classic forms of its dtype, every f32
-     backward's weight gradients on wgrad_tf32_kernel (not hybrid's), and
-     the loss must stay finite;
+     chain (pallas_hybrid's included) on the wgmma kernel of its dtype,
+     every classic forward and chain on the wgmma classic forms of its
+     dtype, every backward's weight gradients on wgrad_tf32_kernel in f32
+     and wgrad_sm90_kernel in bf16, and the loss must stay finite;
      ms/step, rays/s and peak memory of every configuration and of the
      plain path, in turns (plain, each configuration, then back, twice:
      best, median and spread of the 4 runs); past
@@ -436,7 +440,7 @@ def kernel_work(name, hp, R, N, tag, form='rows'):
     Fv = 3 * (2 * hp['nerf.deg_view'] + 1)
     M, Mp = R * N, -(-R * N // km.TILE) * km.TILE
     es = 2 if tag == 'bf16' else 4
-    Fp, _, _, _, Cs = km.saved_rows(F, W, Wv, depth, dcond)
+    Cs = km.saved_rows(F, W, Wv, depth, dcond)[-1]
     shapes = layer_shapes(hp)
     n_w = sum(k * n for k, n in shapes)
     n_b = sum(n for _, n in shapes)
@@ -469,13 +473,10 @@ def kernel_work(name, hp, R, N, tag, form='rows'):
     if name == 'lean_save_fwd':
         return fwd, decode, x_in + vproj + params + M * 16 + Cs * Mp * es \
             + Mp * 16
-    if name == 'lean_param_grads':
+    if name in ('lean_param_grads', 'lean_param_grads_hybrid'):
         return bwd, 0, Cs * Mp * es + Mp * 16 + g + view + params + grads
     if name == 'lean_param_grads_recompute':
         return fwd + bwd, decode, x_in + vproj + g + view + params + grads
-    if name == 'lean_param_grads_hybrid':
-        res = M * (Fp + (depth + 1) * W + dcond * Wv) * es
-        return bwd, 0, res + g + view + params + grads
     # The classic MLP of fused_mlp, as the JAX function's inputs and
     # outputs: x and the view f32 per point (view_0 on all of them), raw
     # heads; the backward's chain runs back to the inputs (every layer's
@@ -701,20 +702,22 @@ def lego_wgrad_range(hp):
 
 def check_wgrad_routes(hp, dt, where, **calls):
     """Raise unless each named backward's `calls` since the last
-    reset_launches ran their weight gradients on wgrad_tf32_kernel where
-    wgrad_tf32_route says so (f32 on a channel-major stream: every entry
-    but hybrid) and never elsewhere; at the lego level an f32 channel-major
-    backward must take it."""
+    reset_launches ran their weight gradients on wgrad_tf32_kernel in f32
+    (where wgrad_tf32_route says so, which at the lego level it must) and
+    on wgrad_sm90_kernel in bf16, by the library's own counts, and on no
+    other kernel."""
     Mp, mc = lego_wgrad_range(hp)
-    hybrid = 'lean_param_grads_hybrid'
-    on = {k: km.wgrad_tf32_route(dt, k == hybrid, Mp, mc) for k in calls}
-    if dt == torch.float32 and any(k != hybrid and not on[k] for k in calls):
+    f32 = dt == torch.float32
+    on = km.wgrad_tf32_route(dt, Mp, mc)
+    if f32 and not on:
         raise AssertionError('the lego f32 weight gradients take no wgmma '
                              'kernel')
-    got = {k: km.wgrad_tf32_routes[k] for k in calls}
-    want = {k: n if on[k] else 0 for k, n in calls.items()}
-    log(f'[route] {where}: weight gradients on wgrad_tf32_kernel {got} '
-        f'(want {want}) {"OK" if got == want else "FAIL"}')
+    got = {k: (km.wgrad_tf32_routes[k], km.wgrad_sm90_routes[k])
+           for k in calls}
+    want = {k: (n if on else 0, 0 if f32 else n) for k, n in calls.items()}
+    log(f'[route] {where}: weight gradients on (wgrad_tf32_kernel, '
+        f'wgrad_sm90_kernel) {got} (want {want}) '
+        f'{"OK" if got == want else "FAIL"}')
     if got != want:
         raise AssertionError(f'{where}: the weight gradients took another '
                              'route')
@@ -1089,29 +1092,68 @@ def compare_train_kernels(params, hp, dev):
                cuda_ms(lambda: km.lean_param_grads_recompute_plain(
                    x, view, g_rgb, g_dens, flat, *args, dt, ACT)))
 
-        # Hybrid: on the plain hybrid forward's residuals.
+        # Hybrid: on its plain forward's stream and raw heads, twice, on
+        # the kernels of lean_param_grads; its time beside theirs and
+        # beside torch.mm on the same weight-gradient products.
         res = km.lean_hybrid_fwd(x, view, flat, *args, dt, ACT)[2]
         km.reset_launches()
         got = hybrid(dt, res)
+        again = hybrid(dt, res)
         want = hybrid(torch.float32, res, kernel=False)
         torch.cuda.synchronize()
+        check_chain_routes(hp, dt, f'phase 5 hybrid {tag}',
+                           lean_param_grads_hybrid=2)
         check_wgrad_routes(hp, dt, f'phase 5 hybrid {tag}',
-                           lean_param_grads_hybrid=1)
+                           lean_param_grads_hybrid=2)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
         finite = all(bool(torch.isfinite(t).all()) for t in got)
         h_err, h_leaf = leaf_rel_err(got, want, leaf_names(hp))
         h_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        del got, want
-        report('lean_param_grads_hybrid', tag, finite and h_err <= g_bar,
+        del got, again, want
+        report('lean_param_grads_hybrid', tag,
+               finite and same and h_err <= g_bar,
                f'max leaf rel err vs the f32 plain backward {h_err:.3e} '
-               f'({h_leaf}, <= {g_bar}); max|d| {h_abs:.3e}', h_abs,
+               f'({h_leaf}, <= {g_bar}); two runs bit-equal {same}; '
+               f'max|d| {h_abs:.3e}', h_abs,
                cuda_ms(lambda: hybrid(dt, res)),
                cuda_ms(lambda: hybrid(dt, res, kernel=False)))
+        h_ms = results[('lean_param_grads_hybrid', tag)]['ms']
+        a_ms = results[('lean_param_grads', tag)]['ms']
+        mm_ms = mm_yardstick(flat, args, res[0], dt)
+        results[('lean_param_grads_hybrid', tag)]['mm_ms'] = mm_ms
+        log(f'[kernel] #4c lean_param_grads_hybrid {tag}: {h_ms:.3f} ms; '
+            f'#4a lean_param_grads {a_ms:.3f} ms ({h_ms / a_ms:.3f} x); '
+            f'torch.mm on the same weight-gradient products {mm_ms:.3f} ms')
         del res
         compare_moments_forms(results, report, flat, args, dt, tag,
                               x, view, g_rgb, g_dens, moments, enc, hp)
     compare_render_bwd_and_encode(results, report, flat, args, x, view,
                                   moments, delta, mids, enc)
     return results
+
+
+def mm_yardstick(flat, args, S, dt):
+    """CUDA-event ms of torch.mm on the weight-gradient products of one
+    backward of the stream S in dt: each problem's activation rows of S
+    against seeded cotangent rows, the library's way to the same sums,
+    never called by the port."""
+    N, depth, dcond, skip = args
+    F, W = flat[0].shape
+    Wv = flat[2 * (depth + 2)].shape[1]
+    _, hs, bott, ys, _ = km.saved_rows(F, W, Wv, depth, dcond)
+    first = [0] + hs + [bott] + ys
+    shapes = [tuple(t.shape) for t in flat[0::2]]
+    probs = km.wgrad_problems(shapes, depth, dcond, skip)[0]
+    Cg = sum(n for _, n in shapes)
+    gen = torch.Generator(device=S.device).manual_seed(2)
+    G = torch.randn((Cg, S.shape[1]), generator=gen, device=S.device).to(dt)
+    blocks = [(S[first[a]:first[a] + K], G[g:g + n])
+              for a, K, g, n, _, _ in probs]
+
+    def mm():
+        for a, g in blocks:
+            torch.mm(a, g.t())
+    return cuda_ms(mm)
 
 
 def wgrad_yardstick(hp, flat, args, saved, call):
@@ -1123,27 +1165,13 @@ def wgrad_yardstick(hp, flat, args, saved, call):
     written once; and torch.mm on the same products (each problem's
     activation rows of `saved` against seeded cotangent rows, CUDA events),
     the library's way to these sums, never called by the port."""
-    S = saved[0]
     N, depth, dcond, skip = args
-    F, W = flat[0].shape
-    Wv = flat[2 * (depth + 2)].shape[1]
-    _, hs, bott, ys, _ = km.saved_rows(F, W, Wv, depth, dcond)
-    first = [0] + hs + [bott] + ys
     shapes = [tuple(t.shape) for t in flat[0::2]]
     probs = km.wgrad_problems(shapes, depth, dcond, skip)[0]
     Cg = sum(n for _, n in shapes)
     Mp, mc = lego_wgrad_range(hp)
     M = TRAIN_RAYS * N
-    gen = torch.Generator(device=S.device).manual_seed(2)
-    G = torch.randn((Cg, Mp), generator=gen, device=S.device)
-    blocks = [(S[first[a]:first[a] + K], G[g:g + n])
-              for a, K, g, n, _, _ in probs]
-
-    def mm():
-        for a, g in blocks:
-            torch.mm(a, g.t())
-    library_ms = cuda_ms(mm)
-    del G, blocks
+    library_ms = mm_yardstick(flat, args, saved[0], torch.float32)
     ms = sum(t for k, t in kernel_device_ms(call, iters=5).items()
              if 'wgrad_tf32_kernel' in k)
     rows = dict((a, K) for a, K, _, _, _, _ in probs)
@@ -1738,7 +1766,8 @@ def run_k_steps(system, params, stack, pix, names, levels, label):
            if run_counts[n] and n not in CLASSIC_FWD}
     chain = {n: run_counts[n] for n in km.chain_routes
              if run_counts[n] and n not in CLASSIC_CHAIN}
-    wgrad = {n: run_counts[n] for n in km.wgrad_tf32_routes if run_counts[n]}
+    wgrad = {n: run_counts[n] for n in km.wgrad_tf32_routes
+             if run_counts[n]}
     classic = {n: run_counts[n] for n in CLASSIC_FWD + ('mlp_bwd_saved',)
                if run_counts[n]}
     if classic:
@@ -2647,6 +2676,12 @@ def main() -> int:
                 kernels[-1]['bf16']['chain'] = 'lean_chain_sm90_kernel'
                 kernels[-1]['bf16']['chain_source'] = \
                     'mipnerf_pl_tpu_torch/csrc/lean_chain_sm90.cuh'
+            if name in km.wgrad_sm90_routes:
+                kernels[-1]['bf16']['wgrad'] = 'wgrad_sm90_kernel'
+                kernels[-1]['bf16']['wgrad_source'] = \
+                    'mipnerf_pl_tpu_torch/csrc/lean_wgrad_sm90.cuh'
+            if 'mm_ms' in rb:     # torch.mm on its weight-gradient products
+                kernels[-1]['bf16']['wgrad_mm_ms'] = rb['mm_ms']
         # The f32 numbers' wgmma kernels (the line's own 'source' is the
         # library the wrapper launches, which holds them).
         on32 = classic_route(hp, torch.float32)
@@ -2663,13 +2698,14 @@ def main() -> int:
             kernels[-1]['chain_source'] = \
                 'mipnerf_pl_tpu_torch/csrc/lean_chain_tf32.cuh'
         if name in km.wgrad_tf32_routes and km.wgrad_tf32_route(
-                torch.float32, name == 'lean_param_grads_hybrid',
-                *lego_wgrad_range(hp)):
+                torch.float32, *lego_wgrad_range(hp)):
             kernels[-1]['wgrad'] = 'wgrad_tf32_kernel'
             kernels[-1]['wgrad_source'] = \
                 'mipnerf_pl_tpu_torch/csrc/lean_wgrad_tf32.cuh'
         if 'wgrad' in r:
             kernels[-1]['wgrad_ms'] = r['wgrad']
+        if 'mm_ms' in r:
+            kernels[-1]['wgrad_mm_ms'] = r['mm_ms']
         # fused_mlp's kernels for a model with no view layer (phase 5's
         # numbers, phase 6's f32 launches), f32 and under 'bf16' bf16, with
         # the device kernels each took.

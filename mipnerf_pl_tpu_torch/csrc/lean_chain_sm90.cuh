@@ -1,14 +1,14 @@
 // The bf16 cotangent chain of the training backwards on Hopper's wgmma and
-// TMA (lean_train.cu): the channel-major saved stream of 'save' and
-// 'recompute' (so also the render-fused level's backward) and of the
-// classic mlp_bwd_saved / mlp_bwd_recompute, widths multiples of 64.
-// Replaces, in bf16, lean_grad_chain_kernel and the classic
-// mlp_input_grads_kernel (the chain and the input cotangents of the TPU
-// kernels _bwd_kernel_lean_save, _bwd_kernel_lean, _bwd_kernel_lean_render,
+// TMA (lean_train.cu): the channel-major saved stream of 'save',
+// 'recompute' (so also the render-fused level's backward) and 'hybrid'
+// (whose plain forward writes the same stream) and of the classic
+// mlp_bwd_saved / mlp_bwd_recompute, widths multiples of 64.  Replaces, in
+// bf16, lean_grad_chain_kernel and the classic mlp_input_grads_kernel (the
+// chain and the input cotangents of the TPU kernels _bwd_kernel_lean_save,
+// _bwd_kernel_lean, _bwd_kernel_lean_hybrid, _bwd_kernel_lean_render,
 // _bwd_kernel_saved and _bwd_kernel, mipnerf_pl_tpu/kernels/mlp.py).  f32
-// runs on lean_chain_tf32.cuh; the point-major residuals of 'hybrid', the
-// classic MLP with no view layer or more than one density head keep the
-// mma.sync kernels.
+// runs on lean_chain_tf32.cuh; the classic MLP with no view layer or more
+// than one density head keeps the mma.sync kernels.
 //
 // Route (chain_sm90_route, mirrored by kernels/mlp.py chain_sm90_route):
 // bf16, a channel-major stream, W and Wv multiples of 64, at least one view

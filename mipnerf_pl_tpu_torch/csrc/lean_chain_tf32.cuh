@@ -1,14 +1,15 @@
 // The f32 cotangent chain of the training backwards on Hopper's wgmma and
-// TMA, 3xTF32 (lean_train.cu): the channel-major saved stream of 'save' and
-// 'recompute' (so also the render-fused level's backward) and of the
-// classic mlp_bwd_saved / mlp_bwd_recompute, widths multiples of 64.
-// Replaces, in f32, lean_grad_chain_kernel<float> and the classic
+// TMA, 3xTF32 (lean_train.cu): the channel-major saved stream of 'save',
+// 'recompute' (so also the render-fused level's backward) and 'hybrid'
+// (whose plain forward writes the same stream) and of the classic
+// mlp_bwd_saved / mlp_bwd_recompute, widths multiples of 64.  Replaces, in
+// f32, lean_grad_chain_kernel<float> and the classic
 // mlp_input_grads_kernel<float> (the chain and the input cotangents of the
 // TPU kernels _bwd_kernel_lean_save, _bwd_kernel_lean,
-// _bwd_kernel_lean_render, _bwd_kernel_saved and _bwd_kernel,
-// mipnerf_pl_tpu/kernels/mlp.py).  The point-major residuals of 'hybrid'
-// and the classic MLP with more than one density head keep the mma.sync
-// kernels; bf16 runs on lean_chain_sm90.cuh.
+// _bwd_kernel_lean_hybrid, _bwd_kernel_lean_render, _bwd_kernel_saved and
+// _bwd_kernel, mipnerf_pl_tpu/kernels/mlp.py).  The classic MLP with more
+// than one density head keeps the mma.sync kernels; bf16 runs on
+// lean_chain_sm90.cuh.
 //
 // Route (chain_tf32_route, mirrored by kernels/mlp.py chain_tf32_route): f32,
 // a channel-major stream, W and Wv multiples of 64, at least one view

@@ -17,14 +17,14 @@
 //   lean_param_grads  _bwd_kernel_lean_save (pl.pallas_call in
 //                     _run_bwd_lean_common) through _lean_param_grads: f32
 //                     gradients of every parameter from the saved stream,
-//                     none for x and view.
+//                     none for x and view.  Also _bwd_kernel_lean_hybrid
+//                     (the same pallas_call) through the wrapper
+//                     lean_param_grads_hybrid: the plain forward of mode
+//                     'hybrid' (kernels/mlp.py lean_hybrid_fwd) writes the
+//                     same stream.
 //   lean_param_grads_recompute
 //                     _bwd_kernel_lean (the same pallas_call): the same
 //                     gradients with the forward re-run chunk by chunk.
-//   lean_param_grads_hybrid
-//                     _bwd_kernel_lean_hybrid (the same pallas_call): the
-//                     same gradients from the plain forward's residuals,
-//                     one point-major stream per layer.
 //   mlp_fwd           _fwd_kernel (pl.pallas_call in _run_fwd): the classic
 //                     MLP of fused_mlp, mlp_fwd_kernel: the same tile
 //                     (mlp_tile<T, true>) with per-point view features read
@@ -63,12 +63,10 @@
 // row blocks.  The forward also keeps its raw heads [4][Mp] f32 (16 B a
 // point), so the backward folds the activation derivatives in without
 // recomputing the two head products the TPU kernel redoes per tile.
-// 'hybrid' reads the same activations as the row-major [M, width] tensors
-// its plain forward leaves (x padded to Fp columns), never packed: the
-// backward's kernels are templated on that layout (PM), and a point-major
-// A tile of dW = A^T G is a transposed ldmatrix load.  Its raw heads are
-// recomputed in the chain kernel from the residuals with f32 sums, as the
-// TPU kernel does.
+// The plain forward of 'hybrid' writes the same layout: each cuBLAS
+// product, transposed, lands in its rows of S, and it keeps the raw heads
+// as f32 sums of the compute-dtype activations (what the TPU kernel
+// recomputes per tile).  So one backward serves both.
 //
 // What bounds them: ~1.2 MFLOP per point forward and ~2.2 backward (the
 // cotangent chain and the weight gradients), so all are compute bound on
@@ -90,23 +88,21 @@
 //      [Cg][chunk] in the compute dtype (the operand of its weight
 //      gradient); bias gradients are column sums of the f32 cotangent, per
 //      block; view_0's f32 cotangent also goes to g1f [Wv][chunk].  The
-//      lean chain on a channel-major stream (save, recompute) at widths
-//      that are multiples of 64 is, by a rule on dtype and shape,
+//      lean chain (save, recompute, hybrid) at widths that are multiples
+//      of 64 is, by a rule on dtype and shape,
 //      lean_chain_sm90_kernel in bf16 (lean_chain_sm90.cuh: 128-point
 //      tiles, wgmma fed by a TMA ring) and lean_chain_tf32_kernel in f32
 //      (lean_chain_tf32.cuh: 3xTF32 wgmma); both also take the classic
 //      chain (one density head, a view layer; f32 also none) with its dx
-//      and dview.  Hybrid, bf16 NV and other widths keep
-//      lean_grad_chain_kernel (64-point tiles, mma.sync).
+//      and dview.  bf16 NV and other widths keep lean_grad_chain_kernel
+//      (64-point tiles, mma.sync).
 //   2. split-K tensor-core products dW = A^T G over the points, one 128 x
 //      128 output tile per block and one MC-point range per grid row,
 //      written as per-range partial sums.  Ranges never straddle a chunk,
-//      so every mode sums the same ranges in the same order.  A
-//      channel-major stream (save, recompute, the classic forms) runs, by
-//      a rule on dtype and shape, on wgmma fed by a TMA ring:
-//      wgrad_sm90_kernel in bf16 (lean_wgrad_sm90.cuh), wgrad_tf32_kernel
-//      in f32 (lean_wgrad_tf32.cuh, 3xTF32); hybrid's point-major
-//      activations keep lean_wgrad_kernel (mma.sync), in both dtypes.  In
+//      so every mode sums the same ranges in the same order.  They run on
+//      wgmma fed by a TMA ring: wgrad_sm90_kernel in bf16
+//      (lean_wgrad_sm90.cuh), wgrad_tf32_kernel in f32 (lean_wgrad_tf32.cuh,
+//      3xTF32, by a rule on shape; a stream it cannot map is an error).  In
 //      f32 the tensor-core sums restart every 128 points into
 //      round-to-nearest f32 sums.  The skip concat's x rows are
 //      problems of their own: their weight gradients accumulate; the chain
@@ -172,23 +168,20 @@ struct TrainDims {
   }
 };
 
-// Activation a of the tile at m0: (row, col) -> f32 value.  Point-major
-// streams hold exactly M points, so rows past them read as 0.
-template <typename T, bool PM>
+// Activation a of the tile at m0 (channel-major rows of S): (row, col) ->
+// f32 value.
+template <typename T>
 struct ActTile {
   const T* p;
-  int ld, rows;
+  int ld;
   __device__ float operator()(int row, int col) const {
-    if (PM) return row < rows ? Ty<T>::to_f(p[(size_t)row * ld + col]) : 0.f;
     return Ty<T>::to_f(p[(size_t)col * ld + row]);
   }
 };
 
-template <typename T, bool PM>
-__device__ ActTile<T, PM> act_tile(const Acts& acts, int a, int m0, const TrainDims& d) {
-  const T* p = static_cast<const T*>(acts.t[a]);
-  const int ld = PM ? acts.ld[a] : d.Mp;
-  return ActTile<T, PM>{p + (PM ? (size_t)m0 * ld : (size_t)m0), ld, d.M - m0};
+template <typename T>
+__device__ ActTile<T> act_tile(const Acts& acts, int a, int m0, const TrainDims& d) {
+  return ActTile<T>{static_cast<const T*>(acts.t[a]) + m0, d.Mp};
 }
 
 // The forward of the tile at blockIdx.x * TM, from encode rows or (MOMENTS)
@@ -308,28 +301,6 @@ struct InputGrads {
   float *dx, *dview;
 };
 
-// Raw head c of point row of the tile at m0, from the saved activations
-// with f32 sums (ys[last] k_rgb + b_rgb; [hs[last], x] k_den + b_den).
-template <typename T, bool PM>
-__device__ float raw_head(const Acts& acts, const ChainPtrs& cp, const TrainDims& d, int c,
-                          int m0, int row) {
-  float s = 0.f;
-  if (c < 3) {
-    const ActTile<T, PM> y = act_tile<T, PM>(acts, d.a_y(d.depth_cond - 1), m0, d);
-    const T* k = static_cast<const T*>(cp.k_rgb);
-    for (int j = 0; j < d.Wv; ++j) s = fmaf(y(row, j), Ty<T>::to_f(k[j * 3 + c]), s);
-    return s + cp.b_rgb[c];
-  }
-  const T* k = static_cast<const T*>(cp.k_den);
-  const ActTile<T, PM> h = act_tile<T, PM>(acts, d.a_h(d.depth - 1), m0, d);
-  for (int j = 0; j < d.W; ++j) s = fmaf(h(row, j), Ty<T>::to_f(k[j]), s);
-  if ((d.depth - 1) % d.skip == 0 && d.depth - 1 > 0) {
-    const ActTile<T, PM> xa = act_tile<T, PM>(acts, 0, m0, d);
-    for (int f = 0; f < d.F; ++f) s = fmaf(xa(row, f), Ty<T>::to_f(k[d.W + f]), s);
-  }
-  return s + cp.b_den[0];
-}
-
 // Rows of the channel-major stream S: X | hs | bottleneck | ys (| V).
 __host__ __device__ inline int stream_rows(const TrainDims& d) {
   return d.Fp + (d.depth + 1) * d.W + d.depth_cond * d.Wv + d.Fvp;
@@ -341,13 +312,11 @@ size_t chain_smem_bytes(int wmax, int cg, int nh) {
          sizeof(float) * (2 * nh * TM + 2 * MAX_OUT + cg);
 }
 
-// heads [4][Mp] raw heads of the forward (channel-major acts); the
-// point-major residuals come without them and the chain recomputes them.
-// CL (the classic MLP, raw heads): nd density heads and no g1f; the input
+// heads [4][Mp] raw heads of the forward.  CL (the classic MLP, raw heads): nd density heads and no g1f; the input
 // cotangents come after, from G (mlp_input_grads_kernel).  NV (CL with
 // depth_cond = 0): the rgb head's cotangent goes straight to the bottleneck,
 // unmasked, through k_rgb's first W rows.
-template <typename T, bool PM, bool CL = false, bool NV = false>
+template <typename T, bool CL = false, bool NV = false>
 __global__ void __launch_bounds__(THREADS, 2)
 lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
                        const float* __restrict__ g_rgb, const float* __restrict__ g_dens,
@@ -386,7 +355,7 @@ lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
     for (int c = tid; c < n; c += THREADS) dbacc[g_off + c] += part[c] + part[MAX_OUT + c];
   };
   auto relu_mask = [&](int a) {
-    const ActTile<T, PM> t = act_tile<T, PM>(acts, a, m0, d);
+    const ActTile<T> t = act_tile<T>(acts, a, m0, d);
     return [t](int row, int col, float v) { return t(row, col) > 0.f ? v : 0.f; };
   };
   for (int tile = blockIdx.x; tile < d.Mp / TM; tile += gridDim.x) {
@@ -410,8 +379,7 @@ lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
       if (m < d.M) {
         g = c < 3 ? g_rgb[(size_t)m * 3 + c] : g_dens[m];
         if (d.use_act) {
-          const float raw = PM ? raw_head<T, PM>(acts, cp, d, c, m0, row)
-                               : heads[(size_t)c * Mp + m];
+          const float raw = heads[(size_t)c * Mp + m];
           if (c < 3) {
             const float s = 1.f / (1.f + expf(-raw));
             g = g * ((1.f + 2.f * d.rgb_padding) * s * (1.f - s));
@@ -437,7 +405,7 @@ lean_grad_chain_kernel(Acts acts, const float* __restrict__ heads,
     {
       const int row = tid & (TM - 1), half = (tid >> 5) & 1, grp = tid >> 6;
       const int n_in = NV ? d.W : d.Wv, g_row = NV ? d.g_bot() : d.g_v(last);
-      const ActTile<T, PM> y = act_tile<T, PM>(acts, NV ? d.a_bot() : d.a_y(last), m0, d);
+      const ActTile<T> y = act_tile<T>(acts, NV ? d.a_bot() : d.a_y(last), m0, d);
       for (int j = grp; j < n_in; j += 4) {   // warp-uniform
         float v = 0.f;
         for (int c = 0; c < 3; ++c) v = fmaf(ghc[c * TM + row], Ty<T>::to_f(k_rgb[j * 3 + c]), v);
@@ -819,37 +787,31 @@ struct Refwd {
 };
 
 // The chunks [c0, c0 + chunk) of the level, then the reductions.  acts /
-// heads describe the whole level (save: S and its heads; hybrid: the
-// point-major streams, heads null) unless rf re-runs the forward per chunk.
-// CL: the classic MLP (its forward re-run, dx / dview, no per-ray sums);
-// NV: the classic MLP with no view layer.
-template <typename T, bool PM, bool CL = false, bool NV = false>
+// heads describe the whole level (S and its heads) unless rf re-runs the
+// forward per chunk.  CL: the classic MLP (its forward re-run, dx / dview,
+// no per-ray sums); NV: the classic MLP with no view layer.
+template <typename T, bool CL = false, bool NV = false>
 int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
               const Acts& level_acts, const float* level_heads, cudaStream_t s) {
   const int Cg = d.cg(), wmax = d.W > d.Wv ? d.W : d.Wv;
   const size_t csmem = chain_smem_bytes<T>(wmax, Cg, 3 + d.nd);
-  const size_t wsmem = sizeof(T) == 2 ? 0 : sizeof(float) * WGRAD_ACC * THREADS;
   const size_t fsmem = classic_fwd_smem<T>(d);   // CL: the re-run of mlp_fwd_kernel
-  // The lean chain of a channel-major stream, and the classic chain with
-  // its input cotangents, run on wgmma where the rule takes the shape: bf16
-  // on lean_chain_sm90.cuh, f32 on the 3xTF32 lean_chain_tf32.cuh (rules on
-  // dtype and shape; a plan either cannot make is an error, never another
-  // kernel); the grid is one block an SM at most.  f32 also takes the
+  // The lean chain, and the classic chain with its input cotangents, run
+  // on wgmma where the rule takes the shape: bf16 on lean_chain_sm90.cuh,
+  // f32 on the 3xTF32 lean_chain_tf32.cuh (rules on dtype and shape; a plan
+  // either cannot make is an error, never another kernel); the grid is one
+  // block an SM at most.  f32 also takes the
   // classic MLP with no view layer (NV) there.  Every other form runs on
   // lean_grad_chain_kernel (and, classic, on mlp_input_grads_kernel after
   // it).
-  const bool on_sm90 = sizeof(T) == 2 && !PM && !NV && chain_sm90_route(d);
-  const bool on_tf32 = sizeof(T) == 4 && !PM && chain_tf32_route(d);
+  const bool on_sm90 = sizeof(T) == 2 && !NV && chain_sm90_route(d);
+  const bool on_tf32 = sizeof(T) == 4 && chain_tf32_route(d);
   const bool refwd_wgmma = CL && rf && classic_fwd_wgmma<T>(d);
   const size_t tsmem = chain_tf32_smem(d.W, d.Wv, Cg, CL ? ix_cols(d.Fp) : 0);
   cudaError_t e = cudaSuccess;
   if (!on_sm90 && !on_tf32)
-    e = cudaFuncSetAttribute(lean_grad_chain_kernel<T, PM, CL, NV>,
+    e = cudaFuncSetAttribute(lean_grad_chain_kernel<T, CL, NV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)csmem);
-  if constexpr (PM)
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(lean_wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)wsmem);
   if (e == cudaSuccess && rf && CL && !refwd_wgmma)
     e = cudaFuncSetAttribute(mlp_fwd_kernel<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)fsmem);
@@ -908,9 +870,6 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
         acts.ld[i] = dc.Mp;
       }
       heads = rf->heads;
-    } else if (PM) {
-      for (int i = 0; i < d.n_acts(); ++i)
-        acts.t[i] = static_cast<const T*>(level_acts.t[i]) + (size_t)c0 * level_acts.ld[i];
     }
     float* db_part = a.db_part + (size_t)n_chunks * a.n_chain * Cg;
     // The classic form: dx / dview of the chunk's points as steps of the
@@ -934,7 +893,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
           reinterpret_cast<float*>(G), a.g1f, db_part, a.n_chain);
       if (cudaPeekAtLastError() == cudaSuccess) ++g_chain_tf32_launches;
     } else {
-      lean_grad_chain_kernel<T, PM, CL, NV><<<a.n_chain, THREADS, csmem, s>>>(
+      lean_grad_chain_kernel<T, CL, NV><<<a.n_chain, THREADS, csmem, s>>>(
           acts, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc, G,
           a.g1f, db_part);
     }
@@ -946,26 +905,19 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       mlp_input_grads_kernel<T, NV><<<dc.Mp / TM, THREADS, ismem, s>>>(G, ig, dc);
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
+    // The activations are rows of one stream: their offsets from X's.  bf16
+    // on wgrad_sm90_kernel, f32 on wgrad_tf32_kernel (a rule on shape; a
+    // plan either cannot make is an error).
     float* partial = a.partial + (size_t)(c0 / a.MC) * a.PW;
-    if constexpr (!PM) {
-      // The activations are rows of one stream: their offsets from X's.
-      // bf16 on wgrad_sm90_kernel, f32 on wgrad_tf32_kernel (rules on
-      // dtype and shape; a plan either cannot make is an error).
-      int a_row[MAX_LAYERS];
-      for (int i = 0; i < d.n_acts(); ++i)
-        a_row[i] = (int)((static_cast<const char*>(acts.t[i]) -
-                          static_cast<const char*>(acts.t[0])) /
-                         (sizeof(T) * (long long)acts.ld[0]));
-      e = (cudaError_t)(sizeof(T) == 2 ? launch_wgrad_sm90 : launch_wgrad_tf32)(
-          acts.t[0], stream_rows(d), a_row, d.n_acts(), G, Cg, a.tab, a.n_tiles, dc.Mp, a.MC,
-          partial, a.PW, s);
-      if (e != cudaSuccess) return (int)e;
-    } else {
-      const dim3 grid(a.n_tiles, (dc.Mp + a.MC - 1) / a.MC);
-      lean_wgrad_kernel<T><<<grid, THREADS, wsmem, s>>>(acts, G, a.tab, dc.Mp, dc.M, a.MC,
-                                                        partial, a.PW);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    }
+    int a_row[MAX_LAYERS];
+    for (int i = 0; i < d.n_acts(); ++i)
+      a_row[i] = (int)((static_cast<const char*>(acts.t[i]) -
+                        static_cast<const char*>(acts.t[0])) /
+                       (sizeof(T) * (long long)acts.ld[0]));
+    e = (cudaError_t)(sizeof(T) == 2 ? launch_wgrad_sm90 : launch_wgrad_tf32)(
+        acts.t[0], stream_rows(d), a_row, d.n_acts(), G, Cg, a.tab, a.n_tiles, dc.Mp, a.MC,
+        partial, a.PW, s);
+    if (e != cudaSuccess) return (int)e;
     if constexpr (!CL) {
       const long long warps = (long long)dc.R * d.Wv;
       lean_ray_sum_kernel<T><<<(int)((warps * 32 + 255) / 256), 256, 0, s>>>(
@@ -1047,7 +999,7 @@ int read_grad_args(GradArgs& a, TrainDims& d, LEAN_GRAD_PARAMS) {
   return 0;
 }
 
-// One chunk over the whole level (save, hybrid).
+// One chunk over the whole level (a saved stream).
 int level_chunk(const TrainDims& d, int MC) { return (d.Mp + MC - 1) / MC * MC; }
 
 // The dims the chains' rules read (a lean MLP: one density head, no
@@ -1090,10 +1042,10 @@ int read_classic(GradArgs& a, const TrainDims& d, void* dx, void* dview, const v
 int run_classic(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
                 const Acts& acts, int use_bf16, cudaStream_t s) {
   if (d.depth_cond == 0)
-    return use_bf16 ? run_grads<bf16, false, true, true>(a, d, chunk, rf, acts, nullptr, s)
-                    : run_grads<float, false, true, true>(a, d, chunk, rf, acts, nullptr, s);
-  return use_bf16 ? run_grads<bf16, false, true>(a, d, chunk, rf, acts, nullptr, s)
-                  : run_grads<float, false, true>(a, d, chunk, rf, acts, nullptr, s);
+    return use_bf16 ? run_grads<bf16, true, true>(a, d, chunk, rf, acts, nullptr, s)
+                    : run_grads<float, true, true>(a, d, chunk, rf, acts, nullptr, s);
+  return use_bf16 ? run_grads<bf16, true>(a, d, chunk, rf, acts, nullptr, s)
+                  : run_grads<float, true>(a, d, chunk, rf, acts, nullptr, s);
 }
 
 int classic_fwd_entry(const void* x, const void* view, const void* weights, const void* biases,
@@ -1158,7 +1110,8 @@ int lean_save_fwd(const void* x, const void* vproj, const void* weights, const v
 // tiles; MC, the points of a partial sum, is a multiple of 64 and of N;
 // view_off is the offset in dw of view_0's per-ray rows.
 
-// saved / heads from lean_save_fwd.
+// saved / heads from lean_save_fwd, or written in the same layout by the
+// plain forward of mode 'hybrid' (kernels/mlp.py lean_hybrid_fwd).
 int lean_param_grads(const void* saved, const void* heads, LEAN_GRAD_PARAMS) {
   GradArgs a;
   TrainDims d;
@@ -1174,8 +1127,8 @@ int lean_param_grads(const void* saved, const void* heads, LEAN_GRAD_PARAMS) {
   }
   const float* h = static_cast<const float*>(heads);
   const int chunk = level_chunk(d, MC);
-  return use_bf16 ? run_grads<bf16, false>(a, d, chunk, nullptr, acts, h, s)
-                  : run_grads<float, false>(a, d, chunk, nullptr, acts, h, s);
+  return use_bf16 ? run_grads<bf16>(a, d, chunk, nullptr, acts, h, s)
+                  : run_grads<float>(a, d, chunk, nullptr, acts, h, s);
 }
 
 // x / vproj / weights / biases as lean_fwd takes them (rows or moments, as
@@ -1196,28 +1149,8 @@ int lean_param_grads_recompute(const void* x, const void* vproj, const void* wei
                  static_cast<const void* const*>(wt)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Acts none{};
-  return use_bf16 ? run_grads<bf16, false>(a, d, chunk, &rf, none, nullptr, s)
-                  : run_grads<float, false>(a, d, chunk, &rf, none, nullptr, s);
-}
-
-// acts[a] the row-major compute-dtype residuals of the plain forward: x
-// [M, Fp] (zero past column F) | hs, bottleneck [M, W] | ys [M, Wv].
-int lean_param_grads_hybrid(const void* acts, LEAN_GRAD_PARAMS) {
-  GradArgs a;
-  TrainDims d;
-  int err = read_grad_args(a, d, LEAN_GRAD_ARGS);
-  if (err) return err;
-  if (d.Fvp) return (int)cudaErrorInvalidValue;
-  Acts level;
-  const void* const* t = static_cast<const void* const*>(acts);
-  for (int i = 0; i < d.n_acts(); ++i) {
-    level.t[i] = t[i];
-    level.ld[i] = i == 0 ? d.Fp : i <= d.depth + 1 ? d.W : d.Wv;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int chunk = level_chunk(d, MC);
-  return use_bf16 ? run_grads<bf16, true>(a, d, chunk, nullptr, level, nullptr, s)
-                  : run_grads<float, true>(a, d, chunk, nullptr, level, nullptr, s);
+  return use_bf16 ? run_grads<bf16>(a, d, chunk, &rf, none, nullptr, s)
+                  : run_grads<float>(a, d, chunk, &rf, none, nullptr, s);
 }
 
 // The classic MLP (fused_mlp).  dims as above with N = 1 (R = M), L = 0,
@@ -1326,14 +1259,15 @@ int lean_sm90_smem(int Cg, int* out) {
   return 0;
 }
 
-// Launches of wgrad_tf32_kernel by this library so far.
+// Launches of wgrad_tf32_kernel (f32) / wgrad_sm90_kernel (bf16) by this
+// library so far.
 long long wgrad_tf32_launches() { return g_wgrad_tf32_launches; }
+long long wgrad_sm90_launches() { return g_wgrad_sm90_launches; }
 
-// 1 if the weight gradients of a backward in this dtype, on point-major
-// activations (pm: hybrid) or a channel-major stream, of Mp points in
-// ranges of MC take wgrad_tf32_kernel.
-int wgrad_tf32_route(int use_bf16, int pm, int Mp, int MC) {
-  return !use_bf16 && !pm && wgrad_tf32_takes(Mp, MC) ? 1 : 0;
+// 1 if the weight gradients of a backward in this dtype, of Mp points in
+// ranges of MC, take wgrad_tf32_kernel.
+int wgrad_tf32_route(int use_bf16, int Mp, int MC) {
+  return !use_bf16 && wgrad_tf32_takes(Mp, MC) ? 1 : 0;
 }
 
 // Its dynamic shared memory.

@@ -1,13 +1,14 @@
 // The weight-gradient products of the bf16 training backwards on Hopper's
-// wgmma and TMA (lean_train.cu, tp_pair.cu).  Their f32 counterpart is
-// lean_wgrad_tf32.cuh (3xTF32); lean_wgrad.cuh's mma.sync kernel keeps the
-// point-major activations of 'hybrid' only.
+// wgmma and TMA (lean_train.cu, tp_pair.cu), every mode's: save,
+// recompute, hybrid (whose plain forward writes the same stream), the
+// classic forms, tp_pair_bwd.  Their f32 counterpart is lean_wgrad_tf32.cuh
+// (3xTF32).
 //
 // dW = A^T G over the points: A (activation rows) and G (cotangent rows)
 // are both channel-major [C][Mp] with the points contiguous, so both are
 // K-major wgmma operands, read straight from the streams by TMA.  One block
-// computes one 128 x 128 output tile over one MC-point range (the same
-// tiles, ranges and per-range partial sums as lean_wgrad_kernel, so every
+// computes one 128 x 128 output tile over one MC-point range (the
+// WgradTable tiles and per-range partial sums of lean_wgrad.cuh, so every
 // mode sums the same ranges in the same order): a producer warp keeps a
 // 4-stage ring of 64-point slabs in flight (two 64 x 64 boxes of A rows and
 // two of G rows a stage, 32 KB), two consumer warpgroups each multiply their
@@ -41,6 +42,9 @@ struct WgradMaps {
 struct WgradRows {
   int a_row[MAX_LAYERS];
 };
+
+// Launches of wgrad_sm90_kernel by this library (wgrad_sm90_launches).
+long long g_wgrad_sm90_launches = 0;
 
 __host__ __device__ constexpr size_t wgrad_sm90_smem() {
   return (size_t)WS_STAGES * 4 * WS_BOX + 2 * WS_STAGES * sizeof(uint64_t) + 1024;
@@ -125,7 +129,7 @@ wgrad_sm90_kernel(const __grid_constant__ WgradMaps maps, WgradTable tab, WgradR
 
 // The weight gradients of one chunk on wgmma: activation a's rows start at
 // row a_row[a] of the bf16 stream a_base [a_rows][Mp], the cotangents are G
-// [g_rows][Mp]; tiles, MC and partial as lean_wgrad_kernel takes them.  0
+// [g_rows][Mp]; tiles, MC and partial as lean_wgrad.cuh describes them.  0
 // or a cudaError_t (cudaErrorInvalidValue if a tensor map cannot be made).
 inline int launch_wgrad_sm90(const void* a_base, int a_rows, const int* a_row, int n_acts,
                              const void* G, int g_rows, const WgradTable& tab, int n_tiles, int Mp,
@@ -143,7 +147,9 @@ inline int launch_wgrad_sm90(const void* a_base, int a_rows, const int* a_row, i
   if (e != cudaSuccess) return (int)e;
   wgrad_sm90_kernel<<<dim3(n_tiles, (Mp + MC - 1) / MC), WS_THREADS, smem, s>>>(maps, tab, ar, Mp,
                                                                                MC, partial, PW);
-  return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++g_wgrad_sm90_launches;
+  return (int)e;
 }
 
 }  // namespace

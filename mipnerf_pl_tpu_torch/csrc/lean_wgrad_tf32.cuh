@@ -1,25 +1,25 @@
 // The weight-gradient products of the f32 training backwards on Hopper's
 // wgmma and TMA, 3xTF32 (lean_train.cu run_grads: lean_param_grads, its
-// recompute form and the render-fused level's backward, the classic
+// recompute form, hybrid's backward (the same entry on the stream its plain
+// forward writes) and the render-fused level's backward, the classic
 // mlp_bwd_saved / mlp_bwd_recompute; tp_pair.cu: tp_pair_bwd), the
 // f32 counterpart of lean_wgrad_sm90.cuh: in f32, the weight-gradient sums
 // of the TPU kernels _bwd_kernel_lean_save, _bwd_kernel_lean,
-// _bwd_kernel_lean_render, _bwd_kernel and _bwd_kernel_saved
-// (mipnerf_pl_tpu/kernels/mlp.py) and _pair_bwd_kernel (kernels/tp_lean.py).
-// It takes them over from the mma.sync lean_wgrad_kernel (lean_wgrad.cuh),
-// which keeps only the point-major activations of 'hybrid'.
+// _bwd_kernel_lean_hybrid, _bwd_kernel_lean_render, _bwd_kernel and
+// _bwd_kernel_saved (mipnerf_pl_tpu/kernels/mlp.py) and _pair_bwd_kernel
+// (kernels/tp_lean.py).
 //
 // dW = A^T G over the points: the activation rows A and the cotangent rows
 // G are both channel-major [C][Mp] with the points contiguous, so both are
 // K-major operands, the only layout wgmma reads tf32 in.  The contract is
-// lean_wgrad_kernel's, so every mode sums the same ranges in the same
+// lean_wgrad.cuh's, so every mode sums the same ranges in the same
 // order: the WgradTable problems and 128 x 128 output tiles, one block a
 // tile and MC-point range, the range's sums to its own partial row (reduced
 // in order by sum_rows_kernel).  Deterministic: fixed order, no atomics.
 //
 // Route (wgrad_tf32_takes, C entry wgrad_tf32_route, mirrored by
-// kernels/mlp.py wgrad_tf32_route): f32, a channel-major stream, Mp and MC
-// multiples of the WT_KP-point slab.  A tensor map it cannot make is an
+// kernels/mlp.py wgrad_tf32_route): f32, Mp and MC multiples of the
+// WT_KP-point slab.  A tensor map it cannot make is an
 // error (launch_wgrad_tf32 returns cudaErrorInvalidValue), never another
 // kernel.
 //
@@ -245,8 +245,8 @@ wgrad_tf32_kernel(const __grid_constant__ WgradMaps maps, WgradTable tab, WgradR
 
 // The f32 weight gradients of one chunk: activation a's rows start at row
 // a_row[a] of the f32 stream a_base [a_rows][Mp], the cotangents are G
-// [g_rows][Mp]; tiles, MC and partial as lean_wgrad_kernel takes them.  0
-// or a cudaError_t (cudaErrorInvalidValue for shapes outside the route or
+// [g_rows][Mp]; tiles, MC and partial as lean_wgrad.cuh describes them.
+// 0 or a cudaError_t (cudaErrorInvalidValue for shapes outside the route or
 // a tensor map that cannot be made).
 inline int launch_wgrad_tf32(const void* a_base, int a_rows, const int* a_row, int n_acts,
                              const void* G, int g_rows, const WgradTable& tab, int n_tiles, int Mp,

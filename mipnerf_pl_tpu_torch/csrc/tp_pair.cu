@@ -337,8 +337,9 @@ int tp_pair_bwd(const void* x, const void* wc, const void* bc, const void* wrT, 
   return use_bf16 ? launch_bwd<bf16>(a, d, s) : launch_bwd<float>(a, d, s);
 }
 
-// Launches of wgrad_tf32_kernel by this library so far (tp_pair_bwd's f32
-// weight gradients).
+// Launches of wgrad_tf32_kernel / wgrad_sm90_kernel by this library so far
+// (tp_pair_bwd's f32 / bf16 weight gradients).
 long long wgrad_tf32_launches() { return g_wgrad_tf32_launches; }
+long long wgrad_sm90_launches() { return g_wgrad_sm90_launches; }
 
 }  // extern "C"

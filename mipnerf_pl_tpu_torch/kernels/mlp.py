@@ -40,9 +40,10 @@ Function `fused_mlp_lean` over csrc/lean_train.cu:
                     the same gradients, the forward re-run chunk by chunk
                     in its input form (`_bwd_kernel_lean`)
   lean_param_grads_hybrid
-                    the same gradients from the row-major residuals of the
-                    plain-torch forward `lean_hybrid_fwd` of mode 'hybrid'
-                    (`_bwd_kernel_lean_hybrid`)
+                    the same gradients, on the same kernels, from the
+                    stream the plain-torch forward `lean_hybrid_fwd` of mode
+                    'hybrid' writes (`_bwd_kernel_lean_hybrid`): its
+                    products, transposed, land in the rows of S
 
 The forwards run view_proj for view_0's per-ray half; heads are activated
 with act = (rgb_padding, density_bias), or raw for act=None.  These need
@@ -95,10 +96,10 @@ The f32 lean forwards at those widths (`fwd_tf32_route`) run on the
 3xTF32 wgmma forward (csrc/lean_fwd_tf32.cuh), from the transposed kernels
 split once a call into tf32 hi and lo (`tf32_fwd_weights`);
 `tf32_routes[name]` counts the calls that took it.  The weight gradients
-of every f32 backward on a channel-major stream (`wgrad_tf32_route`: all
-but hybrid's point-major residuals) run on a 3xTF32 wgmma kernel
-(csrc/lean_wgrad_tf32.cuh); `wgrad_tf32_routes[name]` counts the calls
-that took it.
+of every backward run on wgmma: f32 on a 3xTF32 kernel
+(csrc/lean_wgrad_tf32.cuh, `wgrad_tf32_route`), bf16 on
+csrc/lean_wgrad_sm90.cuh; `wgrad_tf32_routes[name]` and
+`wgrad_sm90_routes[name]` count the calls that took each.
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU, and
 only there.  For a CUDA tensor it launches its kernel or raises: there is
@@ -209,30 +210,32 @@ FT_STAGES, FT_KS, FT_LD, FT_MAX_LAYERS, FT_MAX_X = 3, 16, 72, 12, 128
 # (csrc/lean_chain_tf32.cuh), read from the library's own counts of their
 # launches around each call.
 chain_routes = {'lean_param_grads': 0, 'lean_param_grads_recompute': 0,
-                'mlp_bwd_saved': 0, 'mlp_bwd_recompute': 0}
+                'lean_param_grads_hybrid': 0, 'mlp_bwd_saved': 0,
+                'mlp_bwd_recompute': 0}
 chain_tf32_routes = dict.fromkeys(chain_routes, 0)
 
 
 # Wrapper name -> calls whose weight gradients ran on the f32 wgmma kernel
-# wgrad_tf32_kernel (csrc/lean_wgrad_tf32.cuh), read from the library's own
-# count of its launches around each call (tp_pair_bwd: kernels/tp_lean.py).
+# wgrad_tf32_kernel (csrc/lean_wgrad_tf32.cuh) / on the bf16 one
+# wgrad_sm90_kernel (csrc/lean_wgrad_sm90.cuh), read from the library's own
+# counts of their launches around each call (tp_pair_bwd:
+# kernels/tp_lean.py).
 wgrad_tf32_routes = {'lean_param_grads': 0, 'lean_param_grads_recompute': 0,
                      'lean_param_grads_hybrid': 0, 'mlp_bwd_saved': 0,
                      'mlp_bwd_recompute': 0, 'tp_pair_bwd': 0}
+wgrad_sm90_routes = dict.fromkeys(wgrad_tf32_routes, 0)
 
 # The shape rule of wgrad_tf32_kernel (csrc/lean_wgrad_tf32.cuh,
 # wgrad_tf32_takes): slabs of WT_KP points.
 WT_KP = 32
 
 
-def wgrad_tf32_route(compute_dtype, point_major: bool, Mp: int,
-                     MC: int) -> bool:
+def wgrad_tf32_route(compute_dtype, Mp: int, MC: int) -> bool:
     """Whether the weight gradients of a backward run on wgrad_tf32_kernel:
-    f32, a channel-major stream (save, recompute, the classic forms,
-    tp_pair_bwd; not hybrid's point-major residuals), and the padded points
-    Mp and the points of a range MC multiples of the WT_KP-point slab."""
-    return (compute_dtype == torch.float32 and not point_major
-            and Mp > 0 and MC > 0 and Mp % WT_KP == 0 and MC % WT_KP == 0)
+    f32, and the padded points Mp and the points of a range MC multiples of
+    the WT_KP-point slab.  Every backward reads a channel-major stream."""
+    return (compute_dtype == torch.float32 and Mp > 0 and MC > 0
+            and Mp % WT_KP == 0 and MC % WT_KP == 0)
 
 
 def _chain_count(lib, i):
@@ -252,15 +255,15 @@ def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
     for counts in (routes, tf32_routes, chain_routes, chain_tf32_routes,
-                   wgrad_tf32_routes):
+                   wgrad_tf32_routes, wgrad_sm90_routes):
         for k in counts:
             counts[k] = 0
 
 
 # The shape rule of the lean chains on wgmma (csrc/lean_chain_sm90.cuh
 # chain_sm90_route, csrc/lean_chain_tf32.cuh chain_tf32_route): a lean MLP
-# on a channel-major stream (save, recompute), W and Wv multiples of 64 up
-# to MAX_WIDTH, a view layer, depth + depth_cond + 1 <= CH_MAX_STEPS, and
+# (save, recompute, hybrid), W and Wv multiples of 64 up to MAX_WIDTH, a
+# view layer, depth + depth_cond + 1 <= CH_MAX_STEPS, and
 # the plan within the block's shared memory.  The bf16 chain: a ring of
 # CH_STAGES slabs of 32 rows x 4 boxes of 64 bf16 columns, two warpgroups'
 # 4-box cotangent tiles, CH_MASKS mask slots of MAX_WIDTH x 16 bytes,
@@ -321,16 +324,16 @@ def _chain_route(W, Wv, net_depth, net_depth_condition, smem):
 def chain_sm90_route(compute_dtype, W: int, Wv: int, net_depth: int,
                      net_depth_condition: int, *, F: int = 0, Fv: int = 0,
                      nd: int = 1, skip_index: int = 4) -> bool:
-    """Whether the lean chain of lean_param_grads / _recompute (and the
-    render-fused level's backward) runs on lean_chain_sm90_kernel: bf16 and
-    the shape rule above.  With Fv > 0, whether the classic backward of
-    fused_mlp (mlp_bwd_saved, mlp_bwd_recompute; F encode and Fv view
-    features, nd density heads) runs its chain, dx and dview there: bf16, W
-    and Wv multiples of 64 up to MAX_WIDTH, a view layer, one density head,
-    the encode and the view at most MAX_WIDTH once rounded up to 64 (the N
-    of their steps), its weight maps (every chain layer and input step)
-    within CH_MAX_STEPS and its steps within CH_STEPS, and the plan within
-    the block's shared memory (the lean chain's)."""
+    """Whether the lean chain of lean_param_grads / _recompute / _hybrid
+    (and the render-fused level's backward) runs on lean_chain_sm90_kernel:
+    bf16 and the shape rule above.  With Fv > 0, whether the classic
+    backward of fused_mlp (mlp_bwd_saved, mlp_bwd_recompute; F encode and
+    Fv view features, nd density heads) runs its chain, dx and dview there:
+    bf16, W and Wv multiples of 64 up to MAX_WIDTH, a view layer, one
+    density head, the encode and the view at most MAX_WIDTH once rounded up
+    to 64 (the N of their steps), its weight maps (every chain layer and
+    input step) within CH_MAX_STEPS and its steps within CH_STEPS, and the
+    plan within the block's shared memory (the lean chain's)."""
     if compute_dtype != torch.bfloat16:
         return False
     Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
@@ -884,66 +887,117 @@ def lean_param_grads_recompute_plain(x, view, g_rgb, g_dens, flat_params,
                                   *args)
 
 
-def lean_param_grads_hybrid_plain(view, g_rgb, g_dens, residuals,
-                                  flat_params, num_samples: int,
-                                  net_depth: int, net_depth_condition: int,
-                                  skip_index: int, compute_dtype, act):
-    """The hybrid backward on lean_hybrid_fwd's residuals (x [M, Fp], hs,
-    bottleneck, ys in the compute dtype); the raw heads of the activation
-    fold are recomputed from them with f32 sums, as JAX does."""
-    xp, hs, bott, ys = residuals
-    F = flat_params[0].shape[0]
-    return _param_grads_core(view, g_rgb, g_dens, xp[:, :F].float(),
-                             [h.float() for h in hs], bott.float(),
-                             [y.float() for y in ys], flat_params,
-                             num_samples, net_depth, net_depth_condition,
-                             skip_index, compute_dtype, act)
+# The hybrid backward reads what 'save' reads, (S, heads): one plain version.
+lean_param_grads_hybrid_plain = lean_param_grads_plain
+
+def _f32_products(k, t):
+    """k^T t [n, Mp] as f32 sums of the exact products of the compute-dtype
+    kernel rows k [w, n] and activation rows t [w, Mp]: on the card cuBLAS
+    writes its f32 sums as they are (no f32 copy of t); on the CPU the
+    operands are cast first."""
+    if t.is_cuda:
+        return torch.mm(k.t(), t, out_dtype=torch.float32)
+    return k.float().t() @ t.float()
 
 
+@torch.no_grad()
 def lean_hybrid_fwd(x, view, flat_params, num_samples: int, net_depth: int,
                     net_depth_condition: int, skip_index: int, compute_dtype,
                     act):
     """The forward of mode 'hybrid', plain torch as JAX's is plain XLA
     (`_fwd_body_lean_xla`), with its rounding: each product in the compute
     dtype, biases added in it, skip and head concats as split products.
+    Each product is computed transposed, k^T act^T, straight into its rows
+    of the channel-major stream S [Cs, Mp] of the `saved_rows` layout (the
+    same cuBLAS product with its operands swapped), then the bias and the
+    ReLU in place; view_0's per-ray term is added along each ray's columns.
     -> (rgb [M, 3], density [M, 1] f32, activated with act from heads
-    rounded to the compute dtype, residuals = (x [M, Fp] compute dtype,
-    zero past column F; hs; bottleneck; ys), the row-major activations the
-    hybrid backward reads)."""
+    rounded to the compute dtype, saved = (S, raw heads [4, Mp] f32)), the
+    pair the 'save' backward reads.  The raw heads are f32 sums of the
+    compute-dtype activations with the rounded biases, the value JAX's
+    backward recomputes for its activation fold (in f32 the output heads
+    themselves; in bf16 `_f32_products`, so no level-sized f32 copy
+    exists).  Columns M..Mp of S and heads are zero, as lean_mlp_save_plain
+    leaves them."""
     dt = compute_dtype
-    p = [t.detach().to(dt) for t in flat_params]
+    dev = x.device
+    # Contiguous [in, out] kernels: cuBLAS then picks its faster f32 tiles
+    # for k^T act^T (the model's kernels are transposed views).
+    p = [t.detach().to(dt).contiguous() for t in flat_params]
     M, F = x.shape
+    Mp = _round_up(M, TILE)
     W = p[0].shape[1]
     iv = net_depth + 2
-    N = num_samples
-    xp = torch.zeros((M, _round_up(F, 16)), dtype=dt, device=x.device)
-    xp[:, :F] = x
-    xc = xp[:, :F]
+    Wv = p[2 * iv].shape[1]
+    Fp, hs_r, bott_r, ys_r, Cs = saved_rows(F, W, Wv, net_depth,
+                                            net_depth_condition)
+    S = torch.empty((Cs, Mp), dtype=dt, device=dev)
+    # X = x^T as the product of the identity and x^T (each entry 1 times an
+    # x, exact): cuBLAS transposes with coalesced reads, where a copy of
+    # x.t() reads x with a stride of F values (~6x slower at a lego level).
+    torch.mm(torch.eye(F, dtype=dt, device=dev), x.to(dt).t(), out=S[:F, :M])
+    S[:F, M:] = 0
+    S[F:Fp] = 0
+    X = S[:F]
+    ones = torch.ones((1, Mp), dtype=dt, device=dev)
 
-    def dense_parts(idx, parts):
-        k, out, off = p[2 * idx], p[2 * idx + 1], 0
+    def dense_t(idx, parts, out):
+        """out [n, Mp] = b + sum of k[part]^T part (parts [w, Mp] rows):
+        each product rounded to the compute dtype, then added in it.  The
+        bias goes in as the rank-1 product b 1^T added to out (exact
+        products, one rounding of the sum, as the add would): cuBLAS
+        streams out once, where an add broadcast along rows runs slower."""
+        k, off = p[2 * idx], 0
         for t in parts:
-            w = t.shape[-1]
-            out = out + t @ k[off:off + w]
+            w = t.shape[0]
+            if off == 0:
+                torch.mm(k[:w].t(), t, out=out)
+                out.addmm_(p[2 * idx + 1].reshape(-1, 1), ones)
+            else:
+                out += k[off:off + w].t() @ t
             off += w
         return out
 
-    hs, parts = [], [xc]
+    def rows(r, w):
+        return S[r:r + w]
+
+    parts = [X]
     for i in range(net_depth):
-        h = torch.relu(dense_parts(i, parts))
-        hs.append(h)
-        parts = [h, xc] if _skip_after(i, skip_index) else [h]
-    density = dense_parts(net_depth, parts).float()
-    bott = dense_parts(net_depth + 1, parts)
+        h = dense_t(i, parts, rows(hs_r[i], W)).relu_()
+        parts = [h, X] if _skip_after(i, skip_index) else [h]
+    f32 = dt == torch.float32
+    heads = torch.empty((4, Mp), dtype=torch.float32, device=dev)
+    dens = dense_t(net_depth, parts,
+                   heads[3:] if f32 else torch.empty((1, Mp), dtype=dt,
+                                                      device=dev))
+    bott = dense_t(net_depth + 1, parts, rows(bott_r, W))
     k0, b0 = p[2 * iv], p[2 * iv + 1]
     per_ray = view.to(dt) @ k0[W:] + b0
-    y = (bott @ k0[:W]).reshape(-1, N, k0.shape[1]) + per_ray[:, None, :]
-    ys = [torch.relu(y.reshape(M, -1))]
+    y = rows(ys_r[0], Wv)
+    torch.mm(k0[:W].t(), bott, out=y)
+    y[:, :M].view(Wv, -1, num_samples).add_(per_ray.t()[:, :, None])
+    y.relu_()
     for j in range(1, net_depth_condition):
-        ys.append(torch.relu(dense_parts(iv + j, [ys[-1]])))
-    rgb = dense_parts(iv + net_depth_condition, [ys[-1]]).float()
-    rgb, density = _heads_out(rgb, density, act)
-    return rgb, density, (xp, hs, bott, ys)
+        y = dense_t(iv + j, [y], rows(ys_r[j], Wv)).relu_()
+    i_rgb = iv + net_depth_condition
+    rgb = dense_t(i_rgb, [y],
+                  heads[:3] if f32 else torch.empty((3, Mp), dtype=dt,
+                                                    device=dev))
+    if not f32:
+        for idx, srcs, out in ((i_rgb, [y], heads[:3]),
+                               (net_depth, parts, heads[3:])):
+            k, off = p[2 * idx], 0
+            acc = p[2 * idx + 1].float().reshape(-1, 1)
+            for t in srcs:
+                acc = acc + _f32_products(k[off:off + t.shape[0]], t)
+                off += t.shape[0]
+            out.copy_(acc)
+    S[Fp:, M:] = 0
+    heads[:, M:] = 0
+    raw_rgb = rgb[:, :M].t().float().contiguous()
+    raw_d = dens[:, :M].t().float().contiguous()
+    rgb, density = _heads_out(raw_rgb, raw_d, act)
+    return rgb, density, (S, heads)
 
 
 # ---------------------------------------------------------------------------
@@ -1033,7 +1087,6 @@ _ARGTYPES = {
     'lean_save_fwd': [_P] * 5 + [_I] + [_P] * 4 + [_F, _F, _I, _I, _P],
     'lean_param_grads': [_P] * 2 + _GRAD_TAIL,
     'lean_param_grads_recompute': [_P] * 7 + [_I] + _GRAD_TAIL,
-    'lean_param_grads_hybrid': [_P] + _GRAD_TAIL,
     'mlp_fwd': [_P] * 5 + [_I] + [_P] * 3 + [_I, _P],
     'mlp_save_fwd': [_P] * 5 + [_I] + [_P] * 4 + [_I, _P],
     'mlp_bwd_saved': [_P] * 7 + _GRAD_TAIL,
@@ -1043,13 +1096,19 @@ _ARGTYPES = {
 }
 
 
+# Wrapper name -> the C entry it launches, where the two differ: the hybrid
+# backward reads the stream 'save' reads.
+_ENTRY = {'lean_param_grads_hybrid': 'lean_param_grads'}
+
+
 def _call(fn_name: str, device, *args):
     """Launch one kernel on the current stream of `device`; raise if the
     launch was refused (the C entry returns cudaGetLastError())."""
     from mipnerf_pl_tpu_torch.kernels import _build
     lib = _build.load(KERNELS[fn_name][0].rsplit('/', 1)[1][:-len('.cu')])
-    fn = getattr(lib, fn_name)
-    fn.argtypes = _ARGTYPES[fn_name]
+    entry = _ENTRY.get(fn_name, fn_name)
+    fn = getattr(lib, entry)
+    fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
     counts = []
     for name, table in (('lean_fwd_sm90_launches', routes),
@@ -1062,10 +1121,12 @@ def _call(fn_name: str, device, *args):
         if fn_name in table:
             count = _chain_count(lib, i)
             counts.append((count, count(), table))
-    if fn_name in wgrad_tf32_routes:
-        count = lib.wgrad_tf32_launches
-        count.argtypes, count.restype = [], ctypes.c_longlong
-        counts.append((count, count(), wgrad_tf32_routes))
+    for name, table in (('wgrad_tf32_launches', wgrad_tf32_routes),
+                        ('wgrad_sm90_launches', wgrad_sm90_routes)):
+        if fn_name in table:
+            count = getattr(lib, name)
+            count.argtypes, count.restype = [], ctypes.c_longlong
+            counts.append((count, count(), table))
     with torch.cuda.device(device):       # launch on the tensors' card
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -1604,19 +1665,11 @@ def _grad_launch(fn, prefix, chunk, plan, view, g_rgb, g_dens, flat_params,
     return grads
 
 
-def lean_param_grads(view, g_rgb, g_dens, saved, flat_params,
-                     num_samples: int, net_depth: int,
-                     net_depth_condition: int, skip_index: int,
-                     compute_dtype, act):
-    """(view [R, Fv] f32, head cotangents g_rgb [M, 3] / g_dens [M, 1] f32,
-    saved from lean_save_fwd, params) -> f32 gradients of every parameter
-    in param order (kernels [in, out], biases [1, out])."""
-    if _on_cpu(view, 'lean_param_grads'):
-        return lean_param_grads_plain(view, g_rgb, g_dens, saved,
-                                      flat_params, num_samples, net_depth,
-                                      net_depth_condition, skip_index,
-                                      compute_dtype, act)
-    fn = 'lean_param_grads'
+def _stream_param_grads(fn, view, g_rgb, g_dens, saved, flat_params,
+                        num_samples, net_depth, net_depth_condition,
+                        skip_index, compute_dtype, act):
+    """The backward of a level-sized stream (S, heads) as backward wrapper
+    `fn` ('lean_param_grads', 'lean_param_grads_hybrid') launches it."""
     plan = _grad_plan(fn, view, g_rgb, g_dens, flat_params, num_samples,
                       net_depth, net_depth_condition, skip_index,
                       compute_dtype)
@@ -1631,6 +1684,20 @@ def lean_param_grads(view, g_rgb, g_dens, saved, flat_params,
                         _round_up(Mp, plan['mc']), plan, view, g_rgb, g_dens,
                         flat_params, net_depth, net_depth_condition,
                         compute_dtype, act)
+
+
+def lean_param_grads(view, g_rgb, g_dens, saved, flat_params,
+                     num_samples: int, net_depth: int,
+                     net_depth_condition: int, skip_index: int,
+                     compute_dtype, act):
+    """(view [R, Fv] f32, head cotangents g_rgb [M, 3] / g_dens [M, 1] f32,
+    saved from lean_save_fwd, params) -> f32 gradients of every parameter
+    in param order (kernels [in, out], biases [1, out])."""
+    args = (view, g_rgb, g_dens, saved, flat_params, num_samples, net_depth,
+            net_depth_condition, skip_index, compute_dtype, act)
+    if _on_cpu(view, 'lean_param_grads'):
+        return lean_param_grads_plain(*args)
+    return _stream_param_grads('lean_param_grads', *args)
 
 
 def lean_param_grads_recompute(x, view, g_rgb, g_dens, flat_params,
@@ -1674,67 +1741,44 @@ def lean_param_grads_recompute(x, view, g_rgb, g_dens, flat_params,
                         compute_dtype, act)
 
 
-def lean_param_grads_hybrid(view, g_rgb, g_dens, residuals, flat_params,
+def lean_param_grads_hybrid(view, g_rgb, g_dens, saved, flat_params,
                             num_samples: int, net_depth: int,
                             net_depth_condition: int, skip_index: int,
                             compute_dtype, act):
-    """lean_param_grads from lean_hybrid_fwd's residuals (x [M, Fp], hs,
-    bottleneck, ys: row-major, compute dtype), read as they are; the raw
-    heads of the activation fold are recomputed from them with f32 sums."""
+    """lean_param_grads from lean_hybrid_fwd's saved = (S, heads): the same
+    kernels, counted under this name."""
+    args = (view, g_rgb, g_dens, saved, flat_params, num_samples, net_depth,
+            net_depth_condition, skip_index, compute_dtype, act)
     if _on_cpu(view, 'lean_param_grads_hybrid'):
-        return lean_param_grads_hybrid_plain(
-            view, g_rgb, g_dens, residuals, flat_params, num_samples,
-            net_depth, net_depth_condition, skip_index, compute_dtype, act)
-    fn = 'lean_param_grads_hybrid'
-    plan = _grad_plan(fn, view, g_rgb, g_dens, flat_params, num_samples,
-                      net_depth, net_depth_condition, skip_index,
-                      compute_dtype)
-    dev, M, F, W, Wv = (plan[k] for k in ('dev', 'M', 'F', 'W', 'Wv'))
-    xp, hs, bott, ys = residuals
-    acts = [xp] + list(hs) + [bott] + list(ys)
-    widths = ([_round_up(F, 16)] + [W] * (net_depth + 1)
-              + [Wv] * net_depth_condition)
-    for i, (t, w) in enumerate(zip(acts, widths)):
-        _check(t, (M, w), fn, f'residual {i}', dev, compute_dtype)
-        if not t.is_contiguous():
-            raise ValueError(f'{fn}: residual {i} must be contiguous')
-    c_acts = (ctypes.c_void_p * len(acts))(*[t.data_ptr() for t in acts])
-    return _grad_launch(fn, [ctypes.addressof(c_acts)],
-                        _round_up(plan['Mp'], plan['mc']), plan, view, g_rgb,
-                        g_dens, flat_params, net_depth, net_depth_condition,
-                        compute_dtype, act)
+        return lean_param_grads_hybrid_plain(*args)
+    return _stream_param_grads('lean_param_grads_hybrid', *args)
 
 
 def _mode_forward(mode, x, view, flat, cfg, encode):
     """The training forward of `mode` -> (rgb, density, what crosses to
-    the backward): 'save' view and the saved stream, 'recompute' only x
-    and view, 'hybrid' view and the plain forward's residuals."""
-    if mode == 'save':
-        rgb, density, saved = lean_save_fwd(x, view, flat, *cfg,
-                                            encode=encode)
-        return rgb, density, (view, *saved)
+    the backward): 'save' and 'hybrid' view and the saved stream with its
+    raw heads, 'recompute' only x and view."""
     if mode == 'recompute':
         rgb, density = lean_fwd(x, view, flat, *cfg, encode=encode)
         return rgb, density, (x, view)
-    rgb, density, (xp, hs, bott, ys) = lean_hybrid_fwd(x, view, flat, *cfg)
-    return rgb, density, (view, xp, *hs, bott, *ys)
+    if mode == 'save':
+        rgb, density, saved = lean_save_fwd(x, view, flat, *cfg,
+                                            encode=encode)
+    else:
+        rgb, density, saved = lean_hybrid_fwd(x, view, flat, *cfg)
+    return rgb, density, (view, *saved)
 
 
 def _mode_param_grads(mode, kept, g_rgb, g_dens, flat, cfg, encode):
     """The parameter-gradient backward of `mode` from what _mode_forward
     kept and the f32 head cotangents."""
-    if mode == 'save':
-        view, S, heads = kept
-        return lean_param_grads(view, g_rgb, g_dens, (S, heads), flat, *cfg)
     if mode == 'recompute':
         x, view = kept
         return lean_param_grads_recompute(x, view, g_rgb, g_dens, flat, *cfg,
                                           encode=encode)
-    view, xp, *acts = kept
-    depth = cfg[1]
-    return lean_param_grads_hybrid(
-        view, g_rgb, g_dens, (xp, acts[:depth], acts[depth], acts[depth + 1:]),
-        flat, *cfg)
+    view, S, heads = kept
+    fn = lean_param_grads if mode == 'save' else lean_param_grads_hybrid
+    return fn(view, g_rgb, g_dens, (S, heads), flat, *cfg)
 
 
 class _Lean(torch.autograd.Function):
@@ -1779,8 +1823,8 @@ def fused_mlp_lean(x, view, flat_params, num_samples: int, net_depth: int,
     mode='recompute': the backward re-runs the forward chunk by chunk;
     nothing level-sized crosses from the forward.  mode='save': the forward
     also keeps every activation (the compute dtype) and the backward reads
-    them back.  mode='hybrid': a plain-torch forward whose activations are
-    the backward's residuals, read as they are.  The backward gives
+    them back.  mode='hybrid': a plain-torch forward whose products write
+    the same stream, which the same backward reads.  The backward gives
     gradients to the parameters only: x and view get none, as the JAX
     function gives them zero cotangents."""
     if net_depth_condition < 1:

@@ -5,7 +5,8 @@
 imports `mipnerf_pl_tpu_torch` from the working directory (so the same
 script times a parent checkout and this one, in turns, within one call) and
 prints one JSON line: the CUDA-event time in ms of lean_fwd,
-lean_save_fwd, lean_param_grads, lean_param_grads_recompute and
+lean_save_fwd, lean_param_grads, lean_param_grads_recompute,
+lean_hybrid_fwd (the plain forward of mode 'hybrid') and
 lean_param_grads_hybrid at the lego training level (3072 seeded rays x 128
 stratified samples, encode rows, seeded Xavier weights and head
 cotangents), f32 and bf16, the least of two means of 10 launches after a
@@ -25,19 +26,23 @@ With --steps it also times the lego training step on pallas_lean_save
 (bench.py's synthetic rays, 3072 a step, make_train_many K = 5 steps a
 call, the host clock to a synchronise): best and median ms/step of 6 calls
 after a warm-up, bf16 and f32, and the device time of one step from a
-torch.profiler window; and the same, bf16 and f32, on the classic backends
-`pallas` and `pallas_save` with stop_resample_grad False (`step bf16
-pallas ...`).
+torch.profiler window; and the same, bf16 and f32, on `pallas_hybrid`
+(`step bf16 pallas_hybrid ...`) and on the classic backends `pallas` and
+`pallas_save` with stop_resample_grad False (`step bf16 pallas ...`).
 
 With --frames it also times one 800x800 frame of render_camera (the lego
 schema's model with seeded weights, chip_smoke.py's Blender camera on the
 radius-4 orbit, 8192-ray chunks, the host clock to a synchronise, after a
 200x200 warm-up), bf16 and f32.
 
-With --profile it first prints, each on a line of its own:
+With --profile it first prints, each on a line of its own (the kernels of
+a split that share a name summed):
   * the device time of every kernel of one lean_param_grads call, bf16 and
     f32, from a torch.profiler window (the split of the backward into its
-    chain, weight-gradient, reduction and per-ray kernels);
+    chain, weight-gradient, reduction and per-ray kernels), and the same of
+    lean_hybrid_fwd and lean_param_grads_hybrid where the checkout has
+    them, with the peak memory of one hybrid forward and backward of the
+    level above what was allocated before (`hybrid peak`);
   * the same split of the forwards: lean_save_fwd on rows and on the
     moments, and lean_mlp at the render chunk (the MLP kernel, the
     wrapper's casts of the weights and biases);
@@ -103,6 +108,15 @@ def device_split(fn, iters=1):
             out[ev.key] = (out.get(ev.key, 0.0)
                            + ev.self_device_time_total / 1e3 / iters)
     return out
+
+
+def short_split(fn):
+    """{short kernel name: device ms per call} of fn() (device_split), the
+    kernels that share a short name summed."""
+    out = {}
+    for k, v in device_split(fn).items():
+        out[short(k)] = out.get(short(k), 0.0) + v
+    return {k: round(v, 4) for k, v in out.items()}
 
 
 def short(name):
@@ -249,18 +263,41 @@ def main():
                 'lean_mlp': lambda: km.lean_mlp(c_moments, c_vproj, flat,
                                                 *args, dt, ACT, enc)}
             for name, fn in fwds.items():
-                split = {short(k): round(v, 4)
-                         for k, v in device_split(fn).items()}
+                split = short_split(fn)
                 print(json.dumps({f'split {name}': tag,
                                   'total_ms': round(sum(split.values()), 4),
                                   'kernels_ms': split}), flush=True)
             saved = km.lean_save_fwd(x, view, flat, *args, dt, ACT)[2]
-            split = device_split(lambda: km.lean_param_grads(
+            split = short_split(lambda: km.lean_param_grads(
                 view, g_rgb, g_dens, saved, flat, *args, dt, ACT))
-            split = {short(k): round(v, 4) for k, v in split.items()}
             print(json.dumps({'split lean_param_grads': tag,
                               'total_ms': round(sum(split.values()), 4),
                               'kernels_ms': split}), flush=True)
+            if hasattr(km, 'lean_hybrid_fwd'):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                res = km.lean_hybrid_fwd(x, view, flat, *args, dt, ACT)[2]
+                km.lean_param_grads_hybrid(view, g_rgb, g_dens, res, flat,
+                                           *args, dt, ACT)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                runs = {'lean_hybrid_fwd': lambda: km.lean_hybrid_fwd(
+                            x, view, flat, *args, dt, ACT),
+                        'lean_param_grads_hybrid':
+                            lambda: km.lean_param_grads_hybrid(
+                                view, g_rgb, g_dens, res, flat, *args, dt,
+                                ACT)}
+                for name, fn in runs.items():
+                    split = short_split(fn)
+                    print(json.dumps({f'split {name}': tag,
+                                      'total_ms': round(sum(split.values()),
+                                                        4),
+                                      'kernels_ms': split}), flush=True)
+                print(json.dumps({'hybrid peak': tag,
+                                  'GiB': round(peak / 2 ** 30, 4)}),
+                      flush=True)
+                res = None
             mm = wgrad_yardstick(km, saved, flat, args, dt)
             print(json.dumps({'yardstick': f'torch.mm weight gradients {tag}',
                               'ms': round(mm, 4)}), flush=True)
@@ -296,8 +333,7 @@ def main():
                         'mlp_bwd_recompute': lambda: km.mlp_bwd_recompute(
                             x, vp, g_rgb, g_dens, fl, *cargs)}
                     for name, fn in runs.items():
-                        split = {short(k): round(v, 4)
-                                 for k, v in device_split(fn).items()}
+                        split = short_split(fn)
                         print(json.dumps({
                             f'split {name}{suffix}': tag,
                             'total_ms': round(sum(split.values()), 4),
@@ -324,6 +360,8 @@ def main():
         res = None
         if hasattr(km, 'lean_hybrid_fwd'):
             res = km.lean_hybrid_fwd(x, view, flat, *args, dt, ACT)[2]
+            calls['lean_hybrid_fwd'] = lambda: km.lean_hybrid_fwd(
+                x, view, flat, *args, dt, ACT)
             calls['lean_param_grads_hybrid'] = \
                 lambda: km.lean_param_grads_hybrid(view, g_rgb, g_dens, res,
                                                    flat, *args, dt, ACT)
@@ -392,10 +430,13 @@ def main():
             out[f'step {tag} median'] = round(med, 3)
             out[f'step {tag} device'] = round(dev_ms, 3)
         for dtype, tag in (('bfloat16', 'bf16'), ('float32', 'f32')):
-            for backend in ('pallas', 'pallas_save'):
+            for backend, opts in (
+                    ('pallas_hybrid', {}),
+                    ('pallas', {'nerf.stop_resample_grad': False}),
+                    ('pallas_save', {'nerf.stop_resample_grad': False})):
                 best, med, dev_ms = step_times(
                     MipNeRFSystem, Rays, hp, dev, dtype, params, backend,
-                    {'nerf.stop_resample_grad': False})
+                    opts)
                 out[f'step {tag} {backend} best'] = round(best, 3)
                 out[f'step {tag} {backend} median'] = round(med, 3)
                 out[f'step {tag} {backend} device'] = round(dev_ms, 3)

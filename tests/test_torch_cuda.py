@@ -16,8 +16,9 @@ metric) against the f32 plain backward, <= 1e-4 in f32 and <= 3e-2 in
 bf16.  Fed the kernel forward's own stream instead, the f32 gradients move
 by ~3e-3 at 393,216 points: the forwards differ by ~1e-6, which flips the
 ReLU mask of every pre-activation that close to zero.  So the hybrid
-backward is held against its plain version on the same residuals, and the
-recompute backward against the save backward on the same kernel forward
+backward is held against its plain version on the same stream (its plain
+forward's, which writes the `saved_rows` layout and the raw heads as
+'save' does; the same kernels then run it), and the recompute backward against the save backward on the same kernel forward
 (<= 1e-5: it re-runs that forward, and only the order of the f32 bias
 sums differs); lean_fwd must equal lean_save_fwd's outputs bit for bit.
 The bf16 backward of a channel-major stream runs on wgmma (the chain where
@@ -32,9 +33,10 @@ shapes run on the 3xTF32 wgmma forward (lean_fwd_tf32_kernel, `tf32_routes`
 against `fwd_tf32_route`) and the f32 lean chain on lean_chain_tf32_kernel
 (`chain_tf32_routes` against `chain_tf32_route`; the bf16 chain's calls in
 `chain_routes`), under the f32 bars above.  The weight gradients of every
-f32 backward on a channel-major stream run on wgrad_tf32_kernel
-(`wgrad_tf32_routes` against `wgrad_tf32_route`; hybrid's point-major
-residuals keep the mma.sync kernel), and a stream it cannot map raises.
+f32 backward run on wgrad_tf32_kernel (`wgrad_tf32_routes` against
+`wgrad_tf32_route`, hybrid's included), every bf16 one on
+wgrad_sm90_kernel (`wgrad_sm90_routes`), and a stream the f32 kernel
+cannot map raises.
 The moments input form is held against the rows form on the plain decode
 of the same moments (<= 1e-5 f32), lean_composite_bwd and ipe_moments
 against their plain versions (<= 1e-5), and training through the
@@ -569,22 +571,21 @@ def test_cuda_wgrad_tf32_route_matches_the_library(cuda_device):
     from mipnerf_pl_tpu_torch.kernels import _build
     lib = _build.load('lean_train')
     for flag, dt in ((0, torch.float32), (1, torch.bfloat16)):
-        for pm in (0, 1):
-            for Mp, MC in ((393216, 15232), (320, 128), (64, 64),
-                           (393216, 15248), (400, 128), (0, 64)):
-                assert bool(lib.wgrad_tf32_route(flag, pm, Mp, MC)) \
-                    == tk.wgrad_tf32_route(dt, bool(pm), Mp, MC)
+        for Mp, MC in ((393216, 15232), (320, 128), (64, 64),
+                       (393216, 15248), (400, 128), (0, 64)):
+            assert bool(lib.wgrad_tf32_route(flag, Mp, MC)) \
+                == tk.wgrad_tf32_route(dt, Mp, MC)
     assert 0 < lib.lean_wgrad_tf32_smem() <= tk.FW_SMEM_MAX
 
 
 @pytest.mark.cuda
 def test_cuda_lego_wgrad_routes(cuda_device):
-    """At the lego shape every f32 backward on a channel-major stream runs
-    its weight gradients on wgrad_tf32_kernel, by the library's own count:
-    lean_param_grads, lean_param_grads_recompute, the render-fused level's
-    backward in both modes (through those two), mlp_bwd_saved,
-    mlp_bwd_recompute and tp_pair_bwd; hybrid's point-major residuals
-    never do.  Two runs of each give the same bits."""
+    """At the lego shape every f32 backward runs its weight gradients on
+    wgrad_tf32_kernel, by the library's own count: lean_param_grads,
+    lean_param_grads_recompute, lean_param_grads_hybrid (on the stream its
+    plain forward writes), the render-fused level's backward in both modes
+    (through the first two), mlp_bwd_saved, mlp_bwd_recompute and
+    tp_pair_bwd.  Two runs of each give the same bits."""
     from mipnerf_pl_tpu_torch.kernels import tp_lean
     R, cfg = TRAIN_SHAPES['lego']
     (x, view), flat, (g_rgb, g_dens) = _on(train_problem(R, **cfg),
@@ -617,8 +618,8 @@ def test_cuda_lego_wgrad_routes(cuda_device):
     for name, fn in calls.items():
         got, again = fn(), fn()
         torch.cuda.synchronize()
-        want = 0 if name == 'lean_param_grads_hybrid' else 2
-        assert tk.wgrad_tf32_routes[name] == want, name
+        assert tk.wgrad_tf32_routes[name] == 2, name
+        assert tk.wgrad_sm90_routes[name] == 0, name
         for a, b in zip(got, again):
             assert torch.isfinite(a).all(), name
             torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -654,7 +655,7 @@ def test_cuda_wgrad_plan_failure_raises(cuda_device):
     off = buf[1:].view(S.shape)
     off.copy_(S)
     assert off.is_contiguous() and off.data_ptr() % 16 != 0
-    assert tk.wgrad_tf32_route(torch.float32, False, S.shape[1], 64)
+    assert tk.wgrad_tf32_route(torch.float32, S.shape[1], 64)
     tk.reset_launches()
     with pytest.raises(RuntimeError, match='lean_param_grads'):
         tk.lean_param_grads(view, g_rgb, g_dens, (off, heads), flat, *args)
@@ -694,8 +695,11 @@ def test_cuda_lean_param_grads_deterministic(cuda_device, shape, dtype):
 @pytest.mark.parametrize('shape', list(TRAIN_SHAPES))
 def test_cuda_hybrid_matches_plain(cuda_device, shape, dtype, act):
     """lean_param_grads_hybrid against the f32 lean_param_grads_hybrid_plain
-    on the same residuals (lean_hybrid_fwd's, in the compute dtype):
-    largest leaf relative error <= 1e-4 f32, <= 3e-2 bf16."""
+    on the same stream and raw heads (lean_hybrid_fwd's, in the compute
+    dtype): largest leaf relative error <= 1e-4 f32, <= 3e-2 bf16.  Its
+    chain takes the wgmma chain of its dtype where the rule takes the shape
+    (`wide`, `skip_end`, lego), as 'save' does, and its weight gradients
+    wgrad_tf32_kernel in f32, wgrad_sm90_kernel in bf16."""
     R, cfg = TRAIN_SHAPES[shape]
     (x, view), flat, (g_rgb, g_dens) = _on(train_problem(R, **cfg),
                                            cuda_device)
@@ -707,8 +711,11 @@ def test_cuda_hybrid_matches_plain(cuda_device, shape, dtype, act):
     got = tk.lean_param_grads_hybrid(view, g_rgb, g_dens, res, flat, *args,
                                      dt, act)
     torch.cuda.synchronize()
-    assert tk.launches['lean_param_grads_hybrid'] == 1
-    assert tk.wgrad_tf32_routes['lean_param_grads_hybrid'] == 0
+    name = 'lean_param_grads_hybrid'
+    assert tk.launches[name] == 1
+    assert chain_took(name) == chain_calls(cfg, dtype)
+    assert tk.wgrad_tf32_routes[name] == wgrad_calls(dtype)
+    assert tk.wgrad_sm90_routes[name] == (dtype == 'bfloat16')
     want = tk.lean_param_grads_hybrid_plain(view, g_rgb, g_dens, res, flat,
                                             *args, torch.float32, act)
     assert all(torch.isfinite(g).all() for g in got)

@@ -239,6 +239,79 @@ def test_lean_save_saved_stream_layout():
     torch.testing.assert_close(act_d, dens)
 
 
+_HYBRID_CFGS = [
+    SMALL,
+    dict(SMALL, net_depth=4, net_depth_condition=2, net_width=32,
+         net_width_condition=16),
+]
+
+
+@pytest.mark.parametrize('cfg', _HYBRID_CFGS, ids=['d3', 'd4_v2'])
+def test_hybrid_stream_matches_save_plain(cfg):
+    """In f32 the hybrid forward's transposed products write the stream
+    lean_mlp_save_plain writes: S row for row in the `saved_rows` layout
+    (X | hs | bottleneck | ys, zero past M and past F in X) and the raw
+    heads, to 1e-5 (the products sum in another order); d3 ends its trunk
+    on a skip concat (the density head reads [h, x])."""
+    x, view, flat, _, _ = (torch.tensor(a) if not isinstance(a, list) else
+                           [torch.tensor(p) for p in a]
+                           for a in train_problem(37, **cfg))
+    args = _lean_args(cfg) + (torch.float32, ACT)
+    rgb, dens, (S, heads) = tk.lean_hybrid_fwd(x, view, flat, *args)
+    w_rgb, w_dens, (wS, w_heads) = tk.lean_mlp_save_plain(x, view, flat,
+                                                          *args)
+    M, F = x.shape
+    W, Wv = cfg['net_width'], cfg['net_width_condition']
+    Fp, hs, bott, ys, Cs = tk.saved_rows(F, W, Wv, cfg['net_depth'],
+                                         cfg['net_depth_condition'])
+    assert S.shape == wS.shape == (Cs, tk._round_up(M, tk.TILE))
+    assert S.dtype == torch.float32 and heads.shape == w_heads.shape
+    for r0, w in [(0, Fp)] + [(r, W) for r in hs] + [(bott, W)] \
+            + [(r, Wv) for r in ys]:
+        torch.testing.assert_close(S[r0:r0 + w], wS[r0:r0 + w], rtol=1e-5,
+                                   atol=1e-5)
+    assert torch.all(S[:, M:] == 0) and torch.all(S[F:Fp] == 0)
+    assert torch.all(heads[:, M:] == 0)
+    torch.testing.assert_close(heads, w_heads, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rgb, w_rgb, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dens, w_dens, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('cfg', _HYBRID_CFGS, ids=['d3', 'd4_v2'])
+def test_hybrid_fwd_bf16_matches_jax_xla(cfg):
+    """In bf16 the hybrid forward keeps JAX's XLA rounding
+    (`_fwd_body_lean_xla`: each product rounded to bf16, the bias added in
+    bf16): rgb and density, and the stream's rows against its hs,
+    bottleneck and ys, at the bf16 bar 2e-2; the raw heads are the f32
+    sums of the bf16 activations JAX's backward recomputes."""
+    x, view, flat, _, _ = train_problem(37, **cfg)
+    tflat = [torch.tensor(p) for p in flat]
+    rgb, dens, (S, heads) = tk.lean_hybrid_fwd(
+        torch.tensor(x), torch.tensor(view), tflat, *_lean_args(cfg),
+        torch.bfloat16, ACT)
+    jcfg = jk._lean_cfg(cfg['net_depth'], cfg['net_depth_condition'],
+                        cfg['skip_index'], flat, jnp.bfloat16, cfg['N'], ACT)
+    j_rgb, j_dens, j_hs, j_ys, j_bott = jk._fwd_body_lean_xla(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(view),
+        [jnp.asarray(p, jnp.bfloat16) for p in flat], jcfg)
+    for a, b in ((rgb, j_rgb), (dens, j_dens)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b, np.float32),
+                                   rtol=2e-2, atol=2e-2)
+    M, F = x.shape
+    W, Wv = cfg['net_width'], cfg['net_width_condition']
+    _, hs, bott, ys, _ = tk.saved_rows(F, W, Wv, cfg['net_depth'],
+                                       cfg['net_depth_condition'])
+    for r0, t in list(zip(hs, j_hs)) + [(bott, j_bott)] + list(zip(ys, j_ys)):
+        np.testing.assert_allclose(
+            S[r0:r0 + t.shape[1], :M].t().float().numpy(),
+            np.asarray(t, np.float32), rtol=2e-2, atol=2e-2)
+    # The raw heads: f32 sums over the stream's bf16 rows.
+    y = S[ys[-1]:ys[-1] + Wv, :M].t().float()
+    k_rgb, b_rgb = (tk._rounded(t, torch.bfloat16) for t in tflat[-2:])
+    torch.testing.assert_close(heads[:3, :M].t(), y @ k_rgb + b_rgb,
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize('depth,dcond,skip', [(3, 1, 2), (4, 2, 2), (8, 1, 4)])
 def test_wgrad_problems_cover_every_weight_once(depth, dcond, skip):
     """The CUDA backward's weight-gradient problems write every kernel
@@ -709,14 +782,13 @@ def test_classic_sm90_plan_mirror(case, F, Fv, W, Wv, depth, dcond, nd, skip,
                                    Fv=Fv, nd=nd, skip_index=skip)
 
 
-# The backward entries and whether their activations are point-major.
-_WGRAD_ENTRIES = {'lean_param_grads': False,
-                  'lean_param_grads_recompute': False,
-                  'lean_param_grads_hybrid': True, 'mlp_bwd_saved': False,
-                  'mlp_bwd_recompute': False, 'tp_pair_bwd': False}
+# The backward entries whose weight gradients may take wgrad_tf32_kernel.
+_WGRAD_ENTRIES = ('lean_param_grads', 'lean_param_grads_recompute',
+                  'lean_param_grads_hybrid', 'mlp_bwd_saved',
+                  'mlp_bwd_recompute', 'tp_pair_bwd')
 
 
-@pytest.mark.parametrize('entry', list(_WGRAD_ENTRIES))
+@pytest.mark.parametrize('entry', _WGRAD_ENTRIES)
 @pytest.mark.parametrize('dtype,Mp,MC,want', [
     ('f32', 393216, 15232, True),       # the lego level, its range
     ('f32', 320, 128, True),            # the card tests' `small`
@@ -727,14 +799,14 @@ _WGRAD_ENTRIES = {'lean_param_grads': False,
     ('bf16', 393216, 15232, False)])    # bf16 has wgrad_sm90_kernel
 def test_wgrad_tf32_route(entry, dtype, Mp, MC, want):
     """The shape rule of the f32 weight gradients on wgmma
-    (wgrad_tf32_kernel): f32, a channel-major stream (every entry but
-    hybrid's point-major residuals, the classic forms and tp_pair_bwd
-    included), Mp and MC multiples of the 32-point slab."""
+    (wgrad_tf32_kernel): f32, Mp and MC multiples of the 32-point slab.
+    Every entry reads a channel-major stream (hybrid's forward writes one
+    since its products land in the rows of S), so none is refused by its
+    layout; each is counted in both dtypes' tables."""
     dt = torch.float32 if dtype == 'f32' else torch.bfloat16
-    pm = _WGRAD_ENTRIES[entry]
-    assert entry in tk.wgrad_tf32_routes
+    assert entry in tk.wgrad_tf32_routes and entry in tk.wgrad_sm90_routes
     assert tk.WT_KP == 32
-    assert tk.wgrad_tf32_route(dt, pm, Mp, MC) is (want and not pm)
+    assert tk.wgrad_tf32_route(dt, Mp, MC) is want
 
 
 def _trunc13(t):
