@@ -83,9 +83,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      (`check_classic_routes`); the same four
      kernels' instantiation for a model with no view layer
      (net_depth_condition 0: the rgb head reads concat(bottleneck, view)),
-     the same checks at the same bars (f32 on the NV forms of
-     lean_fwd_tf32_kernel and lean_chain_tf32_kernel, bf16 on the mma.sync
-     kernels, as the rules say); the standalone
+     the same checks at the same bars, on the NV forms of the wgmma
+     kernels of each dtype (f32 lean_fwd_tf32_kernel and
+     lean_chain_tf32_kernel, bf16 lean_fwd_sm90_kernel and
+     lean_chain_sm90_kernel), as the rules say; the standalone
      IPE kernels ipe_fwd and ipe_bwd on the level's Gaussians (393,216
      points, degrees 0..16), with their covariances and with them zeroed,
      and on a ragged count: forward max |d| <= 1e-5, dmeans and dcovs
@@ -135,8 +136,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      kernels return raw heads (act=None); and a model with no view layer
      on pallas_save and pallas with stop_resample_grad False, bf16 and
      f32: the gate, then K = 5 steps (mlp_save_fwd and mlp_bwd_saved, or
-     mlp_fwd and mlp_bwd_recompute, 2 x 5 launches; f32 on the NV forms of
-     the f32 wgmma kernels, bf16 on the mma.sync kernels);
+     mlp_fwd and mlp_bwd_recompute, 2 x 5 launches, on the NV forms of the
+     wgmma kernels of each dtype);
   7. the run, through the command lines a user calls: cli.train.main on an
      in-memory sphere scene (24 train / 2 val / 2 test views of 64x64, a
      Blender subclass registered here that ray-traces its views instead of
@@ -186,7 +187,7 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      torch.mm's ms under `wgrad_ms`; for fused_mlp's four kernels also
      their numbers for the model with no view layer under `no_view`: ms,
      plain_ms, bound_ms, share, the kernels that ran them and phase 6's
-     f32 launches, bf16 under its 'bf16'),
+     f32 launches, bf16 (with phase 6's bf16 launches) under its 'bf16'),
      the script's wall time, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 
@@ -628,10 +629,12 @@ def classic_kernel_names(name, hp, dt):
     """{'kernel': the forward's, 'chain': the chain's} device kernels of
     fused_mlp wrapper `name` for hp's MLP in dt (the forward of
     mlp_bwd_recompute: its re-run): the wgmma classic forms where
-    classic_route says so, else the mma.sync kernels (the chain with
-    mlp_input_grads_kernel after it)."""
+    classic_route says so (with no view layer, their NV forms), else the
+    mma.sync kernels (the chain with mlp_input_grads_kernel after it)."""
     on = classic_route(hp, dt)
     (fwd, chain), _ = classic_kernels(dt)
+    if hp['nerf.mlp.net_depth_condition'] == 0:
+        fwd, chain = fwd + ' (NV form)', chain + ' (NV form)'
     out = {}
     if name in CLASSIC_FWD:
         out['kernel'] = fwd if on[0] else 'mlp_fwd_kernel'
@@ -655,21 +658,15 @@ def check_classic_routes(hp, dt, where, **calls):
     """Raise unless each named fused_mlp wrapper's `calls` since the last
     reset_launches ran its forward and its chain (with dx and dview) on the
     wgmma kernels of dt (classic_kernels) where classic_route says so, on
-    the mma.sync kernels elsewhere (bf16 with no view layer), and never on
-    the other dtype's; the lego schema's classic kernels must take the
-    wgmma forms in both dtypes, and with no view layer the f32 NV forms in
-    f32 and the mma.sync kernels in bf16."""
+    the mma.sync kernels elsewhere, and never on the other dtype's; the
+    lego schema's classic kernels must take the wgmma forms in both
+    dtypes, with a view layer and (their NV forms) without."""
     on = classic_route(hp, dt)
-    lego = hp['nerf.mlp.net_width'] == 256
-    if hp['nerf.mlp.net_depth_condition'] >= 1:
-        if lego and not all(on):
-            raise AssertionError(f'the lego {dt} classic kernels take no '
-                                 'wgmma form')
-    elif lego and on != ((True, True) if dt == torch.float32
-                         else (False, False)):
-        raise AssertionError(f'the lego {dt} classic kernels with no view '
-                             f'layer: wgmma routes {on}, want them in f32 '
-                             'only')
+    if hp['nerf.mlp.net_width'] == 256 and not all(on):
+        nv = hp['nerf.mlp.net_depth_condition'] == 0
+        raise AssertionError(f'the lego {dt} classic kernels'
+                             f'{" with no view layer" if nv else ""} take '
+                             f'no wgmma form: routes {on}')
     names, (fwd, chain) = classic_kernels(dt)
     _, (o_fwd, o_chain) = classic_kernels(
         torch.bfloat16 if dt == torch.float32 else torch.float32)
@@ -1803,12 +1800,13 @@ def no_view_slice(hp0, params, dev):
     its seeded weights) on pallas_save and pallas with stop_resample_grad
     False, bf16 and f32: the one-step gradient gate against the plain path,
     then K steps in which the backend's forward and backward launch 2
-    levels x K times on the routes check_classic_routes asserts; -> {f32
-    kernel name: its launches in the f32 K-step run of its backend}."""
+    levels x K times on the routes check_classic_routes asserts; -> {dtype:
+    {kernel name: its launches in that dtype's K-step run of its
+    backend}}."""
     rays, pixels = train_batch(TRAIN_RAYS, dev)
     stack = Rays(*(f.expand(TRAIN_K, *f.shape).contiguous() for f in rays))
     pix = pixels.expand(TRAIN_K, *pixels.shape).contiguous()
-    launches = {}
+    launches = {'bfloat16': {}, 'float32': {}}
     for dtype in ('bfloat16', 'float32'):
         for backend, names in (('pallas_save', ('mlp_save_fwd',
                                                 'mlp_bwd_saved')),
@@ -1819,8 +1817,7 @@ def no_view_slice(hp0, params, dev):
             system = gradient_gate(hb, params, rays, pixels, dev, label)
             counts = run_k_steps(system, params, stack, pix, names,
                                  hp0['nerf.num_levels'], label)
-            if dtype == 'float32':
-                launches.update({n: counts[n] for n in names})
+            launches[dtype].update({n: counts[n] for n in names})
     return launches
 
 
@@ -2707,8 +2704,8 @@ def main() -> int:
         if 'mm_ms' in r:
             kernels[-1]['wgrad_mm_ms'] = r['mm_ms']
         # fused_mlp's kernels for a model with no view layer (phase 5's
-        # numbers, phase 6's f32 launches), f32 and under 'bf16' bf16, with
-        # the device kernels each took.
+        # numbers, phase 6's launches), f32 and under 'bf16' bf16, with the
+        # device kernels each took.
         if (name + _NV_LABEL, 'f32') in results:
             nv = {}
             for dt, tag in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
@@ -2717,8 +2714,9 @@ def main() -> int:
                                            'bound_by')}
                 part['share'] = rn['bound_ms'] / rn['ms']
                 part.update(classic_kernel_names(name, hp_nv, dt))
+                part['launches'] = nv_counts[str(dt)[len('torch.'):]][name]
                 if tag == 'f32':
-                    nv.update(part, launches=nv_counts[name])
+                    nv.update(part)
                 else:
                     nv['bf16'] = part
             kernels[-1]['no_view'] = nv

@@ -7,16 +7,16 @@
 // chain and the input cotangents of the TPU kernels _bwd_kernel_lean_save,
 // _bwd_kernel_lean, _bwd_kernel_lean_hybrid, _bwd_kernel_lean_render,
 // _bwd_kernel_saved and _bwd_kernel, mipnerf_pl_tpu/kernels/mlp.py).  f32
-// runs on lean_chain_tf32.cuh; the classic MLP with no view layer or more
-// than one density head keeps the mma.sync kernels.
+// runs on lean_chain_tf32.cuh; the classic MLP with more than one density
+// head keeps the mma.sync kernels.
 //
 // Route (chain_sm90_route, mirrored by kernels/mlp.py chain_sm90_route):
 // bf16, a channel-major stream, W and Wv multiples of 64, at least one view
 // layer, one density head, depth + depth_cond + 1 <= CH_MAX_STEPS (the
 // classic form: its weight maps within CH_MAX_STEPS, its steps within
-// CH_STEPS, dx and dview at most MAX_OUT columns once rounded up to 64),
-// and the plan's shared memory within the block's.  A plan it cannot make
-// raises.
+// CH_STEPS, dx and dview at most MAX_OUT columns once rounded up to 64, and
+// also no view layer: depth_cond 0, Wv 0), and the plan's shared memory
+// within the block's.  A plan it cannot make raises.
 //
 // A persistent block walks 128-point tiles with three warpgroups: in the
 // first, one thread streams the weights, one the saved activations' boxes,
@@ -66,6 +66,16 @@
 // level against 2.53: the time follows the slabs, not the 13 % more MACs
 // (reading dx back before any store, in 8-byte pairs, changed nothing;
 // PERF.md).
+//
+// Its NV form (no view layer: the rgb head reads concat(bottleneck, view);
+// a compile-time instantiation too, NV): the rgb step writes the
+// bottleneck's cotangent (g_rgb k_rgb[:W]^T, no mask) where the view form
+// writes ys[last], and dview = g_rgb k_rgb[W:]^T, the rank-3 term on the
+// CUDA cores from the bf16-rounded head cotangents, each element written
+// once; then the bottleneck step with the density term and the trunk, with
+// their dx steps, as above.  No view weight map and no dview step: G has
+// depth W + 1 + W + 3 rows; the rgb head's weight gradient [bottleneck |
+// V]^T g_rgb is wgrad_sm90_kernel's, as every other.
 //
 // What bounds it: 2 x 0.55 M MACs a point (0.43 TFLOP a lego level, 0.44 ms
 // at the bf16 peak); the L2 weight traffic is 1.1 MB a tile (3.4 GB a
@@ -136,20 +146,24 @@ inline size_t chain_sm90_smem(int Cg) {
 __host__ __device__ inline int ch_cols(int n) { return (n + 63) / 64 * 64; }
 
 // The shapes the kernel takes (bf16 and a channel-major stream are the
-// caller's): the lean MLP, or (Fvp > 0) the classic one.  A shape it takes
-// whose plan cannot be made is an error (lean_train.cu run_grads).
+// caller's): the lean MLP, or (Fvp > 0) the classic one, with view layers
+// or (NV: depth_cond 0, Wv 0) none, whose dview is no step of its own.  A
+// shape it takes whose plan cannot be made is an error (lean_train.cu
+// run_grads).
 inline bool chain_sm90_route(const TrainDims& d) {
-  const bool widths = d.W % 64 == 0 && d.Wv % 64 == 0 && d.W >= 64 && d.Wv >= 64 &&
-                      d.depth >= 1 && d.depth_cond >= 1 && d.nd == 1 &&
-                      chain_sm90_smem(d.cg()) <= CH_SMEM_MAX;
+  const bool nv = d.Fvp > 0 && d.depth_cond == 0;
+  const bool widths = d.W % 64 == 0 && d.W >= 64 &&
+                      (nv ? d.Wv == 0 : d.Wv % 64 == 0 && d.Wv >= 64 && d.depth_cond >= 1) &&
+                      d.depth >= 1 && d.nd == 1 && chain_sm90_smem(d.cg()) <= CH_SMEM_MAX;
   if (!d.Fvp) return widths && d.depth + d.depth_cond + 1 <= CH_MAX_STEPS;
-  const int ix = classic_dx_steps(d) + 1;
+  const int ix = classic_dx_steps(d) + (nv ? 0 : 1);
   return widths && d.W <= MAX_OUT && d.Wv <= MAX_OUT && d.skip >= 1 && d.F >= 1 && d.Fv >= 1 &&
          ch_cols(d.F) <= MAX_OUT && ch_cols(d.Fv) <= MAX_OUT &&
          d.depth + d.depth_cond + ix <= CH_MAX_STEPS && d.depth + d.depth_cond + 1 + ix <= CH_STEPS;
 }
 
-template <bool CLASSIC>
+// CLASSIC: the classic form; NV: its form with no view layer.
+template <bool CLASSIC, bool NV = false>
 __global__ void __launch_bounds__(CH_THREADS, 1)
 lean_chain_sm90_kernel(const __grid_constant__ ChainPlan plan, const float* __restrict__ heads,
                        const float* __restrict__ g_rgb, const float* __restrict__ g_dens,
@@ -405,6 +419,19 @@ lean_chain_sm90_kernel(const __grid_constant__ ChainPlan plan, const float* __re
               acc[32 * nb + 4 * j + e] = v;
             }
         }
+        if constexpr (NV) {
+          // dview [M][Fv] = g_rgb k_rgb[W:]^T of the warpgroup's points,
+          // past M none.
+          const bf16* kv = k_rgb + 3 * d.W;
+          for (int idx = wt; idx < 64 * st.cols; idx += 128) {
+            const int p = idx / st.cols, f = idx - p * st.cols, row = 64 * wg + p;
+            if (m0 + row >= d.M) continue;
+            float v = 0.f;
+            for (int c = 0; c < 3; ++c)
+              v = fmaf(ghc[c * CH_TM + row], __bfloat162float(__ldg(kv + f * 3 + c)), v);
+            st.out[(size_t)(m0 + row) * st.cols + f] = v;
+          }
+        }
       }
       // Epilogue: density term, mask, f32 to g1f, bf16 into the staging
       // tile, over this step's A, once the step before's store has read it.
@@ -529,14 +556,15 @@ lean_chain_sm90_kernel(const __grid_constant__ ChainPlan plan, const float* __re
 // refuses.  The classic form (d.Fvp > 0) also takes xs[L], the x rows of
 // layer L that reads x (L = depth + 1: the bottleneck) transposed, [out]
 // [Fp] bf16, vs view_0's view rows transposed, [Wv][Fvp], and dx / dview
-// of the chunk.
+// of the chunk.  With no view layer (NV, depth_cond 0) vs is unused: the
+// rgb step writes dview.
 inline bool chain_sm90_plan(ChainPlan& pl, const Acts& acts, const ChainPtrs& cp,
                             const TrainDims& d, const void* G, const void* const* xs = nullptr,
                             const void* vs = nullptr, float* dx = nullptr,
                             float* dview = nullptr) {
   if (!chain_sm90_route(d) || d.Mp % 64) return false;
-  const bool classic = d.Fvp > 0;
-  if (classic && (!xs || !vs || !dx || !dview)) return false;
+  const bool classic = d.Fvp > 0, nv = classic && d.depth_cond == 0;
+  if (classic && (!xs || (!vs && !nv) || !dx || !dview)) return false;
   const char* base = static_cast<const char*>(acts.t[0]);
   const size_t row_bytes = 2 * (size_t)acts.ld[0];
   auto row_of = [&](int a) {
@@ -584,13 +612,20 @@ inline bool chain_sm90_plan(ChainPlan& pl, const Acts& acts, const ChainPtrs& cp
     st.cols = L < 0 ? d.Fv : d.F;
     dx_done += L >= 0;
   };
-  add(-1, 0, d.Wv, d.a_y(last), d.g_v(last), !classic && last == 0);
-  if (last == 0) input(-1);
-  for (int j = last; j >= 1; --j) {
-    add(i_view + j, d.Wv, d.Wv, d.a_y(j - 1), d.g_v(j - 1), !classic && j == 1);
-    if (j == 1) input(-1);
+  if (nv) {
+    // The rgb step: the bottleneck's cotangent (no mask) and dview.
+    ChainStep& st = step(CH_LAYER, nullptr, 0, 0, d.W, -1, d.g_bot(), 0);
+    st.out = dview;
+    st.cols = d.Fv;
+  } else {
+    add(-1, 0, d.Wv, d.a_y(last), d.g_v(last), !classic && last == 0);
+    if (last == 0) input(-1);
+    for (int j = last; j >= 1; --j) {
+      add(i_view + j, d.Wv, d.Wv, d.a_y(j - 1), d.g_v(j - 1), !classic && j == 1);
+      if (j == 1) input(-1);
+    }
+    add(i_view, d.Wv, d.W, -1, d.g_bot(), 0);
   }
-  add(i_view, d.Wv, d.W, -1, d.g_bot(), 0);
   if (classic_reads_x(d, d.depth + 1)) input(d.depth + 1);
   add(d.depth + 1, d.W, d.W, d.a_h(d.depth - 1), d.g_t(d.depth - 1), 2);
   if (classic_reads_x(d, d.depth - 1)) input(d.depth - 1);

@@ -5,17 +5,18 @@
 // (mlp_tile, lean_engines.cuh) behind the TPU kernels
 // _fwd_kernel_lean_render, _fwd_kernel_lean_save, _fwd_kernel_lean,
 // _fwd_kernel and _fwd_kernel_save (mipnerf_pl_tpu/kernels/mlp.py).  f32
-// runs on lean_fwd_tf32.cuh; the classic MLP with no view layer or more
-// than one density head, and the widths the route refuses, keep mlp_tile.
+// runs on lean_fwd_tf32.cuh; the classic MLP with more than one density
+// head, and the widths the route refuses, keep mlp_tile.
 //
 // Route (fwd_sm90_route, mirrored by kernels/mlp.py fwd_sm90_route): bf16,
 // W and Wv multiples of 64 and at most 256, at least one view layer,
 // depth + 1 + depth_cond <= FW_MAX_LAYERS, the encode (and the classic
 // form's per-point view) at most 128 features (two 64-row boxes once
 // rounded up to the 32-row slab), the classic form one density head, and
-// the plan's shared memory within the block's.  It is a rule on dtype and
-// shape: a plan this kernel cannot make, or a launch it cannot get, raises
-// through the wrapper; no other kernel takes its place.
+// also no view layer (depth_cond 0, Wv unused), and the plan's shared
+// memory within the block's.  It is a rule on dtype and shape: a plan this
+// kernel cannot make, or a launch it cannot get, raises through the
+// wrapper; no other kernel takes its place.
 //
 // The classic form (fused_mlp, Fv > 0; a compile-time instantiation, so
 // the lean forms carry none of its code): view_0 reads concat(bottleneck,
@@ -27,7 +28,15 @@
 // rows past the tensor as zeros); view_0 adds its own bias and no vproj.
 // Raw heads go to rgb [M][3] and dens [M][1] f32; the save form's stream
 // ends with the view's rows V (Fvp = Fv rounded up to 16), stored from the
-// encode tile by a map of those rows alone.
+// encode tile by a map of those rows alone.  Its NV form (no view layer; a
+// compile-time instantiation too): the bottleneck is the last dense layer;
+// the view goes into the encode tile after its products the same way, and
+// the rgb head is a dot of concat(bottleneck, view) with its W + Fv rows on
+// the CUDA cores, the bf16 values as stored times the bf16 kernel in f32
+// sums, the view part of each half added after its bottleneck part (as the
+// density head adds a skip concat's x rows): k_rgb's first W rows staged
+// in the head slots, its view rows read with __ldg.  The stream is X | hs |
+// bottleneck | V.
 //
 // A persistent block (one an SM) walks 128-point tiles with two consumer
 // warpgroups and a producer warp.  The producer's one thread streams every
@@ -165,11 +174,15 @@ inline size_t fwd_sm90_smem(int W, int Wv, int F, int Fv = 0) {
 }
 
 // The shapes the kernel takes (bf16 is the caller's): the lean MLP (Fv 0),
-// or the classic one with Fv per-point view features and nd density heads.
+// or the classic one with Fv per-point view features and nd density heads,
+// with view layers or (NV: depth_cond 0, Wv unused) none.
 inline bool fwd_sm90_route(int F, int W, int Wv, int depth, int depth_cond, int Fv = 0,
                            int nd = 1) {
-  return W >= 64 && W <= 256 && W % 64 == 0 && Wv >= 64 && Wv <= 256 && Wv % 64 == 0 &&
-         depth >= 1 && depth_cond >= 1 && depth + 1 + depth_cond <= FW_MAX_LAYERS && F >= 1 &&
+  const bool nv = depth_cond == 0 && Fv >= 1;
+  if (nv) Wv = 0;
+  return W >= 64 && W <= 256 && W % 64 == 0 &&
+         (nv || (Wv >= 64 && Wv <= 256 && Wv % 64 == 0 && depth_cond >= 1)) && depth >= 1 &&
+         depth + 1 + depth_cond <= FW_MAX_LAYERS && F >= 1 &&
          fw_round(F, FW_KS) <= 64 * FW_XBOXES && Fv >= 0 && fw_round(Fv, FW_KS) <= 64 * FW_XBOXES &&
          nd == 1 && fwd_sm90_smem(W, Wv, F, Fv) <= FW_SMEM_MAX;
 }
@@ -180,8 +193,10 @@ __device__ __forceinline__ int fw_off(int row, int p) {
   return (row >> 6) * FW_BOX + (row & 63) * 128 + ((((p >> 3) ^ (row & 7))) << 4) + (p & 7) * 2;
 }
 
-// MOMENTS: the lean form on the moments; CLASSIC: the classic form (rows).
-template <bool MOMENTS, bool CLASSIC>
+// MOMENTS: the lean form on the moments; CLASSIC: the classic form (rows),
+// NV its form with no view layer; compile-time so that the lean forms (and
+// the view-layer classic form) carry none of their code.
+template <bool MOMENTS, bool CLASSIC, bool NV = false>
 __global__ void __launch_bounds__(FW_THREADS, 1)
 lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict__ x,
                      const float* __restrict__ vproj, float* __restrict__ out,
@@ -195,7 +210,7 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
   float* hpart = heads + 2 * 4 * 64;                             // [wg][half][3][64]
   float* bias_s = hpart + 2 * 2 * 3 * 64;                        // staged biases
   float* kd_s = bias_s + FW_MAX_BIAS;                            // k_den [W (+ F)]
-  float* kr_s = kd_s + FW_MAX_KD;                                // k_rgb [Wv][3]
+  float* kr_s = kd_s + FW_MAX_KD;                                // k_rgb [Wv (NV: W)][3]
   short2* sched = reinterpret_cast<short2*>(kr_s + FW_MAX_KR);   // (layer, k0) of a slab
   uint64_t* full = reinterpret_cast<uint64_t*>(sched + FW_MAX_SLABS);
   uint64_t* empty = full + FW_STAGES;
@@ -221,7 +236,9 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
   }
   for (int i = tid; i < pl.W + (pl.cat_x ? pl.F : 0); i += FW_THREADS)
     kd_s[i] = __bfloat162float(pl.k_den[i]);
-  for (int i = tid; i < 3 * pl.Wv; i += FW_THREADS) kr_s[i] = __bfloat162float(pl.k_rgb[i]);
+  // NV: the rgb head's first W rows; its view rows are read where used.
+  for (int i = tid; i < 3 * (NV ? pl.W : pl.Wv); i += FW_THREADS)
+    kr_s[i] = __bfloat162float(pl.k_rgb[i]);
   for (int i = tid; i < 2 * (pl.Fx - pl.F) * 64; i += FW_THREADS) {
     const int wgi = i / ((pl.Fx - pl.F) * 64), r = i % ((pl.Fx - pl.F) * 64);
     *reinterpret_cast<bf16*>(tiles + wgi * tile_bytes + pl.hs_boxes * FW_BOX +
@@ -320,30 +337,31 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
       tma_store_commit();
     }
 
+    // The classic form's per-point view of the warpgroup's points into xs
+    // (zeros past Fv and past M), once the products on the encode are done
+    // (the bottleneck's, complete before its epilogue) and its stores have
+    // read the tile; then out to S rows V.
+    auto load_view = [&]() {
+      if (pl.save && wt == 0) tma_store_wait_read();
+      named_sync(bar, 128);
+      for (int idx = wt; idx < pl.Fvx * 64; idx += 128) {
+        const int f = idx >> 6, p = idx & 63, m = m0 + p;
+        const float v = m < pl.M && f < pl.Fv ? pl.view[(size_t)m * pl.Fv + f] : 0.f;
+        *reinterpret_cast<bf16*>(xs + fw_off(f, p)) = __float2bfloat16_rn(v);
+      }
+      fence_proxy_async();
+      named_sync(bar, 128);
+      if (pl.save && wt == 0) {
+        for (int cb = 0; FW_KS * cb < pl.Fvp; ++cb)
+          tma_store_2d(&pl.sv, xs + cb * FW_WBOX, m0, FW_KS * cb);
+        tma_store_commit();
+      }
+    };
     for (int li = 0; li < pl.n_layers; ++li) {
       const FwdLayer& ly = pl.layer[li];
       const int NB = ly.N >> 6, nks = (ly.K + FW_KS - 1) / FW_KS, kh = ly.kh;
       const uint32_t a0 = ly.from_x ? xs_a : hs_a;
-      if (CLASSIC && ly.view_in) {
-        // The classic view_0: the warpgroup's per-point view into xs (zeros
-        // past Fv and past M), once the products on the encode are done
-        // (the bottleneck's, complete before its epilogue) and its stores
-        // have read the tile; then out to S rows V.
-        if (pl.save && wt == 0) tma_store_wait_read();
-        named_sync(bar, 128);
-        for (int idx = wt; idx < pl.Fvx * 64; idx += 128) {
-          const int f = idx >> 6, p = idx & 63, m = m0 + p;
-          const float v = m < pl.M && f < pl.Fv ? pl.view[(size_t)m * pl.Fv + f] : 0.f;
-          *reinterpret_cast<bf16*>(xs + fw_off(f, p)) = __float2bfloat16_rn(v);
-        }
-        fence_proxy_async();
-        named_sync(bar, 128);
-        if (pl.save && wt == 0) {
-          for (int cb = 0; FW_KS * cb < pl.Fvp; ++cb)
-            tma_store_2d(&pl.sv, xs + cb * FW_WBOX, m0, FW_KS * cb);
-          tma_store_commit();
-        }
-      }
+      if (CLASSIC && ly.view_in) load_view();   // view_0's second K segment
       // The products, K / 32 slabs of two k16 steps, and the epilogue of one
       // layer, compiled for each output width (NBC 64-column blocks) with
       // its own accumulators: one wgmma shape on one register array (a
@@ -459,11 +477,13 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
         run_layer(std::integral_constant<int, 2>());
       else
         run_layer(std::integral_constant<int, 1>());
+      // NV: the rgb head's view rows, after the bottleneck (the last layer).
+      if (NV && li == pl.n_layers - 1) load_view();
       // The heads from the layer's bf16 outputs in the tile, with the
       // accumulators out of registers: density after the last trunk layer
       // (+ its x rows after a last skip concat), rgb after the last view
-      // layer.  Thread wt sums half the channels of point wt % 64 in f32;
-      // the two halves add in order.
+      // layer (NV: the bottleneck, + the view rows).  Thread wt sums half
+      // the channels of point wt % 64 in f32; the two halves add in order.
       const bool den = li == pl.i_den;
       if (den || li == pl.n_layers - 1) {
         const int p = wt & 63, hh = wt >> 6, c0 = hh * (ly.N / 2);
@@ -481,6 +501,13 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
           for (int f = hh * (pl.F / 2); f < (hh ? pl.F : pl.F / 2); ++f)
             s[0] = fmaf(__bfloat162float(*reinterpret_cast<const bf16*>(xs + fw_off(f, p))),
                         kd_s[pl.W + f], s[0]);
+        if (NV && !den)
+          for (int f = hh * (pl.Fv / 2); f < (hh ? pl.Fv : pl.Fv / 2); ++f) {
+            const float v = __bfloat162float(*reinterpret_cast<const bf16*>(xs + fw_off(f, p)));
+#pragma unroll
+            for (int o = 0; o < 3; ++o)
+              s[o] = fmaf(v, __bfloat162float(__ldg(pl.k_rgb + (pl.W + f) * 3 + o)), s[o]);
+          }
         for (int o = 0; o < 3; ++o) hp[(3 * hh + o) * 64 + p] = s[o];
         named_sync(bar, 128);
         if (wt < 64) {
@@ -533,12 +560,15 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
 // min_deg), with saved S [Cs][Mp] (save form) or null: false where the
 // route does not take the shape or a tensor map cannot be made.  Fv > 0:
 // the classic MLP (N = 1, raw heads; S [Cs + Fvp][Mp]), view_0 of all its
-// W + Fv rows; the caller sets view, rgb and dens.
+// W + Fv rows; the caller sets view, rgb and dens; with depth_cond 0 (NV)
+// no view layer, and the rgb head of W + Fv rows read from p as the other
+// head.
 inline bool fwd_sm90_plan(FwdPlan& pl, const LayerPtrs& p, int M, int Mp, int N, int R, int F,
                           int L, int min_deg, int ldx, int depth, int depth_cond, int skip, int W,
                           int Wv, int use_act, float rgb_padding, float density_bias,
                           const void* S, int Fv = 0) {
   if (!fwd_sm90_route(F, W, Wv, depth, depth_cond, Fv)) return false;
+  if (!depth_cond) Wv = 0;
   auto skip_after = [&](int i) { return i % skip == 0 && i > 0; };
   const int Fp = fw_round(F, 16), Fvx = fw_round(Fv, FW_KS);
   int n = 0, b_off = 0;
@@ -563,11 +593,13 @@ inline bool fwd_sm90_plan(FwdPlan& pl, const LayerPtrs& p, int M, int Mp, int N,
   const bool cat_x = skip_after(depth - 1);
   const int Kb = W + (cat_x ? F : 0);
   add(depth + 1, Kb, Kb, W, W / 16, 0, 0, 0, Fp + depth * W, p.b[depth + 1]);
-  if (Fv)
-    add(depth + 2, W + Fvx, W + Fv, Wv, W / 16, 0, 1, 0, Fp + (depth + 1) * W, p.b[depth + 2]);
-  else
-    add(depth + 2, W, W, Wv, W / 16, 0, 1, 1, Fp + (depth + 1) * W, nullptr);
-  pl.layer[n - 1].view_in = Fv > 0;
+  if (depth_cond) {
+    if (Fv)
+      add(depth + 2, W + Fvx, W + Fv, Wv, W / 16, 0, 1, 0, Fp + (depth + 1) * W, p.b[depth + 2]);
+    else
+      add(depth + 2, W, W, Wv, W / 16, 0, 1, 1, Fp + (depth + 1) * W, nullptr);
+    pl.layer[n - 1].view_in = Fv > 0;
+  }
   for (int j = 1; j < depth_cond; ++j)
     add(depth + 2 + j, Wv, Wv, Wv, Wv / 16, 0, 1, 0, Fp + (depth + 1) * W + j * Wv,
         p.b[depth + 2 + j]);
@@ -611,29 +643,33 @@ inline bool fwd_sm90_plan(FwdPlan& pl, const LayerPtrs& p, int M, int Mp, int N,
 }
 
 // One launch of the planned forward on x (MOMENTS: the moments; CLASSIC:
-// the classic form), one block an SM at most; 0 or a cudaError_t.
-template <bool MOMENTS, bool CLASSIC>
+// the classic form, NV with no view layer), one block an SM at most; 0 or
+// a cudaError_t.
+template <bool MOMENTS, bool CLASSIC, bool NV = false>
 int launch_fwd_sm90_form(const FwdPlan& pl, const float* x, const float* vproj, float* out,
                          float* heads, cudaStream_t s) {
   const size_t smem = fwd_sm90_smem(pl.W, pl.Wv, pl.F, pl.Fv);
   int dev = 0, sms = 0;
-  cudaError_t e = cudaFuncSetAttribute(lean_fwd_sm90_kernel<MOMENTS, CLASSIC>,
+  cudaError_t e = cudaFuncSetAttribute(lean_fwd_sm90_kernel<MOMENTS, CLASSIC, NV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (pl.Mp + FW_TM - 1) / FW_TM;
-  lean_fwd_sm90_kernel<MOMENTS, CLASSIC>
+  lean_fwd_sm90_kernel<MOMENTS, CLASSIC, NV>
       <<<tiles < sms ? tiles : sms, FW_THREADS, smem, s>>>(pl, x, vproj, out, heads);
   e = cudaGetLastError();
   if (e == cudaSuccess) ++g_fwd_sm90_launches;
   return (int)e;
 }
 
-// The lean forms (moments or rows), or with pl.view the classic one (rows).
+// The lean forms (moments or rows), or with pl.view the classic one (rows;
+// Wv 0: no view layer).
 inline int launch_fwd_sm90(const FwdPlan& pl, bool moments, const float* x, const float* vproj,
                            float* out, float* heads, cudaStream_t s) {
-  if (pl.view) return launch_fwd_sm90_form<false, true>(pl, x, vproj, out, heads, s);
+  if (pl.view)
+    return pl.Wv ? launch_fwd_sm90_form<false, true>(pl, x, vproj, out, heads, s)
+                 : launch_fwd_sm90_form<false, true, true>(pl, x, vproj, out, heads, s);
   return moments ? launch_fwd_sm90_form<true, false>(pl, x, vproj, out, heads, s)
                  : launch_fwd_sm90_form<false, false>(pl, x, vproj, out, heads, s);
 }

@@ -49,9 +49,11 @@
 // (depth_cond 0, Wv 0), a compile-time instantiation (NV) of each kernel
 // they run: the rgb head reads concat(bottleneck, view), its cotangent
 // splits into the bottleneck's and dview, and the stream has no ys rows.
-// In f32 at the widths of the wgmma rules the NV forms of
-// lean_fwd_tf32_kernel and lean_chain_tf32_kernel take it; bf16 and other
-// widths keep the tile, the chain and the input-gradient pass.
+// At the widths of the wgmma rules the NV forms of the wgmma kernels of the
+// dtype take it (f32 lean_fwd_tf32_kernel and lean_chain_tf32_kernel, bf16
+// lean_fwd_sm90_kernel and lean_chain_sm90_kernel); other widths and more
+// than one density head keep the tile, the chain and the input-gradient
+// pass.
 //
 // Saved layout of 'save', chosen for the backward's weight-gradient
 // products: one channel-major stream S [Cs][Mp] in the compute dtype, rows
@@ -93,9 +95,9 @@
 //      lean_chain_sm90_kernel in bf16 (lean_chain_sm90.cuh: 128-point
 //      tiles, wgmma fed by a TMA ring) and lean_chain_tf32_kernel in f32
 //      (lean_chain_tf32.cuh: 3xTF32 wgmma); both also take the classic
-//      chain (one density head, a view layer; f32 also none) with its dx
-//      and dview.  bf16 NV and other widths keep lean_grad_chain_kernel
-//      (64-point tiles, mma.sync).
+//      chain (one density head, a view layer or none) with its dx and
+//      dview.  Other widths keep lean_grad_chain_kernel (64-point tiles,
+//      mma.sync).
 //   2. split-K tensor-core products dW = A^T G over the points, one 128 x
 //      128 output tile per block and one MC-point range per grid row,
 //      written as per-range partial sums.  Ranges never straddle a chunk,
@@ -108,7 +110,7 @@
 //      problems of their own: their weight gradients accumulate; the chain
 //      drops their dx.  The classic backward (CL) takes it after the
 //      chain (on the wgmma chains: steps of the chain itself), elsewhere
-//      (bf16 NV, other widths) in mlp_input_grads_kernel, which reads back from
+//      (other widths, nd > 1) in mlp_input_grads_kernel, which reads back from
 //      G the output cotangent of each layer that reads x (trunk_0, every
 //      layer after a skip concat, the bottleneck and density after a last
 //      one) and of view_0, and sums dx [M][F] and dview [M][Fv] per tile,
@@ -628,30 +630,20 @@ LayerPtrs layer_ptrs(const void* weights, const void* biases, int n_layers) {
   return p;
 }
 
-// Whether a classic forward of d takes lean_fwd_tf32_kernel's classic form,
-// or with no view layer its NV form (f32 is the caller's; nd > 1 is not the
-// route's).
-inline bool classic_fwd_tf32(const TrainDims& d) {
-  return fwd_tf32_route(d.F, d.W, d.Wv, d.depth, d.depth_cond, d.Fv, d.nd);
-}
-
-// The same for lean_fwd_sm90_kernel's classic form (bf16 the caller's; NV
-// is not its route).
-inline bool classic_fwd_sm90(const TrainDims& d) {
-  return d.depth_cond >= 1 && fwd_sm90_route(d.F, d.W, d.Wv, d.depth, d.depth_cond, d.Fv, d.nd);
-}
-
-// Whether the classic forward of d in T takes its wgmma kernel.
+// Whether the classic forward of d in T takes the classic form (with no
+// view layer, the NV form) of its wgmma kernel: f32 lean_fwd_tf32_kernel,
+// bf16 lean_fwd_sm90_kernel (nd > 1 is not the rules').
 template <typename T>
 bool classic_fwd_wgmma(const TrainDims& d) {
-  return sizeof(T) == 4 ? classic_fwd_tf32(d) : classic_fwd_sm90(d);
+  return (sizeof(T) == 4 ? fwd_tf32_route : fwd_sm90_route)(d.F, d.W, d.Wv, d.depth,
+                                                            d.depth_cond, d.Fv, d.nd);
 }
 
 // One launch of the classic forward of d's M points on its wgmma kernel's
 // classic form: f32 lean_fwd_tf32_kernel (from the split transposed kernels
-// wt; NV: its form with no view layer), bf16 lean_fwd_sm90_kernel; rgb /
-// density may be null (the recompute re-run).  A plan it cannot make is an
-// error, never another kernel.
+// wt), bf16 lean_fwd_sm90_kernel (each, with no view layer, its NV form);
+// rgb / density may be null (the recompute re-run).  A plan it cannot make
+// is an error, never another kernel.
 template <typename T>
 int launch_classic_wgmma(const float* x, const float* view, const LayerPtrs& p,
                          const TrainDims& d, float* rgb, float* density, T* saved,
@@ -800,11 +792,10 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
   // on wgmma where the rule takes the shape: bf16 on lean_chain_sm90.cuh,
   // f32 on the 3xTF32 lean_chain_tf32.cuh (rules on dtype and shape; a plan
   // either cannot make is an error, never another kernel); the grid is one
-  // block an SM at most.  f32 also takes the
-  // classic MLP with no view layer (NV) there.  Every other form runs on
-  // lean_grad_chain_kernel (and, classic, on mlp_input_grads_kernel after
-  // it).
-  const bool on_sm90 = sizeof(T) == 2 && !NV && chain_sm90_route(d);
+  // block an SM at most.  Both also take the classic MLP with no view
+  // layer (NV) there.  Every other form runs on lean_grad_chain_kernel
+  // (and, classic, on mlp_input_grads_kernel after it).
+  const bool on_sm90 = sizeof(T) == 2 && chain_sm90_route(d);
   const bool on_tf32 = sizeof(T) == 4 && chain_tf32_route(d);
   const bool refwd_wgmma = CL && rf && classic_fwd_wgmma<T>(d);
   const size_t tsmem = chain_tf32_smem(d.W, d.Wv, Cg, CL ? ix_cols(d.Fp) : 0);
@@ -823,7 +814,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess && on_sm90)
-    e = cudaFuncSetAttribute(lean_chain_sm90_kernel<CL>,
+    e = cudaFuncSetAttribute(lean_chain_sm90_kernel<CL, NV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)chain_sm90_smem(Cg));
   if (e == cudaSuccess && on_tf32)
     e = cudaFuncSetAttribute(lean_chain_tf32_kernel<CL, NV>,
@@ -880,7 +871,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       if (!chain_sm90_plan(plan, acts, a.cp, dc, G, a.ig.bx, a.ig.bv, dx, dview))
         return (int)cudaErrorInvalidValue;
       const int tiles = (dc.Mp + CH_TM - 1) / CH_TM;
-      lean_chain_sm90_kernel<CL><<<tiles < sms ? tiles : sms, CH_THREADS, chain_sm90_smem(Cg), s>>>(
+      lean_chain_sm90_kernel<CL, NV><<<tiles < sms ? tiles : sms, CH_THREADS, chain_sm90_smem(Cg), s>>>(
           plan, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc,
           reinterpret_cast<bf16*>(G), a.g1f, db_part, a.n_chain);
       if (cudaPeekAtLastError() == cudaSuccess) ++g_chain_sm90_launches;
@@ -1160,7 +1151,8 @@ int lean_param_grads_recompute(const void* x, const void* vproj, const void* wei
 // classic_tf32_route's forward, the split transposed kernels as lean_fwd
 // takes them but view_0's of all its W + Fv rows (kernels/mlp.py
 // tf32_fwd_weights(..., Fv)); else may be null.  bf16 at the shapes of
-// classic_sm90_route's forward runs on lean_fwd_sm90_kernel from weights.
+// classic_sm90_route's forward runs on lean_fwd_sm90_kernel from weights
+// (with no view layer, its NV form).
 int mlp_fwd(const void* x, const void* view, const void* weights, const void* biases,
             const void* wt, int n_layers, void* rgb, void* density, const int* dims,
             int use_bf16, void* stream) {
@@ -1307,7 +1299,7 @@ int classic_tf32_route(int F, int Fv, int W, int Wv, int depth, int depth_cond, 
   d.Fvp = (Fv + 15) / 16 * 16;
   d.nd = nd;
   d.skip = skip;
-  out[0] = classic_fwd_tf32(d) ? 1 : 0;
+  out[0] = classic_fwd_wgmma<float>(d) ? 1 : 0;
   out[1] = skip >= 1 && Fv >= 1 && chain_tf32_route(d) ? 1 : 0;
   out[2] = (int)fwd_tf32_smem(W, d.Wv, F, Fv);
   out[3] = (int)chain_tf32_smem(W, d.Wv, d.cg(), ix_cols(d.Fp));
@@ -1317,19 +1309,19 @@ int classic_tf32_route(int F, int Fv, int W, int Wv, int depth, int depth_cond, 
 // The bf16 classic MLP of these shapes: out[0] 1 if its forward takes
 // lean_fwd_sm90_kernel, out[1] 1 if its backward's chain and input
 // cotangents take lean_chain_sm90_kernel; out[2], out[3] their dynamic
-// shared memory.
+// shared memory.  With depth_cond 0 (no view layer) Wv is unused.
 int classic_sm90_route(int F, int Fv, int W, int Wv, int depth, int depth_cond, int nd,
                        int skip, int* out) {
-  TrainDims d = chain_dims(W, Wv, depth, depth_cond);
+  TrainDims d = chain_dims(W, depth_cond ? Wv : 0, depth, depth_cond);
   d.F = F;
   d.Fp = (F + 15) / 16 * 16;
   d.Fv = Fv;
   d.Fvp = (Fv + 15) / 16 * 16;
   d.nd = nd;
   d.skip = skip;
-  out[0] = classic_fwd_sm90(d) ? 1 : 0;
+  out[0] = classic_fwd_wgmma<bf16>(d) ? 1 : 0;
   out[1] = skip >= 1 && Fv >= 1 && chain_sm90_route(d) ? 1 : 0;
-  out[2] = (int)fwd_sm90_smem(W, Wv, F, Fv);
+  out[2] = (int)fwd_sm90_smem(W, d.Wv, F, Fv);
   out[3] = (int)chain_sm90_smem(d.cg());
   return 0;
 }

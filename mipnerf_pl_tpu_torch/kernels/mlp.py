@@ -75,9 +75,9 @@ with dx and dview on the wgmma chain's (the input cotangents steps of the
 chain): in f32 the 3xTF32 kernels (`fwd_tf32_route` / `chain_tf32_route`,
 counted in `tf32_routes` / `chain_tf32_routes`), in bf16 the bf16 ones
 (`fwd_sm90_route` / `chain_sm90_route`, counted in `routes` /
-`chain_routes`).  In f32 the same rules also take the model with no view
-layer, on the two 3xTF32 kernels' NV forms (the rgb head and dview on the
-CUDA cores); bf16 keeps its mma.sync kernels there.
+`chain_routes`).  The same rules also take the model with no view layer,
+on the NV forms of the two kernels of each dtype (the rgb head and dview on
+the CUDA cores).
 
 What bounds them: the MLP is ~1.21 MFLOP per sample point forward and about
 twice that backward (with the input gradients, exactly twice), so the
@@ -333,16 +333,23 @@ def chain_sm90_route(compute_dtype, W: int, Wv: int, net_depth: int,
     density head, the encode and the view at most MAX_WIDTH once rounded up
     to 64 (the N of their steps), its weight maps (every chain layer and
     input step) within CH_MAX_STEPS and its steps within CH_STEPS, and the
-    plan within the block's shared memory (the lean chain's)."""
+    plan within the block's shared memory (the lean chain's).  With no view
+    layer (net_depth_condition 0, the NV form) Wv is unused and dview is no
+    step of its own: the rgb step writes it on the CUDA cores."""
     if compute_dtype != torch.bfloat16:
         return False
-    Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
     if not Fv:
+        Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
         return _chain_route(W, Wv, net_depth, net_depth_condition,
                             chain_sm90_smem(Cg))
-    ix = _classic_dx_steps(net_depth, skip_index) + 1
-    return (all(64 <= w <= MAX_WIDTH and w % 64 == 0 for w in (W, Wv))
-            and net_depth >= 1 and net_depth_condition >= 1 and nd == 1
+    nv = net_depth_condition == 0
+    if nv:
+        Wv = 0
+    Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
+    ix = _classic_dx_steps(net_depth, skip_index) + (0 if nv else 1)
+    return (all(64 <= w <= MAX_WIDTH and w % 64 == 0
+                for w in ((W,) if nv else (W, Wv)))
+            and net_depth >= 1 and nd == 1
             and skip_index >= 1 and 1 <= F and _round_up(F, 64) <= MAX_WIDTH
             and _round_up(Fv, 64) <= MAX_WIDTH
             and net_depth + net_depth_condition + ix <= CH_MAX_STEPS
@@ -524,11 +531,16 @@ def fwd_sm90_route(compute_dtype, F: int, W: int, Wv: int, net_depth: int,
     0, whether the classic forward of fused_mlp (mlp_fwd, mlp_save_fwd,
     mlp_bwd_recompute's re-run; Fv per-point view features, nd density
     heads) runs on its classic form: the same rule, the view at most 128
-    features once rounded up, one density head.  Every other bf16 forward
-    runs on the mma.sync tile."""
+    features once rounded up, one density head; also with no view layer
+    (net_depth_condition 0, the NV form; Wv unused).  Every other bf16
+    forward runs on the mma.sync tile."""
+    nv = net_depth_condition == 0 and Fv >= 1
+    if nv:
+        Wv = 0
     return (compute_dtype == torch.bfloat16
-            and all(64 <= w <= MAX_WIDTH and w % 64 == 0 for w in (W, Wv))
-            and net_depth >= 1 and net_depth_condition >= 1
+            and all(64 <= w <= MAX_WIDTH and w % 64 == 0
+                    for w in ((W,) if nv else (W, Wv)))
+            and net_depth >= 1 and (nv or net_depth_condition >= 1)
             and net_depth + 1 + net_depth_condition <= FW_MAX_LAYERS
             and 1 <= F and _round_up(F, FW_KS) <= 64 * FW_XBOXES
             and 0 <= Fv and _round_up(Fv, FW_KS) <= 64 * FW_XBOXES

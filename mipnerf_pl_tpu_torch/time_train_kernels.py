@@ -28,7 +28,8 @@ call, the host clock to a synchronise): best and median ms/step of 6 calls
 after a warm-up, bf16 and f32, and the device time of one step from a
 torch.profiler window; and the same, bf16 and f32, on `pallas_hybrid`
 (`step bf16 pallas_hybrid ...`) and on the classic backends `pallas` and
-`pallas_save` with stop_resample_grad False (`step bf16 pallas ...`).
+`pallas_save` with stop_resample_grad False (`step bf16 pallas ...`), also
+for the model with no view layer (`step bf16 pallas no_view ...`).
 
 With --frames it also times one 800x800 frame of render_camera (the lego
 schema's model with seeded weights, chip_smoke.py's Blender camera on the
@@ -210,9 +211,9 @@ def main():
         return flat
     flat = flat_of(params, dcond)
     # The same trunk with no view layer, for fused_mlp's kernels.
-    flat_nv = flat_of(MipNeRFSystem(
-        dict(hp, **{'nerf.mlp.net_depth_condition': 0}),
-        device=dev).init_params(seed=0), 0)
+    hp_nv = dict(hp, **{'nerf.mlp.net_depth_condition': 0})
+    params_nv = MipNeRFSystem(hp_nv, device=dev).init_params(seed=0)
+    flat_nv = flat_of(params_nv, 0)
     rng = np.random.default_rng(1)
     d = rng.normal(size=(RAYS, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -440,6 +441,14 @@ def main():
                 out[f'step {tag} {backend} best'] = round(best, 3)
                 out[f'step {tag} {backend} median'] = round(med, 3)
                 out[f'step {tag} {backend} device'] = round(dev_ms, 3)
+            for backend in ('pallas', 'pallas_save'):
+                best, med, dev_ms = step_times(
+                    MipNeRFSystem, Rays, hp_nv, dev, dtype, params_nv,
+                    backend, {'nerf.stop_resample_grad': False})
+                key = f'step {tag} {backend} no_view'
+                out[f'{key} best'] = round(best, 3)
+                out[f'{key} median'] = round(med, 3)
+                out[f'{key} device'] = round(dev_ms, 3)
     print(json.dumps(out), flush=True)
 
 

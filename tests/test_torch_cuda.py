@@ -1075,8 +1075,8 @@ def classic_calls(shape, dtype, calls=1):
     by fwd_tf32_route / chain_tf32_route, bf16 lean_fwd_sm90_kernel /
     lean_chain_sm90_kernel by fwd_sm90_route / chain_sm90_route, each with
     the classic arguments (one density head, widths multiples of 64: the
-    lego and `wide_view2` shapes; in f32 also with no view layer, `no_view`,
-    on the NV forms)."""
+    lego and `wide_view2` shapes; also with no view layer, `no_view`, on the
+    NV forms)."""
     _, cfg, nd = CLASSIC_SHAPES[shape]
     dt = getattr(torch, dtype)
     F = 6 * (cfg['deg'][1] - cfg['deg'][0])
@@ -1129,7 +1129,7 @@ def test_cuda_mlp_fwd_matches_plain(cuda_device, shape, dtype):
     assert tk.launches['mlp_save_fwd'] == 1 and tk.launches['mlp_fwd'] == 1
     want = classic_calls(shape, dtype)[0]
     assert shape not in ('lego', 'wide_view2') or want == 1
-    assert shape != 'no_view' or want == (dtype == 'float32')
+    assert shape != 'no_view' or want == 1
     assert shape != 'no_view_lego_nd2' or want == 0
     assert classic_took('mlp_save_fwd', dtype)[0] \
         == classic_took('mlp_fwd', dtype)[0] == want
@@ -1160,7 +1160,7 @@ def test_cuda_mlp_bwd_saved_matches_plain(cuda_device, shape, dtype):
     assert tk.wgrad_tf32_routes['mlp_bwd_saved'] == wgrad_calls(dtype)
     want = classic_calls(shape, dtype)[1]
     assert shape not in ('lego', 'wide_view2') or want == 1
-    assert shape != 'no_view' or want == (dtype == 'float32')
+    assert shape != 'no_view' or want == 1
     assert shape != 'no_view_lego_nd2' or want == 0
     assert classic_took('mlp_bwd_saved', dtype) == (0, want)
     rdx, rdview, rgrads = tk.mlp_bwd_saved_plain(g_rgb, g_dens, S, flat,
@@ -1211,12 +1211,11 @@ def test_cuda_mlp_recompute_matches_saved(cuda_device, shape, dtype, chunks,
 def test_cuda_classic_plan_failure_raises(cuda_device, monkeypatch, dtype):
     """A classic shape the rules take whose plans cannot be made raises, the
     forward and the backward; neither falls back to the mma.sync kernels.
-    f32: no split kernels handed to the library, at the lego shape and with
-    no view layer (the NV forms).  bf16: the forward's kernels and the
-    chain's input-step rows (the transposed x / view rows) 2 bytes off the
-    16-byte alignment a tensor map needs."""
-    shapes = ['lego', 'no_view'] if dtype == 'float32' else ['lego']
-    for shape in shapes:
+    Both at the lego shape and with no view layer (the NV forms).  f32: no
+    split kernels handed to the library.  bf16: the forward's kernels and
+    the chain's input-step rows (the transposed x / view rows) 2 bytes off
+    the 16-byte alignment a tensor map needs."""
+    for shape in ('lego', 'no_view'):
         with monkeypatch.context() as mp:
             _classic_plan_failure(cuda_device, mp, dtype, shape)
 
@@ -1306,39 +1305,50 @@ def test_cuda_classic_sm90_route_matches_the_library(cuda_device):
             (130, 27, 256, 128, 8, 1, 1, 4), (128, 128, 256, 256, 8, 1, 1, 4),
             (96, 129, 256, 128, 8, 1, 1, 4), (96, 27, 256, 128, 9, 1, 1, 4),
             (96, 27, 256, 128, 10, 1, 1, 4), (96, 27, 64, 64, 7, 1, 1, 1),
-            (96, 27, 64, 64, 8, 1, 1, 1), (96, 27, 320, 128, 8, 1, 1, 4)]:
+            (96, 27, 64, 64, 8, 1, 1, 1), (96, 27, 320, 128, 8, 1, 1, 4),
+            # no view layer (the NV forms; Wv unused)
+            (96, 27, 256, 0, 8, 0, 1, 4), (24, 27, 64, 32, 3, 0, 1, 2),
+            (96, 27, 256, 0, 8, 0, 2, 4), (96, 27, 160, 0, 8, 0, 1, 4),
+            (96, 27, 64, 0, 11, 0, 1, 4), (96, 27, 64, 0, 12, 0, 1, 4),
+            (128, 27, 256, 0, 8, 0, 1, 4), (130, 27, 256, 0, 8, 0, 1, 4),
+            (96, 129, 256, 0, 8, 0, 1, 4), (96, 27, 64, 0, 8, 0, 1, 1),
+            (96, 27, 64, 0, 9, 0, 1, 1), (96, 27, 256, 0, 9, 0, 1, 4),
+            (96, 27, 256, 0, 10, 0, 1, 4)]:
         lib.classic_sm90_route(F, Fv, W, Wv, depth, dcond, nd, skip, out)
         bf16 = torch.bfloat16
-        fwd = dcond >= 1 and tk.fwd_sm90_route(bf16, F, W, Wv, depth, dcond,
-                                               Fv, nd)
+        fwd = tk.fwd_sm90_route(bf16, F, W, Wv, depth, dcond, Fv, nd)
         chain = tk.chain_sm90_route(bf16, W, Wv, depth, dcond, F=F, Fv=Fv,
                                     nd=nd, skip_index=skip)
         assert (bool(out[0]), bool(out[1])) == (fwd, chain), (F, Fv, W, Wv,
                                                               depth, dcond)
+        Wv = Wv if dcond else 0
         assert out[2] == tk.fwd_sm90_smem(W, Wv, F, Fv)
         cg = depth * W + nd + W + dcond * Wv + 3
         assert out[3] == tk.chain_sm90_smem(cg)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('shape', ['view2_nd2', 'no_view'])
 @pytest.mark.parametrize('mode', ['save', 'recompute'])
-def test_cuda_fused_mlp_autograd(cuda_device, mode, shape):
+def test_cuda_fused_mlp_autograd(cuda_device, mode, shape, dtype):
     """fused_mlp's autograd Function on the card: x, view and every
-    parameter receive what the mode's backward wrapper returns."""
+    parameter receive what the mode's backward wrapper returns; with no
+    view layer the forward and the chain run on the NV forms of the wgmma
+    kernels of the dtype."""
     cfg, (x, view, g_rgb, g_dens), flat = _classic_on(shape, cuda_device)
     args = (cfg['net_depth'], cfg['net_depth_condition'], cfg['skip_index'],
-            torch.float32)
+            getattr(torch, dtype))
     leaves = [t.clone().requires_grad_(True) for t in [x, view] + flat]
     tk.reset_launches()
     rgb, dens = tk.fused_mlp(leaves[0], leaves[1], leaves[2:], *args, mode)
     ((rgb * g_rgb).sum() + (dens * g_dens).sum()).backward()
     names = (('mlp_save_fwd', 'mlp_bwd_saved') if mode == 'save'
              else ('mlp_fwd', 'mlp_bwd_recompute'))
-    fwd, chain = classic_calls(shape, 'float32')
+    fwd, chain = classic_calls(shape, dtype)
     assert shape != 'no_view' or (fwd, chain) == (1, 1)
-    assert classic_took(names[0], 'float32')[0] == fwd
-    assert classic_took(names[1], 'float32') == (
+    assert classic_took(names[0], dtype)[0] == fwd
+    assert classic_took(names[1], dtype) == (
         fwd if mode == 'recompute' else 0, chain)
     if mode == 'save':
         S = tk.mlp_save_fwd(x, view, flat, *args)[2]
@@ -1375,9 +1385,9 @@ def test_cuda_classic_training_runs_the_kernels(cuda_device, backend, dtype):
 def test_cuda_classic_training_without_view_layers(cuda_device, backend,
                                                    dtype):
     """The same for a model with no view layer (net_depth_condition 0, the
-    rgb head on concat(bottleneck, view)): in f32 the forward and the chain
-    with dx and dview run on the f32 wgmma kernels' NV forms, in bf16 on
-    the mma.sync kernels (asserted from the route counts)."""
+    rgb head on concat(bottleneck, view)): the forward and the chain with
+    dx and dview run on the NV forms of the wgmma kernels of the dtype
+    (asserted from the route counts)."""
     _classic_training(cuda_device, backend, dtype, 0)
 
 
@@ -1414,14 +1424,11 @@ def _classic_training(cuda_device, backend, dtype, depth_cond):
              else ('mlp_fwd', 'mlp_bwd_recompute'))
     for name in names:
         assert tk.launches[name] == model.num_levels, (name, tk.launches)
-    if bf16 == bool(depth_cond):
+    if bf16 or not depth_cond:
         n = model.num_levels
         assert classic_took(names[0], dtype) == (n, 0)
         assert classic_took(names[1], dtype) == (
             n if names[1] == 'mlp_bwd_recompute' else 0, n)
-    elif not depth_cond:
-        assert classic_took(names[0], dtype) == (0, 0)
-        assert classic_took(names[1], dtype) == (0, 0)
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
     want = losses['cpu']
     bar = 3e-2 if bf16 else 1e-4

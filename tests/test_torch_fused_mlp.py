@@ -175,6 +175,26 @@ def test_fused_mlp_bf16_matches_jax(mode):
         assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max(), name
 
 
+@pytest.mark.parametrize('mode', ['recompute', 'save'])
+def test_fused_mlp_bf16_without_view_layers_at_the_wgmma_widths(mode):
+    """bf16 with no view layer at a width the bf16 wgmma kernels' NV forms
+    take on the card (W 64; the trunk ends on a skip concat; 301 points,
+    ragged): both port modes' plain versions against JAX's bf16 recompute
+    mode, each output within 2e-2 of its largest entry."""
+    cfg = dict(CASES['ragged'], net_depth_condition=0)
+    assert tk.fwd_sm90_route(torch.bfloat16, F, 64, 0, cfg['net_depth'], 0,
+                             FV)
+    assert tk.chain_sm90_route(torch.bfloat16, 64, 0, cfg['net_depth'], 0,
+                               F=F, Fv=FV, skip_index=cfg['skip_index'])
+    prob = _problem(**cfg, W=64)
+    got_out, got_g = _port(prob, cfg, mode, torch.bfloat16)
+    want_out, want_g = _jax(prob, cfg, 'recompute', jnp.bfloat16)
+    for name, a, b in zip(['rgb', 'density'] + _grad_names(cfg),
+                          got_out + got_g, want_out + want_g):
+        assert a.shape == b.shape, name
+        assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max(), name
+
+
 @pytest.mark.parametrize('depth_cond', [0, 1, 2])
 def test_plain_backward_is_autograd_of_plain_forward(depth_cond):
     """In f32 the plain backward (JAX's chain rule, each cotangent cast to

@@ -415,18 +415,30 @@ def test_saved_stream_fits_the_tensor_maps(M, F, W, Wv, depth, dcond):
     # heads): its forward's classic form.
     ('bf16 classic', 96, 256, 128, 8, 1, True),         # lego
     ('f32 classic', 96, 256, 128, 8, 1, False),         # f32 takes lean_fwd_tf32_kernel
-    ('bf16 classic', 96, 256, 128, 8, 0, False),        # no view layer
+    ('bf16 classic', 96, 256, 128, 8, 0, True),         # no view layer: NV
     ('bf16 classic nd2', 96, 256, 128, 8, 1, False),    # two density heads
     ('bf16 classic', 96, 96, 128, 8, 1, False),         # W = 96
     ('bf16 classic', 24, 64, 32, 3, 1, False),          # `small`: Wv = 32
     ('bf16 classic', 24, 64, 64, 3, 2, True),           # `wide_view2`
     ('bf16 classic', 128, 256, 256, 8, 1, True),        # the widest plan
-    ('bf16 classic', 96, 256, 128, 11, 1, False)])      # 13 dense layers
+    ('bf16 classic', 96, 256, 128, 11, 1, False),       # 13 dense layers
+    # The classic MLP with no view layer (net_depth_condition 0, the NV
+    # form: the rgb head reads concat(bottleneck, view); Wv unused).
+    ('bf16 classic', 96, 256, 0, 8, 0, True),           # lego, no view layer
+    ('bf16 classic', 24, 64, 32, 3, 0, True),           # card shape `no_view`
+    ('bf16 classic nd2', 96, 256, 128, 8, 0, False),    # two density heads
+    ('f32 classic', 96, 256, 0, 8, 0, False),           # f32: lean_fwd_tf32_kernel
+    ('bf16 classic', 96, 160, 0, 8, 0, False),          # W = 160
+    ('bf16 classic', 96, 256, 0, 11, 0, True),          # 12 dense layers
+    ('bf16 classic', 96, 256, 0, 12, 0, False),         # 13
+    ('bf16 classic', 128, 256, 0, 8, 0, True),          # 128 features: two boxes
+    ('bf16 classic', 130, 256, 0, 8, 0, False)])        # 160 rows once rounded to 32
 def test_fwd_sm90_route(dtype, F, W, Wv, depth, dcond, want):
     """The shape rule of the bf16 wgmma forward (lean_fwd_sm90_kernel),
     against hand counts, for the lean MLP and for fused_mlp's classic form
-    (a second K segment of view_0 of the 27 view features, raw heads); the
-    card tests hold the library to the same rule."""
+    (a second K segment of view_0 of the 27 view features, raw heads), also
+    with no view layer (its NV form, depth + 1 dense layers); the card
+    tests hold the library to the same rule."""
     dt = torch.bfloat16 if dtype.startswith('bf16') else torch.float32
     if 'classic' in dtype:
         nd = 2 if dtype.endswith('nd2') else 1
@@ -484,7 +496,7 @@ def test_fwd_sm90_smem():
     ('f32 classic', 96, 256, 0, 8, 0, True),            # lego, no view layer
     ('f32 classic', 24, 64, 32, 3, 0, True),            # card shape `no_view`
     ('f32 classic nd2', 96, 256, 128, 8, 0, False),     # two density heads
-    ('bf16 classic', 96, 256, 128, 8, 0, False),        # bf16 NV: mlp_fwd_kernel
+    ('bf16 classic', 96, 256, 128, 8, 0, False),        # bf16 NV: lean_fwd_sm90_kernel
     ('f32 classic', 96, 160, 0, 8, 0, False),           # W = 160
     ('f32 classic', 96, 256, 0, 11, 0, True),           # 12 dense layers
     ('f32 classic', 96, 256, 0, 12, 0, False),          # 13
@@ -542,7 +554,7 @@ def test_fwd_tf32_smem():
     ('f32 classic', 256, 128, 8, 0, True),              # no view layer: NV
     ('f32 classic nd2', 256, 128, 8, 1, False),         # two density heads
     ('f32 classic nd2', 256, 128, 8, 0, False),         # NV, two density heads
-    ('bf16 classic', 256, 128, 8, 0, False),            # bf16 NV: lean_grad_chain_kernel
+    ('bf16 classic', 256, 128, 8, 0, False),            # bf16 NV: lean_chain_sm90_kernel
     ('f32 classic', 160, 0, 8, 0, False),               # NV, W = 160
     ('bf16 classic', 256, 128, 8, 1, False),            # bf16: lean_chain_sm90_kernel
     ('f32 classic', 96, 128, 8, 1, False),              # W = 96
@@ -552,14 +564,21 @@ def test_fwd_tf32_smem():
     # The same on the bf16 chain's classic form.
     ('bf16 classic on sm90', 256, 128, 8, 1, True),     # lego
     ('f32 classic on sm90', 256, 128, 8, 1, False),     # f32: lean_chain_tf32_kernel
-    ('bf16 classic on sm90', 256, 128, 8, 0, False),    # no view layer
+    ('bf16 classic on sm90', 256, 128, 8, 0, True),     # no view layer: NV
     ('bf16 classic nd2 on sm90', 256, 128, 8, 1, False),   # two density heads
     ('bf16 classic on sm90', 96, 128, 8, 1, False),     # W = 96
     ('bf16 classic on sm90', 64, 32, 3, 1, False),      # `small`: Wv = 32
     ('bf16 classic on sm90', 256, 128, 9, 1, True),     # G of 2,692 rows
     ('bf16 classic on sm90', 256, 128, 10, 1, False),   # 2,948: the sums outgrow the block
     ('bf16 classic on sm90', 64, 64, 11, 1, True),      # 16 weight maps
-    ('bf16 classic on sm90', 64, 64, 12, 1, False)])    # 17
+    ('bf16 classic on sm90', 64, 64, 12, 1, False),     # 17
+    # Its NV form (no view layer: Wv unused, dview in the rgb step).
+    ('bf16 classic on sm90', 256, 0, 8, 0, True),       # lego, G of 2,308 rows
+    ('f32 classic on sm90', 256, 0, 8, 0, False),       # f32: lean_chain_tf32_kernel
+    ('bf16 classic nd2 on sm90', 256, 0, 8, 0, False),  # two density heads
+    ('bf16 classic on sm90', 160, 0, 8, 0, False),      # W = 160
+    ('bf16 classic on sm90', 256, 0, 9, 0, True),       # G of 2,564 rows
+    ('bf16 classic on sm90', 256, 0, 10, 0, False)])    # 2,820: the sums outgrow the block
 def test_chain_route(dtype, W, Wv, depth, dcond, want):
     """The shape rules of the lean chains on wgmma (bf16
     lean_chain_sm90_kernel, f32 lean_chain_tf32_kernel), against hand
@@ -629,7 +648,10 @@ def test_classic_sm90_smem():
     of 128); the widest plan the rule takes (W = Wv = 256, F = Fv = 128)
     is the lean one's widest, 220,328.  The chain keeps no stash: its plan
     is the lean chain's, 229,632 bytes at lego, 2,816 under the block's
-    232,448."""
+    232,448.  With no view layer (the NV forms, Wv unused) the forward's
+    plan is the same 212,136 bytes, and the chain's G loses the view
+    layer's 128 rows (8 x 256 + 1 + 256 + 3 = 2,308), its bias sums 2 x
+    128 x 4 bytes: 228,608, 3,840 under the block's."""
     assert tk.fwd_sm90_smem(256, 128, 96, 27) == tk.fwd_sm90_smem(256, 128,
                                                                    96) \
         == 212136
@@ -638,6 +660,10 @@ def test_classic_sm90_smem():
     assert tk.fwd_sm90_smem(256, 256, 128, 128) == 220328 <= tk.FW_SMEM_MAX
     assert tk.chain_sm90_smem(tk.chain_cg(256, 128, 8, 1)) == 229632 \
         == tk.FW_SMEM_MAX - 2816
+    assert tk.fwd_sm90_smem(256, 0, 96, 27) == 212136
+    assert tk.chain_cg(256, 0, 8, 0) == 2308
+    assert tk.chain_sm90_smem(2308) == 229632 - 8 * 128 == 228608 \
+        == tk.FW_SMEM_MAX - 3840
 
 
 def _cuh_consts(name):
@@ -744,9 +770,37 @@ def test_classic_chain_plan_mirror(case, F, Fv, W, Wv, depth, dcond, nd,
     ('view: 320 columns once rounded to 64', 96, 257, 256, 128, 8, 1, 1, 4,
      (False, False)),
     ('two density heads', 96, 27, 256, 128, 8, 1, 2, 4, (False, False)),
-    ('no view layer', 96, 27, 256, 128, 8, 0, 1, 4, (False, False)),
+    ('no view layer', 96, 27, 256, 128, 8, 0, 1, 4, (True, True)),
     ('W not a multiple of 64', 96, 27, 160, 128, 8, 1, 1, 4, (False, False)),
-    ('Wv 32', 24, 27, 64, 32, 3, 1, 1, 2, (False, False))])
+    ('Wv 32', 24, 27, 64, 32, 3, 1, 1, 2, (False, False)),
+    # No view layer (the NV forms: Wv unused; the forward's dense layers
+    # are depth + 1, the chain's weight maps the trunk's, the bottleneck
+    # and one dx step a layer that reads x, its steps one more).
+    ('no view layer: two density heads', 96, 27, 256, 0, 8, 0, 2, 4,
+     (False, False)),
+    ('no view layer: W 160', 96, 27, 160, 0, 8, 0, 1, 4, (False, False)),
+    ('no view layer: dense layers: 11 + 1 = 12', 96, 27, 64, 0, 11, 0, 1, 4,
+     (True, True)),
+    ('no view layer: dense layers: 12 + 1 = 13', 96, 27, 64, 0, 12, 0, 1, 4,
+     (False, True)),
+    ('no view layer: encode: 128 features, two boxes', 128, 27, 256, 0, 8,
+     0, 1, 4, (True, True)),
+    ('no view layer: encode: 160 rows once rounded to 32', 130, 27, 256, 0,
+     8, 0, 1, 4, (False, True)),
+    ('no view layer: view: 128 features', 96, 128, 256, 0, 8, 0, 1, 4,
+     (True, True)),
+    ('no view layer: view: 160 rows once rounded to 32', 96, 129, 256, 0, 8,
+     0, 1, 4, (False, True)),
+    ('no view layer: weight maps: skip 1 at depth 8, 8 + 8 = 16', 96, 27,
+     64, 0, 8, 0, 1, 1, (True, True)),
+    ('no view layer: weight maps: skip 1 at depth 9, 9 + 9 = 18', 96, 27,
+     64, 0, 9, 0, 1, 1, (True, False)),
+    ('no view layer: bias sums: G of 2,564 rows', 96, 27, 256, 0, 9, 0, 1,
+     4, (True, True)),
+    ('no view layer: bias sums: G of 2,820 rows', 96, 27, 256, 0, 10, 0, 1,
+     4, (True, False)),
+    ('no view layer: W 64, the card shape', 24, 27, 64, 0, 3, 0, 1, 2,
+     (True, True))])
 def test_classic_sm90_plan_mirror(case, F, Fv, W, Wv, depth, dcond, nd, skip,
                                   want):
     """The Python mirrors of the bf16 classic plans refuse what the C++
@@ -767,8 +821,8 @@ def test_classic_sm90_plan_mirror(case, F, Fv, W, Wv, depth, dcond, nd, skip,
     assert (tk.FW_STAGES, tk.FW_KS, tk.FW_XBOXES, tk.FW_MAX_LAYERS) == (
         fwd['FW_STAGES'], fwd['FW_KS'], fwd['FW_XBOXES'],
         fwd['FW_MAX_LAYERS'])
-    if case.startswith('weight maps'):
-        ix = tk._classic_dx_steps(depth, skip) + 1
+    if 'weight maps' in case:
+        ix = tk._classic_dx_steps(depth, skip) + (1 if dcond else 0)
         assert (depth + dcond + ix <= tk.CH_MAX_STEPS) is want[1]
         assert depth + dcond + 1 + ix <= tk.CH_STEPS
     bf16 = torch.bfloat16
