@@ -86,7 +86,12 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      the same checks at the same bars, on the NV forms of the wgmma
      kernels of each dtype (f32 lean_fwd_tf32_kernel and
      lean_chain_tf32_kernel, bf16 lean_fwd_sm90_kernel and
-     lean_chain_sm90_kernel), as the rules say; the standalone
+     lean_chain_sm90_kernel), as the rules say; and for the lego widths
+     with two density heads, with a view layer and without (shapes the
+     wgmma rules refuse), the same checks at the same bars on the classic
+     MLP's mma.sync kernels, each form in both dtypes: mlp_fwd_kernel,
+     lean_grad_chain_kernel and mlp_input_grads_kernel, by the library's
+     own counts (CLASSIC_SHAPES); the standalone
      IPE kernels ipe_fwd and ipe_bwd on the level's Gaussians (393,216
      points, degrees 0..16), with their covariances and with them zeroed,
      and on a ragged count: forward max |d| <= 1e-5, dmeans and dcovs
@@ -133,11 +138,12 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      best, median and spread of the 4 runs); past
      F32_TURNS_BY seconds the new configurations' f32 turns are cut, never
      a gate; one f32 gate of pallas_lean with density_noise 1.0, whose
-     kernels return raw heads (act=None); and a model with no view layer
-     on pallas_save and pallas with stop_resample_grad False, bf16 and
-     f32: the gate, then K = 5 steps (mlp_save_fwd and mlp_bwd_saved, or
-     mlp_fwd and mlp_bwd_recompute, 2 x 5 launches, on the NV forms of the
-     wgmma kernels of each dtype);
+     kernels return raw heads (act=None); and each model of
+     CLASSIC_SHAPES on pallas_save and pallas with stop_resample_grad
+     False, bf16 and f32: the gate, then K = 5 steps (mlp_save_fwd and
+     mlp_bwd_saved, or mlp_fwd and mlp_bwd_recompute, 2 x 5 launches; with
+     no view layer on the NV forms of the wgmma kernels of each dtype, with
+     two density heads on the mma.sync kernels, check_classic_routes);
   7. the run, through the command lines a user calls: cli.train.main on an
      in-memory sphere scene (24 train / 2 val / 2 test views of 64x64, a
      Blender subclass registered here that ray-traces its views instead of
@@ -185,9 +191,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      them, f32 `kernel` / `chain` / `wgrad` and bf16 under 'bf16'; for f32
      lean_param_grads also its weight gradients' own ms, bound and
      torch.mm's ms under `wgrad_ms`; for fused_mlp's four kernels also
-     their numbers for the model with no view layer under `no_view`: ms,
-     plain_ms, bound_ms, share, the kernels that ran them and phase 6's
-     f32 launches, bf16 (with phase 6's bf16 launches) under its 'bf16'),
+     their numbers for each model of CLASSIC_SHAPES under its key
+     (`no_view`, `nd2`, `nd2_no_view`): ms, plain_ms, bound_ms, share, the
+     kernels that ran them and phase 6's f32 launches, bf16 (with phase
+     6's bf16 launches) under its 'bf16'),
      the script's wall time, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 
@@ -326,6 +333,17 @@ TP_MESHES = ((1024, 2, 2), (256, 8, 4))
 TP_RAGGED_ROWS = 100003
 _NO_VIEW = {'nerf.mlp.net_depth_condition': 0}
 _NV_LABEL = '[no view layer]'     # phase 5's suffix of their kernels' names
+# The lego widths with two density heads, with a view layer and without:
+# shapes the wgmma rules refuse, so fused_mlp's kernels run on the classic
+# MLP's mma.sync kernels (mlp_fwd_kernel, lean_grad_chain_kernel,
+# mlp_input_grads_kernel), each form (NV or not) in both dtypes.  Key in
+# the kernels line -> (hparams, phase 5's suffix).
+_ND2 = {'nerf.mlp.num_density_channels': 2}
+CLASSIC_SHAPES = {
+    'no_view': (_NO_VIEW, _NV_LABEL),
+    'nd2': (_ND2, '[two density heads]'),
+    'nd2_no_view': ({**_ND2, **_NO_VIEW}, '[two density heads, no view layer]'),
+}
 # The card's published rates (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s; tensor-core FLOP/s in bf16 and for f32 as 3xTF32 (the route the
 # f32 kernels take: three TF32 products, 495 / 3); CUDA-core f32 FLOP/s.
@@ -417,7 +435,7 @@ def layer_shapes(hp):
     for i in range(depth):
         shapes.append((d_in, W))
         d_in = W + (F if i % skip == 0 and i > 0 else 0)
-    shapes += [(d_in, 1), (d_in, W)]
+    shapes += [(d_in, hp['nerf.mlp.num_density_channels']), (d_in, W)]
     if dcond:
         shapes += [(W + Fv, Wv)] + [(Wv, Wv)] * (dcond - 1) + [(Wv, 3)]
     else:               # no view layer: the rgb head reads [bottleneck, view]
@@ -488,6 +506,7 @@ def kernel_work(name, hp, R, N, tag, form='rows'):
     # and an rgb head of W + Fv rows, and the stream no ys rows.
     cfwd = 2 * M * n_w
     pts = M * (F + Fv) * 4
+    g = M * (3 + hp['nerf.mlp.num_density_channels']) * 4
     stream = M * ((depth + 1) * W + dcond * Wv) * es
     if name == 'mlp_fwd':
         return cfwd, 0, pts + params + g
@@ -609,7 +628,7 @@ CLASSIC_CHAIN = ('mlp_bwd_saved', 'mlp_bwd_recompute')
 
 def classic_route(hp, dt):
     """(forward, chain): whether fused_mlp's forwards and backward chain of
-    hp's MLP (one density head, the 27 per-point view features) in dt take
+    hp's MLP (its density heads, the 27 per-point view features) in dt take
     the wgmma classic forms of dt's kernels: f32 lean_fwd_tf32_kernel /
     lean_chain_tf32_kernel (kernels/mlp.py fwd_tf32_route /
     chain_tf32_route; with no view layer their NV forms), bf16
@@ -617,11 +636,12 @@ def classic_route(hp, dt):
     chain_sm90_route), with the classic arguments."""
     F, W, Wv, depth, dcond = _widths(hp)
     Fv = 3 * (2 * hp['nerf.deg_view'] + 1)
+    nd = hp['nerf.mlp.num_density_channels']
     f32 = dt == torch.float32
     fwd = km.fwd_tf32_route if f32 else km.fwd_sm90_route
     chain = km.chain_tf32_route if f32 else km.chain_sm90_route
-    return (fwd(dt, F, W, Wv, depth, dcond, Fv, 1),
-            chain(dt, W, Wv, depth, dcond, F=F, Fv=Fv, nd=1,
+    return (fwd(dt, F, W, Wv, depth, dcond, Fv, nd),
+            chain(dt, W, Wv, depth, dcond, F=F, Fv=Fv, nd=nd,
                   skip_index=hp['nerf.mlp.skip_index']))
 
 
@@ -629,18 +649,21 @@ def classic_kernel_names(name, hp, dt):
     """{'kernel': the forward's, 'chain': the chain's} device kernels of
     fused_mlp wrapper `name` for hp's MLP in dt (the forward of
     mlp_bwd_recompute: its re-run): the wgmma classic forms where
-    classic_route says so (with no view layer, their NV forms), else the
-    mma.sync kernels (the chain with mlp_input_grads_kernel after it)."""
+    classic_route says so, else the mma.sync kernels (the chain with
+    mlp_input_grads_kernel after it); with no view layer their NV forms."""
     on = classic_route(hp, dt)
     (fwd, chain), _ = classic_kernels(dt)
+    fwd, chain = (fwd if on[0] else 'mlp_fwd_kernel',
+                  chain if on[1] else 'lean_grad_chain_kernel')
     if hp['nerf.mlp.net_depth_condition'] == 0:
         fwd, chain = fwd + ' (NV form)', chain + ' (NV form)'
+    if not on[1]:
+        chain += ' + mlp_input_grads_kernel'
     out = {}
     if name in CLASSIC_FWD:
-        out['kernel'] = fwd if on[0] else 'mlp_fwd_kernel'
+        out['kernel'] = fwd
     if name in CLASSIC_CHAIN:
-        out['chain'] = (chain if on[1] else
-                        'lean_grad_chain_kernel + mlp_input_grads_kernel')
+        out['chain'] = chain
     return out
 
 
@@ -657,12 +680,16 @@ def classic_kernels(dt):
 def check_classic_routes(hp, dt, where, **calls):
     """Raise unless each named fused_mlp wrapper's `calls` since the last
     reset_launches ran its forward and its chain (with dx and dview) on the
-    wgmma kernels of dt (classic_kernels) where classic_route says so, on
-    the mma.sync kernels elsewhere, and never on the other dtype's; the
-    lego schema's classic kernels must take the wgmma forms in both
-    dtypes, with a view layer and (their NV forms) without."""
+    wgmma kernels of dt (classic_kernels) where classic_route says so, and
+    elsewhere on the mma.sync kernels (the forward on mlp_fwd_kernel, the
+    chain on lean_grad_chain_kernel, dx and dview on
+    mlp_input_grads_kernel), all by the library's own counts, and never on
+    the other dtype's wgmma kernels; the lego schema's classic kernels with
+    one density head must take the wgmma forms in both dtypes, with a view
+    layer and (their NV forms) without."""
     on = classic_route(hp, dt)
-    if hp['nerf.mlp.net_width'] == 256 and not all(on):
+    if (hp['nerf.mlp.net_width'] == 256
+            and hp['nerf.mlp.num_density_channels'] == 1 and not all(on)):
         nv = hp['nerf.mlp.net_depth_condition'] == 0
         raise AssertionError(f'the lego {dt} classic kernels'
                              f'{" with no view layer" if nv else ""} take '
@@ -670,13 +697,17 @@ def check_classic_routes(hp, dt, where, **calls):
     names, (fwd, chain) = classic_kernels(dt)
     _, (o_fwd, o_chain) = classic_kernels(
         torch.bfloat16 if dt == torch.float32 else torch.float32)
-    got = {k: (fwd.get(k, 0), chain.get(k, 0),
+    got = {k: (fwd.get(k, 0), chain.get(k, 0), km.mma_fwd_routes.get(k, 0),
+               km.mma_chain_routes.get(k, 0), km.mma_input_routes.get(k, 0),
                o_fwd.get(k, 0) + o_chain.get(k, 0)) for k in calls}
-    want = {k: (n if on[0] and k in CLASSIC_FWD else 0,
-                n if on[1] and k in CLASSIC_CHAIN else 0, 0)
-            for k, n in calls.items()}
-    log(f'[route] {where}: classic calls on ({names[0]}, {names[1]}, the '
-        f'other dtype\'s kernels) {got} (want {want}) '
+    want = {}
+    for k, n in calls.items():
+        f, c = n if k in CLASSIC_FWD else 0, n if k in CLASSIC_CHAIN else 0
+        want[k] = (f if on[0] else 0, c if on[1] else 0, 0 if on[0] else f,
+                   0 if on[1] else c, 0 if on[1] else c, 0)
+    log(f'[route] {where}: classic calls on ({names[0]}, {names[1]}, '
+        f'mlp_fwd_kernel, lean_grad_chain_kernel, mlp_input_grads_kernel, '
+        f'the other dtype\'s wgmma kernels) {got} (want {want}) '
         f'{"OK" if got == want else "FAIL"}')
     if got != want:
         raise AssertionError(f'{where}: the classic kernels took another '
@@ -884,7 +915,8 @@ def train_batch(B, dev, seed=0):
 def level_inputs(hp, dev, seed=1):
     """One training level of the main path: x rows = the IPE of the
     stratified samples of TRAIN_RAYS seeded rays [M, 96], view [R, 27],
-    seeded head cotangents [M, 3] / [M, 1]; and the same samples' moments
+    seeded head cotangents [M, 3] / [M, nd] (nd: hp's density heads); and
+    the same samples' moments
     [6, M], delta / mids [R, N]."""
     rays, _ = train_batch(TRAIN_RAYS, dev, seed)
     t_samples, means_covs = sample_along_rays(
@@ -897,7 +929,7 @@ def level_inputs(hp, dev, seed=1):
     rng = np.random.default_rng(seed + 1)
     M = x.shape[0]
     g = [torch.tensor(rng.normal(size=(M, c)).astype(np.float32), device=dev)
-         for c in (3, 1)]
+         for c in (3, hp['nerf.mlp.num_density_channels'])]
     moments = cast_rays_cmajor(t_samples, rays.origins, rays.directions,
                                rays.radii).reshape(6, -1).contiguous()
     delta, mids = delta_mids(t_samples, rays.directions)
@@ -1795,14 +1827,14 @@ def run_k_steps(system, params, stack, pix, names, levels, label):
     return run_counts
 
 
-def no_view_slice(hp0, params, dev):
-    """Phase 6, a model with no view layer (net_depth_condition 0, `params`
-    its seeded weights) on pallas_save and pallas with stop_resample_grad
-    False, bf16 and f32: the one-step gradient gate against the plain path,
-    then K steps in which the backend's forward and backward launch 2
-    levels x K times on the routes check_classic_routes asserts; -> {dtype:
-    {kernel name: its launches in that dtype's K-step run of its
-    backend}}."""
+def classic_slice(hp0, params, dev, what):
+    """Phase 6, a model of CLASSIC_SHAPES (`hp0` its hparams, `params` its
+    seeded weights, `what` its name in the log) on pallas_save and pallas
+    with stop_resample_grad False, bf16 and f32: the one-step gradient gate
+    against the plain path, then K steps in which the backend's forward and
+    backward launch 2 levels x K times on the routes check_classic_routes
+    asserts; -> {dtype: {kernel name: its launches in that dtype's K-step
+    run of its backend}}."""
     rays, pixels = train_batch(TRAIN_RAYS, dev)
     stack = Rays(*(f.expand(TRAIN_K, *f.shape).contiguous() for f in rays))
     pix = pixels.expand(TRAIN_K, *pixels.shape).contiguous()
@@ -1813,7 +1845,7 @@ def no_view_slice(hp0, params, dev):
                                ('pallas', ('mlp_fwd', 'mlp_bwd_recompute'))):
             hb = dict(hp0, **{'train.compute_dtype': dtype,
                               'nerf.mlp_backend': backend}, **_RESAMPLE)
-            label = f'{dtype} {backend}+resample, no view layer'
+            label = f'{dtype} {backend}+resample, {what}'
             system = gradient_gate(hb, params, rays, pixels, dev, label)
             counts = run_k_steps(system, params, stack, pix, names,
                                  hp0['nerf.num_levels'], label)
@@ -2605,17 +2637,24 @@ def main() -> int:
     # Phases 5 and 6: the training kernels and the training slice.
     results.update(compare_train_kernels(params, hp, dev))
     results.update(compare_classic_kernels(params, hp, dev))
-    # The same four kernels' instantiation for a model with no view layer.
-    hp_nv = dict(hp, **_NO_VIEW)
-    params_nv = jax_params_to_torch(
-        flax_tree(MipNeRFSystem(hp_nv, device=dev), seed=0), device=dev)
-    results.update(compare_classic_kernels(params_nv, hp_nv, dev,
-                                           _NV_LABEL))
+    # The same four kernels for the models of CLASSIC_SHAPES: with no view
+    # layer (the NV forms of the wgmma kernels), and with two density heads
+    # (the mma.sync kernels, both forms).
+    shapes = {}
+    for key, (extra, label) in CLASSIC_SHAPES.items():
+        hp_c = dict(hp, **extra)
+        params_c = jax_params_to_torch(
+            flax_tree(MipNeRFSystem(hp_c, device=dev), seed=0), device=dev)
+        results.update(compare_classic_kernels(params_c, hp_c, dev, label))
+        shapes[key] = hp_c, params_c
     results.update(compare_ipe_kernels(hp, dev))
     results.update(compare_pair_kernels(hp, dev))
     tp_counts = tp_slice(hp, params, dev)
     train_counts = train_slice(hp, params, dev)
-    nv_counts = no_view_slice(hp_nv, params_nv, dev)
+    classic_counts = {
+        key: classic_slice(hp_c, params_c, dev, CLASSIC_SHAPES[key][1][1:-1])
+        for key, (hp_c, params_c) in shapes.items()}
+    del shapes
     run_counts = whole_run(hp)
     with tempfile.TemporaryDirectory() as root:
         ckpt_dir, new_paths = multiscale_run(hp, dev, root)
@@ -2703,23 +2742,27 @@ def main() -> int:
             kernels[-1]['wgrad_ms'] = r['wgrad']
         if 'mm_ms' in r:
             kernels[-1]['wgrad_mm_ms'] = r['mm_ms']
-        # fused_mlp's kernels for a model with no view layer (phase 5's
+        # fused_mlp's kernels for each model of CLASSIC_SHAPES (phase 5's
         # numbers, phase 6's launches), f32 and under 'bf16' bf16, with the
         # device kernels each took.
-        if (name + _NV_LABEL, 'f32') in results:
-            nv = {}
+        for key, (extra, label) in CLASSIC_SHAPES.items():
+            if (name + label, 'f32') not in results:
+                continue
+            hp_c = dict(hp, **extra)
+            entry = {}
             for dt, tag in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
-                rn = results[(name + _NV_LABEL, tag)]
+                rn = results[(name + label, tag)]
                 part = {k: rn[k] for k in ('err', 'ms', 'plain_ms', 'bound_ms',
                                            'bound_by')}
                 part['share'] = rn['bound_ms'] / rn['ms']
-                part.update(classic_kernel_names(name, hp_nv, dt))
-                part['launches'] = nv_counts[str(dt)[len('torch.'):]][name]
+                part.update(classic_kernel_names(name, hp_c, dt))
+                part['launches'] = \
+                    classic_counts[key][str(dt)[len('torch.'):]][name]
                 if tag == 'f32':
-                    nv.update(part)
+                    entry.update(part)
                 else:
-                    nv['bf16'] = part
-            kernels[-1]['no_view'] = nv
+                    entry['bf16'] = part
+            kernels[-1][key] = entry
     log(f'[done] wall {time.perf_counter() - START:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi_line())

@@ -34,9 +34,10 @@
 // the rgb head is a dot of concat(bottleneck, view) with its W + Fv rows on
 // the CUDA cores, the bf16 values as stored times the bf16 kernel in f32
 // sums, the view part of each half added after its bottleneck part (as the
-// density head adds a skip concat's x rows): k_rgb's first W rows staged
-// in the head slots, its view rows read with __ldg.  The stream is X | hs |
-// bottleneck | V.
+// density head adds a skip concat's x rows): k_rgb's W + Fv rows staged
+// in the head slots.  Two threads share a point (a warpgroup's 128 threads,
+// its 64 points), so the dot is in halves where lean_fwd_tf32.cuh's four
+// threads a point sum quarters.  The stream is X | hs | bottleneck | V.
 //
 // A persistent block (one an SM) walks 128-point tiles with two consumer
 // warpgroups and a producer warp.  The producer's one thread streams every
@@ -110,7 +111,7 @@ constexpr int FW_XBOXES = 2;                 // encode tile: up to 128 rows
 constexpr size_t FW_SMEM_MAX = 232448;       // an H100 block's dynamic shared memory
 constexpr int FW_MAX_BIAS = FW_MAX_LAYERS * 256;   // f32 biases staged in shared memory
 constexpr int FW_MAX_KD = 256 + 64 * FW_XBOXES;    // the density head's kernel, f32
-constexpr int FW_MAX_KR = 256 * 3;                 // the rgb head's kernel, f32
+constexpr int FW_MAX_KR = (256 + 64 * FW_XBOXES) * 3;   // the rgb head's kernel, f32
 constexpr int FW_MAX_SLABS = FW_MAX_LAYERS * 12;   // slabs a tile: K <= 256 + 128
 
 struct FwdLayer {
@@ -175,13 +176,13 @@ inline size_t fwd_sm90_smem(int W, int Wv, int F, int Fv = 0) {
 
 // The shapes the kernel takes (bf16 is the caller's): the lean MLP (Fv 0),
 // or the classic one with Fv per-point view features and nd density heads,
-// with view layers or (NV: depth_cond 0, Wv unused) none.
+// with view layers or (NV: depth_cond 0, Wv 0, as the dims carry it) none.
 inline bool fwd_sm90_route(int F, int W, int Wv, int depth, int depth_cond, int Fv = 0,
                            int nd = 1) {
   const bool nv = depth_cond == 0 && Fv >= 1;
-  if (nv) Wv = 0;
   return W >= 64 && W <= 256 && W % 64 == 0 &&
-         (nv || (Wv >= 64 && Wv <= 256 && Wv % 64 == 0 && depth_cond >= 1)) && depth >= 1 &&
+         (nv ? Wv == 0 : Wv >= 64 && Wv <= 256 && Wv % 64 == 0 && depth_cond >= 1) &&
+         depth >= 1 &&
          depth + 1 + depth_cond <= FW_MAX_LAYERS && F >= 1 &&
          fw_round(F, FW_KS) <= 64 * FW_XBOXES && Fv >= 0 && fw_round(Fv, FW_KS) <= 64 * FW_XBOXES &&
          nd == 1 && fwd_sm90_smem(W, Wv, F, Fv) <= FW_SMEM_MAX;
@@ -210,7 +211,7 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
   float* hpart = heads + 2 * 4 * 64;                             // [wg][half][3][64]
   float* bias_s = hpart + 2 * 2 * 3 * 64;                        // staged biases
   float* kd_s = bias_s + FW_MAX_BIAS;                            // k_den [W (+ F)]
-  float* kr_s = kd_s + FW_MAX_KD;                                // k_rgb [Wv (NV: W)][3]
+  float* kr_s = kd_s + FW_MAX_KD;                                // k_rgb [Wv (NV: W + Fv)][3]
   short2* sched = reinterpret_cast<short2*>(kr_s + FW_MAX_KR);   // (layer, k0) of a slab
   uint64_t* full = reinterpret_cast<uint64_t*>(sched + FW_MAX_SLABS);
   uint64_t* empty = full + FW_STAGES;
@@ -236,8 +237,8 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
   }
   for (int i = tid; i < pl.W + (pl.cat_x ? pl.F : 0); i += FW_THREADS)
     kd_s[i] = __bfloat162float(pl.k_den[i]);
-  // NV: the rgb head's first W rows; its view rows are read where used.
-  for (int i = tid; i < 3 * (NV ? pl.W : pl.Wv); i += FW_THREADS)
+  // NV: the rgb head's W bottleneck rows, then its Fv view rows.
+  for (int i = tid; i < 3 * (NV ? pl.W + pl.Fv : pl.Wv); i += FW_THREADS)
     kr_s[i] = __bfloat162float(pl.k_rgb[i]);
   for (int i = tid; i < 2 * (pl.Fx - pl.F) * 64; i += FW_THREADS) {
     const int wgi = i / ((pl.Fx - pl.F) * 64), r = i % ((pl.Fx - pl.F) * 64);
@@ -505,8 +506,7 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
           for (int f = hh * (pl.Fv / 2); f < (hh ? pl.Fv : pl.Fv / 2); ++f) {
             const float v = __bfloat162float(*reinterpret_cast<const bf16*>(xs + fw_off(f, p)));
 #pragma unroll
-            for (int o = 0; o < 3; ++o)
-              s[o] = fmaf(v, __bfloat162float(__ldg(pl.k_rgb + (pl.W + f) * 3 + o)), s[o]);
+            for (int o = 0; o < 3; ++o) s[o] = fmaf(v, kr_s[(pl.W + f) * 3 + o], s[o]);
           }
         for (int o = 0; o < 3; ++o) hp[(3 * hh + o) * 64 + p] = s[o];
         named_sync(bar, 128);
@@ -568,7 +568,6 @@ inline bool fwd_sm90_plan(FwdPlan& pl, const LayerPtrs& p, int M, int Mp, int N,
                           int Wv, int use_act, float rgb_padding, float density_bias,
                           const void* S, int Fv = 0) {
   if (!fwd_sm90_route(F, W, Wv, depth, depth_cond, Fv)) return false;
-  if (!depth_cond) Wv = 0;
   auto skip_after = [&](int i) { return i % skip == 0 && i > 0; };
   const int Fp = fw_round(F, 16), Fvx = fw_round(Fv, FW_KS);
   int n = 0, b_off = 0;

@@ -160,13 +160,13 @@ inline size_t fwd_tf32_smem(int W, int Wv, int F, int Fv = 0) {
 
 // The shapes the kernel takes (f32 is the caller's): the lean MLP (Fv 0),
 // or the classic one with Fv per-point view features and nd density heads,
-// with view layers or (NV: depth_cond 0, Wv unused) none.
+// with view layers or (NV: depth_cond 0, Wv 0, as the dims carry it) none.
 inline bool fwd_tf32_route(int F, int W, int Wv, int depth, int depth_cond, int Fv = 0,
                            int nd = 1) {
   const bool nv = depth_cond == 0 && Fv >= 1;
-  if (nv) Wv = 0;
   return W >= 64 && W <= 256 && W % 64 == 0 &&
-         (nv || (Wv >= 64 && Wv <= 256 && Wv % 64 == 0 && depth_cond >= 1)) && depth >= 1 &&
+         (nv ? Wv == 0 : Wv >= 64 && Wv <= 256 && Wv % 64 == 0 && depth_cond >= 1) &&
+         depth >= 1 &&
          depth + 1 + depth_cond <= FT_MAX_LAYERS && F >= 1 && ft_round(F, FT_KS) <= FT_MAX_X &&
          Fv >= 0 && ft_round(Fv, FT_KS) <= FT_MAX_X && nd == 1 &&
          fwd_tf32_smem(W, Wv, F, Fv) <= FT_SMEM_MAX;
@@ -568,8 +568,8 @@ inline bool fwd_tf32_plan(TfPlan& pl, const LayerPtrs& p, const void* const* wt,
   pl.min_deg = min_deg;
   pl.ldx = ldx;
   pl.W = W;
-  pl.Wv = depth_cond ? Wv : 0;
-  pl.wmax = W > pl.Wv ? W : pl.Wv;
+  pl.Wv = Wv;
+  pl.wmax = W > Wv ? W : Wv;
   pl.use_act = use_act;
   pl.rgb_padding = rgb_padding;
   pl.density_bias = density_bias;

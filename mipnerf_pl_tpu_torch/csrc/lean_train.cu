@@ -598,6 +598,16 @@ lean_view_rows_kernel(const float* __restrict__ view, const T* __restrict__ g_ra
 
 namespace {
 
+// Launches of the classic MLP's mma.sync kernels by this library
+// (classic_mma_launches): [0] mlp_fwd_kernel, [1] lean_grad_chain_kernel in
+// its classic form, [2] mlp_input_grads_kernel.
+long long g_classic_mma_launches[3] = {0, 0, 0};
+
+// Count one launch of classic mma.sync kernel i where the launch was taken.
+inline void count_classic_mma(int i) {
+  if (cudaPeekAtLastError() == cudaSuccess) ++g_classic_mma_launches[i];
+}
+
 bool dims_ok(const TrainDims& d, int n_layers, int use_bf16) {
   const int align = use_bf16 ? 16 : 8;
   // No view layer (depth_cond 0, Wv 0): the classic kernels only.
@@ -685,6 +695,7 @@ int launch_classic_fwd(const float* x, const float* view, const LayerPtrs& p, co
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   mlp_fwd_kernel<T, NV><<<d.Mp / TM, THREADS, smem, s>>>(x, view, p, d, rgb, density, saved);
+  count_classic_mma(0);
   return (int)cudaGetLastError();
 }
 
@@ -846,6 +857,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
           mlp_fwd_kernel<T, NV><<<dc.Mp / TM, THREADS, fsmem, s>>>(
               rf->x + (size_t)c0 * d.F, rf->vproj + (size_t)c0 * d.Fv, rf->p, dc, nullptr,
               nullptr, S);
+          count_classic_mma(0);
         }
       } else {
         // Rows start at x[c0][0], moments at column c0 of x [6][ldx]; the
@@ -887,6 +899,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       lean_grad_chain_kernel<T, CL, NV><<<a.n_chain, THREADS, csmem, s>>>(
           acts, heads, a.g_rgb + (size_t)c0 * 3, a.g_dens + (size_t)c0 * d.nd, a.cp, dc, G,
           a.g1f, db_part);
+      if (CL) count_classic_mma(1);
     }
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     if (CL && !on_sm90 && !on_tf32) {
@@ -894,6 +907,7 @@ int run_grads(const GradArgs& a, const TrainDims& d, int chunk, const Refwd* rf,
       ig.dx += (size_t)c0 * d.F;
       ig.dview += (size_t)c0 * d.Fv;
       mlp_input_grads_kernel<T, NV><<<dc.Mp / TM, THREADS, ismem, s>>>(G, ig, dc);
+      count_classic_mma(2);
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
     // The activations are rows of one stream: their offsets from X's.  bf16
@@ -997,6 +1011,7 @@ int level_chunk(const TrainDims& d, int MC) { return (d.Mp + MC - 1) / MC * MC; 
 // per-point view rows; skip and points do not matter to them).
 TrainDims chain_dims(int W, int Wv, int depth, int depth_cond) {
   TrainDims d{};
+  if (!depth_cond) Wv = 0;   // no view layer: Wv 0, as every entry's dims carry it
   d.M = d.R = d.Mp = 64;
   d.N = 1;
   d.depth = depth;
@@ -1273,6 +1288,14 @@ int lean_chain_launches(long long* out) {
   return 0;
 }
 
+// Launches of the classic MLP's mma.sync kernels by this library so far:
+// out[0] mlp_fwd_kernel's, out[1] lean_grad_chain_kernel's classic form's,
+// out[2] mlp_input_grads_kernel's.
+int classic_mma_launches(long long* out) {
+  for (int i = 0; i < 3; ++i) out[i] = g_classic_mma_launches[i];
+  return 0;
+}
+
 // 1 if the lean chain of a channel-major stream at these widths takes its
 // wgmma kernel (bf16: lean_chain_sm90_kernel, f32: lean_chain_tf32_kernel).
 int lean_chain_route(int use_bf16, int W, int Wv, int depth, int depth_cond) {
@@ -1292,7 +1315,7 @@ int lean_chain_tf32_smem(int W, int Wv, int depth, int depth_cond) {
 // shared memory.  With depth_cond 0 (no view layer) Wv is unused.
 int classic_tf32_route(int F, int Fv, int W, int Wv, int depth, int depth_cond, int nd,
                        int skip, int* out) {
-  TrainDims d = chain_dims(W, depth_cond ? Wv : 0, depth, depth_cond);
+  TrainDims d = chain_dims(W, Wv, depth, depth_cond);
   d.F = F;
   d.Fp = (F + 15) / 16 * 16;
   d.Fv = Fv;
@@ -1312,7 +1335,7 @@ int classic_tf32_route(int F, int Fv, int W, int Wv, int depth, int depth_cond, 
 // shared memory.  With depth_cond 0 (no view layer) Wv is unused.
 int classic_sm90_route(int F, int Fv, int W, int Wv, int depth, int depth_cond, int nd,
                        int skip, int* out) {
-  TrainDims d = chain_dims(W, depth_cond ? Wv : 0, depth, depth_cond);
+  TrainDims d = chain_dims(W, Wv, depth, depth_cond);
   d.F = F;
   d.Fp = (F + 15) / 16 * 16;
   d.Fv = Fv;

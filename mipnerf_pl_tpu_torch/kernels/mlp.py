@@ -77,7 +77,9 @@ counted in `tf32_routes` / `chain_tf32_routes`), in bf16 the bf16 ones
 (`fwd_sm90_route` / `chain_sm90_route`, counted in `routes` /
 `chain_routes`).  The same rules also take the model with no view layer,
 on the NV forms of the two kernels of each dtype (the rgb head and dview on
-the CUDA cores).
+the CUDA cores).  The shapes they refuse (more than one density head,
+other widths) run on the mma.sync kernels, counted in `mma_fwd_routes`,
+`mma_chain_routes` and `mma_input_routes`.
 
 What bounds them: the MLP is ~1.21 MFLOP per sample point forward and about
 twice that backward (with the input gradients, exactly twice), so the
@@ -214,6 +216,15 @@ chain_routes = {'lean_param_grads': 0, 'lean_param_grads_recompute': 0,
                 'mlp_bwd_recompute': 0}
 chain_tf32_routes = dict.fromkeys(chain_routes, 0)
 
+# Wrapper name -> calls of fused_mlp's wrappers that ran the classic MLP's
+# mma.sync kernels (the shapes the wgmma rules refuse: nd > 1, other
+# widths), read from the library's own counts of their launches around each
+# call: the forward on mlp_fwd_kernel (mlp_bwd_recompute: its re-run), the
+# chain on lean_grad_chain_kernel, dx and dview on mlp_input_grads_kernel.
+mma_fwd_routes = {'mlp_fwd': 0, 'mlp_save_fwd': 0, 'mlp_bwd_recompute': 0}
+mma_chain_routes = {'mlp_bwd_saved': 0, 'mlp_bwd_recompute': 0}
+mma_input_routes = dict.fromkeys(mma_chain_routes, 0)
+
 
 # Wrapper name -> calls whose weight gradients ran on the f32 wgmma kernel
 # wgrad_tf32_kernel (csrc/lean_wgrad_tf32.cuh) / on the bf16 one
@@ -238,14 +249,16 @@ def wgrad_tf32_route(compute_dtype, Mp: int, MC: int) -> bool:
             and Mp % WT_KP == 0 and MC % WT_KP == 0)
 
 
-def _chain_count(lib, i):
-    """A function reading the library's launches of lean_chain_sm90_kernel
-    (i = 0) or lean_chain_tf32_kernel (i = 1)."""
-    fn = lib.lean_chain_launches
+def _array_count(lib, entry, i):
+    """A function reading entry i of a library's launch counts `entry`:
+    lean_chain_launches (0 lean_chain_sm90_kernel, 1
+    lean_chain_tf32_kernel), classic_mma_launches (0 mlp_fwd_kernel, 1
+    lean_grad_chain_kernel's classic form, 2 mlp_input_grads_kernel)."""
+    fn = getattr(lib, entry)
     fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
 
     def count():
-        out = (ctypes.c_longlong * 2)()
+        out = (ctypes.c_longlong * 3)()
         fn(out)
         return out[i]
     return count
@@ -255,7 +268,8 @@ def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
     for counts in (routes, tf32_routes, chain_routes, chain_tf32_routes,
-                   wgrad_tf32_routes, wgrad_sm90_routes):
+                   wgrad_tf32_routes, wgrad_sm90_routes, mma_fwd_routes,
+                   mma_chain_routes, mma_input_routes):
         for k in counts:
             counts[k] = 0
 
@@ -314,8 +328,19 @@ def _classic_dx_steps(net_depth: int, skip_index: int) -> int:
             + _skip_after(net_depth - 1, skip_index))
 
 
+def _view_width(Wv: int, net_depth_condition: int) -> int:
+    """The view layers' width as the kernels' dims and rules read it: 0
+    with no view layer (net_depth_condition 0), whatever width was given;
+    the rules' NV forms are the classic MLP with Wv 0."""
+    return Wv if net_depth_condition else 0
+
+
+def _wgmma_width(w: int) -> bool:
+    return 64 <= w <= MAX_WIDTH and w % 64 == 0
+
+
 def _chain_route(W, Wv, net_depth, net_depth_condition, smem):
-    return (all(64 <= w <= MAX_WIDTH and w % 64 == 0 for w in (W, Wv))
+    return (_wgmma_width(W) and _wgmma_width(Wv)
             and net_depth >= 1 and net_depth_condition >= 1
             and net_depth + net_depth_condition + 1 <= CH_MAX_STEPS
             and smem <= FW_SMEM_MAX)
@@ -338,17 +363,14 @@ def chain_sm90_route(compute_dtype, W: int, Wv: int, net_depth: int,
     step of its own: the rgb step writes it on the CUDA cores."""
     if compute_dtype != torch.bfloat16:
         return False
+    Wv = _view_width(Wv, net_depth_condition)
+    Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
     if not Fv:
-        Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
         return _chain_route(W, Wv, net_depth, net_depth_condition,
                             chain_sm90_smem(Cg))
-    nv = net_depth_condition == 0
-    if nv:
-        Wv = 0
-    Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
-    ix = _classic_dx_steps(net_depth, skip_index) + (0 if nv else 1)
-    return (all(64 <= w <= MAX_WIDTH and w % 64 == 0
-                for w in ((W,) if nv else (W, Wv)))
+    ix = _classic_dx_steps(net_depth, skip_index) + (1 if Wv else 0)
+    return (_wgmma_width(W)
+            and (_wgmma_width(Wv) or not net_depth_condition)
             and net_depth >= 1 and nd == 1
             and skip_index >= 1 and 1 <= F and _round_up(F, 64) <= MAX_WIDTH
             and _round_up(Fv, 64) <= MAX_WIDTH
@@ -373,18 +395,15 @@ def chain_tf32_route(compute_dtype, W: int, Wv: int, net_depth: int,
     writes it on the CUDA cores."""
     if compute_dtype != torch.float32:
         return False
+    Wv = _view_width(Wv, net_depth_condition)
+    Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
     if not Fv:
-        Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
         return _chain_route(W, Wv, net_depth, net_depth_condition,
                             chain_tf32_smem(W, Wv, Cg))
-    nv = net_depth_condition == 0
-    if nv:
-        Wv = 0
-    Cg = chain_cg(W, Wv, net_depth, net_depth_condition)
-    ix = _classic_dx_steps(net_depth, skip_index) + (0 if nv else 1)
+    ix = _classic_dx_steps(net_depth, skip_index) + (1 if Wv else 0)
     ix_n = _round_up(_round_up(F, 16), 32)
-    return (all(64 <= w <= MAX_WIDTH and w % 64 == 0
-                for w in ((W,) if nv else (W, Wv)))
+    return (_wgmma_width(W)
+            and (_wgmma_width(Wv) or not net_depth_condition)
             and net_depth >= 1 and nd == 1
             and skip_index >= 1 and 1 <= F and ix_n <= FT_MAX_X
             and _round_up(_round_up(Fv, 16), 32) <= FT_MAX_X
@@ -419,13 +438,11 @@ def fwd_tf32_route(compute_dtype, F: int, W: int, Wv: int, net_depth: int,
     nd density heads) runs on its classic form: the same rule, the view at
     most FT_MAX_X features once rounded up, one density head; also with no
     view layer (net_depth_condition 0, the NV form; Wv unused)."""
-    nv = net_depth_condition == 0 and Fv >= 1
-    if nv:
-        Wv = 0
+    Wv = _view_width(Wv, net_depth_condition)
     return (compute_dtype == torch.float32
-            and all(64 <= w <= MAX_WIDTH and w % 64 == 0
-                    for w in ((W,) if nv else (W, Wv)))
-            and net_depth >= 1 and (nv or net_depth_condition >= 1)
+            and _wgmma_width(W)
+            and (_wgmma_width(Wv) or not net_depth_condition and Fv >= 1)
+            and net_depth >= 1
             and net_depth + 1 + net_depth_condition <= FT_MAX_LAYERS
             and 1 <= F and _round_up(F, FT_KS) <= FT_MAX_X
             and 0 <= Fv and _round_up(Fv, FT_KS) <= FT_MAX_X and nd == 1
@@ -512,7 +529,7 @@ def fwd_sm90_smem(W: int, Wv: int, F: int, Fv: int = 0) -> int:
     Fv per-point view features)."""
     box, wbox = 64 * 64 * 2, FW_KS * 64 * 2
     staged = (2 * 4 * 64 + 2 * 2 * 3 * 64 + FW_MAX_LAYERS * 256
-              + (256 + 64 * FW_XBOXES) + 768)
+              + (256 + 64 * FW_XBOXES) + 3 * (256 + 64 * FW_XBOXES))
     xrows = max(_round_up(F, FW_KS), _round_up(Fv, FW_KS))
     tile = max(W, Wv) // 64 * box + 128 * xrows
     return (FW_STAGES * 4 * wbox + 2 * tile
@@ -534,13 +551,11 @@ def fwd_sm90_route(compute_dtype, F: int, W: int, Wv: int, net_depth: int,
     features once rounded up, one density head; also with no view layer
     (net_depth_condition 0, the NV form; Wv unused).  Every other bf16
     forward runs on the mma.sync tile."""
-    nv = net_depth_condition == 0 and Fv >= 1
-    if nv:
-        Wv = 0
+    Wv = _view_width(Wv, net_depth_condition)
     return (compute_dtype == torch.bfloat16
-            and all(64 <= w <= MAX_WIDTH and w % 64 == 0
-                    for w in ((W,) if nv else (W, Wv)))
-            and net_depth >= 1 and (nv or net_depth_condition >= 1)
+            and _wgmma_width(W)
+            and (_wgmma_width(Wv) or not net_depth_condition and Fv >= 1)
+            and net_depth >= 1
             and net_depth + 1 + net_depth_condition <= FW_MAX_LAYERS
             and 1 <= F and _round_up(F, FW_KS) <= 64 * FW_XBOXES
             and 0 <= Fv and _round_up(Fv, FW_KS) <= 64 * FW_XBOXES
@@ -1049,7 +1064,7 @@ def _check_mlp(flat_params, net_depth, net_depth_condition, flag, fn, dev,
     layer."""
     W = flat_params[0].shape[1]
     iv = 2 * (net_depth + 2)
-    Wv = flat_params[iv].shape[1] if net_depth_condition else 0
+    Wv = _view_width(flat_params[iv].shape[1], net_depth_condition)
     align = 16 if flag else 8      # tensor-core tiles: k16/n16, k8/n8
     for w in (W, Wv) if net_depth_condition else (W,):
         if w % align or w > MAX_WIDTH:
@@ -1129,9 +1144,14 @@ def _call(fn_name: str, device, *args):
             count = getattr(lib, name)
             count.argtypes, count.restype = [], ctypes.c_longlong
             counts.append((count, count(), table))
-    for i, table in enumerate((chain_routes, chain_tf32_routes)):
+    for entry, i, table in (
+            ('lean_chain_launches', 0, chain_routes),
+            ('lean_chain_launches', 1, chain_tf32_routes),
+            ('classic_mma_launches', 0, mma_fwd_routes),
+            ('classic_mma_launches', 1, mma_chain_routes),
+            ('classic_mma_launches', 2, mma_input_routes)):
         if fn_name in table:
-            count = _chain_count(lib, i)
+            count = _array_count(lib, entry, i)
             counts.append((count, count(), table))
     for name, table in (('wgrad_tf32_launches', wgrad_tf32_routes),
                         ('wgrad_sm90_launches', wgrad_sm90_routes)):

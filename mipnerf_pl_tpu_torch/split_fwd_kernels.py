@@ -1,6 +1,6 @@
 """Where the lean forward spends its time, by switching parts off.
 
-    cd <root of a checkout> && python3 <this file> [--f32] [--sm90 | --tf32 | --chain | --tune | --wgrad]
+    cd <root of a checkout> && python3 <this file> [--f32] [--sm90 | --tf32 | --chain | --tune | --wgrad] [--only=BITS]
 
 copies the checkout's csrc/ to a temporary directory, adds a compile-time
 mask FWD_OFF to the copy of lean_engines.cuh (nothing in the checkout
@@ -23,7 +23,14 @@ With --sm90 the masks go into lean_fwd_sm90.cuh instead and it times
 lean_fwd_sm90_kernel: 1 the weight slabs' TMA loads (the producer
 completes each slab's barrier without them), 2 the wgmma products, 4 the
 epilogue (bias, vproj, ReLU and the stmatrix stores), 8 the TMA stores of
-the saved stream, 16 the heads' dots, 32 the IPE decode.
+the saved stream, 16 the heads' dots, 32 the IPE decode; it also times
+its classic form in bf16 mlp_fwd at the lego level (the view repeated
+over the samples), with a view layer and, with the lego trunk's seeded
+weights for net_depth_condition 0, its NV form (`mlp_fwd classic`,
+`mlp_fwd classic no_view`).
+
+--only=BITS (comma-separated masks, e.g. --only=0,2,16) builds and times
+only those of the masks.
 
 With --f32 the forwards run in f32: the masks then reach the mma.sync
 tile's 3xTF32 engine (Tf32Gemm), where bit 2 drops the products with the
@@ -235,6 +242,12 @@ SWITCHES_TUNE = [
 ]
 
 
+ONLY = next((a.split('=', 1)[1] for a in sys.argv[1:]
+             if a.startswith('--only=')), None)
+if ONLY is not None:
+    VARIANTS = {int(v): VARIANTS[int(v)] for v in ONLY.split(',')}
+
+
 def variants():
     """{label: the nvcc -D flags of its build}."""
     if TUNE:
@@ -330,6 +343,17 @@ def run(libs):
         'lean_mlp chunk': lambda: km.lean_mlp(cm, vp, flat, *args, dt,
                                               cs.ACT, enc),
     }
+    if SM90:
+        # The classic form and its NV form (no view layer) of mlp_fwd.
+        vpts = view.repeat_interleave(hp['nerf.num_samples'], dim=0)
+        for key, extra in (('classic', {}), ('classic no_view', cs._NO_VIEW)):
+            hc = dict(hp, **extra)
+            fc = cs.flat_params(
+                MipNeRFSystem(hc, device=dev).init_params(seed=0), hc)
+            ca = (hc['nerf.mlp.net_depth'], hc['nerf.mlp.net_depth_condition'],
+                  hc['nerf.mlp.skip_index'])
+            calls[f'mlp_fwd {key}'] = (
+                lambda fc=fc, ca=ca: km.mlp_fwd(x, vpts, fc, *ca, dt))
     saved = []
     if CHAIN or WGRAD:
         calls = {'lean_param_grads': lambda: km.lean_param_grads(

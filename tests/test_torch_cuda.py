@@ -1133,6 +1133,9 @@ def test_cuda_mlp_fwd_matches_plain(cuda_device, shape, dtype):
     assert shape != 'no_view_lego_nd2' or want == 0
     assert classic_took('mlp_save_fwd', dtype)[0] \
         == classic_took('mlp_fwd', dtype)[0] == want
+    # Elsewhere the library's own count of mlp_fwd_kernel.
+    assert tk.mma_fwd_routes['mlp_save_fwd'] == tk.mma_fwd_routes['mlp_fwd'] \
+        == 1 - want
     ref = tk.mlp_save_fwd_plain(x, view, flat, *args, torch.float32)
     M = x.shape[0]
     for a, b in ((rgb, ref[0]), (dens, ref[1]),
@@ -1163,6 +1166,10 @@ def test_cuda_mlp_bwd_saved_matches_plain(cuda_device, shape, dtype):
     assert shape != 'no_view' or want == 1
     assert shape != 'no_view_lego_nd2' or want == 0
     assert classic_took('mlp_bwd_saved', dtype) == (0, want)
+    # Elsewhere the library's own counts of lean_grad_chain_kernel and
+    # mlp_input_grads_kernel.
+    assert tk.mma_chain_routes['mlp_bwd_saved'] \
+        == tk.mma_input_routes['mlp_bwd_saved'] == 1 - want
     rdx, rdview, rgrads = tk.mlp_bwd_saved_plain(g_rgb, g_dens, S, flat,
                                                  *args, torch.float32)
     bar = 1e-4 if dtype == 'float32' else 3e-2

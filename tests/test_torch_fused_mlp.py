@@ -252,3 +252,26 @@ def test_classic_shape_check_takes_a_model_without_view_layers():
             tk._classic_shapes_ok('mlp_fwd', narrow, cfg['net_depth'])
         assert 'view branch' not in str(err.value)
         assert 'net_depth_condition' not in str(err.value)
+
+
+def test_fused_mlp_mma_route_counts():
+    """The route counts of the classic MLP's mma.sync kernels (the shapes
+    the wgmma rules refuse) name fused_mlp's wrappers that run each kernel,
+    reset_launches zeroes them, and a call on CPU tensors (the plain
+    versions, two density heads) launches nothing and moves none."""
+    assert set(tk.mma_fwd_routes) == {'mlp_fwd', 'mlp_save_fwd',
+                                      'mlp_bwd_recompute'}
+    assert set(tk.mma_chain_routes) == set(tk.mma_input_routes) == {
+        'mlp_bwd_saved', 'mlp_bwd_recompute'}
+    tables = (tk.mma_fwd_routes, tk.mma_chain_routes, tk.mma_input_routes)
+    for t in tables:
+        for k in t:
+            t[k] = 3
+    tk.reset_launches()
+    assert not any(v for t in tables for v in t.values())
+    case = CASES['nd2']
+    prob = _problem(**case)
+    for mode in tk.CLASSIC_MODES:
+        _port(prob, case, mode)
+    assert not any(v for t in tables for v in t.values())
+    assert not any(tk.launches.values())

@@ -453,18 +453,19 @@ def test_fwd_sm90_smem():
     boxes of 64 x 64 bf16 (8 KB each) and an encode tile of F rounded up to
     32 rows of 64 bf16 (128 bytes a row), 2 x 4 x 64 f32 heads and 2 x 2 x 3
     x 64 f32 half sums of them, 12 x 256 f32
-    biases, 384 + 768 f32 head kernels, 144 slabs' (layer, row) of 4 bytes,
-    13 mbarriers, 1 KB of alignment slack: 212,136 bytes at the lego widths
-    (F = 96), of an H100 block's 232,448; every shape the route takes fits
-    (220,328 at W 256, F 128)."""
-    fixed = 2048 + 3072 + 12288 + 1536 + 3072 + 576 + 104 + 1024
+    biases, 384 + 1,152 f32 head kernels (the rgb head's 256 + 128 rows of
+    3: the NV form stages its view rows too), 144 slabs' (layer, row) of 4
+    bytes, 13 mbarriers, 1 KB of alignment slack: 213,672 bytes at the lego
+    widths (F = 96), of an H100 block's 232,448; every shape the route
+    takes fits (221,864 at W 256, F 128)."""
+    fixed = 2048 + 3072 + 12288 + 1536 + 4608 + 576 + 104 + 1024
     assert tk.fwd_sm90_smem(256, 128, 96) == (6 * 16384 + 2 * (4 * 8192
-                                              + 96 * 128) + fixed) == 212136
+                                              + 96 * 128) + fixed) == 213672
     assert tk.fwd_sm90_smem(128, 64, 24) == (6 * 16384
                                              + 2 * (2 * 8192 + 32 * 128)
                                              + fixed)
     assert tk.fwd_sm90_smem(128, 256, 96) == tk.fwd_sm90_smem(256, 128, 96)
-    assert tk.fwd_sm90_smem(256, 256, 128) == 220328 <= tk.FW_SMEM_MAX
+    assert tk.fwd_sm90_smem(256, 256, 128) == 221864 <= tk.FW_SMEM_MAX
 
 
 @pytest.mark.parametrize('dtype,F,W,Wv,depth,dcond,want', [
@@ -643,24 +644,24 @@ def test_classic_tf32_smem():
 def test_classic_sm90_smem():
     """The bf16 classic forms' shared memory by hand at the lego shape (F =
     96, 27 view features): the forward's encode tile holds max(96, 32)
-    rows, so its plan is the lean one's, 212,136 bytes; a view wider than
+    rows, so its plan is the lean one's, 213,672 bytes; a view wider than
     the encode widens that tile (F = 24, Fv = 100: 128 rows, as an encode
     of 128); the widest plan the rule takes (W = Wv = 256, F = Fv = 128)
-    is the lean one's widest, 220,328.  The chain keeps no stash: its plan
+    is the lean one's widest, 221,864.  The chain keeps no stash: its plan
     is the lean chain's, 229,632 bytes at lego, 2,816 under the block's
     232,448.  With no view layer (the NV forms, Wv unused) the forward's
-    plan is the same 212,136 bytes, and the chain's G loses the view
+    plan is the same 213,672 bytes, and the chain's G loses the view
     layer's 128 rows (8 x 256 + 1 + 256 + 3 = 2,308), its bias sums 2 x
     128 x 4 bytes: 228,608, 3,840 under the block's."""
     assert tk.fwd_sm90_smem(256, 128, 96, 27) == tk.fwd_sm90_smem(256, 128,
                                                                    96) \
-        == 212136
+        == 213672
     assert tk.fwd_sm90_smem(256, 128, 24, 100) == tk.fwd_sm90_smem(
         256, 128, 128)
-    assert tk.fwd_sm90_smem(256, 256, 128, 128) == 220328 <= tk.FW_SMEM_MAX
+    assert tk.fwd_sm90_smem(256, 256, 128, 128) == 221864 <= tk.FW_SMEM_MAX
     assert tk.chain_sm90_smem(tk.chain_cg(256, 128, 8, 1)) == 229632 \
         == tk.FW_SMEM_MAX - 2816
-    assert tk.fwd_sm90_smem(256, 0, 96, 27) == 212136
+    assert tk.fwd_sm90_smem(256, 0, 96, 27) == 213672
     assert tk.chain_cg(256, 0, 8, 0) == 2308
     assert tk.chain_sm90_smem(2308) == 229632 - 8 * 128 == 228608 \
         == tk.FW_SMEM_MAX - 3840
