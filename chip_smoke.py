@@ -97,7 +97,12 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      and on a ragged count: forward max |d| <= 1e-5, dmeans and dcovs
      ||a - b|| / ||b|| <= 1e-5, two runs bit-equal; the Megatron pair
      kernels tp_pair_fwd and tp_pair_bwd at the pair shapes of the level at
-     net_width 1024 on a model axis of 2 (compare_pair_kernels);
+     net_width 1024 on a model axis of 2 and at 100,003 rows, on
+     tp_pair_wg_kernel (wgmma + TMA, bf16 and 3xTF32), and the mma.sync
+     pair kernels at a local width the wgmma rule refuses, each call's
+     kernel asserted from the library's counts (check_pair_routes), with
+     torch.mm on the same products as their yardstick
+     (compare_pair_kernels);
      CUDA-event times of every kernel and its plain version, and each
      kernel's bound: the larger of its FLOP over the card's peak and its
      bytes over 3.35 TB/s (kernel_work);
@@ -106,8 +111,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      axis 2) and net_width 256 on 8 (model axis 4), bf16 and f32, forward
      and the gradient of a seeded linear loss against the full-width plain
      lean forward; tp_pair_fwd and tp_pair_bwd must launch 4 pairs x the
-     shards times (8 and 8, then 32 and 32); ms of forward and of forward +
-     backward and the peak memory beside the plain forward's (tp_slice);
+     shards times (8 and 8, then 32 and 32), all on tp_pair_wg_kernel of
+     the dtype; ms of forward and of forward + backward and the peak memory
+     beside the plain forward's (tp_slice);
   6. the training slice through its entry points: MipNeRFSystem (lego
      schema, 3072 synthetic rays as bench.py makes them) in each of
      TRAIN_CONFIGS (pallas_lean_save, pallas_lean, pallas_hybrid; the two
@@ -331,6 +337,9 @@ VIDEO_SCALES, VIDEO_POSES = 2, 4
 # rows of the ragged pair comparison.
 TP_MESHES = ((1024, 2, 2), (256, 8, 4))
 TP_RAGGED_ROWS = 100003
+# (rows, f_in, local width, output width) of phase 5's mma.sync pair case: a
+# local width the wgmma rule refuses (not a multiple of 64).
+TP_MMA_SHAPE = (4097, 40, 272, 528)
 _NO_VIEW = {'nerf.mlp.net_depth_condition': 0}
 _NV_LABEL = '[no view layer]'     # phase 5's suffix of their kernels' names
 # The lego widths with two density heads, with a view layer and without:
@@ -749,6 +758,39 @@ def check_wgrad_routes(hp, dt, where, **calls):
     if got != want:
         raise AssertionError(f'{where}: the weight gradients took another '
                              'route')
+
+
+def pair_kernel(dt, f_in, Wl, Wout):
+    """(index into (pair_sm90_routes, pair_tf32_routes, pair_mma_routes),
+    device kernel) of the pair wrappers at these widths in dt: the bf16 or
+    f32 form of tp_pair_wg_kernel where kernels/tp_lean.py pair_sm90_route
+    / pair_tf32_route say so, else the mma.sync kernels."""
+    if kt.pair_sm90_route(dt, f_in, Wl, Wout):
+        return 0, 'tp_pair_wg_kernel<bf16>'
+    if kt.pair_tf32_route(dt, f_in, Wl, Wout):
+        return 1, 'tp_pair_wg_kernel<f32, 3xTF32>'
+    return 2, 'tp_pair_fwd_kernel / tp_pair_bwd_kernel (mma.sync)'
+
+
+def check_pair_routes(dt, where, dims, wgmma, **calls):
+    """Raise unless each pair wrapper's `calls` since the last
+    reset_launches ran (tp_pair_bwd: its chain) on the kernel pair_kernel
+    names for dims = (f_in, Wl, Wout), by the library's own counts, and on
+    no other; `wgmma`: the widths must take tp_pair_wg_kernel (the TP
+    slice's), else the mma.sync kernels."""
+    i, name = pair_kernel(dt, *dims)
+    if (i < 2) != wgmma:
+        raise AssertionError(f'{where}: widths {dims} in {dt} route to '
+                             f'{name}')
+    tables = (km.pair_sm90_routes, km.pair_tf32_routes, km.pair_mma_routes)
+    got = {k: tuple(t[k] for t in tables) for k in calls}
+    want = {k: tuple(n if j == i else 0 for j in range(3))
+            for k, n in calls.items()}
+    log(f'[route] {where}: pair calls on (tp_pair_wg_kernel bf16, '
+        f'tp_pair_wg_kernel f32, mma.sync) {got} (want {want}: {name}) '
+        f'{"OK" if got == want else "FAIL"}')
+    if got != want:
+        raise AssertionError(f'{where}: the pair kernels took another route')
 
 
 def flax_tree(system: MipNeRFSystem, seed: int) -> dict:
@@ -1553,42 +1595,77 @@ def settled_cotangent(args, g, dt, margin=1e-4):
     return g * keep, float(keep.float().mean())
 
 
+def pair_mm_yardstick(args, g, dt, name):
+    """CUDA-event ms of torch.mm on the products of one pair call in dt (a
+    sum of several calls, f32 with allow_tf32 False; never called by the
+    port): forward x Wcol and h Wrow; backward x Wcol, g Wrow^T, dh Wcol^T,
+    x^T dh and h^T g, on operands cast to dt before the clock starts."""
+    x, w_col, b_col, w_row = args
+    x, wc, wr = x.to(dt), w_col.to(dt), w_row.to(dt)
+    h = torch.relu(x.float() @ wc.float() + b_col).to(dt)
+    if name == 'tp_pair_fwd':
+        def mm():
+            torch.mm(x, wc)
+            torch.mm(h, wr)
+    else:
+        gd = g.to(dt)
+        dh = (gd.float() @ wr.float().t()).to(dt)
+
+        def mm():
+            torch.mm(x, wc)
+            torch.mm(gd, wr.t())
+            torch.mm(dh, wc.t())
+            torch.mm(x.t(), dh)
+            torch.mm(h.t(), gd)
+    return cuda_ms(mm)
+
+
 def compare_pair_kernels(hp, dev):
     """Phase 5, the Megatron pair kernels at the three pair shapes of a lego
     level at net_width 1024 on a model axis of 2 (the first pair: f32 encode
     rows, f_in 96; a later pair; the skip pair, whose kernel sees the same
     shapes: its x-rows term is added outside), 393,216 rows and a ragged
-    count, f32 and bf16.  Forward against the f32 `_pair_plain` at the
-    phase-3 bars; dx, dWcol, dbcol and dWrow at the largest ||a - b|| /
-    ||b|| against the f32 `_pair_bwd_plain` on x and the panels as the
+    count, f32 and bf16, all on tp_pair_wg_kernel (bf16 and 3xTF32); and
+    the mma.sync kernels at a local width the wgmma rule refuses (272 ->
+    528, 4,097 rows).  Each call's kernel is asserted from the library's
+    own counts (check_pair_routes).  Forward against the f32 `_pair_plain`
+    at the phase-3 bars; dx, dWcol, dbcol and dWrow at the largest ||a - b||
+    / ||b|| against the f32 `_pair_bwd_plain` on x and the panels as the
     kernel rounds them, with a cotangent that is zero in the rows whose
     ReLU mask is in doubt (settled_cotangent), <= 1e-4 f32, <= 3e-2 bf16;
-    two backward runs bit-equal.  The numbers of the later
-    pair at the level's rows are the kernels' record."""
+    two backward runs bit-equal.  The numbers of the later pair at the
+    level's rows are the kernels' record; the first pair's and the mma.sync
+    forms' go beside them ('[first pair]', '[mma.sync]'), each with
+    torch.mm on the same products (pair_mm_yardstick) as library_ms."""
     W, _, n_model = TP_MESHES[0]
     Wl = W // n_model
     F = 6 * (hp['nerf.max_deg_point'] - hp['nerf.min_deg_point'])
     M = TRAIN_RAYS * hp['nerf.num_samples']
     names = ['dx', 'dWcol', 'dbcol', 'dWrow']
-    cases = [('first pair', M, F, 11), ('pair', M, W, 12),
-             ('skip pair', M, W, 13), ('pair, ragged', TP_RAGGED_ROWS, W, 14),
-             ('first pair, ragged', TP_RAGGED_ROWS, F, 15)]
+    cases = [('first pair', M, F, Wl, W, 11), ('pair', M, W, Wl, W, 12),
+             ('skip pair', M, W, Wl, W, 13),
+             ('pair, ragged', TP_RAGGED_ROWS, W, Wl, W, 14),
+             ('first pair, ragged', TP_RAGGED_ROWS, F, Wl, W, 15),
+             ('mma.sync pair', TP_MMA_SHAPE[0], *TP_MMA_SHAPE[1:], 16)]
     results = {}
     report = reporter(results, hp)
-    for label, rows, f_in, seed in cases:
-        x32, *panels, g = pair_inputs(rows, f_in, Wl, W, dev, seed)
+    for label, rows, f_in, wl, wout, seed in cases:
+        x32, *panels, g = pair_inputs(rows, f_in, wl, wout, dev, seed)
+        mma = label.startswith('mma.sync')
         for dt in (torch.float32, torch.bfloat16):
             tag = 'f32' if dt == torch.float32 else 'bf16'
             g_bar = F32_BAR if dt == torch.float32 else BF16_BAR
-            args = [torch.relu(x32).to(dt) if f_in == W else x32] + panels
+            args = [torch.relu(x32).to(dt) if f_in == wout else x32] + panels
             g, kept = settled_cotangent(args, g, dt)
-            out = kt._pair_call(*args, dt)
             km.reset_launches()
+            out = kt._pair_call(*args, dt)
             got = kt._pair_bwd_call(*args, g, dt)
             again = kt._pair_bwd_call(*args, g, dt)
             torch.cuda.synchronize()
             check_wgrad_routes(hp, dt, f'phase 5 tp_pair_bwd, {label} {tag}',
                                tp_pair_bwd=2)
+            check_pair_routes(dt, f'phase 5 {label} {tag}', (f_in, wl, wout),
+                              not mma, tp_pair_fwd=1, tp_pair_bwd=2)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             del again
             ref = kt._pair_plain(*args, torch.float32)
@@ -1604,16 +1681,17 @@ def compare_pair_kernels(hp, dev):
                         for a, b in zip(got, want))
             del got, want
             log(f'[kernel] tp_pair_fwd / tp_pair_bwd, {label}, {rows:,} rows'
-                f' x {f_in} -> {Wl} -> {W}, {tag}: forward max|d| '
+                f' x {f_in} -> {wl} -> {wout}, {tag}: forward max|d| '
                 f'{f_err:.3e} ({f_bar}); backward max rel err {g_err:.3e} '
                 f'({g_leaf}, <= {g_bar}; {100 * kept:.2f} % of the rows carry '
                 f'a cotangent), two runs bit-equal {same}')
             if not (finite and same and f_ok and g_err <= g_bar):
                 raise AssertionError(f'the pair kernels disagree with their '
                                      f'plain versions: {label} {tag}')
-            if rows != M or label == 'skip pair':
+            if (rows != M and not mma) or label == 'skip pair':
                 continue
-            suffix = '' if f_in == W else '[first pair]'
+            suffix = ('[mma.sync]' if mma else
+                      '' if f_in == W else '[first pair]')
             x_f32 = args[0].dtype == torch.float32
             for name, err, kernel, plain in (
                     ('tp_pair_fwd', f_err,
@@ -1625,7 +1703,12 @@ def compare_pair_kernels(hp, dev):
                 report(name + suffix, tag, True,
                        f'{label}, the checks above', err, cuda_ms(kernel),
                        cuda_ms(plain, 2),
-                       work=pair_work(name, rows, f_in, Wl, W, tag, x_f32))
+                       work=pair_work(name, rows, f_in, wl, wout, tag, x_f32))
+                lib = pair_mm_yardstick(args, g, dt, name)
+                results[(name + suffix, tag)]['library_ms'] = lib
+                log(f'[kernel] {name}{suffix} {tag}: torch.mm on its '
+                    f'products {lib:.3f} ms (a sum of '
+                    f'{2 if name == "tp_pair_fwd" else 5} calls)')
             del args
     return results
 
@@ -1746,6 +1829,10 @@ def tp_slice(hp0, params0, dev):
             finite = all(bool(torch.isfinite(t).all())
                          for t in list(out) + list(grads))
             pairs = {k: run_counts[k] for k in ('tp_pair_fwd', 'tp_pair_bwd')}
+            check_pair_routes(dt, f'phase 5b net_width {W} {tag}',
+                              (W, W // n_model, W), True,
+                              tp_pair_fwd=want_launches,
+                              tp_pair_bwd=want_launches)
             ok = (finite and f_ok and g_err <= g_bar
                   and all(v == want_launches for v in pairs.values())
                   and not any(v for k, v in run_counts.items()
@@ -2510,6 +2597,23 @@ def main() -> int:
         f'{train_lib.lean_chain_tf32_smem(256, 128, 8, 1)} B, '
         f'wgrad_tf32_kernel {train_lib.lean_wgrad_tf32_smem()} B (of 232448)')
 
+    pair_lib = _build.load('tp_pair')
+    pair_lib.tp_pair_wg_smem.restype = ctypes.c_longlong
+    log(f'[build]   tp_pair_wg_kernel at a local width of 512: '
+        f'{pair_lib.tp_pair_wg_smem(512, 1)} B bf16, '
+        f'{pair_lib.tp_pair_wg_smem(512, 0)} B f32 (of 232448)')
+    for dims in ((96, 512, 1024), (1024, 512, 1024), (96, 64, 256),
+                 (256, 64, 256), TP_MMA_SHAPE[1:], (40, 192, 320),
+                 (96, 576, 1024), (96, 512, 1000)):
+        for dt, flag in ((torch.bfloat16, 1), (torch.float32, 0)):
+            lib = bool(pair_lib.tp_pair_wg_route(*dims, flag))
+            mirror = (kt.pair_sm90_route if flag else kt.pair_tf32_route)(
+                dt, *dims)
+            if lib != mirror:
+                raise AssertionError(f'the pair route at {dims} {dt}: the '
+                                     f'library says {lib}, kernels/tp_lean.py '
+                                     f'{mirror}')
+
     hp = config.default()
     system = MipNeRFSystem(hp, device=dev)
     if not system.eval_model._fused_render:
@@ -2738,6 +2842,34 @@ def main() -> int:
             kernels[-1]['wgrad'] = 'wgrad_tf32_kernel'
             kernels[-1]['wgrad_source'] = \
                 'mipnerf_pl_tpu_torch/csrc/lean_wgrad_tf32.cuh'
+        if name in ('tp_pair_fwd', 'tp_pair_bwd'):
+            # Both dtypes ran on tp_pair_wg_kernel at the slice's widths
+            # (check_pair_routes); beside the later pair, the first pair and
+            # the mma.sync kernels at TP_MMA_SHAPE (1 forward and 2
+            # backward calls a dtype in phase 5).
+            src = 'mipnerf_pl_tpu_torch/csrc/tp_pair_sm90.cuh'
+            kernels[-1].update(kernel='tp_pair_wg_kernel<f32> (3xTF32)',
+                               kernel_source=src)
+            kernels[-1]['bf16'].update(kernel='tp_pair_wg_kernel<bf16>',
+                                       kernel_source=src)
+            for suffix, key in (('[first pair]', 'first_pair'),
+                                ('[mma.sync]', 'mma_sync')):
+                entry = {}
+                for tag in ('f32', 'bf16'):
+                    rn = results[(name + suffix, tag)]
+                    part = {k: rn[k] for k in ('err', 'ms', 'plain_ms',
+                                               'bound_ms', 'bound_by',
+                                               'library_ms')}
+                    part['share'] = rn['bound_ms'] / rn['ms']
+                    if tag == 'f32':
+                        entry.update(part)
+                    else:
+                        entry['bf16'] = part
+                kernels[-1][key] = entry
+            kernels[-1]['mma_sync'].update(
+                kernel=name + '_kernel', source=source,
+                shape=list(TP_MMA_SHAPE),
+                launches=2 * (1 if name == 'tp_pair_fwd' else 2))
         if 'wgrad' in r:
             kernels[-1]['wgrad_ms'] = r['wgrad']
         if 'mm_ms' in r:

@@ -32,13 +32,20 @@
 // The engines cover 256 output columns: wider outputs are column chunks of
 // the same panel (segment_ld).
 //
+// At the widths of the tensor-parallel slice (a local width a multiple of
+// 64 up to 512, an output width a multiple of 64: pair_wg_route) both run
+// on the wgmma / TMA kernel of tp_pair_sm90.cuh, tp_pair_wg_kernel, bf16
+// and 3xTF32; the kernels below (tp_pair_fwd_kernel, tp_pair_bwd_kernel,
+// mma.sync through lean_engines.cuh) take the other widths.
+//
 // The TPU backward adds the parameter gradients over a sequential grid.
 // Here, over chunks of rows:
-//   1. tp_pair_bwd_kernel, persistent blocks over 64-row tiles: the hidden
-//      tile again; dh = (g Wrow^T) masked, in place over it; dx = dh Wcol^T;
-//      per-block column sums of dh; and the four operands of the weight
-//      gradients out to a chunk-sized channel-major stream S in the compute
-//      dtype: x | h | g | dh.
+//   1. the chain (tp_pair_wg_kernel, else tp_pair_bwd_kernel), persistent
+//      blocks over 64-row tiles: the hidden tile again; dh = (g Wrow^T)
+//      masked, in place over it; dx = dh Wcol^T; per-block column sums of
+//      dh; and the four operands of the weight gradients out to a
+//      chunk-sized channel-major stream S in the compute dtype: x | h | g |
+//      dh.
 //   2. dWcol = x^T dh and dWrow = h^T g as split-K products over row
 //      ranges, per-range partial sums, on wgmma fed by a TMA ring: in bf16
 //      wgrad_sm90_kernel (lean_wgrad_sm90.cuh), in f32 wgrad_tf32_kernel
@@ -48,6 +55,7 @@
 
 #include "lean_engines.cuh"
 #include "lean_wgrad_tf32.cuh"
+#include "tp_pair_sm90.cuh"
 
 namespace {
 
@@ -77,16 +85,6 @@ __device__ void load_cols(T* st, const void* __restrict__ src, bool src_f32, int
     st[(size_t)k * LD + row] = Ty<T>::from_f(v);
   }
 }
-
-// The least positive bfloat16 (2^-133).  A positive f32 pre-activation
-// below it would round to a bf16 zero and drop out of the backward's mask,
-// which the TPU kernel takes from the f32 value: such a value is stored as
-// this one, 9e-41 away.
-__device__ __forceinline__ float keep_positive(float v, bf16*) {
-  const float tiny = __uint_as_float(0x00010000u);
-  return v > 0.f && v < tiny ? tiny : v;
-}
-__device__ __forceinline__ float keep_positive(float v, float*) { return v; }
 
 // hs[col][row] = cast(relu(x Wcol + bcol)) of the tile at m0, col < Wl, in
 // column chunks of the engines' width, x through the staging tile st.  With
@@ -222,16 +220,41 @@ bool pair_dims_ok(const PairDims& d) {
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// Launches of the mma.sync pair kernels (tp_pair_fwd_kernel,
+// tp_pair_bwd_kernel) by this library.
+long long g_pair_mma_launches = 0;
+
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
+}
+
 template <typename T>
 int launch_fwd(const void* x, const void* wc, const float* bc, const void* wr, const PairDims& d,
-               float* out, cudaStream_t s) {
+               float* out, const PairB& B, cudaStream_t s) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  if (pair_wg_route(d.f_in, d.Wl, d.Wout, BF16)) {
+    PairPlan pl;
+    const int Mp = ceil_div(d.M, TP_TM) * TP_TM;
+    if (!pair_wg_plan<BF16>(pl, B, d.M, Mp, d.f_in, d.Wl, d.Wout, d.x_f32, false, nullptr))
+      return (int)cudaErrorInvalidValue;
+    int sms = 0, e = sm_count(&sms);
+    if (e) return e;
+    const int tiles = Mp / TP_TM;
+    return launch_pair_wg<BF16, false>(pl, tiles < sms ? tiles : sms, x, nullptr, bc, out,
+                                       nullptr, nullptr, s);
+  }
   const size_t smem = pair_smem_bytes<T>(d.Wl);
   cudaError_t e = cudaFuncSetAttribute(tp_pair_fwd_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   tp_pair_fwd_kernel<T><<<ceil_div(d.M, TM), THREADS, smem, s>>>(
       x, static_cast<const T*>(wc), bc, static_cast<const T*>(wr), d, out);
-  return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++g_pair_mma_launches;
+  return (int)e;
 }
 
 struct BwdArgs {
@@ -243,11 +266,16 @@ struct BwdArgs {
 };
 
 template <typename T>
-int launch_bwd(const BwdArgs& a, const PairDims& d, cudaStream_t s) {
+int launch_bwd(const BwdArgs& a, const PairDims& d, const PairB& B, cudaStream_t s) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  const bool wg = pair_wg_route(d.f_in, d.Wl, d.Wout, BF16);
   const size_t smem = pair_smem_bytes<T>(d.Wl);
-  cudaError_t e = cudaFuncSetAttribute(tp_pair_bwd_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e = cudaSuccess;
+  if (!wg) {
+    e = cudaFuncSetAttribute(tp_pair_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   // The two weight-gradient problems and their output tiles: dWcol = x^T dh
   // at dw[0], dWrow = h^T g after it.
   const StreamRows sr = stream_rows(d);
@@ -274,12 +302,23 @@ int launch_bwd(const BwdArgs& a, const PairDims& d, cudaStream_t s) {
     PairDims dc = d;
     dc.M = d.M - c0 < a.chunk ? d.M - c0 : a.chunk;
     const int Mp = ceil_div(dc.M, TM) * TM;
-    tp_pair_bwd_kernel<T><<<a.n_blocks, THREADS, smem, s>>>(
-        static_cast<const char*>(a.x) + x_size * (size_t)c0 * d.f_in,
-        static_cast<const T*>(a.wc), a.bc, static_cast<const T*>(a.wrT),
-        static_cast<const T*>(a.wcT), a.g + (size_t)c0 * d.Wout, dc, Mp, S,
-        a.dx + (size_t)c0 * d.f_in, a.db_part + (size_t)n_chunks * a.n_blocks * d.Wl);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    const void* xc = static_cast<const char*>(a.x) + x_size * (size_t)c0 * d.f_in;
+    float* db_part = a.db_part + (size_t)n_chunks * a.n_blocks * d.Wl;
+    if (wg) {
+      PairPlan pl;
+      if (!pair_wg_plan<BF16>(pl, B, dc.M, Mp, d.f_in, d.Wl, d.Wout, d.x_f32, true, S))
+        return (int)cudaErrorInvalidValue;
+      const int r = launch_pair_wg<BF16, true>(pl, a.n_blocks, xc, a.g + (size_t)c0 * d.Wout, a.bc,
+                                               a.dx + (size_t)c0 * d.f_in, S, db_part, s);
+      if (r) return r;
+    } else {
+      tp_pair_bwd_kernel<T><<<a.n_blocks, THREADS, smem, s>>>(
+          xc, static_cast<const T*>(a.wc), a.bc, static_cast<const T*>(a.wrT),
+          static_cast<const T*>(a.wcT), a.g + (size_t)c0 * d.Wout, dc, Mp, S,
+          a.dx + (size_t)c0 * d.f_in, db_part);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      ++g_pair_mma_launches;
+    }
     float* partial = a.partial + (size_t)(c0 / a.MC) * PW;
     // x, h and the cotangents are rows of the one stream S: bf16 on
     // wgrad_sm90_kernel, f32 on wgrad_tf32_kernel.
@@ -302,16 +341,22 @@ extern "C" {
 
 // x [M, f_in] f32 (x_f32) or compute dtype, wc [f_in, Wl] and wr [Wl, Wout]
 // compute dtype, bc [Wl] f32 -> out [M, Wout] f32.  Wl a multiple of 16 up
-// to 512, Wout a multiple of 16.
+// to 512, Wout a multiple of 16.  f32 at the widths of pair_wg_route: tf32
+// = {split Wcol^T [2 Wl][Kp], split Wrow^T [2 Wout][Wl]} (PairB), else
+// unused (may be null).
 int tp_pair_fwd(const void* x, const void* wc, const void* bc, const void* wr, void* out, int M,
-                int f_in, int Wl, int Wout, int x_f32, int use_bf16, void* stream) {
+                int f_in, int Wl, int Wout, int x_f32, int use_bf16, const void* const* tf32,
+                void* stream) {
   const PairDims d{M, f_in, Wl, Wout, x_f32};
   if (!pair_dims_ok(d) || (!use_bf16 && !x_f32)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bc);
   float* o = static_cast<float*>(out);
-  return use_bf16 ? launch_fwd<bf16>(x, wc, b, wr, d, o, s)
-                  : launch_fwd<float>(x, wc, b, wr, d, o, s);
+  const PairB B = use_bf16 ? PairB{{wc, wr, nullptr, nullptr}}
+                           : PairB{{tf32 ? tf32[0] : nullptr, tf32 ? tf32[1] : nullptr, nullptr,
+                                    nullptr}};
+  return use_bf16 ? launch_fwd<bf16>(x, wc, b, wr, d, o, B, s)
+                  : launch_fwd<float>(x, wc, b, wr, d, o, B, s);
 }
 
 // The inputs of tp_pair_fwd, wrT = wr^T [Wout, Wl], wcT = wc^T [Wl, Fp]
@@ -320,11 +365,13 @@ int tp_pair_fwd(const void* x, const void* wc, const void* bc, const void* wr, v
 // [Wl], f32.  Scratch: S [Fp + 2 Wl + Wout][chunk] compute dtype, db_part
 // [ceil(M / chunk) * n_blocks][Wl] and partial [ceil(Mp / MC)][dw's size]
 // (zeroed) f32.  chunk, the rows a pass takes, is a multiple of MC, the rows
-// of a partial sum, itself a multiple of 64.
+// of a partial sum, itself a multiple of 64.  f32 at the widths of
+// pair_wg_route: tf32 = {split Wcol^T [2 Wl][Kp], unused, split Wrow [2
+// Wl][Wout], split Wcol [2 Np][Wl]} (PairB), else unused (may be null).
 int tp_pair_bwd(const void* x, const void* wc, const void* bc, const void* wrT, const void* wcT,
                 const void* g, void* S, void* dx, void* db_part, int n_blocks, void* partial,
                 int MC, int chunk, void* dw, void* db, int M, int f_in, int Wl, int Wout,
-                int x_f32, int use_bf16, void* stream) {
+                int x_f32, int use_bf16, const void* const* tf32, void* stream) {
   const PairDims d{M, f_in, Wl, Wout, x_f32};
   if (!pair_dims_ok(d) || (!use_bf16 && !x_f32) || n_blocks < 1 || MC < TM || MC % TM ||
       MC % KC || chunk < MC || chunk % MC)
@@ -334,7 +381,32 @@ int tp_pair_bwd(const void* x, const void* wc, const void* bc, const void* wrT, 
                   static_cast<float*>(partial), static_cast<float*>(dw),
                   static_cast<float*>(db), n_blocks, MC, chunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return use_bf16 ? launch_bwd<bf16>(a, d, s) : launch_bwd<float>(a, d, s);
+  PairB B{{nullptr, nullptr, nullptr, nullptr}};
+  if (use_bf16) {
+    B = PairB{{wc, nullptr, wrT, wcT}};
+  } else if (tf32) {
+    B = PairB{{tf32[0], tf32[1], tf32[2], tf32[3]}};
+  }
+  return use_bf16 ? launch_bwd<bf16>(a, d, B, s) : launch_bwd<float>(a, d, B, s);
+}
+
+// Whether tp_pair_fwd and tp_pair_bwd's chain run on tp_pair_wg_kernel at
+// these widths (kernels/tp_lean.py pair_sm90_route / pair_tf32_route), and
+// the dynamic shared memory of its plan.
+int tp_pair_wg_route(int f_in, int Wl, int Wout, int use_bf16) {
+  return pair_wg_route(f_in, Wl, Wout, use_bf16 != 0) ? 1 : 0;
+}
+long long tp_pair_wg_smem(int Wl, int use_bf16) {
+  const int st = pair_wg_stages(use_bf16 != 0, Wl);
+  return st ? (long long)pair_wg_smem(use_bf16 != 0, Wl, st) : -1;
+}
+
+// Launches by this library so far: out[0] tp_pair_wg_kernel bf16, out[1]
+// its f32 form, out[2] the mma.sync pair kernels.
+void tp_pair_launches(long long* out) {
+  out[0] = g_pair_sm90_launches;
+  out[1] = g_pair_tf32_launches;
+  out[2] = g_pair_mma_launches;
 }
 
 // Launches of wgrad_tf32_kernel / wgrad_sm90_kernel by this library so far

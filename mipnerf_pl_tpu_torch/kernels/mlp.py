@@ -236,6 +236,15 @@ wgrad_tf32_routes = {'lean_param_grads': 0, 'lean_param_grads_recompute': 0,
                      'mlp_bwd_recompute': 0, 'tp_pair_bwd': 0}
 wgrad_sm90_routes = dict.fromkeys(wgrad_tf32_routes, 0)
 
+# Wrapper name -> calls of the Megatron pair wrappers (kernels/tp_lean.py)
+# whose kernel (tp_pair_bwd: its chain) ran on the bf16 wgmma / TMA kernel
+# tp_pair_wg_kernel (csrc/tp_pair_sm90.cuh), on its f32 3xTF32 form, or on
+# the mma.sync kernels (tp_pair_fwd_kernel / tp_pair_bwd_kernel), read
+# from the library's own counts of their launches around each call.
+pair_sm90_routes = {'tp_pair_fwd': 0, 'tp_pair_bwd': 0}
+pair_tf32_routes = dict.fromkeys(pair_sm90_routes, 0)
+pair_mma_routes = dict.fromkeys(pair_sm90_routes, 0)
+
 # The shape rule of wgrad_tf32_kernel (csrc/lean_wgrad_tf32.cuh,
 # wgrad_tf32_takes): slabs of WT_KP points.
 WT_KP = 32
@@ -253,7 +262,9 @@ def _array_count(lib, entry, i):
     """A function reading entry i of a library's launch counts `entry`:
     lean_chain_launches (0 lean_chain_sm90_kernel, 1
     lean_chain_tf32_kernel), classic_mma_launches (0 mlp_fwd_kernel, 1
-    lean_grad_chain_kernel's classic form, 2 mlp_input_grads_kernel)."""
+    lean_grad_chain_kernel's classic form, 2 mlp_input_grads_kernel),
+    tp_pair_launches (0 tp_pair_wg_kernel bf16, 1 its f32 form, 2 the
+    mma.sync pair kernels)."""
     fn = getattr(lib, entry)
     fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
 
@@ -269,7 +280,8 @@ def reset_launches() -> None:
         launches[k] = 0
     for counts in (routes, tf32_routes, chain_routes, chain_tf32_routes,
                    wgrad_tf32_routes, wgrad_sm90_routes, mma_fwd_routes,
-                   mma_chain_routes, mma_input_routes):
+                   mma_chain_routes, mma_input_routes, pair_sm90_routes,
+                   pair_tf32_routes, pair_mma_routes):
         for k in counts:
             counts[k] = 0
 
@@ -1118,8 +1130,8 @@ _ARGTYPES = {
     'mlp_save_fwd': [_P] * 5 + [_I] + [_P] * 4 + [_I, _P],
     'mlp_bwd_saved': [_P] * 7 + _GRAD_TAIL,
     'mlp_bwd_recompute': [_P] * 6 + [_I] + [_P] * 6 + _GRAD_TAIL,
-    'tp_pair_fwd': [_P] * 5 + [_I] * 6 + [_P],
-    'tp_pair_bwd': [_P] * 9 + [_I, _P, _I, _I, _P, _P] + [_I] * 6 + [_P],
+    'tp_pair_fwd': [_P] * 5 + [_I] * 6 + [_P, _P],
+    'tp_pair_bwd': [_P] * 9 + [_I, _P, _I, _I, _P, _P] + [_I] * 6 + [_P, _P],
 }
 
 
@@ -1149,7 +1161,10 @@ def _call(fn_name: str, device, *args):
             ('lean_chain_launches', 1, chain_tf32_routes),
             ('classic_mma_launches', 0, mma_fwd_routes),
             ('classic_mma_launches', 1, mma_chain_routes),
-            ('classic_mma_launches', 2, mma_input_routes)):
+            ('classic_mma_launches', 2, mma_input_routes),
+            ('tp_pair_launches', 0, pair_sm90_routes),
+            ('tp_pair_launches', 1, pair_tf32_routes),
+            ('tp_pair_launches', 2, pair_mma_routes)):
         if fn_name in table:
             count = _array_count(lib, entry, i)
             counts.append((count, count(), table))

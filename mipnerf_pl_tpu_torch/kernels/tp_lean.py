@@ -23,10 +23,17 @@ become two hand-written kernels in csrc/tp_pair.cu, one wrapper each:
 and `_pair` is the autograd Function over them whose residuals are the
 pair's inputs only.  The kernels take a local width W/n that is a multiple
 of 16 up to 512 and an output width W that is a multiple of 16; any f_in and
-any row count.  Each wrapper takes its plain version (`_pair_plain`,
-`_pair_bwd_plain`) for tensors on the CPU, and only there; on a CUDA tensor
-it launches its kernel or raises.  Launches are counted in kernels.mlp's
-`launches`.
+any row count.  At the widths of the slice (`pair_sm90_route` in bf16,
+`pair_tf32_route` in f32: W/n a multiple of 64 up to 512, W a multiple of
+64) both run on the wgmma / TMA kernel tp_pair_wg_kernel
+(csrc/tp_pair_sm90.cuh), bf16 with f32 accumulators or 3xTF32, whose f32
+form reads the transposed products' B split into tf32 hi and lo
+(`pair_tf32_weights`, made once a call); other widths keep the mma.sync
+kernels.  A plan the rule's kernel cannot make raises.  Each wrapper takes
+its plain version (`_pair_plain`, `_pair_bwd_plain`) for tensors on the CPU,
+and only there; on a CUDA tensor it launches its kernel or raises.
+Launches are counted in kernels.mlp's `launches`, the kernel each call ran
+on in its `pair_sm90_routes`, `pair_tf32_routes` and `pair_mma_routes`.
 
 `tp_lean_forward` is the lean MLP forward over a `parallel.mesh.Mesh`:
 rows split over `data`, the trunk pairs, the bottleneck and view_0 over
@@ -50,12 +57,76 @@ from torch.autograd.function import once_differentiable
 
 from mipnerf_pl_tpu_torch.kernels.mlp import (TILE, WGRAD_TILE, _call,
                                               _check, _dtype_flag, _on_cpu,
-                                              _round_up, _rounded, launches,
-                                              recompute_chunk, wgrad_split)
+                                              _ptr_array, _round_up, _rounded,
+                                              launches, recompute_chunk,
+                                              tf32_split, wgrad_split)
 from mipnerf_pl_tpu_torch.parallel.mesh import Mesh
 
 MAX_LOCAL = 512     # widest local panel W / n the kernels' hidden tile takes
 MAX_TILES = 192     # output tiles of the backward's weight-gradient products
+
+# The shape rule of tp_pair_wg_kernel (csrc/tp_pair_sm90.cuh pair_wg_route):
+# a ring of at least two and at most TP_MAX_STAGES stages (an A slab of 4 KB
+# and 8 weight boxes of 4 KB) beside the hidden tile [W/n][64 points] in the
+# compute dtype, the ring's three mbarriers a stage, the bias and the
+# block's column sums (W/n f32 each), the warps' column partials (2 x 4 x
+# 256 f32) and 1 KB of alignment, within the block's shared memory.
+TP_MAX_STAGES, TP_STAGE, TP_SMEM_MAX = 4, 4096 + 8 * 4096, 232448
+
+
+def pair_wg_smem(compute_dtype, Wl: int, stages: int) -> int:
+    """Dynamic shared memory of tp_pair_wg_kernel's plan."""
+    es = 2 if compute_dtype == torch.bfloat16 else 4
+    return (stages * TP_STAGE + Wl * 64 * es + 8 * 3 * TP_MAX_STAGES
+            + 4 * (2 * Wl + 2 * 4 * 256) + 1024)
+
+
+def pair_wg_stages(compute_dtype, Wl: int) -> int:
+    """The ring's stages: the most up to TP_MAX_STAGES that fit (0: fewer
+    than two)."""
+    for stages in range(TP_MAX_STAGES, 1, -1):
+        if pair_wg_smem(compute_dtype, Wl, stages) <= TP_SMEM_MAX:
+            return stages
+    return 0
+
+
+def _pair_wg_route(compute_dtype, f_in, Wl, Wout):
+    return (f_in >= 1 and 64 <= Wl <= MAX_LOCAL and Wl % 64 == 0
+            and Wout >= 64 and Wout % 64 == 0
+            and pair_wg_stages(compute_dtype, Wl) >= 2)
+
+
+def pair_sm90_route(compute_dtype, f_in: int, Wl: int, Wout: int) -> bool:
+    """Whether tp_pair_fwd and tp_pair_bwd's chain run on the bf16 form of
+    tp_pair_wg_kernel: bf16, a local width Wl a multiple of 64 up to
+    MAX_LOCAL, an output width a multiple of 64, any f_in (any row count),
+    and the plan within the block's shared memory."""
+    return (compute_dtype == torch.bfloat16
+            and _pair_wg_route(compute_dtype, f_in, Wl, Wout))
+
+
+def pair_tf32_route(compute_dtype, f_in: int, Wl: int, Wout: int) -> bool:
+    """Whether they run on its f32 form (3xTF32): f32 and the same rule."""
+    return (compute_dtype == torch.float32
+            and _pair_wg_route(compute_dtype, f_in, Wl, Wout))
+
+
+def pair_tf32_weights(w_col, w_row, backward: bool):
+    """The B operands of tp_pair_wg_kernel's f32 form, by product: each
+    product's B [K, N] transposed, [N, K], split into [hi; lo] [2 N, K] f32
+    (`tf32_split`): P1 Wcol^T [Wl, f_in] with K rounded up to 16 (zero
+    columns); forward P2 Wrow^T [Wout, Wl]; backward P3 Wrow [Wl, Wout] and
+    P4 Wcol [f_in, Wl] with N rounded up to 64 (zero rows); None where the
+    pass has no such product."""
+    def split(bt, n_pad=0, k_pad=0):
+        bt = torch.nn.functional.pad(bt.float(), (0, k_pad, 0, n_pad))
+        return torch.cat(tf32_split(bt), dim=0).contiguous()
+    f_in = w_col.shape[0]
+    p1 = split(w_col.t(), k_pad=_round_up(f_in, 16) - f_in)
+    if not backward:
+        return [p1, split(w_row.t()), None, None]
+    return [p1, None, split(w_row),
+            split(w_col, n_pad=_round_up(f_in, 64) - f_in)]
 
 
 def _pair_plain(x, w_col, b_col, w_row, dtype):
@@ -112,9 +183,12 @@ def _pair_call(x, w_col, b_col, w_row, dtype):
     wr = w_row.detach().to(dtype).contiguous()
     bc = b_col.detach().float().reshape(-1).contiguous()
     out = torch.empty((M, Wout), dtype=torch.float32, device=x.device)
+    wt = (pair_tf32_weights(wc, wr, backward=False)
+          if pair_tf32_route(dtype, f_in, Wl, Wout) else None)
     _call(fn, x.device, x.data_ptr(), wc.data_ptr(), bc.data_ptr(),
           wr.data_ptr(), out.data_ptr(), M, f_in, Wl, Wout,
-          int(x.dtype == torch.float32), flag)
+          int(x.dtype == torch.float32), flag,
+          None if wt is None else _ptr_array(wt))
     launches[fn] += 1
     return out
 
@@ -147,7 +221,12 @@ def _pair_bwd_call(x, w_col, b_col, w_row, g, dtype):
     mc = wgrad_split(Mp, tiles, 1, sms)
     chunk = recompute_chunk(Mp, mc)
     cap = min(chunk, Mp)
-    n_blocks = min(cap // TILE, 2 * sms)
+    # tp_pair_wg_kernel: one persistent block an SM; the mma.sync chain two.
+    wg = (pair_sm90_route(dtype, f_in, Wl, Wout)
+          or pair_tf32_route(dtype, f_in, Wl, Wout))
+    n_blocks = min(cap // TILE, (1 if wg else 2) * sms)
+    wt = (pair_tf32_weights(wc, w_row.detach().float(), backward=True)
+          if pair_tf32_route(dtype, f_in, Wl, Wout) else None)
     PW = f_in * Wl + Wl * Wout
     f32 = dict(dtype=torch.float32, device=dev)
     S = torch.empty((Fp + 2 * Wl + Wout, cap), dtype=dtype, device=dev)
@@ -160,7 +239,8 @@ def _pair_bwd_call(x, w_col, b_col, w_row, g, dtype):
           wrT.data_ptr(), wcT.data_ptr(), g.data_ptr(), S.data_ptr(),
           dx.data_ptr(), db_part.data_ptr(), n_blocks, partial.data_ptr(),
           mc, chunk, dw.data_ptr(), db.data_ptr(), M, f_in, Wl, Wout,
-          int(x.dtype == torch.float32), flag)
+          int(x.dtype == torch.float32), flag,
+          None if wt is None else _ptr_array(wt))
     launches[fn] += 1
     return (dx, dw[:f_in * Wl].view(f_in, Wl), db,
             dw[f_in * Wl:].view(Wl, Wout))

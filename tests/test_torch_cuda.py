@@ -46,9 +46,12 @@ bars, dx and dview with the parameters; its recompute backward equals the
 saved one on dx and dview bit for bit; they also run a model with no view
 layer (net_depth_condition 0).  The Megatron pair kernels (tp_pair_fwd,
 tp_pair_bwd: kernels/tp_lean.py) are held against their plain versions at
-small, ragged and chunked-width shapes at the same bars (the gradients at
-||a - b|| / ||b||), two backward runs bit for bit, and tp_lean_forward on a
-single-process mesh on the card against the same function on the CPU.  The
+small, ragged and chunked-width shapes and the TP slice's pair widths at
+the same bars (the gradients at ||a - b|| / ||b||), two backward runs bit
+for bit, each on the kernel its rule names (tp_pair_wg_kernel in bf16 and
+f32 at the slice's widths, the mma.sync kernels elsewhere; a plan that
+cannot be made raises), and tp_lean_forward on a single-process mesh on
+the card against the same function on the CPU.  The
 standalone IPE (ipe_fwd,
 ipe_bwd: `nerf.ipe_backend: pallas`) is held against its plain versions,
 max |d| <= 1e-5 forward and ||a - b|| / ||b|| <= 1e-5 for dmeans and dcovs
@@ -1582,9 +1585,33 @@ def test_cuda_ipe_backend_training_runs_the_kernels(cuda_device, backend,
 
 # (rows, f_in, local width, output width): one column chunk; ragged rows and
 # an f_in that is no multiple of 16; widths over the engines' 256 columns
-# (two and three column chunks, the last 16 wide) over two staging tiles.
+# (two and three column chunks, the last 16 wide) over two staging tiles;
+# the TP slice's first and later pairs at few rows; 64-column blocks that
+# split unevenly between the two warpgroups.  tp_pair_wg_kernel takes
+# 'ragged', 'tp_first', 'tp_later' and 'uneven'; the mma.sync kernels the
+# others.
 PAIR_SHAPES = {'small': (200, 24, 16, 32), 'ragged': (777, 96, 64, 128),
-               'chunked': (4097, 40, 272, 528), 'wide_in': (300, 272, 64, 272)}
+               'chunked': (4097, 40, 272, 528), 'wide_in': (300, 272, 64, 272),
+               'tp_first': (333, 96, 512, 1024),
+               'tp_later': (1000, 1024, 512, 1024),
+               'uneven': (130, 40, 192, 320)}
+
+
+def pair_took(name):
+    """(tp_pair_wg_kernel bf16, its f32 form, mma.sync) calls of a pair
+    wrapper since the last reset_launches, by the library's counts."""
+    return (tk.pair_sm90_routes[name], tk.pair_tf32_routes[name],
+            tk.pair_mma_routes[name])
+
+
+def pair_calls(dims, dtype, calls):
+    """What pair_took should read after `calls` calls at dims = (f_in, Wl,
+    Wout) in dtype, by the rules of kernels/tp_lean.py."""
+    from mipnerf_pl_tpu_torch.kernels import tp_lean
+    dt = getattr(torch, dtype)
+    on = (tp_lean.pair_sm90_route(dt, *dims), tp_lean.pair_tf32_route(dt, *dims))
+    return (calls if on[0] else 0, calls if on[1] else 0,
+            0 if any(on) else calls)
 
 
 def _pair_problem(shape, dtype, device, seed=0):
@@ -1617,7 +1644,9 @@ def test_cuda_pair_kernels_match_plain(cuda_device, shape, dtype):
     `_pair_bwd_plain` (f32; the backward's on x and the panels rounded to
     the compute dtype): forward at the forward bars, dx, dWcol, dbcol and
     dWrow at ||a - b|| / ||b|| <= 1e-4 f32, 3e-2 bf16; two backward runs
-    give the same bits."""
+    give the same bits; each call ran on the kernel the rules name
+    (tp_pair_wg_kernel of the dtype, else the mma.sync kernels), by the
+    library's own counts."""
     from mipnerf_pl_tpu_torch.kernels import tp_lean
     dt = getattr(torch, dtype)
     *args, g = _pair_problem(shape, dt, cuda_device)
@@ -1628,6 +1657,11 @@ def test_cuda_pair_kernels_match_plain(cuda_device, shape, dtype):
     torch.cuda.synchronize()
     assert tk.launches['tp_pair_fwd'] == 1 and tk.launches['tp_pair_bwd'] == 2
     assert tk.wgrad_tf32_routes['tp_pair_bwd'] == wgrad_calls(dtype, 2)
+    dims = PAIR_SHAPES[shape][1:]
+    assert pair_took('tp_pair_fwd') == pair_calls(dims, dtype, 1)
+    assert pair_took('tp_pair_bwd') == pair_calls(dims, dtype, 2)
+    if shape.startswith('tp_'):      # the slice's widths: the wgmma kernel
+        assert pair_took('tp_pair_fwd')[2] == 0
     _close(out, tp_lean._pair_plain(*args, torch.float32), dtype)
     # The f32 backward on the operands as the kernel rounds them, so that
     # both recompute the same pre-activation and take the same ReLU mask.
@@ -1640,6 +1674,58 @@ def test_cuda_pair_kernels_match_plain(cuda_device, shape, dtype):
                                            else 3e-2)
     for a, b in zip(got, again):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_cuda_pair_plan_failure_raises(cuda_device, monkeypatch, dtype):
+    """A pair shape the wgmma rule takes whose plan cannot be made raises,
+    the forward and the backward; neither falls back to the mma.sync
+    kernels.  f32: no split weights handed to the library.  bf16: Wcol 2
+    bytes off the 16-byte alignment a tensor map needs."""
+    from mipnerf_pl_tpu_torch.kernels import tp_lean
+    dt = getattr(torch, dtype)
+    x, w_col, b_col, w_row, g = _pair_problem('tp_first', dt, cuda_device)
+    assert pair_calls(PAIR_SHAPES['tp_first'][1:], dtype, 1)[2] == 0
+    if dtype == 'float32':
+        monkeypatch.setattr(tp_lean, 'pair_tf32_weights',
+                            lambda *a, **k: [None] * 4)
+    else:
+        flat = torch.cat([w_col.new_zeros(1, dtype=dt),
+                          w_col.to(dt).reshape(-1)])
+        w_col = flat[1:].view(w_col.shape)
+        assert w_col.data_ptr() % 16 == 2
+    tk.reset_launches()
+    with pytest.raises(RuntimeError, match='tp_pair_fwd'):
+        tp_lean._pair_call(x, w_col, b_col, w_row, dt)
+    with pytest.raises(RuntimeError, match='tp_pair_bwd'):
+        tp_lean._pair_bwd_call(x, w_col, b_col, w_row, g, dt)
+    torch.cuda.synchronize()
+    assert pair_took('tp_pair_fwd') == pair_took('tp_pair_bwd') == (0, 0, 0)
+    assert tk.launches['tp_pair_fwd'] == tk.launches['tp_pair_bwd'] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_pair_route_matches_the_library(cuda_device):
+    """The library's rule (C entry tp_pair_wg_route) agrees with
+    pair_sm90_route / pair_tf32_route, and its plan's shared memory (C
+    entry tp_pair_wg_smem) with pair_wg_smem."""
+    import ctypes
+    from mipnerf_pl_tpu_torch.kernels import _build, tp_lean
+    lib = _build.load('tp_pair')
+    lib.tp_pair_wg_smem.restype = ctypes.c_longlong
+    for dims in [(96, 512, 1024), (1024, 512, 1024), (96, 64, 256),
+                 (256, 64, 256), (40, 192, 320), (1, 64, 64),
+                 (24, 16, 32), (40, 272, 528), (272, 64, 272),
+                 (96, 576, 1024), (96, 512, 1000), (96, 32, 64)]:
+        for dt, flag in ((torch.bfloat16, 1), (torch.float32, 0)):
+            rule = tp_lean.pair_sm90_route if flag else tp_lean.pair_tf32_route
+            assert bool(lib.tp_pair_wg_route(*dims, flag)) == rule(dt, *dims)
+    for Wl in (64, 192, 256, 384, 448, 512):
+        for dt, flag in ((torch.bfloat16, 1), (torch.float32, 0)):
+            stages = tp_lean.pair_wg_stages(dt, Wl)
+            assert lib.tp_pair_wg_smem(Wl, flag) == tp_lean.pair_wg_smem(
+                dt, Wl, stages)
 
 
 @pytest.mark.cuda
@@ -1669,7 +1755,8 @@ def test_cuda_tp_lean_forward_matches_plain(cuda_device, mesh_shape, dtype):
     dview and every leaf of a seeded linear loss at ||a - b|| / ||b|| <=
     2e-3 f32 (the forwards differ by ~1e-6, which flips ReLU masks) and
     3e-2 bf16 (against the plain run in the same dtype); each pair kernel
-    launches once a pair, model rank and data shard."""
+    launches once a pair, model rank and data shard, on tp_pair_wg_kernel
+    at a local width of 64 (model 2) and on the mma.sync kernels at 32."""
     from mipnerf_pl_tpu_torch.kernels import tp_lean
     from mipnerf_pl_tpu_torch.parallel.mesh import create_mesh
     n, m = mesh_shape
@@ -1699,6 +1786,9 @@ def test_cuda_tp_lean_forward_matches_plain(cuda_device, mesh_shape, dtype):
     pairs = cfg['net_depth'] // 2 * n
     assert tk.launches['tp_pair_fwd'] == pairs
     assert tk.launches['tp_pair_bwd'] == pairs
+    W = cfg['net_width']     # a local width of 64 takes the wgmma kernel
+    assert pair_took('tp_pair_fwd') == pair_took('tp_pair_bwd') \
+        == pair_calls((W, W // m, W), dtype, pairs)
     ref_out, ref_g = run('cpu', torch.float32)
     for a, b in zip(got_out, ref_out):
         _close(a, b, dtype)

@@ -173,6 +173,94 @@ def test_pair_function_casts_dx_to_the_input_dtype():
         assert torch.equal(leaf.grad, want.to(x_in.dtype))
 
 
+# (f_in, local width, output width, whether tp_pair_wg_kernel takes them):
+# the TP slice's pairs (net_width 1024 on a model axis of 2, 256 on 4: the
+# first and the later pairs), the card tests' shapes, and each edge of the
+# rule (a local width a multiple of 64 up to 512, an output width a
+# multiple of 64, any f_in from 1).
+PAIR_ROUTES = [
+    (96, 512, 1024, True), (1024, 512, 1024, True), (96, 64, 256, True),
+    (256, 64, 256, True), (96, 64, 128, True), (40, 192, 320, True),
+    (1, 64, 64, True), (1000, 448, 4096, True),
+    (24, 16, 32, False), (40, 272, 528, False), (272, 64, 272, False),
+    (96, 576, 1024, False), (96, 512, 1000, False), (96, 32, 64, False),
+    (96, 64, 32, False), (0, 64, 64, False)]
+
+
+@pytest.mark.parametrize('f_in,Wl,Wout,want', PAIR_ROUTES)
+def test_pair_wg_route(f_in, Wl, Wout, want):
+    """pair_sm90_route takes the widths in bf16 only, pair_tf32_route the
+    same widths in f32 only: the TP slice's pairs take the wgmma kernel in
+    both dtypes, the ragged widths keep the mma.sync kernels."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert ttp.pair_sm90_route(bf16, f_in, Wl, Wout) is want
+    assert ttp.pair_tf32_route(f32, f_in, Wl, Wout) is want
+    assert ttp.pair_sm90_route(f32, f_in, Wl, Wout) is False
+    assert ttp.pair_tf32_route(bf16, f_in, Wl, Wout) is False
+
+
+def _pair_cuh():
+    """The constants of csrc/tp_pair_sm90.cuh as a dict."""
+    import re
+    from pathlib import Path
+    src = (Path(ttp.__file__).resolve().parent.parent / 'csrc'
+           / 'tp_pair_sm90.cuh').read_text()
+    return {k: int(v) for k, v in
+            re.findall(r'constexpr (?:int|size_t) (\w+) = (\d+);', src)}
+
+
+@pytest.mark.parametrize('dtype,Wl,stages', [
+    ('bfloat16', 512, 4), ('bfloat16', 64, 4), ('float32', 512, 2),
+    ('float32', 448, 2), ('float32', 384, 3), ('float32', 256, 4)])
+def test_pair_wg_plan_mirror(dtype, Wl, stages):
+    """The Python mirror of tp_pair_wg_kernel's plan (pair_wg_smem,
+    pair_wg_stages) uses the C++ constants (read from the source): a ring
+    stage is the 4 KB A slab and 8 weight boxes of 4 KB; the ring has the
+    most stages up to TP_MAX_STAGES that fit beside the hidden tile, counted
+    by hand: the f32 tile at Wl = 512 (128 KB) leaves room for two, bf16's
+    (64 KB) for four, and one stage more never fits."""
+    c = _pair_cuh()
+    assert ttp.TP_MAX_STAGES == c['TP_MAX_STAGES']
+    assert ttp.TP_STAGE == c['TP_ABYTES'] + 8 * c['TP_BOX']
+    assert ttp.TP_SMEM_MAX == c['TP_SMEM_MAX']
+    assert ttp.MAX_LOCAL == c['TP_MAX_LOCAL']
+    assert (c['TP_TM'], c['TP_PART'], c['TP_HELPERS']) == (64, 256, 2)
+    dt = getattr(torch, dtype)
+    assert ttp.pair_wg_stages(dt, Wl) == stages
+    tile = Wl * 64 * (2 if dtype == 'bfloat16' else 4)
+    want = stages * ttp.TP_STAGE + tile + 8 * 3 * 4 + 4 * (2 * Wl + 2048) + 1024
+    assert ttp.pair_wg_smem(dt, Wl, stages) == want <= ttp.TP_SMEM_MAX
+    if stages < ttp.TP_MAX_STAGES:
+        assert ttp.pair_wg_smem(dt, Wl, stages + 1) > ttp.TP_SMEM_MAX
+
+
+@pytest.mark.parametrize('f_in,Wl,Wout', [(96, 512, 1024), (40, 192, 320),
+                                          (1024, 64, 256), (1, 64, 64)])
+def test_pair_tf32_weights_layout(f_in, Wl, Wout):
+    """The f32 form's B operands: each product's B transposed and padded
+    (P1 Wcol^T [Wl, f_in -> 16], P2 Wrow^T, P3 Wrow, P4 Wcol [f_in -> 64,
+    Wl]) is exactly hi + lo of its [hi; lo] split, hi a tf32 value (its 13
+    low mantissa bits zero), the padding zero."""
+    rng = np.random.default_rng(7)
+    wc = torch.tensor(rng.normal(size=(f_in, Wl)).astype(np.float32))
+    wr = torch.tensor(rng.normal(size=(Wl, Wout)).astype(np.float32))
+    fwd = ttp.pair_tf32_weights(wc, wr, backward=False)
+    bwd = ttp.pair_tf32_weights(wc, wr, backward=True)
+    assert fwd[2] is None and fwd[3] is None and bwd[1] is None
+    assert torch.equal(fwd[0], bwd[0])
+    r16, r64 = -(-f_in // 16) * 16, -(-f_in // 64) * 64
+    for t, bt, n, k in ((fwd[0], wc.t(), Wl, r16), (fwd[1], wr.t(), Wout, Wl),
+                        (bwd[2], wr, Wl, Wout), (bwd[3], wc, r64, Wl)):
+        assert t.shape == (2 * n, k) and t.dtype == torch.float32
+        assert t.is_contiguous()
+        hi, lo = t[:n], t[n:]
+        want = torch.zeros(n, k)
+        want[:bt.shape[0], :bt.shape[1]] = bt
+        assert torch.equal(hi + lo, want)
+        assert not (hi.view(torch.int32) & 0x1FFF).any()
+        assert lo.abs().max() <= 2.0 ** -11 * want.abs().max()
+
+
 @pytest.mark.parametrize('case', list(CASES))
 def test_tp_lean_forward_matches_jax(case):
     """Forward and every gradient leaf, dx and dview, port against JAX on
