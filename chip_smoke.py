@@ -19,7 +19,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      the one library call of view_proj's function), and for view_proj,
      whose device work is a few microseconds, the kernel's and addmm's
      device times from a torch.profiler window (the wrapper's casts of k0
-     and b0 apart) at the chunk's 8192 rays and a training level's 3072;
+     and b0 apart) at the chunk's 8192 rays and a training level's 3072,
+     and so for lean_composite (its own device time beside its bound);
      bf16 lean_mlp must take the wgmma forward (lean_fwd_sm90_kernel), f32
      lean_mlp the 3xTF32 one (lean_fwd_tf32_kernel) (`check_routes`);
   4. the render slice through its entry point: MipNeRFSystem (default lego
@@ -68,7 +69,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      the same three forwards and the recompute backward on the level's
      [6, M] moments (`encode=`), in f32 also against the rows form on the
      plain decode of the same moments (<= 1e-5); lean_composite_bwd (both
-     backgrounds) and ipe_moments at the level's shape (<= 1e-5, f32); the
+     backgrounds; and its device time from a torch.profiler window) and
+     ipe_moments at the level's shape (<= 1e-5, f32); the
      classic kernels of fused_mlp on the level with per-point view rows (the
      view repeated over the samples, as the model feeds them): mlp_save_fwd
      (outputs and stream) and mlp_fwd (bit for bit its outputs) at the
@@ -94,8 +96,11 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      own counts (CLASSIC_SHAPES); the standalone
      IPE kernels ipe_fwd and ipe_bwd on the level's Gaussians (393,216
      points, degrees 0..16), with their covariances and with them zeroed,
-     and on a ragged count: forward max |d| <= 1e-5, dmeans and dcovs
-     ||a - b|| / ||b|| <= 1e-5, two runs bit-equal; the Megatron pair
+     on a ragged count, with the means pushed past |mean| 3.25 (every
+     degree-15 argument past 105,615) and at degrees 16..32: forward max
+     |d| <= 1e-5, dmeans and dcovs ||a - b|| / ||b|| <= 1e-5, two runs
+     bit-equal, and both kernels' device times (torch.profiler) beside the
+     events; the Megatron pair
      kernels tp_pair_fwd and tp_pair_bwd at the pair shapes of the level at
      net_width 1024 on a model axis of 2 and at 100,003 rows, on
      tp_pair_wg_kernel (wgmma + TMA, bf16 and 3xTF32), and the mma.sync
@@ -926,6 +931,21 @@ def compare_kernels(params, hp, dev):
                     f'(events)')
             record(results, (name, tag), hp, CHUNK, N, err, ms, plain_ms,
                    library_ms)
+            if name == 'lean_composite':
+                # Microseconds of device work: the events above read the
+                # host's issue time of each call.  Device times at the
+                # chunk's rays and at a training level's.
+                for rays, key in ((CHUNK, 'device_ms'),
+                                  (TRAIN_RAYS, 'device_ms_train')):
+                    rs, dl, md = ref_rs[:rays * N], delta[:rays], mids[:rays]
+                    dev_ms = sum(v for k, v in kernel_device_ms(
+                        lambda: km.lean_composite(rs, dl, md, True)).items()
+                        if 'lean_composite' in k)
+                    b_ms, _ = bound(name, hp, rays, N, tag)
+                    results[(name, tag)][key] = dev_ms
+                    log(f'[kernel] {name} {tag} at {rays} rays: device time '
+                        f'(torch.profiler) {dev_ms * 1e3:.2f} us, bound '
+                        f'{b_ms * 1e3:.2f} us ({100 * b_ms / dev_ms:.1f} %)')
     return results
 
 
@@ -1375,6 +1395,14 @@ def compare_render_bwd_and_encode(results, report, flat, args, x, view,
            f'{FORM_BAR})', err,
            cuda_ms(lambda: km.lean_composite_bwd(*b_args, True)),
            cuda_ms(lambda: km.lean_composite_bwd_plain(*b_args, True)))
+    # Microseconds of device work, which the events above do not see.
+    dev_ms = sum(v for k, v in kernel_device_ms(
+        lambda: km.lean_composite_bwd(*b_args, True)).items()
+        if 'lean_composite_bwd' in k)
+    results[('lean_composite_bwd', 'f32')]['device_ms'] = dev_ms
+    log(f'[kernel] lean_composite_bwd f32: device time (torch.profiler) '
+        f'{dev_ms * 1e3:.2f} us, bound '
+        f'{results[("lean_composite_bwd", "f32")]["bound_ms"] * 1e3:.2f} us')
     got = km.ipe_moments(moments, *enc)
     want = km.ipe_moments_plain(moments, *enc)
     torch.cuda.synchronize()
@@ -1392,9 +1420,14 @@ def compare_ipe_kernels(hp, dev):
     and ipe_bwd against their plain versions on the Gaussians of a training
     level (the stratified samples of TRAIN_RAYS seeded rays, a seeded
     cotangent), with the covariances and with them zeroed (as
-    disable_integration hands them over), and on a ragged number of them;
-    two runs bit-equal.  dmeans reach ~1e5 and dcovs ~1e9, so they are held
-    by ||a - b|| / ||b||."""
+    disable_integration hands them over), on a ragged number of them, with
+    the means pushed out to |mean| + 3.25 (every degree-15 argument past
+    105,615, where CUDA's exact sincosf turns slow) and at degrees 16..32
+    (covariances zeroed, arguments up to 2^34); two runs bit-equal.
+    dmeans reach ~1e5 and dcovs ~1e9 (~1e19 at degrees 16..32), so they
+    are held by ||a - b|| / ||b||.  Beside the CUDA events (which also
+    count the host's issue time of a call) each kernel's device time from
+    a torch.profiler window, at the level."""
     deg = (hp['nerf.min_deg_point'], hp['nerf.max_deg_point'])
     rays, _ = train_batch(TRAIN_RAYS, dev, seed=1)
     _, (means, covs) = sample_along_rays(
@@ -1414,15 +1447,19 @@ def compare_ipe_kernels(hp, dev):
     worst = {'fwd': 0.0, 'bwd': 0.0, 'bwd_abs': 0.0}
     same = True
     ragged = M - 77
-    cases = (('covs', means, covs, g), ('covs = 0', means,
-                                        torch.zeros_like(covs), g),
-             ('ragged', means[:ragged], covs[:ragged], g[:ragged]))
-    for label, m, c, gg in cases:
-        out, again = ki.ipe_fwd(m, c, *deg), ki.ipe_fwd(m, c, *deg)
-        dm, dc = ki.ipe_bwd(m, c, gg, *deg)
-        dm2, dc2 = ki.ipe_bwd(m, c, gg, *deg)
-        want = ki.ipe_fwd_plain(m, c, *deg)
-        rm, rc = ki.ipe_bwd_plain(m, c, gg, *deg)
+    zero = torch.zeros_like(covs)
+    high = (deg[0] + 16, deg[1] + 16)
+    cases = (('covs', means, covs, g, deg), ('covs = 0', means, zero, g, deg),
+             ('ragged', means[:ragged], covs[:ragged], g[:ragged], deg),
+             ('far', torch.sign(means) * (means.abs() + 3.25), covs, g, deg),
+             (f'degrees {high[0]}..{high[1]}, covs = 0', means, zero, g,
+              high))
+    for label, m, c, gg, dd in cases:
+        out, again = ki.ipe_fwd(m, c, *dd), ki.ipe_fwd(m, c, *dd)
+        dm, dc = ki.ipe_bwd(m, c, gg, *dd)
+        dm2, dc2 = ki.ipe_bwd(m, c, gg, *dd)
+        want = ki.ipe_fwd_plain(m, c, *dd)
+        rm, rc = ki.ipe_bwd_plain(m, c, gg, *dd)
         torch.cuda.synchronize()
         finite = all(bool(torch.isfinite(t).all()) for t in (out, dm, dc))
         f_err = float((out - want).abs().max()) if finite else float('inf')
@@ -1443,16 +1480,23 @@ def compare_ipe_kernels(hp, dev):
         del out, again, dm, dc, dm2, dc2, want, rm, rc
     results = {}
     report = reporter(results, hp)
+    fwd = lambda: ki.ipe_fwd(means, covs, *deg)  # noqa: E731
+    bwd = lambda: ki.ipe_bwd(means, covs, g, *deg)  # noqa: E731
+    dev = {name: sum(v for k, v in kernel_device_ms(fn).items()
+                     if f'{name}_kernel' in k)
+           for name, fn in (('ipe_fwd', fwd), ('ipe_bwd', bwd))}
     report('ipe_fwd', 'f32', same and worst['fwd'] <= FORM_BAR,
-           f'max|d| {worst["fwd"]:.3e} over the three cases (<= {FORM_BAR})',
-           worst['fwd'], cuda_ms(lambda: ki.ipe_fwd(means, covs, *deg)),
-           cuda_ms(lambda: ki.ipe_fwd_plain(means, covs, *deg)))
+           f'max|d| {worst["fwd"]:.3e} over the five cases (<= {FORM_BAR}); '
+           f'device time {dev["ipe_fwd"]:.4f} ms', worst['fwd'],
+           cuda_ms(fwd), cuda_ms(lambda: ki.ipe_fwd_plain(means, covs, *deg)))
     report('ipe_bwd', 'f32', same and worst['bwd'] <= FORM_BAR,
            f'||a - b|| / ||b|| {worst["bwd"]:.3e} over dmeans, dcovs and the '
-           f'three cases (<= {FORM_BAR}); max|d| {worst["bwd_abs"]:.3e}',
-           worst['bwd_abs'],
-           cuda_ms(lambda: ki.ipe_bwd(means, covs, g, *deg)),
+           f'five cases (<= {FORM_BAR}); max|d| {worst["bwd_abs"]:.3e}; '
+           f'device time {dev["ipe_bwd"]:.4f} ms', worst['bwd_abs'],
+           cuda_ms(bwd),
            cuda_ms(lambda: ki.ipe_bwd_plain(means, covs, g, *deg)))
+    for name, ms in dev.items():
+        results[(name, 'f32')]['device_ms'] = ms
     return results
 
 
@@ -2793,6 +2837,12 @@ def main() -> int:
                         'bound_by': r['bound_by'],
                         'library_ms': r['library_ms']})
         kernels[-1]['share'] = r['bound_ms'] / r['ms']
+        # Device times (torch.profiler) of the kernels whose events read
+        # the host: at the phase's shape, and lean_composite's also at a
+        # training level's rays.
+        for key in ('device_ms', 'device_ms_train'):
+            if key in r:
+                kernels[-1][key] = r[key]
         # The kernel's launches on the paths of phases 7b-7d.
         kernels[-1]['launches_new_paths'] = {
             path: c[name] for path, c in new_paths.items() if c[name]}

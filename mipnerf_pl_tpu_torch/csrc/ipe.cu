@@ -27,23 +27,61 @@
 // default encode) takes sin(y + pi/2), which differs in f32 once mean*s is
 // large.  So neither kernel calls ipe_feature.
 //
-//   ipe_fwd  one thread per (point, degree, dim): one expf and one sincosf,
-//            two stores 3L floats apart; the (degree, dim) index is fastest,
-//            so a warp writes 32 consecutive floats of each half row.
-//   ipe_bwd  a block takes IPE_BWD_POINTS points.  It stages their
-//            cotangent rows (one contiguous stretch of g) through shared
-//            memory with coalesced loads, each (point, degree, dim) turns its
-//            two cotangents into its terms of dmean and dcov in place, and
-//            after a barrier one thread per (point, dim) adds the L terms in
-//            ladder order: no atomics, so two runs agree bit for bit.
-//
 // What bounds them: forward 24 B in + 24L B out a point, backward 24 + 24L in
-// and 24 out (~160 / ~170 MB a lego level); 3L expf and 3L sincosf a point,
-// whose arguments reach 2^15 |mean|, where sincosf takes its slow exact
-// reduction (expect local memory for it in the ptxas line).  Scales are
-// exact powers of two (ldexpf), so every product with them is exact.
+// and 24 out (~160 / ~170 MB a lego level, ~48 / ~51 us at 3.35 TB/s).  Their
+// arguments mean 2^deg reach 2^15 |mean| at the lego degrees, where CUDA's
+// exact sincosf leaves its fast reduction for a slow one in local memory, and
+// a warp whose lanes mixed degrees waited on its slowest lane.  So neither
+// kernel calls sinf / cosf / sincosf:
+//
+//   one reduction a (point, dim): t = mean 2/pi as a double-double (an FP64
+//       two-product against a two-part 2/pi, ~105 bits), its multiples of
+//       4 2^-min_deg taken off (exact, and every 2^deg t keeps its value
+//       mod 4); then a degree is 2^deg t, exact, whose nearest integer k
+//       (rounded by adding 1.5 2^52, whose low mantissa bits then hold k)
+//       gives the quadrant and f = 2^deg t - k, |f| <= 1/2, the quarter
+//       turns past it; a second rounding takes any integer that 2^deg t_lo
+//       carries (means past ~2^50 2^-deg).  The error of f is ~2^-105
+//       |2^deg t|;
+//   one core: sin(pi f / 2) and cos(pi f / 2) as polynomials in f^2 in FP64
+//       (coefficients fitted by weighted least squares on Chebyshev nodes
+//       of [0, 1/2]: relative error 5e-12 and 4e-13; read from constant
+//       memory, not rebuilt in registers each degree), rounded once to f32,
+//       within ~0.5 ulp of the exact values (tests/test_torch_ipe.py
+//       mirrors it in numpy and holds it against float64 sin / cos at
+//       degrees up to 32).  18 FP64 operations a (point, degree, dim);
+//   one thread a (point, dim), running all L degrees: mean and cov load
+//       once, no 64-bit division, every lane runs the same code.  Scales
+//       2^deg and 2^(2 deg - 1) are built from their exponent bits (degrees
+//       -62..63, where both are normal floats), so x 2^e is one exact
+//       product: the value ldexpf gives.
+//
+// The memory side overlaps the arithmetic: each block is persistent over
+// tiles of IPE_POINTS points, two tiles of shared memory in turn.
+//
+//   ipe_fwd  a tile's rows [P][6L] are written into shared memory as they
+//            lie in out, and one bulk TMA copy stores them while the block
+//            computes the next tile.  Lane p starts its ladder at degree
+//            p mod L, so that a warp's stores of one step fall on
+//            different banks.  damp = expf(-cov 2^(2 deg - 1)) a (point,
+//            degree, dim): a recurrence over the degrees would compound its
+//            rounding.
+//   ipe_bwd  the next tile's cotangent rows (one stretch of g) come in by
+//            cp.async (16 bytes a copy when a row is a whole number of
+//            them, L even; else 4) while the block works on this one; each
+//            (point, dim) forms its 2L terms from the same sin / cos as the
+//            forward and sums them in ladder order in registers: no second
+//            pass, no atomics, so two runs agree bit for bit.  Shared rows
+//            are ipe_stride(L) floats apart, 4 mod 8: 16-byte aligned, and
+//            the 32 lanes of a warp, threads 3 p + d, reading one column of
+//            their rows fall on 32 banks but for two pairs.
+//
+// L <= IPE_MAX_DEGREES: two tiles stay within 50 KB, and every 2^deg t
+// after the first reduction under 2^(L + 1), far inside the 2^51 the
+// rounding takes.
 
 #include "lean_engines.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -56,62 +94,223 @@ __global__ void ipe_moments_kernel(const float* __restrict__ moments, float* __r
   out[idx] = ipe_feature(moments, M, m, f, L, min_deg);
 }
 
-constexpr int IPE_BWD_POINTS = 32;   // points a backward block stages
+constexpr int IPE_POINTS = 32;              // points a tile holds
+constexpr int IPE_THREADS = 3 * IPE_POINTS;  // one a (point, dim)
+constexpr int IPE_MAX_DEGREES = 32;
+constexpr int IPE_MIN_DEG = -62, IPE_END_DEG = 64;  // degrees the scales take
 
-__global__ void ipe_fwd_kernel(const float* __restrict__ means, const float* __restrict__ covs,
-                               float* __restrict__ out, int M, int L, int min_deg) {
-  const int L3 = 3 * L;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)M * L3) return;
-  const size_t m = idx / L3;
-  const int j = (int)(idx - m * L3), deg = min_deg + j / 3, d = j % 3;
-  const float arg = ldexpf(means[m * 3 + d], deg);
-  const float damp = expf(-ldexpf(covs[m * 3 + d], 2 * deg - 1));
-  float sn, cs;
-  sincosf(arg, &sn, &cs);
-  float* row = out + m * 2 * L3;
-  row[j] = damp * sn;
-  row[L3 + j] = damp * cs;
+// 2/pi as a double-double, and the constant whose addition rounds a double
+// below 2^51 to an integer held in its low mantissa bits.
+constexpr double TWO_OVER_PI_HI = 0x1.45f306dc9c883p-1;
+constexpr double TWO_OVER_PI_LO = -0x1.6b01ec5417056p-55;
+constexpr double ROUND_MAGIC = 0x1.8p+52;
+// On |f| <= 1/2: sin(pi f / 2) = f (S0 + f^2 (S1 + f^2 (S2 + ...))),
+// cos(pi f / 2) = 1 + f^2 (C0 + f^2 (C1 + ...)), S = IPE_SIN, C = IPE_COS.
+__constant__ double IPE_SIN[5] = {0x1.921fb5443f418p+0, -0x1.4abbce58b7039p-1,
+                                  0x1.466bbbc623cd1p-4, -0x1.32caf54d31facp-8,
+                                  0x1.4bdc50b884a7ep-13};
+__constant__ double IPE_COS[5] = {-0x1.3bd3cc9be3ecap+0, 0x1.03c1f07f444a0p-2,
+                                  -0x1.55d3c266ee629p-6, 0x1.e1ece6fd2706fp-11,
+                                  -0x1.a203bfd42e823p-16};
+
+__host__ __device__ constexpr int ipe_stride(int L) {
+  return 6 * L + ((4 - 6 * L) % 8 + 8) % 8;
 }
 
-// g [M, 6L] -> dmeans, dcovs [M, 3].  Shared rows are 6L + 1 floats apart so
-// that the threads of the final sums fall on different banks.
-__global__ void ipe_bwd_kernel(const float* __restrict__ means, const float* __restrict__ covs,
-                               const float* __restrict__ g, float* __restrict__ dmeans,
-                               float* __restrict__ dcovs, int M, int L, int min_deg) {
-  extern __shared__ float tile[];
-  const int L3 = 3 * L, F = 2 * L3, stride = F + 1;
-  const size_t m0 = (size_t)blockIdx.x * IPE_BWD_POINTS;
-  const int points = (size_t)M - m0 < IPE_BWD_POINTS ? (int)((size_t)M - m0) : IPE_BWD_POINTS;
-  const float* g0 = g + m0 * F;
-  for (int e = threadIdx.x; e < points * F; e += blockDim.x)
-    tile[(e / F) * stride + e % F] = g0[e];
-  __syncthreads();
-  for (int e = threadIdx.x; e < points * L3; e += blockDim.x) {
-    const int p = e / L3, j = e % L3, deg = min_deg + j / 3, d = j % 3;
-    const size_t m = m0 + p;
-    const float arg = ldexpf(means[m * 3 + d], deg);
-    const float damp = expf(-ldexpf(covs[m * 3 + d], 2 * deg - 1));
-    float sn, cs;
-    sincosf(arg, &sn, &cs);
-    float* row = tile + p * stride;
-    const float g_sin = row[j], g_cos = row[L3 + j];
-    // d enc_sin / d mean = s damp cos, d enc_cos / d mean = -s damp sin;
-    // d enc / d cov = -0.5 s^2 enc.
-    row[j] = ldexpf(g_sin * damp * cs - g_cos * damp * sn, deg);
-    row[L3 + j] = -ldexpf(g_sin * damp * sn + g_cos * damp * cs, 2 * deg - 1);
+__device__ __forceinline__ double pow2d(int e) {  // 2^e, |e| <= 1022
+  return __hiloint2double((e + 1023) << 20, 0);
+}
+
+__device__ __forceinline__ float pow2f(int e) {  // 2^e, |e| <= 126
+  return __int_as_float((e + 127) << 23);
+}
+
+// mean 2/pi as hi + lo, hi's multiples of 4 2^-min_deg taken off.
+struct IpeTurns {
+  double hi, lo;
+};
+
+__device__ __forceinline__ IpeTurns ipe_turns(float mean, int min_deg) {
+  const double m = mean;
+  const double hi = m * TWO_OVER_PI_HI;
+  const double lo = fma(m, TWO_OVER_PI_LO, fma(m, TWO_OVER_PI_HI, -hi));
+  return {fma(-rint(hi * pow2d(min_deg - 2)), pow2d(2 - min_deg), hi), lo};
+}
+
+// sin and cos of mean 2^deg, scale = 2^deg.
+__device__ __forceinline__ void ipe_sincos(IpeTurns t, double scale, float& sn, float& cs) {
+  double big = fma(t.hi, scale, ROUND_MAGIC);
+  unsigned q = (unsigned)__double2loint(big);
+  double f = fma(t.lo, scale, fma(t.hi, scale, ROUND_MAGIC - big));
+  big = f + ROUND_MAGIC;
+  q += (unsigned)__double2loint(big);
+  f += ROUND_MAGIC - big;
+  const double u = f * f;
+  double ps = IPE_SIN[4], pc = IPE_COS[4];
+#pragma unroll
+  for (int i = 3; i >= 0; --i) {
+    ps = fma(ps, u, IPE_SIN[i]);
+    pc = fma(pc, u, IPE_COS[i]);
   }
-  __syncthreads();
-  for (int q = threadIdx.x; q < points * 3; q += blockDim.x) {
-    const float* row = tile + (q / 3) * stride + q % 3;
-    float dm = 0.f, dc = 0.f;
-    for (int l = 0; l < L; ++l) {
-      dm += row[3 * l];
-      dc += row[L3 + 3 * l];
+  const float a = (float)(f * ps), b = (float)fma(u, pc, 1.0);
+  const float sv = (q & 1u) ? b : a, cv = (q & 1u) ? a : b;
+  sn = (q & 2u) ? -sv : sv;
+  cs = ((q + 1u) & 2u) ? -cv : cv;
+}
+
+// Bulk copies (no tensor map): shared -> global, 16-byte aligned, a multiple
+// of 16 bytes, committed with tma_store_commit; cp.async global -> shared.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+// All but the newest committed store have finished reading shared memory.
+__device__ __forceinline__ void bulk_wait_read_but_one() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(IPE_THREADS)
+ipe_fwd_kernel(const float* __restrict__ means, const float* __restrict__ covs,
+               float* __restrict__ out, int M, int L, int min_deg) {
+  extern __shared__ __align__(16) float tiles[];  // two tiles [IPE_POINTS][6L]
+  const int L3 = 3 * L, F = 2 * L3, q = threadIdx.x, p = q / 3, d = q - 3 * p;
+  const int n_tiles = (int)(((long long)M + IPE_POINTS - 1) / IPE_POINTS);
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    float* rows = tiles + buf * IPE_POINTS * F;
+    const long long m0 = (long long)tile * IPE_POINTS;
+    const int points = M - m0 < IPE_POINTS ? (int)(M - m0) : IPE_POINTS;
+    if (q == 0) bulk_wait_read_but_one();  // this buffer's store, two tiles back
+    __syncthreads();
+    if (p < points) {
+      const float cov = covs[m0 * 3 + q];
+      const IpeTurns t = ipe_turns(means[m0 * 3 + q], min_deg);
+      float* row = rows + p * F + d;
+      for (int j = 0, l = p % L; j < L; ++j, l = l + 1 == L ? 0 : l + 1) {
+        const int deg = min_deg + l;
+        float sn, cs;
+        ipe_sincos(t, pow2d(deg), sn, cs);
+        const float damp = expf(-(cov * pow2f(2 * deg - 1)));
+        row[3 * l] = damp * sn;
+        row[L3 + 3 * l] = damp * cs;
+      }
     }
-    dmeans[m0 * 3 + q] = dm;
-    dcovs[m0 * 3 + q] = dc;
+    fence_proxy_async();
+    __syncthreads();
+    if (q == 0) {
+      // The tile's rows are one stretch of out, 16-byte aligned (IPE_POINTS
+      // 24L bytes a tile); an odd L * points leaves 8 bytes to store here.
+      const int n = points * F, whole = n & ~3;
+      bulk_store(out + m0 * F, rows, whole * 4);
+      tma_store_commit();
+      for (int e = whole; e < n; ++e) out[m0 * F + e] = rows[e];
+    }
   }
+  if (q == 0) tma_store_wait();
+}
+
+// g [M, 6L] -> dmeans, dcovs [M, 3].
+__global__ void __launch_bounds__(IPE_THREADS)
+ipe_bwd_kernel(const float* __restrict__ means, const float* __restrict__ covs,
+               const float* __restrict__ g, float* __restrict__ dmeans,
+               float* __restrict__ dcovs, int M, int L, int min_deg) {
+  extern __shared__ __align__(16) float tiles[];  // two tiles of rows ipe_stride(L) apart
+  const int L3 = 3 * L, F = 2 * L3, S = ipe_stride(L), q = threadIdx.x, p = q / 3,
+            d = q - 3 * p;
+  const int n_tiles = (int)(((long long)M + IPE_POINTS - 1) / IPE_POINTS);
+  // A thread's 16-byte pieces of a tile (L even) are q, q + IPE_THREADS, ...:
+  // row and piece of the first, and the step between two.
+  const int F4 = F / 4, r0 = F4 ? q / F4 : 0, c0 = F4 ? q % F4 : 0;
+  const int dr = F4 ? IPE_THREADS / F4 : 0, dc = F4 ? IPE_THREADS % F4 : 0;
+  // A tile's cotangent rows into buffer b.
+  const auto fetch = [&](int tile, int b) {
+    if (tile >= n_tiles) return;
+    const long long m0 = (long long)tile * IPE_POINTS;
+    const int points = M - m0 < IPE_POINTS ? (int)(M - m0) : IPE_POINTS;
+    float* rows = tiles + b * IPE_POINTS * S;
+    const float* src = g + m0 * F;
+    if (F % 4 == 0) {
+      for (int i = q, r = r0, c = c0; i < points * F4; i += IPE_THREADS) {
+        cp_async16(rows + r * S + 4 * c, src + 4 * i);
+        r += dr;
+        if ((c += dc) >= F4) c -= F4, ++r;
+      }
+    } else {  // a warp a row, a lane a column
+      for (int r = q >> 5; r < points; r += IPE_THREADS / 32)
+        for (int c = q & 31; c < F; c += 32) cp_async4(rows + r * S + c, src + r * F + c);
+    }
+  };
+  fetch(blockIdx.x, 0);
+  cp_async_commit();
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    fetch(tile + gridDim.x, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_but_one();
+    __syncthreads();
+    const long long m0 = (long long)tile * IPE_POINTS;
+    const int points = M - m0 < IPE_POINTS ? (int)(M - m0) : IPE_POINTS;
+    if (p < points) {
+      const float cov = covs[m0 * 3 + q];
+      const IpeTurns t = ipe_turns(means[m0 * 3 + q], min_deg);
+      const float* row = tiles + buf * IPE_POINTS * S + p * S + d;
+      float dm = 0.f, dc = 0.f;
+      for (int l = 0; l < L; ++l) {
+        const int deg = min_deg + l;
+        float sn, cs;
+        ipe_sincos(t, pow2d(deg), sn, cs);
+        const float s2 = pow2f(2 * deg - 1), damp = expf(-(cov * s2));
+        const float g_sin = row[3 * l], g_cos = row[L3 + 3 * l];
+        // d enc_sin / d mean = s damp cos, d enc_cos / d mean = -s damp sin;
+        // d enc / d cov = -0.5 s^2 enc.
+        dm += (g_sin * damp * cs - g_cos * damp * sn) * pow2f(deg);
+        dc += -((g_sin * damp * sn + g_cos * damp * cs) * s2);
+      }
+      dmeans[m0 * 3 + q] = dm;
+      dcovs[m0 * 3 + q] = dc;
+    }
+    __syncthreads();  // this buffer is refilled next
+  }
+}
+
+// Blocks of a persistent kernel: as many as stay resident, at most a tile
+// each.
+template <typename Kernel>
+unsigned ipe_grid(Kernel kernel, int M, size_t shared) {
+  if (shared > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, IPE_THREADS, shared);
+  const long long tiles = ((long long)M + IPE_POINTS - 1) / IPE_POINTS;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  return (unsigned)(tiles < resident ? tiles : resident);
+}
+
+bool ipe_takes(int M, int L, int min_deg) {
+  return M > 0 && L >= 1 && L <= IPE_MAX_DEGREES && min_deg >= IPE_MIN_DEG &&
+         min_deg + L <= IPE_END_DEG;
 }
 
 }  // namespace
@@ -133,10 +332,10 @@ int ipe_moments(const void* moments, void* out, int M, int L, int min_deg, void*
 // means, covs [M, 3] f32 -> out [M, 6L] f32 (sin block | cos block).
 int ipe_fwd(const void* means, const void* covs, void* out, int M, int L, int min_deg,
             void* stream) {
-  if (M <= 0 || L < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long long total = (long long)M * 3 * L;
-  ipe_fwd_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
+  if (!ipe_takes(M, L, min_deg) || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const size_t shared = 2 * IPE_POINTS * 6 * L * sizeof(float);
+  ipe_fwd_kernel<<<ipe_grid(ipe_fwd_kernel, M, shared), IPE_THREADS, shared,
                    static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(means),
                                                         static_cast<const float*>(covs),
                                                         static_cast<float*>(out), M, L, min_deg);
@@ -146,11 +345,10 @@ int ipe_fwd(const void* means, const void* covs, void* out, int M, int L, int mi
 // means, covs [M, 3], g [M, 6L] f32 -> dmeans, dcovs [M, 3] f32.
 int ipe_bwd(const void* means, const void* covs, const void* g, void* dmeans, void* dcovs, int M,
             int L, int min_deg, void* stream) {
-  if (M <= 0 || L < 1) return (int)cudaErrorInvalidValue;
-  const size_t shared = (size_t)IPE_BWD_POINTS * (6 * L + 1) * sizeof(float);
-  if (shared > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)(((long long)M + IPE_BWD_POINTS - 1) / IPE_BWD_POINTS);
-  ipe_bwd_kernel<<<blocks, 256, shared, static_cast<cudaStream_t>(stream)>>>(
+  if (!ipe_takes(M, L, min_deg)) return (int)cudaErrorInvalidValue;
+  const size_t shared = 2 * IPE_POINTS * ipe_stride(L) * sizeof(float);
+  ipe_bwd_kernel<<<ipe_grid(ipe_bwd_kernel, M, shared), IPE_THREADS, shared,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(means), static_cast<const float*>(covs),
       static_cast<const float*>(g), static_cast<float*>(dmeans), static_cast<float*>(dcovs), M, L,
       min_deg);

@@ -23,8 +23,10 @@ zero covariances, as `nerf.disable_integration` makes them).  The plain
 versions here follow the kernel's formula.
 
 What bounds them: 24 bytes in and 24L out a point forward, 24 + 24L in and
-24 out backward; 3L expf and 3L sincosf a point, whose arguments reach
-2^15 |mean| (the slow exact range reduction).
+24 out backward.  Neither kernel calls CUDA's sincosf, whose exact
+reduction turns slow past |mean 2^deg| ~ 1e5: each (point, dim) reduces
+mean 2/pi once in double-double arithmetic and takes every degree's sin and
+cos from it in FP64 (csrc/ipe.cu), within ~0.5 ulp of the exact values.
 
 Each wrapper takes its plain version for tensors on the CPU, and only
 there; on a CUDA tensor it launches its kernel or raises.  The launches are
@@ -38,7 +40,8 @@ from torch.autograd.function import once_differentiable
 
 from mipnerf_pl_tpu_torch.kernels.mlp import _call, _check, _on_cpu, launches
 
-MAX_DEGREES = 32    # ladder length the backward's shared-memory tile takes
+MAX_DEGREES = 32    # ladder length the kernels take (IPE_MAX_DEGREES)
+DEGREE_RANGE = (-62, 64)    # degrees whose scales 2^(2 deg - 1) are floats
 
 
 def _ladder(min_deg: int, max_deg: int, like: torch.Tensor):
@@ -83,6 +86,12 @@ def _check_points(fn, means2d, covs2d, min_deg, max_deg):
     if L < 1 or M == 0:
         raise ValueError(f'{fn}: needs max_deg > min_deg and points, got '
                          f'degrees ({min_deg}, {max_deg}), {M} points')
+    if L > MAX_DEGREES:
+        raise ValueError(f'{fn}: {L} degrees, the kernel takes at most '
+                         f'{MAX_DEGREES}')
+    if min_deg < DEGREE_RANGE[0] or max_deg > DEGREE_RANGE[1]:
+        raise ValueError(f'{fn}: degrees ({min_deg}, {max_deg}) outside the '
+                         f'kernel\'s {DEGREE_RANGE}')
     return M, L, dev
 
 
@@ -108,9 +117,6 @@ def ipe_bwd(means2d, covs2d, g2d, min_deg: int, max_deg: int):
         return ipe_bwd_plain(means2d, covs2d, g2d, min_deg, max_deg)
     M, L, dev = _check_points('ipe_bwd', means2d, covs2d, min_deg, max_deg)
     _check(g2d, (M, 6 * L), 'ipe_bwd', 'g', dev)
-    if L > MAX_DEGREES:
-        raise ValueError(f'ipe_bwd: {L} degrees, the kernel takes at most '
-                         f'{MAX_DEGREES}')
     means2d, covs2d, g2d = (t.contiguous() for t in (means2d, covs2d, g2d))
     dmeans = torch.empty((M, 3), dtype=torch.float32, device=dev)
     dcovs = torch.empty((M, 3), dtype=torch.float32, device=dev)

@@ -55,7 +55,9 @@ the card against the same function on the CPU.  The
 standalone IPE (ipe_fwd,
 ipe_bwd: `nerf.ipe_backend: pallas`) is held against its plain versions,
 max |d| <= 1e-5 forward and ||a - b|| / ||b|| <= 1e-5 for dmeans and dcovs
-(which reach 1e5 and 1e9), two runs bit for bit, also at zero covariances.
+(which reach 1e5 and 1e9), two runs bit for bit, one launch a call, also at
+zero covariances, with means past the range where CUDA's sincosf turns slow,
+at degrees 16..32 and on an odd ladder.
 """
 
 import numpy as np
@@ -1445,14 +1447,30 @@ def _classic_training(cuda_device, backend, dtype, depth_cond):
     assert abs(losses[str(cuda_device)] - want) <= bar * abs(want)
 
 
-IPE_SHAPES = {'ragged': (700, (0, 16)), 'ragged_2_6': (1001, (2, 6)),
-              'one_point': (1, (0, 16)), 'lego': (393216, (0, 16))}
+# name -> (points, degrees, means): 'normal' 2 N(0, 1); 'far' the same pushed
+# out to |mean| + 3.25 (every degree-15 argument past 105,615, where CUDA's
+# sincosf turns slow); 'wide' U(-8, 8).  odd_3_8 has an odd ladder (the
+# backward's 4-byte copies, the forward's tail past its bulk store);
+# wide_0_32 the longest ladder the kernels take (the backward's two tiles
+# past 48 KB of shared memory).
+IPE_SHAPES = {'ragged': (700, (0, 16), 'normal'),
+              'ragged_2_6': (1001, (2, 6), 'normal'),
+              'odd_3_8': (999, (3, 8), 'normal'),
+              'one_point': (1, (0, 16), 'normal'),
+              'lego': (393216, (0, 16), 'normal'),
+              'far': (393216, (0, 16), 'far'),
+              'high_16_32': (4097, (16, 32), 'wide'),
+              'wide_0_32': (777, (0, 32), 'wide')}
 
 
 def _ipe_problem(shape, zero_covs, device, seed=0):
-    M, deg = IPE_SHAPES[shape]
+    M, deg, spread = IPE_SHAPES[shape]
     rng = np.random.default_rng(seed)
-    means = (2.0 * rng.normal(size=(M, 3))).astype(np.float32)
+    means = (rng.uniform(-8.0, 8.0, size=(M, 3)) if spread == 'wide'
+             else 2.0 * rng.normal(size=(M, 3)))
+    if spread == 'far':
+        means = np.sign(means) * (np.abs(means) + 3.25)
+    means = means.astype(np.float32)
     covs = rng.uniform(0.0, 1e-3, size=(M, 3)).astype(np.float32)
     if zero_covs:
         covs[:] = 0.0
@@ -1473,8 +1491,10 @@ def test_cuda_ipe_kernels_match_plain(cuda_device, shape, zero_covs):
     deg, (means, covs, g) = _ipe_problem(shape, zero_covs, cuda_device)
     tk.reset_launches()
     out = ipe.ipe_fwd(means, covs, *deg)
+    assert tk.launches['ipe_fwd'] == 1 and tk.launches['ipe_bwd'] == 0
     again = ipe.ipe_fwd(means, covs, *deg)
     dm, dc = ipe.ipe_bwd(means, covs, g, *deg)
+    assert tk.launches['ipe_fwd'] == 2 and tk.launches['ipe_bwd'] == 1
     dm2, dc2 = ipe.ipe_bwd(means, covs, g, *deg)
     torch.cuda.synchronize()
     assert tk.launches['ipe_fwd'] == 2 and tk.launches['ipe_bwd'] == 2
@@ -1500,6 +1520,12 @@ def test_cuda_ipe_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         ipe.ipe_bwd(x, x, torch.zeros(8, 23, device=cuda_device), 0, 4)
     with pytest.raises(ValueError, match='at most'):
         ipe.ipe_bwd(x, x, torch.zeros(8, 6 * 33, device=cuda_device), 0, 33)
+    with pytest.raises(ValueError, match='at most'):
+        ipe.ipe_fwd(x, x, 0, 33)
+    with pytest.raises(ValueError, match='outside'):
+        ipe.ipe_fwd(x, x, -63, -60)
+    with pytest.raises(ValueError, match='outside'):
+        ipe.ipe_bwd(x, x, torch.zeros(8, 6 * 2, device=cuda_device), 63, 65)
     with pytest.raises(ValueError, match='covs'):
         ipe.ipe_fwd(x, x.cpu(), 0, 4)
     with pytest.raises(ValueError, match='require a gradient'):
