@@ -1219,7 +1219,7 @@ def compare_train_kernels(params, hp, dev):
         compare_moments_forms(results, report, flat, args, dt, tag,
                               x, view, g_rgb, g_dens, moments, enc, hp)
     compare_render_bwd_and_encode(results, report, flat, args, x, view,
-                                  moments, delta, mids, enc)
+                                  moments, delta, mids, enc, hp)
     return results
 
 
@@ -1284,9 +1284,11 @@ def compare_moments_forms(results, report, flat, args, dt, tag, x,
                           view, g_rgb, g_dens, moments, enc, hp):
     """Phase 5, the moments input of the training kernels (`encode=`):
     lean_save_fwd and lean_fwd on the [6, M] moments against the f32 plain
-    forward on them at the phase-3 bars, and in f32 against the same kernel
-    on the encode rows of the plain decode of the same moments (<=
-    FORM_BAR, max |d| / max |ref|); lean_param_grads_recompute on the
+    forward on them at the phase-3 bars, in f32 against the same kernel on
+    the encode rows of the plain decode of the same moments (<= FORM_BAR,
+    max |d| / max |ref|), and in both dtypes bit for bit against the same
+    kernels on ipe_moments' rows of those moments (one decode: outputs,
+    saved stream, raw heads); lean_param_grads_recompute on the
     moments against lean_param_grads on the moments forward's stream (<=
     RECOMPUTE_BAR, two runs bit-equal); CUDA-event times against the plain
     versions on the moments."""
@@ -1317,16 +1319,24 @@ def compare_moments_forms(results, report, flat, args, dt, tag, x,
         f_ok = f_ok and form <= FORM_BAR
         text += (f'; vs the rows form on the plain decode {form:.3e} '
                  f'(<= {FORM_BAR})')
-    report('lean_save_fwd[moments]', tag, finite and f_ok, text, f_err,
+    k_rows = km.ipe_moments(moments, *enc)
+    one = all(torch.equal(a, b) for a, b in zip(got, fwd_parts(
+        km.lean_save_fwd(k_rows, view, flat, *args, dt, ACT), M))) and all(
+        torch.equal(a, b) for a, b in zip(
+            lf, km.lean_fwd(k_rows, view, flat, *args, dt, ACT)))
+    del k_rows
+    text += f"; bit-equal to the rows form on ipe_moments' rows {one}"
+    report('lean_save_fwd[moments]', tag, finite and f_ok and one, text,
+           f_err,
            cuda_ms(lambda: km.lean_save_fwd(moments, view, flat, *args, dt,
                                             ACT, **kw)),
            cuda_ms(lambda: km.lean_mlp_save_plain(moments, view, flat, *args,
                                                   dt, ACT, **kw)),
            form='moments')
     l_err, l_bar, l_ok = fwd_err(lf, ref[:2], dt)
-    report('lean_fwd[moments]', tag, same and l_ok,
+    report('lean_fwd[moments]', tag, same and l_ok and one,
            f'max|d| {l_err:.3e} ({l_bar}); bit-equal to lean_save_fwd '
-           f'{same}', l_err,
+           f"{same}, to the rows form on ipe_moments' rows {one}", l_err,
            cuda_ms(lambda: km.lean_fwd(moments, view, flat, *args, dt, ACT,
                                        **kw)),
            cuda_ms(lambda: km.lean_fwd_plain(moments, view, flat, *args, dt,
@@ -1366,13 +1376,14 @@ def compare_moments_forms(results, report, flat, args, dt, tag, x,
 
 
 def compare_render_bwd_and_encode(results, report, flat, args, x, view,
-                                  moments, delta, mids, enc):
+                                  moments, delta, mids, enc, hp):
     """Phase 5, f32 (both kernels are f32 in either compute dtype):
     lean_composite_bwd at a training level (3072 rays x 128, the f32 plain
     forward's activated heads, seeded per-ray cotangents, both
     backgrounds) against lean_composite_bwd_plain, max |d| / max |ref| <=
-    FORM_BAR; ipe_moments on the level's moments against
-    ipe_moments_plain, max |d| <= FORM_BAR."""
+    FORM_BAR; ipe_moments on the level's moments and on a render chunk's
+    (chunk_inputs: 1,048,576 points) against ipe_moments_plain, max |d| <=
+    FORM_BAR, with its device time at both (torch.profiler)."""
     R, N = delta.shape
     rgb, dens = km.lean_fwd_plain(x, view, flat, *args, torch.float32, ACT)
     rgbsig = torch.cat([rgb, dens], dim=-1).contiguous()
@@ -1403,16 +1414,31 @@ def compare_render_bwd_and_encode(results, report, flat, args, x, view,
     log(f'[kernel] lean_composite_bwd f32: device time (torch.profiler) '
         f'{dev_ms * 1e3:.2f} us, bound '
         f'{results[("lean_composite_bwd", "f32")]["bound_ms"] * 1e3:.2f} us')
-    got = km.ipe_moments(moments, *enc)
-    want = km.ipe_moments_plain(moments, *enc)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    ok = bool(torch.isfinite(got).all()) and err <= FORM_BAR
-    del got, want
+    chunk = chunk_inputs(hp, x.device)[0]
+    errs, ok = {}, True
+    for label, mo in (('level', moments), ('render chunk', chunk)):
+        got = km.ipe_moments(mo, *enc)
+        want = km.ipe_moments_plain(mo, *enc)
+        torch.cuda.synchronize()
+        errs[label] = float((got - want).abs().max())
+        ok = ok and bool(torch.isfinite(got).all()) and \
+            errs[label] <= FORM_BAR
+        del got, want
+    dev_ms = {label: sum(v for k, v in kernel_device_ms(
+        lambda: km.ipe_moments(mo, *enc)).items()
+        if 'ipe_moments_kernel' in k)
+        for label, mo in (('level', moments), ('render chunk', chunk))}
     report('ipe_moments', 'f32', ok,
-           f'max|d| {err:.3e} (<= {FORM_BAR}), {moments.shape[1]:,} points',
-           err, cuda_ms(lambda: km.ipe_moments(moments, *enc)),
+           f'max|d| {errs["level"]:.3e} at the level ({moments.shape[1]:,} '
+           f'points), {errs["render chunk"]:.3e} at a render chunk '
+           f'({chunk.shape[1]:,}) (<= {FORM_BAR}); device time (torch.'
+           f'profiler) {dev_ms["level"]:.4f} / {dev_ms["render chunk"]:.4f} '
+           f'ms', max(errs.values()),
+           cuda_ms(lambda: km.ipe_moments(moments, *enc)),
            cuda_ms(lambda: km.ipe_moments_plain(moments, *enc)))
+    results[('ipe_moments', 'f32')]['device_ms'] = dev_ms['level']
+    results[('ipe_moments', 'f32')]['device_ms_chunk'] = \
+        dev_ms['render chunk']
 
 
 def compare_ipe_kernels(hp, dev):
@@ -2838,9 +2864,9 @@ def main() -> int:
                         'library_ms': r['library_ms']})
         kernels[-1]['share'] = r['bound_ms'] / r['ms']
         # Device times (torch.profiler) of the kernels whose events read
-        # the host: at the phase's shape, and lean_composite's also at a
-        # training level's rays.
-        for key in ('device_ms', 'device_ms_train'):
+        # the host: at the phase's shape, lean_composite's also at a
+        # training level's rays, ipe_moments' also at a render chunk.
+        for key in ('device_ms', 'device_ms_train', 'device_ms_chunk'):
             if key in r:
                 kernels[-1][key] = r[key]
         # The kernel's launches on the paths of phases 7b-7d.

@@ -5,67 +5,47 @@
 // fused_ipe_moments): the [6, M] channel-major moments (means xyz | diagonal
 // covs xyz) -> the [M, 6L] f32 integrated positional encoding, the encode rows
 // the lean training kernels read when `nerf.pallas_encode` selects this
-// producer.
-//
-//   ipe_moments  one thread per output element (point m, feature f), the
-//                feature index fastest, so a warp writes 32 consecutive
-//                floats of a row; each value is ipe_feature (lean_engines.cuh),
-//                the decode every lean kernel runs in its encode tile, with
-//                exact libm expf/sinf.
-//
-// What bounds it: 24 bytes in and 24L bytes out a point (384 at L = 16,
-// ~160 MB a lego training level, ~48 us at 3.35 TB/s); two transcendentals
-// an output.  It has no backward: the moments get no cotangent (the lean
+// producer.  With s = 2^(min_deg + l), column l*3 + d holds exp(-0.5 cov_d
+// s^2) sin(y), y = mean_d s, and column 3L + l*3 + d the same with sin(fl32(y
+// + fl32(pi/2))): the default encode's cosine half, rounded as its f32
+// formula rounds it.  Each pair is ipe_moments_pair (ipe_core.cuh), the
+// routine every lean kernel's in-tile decode of the moments calls
+// (decode_moments, lean_engines.cuh), so the rows agree with those decodes
+// bit for bit.  It has no backward: the moments get no cotangent (the lean
 // family trains behind stop_resample_grad).
 //
 // ipe_fwd and ipe_bwd replace _fwd_kernel and _bwd_kernel of the same file
 // (the pl.pallas_calls in _run_fwd / _run_bwd, behind the custom VJP
 // fused_ipe, which `nerf.ipe_backend: pallas` selects): means and diagonal
-// covs [M, 3] -> [M, 6L], and its VJP.  With s = 2^(min_deg + l), column
-// l*3 + d holds exp(-0.5 cov_d s^2) sin(mean_d s) and column 3L + l*3 + d
-// the same with cos(mean_d s): the cosine itself, where ipe_feature (and the
-// default encode) takes sin(y + pi/2), which differs in f32 once mean*s is
-// large.  So neither kernel calls ipe_feature.
+// covs [M, 3] -> [M, 6L], and its VJP.  Column l*3 + d holds exp(-0.5 cov_d
+// s^2) sin(mean_d s) and column 3L + l*3 + d the same with cos(mean_d s):
+// the cosine itself, which differs from sin(y + pi/2) in f32 once mean*s is
+// large (ipe_sincos).
 //
-// What bounds them: forward 24 B in + 24L B out a point, backward 24 + 24L in
-// and 24 out (~160 / ~170 MB a lego level, ~48 / ~51 us at 3.35 TB/s).  Their
-// arguments mean 2^deg reach 2^15 |mean| at the lego degrees, where CUDA's
-// exact sincosf leaves its fast reduction for a slow one in local memory, and
-// a warp whose lanes mixed degrees waited on its slowest lane.  So neither
-// kernel calls sinf / cosf / sincosf:
-//
-//   one reduction a (point, dim): t = mean 2/pi as a double-double (an FP64
-//       two-product against a two-part 2/pi, ~105 bits), its multiples of
-//       4 2^-min_deg taken off (exact, and every 2^deg t keeps its value
-//       mod 4); then a degree is 2^deg t, exact, whose nearest integer k
-//       (rounded by adding 1.5 2^52, whose low mantissa bits then hold k)
-//       gives the quadrant and f = 2^deg t - k, |f| <= 1/2, the quarter
-//       turns past it; a second rounding takes any integer that 2^deg t_lo
-//       carries (means past ~2^50 2^-deg).  The error of f is ~2^-105
-//       |2^deg t|;
-//   one core: sin(pi f / 2) and cos(pi f / 2) as polynomials in f^2 in FP64
-//       (coefficients fitted by weighted least squares on Chebyshev nodes
-//       of [0, 1/2]: relative error 5e-12 and 4e-13; read from constant
-//       memory, not rebuilt in registers each degree), rounded once to f32,
-//       within ~0.5 ulp of the exact values (tests/test_torch_ipe.py
-//       mirrors it in numpy and holds it against float64 sin / cos at
-//       degrees up to 32).  18 FP64 operations a (point, degree, dim);
-//   one thread a (point, dim), running all L degrees: mean and cov load
-//       once, no 64-bit division, every lane runs the same code.  Scales
-//       2^deg and 2^(2 deg - 1) are built from their exponent bits (degrees
-//       -62..63, where both are normal floats), so x 2^e is one exact
-//       product: the value ldexpf gives.
+// What bounds them: 24 B in + 24L B out a point (the forwards; ~160 MB a
+// lego training level, ~48 us at 3.35 TB/s), the backward 24 + 24L in and
+// 24 out (~170 MB, ~51 us).  Their arguments mean 2^deg reach 2^15 |mean|
+// at the lego degrees, where CUDA's exact sincosf turns slow; no kernel here
+// calls it: each (point, dim) reduces mean 2/pi once and takes every degree
+// from it in FP64 (ipe_core.cuh), one thread a (point, dim) running all L
+// degrees (mean and cov load once, no 64-bit division, every lane runs the
+// same code).  ipe_moments_pair takes two sines (its cosine half is the
+// sine of another f32 argument, whose quarter turns it forms from the same
+// turns), each on one odd polynomial.
 //
 // The memory side overlaps the arithmetic: each block is persistent over
 // tiles of IPE_POINTS points, two tiles of shared memory in turn.
 //
-//   ipe_fwd  a tile's rows [P][6L] are written into shared memory as they
-//            lie in out, and one bulk TMA copy stores them while the block
-//            computes the next tile.  Lane p starts its ladder at degree
-//            p mod L, so that a warp's stores of one step fall on
-//            different banks.  damp = expf(-cov 2^(2 deg - 1)) a (point,
-//            degree, dim): a recurrence over the degrees would compound its
-//            rounding.
+//   ipe_fwd, ipe_moments  one template (ipe_rows): a tile's rows [P][6L]
+//            are written into shared memory as they lie in out, and one bulk
+//            TMA copy stores them while the block computes the next tile.
+//            Lane p starts its ladder at degree p mod L, so that a warp's
+//            stores of one step fall on different banks.  ipe_fwd reads
+//            its [M, 3] inputs row-major, ipe_moments the [6, M] moments
+//            channel-major (a warp's lanes on ~11 consecutive points of
+//            three rows).  damp a (point, degree, dim) (a recurrence over the
+//            degrees would compound its rounding): ipe_fwd's expf(-cov 2^(2
+//            deg - 1)), ipe_moments_pair's expf(-0.5 (cov 2^(2 deg))).
 //   ipe_bwd  the next tile's cotangent rows (one stretch of g) come in by
 //            cp.async (16 bytes a copy when a row is a whole number of
 //            them, L even; else 4) while the block works on this one; each
@@ -80,82 +60,17 @@
 // after the first reduction under 2^(L + 1), far inside the 2^51 the
 // rounding takes.
 
-#include "lean_engines.cuh"
+#include "ipe_core.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-__global__ void ipe_moments_kernel(const float* __restrict__ moments, float* __restrict__ out,
-                                   int M, int L, int min_deg) {
-  const int F = 6 * L;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)M * F) return;
-  const int m = (int)(idx / F), f = (int)(idx - (size_t)m * F);
-  out[idx] = ipe_feature(moments, M, m, f, L, min_deg);
-}
-
 constexpr int IPE_POINTS = 32;              // points a tile holds
 constexpr int IPE_THREADS = 3 * IPE_POINTS;  // one a (point, dim)
 constexpr int IPE_MAX_DEGREES = 32;
-constexpr int IPE_MIN_DEG = -62, IPE_END_DEG = 64;  // degrees the scales take
-
-// 2/pi as a double-double, and the constant whose addition rounds a double
-// below 2^51 to an integer held in its low mantissa bits.
-constexpr double TWO_OVER_PI_HI = 0x1.45f306dc9c883p-1;
-constexpr double TWO_OVER_PI_LO = -0x1.6b01ec5417056p-55;
-constexpr double ROUND_MAGIC = 0x1.8p+52;
-// On |f| <= 1/2: sin(pi f / 2) = f (S0 + f^2 (S1 + f^2 (S2 + ...))),
-// cos(pi f / 2) = 1 + f^2 (C0 + f^2 (C1 + ...)), S = IPE_SIN, C = IPE_COS.
-__constant__ double IPE_SIN[5] = {0x1.921fb5443f418p+0, -0x1.4abbce58b7039p-1,
-                                  0x1.466bbbc623cd1p-4, -0x1.32caf54d31facp-8,
-                                  0x1.4bdc50b884a7ep-13};
-__constant__ double IPE_COS[5] = {-0x1.3bd3cc9be3ecap+0, 0x1.03c1f07f444a0p-2,
-                                  -0x1.55d3c266ee629p-6, 0x1.e1ece6fd2706fp-11,
-                                  -0x1.a203bfd42e823p-16};
 
 __host__ __device__ constexpr int ipe_stride(int L) {
   return 6 * L + ((4 - 6 * L) % 8 + 8) % 8;
-}
-
-__device__ __forceinline__ double pow2d(int e) {  // 2^e, |e| <= 1022
-  return __hiloint2double((e + 1023) << 20, 0);
-}
-
-__device__ __forceinline__ float pow2f(int e) {  // 2^e, |e| <= 126
-  return __int_as_float((e + 127) << 23);
-}
-
-// mean 2/pi as hi + lo, hi's multiples of 4 2^-min_deg taken off.
-struct IpeTurns {
-  double hi, lo;
-};
-
-__device__ __forceinline__ IpeTurns ipe_turns(float mean, int min_deg) {
-  const double m = mean;
-  const double hi = m * TWO_OVER_PI_HI;
-  const double lo = fma(m, TWO_OVER_PI_LO, fma(m, TWO_OVER_PI_HI, -hi));
-  return {fma(-rint(hi * pow2d(min_deg - 2)), pow2d(2 - min_deg), hi), lo};
-}
-
-// sin and cos of mean 2^deg, scale = 2^deg.
-__device__ __forceinline__ void ipe_sincos(IpeTurns t, double scale, float& sn, float& cs) {
-  double big = fma(t.hi, scale, ROUND_MAGIC);
-  unsigned q = (unsigned)__double2loint(big);
-  double f = fma(t.lo, scale, fma(t.hi, scale, ROUND_MAGIC - big));
-  big = f + ROUND_MAGIC;
-  q += (unsigned)__double2loint(big);
-  f += ROUND_MAGIC - big;
-  const double u = f * f;
-  double ps = IPE_SIN[4], pc = IPE_COS[4];
-#pragma unroll
-  for (int i = 3; i >= 0; --i) {
-    ps = fma(ps, u, IPE_SIN[i]);
-    pc = fma(pc, u, IPE_COS[i]);
-  }
-  const float a = (float)(f * ps), b = (float)fma(u, pc, 1.0);
-  const float sv = (q & 1u) ? b : a, cv = (q & 1u) ? a : b;
-  sn = (q & 2u) ? -sv : sv;
-  cs = ((q + 1u) & 2u) ? -cv : cv;
 }
 
 // Bulk copies (no tensor map): shared -> global, 16-byte aligned, a multiple
@@ -189,9 +104,12 @@ __device__ __forceinline__ void cp_async_wait_but_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(IPE_THREADS)
-ipe_fwd_kernel(const float* __restrict__ means, const float* __restrict__ covs,
-               float* __restrict__ out, int M, int L, int min_deg) {
+// The rows [M, 6L] of ipe_fwd (MOMENTS false: means, covs [M, 3]) or of
+// ipe_moments (MOMENTS true: means, covs the rows [3, M] of the moments).
+template <bool MOMENTS>
+__device__ __forceinline__ void ipe_rows(const float* __restrict__ means,
+                                         const float* __restrict__ covs, float* __restrict__ out,
+                                         int M, int L, int min_deg) {
   extern __shared__ __align__(16) float tiles[];  // two tiles [IPE_POINTS][6L]
   const int L3 = 3 * L, F = 2 * L3, q = threadIdx.x, p = q / 3, d = q - 3 * p;
   const int n_tiles = (int)(((long long)M + IPE_POINTS - 1) / IPE_POINTS);
@@ -203,16 +121,21 @@ ipe_fwd_kernel(const float* __restrict__ means, const float* __restrict__ covs,
     if (q == 0) bulk_wait_read_but_one();  // this buffer's store, two tiles back
     __syncthreads();
     if (p < points) {
-      const float cov = covs[m0 * 3 + q];
-      const IpeTurns t = ipe_turns(means[m0 * 3 + q], min_deg);
+      const long long at = MOMENTS ? (long long)d * M + m0 + p : m0 * 3 + q;
+      const float mean = means[at], cov = covs[at];
+      const IpeTurns t = ipe_turns(mean, min_deg);
       float* row = rows + p * F + d;
       for (int j = 0, l = p % L; j < L; ++j, l = l + 1 == L ? 0 : l + 1) {
         const int deg = min_deg + l;
-        float sn, cs;
-        ipe_sincos(t, pow2d(deg), sn, cs);
-        const float damp = expf(-(cov * pow2f(2 * deg - 1)));
-        row[3 * l] = damp * sn;
-        row[L3 + 3 * l] = damp * cs;
+        if constexpr (MOMENTS) {
+          ipe_moments_pair({t, mean, cov}, deg, row[3 * l], row[L3 + 3 * l]);
+        } else {
+          float sn, cs;
+          ipe_sincos(t, pow2d(deg), sn, cs);
+          const float damp = expf(-(cov * pow2f(2 * deg - 1)));
+          row[3 * l] = damp * sn;
+          row[L3 + 3 * l] = damp * cs;
+        }
       }
     }
     fence_proxy_async();
@@ -227,6 +150,18 @@ ipe_fwd_kernel(const float* __restrict__ means, const float* __restrict__ covs,
     }
   }
   if (q == 0) tma_store_wait();
+}
+
+__global__ void __launch_bounds__(IPE_THREADS)
+ipe_fwd_kernel(const float* __restrict__ means, const float* __restrict__ covs,
+               float* __restrict__ out, int M, int L, int min_deg) {
+  ipe_rows<false>(means, covs, out, M, L, min_deg);
+}
+
+__global__ void __launch_bounds__(IPE_THREADS)
+ipe_moments_kernel(const float* __restrict__ moments, float* __restrict__ out, int M, int L,
+                   int min_deg) {
+  ipe_rows<true>(moments, moments + 3 * (size_t)M, out, M, L, min_deg);
 }
 
 // g [M, 6L] -> dmeans, dcovs [M, 3].
@@ -319,10 +254,10 @@ extern "C" {
 
 // moments [6, M] f32 -> out [M, 6L] f32.
 int ipe_moments(const void* moments, void* out, int M, int L, int min_deg, void* stream) {
-  if (M <= 0 || L < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long long total = (long long)M * 6 * L;
-  ipe_moments_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
+  if (!ipe_takes(M, L, min_deg) || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const size_t shared = 2 * IPE_POINTS * 6 * L * sizeof(float);
+  ipe_moments_kernel<<<ipe_grid(ipe_moments_kernel, M, shared), IPE_THREADS, shared,
                        static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(moments),
                                                             static_cast<float*>(out), M, L,
                                                             min_deg);

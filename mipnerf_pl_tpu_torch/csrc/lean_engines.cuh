@@ -25,6 +25,8 @@
 
 #include <type_traits>
 
+#include "ipe_core.cuh"
+
 namespace {
 
 constexpr int TM = 64;          // sample points per block (rows of a tile)
@@ -428,51 +430,78 @@ __device__ float head_dot(const T* h, int KH, const T* x, int KX,
 // extra rows hold zeros).
 __host__ __device__ inline int enc_rows(int F) { return (F + 15) & ~15; }
 
-// Feature f < 6L of the integrated positional encoding of point m, decoded
-// from the channel-major moments [6][ld] (means xyz | diagonal covs xyz):
-// the sin half, then the cos half as sin(y + pi/2), each indexed k * 3 +
-// dim; the scale 2^(min_deg + k) is exact in f32.  Exact libm expf/sinf:
-// the sine arguments reach 2^15 |x|, where the __sinf/__expf intrinsics
-// and --use_fast_math are wrong.
-__device__ __forceinline__ float ipe_feature(const float* __restrict__ moments, size_t ld, int m,
-                                             int f, int L, int min_deg) {
-  const int cos_half = f >= 3 * L;
-  const int q = f - cos_half * 3 * L;
-  const int k = q / 3, dim = q - 3 * k;
-  const float scale = ldexpf(1.f, min_deg + k);
-  const float y = moments[(size_t)dim * ld + m] * scale;
-  const float var = moments[(size_t)(3 + dim) * ld + m] * (scale * scale);
-  const float phase = cos_half ? 1.57079637050628662109375f : 0.f;
-  return expf(-0.5f * var) * sinf(y + phase);
+// The IPE of the TM points from m0, decoded from the channel-major moments
+// x [6][ldx] (means xyz | diagonal covs xyz): the sine half into rows 3k +
+// dim, the cosine half (sin(y + pi/2) in f32) into rows 3L + 3k + dim, k <
+// L, zero past M; put(row, point, value) stores a value.  A unit is a
+// (point, dim) and one of PARTS runs of its degrees, each run with its own
+// reduction (ipe_moments_pair's values do not depend on the split, so every
+// tile gets ipe_moments' rows bit for bit); the NT threads from tid take
+// the 3 PARTS TM units in turn, a warp's lanes on consecutive points of one
+// (dim, run), so that their loads are coalesced and their stores of a
+// feature row side by side.  PARTS is chosen so that the units divide
+// evenly over the threads.
+template <int PARTS, int NT, class Put>
+__device__ __forceinline__ void decode_moments(const float* __restrict__ x, size_t ldx, int M,
+                                               int L, int min_deg, int m0, int tid, Put put) {
+  static_assert(3 * PARTS * TM % NT == 0, "units must divide evenly over the threads");
+#pragma unroll 1
+  for (int u = tid; u < 3 * PARTS * TM; u += NT) {
+    const int p = u % TM, r = u / TM, dim = r % 3, part = r / 3, m = m0 + p;
+    const int k0 = part * L / PARTS, k1 = (part + 1) * L / PARTS;
+    if (m < M) {
+      const float mean = x[(size_t)dim * ldx + m];
+      const IpeMoments e{ipe_turns(mean, min_deg + k0), mean, x[(size_t)(3 + dim) * ldx + m]};
+#pragma unroll 2
+      for (int k = k0; k < k1; ++k) {
+        float vs, vc;
+        ipe_moments_pair(e, min_deg + k, vs, vc);
+        put(3 * k + dim, p, vs);
+        put(3 * (L + k) + dim, p, vc);
+      }
+    } else {
+      for (int k = k0; k < k1; ++k) {
+        put(3 * k + dim, p, 0.f);
+        put(3 * (L + k) + dim, p, 0.f);
+      }
+    }
+  }
+}
+
+// load_encode_tile's moments form: decode_moments, a quarter of the degrees
+// a unit, three units a thread, then zeros in rows [F, Fp).  Out of line:
+// inlined, it cost the bf16 lean_mlp_kernel 4 / 16 more bytes of spill
+// stores / loads in its layers.
+template <typename T>
+__device__ __noinline__ void decode_encode_tile(T* xs, const float* __restrict__ x, size_t ldx,
+                                                int M, int F, int Fp, int L, int min_deg,
+                                                int m0) {
+  decode_moments<4, THREADS>(x, ldx, M, L, min_deg, m0, threadIdx.x,
+                             [&](int f, int row, float v) {
+                               xs[(size_t)f * LD + row] = Ty<T>::from_f(v);
+                             });
+  for (int idx = threadIdx.x; idx < (Fp - F) * TM; idx += THREADS)
+    xs[(size_t)(F + idx / TM) * LD + idx % TM] = Ty<T>::from_f(0.f);
 }
 
 // The encode tile [Fp][LD] of the TM points from m0, in the compute dtype,
 // zero past F and past M, from either input form, fixed at compile time so
 // the rows form compiles to its plain copy loop: MOMENTS false reads f32
 // encode rows x [M, F] (coalesced along the features); MOMENTS true
-// decodes the moments x [6][ldx] (F = 6L; coalesced along the points).
-// The caller syncs.
+// decodes the moments x [6][ldx] (F = 6L; decode_encode_tile).  The caller
+// syncs.
 template <typename T, bool MOMENTS>
 __device__ void load_encode_tile(T* xs, const float* __restrict__ x, size_t ldx, int M, int F,
                                  int Fp, int L, int min_deg, int m0) {
-  for (int idx = threadIdx.x; idx < Fp * TM; idx += THREADS) {
-    int f, row;
-    if constexpr (MOMENTS) {
-      f = idx / TM;
-      row = idx - f * TM;
-    } else {
-      row = idx / Fp;
-      f = idx - row * Fp;
+  if constexpr (MOMENTS) {
+    decode_encode_tile(xs, x, ldx, M, F, Fp, L, min_deg, m0);
+  } else {
+    for (int idx = threadIdx.x; idx < Fp * TM; idx += THREADS) {
+      const int row = idx / Fp, f = idx - row * Fp, m = m0 + row;
+      float v = 0.f;
+      if (m < M && f < F) v = x[(size_t)m * F + f];
+      xs[(size_t)f * LD + row] = Ty<T>::from_f(v);
     }
-    const int m = m0 + row;
-    float v = 0.f;
-    if (m < M && f < F) {
-      if constexpr (MOMENTS)
-        v = ipe_feature(x, ldx, m, f, L, min_deg);
-      else
-        v = x[(size_t)m * F + f];
-    }
-    xs[(size_t)f * LD + row] = Ty<T>::from_f(v);
   }
 }
 

@@ -284,28 +284,17 @@ lean_fwd_sm90_kernel(const __grid_constant__ FwdPlan pl, const float* __restrict
     if (pl.save && wt == 0) tma_store_wait_read();
     named_sync(bar, 128);
     // A warp's lanes take consecutive points of one feature row (two-byte
-    // stores side by side).  Moments: the sin and the cos feature of one
-    // (degree, dim) a thread, from one pair of loads and one expf (the
-    // values of ipe_feature, bit for bit); rows: four features of a point
-    // a thread, one 16-byte load, where F allows it.  Rows [F, Fx) stay
-    // the zeros written when the block started.
+    // stores side by side).  Moments: decode_moments (lean_engines.cuh),
+    // half of a (point, dim)'s degrees a unit, three units a thread (the
+    // values of ipe_moments, bit for bit); rows: four features of a point a
+    // thread, one 16-byte load, where F allows it.  Rows [F, Fx) stay the
+    // zeros written when the block started.
     if constexpr (MOMENTS) {
-      const int half = 3 * pl.L;
-#pragma unroll 2
-      for (int idx = wt; idx < half * 64; idx += 128) {
-        const int f = idx >> 6, p = idx & 63, m = m0 + p;
-        float vs = 0.f, vc = 0.f;
-        if (m < pl.M) {
-          const int k = f / 3, dim = f - 3 * k;
-          const float scale = ldexpf(1.f, pl.min_deg + k);
-          const float y = x[(size_t)dim * pl.ldx + m] * scale;
-          const float e = expf(-0.5f * (x[(size_t)(3 + dim) * pl.ldx + m] * (scale * scale)));
-          vs = e * sinf(y + 0.f);
-          vc = e * sinf(y + 1.57079637050628662109375f);
-        }
-        *reinterpret_cast<bf16*>(xs + fw_off(f, p)) = __float2bfloat16_rn(vs);
-        *reinterpret_cast<bf16*>(xs + fw_off(f + half, p)) = __float2bfloat16_rn(vc);
-      }
+      decode_moments<2, 128>(x, pl.ldx, pl.M, pl.L, pl.min_deg, m0, wt,
+                             [&](int f, int p, float v) {
+                               *reinterpret_cast<bf16*>(xs + fw_off(f, p)) =
+                                   __float2bfloat16_rn(v);
+                             });
     } else if (pl.F % 4) {
 #pragma unroll 4
       for (int idx = wt; idx < pl.F * 64; idx += 128) {

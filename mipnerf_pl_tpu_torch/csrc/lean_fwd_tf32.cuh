@@ -69,7 +69,7 @@
 // ReLU except on the bottleneck; f32 over the layer's input tile.  The
 // heads are dots of the f32 tile and the staged head kernels, a quarter of
 // the channels a thread, the quarters added in a fixed order.  The moments
-// form decodes the IPE with libm sinf / expf (ipe_feature's values, bit for
+// form decodes the IPE with decode_moments (ipe_moments' values, bit for
 // bit).  Save form: the encode tile and each layer's tile go to S (rows
 // X | hs | bottleneck | ys, [Cs][Mp] f32) by 16-byte stores of all 256
 // consumer threads after the layer, the raw heads to [4][Mp].
@@ -321,26 +321,13 @@ lean_fwd_tf32_kernel(const __grid_constant__ TfPlan pl, const float* __restrict_
       }
     };
     // The encode tile (zero past M), once the tile before is done with the
-    // tiles.  Moments: the sin and the cos feature of one (degree, dim) a
-    // thread (ipe_feature's values); rows: four features of a point a
-    // thread where F allows it.
+    // tiles.  Moments: decode_moments (lean_engines.cuh), a quarter of a
+    // (point, dim)'s degrees a unit, three units a thread (ipe_moments'
+    // values); rows: four features of a point a thread where F allows it.
     named_sync(1, 256);
     if constexpr (MOMENTS) {
-      const int half = 3 * pl.L;
-      for (int idx = tid; idx < half * 64; idx += 256) {
-        const int f = idx >> 6, p = idx & 63, m = m0 + p;
-        float vs = 0.f, vc = 0.f;
-        if (m < pl.M) {
-          const int k = f / 3, dim = f - 3 * k;
-          const float scale = ldexpf(1.f, pl.min_deg + k);
-          const float y = x[(size_t)dim * pl.ldx + m] * scale;
-          const float e = expf(-0.5f * (x[(size_t)(3 + dim) * pl.ldx + m] * (scale * scale)));
-          vs = e * sinf(y + 0.f);
-          vc = e * sinf(y + 1.57079637050628662109375f);
-        }
-        xs[f * FT_LD + p] = vs;
-        xs[(f + half) * FT_LD + p] = vc;
-      }
+      decode_moments<4, 256>(x, pl.ldx, pl.M, pl.L, pl.min_deg, m0, tid,
+                             [&](int f, int p, float v) { xs[f * FT_LD + p] = v; });
     } else if (pl.F % 4) {
       for (int idx = tid; idx < pl.F * 64; idx += 256) {
         const int f = idx >> 6, p = idx & 63, m = m0 + p;

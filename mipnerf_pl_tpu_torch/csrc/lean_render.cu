@@ -42,8 +42,9 @@
 // forwards instead (launch_mlp): bf16 on lean_fwd_sm90.cuh, f32 on the
 // 3xTF32 lean_fwd_tf32.cuh.
 //
-// Numerics: exact libm expf/sinf in the IPE decode (ipe_feature,
-// lean_engines.cuh).
+// Numerics: the IPE decode (decode_moments, lean_engines.cuh) takes its
+// sines from one exact FP64 reduction a (point, dim) (ipe_core.cuh), within
+// ~0.5 ulp of float64 sin of each f32 argument, and libm's exact expf.
 // Activations are rounded to the compute dtype after every layer, products
 // accumulate in f32, biases arrive pre-rounded through the compute dtype,
 // as in the TPU kernel.

@@ -9,7 +9,8 @@ with
 into `mipnerf_pl_tpu_torch/_build/` (git-ignored), keyed by a hash of the
 source, of every header it includes from csrc/ (`#include "..."`) and of
 the flags, and loaded with ctypes.  `build_all` starts one nvcc per source
-at once.  No fast-math flag: the kernels rely on exact expf/sinf.  Nothing
+at once.  No fast-math flag: the kernels rely on libm's exact expf and on the
+IEEE FP64 roundings of csrc/ipe_core.cuh.  Nothing
 here runs at import time.
 """
 

@@ -26,7 +26,8 @@ What bounds them: 24 bytes in and 24L out a point forward, 24 + 24L in and
 24 out backward.  Neither kernel calls CUDA's sincosf, whose exact
 reduction turns slow past |mean 2^deg| ~ 1e5: each (point, dim) reduces
 mean 2/pi once in double-double arithmetic and takes every degree's sin and
-cos from it in FP64 (csrc/ipe.cu), within ~0.5 ulp of the exact values.
+cos from it in FP64 (csrc/ipe_core.cuh), within ~0.5 ulp of the exact
+values.
 
 Each wrapper takes its plain version for tensors on the CPU, and only
 there; on a CUDA tensor it launches its kernel or raises.  The launches are
@@ -38,10 +39,8 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from mipnerf_pl_tpu_torch.kernels.mlp import _call, _check, _on_cpu, launches
-
-MAX_DEGREES = 32    # ladder length the kernels take (IPE_MAX_DEGREES)
-DEGREE_RANGE = (-62, 64)    # degrees whose scales 2^(2 deg - 1) are floats
+from mipnerf_pl_tpu_torch.kernels.mlp import (_call, _check, _check_ladder,
+                                             _on_cpu, launches)
 
 
 def _ladder(min_deg: int, max_deg: int, like: torch.Tensor):
@@ -86,12 +85,7 @@ def _check_points(fn, means2d, covs2d, min_deg, max_deg):
     if L < 1 or M == 0:
         raise ValueError(f'{fn}: needs max_deg > min_deg and points, got '
                          f'degrees ({min_deg}, {max_deg}), {M} points')
-    if L > MAX_DEGREES:
-        raise ValueError(f'{fn}: {L} degrees, the kernel takes at most '
-                         f'{MAX_DEGREES}')
-    if min_deg < DEGREE_RANGE[0] or max_deg > DEGREE_RANGE[1]:
-        raise ValueError(f'{fn}: degrees ({min_deg}, {max_deg}) outside the '
-                         f'kernel\'s {DEGREE_RANGE}')
+    _check_ladder(fn, min_deg, max_deg)
     return M, L, dev
 
 

@@ -1232,6 +1232,7 @@ def lean_mlp(moments, vproj, flat_params: Sequence[torch.Tensor],
     if flat_params[0].shape[0] != 6 * L:
         raise ValueError(f'lean_mlp: trunk_0 takes {flat_params[0].shape[0]}'
                          f' inputs, the encode has {6 * L}')
+    _check_degrees('lean_mlp', min_deg, max_deg)
     ws, bs, w_ptrs, b_ptrs = _kernel_params(flat_params, compute_dtype)
     wt, wt_ptrs = _tf32_ptrs(flat_params, net_depth, net_depth_condition,
                              skip_index, compute_dtype)
@@ -1316,6 +1317,7 @@ def ipe_moments(moments, min_deg: int, max_deg: int):
     if L < 1 or M == 0:
         raise ValueError(f'ipe_moments: needs max_deg > min_deg and points, '
                          f'got degrees ({min_deg}, {max_deg}), {M} points')
+    _check_ladder('ipe_moments', min_deg, max_deg)
     moments = moments.contiguous()
     out = torch.empty((M, 6 * L), dtype=torch.float32, device=dev)
     _call('ipe_moments', dev, moments.data_ptr(), out.data_ptr(), M, L,
@@ -1431,6 +1433,28 @@ def _train_dims(M, N, F, Fv, W, Wv, net_depth, net_depth_condition,
             nd, _round_up(Fv, 16) if view_rows else 0]
 
 
+# Degrees whose scales 2^deg and 2^(2 deg) the IPE kernels build from
+# exponent bits (csrc/ipe_core.cuh IPE_MIN_DEG, IPE_END_DEG), and the
+# longest ladder the standalone encodes' tiles hold (csrc/ipe.cu
+# IPE_MAX_DEGREES).
+IPE_DEGREE_RANGE = (-62, 64)
+IPE_MAX_DEGREES = 32
+
+
+def _check_degrees(fn, min_deg: int, max_deg: int):
+    if min_deg < IPE_DEGREE_RANGE[0] or max_deg > IPE_DEGREE_RANGE[1]:
+        raise ValueError(f'{fn}: degrees ({min_deg}, {max_deg}) outside the '
+                         f'kernels\' {IPE_DEGREE_RANGE}')
+
+
+def _check_ladder(fn, min_deg: int, max_deg: int):
+    """The degrees a standalone IPE kernel takes (csrc/ipe.cu ipe_takes)."""
+    if max_deg - min_deg > IPE_MAX_DEGREES:
+        raise ValueError(f'{fn}: {max_deg - min_deg} degrees, the kernel takes '
+                         f'at most {IPE_MAX_DEGREES}')
+    _check_degrees(fn, min_deg, max_deg)
+
+
 def _input_points(fn, x, encode, F):
     """Points of a lean input, x [M, F] encode rows or, with encode, the
     [6, M] moments of an F = 6L encode; checks the form."""
@@ -1440,6 +1464,7 @@ def _input_points(fn, x, encode, F):
     if 6 * L != F:
         raise ValueError(f'{fn}: trunk_0 takes {F} inputs, the encode of '
                          f'degrees {tuple(encode)} has {6 * L}')
+    _check_degrees(fn, *encode)
     return x.shape[-1]
 
 

@@ -29,8 +29,10 @@ The options of the lean path engage as the JAX model's gates say
   pallas_encode (where fast_encode_math would engage and fuse_encode does
                 not) the [M, 6L] encode rows come from the `ipe_moments`
                 kernel.
-`fast_encode_math` selects no fast transcendentals in the port: every
-encode here is libm-exact.  It only gates `pallas_encode`, as in JAX.
+`fast_encode_math` selects no fast transcendentals in the port: the kernel
+encodes take their sines from one exact FP64 reduction a (point, dim)
+(csrc/ipe_core.cuh), within ~0.5 ulp of float64 sin of each f32 argument,
+and libm's exact expf.  It only gates `pallas_encode`, as in JAX.
 MipNeRFSystem's eval model (val.mlp_backend='auto') takes fuse_render and
 fuse_encode for rendering.
 

@@ -6,14 +6,16 @@ copies the checkout's csrc/ to a temporary directory, adds a compile-time
 mask FWD_OFF to the copy of lean_engines.cuh (nothing in the checkout
 changes), builds lean_render.cu and lean_train.cu once a mask with nvcc
 (sm_90a, all at once), and times, from torch.profiler kernel durations,
-the forward kernel of bf16 lean_save_fwd (encode rows and the moments) and
-lean_fwd at the lego training level (chip_smoke.py's level_inputs) and of
+the forward kernel of bf16 lean_save_fwd and lean_fwd (encode rows and
+the moments) at the lego training level (chip_smoke.py's level_inputs) and of
 bf16 lean_mlp at one 8192-ray render chunk (chip_smoke.py's chunk_inputs),
 seeded weights.  The mask's bits switch off, in the mma.sync tile
 (mlp_tile): 1 the weight loads (the slab is filled with zeros), 2 the
 products, 4 the epilogue and the in-place store of each layer, 8 the copies
 of the tiles to the saved stream (copy_tile_out), 16 the heads' dots, 32
-the IPE decode of the moments.  The results are a split, not a sum: with
+the IPE decode of the moments (decode_moments in lean_engines.cuh, which
+the wgmma forwards call too: their bit 32 is the same switch; the decode
+then stores zeros).  The results are a split, not a sum: with
 a part off the compiler and the scheduler may rearrange the rest.  It
 prints one JSON line a mask and one with all of them and the unmasked
 profile.  In a tree whose bf16 lean forwards take lean_fwd_sm90_kernel,
@@ -30,7 +32,11 @@ weights for net_depth_condition 0, its NV form (`mlp_fwd classic`,
 `mlp_fwd classic no_view`).
 
 --only=BITS (comma-separated masks, e.g. --only=0,2,16) builds and times
-only those of the masks.
+only those of the masks.  The build prints what ptxas says of the timed
+kernels (registers, stack, spills) as the first mask builds them.  Bit 32
+also finds the inline decode of a checkout from before decode_moments, so
+`cd <parent checkout> && python3 <this tree's file> ...` splits a parent
+in turns with this tree.
 
 With --f32 the forwards run in f32: the masks then reach the mma.sync
 tile's 3xTF32 engine (Tf32Gemm), where bit 2 drops the products with the
@@ -140,10 +146,29 @@ SWITCHES = [
     ('                          int n_out, int col, int row) {\n  float s = 0.f;',
      '                          int n_out, int col, int row) {\n'
      '  if (FWD_OFF & 16) return bias[col];\n  float s = 0.f;'),
-    ('      if constexpr (MOMENTS)\n        v = ipe_feature(x, ldx, m, f, L, min_deg);',
-     '      if constexpr (MOMENTS)\n'
-     '        v = (FWD_OFF & 32) ? 0.5f : ipe_feature(x, ldx, m, f, L, min_deg);'),
 ]
+# Bit 32 in every form: decode_moments (lean_engines.cuh), the one IPE
+# decode of the moments that the mma.sync tile and both wgmma forwards call,
+# stores zeros instead of its values.
+SWITCHES_DECODE = [
+    ('    if (m < M) {\n      const float mean = x[(size_t)dim * ldx + m];',
+     '    if (!(FWD_OFF & 32) && m < M) {\n      const float mean = x[(size_t)dim * ldx + m];'),
+]
+# Bit 32 in a checkout from before decode_moments (a parent timed in turns),
+# where each forward decoded the moments inline with libm sinf: its file ->
+# the switch there.
+_INLINE_DECODE = (
+    '        if (m < pl.M) {\n          const int k = f / 3, dim = f - 3 * k;',
+    '        if (!(FWD_OFF & 32) && m < pl.M) {\n'
+    '          const int k = f / 3, dim = f - 3 * k;')
+SWITCHES_DECODE_INLINE = {
+    'lean_engines.cuh': [(
+        '      if constexpr (MOMENTS)\n        v = ipe_feature(x, ldx, m, f, L, min_deg);',
+        '      if constexpr (MOMENTS)\n'
+        '        v = (FWD_OFF & 32) ? 0.5f : ipe_feature(x, ldx, m, f, L, min_deg);')],
+    'lean_fwd_sm90.cuh': [_INLINE_DECODE],
+    'lean_fwd_tf32.cuh': [_INLINE_DECODE],
+}
 
 
 # The same bits in lean_fwd_sm90.cuh (--sm90).
@@ -169,8 +194,6 @@ SWITCHES_SM90 = [
     ('        tma_store_2d(&pl.sx,', '        if (!(FWD_OFF & 8)) tma_store_2d(&pl.sx,'),
     ('      if (den || li == pl.n_layers - 1) {',
      '      if (!(FWD_OFF & 16) && (den || li == pl.n_layers - 1)) {'),
-    ('        if (m < pl.M) {\n          const int k = f / 3, dim = f - 3 * k;',
-     '        if (!(FWD_OFF & 32) && m < pl.M) {\n          const int k = f / 3, dim = f - 3 * k;'),
 ]
 SM90 = '--sm90' in sys.argv[1:] or TUNE
 # The chain's own bits in lean_chain_tf32.cuh (--chain).
@@ -195,18 +218,16 @@ SWITCHES_TF32 = [
      '        }\n        mbar_expect_tx(full + s, 2 * n * FT_SW);'),
     ('    uint32_t ah[2][4], al[2][4];\n    tf32_load_a(',
      '    uint32_t ah[2][4] = {}, al[2][4] = {};\n    if (!(FWD_OFF & 2)) tf32_load_a('),
-    ('      tf32_mma<NH>(acc, al[kk], dh, ks > 0 || kk > 0);',
-     '      if (FWD_OFF & 2) continue;\n      tf32_mma<NH>(acc, al[kk], dh, ks > 0 || kk > 0);'),
-    ('        for (int j = 0; j < 4 * NH; ++j) {\n          const int col = col0 + 8 * j + 2 * t;',
-     '        for (int j = 0; j < ((FWD_OFF & 4) ? 0 : 4 * NH); ++j) {\n'
+    ('      tf32_mma<NC>(acc, al[kk], dh, ks > 0 || kk > 0);',
+     '      if (FWD_OFF & 2) continue;\n      tf32_mma<NC>(acc, al[kk], dh, ks > 0 || kk > 0);'),
+    ('        for (int j = 0; j < NC / 8; ++j) {\n          const int col = col0 + 8 * j + 2 * t;',
+     '        for (int j = 0; j < ((FWD_OFF & 4) ? 0 : NC / 8); ++j) {\n'
      '          const int col = col0 + 8 * j + 2 * t;'),
     ('      if (pl.S) save(hs, ly.N, ly.s_row);',
      '      if (pl.S && !(FWD_OFF & 8)) save(hs, ly.N, ly.s_row);'),
     ('    if (pl.S) save(xs, pl.Fx, 0);', '    if (pl.S && !(FWD_OFF & 8)) save(xs, pl.Fx, 0);'),
     ('      if (den || li == pl.n_layers - 1) {',
      '      if (!(FWD_OFF & 16) && (den || li == pl.n_layers - 1)) {'),
-    ('        if (m < pl.M) {\n          const int k = f / 3, dim = f - 3 * k;',
-     '        if (!(FWD_OFF & 32) && m < pl.M) {\n          const int k = f / 3, dim = f - 3 * k;'),
     ('    split_tf32(s[0], ah[kk][0], al[kk][0]);',
      '    if (FWD_OFF & 64) {\n#pragma unroll\n      for (int i = 0; i < 4; ++i) {\n'
      '        const float v = s[(i & 1) * 8 + (i >> 1) * 4 * FT_LD];\n'
@@ -265,7 +286,8 @@ def variants():
 
 def masked_sources(tmp):
     """csrc/ copied to tmp with the switches in lean_engines.cuh (--sm90:
-    lean_fwd_sm90.cuh)."""
+    lean_fwd_sm90.cuh; --tf32: lean_fwd_tf32.cuh; bit 32 in lean_engines.cuh
+    in every form)."""
     dst = os.path.join(tmp, 'csrc')
     shutil.copytree(_build.SRC_DIR, dst)
     name = ('lean_fwd_tf32.cuh' if TF32 else 'lean_fwd_sm90.cuh' if SM90
@@ -276,6 +298,13 @@ def masked_sources(tmp):
         edits = {'lean_wgrad_tf32.cuh': SWITCHES_WGRAD}
     if CHAIN:
         edits['lean_chain_tf32.cuh'] = SWITCHES_CHAIN
+    elif not (WGRAD or TUNE):
+        engines = open(os.path.join(dst, 'lean_engines.cuh')).read()
+        if 'decode_moments' in engines:
+            edits['lean_engines.cuh'] = edits.get('lean_engines.cuh', []) + \
+                SWITCHES_DECODE
+        else:
+            edits[name] = edits[name] + SWITCHES_DECODE_INLINE[name]
     for name, switches in edits.items():
         path = os.path.join(dst, name)
         text = open(path).read()
@@ -305,8 +334,22 @@ def build(tmp):
         if p.returncode:
             raise RuntimeError(out)
         libs[key] = so
+        if key[0] == 0:     # what ptxas says of the timed kernels, as built
+            for kname, spill, regs in cs.kernel_resources(out):
+                if any(n in kname for n in timed_kernels()):
+                    print(f'ptxas {key[1]}: {short(kname)}: {regs}; {spill}',
+                          flush=True)
     print(f'build {time.perf_counter() - t0:.1f} s', flush=True)
     return libs
+
+
+def timed_kernels():
+    """Names of the kernels whose device time a row holds."""
+    return (('wgrad_tf32_kernel',) if WGRAD
+            else ('lean_chain_tf32_kernel',) if CHAIN
+            else ('lean_fwd_tf32_kernel',) if TF32
+            else ('lean_fwd_sm90_kernel',) if SM90
+            else ('lean_fwd_kernel', 'lean_mlp_kernel'))
 
 
 def short(name):
@@ -340,6 +383,8 @@ def run(libs):
             moments, view, flat, *args, dt, cs.ACT, encode=enc),
         'lean_fwd rows': lambda: km.lean_fwd(x, view, flat, *args, dt,
                                              cs.ACT),
+        'lean_fwd moments': lambda: km.lean_fwd(
+            moments, view, flat, *args, dt, cs.ACT, encode=enc),
         'lean_mlp chunk': lambda: km.lean_mlp(cm, vp, flat, *args, dt,
                                               cs.ACT, enc),
     }
@@ -368,11 +413,7 @@ def run(libs):
         row = {}
         for cname, fn in calls.items():
             split = cs.kernel_device_ms(fn, iters=5)
-            names = (('wgrad_tf32_kernel',) if WGRAD
-                     else ('lean_chain_tf32_kernel',) if CHAIN
-                     else ('lean_fwd_tf32_kernel',) if TF32
-                     else ('lean_fwd_sm90_kernel',) if SM90
-                     else ('lean_fwd_kernel', 'lean_mlp_kernel'))
+            names = timed_kernels()
             row[cname] = round(sum(t for k, t in split.items()
                                    if any(n in k for n in names)), 4)
             if v == 0:

@@ -25,16 +25,22 @@ CUDA-event time (which also counts the host's issue time of each call), the
 plain version's event time and the kernel's bound: its bytes (each input
 read once, each output written once) over 3.35 TB/s.  ipe_fwd and ipe_bwd
 are timed on level, near and far (the split of what the slow reduction
-costs); ipe_moments on the level's moments.  --composites adds the device
+costs).  ipe_moments is held against its plain version (max |d| <= 1e-5,
+two runs bit-equal) and timed on the [6, M] moments of: the level; one
+render chunk (chip_smoke.py's chunk_inputs: 8192 rays from near the
+radius-4 orbit x 128 samples, 1,048,576 points); that chunk with its
+means scaled to |mean| < 3.2 (`chunk near`); and the level's means pushed
+out as in far (`far`).  --composites adds the device
 and event times of lean_composite at a render chunk (8192 rays x 128) and
 a training level (3072 x 128) and of lean_composite_bwd at the level.
 
 --split (no checks) copies csrc/ to a temporary directory, adds a
-compile-time mask IPE_OFF to the copy of ipe.cu (nothing in the checkout
-changes), builds it once a mask with nvcc, all at once, and prints the
-device time of ipe_fwd and ipe_bwd at the level, a line a mask: bit 1
-their global traffic (the forward's bulk stores, the backward's loads of
-g), 2 the reduction and core (sin / cos of a cast), 4 the damping (expf).
+compile-time mask IPE_OFF to the copies of ipe.cu and ipe_core.cuh
+(nothing in the checkout changes), builds it once a mask with nvcc, all at
+once, and prints the device time of ipe_fwd, ipe_bwd and ipe_moments at the
+level, a line a mask: bit 1 their global traffic (the forwards' bulk
+stores, the backward's loads of g), 2 the reductions and cores (a cast of
+the turns instead), 4 the damping (expf).
 A split, not a sum: with a part off the rest may rearrange.
 
 Short enough to be a new kernel's first run on a card; run it on several
@@ -58,6 +64,8 @@ import torch
 _ARGS = [a for a in sys.argv[1:] if not a.startswith('--')]
 sys.path.insert(0, _ARGS[0] if _ARGS else '.')
 
+import chip_smoke as cs  # noqa: E402
+from mipnerf_pl_tpu_torch import config  # noqa: E402
 from mipnerf_pl_tpu_torch.kernels import _build, ipe  # noqa: E402
 from mipnerf_pl_tpu_torch.kernels import mlp as km  # noqa: E402
 from mipnerf_pl_tpu_torch.ops.sampling import sample_along_rays  # noqa: E402
@@ -67,26 +75,35 @@ LEVEL_RAYS, SAMPLES = 3072, 128
 HBM_RATE = 3.35e12      # bytes/s, NVIDIA H100 SXM data sheet
 BAR = 1e-5
 
-# --split: mask -> what it switches off; the edits of the copy of ipe.cu.
+# --split: mask -> what it switches off; the edits of the copies of ipe.cu
+# and ipe_core.cuh (file -> (text, the text behind the mask's bit, count)).
 SPLIT = {0: 'all on', 1: 'global traffic off', 2: 'sin / cos off',
          4: 'damp off', 7: 'all three off'}
-SPLIT_EDITS = [
-    ('#include "sm90.cuh"\n',
-     '#include "sm90.cuh"\n#ifndef IPE_OFF\n#define IPE_OFF 0\n#endif\n', 1),
-    ('      bulk_store(out + m0 * F, rows, whole * 4);',
-     '      if (!(IPE_OFF & 1))\n'
-     '        bulk_store(out + m0 * F, rows, whole * 4);', 1),
-    ('    if (tile >= n_tiles) return;\n',
-     '    if (tile >= n_tiles || (IPE_OFF & 1)) return;\n', 1),
-    ('float& sn, float& cs) {\n',
-     'float& sn, float& cs) {\n  if (IPE_OFF & 2) {\n'
-     '    sn = (float)(t.hi * scale);\n    cs = (float)(t.lo * scale);\n'
-     '    return;\n  }\n', 1),
-    ('damp = expf(-(cov * pow2f(2 * deg - 1)));',
-     'damp = (IPE_OFF & 4) ? cov : expf(-(cov * pow2f(2 * deg - 1)));', 1),
-    ('damp = expf(-(cov * s2));',
-     'damp = (IPE_OFF & 4) ? cov : expf(-(cov * s2));', 1),
-]
+SPLIT_EDITS = {
+    'ipe.cu': [
+        ('      bulk_store(out + m0 * F, rows, whole * 4);',
+         '      if (!(IPE_OFF & 1))\n'
+         '        bulk_store(out + m0 * F, rows, whole * 4);', 1),
+        ('    if (tile >= n_tiles) return;\n',
+         '    if (tile >= n_tiles || (IPE_OFF & 1)) return;\n', 1),
+        ('damp = expf(-(cov * pow2f(2 * deg - 1)));',
+         'damp = (IPE_OFF & 4) ? cov : expf(-(cov * pow2f(2 * deg - 1)));', 1),
+        ('damp = expf(-(cov * s2));',
+         'damp = (IPE_OFF & 4) ? cov : expf(-(cov * s2));', 1)],
+    'ipe_core.cuh': [
+        ('float& sn, float& cs) {\n',
+         'float& sn, float& cs) {\n  if (IPE_OFF & 2) {\n'
+         '    sn = (float)(t.hi * scale);\n    cs = (float)(t.lo * scale);\n'
+         '    return;\n  }\n', 1),
+        ('  vs = damp * ipe_sin(fs, qs);\n  vc = damp * ipe_sin(fc, q);',
+         '  vs = damp * ((IPE_OFF & 2) ? (float)(e.t.hi * scale) : '
+         'ipe_sin(fs, qs));\n'
+         '  vc = damp * ((IPE_OFF & 2) ? (float)(e.t.lo * scale) : '
+         'ipe_sin(fc, q));', 1),
+        ('  const float damp = expf(-0.5f * (e.cov * (s * s)));',
+         '  const float damp = (IPE_OFF & 4) ? e.cov : '
+         'expf(-0.5f * (e.cov * (s * s)));', 1)],
+}
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -123,13 +140,15 @@ def split_builds(tmp):
     """{mask: path of the library} built from csrc/ with SPLIT_EDITS."""
     src = os.path.join(tmp, 'csrc')
     shutil.copytree(_build.SRC_DIR, src)
+    for name, edits in SPLIT_EDITS.items():
+        path = os.path.join(src, name)
+        text = open(path).read()
+        for old, new, count in edits:
+            if text.count(old) != count:
+                raise RuntimeError(f'{name} has not {count} of {old!r}')
+            text = text.replace(old, new)
+        open(path, 'w').write(text)
     path = os.path.join(src, 'ipe.cu')
-    text = open(path).read()
-    for old, new, count in SPLIT_EDITS:
-        if text.count(old) != count:
-            raise RuntimeError(f'ipe.cu has not {count} of {old!r}')
-        text = text.replace(old, new)
-    open(path, 'w').write(text)
     procs = {}
     for mask in SPLIT:
         so = os.path.join(tmp, f'libipe-{mask}.so')
@@ -147,7 +166,7 @@ def split_builds(tmp):
     return out
 
 
-def split_run(m, c, g):
+def split_run(m, c, g, moments):
     """--split: one line a mask."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -159,8 +178,11 @@ def split_run(m, c, g):
                             'ipe_fwd_kernel')
             bwd = device_ms(lambda: ipe.ipe_bwd(m, c, g, *DEGREES),
                             'ipe_bwd_kernel')
+            mom = device_ms(lambda: km.ipe_moments(moments, *DEGREES),
+                            'ipe_moments_kernel')
             print(f'split IPE_OFF={mask} ({label}): ipe_fwd {fwd:.4f} ms, '
-                  f'ipe_bwd {bwd:.4f} ms', flush=True)
+                  f'ipe_bwd {bwd:.4f} ms, ipe_moments {mom:.4f} ms',
+                  flush=True)
         _build._LOADED.pop('ipe')
 
 
@@ -210,6 +232,19 @@ def check(label, m, c, g, deg):
                              f'versions ({label})')
 
 
+def check_moments(label, moments, deg):
+    got = km.ipe_moments(moments, *deg)
+    torch.cuda.synchronize()
+    err = float((got - km.ipe_moments_plain(moments, *deg)).abs().max())
+    same = torch.equal(got, km.ipe_moments(moments, *deg))
+    print(f'ipe_moments {label}, {moments.shape[1]:,} points, degrees '
+          f'{deg[0]}..{deg[1]}: max|d| {err:.3e}; two runs bit-equal {same}',
+          flush=True)
+    if not bool(torch.isfinite(got).all()) or err > BAR or not same:
+        raise AssertionError(f'ipe_moments disagrees with its plain version '
+                             f'({label})')
+
+
 def timing(name, kernel_name, fn, plain, nbytes, label=''):
     dev_ms, ev_ms = device_ms(fn, kernel_name), cuda_ms(fn)
     b_ms = nbytes / HBM_RATE * 1e3
@@ -255,7 +290,7 @@ def main() -> int:
     M = means.shape[0]
     g = tensor(rng.normal(size=(M, 6 * L)))
     if '--split' in sys.argv:
-        split_run(means, covs, g)
+        split_run(means, covs, g, torch.cat([means.T, covs.T]).contiguous())
         return 0
     cases = {'level': means,
              'near': means * (3.2 / float(means.abs().max())),
@@ -273,11 +308,21 @@ def main() -> int:
                lambda: ipe.ipe_bwd(m, covs, g, *DEGREES),
                (lambda: ipe.ipe_bwd_plain(m, covs, g, *DEGREES))
                if label == 'level' else None, M * (48 + 24 * L), f' {label}')
-    moments = torch.cat([means.T, covs.T]).contiguous()
-    timing('ipe_moments', 'ipe_moments_kernel',
-           lambda: km.ipe_moments(moments, *DEGREES),
-           lambda: km.ipe_moments_plain(moments, *DEGREES),
-           M * (24 + 24 * L), ' level')
+    chunk = cs.chunk_inputs(config.default(), dev)[0]
+    scaled = chunk[:3] * (3.2 / float(chunk[:3].abs().max()))
+    m_cases = {
+        'level': torch.cat([means.T, covs.T]).contiguous(),
+        'chunk': chunk,
+        'chunk near': torch.cat([scaled, chunk[3:]]).contiguous(),
+        'far': torch.cat([cases['far'].T, covs.T]).contiguous()}
+    for label, mo in m_cases.items():
+        check_moments(label, mo, DEGREES)
+    for label, mo in m_cases.items():
+        timing('ipe_moments', 'ipe_moments_kernel',
+               lambda: km.ipe_moments(mo, *DEGREES),
+               (lambda: km.ipe_moments_plain(mo, *DEGREES))
+               if label == 'level' else None,
+               mo.shape[1] * (24 + 24 * L), f' {label}')
     if composites:
         print(recs['lean_render']['log'])
         crng = np.random.default_rng(2)

@@ -798,8 +798,9 @@ def fwd_parts(out, M):
 def test_cuda_moments_forms_match_rows(cuda_device, shape, dtype):
     """lean_fwd and lean_save_fwd on the [6, M] moments (the IPE decoded in
     the kernel) against the same kernels on the encode rows of the plain
-    decode: f32 max |d| / max |ref| <= 1e-5 (both decodes are libm expf /
-    sinf of the same products; the saved X rows are the decoded encode);
+    decode: f32 max |d| / max |ref| <= 1e-5 (the kernels' sines within
+    ~0.5 ulp, torch.sin's of the same f32 arguments; the saved X rows are
+    the decoded encode);
     bf16 <= 3e-2 against the f32 plain forward on the rows.  lean_fwd gives
     lean_save_fwd's outputs bit for bit."""
     R, cfg = TRAIN_SHAPES[shape]
@@ -828,6 +829,40 @@ def test_cuda_moments_forms_match_rows(cuda_device, shape, dtype):
         want = fwd_parts(tk.lean_mlp_save_plain(x, view, flat, *args,
                                                 torch.float32, act), M)
         assert max_rel_err(got, want) <= 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', ['small', 'wide', 'lego'])
+def test_cuda_moments_forms_equal_rows_of_ipe_moments(cuda_device, shape,
+                                                       dtype):
+    """One decode: lean_fwd and lean_save_fwd on the [6, M] moments equal,
+    bit for bit, the same wrappers on ipe_moments' rows of those moments
+    (the outputs, the saved stream, the raw heads), since the forwards'
+    in-tile decode and ipe_moments call one routine (ipe_moments_pair,
+    csrc/ipe_core.cuh).  'small' takes the mma.sync tile, 'wide' (degrees
+    0..4) and 'lego' (0..16) the wgmma forward of the dtype."""
+    R, cfg = TRAIN_SHAPES[shape]
+    m, _, view, flat, _, _ = moments_problem(R, cfg, cuda_device)
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'], getattr(torch, dtype), (0.001, -1.0))
+    rows = tk.ipe_moments(m, *cfg['deg'])
+    M = rows.shape[0]
+    tk.reset_launches()
+    got = fwd_parts(tk.lean_save_fwd(m, view, flat, *args,
+                                     encode=cfg['deg']), M)
+    got += list(tk.lean_fwd(m, view, flat, *args, encode=cfg['deg']))
+    want = fwd_parts(tk.lean_save_fwd(rows, view, flat, *args), M)
+    want += list(tk.lean_fwd(rows, view, flat, *args))
+    torch.cuda.synchronize()
+    assert tk.launches['lean_fwd'] == 2 and tk.launches['lean_save_fwd'] == 2
+    assert tk.routes['lean_fwd'] == tk.routes['lean_save_fwd'] \
+        == sm90_calls(cfg, dtype, 2)
+    assert tk.tf32_routes['lean_fwd'] == tk.tf32_routes['lean_save_fwd'] \
+        == tf32_calls(cfg, dtype, 2)
+    assert all(torch.isfinite(t).all() for t in got)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -890,29 +925,65 @@ def test_cuda_composite_bwd_matches_plain(cuda_device, shape, white):
     assert max_rel_err(got, want) <= 1e-5
 
 
+def render_chunk_moments(device, seed=0):
+    """The [6, M] moments of one render chunk, as chip_smoke.py's
+    chunk_inputs makes them: 8192 numpy-seeded rays from near (0, 3.2, 2.35)
+    on the radius-4 orbit towards U(-1, 1)^3, radius 5e-4, 128 stratified
+    samples over [2, 6] (1,048,576 points)."""
+    from mipnerf_pl_tpu_torch.ops.math import cast_rays_cmajor
+    from mipnerf_pl_tpu_torch.ops.sampling import sample_along_rays
+    rng = np.random.default_rng(seed)
+    R, N = 8192, 128
+    origins = rng.normal(size=(R, 3)) * 0.1 + np.array([0.0, 3.2, 2.35])
+    dirs = rng.uniform(-1.0, 1.0, size=(R, 3)) - origins
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+
+    def on(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+    o, d, radii = on(origins), on(dirs), on(np.full((R, 1), 5e-4))
+    t, _ = sample_along_rays(o, d, radii, N, on(np.full((R, 1), 2.0)),
+                             on(np.full((R, 1), 6.0)), False, False, 'cone')
+    return cast_rays_cmajor(t, o, d, radii).reshape(6, -1).contiguous()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('case', ['ragged', 'lego', 'no_integration'])
+@pytest.mark.parametrize('case', ['ragged', 'lego', 'no_integration',
+                                  'render_chunk', 'far'])
 def test_cuda_ipe_moments_matches_plain(cuda_device, case):
-    """ipe_moments against ipe_moments_plain: max |d| <= 1e-5 (both are
-    libm expf / sinf of the same f32 products).  'ragged': 700 points, no
-    multiple of a block; 'lego': a training level, 393,216 points at
-    degrees 0..16; 'no_integration': the covariance rows zeroed, as
-    disable_integration hands them over."""
+    """ipe_moments against ipe_moments_plain: max |d| <= 1e-5 (the kernel's
+    sines from one exact FP64 reduction, within ~0.5 ulp of float64 sin of
+    each f32 argument; the plain version's torch.sin of the same f32
+    arguments), two runs bit-equal.  'ragged': 700 points, no multiple of
+    a tile; 'lego': a training level, 393,216 points at degrees 0..16;
+    'no_integration': the covariance rows zeroed, as disable_integration
+    hands them over; 'render_chunk': one render chunk's moments (1,048,576
+    points); 'far': the lego means pushed out to |mean| + 3.25, so that every
+    degree-15 argument passes 105,615 (where CUDA's sinf turns slow)."""
     M, deg = {'ragged': (700, (0, 4)), 'lego': (393216, (0, 16)),
-              'no_integration': (4096, (0, 16))}[case]
-    rng = np.random.default_rng(6)
-    moments = np.concatenate([rng.normal(size=(3, M)) * 0.7,
-                              rng.uniform(0.0, 2e-3, size=(3, M))])
-    if case == 'no_integration':
-        moments[3:] = 0.0
-    m = torch.tensor(moments.astype(np.float32), device=cuda_device)
+              'no_integration': (4096, (0, 16)), 'render_chunk': (0, (0, 16)),
+              'far': (393216, (0, 16))}[case]
+    if case == 'render_chunk':
+        m = render_chunk_moments(cuda_device)
+        M = m.shape[1]
+    else:
+        rng = np.random.default_rng(6)
+        moments = np.concatenate([rng.normal(size=(3, M)) * 0.7,
+                                  rng.uniform(0.0, 2e-3, size=(3, M))])
+        if case == 'no_integration':
+            moments[3:] = 0.0
+        if case == 'far':
+            moments[:3] = np.sign(moments[:3]) * (np.abs(moments[:3]) + 3.25)
+            assert np.abs(moments[:3]).min() * 2.0 ** 15 > 105615
+        m = torch.tensor(moments.astype(np.float32), device=cuda_device)
     tk.reset_launches()
     got = tk.ipe_moments(m, *deg)
+    again = tk.ipe_moments(m, *deg)
     torch.cuda.synchronize()
-    assert tk.launches['ipe_moments'] == 1
+    assert tk.launches['ipe_moments'] == 2
     assert got.shape == (M, 6 * (deg[1] - deg[0]))
     assert torch.isfinite(got).all()
     assert float((got - tk.ipe_moments_plain(m, *deg)).abs().max()) <= 1e-5
+    torch.testing.assert_close(got, again, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -1531,6 +1602,11 @@ def test_cuda_ipe_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match='require a gradient'):
         tk.ipe_moments(torch.zeros(6, 8, device=cuda_device,
                                    requires_grad=True), 0, 4)
+    moments = torch.zeros(6, 8, device=cuda_device)
+    with pytest.raises(ValueError, match='at most'):
+        tk.ipe_moments(moments, 0, 33)
+    with pytest.raises(ValueError, match='outside'):
+        tk.ipe_moments(moments, 63, 65)
 
 
 @pytest.mark.cuda
