@@ -195,7 +195,38 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      lean_param_grads and lean_view_proj 2 a step (the gate's step, the
      warm-up and the timed calls); render_bench at 800x800 in f32 and bf16,
      the render kernels 2 x 79 chunks a frame;
-  8. the kernels' JSON line (launches, error, times, bound, library call;
+  8a. the unbounded-360 kernels at full width: configs/real360.yaml (8x256,
+     view 128, 128 + 128 samples) with seeded weights, a training level of
+     3072 seeded 360 rays (origins on the radius-4 sphere, near 2.5, far
+     5.5, t_inv samples) whose x rows are the icosahedral IPE, F = 42:
+     lean_save_fwd (#3) and lean_param_grads (#4a) against their plain
+     versions at the phase-3 / phase-5 bars, f32 and bf16, on the wgmma
+     kernels of each dtype (check_routes, check_chain_routes,
+     check_wgrad_routes: 42 rounds up to the forwards' slabs), each
+     gradient leaf of trunk_0's and the skip layer's shapes;
+  8b. the real360 gradient gate: one training step of the real360 system on
+     pallas_lean_save against the plain path on the same rays and
+     generator seed, bf16 (3e-2) and f32 (2e-3), then with
+     nerf.fuse_render (the render-fused level, #1 / #2, compositing over
+     1/t_inv); each step launches lean_save_fwd, lean_view_proj and
+     lean_param_grads once a level (and with fuse_render lean_composite and
+     lean_composite_bwd) and nothing else, on the routes of its dtype;
+  8c. the real360 run through the command lines: make_llff_sphere_capture
+     writes 24 views of 256x256 (21 train: 1,376,256 rays) into a
+     temporary directory; cli.train --dataset_name real360 --config
+     configs/real360.yaml (bf16, pallas_lean_save, data.factor 1,
+     lr_delay_steps 0) for 200 steps in dispatches of 50 with one
+     validation: the loss falls and is finite, lean_save_fwd,
+     lean_view_proj and lean_param_grads launch 2 a step and nothing else
+     runs (validation renders on the plain path, as JAX's unbounded eval
+     does), best/ and last/ hold step 200; cli.eval --white_bkgd False (no
+     launch): 3 finite PSNR / SSIM values; the run's rays/s and batcher-wait
+     share;
+  8d. tools.quality_smoke --steps 3000 in bf16 on pallas_lean_save (the JAX
+     tool's settings): val PSNR >= 27.0 dB, lean_save_fwd and
+     lean_param_grads 2 a step; its PSNR, wall time and rays/s beside the
+     card's nvidia-smi line;
+  9. the kernels' JSON line (launches, error, times, bound, library call;
      each kernel's launches on the paths of phases 7b-7d under
      `launches_new_paths`;
      for the lean forwards and backwards also the wgmma kernel that runs
@@ -205,13 +236,15 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      their numbers for each model of CLASSIC_SHAPES under its key
      (`no_view`, `nd2`, `nd2_no_view`): ms, plain_ms, bound_ms, share, the
      kernels that ran them and phase 6's f32 launches, bf16 (with phase
-     6's bf16 launches) under its 'bf16'),
+     6's bf16 launches) under its 'bf16'; for lean_save_fwd and
+     lean_param_grads also phase 8a's numbers at F = 42 under 'real360',
+     with their launches in phase 8c's run),
      the script's wall time, the card's name and power limit, and last the
      line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --measure
 
-adds, before phase 8, the frame times at 800x800 (kernel and plain paths,
+adds, before phase 9, the frame times at 800x800 (kernel and plain paths,
 f32 and bf16, in turns k p p k), a torch.profiler table of one 200x200
 kernel-path frame, and, with the host's issue time of an unprofiled step,
 one of a bf16 train step of each lean backend, of pallas_lean_save with
@@ -245,6 +278,7 @@ from mipnerf_pl_tpu_torch.convert import jax_params_to_torch
 from mipnerf_pl_tpu_torch.data.datasets import (Blender, _alpha_composite,
                                                 dataset_dict)
 from mipnerf_pl_tpu_torch.data.synthetic import (CAMERA_ANGLE_X,
+                                                 make_llff_sphere_capture,
                                                  make_sphere_scene,
                                                  render_sphere_view)
 from mipnerf_pl_tpu_torch.kernels import _build
@@ -254,12 +288,15 @@ from mipnerf_pl_tpu_torch.kernels import tp_lean as kt
 from mipnerf_pl_tpu_torch.models.mlp import LEAN_BACKENDS
 from mipnerf_pl_tpu_torch.ops.camera import Camera, pix2cam_from_focal
 from mipnerf_pl_tpu_torch.ops.math import (cast_rays_cmajor,
-                                           integrated_pos_enc, pos_enc)
+                                           integrated_pos_enc,
+                                           integrated_pos_enc_360, pos_enc)
 from mipnerf_pl_tpu_torch.ops.render import delta_mids
-from mipnerf_pl_tpu_torch.ops.sampling import sample_along_rays
+from mipnerf_pl_tpu_torch.ops.sampling import (sample_along_rays,
+                                               sample_along_rays_360)
 from mipnerf_pl_tpu_torch.parallel.mesh import create_mesh
 from mipnerf_pl_tpu_torch.rays import Rays
 from mipnerf_pl_tpu_torch.system import MipNeRFSystem, make_dataset
+from mipnerf_pl_tpu_torch.tools import quality_smoke
 from mipnerf_pl_tpu_torch.train.ckpt import load_hparams, restore_for_eval
 from mipnerf_pl_tpu_torch.utils.vis import create_spheric_poses
 
@@ -358,6 +395,16 @@ CLASSIC_SHAPES = {
     'nd2': (_ND2, '[two density heads]'),
     'nd2_no_view': ({**_ND2, **_NO_VIEW}, '[two density heads, no view layer]'),
 }
+# Phases 8a-8d: the unbounded-360 config (configs/real360.yaml at full
+# width, F = 42 encode features) on pallas_lean_save, its kernels' suffix in
+# the results, its whole run (a capture of REAL360_CAPTURE, REAL360_STEPS
+# steps in dispatches of REAL360_K), and the quality smoke's steps and bar.
+REAL360_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              'configs', 'real360.yaml')
+REAL360_TAG = '[real360]'
+REAL360_CAPTURE = {'size': 256, 'n_images': 24}
+REAL360_STEPS, REAL360_K = 200, 50
+QUALITY_STEPS, QUALITY_MIN_PSNR = 3000, 27.0
 # The card's published rates (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s; tensor-core FLOP/s in bf16 and for f32 as 3xTF32 (the route the
 # f32 kernels take: three TF32 products, 495 / 3); CUDA-core f32 FLOP/s.
@@ -436,6 +483,14 @@ def kernel_device_ms(fn, iters: int = 20) -> dict:
             if e.device_type == DeviceType.CUDA}
 
 
+def xyz_features(hp) -> int:
+    """The encode's features a sample: 42 for the unbounded model's
+    icosahedral IPE, 6 a degree otherwise."""
+    if hp.get('nerf.unbounded'):
+        return 42
+    return 6 * (hp['nerf.max_deg_point'] - hp['nerf.min_deg_point'])
+
+
 def layer_shapes(hp):
     """The (in, out) of hp's MLP kernels in param order."""
     depth = hp['nerf.mlp.net_depth']
@@ -443,7 +498,7 @@ def layer_shapes(hp):
     skip = hp['nerf.mlp.skip_index']
     W = hp['nerf.mlp.net_width']
     Wv = hp['nerf.mlp.net_width_condition']
-    F = 6 * (hp['nerf.max_deg_point'] - hp['nerf.min_deg_point'])
+    F = xyz_features(hp)
     Fv = 3 * (2 * hp['nerf.deg_view'] + 1)
     shapes, d_in = [], F
     for i in range(depth):
@@ -469,7 +524,7 @@ def kernel_work(name, hp, R, N, tag, form='rows'):
     dcond = hp['nerf.mlp.net_depth_condition']
     W = hp['nerf.mlp.net_width']
     Wv = hp['nerf.mlp.net_width_condition']
-    F = 6 * (hp['nerf.max_deg_point'] - hp['nerf.min_deg_point'])
+    F = xyz_features(hp)
     Fv = 3 * (2 * hp['nerf.deg_view'] + 1)
     M, Mp = R * N, -(-R * N // km.TILE) * km.TILE
     es = 2 if tag == 'bf16' else 4
@@ -573,7 +628,7 @@ def record(results, key, hp, R, N, err, ms, plain_ms, library_ms=None,
 
 
 def _widths(hp):
-    F = 6 * (hp['nerf.max_deg_point'] - hp['nerf.min_deg_point'])
+    F = xyz_features(hp)
     return (F, hp['nerf.mlp.net_width'], hp['nerf.mlp.net_width_condition'],
             hp['nerf.mlp.net_depth'], hp['nerf.mlp.net_depth_condition'])
 
@@ -2631,6 +2686,275 @@ def benches(hp0):
     return paths
 
 
+def real360_hparams(**extra):
+    """configs/real360.yaml on the default schema, on pallas_lean_save."""
+    hp = config.default()
+    config.merge_from_file(hp, REAL360_CONFIG)
+    hp['nerf.mlp_backend'] = 'pallas_lean_save'
+    hp.update(extra)
+    return hp
+
+
+def real360_batch(B, dev, seed=0):
+    """Rays of an inward-facing 360 capture: origins on the upper half of
+    the radius-4 sphere, directions of length 1 to 1.1 (RealData360's are
+    K_inv's pixel rays, z = 1 in the camera) toward points of the cube
+    [-1, 1]^3, radius 1.6e-3 (a pixel of a 256 px view), near 2.5 and far
+    5.5 (make_llff_sphere_capture's bounds); uniform pixel targets."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(B, 3))
+    o[:, 2] = np.abs(o[:, 2])
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-1.0, 1.0, size=(B, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    viewdirs = d.copy()
+    d *= rng.uniform(1.0, 1.1, size=(B, 1))
+    ones = np.ones((B, 1))
+    fields = (o, d, viewdirs, ones * 1.6e-3, ones, ones * 2.5, ones * 5.5)
+    pixels = rng.uniform(size=(B, 3))
+    return (Rays(*(torch.tensor(f, dtype=torch.float32, device=dev)
+                   for f in fields)),
+            torch.tensor(pixels, dtype=torch.float32, device=dev))
+
+
+def real360_level_inputs(hp, dev, seed=3):
+    """One training level of the real360 path: x rows = the icosahedral
+    IPE of the inverse-depth samples of TRAIN_RAYS seeded 360 rays [M, 42],
+    view [R, 27], seeded head cotangents [M, 3] / [M, 1]."""
+    rays, _ = real360_batch(TRAIN_RAYS, dev, seed)
+    _, means_covs = sample_along_rays_360(
+        rays.origins, rays.directions, rays.radii, hp['nerf.num_samples'],
+        rays.near, rays.far, False, 'cone')
+    x = integrated_pos_enc_360(means_covs)
+    x = x.reshape(-1, x.shape[-1]).contiguous()
+    view = pos_enc(rays.viewdirs, 0, hp['nerf.deg_view'])
+    rng = np.random.default_rng(seed + 1)
+    g = [torch.tensor(rng.normal(size=(x.shape[0], c)).astype(np.float32),
+                      device=dev) for c in (3, 1)]
+    return x, view, g[0], g[1]
+
+
+def compare_real360_kernels(params, hp, dev):
+    """Phase 8a: lean_save_fwd (#3) and lean_param_grads (#4a) at the
+    real360 level (3072 rays x 128 samples, F = 42) against their plain
+    versions, f32 and bf16, at the phase-3 / phase-5 bars, on the routes
+    the rules give (the wgmma kernels of each dtype); -> results keyed
+    (name + REAL360_TAG, tag)."""
+    args = (hp['nerf.num_samples'], hp['nerf.mlp.net_depth'],
+            hp['nerf.mlp.net_depth_condition'], hp['nerf.mlp.skip_index'])
+    flat = flat_params(params, hp)
+    x, view, g_rgb, g_dens = real360_level_inputs(hp, dev)
+    M, F = x.shape
+    if F != xyz_features(hp) or flat[0].shape[0] != F:
+        raise AssertionError(f'the real360 encode has {F} features')
+    results = {}
+    report = reporter(results, hp)
+    ref = km.lean_mlp_save_plain(x, view, flat, *args, torch.float32, ACT)
+    ref_parts = fwd_parts(ref, M)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = 'f32' if dt == torch.float32 else 'bf16'
+        g_bar = F32_BAR if dt == torch.float32 else BF16_BAR
+        on = sm90_route(hp, dt), tf32_route(hp, dt), chain_route(hp, dt)
+        log(f'[real360] F = {F} {tag}: forward rules (fwd_sm90_route, '
+            f'fwd_tf32_route) {on[:2]}, chain rules (chain_sm90_route, '
+            f'chain_tf32_route) {on[2]}')
+        km.reset_launches()
+        out = km.lean_save_fwd(x, view, flat, *args, dt, ACT)
+        torch.cuda.synchronize()
+        check_routes(hp, dt, f'phase 8a lean_save_fwd real360 {tag}',
+                     lean_save_fwd=1)
+        parts = fwd_parts(out, M)
+        finite = all(bool(torch.isfinite(t).all()) for t in parts)
+        f_err, f_bar, f_ok = fwd_err(parts, ref_parts, dt)
+        report('lean_save_fwd' + REAL360_TAG, tag, finite and f_ok,
+               f'max|d| {f_err:.3e} ({f_bar}), F = {F}', f_err,
+               cuda_ms(lambda: km.lean_save_fwd(x, view, flat, *args, dt,
+                                                ACT)),
+               cuda_ms(lambda: km.lean_mlp_save_plain(x, view, flat, *args,
+                                                      dt, ACT)))
+        del out
+        saved = ref[2] if dt == torch.float32 else \
+            km.lean_mlp_save_plain(x, view, flat, *args, dt, ACT)[2]
+        km.reset_launches()
+        grads = km.lean_param_grads(view, g_rgb, g_dens, saved, flat, *args,
+                                    dt, ACT)
+        ref_grads = km.lean_param_grads_plain(view, g_rgb, g_dens, saved,
+                                              flat, *args, torch.float32,
+                                              ACT)
+        torch.cuda.synchronize()
+        check_chain_routes(hp, dt, f'phase 8a lean_param_grads real360 {tag}',
+                           lean_param_grads=1)
+        check_wgrad_routes(hp, dt, f'phase 8a lean_param_grads real360 {tag}',
+                           lean_param_grads=1)
+        shapes = all(a.shape == b.shape for a, b in zip(grads, flat))
+        finite = all(bool(torch.isfinite(t).all()) for t in grads)
+        g_abs = max(float((a - b).abs().max())
+                    for a, b in zip(grads, ref_grads))
+        g_err, g_leaf = leaf_rel_err(grads, ref_grads, leaf_names(hp))
+        report('lean_param_grads' + REAL360_TAG, tag,
+               finite and shapes and g_err <= g_bar,
+               f'max leaf rel err vs the f32 plain backward {g_err:.3e} '
+               f'({g_leaf}, <= {g_bar}); trunk_0 {tuple(grads[0].shape)}; '
+               f'max|d| {g_abs:.3e}', g_abs,
+               cuda_ms(lambda: km.lean_param_grads(
+                   view, g_rgb, g_dens, saved, flat, *args, dt, ACT)),
+               cuda_ms(lambda: km.lean_param_grads_plain(
+                   view, g_rgb, g_dens, saved, flat, *args, dt, ACT)))
+        del grads, ref_grads, saved
+    return results
+
+
+def real360_kernel_names(name, hp, dt):
+    """The device kernels that check_routes / check_chain_routes /
+    check_wgrad_routes let wrapper `name` (lean_save_fwd or
+    lean_param_grads) of hp's MLP take in dt."""
+    if name == 'lean_save_fwd':
+        return {'kernel': 'lean_fwd_sm90_kernel' if sm90_route(hp, dt)
+                else 'lean_fwd_tf32_kernel' if tf32_route(hp, dt)
+                else 'lean_fwd_kernel (mma.sync)'}
+    on = chain_route(hp, dt)
+    f32 = dt == torch.float32
+    return {'chain': 'lean_chain_sm90_kernel' if on[0]
+            else 'lean_chain_tf32_kernel' if on[1]
+            else 'lean_grad_chain_kernel (mma.sync)',
+            'wgrad': 'wgrad_sm90_kernel' if not f32
+            else 'wgrad_tf32_kernel'}
+
+
+def real360_gates(hp0, params, dev):
+    """Phase 8b: one real360 training step's gradients on
+    pallas_lean_save against the plain path on the same rays and
+    generator seed (gradient_gate), bf16 and f32, then again with
+    nerf.fuse_render (the render-fused level, #1 / #2, compositing over
+    1/t_inv): the step's launches exactly, on the routes of its dtype."""
+    rays, pixels = real360_batch(TRAIN_RAYS, dev)
+    levels = hp0['nerf.num_levels']
+    for fused in ({}, {'nerf.fuse_render': True}):
+        for dtype in ('bfloat16', 'float32'):
+            hp = dict(hp0, **{'train.compute_dtype': dtype}, **fused)
+            label = (f'phase 8b real360 {dtype} pallas_lean_save'
+                     f'{" + fuse_render" if fused else ""}')
+            km.reset_launches()
+            system = gradient_gate(hp, params, rays, pixels, dev, label)
+            counts = dict(km.launches)
+            model = system.model
+            if not model.unbounded or model._fused_render != bool(fused):
+                raise AssertionError(f'{label}: the model is not the '
+                                     'unbounded one asked for')
+            names = _SAVE + ('lean_view_proj',) + (_COMPOSITE if fused
+                                                   else ())
+            want = {n: levels for n in names}
+            log(f'[real360] {label}: launches '
+                f'{ {k: v for k, v in counts.items() if v} } (want {want})')
+            if any(counts[k] != want.get(k, 0) for k in counts):
+                raise AssertionError(f'{label}: the step launched {counts}')
+            dt = getattr(torch, dtype)
+            check_routes(hp, dt, label, lean_save_fwd=levels)
+            check_chain_routes(hp, dt, label, lean_param_grads=levels)
+            check_wgrad_routes(hp, dt, label, lean_param_grads=levels)
+            del system
+
+
+def real360_run(root):
+    """Phase 8c: make_llff_sphere_capture writes a 24-view 256 px capture
+    under `root`; cli.train on configs/real360.yaml (full width, bf16,
+    pallas_lean_save, data.factor 1) for REAL360_STEPS steps in dispatches
+    of REAL360_K with one validation, then cli.eval (--white_bkgd False,
+    the plain path); -> the training run's launch counts."""
+    t0 = time.perf_counter()
+    capture = make_llff_sphere_capture(os.path.join(root, 'capture'),
+                                       **REAL360_CAPTURE)
+    log(f'[real360] make_llff_sphere_capture {REAL360_CAPTURE}: '
+        f'{time.perf_counter() - t0:.1f} s')
+    out = os.path.join(root, 'out')
+    km.reset_launches()
+    system, state = train_cli.main([
+        '--data_path', capture, '--out_dir', out, '--dataset_name',
+        'real360', '--config', REAL360_CONFIG, '--max_steps',
+        str(REAL360_STEPS), 'exp_name', 'real360', 'data.factor', '1',
+        'train.compute_dtype', 'bfloat16', 'nerf.mlp_backend',
+        'pallas_lean_save', 'train.steps_per_call', str(REAL360_K),
+        'val.check_interval', str(REAL360_STEPS), 'val.sample_num', '1',
+        'optimizer.lr_delay_steps', '0'])
+    counts = dict(km.launches)
+    hp, stats = system.hparams, system.fit_stats
+    log(f'[real360] cli.train real360.yaml, {system.train_dataset.num_rays:,}'
+        f' training rays, {REAL360_STEPS} steps of {system.batch_size} rays, '
+        f'bf16 pallas_lean_save: loss {stats["loss_first"]:.5f} at step '
+        f'{REAL360_K} -> {stats["loss_last"]:.5f} at step {REAL360_STEPS}; '
+        f'{stats["rays_per_sec"]:,.0f} rays/s over the training time; the '
+        f'loop waited on the batcher for '
+        f'{100 * stats["data_wait_share"]:.2f} % of its '
+        f'{stats["loop_seconds"]:.2f} s; launches '
+        f'{ {k: v for k, v in counts.items() if v} }')
+    if not system.model.unbounded or system.eval_model.mlp_backend != 'xla':
+        raise AssertionError('the real360 run is not unbounded, or renders '
+                             'through a kernel backend')
+    if state['step'] != REAL360_STEPS or not (
+            np.isfinite(stats['loss_last'])
+            and stats['loss_last'] < stats['loss_first']):
+        raise AssertionError(f'the real360 loss did not fall: {stats}')
+    steps = hp['nerf.num_levels'] * REAL360_STEPS
+    want = {'lean_save_fwd': steps, 'lean_param_grads': steps,
+            'lean_view_proj': steps}
+    if any(counts[k] != want.get(k, 0) for k in counts):
+        raise AssertionError(f'the real360 run launched {counts}, expected '
+                             f'{want} and nothing else')
+    check_routes(hp, torch.bfloat16, 'phase 8c run', lean_save_fwd=steps)
+    check_chain_routes(hp, torch.bfloat16, 'phase 8c run',
+                       lean_param_grads=steps)
+    check_wgrad_routes(hp, torch.bfloat16, 'phase 8c run',
+                       lean_param_grads=steps)
+    ckpt_dir = os.path.join(out, 'ckpt', 'real360')
+    best = os.listdir(os.path.join(ckpt_dir, 'best'))
+    last = os.listdir(os.path.join(ckpt_dir, 'last'))
+    log(f'[real360] checkpoints: best {best} last {last}')
+    if best != [str(REAL360_STEPS)] or last != [str(REAL360_STEPS)]:
+        raise AssertionError('unexpected real360 checkpoints')
+    km.reset_launches()
+    t0 = time.perf_counter()
+    summary = eval_cli.main(['--ckpt', ckpt_dir, '--out_dir', out,
+                             '--scale', '1', '--white_bkgd', 'False',
+                             '--no_video', '--chunk_size', str(CHUNK)])
+    values = {}
+    for name in ('psnrs', 'ssims'):
+        with open(os.path.join(out, 'test', 'real360', f'{name}.txt')) as f:
+            values[name] = [float(v) for v in f.read().split()]
+    n_test = len(range(0, REAL360_CAPTURE['n_images'], 8))
+    log(f'[real360] cli.eval ({time.perf_counter() - t0:.1f} s, plain '
+        f'path): {values}; summary {summary}')
+    if any(km.launches.values()):
+        raise AssertionError(f'eval launched {dict(km.launches)}')
+    if (any(len(v) != n_test or not np.all(np.isfinite(v))
+            for v in values.values())
+            or not all(np.isfinite(float(v)) for v in summary.split(' | '))):
+        raise AssertionError('the real360 eval wrote no finite metrics')
+    return counts
+
+
+def quality_run(smi):
+    """Phase 8d: tools.quality_smoke for QUALITY_STEPS steps in bf16 on
+    pallas_lean_save: val PSNR >= QUALITY_MIN_PSNR, lean_save_fwd and
+    lean_param_grads 2 a step."""
+    km.reset_launches()
+    argv = ['--steps', str(QUALITY_STEPS), '--backend', 'pallas_lean_save',
+            '--dtype', 'bfloat16', '--min_psnr', str(QUALITY_MIN_PSNR)]
+    try:
+        result = quality_smoke.main(argv)
+    except SystemExit as e:
+        raise AssertionError(f'quality_smoke {" ".join(argv)} exited '
+                             f'{e.code}: below {QUALITY_MIN_PSNR} dB')
+    counts = dict(km.launches)
+    log(f'[quality] quality_smoke {" ".join(argv)}: val PSNR '
+        f'{result["val_psnr"]:.4f} dB, wall {result["wall"]:.1f} s, '
+        f'{result["rays_per_sec"]:,.0f} rays/s ({smi}); launches '
+        f'{ {k: v for k, v in counts.items() if v} }')
+    want = 2 * QUALITY_STEPS
+    if counts['lean_save_fwd'] != want or counts['lean_param_grads'] != want:
+        raise AssertionError(f'quality_smoke launched {counts}')
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this run needs an NVIDIA GPU',
@@ -2834,6 +3158,19 @@ def main() -> int:
         ckpt_dir, new_paths = multiscale_run(hp, dev, root)
         new_paths['orbit_video'] = orbit_video(hp, ckpt_dir, root)
     new_paths.update(benches(hp))
+
+    # Phases 8a-8d: the unbounded-360 path at full width, and the quality
+    # smoke.
+    t_new = time.perf_counter()
+    hp_360 = real360_hparams()
+    params_360 = jax_params_to_torch(
+        flax_tree(MipNeRFSystem(hp_360, device=dev), seed=0), device=dev)
+    results.update(compare_real360_kernels(params_360, hp_360, dev))
+    real360_gates(hp_360, params_360, dev)
+    with tempfile.TemporaryDirectory() as root:
+        real360_counts = real360_run(root)
+    quality_run(smi)
+    log(f'[real360] phases 8a-8d: {time.perf_counter() - t_new:.1f} s')
     if '--measure' in sys.argv[1:]:
         measure(hp, params, dev)
 
@@ -2946,6 +3283,23 @@ def main() -> int:
                 kernel=name + '_kernel', source=source,
                 shape=list(TP_MMA_SHAPE),
                 launches=2 * (1 if name == 'tp_pair_fwd' else 2))
+        # #3 / #4a at the real360 level (F = 42, phase 8a), with their
+        # launches in phase 8c's run and the kernels each dtype took.
+        if (name + REAL360_TAG, 'f32') in results:
+            entry = {'shape': [TRAIN_RAYS, hp_360['nerf.num_samples'],
+                               xyz_features(hp_360)],
+                     'launches': real360_counts[name]}
+            for dt, tag in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
+                rn = results[(name + REAL360_TAG, tag)]
+                part = {k: rn[k] for k in ('err', 'ms', 'plain_ms', 'bound_ms',
+                                           'bound_by', 'library_ms')}
+                part['share'] = rn['bound_ms'] / rn['ms']
+                part.update(real360_kernel_names(name, hp_360, dt))
+                if dt == torch.float32:
+                    entry.update(part)
+                else:
+                    entry['bf16'] = part
+            kernels[-1]['real360'] = entry
         if 'wgrad' in r:
             kernels[-1]['wgrad_ms'] = r['wgrad']
         if 'mm_ms' in r:

@@ -1,26 +1,27 @@
 """Datasets: host-side numpy image loading and ray generation.
 
 Counterpart of mipnerf_pl_tpu/data/datasets.py for the single-scale Blender
-(NeRF-synthetic) layout (`blender`) and the multi-scale layout that
-data/convert.py writes (`multi_blender`).  Rays are computed once into
-numpy arrays; training batches are gathered on the host by `sample_batch`,
-with replacement, from a seeded numpy Generator (the same `rng.integers`
-draw as the JAX package, so one seed gives both the same batches), and
-shipped to the device by data/pipeline.py.  PIL and cv2 are imported inside the
-functions that read files.
-
-The LLFF dataset (`real360`) is not ported yet: its name is registered and
-raises NotImplementedError.
+(NeRF-synthetic) layout (`blender`), the multi-scale layout that
+data/convert.py writes (`multi_blender`) and LLFF / COLMAP real captures
+(`real360`: poses_bounds.npy, sparse/0/cameras.bin, images_<factor>/).
+Rays are computed once into numpy arrays; training batches are gathered on
+the host by `sample_batch`, with replacement, from a seeded numpy
+Generator (the same `rng.integers` draw as the JAX package, so one seed
+gives both the same batches), and shipped to the device by
+data/pipeline.py.  PIL and cv2 are imported inside the functions that read
+files.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import struct
 from typing import List, Optional
 
 import numpy as np
 
+from mipnerf_pl_tpu_torch.data.poses import recenter_poses, spherify_poses
 from mipnerf_pl_tpu_torch.rays import Rays, namedtuple_map
 
 
@@ -264,16 +265,140 @@ class Blender(BaseDataset):
         ), (self.h, self.w)
 
 
-def _not_ported(name: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(
-            f'dataset {name!r} is not ported yet (ROADMAP.md, the port\'s '
-            'queue 1); use "blender" or "multi_blender"')
-    return build
+class RealData360(BaseDataset):
+    """LLFF-style real captures: poses_bounds.npy, the intrinsics of
+    sparse/0/cameras.bin (COLMAP binary) and the images of
+    images_<factor>/.  Every 8th view is the test (and val) split, the
+    rest train; the poses are recentred and spherified, and each view's
+    rays take their near / far from its bounds."""
+
+    def __init__(self, data_dir, split='train', white_bkgd=True,
+                 batch_type='all_images', factor=4):
+        super().__init__(data_dir, split, white_bkgd, batch_type, factor)
+        self._init_split()
+
+    def _load_renderings(self):
+        suffix = f'_{self.factor}' if self.factor > 0 else ''
+        imgdir = os.path.join(self.data_dir, 'images' + suffix)
+        if not os.path.exists(imgdir):
+            raise ValueError(f'Image folder {imgdir} does not exist.')
+        imgfiles = [os.path.join(imgdir, f)
+                    for f in sorted(os.listdir(imgdir))
+                    if f.lower().endswith(('.jpg', '.png'))]
+        images = np.stack([_load_image(f) for f in imgfiles], axis=-1)
+
+        with open(os.path.join(self.data_dir, 'poses_bounds.npy'),
+                  'rb') as fp:
+            poses_arr = np.load(fp)
+        poses = poses_arr[:, :-2].reshape([-1, 3, 5]).transpose([1, 2, 0])
+        bds = poses_arr[:, -2:].transpose([1, 0])
+        if poses.shape[-1] != images.shape[-1]:
+            raise RuntimeError(
+                f'{images.shape[-1]} images vs {poses.shape[-1]} poses')
+
+        poses[:2, 4, :] = np.array(images.shape[:2]).reshape([2, 1])
+        poses[2, 4, :] = poses[2, 4, :] / max(self.factor, 1)
+        # LLFF's [down, right, back] axes -> [right, up, back].
+        poses = np.concatenate(
+            [poses[:, 1:2, :], -poses[:, 0:1, :], poses[:, 2:, :]], 1)
+        poses = np.moveaxis(poses, -1, 0).astype(np.float32)
+        images = np.moveaxis(images, -1, 0)
+        bds = np.moveaxis(bds, -1, 0).astype(np.float32)
+
+        poses = recenter_poses(poses)
+        poses = spherify_poses(poses)
+        i_test = np.arange(images.shape[0])[::8]
+        indices = (np.array([i for i in range(images.shape[0])
+                             if i not in i_test])
+                   if self.split == 'train' else i_test)
+        self.images = list(images[indices])
+        poses = poses[indices]
+        self.bds = bds[indices]
+        self._read_camera()
+        self.K[:2, :] /= max(self.factor, 1)
+        self.K_inv = np.linalg.inv(self.K)
+        self.K_inv[1:, :] *= -1
+        self.camtoworlds = poses[:, :3, :4]
+        self.h, self.w = self.images[0].shape[:2]
+        self.n_examples = len(self.images)
+
+    # COLMAP model id -> (name, number of parameters).
+    _COLMAP_MODELS = {
+        0: ('SIMPLE_PINHOLE', 3),   # f, cx, cy
+        1: ('PINHOLE', 4),          # fx, fy, cx, cy
+        2: ('SIMPLE_RADIAL', 4),    # f, cx, cy, k
+        3: ('RADIAL', 5),           # f, cx, cy, k1, k2
+        4: ('OPENCV', 8),           # fx, fy, cx, cy, k1, k2, p1, p2
+    }
+
+    def _read_camera(self):
+        """K of the first camera of cameras.bin: the camera count (u64),
+        then (camera_id i32, model_id i32, width u64, height u64) and the
+        model's f64 parameters.  Distortion is ignored with a warning; an
+        unknown model raises."""
+        with open(os.path.join(self.data_dir, 'sparse', '0', 'cameras.bin'),
+                  'rb') as fid:
+            struct.unpack('<Q', fid.read(8))
+            _, model_id, _, _ = struct.unpack('<iiQQ', fid.read(24))
+            if model_id not in self._COLMAP_MODELS:
+                raise ValueError(f'unsupported COLMAP camera model id '
+                                 f'{model_id}')
+            name, n_params = self._COLMAP_MODELS[model_id]
+            params = struct.unpack('<' + 'd' * n_params,
+                                   fid.read(8 * n_params))
+            if name in ('SIMPLE_PINHOLE', 'SIMPLE_RADIAL', 'RADIAL'):
+                fx = fy = params[0]
+                cx, cy = params[1], params[2]
+                distortion = params[3:]
+            else:  # PINHOLE / OPENCV
+                fx, fy, cx, cy = params[:4]
+                distortion = params[4:]
+            if any(abs(d) > 1e-12 for d in distortion):
+                import warnings
+                warnings.warn(
+                    f'COLMAP {name} distortion {distortion} ignored: '
+                    'undistort the images first for accurate rays')
+            self.K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])
+
+    def _generate_rays(self):
+        x, y = np.meshgrid(np.arange(self.w, dtype=np.float32) + 0.5,
+                           np.arange(self.h, dtype=np.float32) + 0.5,
+                           indexing='xy')
+        pixel_dirs = np.stack([x, y, np.ones_like(x)], axis=-1)
+        camera_dirs = pixel_dirs @ self.K_inv.T.astype(np.float32)
+        directions = [(camera_dirs @ c2w[:3, :3].T).copy()
+                      for c2w in self.camtoworlds]
+        origins = [np.broadcast_to(c2w[:3, -1], v.shape).copy()
+                   for v, c2w in zip(directions, self.camtoworlds)]
+        viewdirs = [v / np.linalg.norm(v, axis=-1, keepdims=True)
+                    for v in directions]
+
+        def per_image_scalar(vals):
+            return [np.full_like(origins[i][..., :1], vals[i])
+                    for i in range(len(self.images))]
+
+        self.rays = Rays(
+            origins=origins,
+            directions=directions,
+            viewdirs=viewdirs,
+            radii=[pixel_radii(v) for v in directions],
+            lossmult=[np.ones_like(o[..., :1]) for o in origins],
+            near=per_image_scalar(self.bds[:, 0]),
+            far=per_image_scalar(self.bds[:, 1]))
+
+    def camera(self, index):
+        from mipnerf_pl_tpu_torch.ops.camera import Camera, fold_pixel_center
+        return Camera(
+            c2w=np.asarray(self.camtoworlds[index][:3, :4], np.float32),
+            pix2cam=fold_pixel_center(self.K_inv.astype(np.float32)),
+            near=np.float32(self.bds[index, 0]),
+            far=np.float32(self.bds[index, 1]),
+            lossmult=np.float32(1.0),
+        ), (self.h, self.w)
 
 
 dataset_dict = {
     'blender': Blender,
     'multi_blender': Multicam,
-    'real360': _not_ported('real360'),
+    'real360': RealData360,
 }

@@ -13,7 +13,10 @@ Two scenes:
     the integrated positional encoding exists for.  Ground-truth images are
     supersampled (box downsample) so the targets are anti-aliased.
 
-The LLFF-style capture writer waits for the real360 dataset.
+`make_sphere_scene` writes the Blender transforms_{split}.json layout;
+`make_llff_sphere_capture` writes an LLFF / COLMAP capture of the same
+scene (images_1/, poses_bounds.npy, sparse/0/cameras.bin), the input of
+the `real360` dataset and of the unbounded-360 path.
 """
 
 from __future__ import annotations
@@ -155,6 +158,50 @@ def render_hard_view(c2w: np.ndarray, size: int, supersample: int = 2,
             [np.where(a > 1e-8, rgba[..., :3] / np.maximum(a, 1e-8), 0.0), a],
             axis=-1)
     return rgba.astype(np.float32)
+
+
+def make_llff_sphere_capture(root: str, n_images: int = 16, size: int = 64,
+                             radius: float = 4.0,
+                             scene: str = 'hard') -> str:
+    """Write an LLFF / COLMAP capture of the analytic scene from orbit
+    cameras: images_1/ (on black: real360 configs composite on no white
+    background), poses_bounds.npy and sparse/0/cameras.bin (one PINHOLE
+    camera).  The LLFF pose rows store [down, right, back] axes: the
+    inverse of the loader's axis fix is applied, so that loading lands on
+    the render cameras."""
+    import struct
+
+    from PIL import Image
+
+    from mipnerf_pl_tpu_torch.utils.vis import create_spheric_poses
+
+    os.makedirs(os.path.join(root, 'images_1'), exist_ok=True)
+    focal = 0.5 * size / np.tan(0.5 * CAMERA_ANGLE_X)
+    poses = create_spheric_poses(radius, n_poses=n_images)
+    rows = []
+    for i, p in enumerate(poses):
+        c2w = np.eye(4)
+        c2w[:3, :4] = p
+        if scene == 'hard':
+            rgba = render_hard_view(c2w, size, supersample=2)
+        else:
+            rgba = render_sphere_view(c2w, size)
+        rgb = rgba[..., :3] * rgba[..., 3:]
+        Image.fromarray((rgb * 255).astype(np.uint8)).save(
+            os.path.join(root, 'images_1', f'{i:03d}.png'))
+        hwf = np.array([size, size, focal]).reshape(3, 1)
+        m = np.concatenate([p, hwf], axis=1)               # [3, 5]
+        llff = np.concatenate([-m[:, 1:2], m[:, 0:1], m[:, 2:]], axis=1)
+        rows.append(np.concatenate([llff.reshape(-1),
+                                    [radius - 1.5, radius + 1.5]]))
+    np.save(os.path.join(root, 'poses_bounds.npy'), np.stack(rows))
+
+    os.makedirs(os.path.join(root, 'sparse', '0'), exist_ok=True)
+    with open(os.path.join(root, 'sparse', '0', 'cameras.bin'), 'wb') as f:
+        f.write(struct.pack('<Q', 1))
+        f.write(struct.pack('<iiQQ', 1, 1, size, size))    # PINHOLE
+        f.write(struct.pack('<dddd', focal, focal, size / 2, size / 2))
+    return root
 
 
 def make_sphere_scene(root: str, n_train: int = 24, n_val: int = 2,

@@ -1,9 +1,14 @@
 """MipNerf: coarse-to-fine cone-cast rendering with one shared MLP.
 
-Counterpart of mipnerf_pl_tpu/models/mipnerf.py, bounded scenes.  Level 0
-samples stratified, level >= 1 resamples from the previous level's weights;
-each level encodes its cone Gaussians with the IPE, runs the MLP and
-composites.
+Counterpart of mipnerf_pl_tpu/models/mipnerf.py.  Level 0 samples
+stratified, level >= 1 resamples from the previous level's weights; each
+level encodes its cone Gaussians with the IPE, runs the MLP and composites.
+With `unbounded` (mip-NeRF 360 scenes) the levels sample in inverse depth
+t_inv, encode full-covariance Gaussians contracted into a ball with the
+42-feature icosahedral IPE (`integrated_pos_enc_360`), and composite over
+t = 1/t_inv; LevelOutput.t_samples then holds t_inv (descending).  The
+kernel encodes and `ipe_backend` do not apply there, as in JAX; render
+fusion does, over 1/t_inv.
 
 Training with a lean backend ('pallas_lean', 'pallas_lean_save',
 'pallas_hybrid') runs `fused_mlp_lean`; it applies the head activations
@@ -43,8 +48,7 @@ turns the two kernel encodes above off, as in JAX, and computes the cosine
 half as the cosine where the default 'xla' encode takes sin(y + pi/2).
 
 Knobs that steer TPU-only machinery (`channel_major`, `lean_input_cast`,
-`mxu_cumsum`) are accepted and have no effect.  The unbounded-360 mode is
-not ported yet.
+`mxu_cumsum`) are accepted and have no effect.
 """
 
 from __future__ import annotations
@@ -59,11 +63,14 @@ from mipnerf_pl_tpu_torch.kernels.mlp import ipe_moments
 from mipnerf_pl_tpu_torch.models.mlp import (LEAN_BACKENDS, MLP,
                                              RENDER_BACKENDS)
 from mipnerf_pl_tpu_torch.ops.math import (cast_rays_cmajor,
-                                           integrated_pos_enc, pos_enc)
+                                           integrated_pos_enc,
+                                           integrated_pos_enc_360, pos_enc)
 from mipnerf_pl_tpu_torch.ops.render import (clamp_distance, delta_mids,
                                              volumetric_rendering)
 from mipnerf_pl_tpu_torch.ops.sampling import (resample_along_rays,
-                                               sample_along_rays)
+                                               resample_along_rays_360,
+                                               sample_along_rays,
+                                               sample_along_rays_360)
 from mipnerf_pl_tpu_torch.rays import Rays
 
 
@@ -74,7 +81,7 @@ class LevelOutput(NamedTuple):
     distance: torch.Tensor   # [B] expected termination distance
     acc: torch.Tensor        # [B] accumulated opacity
     weights: torch.Tensor    # [B, N] per-sample compositing weights
-    t_samples: torch.Tensor  # [B, N+1] fencepost distances
+    t_samples: torch.Tensor  # [B, N+1] fencepost distances (unbounded: t_inv)
 
 
 class MipNerf(nn.Module):
@@ -107,8 +114,6 @@ class MipNerf(nn.Module):
             'channel_major', 'lean_input_cast', 'mxu_cumsum'}
         if unknown:
             raise TypeError(f'unknown MipNerf options: {sorted(unknown)}')
-        if unbounded:
-            raise NotImplementedError('unbounded-360 mode is not ported yet')
         if ipe_backend not in ('xla', 'pallas'):
             raise ValueError(f'ipe_backend must be "xla" or "pallas", got '
                              f'{ipe_backend!r}')
@@ -144,6 +149,7 @@ class MipNerf(nn.Module):
         self.append_identity = append_identity
         self.ipe_backend = ipe_backend
         self.mlp_backend = mlp_backend
+        self.unbounded = unbounded
         # The lean kernels apply the default head activations themselves;
         # density noise sits between raw head and activation, so fusion
         # needs it off (the same gate as the JAX model).
@@ -170,7 +176,8 @@ class MipNerf(nn.Module):
                                   and ipe_backend == 'xla')
         self._pallas_encode = (pallas_encode and self._fast_encode_math
                                and not self._fused_encode)
-        xyz_dim = 2 * (max_deg_point - min_deg_point) * 3
+        # The icosahedral encode: 21 sines and 21 cosines.
+        xyz_dim = 42 if unbounded else 2 * (max_deg_point - min_deg_point) * 3
         view_dim = (2 * deg_view + int(append_identity)) * 3 \
             if use_viewdirs else 0
         self.mlp = MLP(
@@ -210,7 +217,18 @@ class MipNerf(nn.Module):
         ret = []
         t_samples, weights = None, None
         for i_level in range(self.num_levels):
-            if i_level == 0:
+            if self.unbounded and i_level == 0:
+                t_samples, means_covs = sample_along_rays_360(
+                    rays.origins, rays.directions, rays.radii,
+                    self.num_samples, rays.near, rays.far, randomized,
+                    self.ray_shape, generator=generator)
+            elif self.unbounded:
+                t_samples, means_covs = resample_along_rays_360(
+                    rays.origins, rays.directions, rays.radii, t_samples,
+                    weights, randomized, self.ray_shape,
+                    self.stop_resample_grad, self.resample_padding,
+                    generator=generator)
+            elif i_level == 0:
                 t_samples, means_covs = sample_along_rays(
                     rays.origins, rays.directions, rays.radii,
                     self.num_samples, rays.near, rays.far, randomized,
@@ -238,18 +256,23 @@ class MipNerf(nn.Module):
                 means, covs = means_covs
                 if self.disable_integration:
                     covs = torch.zeros_like(covs)
-                if self.ipe_backend == 'pallas':
+                if self.unbounded:
+                    samples_enc = integrated_pos_enc_360((means, covs))
+                elif self.ipe_backend == 'pallas':
                     samples_enc = fused_ipe(means, covs, *degrees)
                 else:
                     samples_enc = integrated_pos_enc((means, covs), *degrees)
 
+            # Unbounded: t_samples holds t_inv; composite over the world
+            # distances 1/t_inv (ascending).
+            t_render = 1.0 / t_samples if self.unbounded else t_samples
             if self._fused_render:
-                delta, mids = delta_mids(t_samples, rays.directions)
+                delta, mids = delta_mids(t_render, rays.directions)
                 comp_rgb, dist_raw, acc, weights = self.mlp(
                     samples_enc, viewdirs_enc, (delta, mids, white_bkgd),
                     encode)
                 ret.append(LevelOutput(comp_rgb,
-                                       clamp_distance(dist_raw, t_samples),
+                                       clamp_distance(dist_raw, t_render),
                                        acc, weights, t_samples))
                 continue
 
@@ -269,7 +292,7 @@ class MipNerf(nn.Module):
                 rgb = rgb * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
                 density = self._density_act(raw_density + self.density_bias)
             comp_rgb, distance, acc, weights = volumetric_rendering(
-                rgb, density, t_samples, rays.directions, white_bkgd)
+                rgb, density, t_render, rays.directions, white_bkgd)
             ret.append(LevelOutput(comp_rgb, distance, acc, weights,
                                    t_samples))
         return tuple(ret)

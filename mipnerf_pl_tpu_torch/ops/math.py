@@ -1,10 +1,11 @@
 """Cone-casting math and positional encodings.
 
-Counterpart of mipnerf_pl_tpu/ops/math.py (the bounded, diagonal-covariance
-path and the full-covariance lift).  Same formulas in the same operation
-order, so f32 results agree with the JAX functions to rounding.  The encode
-uses exact libm exp/sin: the JAX package's polynomial `fast_exp`/`fast_sin`
-were a TPU throughput choice.
+Counterpart of mipnerf_pl_tpu/ops/math.py: the bounded, diagonal-covariance
+path, the full-covariance lift, and the unbounded-360 pieces (`contract`,
+`track_linearize`, `integrated_pos_enc_360`).  Same formulas in the same
+operation order, so f32 results agree with the JAX functions to rounding.
+The encode uses exact libm exp/sin: the JAX package's polynomial
+`fast_exp`/`fast_sin` were a TPU throughput choice.
 """
 
 from __future__ import annotations
@@ -145,3 +146,100 @@ def pos_enc(x, min_deg: int, max_deg: int, append_identity: bool = True):
     if append_identity:
         return torch.cat([x, four_feat], dim=-1)
     return four_feat
+
+
+# ---------------------------------------------------------------------------
+# Unbounded-360: scene contraction and the icosahedral IPE.  The 3 x 3 and
+# 3 x 21 products are written as sums of elementwise products, so they stay
+# in full f32 on a card whatever the matmul precision setting (TF32 would
+# cost ~1e-3 here).
+# ---------------------------------------------------------------------------
+
+# mip-NeRF 360's icosahedron-derived basis: 21 directions, used as columns.
+_ICOSA_P = np.array(
+    [[0.8506508, 0.0, 0.5257311],
+     [0.809017, 0.5, 0.309017],
+     [0.5257311, 0.8506508, 0.0],
+     [1.0, 0.0, 0.0],
+     [0.809017, 0.5, -0.309017],
+     [0.8506508, 0.0, -0.5257311],
+     [0.309017, 0.809017, -0.5],
+     [0.0, 0.5257311, -0.8506508],
+     [0.5, 0.309017, -0.809017],
+     [0.0, 1.0, 0.0],
+     [-0.5257311, 0.8506508, 0.0],
+     [-0.309017, 0.809017, -0.5],
+     [0.0, 0.5257311, 0.8506508],
+     [-0.309017, 0.809017, 0.5],
+     [0.309017, 0.809017, 0.5],
+     [0.5, 0.309017, 0.809017],
+     [0.5, -0.309017, 0.809017],
+     [0.0, 0.0, 1.0],
+     [-0.5, 0.309017, 0.809017],
+     [-0.809017, 0.5, 0.309017],
+     [-0.809017, 0.5, -0.309017]], dtype=np.float32).T  # [3, 21]
+
+
+def _norm(x):
+    """||x|| over the last axis, floored at 1e-10, keepdim."""
+    return torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=1e-10)
+
+
+def contract(x):
+    """Scene contraction of mip-NeRF 360: R^3 into the ball of radius 2,
+    (2 - 1/||x||) x / ||x||, the norm floored at 1e-10."""
+    norm = _norm(x)
+    return (2.0 - 1.0 / norm) * x / norm
+
+
+def _contract_jacobian(x):
+    """d contract / dx [M, 3, 3] at x [M, 3]: with n = ||x|| and u = x / n,
+    (2 - 1/n) / n I + (1/n^2 - (2 - 1/n) / n) u u^T."""
+    n = _norm(x)
+    u = x / n
+    g = (2.0 - 1.0 / n) / n                                   # [M, 1]
+    outer = u[:, :, None] * u[:, None, :]
+    eye = torch.eye(3, dtype=x.dtype, device=x.device)
+    return g[:, :, None] * eye + (1.0 / (n * n) - g)[:, :, None] * outer
+
+
+def _mm3(a, b):
+    """a [M, i, 3] @ b [M, 3, k] as three elementwise products."""
+    return (a[..., :, 0:1] * b[..., 0:1, :] + a[..., :, 1:2] * b[..., 1:2, :]
+            + a[..., :, 2:3] * b[..., 2:3, :])
+
+
+def track_linearize(means, covs):
+    """Push Gaussians through `contract` by its Jacobian J where ||mean|| >
+    1 (mean -> contract(mean), cov -> J cov J^T), unchanged elsewhere.
+    means [..., 3], covs [..., 3] (diagonal) or [..., 3, 3] ->
+    (means [..., 3], covs [..., 3, 3])."""
+    shape = means.shape
+    x = means.reshape(-1, 3)
+    if covs.shape == shape:
+        cov = torch.diag_embed(covs.reshape(-1, 3))
+    else:
+        cov = covs.reshape(-1, 3, 3)
+    jac = _contract_jacobian(x)
+    contracted = _mm3(_mm3(jac, cov), jac.transpose(-1, -2))
+    mask = torch.linalg.norm(x, dim=-1, keepdim=True) > 1.0
+    new_means = torch.where(mask, contract(x), x)
+    new_covs = torch.where(mask[..., None], contracted, cov)
+    return new_means.reshape(shape), new_covs.reshape(*shape, 3)
+
+
+def integrated_pos_enc_360(means_covs):
+    """Icosahedral IPE of contracted Gaussians: (means [..., N, 3], covs
+    [..., N, 3] or [..., N, 3, 3]) -> [..., N, 42], the 21 damped sines
+    then the 21 cosines (as sin(y + pi/2))."""
+    means, covs = means_covs
+    means, x_cov = track_linearize(means, covs)
+    P = torch.as_tensor(_ICOSA_P, dtype=means.dtype, device=means.device)
+    y = (means[..., 0:1] * P[0] + means[..., 1:2] * P[1]
+         + means[..., 2:3] * P[2])                             # [..., N, 21]
+    cov_p = _mm3(x_cov, P)                                     # [..., 3, 21]
+    y_var = cov_p[..., 0, :] * P[0] + cov_p[..., 1, :] * P[1] \
+        + cov_p[..., 2, :] * P[2]
+    scale = torch.exp(-0.5 * y_var)
+    return torch.cat([scale * torch.sin(y),
+                      scale * torch.sin(y + 0.5 * np.pi)], dim=-1)

@@ -1,6 +1,8 @@
 """Stratified sampling and inverse-CDF hierarchical resampling.
 
-Counterpart of mipnerf_pl_tpu/ops/sampling.py (bounded mode).  The interval
+Counterpart of mipnerf_pl_tpu/ops/sampling.py, bounded and unbounded-360
+(inverse-depth samples t_inv, descending, with full-covariance Gaussians at
+t = 1/t_inv).  The interval
 search is `torch.searchsorted` + `gather`; the JAX package's comparison-mask
 reductions were a TPU choice and select the same bin endpoints.  The eps
 padding of degenerate weights, the [0, 1-eps] deterministic u grid and the
@@ -39,18 +41,43 @@ def sample_along_rays(origins, directions, radii, num_samples: int, near,
         t_samples = 1.0 / (1.0 / near * (1.0 - t) + 1.0 / far * t)
     else:
         t_samples = near + (far - near) * t                     # [B, N+1]
-    if randomized:
-        mids = 0.5 * (t_samples[..., 1:] + t_samples[..., :-1])
-        upper = torch.cat([mids, t_samples[..., -1:]], dim=-1)
-        lower = torch.cat([t_samples[..., :1], mids], dim=-1)
-        if t_rand is None:
-            t_rand = torch.rand((batch_size, num_samples + 1), dtype=dtype,
-                                device=device, generator=generator)
-        t_samples = lower + (upper - lower) * t_rand
-    else:
-        t_samples = t_samples.expand(batch_size, num_samples + 1)
+    t_samples = _stratify(t_samples, batch_size, randomized, generator,
+                          t_rand)
     means, covs = cast_rays(t_samples, origins, directions, radii, ray_shape)
     return t_samples, (means, covs)
+
+
+def _stratify(t, batch_size: int, randomized: bool,
+              generator: Optional[torch.Generator],
+              t_rand: Optional[torch.Tensor]):
+    """Fenceposts t [.., N+1] -> [B, N+1]: each jittered uniformly within
+    the interval between its neighbours' midpoints when `randomized`
+    (`t_rand`, else the generator's draw), else broadcast."""
+    if not randomized:
+        return t.expand(batch_size, t.shape[-1])
+    mids = 0.5 * (t[..., 1:] + t[..., :-1])
+    upper = torch.cat([mids, t[..., -1:]], dim=-1)
+    lower = torch.cat([t[..., :1], mids], dim=-1)
+    if t_rand is None:
+        t_rand = torch.rand((batch_size, t.shape[-1]), dtype=t.dtype,
+                            device=t.device, generator=generator)
+    return lower + (upper - lower) * t_rand
+
+
+def sample_along_rays_360(origins, directions, radii, num_samples: int, near,
+                          far, randomized: bool, ray_shape: str,
+                          generator: Optional[torch.Generator] = None,
+                          t_rand: Optional[torch.Tensor] = None):
+    """Inverse-depth samples for unbounded scenes -> (t_inv [B, N+1],
+    descending from 1/near to 1/far, (means [B, N, 3], covs [B, N, 3, 3]))
+    of the segments of t = 1/t_inv.  `t_rand` as in sample_along_rays."""
+    dtype, device = origins.dtype, origins.device
+    t = torch.linspace(0.0, 1.0, num_samples + 1, dtype=dtype, device=device)
+    t_inv = _stratify((1.0 / far) * t + (1.0 - t) * (1.0 / near),
+                      origins.shape[0], randomized, generator, t_rand)
+    means, covs = cast_rays(1.0 / t_inv, origins, directions, radii,
+                            ray_shape, diagonal=False)
+    return t_inv, (means, covs)
 
 
 def sorted_piecewise_constant_pdf(bins, weights, num_samples: int,
@@ -132,3 +159,26 @@ def resample_along_rays(origins, directions, radii, t_samples, weights,
     means, covs = cast_rays(new_t_samples, origins, directions, radii,
                             ray_shape)
     return new_t_samples, (means, covs)
+
+
+def resample_along_rays_360(origins, directions, radii, t_inv, weights,
+                            randomized: bool, ray_shape: str,
+                            stop_grad: bool, resample_padding: float,
+                            generator: Optional[torch.Generator] = None,
+                            u_rand: Optional[torch.Tensor] = None):
+    """Hierarchical resampling in inverse depth: the blurpooled weights'
+    PDF over the descending t_inv bins is sampled in flipped (ascending)
+    order, before the search, and the draws are flipped back.  `u_rand`
+    is the jitter in the flipped order.
+
+    Returns (new_t_inv [B, N+1] descending, (means, covs [..., 3, 3]))."""
+    weights_blur = _blurpool(weights, resample_padding)
+    new_asc = sorted_piecewise_constant_pdf(
+        torch.flip(t_inv, dims=(-1,)), torch.flip(weights_blur, dims=(-1,)),
+        t_inv.shape[-1], randomized, generator=generator, u_rand=u_rand)
+    new_t_inv = torch.flip(new_asc, dims=(-1,))
+    if stop_grad:
+        new_t_inv = new_t_inv.detach()
+    means, covs = cast_rays(1.0 / new_t_inv, origins, directions, radii,
+                            ray_shape, diagonal=False)
+    return new_t_inv, (means, covs)

@@ -51,9 +51,14 @@ heads' dots, 32 the IPE decode, 64 the A operand's split alone.
 With --chain it times the f32 cotangent chain lean_chain_tf32_kernel of
 lean_param_grads at the lego level, on the stream of f32 lean_save_fwd:
 the bits 2 and 64 as with --tf32 (the products' helper is shared), and in
-lean_chain_tf32.cuh 1 the weight slabs' TMA loads, 4 the epilogue (the
-density term and the store into the tile), 8 the copy pass (the mask, and
-the copies to G and g1f), 16 the bias column sums, 32 the mask alone.
+lean_chain_tf32.cuh 1 the weight slabs' TMA loads, 4 the epilogue of each
+product step (a layer's: the density term and the store into the tile; the
+classic form's input cotangents: their stores), 8 the copy pass (the mask,
+and the copies to G and g1f), 16 the bias column sums, 32 the mask alone.
+
+`masked_sources` raises if a switch's text is not found exactly once in
+today's headers; tests/test_torch_split_tool.py applies every mode's
+switches on the CPU, so a header change that moves a pattern shows there.
 
 With --wgrad it times the f32 weight-gradient kernel wgrad_tf32_kernel of
 lean_param_grads at the lego level, on the stream of f32 lean_save_fwd, in
@@ -82,25 +87,39 @@ from mipnerf_pl_tpu_torch.kernels import mlp as km  # noqa: E402
 from mipnerf_pl_tpu_torch.system import MipNeRFSystem  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
-VARIANTS = {0: 'all on', 1: 'weight loads off', 2: 'products off',
-            4: 'epilogue + store off', 8: 'copy_tile_out off',
-            16: 'heads off', 32: 'IPE decode off', 6: 'products + epilogue off'}
-CHAIN = '--chain' in sys.argv[1:]
-WGRAD = '--wgrad' in sys.argv[1:]
-LIBS = ('lean_train',) if WGRAD else ('lean_render', 'lean_train')
-F32 = CHAIN or WGRAD or any(a in sys.argv[1:] for a in ('--f32', '--tf32'))
-TF32 = '--tf32' in sys.argv[1:] or CHAIN
-if F32:
-    VARIANTS[64] = 'operand split off'
-if CHAIN:
-    VARIANTS = {0: 'all on', 1: 'weight loads off', 2: 'products off',
-                4: 'epilogue off', 8: 'copy pass off', 16: 'bias sums off',
-                32: 'mask reads off', 64: 'operand split off',
-                24: 'copy pass + bias sums off'}
 # --tune: (ring stages, slabs the first warpgroup starts ahead) of
 # lean_fwd_sm90_kernel, all parts on.
 TUNES = [(7, 1), (7, 2), (7, 3), (7, 5), (6, 1), (6, 3)]
-TUNE = '--tune' in sys.argv[1:]
+
+
+def configure(argv):
+    """Set the mode globals (CHAIN, WGRAD, TUNE, SM90, F32, TF32, LIBS,
+    VARIANTS, ONLY) from the command-line arguments `argv`."""
+    global CHAIN, WGRAD, TUNE, SM90, F32, TF32, LIBS, VARIANTS, ONLY
+    CHAIN = '--chain' in argv
+    WGRAD = '--wgrad' in argv
+    TUNE = '--tune' in argv
+    SM90 = '--sm90' in argv or TUNE
+    LIBS = ('lean_train',) if WGRAD else ('lean_render', 'lean_train')
+    F32 = CHAIN or WGRAD or any(a in argv for a in ('--f32', '--tf32'))
+    TF32 = '--tf32' in argv or CHAIN
+    VARIANTS = {0: 'all on', 1: 'weight loads off', 2: 'products off',
+                4: 'epilogue + store off', 8: 'copy_tile_out off',
+                16: 'heads off', 32: 'IPE decode off',
+                6: 'products + epilogue off'}
+    if F32:
+        VARIANTS[64] = 'operand split off'
+    if CHAIN:
+        VARIANTS = {0: 'all on', 1: 'weight loads off', 2: 'products off',
+                    4: 'epilogue off', 8: 'copy pass off',
+                    16: 'bias sums off', 32: 'mask reads off',
+                    64: 'operand split off', 24: 'copy pass + bias sums off'}
+    ONLY = next((a.split('=', 1)[1] for a in argv
+                 if a.startswith('--only=')), None)
+    if ONLY is not None:
+        VARIANTS = {int(v): VARIANTS[int(v)] for v in ONLY.split(',')}
+
+
 # --wgrad: label -> (G rows in registers, stages of products in flight,
 # ring stages, stages between restarts, parts off) of wgrad_tf32_kernel.
 WGRAD_VARIANTS = {
@@ -195,15 +214,23 @@ SWITCHES_SM90 = [
     ('      if (den || li == pl.n_layers - 1) {',
      '      if (!(FWD_OFF & 16) && (den || li == pl.n_layers - 1)) {'),
 ]
-SM90 = '--sm90' in sys.argv[1:] or TUNE
 # The chain's own bits in lean_chain_tf32.cuh (--chain).
 SWITCHES_CHAIN = [
     ('            mbar_expect_tx(full + s, 2 * st.N * FT_SW);',
      '            if (FWD_OFF & 1) {\n              mbar_arrive(full + s);\n              continue;\n'
      '            }\n            mbar_expect_tx(full + s, 2 * st.N * FT_SW);'),
-    ('          for (int j = 0; j < 4 * NH; ++j) {\n#pragma unroll\n            for (int e = 0; e < 4; ++e) {',
-     '          for (int j = 0; j < ((FWD_OFF & 4) ? 0 : 4 * NH); ++j) {\n#pragma unroll\n'
-     '            for (int e = 0; e < 4; ++e) {'),
+    # The epilogue of a layer's step (the density term, the store into the
+    # tile) and of an input-cotangent step of the classic form.
+    ('          for (int j = 0; j < NC / 8; ++j) {\n#pragma unroll\n'
+     '            for (int e = 0; e < 4; ++e) {\n              const int col =',
+     '          for (int j = 0; j < ((FWD_OFF & 4) ? 0 : NC / 8); ++j) {\n'
+     '#pragma unroll\n            for (int e = 0; e < 4; ++e) {\n'
+     '              const int col ='),
+    ('          for (int j = 0; j < NC / 8; ++j) {\n#pragma unroll\n'
+     '            for (int e = 0; e < 4; ++e) {\n              const int i =',
+     '          for (int j = 0; j < ((FWD_OFF & 4) ? 0 : NC / 8); ++j) {\n'
+     '#pragma unroll\n            for (int e = 0; e < 4; ++e) {\n'
+     '              const int i ='),
     ('        if (st.act) {\n          x.x =', '        if (!(FWD_OFF & 32) && st.act) {\n          x.x ='),
     ('        if (v >= st.N * 16) break;', '        if ((FWD_OFF & 8) || v >= st.N * 16) break;'),
     ('      if (tid < st.N) {', '      if (!(FWD_OFF & 16) && tid < st.N) {'),
@@ -263,10 +290,7 @@ SWITCHES_TUNE = [
 ]
 
 
-ONLY = next((a.split('=', 1)[1] for a in sys.argv[1:]
-             if a.startswith('--only=')), None)
-if ONLY is not None:
-    VARIANTS = {int(v): VARIANTS[int(v)] for v in ONLY.split(',')}
+configure([])
 
 
 def variants():
@@ -358,6 +382,7 @@ def short(name):
 
 
 def main():
+    configure(sys.argv[1:])
     with tempfile.TemporaryDirectory() as tmp:
         run(build(tmp))
 

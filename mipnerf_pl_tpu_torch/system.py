@@ -289,9 +289,16 @@ class MipNeRFSystem:
         losses, dists = [], []
         for level in ret:
             losses.append(torch.sum(mask * (level.rgb - gt) ** 2) / mask_sum)
-            dists.append(distloss(level.weights, level.t_samples)
-                         if self.distloss_mult != 0.0
-                         else torch.zeros((), device=gt.device))
+            if self.distloss_mult == 0.0:
+                dists.append(torch.zeros((), device=gt.device))
+                continue
+            w, t = level.weights, level.t_samples
+            if self.model.unbounded:
+                # t_samples holds DESCENDING t_inv: distloss needs
+                # ascending bins (its prefix-sum identity negates on
+                # descending ones), so both are flipped.
+                w, t = torch.flip(w, dims=(-1,)), torch.flip(t, dims=(-1,))
+            dists.append(distloss(w, t))
         loss = losses[-1] + self.distloss_mult * dists[-1]
         for mse_c, dist_c in zip(losses[:-1], dists[:-1]):
             loss = loss + self.coarse_loss_mult * (

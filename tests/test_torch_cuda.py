@@ -57,7 +57,13 @@ ipe_bwd: `nerf.ipe_backend: pallas`) is held against its plain versions,
 max |d| <= 1e-5 forward and ||a - b|| / ||b|| <= 1e-5 for dmeans and dcovs
 (which reach 1e5 and 1e9), two runs bit for bit, one launch a call, also at
 zero covariances, with means past the range where CUDA's sincosf turns slow,
-at degrees 16..32 and on an odd ladder.
+at degrees 16..32 and on an odd ladder.  The unbounded-360 path:
+lean_save_fwd and lean_param_grads on the 42-feature icosahedral encode
+(the real360 widths, a skip concat at the end of the trunk, and the
+mma.sync tile) at the bars above, each on the route its rule names for F =
+42, and an unbounded MipNerf trained with and without fuse_render (the
+render-fused level compositing over 1/t_inv) against its plain versions on
+the CPU.
 """
 
 import numpy as np
@@ -1898,3 +1904,159 @@ def test_cuda_tp_lean_forward_matches_plain(cuda_device, mesh_shape, dtype):
         ref_g = run('cpu', dt)[1]
     assert max_leaf_rel_err(got_g, ref_g) <= (2e-3 if dtype == 'float32'
                                               else 3e-2)
+
+
+# ---------------------------------------------------------------------------
+# The unbounded-360 path: the lean kernels on the 42-feature icosahedral
+# encode, and the render-fused level compositing over 1/t_inv.
+# ---------------------------------------------------------------------------
+
+SHAPES_360 = {
+    # the real360 config's MLP (8 x 256, view 128, N 128) on 96 rays.
+    'real360': (96, LEGO),
+    # widths that are multiples of 64 with the trunk ending on a skip
+    # concat: the 42 x-rows of the skip layer on the ragged 296 points.
+    'skip_end': TRAIN_SHAPES['skip_end'],
+    # the mma.sync tile (widths the wgmma rules refuse).
+    'small': TRAIN_SHAPES['small'],
+}
+
+
+def problem_360(R, cfg, seed=0):
+    """train_problem's arrays with x [M, 42], the icosahedral IPE of
+    Gaussians whose means straddle the unit sphere, trunk_0 and the skip
+    layer reading 42 x-rows."""
+    from mipnerf_pl_tpu_torch.ops.math import integrated_pos_enc_360
+    _, view, flat, g_rgb, g_dens = train_problem(R, **cfg, seed=seed)
+    rng = np.random.default_rng(seed + 5)
+    M = R * cfg['N']
+    means = rng.normal(size=(M, 3)) * 1.2
+    covs = rng.uniform(0.0, 2e-3, size=(M, 3))
+    x = integrated_pos_enc_360((torch.tensor(means, dtype=torch.float32),
+                                torch.tensor(covs, dtype=torch.float32)))
+    F = 6 * (cfg['deg'][1] - cfg['deg'][0])
+    depth, skip = cfg['net_depth'], cfg['skip_index']
+    readers = [0] + [i + 1 for i in range(depth)
+                     if i % skip == 0 and i > 0]
+    for li in readers:          # trunk_{li}, or the heads after the trunk
+        for k in ([2 * li] if li < depth else [2 * depth, 2 * depth + 2]):
+            w = flat[k]
+            lim = np.sqrt(6.0 / (w.shape[0] - F + 42 + w.shape[1]))
+            flat[k] = np.concatenate(
+                [w[:w.shape[0] - F], rng.uniform(
+                    -lim, lim, size=(42, w.shape[1])).astype(np.float32)])
+    return x.numpy(), view, flat, g_rgb, g_dens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(SHAPES_360))
+def test_cuda_lean_save_at_42_features_matches_plain(cuda_device, shape,
+                                                     dtype):
+    """lean_save_fwd (#3) and lean_param_grads (#4a) on a 42-feature
+    encode, which rounds up to the forwards' slabs: outputs, saved stream
+    and every parameter gradient (trunk_0's and the skip layer's 42 x-rows
+    among them) against the f32 plain versions, each call on the route its
+    rule names for F = 42."""
+    R, cfg = SHAPES_360[shape]
+    x, view, flat, g_rgb, g_dens = (
+        [torch.tensor(p, device=cuda_device) for p in a]
+        if isinstance(a, list) else torch.tensor(a, device=cuda_device)
+        for a in problem_360(R, cfg))
+    assert x.shape[1] == 42 and flat[0].shape[0] == 42
+    args = (cfg['N'], cfg['net_depth'], cfg['net_depth_condition'],
+            cfg['skip_index'])
+    act = (0.001, -1.0)
+    dt = getattr(torch, dtype)
+    widths = (42, cfg['net_width'], cfg['net_width_condition'],
+              cfg['net_depth'], cfg['net_depth_condition'])
+    in_saved = tk.lean_mlp_save_plain(x, view, flat, *args, dt, act)[2]
+    tk.reset_launches()
+    rgb, dens, saved = tk.lean_save_fwd(x, view, flat, *args, dt, act)
+    grads = tk.lean_param_grads(view, g_rgb, g_dens, in_saved, flat, *args,
+                                dt, act)
+    torch.cuda.synchronize()
+    assert tk.launches['lean_save_fwd'] == tk.launches['lean_param_grads'] \
+        == 1
+    assert tk.routes['lean_save_fwd'] == int(tk.fwd_sm90_route(dt, *widths))
+    assert tk.tf32_routes['lean_save_fwd'] == int(
+        tk.fwd_tf32_route(dt, *widths))
+    assert chain_took('lean_param_grads') == chain_calls(cfg, dtype)
+    assert tk.wgrad_tf32_routes['lean_param_grads'] == wgrad_calls(dtype)
+    if shape != 'small':          # the wgmma forward of the dtype
+        assert tk.routes['lean_save_fwd'] + tk.tf32_routes['lean_save_fwd'] \
+            == 1
+    ref_rgb, ref_dens, ref_saved = tk.lean_mlp_save_plain(
+        x, view, flat, *args, torch.float32, act)
+    ref_grads = tk.lean_param_grads_plain(view, g_rgb, g_dens, in_saved,
+                                          flat, *args, torch.float32, act)
+    M = x.shape[0]
+    for i, (a, b) in enumerate([
+            (rgb, ref_rgb), (dens, ref_dens),
+            (saved[0][:, :M].float(), ref_saved[0][:, :M].float()),
+            (saved[1][:, :M], ref_saved[1][:, :M])]):
+        assert torch.isfinite(a).all(), i
+        err = float((a - b).abs().max())
+        if dtype == 'float32':
+            assert err <= 1e-4, (i, err)
+        else:
+            assert err / max(float(b.abs().max()), 1e-6) <= 3e-2, (i, err)
+    assert [g.shape for g in grads] == [tuple(p.shape) for p in flat]
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert max_leaf_rel_err(grads, ref_grads) <= (
+        1e-4 if dtype == 'float32' else 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('fused', [True, False], ids=['render', 'lean'])
+@pytest.mark.parametrize('backend', ['pallas_lean_save', 'pallas_lean'])
+def test_cuda_unbounded_training_runs_the_kernels(cuda_device, backend,
+                                                  fused):
+    """An unbounded MipNerf (42-feature encode, t_inv samples) trains on
+    the card: with fuse_render the render-fused level composites over
+    1/t_inv through lean_composite / lean_composite_bwd; one loss backward
+    launches each kernel once a level, the gradients are finite, and the
+    loss and every gradient agree with the same model's plain versions on
+    the CPU (1e-4 of the loss, leaf relative error <= 1e-3)."""
+    from mipnerf_pl_tpu_torch.models.mipnerf import MipNerf
+    from mipnerf_pl_tpu_torch.rays import Rays
+    model = MipNerf(num_samples=16, deg_view=2, mlp_net_depth=3,
+                    mlp_net_width=64, mlp_net_width_condition=64,
+                    mlp_skip_index=2, mlp_backend=backend, unbounded=True,
+                    fuse_render=fused)
+    assert model._fused_render == fused
+    rng = np.random.default_rng(1)
+    o = rng.normal(size=(64, 3))
+    o = (4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True))
+    d = rng.uniform(-1, 1, size=(64, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ones = np.ones((64, 1))
+    fields = [a.astype(np.float32) for a in
+              (o, d, d, ones * 2e-3, ones, ones * 2.5, ones * 5.5)]
+    target = rng.uniform(size=(64, 3)).astype(np.float32)
+    losses, grads = {}, {}
+    for dev in ('cpu', cuda_device):
+        model.to(dev)
+        model.zero_grad()
+        rays = Rays(*(torch.tensor(f, device=dev) for f in fields))
+        tk.reset_launches()
+        out = model(rays, False, False)
+        loss = sum(((lv.rgb - torch.tensor(target, device=dev)) ** 2).mean()
+                   for lv in out)
+        loss.backward()
+        losses[str(dev)] = float(loss.detach())
+        grads[str(dev)] = [p.grad.detach().cpu() for p in model.parameters()]
+    torch.cuda.synchronize()
+    fwd, bwd = (('lean_save_fwd', 'lean_param_grads')
+                if backend == 'pallas_lean_save'
+                else ('lean_fwd', 'lean_param_grads_recompute'))
+    names = [fwd, bwd] + (['lean_composite', 'lean_composite_bwd']
+                          if fused else [])
+    for name in names:
+        assert tk.launches[name] == model.num_levels, (name, tk.launches)
+    assert tk.launches['ipe_moments'] == tk.launches['ipe_fwd'] == 0
+    gpu = grads[str(cuda_device)]
+    assert all(torch.isfinite(g).all() for g in gpu)
+    assert max_leaf_rel_err(gpu, grads['cpu']) <= 1e-3
+    want = losses['cpu']
+    assert abs(losses[str(cuda_device)] - want) <= 1e-4 * abs(want)

@@ -15,7 +15,8 @@ from mipnerf_pl_tpu.data import synthetic as jsynthetic
 from mipnerf_pl_tpu.data.datasets import Blender as JBlender
 from mipnerf_pl_tpu.data.pipeline import TrainBatcher as JTrainBatcher
 from mipnerf_pl_tpu_torch.data import synthetic
-from mipnerf_pl_tpu_torch.data.datasets import (Blender, _alpha_composite,
+from mipnerf_pl_tpu_torch.data.datasets import (Blender, RealData360,
+                                                _alpha_composite,
                                                 dataset_dict, pixel_radii)
 from mipnerf_pl_tpu_torch.data.pipeline import TrainBatcher
 from mipnerf_pl_tpu_torch.rays import Rays
@@ -71,8 +72,7 @@ def test_blender_equals_jax(scene, split, batch_type, factor):
 
 def test_dataset_registry_and_refusals(scene, tmp_path):
     assert dataset_dict['blender'] is Blender
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        dataset_dict['real360'](data_dir=scene, split='train')
+    assert dataset_dict['real360'] is RealData360
     # multi_blender builds on the converted scene.
     from mipnerf_pl_tpu_torch.data.convert import convert_to_nerfdata
     from mipnerf_pl_tpu_torch.data.datasets import Multicam

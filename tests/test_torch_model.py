@@ -224,9 +224,10 @@ def test_mipnerf_randomized_runs_with_generator():
 def test_training_backends_not_ported_raise(backend):
     """The recompute and hybrid backends train; what stays unported raises
     instead of computing something else: the moments input (encode=) with
-    'hybrid' (JAX's own refusal, a ValueError), the unbounded-360 mode, an
-    unknown ipe_backend, and unknown options.  On 'pallas_lean' the
-    moments input trains and equals the rows form on their encode.  The
+    'hybrid' (JAX's own refusal, a ValueError), an unknown ipe_backend, and
+    unknown options; the unbounded-360 mode builds on 42 encode features.
+    On 'pallas_lean' the moments input trains and equals the rows form on
+    their encode.  The
     'pallas' backend runs (fused_mlp) and equals the plain forward.
     ipe_backend='pallas' builds and runs on these backends (fused_ipe)."""
     _, trays = _rays()
@@ -257,8 +258,12 @@ def test_training_backends_not_ported_raise(backend):
     for a, b in zip(pallas(x, view), plain(x, view)):
         assert a.shape == b.shape == (4, 8, a.shape[-1])
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        MipNerf(**KW, unbounded=True)
+    # The unbounded-360 mode builds: the 42-wide icosahedral encode feeds
+    # trunk_0 (tests/test_torch_unbounded.py holds it against JAX).
+    unbounded = MipNerf(**KW, mlp_backend=backend, unbounded=True)
+    assert unbounded.mlp.trunk_0.in_features == 42
+    assert all(torch.isfinite(lv.rgb).all()
+               for lv in unbounded(trays, False, True))
     ipe_model = MipNerf(**KW, mlp_backend=backend, ipe_backend='pallas')
     ipe_model.load_state_dict(port.state_dict())
     assert not (ipe_model._fused_encode or ipe_model._pallas_encode)
