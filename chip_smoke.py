@@ -226,9 +226,25 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      tool's settings): val PSNR >= 27.0 dB, lean_save_fwd and
      lean_param_grads 2 a step; its PSNR, wall time and rays/s beside the
      card's nvidia-smi line;
-  9. the kernels' JSON line (launches, error, times, bound, library call;
+  9. data parallelism through the system, at lego width on
+     pallas_lean_save with train.randomized True: 9a, the single-process
+     mesh of 2 shards on the card against data 1, one step from the same
+     parameters, batch and step generator, f32 and bf16: the loss (f32
+     within 1e-6 relative), the largest leaf rel err of the parameter
+     update and of the gradients (2e-3 f32, 3e-2 bf16), lean_save_fwd and
+     lean_param_grads 2 levels x 2 shards a step on the wgmma kernels of
+     the dtype; ms/step of data 2 beside data 1 in turns; 9b, 2 processes
+     on the one card over gloo (NCCL takes no two ranks on one device),
+     each fit() of 50 bf16 steps on a 64x64 sphere scene with one
+     validation and one checkpoint: final parameters bit-equal across the
+     ranks and within 3e-2 of a single-process data-2 fit, the loss falls,
+     rank 0 alone wrote the checkpoint, the CSV row and the log lines, the
+     sharded render of val view 0 within 1e-3 of the data-1 render of the
+     same parameters; rays/s and the gradients' all-reduce share of the
+     step.  The workers load the libraries phase 2 built;
+  10. the kernels' JSON line (launches, error, times, bound, library call;
      each kernel's launches on the paths of phases 7b-7d under
-     `launches_new_paths`;
+     `launches_new_paths`, and in phase 9 under `launches_dp`;
      for the lean forwards and backwards also the wgmma kernel that runs
      them, f32 `kernel` / `chain` / `wgrad` and bf16 under 'bf16'; for f32
      lean_param_grads also its weight gradients' own ms, bound and
@@ -244,7 +260,7 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 
     python3 chip_smoke.py --measure
 
-adds, before phase 9, the frame times at 800x800 (kernel and plain paths,
+adds, before phase 10, the frame times at 800x800 (kernel and plain paths,
 f32 and bf16, in turns k p p k), a torch.profiler table of one 200x200
 kernel-path frame, and, with the host's issue time of an unprofiled step,
 one of a bf16 train step of each lean backend, of pallas_lean_save with
@@ -258,6 +274,7 @@ exits non-zero before printing any result.
 import ctypes
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -293,7 +310,8 @@ from mipnerf_pl_tpu_torch.ops.math import (cast_rays_cmajor,
 from mipnerf_pl_tpu_torch.ops.render import delta_mids
 from mipnerf_pl_tpu_torch.ops.sampling import (sample_along_rays,
                                                sample_along_rays_360)
-from mipnerf_pl_tpu_torch.parallel.mesh import create_mesh
+from mipnerf_pl_tpu_torch.parallel.mesh import (create_mesh,
+                                                maybe_initialize_distributed)
 from mipnerf_pl_tpu_torch.rays import Rays
 from mipnerf_pl_tpu_torch.system import MipNeRFSystem, make_dataset
 from mipnerf_pl_tpu_torch.tools import quality_smoke
@@ -405,6 +423,17 @@ REAL360_TAG = '[real360]'
 REAL360_CAPTURE = {'size': 256, 'n_images': 24}
 REAL360_STEPS, REAL360_K = 200, 50
 QUALITY_STEPS, QUALITY_MIN_PSNR = 3000, 27.0
+# Phase 9: data parallelism through the system.  9a: the single-process
+# mesh of DP_SHARDS shards against data 1, one step and DP_K-step timing
+# turns; 9b: DP_SHARDS gloo processes on the one card, each fitting
+# DP_STEPS steps in dispatches of DP_K on a sphere scene of DP_SCENE, each
+# process given DP_TIMEOUT seconds.
+DP_SHARDS, DP_K, DP_STEPS = 2, 5, 50
+DP_SCENE = {'n_train': 8, 'n_val': 1, 'n_test': 1, 'size': 64}
+DP_TIMEOUT = 300
+# What a lean save step launches, once a level and shard (the forward's
+# view rows through lean_view_proj).
+DP_STEP_KERNELS = _SAVE + ('lean_view_proj',)
 # The card's published rates (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s; tensor-core FLOP/s in bf16 and for f32 as 3xTF32 (the route the
 # f32 kernels take: three TF32 products, 495 / 3); CUDA-core f32 FLOP/s.
@@ -783,12 +812,12 @@ def check_classic_routes(hp, dt, where, **calls):
                              'route')
 
 
-def lego_wgrad_range(hp):
-    """(Mp, MC) of the lean backward at a training level of hp: its padded
-    points and the points of one weight-gradient range (wgrad_split over
-    its output tiles on this card)."""
+def lego_wgrad_range(hp, rays=TRAIN_RAYS):
+    """(Mp, MC) of the lean backward at a training level of hp (of `rays`
+    rays): its padded points and the points of one weight-gradient range
+    (wgrad_split over its output tiles on this card)."""
     N = hp['nerf.num_samples']
-    Mp = -(-TRAIN_RAYS * N // km.TILE) * km.TILE
+    Mp = -(-rays * N // km.TILE) * km.TILE
     depth = hp['nerf.mlp.net_depth']
     dcond = hp['nerf.mlp.net_depth_condition']
     tiles = km.wgrad_problems(layer_shapes(hp), depth, dcond,
@@ -797,13 +826,13 @@ def lego_wgrad_range(hp):
     return Mp, km.wgrad_split(Mp, len(tiles), N, sms)
 
 
-def check_wgrad_routes(hp, dt, where, **calls):
+def check_wgrad_routes(hp, dt, where, rays=TRAIN_RAYS, **calls):
     """Raise unless each named backward's `calls` since the last
     reset_launches ran their weight gradients on wgrad_tf32_kernel in f32
-    (where wgrad_tf32_route says so, which at the lego level it must) and
-    on wgrad_sm90_kernel in bf16, by the library's own counts, and on no
-    other kernel."""
-    Mp, mc = lego_wgrad_range(hp)
+    (where wgrad_tf32_route says so, which at the lego level, and at a
+    data shard's `rays` of it, it must) and on wgrad_sm90_kernel in bf16,
+    by the library's own counts, and on no other kernel."""
+    Mp, mc = lego_wgrad_range(hp, rays)
     f32 = dt == torch.float32
     on = km.wgrad_tf32_route(dt, Mp, mc)
     if f32 and not on:
@@ -2955,6 +2984,273 @@ def quality_run(smi):
     return result
 
 
+def dp_hparams(dtype, **extra):
+    """Phase 9's model: the lego schema at full width on pallas_lean_save
+    with randomized sampling."""
+    return dict(config.default(), **{
+        'train.compute_dtype': dtype, 'nerf.mlp_backend': 'pallas_lean_save',
+        'train.randomized': True, 'optimizer.lr_delay_steps': 0}, **extra)
+
+
+def dp_step(params, dev):
+    """Phase 9a: the single-process mesh of DP_SHARDS shards on the card
+    against data 1, f32 then bf16, from the same parameters on the same
+    batch and step generator: the loss (f32 within 1e-6 relative), the
+    largest leaf ||a - b|| / ||b|| of the one-step parameter update and of
+    the gradients (<= F32_GATE_BAR f32, <= BF16_BAR bf16), lean_save_fwd /
+    lean_param_grads launched 2 levels x DP_SHARDS a step on the routes of
+    their dtype; then ms/step of each in turns (one, mesh, mesh, one) of
+    DP_K-step calls.  -> ({dtype: the mesh step's launch counts}, numbers
+    for the log)."""
+    rays, pixels = train_batch(TRAIN_RAYS, dev)
+    stack = Rays(*(f.expand(DP_K, *f.shape).contiguous() for f in rays))
+    pix = pixels.expand(DP_K, *pixels.shape).contiguous()
+    shard_rays = TRAIN_RAYS // DP_SHARDS
+    counts, report = {}, {}
+    for dtype in ('float32', 'bfloat16'):
+        dt = getattr(torch, dtype)
+        hp = dp_hparams(dtype)
+        systems = {'data 1': MipNeRFSystem(hp, device=dev),
+                   f'data {DP_SHARDS}': MipNeRFSystem(
+                       hp, mesh=create_mesh(DP_SHARDS, device=dev))}
+        got = {}
+        for name, s in systems.items():
+            _, g = s.value_and_grad(s.init_state(params=params)['params'],
+                                    rays, pixels, s.step_generator(7, 0))
+            state = s.init_state(params=params)
+            start = [v.detach().clone() for v in state['params'].values()]
+            km.reset_launches()
+            state, aux = s.train_step(state, rays, pixels,
+                                      s.step_generator(7, 0))
+            torch.cuda.synchronize()
+            got[name] = (float(aux['loss']), [g[k] for k in state['params']],
+                         [v.detach() - a for v, a in
+                          zip(state['params'].values(), start)],
+                         dict(km.launches))
+        names = list(state['params'])
+        (l1, g1, d1, _), (l2, g2, d2, c2) = got.values()
+        loss_rel = abs(l2 - l1) / abs(l1)
+        step_err, step_leaf = leaf_rel_err(d2, d1, names)
+        grad_err, grad_leaf = leaf_rel_err(g2, g1, names)
+        bar = F32_GATE_BAR if dtype == 'float32' else BF16_BAR
+        want = hp['nerf.num_levels'] * DP_SHARDS
+        log(f'[dp] 9a {dtype} data {DP_SHARDS} vs data 1, one step: loss '
+            f'{l2:.7f} vs {l1:.7f} (rel {loss_rel:.2e}); parameter update '
+            f'max leaf rel err {step_err:.3e} ({step_leaf}), gradients '
+            f'{grad_err:.3e} ({grad_leaf}), bar {bar}; launches '
+            f'{ {k: v for k, v in c2.items() if v} }')
+        if (dtype == 'float32' and loss_rel > 1e-6) or step_err > bar \
+                or grad_err > bar:
+            raise AssertionError(f'phase 9a {dtype}: data {DP_SHARDS} '
+                                 'disagrees with data 1')
+        if any(c2[k] != (want if k in DP_STEP_KERNELS else 0) for k in c2):
+            raise AssertionError(f'phase 9a {dtype}: expected {want} launches '
+                                 f'of each of {_SAVE}, got {c2}')
+        # The routes of the mesh's step, the last one counted.
+        check_routes(hp, dt, f'phase 9a {dtype}', lean_save_fwd=want)
+        check_chain_routes(hp, dt, f'phase 9a {dtype}', lean_param_grads=want)
+        check_wgrad_routes(hp, dt, f'phase 9a {dtype}', rays=shard_rays,
+                           lean_param_grads=want)
+        counts[dtype] = c2
+        fns = {n: s.make_train_many() for n, s in systems.items()}
+        states = {n: s.init_state(params=params) for n, s in systems.items()}
+        times = {n: [] for n in systems}
+        order = list(systems)
+        for which in order:                                   # warm-up
+            states[which] = train_run(fns[which], states[which], stack,
+                                      pix)[0]
+        for which in order + order[::-1]:
+            states[which], aux, sec, peak = train_run(
+                fns[which], states[which], stack, pix)
+            times[which].append(sec * 1e3 / DP_K)
+        report[dtype] = {n: min(v) for n, v in times.items()}
+        log(f'[dp] 9a {dtype} ms/step over {DP_K}-step calls, in turns: '
+            f'{ {n: [round(t, 3) for t in v] for n, v in times.items()} }')
+        del systems, fns, states
+    return counts, report
+
+
+def dp_worker(rank: int, port: int, root: str) -> int:
+    """One process of phase 9b (chip_smoke.py --dp-worker RANK PORT ROOT):
+    a gloo group of DP_SHARDS processes on cuda:0, fit of DP_STEPS steps
+    (bf16 pallas_lean_save, one validation and one checkpoint at the end)
+    on the scene under root, the lean routes of its launches checked, the
+    time of the gradients' all-reduce alone, and a render of val view 0;
+    writes root/rank<r>.npz (the parameters, the render) and
+    root/rank<r>.json (launches, fit_stats, all-reduce ms)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize_distributed(
+        {'parallel.multi_host': True,
+         'parallel.coordinator_address': f'localhost:{port}',
+         'parallel.num_processes': DP_SHARDS, 'parallel.process_id': rank},
+        device='cuda', timeout_s=DP_TIMEOUT, backend='gloo')
+    try:
+        dev = torch.device('cuda', 0)
+        hp = dp_run_hparams()
+        system = MipNeRFSystem(hp, device=dev)
+        mesh = system.mesh
+        print(f'mesh: {mesh!r}', flush=True)
+        if not mesh.distributed or mesh.shape != {'data': DP_SHARDS,
+                                                  'model': 1}:
+            raise AssertionError(f'rank {rank}: mesh {mesh!r}')
+        km.reset_launches()
+        state = system.fit(os.path.join(root, 'scene'), 'blender',
+                           os.path.join(root, 'out'), max_steps=DP_STEPS,
+                           log_every=DP_K)
+        torch.cuda.synchronize()
+        counts = dict(km.launches)
+        steps = hp['nerf.num_levels'] * DP_STEPS
+        check_routes(hp, torch.bfloat16, f'phase 9b rank {rank}',
+                     lean_save_fwd=steps)
+        check_chain_routes(hp, torch.bfloat16, f'phase 9b rank {rank}',
+                           lean_param_grads=steps)
+        check_wgrad_routes(hp, torch.bfloat16, f'phase 9b rank {rank}',
+                           rays=TRAIN_RAYS // DP_SHARDS,
+                           lean_param_grads=steps)
+        # The all-reduce of a step's gradients (and its five loss sums)
+        # alone, as the step makes it.
+        grads = [torch.randn_like(p) for p in state['params'].values()]
+        grads.append(torch.zeros(5, device=system.device))
+        mesh.reduce_from_data([grads])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            mesh.reduce_from_data([grads])
+        torch.cuda.synchronize()
+        allreduce_ms = (time.perf_counter() - t0) * 1e3 / 10
+        cam, (h, w) = system.val_dataset.camera(0)
+        img = system.render_camera(state['params'], cam, h, w)['fine_rgb']
+        np.savez(os.path.join(root, f'rank{rank}.npz'), img=img,
+                 **{k: v.detach().cpu().numpy()
+                    for k, v in state['params'].items()})
+        with open(os.path.join(root, f'rank{rank}.json'), 'w') as f:
+            json.dump({'launches': counts, 'fit_stats': system.fit_stats,
+                       'allreduce_ms': allreduce_ms}, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_run_hparams():
+    """Phase 9b's run: bf16 pallas_lean_save at lego width over DP_SHARDS
+    processes, dispatches of DP_K steps, validation (one view) and a
+    checkpoint at DP_STEPS only."""
+    return dp_hparams('bfloat16', **{
+        'num_devices': DP_SHARDS, 'exp_name': 'dp',
+        'train.steps_per_call': DP_K, 'val.check_interval': DP_STEPS,
+        'val.sample_num': 1})
+
+
+def dp_run(root, dev):
+    """Phase 9b: DP_SHARDS processes on the one card over gloo (NCCL takes
+    no two ranks on one device), each fit() of DP_STEPS steps: their final
+    parameters equal bit for bit; within BF16_BAR of a single-process
+    data-DP_SHARDS fit of the same steps (largest leaf rel err of the
+    update from the initial parameters); the loss falls; one checkpoint
+    and one CSV row, written by rank 0 alone (rank 1 prints no log line);
+    the sharded render of val view 0 within FRAME_BAR of the data-1 render
+    of the same parameters.  The kernels are those phase 2 built: the
+    children load the hash-named libraries from the build directory.  ->
+    rank 0's launch counts."""
+    t_phase = time.perf_counter()
+    scene = make_sphere_scene(os.path.join(root, 'scene'), **DP_SCENE)
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    logs = [os.path.join(root, f'rank{r}.log') for r in range(DP_SHARDS)]
+    procs = []
+    try:
+        for r in range(DP_SHARDS):
+            with open(logs[r], 'w') as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), '--dp-worker',
+                     str(r), str(port), root], stdout=f,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DP_TIMEOUT
+        while any(p.poll() is None for p in procs) and \
+                time.monotonic() < deadline and not any(
+                    p.poll() not in (None, 0) for p in procs):
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for path in logs:
+        with open(path) as f:
+            texts.append(f.read())
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError('phase 9b: a worker failed (codes '
+                             f'{[p.returncode for p in procs]}):\n' +
+                             '\n'.join(t[-3000:] for t in texts))
+    t_workers = time.perf_counter() - t_phase
+    ranks, infos = [], []
+    for r in range(DP_SHARDS):
+        with np.load(os.path.join(root, f'rank{r}.npz')) as z:
+            ranks.append({k: z[k] for k in z.files})
+        with open(os.path.join(root, f'rank{r}.json')) as f:
+            infos.append(json.load(f))
+    for r in range(1, DP_SHARDS):
+        diff = [k for k in ranks[0] if not np.array_equal(ranks[0][k],
+                                                          ranks[r][k])]
+        if diff:
+            raise AssertionError(f'phase 9b: rank {r} differs from rank 0 in '
+                                 f'{diff}')
+    hp = dp_run_hparams()
+    names = sorted(k for k in ranks[0] if k != 'img')
+    init = MipNeRFSystem(hp, mesh=create_mesh(DP_SHARDS, device=dev)
+                         ).init_params()
+    single = MipNeRFSystem(hp, mesh=create_mesh(DP_SHARDS, device=dev))
+    state = single.fit(scene, 'blender', os.path.join(root, 'single'),
+                       max_steps=DP_STEPS, verbose=False)
+    err, leaf = leaf_rel_err(
+        [torch.from_numpy(ranks[0][k]) - init[k].cpu() for k in names],
+        [state['params'][k].detach().cpu() - init[k].cpu() for k in names],
+        names)
+    stats = infos[0]['fit_stats']
+    one = MipNeRFSystem(dict(hp, num_devices=1), device=dev)
+    cam, (h, w) = make_dataset(hp, 'blender', scene, 'val').camera(0)
+    want = one.render_camera({k: torch.from_numpy(ranks[0][k]) for k in names},
+                             cam, h, w)['fine_rgb']
+    d_rgb = float(np.abs(ranks[0]['img'] - want).max())
+    out = os.path.join(root, 'out')
+    with open(os.path.join(out, 'logs', 'dp', 'val_history.csv')) as f:
+        rows = f.read().split()[1:]
+    ckpts = {k: os.listdir(os.path.join(out, 'ckpt', 'dp', k))
+             for k in ('best', 'last')}
+    step_lines = [t.count(f'/{DP_STEPS} loss=') for t in texts]
+    step_ms = stats['steps'] and TRAIN_RAYS / stats['rays_per_sec'] * 1e3
+    share = infos[0]['allreduce_ms'] / step_ms
+    log(f'[dp] 9b {DP_SHARDS} gloo processes on cuda:0, fit {DP_STEPS} '
+        f'steps bf16 pallas_lean_save: {t_workers:.1f} s with start-up; '
+        f'{stats["rays_per_sec"]:,.0f} rays/s over the training time '
+        f'({step_ms:.2f} ms/step); the gradients\' all-reduce alone '
+        f'{infos[0]["allreduce_ms"]:.3f} ms, {100 * share:.1f} % of the '
+        f'step; batcher wait {100 * stats["data_wait_share"]:.2f} % (rank 0)'
+        f', {100 * infos[1]["fit_stats"]["data_wait_share"]:.2f} % (rank 1);'
+        f' loss {stats["loss_first"]:.5f} -> {stats["loss_last"]:.5f}; '
+        f'ranks bit-equal; vs the single-process data-{DP_SHARDS} fit: max '
+        f'leaf rel err of the update {err:.3e} ({leaf}, bar {BF16_BAR}); '
+        f'val view 0 vs data 1 max|d rgb| {d_rgb:.3e} (bar {FRAME_BAR}); '
+        f'checkpoints {ckpts}, CSV rows {rows}, log lines per rank '
+        f'{step_lines}; rank 0 launches '
+        f'{ {k: v for k, v in infos[0]["launches"].items() if v} }')
+    if err > BF16_BAR or d_rgb > FRAME_BAR:
+        raise AssertionError('phase 9b: the run disagrees with the '
+                             'single-process mesh or with data 1')
+    if not stats['loss_last'] < stats['loss_first']:
+        raise AssertionError(f'phase 9b: the loss did not fall: {stats}')
+    if ckpts != {'best': [str(DP_STEPS)], 'last': [str(DP_STEPS)]} or \
+            [r.split(',')[0] for r in rows] != [str(DP_STEPS)] or \
+            step_lines[0] < 1 or any(step_lines[1:]):
+        raise AssertionError('phase 9b: the files or log lines are not '
+                             'rank 0\'s alone')
+    log(f'[dp] phase 9b: {time.perf_counter() - t_phase:.1f} s')
+    return infos[0]['launches']
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this run needs an NVIDIA GPU',
@@ -3171,6 +3467,14 @@ def main() -> int:
         real360_counts = real360_run(root)
     quality_run(smi)
     log(f'[real360] phases 8a-8d: {time.perf_counter() - t_new:.1f} s')
+
+    # Phase 9: data parallelism through the system.
+    t_dp = time.perf_counter()
+    dp_counts = {f'9a {dtype} data-{DP_SHARDS} step': c
+                 for dtype, c in dp_step(params, dev)[0].items()}
+    with tempfile.TemporaryDirectory() as root:
+        dp_counts['9b rank 0 fit'] = dp_run(root, dev)
+    log(f'[dp] phase 9: {time.perf_counter() - t_dp:.1f} s')
     if '--measure' in sys.argv[1:]:
         measure(hp, params, dev)
 
@@ -3206,9 +3510,12 @@ def main() -> int:
         for key in ('device_ms', 'device_ms_train', 'device_ms_chunk'):
             if key in r:
                 kernels[-1][key] = r[key]
-        # The kernel's launches on the paths of phases 7b-7d.
+        # The kernel's launches on the paths of phases 7b-7d, and of
+        # phase 9 (a data-2 step of 9a in each dtype, rank 0's fit in 9b).
         kernels[-1]['launches_new_paths'] = {
             path: c[name] for path, c in new_paths.items() if c[name]}
+        kernels[-1]['launches_dp'] = {
+            path: c[name] for path, c in dp_counts.items() if c.get(name)}
         rb = results.get((name, 'bf16'))
         if rb is not None:     # the compute dtype of the bf16 steps
             kernels[-1]['bf16'] = {k: rb[k] for k in (
@@ -3335,4 +3642,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--dp-worker']:
+        sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

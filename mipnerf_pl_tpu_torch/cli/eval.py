@@ -3,7 +3,7 @@
 
   python -m mipnerf_pl_tpu_torch.cli.eval --ckpt OUT/ckpt/<exp> --data DATA \\
       --out_dir OUT --scale 1|2|4 [--base_size W H] [--chunk_size N] \\
-      [--save_image] [--no_video] [--device cpu]
+      [--save_image] [--no_video] [--device cpu] [key value ...]
 
 Renders the test split from a checkpoint (hparams restored from the
 checkpoint directory), computes per-image PSNR / SSIM, writes
@@ -14,6 +14,12 @@ and entry i falls in bucket i % scale.  With --save_image each image goes
 into OUT/test/<exp>/<base width / width>/ and, unless --no_video, each of
 those directories gets a looping video of its frames
 (cli/render_video.py generate_video).
+
+The hparams are the checkpoint's, with `key value` pairs merged over them
+(parallel/launch.py checkpoint_hparams); a render over n > 1 devices runs
+as cli.train's does, one process a device, each rendering its rows of
+every chunk, and the first writes the files.  `num_devices 1` renders a
+checkpoint of a larger run on one card.
 """
 
 from __future__ import annotations
@@ -54,23 +60,25 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument('--device', help='Device to render on (default: '
                         'cuda; cpu runs the kernels\' plain versions).',
                         default=None)
+    parser.add_argument('opts', nargs=argparse.REMAINDER,
+                        help='Modify the checkpoint\'s hparams, e.g.: '
+                        'num_devices 1')
     return parser
 
 
-def evaluate(args) -> list:
-    """Render and score the test split; -> [exp_name]."""
+def evaluate(args, hparams, device) -> bool:
+    """Render and score the test split; -> whether this process wrote the
+    files (the first of a run's processes)."""
     import numpy as np
 
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem, make_dataset
-    from mipnerf_pl_tpu_torch.train.ckpt import load_hparams, restore_for_eval
+    from mipnerf_pl_tpu_torch.train.ckpt import restore_for_eval
     from mipnerf_pl_tpu_torch.utils.metrics import eval_errors
     from mipnerf_pl_tpu_torch.utils.vis import save_images
 
-    hparams = load_hparams(args.ckpt)
     exp_name = hparams['exp_name']
-    if args.summa_only:
-        return [exp_name]
-    system = MipNeRFSystem(hparams, device=args.device)
+    system = MipNeRFSystem(hparams, device=device)
+    root = system.mesh.is_root
     # --white_bkgd drives the render compositing; the dataset's compositing
     # follows the checkpoint's hparams.
     system.white_bkgd = bool(args.white_bkgd)
@@ -80,7 +88,7 @@ def evaluate(args) -> list:
         args.data or hparams['data_path'], 'test')
 
     exp_dir = os.path.join(args.out_dir, 'test', exp_name)
-    for i in range(args.scale):
+    for i in range(args.scale if root else 0):
         os.makedirs(os.path.join(exp_dir, str(2 ** i)), exist_ok=True)
 
     psnr_values, ssim_values = [], []
@@ -103,6 +111,8 @@ def evaluate(args) -> list:
             out = system.render_image(state['params'], rays,
                                       chunk_size=args.chunk_size,
                                       need_coarse=False)
+        if not root:
+            continue
         width = out['fine_rgb'].shape[1]
         psnr_val, ssim_val = eval_errors(
             out['fine_rgb'][None], np.asarray(rgb_gt[..., :3])[None])
@@ -115,6 +125,8 @@ def evaluate(args) -> list:
                         os.path.join(exp_dir,
                                      str(int(args.base_size[0] / width))), n)
 
+    if not root:
+        return False
     with open(os.path.join(exp_dir, 'psnrs.txt'), 'w') as f:
         f.write(' '.join(str(v) for v in psnr_values))
     with open(os.path.join(exp_dir, 'ssims.txt'), 'w') as f:
@@ -122,16 +134,42 @@ def evaluate(args) -> list:
     if args.save_image and not args.no_video:
         from mipnerf_pl_tpu_torch.cli.render_video import generate_video
         generate_video(exp_dir)
-    return [exp_name]
+    return True
 
 
-def main(argv: Optional[Sequence[str]] = None) -> str:
+def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
     """Parse argv (None: sys.argv), evaluate, print and return the
-    'PSNR | SSIM | Average' summary line."""
+    'PSNR | SSIM | Average' summary line (None in the workers it starts
+    and on the processes of a run but the first; SystemExit with a failed
+    worker's code)."""
+    import sys
+
+    from mipnerf_pl_tpu_torch.parallel import launch
+    from mipnerf_pl_tpu_torch.train.ckpt import load_hparams
     from mipnerf_pl_tpu_torch.utils.metrics import summarize_results
     args = make_parser().parse_args(argv)
-    scenes = evaluate(args)
-    summary = summarize_results(args.out_dir, scenes, args.scale)
+    if args.summa_only:
+        exp_name = load_hparams(args.ckpt)['exp_name']
+    else:
+        hparams = launch.checkpoint_hparams(args.ckpt, args.opts)
+        exp_name = hparams['exp_name']
+        n = launch.workers_to_start(hparams, args.device)
+        if n:
+            code = launch.run_workers(
+                'mipnerf_pl_tpu_torch.cli.eval',
+                sys.argv[1:] if argv is None else list(argv), n)
+            if code:
+                raise SystemExit(code)
+        else:
+            device = launch.join_group(hparams, args.device)
+            try:
+                wrote = evaluate(args, hparams, device)
+            finally:
+                launch.leave_group()
+            # A started worker's parent prints the summary.
+            if not wrote or launch.started_worker():
+                return None
+    summary = summarize_results(args.out_dir, [exp_name], args.scale)
     print('PSNR | SSIM | Average')
     print(summary, flush=True)
     return summary

@@ -2,7 +2,7 @@
 
   python -m mipnerf_pl_tpu_torch.cli.render_video --ckpt OUT/ckpt/<exp> \\
       --out_dir OUT --scale 2 [--base_size 800 800] [--n_poses 120] \\
-      [--chunk_size N] [--camera_angle_x A] [--device cpu]
+      [--chunk_size N] [--camera_angle_x A] [--device cpu] [key value ...]
   python -m mipnerf_pl_tpu_torch.cli.render_video --out_dir OUT --scale 1 \\
       --gen_video_only --render_images_dir DIR
 
@@ -13,6 +13,8 @@ through `MipNeRFSystem.render_camera` on the device, writes each level's
 width>/ and a looping video_<k>.mov beside them (imageio where it imports
 and writes, else cv2's mp4v; the writer is printed).  With
 --gen_video_only it only assembles the videos of already rendered frames.
+The hparams and the devices as cli/eval.py's: the checkpoint's, `key
+value` pairs merged over them, one process a device, the first writing.
 """
 
 from __future__ import annotations
@@ -75,23 +77,24 @@ def generate_video(image_path: str, fps: int = 40) -> List[str]:
     return written
 
 
-def run_render(args) -> Dict[int, List[float]]:
+def run_render(args, hparams, device) -> Dict[int, List[float]]:
     """Render the orbit from the checkpoint and write frames and videos;
-    -> {level width divisor: [seconds of each frame]}."""
+    -> {level width divisor: [seconds of each frame]} (the first of a
+    run's processes writes; the others render their rows and -> {})."""
     import numpy as np
 
     from mipnerf_pl_tpu_torch.data.render_path import spheric_render_cameras
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem
-    from mipnerf_pl_tpu_torch.train.ckpt import load_hparams, restore_for_eval
+    from mipnerf_pl_tpu_torch.train.ckpt import restore_for_eval
     from mipnerf_pl_tpu_torch.utils.vis import save_images
 
-    hparams = load_hparams(args.ckpt)
     exp_name = hparams['exp_name']
-    system = MipNeRFSystem(hparams, device=args.device)
+    system = MipNeRFSystem(hparams, device=device)
+    writes = system.mesh.is_root
     system.white_bkgd = bool(args.white_bkgd)
     _, state = restore_for_eval(args.ckpt)
     root = os.path.join(args.out_dir, 'render_spheric', exp_name)
-    for i in range(args.scale):
+    for i in range(args.scale if writes else 0):
         os.makedirs(os.path.join(root, str(2 ** i)), exist_ok=True)
 
     focal = 0.5 * args.base_size[0] / np.tan(0.5 * args.camera_angle_x)
@@ -106,13 +109,16 @@ def run_render(args) -> Dict[int, List[float]]:
                                    chunk_size=args.chunk_size,
                                    need_coarse=False)
         dt = time.perf_counter() - t0
+        if not writes:
+            continue
         level = int(args.base_size[0] / out['fine_rgb'].shape[1])
         seconds.setdefault(level, []).append(dt)
         save_images(out['fine_rgb'], out['distance'], out['acc'],
                     os.path.join(root, str(level)), idx % nums)
         print(f'rendered frame {idx + 1}/{len(all_cams)} ({w}x{h}, '
               f'{dt:.3f} s)', flush=True)
-    generate_video(root)
+    if writes:
+        generate_video(root)
     return seconds
 
 
@@ -135,13 +141,19 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument('--device', help='Device to render on (default: '
                         'cuda; cpu runs the kernels\' plain versions).',
                         default=None)
+    parser.add_argument('opts', nargs=argparse.REMAINDER,
+                        help='Modify the checkpoint\'s hparams, e.g.: '
+                        'num_devices 1')
     return parser
 
 
 def main(argv: Optional[Sequence[str]] = None):
     """Parse argv (None: sys.argv) and render, or only assemble videos with
-    --gen_video_only; -> run_render's frame times, or the videos
-    written."""
+    --gen_video_only; -> run_render's frame times (None where it started
+    workers), or the videos written."""
+    import sys
+
+    from mipnerf_pl_tpu_torch.parallel import launch
     parser = make_parser()
     args = parser.parse_args(argv)
     if args.gen_video_only:
@@ -150,7 +162,20 @@ def main(argv: Optional[Sequence[str]] = None):
         return generate_video(args.render_images_dir)
     if args.ckpt is None:
         parser.error('rendering needs --ckpt')
-    return run_render(args)
+    hparams = launch.checkpoint_hparams(args.ckpt, args.opts)
+    n = launch.workers_to_start(hparams, args.device)
+    if n:
+        code = launch.run_workers(
+            'mipnerf_pl_tpu_torch.cli.render_video',
+            sys.argv[1:] if argv is None else list(argv), n)
+        if code:
+            raise SystemExit(code)
+        return None
+    device = launch.join_group(hparams, args.device)
+    try:
+        return run_render(args, hparams, device)
+    finally:
+        launch.leave_group()
 
 
 if __name__ == '__main__':

@@ -109,11 +109,19 @@ class BaseDataset:
         of the materialized ray bundle."""
         raise NotImplementedError
 
+    def sample_indices(self, rng: np.random.Generator, batch_size: int):
+        """The ray indices of a random batch (train split only)."""
+        return rng.integers(0, self.num_rays, size=(batch_size,))
+
+    def gather(self, idx: np.ndarray):
+        """(Rays, pixels) of the rays at `idx`: the same rows of every ray
+        field and of the pixels."""
+        return Rays(*[f[idx] for f in self.rays]), self.images[idx]
+
     def sample_batch(self, rng: np.random.Generator, batch_size: int):
         """Gather a random ray batch (train split only): one index draw,
         then the same rows of every ray field and of the pixels."""
-        idx = rng.integers(0, self.num_rays, size=(batch_size,))
-        return Rays(*[f[idx] for f in self.rays]), self.images[idx]
+        return self.gather(self.sample_indices(rng, batch_size))
 
 
 class Multicam(BaseDataset):

@@ -13,7 +13,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,21 +25,33 @@ class TrainBatcher:
     """Infinite iterator of (Rays, pixels) batches of tensors on `device`.
 
     Args:
-      dataset: a train-split dataset exposing `sample_batch(rng, batch_size)`.
-      batch_size: rays per training step.
+      dataset: a train-split dataset exposing `sample_batch(rng, n)` and,
+        for a shard, `sample_indices(rng, n)` and `gather(idx)`.
+      batch_size: rays per training step, over every data shard.
       seed: numpy seed for the host-side ray sampler.
       prefetch: number of batches to keep in flight (>=1 enables the
         background thread; 0 is fully synchronous, used by tests).
       steps_per_call: K > 1 yields [K, B, C] stacks for the multi-step
         trainer (one draw of K * B rays, as the JAX batcher makes it).
       device: where the batches go (default: the CPU).
+      shard: (r, d): gather only row block r of d of each step's batch,
+        the rows of data shard r.  Every shard draws the same indices from
+        the same seed, so d shards together see the one-device batch
+        sequence, whatever d is (None: the whole batch).
     """
 
     def __init__(self, dataset, batch_size: int, seed: int = 0,
-                 prefetch: int = 2, steps_per_call: int = 1, device='cpu'):
+                 prefetch: int = 2, steps_per_call: int = 1, device='cpu',
+                 shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.steps_per_call = steps_per_call
+        rank, d = shard or (0, 1)
+        if batch_size % d:
+            raise ValueError(f'train.batch_size={batch_size} does not divide '
+                             f'among data={d} shards')
+        per = batch_size // d
+        self.rows = (rank * per, (rank + 1) * per)
         self.rng = np.random.default_rng(seed)
         self.device = torch.device(device)
         self._copy_stream = (torch.cuda.Stream(self.device)
@@ -57,12 +69,19 @@ class TrainBatcher:
     def _make_batch(self):
         """-> (rays, pixels, the copy's event or None)."""
         k = self.steps_per_call
-        rays, pixels = self.dataset.sample_batch(self.rng,
-                                                 k * self.batch_size)
+        start, stop = self.rows
+        if stop - start == self.batch_size:
+            rays, pixels = self.dataset.sample_batch(self.rng,
+                                                     k * self.batch_size)
+        else:
+            # The whole draw, then this shard's rows of each step.
+            idx = self.dataset.sample_indices(self.rng, k * self.batch_size)
+            rays, pixels = self.dataset.gather(
+                idx.reshape(k, self.batch_size)[:, start:stop].reshape(-1))
         if k > 1:
             # [K*B, C] -> [K, B, C] stacks for the multi-step trainer.
             def reshape(x):
-                return x.reshape(k, self.batch_size, x.shape[-1])
+                return x.reshape(k, stop - start, x.shape[-1])
             rays = Rays(*[reshape(f) for f in rays])
             pixels = reshape(pixels)
         return self._put_on_device(rays, pixels)

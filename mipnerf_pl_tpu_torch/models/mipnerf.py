@@ -67,7 +67,8 @@ from mipnerf_pl_tpu_torch.ops.math import (cast_rays_cmajor,
                                            integrated_pos_enc_360, pos_enc)
 from mipnerf_pl_tpu_torch.ops.render import (clamp_distance, delta_mids,
                                              volumetric_rendering)
-from mipnerf_pl_tpu_torch.ops.sampling import (resample_along_rays,
+from mipnerf_pl_tpu_torch.ops.sampling import (Rows, draw,
+                                               resample_along_rays,
                                                resample_along_rays_360,
                                                sample_along_rays,
                                                sample_along_rays_360)
@@ -209,11 +210,13 @@ class MipNerf(nn.Module):
         return moments
 
     def forward(self, rays: Rays, randomized: bool, white_bkgd: bool,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[LevelOutput, ...]:
+                generator: Optional[torch.Generator] = None,
+                rows: Rows = None) -> Tuple[LevelOutput, ...]:
         """Render a batch of rays [B, ...] at every level (coarse first).
         `generator` drives the stratified jitter, the resample jitter and
-        the density noise when `randomized`."""
+        the density noise when `randomized`; a data shard passes its `rows`
+        (start, stop, total) of the whole batch, and each draw is made at
+        the batch's shape (ops/sampling.py `draw`)."""
         ret = []
         t_samples, weights = None, None
         for i_level in range(self.num_levels):
@@ -221,24 +224,25 @@ class MipNerf(nn.Module):
                 t_samples, means_covs = sample_along_rays_360(
                     rays.origins, rays.directions, rays.radii,
                     self.num_samples, rays.near, rays.far, randomized,
-                    self.ray_shape, generator=generator)
+                    self.ray_shape, generator=generator, rows=rows)
             elif self.unbounded:
                 t_samples, means_covs = resample_along_rays_360(
                     rays.origins, rays.directions, rays.radii, t_samples,
                     weights, randomized, self.ray_shape,
                     self.stop_resample_grad, self.resample_padding,
-                    generator=generator)
+                    generator=generator, rows=rows)
             elif i_level == 0:
                 t_samples, means_covs = sample_along_rays(
                     rays.origins, rays.directions, rays.radii,
                     self.num_samples, rays.near, rays.far, randomized,
-                    self.disparity, self.ray_shape, generator=generator)
+                    self.disparity, self.ray_shape, generator=generator,
+                    rows=rows)
             else:
                 t_samples, means_covs = resample_along_rays(
                     rays.origins, rays.directions, rays.radii, t_samples,
                     weights, randomized, self.ray_shape,
                     self.stop_resample_grad, self.resample_padding,
-                    generator=generator)
+                    generator=generator, rows=rows)
             viewdirs_enc = (pos_enc(rays.viewdirs, 0, self.deg_view,
                                     self.append_identity)
                             if self.use_viewdirs else None)
@@ -283,11 +287,9 @@ class MipNerf(nn.Module):
                 rgb, density = raw_rgb, raw_density
             else:
                 if randomized and self.density_noise > 0:
-                    raw_density = raw_density + self.density_noise * \
-                        torch.randn(raw_density.shape,
-                                    dtype=raw_density.dtype,
-                                    device=raw_density.device,
-                                    generator=generator)
+                    raw_density = raw_density + self.density_noise * draw(
+                        raw_density.shape, raw_density.dtype,
+                        raw_density.device, generator, rows, normal=True)
                 rgb = torch.sigmoid(raw_rgb)
                 rgb = rgb * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
                 density = self._density_act(raw_density + self.density_bias)

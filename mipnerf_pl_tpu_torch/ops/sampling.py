@@ -10,12 +10,15 @@ padding of degenerate weights, the [0, 1-eps] deterministic u grid and the
 
 Randomness: pass a `torch.Generator`, or inject the uniform draws
 (`t_rand`, `u_rand`) so a test can feed two implementations the same
-numbers.
+numbers.  A data shard passes `rows` = (start, stop, total), its rows of
+a `total`-ray batch: each draw is then made at the batch's shape and the
+shard's rows kept (`draw`), so the shards of a batch draw what one device
+would.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,12 +26,31 @@ from mipnerf_pl_tpu_torch.ops.math import cast_rays
 
 _F32_EPS = float(torch.finfo(torch.float32).eps)
 
+Rows = Optional[Tuple[int, int, int]]
+
+
+def draw(shape, dtype, device, generator: Optional[torch.Generator],
+         rows: Rows = None, normal: bool = False) -> torch.Tensor:
+    """torch.rand (torch.randn with `normal`) of `shape` [B, ...]; with
+    rows = (start, stop, total), rows start:stop of the draw at [total,
+    ...], so that a shard's draw equals its rows of the whole batch's."""
+    fn = torch.randn if normal else torch.rand
+    if rows is None:
+        return fn(shape, dtype=dtype, device=device, generator=generator)
+    start, stop, total = rows
+    if stop - start != shape[0]:
+        raise ValueError(f'rows {rows} for a draw of {shape[0]} rows')
+    full = fn((total, *shape[1:]), dtype=dtype, device=device,
+              generator=generator)
+    return full[start:stop]
+
 
 def sample_along_rays(origins, directions, radii, num_samples: int, near,
                       far, randomized: bool, disparity: bool,
                       ray_shape: str,
                       generator: Optional[torch.Generator] = None,
-                      t_rand: Optional[torch.Tensor] = None):
+                      t_rand: Optional[torch.Tensor] = None,
+                      rows: Rows = None):
     """Stratified samples along rays, cast to Gaussians.
 
     origins/directions [B, 3], radii/near/far [B, 1] ->
@@ -42,14 +64,14 @@ def sample_along_rays(origins, directions, radii, num_samples: int, near,
     else:
         t_samples = near + (far - near) * t                     # [B, N+1]
     t_samples = _stratify(t_samples, batch_size, randomized, generator,
-                          t_rand)
+                          t_rand, rows)
     means, covs = cast_rays(t_samples, origins, directions, radii, ray_shape)
     return t_samples, (means, covs)
 
 
 def _stratify(t, batch_size: int, randomized: bool,
               generator: Optional[torch.Generator],
-              t_rand: Optional[torch.Tensor]):
+              t_rand: Optional[torch.Tensor], rows: Rows = None):
     """Fenceposts t [.., N+1] -> [B, N+1]: each jittered uniformly within
     the interval between its neighbours' midpoints when `randomized`
     (`t_rand`, else the generator's draw), else broadcast."""
@@ -59,22 +81,24 @@ def _stratify(t, batch_size: int, randomized: bool,
     upper = torch.cat([mids, t[..., -1:]], dim=-1)
     lower = torch.cat([t[..., :1], mids], dim=-1)
     if t_rand is None:
-        t_rand = torch.rand((batch_size, t.shape[-1]), dtype=t.dtype,
-                            device=t.device, generator=generator)
+        t_rand = draw((batch_size, t.shape[-1]), t.dtype, t.device,
+                      generator, rows)
     return lower + (upper - lower) * t_rand
 
 
 def sample_along_rays_360(origins, directions, radii, num_samples: int, near,
                           far, randomized: bool, ray_shape: str,
                           generator: Optional[torch.Generator] = None,
-                          t_rand: Optional[torch.Tensor] = None):
+                          t_rand: Optional[torch.Tensor] = None,
+                          rows: Rows = None):
     """Inverse-depth samples for unbounded scenes -> (t_inv [B, N+1],
     descending from 1/near to 1/far, (means [B, N, 3], covs [B, N, 3, 3]))
     of the segments of t = 1/t_inv.  `t_rand` as in sample_along_rays."""
     dtype, device = origins.dtype, origins.device
     t = torch.linspace(0.0, 1.0, num_samples + 1, dtype=dtype, device=device)
     t_inv = _stratify((1.0 / far) * t + (1.0 - t) * (1.0 / near),
-                      origins.shape[0], randomized, generator, t_rand)
+                      origins.shape[0], randomized, generator, t_rand,
+                      rows)
     means, covs = cast_rays(1.0 / t_inv, origins, directions, radii,
                             ray_shape, diagonal=False)
     return t_inv, (means, covs)
@@ -83,7 +107,8 @@ def sample_along_rays_360(origins, directions, radii, num_samples: int, near,
 def sorted_piecewise_constant_pdf(bins, weights, num_samples: int,
                                   randomized: bool,
                                   generator: Optional[torch.Generator] = None,
-                                  u_rand: Optional[torch.Tensor] = None):
+                                  u_rand: Optional[torch.Tensor] = None,
+                                  rows: Rows = None):
     """Inverse-transform samples from a piecewise-constant PDF.
 
     bins [B, M+1] sorted, weights [B, M] >= 0 -> samples [B, S] ascending.
@@ -106,8 +131,7 @@ def sorted_piecewise_constant_pdf(bins, weights, num_samples: int,
         s = 1.0 / num_samples
         u = torch.arange(num_samples, dtype=dtype, device=device) * s
         if u_rand is None:
-            u_rand = torch.rand(shape, dtype=dtype, device=device,
-                                generator=generator)
+            u_rand = draw(shape, dtype, device, generator, rows)
         u = u + u_rand * (s - _F32_EPS)
         u = torch.clamp(u, max=1.0 - _F32_EPS)
     else:
@@ -145,7 +169,8 @@ def resample_along_rays(origins, directions, radii, t_samples, weights,
                         randomized: bool, ray_shape: str, stop_grad: bool,
                         resample_padding: float,
                         generator: Optional[torch.Generator] = None,
-                        u_rand: Optional[torch.Tensor] = None):
+                        u_rand: Optional[torch.Tensor] = None,
+                        rows: Rows = None):
     """Hierarchical resampling: blurpool the previous level's weights and
     draw new fenceposts from their PDF.
 
@@ -153,7 +178,7 @@ def resample_along_rays(origins, directions, radii, t_samples, weights,
     weights_blur = _blurpool(weights, resample_padding)
     new_t_samples = sorted_piecewise_constant_pdf(
         t_samples, weights_blur, t_samples.shape[-1], randomized,
-        generator=generator, u_rand=u_rand)
+        generator=generator, u_rand=u_rand, rows=rows)
     if stop_grad:
         new_t_samples = new_t_samples.detach()
     means, covs = cast_rays(new_t_samples, origins, directions, radii,
@@ -165,7 +190,8 @@ def resample_along_rays_360(origins, directions, radii, t_inv, weights,
                             randomized: bool, ray_shape: str,
                             stop_grad: bool, resample_padding: float,
                             generator: Optional[torch.Generator] = None,
-                            u_rand: Optional[torch.Tensor] = None):
+                            u_rand: Optional[torch.Tensor] = None,
+                            rows: Rows = None):
     """Hierarchical resampling in inverse depth: the blurpooled weights'
     PDF over the descending t_inv bins is sampled in flipped (ascending)
     order, before the search, and the draws are flipped back.  `u_rand`
@@ -175,7 +201,8 @@ def resample_along_rays_360(origins, directions, radii, t_inv, weights,
     weights_blur = _blurpool(weights, resample_padding)
     new_asc = sorted_piecewise_constant_pdf(
         torch.flip(t_inv, dims=(-1,)), torch.flip(weights_blur, dims=(-1,)),
-        t_inv.shape[-1], randomized, generator=generator, u_rand=u_rand)
+        t_inv.shape[-1], randomized, generator=generator, u_rand=u_rand,
+        rows=rows)
     new_t_inv = torch.flip(new_asc, dims=(-1,))
     if stop_grad:
         new_t_inv = new_t_inv.detach()

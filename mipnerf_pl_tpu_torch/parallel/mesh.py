@@ -6,29 +6,37 @@ r // model and model index r % model, as the JAX mesh reshapes its device
 list.  Two forms behind one interface, and the caller says which:
 
   single-process  every shard lives on one torch device (`cuda` unless the
-      caller asks for the CPU) and the shards run in turn.  A sum over the
-      `model` axis adds the shards' f32 partials in rank order.  The
-      counterpart of JAX's one controller over several (virtual) devices,
-      and the form one card runs: NCCL does not take two ranks on one
-      device.
+      caller asks for the CPU) and the shards run in turn.  A sum over an
+      axis adds the shards' f32 partials in shard order.  The counterpart
+      of JAX's one controller over several (virtual) devices, and the form
+      one card runs: NCCL does not take two ranks on one device.
   multi-process  (`distributed=True`) one process a shard over
-      `torch.distributed` (NCCL on a card, gloo on the CPU), initialised by
-      the caller or by `maybe_initialize_distributed`; a `model` group and
-      a `data` group per rank.  Only the `model` axis has collectives here:
-      each process passes its own rows, and reducing parameter gradients
-      over `data` is not done.
+      `torch.distributed` (NCCL on a card, gloo on the CPU or, for two
+      processes on one card, on CUDA tensors), initialised by the caller or
+      by `maybe_initialize_distributed`; a `model` group and a `data` group
+      per rank.
 
-The collectives are Megatron's two operators: `copy_to_model` (identity
-forward, a sum over `model` backward) and `reduce_from_model` (a sum
-forward, identity backward).  On a single-process mesh autograd gives both
-for free: a tensor used by every shard collects the sum of their
+The `model` collectives are Megatron's two operators: `copy_to_model`
+(identity forward, a sum over `model` backward) and `reduce_from_model` (a
+sum forward, identity backward).  On a single-process mesh autograd gives
+both for free: a tensor used by every shard collects the sum of their
 cotangents, and a sum hands its cotangent to every term.
+
+The `data` collectives serve data parallelism, where every shard holds the
+whole model and its rows of each batch: `data_rows` names the rows a
+process computes, `reduce_from_data` sums the shards' gradients and loss
+partials, `assemble_rows` hands every process the rows of all shards, and
+`broadcast_from_data_root` starts every process from the first's
+parameters.  They are `all_reduce` and `broadcast` only (row assembly is a
+sum of zero-filled buffers), the two collectives gloo also takes on CUDA
+tensors.  Where JAX places a global array with `put_global` and
+`batch_sharding`, a process here computes its own rows.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -85,6 +93,111 @@ class Mesh:
         self.model_ranks = [self.model_rank] if distributed \
             else list(range(model))
 
+    def __repr__(self):
+        where = f'process {self.rank}' if self.distributed else 'one process'
+        return (f'Mesh(data={self.shape["data"]}, model={self.shape["model"]}'
+                f', {where}, device={self.device})')
+
+    @property
+    def is_root(self) -> bool:
+        """True on the process that writes the run's files: rank 0 of a
+        multi-process mesh, and the one process of a single-process one."""
+        return self.rank == 0
+
+    def data_rows(self, total: int) -> List[Tuple[int, int]]:
+        """[(start, stop)] of the data shards this process computes, as
+        rows of a `total`-row batch split evenly over `data`: every shard
+        in turn on a single-process mesh, this process's own on a
+        multi-process one."""
+        d = self.shape['data']
+        if total % d:
+            raise ValueError(f'{total} rows do not divide among data={d} '
+                             'shards')
+        per = total // d
+        shards = [self.data_rank] if self.distributed else range(d)
+        return [(i * per, (i + 1) * per) for i in shards]
+
+    def reduce_from_data(self, partials: Sequence[Sequence[torch.Tensor]]
+                         ) -> List[torch.Tensor]:
+        """The sum over `data` of each tensor of a list, given one list a
+        data shard this process computes (in `data_rows`' order): added in
+        shard order on a single-process mesh, one `all_reduce` of the
+        tensors packed into one f32 buffer on a multi-process one.  Every
+        process gets the same sums."""
+        if len(partials) != (1 if self.distributed else self.shape['data']):
+            raise ValueError(f'{len(partials)} partials for a data axis of '
+                             f'{self.shape["data"]} on {self!r}')
+        if not self.distributed:
+            totals = list(partials[0])
+            for part in partials[1:]:
+                totals = [a + b for a, b in zip(totals, part)]
+            return totals
+        tensors = list(partials[0])
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        if self.shape['data'] > 1:
+            dist.all_reduce(flat, group=self.data_group)
+        out, at = [], 0
+        for t in tensors:
+            out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
+            at += t.numel()
+        return out
+
+    def assemble_rows(self, parts: Sequence[torch.Tensor], total: int
+                      ) -> torch.Tensor:
+        """The [total, ...] tensor of every shard's rows, given the rows of
+        the shards this process computes (`data_rows(total)`'s order): a
+        concatenation on a single-process mesh; on a multi-process one an
+        `all_reduce` of a zero-filled buffer into which this process wrote
+        its rows, so every process gets them all."""
+        rows = self.data_rows(total)
+        if len(parts) != len(rows):
+            raise ValueError(f'{len(parts)} parts for the shards {rows}')
+        if not self.distributed:
+            return torch.cat(list(parts), dim=0)
+        (start, stop), = rows
+        part = parts[0]
+        full = torch.zeros((total, *part.shape[1:]), dtype=part.dtype,
+                           device=part.device)
+        full[start:stop] = part
+        if self.shape['data'] > 1:
+            dist.all_reduce(full, group=self.data_group)
+        return full
+
+    def broadcast_from_data_root(self, tensors: Sequence[torch.Tensor]
+                                 ) -> None:
+        """Overwrite the tensors IN PLACE with those of data index 0 of
+        this process's `data` group; nothing to do on a single-process
+        mesh."""
+        if not self.distributed or self.shape['data'] == 1:
+            return
+        root = dist.get_global_rank(self.data_group, 0)
+        with torch.no_grad():
+            for t in tensors:
+                dist.broadcast(t.data, src=root, group=self.data_group)
+
+    def check_equal_over_data(self, tensors: Sequence[torch.Tensor],
+                              what: str) -> None:
+        """Raise unless every process of this `data` group holds the same
+        bits in each f32 tensor: one all_reduce(MAX) of each tensor's bit
+        sum and its negation.  Nothing to check on a single-process
+        mesh."""
+        if not self.distributed or self.shape['data'] == 1:
+            return
+        sums = torch.stack([t.detach().contiguous().view(torch.int32)
+                            .to(torch.int64).sum() for t in tensors])
+        both = torch.cat([sums, -sums])
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self.data_group)
+        n = len(tensors)
+        if not torch.equal(both[:n], -both[n:]):
+            raise RuntimeError(f'{what} differ between the processes of the '
+                               f'data axis ({self!r})')
+
+    def barrier(self) -> None:
+        """Wait for every process of the mesh (a one-element all_reduce on
+        the mesh's device, which both backends take)."""
+        if self.distributed:
+            dist.all_reduce(torch.zeros(1, device=self.device))
+
     def copy_to_model(self, t: torch.Tensor) -> torch.Tensor:
         if not self.distributed:
             return t
@@ -124,26 +237,35 @@ class Mesh:
                  view[i * per:(i + 1) * per]) for i in range(d)]
 
 
+def multi_host(hparams) -> bool:
+    """Whether `parallel.multi_host` is set (None and 'None' are unset)."""
+    v = hparams.get('parallel.multi_host')
+    return v is not None and str(v) != 'None' and bool(v)
+
+
 def maybe_initialize_distributed(hparams, device='cuda',
-                                 timeout_s: float = 1800.0) -> bool:
+                                 timeout_s: float = 1800.0,
+                                 backend: Optional[str] = None) -> bool:
     """`torch.distributed.init_process_group` gated on
     `parallel.multi_host`, from the same keys as the JAX package:
     `parallel.coordinator_address` (host:port), `parallel.num_processes`
-    and `parallel.process_id`.  NCCL for a CUDA `device`, gloo for the CPU.
-    Nothing tells a process of its cluster here, so all three are required.
+    and `parallel.process_id`.  NCCL for a CUDA `device`, gloo for the CPU,
+    unless `backend` says (gloo for two processes on one card).  Nothing
+    tells a process of its cluster here, so all three are required.
     Returns True iff the group was initialised."""
     def _get(key):
         v = hparams.get(key)
         return None if v is None or str(v) == 'None' else v
 
-    if not _get('parallel.multi_host'):
+    if not multi_host(hparams):
         return False
     keys = ('parallel.coordinator_address', 'parallel.num_processes',
             'parallel.process_id')
     missing = [k for k in keys if _get(k) is None]
     if missing:
         raise ValueError(f'parallel.multi_host needs {", ".join(missing)}')
-    backend = 'nccl' if torch.device(device).type == 'cuda' else 'gloo'
+    if backend is None:
+        backend = 'nccl' if torch.device(device).type == 'cuda' else 'gloo'
     dist.init_process_group(
         backend, init_method=f'tcp://{_get(keys[0])}',
         world_size=int(_get(keys[1])), rank=int(_get(keys[2])),
@@ -207,6 +329,26 @@ def create_mesh(num_devices: int = 0, model_axis: int = 1, device=None,
             data_group = group
     return Mesh(data, model_axis, device, True, rank, model_group,
                 data_group)
+
+
+def process_count() -> int:
+    """The processes of the run: the process group's world size, 1 with no
+    group (jax.process_count())."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def requested_devices(hparams) -> int:
+    """The device count the hparams ask for, as the JAX system reads it:
+    `num_devices` wins; otherwise `num_gpus` when it is above 1 (0 or 1
+    mean unset); 0 = every device there is."""
+    def _int(key):
+        v = hparams.get(key)
+        return 0 if v is None or str(v) == 'None' else int(v)
+
+    n = _int('num_devices')
+    if n <= 0 and _int('num_gpus') > 1:
+        n = _int('num_gpus')
+    return max(n, 0)
 
 
 def pad_batch_to_devices(n: int, num_devices: int) -> int:

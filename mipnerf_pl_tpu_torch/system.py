@@ -18,6 +18,20 @@ its results sliced away) in a Python loop; there is no jit to build.
 Parameters are passed in, as in the JAX system, as the MipNerf state dict
 (convert.py maps a flax tree to it).
 
+Data parallelism: the system runs over the `data` axis of its mesh
+(parallel/mesh.py), resolved from `num_devices` / `num_gpus` as JAX
+resolves them (`resolve_mesh`), or given.  Each data shard computes its
+rows of a batch, drawing its random numbers at the batch's shape (its
+`rows`), and its term of the batch's loss: the masked MSE over the batch's
+sum(lossmult), distloss over the batch's rays.  The gradients and the aux
+sums are reduced over `data` before the Adam step, so every shard updates
+the same parameters by the same sum, and the result is that of one device
+on the whole batch.  A render splits each chunk over the shards and
+assembles the rows.  A single-process mesh runs the shards in turn; on a
+multi-process one (one process a device, cli/train.py's launcher or
+`parallel.multi_host`) each process holds its own rows and the first
+writes the run's files.
+
 The run: `setup` builds the train / val datasets and the prefetching
 TrainBatcher, `validate` renders val images (through `camera()` where the
 dataset has one) and returns the mean loss and PSNR, and `fit` is the whole
@@ -41,6 +55,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from mipnerf_pl_tpu_torch import config
@@ -49,12 +64,15 @@ from mipnerf_pl_tpu_torch.data.pipeline import TrainBatcher
 from mipnerf_pl_tpu_torch.models.mipnerf import make_mipnerf_from_hparams
 from mipnerf_pl_tpu_torch.ops.camera import Camera, camera_rays
 from mipnerf_pl_tpu_torch.ops.render import distloss
+from mipnerf_pl_tpu_torch.parallel.mesh import (Mesh, create_mesh,
+                                                multi_host,
+                                                pad_batch_to_devices,
+                                                requested_devices)
 from mipnerf_pl_tpu_torch.rays import (Rays, namedtuple_map, rays_flatten,
                                        rays_pad_to)
 from mipnerf_pl_tpu_torch.train.ckpt import CheckpointManager
 from mipnerf_pl_tpu_torch.train.opt import adam, adam_step
 from mipnerf_pl_tpu_torch.train.schedule import mip_lr_decay
-from mipnerf_pl_tpu_torch.utils.metrics import calc_psnr
 from mipnerf_pl_tpu_torch.utils.vis import stack_rgb, visualize_depth
 
 
@@ -130,38 +148,64 @@ def _compute_dtype(hparams) -> torch.dtype:
 
 
 def _refuse_parallel_settings(hparams) -> None:
-    """The system trains and renders on one device.  The mesh, the Megatron
-    shardings and `tp_lean_forward` exist (parallel/, kernels/tp_lean.py),
-    but nothing here drives them yet, so a request for more than one device
+    """The system runs data-parallel over the mesh's `data` axis.  The
+    Megatron shardings and `tp_lean_forward` exist (parallel/,
+    kernels/tp_lean.py), but nothing here drives them yet, so a model axis
     is refused rather than dropped."""
-    def _get(key, default):
-        v = hparams.get(key)
-        return default if v is None or str(v) == 'None' else v
-
-    asked = [f'{key}={hparams.get(key)!r}'
-             for key in ('num_devices', 'num_gpus') if int(_get(key, 0)) > 1]
-    if int(_get('parallel.model_axis', 1)) > 1:
-        asked.append(f'parallel.model_axis={hparams["parallel.model_axis"]!r}')
-    if _get('parallel.multi_host', False):
-        asked.append(f'parallel.multi_host={hparams["parallel.multi_host"]!r}')
-    if asked:
+    axis = hparams.get('parallel.model_axis')
+    if axis is not None and str(axis) != 'None' and int(axis) > 1:
         raise NotImplementedError(
-            f'MipNeRFSystem runs on one device; {", ".join(asked)} asks for '
-            'data or tensor parallelism through the system, which is not '
-            'ported yet (ROADMAP.md, queue 1: data parallelism through '
-            'fit, MipNeRFSystem under parallel.model_axis > 1, '
-            'multi-host)')
+            f'parallel.model_axis={hparams["parallel.model_axis"]!r} asks '
+            'for tensor parallelism through the system, which is not ported '
+            'yet (ROADMAP.md, queue 1 item 4: MipNeRFSystem under '
+            'parallel.model_axis > 1)')
+
+
+def resolve_mesh(hparams, device: torch.device) -> Mesh:
+    """The system's mesh from the hparams, as the JAX system resolves its
+    device count (`requested_devices`; 0 = every visible card).  With an
+    initialised process group: the multi-process mesh, one process a
+    device, whose world size the count must equal.  Without one, one
+    device: a larger count needs its processes (the CLIs start them) or an
+    explicit single-process `mesh=`; the count is never quietly cut."""
+    n = requested_devices(hparams)
+    if dist.is_initialized():
+        return create_mesh(n, device=device, distributed=True)
+    if multi_host(hparams):
+        raise ValueError(
+            'parallel.multi_host is set and no process group is '
+            'initialised: call parallel.mesh.maybe_initialize_distributed '
+            'before building the system (cli.train does)')
+    if n == 0 and device.type == 'cuda':
+        n = torch.cuda.device_count()          # every visible card
+    if n > 1:
+        raise ValueError(
+            f'num_devices={hparams.get("num_devices")!r}, num_gpus='
+            f'{hparams.get("num_gpus")!r} ask for {n} data shards, and this '
+            'process drives one device: start one process a device with the '
+            f'launcher of python -m mipnerf_pl_tpu_torch.cli.train (it '
+            f'starts {n} workers; parallel.multi_host joins them across '
+            f'hosts), or pass mesh=create_mesh({n}, device=...) for the '
+            'single-process mesh')
+    return create_mesh(1, device=device)
 
 
 class MipNeRFSystem:
-    """Owns the model, its render-time twin and the optimizer schedule on
-    one device: a CUDA device unless `device` says otherwise (the CPU runs
-    the kernels' plain versions)."""
+    """Owns the model, its render-time twin, the optimizer schedule and the
+    mesh: a CUDA device unless `device` says otherwise (the CPU runs the
+    kernels' plain versions), and the mesh from the hparams
+    (`resolve_mesh`) unless `mesh` is given.  Over a mesh's `data` axis
+    every step, loss and render is that of one device on the whole batch:
+    each shard computes its rows and the sums are reduced over `data`, as
+    JAX's sharded step gives."""
 
-    def __init__(self, hparams: Dict[str, Any], device=None):
+    def __init__(self, hparams: Dict[str, Any], device=None,
+                 mesh: Optional[Mesh] = None):
         config.warn_inert_keys(hparams)
         _refuse_parallel_settings(hparams)
         self.hparams = dict(hparams)
+        if device is None and mesh is not None:
+            device = mesh.device
         if device is None:
             if not torch.cuda.is_available():
                 raise ValueError(
@@ -170,6 +214,15 @@ class MipNeRFSystem:
                     'PyTorch versions of the kernels on the CPU')
             device = 'cuda'
         self.device = torch.device(device)
+        if mesh is None:
+            mesh = resolve_mesh(hparams, self.device)
+        elif mesh.device != self.device:
+            raise ValueError(f'device {self.device} but the mesh is on '
+                             f'{mesh.device}')
+        if mesh.shape['model'] > 1:
+            _refuse_parallel_settings({'parallel.model_axis':
+                                       mesh.shape['model']})
+        self.mesh = mesh
         compute_dtype = _compute_dtype(hparams)
         self.model = make_mipnerf_from_hparams(hparams, compute_dtype)
         # Inference model: same parameters, its own backend (val.mlp_backend;
@@ -201,6 +254,9 @@ class MipNeRFSystem:
         self.white_bkgd = bool(hparams['train.white_bkgd'])
         self.val_chunk_size = int(hparams['val.chunk_size'])
         self.batch_size = int(hparams['train.batch_size'])
+        if self.batch_size % mesh.shape['data']:
+            raise ValueError(f'train.batch_size={self.batch_size} does not '
+                             f'divide among data={mesh.shape["data"]} shards')
         self.train_dataset = None
         self.val_dataset = None
         self.batcher = None
@@ -237,6 +293,8 @@ class MipNeRFSystem:
         params = self.init_params(seed) if params is None else params
         params = {k: v.detach().to(self.device, torch.float32).clone()
                   .requires_grad_(True) for k, v in params.items()}
+        # Every process starts from the first one's parameters.
+        self.mesh.broadcast_from_data_root(list(params.values()))
         return {'params': params, 'opt_state': adam(list(params.values())),
                 'step': 0}
 
@@ -250,7 +308,7 @@ class MipNeRFSystem:
 
     def load_state(self, host: Dict[str, Any]) -> Dict[str, Any]:
         """A training state on the system's device from `host_state`'s
-        form."""
+        form (the parameters those of the mesh's first process)."""
         state = self.init_state(params=host['params'])
         state['opt_state'].load_state_dict(host['opt_state'])
         state['step'] = int(host['step'])
@@ -264,28 +322,36 @@ class MipNeRFSystem:
                                           data_path, 'train')
         self.val_dataset = make_dataset(self.hparams, dataset_name,
                                         data_path, 'val')
+        # A process of a multi-process mesh gathers its own rows of each
+        # batch; a single-process mesh splits the whole batch in the step.
         self.batcher = TrainBatcher(
             self.train_dataset, self.batch_size,
             seed=int(self.hparams['seed'] if seed is None else seed),
             prefetch=prefetch, steps_per_call=steps_per_call,
-            device=self.device)
+            device=self.device,
+            shard=((self.mesh.data_rank, self.mesh.shape['data'])
+                   if self.mesh.distributed else None))
 
     def _on_device(self, x):
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                                dtype=torch.float32, device=self.device)
 
-    def loss_fn(self, params, rays: Rays, pixels,
-                generator: Optional[torch.Generator] = None):
-        """-> (loss, aux): the masked MSE of every level plus distloss_mult
-        * distloss, the coarser levels weighted by coarse_loss_mult."""
+    def _shard_loss(self, params, rays: Rays, pixels,
+                    generator: Optional[torch.Generator], rows,
+                    mask_sum, n_rays: int):
+        """One data shard's term of the batch's loss, and its detached sums
+        [loss term, fine and coarse squared error, fine MSE term, fine
+        distloss term].  `rows` (start, stop, total) places the shard's rays
+        in the batch (its random draws); `mask_sum` and `n_rays` are the
+        batch's, so the terms of the shards add up to the batch's loss: the
+        masked MSE over the batch's sum(lossmult), distloss the batch's
+        mean over rays."""
         ret = functional_call(self.model, params,
                               (rays, self.train_randomized, self.white_bkgd),
-                              {'generator': generator})
-        mask = rays.lossmult
-        if self.disable_multiscale_loss:
-            mask = torch.ones_like(mask)
-        mask_sum = torch.sum(mask)
+                              {'generator': generator, 'rows': rows})
+        mask = self._loss_mask(rays)
         gt = pixels[..., :3]
+        share = gt.shape[0] / n_rays
         losses, dists = [], []
         for level in ret:
             losses.append(torch.sum(mask * (level.rgb - gt) ** 2) / mask_sum)
@@ -298,26 +364,88 @@ class MipNeRFSystem:
                 # ascending bins (its prefix-sum identity negates on
                 # descending ones), so both are flipped.
                 w, t = torch.flip(w, dims=(-1,)), torch.flip(t, dims=(-1,))
-            dists.append(distloss(w, t))
+            dists.append(distloss(w, t) * share)
         loss = losses[-1] + self.distloss_mult * dists[-1]
         for mse_c, dist_c in zip(losses[:-1], dists[:-1]):
             loss = loss + self.coarse_loss_mult * (
                 mse_c + self.distloss_mult * dist_c)
         with torch.no_grad():
-            aux = {'loss': loss.detach(),
-                   'train/psnr': calc_psnr(ret[-1].rgb, gt),
-                   'train/psnr_coarse': calc_psnr(ret[0].rgb, gt),
-                   'train/mse_fine': losses[-1].detach(),
-                   'train/distloss_fine': dists[-1].detach()}
-        return loss, aux
+            sums = [loss.detach(), torch.sum((ret[-1].rgb - gt) ** 2),
+                    torch.sum((ret[0].rgb - gt) ** 2), losses[-1].detach(),
+                    dists[-1].detach()]
+        return loss, sums
+
+    @staticmethod
+    def _aux(sums, n_rays: int):
+        """The step's aux from the batch's sums (`_shard_loss`'s list)."""
+        loss, se_fine, se_coarse, mse_fine, dist_fine = sums
+        return {'loss': loss,
+                'train/psnr': -10.0 * torch.log10(se_fine / (3 * n_rays)),
+                'train/psnr_coarse':
+                    -10.0 * torch.log10(se_coarse / (3 * n_rays)),
+                'train/mse_fine': mse_fine,
+                'train/distloss_fine': dist_fine}
+
+    def _loss_mask(self, rays: Rays):
+        """Each ray's weight in the MSE: its lossmult, or 1 where the
+        multi-scale loss is disabled."""
+        if self.disable_multiscale_loss:
+            return torch.ones_like(rays.lossmult)
+        return rays.lossmult
+
+    def loss_fn(self, params, rays: Rays, pixels,
+                generator: Optional[torch.Generator] = None):
+        """-> (loss, aux) of one device on the batch: the masked MSE of
+        every level plus distloss_mult * distloss, the coarser levels
+        weighted by coarse_loss_mult."""
+        n = pixels.shape[0]
+        loss, sums = self._shard_loss(params, rays, pixels, generator, None,
+                                      torch.sum(self._loss_mask(rays)), n)
+        return loss, self._aux(sums, n)
+
+    def _shard_generators(self, generator: Optional[torch.Generator],
+                          n: int):
+        """n generators in `generator`'s state, one a data shard (itself
+        when n is 1), so each shard draws what one device would."""
+        if generator is None or n == 1:
+            return [generator] * n
+        gens = []
+        for _ in range(n):
+            g = torch.Generator(device=generator.device)
+            g.set_state(generator.get_state())
+            gens.append(g)
+        return gens
 
     def value_and_grad(self, params, rays: Rays, pixels,
                        generator: Optional[torch.Generator] = None):
-        """-> ((loss, aux), {name: gradient}) of loss_fn."""
+        """-> ((loss, aux), {name: gradient}) of loss_fn on the whole batch,
+        over the mesh's `data` axis: `rays` and `pixels` are this process's
+        rows (all of them on a single-process mesh, which runs the shards
+        in turn); each shard's loss term is differentiated, and the
+        gradients and the aux sums are reduced over `data`."""
         names = list(params)
-        loss, aux = self.loss_fn(params, rays, pixels, generator)
-        grads = torch.autograd.grad(loss, [params[k] for k in names])
-        return (loss.detach(), aux), dict(zip(names, grads))
+        mesh = self.mesh
+        n_local = pixels.shape[0]
+        n_rays = n_local * (mesh.shape['data'] if mesh.distributed else 1)
+        shards = mesh.data_rows(n_rays)
+        base = shards[0][0]
+        mask = self._loss_mask(rays)
+        mask_sum, = mesh.reduce_from_data(
+            [[torch.sum(mask[a - base:b - base])] for a, b in shards])
+        gens = self._shard_generators(generator, len(shards))
+        partials = []
+        for (a, b), gen in zip(shards, gens):
+            part = namedtuple_map(lambda x: x[a - base:b - base], rays)
+            loss, sums = self._shard_loss(
+                params, part, pixels[a - base:b - base], gen,
+                (a, b, n_rays), mask_sum, n_rays)
+            grads = torch.autograd.grad(loss, [params[k] for k in names])
+            partials.append(list(grads) + sums)
+        if gens[-1] is not generator:
+            generator.set_state(gens[-1].get_state())
+        reduced = mesh.reduce_from_data(partials)
+        aux = self._aux(reduced[len(names):], n_rays)
+        return (aux['loss'], aux), dict(zip(names, reduced[:len(names)]))
 
     def train_step(self, state, rays: Rays, pixels,
                    generator: Optional[torch.Generator] = None):
@@ -379,21 +507,41 @@ class MipNeRFSystem:
     def _render_flat(self, params, flat: Rays, chunk: int,
                      generator: Optional[torch.Generator],
                      need_coarse: bool):
-        """Rays [n, C] -> dict of numpy [n, ...] outputs, chunk by chunk."""
+        """Rays [n, C] -> dict of numpy [n, ...] outputs, chunk by chunk:
+        the chunk (rounded up to a multiple of the `data` axis, the last
+        one edge-padded) split over the data shards, each shard's rows
+        rendered and the rows assembled on every process."""
         params = {k: v.to(self.device) for k, v in params.items()}
+        mesh = self.mesh
+        chunk = pad_batch_to_devices(chunk, mesh.shape['data'])
         n = flat.origins.shape[0]
         n_chunks = -(-n // chunk)
         if n_chunks * chunk != n:
             flat = rays_pad_to(flat, n_chunks * chunk)
+        shards = mesh.data_rows(chunk)
         outs = []
         for i in range(n_chunks):
-            rays = namedtuple_map(lambda x: x[i * chunk:(i + 1) * chunk],
-                                  flat)
-            ret = functional_call(
-                self.eval_model, params,
-                (rays, self.val_randomized, self.white_bkgd),
-                {'generator': generator})
-            outs.append(self._pack_outputs(ret[0], ret[-1], need_coarse))
+            gens = self._shard_generators(generator, len(shards))
+            parts = []
+            for (a, b), gen in zip(shards, gens):
+                rays = namedtuple_map(
+                    lambda x: x[i * chunk + a:i * chunk + b], flat)
+                ret = functional_call(
+                    self.eval_model, params,
+                    (rays, self.val_randomized, self.white_bkgd),
+                    {'generator': gen, 'rows': (a, b, chunk)})
+                parts.append(self._pack_outputs(ret[0], ret[-1],
+                                                need_coarse))
+            if gens[-1] is not generator:
+                generator.set_state(gens[-1].get_state())
+            # One assembly a chunk: the outputs side by side as columns.
+            widths = [o[0].numel() for o in parts[0]]
+            cols = mesh.assemble_rows(
+                [torch.cat([o.reshape(o.shape[0], -1).float() for o in part],
+                           dim=1) for part in parts], chunk)
+            outs.append(tuple(
+                c.reshape(chunk, *o.shape[1:]) for c, o in
+                zip(torch.split(cols, widths, dim=1), parts[0])))
         cat = [torch.cat(parts, dim=0) for parts in zip(*outs)]
         return self._unpack_outputs(cat, n, need_coarse)
 
@@ -508,10 +656,15 @@ class MipNeRFSystem:
         """Full training run: data, loop, validation, checkpoints, logs.
         Returns the final state.  `self.fit_stats` then holds the run's
         rays/s over its training time (loop wall time less validation and
-        checkpointing), the share of the loop's wall time spent waiting on
-        the batcher, and the loss of the last step of its first and of its
-        last dispatch."""
+        checkpointing; the whole batch of every data shard), this
+        process's share of the loop's wall time spent waiting on the
+        batcher, and the loss of the last step of its first and of its last
+        dispatch.  On a multi-process mesh every process trains and
+        validates, and the first alone writes the checkpoints, the logs and
+        the log lines; the others wait for each checkpoint."""
         hp = self.hparams
+        root = self.mesh.is_root
+        verbose = verbose and root
         # The data binding goes into the checkpoint's hparams: eval restores
         # from the checkpoint directory alone.
         hp['dataset_name'] = dataset_name
@@ -532,7 +685,7 @@ class MipNeRFSystem:
         ckpt_dir = os.path.join(out_dir, 'ckpt', exp_name)
         ckpt = CheckpointManager(
             ckpt_dir, hparams=hp,
-            save_top_k=int(hp.get('checkpoint.save_top_k', 2)))
+            save_top_k=int(hp.get('checkpoint.save_top_k', 2)), write=root)
         # An explicit resume_path wins; otherwise a run restarted with the
         # same out_dir continues from its own `last` checkpoint.
         resume_from = None
@@ -544,7 +697,8 @@ class MipNeRFSystem:
             resume_from = ckpt_dir
         start_step = 0
         if resume_from:
-            start_step, host = CheckpointManager(resume_from).restore_last()
+            start_step, host = CheckpointManager(
+                resume_from, write=False).restore_last()
             state = self.load_state(host)
             if verbose:
                 print(f'resumed from {resume_from} at step {start_step}',
@@ -553,8 +707,10 @@ class MipNeRFSystem:
             state = self.init_state()
 
         log_dir = os.path.join(out_dir, 'logs', exp_name)
-        os.makedirs(log_dir, exist_ok=True)
-        writer = _summary_writer(log_dir)
+        writer = None
+        if root:
+            os.makedirs(log_dir, exist_ok=True)
+            writer = _summary_writer(log_dir)
         base_seed = int(hp['seed'])
 
         # Sanity validation before any training.
@@ -589,7 +745,7 @@ class MipNeRFSystem:
                 rays, pixels, k = next_shaped(max_steps - step)
                 prof.add('data', time.time() - t_data)
                 t_step = time.time()
-                if profile_steps > 0 and dispatch_index == 1:
+                if profile_steps > 0 and dispatch_index == 1 and root:
                     # The second dispatch: every kernel is built and warm.
                     out = {}
 
@@ -637,16 +793,25 @@ class MipNeRFSystem:
                         state, val_sample_num, writer=writer,
                         global_step=step, start_index=val_cursor)
                     val_cursor += val_sample_num
-                    hist = os.path.join(log_dir, 'val_history.csv')
-                    write_header = not os.path.exists(hist)
-                    with open(hist, 'a') as f:
-                        if write_header:
-                            f.write('step,val_loss,val_psnr\n')
-                        f.write(f'{step},{val_loss:.6f},{val_psnr:.4f}\n')
+                    if root:
+                        hist = os.path.join(log_dir, 'val_history.csv')
+                        write_header = not os.path.exists(hist)
+                        with open(hist, 'a') as f:
+                            if write_header:
+                                f.write('step,val_loss,val_psnr\n')
+                            f.write(f'{step},{val_loss:.6f},'
+                                    f'{val_psnr:.4f}\n')
                     prof.add('validate', time.time() - t_val)
                     t_ckpt = time.time()
-                    ckpt.save(step, self.host_state(state),
-                              val_psnr=val_psnr)
+                    # The first process's checkpoint stands for every
+                    # process's state.
+                    self.mesh.check_equal_over_data(
+                        list(state['params'].values()), 'the parameters')
+                    if root:
+                        ckpt.save(step, self.host_state(state),
+                                  val_psnr=val_psnr)
+                    # No process goes on before the checkpoint is whole.
+                    self.mesh.barrier()
                     prof.add('checkpoint', time.time() - t_ckpt)
                     t0 = time.time()
                     rays_since_log = 0

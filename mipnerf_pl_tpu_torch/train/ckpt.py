@@ -12,6 +12,9 @@ Layout:
 
 A state is {'params': {name: tensor}, 'opt_state': ..., 'step': int}, saved
 with its tensors on the CPU, written under a temporary name and renamed.
+In a run of several processes one manager writes (`write=True` on the
+first process: the hparams, the saves and the top-k retention) and every
+process restores from the same directory.
 An eval restore reads 'params' and 'step' and nothing else, whatever the
 checkpoint's optimizer state holds.
 """
@@ -77,11 +80,14 @@ class CheckpointManager:
     step}."""
 
     def __init__(self, ckpt_dir: str, hparams: Optional[dict] = None,
-                 save_top_k: int = 2):
+                 save_top_k: int = 2, write: bool = True):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
         self.save_top_k = int(save_top_k)
+        self.write = write
         self._best = os.path.join(self.ckpt_dir, 'best')
         self._last = os.path.join(self.ckpt_dir, 'last')
+        if not write:
+            return
         os.makedirs(self.ckpt_dir, exist_ok=True)
         if hparams is not None:
             with open(os.path.join(self.ckpt_dir, 'hparams.json'), 'w') as f:
@@ -97,7 +103,11 @@ class CheckpointManager:
     def save(self, step: int, state: Dict[str, Any],
              val_psnr: Optional[float] = None) -> None:
         """Save `state` at `step` as the last checkpoint and, given
-        val_psnr, among the best if it ranks in the top k."""
+        val_psnr, among the best if it ranks in the top k.  A manager that
+        does not write refuses."""
+        if not self.write:
+            raise RuntimeError(f'this process does not write checkpoints to '
+                               f'{self.ckpt_dir}')
         step = int(step)
         state = _to_cpu(state)
         _write(self._last, step, state)
@@ -164,6 +174,6 @@ def restore_for_eval(ckpt_path: str, prefer_best: bool = True
     caller, so eval never depends on what wrote it."""
     if not os.path.isdir(ckpt_path):
         raise FileNotFoundError(f'no checkpoint directory {ckpt_path}')
-    mgr = CheckpointManager(ckpt_path)
+    mgr = CheckpointManager(ckpt_path, write=False)
     step, state = mgr.restore_best() if prefer_best else mgr.restore_last()
     return step, {'params': state['params'], 'step': int(state['step'])}

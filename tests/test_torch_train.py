@@ -326,15 +326,35 @@ def test_system_runs_on_cuda_unless_asked_for_cpu(monkeypatch):
 ])
 def test_system_refuses_parallel_settings_it_does_not_honour(setting,
                                                              refused):
-    """A request for several devices, a model axis or multi-host is refused
-    with the ROADMAP item's name, not dropped: the system runs on one
-    device.  One device, asked for in either key, is accepted."""
+    """Several devices without a process group raise the launcher's
+    message (one process a device), and with an explicit single-process
+    mesh train over `data`; multi-host without an initialised group
+    raises; a model axis is refused with the ROADMAP item's name, not
+    dropped.  One device, asked for in either key, is accepted."""
+    from mipnerf_pl_tpu_torch.parallel.mesh import create_mesh
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem
     hp = _hparams(**setting)
     if not refused:
-        assert MipNeRFSystem(hp, device='cpu').device.type == 'cpu'
+        system = MipNeRFSystem(hp, device='cpu')
+        assert system.device.type == 'cpu'
+        assert system.mesh.shape == {'data': 1, 'model': 1}
         return
     key = next(iter(setting))
-    with pytest.raises(NotImplementedError, match='ROADMAP') as err:
+    if key == 'parallel.model_axis':
+        with pytest.raises(NotImplementedError, match='ROADMAP') as err:
+            MipNeRFSystem(hp, device='cpu')
+        assert f'{key}={setting[key]!r}' in str(err.value)
+        return
+    if key == 'parallel.multi_host':
+        with pytest.raises(ValueError, match='maybe_initialize_distributed'):
+            MipNeRFSystem(hp, device='cpu')
+        return
+    n = setting[key]
+    with pytest.raises(ValueError, match='cli.train') as err:
         MipNeRFSystem(hp, device='cpu')
-    assert f'{key}={setting[key]!r}' in str(err.value)
+    assert f'mesh=create_mesh({n}' in str(err.value)
+    system = MipNeRFSystem(hp, mesh=create_mesh(n, device='cpu'))
+    assert system.mesh.shape == {'data': n, 'model': 1}
+    rays, pixels = _batch(8)
+    state, aux = system.train_step(system.init_state(seed=0), rays, pixels)
+    assert state['step'] == 1 and torch.isfinite(aux['loss'])
