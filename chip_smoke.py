@@ -242,9 +242,41 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      sharded render of val view 0 within 1e-3 of the data-1 render of the
      same parameters; rays/s and the gradients' all-reduce share of the
      step.  The workers load the libraries phase 2 built;
+  9c. tensor parallelism through the system at lego width on
+     pallas_lean_save with train.randomized True, f32 and bf16: the
+     single-process meshes data 1 x model 2 and data 2 x model 2 on the
+     card against data 1 x model 1, one step from the same parameters,
+     batch and step generator: the loss (f32 within 1e-5 relative), the
+     largest leaf rel err of the gradients (2e-3 f32, 3e-2 bf16), and of
+     the update of data 2 x model 2 against data 1 x model 2 (against
+     model 1 the update is printed: Adam's first step is ~ lr sign(g), and
+     two kernel paths' roundings flip the signs of gradients near zero);
+     tp_pair_fwd and tp_pair_bwd 16 and 16 a step at model 2
+     (4 pairs x 2 ranks x 2 levels), 32 and 32 at data 2 x model 2, on the
+     tp_pair_wg_kernel of the dtype (its route counts), and no other kernel
+     (lean_save_fwd / lean_param_grads 0); an 'xla' step at data 1 x model
+     2 launches nothing and passes the same gate against 'xla' at model 1;
+     ms/step and peak GiB of 5-step calls beside model 1, in turns;
+  9d. net_width 1024 (condition 128, BENCH_NET_WIDTH=1024's model) in bf16:
+     one step at data 1 x model 2 against 'xla' at model 1, the gradients
+     at the bf16 bar, the pairs at a local width of 512 (16 + 16 on
+     tp_pair_wg_kernel<bf16>); ms/step and peak GiB of both;
+  9e. cli.train over 2 gloo processes on the one card (num_devices 2
+     parallel.model_axis 2; chip_smoke.py --tp-worker joins the group as
+     9b's workers do, then runs cli.train's main), 50 bf16 steps of 384
+     rays on 9b's scene with one validation and one checkpoint (the rays
+     cut from 3072: every pair boundary all-reduces the [rows, 256]
+     activations, which gloo stages through the host, ~7 s a step at 3072
+     rays on an H100, PERF.md), the ranks bit-equal,
+     within 3e-2 of the single-process data 1 x model 2 fit, the loss
+     falls, rank 0 alone wrote the files, log lines and the system's line,
+     the pairs 400 + 400 a rank on their route and no lean training
+     kernel; then cli.eval of the checkpoint in one process (its model
+     axis dropped): finite PSNR and SSIM;
   10. the kernels' JSON line (launches, error, times, bound, library call;
      each kernel's launches on the paths of phases 7b-7d under
-     `launches_new_paths`, and in phase 9 under `launches_dp`;
+     `launches_new_paths`, in phase 9 under `launches_dp` and in phases
+     9c-9e under `launches_tp`;
      for the lean forwards and backwards also the wgmma kernel that runs
      them, f32 `kernel` / `chain` / `wgrad` and bf16 under 'bf16'; for f32
      lean_param_grads also its weight gradients' own ms, bound and
@@ -271,7 +303,9 @@ It imports torch, numpy and the port; never JAX.  With no CUDA device it
 exits non-zero before printing any result.
 """
 
+import contextlib
 import ctypes
+import io
 import json
 import os
 import socket
@@ -431,6 +465,15 @@ QUALITY_STEPS, QUALITY_MIN_PSNR = 3000, 27.0
 DP_SHARDS, DP_K, DP_STEPS = 2, 5, 50
 DP_SCENE = {'n_train': 8, 'n_val': 1, 'n_test': 1, 'size': 64}
 DP_TIMEOUT = 300
+# Phases 9c-9e: tensor parallelism through the system.  9c: the
+# single-process meshes TP_SYSTEM_MESHES (data, model) against data 1 x
+# model 1 at lego width; 9d: the width of TP_WIDE at model 2 against 'xla'
+# at model 1; 9e: cli.train over 2 gloo processes (data 1 x model 2),
+# TP_STEPS steps in dispatches of DP_K on phase 9b's scene.
+TP_SYSTEM_MESHES = ((1, 2), (2, 2))
+TP_WIDE = {'nerf.mlp.net_width': 1024, 'nerf.mlp.net_width_condition': 128}
+TP_STEPS = 50
+TP_RUN_RAYS = 384      # 9e's rays a step (see the docstring)
 # What a lean save step launches, once a level and shard (the forward's
 # view rows through lean_view_proj).
 DP_STEP_KERNELS = _SAVE + ('lean_view_proj',)
@@ -2992,6 +3035,27 @@ def dp_hparams(dtype, **extra):
         'train.randomized': True, 'optimizer.lr_delay_steps': 0}, **extra)
 
 
+def step_from(system, params, rays, pixels):
+    """One value_and_grad and one train_step of `system` from `params` on
+    the batch with step generator (7, 0); -> (loss, gradients, parameter
+    update, launch counts of the train_step, its pair routes as
+    check_pair_routes reads them)."""
+    _, g = system.value_and_grad(system.init_state(params=params)['params'],
+                                 rays, pixels, system.step_generator(7, 0))
+    state = system.init_state(params=params)
+    start = [v.detach().clone() for v in state['params'].values()]
+    km.reset_launches()
+    state, aux = system.train_step(state, rays, pixels,
+                                   system.step_generator(7, 0))
+    torch.cuda.synchronize()
+    tables = (km.pair_sm90_routes, km.pair_tf32_routes, km.pair_mma_routes)
+    routes = {k: tuple(t[k] for t in tables)
+              for k in ('tp_pair_fwd', 'tp_pair_bwd')}
+    return (float(aux['loss']), [g[k] for k in state['params']],
+            [v.detach() - a for v, a in zip(state['params'].values(), start)],
+            dict(km.launches), routes)
+
+
 def dp_step(params, dev):
     """Phase 9a: the single-process mesh of DP_SHARDS shards on the card
     against data 1, f32 then bf16, from the same parameters on the same
@@ -3013,22 +3077,9 @@ def dp_step(params, dev):
         systems = {'data 1': MipNeRFSystem(hp, device=dev),
                    f'data {DP_SHARDS}': MipNeRFSystem(
                        hp, mesh=create_mesh(DP_SHARDS, device=dev))}
-        got = {}
-        for name, s in systems.items():
-            _, g = s.value_and_grad(s.init_state(params=params)['params'],
-                                    rays, pixels, s.step_generator(7, 0))
-            state = s.init_state(params=params)
-            start = [v.detach().clone() for v in state['params'].values()]
-            km.reset_launches()
-            state, aux = s.train_step(state, rays, pixels,
-                                      s.step_generator(7, 0))
-            torch.cuda.synchronize()
-            got[name] = (float(aux['loss']), [g[k] for k in state['params']],
-                         [v.detach() - a for v, a in
-                          zip(state['params'].values(), start)],
-                         dict(km.launches))
-        names = list(state['params'])
-        (l1, g1, d1, _), (l2, g2, d2, c2) = got.values()
+        got = [step_from(s, params, rays, pixels) for s in systems.values()]
+        names = list(params)
+        (l1, g1, d1, _, _), (l2, g2, d2, c2, _) = got
         loss_rel = abs(l2 - l1) / abs(l1)
         step_err, step_leaf = leaf_rel_err(d2, d1, names)
         grad_err, grad_leaf = leaf_rel_err(g2, g1, names)
@@ -3142,29 +3193,22 @@ def dp_run_hparams():
         'val.sample_num': 1})
 
 
-def dp_run(root, dev):
-    """Phase 9b: DP_SHARDS processes on the one card over gloo (NCCL takes
-    no two ranks on one device), each fit() of DP_STEPS steps: their final
-    parameters equal bit for bit; within BF16_BAR of a single-process
-    data-DP_SHARDS fit of the same steps (largest leaf rel err of the
-    update from the initial parameters); the loss falls; one checkpoint
-    and one CSV row, written by rank 0 alone (rank 1 prints no log line);
-    the sharded render of val view 0 within FRAME_BAR of the data-1 render
-    of the same parameters.  The kernels are those phase 2 built: the
-    children load the hash-named libraries from the build directory.  ->
-    rank 0's launch counts."""
-    t_phase = time.perf_counter()
-    scene = make_sphere_scene(os.path.join(root, 'scene'), **DP_SCENE)
+def run_script_workers(flag: str, n: int, root: str):
+    """Start `python3 chip_smoke.py FLAG RANK PORT ROOT` for ranks 0..n-1
+    (their output into root/rank<r>.log), wait up to DP_TIMEOUT seconds,
+    kill any left; -> (the logs' texts, each rank's root/rank<r>.npz
+    arrays, each rank's root/rank<r>.json).  Raises when a worker failed
+    or a rank's arrays differ from rank 0's in a bit."""
     with socket.socket() as sock:
         sock.bind(('localhost', 0))
         port = sock.getsockname()[1]
-    logs = [os.path.join(root, f'rank{r}.log') for r in range(DP_SHARDS)]
+    logs = [os.path.join(root, f'rank{r}.log') for r in range(n)]
     procs = []
     try:
-        for r in range(DP_SHARDS):
+        for r in range(n):
             with open(logs[r], 'w') as f:
                 procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), '--dp-worker',
+                    [sys.executable, os.path.abspath(__file__), flag,
                      str(r), str(port), root], stdout=f,
                     stderr=subprocess.STDOUT))
         deadline = time.monotonic() + DP_TIMEOUT
@@ -3182,22 +3226,39 @@ def dp_run(root, dev):
         with open(path) as f:
             texts.append(f.read())
     if any(p.returncode != 0 for p in procs):
-        raise AssertionError('phase 9b: a worker failed (codes '
+        raise AssertionError(f'{flag}: a worker failed (codes '
                              f'{[p.returncode for p in procs]}):\n' +
                              '\n'.join(t[-3000:] for t in texts))
-    t_workers = time.perf_counter() - t_phase
     ranks, infos = [], []
-    for r in range(DP_SHARDS):
+    for r in range(n):
         with np.load(os.path.join(root, f'rank{r}.npz')) as z:
             ranks.append({k: z[k] for k in z.files})
         with open(os.path.join(root, f'rank{r}.json')) as f:
             infos.append(json.load(f))
-    for r in range(1, DP_SHARDS):
+    for r in range(1, n):
         diff = [k for k in ranks[0] if not np.array_equal(ranks[0][k],
                                                           ranks[r][k])]
         if diff:
-            raise AssertionError(f'phase 9b: rank {r} differs from rank 0 in '
+            raise AssertionError(f'{flag}: rank {r} differs from rank 0 in '
                                  f'{diff}')
+    return texts, ranks, infos
+
+
+def dp_run(root, dev):
+    """Phase 9b: DP_SHARDS processes on the one card over gloo (NCCL takes
+    no two ranks on one device), each fit() of DP_STEPS steps: their final
+    parameters equal bit for bit; within BF16_BAR of a single-process
+    data-DP_SHARDS fit of the same steps (largest leaf rel err of the
+    update from the initial parameters); the loss falls; one checkpoint
+    and one CSV row, written by rank 0 alone (rank 1 prints no log line);
+    the sharded render of val view 0 within FRAME_BAR of the data-1 render
+    of the same parameters.  The kernels are those phase 2 built: the
+    children load the hash-named libraries from the build directory.  ->
+    rank 0's launch counts."""
+    t_phase = time.perf_counter()
+    scene = make_sphere_scene(os.path.join(root, 'scene'), **DP_SCENE)
+    texts, ranks, infos = run_script_workers('--dp-worker', DP_SHARDS, root)
+    t_workers = time.perf_counter() - t_phase
     hp = dp_run_hparams()
     names = sorted(k for k in ranks[0] if k != 'img')
     init = MipNeRFSystem(hp, mesh=create_mesh(DP_SHARDS, device=dev)
@@ -3248,6 +3309,309 @@ def dp_run(root, dev):
         raise AssertionError('phase 9b: the files or log lines are not '
                              'rank 0\'s alone')
     log(f'[dp] phase 9b: {time.perf_counter() - t_phase:.1f} s')
+    return infos[0]['launches']
+
+
+def check_tp_launches(counts, routes, hp, dt, d, m, where, dims):
+    """Raise unless a step of the training MLP split over data d x model m
+    launched tp_pair_fwd and tp_pair_bwd once a pair, model rank, data
+    shard and level (none on 'xla') and no other kernel, each pair call on
+    the tp_pair_wg_kernel of dt at these widths (check_pair_routes' rule
+    and table, from the step's own route counts)."""
+    pallas = hp['nerf.mlp_backend'] != 'xla'
+    n = (hp['nerf.mlp.net_depth'] // 2 * m * d * hp['nerf.num_levels']
+         if pallas else 0)
+    want = {k: (n if k in ('tp_pair_fwd', 'tp_pair_bwd') else 0)
+            for k in counts}
+    if counts != want:
+        raise AssertionError(f'{where}: launches '
+                             f'{ {k: v for k, v in counts.items() if v} }, '
+                             f'expected {n} of each pair kernel and no other')
+    i, name = pair_kernel(dt, *dims)
+    route_want = {k: tuple(n if j == i else 0 for j in range(3))
+                  for k in routes}
+    log(f'[route] {where}: pair calls on (tp_pair_wg_kernel bf16, '
+        f'tp_pair_wg_kernel f32, mma.sync) {routes} (want {route_want}: '
+        f'{name}) {"OK" if routes == route_want else "FAIL"}')
+    if i == 2 or routes != route_want:
+        raise AssertionError(f'{where}: the pair kernels took another route')
+    return n
+
+
+def tp_step(params, dev):
+    """Phase 9c: tensor parallelism through the system at lego width
+    (pallas_lean_save, train.randomized True), f32 then bf16: the
+    single-process meshes TP_SYSTEM_MESHES on the card against data 1 x
+    model 1, one step from the same parameters on the same batch and step
+    generator: the loss (f32 within 1e-5 relative) and the largest leaf
+    rel err of the gradients (<= F32_GATE_BAR f32, <= BF16_BAR bf16); the
+    update of data 2 x model 2 against data 1 x model 2 at the same bars
+    (phase 9a's comparison: the same kernels on each point).  Against
+    model 1 the update is printed, not gated: Adam's first step is ~ lr
+    sign(g), so the gradients' rounding differences between two kernel
+    paths flip whole steps of the gradients near zero.  The pairs
+    tp_pair_fwd / tp_pair_bwd launch 4 x model x data x 2 levels a step
+    on the tp_pair_wg_kernel of the dtype and nothing else does
+    (lean_save_fwd / lean_param_grads 0); one 'xla' step at data 1 x model
+    2 launches nothing and passes the same gate against 'xla' at model 1;
+    then ms/step and peak GiB of DP_K-step calls in turns (there and
+    back).  -> ({label: the step's launch counts}, ms/step)."""
+    rays, pixels = train_batch(TRAIN_RAYS, dev)
+    stack = Rays(*(f.expand(DP_K, *f.shape).contiguous() for f in rays))
+    pix = pixels.expand(DP_K, *pixels.shape).contiguous()
+    counts, report = {}, {}
+    for dtype in ('float32', 'bfloat16'):
+        dt = getattr(torch, dtype)
+        hp = dp_hparams(dtype)
+        hx = dict(hp, **{'nerf.mlp_backend': 'xla'})
+        W = hp['nerf.mlp.net_width']
+        bar = F32_GATE_BAR if dtype == 'float32' else BF16_BAR
+        # (label, hparams, data, model, the label of its reference)
+        cases = [('model 1', hp, 1, 1, None), ('xla model 1', hx, 1, 1, None)]
+        cases += [(f'data {d} x model {m}', hp, d, m, 'model 1')
+                  for d, m in TP_SYSTEM_MESHES]
+        cases.append(('xla data 1 x model 2', hx, 1, 2, 'xla model 1'))
+        systems, got = {}, {}
+        for label, h, d, m, ref in cases:
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                systems[label] = MipNeRFSystem(
+                    h, device=dev, mesh=None if m == 1 else
+                    create_mesh(d * m, m, device=dev))
+            got[label] = step_from(systems[label], params, rays, pixels)
+            if ref is None:
+                continue
+            loss, grads, update, c, routes = got[label]
+            l1, g1, d1 = got[ref][:3]
+            names = list(params)
+            loss_rel = abs(loss - l1) / abs(l1)
+            step_err, step_leaf = leaf_rel_err(update, d1, names)
+            grad_err, grad_leaf = leaf_rel_err(grads, g1, names)
+            where = f'phase 9c {dtype} {label}'
+            n = check_tp_launches(c, routes, h, dt, d, m, where,
+                                  (W, W // m, W))
+            # The update against data 1 of the same model axis: the same
+            # kernels on each point, the shards' sums in another order.
+            same = f'data 1 x model {m}'
+            dp_err, dp_leaf = (leaf_rel_err(update, got[same][2], names)
+                               if d > 1 else (0.0, '-'))
+            log(f'[tp] 9c {dtype} {label} vs {ref}, one step: loss '
+                f'{loss:.7f} vs {l1:.7f} (rel {loss_rel:.2e}); gradients max '
+                f'leaf rel err {grad_err:.3e} ({grad_leaf}), bar {bar}; '
+                f'update {step_err:.3e} ({step_leaf}; not gated: Adam\'s '
+                f'first step is ~ lr sign(g)); update vs {same} '
+                f'{dp_err:.3e} ({dp_leaf}), bar {bar}; pair launches {n} + '
+                f'{n}; {said.getvalue().strip()}')
+            if (dtype == 'float32' and loss_rel > 1e-5) or dp_err > bar \
+                    or grad_err > bar:
+                raise AssertionError(f'{where} disagrees with {ref}')
+            counts[f'9c {dtype} {label} step'] = c
+        order = ['model 1'] + [f'data {d} x model {m}'
+                               for d, m in TP_SYSTEM_MESHES] + \
+            ['xla data 1 x model 2']
+        fns = {n: systems[n].make_train_many() for n in order}
+        states = {n: systems[n].init_state(params=params) for n in order}
+        times = {n: [] for n in order}
+        peaks = {}
+        for which in order:                                   # warm-up
+            states[which] = train_run(fns[which], states[which], stack,
+                                      pix)[0]
+        for which in order + order[::-1]:
+            states[which], aux, sec, peak = train_run(
+                fns[which], states[which], stack, pix)
+            times[which].append(sec * 1e3 / DP_K)
+            peaks[which] = max(peaks.get(which, 0.0), peak)
+        report[dtype] = {n: min(v) for n, v in times.items()}
+        log(f'[tp] 9c {dtype} ms/step over {DP_K}-step calls, in turns: '
+            f'{ {n: [round(t, 3) for t in v] for n, v in times.items()} }; '
+            f'peak GiB { {n: round(v, 3) for n, v in peaks.items()} }')
+        del systems, fns, states
+        torch.cuda.empty_cache()
+    return counts, report
+
+
+def tp_wide_step(dev):
+    """Phase 9d: the width bench.py takes with BENCH_NET_WIDTH=1024
+    (net_width 1024, condition 128) in bf16: one pallas_lean_save step at
+    data 1 x model 2 (the pairs at a local width of 512) against 'xla' at
+    model 1 of the same width and seeded weights, the gradients at the
+    bf16 bar (the update printed, as in phase 9c), 16 + 16 pair launches
+    on tp_pair_wg_kernel<bf16>; ms/step (2-step calls, in turns) and peak
+    GiB of both.  -> {label: the step's launch counts}."""
+    hp = dp_hparams('bfloat16', **TP_WIDE)
+    hx = dict(hp, **{'nerf.mlp_backend': 'xla'})
+    W = hp['nerf.mlp.net_width']
+    params = jax_params_to_torch(flax_tree(MipNeRFSystem(hp, device=dev),
+                                           seed=0), device=dev)
+    rays, pixels = train_batch(TRAIN_RAYS, dev)
+    stack = Rays(*(f.expand(2, *f.shape).contiguous() for f in rays))
+    pix = pixels.expand(2, *pixels.shape).contiguous()
+    with contextlib.redirect_stdout(io.StringIO()):
+        systems = {'xla model 1': MipNeRFSystem(hx, device=dev),
+                   'model 2': MipNeRFSystem(
+                       hp, mesh=create_mesh(2, 2, device=dev))}
+    got = {n: step_from(s, params, rays, pixels) for n, s in systems.items()}
+    loss, grads, update, c, routes = got['model 2']
+    l1, g1, d1, c1 = got['xla model 1'][:4]
+    if any(c1.values()):
+        raise AssertionError(f'phase 9d: xla launched {c1}')
+    names = list(params)
+    step_err, step_leaf = leaf_rel_err(update, d1, names)
+    grad_err, grad_leaf = leaf_rel_err(grads, g1, names)
+    n = check_tp_launches(c, routes, hp, torch.bfloat16, 1, 2,
+                          'phase 9d bf16 width 1024 model 2', (W, W // 2, W))
+    order = list(systems)
+    fns = {k: s.make_train_many() for k, s in systems.items()}
+    states = {k: s.init_state(params=params) for k, s in systems.items()}
+    times, peaks = {k: [] for k in order}, {}
+    for which in order + order + order[::-1]:
+        states[which], aux, sec, peak = train_run(fns[which], states[which],
+                                                  stack, pix)
+        times[which].append(sec * 1e3 / 2)
+        peaks[which] = max(peaks.get(which, 0.0), peak)
+    log(f'[tp] 9d bf16 net_width {W}: model 2 vs xla model 1, one step: '
+        f'loss {loss:.6f} vs {l1:.6f}; gradients max leaf rel err '
+        f'{grad_err:.3e} ({grad_leaf}), bar {BF16_BAR}; update '
+        f'{step_err:.3e} ({step_leaf}; not gated); pair launches {n} + '
+        f'{n}; ms/step of 2-step calls (the first a warm-up) '
+        f'{ {k: [round(t, 3) for t in v] for k, v in times.items()} }; peak '
+        f'GiB { {k: round(v, 3) for k, v in peaks.items()} }')
+    if grad_err > BF16_BAR:
+        raise AssertionError('phase 9d: model 2 disagrees with xla model 1')
+    del systems, fns, states, params
+    torch.cuda.empty_cache()
+    return {'9d bf16 width 1024 model 2 step': c}
+
+
+def tp_run_args(root):
+    """cli.train's command line of phase 9e: bf16 pallas_lean_save at lego
+    width, TP_RUN_RAYS rays a step, num_devices 2 parallel.model_axis 2,
+    dispatches of DP_K steps, one validation (one view) and one checkpoint
+    at TP_STEPS."""
+    opts = {'train.compute_dtype': 'bfloat16',
+            'nerf.mlp_backend': 'pallas_lean_save', 'train.randomized': True,
+            'optimizer.lr_delay_steps': 0, 'num_devices': 2,
+            'parallel.model_axis': 2, 'exp_name': 'tp',
+            'train.batch_size': TP_RUN_RAYS,
+            'train.steps_per_call': DP_K, 'val.check_interval': TP_STEPS,
+            'val.sample_num': 1}
+    return (['--data_path', os.path.join(root, 'scene'), '--out_dir',
+             os.path.join(root, 'out'), '--dataset_name', 'blender',
+             '--max_steps', str(TP_STEPS)]
+            + [str(x) for kv in opts.items() for x in kv])
+
+
+def tp_worker(rank: int, port: int, root: str) -> int:
+    """One process of phase 9e (chip_smoke.py --tp-worker RANK PORT ROOT):
+    joins a gloo group of 2 processes on cuda:0 (NCCL takes no two ranks
+    on one device), then cli.train's main on tp_run_args, which finds the
+    group and lays the 2 processes out as data 1 x model 2; its pair
+    launches on their route; writes root/rank<r>.npz (the parameters) and
+    root/rank<r>.json (launches, fit_stats)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize_distributed(
+        {'parallel.multi_host': True,
+         'parallel.coordinator_address': f'localhost:{port}',
+         'parallel.num_processes': 2, 'parallel.process_id': rank},
+        device='cuda', timeout_s=DP_TIMEOUT, backend='gloo')
+    with open(os.path.join(root, 'args.json')) as f:
+        args = json.load(f)
+    km.reset_launches()
+    system, state = train_cli.main(args)          # it leaves the group
+    torch.cuda.synchronize()
+    counts = dict(km.launches)
+    mesh = system.mesh
+    if not mesh.distributed or mesh.shape != {'data': 1, 'model': 2}:
+        raise AssertionError(f'rank {rank}: mesh {mesh!r}')
+    hp = system.hparams
+    n = hp['nerf.mlp.net_depth'] // 2 * hp['nerf.num_levels'] * \
+        hp['max_steps']
+    W = hp['nerf.mlp.net_width']
+    check_pair_routes(torch.bfloat16, f'phase 9e rank {rank}', (W, W // 2, W),
+                      True, tp_pair_fwd=n, tp_pair_bwd=n)
+    if counts['lean_save_fwd'] or counts['lean_param_grads']:
+        raise AssertionError(f'phase 9e rank {rank}: the lean training '
+                             f'kernels ran under the model axis: {counts}')
+    np.savez(os.path.join(root, f'rank{rank}.npz'),
+             **{k: v.detach().cpu().numpy()
+                for k, v in state['params'].items()})
+    with open(os.path.join(root, f'rank{rank}.json'), 'w') as f:
+        json.dump({'launches': counts, 'fit_stats': system.fit_stats}, f)
+    return 0
+
+
+def tp_run(root, dev):
+    """Phase 9e: cli.train over 2 gloo processes on the one card
+    (num_devices 2 parallel.model_axis 2, started as phase 9b starts its
+    workers), TP_STEPS bf16 steps on the sphere scene of DP_SCENE: the
+    ranks' final parameters bit-equal, within BF16_BAR of the
+    single-process data 1 x model 2 fit of the same steps (largest leaf rel
+    err of the update), the loss falls, rank 0 alone wrote the checkpoint,
+    the CSV row and the log lines; then cli.eval of the checkpoint in one
+    process (the model axis dropped): finite PSNR and SSIM.  -> rank 0's
+    launch counts."""
+    t_phase = time.perf_counter()
+    scene = make_sphere_scene(os.path.join(root, 'scene'), **DP_SCENE)
+    args = tp_run_args(root)
+    with open(os.path.join(root, 'args.json'), 'w') as f:
+        json.dump(args, f)
+    texts, ranks, infos = run_script_workers('--tp-worker', 2, root)
+    t_workers = time.perf_counter() - t_phase
+    hp = config.default()
+    config.merge_from_list(hp, args[8:])
+    names = sorted(ranks[0])
+    with contextlib.redirect_stdout(io.StringIO()):
+        single = MipNeRFSystem(hp, mesh=create_mesh(2, 2, device=dev))
+        init = single.init_params()
+        state = single.fit(scene, 'blender', os.path.join(root, 'single'),
+                           max_steps=TP_STEPS, verbose=False)
+    err, leaf = leaf_rel_err(
+        [torch.from_numpy(ranks[0][k]) - init[k].cpu() for k in names],
+        [state['params'][k].detach().cpu() - init[k].cpu() for k in names],
+        names)
+    stats = infos[0]['fit_stats']
+    out = os.path.join(root, 'out')
+    with open(os.path.join(out, 'logs', 'tp', 'val_history.csv')) as f:
+        rows = f.read().split()[1:]
+    ckpt_dir = os.path.join(out, 'ckpt', 'tp')
+    ckpts = {k: os.listdir(os.path.join(ckpt_dir, k))
+             for k in ('best', 'last')}
+    step_lines = [t.count(f'/{TP_STEPS} loss=') for t in texts]
+    system_lines = [t.count('Megatron pairs') for t in texts]
+    km.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = eval_cli.main(['--ckpt', ckpt_dir, '--data', scene,
+                                 '--out_dir', os.path.join(root, 'eval'),
+                                 '--scale', '1', '--no_video'])
+    psnr, ssim = (float(v) for v in summary.split(' | ')[:2])
+    eval_counts = {k: v for k, v in km.launches.items() if v}
+    step_ms = stats['steps'] and TP_RUN_RAYS / stats['rays_per_sec'] * 1e3
+    log(f'[tp] 9e cli.train over 2 gloo processes on cuda:0 (data 1 x '
+        f'model 2), {TP_STEPS} steps of {TP_RUN_RAYS} rays bf16 '
+        f'pallas_lean_save: {t_workers:.1f} s with start-up; {stats["rays_per_sec"]:,.0f} '
+        f'rays/s over the training time ({step_ms:.2f} ms/step); loss '
+        f'{stats["loss_first"]:.5f} -> {stats["loss_last"]:.5f}; ranks '
+        f'bit-equal; vs the single-process data 1 x model 2 fit: max leaf '
+        f'rel err of the update {err:.3e} ({leaf}, bar {BF16_BAR}); '
+        f'checkpoints {ckpts}, CSV rows {rows}, log lines per rank '
+        f'{step_lines}, system lines {system_lines}; rank 0 launches '
+        f'{ {k: v for k, v in infos[0]["launches"].items() if v} }; '
+        f'cli.eval in one process: PSNR {psnr:.3f} SSIM {ssim:.4f}, '
+        f'launches {eval_counts}')
+    if err > BF16_BAR:
+        raise AssertionError('phase 9e: the run disagrees with the '
+                             'single-process mesh')
+    if not stats['loss_last'] < stats['loss_first']:
+        raise AssertionError(f'phase 9e: the loss did not fall: {stats}')
+    if ckpts != {'best': [str(TP_STEPS)], 'last': [str(TP_STEPS)]} or \
+            [r.split(',')[0] for r in rows] != [str(TP_STEPS)] or \
+            step_lines[0] < 1 or any(step_lines[1:]) or \
+            system_lines != [1, 0]:
+        raise AssertionError('phase 9e: the files or log lines are not '
+                             'rank 0\'s alone')
+    if not (np.isfinite(psnr) and np.isfinite(ssim)):
+        raise AssertionError(f'phase 9e: cli.eval gave {summary}')
+    log(f'[tp] phase 9e: {time.perf_counter() - t_phase:.1f} s')
     return infos[0]['launches']
 
 
@@ -3475,6 +3839,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         dp_counts['9b rank 0 fit'] = dp_run(root, dev)
     log(f'[dp] phase 9: {time.perf_counter() - t_dp:.1f} s')
+
+    # Phases 9c-9e: tensor parallelism through the system.
+    t_tp = time.perf_counter()
+    tp_counts_sys = tp_step(params, dev)[0]
+    tp_counts_sys.update(tp_wide_step(dev))
+    with tempfile.TemporaryDirectory() as root:
+        tp_counts_sys['9e rank 0 fit'] = tp_run(root, dev)
+    log(f'[tp] phases 9c-9e: {time.perf_counter() - t_tp:.1f} s')
     if '--measure' in sys.argv[1:]:
         measure(hp, params, dev)
 
@@ -3516,6 +3888,11 @@ def main() -> int:
             path: c[name] for path, c in new_paths.items() if c[name]}
         kernels[-1]['launches_dp'] = {
             path: c[name] for path, c in dp_counts.items() if c.get(name)}
+        # And on the tensor-parallel paths of phases 9c-9e (a step of each
+        # mesh, rank 0's fit).
+        kernels[-1]['launches_tp'] = {
+            path: c[name] for path, c in tp_counts_sys.items()
+            if c.get(name)}
         rb = results.get((name, 'bf16'))
         if rb is not None:     # the compute dtype of the bf16 steps
             kernels[-1]['bf16'] = {k: rb[k] for k in (
@@ -3644,4 +4021,6 @@ def main() -> int:
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--dp-worker']:
         sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ['--tp-worker']:
+        sys.exit(tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -19,7 +19,10 @@ The hparams are the checkpoint's, with `key value` pairs merged over them
 (parallel/launch.py checkpoint_hparams); a render over n > 1 devices runs
 as cli.train's does, one process a device, each rendering its rows of
 every chunk, and the first writes the files.  `num_devices 1` renders a
-checkpoint of a larger run on one card.
+checkpoint of a larger run on one card.  A checkpoint trained under
+`parallel.model_axis` m renders on its data axis alone (num_devices / m
+devices: one card for data 1 x model m) unless the key value pairs ask for
+a model axis again.
 """
 
 from __future__ import annotations

@@ -17,7 +17,10 @@ itself, NCCL on cuda:0..n-1 or gloo with --device cpu, and exits with the
 first non-zero code of theirs.  Across hosts, run one process a card with
 `parallel.multi_host True parallel.coordinator_address HOST:PORT
 parallel.num_processes N parallel.process_id R` on a shared OUT.  The
-first process writes the files.
+first process writes the files.  `parallel.model_axis m` (m dividing n)
+lays the n devices out as data n / m x model m: each data shard's MLP
+runs in Megatron pairs over its m processes (tensor parallelism, gloo
+with --device cpu: `num_devices 2 parallel.model_axis 2`).
 """
 
 from __future__ import annotations

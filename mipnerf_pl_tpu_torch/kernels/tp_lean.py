@@ -47,7 +47,14 @@ forward, a sum over `model` backward), out of a row-parallel one
 `reduce_from_model` (a sum forward, identity backward).  Biases of odd
 layers and all heads are replicated and act after a sum: on a
 single-process mesh they are computed once, on a multi-process mesh every
-rank computes the same values and the same gradients for them.
+rank computes the same values and the same gradients for them
+(`model_split_rows` names the regions of each tensor that are split and
+those that are not).
+
+Its caller is the MLP under a model axis (models/mlp.py, MipNeRFSystem
+with `parallel.model_axis > 1`): the training forward of every backend,
+on the mesh's `model_view`, the pairs in these kernels for the Pallas
+backends and in their plain versions (`plain=True`) for `xla`.
 """
 
 from __future__ import annotations
@@ -248,32 +255,58 @@ def _pair_bwd_call(x, w_col, b_col, w_row, g, dtype):
 
 class _Pair(torch.autograd.Function):
     """The differentiable pair: `_pair_call` forward, `_pair_bwd_call`
-    backward.  The residuals are the pair's inputs only: the hidden
-    activation is recomputed in the backward kernel."""
+    backward, or with `plain` their plain versions on any device.  The
+    residuals are the pair's inputs only: the hidden activation is
+    recomputed in the backward."""
 
     @staticmethod
-    def forward(ctx, x, w_col, b_col, w_row, dtype):
+    def forward(ctx, x, w_col, b_col, w_row, dtype, plain):
         ctx.save_for_backward(x, w_col, b_col, w_row)
-        ctx.dtype = dtype
-        return _pair_call(x, w_col, b_col, w_row, dtype)
+        ctx.dtype, ctx.plain = dtype, plain
+        return (_pair_plain if plain else _pair_call)(x, w_col, b_col, w_row,
+                                                      dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, w_col, b_col, w_row = ctx.saved_tensors
-        dx, dwc, dbc, dwr = _pair_bwd_call(x, w_col, b_col, w_row,
-                                           g.float().contiguous(), ctx.dtype)
+        bwd = _pair_bwd_plain if ctx.plain else _pair_bwd_call
+        dx, dwc, dbc, dwr = bwd(x, w_col, b_col, w_row,
+                                g.float().contiguous(), ctx.dtype)
         return (dx.to(x.dtype), dwc.to(w_col.dtype), dbc.to(b_col.dtype),
-                dwr.to(w_row.dtype), None)
+                dwr.to(w_row.dtype), None, None)
 
 
-def _pair(x, w_col, b_col, w_row, dtype):
-    return _Pair.apply(x, w_col, b_col, w_row, dtype)
+def _pair(x, w_col, b_col, w_row, dtype, plain=False):
+    return _Pair.apply(x, w_col, b_col, w_row, dtype, plain)
+
+
+def model_split_rows(flat_params, net_depth: int = 8,
+                     net_depth_condition: int = 1):
+    """For each tensor of the lean flat layout, how many of its leading
+    rows `tp_lean_forward` splits over `model`: all of a column-parallel
+    slot (even trunk layers and the bottleneck, kernel and bias: their
+    columns are split), the h-rows of a row-parallel kernel (odd trunk
+    layers, the skip layer's first W of W + F, view_0's first W of W + Fv).
+    The rows after them are replicated: the odd layers' biases, the skip
+    layer's x-rows, view_0's view rows and bias, the later view layers and
+    the heads.  On a multi-process mesh a model rank's gradient is zero in
+    the split rows outside its own panel, and equal on every rank in the
+    replicated ones."""
+    W = flat_params[0].shape[1]
+    rows = []
+    for i in range(net_depth):
+        rows += ([flat_params[2 * i].shape[0], 1] if i % 2 == 0 else [W, 0])
+    nd_i = 2 * net_depth
+    rows += [0, 0, flat_params[nd_i + 2].shape[0], 1, W, 0]
+    rows += [0, 0] * (net_depth_condition - 1) + [0, 0]
+    return rows
 
 
 def tp_lean_forward(x, view, flat_params, mesh: Mesh, num_samples: int,
                     net_depth: int = 8, net_depth_condition: int = 1,
-                    skip_index: int = 4, compute_dtype=torch.bfloat16):
+                    skip_index: int = 4, compute_dtype=torch.bfloat16,
+                    plain: bool = False):
     """Forward pass of the lean MLP, tensor-parallel over `mesh`'s `model`
     axis and data-parallel over its `data` axis; differentiable in x, view
     and every parameter.
@@ -287,7 +320,9 @@ def tp_lean_forward(x, view, flat_params, mesh: Mesh, num_samples: int,
     process's rows.
 
     Requirements: even net_depth, even skip_index (so the skip concat lands
-    inside a pair), trunk width divisible by the model-axis size.
+    inside a pair), trunk width divisible by the model-axis size.  `plain`
+    runs the pairs on their plain versions (`_pair_plain`,
+    `_pair_bwd_plain`) on any device, launching no kernel.
     """
     n_model = mesh.shape['model']
     if net_depth % 2:
@@ -347,7 +382,7 @@ def tp_lean_forward(x, view, flat_params, mesh: Mesh, num_samples: int,
             partials = []
             for r in mesh.model_ranks:
                 partial = _pair(h_in, panel(f'k{e}', r), panel(f'b{e}', r),
-                                panel(f'k{o}', r), dtype)
+                                panel(f'k{o}', r), dtype, plain)
                 # The row layer's input was concat([h_e, x]): the x-rows'
                 # term is added once, by model rank 0.  On a multi-process
                 # mesh every rank takes the product and the others drop

@@ -34,6 +34,13 @@ The options of the lean path engage as the JAX model's gates say
   pallas_encode (where fast_encode_math would engage and fuse_encode does
                 not) the [M, 6L] encode rows come from the `ipe_moments`
                 kernel.
+Under a model axis (`tp_mesh`, the mesh's model_view: MipNeRFSystem with
+parallel.model_axis > 1) the MLP runs the Megatron split of
+`tp_lean_forward` on raw heads, so fuse_render, fuse_encode and the lean
+kernels' fused head activations are off, each named in `tp_off`; the
+encode feeds rows (through `ipe_moments` or `fused_ipe` where
+pallas_encode / ipe_backend say so), and the activations, the density
+noise and the compositing run here, as on 'xla'.
 `fast_encode_math` selects no fast transcendentals in the port: the kernel
 encodes take their sines from one exact FP64 reduction a (point, dim)
 (csrc/ipe_core.cuh), within ~0.5 ulp of float64 sin of each f32 argument,
@@ -109,7 +116,7 @@ class MipNerf(nn.Module):
                  fuse_encode: bool = False, fast_encode_math: bool = True,
                  pallas_encode: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 **tpu_only_knobs):
+                 tp_mesh=None, **tpu_only_knobs):
         super().__init__()
         unknown = set(tpu_only_knobs) - {
             'channel_major', 'lean_input_cast', 'mxu_cumsum'}
@@ -171,6 +178,16 @@ class MipNerf(nn.Module):
         self._fused_encode = (fuse_encode and self._fused_act and fastmath_ok
                               and mlp_backend in RENDER_BACKENDS
                               and not unbounded and ipe_backend == 'xla')
+        # What the model axis turns off (the options that would engage on
+        # one device).
+        self.tp_off = []
+        if tp_mesh is not None:
+            self.tp_off = [name for name, on in (
+                ('nerf.fuse_render', self._fused_render),
+                ('nerf.fuse_encode', self._fused_encode),
+                ('the fused head activations', self._fused_act)) if on]
+            self._fused_act = self._fused_render = False
+            self._fused_encode = False
         self._fast_encode_math = (fast_encode_math and fastmath_ok
                                   and mlp_backend in RENDER_BACKENDS
                                   and use_viewdirs and not unbounded
@@ -192,7 +209,7 @@ class MipNerf(nn.Module):
             backend=mlp_backend,
             fused_activation=((float(rgb_padding), float(density_bias))
                               if self._fused_act else None),
-            generator=generator)
+            generator=generator, tp_mesh=tp_mesh)
 
     def _density_act(self, x):
         if self.density_activation == 'softplus':
@@ -302,9 +319,10 @@ class MipNerf(nn.Module):
 
 def make_mipnerf_from_hparams(hparams: dict,
                               compute_dtype: torch.dtype = torch.float32,
-                              generator: Optional[torch.Generator] = None
-                              ) -> MipNerf:
-    """Build a MipNerf from the flat dotted-key hparams dict."""
+                              generator: Optional[torch.Generator] = None,
+                              tp_mesh=None) -> MipNerf:
+    """Build a MipNerf from the flat dotted-key hparams dict (its MLP
+    split over `tp_mesh`'s model axis where one is given)."""
     return MipNerf(
         num_samples=hparams['nerf.num_samples'],
         num_levels=hparams['nerf.num_levels'],
@@ -339,5 +357,5 @@ def make_mipnerf_from_hparams(hparams: dict,
         fuse_encode=bool(hparams.get('nerf.fuse_encode', False)),
         fast_encode_math=bool(hparams.get('nerf.fast_encode_math', True)),
         pallas_encode=bool(hparams.get('nerf.pallas_encode', False)),
-        generator=generator,
+        generator=generator, tp_mesh=tp_mesh,
     )

@@ -26,6 +26,15 @@ Backends:
           cotangents beside the parameter gradients, so these train with
           stop_resample_grad False.
 Without view directions every backend runs the plain forward, as in JAX.
+
+Under a model axis (`tp_mesh`, MipNeRFSystem with parallel.model_axis > 1)
+the training forward of every backend is `tp_lean_forward` on the lean flat
+layout (kernels/tp_lean.py): the trunk in Megatron pairs over the mesh's
+`model` axis, the rest in torch.matmul, raw heads.  The backend names the
+pairs' route: 'xla' their plain versions, every Pallas backend the pair
+kernels tp_pair_fwd / tp_pair_bwd (on a CUDA tensor they launch or
+raise).  x, the view features and every parameter get gradients.  It takes
+encode rows and view features only: no render or encode fusion.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from torch import nn
 from mipnerf_pl_tpu_torch.kernels.mlp import (flatten_params, fused_mlp,
                                               fused_mlp_lean,
                                               fused_mlp_lean_render)
+from mipnerf_pl_tpu_torch.kernels.tp_lean import tp_lean_forward
+from mipnerf_pl_tpu_torch.parallel.mesh import Mesh
 
 # The lean training backends and their fused_mlp_lean modes.
 LEAN_MODES = {'pallas_lean': 'recompute', 'pallas_lean_save': 'save',
@@ -47,6 +58,7 @@ LEAN_BACKENDS = tuple(LEAN_MODES)
 RENDER_BACKENDS = ('pallas_lean', 'pallas_lean_save')
 # The input-differentiable backends and their fused_mlp modes.
 PALLAS_MODES = {'pallas': 'recompute', 'pallas_save': 'save'}
+BACKENDS = ('xla',) + LEAN_BACKENDS + tuple(PALLAS_MODES)
 
 
 class MLP(nn.Module):
@@ -60,7 +72,8 @@ class MLP(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  backend: str = 'xla',
                  fused_activation: Optional[tuple] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 tp_mesh: Optional[Mesh] = None):
         super().__init__()
         if net_activation != 'relu':
             raise NotImplementedError(net_activation)
@@ -74,6 +87,8 @@ class MLP(nn.Module):
         # (rgb_padding, density_bias) of the head activations the lean
         # kernels apply in place; None = raw heads.
         self.fused_activation = fused_activation
+        # The mesh's model_view under a model axis, else None.
+        self.tp_mesh = tp_mesh
 
         dim_in = xyz_dim
         for i in range(net_depth):
@@ -109,6 +124,13 @@ class MLP(nn.Module):
         on a lean path with `fused_activation`), or with `render` = (delta
         [B, N], mids [B, N], white_bkgd) the per-ray (comp_rgb [B, 3],
         dist_raw [B], acc [B], weights [B, N]) of the lean render level."""
+        if self.tp_mesh is not None:
+            if render is not None or encode is not None \
+                    or view_direction is None:
+                raise ValueError('under a model axis the MLP takes encode '
+                                 'rows and view features, with no render or '
+                                 'encode fusion')
+            return self._tp(x, view_direction)
         if encode is not None and self.backend not in RENDER_BACKENDS:
             raise ValueError('encode fusion requires a lean pallas backend, '
                              f'got {self.backend!r}')
@@ -188,6 +210,23 @@ class MLP(nn.Module):
             x.reshape(-1, x.shape[-1]), view.reshape(-1, Fv), flat,
             self.net_depth, self.net_depth_condition, self.skip_index,
             self.compute_dtype, PALLAS_MODES[self.backend])
+        return (rgb.reshape(*lead, self.num_rgb_channels),
+                density.reshape(*lead, self.num_density_channels))
+
+    def _tp(self, x, view_direction):
+        """The training forward under a model axis: x [B, N, F] encode
+        rows, view_direction [B, Fv] -> raw (rgb [B, N, 3], density [B, N,
+        nd]) through `tp_lean_forward` on `tp_mesh`."""
+        if self.backend not in BACKENDS:
+            raise ValueError(f'unknown mlp backend {self.backend!r}')
+        num_samples, lead = x.shape[-2], x.shape[:-1]
+        rgb, density = tp_lean_forward(
+            x.reshape(-1, x.shape[-1]),
+            view_direction.reshape(-1, view_direction.shape[-1]),
+            flatten_params(self, self.net_depth, self.net_depth_condition),
+            self.tp_mesh, num_samples, self.net_depth,
+            self.net_depth_condition, self.skip_index, self.compute_dtype,
+            plain=self.backend == 'xla')
         return (rgb.reshape(*lead, self.num_rgb_channels),
                 density.reshape(*lead, self.num_density_channels))
 

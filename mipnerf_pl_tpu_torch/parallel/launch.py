@@ -1,4 +1,4 @@
-"""One process a device: how the CLIs start and join a data-parallel run.
+"""One process a device: how the CLIs start and join a parallel run.
 
 Counterpart of the JAX package's train.py:38-49, where one controller sees
 every chip and `parallel.multi_host` joins the hosts' controllers.  Here a
@@ -12,6 +12,9 @@ the others.  A worker, or a process of a multi-host run
 (`parallel.multi_host` with `parallel.coordinator_address`,
 `parallel.num_processes`, `parallel.process_id`), joins its group with
 `join_group` and drives card `process_id % torch.cuda.device_count()`.
+With `parallel.model_axis` m the n workers form a (n / m, m) mesh: the
+model ranks of one data shard read the same rows of each batch (the
+batcher's shard is the data rank).
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch
 import torch.distributed as dist
 
 from mipnerf_pl_tpu_torch.parallel.mesh import (maybe_initialize_distributed,
-                                                multi_host, requested_devices)
+                                                model_axis, multi_host,
+                                                requested_devices)
 
 # "host:port,num_processes,process_id" of a worker that run_workers started.
 WORKER_ENV = 'MIPNERF_TORCH_WORKER'
@@ -38,14 +42,21 @@ PROCESS_KEYS = ('parallel.multi_host', 'parallel.coordinator_address',
 
 def checkpoint_hparams(ckpt_path: str, opts: Sequence[str] = ()) -> dict:
     """The hparams a render CLI runs with: the checkpoint's, less
-    PROCESS_KEYS (they placed the processes that trained it), with `opts`
-    (key value ...) merged over them."""
+    PROCESS_KEYS (they placed the processes that trained it) and less its
+    model axis (a render splits rows over `data` only: a run of n devices
+    under `parallel.model_axis` m renders on n / m, one card for data 1),
+    with `opts` (key value ...) merged over them, which may ask for a model
+    axis again."""
     from mipnerf_pl_tpu_torch import config
     from mipnerf_pl_tpu_torch.train.ckpt import load_hparams
 
     hparams = load_hparams(ckpt_path)
     for key in PROCESS_KEYS:
         hparams[key] = config.DEFAULTS[key]
+    m = model_axis(hparams)
+    if m > 1:
+        hparams['num_devices'] = requested_devices(hparams) // m
+        hparams['parallel.model_axis'] = 1
     if opts:
         config.merge_from_list(hparams, list(opts))
     return hparams

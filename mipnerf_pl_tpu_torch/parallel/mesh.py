@@ -16,6 +16,10 @@ list.  Two forms behind one interface, and the caller says which:
       by `maybe_initialize_distributed`; a `model` group and a `data` group
       per rank.
 
+MipNeRFSystem drives both axes: rows over `data`, the MLP's Megatron pairs
+over `model` (kernels/tp_lean.py, through `model_view`, the mesh as the
+MLP of one data shard sees it).
+
 The `model` collectives are Megatron's two operators: `copy_to_model`
 (identity forward, a sum over `model` backward) and `reduce_from_model` (a
 sum forward, identity backward).  On a single-process mesh autograd gives
@@ -24,13 +28,16 @@ cotangents, and a sum hands its cotangent to every term.
 
 The `data` collectives serve data parallelism, where every shard holds the
 whole model and its rows of each batch: `data_rows` names the rows a
-process computes, `reduce_from_data` sums the shards' gradients and loss
-partials, `assemble_rows` hands every process the rows of all shards, and
-`broadcast_from_data_root` starts every process from the first's
-parameters.  They are `all_reduce` and `broadcast` only (row assembly is a
-sum of zero-filled buffers), the two collectives gloo also takes on CUDA
-tensors.  Where JAX places a global array with `put_global` and
-`batch_sharding`, a process here computes its own rows.
+process computes, `reduce_from_data` sums the shards' partials over
+`data`, `reduce_from_mesh` over the whole mesh (a step's gradients and loss
+sums, whose model ranks have each added their own share), `assemble_rows`
+hands every process the rows of all shards, and `broadcast_from_root`
+starts every process from the first's parameters, which
+`check_equal_over_mesh` holds the processes to.  They are `all_reduce` and
+`broadcast` only (row assembly is a sum of zero-filled buffers), the two
+collectives gloo also takes on CUDA tensors.  Where JAX places a global
+array with `put_global` and `batch_sharding`, a process here computes its
+own rows.
 """
 
 from __future__ import annotations
@@ -104,6 +111,13 @@ class Mesh:
         multi-process mesh, and the one process of a single-process one."""
         return self.rank == 0
 
+    def model_view(self) -> 'Mesh':
+        """The mesh as the MLP of one data shard sees it: data 1, this
+        mesh's `model` axis, ranks and group.  The system splits a batch's
+        rows over `data` itself, so the MLP splits over `model` only."""
+        return Mesh(1, self.shape['model'], self.device, self.distributed,
+                    self.model_rank, self.model_group)
+
     def data_rows(self, total: int) -> List[Tuple[int, int]]:
         """[(start, stop)] of the data shards this process computes, as
         rows of a `total`-row batch split evenly over `data`: every shard
@@ -124,6 +138,22 @@ class Mesh:
         shard order on a single-process mesh, one `all_reduce` of the
         tensors packed into one f32 buffer on a multi-process one.  Every
         process gets the same sums."""
+        return self._reduce(partials, self.data_group, self.shape['data'])
+
+    def reduce_from_mesh(self, partials: Sequence[Sequence[torch.Tensor]]
+                         ) -> List[torch.Tensor]:
+        """As reduce_from_data, the sum taken over every process of the
+        mesh: over `data` and `model` on a multi-process mesh, where each
+        model rank hands in its own share of its data shard's sums.  On a
+        single-process mesh the model ranks' shares are already added (the
+        shards run in turn in one autograd graph), so it is
+        reduce_from_data."""
+        if self.shape['model'] == 1:
+            return self.reduce_from_data(partials)
+        return self._reduce(partials, None,
+                            self.shape['data'] * self.shape['model'])
+
+    def _reduce(self, partials, group, size: int) -> List[torch.Tensor]:
         if len(partials) != (1 if self.distributed else self.shape['data']):
             raise ValueError(f'{len(partials)} partials for a data axis of '
                              f'{self.shape["data"]} on {self!r}')
@@ -134,8 +164,8 @@ class Mesh:
             return totals
         tensors = list(partials[0])
         flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-        if self.shape['data'] > 1:
-            dist.all_reduce(flat, group=self.data_group)
+        if size > 1:
+            dist.all_reduce(flat, group=group)
         out, at = [], 0
         for t in tensors:
             out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
@@ -163,34 +193,33 @@ class Mesh:
             dist.all_reduce(full, group=self.data_group)
         return full
 
-    def broadcast_from_data_root(self, tensors: Sequence[torch.Tensor]
-                                 ) -> None:
-        """Overwrite the tensors IN PLACE with those of data index 0 of
-        this process's `data` group; nothing to do on a single-process
+    def broadcast_from_root(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Overwrite the tensors IN PLACE with those of the mesh's first
+        process (rank 0 of the whole group: every data and model rank
+        holds the whole parameters); nothing to do on a single-process
         mesh."""
-        if not self.distributed or self.shape['data'] == 1:
+        if not self.distributed or dist.get_world_size() == 1:
             return
-        root = dist.get_global_rank(self.data_group, 0)
         with torch.no_grad():
             for t in tensors:
-                dist.broadcast(t.data, src=root, group=self.data_group)
+                dist.broadcast(t.data, src=0)
 
-    def check_equal_over_data(self, tensors: Sequence[torch.Tensor],
+    def check_equal_over_mesh(self, tensors: Sequence[torch.Tensor],
                               what: str) -> None:
-        """Raise unless every process of this `data` group holds the same
-        bits in each f32 tensor: one all_reduce(MAX) of each tensor's bit
-        sum and its negation.  Nothing to check on a single-process
-        mesh."""
-        if not self.distributed or self.shape['data'] == 1:
+        """Raise unless every process of the mesh holds the same bits in
+        each f32 tensor: one all_reduce(MAX) over the whole group of each
+        tensor's bit sum and its negation.  Nothing to check on a
+        single-process mesh."""
+        if not self.distributed or dist.get_world_size() == 1:
             return
         sums = torch.stack([t.detach().contiguous().view(torch.int32)
                             .to(torch.int64).sum() for t in tensors])
         both = torch.cat([sums, -sums])
-        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self.data_group)
+        dist.all_reduce(both, op=dist.ReduceOp.MAX)
         n = len(tensors)
         if not torch.equal(both[:n], -both[n:]):
             raise RuntimeError(f'{what} differ between the processes of the '
-                               f'data axis ({self!r})')
+                               f'mesh ({self!r})')
 
     def barrier(self) -> None:
         """Wait for every process of the mesh (a one-element all_reduce on
@@ -309,7 +338,10 @@ def create_mesh(num_devices: int = 0, model_axis: int = 1, device=None,
         n = num_devices
     else:
         n = torch.cuda.device_count() if device.type == 'cuda' else 1
-    assert n % model_axis == 0, (n, model_axis)
+    if model_axis < 1 or n % model_axis:
+        # An assertion, as the JAX mesh's.
+        raise AssertionError(f'parallel.model_axis={model_axis} does not '
+                             f'divide num_devices={n}')
     data = n // model_axis
     if not distributed:
         return Mesh(data, model_axis, device)
@@ -335,6 +367,12 @@ def process_count() -> int:
     """The processes of the run: the process group's world size, 1 with no
     group (jax.process_count())."""
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def model_axis(hparams) -> int:
+    """`parallel.model_axis`, 1 where unset (None or 'None')."""
+    v = hparams.get('parallel.model_axis')
+    return 1 if v is None or str(v) == 'None' else int(v)
 
 
 def requested_devices(hparams) -> int:

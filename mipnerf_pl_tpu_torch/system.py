@@ -32,6 +32,22 @@ multi-process one (one process a device, cli/train.py's launcher or
 `parallel.multi_host`) each process holds its own rows and the first
 writes the run's files.
 
+Tensor parallelism: with a `model` axis (`parallel.model_axis` > 1, or a
+mesh that has one) the training model's MLP splits each data shard's
+trunk over `model` in Megatron pairs (`tp_lean_forward` on the mesh's
+`model_view`; the pair kernels for a Pallas backend, their plain versions
+for 'xla'), with the whole-MLP fusions off (models/mipnerf.py `tp_off`;
+the system prints what runs and what is off).  Every process holds the
+whole parameters and Adam moments, so the state, its checkpoints and the
+renders are those of data parallelism; the renders run the eval model on
+the whole parameters, rows over `data` only, as JAX's `pallas_call` does
+not split over `model`.  On a single-process mesh autograd adds the model
+ranks' panels into each parameter's gradient; on a multi-process one a
+model rank's gradient holds its own panels and the replicated regions
+(`model_split_rows`), the latter kept by model rank 0 alone before the sum
+over the whole mesh.  The step is that of one device on the whole batch,
+as under JAX's GSPMD.
+
 The run: `setup` builds the train / val datasets and the prefetching
 TrainBatcher, `validate` renders val images (through `camera()` where the
 dataset has one) and returns the mean loss and PSNR, and `fit` is the whole
@@ -61,11 +77,13 @@ from torch.func import functional_call
 from mipnerf_pl_tpu_torch import config
 from mipnerf_pl_tpu_torch.data.datasets import dataset_dict
 from mipnerf_pl_tpu_torch.data.pipeline import TrainBatcher
+from mipnerf_pl_tpu_torch.kernels.mlp import param_order
+from mipnerf_pl_tpu_torch.kernels.tp_lean import model_split_rows
 from mipnerf_pl_tpu_torch.models.mipnerf import make_mipnerf_from_hparams
 from mipnerf_pl_tpu_torch.ops.camera import Camera, camera_rays
 from mipnerf_pl_tpu_torch.ops.render import distloss
 from mipnerf_pl_tpu_torch.parallel.mesh import (Mesh, create_mesh,
-                                                multi_host,
+                                                model_axis, multi_host,
                                                 pad_batch_to_devices,
                                                 requested_devices)
 from mipnerf_pl_tpu_torch.rays import (Rays, namedtuple_map, rays_flatten,
@@ -147,45 +165,73 @@ def _compute_dtype(hparams) -> torch.dtype:
     return torch.bfloat16 if name == 'bfloat16' else torch.float32
 
 
-def _refuse_parallel_settings(hparams) -> None:
-    """The system runs data-parallel over the mesh's `data` axis.  The
-    Megatron shardings and `tp_lean_forward` exist (parallel/,
-    kernels/tp_lean.py), but nothing here drives them yet, so a model axis
-    is refused rather than dropped."""
-    axis = hparams.get('parallel.model_axis')
-    if axis is not None and str(axis) != 'None' and int(axis) > 1:
-        raise NotImplementedError(
-            f'parallel.model_axis={hparams["parallel.model_axis"]!r} asks '
-            'for tensor parallelism through the system, which is not ported '
-            'yet (ROADMAP.md, queue 1 item 4: MipNeRFSystem under '
-            'parallel.model_axis > 1)')
+def _check_model_axis_shapes(hparams, n_model: int) -> None:
+    """Raise a ValueError naming the key of each model shape the Megatron
+    split of `tp_lean_forward` cannot take (JAX's GSPMD takes any): the
+    pairs need an even trunk depth and an even skip index (the skip concat
+    inside a pair), view directions and a view layer (view_0's split
+    rows), and a trunk width the model axis divides."""
+    depth = int(hparams['nerf.mlp.net_depth'])
+    skip = int(hparams['nerf.mlp.skip_index'])
+    width = int(hparams['nerf.mlp.net_width'])
+    refused = [
+        ('nerf.mlp.net_depth', depth % 2, f'{depth} is odd: the trunk runs '
+         'in pairs of layers'),
+        ('nerf.mlp.skip_index', skip % 2, f'{skip} is odd: the skip concat '
+         'must land inside a pair'),
+        ('nerf.use_viewdirs', not bool(hparams['nerf.use_viewdirs']),
+         'False: the split needs the view layers'),
+        ('nerf.mlp.net_depth_condition',
+         int(hparams['nerf.mlp.net_depth_condition']) < 1,
+         f'{hparams["nerf.mlp.net_depth_condition"]}: the split needs '
+         'view_0'),
+        ('nerf.mlp.net_width', width % n_model, f'{width} does not divide '
+         f'among model={n_model} shards')]
+    for key, bad, why in refused:
+        if bad:
+            raise ValueError(f'{key}={why} (parallel.model_axis={n_model} '
+                             'splits the MLP with tp_lean_forward)')
 
 
 def resolve_mesh(hparams, device: torch.device) -> Mesh:
     """The system's mesh from the hparams, as the JAX system resolves its
-    device count (`requested_devices`; 0 = every visible card).  With an
-    initialised process group: the multi-process mesh, one process a
-    device, whose world size the count must equal.  Without one, one
-    device: a larger count needs its processes (the CLIs start them) or an
-    explicit single-process `mesh=`; the count is never quietly cut."""
+    device count (`requested_devices`; 0 = every visible card) and lays it
+    out as (data, model) with `parallel.model_axis`.  With an initialised
+    process group: the multi-process mesh, one process a device, whose
+    world size the count must equal.  Without one, one device: a larger
+    count needs its processes (the CLIs start them) or an explicit
+    single-process `mesh=`; the count is never quietly cut.  A count the
+    model axis does not divide raises, naming both keys."""
     n = requested_devices(hparams)
+    m = model_axis(hparams)
     if dist.is_initialized():
-        return create_mesh(n, device=device, distributed=True)
+        n = n or dist.get_world_size()
+    elif n == 0:
+        n = torch.cuda.device_count() if device.type == 'cuda' else 1
+    if m < 1 or n % m:
+        raise ValueError(
+            f'parallel.model_axis={hparams.get("parallel.model_axis")!r} '
+            f'does not divide the {n} device(s) of num_devices='
+            f'{hparams.get("num_devices")!r}, num_gpus='
+            f'{hparams.get("num_gpus")!r}: ask for a multiple of it (the '
+            'launcher of python -m mipnerf_pl_tpu_torch.cli.train starts '
+            f'one process a device), or pass mesh=create_mesh({max(m, 1)}, '
+            f'{max(m, 1)}, device=...) for the single-process mesh')
+    if dist.is_initialized():
+        return create_mesh(n, m, device=device, distributed=True)
     if multi_host(hparams):
         raise ValueError(
             'parallel.multi_host is set and no process group is '
             'initialised: call parallel.mesh.maybe_initialize_distributed '
             'before building the system (cli.train does)')
-    if n == 0 and device.type == 'cuda':
-        n = torch.cuda.device_count()          # every visible card
     if n > 1:
         raise ValueError(
             f'num_devices={hparams.get("num_devices")!r}, num_gpus='
-            f'{hparams.get("num_gpus")!r} ask for {n} data shards, and this '
+            f'{hparams.get("num_gpus")!r} ask for {n} shards, and this '
             'process drives one device: start one process a device with the '
             f'launcher of python -m mipnerf_pl_tpu_torch.cli.train (it '
             f'starts {n} workers; parallel.multi_host joins them across '
-            f'hosts), or pass mesh=create_mesh({n}, device=...) for the '
+            f'hosts), or pass mesh=create_mesh({n}, {m}, device=...) for the '
             'single-process mesh')
     return create_mesh(1, device=device)
 
@@ -197,12 +243,14 @@ class MipNeRFSystem:
     (`resolve_mesh`) unless `mesh` is given.  Over a mesh's `data` axis
     every step, loss and render is that of one device on the whole batch:
     each shard computes its rows and the sums are reduced over `data`, as
-    JAX's sharded step gives."""
+    JAX's sharded step gives.  Over its `model` axis each shard's training
+    MLP runs in Megatron pairs, every process holding the whole
+    parameters, and the step is again that of one device (the module
+    docstring)."""
 
     def __init__(self, hparams: Dict[str, Any], device=None,
                  mesh: Optional[Mesh] = None):
         config.warn_inert_keys(hparams)
-        _refuse_parallel_settings(hparams)
         self.hparams = dict(hparams)
         if device is None and mesh is not None:
             device = mesh.device
@@ -219,20 +267,23 @@ class MipNeRFSystem:
         elif mesh.device != self.device:
             raise ValueError(f'device {self.device} but the mesh is on '
                              f'{mesh.device}')
-        if mesh.shape['model'] > 1:
-            _refuse_parallel_settings({'parallel.model_axis':
-                                       mesh.shape['model']})
         self.mesh = mesh
+        n_model = mesh.shape['model']
+        if n_model > 1:
+            _check_model_axis_shapes(hparams, n_model)
         compute_dtype = _compute_dtype(hparams)
-        self.model = make_mipnerf_from_hparams(hparams, compute_dtype)
+        self.model = make_mipnerf_from_hparams(
+            hparams, compute_dtype,
+            tp_mesh=mesh.model_view() if n_model > 1 else None)
         # Inference model: same parameters, its own backend (val.mlp_backend;
-        # 'auto' -> the fused lean-render kernels when supported).
+        # 'auto' -> the fused lean-render kernels when supported), and
+        # never split over `model`.
         train_backend = str(hparams.get('nerf.mlp_backend', 'xla'))
         val_backend = str(hparams.get('val.mlp_backend', 'auto') or 'auto')
         if val_backend == 'auto':
             val_backend = ('pallas_lean' if _render_fusion_ok(hparams)
                            else 'xla')
-        if (val_backend != train_backend
+        if (val_backend != train_backend or n_model > 1
                 or val_backend.startswith('pallas_lean')):
             eval_hp = dict(hparams)
             eval_hp['nerf.mlp_backend'] = val_backend
@@ -249,6 +300,17 @@ class MipNeRFSystem:
             self.eval_model = self.model
         self.model.to(self.device)
         self.eval_model.to(self.device)
+        if n_model > 1 and mesh.is_root:
+            route = ('their plain versions' if train_backend == 'xla' else
+                     'the kernels tp_pair_fwd / tp_pair_bwd')
+            print(f'model axis {n_model} ({mesh!r}): the training MLP '
+                  f'(nerf.mlp_backend {train_backend}) runs its trunk in '
+                  f'Megatron pairs on {route}, the heads, the skip x-term, '
+                  'the bottleneck and view_0 in torch.matmul; off under the '
+                  'model axis: '
+                  f'{", ".join(self.model.tp_off) or "nothing"}; renders on '
+                  f'the whole parameters (val.mlp_backend {val_backend})',
+                  flush=True)
         self.val_randomized = bool(hparams['val.randomized'])
         self.train_randomized = bool(hparams['train.randomized'])
         self.white_bkgd = bool(hparams['train.white_bkgd'])
@@ -294,7 +356,7 @@ class MipNeRFSystem:
         params = {k: v.detach().to(self.device, torch.float32).clone()
                   .requires_grad_(True) for k, v in params.items()}
         # Every process starts from the first one's parameters.
-        self.mesh.broadcast_from_data_root(list(params.values()))
+        self.mesh.broadcast_from_root(list(params.values()))
         return {'params': params, 'opt_state': adam(list(params.values())),
                 'step': 0}
 
@@ -419,10 +481,12 @@ class MipNeRFSystem:
     def value_and_grad(self, params, rays: Rays, pixels,
                        generator: Optional[torch.Generator] = None):
         """-> ((loss, aux), {name: gradient}) of loss_fn on the whole batch,
-        over the mesh's `data` axis: `rays` and `pixels` are this process's
-        rows (all of them on a single-process mesh, which runs the shards
-        in turn); each shard's loss term is differentiated, and the
-        gradients and the aux sums are reduced over `data`."""
+        over the mesh: `rays` and `pixels` are this process's rows (all of
+        them on a single-process mesh, which runs the shards in turn); each
+        shard's loss term is differentiated, and the gradients and the aux
+        sums are reduced over `data`, and over `model` on a multi-process
+        mesh, whose model ranks other than 0 first drop what every model
+        rank holds alike (`_drop_replicated`)."""
         names = list(params)
         mesh = self.mesh
         n_local = pixels.shape[0]
@@ -443,9 +507,27 @@ class MipNeRFSystem:
             partials.append(list(grads) + sums)
         if gens[-1] is not generator:
             generator.set_state(gens[-1].get_state())
-        reduced = mesh.reduce_from_data(partials)
+        if mesh.distributed and mesh.model_rank > 0:
+            self._drop_replicated(dict(zip(names, partials[0])))
+            partials[0][len(names):] = [torch.zeros_like(t) for t in sums]
+        reduced = mesh.reduce_from_mesh(partials)
         aux = self._aux(reduced[len(names):], n_rays)
         return (aux['loss'], aux), dict(zip(names, reduced[:len(names)]))
+
+    def _drop_replicated(self, grads: Dict[str, torch.Tensor]) -> None:
+        """Zero IN PLACE the regions of a model rank's gradients that every
+        model rank holds alike (the rows after `model_split_rows`' of each
+        tensor of the lean flat layout, taken as views of the gradients),
+        so the sum over `model` counts them once, from model rank 0; the
+        split regions are zero outside the rank's own panels already."""
+        mlp = self.model.mlp
+        views = []
+        for layer in param_order(mlp.net_depth, mlp.net_depth_condition):
+            views += [grads[f'mlp.{layer}.weight'].t(),
+                      grads[f'mlp.{layer}.bias'].view(1, -1)]
+        for g, rows in zip(views, model_split_rows(
+                views, mlp.net_depth, mlp.net_depth_condition)):
+            g[rows:] = 0.0
 
     def train_step(self, state, rays: Rays, pixels,
                    generator: Optional[torch.Generator] = None):
@@ -805,7 +887,7 @@ class MipNeRFSystem:
                     t_ckpt = time.time()
                     # The first process's checkpoint stands for every
                     # process's state.
-                    self.mesh.check_equal_over_data(
+                    self.mesh.check_equal_over_mesh(
                         list(state['params'].values()), 'the parameters')
                     if root:
                         ckpt.save(step, self.host_state(state),

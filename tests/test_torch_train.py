@@ -318,7 +318,7 @@ def test_system_runs_on_cuda_unless_asked_for_cpu(monkeypatch):
 @pytest.mark.parametrize('setting,refused', [
     ({'num_devices': 4}, True),
     ({'num_gpus': 2}, True),
-    ({'parallel.model_axis': 2}, True),
+    ({'parallel.model_axis': 2, 'nerf.mlp.net_depth': 4}, True),
     ({'parallel.multi_host': True}, True),
     ({'num_devices': 1}, False),
     ({'num_devices': 0, 'num_gpus': 1, 'parallel.model_axis': 1,
@@ -328,9 +328,10 @@ def test_system_refuses_parallel_settings_it_does_not_honour(setting,
                                                              refused):
     """Several devices without a process group raise the launcher's
     message (one process a device), and with an explicit single-process
-    mesh train over `data`; multi-host without an initialised group
-    raises; a model axis is refused with the ROADMAP item's name, not
-    dropped.  One device, asked for in either key, is accepted."""
+    mesh train over the mesh; a model axis that does not divide the one
+    device raises naming both keys, and on mesh=create_mesh(2, 2) takes a
+    finite step; multi-host without an initialised group raises.  One
+    device, asked for in either key, is accepted."""
     from mipnerf_pl_tpu_torch.parallel.mesh import create_mesh
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem
     hp = _hparams(**setting)
@@ -340,11 +341,6 @@ def test_system_refuses_parallel_settings_it_does_not_honour(setting,
         assert system.mesh.shape == {'data': 1, 'model': 1}
         return
     key = next(iter(setting))
-    if key == 'parallel.model_axis':
-        with pytest.raises(NotImplementedError, match='ROADMAP') as err:
-            MipNeRFSystem(hp, device='cpu')
-        assert f'{key}={setting[key]!r}' in str(err.value)
-        return
     if key == 'parallel.multi_host':
         with pytest.raises(ValueError, match='maybe_initialize_distributed'):
             MipNeRFSystem(hp, device='cpu')
@@ -352,9 +348,34 @@ def test_system_refuses_parallel_settings_it_does_not_honour(setting,
     n = setting[key]
     with pytest.raises(ValueError, match='cli.train') as err:
         MipNeRFSystem(hp, device='cpu')
-    assert f'mesh=create_mesh({n}' in str(err.value)
-    system = MipNeRFSystem(hp, mesh=create_mesh(n, device='cpu'))
-    assert system.mesh.shape == {'data': n, 'model': 1}
+    model = 1
+    if key == 'parallel.model_axis':
+        model = n
+        assert f'{key}={n!r}' in str(err.value)
+        assert 'num_devices=' in str(err.value)
+    assert f'mesh=create_mesh({n}, {model}' in str(err.value)
+    system = MipNeRFSystem(hp, mesh=create_mesh(n, model, device='cpu'))
+    assert system.mesh.shape == {'data': n // model, 'model': model}
     rays, pixels = _batch(8)
     state, aux = system.train_step(system.init_state(seed=0), rays, pixels)
     assert state['step'] == 1 and torch.isfinite(aux['loss'])
+
+
+@pytest.mark.parametrize('setting,key', [
+    ({'nerf.mlp.net_depth': 3}, 'nerf.mlp.net_depth'),
+    ({'nerf.mlp.skip_index': 1}, 'nerf.mlp.skip_index'),
+    ({'nerf.mlp.net_depth_condition': 0}, 'nerf.mlp.net_depth_condition'),
+    ({'nerf.mlp.net_width': 6}, 'nerf.mlp.net_width'),
+    ({'nerf.use_viewdirs': False}, 'nerf.use_viewdirs'),
+])
+def test_model_axis_refuses_shapes_its_split_cannot_take(setting, key):
+    """The shapes the Megatron split of tp_lean_forward cannot take raise
+    a ValueError naming the key under a model axis, and build on one
+    device."""
+    from mipnerf_pl_tpu_torch.parallel.mesh import create_mesh
+    from mipnerf_pl_tpu_torch.system import MipNeRFSystem
+    hp = _hparams(**{'nerf.mlp.net_depth': 4, **setting})
+    with pytest.raises(ValueError, match=key) as err:
+        MipNeRFSystem(hp, mesh=create_mesh(4, 4, device='cpu'))
+    assert 'parallel.model_axis=4' in str(err.value)
+    MipNeRFSystem(hp, device='cpu')
