@@ -226,6 +226,34 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      tool's settings): val PSNR >= 27.0 dB, lean_save_fwd and
      lean_param_grads 2 a step; its PSNR, wall time and rays/s beside the
      card's nvidia-smi line;
+  8e. the multi-scale tools through the command lines, at the lego width of
+     their defaults (8x256, 128 + 128 samples, 3072 rays) in bf16 with
+     nerf.mlp_backend pallas_lean_save forwarded: tools.ablation (three
+     arms: multi_ipe, multi_pe with nerf.disable_integration, single_ipe
+     on the full-resolution scene), tools.distloss_ablation (two arms:
+     loss.distloss_mult 0.01 and 0) and tools.acceptance (--scene hard),
+     TOOLS_STEPS steps an arm on the hard scene of TOOLS_SIZE px, each
+     evaluated on the same TOOLS_LEVELS-level pyramid (multi_ipe,
+     distloss_on and the acceptance run are one configuration and seed,
+     trained once as multi_ipe, whose checkpoint the other two evaluate
+     with --skip_train); the stages (cli.
+     convert, cli.train, cli.eval) run through their main in this process
+     (tools/stages.py), each counted alone: every training stage launches
+     lean_save_fwd and lean_param_grads 2 a step on the bf16 wgmma kernels
+     (check_routes, check_chain_routes, check_wgrad_routes) and its
+     validation renders through the kernels, multi_pe's models both run
+     with zero covariances, every eval launches lean_view_proj, lean_mlp
+     and lean_composite levels x chunks of each test entry (lean_mlp on the
+     bf16 wgmma forward) and nothing else; the reports exist with finite
+     per-scale PSNR and SSIM, each arm's average PSNR at or above its floor
+     in TOOLS_MIN_PSNR, the sign checks printed (not gated at this length);
+     then utils.visualize_cameras: export_html of the scene's cameras, its
+     pyramid's and the orbit, and the PNG where matplotlib imports (the
+     line says which ran).  Phase 7 also asserts that its batches came
+     through the native gather (mipnerf_pl_tpu_torch/native/gather.cpp,
+     built with g++ in the batcher's set-up), every field in its one pass,
+     and prints the batcher-wait share and the host ms of the library's
+     gather of a K x 3072-row draw beside numpy indexing's;
   9. data parallelism through the system, at lego width on
      pallas_lean_save with train.randomized True: 9a, the single-process
      mesh of 2 shards on the card against data 1, one step from the same
@@ -275,8 +303,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      axis dropped): finite PSNR and SSIM;
   10. the kernels' JSON line (launches, error, times, bound, library call;
      each kernel's launches on the paths of phases 7b-7d under
-     `launches_new_paths`, in phase 9 under `launches_dp` and in phases
-     9c-9e under `launches_tp`;
+     `launches_new_paths`, in phase 9 under `launches_dp`, in phases
+     9c-9e under `launches_tp` and in phase 8e's stages under
+     `launches_tools`;
      for the lean forwards and backwards also the wgmma kernel that runs
      them, f32 `kernel` / `chain` / `wgrad` and bf16 under 'bf16'; for f32
      lean_param_grads also its weight gradients' own ms, bound and
@@ -308,6 +337,7 @@ import ctypes
 import io
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -348,8 +378,12 @@ from mipnerf_pl_tpu_torch.parallel.mesh import (create_mesh,
                                                 maybe_initialize_distributed)
 from mipnerf_pl_tpu_torch.rays import Rays
 from mipnerf_pl_tpu_torch.system import MipNeRFSystem, make_dataset
-from mipnerf_pl_tpu_torch.tools import quality_smoke
+from mipnerf_pl_tpu_torch.native import gather as native_gather
+from mipnerf_pl_tpu_torch.tools import (ablation, acceptance,
+                                        distloss_ablation, quality_smoke,
+                                        stages)
 from mipnerf_pl_tpu_torch.train.ckpt import load_hparams, restore_for_eval
+from mipnerf_pl_tpu_torch.utils import visualize_cameras
 from mipnerf_pl_tpu_torch.utils.vis import create_spheric_poses
 
 CHUNK = 8192            # rays per level-chunk (val.chunk_size)
@@ -419,6 +453,7 @@ FORM_BAR = 1e-5         # moments vs rows form, composite backward, encode
 RUN_VIEWS = {'train': 24, 'val': 2, 'test': 2}
 RUN_SIDE = 64
 RUN_STEPS, RUN_RESUMED_STEPS, RUN_K, RUN_VAL = 40, 50, 5, 20
+GATHER_REPS = 50        # draws timed of the native gather and of numpy's
 ACT = (0.001, -1.0)
 # The multi-scale run of phase 7b: views of MS_SIDE on disk, MS_LEVELS
 # pyramid levels, and the test entries (view 0's levels 200, 50, 25) held
@@ -457,6 +492,17 @@ REAL360_TAG = '[real360]'
 REAL360_CAPTURE = {'size': 256, 'n_images': 24}
 REAL360_STEPS, REAL360_K = 200, 50
 QUALITY_STEPS, QUALITY_MIN_PSNR = 3000, 27.0
+# Phase 8e: the multi-scale tools (tools/ablation.py, distloss_ablation.py,
+# acceptance.py) at the lego width of their defaults, bf16, on
+# pallas_lean_save, on the hard scene of TOOLS_SIZE px and its
+# TOOLS_LEVELS-level pyramid, TOOLS_STEPS steps an arm; each arm's average
+# PSNR over the scales must reach its floor in TOOLS_MIN_PSNR (2 dB under
+# the first measurement on the card, PERF.md).
+TOOLS_SIZE, TOOLS_LEVELS, TOOLS_STEPS = 64, 4, 1000
+TOOLS_OPTS = ['nerf.mlp_backend', 'pallas_lean_save']
+TOOLS_MIN_PSNR = {'multi_ipe': 14.6, 'multi_pe': 12.8, 'single_ipe': 12.1,
+                  'distloss_on': 14.6, 'distloss_off': 14.6,
+                  'acceptance_hard': 14.6}
 # Phase 9: data parallelism through the system.  9a: the single-process
 # mesh of DP_SHARDS shards against data 1, one step and DP_K-step timing
 # turns; 9b: DP_SHARDS gloo processes on the one card, each fitting
@@ -2408,6 +2454,26 @@ class SphereViews(Blender):
         self.focal = 0.5 * self.w / np.tan(0.5 * CAMERA_ANGLE_X)
 
 
+def gather_times(fields, sample_indices, rows):
+    """Host ms of the native gather and of numpy indexing of `rows` rows of
+    `fields`, in turns, each on the same fresh draw: -> (median library
+    ms, median numpy ms) of GATHER_REPS draws; raises if they differ."""
+    rng = np.random.default_rng(0)
+    lib_ms, np_ms = [], []
+    for _ in range(GATHER_REPS):
+        idx = sample_indices(rng, rows)
+        t0 = time.perf_counter()
+        got = native_gather.gather_multi(fields, idx)
+        t1 = time.perf_counter()
+        want = [f[idx] for f in fields]
+        t2 = time.perf_counter()
+        lib_ms.append(1e3 * (t1 - t0))
+        np_ms.append(1e3 * (t2 - t1))
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError('the native gather differs from numpy')
+    return float(np.median(lib_ms)), float(np.median(np_ms))
+
+
 def whole_run(hp0):
     """Phase 7: train CLI -> checkpoint -> resume -> eval CLI on the
     in-memory sphere scene; -> the launch counts of the first train call."""
@@ -2440,6 +2506,23 @@ def whole_run(hp0):
             f'{ {k: v for k, v in counts.items() if v} }')
         if state['step'] != RUN_STEPS or stats['steps'] != RUN_STEPS:
             raise AssertionError(f'the run ended at step {state["step"]}')
+        # The batches came through the native gather (native/gather.py),
+        # every field in its one pass.
+        ds = system.train_dataset
+        fields = [*ds.rays, ds.images]
+        lib = native_gather.loaded()
+        if lib is None or not all(map(native_gather.native_ok, fields)):
+            raise AssertionError('the run gathered its batches without the '
+                                 'native library')
+        lib_ms, np_ms = gather_times(fields, ds.sample_indices,
+                                     RUN_K * TRAIN_RAYS)
+        log(f'[run] batches gathered by {lib.name} (built with '
+            f'{native_gather.compiler()} in the batcher\'s set-up); batcher '
+            f'wait {100 * stats["data_wait_share"]:.2f} % of the loop (PR '
+            f'22: 0.21-0.24 %); a draw of {RUN_K} x {TRAIN_RAYS} rows of the '
+            f'{len(fields)} fields ({ds.num_rays:,} rays), median of '
+            f'{GATHER_REPS}: library {lib_ms:.4f} ms, numpy indexing '
+            f'{np_ms:.4f} ms')
         if not (np.isfinite(stats['loss_last'])
                 and stats['loss_last'] < stats['loss_first']):
             raise AssertionError(f'the loss did not fall: {stats}')
@@ -3025,6 +3108,184 @@ def quality_run(smi):
     if counts['lean_save_fwd'] != want or counts['lean_param_grads'] != want:
         raise AssertionError(f'quality_smoke launched {counts}')
     return result
+
+
+def tools_eval_launches(levels, side, n_down, n_test, chunk):
+    """Launches of each render kernel in cli.eval of a pyramid's test split:
+    levels x chunks of every entry (n_test views at side / 2^l, l <
+    n_down)."""
+    return n_test * sum(levels * -(-(side >> l) ** 2 // chunk)
+                        for l in range(n_down))
+
+
+def share_ckpt(src, dst, exp_name):
+    """Copy the checkpoint root `src` to `dst` under the experiment name
+    `exp_name` (cli.eval writes its results under the checkpoint's
+    exp_name)."""
+    shutil.copytree(src, dst)
+    path = os.path.join(dst, 'hparams.json')
+    with open(path) as f:
+        hp = json.load(f)
+    with open(path, 'w') as f:
+        json.dump(dict(hp, exp_name=exp_name), f, indent=2)
+
+
+def tools_run(root, smi):
+    """Phase 8e: tools.ablation (multi_ipe, multi_pe, single_ipe),
+    tools.distloss_ablation (distloss_on, distloss_off) and
+    tools.acceptance (--scene hard) at the lego width of their defaults in
+    bf16 on pallas_lean_save, TOOLS_STEPS steps an arm, each stage through
+    the CLIs' main in this process (stages.in_process_stage).  multi_ipe,
+    distloss_on and acceptance_hard are one configuration and seed: it is
+    trained once, as multi_ipe, and the other two evaluate its checkpoint
+    (--skip_train).  Each
+    training stage launches lean_save_fwd and lean_param_grads 2 a step on
+    the bf16 wgmma kernels, multi_pe with nerf.disable_integration (zero
+    covariances) on both its models; each eval renders through lean_mlp
+    and lean_composite (levels x chunks of every test entry) on the bf16
+    wgmma forward and launches no training kernel; every report exists
+    with finite per-scale PSNR / SSIM, each arm's average PSNR >= its
+    floor (TOOLS_MIN_PSNR); the sign checks are printed.  Then
+    export_html of the scene's cameras, and the PNG where matplotlib
+    imports.  -> {stage label: launch counts}."""
+    counts = {}
+    chunk = eval_cli.make_parser().get_default('chunk_size')
+    bf16 = torch.bfloat16
+
+    def stage(module, argv):
+        flags = {a: b for a, b in zip(argv, argv[1:]) if a.startswith('--')}
+        km.reset_launches()
+        t0 = time.perf_counter()
+        result = stages.in_process_stage(module, argv)
+        torch.cuda.synchronize()
+        c = dict(km.launches)
+        if module == stages.CONVERT:
+            if any(c.values()):
+                raise AssertionError(f'cli.convert launched {c}')
+            return result
+        if module == stages.TRAIN:
+            system, state = result
+            hp, name = system.hparams, system.hparams['exp_name']
+            label = f'train {name}'
+            n = hp['nerf.num_levels'] * system.fit_stats['steps']
+            if system.fit_stats['steps'] != TOOLS_STEPS or \
+                    state['step'] != TOOLS_STEPS:
+                raise AssertionError(f'{label} ran {system.fit_stats}')
+            if hp['train.compute_dtype'] != 'bfloat16' or \
+                    system.model.mlp_backend != 'pallas_lean_save':
+                raise AssertionError(f'{label} is not bf16 pallas_lean_save')
+            if c['lean_save_fwd'] != n or c['lean_param_grads'] != n:
+                raise AssertionError(f'{label} launched {c}, want {n} of '
+                                     'lean_save_fwd and lean_param_grads')
+            check_routes(hp, bf16, f'phase 8e {label}', lean_save_fwd=n,
+                         lean_mlp=c['lean_mlp'])
+            check_chain_routes(hp, bf16, f'phase 8e {label}',
+                               lean_param_grads=n)
+            check_wgrad_routes(hp, bf16, f'phase 8e {label}',
+                               lean_param_grads=n)
+            multi_pe = name == 'multi_pe'
+            if (system.model.disable_integration != multi_pe
+                    or system.eval_model.disable_integration != multi_pe):
+                raise AssertionError(f'{label}: disable_integration is not '
+                                     f'{multi_pe}')
+            if not c['lean_mlp'] or not c['lean_composite']:
+                raise AssertionError(f'{label}: the validation rendered no '
+                                     f'frame through the kernels: {c}')
+            log(f'[tools] {label} ({system.train_dataset.num_rays:,} rays, '
+                f'{hp["dataset_name"]}): loss '
+                f'{system.fit_stats["loss_first"]:.5f} -> '
+                f'{system.fit_stats["loss_last"]:.5f}, '
+                f'{system.fit_stats["rays_per_sec"]:,.0f} rays/s; batcher '
+                f'wait {100 * system.fit_stats["data_wait_share"]:.2f} %')
+        else:
+            name = os.path.basename(flags['--ckpt'].rstrip('/'))
+            label = f'eval {name}'
+            hp = load_hparams(flags['--ckpt'])
+            n = tools_eval_launches(hp['nerf.num_levels'], TOOLS_SIZE,
+                                    int(flags['--scale']),
+                                    stages.SCENE_VIEWS['n_test'], chunk)
+            want = {k: n if k in RENDER_KERNELS else 0 for k in c}
+            if c != want:
+                raise AssertionError(f'{label} launched {c}, want {want}')
+            check_routes(hp, bf16, f'phase 8e {label}', lean_mlp=n)
+        counts[label] = c
+        log(f'[tools] {label}: {time.perf_counter() - t0:.1f} s; launches '
+            f'{ {k: v for k, v in c.items() if v} }')
+        return result
+
+    common = ['--size', str(TOOLS_SIZE), '--n_down', str(TOOLS_LEVELS),
+              '--steps', str(TOOLS_STEPS)]
+    out = {'ablation': os.path.join(root, 'ablation'),
+           'distloss': os.path.join(root, 'distloss'),
+           'acceptance': os.path.join(root, 'acceptance')}
+    abl = ablation.main(['--out', out['ablation']] + common + TOOLS_OPTS,
+                        stage=stage)
+    # distloss_on and acceptance --scene hard train multi_ipe's
+    # configuration (loss.distloss_mult 0.01, the schema's) from its seed
+    # on the same scene: they take its checkpoint under their own names,
+    # and every arm is evaluated as the tools evaluate it.
+    src = os.path.join(out['ablation'], 'ckpt', 'multi_ipe')
+    if load_hparams(src)['loss.distloss_mult'] != 0.01:
+        raise AssertionError('multi_ipe is not the distloss_on arm')
+    for tool, name in (('distloss', 'distloss_on'),
+                       ('acceptance', 'acceptance_hard')):
+        share_ckpt(src, os.path.join(out[tool], 'ckpt', name), name)
+    dist = distloss_ablation.main(['--out', out['distloss'], '--skip_train',
+                                   'distloss_on'] + common + TOOLS_OPTS,
+                                  stage=stage)
+    acc = acceptance.main(['--out', out['acceptance'], '--scene', 'hard',
+                           '--skip_train'] + common + TOOLS_OPTS,
+                          stage=stage)
+    averages = {}
+    for tool, report, rows in (
+            ('ablation', 'ABLATION.md', {k: abl[k] for k in (
+                'multi_ipe', 'multi_pe', 'single_ipe')}),
+            ('distloss', 'DISTLOSS.md', dist),
+            ('acceptance', 'ACCEPTANCE.md', {'acceptance_hard': {
+                'psnr': acc['psnr_per_scale'],
+                'ssim': acc['ssim_per_scale']}})):
+        if not os.path.exists(os.path.join(out[tool], report)):
+            raise AssertionError(f'{tool} wrote no {report}')
+        for arm, r in rows.items():
+            psnr, ssim = np.asarray(r['psnr']), np.asarray(r['ssim'])
+            if psnr.shape != (TOOLS_LEVELS,) or not (
+                    np.all(np.isfinite(psnr)) and np.all(np.isfinite(ssim))):
+                raise AssertionError(f'{arm}: per-scale {psnr} {ssim}')
+            averages[arm] = float(psnr.mean())
+            log(f'[tools] {arm}: PSNR per scale '
+                f'{[round(float(v), 3) for v in psnr]}, SSIM '
+                f'{[round(float(v), 4) for v in ssim]}, average '
+                f'{averages[arm]:.3f} dB (floor {TOOLS_MIN_PSNR[arm]})')
+    for check in abl['checks']:
+        log(f'[tools] sign check (printed, not gated at {TOOLS_STEPS} '
+            f'steps): {check["desc"]}: {check["delta"]:+.3f} dB, '
+            f'{"PASS" if check["pass"] else "FAIL"}')
+    log(f'[tools] distloss 0.01 vs 0: average PSNR '
+        f'{averages["distloss_on"]:.3f} vs {averages["distloss_off"]:.3f} '
+        f'dB; acceptance (hard scene) {acc["psnr_avg"]:.3f} dB / SSIM '
+        f'{acc["ssim_avg"]:.4f}; {smi}')
+    low = {arm: v for arm, v in averages.items() if v < TOOLS_MIN_PSNR[arm]}
+    if low:
+        raise AssertionError(f'phase 8e: below the floor: {low}')
+
+    # The camera visualizer on the scene the tools wrote.
+    scene = os.path.join(out['ablation'], 'scene_src', 'hard')
+    size, focal, c2ws = visualize_cameras.load_blender_cameras(scene)
+    sets = [('#4caf50', [(size, focal, c) for c in c2ws]),
+            ('blue', visualize_cameras.load_multicam_cameras(
+                os.path.join(out['ablation'], 'multiscale', 'hard')))]
+    html = visualize_cameras.export_html(
+        sets, os.path.join(root, 'cameras.html'), spheric_path=True)
+    try:
+        png = visualize_cameras.visualize_cameras(
+            sets, os.path.join(root, 'cameras.png'), spheric_path=True)
+        wrote = f'export_html and the PNG ({os.path.getsize(png):,} B)'
+    except ImportError as e:     # the PNG needs matplotlib
+        wrote = f'export_html only ({e})'
+    log(f'[tools] visualize_cameras: {wrote}; the HTML viewer '
+        f'{os.path.getsize(html):,} B, {len(sets[0][1])} + '
+        f'{len(sets[1][1])} cameras and the orbit')
+    return counts
 
 
 def dp_hparams(dtype, **extra):
@@ -3832,6 +4093,12 @@ def main() -> int:
     quality_run(smi)
     log(f'[real360] phases 8a-8d: {time.perf_counter() - t_new:.1f} s')
 
+    # Phase 8e: the multi-scale tools through the CLIs.
+    t_tools = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        tools_counts = tools_run(root, smi)
+    log(f'[tools] phase 8e: {time.perf_counter() - t_tools:.1f} s')
+
     # Phase 9: data parallelism through the system.
     t_dp = time.perf_counter()
     dp_counts = {f'9a {dtype} data-{DP_SHARDS} step': c
@@ -3892,6 +4159,10 @@ def main() -> int:
         # mesh, rank 0's fit).
         kernels[-1]['launches_tp'] = {
             path: c[name] for path, c in tp_counts_sys.items()
+            if c.get(name)}
+        # And in the stages of the multi-scale tools (phase 8e).
+        kernels[-1]['launches_tools'] = {
+            stage: c[name] for stage, c in tools_counts.items()
             if c.get(name)}
         rb = results.get((name, 'bf16'))
         if rb is not None:     # the compute dtype of the bf16 steps

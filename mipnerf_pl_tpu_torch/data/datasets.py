@@ -5,9 +5,9 @@ Counterpart of mipnerf_pl_tpu/data/datasets.py for the single-scale Blender
 data/convert.py writes (`multi_blender`) and LLFF / COLMAP real captures
 (`real360`: poses_bounds.npy, sparse/0/cameras.bin, images_<factor>/).
 Rays are computed once into numpy arrays; training batches are gathered on
-the host by `sample_batch`, with replacement, from a seeded numpy
-Generator (the same `rng.integers` draw as the JAX package, so one seed
-gives both the same batches), and shipped to the device by
+the host by `sample_batch` (native/gather.py), with replacement, from a
+seeded numpy Generator (the same `rng.integers` draw as the JAX package,
+so one seed gives both the same batches), and shipped to the device by
 data/pipeline.py.  PIL and cv2 are imported inside the functions that read
 files.
 """
@@ -22,6 +22,7 @@ from typing import List, Optional
 import numpy as np
 
 from mipnerf_pl_tpu_torch.data.poses import recenter_poses, spherify_poses
+from mipnerf_pl_tpu_torch.native.gather import gather_multi
 from mipnerf_pl_tpu_torch.rays import Rays, namedtuple_map
 
 
@@ -115,8 +116,10 @@ class BaseDataset:
 
     def gather(self, idx: np.ndarray):
         """(Rays, pixels) of the rays at `idx`: the same rows of every ray
-        field and of the pixels."""
-        return Rays(*[f[idx] for f in self.rays]), self.images[idx]
+        field and of the pixels, in one pass over `idx` through the native
+        gather (native/gather.py)."""
+        *rays, pixels = gather_multi([*self.rays, self.images], idx)
+        return Rays(*rays), pixels
 
     def sample_batch(self, rng: np.random.Generator, batch_size: int):
         """Gather a random ray batch (train split only): one index draw,

@@ -18,6 +18,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from mipnerf_pl_tpu_torch.native import gather
 from mipnerf_pl_tpu_torch.rays import Rays
 
 
@@ -60,6 +61,9 @@ class TrainBatcher:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
+        # The datasets gather through the native library: build it here,
+        # in set-up, so that no timed training loop pays for the build.
+        gather.library()
         if prefetch > 0:
             self._queue = queue.Queue(maxsize=prefetch)
             self._thread = threading.Thread(target=self._producer,

@@ -241,8 +241,12 @@ def test_batcher_rank_slices_concatenate_to_the_batch(scene, d):
 def _cli(args, timeout):
     """cli.train in a process of its own (its workers in its session);
     -> (exit code, output).  The session is killed on the way out."""
+    # One thread a process (run_workers passes it on to the workers): torch's
+    # default of a thread a core oversubscribes the host beside the other
+    # pytest workers (test_torch_tp_system.py's _cli).
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [ROOT] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+        [ROOT] + [p for p in [os.environ.get('PYTHONPATH')] if p]),
+               OMP_NUM_THREADS='1')
     proc = subprocess.Popen(
         [sys.executable, '-m', 'mipnerf_pl_tpu_torch.cli.train', *args],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
@@ -342,8 +346,12 @@ def test_eval_cli_over_two_gloo_processes(scene, tmp_path):
     with contextlib.redirect_stdout(io.StringIO()):
         system.fit(scene, 'blender', str(tmp_path / 'run'), max_steps=4)
     ck = str(tmp_path / 'run' / 'ckpt' / 'tiny')
+    # One thread a process (run_workers passes it on to the workers): torch's
+    # default of a thread a core oversubscribes the host beside the other
+    # pytest workers (test_torch_tp_system.py's _cli).
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [ROOT] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+        [ROOT] + [p for p in [os.environ.get('PYTHONPATH')] if p]),
+               OMP_NUM_THREADS='1')
     proc = subprocess.Popen(
         [sys.executable, '-m', 'mipnerf_pl_tpu_torch.cli.eval', '--ckpt', ck,
          '--out_dir', str(tmp_path / 'two'), '--scale', '1', '--no_video',

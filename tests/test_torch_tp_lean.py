@@ -396,8 +396,12 @@ def test_tp_lean_two_gloo_processes_match_the_single_process_mesh():
     # The children run this file as a script: they import the packages from
     # the repository's root.
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    # One thread a process: torch's default of a thread a core oversubscribes
+    # the host beside the other pytest workers (test_torch_tp_system.py's
+    # _cli).
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [root] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+        [root] + [p for p in [os.environ.get('PYTHONPATH')] if p]),
+               OMP_NUM_THREADS='1')
     with tempfile.TemporaryDirectory() as out_dir:
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), str(rank), str(port),

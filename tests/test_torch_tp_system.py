@@ -260,8 +260,14 @@ def test_model_split_rows_matches_the_gloo_test_s_table(nvd):
 def _cli(module, args, timeout):
     """A CLI in a process of its own (its workers in its session); ->
     (exit code, output).  The session is killed on the way out."""
+    # One thread a process (run_workers passes it on to the workers): beside
+    # the other pytest workers, torch's default of a thread a core in each
+    # process oversubscribes the host.  With six copies of this test at once
+    # on 8 cores, the one-process cli.eval below took 50-55 s of its 60 (4 s
+    # with one thread), the 2-process cli.train 45-47 s (14-15 s).
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [ROOT] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+        [ROOT] + [p for p in [os.environ.get('PYTHONPATH')] if p]),
+               OMP_NUM_THREADS='1')
     proc = subprocess.Popen(
         [sys.executable, '-m', module, *args], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, env=env,
