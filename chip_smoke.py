@@ -295,16 +295,33 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      rays on 9b's scene with one validation and one checkpoint (the rays
      cut from 3072: every pair boundary all-reduces the [rows, 256]
      activations, which gloo stages through the host, ~7 s a step at 3072
-     rays on an H100, PERF.md), the ranks bit-equal,
-     within 3e-2 of the single-process data 1 x model 2 fit, the loss
-     falls, rank 0 alone wrote the files, log lines and the system's line,
-     the pairs 400 + 400 a rank on their route and no lean training
-     kernel; then cli.eval of the checkpoint in one process (its model
-     axis dropped): finite PSNR and SSIM;
+     rays on an H100, PERF.md); each process holds its panels of the
+     parameters and Adam moments: their bytes, counted from the tensors,
+     equal the split's table's count (0.524 of the whole state), printed
+     with torch.cuda.memory_allocated after the state's set-up; the
+     checkpoint holds whole tensors, of which each rank's parameters are
+     its panels bit for bit; within 3e-2 of the single-process data 1 x
+     model 2 fit, the loss falls, rank 0 alone wrote the files, log lines
+     and the system's line, the pairs 400 + 400 a rank on their route and
+     no lean training kernel; a 5-step resume over 2 processes from the
+     checkpoint (each slicing its panels of the parameters and both
+     moments) within 3e-2 of the unbroken single-process state going on
+     over the same 5 steps; then cli.eval of the checkpoint in one process
+     (its model axis dropped): finite PSNR and SSIM;
+  9f. the model shapes the Megatron pairs alone do not take (an odd
+     depth 7, skip_index 3: a skip at a pair boundary, net_depth_condition
+     0, use_viewdirs False), each one pallas_lean_save step at data 1 x
+     model 2 against 'xla' at model 1 from the same parameters, batch and
+     generator: bf16 at net_width 1024 (9d's model), the gradients at
+     3e-2; f32 at lego width, the loss within 1e-5 relative and the
+     gradients at 2e-3; the update printed; tp_pair_fwd / tp_pair_bwd
+     once a pair, rank and level, every pair (the boundary pair of f_in =
+     W + F too) on the tp_pair_wg_kernel of the dtype by the route counts;
+     ms/step and peak GiB of each shape, and the phase's seconds;
   10. the kernels' JSON line (launches, error, times, bound, library call;
      each kernel's launches on the paths of phases 7b-7d under
      `launches_new_paths`, in phase 9 under `launches_dp`, in phases
-     9c-9e under `launches_tp` and in phase 8e's stages under
+     9c-9f under `launches_tp` and in phase 8e's stages under
      `launches_tools`;
      for the lean forwards and backwards also the wgmma kernel that runs
      them, f32 `kernel` / `chain` / `wgrad` and bf16 under 'bf16'; for f32
@@ -374,7 +391,7 @@ from mipnerf_pl_tpu_torch.ops.math import (cast_rays_cmajor,
 from mipnerf_pl_tpu_torch.ops.render import delta_mids
 from mipnerf_pl_tpu_torch.ops.sampling import (sample_along_rays,
                                                sample_along_rays_360)
-from mipnerf_pl_tpu_torch.parallel.mesh import (create_mesh,
+from mipnerf_pl_tpu_torch.parallel.mesh import (Mesh, create_mesh,
                                                 maybe_initialize_distributed)
 from mipnerf_pl_tpu_torch.rays import Rays
 from mipnerf_pl_tpu_torch.system import MipNeRFSystem, make_dataset
@@ -382,7 +399,8 @@ from mipnerf_pl_tpu_torch.native import gather as native_gather
 from mipnerf_pl_tpu_torch.tools import (ablation, acceptance,
                                         distloss_ablation, quality_smoke,
                                         stages)
-from mipnerf_pl_tpu_torch.train.ckpt import load_hparams, restore_for_eval
+from mipnerf_pl_tpu_torch.train.ckpt import (CheckpointManager, load_hparams,
+                                            restore_for_eval)
 from mipnerf_pl_tpu_torch.utils import visualize_cameras
 from mipnerf_pl_tpu_torch.utils.vis import create_spheric_poses
 
@@ -511,7 +529,7 @@ TOOLS_MIN_PSNR = {'multi_ipe': 14.6, 'multi_pe': 12.8, 'single_ipe': 12.1,
 DP_SHARDS, DP_K, DP_STEPS = 2, 5, 50
 DP_SCENE = {'n_train': 8, 'n_val': 1, 'n_test': 1, 'size': 64}
 DP_TIMEOUT = 300
-# Phases 9c-9e: tensor parallelism through the system.  9c: the
+# Phases 9c-9f: tensor parallelism through the system.  9c: the
 # single-process meshes TP_SYSTEM_MESHES (data, model) against data 1 x
 # model 1 at lego width; 9d: the width of TP_WIDE at model 2 against 'xla'
 # at model 1; 9e: cli.train over 2 gloo processes (data 1 x model 2),
@@ -520,6 +538,15 @@ TP_SYSTEM_MESHES = ((1, 2), (2, 2))
 TP_WIDE = {'nerf.mlp.net_width': 1024, 'nerf.mlp.net_width_condition': 128}
 TP_STEPS = 50
 TP_RUN_RAYS = 384      # 9e's rays a step (see the docstring)
+# Phase 9f: the model shapes the Megatron pairs alone do not take, each at
+# data 1 x model 2 against 'xla' at model 1 (bf16 at TP_WIDE, f32 at lego
+# width): an odd depth (the last layer alone), an odd skip index (a skip at
+# a pair boundary after layer 3 and one inside a pair after layer 6), no view layer, no
+# view directions.
+TP_SHAPES = {'depth7': {'nerf.mlp.net_depth': 7},
+             'skip3': {'nerf.mlp.skip_index': 3},
+             'condition0': {'nerf.mlp.net_depth_condition': 0},
+             'no-viewdirs': {'nerf.use_viewdirs': False}}
 # What a lean save step launches, once a level and shard (the forward's
 # view rows through lean_view_proj).
 DP_STEP_KERNELS = _SAVE + ('lean_view_proj',)
@@ -3454,12 +3481,12 @@ def dp_run_hparams():
         'val.sample_num': 1})
 
 
-def run_script_workers(flag: str, n: int, root: str):
+def run_script_workers(flag: str, n: int, root: str, same: bool = True):
     """Start `python3 chip_smoke.py FLAG RANK PORT ROOT` for ranks 0..n-1
     (their output into root/rank<r>.log), wait up to DP_TIMEOUT seconds,
     kill any left; -> (the logs' texts, each rank's root/rank<r>.npz
     arrays, each rank's root/rank<r>.json).  Raises when a worker failed
-    or a rank's arrays differ from rank 0's in a bit."""
+    or, with `same`, a rank's arrays differ from rank 0's in a bit."""
     with socket.socket() as sock:
         sock.bind(('localhost', 0))
         port = sock.getsockname()[1]
@@ -3496,7 +3523,7 @@ def run_script_workers(flag: str, n: int, root: str):
             ranks.append({k: z[k] for k in z.files})
         with open(os.path.join(root, f'rank{r}.json')) as f:
             infos.append(json.load(f))
-    for r in range(1, n):
+    for r in range(1, n if same else 1):
         diff = [k for k in ranks[0] if not np.array_equal(ranks[0][k],
                                                           ranks[r][k])]
         if diff:
@@ -3573,22 +3600,38 @@ def dp_run(root, dev):
     return infos[0]['launches']
 
 
-def check_tp_launches(counts, routes, hp, dt, d, m, where, dims):
+def pair_dims(hp, m):
+    """(f_in, local width, output width) of each Megatron pair of the
+    model's trunk at model m: the first pair reads the encode, a pair after
+    a skip at its boundary concat([h, x]) (W + F), the others h."""
+    depth, skip = hp['nerf.mlp.net_depth'], hp['nerf.mlp.skip_index']
+    W, F = hp['nerf.mlp.net_width'], xyz_features(hp)
+    skips = set(range(skip, depth, skip))
+    return [(F if e == 0 else W + F if e - 1 in skips else W, W // m, W)
+            for e in range(0, depth - 1, 2)]
+
+
+def check_tp_launches(counts, routes, hp, dt, d, m, where):
     """Raise unless a step of the training MLP split over data d x model m
     launched tp_pair_fwd and tp_pair_bwd once a pair, model rank, data
     shard and level (none on 'xla') and no other kernel, each pair call on
-    the tp_pair_wg_kernel of dt at these widths (check_pair_routes' rule
-    and table, from the step's own route counts)."""
+    the tp_pair_wg_kernel of dt at every pair's widths (`pair_dims`;
+    check_pair_routes' rule and table, from the step's own route
+    counts)."""
     pallas = hp['nerf.mlp_backend'] != 'xla'
-    n = (hp['nerf.mlp.net_depth'] // 2 * m * d * hp['nerf.num_levels']
-         if pallas else 0)
+    dims = pair_dims(hp, m)
+    n = len(dims) * m * d * hp['nerf.num_levels'] if pallas else 0
     want = {k: (n if k in ('tp_pair_fwd', 'tp_pair_bwd') else 0)
             for k in counts}
     if counts != want:
         raise AssertionError(f'{where}: launches '
                              f'{ {k: v for k, v in counts.items() if v} }, '
                              f'expected {n} of each pair kernel and no other')
-    i, name = pair_kernel(dt, *dims)
+    kernels = {pair_kernel(dt, *w) for w in dims}
+    if len(kernels) != 1:
+        raise AssertionError(f'{where}: the pairs {dims} route to '
+                             f'{sorted(kernels)}')
+    (i, name), = kernels
     route_want = {k: tuple(n if j == i else 0 for j in range(3))
                   for k in routes}
     log(f'[route] {where}: pair calls on (tp_pair_wg_kernel bf16, '
@@ -3625,7 +3668,6 @@ def tp_step(params, dev):
         dt = getattr(torch, dtype)
         hp = dp_hparams(dtype)
         hx = dict(hp, **{'nerf.mlp_backend': 'xla'})
-        W = hp['nerf.mlp.net_width']
         bar = F32_GATE_BAR if dtype == 'float32' else BF16_BAR
         # (label, hparams, data, model, the label of its reference)
         cases = [('model 1', hp, 1, 1, None), ('xla model 1', hx, 1, 1, None)]
@@ -3648,8 +3690,7 @@ def tp_step(params, dev):
             step_err, step_leaf = leaf_rel_err(update, d1, names)
             grad_err, grad_leaf = leaf_rel_err(grads, g1, names)
             where = f'phase 9c {dtype} {label}'
-            n = check_tp_launches(c, routes, h, dt, d, m, where,
-                                  (W, W // m, W))
+            n = check_tp_launches(c, routes, h, dt, d, m, where)
             # The update against data 1 of the same model axis: the same
             # kernels on each point, the shards' sums in another order.
             same = f'data 1 x model {m}'
@@ -3719,7 +3760,7 @@ def tp_wide_step(dev):
     step_err, step_leaf = leaf_rel_err(update, d1, names)
     grad_err, grad_leaf = leaf_rel_err(grads, g1, names)
     n = check_tp_launches(c, routes, hp, torch.bfloat16, 1, 2,
-                          'phase 9d bf16 width 1024 model 2', (W, W // 2, W))
+                          'phase 9d bf16 width 1024 model 2')
     order = list(systems)
     fns = {k: s.make_train_many() for k, s in systems.items()}
     states = {k: s.init_state(params=params) for k, s in systems.items()}
@@ -3743,6 +3784,79 @@ def tp_wide_step(dev):
     return {'9d bf16 width 1024 model 2 step': c}
 
 
+def tp_shapes_step(dev):
+    """Phase 9f: the model shapes the Megatron pairs alone do not take
+    (TP_SHAPES), bf16 at the width of TP_WIDE and f32 at lego width: one
+    pallas_lean_save step at data 1 x model 2 of the single-process mesh
+    against 'xla' at model 1, the same seeded parameters, batch and step
+    generator: the gradients' largest leaf rel err within BF16_BAR bf16 /
+    F32_GATE_BAR f32, the f32 loss within 1e-5 relative, the update
+    printed (phase 9c: Adam's first step is ~ lr sign(g)); tp_pair_fwd /
+    tp_pair_bwd launched once a pair, rank and level, every pair, the
+    boundary pair of f_in = W + F too, on the tp_pair_wg_kernel of the
+    dtype (the route counts), and nothing else; ms/step of 2-step calls
+    (there and back) and peak GiB of both systems.  -> {label: the step's
+    launch counts}."""
+    t_phase = time.perf_counter()
+    rays, pixels = train_batch(TRAIN_RAYS, dev)
+    stack = Rays(*(f.expand(2, *f.shape).contiguous() for f in rays))
+    pix = pixels.expand(2, *pixels.shape).contiguous()
+    counts = {}
+    for dtype, extra, bar in (('bfloat16', TP_WIDE, BF16_BAR),
+                              ('float32', {}, F32_GATE_BAR)):
+        dt = getattr(torch, dtype)
+        for name, shape in TP_SHAPES.items():
+            hp = dp_hparams(dtype, **extra, **shape)
+            hx = dict(hp, **{'nerf.mlp_backend': 'xla'})
+            W, F = hp['nerf.mlp.net_width'], xyz_features(hp)
+            params = jax_params_to_torch(
+                flax_tree(MipNeRFSystem(hp, device=dev), seed=0), device=dev)
+            with contextlib.redirect_stdout(io.StringIO()):
+                systems = {'xla model 1': MipNeRFSystem(hx, device=dev),
+                           'model 2': MipNeRFSystem(
+                               hp, mesh=create_mesh(2, 2, device=dev))}
+            got = {k: step_from(s, params, rays, pixels)
+                   for k, s in systems.items()}
+            loss, grads, update, c, routes = got['model 2']
+            l1, g1, d1, c1 = got['xla model 1'][:4]
+            where = f'phase 9f {dtype} width {W} {name} model 2'
+            if any(c1.values()):
+                raise AssertionError(f'{where}: xla launched {c1}')
+            names = list(params)
+            loss_rel = abs(loss - l1) / abs(l1)
+            step_err, step_leaf = leaf_rel_err(update, d1, names)
+            grad_err, grad_leaf = leaf_rel_err(grads, g1, names)
+            n = check_tp_launches(c, routes, hp, dt, 1, 2, where)
+            dims = pair_dims(hp, 2)
+            boundary = [w for w in dims[1:] if w[0] == W + F]
+            order = list(systems)
+            fns = {k: s.make_train_many() for k, s in systems.items()}
+            states = {k: s.init_state(params=params)
+                      for k, s in systems.items()}
+            times, peaks = {k: [] for k in order}, {}
+            for which in order + order[::-1]:
+                states[which], aux, sec, peak = train_run(
+                    fns[which], states[which], stack, pix)
+                times[which].append(sec * 1e3 / 2)
+                peaks[which] = max(peaks.get(which, 0.0), peak)
+            log(f'[tp] 9f {dtype} width {W} {name} ({shape}): model 2 vs xla '
+                f'model 1, one step: loss {loss:.7f} vs {l1:.7f} (rel '
+                f'{loss_rel:.2e}); gradients max leaf rel err {grad_err:.3e} '
+                f'({grad_leaf}), bar {bar}; update {step_err:.3e} '
+                f'({step_leaf}; not gated); pairs {dims}, boundary pair '
+                f'{boundary or "none"} on {pair_kernel(dt, *dims[-1])[1]}; '
+                f'pair launches {n} + {n}; ms/step of 2-step calls '
+                f'{ {k: [round(t, 3) for t in v] for k, v in times.items()} };'
+                f' peak GiB { {k: round(v, 3) for k, v in peaks.items()} }')
+            if grad_err > bar or (dtype == 'float32' and loss_rel > 1e-5):
+                raise AssertionError(f'{where} disagrees with xla model 1')
+            counts[f'9f {dtype} {name} model 2 step'] = c
+            del systems, fns, states, params
+            torch.cuda.empty_cache()
+    log(f'[tp] phase 9f: {time.perf_counter() - t_phase:.1f} s')
+    return counts
+
+
 def tp_run_args(root):
     """cli.train's command line of phase 9e: bf16 pallas_lean_save at lego
     width, TP_RUN_RAYS rays a step, num_devices 2 parallel.model_axis 2,
@@ -3764,10 +3878,14 @@ def tp_run_args(root):
 def tp_worker(rank: int, port: int, root: str) -> int:
     """One process of phase 9e (chip_smoke.py --tp-worker RANK PORT ROOT):
     joins a gloo group of 2 processes on cuda:0 (NCCL takes no two ranks
-    on one device), then cli.train's main on tp_run_args, which finds the
-    group and lays the 2 processes out as data 1 x model 2; its pair
-    launches on their route; writes root/rank<r>.npz (the parameters) and
-    root/rank<r>.json (launches, fit_stats)."""
+    on one device), then cli.train's main on root/args.json, which finds
+    the group and lays the 2 processes out as data 1 x model 2, starting
+    or resuming; its pair launches on their route, and none of the lean
+    training kernels; its state's bytes (parameters and both Adam moments,
+    counted from the tensors) equal the split's table's count of its
+    panels; writes root/rank<r>.npz (its panels of the parameters) and
+    root/rank<r>.json (launches, fit_stats, the bytes, memory allocated
+    after the state's set-up)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     maybe_initialize_distributed(
@@ -3777,6 +3895,16 @@ def tp_worker(rank: int, port: int, root: str) -> int:
         device='cuda', timeout_s=DP_TIMEOUT, backend='gloo')
     with open(os.path.join(root, 'args.json')) as f:
         args = json.load(f)
+    after_init = []
+    init_state = system_mod.MipNeRFSystem.init_state
+
+    def counted_init(self, *a, **k):
+        state = init_state(self, *a, **k)
+        torch.cuda.synchronize()
+        after_init.append(torch.cuda.memory_allocated())
+        return state
+
+    system_mod.MipNeRFSystem.init_state = counted_init
     km.reset_launches()
     system, state = train_cli.main(args)          # it leaves the group
     torch.cuda.synchronize()
@@ -3785,60 +3913,127 @@ def tp_worker(rank: int, port: int, root: str) -> int:
     if not mesh.distributed or mesh.shape != {'data': 1, 'model': 2}:
         raise AssertionError(f'rank {rank}: mesh {mesh!r}')
     hp = system.hparams
-    n = hp['nerf.mlp.net_depth'] // 2 * hp['nerf.num_levels'] * \
-        hp['max_steps']
+    n = len(pair_dims(hp, 2)) * hp['nerf.num_levels'] * \
+        system.fit_stats['steps']
     W = hp['nerf.mlp.net_width']
     check_pair_routes(torch.bfloat16, f'phase 9e rank {rank}', (W, W // 2, W),
                       True, tp_pair_fwd=n, tp_pair_bwd=n)
     if counts['lean_save_fwd'] or counts['lean_param_grads']:
         raise AssertionError(f'phase 9e rank {rank}: the lean training '
                              f'kernels ran under the model axis: {counts}')
+    params = list(state['params'].values())
+    opt = state['opt_state'].state
+    held = [t.numel() * t.element_size() for t in params] + [
+        opt[p][k].numel() * opt[p][k].element_size() for p in params
+        for k in ('exp_avg', 'exp_avg_sq')]
+    table, whole = (12 * c for c in system.state_numel())
+    if sum(held) != table:
+        raise AssertionError(f'phase 9e rank {rank}: the state holds '
+                             f'{sum(held)} bytes, its panels {table}')
+    log(f'[tp] 9e rank {rank}: parameters + 2 Adam moments {sum(held)} B '
+        f'(the table: {table} of the whole {whole}); memory_allocated after '
+        f'the state\'s set-up {after_init} B')
     np.savez(os.path.join(root, f'rank{rank}.npz'),
              **{k: v.detach().cpu().numpy()
                 for k, v in state['params'].items()})
     with open(os.path.join(root, f'rank{rank}.json'), 'w') as f:
-        json.dump({'launches': counts, 'fit_stats': system.fit_stats}, f)
+        json.dump({'launches': counts, 'fit_stats': system.fit_stats,
+                   'state_bytes': sum(held), 'table_bytes': table,
+                   'whole_bytes': whole, 'after_init': after_init}, f)
     return 0
 
 
 def tp_run(root, dev):
     """Phase 9e: cli.train over 2 gloo processes on the one card
     (num_devices 2 parallel.model_axis 2, started as phase 9b starts its
-    workers), TP_STEPS bf16 steps on the sphere scene of DP_SCENE: the
-    ranks' final parameters bit-equal, within BF16_BAR of the
-    single-process data 1 x model 2 fit of the same steps (largest leaf rel
-    err of the update), the loss falls, rank 0 alone wrote the checkpoint,
-    the CSV row and the log lines; then cli.eval of the checkpoint in one
-    process (the model axis dropped): finite PSNR and SSIM.  -> rank 0's
-    launch counts."""
+    workers), TP_STEPS bf16 steps on the sphere scene of DP_SCENE, each
+    process holding its panels of the parameters and Adam moments (their
+    bytes, counted from the tensors, the table's count; memory allocated
+    after the state's set-up printed): the checkpoint holds whole tensors
+    (its parameters and moments at the one-device shapes), of which each
+    rank's final parameters are its panels bit for bit; within BF16_BAR of
+    the single-process data 1 x model 2 fit of the same steps (largest leaf
+    rel err of the update), the loss falls, rank 0 alone wrote the
+    checkpoint, the CSV row and the log lines.  Then a resume of one
+    dispatch (DP_K steps) over 2 processes from that checkpoint (each
+    slicing its panels of the parameters and both moments) against the
+    unbroken single-process state going on over the same dispatch, the
+    update within BF16_BAR; then cli.eval of the checkpoint in one process
+    (the model axis dropped): finite PSNR and SSIM.  -> rank 0's launch
+    counts."""
     t_phase = time.perf_counter()
     scene = make_sphere_scene(os.path.join(root, 'scene'), **DP_SCENE)
     args = tp_run_args(root)
     with open(os.path.join(root, 'args.json'), 'w') as f:
         json.dump(args, f)
-    texts, ranks, infos = run_script_workers('--tp-worker', 2, root)
+    texts, ranks, infos = run_script_workers('--tp-worker', 2, root,
+                                             same=False)
     t_workers = time.perf_counter() - t_phase
     hp = config.default()
     config.merge_from_list(hp, args[8:])
     names = sorted(ranks[0])
+    out = os.path.join(root, 'out')
+    ckpt_dir = os.path.join(out, 'ckpt', 'tp')
     with contextlib.redirect_stdout(io.StringIO()):
         single = MipNeRFSystem(hp, mesh=create_mesh(2, 2, device=dev))
-        init = single.init_params()
+    init = single.init_params()
+    # The checkpoint holds whole tensors; each rank's panels are its own.
+    _, host = CheckpointManager(ckpt_dir, write=False).restore_last()
+    moments = host['opt_state']['state']
+    panels = [system_mod._Panels(single.model.mlp, Mesh(1, 2, dev, True, r))
+              for r in range(2)]
+    for i, k in enumerate(init):
+        shapes = {tuple(host['params'][k].shape), tuple(init[k].shape),
+                  tuple(moments[i]['exp_avg'].shape),
+                  tuple(moments[i]['exp_avg_sq'].shape)}
+        if len(shapes) != 1:
+            raise AssertionError(f'phase 9e: the checkpoint\'s {k} is '
+                                 f'{shapes}, not whole')
+        for r in range(2):
+            if not np.array_equal(ranks[r][k], panels[r].local(
+                    k, host['params'][k]).numpy()):
+                raise AssertionError(f'phase 9e: rank {r}\'s {k} is not its '
+                                     f'panel of the checkpoint\'s')
+    with contextlib.redirect_stdout(io.StringIO()):
         state = single.fit(scene, 'blender', os.path.join(root, 'single'),
                            max_steps=TP_STEPS, verbose=False)
     err, leaf = leaf_rel_err(
-        [torch.from_numpy(ranks[0][k]) - init[k].cpu() for k in names],
+        [host['params'][k] - init[k].cpu() for k in names],
         [state['params'][k].detach().cpu() - init[k].cpu() for k in names],
         names)
     stats = infos[0]['fit_stats']
-    out = os.path.join(root, 'out')
     with open(os.path.join(out, 'logs', 'tp', 'val_history.csv')) as f:
         rows = f.read().split()[1:]
-    ckpt_dir = os.path.join(out, 'ckpt', 'tp')
     ckpts = {k: os.listdir(os.path.join(ckpt_dir, k))
              for k in ('best', 'last')}
     step_lines = [t.count(f'/{TP_STEPS} loss=') for t in texts]
     system_lines = [t.count('Megatron pairs') for t in texts]
+    # The resume: 2 processes from the checkpoint, against the unbroken
+    # single-process state going on over the dispatch the resumed fit
+    # draws first (its batcher starts again from the seed).
+    t_resume = time.perf_counter()
+    resume_root = os.path.join(root, 'resume')
+    os.makedirs(resume_root)
+    end = TP_STEPS + DP_K
+    resume_args = list(args)
+    resume_args[resume_args.index('--max_steps') + 1] = str(end)
+    with open(os.path.join(resume_root, 'args.json'), 'w') as f:
+        json.dump(resume_args, f)
+    r_texts, _, r_infos = run_script_workers('--tp-worker', 2, resume_root,
+                                             same=False)
+    _, r_host = CheckpointManager(ckpt_dir, write=False).restore_last()
+    start = {k: v.detach().cpu() for k, v in state['params'].items()}
+    single.setup(scene, 'blender', prefetch=0, steps_per_call=DP_K)
+    try:
+        rays, pixels = next(single.batcher)
+    finally:
+        single.batcher.close()
+    state = single.make_train_many()(state, rays, pixels, int(hp['seed']))[0]
+    r_err, r_leaf = leaf_rel_err(
+        [r_host['params'][k] - start[k] for k in names],
+        [state['params'][k].detach().cpu() - start[k] for k in names], names)
+    resumed = [t.count(f'at step {TP_STEPS}') for t in r_texts]
+    t_resume = time.perf_counter() - t_resume
     km.reset_launches()
     with contextlib.redirect_stdout(io.StringIO()):
         summary = eval_cli.main(['--ckpt', ckpt_dir, '--data', scene,
@@ -3847,21 +4042,37 @@ def tp_run(root, dev):
     psnr, ssim = (float(v) for v in summary.split(' | ')[:2])
     eval_counts = {k: v for k, v in km.launches.items() if v}
     step_ms = stats['steps'] and TP_RUN_RAYS / stats['rays_per_sec'] * 1e3
+    memory = [{k: info[k] for k in ('state_bytes', 'table_bytes',
+                                    'whole_bytes', 'after_init')}
+              for info in infos]
     log(f'[tp] 9e cli.train over 2 gloo processes on cuda:0 (data 1 x '
         f'model 2), {TP_STEPS} steps of {TP_RUN_RAYS} rays bf16 '
         f'pallas_lean_save: {t_workers:.1f} s with start-up; {stats["rays_per_sec"]:,.0f} '
         f'rays/s over the training time ({step_ms:.2f} ms/step); loss '
-        f'{stats["loss_first"]:.5f} -> {stats["loss_last"]:.5f}; ranks '
-        f'bit-equal; vs the single-process data 1 x model 2 fit: max leaf '
+        f'{stats["loss_first"]:.5f} -> {stats["loss_last"]:.5f}; each rank '
+        f'its panels of the checkpoint\'s whole tensors; state per rank '
+        f'(parameters + 2 Adam moments, bytes counted; the table\'s; the '
+        f'whole; memory_allocated after set-up) {memory}, share '
+        f'{memory[0]["state_bytes"] / memory[0]["whole_bytes"]:.4f}; vs the '
+        f'single-process data 1 x model 2 fit: max leaf '
         f'rel err of the update {err:.3e} ({leaf}, bar {BF16_BAR}); '
         f'checkpoints {ckpts}, CSV rows {rows}, log lines per rank '
         f'{step_lines}, system lines {system_lines}; rank 0 launches '
         f'{ {k: v for k, v in infos[0]["launches"].items() if v} }; '
+        f'resume of {DP_K} steps over 2 processes ({resumed} '
+        f'resumed lines; rank 0 launches '
+        f'{ {k: v for k, v in r_infos[0]["launches"].items() if v} }) vs the '
+        f'unbroken single-process state: max leaf rel err of the update '
+        f'{r_err:.3e} ({r_leaf}, bar {BF16_BAR}), {t_resume:.1f} s; '
         f'cli.eval in one process: PSNR {psnr:.3f} SSIM {ssim:.4f}, '
         f'launches {eval_counts}')
     if err > BF16_BAR:
         raise AssertionError('phase 9e: the run disagrees with the '
                              'single-process mesh')
+    if r_err > BF16_BAR or resumed[0] != 1 or \
+            r_infos[0]['fit_stats']['steps'] != DP_K:
+        raise AssertionError('phase 9e: the resume disagrees with the '
+                             'unbroken single-process state')
     if not stats['loss_last'] < stats['loss_first']:
         raise AssertionError(f'phase 9e: the loss did not fall: {stats}')
     if ckpts != {'best': [str(TP_STEPS)], 'last': [str(TP_STEPS)]} or \
@@ -4107,13 +4318,14 @@ def main() -> int:
         dp_counts['9b rank 0 fit'] = dp_run(root, dev)
     log(f'[dp] phase 9: {time.perf_counter() - t_dp:.1f} s')
 
-    # Phases 9c-9e: tensor parallelism through the system.
+    # Phases 9c-9f: tensor parallelism through the system.
     t_tp = time.perf_counter()
     tp_counts_sys = tp_step(params, dev)[0]
     tp_counts_sys.update(tp_wide_step(dev))
     with tempfile.TemporaryDirectory() as root:
         tp_counts_sys['9e rank 0 fit'] = tp_run(root, dev)
-    log(f'[tp] phases 9c-9e: {time.perf_counter() - t_tp:.1f} s')
+    tp_counts_sys.update(tp_shapes_step(dev))
+    log(f'[tp] phases 9c-9f: {time.perf_counter() - t_tp:.1f} s')
     if '--measure' in sys.argv[1:]:
         measure(hp, params, dev)
 
@@ -4155,8 +4367,8 @@ def main() -> int:
             path: c[name] for path, c in new_paths.items() if c[name]}
         kernels[-1]['launches_dp'] = {
             path: c[name] for path, c in dp_counts.items() if c.get(name)}
-        # And on the tensor-parallel paths of phases 9c-9e (a step of each
-        # mesh, rank 0's fit).
+        # And on the tensor-parallel paths of phases 9c-9f (a step of each
+        # mesh and shape, rank 0's fit).
         kernels[-1]['launches_tp'] = {
             path: c[name] for path, c in tp_counts_sys.items()
             if c.get(name)}

@@ -574,8 +574,13 @@ def fwd_sm90_route(compute_dtype, F: int, W: int, Wv: int, net_depth: int,
             and nd == 1 and fwd_sm90_smem(W, Wv, F, Fv) <= FW_SMEM_MAX)
 
 
-def param_order(net_depth: int, net_depth_condition: int):
+def param_order(net_depth: int, net_depth_condition: int,
+                use_viewdirs: bool = True):
+    """The MLP's layers in the lean flat layout's order; with no view
+    directions the trunk, the density head and the rgb head."""
     names = [f'trunk_{i}' for i in range(net_depth)]
+    if not use_viewdirs:
+        return names + ['density', 'rgb']
     names += ['density', 'bottleneck']
     names += [f'view_{i}' for i in range(net_depth_condition)]
     names += ['rgb']
@@ -583,11 +588,11 @@ def param_order(net_depth: int, net_depth_condition: int):
 
 
 def flatten_params(mlp: torch.nn.Module, net_depth: int,
-                   net_depth_condition: int):
+                   net_depth_condition: int, use_viewdirs: bool = True):
     """MLP module -> [k0, b0, k1, b1, ...] in param_order, kernels in the
     flax [in, out] layout and biases [1, out] (views, no copies)."""
     out = []
-    for name in param_order(net_depth, net_depth_condition):
+    for name in param_order(net_depth, net_depth_condition, use_viewdirs):
         lin = getattr(mlp, name)
         out.append(lin.weight.t())
         out.append(lin.bias.reshape(1, -1))

@@ -35,21 +35,28 @@ and only there; on a CUDA tensor it launches its kernel or raises.
 Launches are counted in kernels.mlp's `launches`, the kernel each call ran
 on in its `pair_sm90_routes`, `pair_tf32_routes` and `pair_mma_routes`.
 
-`tp_lean_forward` is the lean MLP forward over a `parallel.mesh.Mesh`:
-rows split over `data`, the trunk pairs, the bottleneck and view_0 over
-`model`.  The skip concat lands inside a pair: that pair's row kernel is
-split into sharded h-rows and a replicated x-rows panel whose term model
-rank 0 adds, once.  Everything outside the pairs (that x-term, the heads,
-the bottleneck and view_0 products) is torch.matmul, as the JAX code leaves
-it to XLA.  The two collectives are Megatron's operators as the mesh
-provides them: into a column-parallel product `copy_to_model` (identity
-forward, a sum over `model` backward), out of a row-parallel one
-`reduce_from_model` (a sum forward, identity backward).  Biases of odd
-layers and all heads are replicated and act after a sum: on a
-single-process mesh they are computed once, on a multi-process mesh every
-rank computes the same values and the same gradients for them
-(`model_split_rows` names the regions of each tensor that are split and
-those that are not).
+`tp_mlp_forward` is the MLP forward over a `parallel.mesh.Mesh`, at any
+shape the JAX system trains under a model axis: rows split over `data`,
+the trunk pairs, an odd depth's last layer, the bottleneck and the layer
+that reads it over `model`.  The skip concat may land inside a pair (that
+pair's row kernel is split into sharded h-rows and a replicated x-rows
+panel whose term model rank 0 adds, once), at a pair boundary (the next
+pair's column layer reads concat([h, x])) or after the last layer (the
+heads read it).  Everything outside the pairs (the x-term, an odd depth's
+last layer, the heads, the bottleneck and the layer after it) is
+torch.matmul, as the JAX code leaves it to XLA.  The collectives are
+Megatron's operators as the mesh provides them: into a column-parallel
+product `copy_to_model` (identity forward, a sum over `model` backward),
+out of a row-parallel one `reduce_from_model` (a sum forward, identity
+backward), out of a column-parallel layer read whole `gather_from_model`.
+Biases of odd layers and all heads are replicated and act after a sum: on
+a single-process mesh they are computed once, on a multi-process mesh
+every rank computes the same values and the same gradients for them.
+`model_split_rows` is the one table of what is split and how: of the
+compute, of the gradients' sums and of the panels of parameters and Adam
+moments a process of a multi-process mesh holds (system.py), which this
+function takes as they are (`local`).  `tp_lean_forward` is the
+counterpart of the JAX function: its checks, then this split.
 
 Its caller is the MLP under a model axis (models/mlp.py, MipNeRFSystem
 with `parallel.model_axis > 1`): the training forward of every backend,
@@ -282,25 +289,168 @@ def _pair(x, w_col, b_col, w_row, dtype, plain=False):
 
 
 def model_split_rows(flat_params, net_depth: int = 8,
-                     net_depth_condition: int = 1):
-    """For each tensor of the lean flat layout, how many of its leading
-    rows `tp_lean_forward` splits over `model`: all of a column-parallel
-    slot (even trunk layers and the bottleneck, kernel and bias: their
-    columns are split), the h-rows of a row-parallel kernel (odd trunk
-    layers, the skip layer's first W of W + F, view_0's first W of W + Fv).
-    The rows after them are replicated: the odd layers' biases, the skip
-    layer's x-rows, view_0's view rows and bias, the later view layers and
-    the heads.  On a multi-process mesh a model rank's gradient is zero in
-    the split rows outside its own panel, and equal on every rank in the
-    replicated ones."""
+                     net_depth_condition: int = 1,
+                     use_viewdirs: bool = True):
+    """The table of the model axis's split, one entry a tensor of the lean
+    flat layout (kernels.mlp.flatten_params; with no view directions the
+    trunk, the density head and the rgb head): (rows, axis), the leading
+    rows of the [in, out] tensor that `model` splits and how.
+
+      'col'  a column-parallel slot, kernel and bias: every even trunk layer
+             (an odd depth's last layer too) and the bottleneck; all its
+             rows, its columns in n panels.
+      'row'  the first W rows of a kernel that reads a split activation:
+             the odd trunk layers (the skip layer's h-rows of W + F) and the
+             layer that reads the bottleneck (view_0, or the rgb head with
+             net_depth_condition 0); those rows in n panels.
+      (0, None)  replicated: the rest.
+
+    The rows after a 'row' entry's are replicated too: a skip layer's
+    x-rows, the view rows of the layer that reads the bottleneck.  Given
+    flat params at full shapes the rows are the full tensor's; given a
+    model rank's panels (each split region cut to its panel, the
+    replicated rows after it) they are the panel's, since W is read from
+    trunk_0's columns.  The one table of the split's compute
+    (`tp_mlp_forward`), of the gradients' sums and of the state a process
+    of a multi-process mesh holds (system.py).
+
+    It differs from the JAX table (mipnerf_pl_tpu/parallel/tp.py
+    `_spec_for`, kept by parallel/tp.py) in two places: a skip layer's
+    x-rows are replicated where JAX splits all of its rows, and the layer
+    that reads the bottleneck is split on its bottleneck rows, not on its
+    outputs (JAX: view_0 column-parallel, an rgb head replicated); the view
+    layers after view_0, column-parallel in JAX, are replicated here."""
     W = flat_params[0].shape[1]
-    rows = []
+    table = []
     for i in range(net_depth):
-        rows += ([flat_params[2 * i].shape[0], 1] if i % 2 == 0 else [W, 0])
-    nd_i = 2 * net_depth
-    rows += [0, 0, flat_params[nd_i + 2].shape[0], 1, W, 0]
-    rows += [0, 0] * (net_depth_condition - 1) + [0, 0]
-    return rows
+        table += ([(flat_params[2 * i].shape[0], 'col'), (1, 'col')]
+                  if i % 2 == 0 else [(W, 'row'), (0, None)])
+    table += [(0, None)] * 2                                  # density
+    if not use_viewdirs:
+        return table + [(0, None)] * 2                        # rgb
+    table += [(flat_params[2 * net_depth + 2].shape[0], 'col'), (1, 'col')]
+    table += [(W, 'row'), (0, None)]            # view_0, or the rgb head
+    return table + [(0, None)] * (2 * net_depth_condition)
+
+
+def tp_mlp_forward(x, view, flat_params, mesh: Mesh, num_samples: int,
+                   net_depth: int = 8, net_depth_condition: int = 1,
+                   skip_index: int = 4, compute_dtype=torch.bfloat16,
+                   plain: bool = False, local: bool = False):
+    """The Megatron split of the MLP at any shape, over `mesh`'s `model`
+    axis, data-parallel over its `data` axis; differentiable in x, view
+    and every parameter.
+
+    x [M, F] f32 encode rows; view [M / num_samples, Fv] per ray, or None
+    with no view directions; `flat_params` the flat layout
+    (kernels.mlp.flatten_params) at full shapes, sliced here (`local`
+    False), or on a multi-process mesh this model rank's panels
+    (`model_split_rows`: the state system.py holds there).  Returns the
+    raw heads (rgb [M, 3], density [M, nd]) f32.  `plain` runs the pairs
+    on their plain versions.
+
+    The trunk runs in pairs (e, e + 1), e even: one pair kernel a model
+    rank, one sum over `model`.  A skip concat after layer e feeds layer
+    e + 1 (skips = range(skip_index, net_depth, skip_index)): inside a pair
+    the row layer's x-rows are a replicated term that model rank 0 adds
+    once (on a multi-process mesh every rank takes the product and the
+    others drop it, so the backward's sum over `model` hands every rank
+    the gradients of x and of those rows); at a pair boundary the next
+    column layer reads concat([h, x]) (f_in = W + F on the same kernel);
+    after the last layer the heads read it.  An odd depth's last layer is
+    column-parallel alone, its panels gathered (`gather_from_model`).  The
+    bottleneck is column-parallel, and the layer that reads it (view_0, or
+    the rgb head with net_depth_condition 0) sums its bottleneck rows' panel
+    products over `model`, its view rows' per-ray term added to the sum.
+    With no view directions the rgb head reads the trunk as the density
+    head does.  Everything outside the pairs is torch.matmul."""
+    n = mesh.shape['model']
+    W = flat_params[0].shape[1]
+    if local and not mesh.distributed:
+        raise ValueError('a model rank\'s panels are held on a multi-process '
+                         'mesh only')
+    if not local and W % n:
+        raise ValueError(f'net_width {W} not divisible by model={n}')
+    table = model_split_rows(flat_params, net_depth, net_depth_condition,
+                             view is not None)
+    skips = set(range(skip_index, net_depth, skip_index))
+    dtype = compute_dtype
+
+    def panel(i, r):
+        """Model rank r's panel of split tensor i of the flat layout."""
+        t, (rows, axis) = flat_params[i], table[i]
+        if local:
+            return t if axis == 'col' else t[:rows]
+        if axis == 'col':
+            w = t.shape[1] // n
+            return t[:, r * w:(r + 1) * w]
+        return t[r * rows // n:(r + 1) * rows // n]
+
+    def rest(i):
+        """The replicated rows of tensor i: all of a replicated one."""
+        return flat_params[i][table[i][0]:]
+
+    def dense(h, k, b):
+        return h.to(dtype).float() @ k.to(dtype).float() + b.float()
+
+    def body(x, view):
+        xs = x.to(dtype)
+        h, e = x, 0
+        while e < net_depth:
+            if e - 1 in skips:              # a skip at the pair boundary
+                h = torch.cat([h, xs], dim=-1)
+            h_in = mesh.copy_to_model(h)
+            if e + 1 == net_depth:          # an odd depth's last layer
+                h = mesh.gather_from_model([
+                    torch.relu(dense(h_in, panel(2 * e, r),
+                                     panel(2 * e + 1, r))).to(dtype)
+                    for r in mesh.model_ranks])
+                break
+            o = e + 1
+            partials = []
+            for r in mesh.model_ranks:
+                partial = _pair(h_in, panel(2 * e, r), panel(2 * e + 1, r),
+                                panel(2 * o, r), dtype, plain)
+                if e in skips and (r == 0 or mesh.distributed):
+                    term = (mesh.copy_to_model(x).to(dtype).float()
+                            @ mesh.copy_to_model(rest(2 * o))
+                            .to(dtype).float())
+                    partial = partial + (term if r == 0 else 0.0 * term)
+                partials.append(partial)
+            h = mesh.reduce_from_model(partials) + rest(2 * o + 1).float()
+            h = torch.relu(h).to(dtype)
+            e += 2
+        if net_depth - 1 in skips:          # a skip after the last layer
+            h = torch.cat([h, xs], dim=-1)
+        nd_i = 2 * net_depth
+        density = dense(h, flat_params[nd_i], flat_params[nd_i + 1])
+        if view is None:
+            return dense(h, flat_params[nd_i + 2],
+                         flat_params[nd_i + 3]), density
+        h_in = mesh.copy_to_model(h)
+        v_i = nd_i + 4                      # view_0, or the rgb head
+        partials = []
+        for r in mesh.model_ranks:
+            bottleneck = dense(h_in, panel(nd_i + 2, r),
+                               panel(nd_i + 3, r)).to(dtype)
+            partials.append(bottleneck.float()
+                            @ panel(v_i, r).to(dtype).float())
+        per_ray = dense(view, rest(v_i), flat_params[v_i + 1])
+        R, wv = per_ray.shape
+        y = mesh.reduce_from_model(partials) + per_ray[:, None, :].expand(
+            R, num_samples, wv).reshape(-1, wv)
+        if net_depth_condition == 0:
+            return y, density
+        y = torch.relu(y).to(dtype)
+        for j in range(1, net_depth_condition):
+            y = torch.relu(dense(y, flat_params[v_i + 2 * j],
+                                 flat_params[v_i + 2 * j + 1])).to(dtype)
+        r_i = v_i + 2 * net_depth_condition
+        return dense(y, flat_params[r_i], flat_params[r_i + 1]), density
+
+    outs = [body(xs, vs) for xs, vs in mesh.split_rows(x, view, num_samples)]
+    return (torch.cat([o[0] for o in outs], dim=0),
+            torch.cat([o[1] for o in outs], dim=0))
 
 
 def tp_lean_forward(x, view, flat_params, mesh: Mesh, num_samples: int,
@@ -309,7 +459,8 @@ def tp_lean_forward(x, view, flat_params, mesh: Mesh, num_samples: int,
                     plain: bool = False):
     """Forward pass of the lean MLP, tensor-parallel over `mesh`'s `model`
     axis and data-parallel over its `data` axis; differentiable in x, view
-    and every parameter.
+    and every parameter: the counterpart of the JAX function, on
+    `tp_mlp_forward`.
 
     x [M, F] f32 encode rows, view [M / num_samples, Fv], `flat_params` the
     lean flat layout (kernels.mlp.flatten_params) at FULL shapes: the
@@ -319,8 +470,9 @@ def tp_lean_forward(x, view, flat_params, mesh: Mesh, num_samples: int,
     divide among the data shards; on a multi-process mesh they are this
     process's rows.
 
-    Requirements: even net_depth, even skip_index (so the skip concat lands
-    inside a pair), trunk width divisible by the model-axis size.  `plain`
+    Requirements (the JAX function's): even net_depth, even skip_index (so
+    the skip concat lands inside a pair), trunk width divisible by the
+    model-axis size.  `tp_mlp_forward` takes the other shapes.  `plain`
     runs the pairs on their plain versions (`_pair_plain`,
     `_pair_bwd_plain`) on any device, launching no kernel.
     """
@@ -332,88 +484,6 @@ def tp_lean_forward(x, view, flat_params, mesh: Mesh, num_samples: int,
     W = flat_params[0].shape[1]
     if W % n_model:
         raise ValueError(f'net_width {W} not divisible by model={n_model}')
-    nvd = net_depth_condition
-    skips = {i for i in range(skip_index, net_depth, skip_index)}
-    Wl = W // n_model
-    dtype = compute_dtype
-
-    # --- the params as named slots: full leaves, or a model rank's panel ---
-    full, col, row = {}, {}, {}
-    for i in range(net_depth):
-        k, b = flat_params[2 * i], flat_params[2 * i + 1]
-        if i % 2 == 0:
-            col[f'k{i}'], col[f'b{i}'] = k, b
-        else:
-            # The skip concat fires after even layer i - 1 and feeds this
-            # odd layer: its kernel splits into h-rows (sharded) and x-rows
-            # (replicated).
-            if (i - 1) in skips:
-                row[f'k{i}'], full[f'k{i}_x'] = k[:W], k[W:]
-            else:
-                row[f'k{i}'] = k
-            full[f'b{i}'] = b
-    nd_i = 2 * net_depth
-    full['kd'], full['bd'] = flat_params[nd_i], flat_params[nd_i + 1]
-    col['kbn'], col['bbn'] = flat_params[nd_i + 2], flat_params[nd_i + 3]
-    kv = flat_params[nd_i + 4]
-    row['kv_h'] = kv[:W]            # bottleneck rows: sharded like bn's cols
-    full['kv_v'] = kv[W:]           # view-direction rows: replicated
-    full['bv'] = flat_params[nd_i + 5]
-    for j in range(1, nvd):
-        full[f'kv{j}'] = flat_params[nd_i + 4 + 2 * j]
-        full[f'bv{j}'] = flat_params[nd_i + 5 + 2 * j]
-    r_i = nd_i + 4 + 2 * nvd
-    full['kr'], full['br'] = flat_params[r_i], flat_params[r_i + 1]
-
-    def panel(name, r):
-        """Model rank r's shard of a column- or row-parallel slot."""
-        if name in col:
-            return col[name][:, r * Wl:(r + 1) * Wl]
-        return row[name][r * Wl:(r + 1) * Wl]
-
-    def dense(h, k, b):
-        return h.to(dtype).float() @ k.to(dtype).float() + b.float()
-
-    def body(x, view):
-        h = x
-        for e in range(0, net_depth, 2):
-            o = e + 1
-            h_in = mesh.copy_to_model(h)
-            partials = []
-            for r in mesh.model_ranks:
-                partial = _pair(h_in, panel(f'k{e}', r), panel(f'b{e}', r),
-                                panel(f'k{o}', r), dtype, plain)
-                # The row layer's input was concat([h_e, x]): the x-rows'
-                # term is added once, by model rank 0.  On a multi-process
-                # mesh every rank takes the product and the others drop
-                # it, so that the backward's sum over `model` hands every
-                # rank the gradients of x and of the replicated panel.
-                if e in skips and (r == 0 or mesh.distributed):
-                    term = (mesh.copy_to_model(x).to(dtype).float()
-                            @ mesh.copy_to_model(full[f'k{o}_x'])
-                            .to(dtype).float())
-                    partial = partial + (term if r == 0 else 0.0 * term)
-                partials.append(partial)
-            h = mesh.reduce_from_model(partials) + full[f'b{o}'].float()
-            h = torch.relu(h).to(dtype)
-
-        density = dense(h, full['kd'], full['bd'])
-        h_in = mesh.copy_to_model(h)
-        partials = []
-        for r in mesh.model_ranks:
-            bottleneck = dense(h_in, panel('kbn', r),
-                               panel('bbn', r)).to(dtype)
-            partials.append(bottleneck.float()
-                            @ panel('kv_h', r).to(dtype).float())
-        pp = mesh.reduce_from_model(partials)
-        per_ray = dense(view, full['kv_v'], full['bv'])
-        R, wv = per_ray.shape
-        pr = per_ray[:, None, :].expand(R, num_samples, wv).reshape(-1, wv)
-        y = torch.relu(pp + pr).to(dtype)
-        for j in range(1, nvd):
-            y = torch.relu(dense(y, full[f'kv{j}'], full[f'bv{j}'])).to(dtype)
-        return dense(y, full['kr'], full['br']), density
-
-    outs = [body(xs, vs) for xs, vs in mesh.split_rows(x, view, num_samples)]
-    return (torch.cat([o[0] for o in outs], dim=0),
-            torch.cat([o[1] for o in outs], dim=0))
+    return tp_mlp_forward(x, view, flat_params, mesh, num_samples, net_depth,
+                          net_depth_condition, skip_index, compute_dtype,
+                          plain)

@@ -36,7 +36,7 @@ The options of the lean path engage as the JAX model's gates say
                 kernel.
 Under a model axis (`tp_mesh`, the mesh's model_view: MipNeRFSystem with
 parallel.model_axis > 1) the MLP runs the Megatron split of
-`tp_lean_forward` on raw heads, so fuse_render, fuse_encode and the lean
+`tp_mlp_forward` on raw heads, so fuse_render, fuse_encode and the lean
 kernels' fused head activations are off, each named in `tp_off`; the
 encode feeds rows (through `ipe_moments` or `fused_ipe` where
 pallas_encode / ipe_backend say so), and the activations, the density

@@ -28,13 +28,17 @@ Backends:
 Without view directions every backend runs the plain forward, as in JAX.
 
 Under a model axis (`tp_mesh`, MipNeRFSystem with parallel.model_axis > 1)
-the training forward of every backend is `tp_lean_forward` on the lean flat
-layout (kernels/tp_lean.py): the trunk in Megatron pairs over the mesh's
-`model` axis, the rest in torch.matmul, raw heads.  The backend names the
-pairs' route: 'xla' their plain versions, every Pallas backend the pair
-kernels tp_pair_fwd / tp_pair_bwd (on a CUDA tensor they launch or
-raise).  x, the view features and every parameter get gradients.  It takes
-encode rows and view features only: no render or encode fusion.
+the training forward of every backend is `tp_mlp_forward` on the lean flat
+layout (kernels/tp_lean.py), at every shape: the trunk in Megatron pairs
+over the mesh's `model` axis, the rest in torch.matmul, raw heads.  The
+backend names the pairs' route: 'xla' their plain versions, every Pallas
+backend the pair kernels tp_pair_fwd / tp_pair_bwd (on a CUDA tensor they
+launch or raise).  x, the view features and every parameter get
+gradients.  It takes encode rows and view features (none without view
+directions) only: no render or encode fusion.  The parameters are the
+module's own at full shapes, or on a multi-process mesh a model rank's
+panels (`model_split_rows`, the state MipNeRFSystem holds there), told
+apart by trunk_0's width.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from torch import nn
 from mipnerf_pl_tpu_torch.kernels.mlp import (flatten_params, fused_mlp,
                                               fused_mlp_lean,
                                               fused_mlp_lean_render)
-from mipnerf_pl_tpu_torch.kernels.tp_lean import tp_lean_forward
+from mipnerf_pl_tpu_torch.kernels.tp_lean import tp_mlp_forward
 from mipnerf_pl_tpu_torch.parallel.mesh import Mesh
 
 # The lean training backends and their fused_mlp_lean modes.
@@ -78,7 +82,9 @@ class MLP(nn.Module):
         if net_activation != 'relu':
             raise NotImplementedError(net_activation)
         self.net_depth = net_depth
+        self.net_width = net_width
         self.net_depth_condition = net_depth_condition
+        self.use_viewdirs = view_dim > 0
         self.skip_index = skip_index
         self.num_rgb_channels = num_rgb_channels
         self.num_density_channels = num_density_channels
@@ -126,9 +132,10 @@ class MLP(nn.Module):
         dist_raw [B], acc [B], weights [B, N]) of the lean render level."""
         if self.tp_mesh is not None:
             if render is not None or encode is not None \
-                    or view_direction is None:
+                    or (view_direction is None) == self.use_viewdirs:
                 raise ValueError('under a model axis the MLP takes encode '
-                                 'rows and view features, with no render or '
+                                 'rows and view features (none without '
+                                 'view directions), with no render or '
                                  'encode fusion')
             return self._tp(x, view_direction)
         if encode is not None and self.backend not in RENDER_BACKENDS:
@@ -215,18 +222,21 @@ class MLP(nn.Module):
 
     def _tp(self, x, view_direction):
         """The training forward under a model axis: x [B, N, F] encode
-        rows, view_direction [B, Fv] -> raw (rgb [B, N, 3], density [B, N,
-        nd]) through `tp_lean_forward` on `tp_mesh`."""
+        rows, view_direction [B, Fv] (or None) -> raw (rgb [B, N, 3],
+        density [B, N, nd]) through `tp_mlp_forward` on `tp_mesh`."""
         if self.backend not in BACKENDS:
             raise ValueError(f'unknown mlp backend {self.backend!r}')
         num_samples, lead = x.shape[-2], x.shape[:-1]
-        rgb, density = tp_lean_forward(
+        flat = flatten_params(self, self.net_depth, self.net_depth_condition,
+                              self.use_viewdirs)
+        rgb, density = tp_mlp_forward(
             x.reshape(-1, x.shape[-1]),
+            None if view_direction is None else
             view_direction.reshape(-1, view_direction.shape[-1]),
-            flatten_params(self, self.net_depth, self.net_depth_condition),
-            self.tp_mesh, num_samples, self.net_depth,
+            flat, self.tp_mesh, num_samples, self.net_depth,
             self.net_depth_condition, self.skip_index, self.compute_dtype,
-            plain=self.backend == 'xla')
+            plain=self.backend == 'xla',
+            local=flat[0].shape[1] != self.net_width)
         return (rgb.reshape(*lead, self.num_rgb_channels),
                 density.reshape(*lead, self.num_density_channels))
 

@@ -20,11 +20,15 @@ MipNeRFSystem drives both axes: rows over `data`, the MLP's Megatron pairs
 over `model` (kernels/tp_lean.py, through `model_view`, the mesh as the
 MLP of one data shard sees it).
 
-The `model` collectives are Megatron's two operators: `copy_to_model`
-(identity forward, a sum over `model` backward) and `reduce_from_model` (a
-sum forward, identity backward).  On a single-process mesh autograd gives
-both for free: a tensor used by every shard collects the sum of their
-cotangents, and a sum hands its cotangent to every term.
+The `model` collectives are Megatron's operators: `copy_to_model`
+(identity forward, a sum over `model` backward), `reduce_from_model` (a
+sum forward, identity backward) and `gather_from_model` (a column-parallel
+layer's panels side by side forward, this rank's columns of the cotangent
+backward).  On a single-process mesh autograd gives them for free: a
+tensor used by every shard collects the sum of their cotangents, a sum
+hands its cotangent to every term, a concatenation its slices.
+`sum_over_model` assembles a multi-process mesh's panels of the state into
+whole tensors (each rank's regions and zeros, summed).
 
 The `data` collectives serve data parallelism, where every shard holds the
 whole model and its rows of each batch: `data_rows` names the rows a
@@ -78,6 +82,28 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Out of a column-parallel layer that the next layers read whole: the
+    model ranks' column panels side by side forward (this rank's columns
+    written into a zero-filled f32 buffer, all-reduced over `model`), this
+    rank's columns of the cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, t, rank, n, group):
+        w = t.shape[-1]
+        ctx.cols = (rank * w, (rank + 1) * w)
+        full = torch.zeros((*t.shape[:-1], n * w), dtype=torch.float32,
+                           device=t.device)
+        full[..., rank * w:(rank + 1) * w] = t
+        dist.all_reduce(full, group=group)
+        return full.to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.cols
+        return g[..., a:b].contiguous(), None, None, None
 
 
 class Mesh:
@@ -205,21 +231,24 @@ class Mesh:
                 dist.broadcast(t.data, src=0)
 
     def check_equal_over_mesh(self, tensors: Sequence[torch.Tensor],
-                              what: str) -> None:
-        """Raise unless every process of the mesh holds the same bits in
-        each f32 tensor: one all_reduce(MAX) over the whole group of each
-        tensor's bit sum and its negation.  Nothing to check on a
-        single-process mesh."""
+                              what: str, axis: Optional[str] = None) -> None:
+        """Raise unless every process of the mesh (of this process's
+        `axis` group: 'data' or 'model') holds the same bits in each f32
+        tensor: one all_reduce(MAX) over the group of each tensor's bit sum
+        and its negation.  Nothing to check on a single-process mesh."""
         if not self.distributed or dist.get_world_size() == 1:
             return
+        group = {None: None, 'data': self.data_group,
+                 'model': self.model_group}[axis]
         sums = torch.stack([t.detach().contiguous().view(torch.int32)
                             .to(torch.int64).sum() for t in tensors])
         both = torch.cat([sums, -sums])
-        dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=group)
         n = len(tensors)
         if not torch.equal(both[:n], -both[n:]):
+            where = '' if axis is None else f' over `{axis}`'
             raise RuntimeError(f'{what} differ between the processes of the '
-                               f'mesh ({self!r})')
+                               f'mesh{where} ({self!r})')
 
     def barrier(self) -> None:
         """Wait for every process of the mesh (a one-element all_reduce on
@@ -231,6 +260,33 @@ class Mesh:
         if not self.distributed:
             return t
         return _CopyToModel.apply(t, self.model_group)
+
+    def sum_over_model(self, tensors: Sequence[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+        """The sum over this process's `model` group of each tensor of a
+        multi-process mesh: one `all_reduce` of the tensors packed into
+        one f32 buffer (how a process's panels of the state are assembled
+        into whole tensors, each rank adding its own regions and zeros)."""
+        if not self.distributed:
+            raise ValueError('sum_over_model sums over the processes of a '
+                             'multi-process mesh')
+        return self._reduce([tensors], self.model_group, self.shape['model'])
+
+    def gather_from_model(self, panels: Sequence[torch.Tensor]
+                          ) -> torch.Tensor:
+        """The column panels of a column-parallel layer's output, one a
+        model rank in `model_ranks`' order, side by side on the last dim:
+        a concatenation on a single-process mesh; on a multi-process one an
+        `all_reduce` of a zero-filled buffer holding this rank's columns,
+        whose backward hands this rank its columns of the cotangent."""
+        if len(panels) != len(self.model_ranks):
+            raise ValueError(f'{len(panels)} panels for model ranks '
+                             f'{self.model_ranks}')
+        if self.distributed:
+            return _GatherFromModel.apply(panels[0], self.model_rank,
+                                          self.shape['model'],
+                                          self.model_group)
+        return torch.cat(list(panels), dim=-1)
 
     def reduce_from_model(self, partials: Sequence[torch.Tensor]
                           ) -> torch.Tensor:
@@ -246,12 +302,13 @@ class Mesh:
             total = total + p
         return total
 
-    def split_rows(self, x: torch.Tensor, view: torch.Tensor,
+    def split_rows(self, x: torch.Tensor, view: Optional[torch.Tensor],
                    num_samples: int):
         """[(x rows, view rows)] of the data shards this process computes:
         the rays split evenly on a single-process mesh, this process's own
-        rows on a multi-process one."""
-        rays = view.shape[0]
+        rows on a multi-process one.  With no view features (None) the rays
+        are x's rows over num_samples."""
+        rays = x.shape[0] // num_samples if view is None else view.shape[0]
         if x.shape[0] != rays * num_samples:
             raise ValueError(f'{x.shape[0]} rows is not {rays} rays x '
                              f'num_samples={num_samples}')
@@ -263,7 +320,8 @@ class Mesh:
                              'shards')
         per = rays // d
         return [(x[i * per * num_samples:(i + 1) * per * num_samples],
-                 view[i * per:(i + 1) * per]) for i in range(d)]
+                 None if view is None else view[i * per:(i + 1) * per])
+                for i in range(d)]
 
 
 def multi_host(hparams) -> bool:

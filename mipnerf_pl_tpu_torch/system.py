@@ -34,19 +34,30 @@ writes the run's files.
 
 Tensor parallelism: with a `model` axis (`parallel.model_axis` > 1, or a
 mesh that has one) the training model's MLP splits each data shard's
-trunk over `model` in Megatron pairs (`tp_lean_forward` on the mesh's
-`model_view`; the pair kernels for a Pallas backend, their plain versions
-for 'xla'), with the whole-MLP fusions off (models/mipnerf.py `tp_off`;
-the system prints what runs and what is off).  Every process holds the
-whole parameters and Adam moments, so the state, its checkpoints and the
-renders are those of data parallelism; the renders run the eval model on
-the whole parameters, rows over `data` only, as JAX's `pallas_call` does
-not split over `model`.  On a single-process mesh autograd adds the model
-ranks' panels into each parameter's gradient; on a multi-process one a
-model rank's gradient holds its own panels and the replicated regions
-(`model_split_rows`), the latter kept by model rank 0 alone before the sum
-over the whole mesh.  The step is that of one device on the whole batch,
-as under JAX's GSPMD.
+trunk over `model` in Megatron pairs (`tp_mlp_forward` on the mesh's
+`model_view`, at every shape the JAX system trains: any depth, any skip
+index, no view layer, no view directions; the pair kernels for a Pallas
+backend, their plain versions for 'xla'), with the whole-MLP fusions off
+(models/mipnerf.py `tp_off`; the system prints what runs and what is
+off).  Only a trunk width the axis does not divide is refused, as JAX's
+placement refuses it.  On a multi-process mesh each process holds, as
+JAX places them, its model rank's panels of the parameters, of both Adam
+moments and of the gradients (`_Panels`, from `model_split_rows`: the
+split regions' panels, the replicated regions whole): a panel's gradient
+is summed over `data`, a replicated region's over the whole mesh with
+model ranks other than 0 handing in zeros.  A checkpoint holds whole
+tensors in the one-device layout (`host_state` assembles them over
+`model`), so one card evaluates it; a resume slices each rank's panels of
+the parameters and both moments (`load_state`, JAX's `place_state`).  The
+training model and its eval twin keep no parameters of their own there
+(`functional_call` hands them the state's, or `whole_params` for a
+render).  A
+single-process mesh holds the state whole: its shards share one device,
+so panels would save nothing, and autograd adds the model ranks' panels
+into each parameter's gradient.  The renders run the eval model, never
+split, on the whole parameters (`whole_params`), rows over `data` only,
+as JAX's `pallas_call` does not split over `model`.  The step is that of
+one device on the whole batch, as under JAX's GSPMD.
 
 The run: `setup` builds the train / val datasets and the prefetching
 TrainBatcher, `validate` renders val images (through `camera()` where the
@@ -77,7 +88,7 @@ from torch.func import functional_call
 from mipnerf_pl_tpu_torch import config
 from mipnerf_pl_tpu_torch.data.datasets import dataset_dict
 from mipnerf_pl_tpu_torch.data.pipeline import TrainBatcher
-from mipnerf_pl_tpu_torch.kernels.mlp import param_order
+from mipnerf_pl_tpu_torch.kernels.mlp import flatten_params, param_order
 from mipnerf_pl_tpu_torch.kernels.tp_lean import model_split_rows
 from mipnerf_pl_tpu_torch.models.mipnerf import make_mipnerf_from_hparams
 from mipnerf_pl_tpu_torch.ops.camera import Camera, camera_rays
@@ -88,7 +99,7 @@ from mipnerf_pl_tpu_torch.parallel.mesh import (Mesh, create_mesh,
                                                 requested_devices)
 from mipnerf_pl_tpu_torch.rays import (Rays, namedtuple_map, rays_flatten,
                                        rays_pad_to)
-from mipnerf_pl_tpu_torch.train.ckpt import CheckpointManager
+from mipnerf_pl_tpu_torch.train.ckpt import CheckpointManager, host_copy
 from mipnerf_pl_tpu_torch.train.opt import adam, adam_step
 from mipnerf_pl_tpu_torch.train.schedule import mip_lr_decay
 from mipnerf_pl_tpu_torch.utils.vis import stack_rgb, visualize_depth
@@ -166,31 +177,87 @@ def _compute_dtype(hparams) -> torch.dtype:
 
 
 def _check_model_axis_shapes(hparams, n_model: int) -> None:
-    """Raise a ValueError naming the key of each model shape the Megatron
-    split of `tp_lean_forward` cannot take (JAX's GSPMD takes any): the
-    pairs need an even trunk depth and an even skip index (the skip concat
-    inside a pair), view directions and a view layer (view_0's split
-    rows), and a trunk width the model axis divides."""
-    depth = int(hparams['nerf.mlp.net_depth'])
-    skip = int(hparams['nerf.mlp.skip_index'])
+    """Raise a ValueError naming the key where the model axis does not
+    divide the trunk width, the one shape the Megatron split of
+    `tp_mlp_forward` refuses (JAX's placement refuses it too)."""
     width = int(hparams['nerf.mlp.net_width'])
-    refused = [
-        ('nerf.mlp.net_depth', depth % 2, f'{depth} is odd: the trunk runs '
-         'in pairs of layers'),
-        ('nerf.mlp.skip_index', skip % 2, f'{skip} is odd: the skip concat '
-         'must land inside a pair'),
-        ('nerf.use_viewdirs', not bool(hparams['nerf.use_viewdirs']),
-         'False: the split needs the view layers'),
-        ('nerf.mlp.net_depth_condition',
-         int(hparams['nerf.mlp.net_depth_condition']) < 1,
-         f'{hparams["nerf.mlp.net_depth_condition"]}: the split needs '
-         'view_0'),
-        ('nerf.mlp.net_width', width % n_model, f'{width} does not divide '
-         f'among model={n_model} shards')]
-    for key, bad, why in refused:
-        if bad:
-            raise ValueError(f'{key}={why} (parallel.model_axis={n_model} '
-                             'splits the MLP with tp_lean_forward)')
+    if width % n_model:
+        raise ValueError(f'nerf.mlp.net_width={width} does not divide among '
+                         f'model={n_model} shards (parallel.model_axis='
+                         f'{n_model} splits the MLP with tp_mlp_forward)')
+
+
+class _Panels:
+    """The state a process of a multi-process mesh with a model axis
+    holds: of every parameter (and of each Adam moment and gradient, which
+    take its layout) its model rank's panel of the split region and the
+    replicated region whole, both as `model_split_rows` names them for the
+    flat layout.  In the state dict's [out, in] layout a parameter's entry
+    is (dim, split): along dim, the first `split` entries are split in n
+    panels (a column-parallel slot's outputs, dim 0; a 'row' entry's
+    h-rows, the weight's dim 1) and the rest are replicated; (0, 0) is a
+    replicated parameter.  A local tensor is its panel, then the
+    replicated rest."""
+
+    def __init__(self, mlp, mesh: Mesh):
+        self.mesh = mesh
+        self.n, self.r = mesh.shape['model'], mesh.model_rank
+        dims = (mlp.net_depth, mlp.net_depth_condition, mlp.use_viewdirs)
+        table = model_split_rows(flatten_params(mlp, *dims), *dims)
+        self.spec = {}
+        for j, layer in enumerate(param_order(*dims)):
+            lin = getattr(mlp, layer)
+            (rows, axis), (_, b_axis) = table[2 * j], table[2 * j + 1]
+            self.spec[f'mlp.{layer}.weight'] = (
+                {'col': (0, lin.weight.shape[0]), 'row': (1, rows)}.get(
+                    axis, (0, 0)), tuple(lin.weight.shape))
+            self.spec[f'mlp.{layer}.bias'] = (
+                (0, lin.bias.shape[0]) if b_axis == 'col' else (0, 0),
+                tuple(lin.bias.shape))
+
+    def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's local tensor of a whole one (a new tensor)."""
+        (dim, split), shape = self.spec[name]
+        p = split // self.n
+        return torch.cat([full.narrow(dim, self.r * p, p),
+                          full.narrow(dim, split, shape[dim] - split)], dim)
+
+    def regions(self, name: str, t: torch.Tensor):
+        """(panel, replicated rest) of a local tensor, as views."""
+        (dim, split), shape = self.spec[name]
+        p = split // self.n
+        want = shape[:dim] + (p + shape[dim] - split,) + shape[dim + 1:]
+        if tuple(t.shape) != want:
+            raise ValueError(f'{name}: {tuple(t.shape)} is not model rank '
+                             f'{self.r}\'s panel {want} of {shape}')
+        return t.narrow(dim, 0, p), t.narrow(dim, p, t.shape[dim] - p)
+
+    def whole(self, names, tensors):
+        """The whole tensors of local ones (one each name), on every
+        process of the `model` group: each rank writes its panel, model
+        rank 0 the replicated rest, into zeros, summed over `model` in one
+        all_reduce."""
+        bufs = []
+        for name, t in zip(names, tensors):
+            (dim, split), shape = self.spec[name]
+            panel, rest = self.regions(name, t.detach())
+            full = torch.zeros(shape, dtype=torch.float32, device=t.device)
+            p = split // self.n
+            full.narrow(dim, self.r * p, p).copy_(panel)
+            if self.r == 0:
+                full.narrow(dim, split, shape[dim] - split).copy_(rest)
+            bufs.append(full)
+        return self.mesh.sum_over_model(bufs)
+
+    def numel(self):
+        """(elements this process holds, elements of the whole) of the
+        parameters, from the table."""
+        held = whole = 0
+        for (dim, split), shape in self.spec.values():
+            size = int(np.prod(shape))
+            whole += size
+            held += size // shape[dim] * (split // self.n + shape[dim] - split)
+        return held, whole
 
 
 def resolve_mesh(hparams, device: torch.device) -> Mesh:
@@ -244,9 +311,9 @@ class MipNeRFSystem:
     every step, loss and render is that of one device on the whole batch:
     each shard computes its rows and the sums are reduced over `data`, as
     JAX's sharded step gives.  Over its `model` axis each shard's training
-    MLP runs in Megatron pairs, every process holding the whole
-    parameters, and the step is again that of one device (the module
-    docstring)."""
+    MLP runs in Megatron pairs, a process of a multi-process mesh holding
+    its panels of the state, and the step is again that of one device (the
+    module docstring)."""
 
     def __init__(self, hparams: Dict[str, Any], device=None,
                  mesh: Optional[Mesh] = None):
@@ -300,17 +367,27 @@ class MipNeRFSystem:
             self.eval_model = self.model
         self.model.to(self.device)
         self.eval_model.to(self.device)
+        # A process of a multi-process mesh with a model axis holds its
+        # panels of the state; a single-process mesh holds it whole.
+        self._panels = (_Panels(self.model.mlp, mesh)
+                        if mesh.distributed and n_model > 1 else None)
+        if self._panels is not None:
+            # The modules' own parameters are only what functional_call
+            # swaps out: where the processes hold panels, no whole copy.
+            for module in (self.model, self.eval_model):
+                for p in module.parameters():
+                    p.data = p.data.new_empty(0)
         if n_model > 1 and mesh.is_root:
             route = ('their plain versions' if train_backend == 'xla' else
                      'the kernels tp_pair_fwd / tp_pair_bwd')
             print(f'model axis {n_model} ({mesh!r}): the training MLP '
                   f'(nerf.mlp_backend {train_backend}) runs its trunk in '
-                  f'Megatron pairs on {route}, the heads, the skip x-term, '
-                  'the bottleneck and view_0 in torch.matmul; off under the '
-                  'model axis: '
-                  f'{", ".join(self.model.tp_off) or "nothing"}; renders on '
-                  f'the whole parameters (val.mlp_backend {val_backend})',
-                  flush=True)
+                  f'Megatron pairs on {route}, the rest in torch.matmul; '
+                  'off under the model axis: '
+                  f'{", ".join(self.model.tp_off) or "nothing"}; state: '
+                  f'{"panels a process" if self._panels else "whole"}; '
+                  'renders on the whole parameters (val.mlp_backend '
+                  f'{val_backend})', flush=True)
         self.val_randomized = bool(hparams['val.randomized'])
         self.train_randomized = bool(hparams['train.randomized'])
         self.white_bkgd = bool(hparams['train.white_bkgd'])
@@ -354,27 +431,88 @@ class MipNeRFSystem:
         `init_params(seed)`, or copies of `params` when given."""
         params = self.init_params(seed) if params is None else params
         params = {k: v.detach().to(self.device, torch.float32).clone()
-                  .requires_grad_(True) for k, v in params.items()}
+                  for k, v in params.items()}
         # Every process starts from the first one's parameters.
         self.mesh.broadcast_from_root(list(params.values()))
+        if self._panels is not None:
+            params = {k: self._panels.local(k, v) for k, v in params.items()}
+        params = {k: v.requires_grad_(True) for k, v in params.items()}
         return {'params': params, 'opt_state': adam(list(params.values())),
                 'step': 0}
 
+    def state_numel(self):
+        """(elements of the parameters this process holds, elements of the
+        whole parameters), from the split's table: the same numbers for
+        each Adam moment."""
+        if self._panels is not None:
+            return self._panels.numel()
+        whole = sum(p.numel() for p in self.model.parameters())
+        return whole, whole
+
+    def whole_params(self, params: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The whole parameters of a training state's: its own where the
+        state is whole; assembled over `model` from every rank's panels (a
+        collective: every process of the mesh calls it) where it holds
+        panels."""
+        if self._panels is None:
+            return params
+        return dict(zip(params, self._panels.whole(list(params),
+                                                   list(params.values()))))
+
     def host_state(self, state) -> Dict[str, Any]:
-        """The state as a checkpoint holds it: CPU tensors, the optimizer
-        as its state dict (the Adam moments in parameter order)."""
-        return {'params': {k: v.detach().cpu()
-                           for k, v in state['params'].items()},
-                'opt_state': state['opt_state'].state_dict(),
-                'step': int(state['step'])}
+        """The state as a checkpoint holds it: CPU copies, the optimizer
+        as its state dict (the Adam moments in parameter order), whole
+        tensors however the processes hold them (where they hold panels,
+        assembled over `model`: every process of the mesh calls it)."""
+        names = list(state['params'])
+        params = list(state['params'].values())
+        opt = state['opt_state'].state_dict()
+        if self._panels is not None:
+            moments = [(i, key) for i in sorted(opt['state'])
+                       for key in ('exp_avg', 'exp_avg_sq')]
+            whole = self._panels.whole(
+                names + [names[i] for i, _ in moments],
+                params + [opt['state'][i][key] for i, key in moments])
+            params = whole[:len(names)]
+            opt['state'] = {i: dict(s) for i, s in opt['state'].items()}
+            for (i, key), t in zip(moments, whole[len(names):]):
+                opt['state'][i][key] = t
+        return host_copy({'params': dict(zip(names, params)),
+                          'opt_state': opt, 'step': int(state['step'])})
 
     def load_state(self, host: Dict[str, Any]) -> Dict[str, Any]:
         """A training state on the system's device from `host_state`'s
-        form (the parameters those of the mesh's first process)."""
+        form (the parameters those of the mesh's first process); where the
+        processes hold panels, each takes its own of the parameters and of
+        both Adam moments."""
         state = self.init_state(params=host['params'])
-        state['opt_state'].load_state_dict(host['opt_state'])
+        opt = host['opt_state']
+        if self._panels is not None:
+            names = list(state['params'])
+            opt = {'param_groups': opt['param_groups'], 'state': {
+                i: {k: (self._panels.local(names[i], v.to(self.device))
+                        if k in ('exp_avg', 'exp_avg_sq') else v)
+                    for k, v in s.items()}
+                for i, s in opt['state'].items()}}
+        state['opt_state'].load_state_dict(opt)
         state['step'] = int(host['step'])
         return state
+
+    def check_state(self, state) -> None:
+        """Raise unless the processes hold the same parameters: all of them
+        over the whole mesh, or where they hold panels, everything over
+        `data` and the replicated regions over `model`."""
+        params = state['params']
+        if self._panels is None:
+            self.mesh.check_equal_over_mesh(list(params.values()),
+                                            'the parameters')
+            return
+        self.mesh.check_equal_over_mesh(list(params.values()),
+                                        'the parameters', axis='data')
+        self.mesh.check_equal_over_mesh(
+            [self._panels.regions(k, v)[1] for k, v in params.items()],
+            'the replicated regions of the parameters', axis='model')
 
     # -- data ------------------------------------------------------------
     def setup(self, data_path: str, dataset_name: str, prefetch: int = 2,
@@ -507,27 +645,32 @@ class MipNeRFSystem:
             partials.append(list(grads) + sums)
         if gens[-1] is not generator:
             generator.set_state(gens[-1].get_state())
-        if mesh.distributed and mesh.model_rank > 0:
-            self._drop_replicated(dict(zip(names, partials[0])))
-            partials[0][len(names):] = [torch.zeros_like(t) for t in sums]
-        reduced = mesh.reduce_from_mesh(partials)
+        if self._panels is None:
+            reduced = mesh.reduce_from_mesh(partials)
+        else:
+            reduced = self._reduce_panels(names, partials[0])
         aux = self._aux(reduced[len(names):], n_rays)
         return (aux['loss'], aux), dict(zip(names, reduced[:len(names)]))
 
-    def _drop_replicated(self, grads: Dict[str, torch.Tensor]) -> None:
-        """Zero IN PLACE the regions of a model rank's gradients that every
-        model rank holds alike (the rows after `model_split_rows`' of each
-        tensor of the lean flat layout, taken as views of the gradients),
-        so the sum over `model` counts them once, from model rank 0; the
-        split regions are zero outside the rank's own panels already."""
-        mlp = self.model.mlp
-        views = []
-        for layer in param_order(mlp.net_depth, mlp.net_depth_condition):
-            views += [grads[f'mlp.{layer}.weight'].t(),
-                      grads[f'mlp.{layer}.bias'].view(1, -1)]
-        for g, rows in zip(views, model_split_rows(
-                views, mlp.net_depth, mlp.net_depth_condition)):
-            g[rows:] = 0.0
+    def _reduce_panels(self, names, partial):
+        """A process's gradients (of its panels of the state) and loss
+        sums, reduced: each panel's gradient summed over `data`, the
+        replicated regions and the sums over the whole mesh, where model
+        ranks other than 0 hand in zeros (every model rank computes the
+        same values there), so they count once."""
+        grads, sums = partial[:len(names)], partial[len(names):]
+        panels, rests = zip(*(self._panels.regions(k, g)
+                              for k, g in zip(names, grads)))
+        rests, sums = list(rests), list(sums)
+        if self.mesh.model_rank > 0:
+            rests = [torch.zeros_like(t) for t in rests]
+            sums = [torch.zeros_like(t) for t in sums]
+        panels = self.mesh.reduce_from_data([list(panels)])
+        rest_sums = self.mesh.reduce_from_mesh([rests + sums])
+        out = []
+        for k, p, r in zip(names, panels, rest_sums):
+            out.append(torch.cat([p, r], self._panels.spec[k][0][0]))
+        return out + rest_sums[len(names):]
 
     def train_step(self, state, rays: Rays, pixels,
                    generator: Optional[torch.Generator] = None):
@@ -668,6 +811,9 @@ class MipNeRFSystem:
         colour-mapped distance map, CHW)."""
         val_losses, val_psnrs = [], []
         n = len(self.val_dataset)
+        # The eval model is never split: it renders on the whole
+        # parameters, assembled here where the state holds panels.
+        params = self.whole_params(state['params'])
         for i in range(num_images):
             index = (start_index + i) % n
             rays, rgb_gt = self.val_dataset[index]
@@ -679,9 +825,9 @@ class MipNeRFSystem:
             except NotImplementedError:
                 cam = None
             if cam is not None:
-                out = self.render_camera(state['params'], cam, ch, cw)
+                out = self.render_camera(params, cam, ch, cw)
             else:
-                out = self.render_image(state['params'], rays)
+                out = self.render_image(params, rays)
             gt = rgb_gt[..., :3]
             mask = np.broadcast_to(np.asarray(rays.lossmult),
                                    (*gt.shape[:-1], 1))
@@ -886,12 +1032,12 @@ class MipNeRFSystem:
                     prof.add('validate', time.time() - t_val)
                     t_ckpt = time.time()
                     # The first process's checkpoint stands for every
-                    # process's state.
-                    self.mesh.check_equal_over_mesh(
-                        list(state['params'].values()), 'the parameters')
+                    # process's state, in whole tensors.
+                    self.check_state(state)
+                    host = self.host_state(state)
                     if root:
-                        ckpt.save(step, self.host_state(state),
-                                  val_psnr=val_psnr)
+                        ckpt.save(step, host, val_psnr=val_psnr)
+                    del host
                     # No process goes on before the checkpoint is whole.
                     self.mesh.barrier()
                     prof.add('checkpoint', time.time() - t_ckpt)

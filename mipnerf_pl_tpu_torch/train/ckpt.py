@@ -37,15 +37,16 @@ def _jsonable(hparams: dict) -> dict:
             for k, v in hparams.items()}
 
 
-def _to_cpu(tree):
-    """The same nest of dicts / lists / tuples with every tensor detached
-    on the CPU."""
+def host_copy(tree):
+    """The same nest of dicts / lists / tuples with every tensor copied to
+    the CPU: a snapshot that later steps, which update a state in place,
+    leave as it is."""
     if torch.is_tensor(tree):
-        return tree.detach().cpu()
+        return tree.detach().to('cpu', copy=True)
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: host_copy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_cpu(v) for v in tree)
+        return type(tree)(host_copy(v) for v in tree)
     return tree
 
 
@@ -109,7 +110,7 @@ class CheckpointManager:
             raise RuntimeError(f'this process does not write checkpoints to '
                                f'{self.ckpt_dir}')
         step = int(step)
-        state = _to_cpu(state)
+        state = host_copy(state)
         _write(self._last, step, state)
         for old in _steps(self._last):
             if old != step:

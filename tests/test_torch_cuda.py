@@ -51,7 +51,9 @@ the same bars (the gradients at ||a - b|| / ||b||), two backward runs bit
 for bit, each on the kernel its rule names (tp_pair_wg_kernel in bf16 and
 f32 at the slice's widths, the mma.sync kernels elsewhere; a plan that
 cannot be made raises), and tp_lean_forward on a single-process mesh on
-the card against the same function on the CPU.  The
+the card against the same function on the CPU, as is tp_mlp_forward at
+the shapes the pairs alone do not take (an odd depth, a skip at a pair
+boundary, no view layer, no view directions).  The
 standalone IPE (ipe_fwd,
 ipe_bwd: `nerf.ipe_backend: pallas`) is held against its plain versions,
 max |d| <= 1e-5 forward and ||a - b|| / ||b|| <= 1e-5 for dmeans and dcovs
@@ -1898,6 +1900,132 @@ def test_cuda_tp_lean_forward_matches_plain(cuda_device, mesh_shape, dtype):
     assert pair_took('tp_pair_fwd') == pair_took('tp_pair_bwd') \
         == pair_calls((W, W // m, W), dtype, pairs)
     ref_out, ref_g = run('cpu', torch.float32)
+    for a, b in zip(got_out, ref_out):
+        _close(a, b, dtype)
+    if dtype == 'bfloat16':
+        ref_g = run('cpu', dt)[1]
+    assert max_leaf_rel_err(got_g, ref_g) <= (2e-3 if dtype == 'float32'
+                                              else 3e-2)
+
+
+# The model shapes the Megatron pairs alone do not take (tp_mlp_forward):
+# an odd depth, a skip at a pair boundary (the next pair reads W + F), no
+# view layer, no view directions.
+TP_SHAPES = {'depth7': dict(net_depth=7, skip_index=4),
+             'skip3': dict(net_depth=8, skip_index=3),
+             'condition0': dict(net_depth=8, skip_index=4,
+                                net_depth_condition=0),
+             'no-viewdirs': dict(net_depth=8, skip_index=4, view_dim=0)}
+
+
+def _settled_points(x, view, flat, depth, dcond, skip, N, margin=1e-5):
+    """(the raw heads of the MLP at full width in f32, [M, 1] f32: 1 for
+    the points none of whose ReLU pre-activations lies within `margin` of
+    zero) for the flat layout of any shape (view None: no view
+    directions), as chip_smoke.py's settled_points does for the lego one.
+    Two f32 forwards that round in another order differ by ~1e-6 in a
+    pre-activation and flip the ReLU masks of the points this close to
+    zero, which moves a whole-MLP f32 gradient by ~4e-3 at the skip3
+    shape on an H100: a cotangent zero on those points leaves the
+    kernels' own error."""
+    worst = torch.full((x.shape[0],), float('inf'))
+
+    def relu_of(pre):
+        torch.minimum(worst, pre.abs().amin(dim=1), out=worst)
+        return torch.relu(pre)
+    h = x
+    for i in range(depth):
+        h = relu_of(h @ flat[2 * i] + flat[2 * i + 1])
+        if i % skip == 0 and i > 0:
+            h = torch.cat([h, x], dim=-1)
+    nd_i = 2 * depth
+    density = h @ flat[nd_i] + flat[nd_i + 1]
+    if view is None:
+        return (h @ flat[nd_i + 2] + flat[nd_i + 3], density), \
+            (worst > margin).float()[:, None]
+    W = flat[nd_i + 2].shape[1]
+    y = h @ flat[nd_i + 2] + flat[nd_i + 3]
+    for j in range(dcond + 1):
+        k, b = flat[nd_i + 4 + 2 * j], flat[nd_i + 5 + 2 * j]
+        if j == 0:
+            y = y @ k[:W] + (view @ k[W:] + b).repeat_interleave(N, dim=0)
+        else:
+            y = y @ k + b
+        if j < dcond:
+            y = relu_of(y)
+    return (y, density), (worst > margin).float()[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', list(TP_SHAPES))
+def test_cuda_tp_mlp_forward_shapes_match_plain(cuda_device, shape, dtype):
+    """tp_mlp_forward at each shape of TP_SHAPES on data 2 x model 2 of a
+    single-process mesh on the card against the same function on the CPU
+    (the pairs' plain versions), on train_problem's inputs and weights of
+    width 128 drawn as problem() draws them: the raw heads at the forward
+    bars; the gradients of x, the view features and every parameter of the
+    seeded linear loss, its cotangent zero on the points whose ReLU masks
+    are in doubt (`_settled_points`, whose own f32 heads equal the CPU
+    run's within 1e-4), at ||a - b|| / ||b|| <= 2e-3 f32, 3e-2 bf16
+    (against the CPU run in the same dtype); each pair kernel once a pair,
+    rank and shard, every pair (the boundary pair's f_in = W + F too) on
+    tp_pair_wg_kernel of the dtype."""
+    from mipnerf_pl_tpu_torch.kernels import tp_lean
+    from mipnerf_pl_tpu_torch.models.mlp import MLP
+    from mipnerf_pl_tpu_torch.parallel.mesh import create_mesh
+    kw = dict(TP_SHAPES[shape])
+    view_dim = kw.pop('view_dim', 27)
+    W, F, R, N = 128, 96, 64, 16
+    mlp = MLP(F, view_dim, net_width=W, net_width_condition=64, **kw)
+    nd, ndc = mlp.net_depth, mlp.net_depth_condition
+    # train_problem's encode rows, view features and cotangents; weights
+    # and biases drawn as problem() draws them, at this shape's layout.
+    x, view, _, g_rgb, g_dens = train_problem(R, **dict(LEGO, net_width=W,
+                                                        N=N))
+    rng = np.random.default_rng(5)
+    flat = []
+    for k in tk.flatten_params(mlp, nd, ndc, mlp.use_viewdirs)[0::2]:
+        lim = np.sqrt(6.0 / sum(k.shape))
+        flat += [rng.uniform(-lim, lim, size=k.shape).astype(np.float32),
+                 rng.normal(0.0, 0.1, size=(1, k.shape[1])).astype(
+                     np.float32)]
+    dt = getattr(torch, dtype)
+    heads, keep = _settled_points(
+        torch.tensor(x), torch.tensor(view) if view_dim else None,
+        [torch.tensor(a) for a in flat], nd, ndc, mlp.skip_index, N)
+    assert float(keep.mean()) > 0.9
+    c_rgb, c_dens = g_rgb * keep.numpy(), g_dens * keep.numpy()
+
+    def run(device, compute_dtype):
+        leaves = [torch.tensor(a, device=device, requires_grad=True)
+                  for a in [x] + ([view] if view_dim else []) + flat]
+        n_in = 2 if view_dim else 1
+        rgb, dens = tp_lean.tp_mlp_forward(
+            leaves[0], leaves[1] if view_dim else None, leaves[n_in:],
+            create_mesh(4, 2, device=device), N, nd, ndc, mlp.skip_index,
+            compute_dtype)
+        loss = ((rgb * torch.tensor(c_rgb, device=device)).sum()
+                + (dens * torch.tensor(c_dens, device=device)).sum())
+        grads = torch.autograd.grad(loss, leaves)
+        return [rgb.detach().cpu(), dens.detach().cpu()], \
+            [g.cpu() for g in grads]
+
+    tk.reset_launches()
+    got_out, got_g = run(cuda_device, dt)
+    torch.cuda.synchronize()
+    pairs = nd // 2 * 2 * 2
+    assert tk.launches['tp_pair_fwd'] == tk.launches['tp_pair_bwd'] == pairs
+    skips = set(range(mlp.skip_index, nd, mlp.skip_index))
+    dims = [(F if e == 0 else W + F if e - 1 in skips else W, W // 2, W)
+            for e in range(0, nd - 1, 2)]
+    assert (shape == 'skip3') == any(d[0] == W + F for d in dims)
+    calls = [pair_calls(d, dtype, pairs) for d in dims]
+    assert calls[0][2] == 0 and len(set(calls)) == 1
+    assert pair_took('tp_pair_fwd') == pair_took('tp_pair_bwd') == calls[0]
+    ref_out, ref_g = run('cpu', torch.float32)
+    for a, b in zip(heads, ref_out):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     for a, b in zip(got_out, ref_out):
         _close(a, b, dtype)
     if dtype == 'bfloat16':

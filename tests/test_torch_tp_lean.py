@@ -320,6 +320,66 @@ def test_tp_lean_backward_runs_are_bit_equal():
         assert np.array_equal(a, b)
 
 
+# The shapes the Megatron pairs alone do not take (tp_mlp_forward's): an
+# odd depth, an odd skip index, a skip after the last layer, no view layer,
+# no view directions; and two view layers beside the odd skip.
+SPLIT_SHAPES = {
+    'depth7': dict(net_depth=7, skip_index=4),
+    'skip3': dict(net_depth=8, skip_index=3),
+    'depth4-skip1': dict(net_depth=4, skip_index=1),
+    'condition0': dict(net_depth=8, skip_index=4, net_depth_condition=0),
+    'no-viewdirs': dict(net_depth=8, skip_index=4, view_dim=0),
+    'depth5-condition2': dict(net_depth=5, skip_index=3,
+                              net_depth_condition=2),
+}
+
+
+@pytest.mark.parametrize('model_axis', [2, 4])
+@pytest.mark.parametrize('shape', list(SPLIT_SHAPES))
+def test_tp_mlp_forward_matches_the_plain_mlp(shape, model_axis):
+    """tp_mlp_forward on its plain pairs over data 8 / m x model m of the
+    single-process mesh against the single-device plain MLP
+    (models/mlp.py `_plain`) with the same seeded weights, f32: the raw
+    heads within 2e-4, every gradient (x, the view features, each
+    parameter) within rtol 1e-3 / atol 1e-4 (this file's full-width
+    tolerances)."""
+    from mipnerf_pl_tpu_torch.models.mlp import MLP
+    kw = dict(SPLIT_SHAPES[shape])
+    view_dim = kw.pop('view_dim', F_V)
+    mlp = MLP(24, view_dim, net_width=64, net_width_condition=32,
+              generator=torch.Generator().manual_seed(0), **kw)
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.normal(size=(R, N, 24)).astype(np.float32),
+                     requires_grad=True)
+    view = (torch.tensor(rng.normal(size=(R, F_V)).astype(np.float32),
+                         requires_grad=True) if view_dim else None)
+    cr = torch.tensor(rng.normal(size=(R, N, 3)).astype(np.float32))
+    cd = torch.tensor(rng.normal(size=(R, N, 1)).astype(np.float32))
+    inputs = [x] + ([view] if view_dim else [])
+    flat = tk.flatten_params(mlp, mlp.net_depth, mlp.net_depth_condition,
+                             mlp.use_viewdirs)
+
+    def grads(rgb, dens):
+        loss = (rgb.reshape(R, N, 3) * cr).sum() + \
+            (dens.reshape(R, N, 1) * cd).sum()
+        return torch.autograd.grad(loss, inputs + list(mlp.parameters()))
+
+    want_out = mlp._plain(x, view)
+    want_g = grads(*want_out)
+    got_out = ttp.tp_mlp_forward(
+        x.reshape(-1, 24), view, flat,
+        create_mesh(8, model_axis, device='cpu'), N, mlp.net_depth,
+        mlp.net_depth_condition, mlp.skip_index, torch.float32, plain=True)
+    got_g = grads(*got_out)
+    for a, b in zip(got_out, want_out):
+        np.testing.assert_allclose(a.detach().numpy().reshape(b.shape),
+                                   b.detach().numpy(), rtol=2e-4, atol=2e-4)
+    assert len(got_g) == len(want_g)
+    for i, (a, b) in enumerate(zip(got_g, want_g)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-3,
+                                   atol=1e-4, err_msg=str(i))
+
+
 @pytest.mark.parametrize('kwargs,match', [
     (dict(net_depth=7), 'tp_lean_forward needs an even net_depth'),
     (dict(skip_index=3), 'tp_lean_forward needs an even skip_index'),

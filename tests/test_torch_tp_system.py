@@ -83,14 +83,15 @@ def multiscale(tmp_path_factory):
     return out
 
 
-def _jax_run(data_path, backend, model_axis):
+def _jax_run(data_path, backend, model_axis, shape=None, jax_backend=None):
     """3 steps of the JAX system on the (8 / model_axis, model_axis) mesh
-    over its own batcher's [3, B, C] stack -> (hparams, start params, batch
-    pixels, aux, params after)."""
+    over its own batcher's [3, B, C] stack, the model's `shape` keys over
+    TINY's, on `jax_backend` where it is given -> (the port's hparams, start
+    params, batch pixels, aux, params after)."""
     from mipnerf_pl_tpu.train.system import MipNeRFSystem as JSystem
     hp = _hparams(**{'train.randomized': False, 'nerf.mlp_backend': backend,
-                     'parallel.model_axis': model_axis})
-    jsys = JSystem(hp)
+                     'parallel.model_axis': model_axis}, **(shape or {}))
+    jsys = JSystem(dict(hp, **{'nerf.mlp_backend': jax_backend or backend}))
     assert jsys.mesh.shape == {'data': 8 // model_axis, 'model': model_axis}
     jsys.setup(data_path, 'blender', prefetch=0, steps_per_call=3)
     jstate = jsys.init_state()
@@ -106,15 +107,35 @@ def _jax_run(data_path, backend, model_axis):
             _np_tree(jstate['params']))
 
 
-@pytest.mark.parametrize('model_axis', [2, 4])
-@pytest.mark.parametrize('backend', ['xla', 'pallas_lean_save'])
-def test_tp_step_matches_jax(scene, backend, model_axis):
+# The model shapes the Megatron pairs alone do not take, which the JAX
+# system trains under a model axis: an odd depth (the last layer alone), an
+# odd skip index (a skip at a pair boundary and one inside a pair), a skip
+# after the last layer, no view layer, no view directions.
+SHAPES = {'depth7': {'nerf.mlp.net_depth': 7},
+          'skip3': {'nerf.mlp.skip_index': 3},
+          'depth4-skip1': {'nerf.mlp.net_depth': 4,
+                              'nerf.mlp.skip_index': 1},
+          'condition0': {'nerf.mlp.net_depth_condition': 0},
+          'no-viewdirs': {'nerf.use_viewdirs': False}}
+
+
+@pytest.mark.parametrize('backend,model_axis,shape', [
+    pytest.param(b, m, None, id=f'{b}-{m}')
+    for b in ('xla', 'pallas_lean_save') for m in (2, 4)] + [
+    pytest.param(b, 2, name, id=f'{b}-2-{name}')
+    for name in SHAPES for b in ('xla', 'pallas_lean_save')])
+def test_tp_step_matches_jax(scene, backend, model_axis, shape):
     """3 steps at data 8 / m x model m of the single-process mesh against
     JAX's mesh of the same shape: the aux within 1e-5 relative, each
     parameter's step within 1e-3 of JAX's norm; the pairs ran through
     their wrappers on a Pallas backend (their plain versions here, on CPU
-    tensors) and the lean kernels' wrappers never."""
-    hp, start, jpixels, jaux, jafter = _jax_run(scene, backend, model_axis)
+    tensors) and the lean kernels' wrappers never.  At model 2 also each
+    shape of SHAPES; with no view layer JAX's lean kernel refuses the
+    model, so its 'xla' step (GSPMD over the plain model) is the reference
+    of both backends."""
+    jax_backend = ('xla' if shape == 'condition0' else None)
+    hp, start, jpixels, jaux, jafter = _jax_run(
+        scene, backend, model_axis, SHAPES.get(shape), jax_backend)
     d = 8 // model_axis
     with contextlib.redirect_stdout(io.StringIO()) as said:
         system = MipNeRFSystem(hp, mesh=create_mesh(8, model_axis,
@@ -248,12 +269,13 @@ def test_tp_unbounded_equals_model_1(tmp_path):
 
 @pytest.mark.parametrize('nvd', [1, 2])
 def test_model_split_rows_matches_the_gloo_test_s_table(nvd):
-    """model_split_rows, which the system's gradient sum over `model`
-    reads, against the table tests/test_torch_tp_lean.py holds two gloo
-    ranks' gradients to (`_sharding`: the rows a rank's panel splits)."""
+    """model_split_rows, which the system's panels and gradient sums read,
+    against the table tests/test_torch_tp_lean.py holds two gloo ranks'
+    gradients to (`_sharding`: the rows a rank's panel splits and the axis
+    they are split on)."""
     from test_torch_tp_lean import _flat_params, _sharding
     flat = _flat_params(np.random.default_rng(0), 24, 15, 32, 16, nvd=nvd)
-    assert model_split_rows(flat, 8, nvd) == [_sharding(i, flat)[0]
+    assert model_split_rows(flat, 8, nvd) == [_sharding(i, flat)
                                               for i in range(len(flat))]
 
 

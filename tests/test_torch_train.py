@@ -369,13 +369,24 @@ def test_system_refuses_parallel_settings_it_does_not_honour(setting,
     ({'nerf.use_viewdirs': False}, 'nerf.use_viewdirs'),
 ])
 def test_model_axis_refuses_shapes_its_split_cannot_take(setting, key):
-    """The shapes the Megatron split of tp_lean_forward cannot take raise
-    a ValueError naming the key under a model axis, and build on one
-    device."""
+    """Under a model axis the Megatron split of tp_mlp_forward takes every
+    shape the JAX system trains: an odd depth, an odd skip index, no view
+    layer and no view directions build at data 1 x model 4 and take a
+    finite step.  It refuses, as JAX's placement does, only a trunk width
+    the axis does not divide: a ValueError naming the key.  All five
+    build on one device."""
     from mipnerf_pl_tpu_torch.parallel.mesh import create_mesh
     from mipnerf_pl_tpu_torch.system import MipNeRFSystem
     hp = _hparams(**{'nerf.mlp.net_depth': 4, **setting})
-    with pytest.raises(ValueError, match=key) as err:
-        MipNeRFSystem(hp, mesh=create_mesh(4, 4, device='cpu'))
-    assert 'parallel.model_axis=4' in str(err.value)
     MipNeRFSystem(hp, device='cpu')
+    if key == 'nerf.mlp.net_width':
+        with pytest.raises(ValueError, match=key) as err:
+            MipNeRFSystem(hp, mesh=create_mesh(4, 4, device='cpu'))
+        assert 'parallel.model_axis=4' in str(err.value)
+        return
+    system = MipNeRFSystem(hp, mesh=create_mesh(4, 4, device='cpu'))
+    assert system.mesh.shape == {'data': 1, 'model': 4}
+    rays, pixels = _batch(8)
+    state, aux = system.train_step(system.init_state(seed=0), rays, pixels)
+    assert state['step'] == 1 and torch.isfinite(aux['loss'])
+    assert all(torch.isfinite(v).all() for v in state['params'].values())
