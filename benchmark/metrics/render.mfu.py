@@ -1,0 +1,8 @@
+"""% of the chip's peak that the frame's MLP FLOP (work.py) reach over the
+traced tail's wall time."""
+
+from benchmark import readers
+
+
+def read(res):
+    return readers.mfu(res)
