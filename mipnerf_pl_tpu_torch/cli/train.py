@@ -44,7 +44,11 @@ def make_parser() -> argparse.ArgumentParser:
                         type=int, default=None)
     parser.add_argument('--profile', help='Trace one warmed train dispatch '
                         'with torch.profiler into the log directory (0 = '
-                        'off).', type=int, default=0)
+                        'off).  The chrome trace carries the port\'s mip.* '
+                        'spans (their list: the docstring of '
+                        'mipnerf_pl_tpu_torch/utils/trace.py), the same '
+                        'spans whose times the profiler summary at the end '
+                        'of the run adds up.', type=int, default=0)
     parser.add_argument('--device', help='Device to train on (default: '
                         'cuda; cpu runs the kernels\' plain versions).',
                         default=None)

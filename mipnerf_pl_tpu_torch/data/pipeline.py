@@ -20,6 +20,7 @@ import torch
 
 from mipnerf_pl_tpu_torch.native import gather
 from mipnerf_pl_tpu_torch.rays import Rays
+from mipnerf_pl_tpu_torch.utils.trace import span
 
 
 class TrainBatcher:
@@ -135,15 +136,16 @@ class TrainBatcher:
                     raise RuntimeError('TrainBatcher closed') from None
 
     def __next__(self):
-        rays, pixels, copied = self._take()
-        if copied is not None:
-            # The consumer's stream waits for the copy, and the tensors,
-            # allocated on the copy stream, are marked as used on it.
-            current = torch.cuda.current_stream(self.device)
-            current.wait_event(copied)
-            for t in (*rays, pixels):
-                t.record_stream(current)
-        return rays, pixels
+        with span('mip.batch'):
+            rays, pixels, copied = self._take()
+            if copied is not None:
+                # The consumer's stream waits for the copy, and the tensors,
+                # allocated on the copy stream, are marked as used on it.
+                current = torch.cuda.current_stream(self.device)
+                current.wait_event(copied)
+                for t in (*rays, pixels):
+                    t.record_stream(current)
+            return rays, pixels
 
     def close(self):
         """Stop the producer and drop what it queued.  The wait is bounded,

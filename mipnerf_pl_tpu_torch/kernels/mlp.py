@@ -119,6 +119,7 @@ from torch.autograd.function import once_differentiable
 
 from mipnerf_pl_tpu_torch.ops.math import integrated_pos_enc
 from mipnerf_pl_tpu_torch.ops.render import composite
+from mipnerf_pl_tpu_torch.utils.trace import span
 
 # Kernel name -> number of launches (incremented only where the kernel is
 # launched; callers reset it to count one run).
@@ -1148,44 +1149,45 @@ _ENTRY = {'lean_param_grads_hybrid': 'lean_param_grads'}
 def _call(fn_name: str, device, *args):
     """Launch one kernel on the current stream of `device`; raise if the
     launch was refused (the C entry returns cudaGetLastError())."""
-    from mipnerf_pl_tpu_torch.kernels import _build
-    lib = _build.load(KERNELS[fn_name][0].rsplit('/', 1)[1][:-len('.cu')])
-    entry = _ENTRY.get(fn_name, fn_name)
-    fn = getattr(lib, entry)
-    fn.argtypes = _ARGTYPES[entry]
-    fn.restype = ctypes.c_int
-    counts = []
-    for name, table in (('lean_fwd_sm90_launches', routes),
-                        ('lean_fwd_tf32_launches', tf32_routes)):
-        if fn_name in table:
-            count = getattr(lib, name)
-            count.argtypes, count.restype = [], ctypes.c_longlong
-            counts.append((count, count(), table))
-    for entry, i, table in (
-            ('lean_chain_launches', 0, chain_routes),
-            ('lean_chain_launches', 1, chain_tf32_routes),
-            ('classic_mma_launches', 0, mma_fwd_routes),
-            ('classic_mma_launches', 1, mma_chain_routes),
-            ('classic_mma_launches', 2, mma_input_routes),
-            ('tp_pair_launches', 0, pair_sm90_routes),
-            ('tp_pair_launches', 1, pair_tf32_routes),
-            ('tp_pair_launches', 2, pair_mma_routes)):
-        if fn_name in table:
-            count = _array_count(lib, entry, i)
-            counts.append((count, count(), table))
-    for name, table in (('wgrad_tf32_launches', wgrad_tf32_routes),
-                        ('wgrad_sm90_launches', wgrad_sm90_routes)):
-        if fn_name in table:
-            count = getattr(lib, name)
-            count.argtypes, count.restype = [], ctypes.c_longlong
-            counts.append((count, count(), table))
-    with torch.cuda.device(device):       # launch on the tensors' card
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'{fn_name}: CUDA error {err} at launch')
-    for count, before, table in counts:
-        if count() > before:
-            table[fn_name] += 1
+    with span('mip.launch'):
+        from mipnerf_pl_tpu_torch.kernels import _build
+        lib = _build.load(KERNELS[fn_name][0].rsplit('/', 1)[1][:-len('.cu')])
+        entry = _ENTRY.get(fn_name, fn_name)
+        fn = getattr(lib, entry)
+        fn.argtypes = _ARGTYPES[entry]
+        fn.restype = ctypes.c_int
+        counts = []
+        for name, table in (('lean_fwd_sm90_launches', routes),
+                            ('lean_fwd_tf32_launches', tf32_routes)):
+            if fn_name in table:
+                count = getattr(lib, name)
+                count.argtypes, count.restype = [], ctypes.c_longlong
+                counts.append((count, count(), table))
+        for entry, i, table in (
+                ('lean_chain_launches', 0, chain_routes),
+                ('lean_chain_launches', 1, chain_tf32_routes),
+                ('classic_mma_launches', 0, mma_fwd_routes),
+                ('classic_mma_launches', 1, mma_chain_routes),
+                ('classic_mma_launches', 2, mma_input_routes),
+                ('tp_pair_launches', 0, pair_sm90_routes),
+                ('tp_pair_launches', 1, pair_tf32_routes),
+                ('tp_pair_launches', 2, pair_mma_routes)):
+            if fn_name in table:
+                count = _array_count(lib, entry, i)
+                counts.append((count, count(), table))
+        for name, table in (('wgrad_tf32_launches', wgrad_tf32_routes),
+                            ('wgrad_sm90_launches', wgrad_sm90_routes)):
+            if fn_name in table:
+                count = getattr(lib, name)
+                count.argtypes, count.restype = [], ctypes.c_longlong
+                counts.append((count, count(), table))
+        with torch.cuda.device(device):       # launch on the tensors' card
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f'{fn_name}: CUDA error {err} at launch')
+        for count, before, table in counts:
+            if count() > before:
+                table[fn_name] += 1
 
 
 def view_proj(view, k0, b0, net_width: int, compute_dtype):

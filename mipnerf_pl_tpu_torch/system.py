@@ -102,6 +102,7 @@ from mipnerf_pl_tpu_torch.rays import (Rays, namedtuple_map, rays_flatten,
 from mipnerf_pl_tpu_torch.train.ckpt import CheckpointManager, host_copy
 from mipnerf_pl_tpu_torch.train.opt import adam, adam_step
 from mipnerf_pl_tpu_torch.train.schedule import mip_lr_decay
+from mipnerf_pl_tpu_torch.utils.trace import PhaseTotals, collect, span
 from mipnerf_pl_tpu_torch.utils.vis import stack_rgb, visualize_depth
 
 
@@ -136,27 +137,6 @@ def make_dataset(hparams: Dict[str, Any], dataset_name: str, data_path: str,
         data_dir=data_path, split=split,
         white_bkgd=hparams[f'{prefix}.white_bkgd'],
         batch_type=hparams[f'{prefix}.batch_type'], **extra)
-
-
-class SimpleProfiler:
-    """Wall time per phase of the fit loop, printed at its end."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    def add(self, name: str, dt: float):
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> str:
-        lines = ['profiler summary (phase: total s | calls | mean ms):']
-        for name, total in sorted(self.totals.items(),
-                                  key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f'  {name:16s} {total:10.2f} | {n:6d} | '
-                         f'{total / n * 1e3:10.2f}')
-        return '\n'.join(lines)
 
 
 def _summary_writer(logdir: str):
@@ -638,10 +618,12 @@ class MipNeRFSystem:
         partials = []
         for (a, b), gen in zip(shards, gens):
             part = namedtuple_map(lambda x: x[a - base:b - base], rays)
-            loss, sums = self._shard_loss(
-                params, part, pixels[a - base:b - base], gen,
-                (a, b, n_rays), mask_sum, n_rays)
-            grads = torch.autograd.grad(loss, [params[k] for k in names])
+            with span('mip.model'):
+                loss, sums = self._shard_loss(
+                    params, part, pixels[a - base:b - base], gen,
+                    (a, b, n_rays), mask_sum, n_rays)
+            with span('mip.backward'):
+                grads = torch.autograd.grad(loss, [params[k] for k in names])
             partials.append(list(grads) + sums)
         if gens[-1] is not generator:
             generator.set_state(gens[-1].get_state())
@@ -680,8 +662,9 @@ class MipNeRFSystem:
         rays = namedtuple_map(self._on_device, rays)
         (_, aux), grads = self.value_and_grad(
             state['params'], rays, self._on_device(pixels), generator)
-        lr = adam_step(state['opt_state'], list(grads.values()),
-                       state['step'], self.lr_schedule)
+        with span('mip.adam'):
+            lr = adam_step(state['opt_state'], list(grads.values()),
+                           state['step'], self.lr_schedule)
         aux['lr'] = torch.tensor(lr)
         state['step'] += 1
         return state, aux
@@ -701,17 +684,18 @@ class MipNeRFSystem:
         IN PLACE, as train_step does."""
 
         def train_many(state, rays_stack: Rays, pixels_stack, base_seed: int):
-            rays_stack = namedtuple_map(self._on_device, rays_stack)
-            pixels_stack = self._on_device(pixels_stack)
-            auxs = []
-            for k in range(pixels_stack.shape[0]):
-                gen = self.step_generator(base_seed, state['step'])
-                state, aux = self.train_step(
-                    state, namedtuple_map(lambda x: x[k], rays_stack),
-                    pixels_stack[k], gen)
-                auxs.append(aux)
-            return state, {name: torch.stack([a[name] for a in auxs])
-                           for name in auxs[0]}
+            with span('mip.dispatch'):
+                rays_stack = namedtuple_map(self._on_device, rays_stack)
+                pixels_stack = self._on_device(pixels_stack)
+                auxs = []
+                for k in range(pixels_stack.shape[0]):
+                    gen = self.step_generator(base_seed, state['step'])
+                    state, aux = self.train_step(
+                        state, namedtuple_map(lambda x: x[k], rays_stack),
+                        pixels_stack[k], gen)
+                    auxs.append(aux)
+                return state, {name: torch.stack([a[name] for a in auxs])
+                               for name in auxs[0]}
 
         return train_many
 
@@ -725,8 +709,9 @@ class MipNeRFSystem:
     def _unpack_outputs(outs, n_valid: int, need_coarse: bool):
         names = (['coarse_rgb'] if need_coarse else []) + \
             ['fine_rgb', 'distance', 'acc']
-        return {name: o[:n_valid].cpu().numpy()
-                for name, o in zip(names, outs)}
+        with span('mip.to_host'):
+            return {name: o[:n_valid].cpu().numpy()
+                    for name, o in zip(names, outs)}
 
     @torch.no_grad()
     def _render_flat(self, params, flat: Rays, chunk: int,
@@ -751,10 +736,11 @@ class MipNeRFSystem:
             for (a, b), gen in zip(shards, gens):
                 rays = namedtuple_map(
                     lambda x: x[i * chunk + a:i * chunk + b], flat)
-                ret = functional_call(
-                    self.eval_model, params,
-                    (rays, self.val_randomized, self.white_bkgd),
-                    {'generator': gen, 'rows': (a, b, chunk)})
+                with span('mip.model'):
+                    ret = functional_call(
+                        self.eval_model, params,
+                        (rays, self.val_randomized, self.white_bkgd),
+                        {'generator': gen, 'rows': (a, b, chunk)})
                 parts.append(self._pack_outputs(ret[0], ret[-1],
                                                 need_coarse))
             if gens[-1] is not generator:
@@ -783,10 +769,11 @@ class MipNeRFSystem:
         (`fine_rgb` [h, w, 3], `distance` / `acc` [h, w], and `coarse_rgb`
         when need_coarse).  The rays are built on the system's device."""
         chunk = chunk_size or self.val_chunk_size
-        flat = rays_flatten(camera_rays(cam, h, w, device=self.device))
-        return self._to_image(
-            self._render_flat(params, flat, chunk, generator, need_coarse),
-            h, w)
+        with span('mip.frame'):
+            flat = rays_flatten(camera_rays(cam, h, w, device=self.device))
+            return self._to_image(
+                self._render_flat(params, flat, chunk, generator,
+                                  need_coarse), h, w)
 
     def render_image(self, params, rays: Rays,
                      generator: Optional[torch.Generator] = None,
@@ -796,10 +783,11 @@ class MipNeRFSystem:
         -> dict of numpy images, as render_camera."""
         chunk = chunk_size or self.val_chunk_size
         h, w = rays.origins.shape[-3:-1]
-        rays = namedtuple_map(self._on_device, rays)
-        return self._to_image(
-            self._render_flat(params, rays_flatten(rays), chunk, generator,
-                              need_coarse), h, w)
+        with span('mip.frame'):
+            rays = namedtuple_map(self._on_device, rays)
+            return self._to_image(
+                self._render_flat(params, rays_flatten(rays), chunk,
+                                  generator, need_coarse), h, w)
 
     def validate(self, state, num_images: int, writer=None,
                  global_step: int = 0, start_index: int = 0):
@@ -849,6 +837,16 @@ class MipNeRFSystem:
             writer.add_scalar('val/loss', mean_loss, global_step)
             writer.add_scalar('val/psnr', mean_psnr, global_step)
         return mean_loss, mean_psnr
+
+    @staticmethod
+    def _log_val(log_dir: str, step: int, val_loss: float, val_psnr: float):
+        """Append a validation's row to log_dir/val_history.csv."""
+        hist = os.path.join(log_dir, 'val_history.csv')
+        write_header = not os.path.exists(hist)
+        with open(hist, 'a') as f:
+            if write_header:
+                f.write('step,val_loss,val_psnr\n')
+            f.write(f'{step},{val_loss:.6f},{val_psnr:.4f}\n')
 
     def _synchronize(self):
         if self.device.type == 'cuda':
@@ -945,7 +943,9 @@ class MipNeRFSystem:
         self.validate(state, 1, writer=None, global_step=start_step)
 
         train_many = self.make_train_many()
-        prof = SimpleProfiler()
+        # fit's phases: the spans mip.batch, mip.dispatch, mip.sync,
+        # mip.validate and mip.checkpoint, summed (utils/trace.py).
+        prof = PhaseTotals()
         profile_steps = int(hp.get('profile', 0) or 0)
 
         def next_shaped(remaining):
@@ -968,81 +968,73 @@ class MipNeRFSystem:
         first_aux = aux = None
         step = start_step
         try:
-            while step < max_steps:
-                t_data = time.time()
-                rays, pixels, k = next_shaped(max_steps - step)
-                prof.add('data', time.time() - t_data)
-                t_step = time.time()
-                if profile_steps > 0 and dispatch_index == 1 and root:
-                    # The second dispatch: every kernel is built and warm.
-                    out = {}
+            with collect(prof):
+                while step < max_steps:
+                    rays, pixels, k = next_shaped(max_steps - step)
+                    if profile_steps > 0 and dispatch_index == 1 and root:
+                        # The second dispatch: every kernel is built and
+                        # warm.
+                        out = {}
 
-                    def dispatch():
-                        out['state'], out['aux'] = train_many(
-                            state, rays, pixels, base_seed)
-                    self._profiled_dispatch(dispatch, log_dir)
-                    state, aux = out['state'], out['aux']
-                    profile_steps = 0
-                else:
-                    state, aux = train_many(state, rays, pixels, base_seed)
-                first_aux = aux if first_aux is None else first_aux
-                step += k
-                rays_since_log += self.batch_size * k
-                rays_total += self.batch_size * k
-                prof.add('train_dispatch', time.time() - t_step)
-                dispatch_index += 1
+                        def dispatch():
+                            out['state'], out['aux'] = train_many(
+                                state, rays, pixels, base_seed)
+                        self._profiled_dispatch(dispatch, log_dir)
+                        state, aux = out['state'], out['aux']
+                        profile_steps = 0
+                    else:
+                        state, aux = train_many(state, rays, pixels,
+                                                base_seed)
+                    first_aux = aux if first_aux is None else first_aux
+                    step += k
+                    rays_since_log += self.batch_size * k
+                    rays_total += self.batch_size * k
+                    dispatch_index += 1
 
-                if step % log_every == 0 or step == start_step + spc:
-                    loss, psnr, lr = (float(aux[name][-1]) for name in
-                                      ('loss', 'train/psnr', 'lr'))
-                    rays_per_sec = rays_since_log / max(time.time() - t0,
-                                                        1e-9)
-                    if writer is not None:
-                        writer.add_scalar('lr', lr, step)
-                        writer.add_scalar('train/loss', loss, step)
-                        writer.add_scalar('train/psnr', psnr, step)
-                        writer.add_scalar('perf/rays_per_sec', rays_per_sec,
-                                          step)
-                    if verbose:
-                        print(f'step {step}/{max_steps} loss={loss:.5f} '
-                              f'psnr={psnr:.2f} lr={lr:.2e} '
-                              f'rays/s={rays_per_sec:,.0f}', flush=True)
-                    t0 = time.time()
-                    rays_since_log = 0
+                    if step % log_every == 0 or step == start_step + spc:
+                        loss, psnr, lr = (float(aux[name][-1]) for name in
+                                          ('loss', 'train/psnr', 'lr'))
+                        rays_per_sec = rays_since_log / max(
+                            time.time() - t0, 1e-9)
+                        if writer is not None:
+                            writer.add_scalar('lr', lr, step)
+                            writer.add_scalar('train/loss', loss, step)
+                            writer.add_scalar('train/psnr', psnr, step)
+                            writer.add_scalar('perf/rays_per_sec',
+                                              rays_per_sec, step)
+                        if verbose:
+                            print(f'step {step}/{max_steps} loss={loss:.5f} '
+                                  f'psnr={psnr:.2f} lr={lr:.2e} '
+                                  f'rays/s={rays_per_sec:,.0f}', flush=True)
+                        t0 = time.time()
+                        rays_since_log = 0
 
-                if step % val_interval == 0 or step >= max_steps:
-                    # The queued training work ends before validation's
-                    # clock starts.
-                    t_sync = time.time()
-                    self._synchronize()
-                    prof.add('train_sync', time.time() - t_sync)
-                    t_val = time.time()
-                    val_loss, val_psnr = self.validate(
-                        state, val_sample_num, writer=writer,
-                        global_step=step, start_index=val_cursor)
-                    val_cursor += val_sample_num
-                    if root:
-                        hist = os.path.join(log_dir, 'val_history.csv')
-                        write_header = not os.path.exists(hist)
-                        with open(hist, 'a') as f:
-                            if write_header:
-                                f.write('step,val_loss,val_psnr\n')
-                            f.write(f'{step},{val_loss:.6f},'
-                                    f'{val_psnr:.4f}\n')
-                    prof.add('validate', time.time() - t_val)
-                    t_ckpt = time.time()
-                    # The first process's checkpoint stands for every
-                    # process's state, in whole tensors.
-                    self.check_state(state)
-                    host = self.host_state(state)
-                    if root:
-                        ckpt.save(step, host, val_psnr=val_psnr)
-                    del host
-                    # No process goes on before the checkpoint is whole.
-                    self.mesh.barrier()
-                    prof.add('checkpoint', time.time() - t_ckpt)
-                    t0 = time.time()
-                    rays_since_log = 0
+                    if step % val_interval == 0 or step >= max_steps:
+                        # The queued training work ends before validation's
+                        # clock starts.
+                        with span('mip.sync'):
+                            self._synchronize()
+                        with span('mip.validate'):
+                            val_loss, val_psnr = self.validate(
+                                state, val_sample_num, writer=writer,
+                                global_step=step, start_index=val_cursor)
+                            val_cursor += val_sample_num
+                            if root:
+                                self._log_val(log_dir, step, val_loss,
+                                              val_psnr)
+                        with span('mip.checkpoint'):
+                            # The first process's checkpoint stands for
+                            # every process's state, in whole tensors.
+                            self.check_state(state)
+                            host = self.host_state(state)
+                            if root:
+                                ckpt.save(step, host, val_psnr=val_psnr)
+                            del host
+                            # No process goes on before the checkpoint is
+                            # whole.
+                            self.mesh.barrier()
+                        t0 = time.time()
+                        rays_since_log = 0
             self._synchronize()
         finally:
             ckpt.close()
